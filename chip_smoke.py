@@ -1,0 +1,440 @@
+"""Chip smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--sf 10] [--segments 8] [--seed 42] [--reps 5]
+                          [--out-dir DIR]
+
+Phases:
+  1. the card's name and power limit (nvidia-smi);
+  2. build the fused-scan CUDA kernel from pinot_tpu_torch/engine/csrc;
+  3. hold the kernel against its plain PyTorch version on the same card and
+     inputs: every bit width, a remainder tile, iv/ivs/not/or filters, int
+     and float expressions, an i64 column, every aggregation, 128 and 8192
+     groups (shared-memory and global accumulators), and the probe mode;
+  4. the main path: SSB at ``--sf`` in ``--segments`` segments, the 13
+     flights ``--reps`` times through ServerQueryExecutor(device="cuda"),
+     every launch counted, every answer held against the numpy oracle;
+     then the graft-entry SQL on a 5-column segment;
+  5. at the main path's shapes (segment 0, every flight and probe): the
+     kernel held against its plain version again, then timings of both
+     beside the bound, and one JSON line listing the kernels.
+The last line is {"ok": true, "device": {...}}; any failure raises and
+exits non-zero without it. Needs a CUDA card; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM HBM3 rate (NVIDIA data sheet), bytes/s
+HBM_BYTES_PER_S = 3.35e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- phase 3: kernel against plain version -----------------------------------
+
+def _synthetic_segment(n: int, seed: int):
+    """Columns with one of each packed width (1, 2, 4, 8, 16, 32 bits),
+    int/float/i64 values, and doc-correlated columns for the probe."""
+    from pinot_tpu_torch.segment import ColumnArrays, segment_from_arrays
+    from pinot_tpu_torch.spi import DataType, FieldType
+
+    rng = np.random.default_rng(seed)
+    D, M = FieldType.DIMENSION, FieldType.METRIC
+
+    def col(dt, ft, values):
+        uniq, ids = np.unique(values, return_inverse=True)
+        return ColumnArrays(dt, ft, uniq, ids.reshape(-1))
+
+    doc = np.arange(n)
+    return segment_from_arrays("synthetic_0", n, {
+        "b1": col(DataType.INT, D, rng.integers(0, 2, n)),
+        "b2": col(DataType.INT, D, rng.integers(0, 3, n)),
+        "b4": col(DataType.STRING, D,
+                  np.array([f"k{i:02d}" for i in range(11)])[
+                      rng.integers(0, 11, n)]),
+        "b8": col(DataType.INT, D, rng.integers(0, 200, n)),
+        "b16": col(DataType.INT, D, doc // 41),
+        "b32": col(DataType.INT, D, doc // 3),
+        "qty": col(DataType.INT, M, rng.integers(-500, 1000, n)),
+        "price": col(DataType.DOUBLE, M,
+                     np.round(rng.normal(80.0, 30.0, n), 2)),
+        "big": col(DataType.LONG, M,
+                   rng.integers(0, 1 << 40, n) - (1 << 39)),
+    }, table_name="t")
+
+
+def _kernel_cases():
+    scattered = ", ".join(str(v) for v in range(100, 60000, 2500))
+    return [
+        ("scalar iv/not, every aggregation",
+         "SELECT count(*), sum(qty), avg(price), min(price), max(qty), "
+         "minmaxrange(qty) FROM t WHERE b1 = 1 AND b2 != 0"),
+        ("or, int and float expressions, 128 groups",
+         "SELECT b4, sum(qty * 3), sum(price * 2.5), sum(qty - 7), count(*) "
+         "FROM t WHERE b8 BETWEEN 10 AND 150 OR b16 < 100 GROUP BY b4"),
+        ("ivs (24 runs), i64 column",
+         f"SELECT b8, sum(big), avg(big) FROM t WHERE b32 IN ({scattered}) "
+         "GROUP BY b8"),
+        ("8192 groups, shared-memory accumulators",
+         "SELECT b16, sum(qty), count(*), min(price) FROM t "
+         "WHERE b32 > 1000 GROUP BY b16"),
+        ("8192 groups, global accumulators",
+         "SELECT b16, sum(qty), sum(price), sum(big), min(qty), max(price) "
+         "FROM t WHERE NOT b2 IN (1) GROUP BY b16"),
+        ("probe narrowing",
+         "SELECT b16, b4, sum(qty), count(*) FROM t WHERE b32 < 2000 "
+         "GROUP BY b16, b4"),
+    ]
+
+
+def _scan_args(staged, sql) -> dict:
+    """{kernel name: (program, packed words, values)} of ``sql`` over one
+    staged segment, built by the executor's own ``scan_inputs``; the probe
+    entry is there when the query probes first."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.engine.plan import plan_segment
+    from pinot_tpu_torch.query import compile_query
+
+    plan = plan_segment(compile_query(sql + " LIMIT 100000"), staged.segment)
+    reasons = []
+    inp = fs.scan_inputs(plan, staged, on_decline=reasons.append)
+    if inp is None:
+        raise AssertionError(f"{sql}: declined {reasons}")
+    args = {"fused_scan": (inp.prog, inp.words, inp.values)}
+    if inp.probe is not None:
+        args["fused_scan_probe"] = (*inp.probe, [])
+    return args
+
+
+def _kernel_vs_plain(args: dict, num_docs: int, what: str, errs: dict
+                     ) -> None:
+    """Run each program once through the kernel and once through its plain
+    version; fold the largest float difference into ``errs``."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+
+    for kind, a in args.items():
+        kern = fs.fused_scan(*a, num_docs)
+        plain = fs.fused_scan_plain(*a, num_docs)
+        errs[kind] = max(errs[kind], _compare(kern, plain, f"{what} ({kind})"))
+
+
+def _compare(kern, plain, what: str) -> float:
+    """Exact for counts, int sums and min/max; floats within rel 1e-9 (both
+    sides sum in f64, only the order of the atomics differs)."""
+    import torch
+
+    for name in ("cnt", "isum", "matched", "mm"):
+        a, b = getattr(kern, name), getattr(plain, name)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs\n{a}\n{b}")
+    err = 0.0
+    if plain.fsum.numel():
+        diff = (kern.fsum - plain.fsum).abs()
+        tol = 1e-9 * plain.fsum.abs() + 1e-9
+        if bool((diff > tol).any()):
+            raise AssertionError(f"{what}: fsum beyond rel 1e-9, max diff "
+                                 f"{float(diff.max())}")
+        err = float(diff.max())
+    return err
+
+
+def phase_kernels(n: int = 200_123, seed: int = 7) -> dict:
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.engine.staging import StagedSegment
+
+    seg = _synthetic_segment(n, seed)
+    staged = StagedSegment(seg, device="cuda")
+    bits_seen = set()
+    errs = {"fused_scan": 0.0, "fused_scan_probe": 0.0}
+    probed = False
+    for what, sql in _kernel_cases():
+        args = _scan_args(staged, sql)
+        prog = args["fused_scan"][0]
+        bits_seen.update(prog.bits)
+        probed |= "fused_scan_probe" in args
+        _kernel_vs_plain(args, seg.num_docs, what, errs)
+        log(f"  kernel == plain: {what} (G={prog.G}, bits={prog.bits})")
+    missing = {1, 2, 4, 8, 16, 32} - bits_seen
+    if missing:
+        raise AssertionError(f"bit widths not covered: {sorted(missing)}")
+    if not probed:
+        raise AssertionError("no case ran the probe mode")
+    if seg.num_docs % fs.TILE == 0:
+        raise AssertionError("the synthetic segment must end in a "
+                             "remainder tile")
+    return errs
+
+
+# -- phase 4: main path --------------------------------------------------------
+
+def _check_flight(qid: str, table, want) -> None:
+    if isinstance(want, int):
+        got = table.rows[0][0]
+        if got != float(want):
+            raise AssertionError(f"{qid}: {got!r} != {want}")
+        return
+    got = {tuple(r[:-1]): r[-1] for r in table.rows}
+    if set(got) != set(want):
+        raise AssertionError(f"{qid}: group sets differ: "
+                             f"{len(got)} vs {len(want)} groups")
+    bad = [k for k, v in want.items() if got[k] != float(v)]
+    if bad:
+        raise AssertionError(f"{qid}: {len(bad)} sums differ, e.g. {bad[0]}: "
+                             f"{got[bad[0]]!r} != {want[bad[0]]}")
+
+
+def _graft_entry_check() -> None:
+    """The graft-entry SQL on a port-built 5-column segment, against a
+    numpy answer over the same frame."""
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.segment import SegmentBuilder
+    from pinot_tpu_torch.spi import DataType, FieldSpec, FieldType, Schema
+
+    rng = np.random.default_rng(7)
+    n = 2048
+    frame = {
+        "region": np.array(["east", "west", "north", "south"])[
+            rng.integers(0, 4, n)],
+        "kind": np.array(["a", "b", "c"])[rng.integers(0, 3, n)],
+        "year": rng.integers(2015, 2024, n),
+        "qty": rng.integers(1, 50, n),
+        "price": np.round(rng.normal(100.0, 25.0, n), 2),
+    }
+    schema = Schema("sales", [
+        FieldSpec("region", DataType.STRING), FieldSpec("kind", DataType.STRING),
+        FieldSpec("year", DataType.INT),
+        FieldSpec("qty", DataType.LONG, FieldType.METRIC),
+        FieldSpec("price", DataType.DOUBLE, FieldType.METRIC)])
+    seg = SegmentBuilder(schema, "sales_0").build(frame)
+    sql = ("SELECT region, sum(qty), count(*), avg(price) FROM sales "
+           "WHERE year BETWEEN 2017 AND 2022 AND kind != 'c' "
+           "GROUP BY region ORDER BY region")
+    table, _ = ServerQueryExecutor(device="cuda").execute(
+        compile_query(sql), [seg])
+    m = (frame["year"] >= 2017) & (frame["year"] <= 2022) & (frame["kind"] != "c")
+    # float columns are staged as f32 (as the JAX package stages them)
+    price = frame["price"].astype(np.float32).astype(np.float64)
+    want = []
+    for r in sorted(set(frame["region"][m].tolist())):
+        g = m & (frame["region"] == r)
+        want.append([r, float(frame["qty"][g].sum()), int(g.sum()),
+                     float(price[g].sum() / g.sum())])
+    if len(table.rows) != len(want):
+        raise AssertionError(f"graft SQL: {table.rows} vs {want}")
+    for got, exp in zip(table.rows, want):
+        if got[:3] != exp[:3] or abs(got[3] - exp[3]) > 1e-9 * abs(exp[3]):
+            raise AssertionError(f"graft SQL row {got} != {exp}")
+    log(f"  graft-entry SQL: {len(table.rows)} rows match numpy")
+
+
+def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
+    import torch
+
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor, scan_counters
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import ssb
+
+    t0 = time.perf_counter()
+    segs, frames = ssb.build_segments(sf, num_segments=segments, seed=seed)
+    rows = sum(s.num_docs for s in segs)
+    log(f"  generate SSB SF{sf}: {rows} rows in {len(segs)} segments, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    wants = {qid: ssb.merge_answers([ssb.numpy_answer(f, qid) for f in frames])
+             for qid in ssb.QUERIES}
+    log(f"  numpy oracle, 13 flights: {time.perf_counter() - t0:.1f} s")
+    del frames
+
+    ctxs = {qid: compile_query(q + " LIMIT 100000")
+            for qid, q in ssb.QUERIES.items()}
+    ex = ServerQueryExecutor(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for ctx in ctxs.values():   # untimed pass: stages what the flights read
+        ex.execute(ctx, segs)
+    torch.cuda.synchronize()
+    resident = sum(ex.stage(s).nbytes() for s in segs)
+    log(f"  stage on cuda + one untimed pass: {resident} bytes resident "
+        f"({resident / rows:.2f} B/row), {time.perf_counter() - t0:.1f} s")
+
+    counters = scan_counters()
+    for c in counters.values():
+        c.reset()
+    lat = {qid: [] for qid in ctxs}
+    results = {}
+    for _ in range(reps):
+        for qid, ctx in ctxs.items():
+            t0 = time.perf_counter()
+            table, stats = ex.execute(ctx, segs)
+            torch.cuda.synchronize()
+            lat[qid].append((time.perf_counter() - t0) * 1e3)
+            results[qid] = table
+    launches = {name: c.launches for name, c in counters.items()}
+    expect_scan = len(segs) * len(ctxs) * reps
+    expect_probe = len(segs) * 2 * reps          # Q3.2 and Q4.3
+    if (launches["fused_scan"] != expect_scan
+            or launches["fused_scan_probe"] != expect_probe):
+        raise AssertionError(f"launch counts {launches} != scan "
+                             f"{expect_scan}, probe {expect_probe}")
+    log(f"  launches on the main path: {launches} (expected scan "
+        f"{expect_scan}, probe {expect_probe}); 0 declines")
+    for qid, table in results.items():
+        _check_flight(qid, table, wants[qid])
+    log("  13 flights == numpy oracle (group sets and int sums exact)")
+    per_flight = {}
+    for qid, ms in lat.items():
+        p50 = float(np.percentile(ms, 50))
+        p99 = float(np.percentile(ms, 99))
+        per_flight[qid] = {"p50_ms": p50, "p99_ms": p99,
+                           "rows_per_s": rows / (p50 / 1e3)}
+        log(f"  {qid}: p50 {p50:.3f} ms  p99 {p99:.3f} ms  "
+            f"{rows / (p50 / 1e3):.4g} rows/s")
+    log(f"  torch.cuda.max_memory_allocated: "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    _graft_entry_check()
+    return {"segs": segs, "ex": ex, "launches": launches,
+            "per_flight": per_flight, "rows": rows}
+
+
+# -- phase 5: kernel timings at the main path's shapes ------------------------
+
+def _time_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def _bytes_of(prog, words, values) -> int:
+    outs = prog.G * (8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm) + 8
+    return (sum(w.numel() * 4 for w in words)
+            + sum(v.numel() * v.element_size() for v in values) + outs)
+
+
+def phase_timing(main: dict, errs: dict, iters: int = 20) -> dict:
+    """Each flight's scan (and probe) on segment 0: held against the plain
+    version at these shapes (folded into ``errs``), then timed."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.tools import ssb
+
+    seg = main["segs"][0]
+    staged = main["ex"].stage(seg)
+    rows = []
+    for qid, q in ssb.QUERIES.items():
+        scan_args = _scan_args(staged, q)
+        _kernel_vs_plain(scan_args, seg.num_docs, qid, errs)
+        for kind, args in scan_args.items():
+            nbytes = _bytes_of(*args)
+            k_ms = _time_ms(lambda: fs.fused_scan(*args, seg.num_docs), iters)
+            p_ms = _time_ms(lambda: fs.fused_scan_plain(*args, seg.num_docs),
+                            3)
+            rows.append({"flight": qid, "kernel": kind, "docs": seg.num_docs,
+                         "groups": args[0].G, "bytes": nbytes, "ms": k_ms,
+                         "plain_ms": p_ms,
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+            log(f"  {qid} {kind}: {k_ms:.4f} ms/launch (bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {nbytes} B), "
+                f"plain {p_ms:.3f} ms")
+    return {"rows": rows}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sf", type=float, default=10)
+    ap.add_argument("--segments", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--out-dir", default=None,
+                    help="also write the full report as chip_smoke.json here")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    from pinot_tpu_torch.engine import _build
+
+    t_all = time.perf_counter()
+    log("phase 1: card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}")
+
+    log("phase 2: build")
+    t0 = time.perf_counter()
+    _build.load_library("fused_scan")
+    log(f"  fused_scan built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in _build.BUILD_LOGS.get("fused_scan", ("", ""))[1].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    log("phase 3: kernel against plain version")
+    t0 = time.perf_counter()
+    errs = phase_kernels()
+    log(f"  all cases agree ({time.perf_counter() - t0:.1f} s)")
+
+    log("phase 4: main path")
+    t0 = time.perf_counter()
+    main_run = phase_main(args.sf, args.segments, args.seed, args.reps)
+    log(f"  main path phase: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 5: kernel against plain version and timings at the main "
+        "path's shapes (segment 0)")
+    timing = phase_timing(main_run, errs)
+    kernels = []
+    for name, replaces in (
+            ("fused_scan", "pinot_tpu/engine/pallas_kernels.py:603"),
+            ("fused_scan_probe", "pinot_tpu/engine/pallas_kernels.py:456")):
+        rs = [r for r in timing["rows"] if r["kernel"] == name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pinot_tpu_torch/engine/csrc/fused_scan.cu",
+            "replaces": replaces,
+            "launches": main_run["launches"][name],
+            "max_abs_err": errs[name],
+            "ms": float(np.mean([r["ms"] for r in rs])),
+            "plain_ms": float(np.mean([r["plain_ms"] for r in rs])),
+            "bound_ms": float(np.mean([r["bound_ms"] for r in rs])),
+            "bound_by": "bytes", "library_ms": None})
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
+            json.dump({"card": smi, "args": vars(args),
+                       "per_flight": main_run["per_flight"],
+                       "kernel_timing": timing["rows"], "kernels": kernels,
+                       "seconds": time.perf_counter() - t_all}, f, indent=1)
+    log(f"  total {time.perf_counter() - t_all:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

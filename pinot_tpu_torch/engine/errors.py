@@ -1,0 +1,80 @@
+"""Engine errors and decline reason codes.
+
+``classify_decline`` maps a decline message to the same snake_case reason
+code the JAX package records (``pinot_tpu/common/tracing.py``), restricted
+to the messages this port can raise.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Optional, Tuple
+
+
+class QueryError(Exception):
+    """A query that is wrong for the table (unknown column, bad literal)."""
+
+
+class UnsupportedQueryError(QueryError):
+    """A valid query shape this engine does not execute."""
+
+
+_DECLINE_RULES: Tuple[Tuple[str, str], ...] = (
+    ("group key space", "group_space_over_limit"),
+    ("not device-supported", "agg_not_device_supported"),
+    ("DISTINCTCOUNT argument", "distinctcount_arg_not_column"),
+    ("DISTINCTCOUNT cardinality", "distinctcount_cardinality_over_limit"),
+    ("group-by on virtual column", "group_virtual_column"),
+    ("group-by expression", "group_expression_unbounded"),
+    ("expression predicate", "expression_predicate"),
+    ("virtual column predicate", "virtual_column_predicate"),
+    ("predicate", "predicate_unsupported"),
+    ("non-numeric literal", "value_literal_non_numeric"),
+    ("virtual column in value", "value_virtual_column"),
+    ("in value expression", "value_column_not_numeric_sv"),
+    ("transform", "transform_unsupported"),
+    ("cannot compile value", "value_expression_uncompilable"),
+    # fused-scan eligibility (engine/fused_scan.py _Ineligible messages)
+    ("unpackable column", "pallas_unpackable_column"),
+    ("lut with too many runs", "pallas_lut_too_many_runs"),
+    ("raw group key", "pallas_raw_group_key"),
+    ("non-numeric/MV agg value column", "pallas_value_not_numeric_sv"),
+    ("no stats for int value bound", "pallas_no_int_stats"),
+    ("i64 sum bound over i64", "pallas_i64_sum_bound_over_i64"),
+    ("i64 column in float expression", "pallas_i64_in_float_expr"),
+    ("missing agg value", "pallas_missing_agg_value"),
+    ("int expr bound exceeds i32", "pallas_expression_bound_over_i32"),
+    ("agg value", "pallas_agg_value_op_unsupported"),
+    ("mv aggregation", "pallas_mv_aggregation"),
+    ("int min/max not f32-exact", "pallas_minmax_not_f32_exact"),
+)
+
+_SANITIZE = re.compile(r"[^a-z0-9]+")
+_DIGITS = re.compile(r"\d+")
+
+
+def classify_decline(message: str) -> str:
+    for needle, code in _DECLINE_RULES:
+        if needle in message:
+            return code
+    code = _SANITIZE.sub("_", _DIGITS.sub("", message).lower()).strip("_")
+    return code[:64] if code else "unknown"
+
+
+class PlanError(UnsupportedQueryError):
+    """A query shape the device plan does not cover; carries the reason
+    code of the JAX package's ``PlanError`` for the same message."""
+
+    def __init__(self, message: str, reason: Optional[str] = None):
+        super().__init__(message)
+        self.reason_code = reason or classify_decline(message)
+
+
+class NotPortedError(UnsupportedQueryError):
+    """A plan the fused scan declines. The JAX package would serve it on a
+    jnp rung that is not ported yet; this port never falls back to the host
+    silently, it raises with the decline's reason code."""
+
+    def __init__(self, reason_code: str, detail: str = ""):
+        super().__init__(f"{reason_code}: {detail}" if detail else reason_code)
+        self.reason_code = reason_code

@@ -1,0 +1,971 @@
+"""Fused scan: bit-unpack -> filter -> group keys -> aggregate, in one pass.
+
+Counterpart of ``pinot_tpu/engine/pallas_kernels.py``. The eligibility
+rules (``extract_plan``), the group-range probe (``probe_plan_of``,
+``decode_probe_ranges``, ``probe_narrowed_plan``) and the per-segment runner
+(``scan_inputs``, ``run_segment``) follow the JAX package, with the same decline reason
+codes. The TPU kernel (``build_kernel``, specialised per plan by tracing)
+becomes one hand-written CUDA kernel (``csrc/fused_scan.cu``) that serves
+every plan: the host compiles the plan into a small postfix program
+(``compile_program``) which the kernel interprets per doc.
+
+Exactness on the card: integer sums accumulate in i64, float sums in f64,
+min/max in f32, counts in i64. The JAX package reaches the same integer
+results through 12-bit limbs and float sums through Neumaier f32 pairs,
+which the TPU needs and this card does not.
+
+``fused_scan`` is the wrapper: CUDA tensors launch the kernel, CPU tensors
+run ``fused_scan_plain``, the same function in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pinot_tpu_torch.engine.errors import classify_decline
+from pinot_tpu_torch.engine.staging import TILE, StagedSegment, staged_int_dtype
+
+# group-dimension padding of the JAX kernel's one-hot chunks
+G_CHUNK = 128
+# most (padded) groups the fused scan serves; larger key spaces go through
+# the group-range probe first
+MAX_SCAN_GROUPS = 8192
+# 12-bit value limbs of the JAX kernel's exact int sums: the limb count is
+# part of the plan the eligibility rules produce (this kernel sums in i64)
+LIMB_BITS = 12
+_F32_EXACT = 1 << 24
+_I32_MAX = (1 << 31) - 1
+# i64 sums must stay inside i64 for exact reassembly (common/bounds.py)
+I64_FOLD_BOUND = 1 << 62
+# LUT predicates: up to this many dictId runs become static OR-of-interval
+# leaves; more ride one padded interval-set ("ivs") node up to the run cap
+_MAX_LUT_RUNS = 8
+DEFAULT_LUT_RUN_CAP = 64
+
+
+class _Ineligible(Exception):
+    pass
+
+
+def _lut_runs(lut: np.ndarray, cap: int) -> Optional[List[Tuple[int, int]]]:
+    """Boolean LUT -> inclusive dictId runs, or None past ``cap`` runs."""
+    idx = np.nonzero(np.asarray(lut, dtype=bool))[0]
+    if idx.size == 0:
+        return []
+    breaks = np.nonzero(np.diff(idx) > 1)[0]
+    if breaks.size + 1 > cap:
+        return None
+    runs = []
+    start = 0
+    for b in list(breaks) + [idx.size - 1]:
+        runs.append((int(idx[start]), int(idx[b])))
+        start = b + 1
+    return runs
+
+
+def _limbs_for(max_abs: int) -> int:
+    return max(1, -(-max(max_abs.bit_length(), 1) // LIMB_BITS))
+
+
+@dataclass
+class ScanPlan:
+    """Staging-independent extraction of a SegmentPlan (the JAX package's
+    ``PallasPlan``, field for field)."""
+
+    packed_names: List[str]
+    value_names: List[str]
+    value_is_int: Tuple[bool, ...]
+    filter_tree: Tuple
+    n_slots: int
+    group_idx: Tuple[int, ...]
+    group_strides: Tuple[int, ...]
+    group_key_offset: int
+    num_groups_padded: int
+    aggs: Tuple[Tuple[str, Optional[Tuple], Optional[int]], ...]
+    static_params: np.ndarray             # [2 * n_slots] i32 interval bounds
+    value_limbs: Tuple[int, ...] = ()
+
+
+class _ParamCursor:
+    """Walks the plan params in the order the planner wrote them."""
+
+    def __init__(self, params):
+        self.params = params
+        self.i = 0
+
+    def take(self):
+        p = self.params[self.i]
+        self.i += 1
+        return p
+
+    def finish(self):
+        if self.i != len(self.params):
+            raise AssertionError(
+                f"param cursor finished at {self.i} of {len(self.params)} "
+                "params: pack/unpack drift between the planner and the scan")
+
+
+def extract_plan(plan, provider, on_decline=None,
+                 lut_run_cap: int = DEFAULT_LUT_RUN_CAP,
+                 unchecked_groups: bool = False) -> Optional[ScanPlan]:
+    """SegmentPlan -> ScanPlan, or None when the fused scan does not cover
+    the shape (``on_decline`` receives the reason code).
+    ``unchecked_groups`` skips the group bound: the probe path extracts the
+    full plan first and re-extracts against the narrowed plan."""
+
+    def decline(reason: str) -> None:
+        if on_decline is not None:
+            on_decline(reason)
+
+    filter_spec, agg_specs, group_specs, num_groups, _ = plan.spec
+    if group_specs and num_groups > MAX_SCAN_GROUPS and not unchecked_groups:
+        decline("pallas_too_many_groups")
+        return None
+    if any(a[0] in ("distinctcount", "distinctcounthll") for a in agg_specs):
+        decline("pallas_distinct_agg")
+        return None
+    if provider.metadata.num_docs > _I32_MAX:
+        decline("pallas_docs_over_i32")
+        return None
+
+    try:
+        packed_names: List[str] = []
+
+        def packed_idx(col: str) -> int:
+            cm = provider.metadata.column(col)
+            if not (cm.has_dictionary and cm.single_value):
+                raise _Ineligible("unpackable column")
+            if col not in packed_names:
+                packed_names.append(col)
+            return packed_names.index(col)
+
+        pc = _ParamCursor(plan.params)
+        intervals: List[Tuple[int, int]] = []
+
+        def iv_leaf(col: str, lo: int, hi: int) -> Tuple:
+            slot = len(intervals)
+            intervals.append((lo, hi))
+            return ("iv", packed_idx(col), slot)
+
+        def walk(node) -> Tuple:
+            op = node[0]
+            if op == "true":
+                return ("true",)
+            if op in ("and", "or"):
+                return (op, tuple(walk(c) for c in node[1]))
+            if op == "not":
+                return ("not", (walk(node[1][0]),))
+            if op in ("eq", "neq"):
+                did = int(pc.take())
+                leaf = iv_leaf(node[1], did, did)
+                return ("not", (leaf,)) if op == "neq" else leaf
+            if op == "range":
+                iv = np.asarray(pc.take())
+                return iv_leaf(node[1], int(iv[0]), int(iv[1]))
+            if op == "lut":
+                lut = np.asarray(pc.take())
+                runs = _lut_runs(lut, max(_MAX_LUT_RUNS, lut_run_cap))
+                if runs is None:
+                    raise _Ineligible("lut with too many runs")
+                if not runs:
+                    return ("not", (("true",),))
+                if len(runs) <= _MAX_LUT_RUNS:
+                    leaves = tuple(iv_leaf(node[1], lo, hi) for lo, hi in runs)
+                    return leaves[0] if len(leaves) == 1 else ("or", leaves)
+                pi = packed_idx(node[1])
+                n_pad = 1 << (len(runs) - 1).bit_length()
+                slot0 = len(intervals)
+                intervals.extend(runs)
+                intervals.extend([(1, 0)] * (n_pad - len(runs)))  # empty pads
+                return ("ivs", pi, slot0, n_pad)
+            raise _Ineligible(op)
+
+        tree = walk(filter_spec)
+
+        group_idx: List[int] = []
+        strides: List[int] = []
+        key_offset = 0
+        if group_specs:
+            for strat, col in group_specs:
+                if strat != "gdict":
+                    raise _Ineligible("raw group key")
+                group_idx.append(packed_idx(col))
+            strides = [int(s) for s in np.asarray(pc.take())]
+            bases = [int(b) for b in np.asarray(pc.take())]
+            key_offset = sum(b * s for b, s in zip(bases, strides))
+            G = -(-num_groups // G_CHUNK) * G_CHUNK
+        else:
+            G = G_CHUNK  # single group at key 0
+
+        value_names: List[str] = []
+        value_is_int: List[bool] = []
+        value_limbs: List[int] = []
+
+        def leaf_idx(name: str):
+            cm = provider.metadata.column(name)
+            if not (cm.single_value and cm.data_type.is_numeric):
+                raise _Ineligible("non-numeric/MV agg value column")
+            is_int = cm.data_type.is_integral
+            max_abs: Optional[int] = None
+            limbs = 0
+            if is_int:
+                if cm.min_value is None or cm.max_value is None:
+                    raise _Ineligible("no stats for int value bound")
+                max_abs = max(abs(int(cm.min_value)), abs(int(cm.max_value)))
+                if staged_int_dtype(cm) != np.dtype(np.int32):
+                    if max_abs * max(1, provider.metadata.num_docs) \
+                            >= I64_FOLD_BOUND:
+                        raise _Ineligible("i64 sum bound over i64")
+                    limbs = _limbs_for(max_abs)
+            if name not in value_names:
+                value_names.append(name)
+                value_is_int.append(is_int)
+                value_limbs.append(limbs)
+            vi = value_names.index(name)
+            return (("v64", vi) if limbs else ("v", vi)), is_int, max_abs
+
+        def compile_vexpr(vspec):
+            if vspec is None:
+                raise _Ineligible("missing agg value")
+            if vspec[0] == "col":
+                return leaf_idx(vspec[1])
+            if vspec[0] == "lit":
+                v = float(np.asarray(pc.take()))
+                if v.is_integer() and abs(v) <= _I32_MAX:
+                    return ("litc", int(v)), True, abs(int(v))
+                return ("litf", v), False, None
+            if (vspec[0] == "fn" and vspec[1] in ("times", "plus", "minus")
+                    and len(vspec[2]) == 2):
+                le, li, lm = compile_vexpr(vspec[2][0])
+                re_, ri, rm = compile_vexpr(vspec[2][1])
+                if li and ri:
+                    max_abs = lm * rm if vspec[1] == "times" else lm + rm
+                    if max_abs > _I32_MAX:
+                        raise _Ineligible("int expr bound exceeds i32")
+                    return (vspec[1], le, re_), True, max_abs
+                if _has_v64(le) or _has_v64(re_):
+                    raise _Ineligible("i64 column in float expression")
+                return (vspec[1], le, re_), False, None
+            raise _Ineligible(f"agg value {vspec[0]!r}")
+
+        aggs: List[Tuple[str, Optional[Tuple], Optional[int]]] = []
+        for aspec in agg_specs:
+            base, mv, vspec = aspec[0], aspec[1], aspec[2]
+            if mv:
+                raise _Ineligible("mv aggregation")
+            if base == "count":
+                aggs.append(("count", None, None))
+                continue
+            if base not in ("sum", "avg", "min", "max", "minmaxrange"):
+                raise _Ineligible(base)
+            vexpr, is_int, max_abs = compile_vexpr(vspec)
+            if base in ("sum", "avg"):
+                aggs.append((base, vexpr,
+                             _limbs_for(max_abs) if is_int else None))
+            else:
+                # min/max rows are f32: ints past 2^24 would round
+                if is_int and max_abs >= _F32_EXACT:
+                    raise _Ineligible("int min/max not f32-exact")
+                aggs.append((base, vexpr, None))
+        pc.finish()
+    except _Ineligible as e:
+        reason = classify_decline(str(e))
+        if not reason.startswith("pallas_"):
+            reason = f"pallas_{reason}"
+        decline(reason)
+        return None
+
+    params = np.asarray([v for lo, hi in intervals for v in (lo, hi)],
+                        dtype=np.int32).reshape(-1)
+    return ScanPlan(
+        packed_names=packed_names, value_names=value_names,
+        value_is_int=tuple(value_is_int), filter_tree=tree,
+        n_slots=len(intervals), group_idx=tuple(group_idx),
+        group_strides=tuple(strides), group_key_offset=key_offset,
+        num_groups_padded=G, aggs=tuple(aggs), static_params=params,
+        value_limbs=tuple(value_limbs))
+
+
+def _has_v64(vexpr: Tuple) -> bool:
+    if vexpr[0] == "v64":
+        return True
+    if vexpr[0] in ("v", "litc", "litf", "id"):
+        return False
+    return _has_v64(vexpr[1]) or _has_v64(vexpr[2])
+
+
+# --------------------------------------------------------------------------
+# group-range probe: the same scan with masked min/max of each group
+# column's dictId, so the host can narrow large-but-sparse key spaces
+# (SSB Q3.2/Q4.3) under MAX_SCAN_GROUPS before the real scan
+# --------------------------------------------------------------------------
+
+def probe_plan_of(pp: ScanPlan) -> ScanPlan:
+    aggs: List[Tuple[str, Optional[Tuple], Optional[int]]] = []
+    for gi in pp.group_idx:
+        aggs.append(("min", ("id", gi), None))
+        aggs.append(("max", ("id", gi), None))
+    return ScanPlan(
+        packed_names=list(pp.packed_names), value_names=[], value_is_int=(),
+        filter_tree=pp.filter_tree, n_slots=pp.n_slots, group_idx=(),
+        group_strides=(), group_key_offset=0, num_groups_padded=G_CHUNK,
+        aggs=tuple(aggs), static_params=pp.static_params, value_limbs=())
+
+
+def decode_probe_ranges(pp: ScanPlan, out_mm: np.ndarray,
+                        n_cols: int) -> List[Tuple[int, int]]:
+    """Probe output rows -> per-group-column inclusive observed dictId
+    ranges; a column no matched row touched collapses to (0, 0)."""
+    _, _, mm_row = _row_layout(pp.aggs)
+    mm = np.asarray(out_mm)
+    ranges: List[Tuple[int, int]] = []
+    for i in range(n_cols):
+        vexpr = pp.aggs[2 * i][1]
+        lo = float(mm[mm_row[(vexpr, "min")], 0])
+        hi = float(mm[mm_row[(vexpr, "max")], 0])
+        if not (np.isfinite(lo) and np.isfinite(hi)) or lo > hi:
+            ranges.append((0, 0))
+        else:
+            ranges.append((int(lo), int(hi)))
+    return ranges
+
+
+def probe_narrowed_plan(plan, provider, run_probe, decline
+                        ) -> Optional[Tuple[ScanPlan, object]]:
+    """Full unchecked extraction -> probe scan (``run_probe(probe_pp)``
+    returns its min/max rows) -> narrowed plan -> re-extraction. Returns
+    (ScanPlan, effective plan) or None with the reason on ``decline``."""
+    from pinot_tpu_torch.engine.plan import narrow_plan_groups
+
+    pp_full = extract_plan(plan, provider, on_decline=decline,
+                           unchecked_groups=True)
+    if pp_full is None:
+        return None
+    for card in plan.group_cards:
+        if card >= _F32_EXACT:   # dictIds past 2^24 would round in f32
+            decline("pallas_too_many_groups")
+            return None
+    probe_pp = probe_plan_of(pp_full)
+    ranges = decode_probe_ranges(probe_pp, run_probe(probe_pp),
+                                 len(plan.group_cards))
+    eff = narrow_plan_groups(plan, ranges)
+    if eff.num_groups > MAX_SCAN_GROUPS:
+        decline("pallas_too_many_groups")
+        return None
+    pp = extract_plan(eff, provider, on_decline=decline)
+    if pp is None:
+        return None
+    return pp, eff
+
+
+class _DeferredDecline:
+    """Holds extract declines so the probe path can retry on the group
+    bound alone; ``flush`` forwards them when no retry happens."""
+
+    def __init__(self, on_decline):
+        self.on_decline = on_decline
+        self.reasons: List[str] = []
+
+    def __call__(self, reason: str) -> None:
+        self.reasons.append(reason)
+
+    @property
+    def only_group_bound(self) -> bool:
+        return self.reasons == ["pallas_too_many_groups"]
+
+    def flush(self) -> None:
+        if self.on_decline is not None:
+            for r in self.reasons:
+                self.on_decline(r)
+
+
+# --------------------------------------------------------------------------
+# plan -> scan program (the kernel's input; csrc/fused_scan.cu reads it)
+# --------------------------------------------------------------------------
+
+# filter ops, 4 ints each: (op, a, b, c)
+F_TRUE, F_IV, F_IVS, F_AND, F_OR, F_NOT = range(6)
+# value ops, 4 ints each: (op, a, b, is_float)
+V_COL, V_ID, V_LITC, V_LITF, V_TIMES, V_PLUS, V_MINUS = range(7)
+_V_BINARY = {"times": V_TIMES, "plus": V_PLUS, "minus": V_MINUS}
+# accumulator rows, 3 ints each: (kind, expr, out row); the count row is
+# implicit
+R_ISUM, R_FSUM, R_MIN, R_MAX = 1, 2, 3, 4
+# value column element types
+T_F32, T_I32, T_I64 = 0, 1, 2
+_TORCH_VTYPE = {torch.float32: T_F32, torch.int32: T_I32, torch.int64: T_I64}
+
+# limits the kernel is compiled with (csrc/fused_scan.cu)
+MAX_COLS = 16
+MAX_FILTER_STACK = 32
+MAX_VALUE_STACK = 8
+MAX_ROWS = 16
+
+
+def _row_layout(aggs):
+    """Output rows of a plan's aggregations, shared by every reader:
+    int sums and float sums one row per distinct expression, min/max one
+    row per (expression, kind). -> (isum_row, fsum_row, mm_row) maps."""
+    isum_row: Dict[Tuple, int] = {}
+    fsum_row: Dict[Tuple, int] = {}
+    mm_row: Dict[Tuple[Tuple, str], int] = {}
+    for base, vexpr, limbs in aggs:
+        if base in ("sum", "avg"):
+            rows = isum_row if limbs is not None else fsum_row
+            rows.setdefault(vexpr, len(rows))
+        elif base in ("min", "minmaxrange"):
+            mm_row.setdefault((vexpr, "min"), len(mm_row))
+        if base in ("max", "minmaxrange"):
+            mm_row.setdefault((vexpr, "max"), len(mm_row))
+    return isum_row, fsum_row, mm_row
+
+
+@dataclass
+class ScanProgram:
+    """A ScanPlan compiled for the kernel: one int32 array in sections,
+    plus the sizes the wrapper needs to allocate and check."""
+
+    prog: np.ndarray
+    bits: Tuple[int, ...]
+    value_is_int: Tuple[bool, ...]
+    filter_off: int
+    filter_n: int
+    vops_off: int
+    expr_off: int
+    n_exprs: int
+    rows_off: int
+    n_rows: int
+    group_off: int
+    n_group: int
+    iv_off: int
+    key_offset: int
+    G: int                       # output groups (1 for a scalar scan)
+    scalar: bool
+    n_isum: int
+    n_fsum: int
+    n_mm: int
+    rows: Tuple[Tuple[int, int, int], ...]
+    probe: bool
+
+
+def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
+                    probe: bool = False) -> ScanProgram:
+    if len(bits) != len(pp.packed_names):
+        raise ValueError("one bit width per packed column is required")
+    if len(pp.packed_names) > MAX_COLS or len(pp.value_names) > MAX_COLS:
+        raise ValueError(f"more than {MAX_COLS} packed or value columns")
+
+    filt: List[Tuple[int, int, int, int]] = []
+    depth = [0, 0]   # current, max
+
+    def push(op):
+        filt.append(op)
+        if op[0] in (F_TRUE, F_IV, F_IVS):
+            depth[0] += 1
+        elif op[0] in (F_AND, F_OR):
+            depth[0] -= 1
+        depth[1] = max(depth[1], depth[0])
+
+    def emit_filter(node):
+        op = node[0]
+        if op == "true":
+            push((F_TRUE, 0, 0, 0))
+        elif op in ("and", "or"):
+            for k, c in enumerate(node[1]):
+                emit_filter(c)
+                if k:
+                    push((F_AND if op == "and" else F_OR, 0, 0, 0))
+        elif op == "not":
+            emit_filter(node[1][0])
+            push((F_NOT, 0, 0, 0))
+        elif op == "ivs":
+            push((F_IVS, node[1], node[2], node[3]))
+        else:
+            push((F_IV, node[1], node[2], 0))
+
+    emit_filter(pp.filter_tree)
+    if depth[1] > MAX_FILTER_STACK:
+        raise ValueError("filter tree too deep for the scan kernel")
+
+    vops: List[Tuple[int, int, int, int]] = []
+    exprs: List[Tuple[int, int]] = []
+    expr_index: Dict[Tuple, int] = {}
+
+    def is_int(vexpr) -> bool:
+        if vexpr[0] in ("v", "v64"):
+            return pp.value_is_int[vexpr[1]]
+        if vexpr[0] in ("id", "litc"):
+            return True
+        if vexpr[0] == "litf":
+            return False
+        return is_int(vexpr[1]) and is_int(vexpr[2])
+
+    def emit_value(vexpr, d: int) -> int:
+        op = vexpr[0]
+        if op in ("v", "v64"):
+            vops.append((V_COL, vexpr[1], 0, 0 if is_int(vexpr) else 1))
+            return d + 1
+        if op == "id":
+            vops.append((V_ID, vexpr[1], 0, 0))
+            return d + 1
+        if op == "litc":
+            vops.append((V_LITC, int(vexpr[1]), 0, 0))
+            return d + 1
+        if op == "litf":
+            fbits = int(np.array([vexpr[1]], dtype=np.float32).view(np.int32)[0])
+            vops.append((V_LITF, fbits, 0, 1))
+            return d + 1
+        d1 = emit_value(vexpr[1], d)
+        d2 = emit_value(vexpr[2], d + 1)
+        vops.append((_V_BINARY[op], 0, 0, 0 if is_int(vexpr) else 1))
+        return max(d1, d2)
+
+    def expr_id(vexpr) -> int:
+        e = expr_index.get(vexpr)
+        if e is None:
+            start = len(vops)
+            if emit_value(vexpr, 0) > MAX_VALUE_STACK:
+                raise ValueError("value expression too deep for the kernel")
+            e = len(exprs)
+            exprs.append((start, len(vops) - start))
+            expr_index[vexpr] = e
+        return e
+
+    isum_row, fsum_row, mm_row = _row_layout(pp.aggs)
+    rows: List[Tuple[int, int, int]] = []
+    for vexpr, r in isum_row.items():
+        rows.append((R_ISUM, expr_id(vexpr), r))
+    for vexpr, r in fsum_row.items():
+        rows.append((R_FSUM, expr_id(vexpr), r))
+    for (vexpr, kind), r in mm_row.items():
+        rows.append((R_MIN if kind == "min" else R_MAX, expr_id(vexpr), r))
+    if len(rows) > MAX_ROWS:
+        raise ValueError(f"more than {MAX_ROWS} accumulator rows")
+
+    sections: List[np.ndarray] = []
+    offsets = []
+    for part in (filt, vops, exprs, rows,
+                 list(zip(pp.group_idx, pp.group_strides)),
+                 pp.static_params.reshape(-1).tolist()):
+        offsets.append(sum(s.size for s in sections))
+        sections.append(np.asarray(part, dtype=np.int64).reshape(-1))
+    prog = np.concatenate(sections)
+    if prog.size and (prog.max() > _I32_MAX or prog.min() < -_I32_MAX - 1):
+        raise ValueError("scan program value outside int32")
+    scalar = not pp.group_idx
+    return ScanProgram(
+        prog=prog.astype(np.int32), bits=tuple(bits),
+        value_is_int=tuple(pp.value_is_int),
+        filter_off=offsets[0], filter_n=len(filt), vops_off=offsets[1],
+        expr_off=offsets[2], n_exprs=len(exprs), rows_off=offsets[3],
+        n_rows=len(rows), group_off=offsets[4], n_group=len(pp.group_idx),
+        iv_off=offsets[5], key_offset=int(pp.group_key_offset),
+        G=1 if scalar else pp.num_groups_padded, scalar=scalar,
+        n_isum=len(isum_row), n_fsum=len(fsum_row), n_mm=len(mm_row),
+        rows=tuple(rows), probe=probe)
+
+
+# --------------------------------------------------------------------------
+# the wrapper, its launch counters and the plain version
+# --------------------------------------------------------------------------
+
+class KernelCounter:
+    """Launches of one kernel: incremented only where the kernel is
+    launched, so a run can show the main path went through it."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def reset(self) -> None:
+        self.launches = 0
+
+
+SCAN_COUNTER = KernelCounter("fused_scan")
+PROBE_COUNTER = KernelCounter("fused_scan_probe")
+
+
+@dataclass
+class ScanOutputs:
+    cnt: torch.Tensor       # [G] i64 matched docs per group
+    isum: torch.Tensor      # [n_isum, G] i64
+    fsum: torch.Tensor      # [n_fsum, G] f64
+    mm: torch.Tensor        # [n_mm, G] f32
+    matched: torch.Tensor   # [1] i64 docs passing the filter
+
+
+def _alloc_outputs(prog: ScanProgram, device) -> ScanOutputs:
+    G = prog.G
+    mm = torch.empty((prog.n_mm, G), dtype=torch.float32, device=device)
+    for kind, _e, r in prog.rows:
+        if kind == R_MIN:
+            mm[r].fill_(float("inf"))
+        elif kind == R_MAX:
+            mm[r].fill_(float("-inf"))
+    return ScanOutputs(
+        cnt=torch.zeros(G, dtype=torch.int64, device=device),
+        isum=torch.zeros((prog.n_isum, G), dtype=torch.int64, device=device),
+        fsum=torch.zeros((prog.n_fsum, G), dtype=torch.float64, device=device),
+        mm=mm, matched=torch.zeros(1, dtype=torch.int64, device=device))
+
+
+def _check_inputs(prog: ScanProgram, packed: List[torch.Tensor],
+                  values: List[torch.Tensor], num_docs: int) -> torch.device:
+    if len(packed) != len(prog.bits) or len(values) != len(prog.value_is_int):
+        raise ValueError("packed/value inputs do not match the program")
+    if not packed:
+        raise ValueError("the scan needs at least one packed column")
+    tiles = packed[0].shape[0]
+    device = packed[0].device
+    if not 0 <= num_docs <= tiles * TILE:
+        raise ValueError(f"num_docs {num_docs} outside [0, {tiles * TILE}]")
+    for w, b in zip(packed, prog.bits):
+        if (w.dtype != torch.int32 or w.device != device
+                or tuple(w.shape) != (tiles, TILE * b // 32)
+                or not w.is_contiguous()):
+            raise ValueError(f"packed column must be contiguous int32 "
+                             f"[{tiles}, {TILE * b // 32}] on {device}")
+    for v, is_int in zip(values, prog.value_is_int):
+        ok = (v.dtype in (torch.int32, torch.int64) if is_int
+              else v.dtype == torch.float32)
+        if (not ok or v.device != device or tuple(v.shape) != (tiles * TILE,)
+                or not v.is_contiguous()):
+            raise ValueError(f"value column must be contiguous "
+                             f"[{tiles * TILE}] {'int' if is_int else 'f32'} "
+                             f"on {device}")
+    return device
+
+
+def fused_scan(prog: ScanProgram, packed: List[torch.Tensor],
+               values: List[torch.Tensor], num_docs: int) -> ScanOutputs:
+    """Run the scan program over one segment's staged columns. CUDA
+    tensors launch the kernel (or raise); CPU tensors run the plain
+    version."""
+    device = _check_inputs(prog, packed, values, num_docs)
+    if device.type == "cpu":
+        return fused_scan_plain(prog, packed, values, num_docs)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return _launch(prog, packed, values, num_docs)
+
+
+# argv slots shared with csrc/fused_scan.cu (fused_scan_launch)
+_A_NUM_DOCS, _A_NUM_TILES, _A_G, _A_N_PACKED, _A_N_VALUES = 0, 1, 2, 3, 4
+_A_PROG_LEN, _A_FILTER_OFF, _A_FILTER_N, _A_VOPS_OFF, _A_EXPR_OFF = 5, 6, 7, 8, 9
+_A_N_EXPRS, _A_ROWS_OFF, _A_N_ROWS, _A_GROUP_OFF, _A_N_GROUP = 10, 11, 12, 13, 14
+_A_KEY_OFFSET, _A_IV_OFF, _A_N_ISUM, _A_N_FSUM, _A_N_MM = 15, 16, 17, 18, 19
+_A_SCALAR, _A_PROG, _A_OUT_CNT, _A_OUT_ISUM, _A_OUT_FSUM = 20, 21, 22, 23, 24
+_A_OUT_MM, _A_OUT_MATCHED, _A_GRID, _A_ACC_SMEM, _A_SMEM = 25, 26, 27, 28, 29
+_A_PACKED, _A_BITS, _A_VALUES, _A_VTYPES = 32, 48, 64, 80
+_A_LEN = 96
+_BLOCK = 256
+# shared memory a block may use (opt-in, H100) and per SM
+_SMEM_BLOCK_MAX = 227 * 1024
+_SMEM_SM = 228 * 1024
+
+
+def _launch(prog: ScanProgram, packed, values, num_docs) -> ScanOutputs:
+    from pinot_tpu_torch.engine._build import load_library
+
+    lib = load_library("fused_scan")
+    device = packed[0].device
+    out = _alloc_outputs(prog, device)
+    tiles = packed[0].shape[0]
+    prog_t = torch.from_numpy(prog.prog).to(device)
+    prog_bytes = (prog.prog.size * 4 + 15) // 16 * 16
+    acc_bytes = prog.G * (8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm)
+    acc_smem = (not prog.scalar) and prog_bytes + acc_bytes <= _SMEM_BLOCK_MAX
+    smem = prog_bytes + (acc_bytes if acc_smem else 0)
+    per_sm = max(1, min(2048 // _BLOCK, _SMEM_SM // (smem + 1024)))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    grid = max(1, min(tiles, sms * per_sm))
+
+    argv = np.zeros(_A_LEN, dtype=np.int64)
+    argv[_A_NUM_DOCS] = num_docs
+    argv[_A_NUM_TILES] = tiles
+    argv[_A_G] = prog.G
+    argv[_A_N_PACKED] = len(packed)
+    argv[_A_N_VALUES] = len(values)
+    argv[_A_PROG_LEN] = prog.prog.size
+    argv[_A_FILTER_OFF] = prog.filter_off
+    argv[_A_FILTER_N] = prog.filter_n
+    argv[_A_VOPS_OFF] = prog.vops_off
+    argv[_A_EXPR_OFF] = prog.expr_off
+    argv[_A_N_EXPRS] = prog.n_exprs
+    argv[_A_ROWS_OFF] = prog.rows_off
+    argv[_A_N_ROWS] = prog.n_rows
+    argv[_A_GROUP_OFF] = prog.group_off
+    argv[_A_N_GROUP] = prog.n_group
+    argv[_A_KEY_OFFSET] = prog.key_offset
+    argv[_A_IV_OFF] = prog.iv_off
+    argv[_A_N_ISUM] = prog.n_isum
+    argv[_A_N_FSUM] = prog.n_fsum
+    argv[_A_N_MM] = prog.n_mm
+    argv[_A_SCALAR] = int(prog.scalar)
+    argv[_A_PROG] = prog_t.data_ptr()
+    argv[_A_OUT_CNT] = out.cnt.data_ptr()
+    argv[_A_OUT_ISUM] = out.isum.data_ptr()
+    argv[_A_OUT_FSUM] = out.fsum.data_ptr()
+    argv[_A_OUT_MM] = out.mm.data_ptr()
+    argv[_A_OUT_MATCHED] = out.matched.data_ptr()
+    argv[_A_GRID] = grid
+    argv[_A_ACC_SMEM] = int(acc_smem)
+    argv[_A_SMEM] = smem
+    for i, (w, b) in enumerate(zip(packed, prog.bits)):
+        argv[_A_PACKED + i] = w.data_ptr()
+        argv[_A_BITS + i] = b
+    for i, v in enumerate(values):
+        argv[_A_VALUES + i] = v.data_ptr()
+        argv[_A_VTYPES + i] = _TORCH_VTYPE[v.dtype]
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = lib.fused_scan_launch(
+            argv.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"fused_scan kernel launch failed: CUDA error "
+                           f"{err} ({lib.fused_scan_error_string(err).decode()})")
+    (PROBE_COUNTER if prog.probe else SCAN_COUNTER).launches += 1
+    return out
+
+
+def _f32_of_bits(bits: int) -> float:
+    return float(np.array([bits], dtype=np.int32).view(np.float32)[0])
+
+
+def unpack_planar(words: torch.Tensor, bits: int) -> torch.Tensor:
+    """Planar words [tiles, W] -> dictIds [tiles * TILE] int64."""
+    K = 32 // bits
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    mask = (1 << bits) - 1
+    planes = [(w >> (k * bits)) & mask for k in range(K)]
+    return torch.stack(planes, dim=1).reshape(-1)
+
+
+def fused_scan_plain(prog: ScanProgram, packed: List[torch.Tensor],
+                     values: List[torch.Tensor], num_docs: int
+                     ) -> ScanOutputs:
+    """The kernel's function in plain PyTorch: the same program, evaluated
+    over whole columns at once (exact i64 and f64 accumulation)."""
+    device = packed[0].device
+    p = prog.prog.tolist()
+    ids = [unpack_planar(w, b) for w, b in zip(packed, prog.bits)]
+    cap = ids[0].shape[0]
+    valid = torch.arange(cap, device=device) < num_docs
+
+    stack: List[torch.Tensor] = []
+    for i in range(prog.filter_n):
+        op, a, b, c = p[prog.filter_off + 4 * i: prog.filter_off + 4 * i + 4]
+        if op == F_TRUE:
+            stack.append(torch.ones(cap, dtype=torch.bool, device=device))
+        elif op == F_IV:
+            lo, hi = p[prog.iv_off + 2 * b], p[prog.iv_off + 2 * b + 1]
+            stack.append((ids[a] >= lo) & (ids[a] <= hi))
+        elif op == F_IVS:
+            m = torch.zeros(cap, dtype=torch.bool, device=device)
+            for s in range(b, b + c):
+                lo, hi = p[prog.iv_off + 2 * s], p[prog.iv_off + 2 * s + 1]
+                m |= (ids[a] >= lo) & (ids[a] <= hi)
+            stack.append(m)
+        elif op == F_NOT:
+            stack.append(~stack.pop())
+        else:
+            y, x = stack.pop(), stack.pop()
+            stack.append(x & y if op == F_AND else x | y)
+    mask = stack.pop() & valid
+
+    out = _alloc_outputs(prog, device)
+    out.matched += mask.sum()
+    key = torch.zeros(cap, dtype=torch.int64, device=device)
+    for g in range(prog.n_group):
+        col, stride = p[prog.group_off + 2 * g: prog.group_off + 2 * g + 2]
+        key += ids[col] * stride
+    key -= prog.key_offset
+    hit = mask & (key >= 0) & (key < prog.G)
+    k = key[hit]
+    out.cnt.index_add_(0, k, torch.ones_like(k))
+
+    def eval_expr(e: int) -> torch.Tensor:
+        start, n = p[prog.expr_off + 2 * e: prog.expr_off + 2 * e + 2]
+        st: List[torch.Tensor] = []
+        for i in range(start, start + n):
+            op, a, _b, is_float = p[prog.vops_off + 4 * i:
+                                    prog.vops_off + 4 * i + 4]
+            if op == V_COL:
+                v = values[a][hit]
+                st.append(v if is_float else v.to(torch.int64))
+            elif op == V_ID:
+                st.append(ids[a][hit])
+            elif op == V_LITC:
+                st.append(torch.tensor(a, dtype=torch.int64, device=device))
+            elif op == V_LITF:
+                st.append(torch.tensor(_f32_of_bits(a),
+                                       dtype=torch.float32, device=device))
+            else:
+                y, x = st.pop(), st.pop()
+                if is_float:
+                    x, y = x.to(torch.float32), y.to(torch.float32)
+                st.append(x * y if op == V_TIMES
+                          else x + y if op == V_PLUS else x - y)
+        return st.pop().expand(k.shape)
+
+    for kind, e, r in prog.rows:
+        v = eval_expr(e)
+        if kind == R_ISUM:
+            out.isum[r].index_add_(0, k, v.to(torch.int64))
+        elif kind == R_FSUM:
+            out.fsum[r].index_add_(0, k, v.to(torch.float32).to(torch.float64))
+        else:
+            out.mm[r].scatter_reduce_(0, k, v.to(torch.float32),
+                                      "amin" if kind == R_MIN else "amax")
+    return out
+
+
+# --------------------------------------------------------------------------
+# outputs -> the decode tree (the JAX package's assemble_outputs contract)
+# --------------------------------------------------------------------------
+
+def assemble_outputs(plan_spec: Tuple, pp: ScanPlan,
+                     out: ScanOutputs) -> Dict[str, object]:
+    """Scan outputs (any device) -> host numpy tree: ``presence`` or
+    ``num_matched``, then ``agg{i}`` leaves (avg is (sum, count),
+    minmaxrange is (min, max)); int sums stay exact int64."""
+    _, _, group_specs, num_groups, _ = plan_spec
+    isum_row, fsum_row, mm_row = _row_layout(pp.aggs)
+    grouped = bool(group_specs)
+    n = num_groups if grouped else 1
+    cnt = out.cnt.cpu().numpy()[:n]
+    isum = out.isum.cpu().numpy()[:, :n]
+    fsum = out.fsum.cpu().numpy()[:, :n]
+    mm = out.mm.cpu().numpy()[:, :n]
+    tree: Dict[str, object] = ({"presence": cnt} if grouped
+                               else {"num_matched": cnt[0]})
+    for i, (base, vexpr, limbs) in enumerate(pp.aggs):
+        if base == "count":
+            leaf = cnt
+        elif base in ("sum", "avg"):
+            leaf = (isum[isum_row[vexpr]] if limbs is not None
+                    else fsum[fsum_row[vexpr]])
+            if base == "avg":
+                leaf = (leaf, cnt)
+        elif base == "min":
+            leaf = mm[mm_row[(vexpr, "min")]]
+        elif base == "max":
+            leaf = mm[mm_row[(vexpr, "max")]]
+        else:
+            leaf = (mm[mm_row[(vexpr, "min")]], mm[mm_row[(vexpr, "max")]])
+        if not grouped:
+            leaf = (tuple(x[0] for x in leaf) if isinstance(leaf, tuple)
+                    else leaf[0])
+        tree[f"agg{i}"] = leaf
+    return tree
+
+
+# --------------------------------------------------------------------------
+# per-segment runner
+# --------------------------------------------------------------------------
+
+def _stage_packed(pp: ScanPlan, staged: StagedSegment, decline):
+    cols = []
+    for nm in pp.packed_names:
+        pc = staged.packed_column(nm)
+        if pc is None:
+            decline("pallas_column_not_packable")
+            return None
+        cols.append(pc)
+    return [pc.words for pc in cols], tuple(pc.bits for pc in cols)
+
+
+def _stage_values(pp: ScanPlan, staged: StagedSegment, decline):
+    cols = []
+    for nm in pp.value_names:
+        v = staged.value_column(nm)
+        if v is None:
+            decline("pallas_value_layout_unsupported")
+            return None
+        cols.append(v)
+    return cols
+
+
+@dataclass
+class ScanInputs:
+    pp: ScanPlan                  # the (narrowed) plan's scan plan
+    plan: object                  # effective plan the outputs decode against
+    prog: ScanProgram
+    words: List[torch.Tensor]     # packed columns, in prog.bits order
+    values: List[torch.Tensor]    # value columns
+    # the probe's (program, packed columns) when the group space was
+    # narrowed by a probe scan, else None
+    probe: Optional[Tuple[ScanProgram, List[torch.Tensor]]]
+
+
+def scan_inputs(plan, staged: StagedSegment, on_decline: Callable = None
+                ) -> Optional[ScanInputs]:
+    """The scan program and staged columns of one segment's plan, probing
+    first (one probe launch) when the group key space exceeds
+    MAX_SCAN_GROUPS. None when the plan is not eligible (``on_decline``
+    receives the reason code)."""
+
+    def decline(reason: str) -> None:
+        if on_decline is not None:
+            on_decline(reason)
+
+    defer = _DeferredDecline(on_decline)
+    pp = extract_plan(plan, staged.segment, on_decline=defer)
+    eff = plan
+    probe = None
+    if pp is None:
+        if not defer.only_group_bound:
+            defer.flush()
+            return None
+
+        def run_probe(probe_pp: ScanPlan):
+            nonlocal probe
+            got = _stage_packed(probe_pp, staged, decline)
+            if got is None:
+                raise RuntimeError("probe columns were packable for the "
+                                   "full plan but not for the probe")
+            words, bits = got
+            probe = (compile_program(probe_pp, bits, probe=True), words)
+            out = fused_scan(*probe, [], staged.num_docs)
+            return out.mm.cpu().numpy()
+
+        res = probe_narrowed_plan(plan, staged.segment, run_probe, decline)
+        if res is None:
+            return None
+        pp, eff = res
+
+    got = _stage_packed(pp, staged, decline)
+    if got is None:
+        return None
+    words, bits = got
+    vals = _stage_values(pp, staged, decline)
+    if vals is None:
+        return None
+    return ScanInputs(pp=pp, plan=eff, prog=compile_program(pp, bits),
+                      words=words, values=vals, probe=probe)
+
+
+@dataclass
+class SegmentScan:
+    tree: Dict[str, object]   # decode tree (assemble_outputs)
+    plan: object              # effective plan the tree decodes against
+    matched: int              # docs that passed the filter
+
+
+def run_segment(plan, staged: StagedSegment, on_decline: Callable = None
+                ) -> Optional[SegmentScan]:
+    """Fused scan of one staged segment (see ``scan_inputs``). None when
+    the plan is not eligible (``on_decline`` receives the reason code)."""
+    inp = scan_inputs(plan, staged, on_decline)
+    if inp is None:
+        return None
+    out = fused_scan(inp.prog, inp.words, inp.values, staged.num_docs)
+    tree = assemble_outputs(inp.plan.spec, inp.pp, out)
+    return SegmentScan(tree=tree, plan=inp.plan,
+                       matched=int(out.matched.item()))

@@ -1,0 +1,156 @@
+"""Result model and reduce-side finalisation.
+
+Counterpart of ``pinot_tpu/engine/results.py`` (``reduce_group_by``,
+``reduce_aggregation``): merged states -> ORDER BY -> LIMIT -> rows.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+
+from pinot_tpu_torch.engine.aggregates import AggDef
+from pinot_tpu_torch.engine.errors import QueryError
+from pinot_tpu_torch.query.context import QueryContext
+from pinot_tpu_torch.query.expressions import Expr, Function, Literal
+
+_ARITH = {
+    "plus": lambda a, b: a + b,
+    "minus": lambda a, b: a - b,
+    "times": lambda a, b: a * b,
+}
+
+
+@dataclass
+class DataSchema:
+    column_names: List[str]
+    column_types: List[str]
+
+
+@dataclass
+class ResultTable:
+    schema: DataSchema
+    rows: List[List[Any]]
+
+
+@dataclass
+class QueryStats:
+    num_segments_queried: int = 0
+    num_segments_processed: int = 0
+    num_segments_matched: int = 0
+    num_docs_scanned: int = 0
+    total_docs: int = 0
+    # fused-scan launches this query made (full scans and probes)
+    scan_launches: int = 0
+    probe_launches: int = 0
+
+
+@dataclass
+class AggResult:
+    """Aggregation without group-by: one state per aggregation."""
+
+    states: List[Any]
+
+    def merge(self, other: "AggResult", aggs: List[AggDef]) -> None:
+        self.states = [a.merge(s, o) for a, s, o in
+                       zip(aggs, self.states, other.states)]
+
+
+@dataclass
+class GroupByResult:
+    """group key (tuple of python values) -> [state per agg]."""
+
+    groups: Dict[Tuple, List[Any]] = field(default_factory=dict)
+
+    def merge(self, other: "GroupByResult", aggs: List[AggDef]) -> None:
+        for key, states in other.groups.items():
+            mine = self.groups.get(key)
+            if mine is None:
+                self.groups[key] = list(states)
+            else:
+                self.groups[key] = [a.merge(m, s) for a, m, s in
+                                    zip(aggs, mine, states)]
+
+
+def _env_lookup(env: Dict[str, Any], expr: Expr) -> Any:
+    key = str(expr)
+    if key in env:
+        return env[key]
+    if isinstance(expr, Literal):
+        return expr.value
+    if isinstance(expr, Function) and expr.name in _ARITH:
+        a = _env_lookup(env, expr.args[0])
+        b = _env_lookup(env, expr.args[1])
+        return _ARITH[expr.name](float(a), float(b))
+    raise QueryError(f"expression {expr} is not in GROUP BY or an aggregation")
+
+
+class _Reversible:
+    """Sort-key wrapper supporting DESC for any comparable value."""
+
+    __slots__ = ("v", "asc")
+
+    def __init__(self, v, asc: bool):
+        self.v = v
+        self.asc = asc
+
+    def __lt__(self, other: "_Reversible") -> bool:
+        if self.v == other.v:
+            return False
+        lt = self.v < other.v
+        return lt if self.asc else not lt
+
+    def __eq__(self, other) -> bool:
+        return self.v == other.v
+
+
+def _finalize_cell(v: Any) -> Any:
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    return v
+
+
+def _result_schema(ctx: QueryContext, aggs: List[AggDef],
+                   schema_types: Dict[str, str]) -> Tuple[List[str], List[str]]:
+    agg_types = {str(fn): a.result_type
+                 for fn, a in zip(ctx.aggregations, aggs)}
+    names: List[str] = []
+    types: List[str] = []
+    for e, alias in zip(ctx.select_expressions, ctx.aliases):
+        names.append(alias if alias else str(e))
+        k = str(e)
+        types.append(agg_types.get(k) or schema_types.get(k) or "DOUBLE")
+    return names, types
+
+
+def reduce_group_by(ctx: QueryContext, aggs: List[AggDef],
+                    merged: GroupByResult,
+                    schema_types: Dict[str, str]) -> ResultTable:
+    envs = []
+    for key, states in merged.groups.items():
+        env: Dict[str, Any] = {str(e): v for e, v in zip(ctx.group_by, key)}
+        for fn, agg, st in zip(ctx.aggregations, aggs, states):
+            env[str(fn)] = agg.finalize(st)
+        envs.append(env)
+    if ctx.order_by:
+        envs.sort(key=lambda env: tuple(
+            _Reversible(_env_lookup(env, ob.expr), ob.ascending)
+            for ob in ctx.order_by))
+    rows_env = envs[ctx.offset: ctx.offset + ctx.limit]
+    names, types = _result_schema(ctx, aggs, schema_types)
+    rows = [[_finalize_cell(_env_lookup(env, e))
+             for e in ctx.select_expressions] for env in rows_env]
+    return ResultTable(DataSchema(names, types), rows)
+
+
+def reduce_aggregation(ctx: QueryContext, aggs: List[AggDef],
+                       merged: AggResult) -> ResultTable:
+    env = {str(fn): agg.finalize(st)
+           for fn, agg, st in zip(ctx.aggregations, aggs, merged.states)}
+    names, types = _result_schema(ctx, aggs, {})
+    row = [_finalize_cell(_env_lookup(env, e)) for e in ctx.select_expressions]
+    return ResultTable(DataSchema(names, types), [row])

@@ -1,0 +1,123 @@
+"""Device staging: segment columns -> tensors on one device.
+
+Counterpart of ``pinot_tpu/engine/staging.py`` for the fused scan:
+planar bit-packed dictIds (``packed_column``) and decoded per-doc values
+(``value_column``), each staged once per segment and cached.
+
+Planar layout (bit-identical to the JAX package's ``_pack``): docs are cut
+into tiles of ``TILE`` docs; with ``B`` bits per value and ``K = 32 / B``
+values per 32-bit word, a tile has ``W = TILE / K`` words and value ``j`` of
+the tile sits in word ``j % W`` at bit ``(j // W) * B``. Neighbouring docs
+therefore sit in neighbouring words, which a CUDA warp reads coalesced.
+The words are held as ``torch.int32`` carrying the uint32 bit pattern.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from pinot_tpu_torch.device import resolve_device
+from pinot_tpu_torch.segment.immutable import ImmutableSegment
+
+# docs per tile of the fused scan (the JAX package's PALLAS_TILE)
+TILE = 4096
+
+_I32_MIN, _I32_MAX = int(np.iinfo(np.int32).min), int(np.iinfo(np.int32).max)
+
+
+def staged_int_dtype(cm) -> np.dtype:
+    """Device dtype of an integral column's values, from its min/max."""
+    if (cm.min_value is not None and cm.max_value is not None
+            and _I32_MIN <= int(cm.min_value)
+            and int(cm.max_value) <= _I32_MAX):
+        return np.dtype(np.int32)
+    return np.dtype(np.int64)
+
+
+def pack_bits(bits_needed: int) -> int:
+    """Power-of-two bit width, so no value straddles two words."""
+    for b in (1, 2, 4, 8, 16):
+        if bits_needed <= b:
+            return b
+    return 32
+
+
+def pack_planar(ids: np.ndarray, bits: int) -> np.ndarray:
+    """dictIds [tiles * TILE] -> planar words [tiles, W] uint32."""
+    K = 32 // bits
+    W = TILE // K
+    tiles = ids.shape[0] // TILE
+    planes = ids.astype(np.uint32).reshape(tiles, K, W)
+    words = np.zeros((tiles, W), dtype=np.uint32)
+    for k in range(K):
+        words |= planes[:, k, :] << np.uint32(k * bits)
+    return words
+
+
+class PackedColumn:
+    """Planar bit-packed dictIds: ``words`` [num_tiles, W] int32 tensor."""
+
+    def __init__(self, words: torch.Tensor, bits: int):
+        self.words = words
+        self.bits = bits
+        self.vals_per_word = 32 // bits
+
+
+class StagedSegment:
+    """Device image of one segment, staged column by column on demand."""
+
+    def __init__(self, segment: ImmutableSegment,
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        self.segment = segment
+        self.num_docs = segment.num_docs
+        self.capacity = segment.padded_capacity
+        self._packed: Dict[str, PackedColumn] = {}
+        self._values: Dict[str, torch.Tensor] = {}
+
+    def scan_capacity(self) -> int:
+        """Doc capacity padded up to whole tiles (the kernel masks the
+        tail past ``num_docs``); the JAX package's ``pallas_capacity``."""
+        return -(-self.capacity // TILE) * TILE
+
+    def packed_column(self, name: str) -> Optional[PackedColumn]:
+        pc = self._packed.get(name)
+        if pc is None:
+            cm = self.segment.metadata.column(name)
+            if not (cm.has_dictionary and cm.single_value):
+                return None
+            bits = pack_bits(max(1, max(cm.cardinality - 1, 1).bit_length()))
+            ids = np.zeros(self.scan_capacity(), dtype=np.uint32)
+            fwd = np.asarray(self.segment.data_source(name).forward_index)
+            ids[:fwd.shape[0]] = fwd
+            words = pack_planar(ids, bits).view(np.int32)
+            pc = PackedColumn(torch.from_numpy(words).to(self.device), bits)
+            self._packed[name] = pc
+        return pc
+
+    def value_column(self, name: str) -> Optional[torch.Tensor]:
+        """Decoded per-doc values [scan_capacity]: f32 for float columns,
+        i32 or i64 for integer columns (``staged_int_dtype``)."""
+        v = self._values.get(name)
+        if v is None:
+            ds = self.segment.data_source(name)
+            cm = ds.metadata
+            if not (cm.single_value and cm.data_type.is_numeric):
+                return None
+            dt = (staged_int_dtype(cm) if cm.data_type.is_integral
+                  else np.dtype(np.float32))
+            vals = np.zeros(self.scan_capacity(), dtype=dt)
+            fwd = np.asarray(ds.forward_index)
+            vals[:fwd.shape[0]] = ds.dictionary.device_values().astype(dt)[fwd]
+            v = torch.from_numpy(vals).to(self.device)
+            self._values[name] = v
+        return v
+
+    def nbytes(self) -> int:
+        """Device bytes this segment holds."""
+        return (sum(pc.words.numel() * 4 for pc in self._packed.values())
+                + sum(v.numel() * v.element_size()
+                      for v in self._values.values()))

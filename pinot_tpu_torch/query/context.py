@@ -1,0 +1,120 @@
+"""QueryContext: the compiled server-side query.
+
+Counterpart of ``pinot_tpu/query/context.py`` (``compile_query``): parse,
+optimise the filter, resolve aliases and ordinals, and collect the
+aggregation functions the plan maker needs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from pinot_tpu_torch.query.expressions import (
+    Expr,
+    FilterNode,
+    Function,
+    Identifier,
+    Literal,
+    OrderByExpr,
+    fold_constants,
+)
+from pinot_tpu_torch.query.optimizer import optimize_filter
+from pinot_tpu_torch.query.parser import (
+    AGGREGATION_FUNCTIONS,
+    SqlParseError,
+    parse_sql,
+)
+
+
+@dataclass
+class QueryContext:
+    table_name: str
+    select_expressions: List[Expr]
+    aliases: List[Optional[str]]
+    filter: Optional[FilterNode]
+    group_by: List[Expr]
+    order_by: List[OrderByExpr]
+    limit: int
+    offset: int = 0
+    aggregations: List[Function] = field(default_factory=list)
+    sql: Optional[str] = None
+
+    @property
+    def is_group_by(self) -> bool:
+        return bool(self.group_by)
+
+    def referenced_columns(self) -> List[str]:
+        cols: List[str] = []
+        for e in self.select_expressions:
+            cols.extend(e.columns())
+        if self.filter is not None:
+            cols.extend(self.filter.columns())
+        for e in self.group_by:
+            cols.extend(e.columns())
+        for ob in self.order_by:
+            cols.extend(ob.expr.columns())
+        return [c for c in dict.fromkeys(cols) if c != "*"]
+
+
+def _collect_aggregations(expr: Expr, out: List[Function]) -> None:
+    if isinstance(expr, Function):
+        if expr.name in AGGREGATION_FUNCTIONS:
+            if expr not in out:
+                out.append(expr)
+            return
+        for a in expr.args:
+            _collect_aggregations(a, out)
+
+
+def _resolve_alias(expr: Expr, alias_map: Dict[str, Expr],
+                   select_exprs: List[Expr], top_level: bool = True) -> Expr:
+    """Aliases anywhere; 1-based ordinals only as a whole top-level GROUP BY
+    or ORDER BY item."""
+    if isinstance(expr, Identifier) and expr.name in alias_map:
+        return alias_map[expr.name]
+    if top_level and isinstance(expr, Literal) and type(expr.value) is int:
+        if 1 <= expr.value <= len(select_exprs):
+            return select_exprs[expr.value - 1]
+        raise SqlParseError(f"ordinal {expr.value} out of range")
+    if isinstance(expr, Function):
+        return Function(expr.name,
+                        tuple(_resolve_alias(a, alias_map, select_exprs, False)
+                              for a in expr.args))
+    return expr
+
+
+def compile_query(sql: str) -> QueryContext:
+    """SQL -> optimised QueryContext."""
+    parsed = parse_sql(sql)
+    select_exprs = [fold_constants(e) for e, _ in parsed.select]
+    aliases = [a for _, a in parsed.select]
+    alias_map = {a: e for e, a in zip(select_exprs, aliases) if a is not None}
+    group_by = [fold_constants(_resolve_alias(e, alias_map, select_exprs))
+                for e in parsed.group_by]
+    order_by = [OrderByExpr(fold_constants(
+        _resolve_alias(ob.expr, alias_map, select_exprs)), ob.ascending)
+        for ob in parsed.order_by]
+    ctx = QueryContext(
+        table_name=parsed.table, select_expressions=select_exprs,
+        aliases=aliases, filter=optimize_filter(parsed.where),
+        group_by=group_by, order_by=order_by, limit=parsed.limit, sql=sql)
+    for e in select_exprs:
+        _collect_aggregations(e, ctx.aggregations)
+    for ob in order_by:
+        _collect_aggregations(ob.expr, ctx.aggregations)
+    if not ctx.aggregations:
+        raise SqlParseError("selection and DISTINCT queries are not "
+                            "supported by this port: select an aggregation")
+    group_keys = {str(e) for e in group_by}
+    for e in select_exprs:
+        if not _has_aggregation(e) and str(e) not in group_keys:
+            raise SqlParseError(f"non-aggregate select expression {e} must "
+                                "appear in GROUP BY")
+    return ctx
+
+
+def _has_aggregation(e: Expr) -> bool:
+    found: List[Function] = []
+    _collect_aggregations(e, found)
+    return bool(found)

@@ -1,0 +1,187 @@
+"""Expression + filter AST.
+
+Counterpart of ``pinot_tpu/query/expressions.py``: a small hashable AST the
+planner compiles into scan programs. Operators are canonical function calls
+(``a + b`` is ``plus(a, b)``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from enum import Enum
+from typing import Any, List, Optional, Tuple
+
+
+class Expr:
+    def columns(self) -> List[str]:
+        """All identifier names referenced."""
+        out: List[str] = []
+        self._collect_columns(out)
+        return out
+
+    def _collect_columns(self, out: List[str]) -> None:
+        pass
+
+
+@dataclass(frozen=True)
+class Identifier(Expr):
+    name: str
+
+    def _collect_columns(self, out: List[str]) -> None:
+        out.append(self.name)
+
+    def __str__(self) -> str:
+        return self.name
+
+
+@dataclass(frozen=True)
+class Literal(Expr):
+    value: Any  # int | float | str | bool
+
+    def __str__(self) -> str:
+        if isinstance(self.value, str):
+            escaped = self.value.replace("'", "''")
+            return f"'{escaped}'"
+        return str(self.value)
+
+
+@dataclass(frozen=True)
+class Function(Expr):
+    name: str  # canonical lower-case name
+    args: Tuple[Expr, ...]
+
+    def __init__(self, name: str, args):
+        object.__setattr__(self, "name", name.lower())
+        object.__setattr__(self, "args", tuple(args))
+
+    def _collect_columns(self, out: List[str]) -> None:
+        for a in self.args:
+            a._collect_columns(out)
+
+    def __str__(self) -> str:
+        return f"{self.name}({','.join(str(a) for a in self.args)})"
+
+
+STAR = Identifier("*")
+
+_FOLDABLE = {
+    "plus": lambda a, b: a + b,
+    "minus": lambda a, b: a - b,
+    "times": lambda a, b: a * b,
+}
+
+
+def fold_constants(expr: Expr) -> Expr:
+    """Evaluate literal-only arithmetic sub-trees."""
+    if not isinstance(expr, Function):
+        return expr
+    args = tuple(fold_constants(a) for a in expr.args)
+    expr = Function(expr.name, args)
+    fn = _FOLDABLE.get(expr.name)
+    if fn is not None and all(isinstance(a, Literal)
+                              and isinstance(a.value, (int, float, bool))
+                              for a in args):
+        return Literal(fn(args[0].value, args[1].value))
+    return expr
+
+
+class PredicateType(Enum):
+    EQ = "EQ"
+    NOT_EQ = "NOT_EQ"
+    IN = "IN"
+    NOT_IN = "NOT_IN"
+    RANGE = "RANGE"
+
+
+@dataclass(frozen=True)
+class Predicate:
+    """Leaf predicate. RANGE uses (lower, upper, inclusive flags) with None
+    for an open end: the single form of >, >=, <, <= and BETWEEN."""
+
+    type: PredicateType
+    lhs: Expr
+    values: Tuple[Any, ...] = ()
+    lower: Any = None
+    upper: Any = None
+    lower_inclusive: bool = False
+    upper_inclusive: bool = False
+
+    @property
+    def value(self) -> Any:
+        return self.values[0] if self.values else None
+
+    def __str__(self) -> str:
+        t = self.type
+        if t in (PredicateType.EQ, PredicateType.NOT_EQ):
+            op = "=" if t is PredicateType.EQ else "!="
+            return f"{self.lhs} {op} {self.value!r}"
+        if t in (PredicateType.IN, PredicateType.NOT_IN):
+            return f"{self.lhs} {t.value} {self.values!r}"
+        lb = "[" if self.lower_inclusive else "("
+        ub = "]" if self.upper_inclusive else ")"
+        lo = "*" if self.lower is None else repr(self.lower)
+        hi = "*" if self.upper is None else repr(self.upper)
+        return f"{self.lhs} IN {lb}{lo},{hi}{ub}"
+
+
+class FilterOp(Enum):
+    AND = "AND"
+    OR = "OR"
+    NOT = "NOT"
+    PREDICATE = "PREDICATE"
+
+
+@dataclass(frozen=True)
+class FilterNode:
+    """AND/OR/NOT tree with Predicate leaves."""
+
+    op: FilterOp
+    children: Tuple["FilterNode", ...] = ()
+    predicate: Optional[Predicate] = None
+
+    def __init__(self, op: FilterOp, children=(),
+                 predicate: Optional[Predicate] = None):
+        object.__setattr__(self, "op", op)
+        object.__setattr__(self, "children", tuple(children))
+        object.__setattr__(self, "predicate", predicate)
+
+    @classmethod
+    def pred(cls, predicate: Predicate) -> "FilterNode":
+        return cls(FilterOp.PREDICATE, predicate=predicate)
+
+    @classmethod
+    def and_(cls, children) -> "FilterNode":
+        return cls(FilterOp.AND, children=children)
+
+    @classmethod
+    def or_(cls, children) -> "FilterNode":
+        return cls(FilterOp.OR, children=children)
+
+    @classmethod
+    def not_(cls, child: "FilterNode") -> "FilterNode":
+        return cls(FilterOp.NOT, children=(child,))
+
+    def columns(self) -> List[str]:
+        out: List[str] = []
+        if self.predicate is not None:
+            out.extend(self.predicate.lhs.columns())
+        for c in self.children:
+            out.extend(c.columns())
+        return out
+
+    def __str__(self) -> str:
+        if self.op is FilterOp.PREDICATE:
+            return str(self.predicate)
+        if self.op is FilterOp.NOT:
+            return f"NOT ({self.children[0]})"
+        sep = f" {self.op.value} "
+        return "(" + sep.join(str(c) for c in self.children) + ")"
+
+
+@dataclass(frozen=True)
+class OrderByExpr:
+    expr: Expr
+    ascending: bool = True
+
+    def __str__(self) -> str:
+        return f"{self.expr} {'ASC' if self.ascending else 'DESC'}"

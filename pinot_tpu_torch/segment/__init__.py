@@ -1,0 +1,20 @@
+from pinot_tpu_torch.segment.convert import (
+    ColumnArrays,
+    columns_of,
+    segment_from_arrays,
+)
+from pinot_tpu_torch.segment.creator import SegmentBuilder
+from pinot_tpu_torch.segment.dictionary import Dictionary, build_dictionary
+from pinot_tpu_torch.segment.immutable import DataSource, ImmutableSegment
+from pinot_tpu_torch.segment.metadata import (
+    DOC_TILE,
+    ColumnMetadata,
+    SegmentMetadata,
+    pad_capacity,
+)
+
+__all__ = [
+    "ColumnArrays", "columns_of", "segment_from_arrays", "SegmentBuilder",
+    "Dictionary", "build_dictionary", "DataSource", "ImmutableSegment",
+    "DOC_TILE", "ColumnMetadata", "SegmentMetadata", "pad_capacity",
+]

@@ -1,0 +1,104 @@
+"""Schema and field-spec data model (single-value INT/LONG/FLOAT/DOUBLE/STRING).
+
+Counterpart of ``pinot_tpu/spi/data.py``, cut to what the scan slice uses.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from enum import Enum
+from typing import Any, Dict, Iterable, List
+
+import numpy as np
+
+
+class DataType(Enum):
+    """Column value types; ``stored_np`` is the dtype of a numeric
+    dictionary's value array."""
+
+    INT = ("INT", np.int32, True)
+    LONG = ("LONG", np.int64, True)
+    FLOAT = ("FLOAT", np.float32, True)
+    DOUBLE = ("DOUBLE", np.float64, True)
+    STRING = ("STRING", np.object_, False)
+
+    def __init__(self, label: str, stored_np: Any, numeric: bool):
+        self.label = label
+        self.stored_np = stored_np
+        self.numeric = numeric
+
+    @property
+    def is_numeric(self) -> bool:
+        return self.numeric
+
+    @property
+    def is_integral(self) -> bool:
+        return self in (DataType.INT, DataType.LONG)
+
+    @property
+    def is_floating(self) -> bool:
+        return self in (DataType.FLOAT, DataType.DOUBLE)
+
+    def convert(self, value: Any) -> Any:
+        """Coerce a python value to this type (filter literals)."""
+        if value is None:
+            return None
+        if self.is_integral:
+            return int(value)
+        if self.is_floating:
+            return float(value)
+        return value if isinstance(value, str) else str(value)
+
+    @classmethod
+    def from_string(cls, s: str) -> "DataType":
+        return cls[s.upper()]
+
+
+class FieldType(Enum):
+    DIMENSION = "DIMENSION"
+    METRIC = "METRIC"
+    TIME = "TIME"
+    DATE_TIME = "DATE_TIME"
+
+
+@dataclass
+class FieldSpec:
+    name: str
+    data_type: DataType
+    field_type: FieldType = FieldType.DIMENSION
+
+    def __post_init__(self):
+        if isinstance(self.data_type, str):
+            self.data_type = DataType.from_string(self.data_type)
+        if isinstance(self.field_type, str):
+            self.field_type = FieldType[self.field_type.upper()]
+
+
+class Schema:
+    """A named, ordered collection of single-value fields."""
+
+    def __init__(self, schema_name: str, field_specs: Iterable[FieldSpec]):
+        self.schema_name = schema_name
+        self._fields: Dict[str, FieldSpec] = {}
+        for fs in field_specs:
+            if fs.name in self._fields:
+                raise ValueError(f"duplicate column {fs.name!r}")
+            self._fields[fs.name] = fs
+
+    @property
+    def column_names(self) -> List[str]:
+        return list(self._fields)
+
+    @property
+    def field_specs(self) -> List[FieldSpec]:
+        return list(self._fields.values())
+
+    def field_spec(self, name: str) -> FieldSpec:
+        try:
+            return self._fields[name]
+        except KeyError:
+            raise KeyError(f"column {name!r} not in schema "
+                           f"{self.schema_name!r}") from None
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._fields

@@ -1,0 +1,398 @@
+"""Star Schema Benchmark (SSB): generator, the 13 flights, a numpy oracle.
+
+Counterpart of ``pinot_tpu/tools/ssb.py``. The flat ``lineorder`` table
+(17 columns, dimension attributes denormalised onto the fact row) is drawn
+with the same dbgen distributions and the same random draws as the JAX
+package's ``generate_segment_frame``: per-segment seeds and contiguous
+month windows, so a seed gives the same rows in both packages.
+
+Strings are generated as codes into a sorted universe of values
+(``UNIVERSE``) and integers as int64 values; ``segment_from_frame`` turns a
+frame into dictIds over sorted dictionaries directly, without building
+string arrays, so SF10 builds in seconds.
+
+``numpy_answer`` is an independent oracle: each flight's predicates,
+groups and sums written out in numpy over a frame, with exact int64 sums.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple, Union
+
+import numpy as np
+
+from pinot_tpu_torch.segment.convert import ColumnArrays, segment_from_arrays
+from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.spi.data import DataType, FieldType
+
+ROWS_PER_SF = 6_000_000
+TABLE = "ssb_lineorder"
+
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+NATIONS = {
+    "AFRICA": ["ALGERIA", "ETHIOPIA", "KENYA", "MOROCCO", "MOZAMBIQUE"],
+    "AMERICA": ["ARGENTINA", "BRAZIL", "CANADA", "PERU", "UNITED STATES"],
+    "ASIA": ["CHINA", "INDIA", "INDONESIA", "JAPAN", "VIETNAM"],
+    "EUROPE": ["FRANCE", "GERMANY", "ROMANIA", "RUSSIA", "UNITED KINGDOM"],
+    "MIDDLE EAST": ["EGYPT", "IRAN", "IRAQ", "JORDAN", "SAUDI ARABIA"],
+}
+
+# (column, data type, field type) in schema order
+COLUMNS: List[Tuple[str, DataType, FieldType]] = [
+    ("lo_quantity", DataType.INT, FieldType.DIMENSION),
+    ("lo_discount", DataType.INT, FieldType.DIMENSION),
+    ("lo_extendedprice", DataType.INT, FieldType.METRIC),
+    ("lo_revenue", DataType.INT, FieldType.METRIC),
+    ("lo_supplycost", DataType.INT, FieldType.METRIC),
+    ("d_year", DataType.INT, FieldType.DIMENSION),
+    ("d_yearmonthnum", DataType.INT, FieldType.DIMENSION),
+    ("d_weeknuminyear", DataType.INT, FieldType.DIMENSION),
+    ("c_region", DataType.STRING, FieldType.DIMENSION),
+    ("c_nation", DataType.STRING, FieldType.DIMENSION),
+    ("c_city", DataType.STRING, FieldType.DIMENSION),
+    ("s_region", DataType.STRING, FieldType.DIMENSION),
+    ("s_nation", DataType.STRING, FieldType.DIMENSION),
+    ("s_city", DataType.STRING, FieldType.DIMENSION),
+    ("p_mfgr", DataType.STRING, FieldType.DIMENSION),
+    ("p_category", DataType.STRING, FieldType.DIMENSION),
+    ("p_brand1", DataType.STRING, FieldType.DIMENSION),
+]
+
+
+def _sorted_universe(values: List[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """(sorted unique values, generation index -> sorted code)."""
+    uniq, inv = np.unique(np.asarray(values, dtype=np.str_),
+                          return_inverse=True)
+    return uniq, inv.astype(np.int16)
+
+
+# generation order of each string family, as the JAX generator indexes it
+_NATION_GEN = [nat for r in REGIONS for nat in NATIONS[r]]                # 25
+_CITY_GEN = [f"{nat[:9]:<9}{c}" for nat in _NATION_GEN for c in range(10)]
+_MFGR_GEN = [f"MFGR#{m}" for m in range(1, 6)]
+_CAT_GEN = [f"MFGR#{m}{c}" for m in range(1, 6) for c in range(1, 6)]
+_BRAND_GEN = [f"MFGR#{m}{c}{b:02d}" for m in range(1, 6) for c in range(1, 6)
+              for b in range(1, 41)]
+
+_FAMILIES = {"region": _sorted_universe(REGIONS),
+             "nation": _sorted_universe(_NATION_GEN),
+             "city": _sorted_universe(_CITY_GEN),
+             "mfgr": _sorted_universe(_MFGR_GEN),
+             "category": _sorted_universe(_CAT_GEN),
+             "brand": _sorted_universe(_BRAND_GEN)}
+_FAMILY_OF = {"c_region": "region", "s_region": "region",
+              "c_nation": "nation", "s_nation": "nation",
+              "c_city": "city", "s_city": "city", "p_mfgr": "mfgr",
+              "p_category": "category", "p_brand1": "brand"}
+# string column -> sorted value table its codes index
+UNIVERSE: Dict[str, np.ndarray] = {c: _FAMILIES[f][0]
+                                   for c, f in _FAMILY_OF.items()}
+
+
+def _code(family: str, gen_idx: np.ndarray) -> np.ndarray:
+    return _FAMILIES[family][1][gen_idx]
+
+
+def _geo(rng: np.random.Generator, n: int):
+    region_idx = rng.integers(0, len(REGIONS), n)
+    nation_pick = rng.integers(0, 5, n)
+    city_pick = rng.integers(0, 10, n)
+    nation_flat = region_idx * 5 + nation_pick
+    return (_code("region", region_idx), _code("nation", nation_flat),
+            _code("city", nation_flat * 10 + city_pick))
+
+
+def _flat_columns(rng: np.random.Generator, n: int) -> Dict[str, np.ndarray]:
+    """Every column except d_year/d_yearmonthnum, with the JAX generator's
+    draws in its order."""
+    quantity = rng.integers(1, 51, n).astype(np.int64)
+    discount = rng.integers(0, 11, n).astype(np.int64)
+    price = rng.integers(905, 111_000, n)
+    extended = (quantity * price).astype(np.int64)
+    revenue = (extended * (100 - discount) // 100).astype(np.int64)
+    supplycost = rng.integers(540, 66_600, n).astype(np.int64)
+    week = rng.integers(1, 54, n).astype(np.int64)
+    c_region, c_nation, c_city = _geo(rng, n)
+    s_region, s_nation, s_city = _geo(rng, n)
+    mfgr_i = rng.integers(1, 6, n)
+    cat_i = rng.integers(1, 6, n)
+    brand_i = rng.integers(1, 41, n)
+    cat_flat = (mfgr_i - 1) * 5 + (cat_i - 1)
+    return {
+        "lo_quantity": quantity, "lo_discount": discount,
+        "lo_extendedprice": extended, "lo_revenue": revenue,
+        "lo_supplycost": supplycost, "d_weeknuminyear": week,
+        "c_region": c_region, "c_nation": c_nation, "c_city": c_city,
+        "s_region": s_region, "s_nation": s_nation, "s_city": s_city,
+        "p_mfgr": _code("mfgr", mfgr_i - 1),
+        "p_category": _code("category", cat_flat),
+        "p_brand1": _code("brand", cat_flat * 40 + (brand_i - 1)),
+    }
+
+
+_ALL_MONTHS = [y * 100 + m for y in range(1992, 1999) for m in range(1, 13)]
+
+
+def _segment_months(i: int, num_segments: int) -> List[int]:
+    per = -(-len(_ALL_MONTHS) // num_segments)
+    return _ALL_MONTHS[i * per:(i + 1) * per] or [_ALL_MONTHS[-1]]
+
+
+def generate_segment_frame(i: int, num_segments: int, n: int,
+                           seed: int = 42) -> Dict[str, np.ndarray]:
+    """Segment ``i``'s rows: ints as int64 values, strings as int16 codes
+    into ``UNIVERSE[col]``."""
+    rng = np.random.default_rng(seed * 1_000_003 + i)
+    cols = _flat_columns(rng, n)
+    months = np.asarray(_segment_months(i, num_segments))
+    ym = months[rng.integers(0, len(months), n)]
+    cols["d_yearmonthnum"] = ym.astype(np.int64)
+    cols["d_year"] = (ym // 100).astype(np.int64)
+    return cols
+
+
+def segment_rows(num_segments: int, rows: int) -> List[int]:
+    """Rows per segment, split the way the JAX package splits them."""
+    per = -(-rows // num_segments)
+    out, left = [], rows
+    for _ in range(num_segments):
+        take = min(per, left)
+        if take <= 0:
+            break
+        out.append(take)
+        left -= take
+    return out
+
+
+def decode_frame(frame: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """String codes -> numpy string arrays (for comparisons at small size)."""
+    return {c: (UNIVERSE[c][v] if c in UNIVERSE else v)
+            for c, v in frame.items()}
+
+
+def _dict_encode(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Non-negative int array -> (sorted present values, dictIds), in O(n)
+    when the value span is small enough for a presence table."""
+    lo = int(codes.min())
+    span = int(codes.max()) - lo + 1
+    if span > (1 << 26):
+        uniq, ids = np.unique(codes, return_inverse=True)
+        return uniq, ids.reshape(-1)
+    shifted = codes - lo
+    present = np.bincount(shifted, minlength=span) > 0
+    remap = np.cumsum(present) - 1
+    ids_dtype = np.int32 if span > (1 << 15) else np.int16
+    return (np.nonzero(present)[0] + lo,
+            remap.astype(ids_dtype)[shifted])
+
+
+def segment_from_frame(name: str, frame: Dict[str, np.ndarray]
+                       ) -> ImmutableSegment:
+    """A port segment with sorted dictionaries built from the frame."""
+    num_docs = len(frame["lo_quantity"])
+    columns = {}
+    for col, dt, ft in COLUMNS:
+        values, ids = _dict_encode(np.asarray(frame[col]))
+        dictionary = UNIVERSE[col][values] if col in UNIVERSE else values
+        columns[col] = ColumnArrays(data_type=dt, field_type=ft,
+                                    dictionary=dictionary, dict_ids=ids)
+    return segment_from_arrays(name, num_docs, columns, table_name=TABLE)
+
+
+def build_segments(sf: float, num_segments: int = 8, seed: int = 42,
+                   rows: int = 0) -> Tuple[List[ImmutableSegment],
+                                           List[Dict[str, np.ndarray]]]:
+    """(segments, their frames) for ``rows or sf * ROWS_PER_SF`` rows."""
+    n = rows or int(sf * ROWS_PER_SF)
+    segs, frames = [], []
+    for i, take in enumerate(segment_rows(num_segments, n)):
+        frame = generate_segment_frame(i, num_segments, take, seed)
+        segs.append(segment_from_frame(f"ssb_{i}", frame))
+        frames.append(frame)
+    return segs, frames
+
+
+# The 13 SSB flights on the flat schema.
+QUERIES: Dict[str, str] = {
+    "Q1.1": "SELECT sum(lo_extendedprice * lo_discount) FROM ssb_lineorder "
+            "WHERE d_year = 1993 AND lo_discount BETWEEN 1 AND 3 "
+            "AND lo_quantity < 25",
+    "Q1.2": "SELECT sum(lo_extendedprice * lo_discount) FROM ssb_lineorder "
+            "WHERE d_yearmonthnum = 199401 AND lo_discount BETWEEN 4 AND 6 "
+            "AND lo_quantity BETWEEN 26 AND 35",
+    "Q1.3": "SELECT sum(lo_extendedprice * lo_discount) FROM ssb_lineorder "
+            "WHERE d_weeknuminyear = 6 AND d_year = 1994 "
+            "AND lo_discount BETWEEN 5 AND 7 "
+            "AND lo_quantity BETWEEN 26 AND 35",
+    "Q2.1": "SELECT d_year, p_brand1, sum(lo_revenue) FROM ssb_lineorder "
+            "WHERE p_category = 'MFGR#12' AND s_region = 'AMERICA' "
+            "GROUP BY d_year, p_brand1 ORDER BY d_year, p_brand1",
+    "Q2.2": "SELECT d_year, p_brand1, sum(lo_revenue) FROM ssb_lineorder "
+            "WHERE p_brand1 BETWEEN 'MFGR#2221' AND 'MFGR#2228' "
+            "AND s_region = 'ASIA' "
+            "GROUP BY d_year, p_brand1 ORDER BY d_year, p_brand1",
+    "Q2.3": "SELECT d_year, p_brand1, sum(lo_revenue) FROM ssb_lineorder "
+            "WHERE p_brand1 = 'MFGR#2239' AND s_region = 'EUROPE' "
+            "GROUP BY d_year, p_brand1 ORDER BY d_year, p_brand1",
+    "Q3.1": "SELECT c_nation, s_nation, d_year, sum(lo_revenue) "
+            "FROM ssb_lineorder "
+            "WHERE c_region = 'ASIA' AND s_region = 'ASIA' "
+            "AND d_year BETWEEN 1992 AND 1997 "
+            "GROUP BY c_nation, s_nation, d_year "
+            "ORDER BY d_year ASC, sum(lo_revenue) DESC",
+    "Q3.2": "SELECT c_city, s_city, d_year, sum(lo_revenue) "
+            "FROM ssb_lineorder "
+            "WHERE c_nation = 'UNITED STATES' AND s_nation = 'UNITED STATES' "
+            "AND d_year BETWEEN 1992 AND 1997 "
+            "GROUP BY c_city, s_city, d_year "
+            "ORDER BY d_year ASC, sum(lo_revenue) DESC",
+    "Q3.3": "SELECT c_city, s_city, d_year, sum(lo_revenue) "
+            "FROM ssb_lineorder "
+            "WHERE c_city IN ('UNITED KI1', 'UNITED KI5') "
+            "AND s_city IN ('UNITED KI1', 'UNITED KI5') "
+            "AND d_year BETWEEN 1992 AND 1997 "
+            "GROUP BY c_city, s_city, d_year "
+            "ORDER BY d_year ASC, sum(lo_revenue) DESC",
+    "Q3.4": "SELECT c_city, s_city, d_year, sum(lo_revenue) "
+            "FROM ssb_lineorder "
+            "WHERE c_city IN ('UNITED KI1', 'UNITED KI5') "
+            "AND s_city IN ('UNITED KI1', 'UNITED KI5') "
+            "AND d_yearmonthnum = 199712 "
+            "GROUP BY c_city, s_city, d_year "
+            "ORDER BY d_year ASC, sum(lo_revenue) DESC",
+    "Q4.1": "SELECT d_year, c_nation, sum(lo_revenue - lo_supplycost) "
+            "FROM ssb_lineorder "
+            "WHERE c_region = 'AMERICA' AND s_region = 'AMERICA' "
+            "AND p_mfgr IN ('MFGR#1', 'MFGR#2') "
+            "GROUP BY d_year, c_nation ORDER BY d_year, c_nation",
+    "Q4.2": "SELECT d_year, s_nation, p_category, "
+            "sum(lo_revenue - lo_supplycost) FROM ssb_lineorder "
+            "WHERE c_region = 'AMERICA' AND s_region = 'AMERICA' "
+            "AND p_mfgr IN ('MFGR#1', 'MFGR#2') "
+            "AND d_year IN (1997, 1998) "
+            "GROUP BY d_year, s_nation, p_category "
+            "ORDER BY d_year, s_nation, p_category",
+    "Q4.3": "SELECT d_year, s_city, p_brand1, "
+            "sum(lo_revenue - lo_supplycost) FROM ssb_lineorder "
+            "WHERE s_nation = 'UNITED STATES' AND d_year IN (1997, 1998) "
+            "AND p_category = 'MFGR#14' "
+            "GROUP BY d_year, s_city, p_brand1 "
+            "ORDER BY d_year, s_city, p_brand1",
+}
+
+# -- the oracle -------------------------------------------------------------
+
+_US_CITIES_KI = ("UNITED KI1", "UNITED KI5")
+# flight -> (conditions, group columns, summed value); a condition is
+# (column, "eq" | "between" | "in", operands)
+_ORACLE = {
+    "Q1.1": ([("d_year", "eq", 1993), ("lo_discount", "between", (1, 3)),
+              ("lo_quantity", "between", (None, 24))], (), "price_disc"),
+    "Q1.2": ([("d_yearmonthnum", "eq", 199401),
+              ("lo_discount", "between", (4, 6)),
+              ("lo_quantity", "between", (26, 35))], (), "price_disc"),
+    "Q1.3": ([("d_weeknuminyear", "eq", 6), ("d_year", "eq", 1994),
+              ("lo_discount", "between", (5, 7)),
+              ("lo_quantity", "between", (26, 35))], (), "price_disc"),
+    "Q2.1": ([("p_category", "eq", "MFGR#12"), ("s_region", "eq", "AMERICA")],
+             ("d_year", "p_brand1"), "revenue"),
+    "Q2.2": ([("p_brand1", "between", ("MFGR#2221", "MFGR#2228")),
+              ("s_region", "eq", "ASIA")], ("d_year", "p_brand1"), "revenue"),
+    "Q2.3": ([("p_brand1", "eq", "MFGR#2239"), ("s_region", "eq", "EUROPE")],
+             ("d_year", "p_brand1"), "revenue"),
+    "Q3.1": ([("c_region", "eq", "ASIA"), ("s_region", "eq", "ASIA"),
+              ("d_year", "between", (1992, 1997))],
+             ("c_nation", "s_nation", "d_year"), "revenue"),
+    "Q3.2": ([("c_nation", "eq", "UNITED STATES"),
+              ("s_nation", "eq", "UNITED STATES"),
+              ("d_year", "between", (1992, 1997))],
+             ("c_city", "s_city", "d_year"), "revenue"),
+    "Q3.3": ([("c_city", "in", _US_CITIES_KI), ("s_city", "in", _US_CITIES_KI),
+              ("d_year", "between", (1992, 1997))],
+             ("c_city", "s_city", "d_year"), "revenue"),
+    "Q3.4": ([("c_city", "in", _US_CITIES_KI), ("s_city", "in", _US_CITIES_KI),
+              ("d_yearmonthnum", "eq", 199712)],
+             ("c_city", "s_city", "d_year"), "revenue"),
+    "Q4.1": ([("c_region", "eq", "AMERICA"), ("s_region", "eq", "AMERICA"),
+              ("p_mfgr", "in", ("MFGR#1", "MFGR#2"))],
+             ("d_year", "c_nation"), "profit"),
+    "Q4.2": ([("c_region", "eq", "AMERICA"), ("s_region", "eq", "AMERICA"),
+              ("p_mfgr", "in", ("MFGR#1", "MFGR#2")),
+              ("d_year", "in", (1997, 1998))],
+             ("d_year", "s_nation", "p_category"), "profit"),
+    "Q4.3": ([("s_nation", "eq", "UNITED STATES"),
+              ("d_year", "in", (1997, 1998)),
+              ("p_category", "eq", "MFGR#14")],
+             ("d_year", "s_city", "p_brand1"), "profit"),
+}
+
+
+def _condition(frame, col: str, op: str, arg) -> np.ndarray:
+    v = frame[col]
+    if col in UNIVERSE:   # translate string operands to universe codes
+        table = UNIVERSE[col]
+
+        def code(s):
+            i = int(np.searchsorted(table, s))
+            return i if i < len(table) and table[i] == s else -1
+
+        if op == "eq":
+            arg = code(arg)
+        elif op == "in":
+            arg = tuple(code(s) for s in arg)
+        else:
+            lo, hi = arg
+            arg = (int(np.searchsorted(table, lo, side="left")),
+                   int(np.searchsorted(table, hi, side="right")) - 1)
+    if op == "eq":
+        return v == arg
+    if op == "in":
+        return np.isin(v, np.asarray(arg))
+    lo, hi = arg
+    m = np.ones(v.shape[0], dtype=bool)
+    if lo is not None:
+        m &= v >= lo
+    if hi is not None:
+        m &= v <= hi
+    return m
+
+
+def numpy_answer(frame: Dict[str, np.ndarray], qid: str
+                 ) -> Union[int, Dict[Tuple, int]]:
+    """Exact answer of flight ``qid`` over one frame: an int for the Q1
+    flights, else {group key tuple: int sum}. Partials of several frames
+    add up (``merge_answers``)."""
+    conds, groups, value = _ORACLE[qid]
+    m = np.ones(len(frame["lo_quantity"]), dtype=bool)
+    for col, op, arg in conds:
+        m &= _condition(frame, col, op, arg)
+    if value == "price_disc":
+        vals = frame["lo_extendedprice"][m] * frame["lo_discount"][m]
+    elif value == "revenue":
+        vals = frame["lo_revenue"][m]
+    else:
+        vals = frame["lo_revenue"][m] - frame["lo_supplycost"][m]
+    vals = vals.astype(np.int64)
+    if not groups:
+        return int(vals.sum(dtype=np.int64))
+    keys = np.stack([frame[g][m].astype(np.int64) for g in groups], axis=1)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    sums = np.zeros(uniq.shape[0], dtype=np.int64)
+    np.add.at(sums, inv.reshape(-1), vals)
+    out: Dict[Tuple, int] = {}
+    for row, s in zip(uniq.tolist(), sums.tolist()):
+        key = tuple(str(UNIVERSE[g][x]) if g in UNIVERSE else int(x)
+                    for g, x in zip(groups, row))
+        out[key] = int(s)
+    return out
+
+
+def merge_answers(parts: List[Union[int, Dict[Tuple, int]]]
+                  ) -> Union[int, Dict[Tuple, int]]:
+    if isinstance(parts[0], int):
+        return sum(parts)
+    out: Dict[Tuple, int] = {}
+    for p in parts:
+        for k, v in p.items():
+            out[k] = out.get(k, 0) + v
+    return out

@@ -1,0 +1,135 @@
+"""The PyTorch port stands alone: no JAX, no pinot_tpu, no hidden device
+fallback."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "pinot_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "pinot_tpu"}
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _dirs, files in os.walk(PORT):
+        out.extend(os.path.join(dirpath, f) for f in files if f.endswith(".py"))
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_executor_import_leaves_jax_unloaded():
+    code = ("import sys, pinot_tpu_torch.engine.executor, "
+            "pinot_tpu_torch.tools.ssb, pinot_tpu_torch.engine.fused_scan; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'pinot_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _tiny_segment():
+    from pinot_tpu_torch.segment import SegmentBuilder
+    from pinot_tpu_torch.spi import DataType, FieldSpec, FieldType, Schema
+
+    rng = np.random.default_rng(1)
+    n = 5000
+    schema = Schema("tiny", [FieldSpec("k", DataType.STRING),
+                             FieldSpec("v", DataType.INT, FieldType.METRIC)])
+    frame = {"k": np.array(["a", "b", "c"])[rng.integers(0, 3, n)],
+             "v": rng.integers(0, 100, n)}
+    return SegmentBuilder(schema, "tiny_0").build(frame), frame
+
+
+def test_default_device_raises_without_a_card():
+    from pinot_tpu_torch.device import resolve_device
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.engine.staging import StagedSegment
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServerQueryExecutor()
+    with pytest.raises(RuntimeError, match="cuda"):
+        StagedSegment(_tiny_segment()[0])
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+
+
+def test_cpu_device_runs_plain_path():
+    from pinot_tpu_torch.engine import fused_scan
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query import compile_query
+
+    seg, frame = _tiny_segment()
+    before = (fused_scan.SCAN_COUNTER.launches,
+              fused_scan.PROBE_COUNTER.launches)
+    table, stats = ServerQueryExecutor(device="cpu").execute(
+        compile_query("SELECT k, sum(v), count(*) FROM tiny "
+                      "WHERE v >= 50 GROUP BY k ORDER BY k"), [seg])
+    m = frame["v"] >= 50
+    want = [[k, float(frame["v"][m & (frame["k"] == k)].sum()),
+             int((m & (frame["k"] == k)).sum())] for k in ("a", "b", "c")]
+    assert table.rows == want
+    assert stats.num_docs_scanned == int(m.sum())
+    # the plain version is not a kernel launch
+    assert (fused_scan.SCAN_COUNTER.launches,
+            fused_scan.PROBE_COUNTER.launches) == before
+
+
+def test_cpu_wrapper_rejects_mismatched_inputs():
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.engine.plan import plan_segment
+    from pinot_tpu_torch.engine.staging import StagedSegment
+    from pinot_tpu_torch.query import compile_query
+
+    seg, _ = _tiny_segment()
+    staged = StagedSegment(seg, device="cpu")
+    plan = plan_segment(compile_query("SELECT sum(v) FROM tiny WHERE k = 'a'"),
+                        seg)
+    pp = fs.extract_plan(plan, seg)
+    words = [staged.packed_column(c).words for c in pp.packed_names]
+    values = [staged.value_column(c) for c in pp.value_names]
+    prog = fs.compile_program(pp, (2,))
+    with pytest.raises(ValueError):
+        fs.fused_scan(prog, words, [values[0].to(torch.float32)], seg.num_docs)
+    with pytest.raises(ValueError):
+        fs.fused_scan(prog, words, values, 10 ** 9)
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT DISTINCT k FROM tiny",
+    "SELECT k, sum(v) FROM tiny GROUP BY k HAVING sum(v) > 3",
+    "SELECT sum(v / 2) FROM tiny",
+    "SELECT sum(v) FROM tiny WHERE k LIKE 'a%'",
+    "SELECT upper(k), count(*) FROM tiny GROUP BY upper(k)",
+    "SELECT k FROM tiny",
+    "SELECT sum(v) FROM tiny LIMIT 5 OFFSET 2",
+])
+def test_unsupported_sql_raises_typed_error(sql):
+    from pinot_tpu_torch.query import SqlParseError, compile_query
+
+    with pytest.raises(SqlParseError):
+        compile_query(sql)
