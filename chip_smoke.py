@@ -10,15 +10,23 @@ Phases:
      inputs: every bit width, a remainder tile, iv/ivs/not/or filters, int
      and float expressions, an i64 column, every aggregation, 128 and 8192
      groups (shared-memory and global accumulators), and the probe mode;
-  4. the main path: SSB at ``--sf`` in ``--segments`` segments, the 13
-     flights ``--reps`` times through ServerQueryExecutor(device="cuda"),
+     then the same cases as one launch over a batch of 3 segments of
+     different sizes plus one padded segment with no docs;
+  4. the per-segment path: SSB at ``--sf`` in ``--segments`` segments, the
+     13 flights ``--reps`` times through ServerQueryExecutor(device="cuda"),
      every launch counted, every answer held against the numpy oracle;
      then the graft-entry SQL on a 5-column segment;
-  5. at the main path's shapes (segment 0, every flight and probe): the
-     kernel held against its plain version again, then timings of both
-     beside the bound, and one JSON line listing the kernels.
+  5. at the per-segment path's shapes (segment 0, every flight and probe):
+     the kernel held against its plain version again, then timings of both
+     beside the bound;
+  6. the batch path: the same segments and flights through
+     ShardedQueryExecutor(device="cuda"), one launch per flight over the
+     whole batch, every launch counted, every answer held against the
+     oracle; then at its shapes (all segments, every flight and probe) the
+     kernel against its plain version and timings of both beside the
+     bound; and one JSON line listing the kernels.
 The last line is {"ok": true, "device": {...}}; any failure raises and
-exits non-zero without it. Needs a CUDA card; exits 2 without one.
+exits non-zero without it. Needs one CUDA card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ def log(msg: str) -> None:
 
 # -- phase 3: kernel against plain version -----------------------------------
 
-def _synthetic_segment(n: int, seed: int):
+def _synthetic_segment(n: int, seed: int, i: int = 0):
     """Columns with one of each packed width (1, 2, 4, 8, 16, 32 bits),
     int/float/i64 values, and doc-correlated columns for the probe."""
     from pinot_tpu_torch.segment import ColumnArrays, segment_from_arrays
@@ -56,7 +64,7 @@ def _synthetic_segment(n: int, seed: int):
         return ColumnArrays(dt, ft, uniq, ids.reshape(-1))
 
     doc = np.arange(n)
-    return segment_from_arrays("synthetic_0", n, {
+    return segment_from_arrays(f"synthetic_{i}", n, {
         "b1": col(DataType.INT, D, rng.integers(0, 2, n)),
         "b2": col(DataType.INT, D, rng.integers(0, 3, n)),
         "b4": col(DataType.STRING, D,
@@ -98,34 +106,45 @@ def _kernel_cases():
 
 
 def _scan_args(staged, sql) -> dict:
-    """{kernel name: (program, packed words, values)} of ``sql`` over one
-    staged segment, built by the executor's own ``scan_inputs``; the probe
-    entry is there when the query probes first."""
+    """{kernel name: (launch, inputs)} of ``sql`` over a staged segment or a
+    staged batch, built by the executors' own ``scan_inputs``, which picks
+    the wrappers (and so the counters) for the staged type: ``launch()``
+    runs the wrapper, ``inputs`` are the plain version's (program, packed
+    words, values, num_docs). The probe entry is there when the query
+    probes first (the probe launches once here)."""
     from pinot_tpu_torch.engine import fused_scan as fs
     from pinot_tpu_torch.engine.plan import plan_segment
     from pinot_tpu_torch.query import compile_query
 
-    plan = plan_segment(compile_query(sql + " LIMIT 100000"), staged.segment)
+    plan = plan_segment(compile_query(sql + " LIMIT 100000"), staged.provider)
     reasons = []
     inp = fs.scan_inputs(plan, staged, on_decline=reasons.append)
     if inp is None:
         raise AssertionError(f"{sql}: declined {reasons}")
-    args = {"fused_scan": (inp.prog, inp.words, inp.values)}
+    k = inp.kernels
+    args = {k.scan_counter.name: (
+        inp.scan, (inp.prog, inp.words, inp.values, inp.num_docs))}
     if inp.probe is not None:
-        args["fused_scan_probe"] = (*inp.probe, [])
+        prog, words = inp.probe
+        args[k.probe_counter.name] = (
+            lambda: k.probe(prog, words, inp.num_docs),
+            (prog, words, [], inp.num_docs))
     return args
 
 
-def _kernel_vs_plain(args: dict, num_docs: int, what: str, errs: dict
-                     ) -> None:
-    """Run each program once through the kernel and once through its plain
-    version; fold the largest float difference into ``errs``."""
+def _kernel_vs_plain(args: dict, what: str, errs: dict) -> dict:
+    """Run each program once through its kernel's wrapper and once through
+    the plain version; fold the largest float difference into ``errs``.
+    -> {kernel name: the kernel's outputs}."""
     from pinot_tpu_torch.engine import fused_scan as fs
 
-    for kind, a in args.items():
-        kern = fs.fused_scan(*a, num_docs)
-        plain = fs.fused_scan_plain(*a, num_docs)
-        errs[kind] = max(errs[kind], _compare(kern, plain, f"{what} ({kind})"))
+    outs = {}
+    for kind, (launch, a) in args.items():
+        outs[kind] = launch()
+        plain = fs.fused_scan_plain(*a)
+        errs[kind] = max(errs[kind], _compare(outs[kind], plain,
+                                              f"{what} ({kind})"))
+    return outs
 
 
 def _compare(kern, plain, what: str) -> float:
@@ -148,6 +167,11 @@ def _compare(kern, plain, what: str) -> float:
     return err
 
 
+# docs of the phase-3 batch's segments: different sizes, each ending in a
+# remainder tile
+BATCH_DOCS = (200_123, 150_001, 90_917)
+
+
 def phase_kernels(n: int = 200_123, seed: int = 7) -> dict:
     from pinot_tpu_torch.engine import fused_scan as fs
     from pinot_tpu_torch.engine.staging import StagedSegment
@@ -159,10 +183,10 @@ def phase_kernels(n: int = 200_123, seed: int = 7) -> dict:
     probed = False
     for what, sql in _kernel_cases():
         args = _scan_args(staged, sql)
-        prog = args["fused_scan"][0]
+        prog = args["fused_scan"][1][0]
         bits_seen.update(prog.bits)
         probed |= "fused_scan_probe" in args
-        _kernel_vs_plain(args, seg.num_docs, what, errs)
+        _kernel_vs_plain(args, what, errs)
         log(f"  kernel == plain: {what} (G={prog.G}, bits={prog.bits})")
     missing = {1, 2, 4, 8, 16, 32} - bits_seen
     if missing:
@@ -172,6 +196,44 @@ def phase_kernels(n: int = 200_123, seed: int = 7) -> dict:
     if seg.num_docs % fs.TILE == 0:
         raise AssertionError("the synthetic segment must end in a "
                              "remainder tile")
+    errs.update(phase_batch_kernels(seed))
+    return errs
+
+
+def phase_batch_kernels(seed: int) -> dict:
+    """The phase-3 cases as one launch over a batch: 3 segments with their
+    own dictionaries (unified by the batch) and one padded segment with no
+    docs, whose matched count must stay 0."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.parallel.batch import SegmentBatch, StagedBatch
+
+    segs = [_synthetic_segment(n, seed + i, i)
+            for i, n in enumerate(BATCH_DOCS)]
+    if any(n % fs.TILE == 0 for n in BATCH_DOCS):
+        raise AssertionError("every batch segment must end in a remainder "
+                             "tile")
+    staged = StagedBatch(SegmentBatch(segs), device="cuda",
+                         num_segs=len(segs) + 1)
+    errs = {"sharded_fused_scan": 0.0, "sharded_fused_scan_probe": 0.0}
+    accs = set()
+    probed = False
+    for what, sql in _kernel_cases():
+        args = _scan_args(staged, sql)
+        prog = args["sharded_fused_scan"][1][0]
+        probed |= "sharded_fused_scan_probe" in args
+        outs = _kernel_vs_plain(args, f"batch: {what}", errs)
+        matched = outs["sharded_fused_scan"].to_host().matched
+        if int(matched[-1]) != 0:
+            raise AssertionError(f"batch: {what}: the padded segment "
+                                 f"matched {int(matched[-1])} docs")
+        accs.add("scalar" if prog.scalar else "global" if prog.G * (
+            8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm)
+            > fs._SMEM_BLOCK_MAX else "shared")
+        log(f"  batch kernel == plain: {what} (S={len(segs)}+1 padded, "
+            f"G={prog.G}, per-segment matched {matched.tolist()})")
+    if not probed or not {"shared", "global"} <= accs:
+        raise AssertionError(f"batch cases missed the probe or an "
+                             f"accumulator kind: {sorted(accs)}")
     return errs
 
 
@@ -238,10 +300,51 @@ def _graft_entry_check() -> None:
     log(f"  graft-entry SQL: {len(table.rows)} rows match numpy")
 
 
+def _run_flights(ex, ctxs: dict, segs, reps: int) -> tuple:
+    """The flights ``reps`` times through ``ex``: -> ({flight: [ms]},
+    {flight: last table}); every run must record no decision."""
+    import torch
+
+    lat = {qid: [] for qid in ctxs}
+    results = {}
+    for _ in range(reps):
+        for qid, ctx in ctxs.items():
+            t0 = time.perf_counter()
+            table, stats = ex.execute(ctx, segs)
+            torch.cuda.synchronize()
+            lat[qid].append((time.perf_counter() - t0) * 1e3)
+            results[qid] = table
+            if stats.decisions:
+                raise AssertionError(f"{qid}: decisions {stats.decisions}")
+    return lat, results
+
+
+def _latencies(lat: dict, rows: int, beside: dict = None) -> dict:
+    per_flight = {}
+    for qid, ms in lat.items():
+        p50 = float(np.percentile(ms, 50))
+        p99 = float(np.percentile(ms, 99))
+        per_flight[qid] = {"p50_ms": p50, "p99_ms": p99,
+                           "rows_per_s": rows / (p50 / 1e3)}
+        other = ""
+        if beside is not None:
+            other = (f"  (per segment: p50 {beside[qid]['p50_ms']:.3f} ms, "
+                     f"p99 {beside[qid]['p99_ms']:.3f} ms)")
+        log(f"  {qid}: p50 {p50:.3f} ms  p99 {p99:.3f} ms  "
+            f"{rows / (p50 / 1e3):.4g} rows/s{other}")
+    return per_flight
+
+
+def _reset(counters: dict) -> None:
+    for c in counters.values():
+        c.reset()
+
+
 def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
     import torch
 
-    from pinot_tpu_torch.engine.executor import ServerQueryExecutor, scan_counters
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.parallel.executor import scan_counters
     from pinot_tpu_torch.query import compile_query
     from pinot_tpu_torch.tools import ssb
 
@@ -270,45 +373,27 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
         f"({resident / rows:.2f} B/row), {time.perf_counter() - t0:.1f} s")
 
     counters = scan_counters()
-    for c in counters.values():
-        c.reset()
-    lat = {qid: [] for qid in ctxs}
-    results = {}
-    for _ in range(reps):
-        for qid, ctx in ctxs.items():
-            t0 = time.perf_counter()
-            table, stats = ex.execute(ctx, segs)
-            torch.cuda.synchronize()
-            lat[qid].append((time.perf_counter() - t0) * 1e3)
-            results[qid] = table
+    _reset(counters)
+    lat, results = _run_flights(ex, ctxs, segs, reps)
     launches = {name: c.launches for name, c in counters.items()}
-    expect_scan = len(segs) * len(ctxs) * reps
-    expect_probe = len(segs) * 2 * reps          # Q3.2 and Q4.3
-    if (launches["fused_scan"] != expect_scan
-            or launches["fused_scan_probe"] != expect_probe):
-        raise AssertionError(f"launch counts {launches} != scan "
-                             f"{expect_scan}, probe {expect_probe}")
-    log(f"  launches on the main path: {launches} (expected scan "
-        f"{expect_scan}, probe {expect_probe}); 0 declines")
+    expect = {"fused_scan": len(segs) * len(ctxs) * reps,
+              "fused_scan_probe": len(segs) * 2 * reps,   # Q3.2 and Q4.3
+              "sharded_fused_scan": 0, "sharded_fused_scan_probe": 0}
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    log(f"  launches on the per-segment path: {launches}; 0 declines")
     for qid, table in results.items():
         _check_flight(qid, table, wants[qid])
     log("  13 flights == numpy oracle (group sets and int sums exact)")
-    per_flight = {}
-    for qid, ms in lat.items():
-        p50 = float(np.percentile(ms, 50))
-        p99 = float(np.percentile(ms, 99))
-        per_flight[qid] = {"p50_ms": p50, "p99_ms": p99,
-                           "rows_per_s": rows / (p50 / 1e3)}
-        log(f"  {qid}: p50 {p50:.3f} ms  p99 {p99:.3f} ms  "
-            f"{rows / (p50 / 1e3):.4g} rows/s")
+    per_flight = _latencies(lat, rows)
     log(f"  torch.cuda.max_memory_allocated: "
         f"{torch.cuda.max_memory_allocated()} bytes")
     _graft_entry_check()
-    return {"segs": segs, "ex": ex, "launches": launches,
-            "per_flight": per_flight, "rows": rows}
+    return {"segs": segs, "ex": ex, "launches": launches, "ctxs": ctxs,
+            "wants": wants, "per_flight": per_flight, "rows": rows}
 
 
-# -- phase 5: kernel timings at the main path's shapes ------------------------
+# -- phase 5: kernel timings at the per-segment path's shapes -----------------
 
 def _time_ms(fn, iters: int) -> float:
     import torch
@@ -325,37 +410,126 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _bytes_of(prog, words, values) -> int:
-    outs = prog.G * (8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm) + 8
-    return (sum(w.numel() * 4 for w in words)
-            + sum(v.numel() * v.element_size() for v in values) + outs)
+SECTOR = 32   # bytes the card's memory moves per access
 
 
-def phase_timing(main: dict, errs: dict, iters: int = 20) -> dict:
-    """Each flight's scan (and probe) on segment 0: held against the plain
-    version at these shapes (folded into ``errs``), then timed."""
+def _sectors(need, per_sector: int) -> int:
+    """32-byte sectors holding at least one needed element: ``need`` is a
+    bool [..., n] mask, ``per_sector`` elements per sector."""
+    return int(need.reshape(-1, per_sector).any(dim=1).sum())
+
+
+def _needed_bytes(prog, words, values, num_docs) -> int:
+    """Bytes this scan must move, from this run's data: the filter's
+    packed columns on every sector holding a doc (every doc's filter is
+    evaluated), group-key and value columns only on sectors holding a doc
+    that passed the filter, ``num_docs`` read once, every output (per-group
+    rows, per-segment matched counts) written once."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+
+    valid, matched = fs.doc_masks(prog, words, num_docs)
+    p = prog.prog.tolist()
+    in_filter = {p[prog.filter_off + 4 * i + 1] for i in range(prog.filter_n)
+                 if p[prog.filter_off + 4 * i] in (fs.F_IV, fs.F_IVS)}
+    total = 0
+    for c, (w, bits) in enumerate(zip(words, prog.bits)):
+        S, T, W = w.shape
+        need = valid if c in in_filter else matched
+        # doc j of a tile sits in word j % W of the tile (planar layout)
+        per_word = need.view(S * T, fs.TILE // W, W).any(dim=1)
+        total += SECTOR * _sectors(per_word, SECTOR // 4)
+    for v in values:
+        total += SECTOR * _sectors(matched, SECTOR // v.element_size())
+    outs = (prog.G * (8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm)
+            + 8 * num_docs.numel())
+    return total + 8 * num_docs.numel() + outs
+
+
+def _time_kernels(staged, errs: dict, docs: int, iters: int) -> list:
+    """Each flight's scan (and probe) over ``staged``: held against the
+    plain version at these shapes (folded into ``errs``), then timed beside
+    the bound from the bytes this run's data needs."""
     from pinot_tpu_torch.engine import fused_scan as fs
     from pinot_tpu_torch.tools import ssb
 
-    seg = main["segs"][0]
-    staged = main["ex"].stage(seg)
     rows = []
     for qid, q in ssb.QUERIES.items():
         scan_args = _scan_args(staged, q)
-        _kernel_vs_plain(scan_args, seg.num_docs, qid, errs)
-        for kind, args in scan_args.items():
-            nbytes = _bytes_of(*args)
-            k_ms = _time_ms(lambda: fs.fused_scan(*args, seg.num_docs), iters)
-            p_ms = _time_ms(lambda: fs.fused_scan_plain(*args, seg.num_docs),
-                            3)
-            rows.append({"flight": qid, "kernel": kind, "docs": seg.num_docs,
-                         "groups": args[0].G, "bytes": nbytes, "ms": k_ms,
+        _kernel_vs_plain(scan_args, qid, errs)
+        for kind, (launch, args) in scan_args.items():
+            nbytes = _needed_bytes(*args)
+            full = _full_bytes(*args)
+            k_ms = _time_ms(launch, iters)
+            p_ms = _time_ms(lambda: fs.fused_scan_plain(*args), 3)
+            rows.append({"flight": qid, "kernel": kind, "docs": docs,
+                         "groups": args[0].G, "bytes": nbytes,
+                         "all_column_bytes": full, "ms": k_ms,
                          "plain_ms": p_ms,
                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
             log(f"  {qid} {kind}: {k_ms:.4f} ms/launch (bound "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {nbytes} B), "
-                f"plain {p_ms:.3f} ms")
-    return {"rows": rows}
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {nbytes} B needed "
+                f"of {full} B in its columns), plain {p_ms:.3f} ms")
+    return rows
+
+
+def _full_bytes(prog, words, values, num_docs) -> int:
+    """Bytes of every column the scan reads, in full: the most any data
+    could need (logged beside the bound, not used for it)."""
+    return (sum(w.numel() * 4 for w in words)
+            + sum(v.numel() * v.element_size() for v in values))
+
+
+def phase_timing(main: dict, errs: dict, iters: int = 20) -> list:
+    seg = main["segs"][0]
+    return _time_kernels(main["ex"].stage(seg), errs, seg.num_docs, iters)
+
+
+# -- phase 6: the batch path ----------------------------------------------------
+
+def phase_batch(main: dict, reps: int, errs: dict, iters: int = 20) -> dict:
+    """The main path's segments and flights through ShardedQueryExecutor:
+    one launch per flight over the whole batch, the probe once per probed
+    flight (at binding), no per-segment launch; then the batch kernel
+    against its plain version and timed at these shapes."""
+    import torch
+
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+    from pinot_tpu_torch.parallel.executor import scan_counters
+
+    segs, ctxs, rows = main["segs"], main["ctxs"], main["rows"]
+    counters = scan_counters()
+    _reset(counters)
+    ex = ShardedQueryExecutor(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for ctx in ctxs.values():   # untimed pass: stages and binds each flight
+        ex.execute(ctx, segs)
+    torch.cuda.synchronize()
+    (_batch, staged), = ex._batches.values()
+    resident = staged.nbytes()
+    log(f"  batch of {len(segs)} segments staged + bound in one untimed "
+        f"pass: {resident} bytes resident ({resident / rows:.2f} B/row), "
+        f"{time.perf_counter() - t0:.1f} s")
+    lat, results = _run_flights(ex, ctxs, segs, reps)
+    launches = {name: c.launches for name, c in counters.items()}
+    expect = {"fused_scan": 0, "fused_scan_probe": 0,
+              "sharded_fused_scan": len(ctxs) * (reps + 1),
+              "sharded_fused_scan_probe": 2}          # Q3.2, Q4.3 at binding
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    log(f"  launches on the batch path: {launches}; 0 declines")
+    for qid, table in results.items():
+        _check_flight(qid, table, main["wants"][qid])
+    log("  13 flights == numpy oracle (group sets and int sums exact)")
+    per_flight = _latencies(lat, rows, beside=main["per_flight"])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  torch.cuda.max_memory_allocated: {peak} bytes")
+    log(f"  batch kernel against plain version and timings at the batch "
+        f"path's shapes ({rows} docs)")
+    timing = _time_kernels(staged, errs, rows, iters)
+    return {"launches": launches, "per_flight": per_flight,
+            "resident_bytes": resident, "max_memory_allocated": peak,
+            "timing": timing}
 
 
 def main(argv=None) -> int:
@@ -397,24 +571,36 @@ def main(argv=None) -> int:
     errs = phase_kernels()
     log(f"  all cases agree ({time.perf_counter() - t0:.1f} s)")
 
-    log("phase 4: main path")
+    log("phase 4: per-segment path")
     t0 = time.perf_counter()
     main_run = phase_main(args.sf, args.segments, args.seed, args.reps)
-    log(f"  main path phase: {time.perf_counter() - t0:.1f} s")
+    log(f"  per-segment path phase: {time.perf_counter() - t0:.1f} s")
 
-    log("phase 5: kernel against plain version and timings at the main "
-        "path's shapes (segment 0)")
+    log("phase 5: kernel against plain version and timings at the "
+        "per-segment path's shapes (segment 0)")
     timing = phase_timing(main_run, errs)
+
+    log("phase 6: batch path")
+    t0 = time.perf_counter()
+    batch_run = phase_batch(main_run, args.reps, errs)
+    log(f"  batch path phase: {time.perf_counter() - t0:.1f} s")
+    timing += batch_run["timing"]
+    launches = {**main_run["launches"], **{
+        k: v for k, v in batch_run["launches"].items() if k.startswith(
+            "sharded")}}
     kernels = []
     for name, replaces in (
             ("fused_scan", "pinot_tpu/engine/pallas_kernels.py:603"),
-            ("fused_scan_probe", "pinot_tpu/engine/pallas_kernels.py:456")):
-        rs = [r for r in timing["rows"] if r["kernel"] == name]
+            ("fused_scan_probe", "pinot_tpu/engine/pallas_kernels.py:456"),
+            ("sharded_fused_scan", "pinot_tpu/parallel/combine.py:298"),
+            ("sharded_fused_scan_probe",
+             "pinot_tpu/parallel/combine.py:360")):
+        rs = [r for r in timing if r["kernel"] == name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pinot_tpu_torch/engine/csrc/fused_scan.cu",
             "replaces": replaces,
-            "launches": main_run["launches"][name],
+            "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": float(np.mean([r["ms"] for r in rs])),
             "plain_ms": float(np.mean([r["plain_ms"] for r in rs])),
@@ -425,14 +611,19 @@ def main(argv=None) -> int:
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "args": vars(args),
                        "per_flight": main_run["per_flight"],
-                       "kernel_timing": timing["rows"], "kernels": kernels,
+                       "batch_per_flight": batch_run["per_flight"],
+                       "batch_resident_bytes": batch_run["resident_bytes"],
+                       "batch_max_memory_allocated":
+                           batch_run["max_memory_allocated"],
+                       "kernel_timing": timing, "kernels": kernels,
                        "seconds": time.perf_counter() - t_all}, f, indent=1)
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
+    # the run used one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

@@ -1,31 +1,51 @@
 // Fused segment scan for NVIDIA Hopper (sm_90a): bit-unpack -> filter ->
-// group keys -> aggregate, in one pass over a segment's staged columns.
+// group keys -> aggregate, in one pass over a batch of S segments' staged
+// columns (one segment is the batch S = 1).
 //
 // Replaces the TPU kernel pinot_tpu/engine/pallas_kernels.py:603
-// build_kernel (pl.pallas_call at :866), in both of its modes: the full
-// aggregation and the group-range probe (masked min/max of group dictIds).
+// build_kernel (pl.pallas_call at :866, grid (S, T)), in both of its modes:
+// the full aggregation and the group-range probe (masked min/max of group
+// dictIds). Launched once over a whole segment batch it also replaces the
+// sharded wrappers pinot_tpu/parallel/combine.py:298
+// build_sharded_pallas_kernel and :360 build_sharded_pallas_probe on one
+// card: the batch's segments share unified dictionaries, hence one group
+// key space, so every tile adds into the same [rows, G] outputs (the
+// in-kernel counterpart of the mesh psum/pmin/pmax over the seg axis) and
+// only the matched-doc counts stay per segment ([S]).
+//
 // The TPU kernel is specialised per plan by tracing; this one is built once
 // and interprets a small postfix program the host compiles from the plan
 // (pinot_tpu_torch/engine/fused_scan.py compile_program):
 //   - the filter as ops over IV(col, slot), IVS(col, slot0, n), TRUE, AND,
-//     OR, NOT on dictIds, ANDed with doc < num_docs;
+//     OR, NOT on dictIds, ANDed with doc < num_docs of its segment;
 //   - value expressions as ops over COL, ID, LITC, LITF, TIMES, PLUS,
 //     MINUS, each int (exact in i64) or float (f32, IEEE round-to-nearest);
 //   - a list of accumulator rows: int sums in i64, float sums in f64,
 //     min/max in f32, plus the implicit per-group count in i64.
-// Layout: docs come in tiles of 4096; a B-bit column packs K = 32/B values
-// per word, W = 4096/K words per tile, value j of a tile in word j % W at bit
-// (j / W) * B. Thread t of a block handles docs t, t+256, ... of a tile, so
-// neighbouring threads read neighbouring words and values: coalesced.
+// Layout: docs come in tiles of 4096, T tiles per segment; packed columns
+// are [S, T, W], value columns [S, T * 4096], and num_docs [S] masks each
+// segment's tail. A B-bit column packs K = 32/B values per word, W = 4096/K
+// words per tile, value j of a tile in word j % W at bit (j / W) * B. Blocks
+// walk the S * T tiles of the batch; tile t belongs to segment t / T and
+// holds that segment's docs (t % T) * 4096 + j. Thread i of a block handles
+// docs i, i+256, ... of a tile, so neighbouring threads read neighbouring
+// words and values: coalesced.
 //
-// Bound: the scan reads each packed word and each value once and writes
-// G-sized outputs, so it is memory-bound: sum(packed bytes) + sum(value
-// bytes) over 3.35 TB/s (SSB Q1.1 at SF10: about 10 B/doc, about 0.18 ms per
-// 60 M docs). Design: accumulators are private to a block in shared memory
-// while (rows x G x 8 B) fits, then flushed with one global atomic per
-// touched group and row; past that the block adds straight into global
-// memory. A scalar scan (one group) accumulates per thread in registers,
-// reduces across the warp with shuffles and issues one atomic per warp.
+// Bound: the scan is memory-bound, and what it must read depends on the
+// data: the filter's packed columns for every doc, but group-key columns
+// and values only in the 32-byte sectors that hold a doc passing the
+// filter, over 3.35 TB/s (chip_smoke.py's bound_ms counts exactly that).
+// At most that is sum(packed bytes) + sum(value bytes) of the whole batch
+// (SSB Q1.1 at SF10: about 10 B/doc, 0.18 ms per 60 M docs). This kernel
+// reads every packed column for every doc and values only for docs that
+// pass the filter. Design: accumulators are
+// private to a block in shared memory while (rows x G x 8 B) fits, then
+// flushed with one global atomic per touched group and row; past that the
+// block adds straight into global memory. A scalar scan (one group)
+// accumulates per thread in registers, reduces across the warp with
+// shuffles and issues one atomic per warp.
+// Matched-doc counts are reduced per warp and flushed to out_matched[s]
+// whenever a block's next tile lies in another segment, and at the end.
 // Outputs are zeroed or set to +-inf by the caller; the kernel allocates
 // nothing and runs on the caller's stream.
 
@@ -51,7 +71,7 @@ enum {
   A_FILTER_OFF, A_FILTER_N, A_VOPS_OFF, A_EXPR_OFF, A_N_EXPRS, A_ROWS_OFF,
   A_N_ROWS, A_GROUP_OFF, A_N_GROUP, A_KEY_OFFSET, A_IV_OFF, A_N_ISUM,
   A_N_FSUM, A_N_MM, A_SCALAR, A_PROG, A_OUT_CNT, A_OUT_ISUM, A_OUT_FSUM,
-  A_OUT_MM, A_OUT_MATCHED, A_GRID, A_ACC_SMEM, A_SMEM,
+  A_OUT_MM, A_OUT_MATCHED, A_GRID, A_ACC_SMEM, A_SMEM, A_SEG_TILES,
   A_PACKED = 32, A_BITS = 48, A_VALUES = 64, A_VTYPES = 80
 };
 
@@ -67,13 +87,15 @@ struct ScanArgs {
   int filter_off, filter_n, vops_off, expr_off, n_exprs, rows_off, n_rows;
   int group_off, n_group, iv_off;
   long long key_offset;
-  long long num_docs, num_tiles;
+  const long long* num_docs;    // [S] docs of each segment
+  long long num_tiles;          // S * T tiles in the batch
+  long long seg_tiles;          // T tiles per segment
   int G, n_isum, n_fsum, n_mm, scalar, acc_in_smem;
   u64* out_cnt;
   u64* out_isum;
   double* out_fsum;
   float* out_mm;
-  u64* out_matched;
+  u64* out_matched;             // [S] docs passing the filter, per segment
 };
 
 struct Val {
@@ -219,6 +241,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// called by every thread of the block at the same point (warp shuffles)
+__device__ __forceinline__ void flush_matched(const ScanArgs& a, long long seg,
+                                              long long matched) {
+  matched = warp_sum(matched);
+  if ((threadIdx.x & 31) == 0 && matched && seg >= 0)
+    atomicAdd(&a.out_matched[seg], (u64)matched);
+}
+
 extern "C" __global__ void __launch_bounds__(BLOCK)
 fused_scan_kernel(const __grid_constant__ ScanArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -266,13 +296,24 @@ fused_scan_kernel(const __grid_constant__ ScanArgs a) {
                                             : __int_as_float(0xff800000);
   }
   long long lcnt = 0, lmatched = 0;
+  long long seg = -1, seg_docs = 0;  // segment lmatched counts, its docs
 
   long long ids[MAX_COLS];
   for (long long tile = blockIdx.x; tile < a.num_tiles; tile += gridDim.x) {
+    const long long s = tile / a.seg_tiles;
+    if (s != seg) {
+      flush_matched(a, seg, lmatched);
+      lmatched = 0;
+      seg = s;
+      seg_docs = a.num_docs[s];
+    }
+    // first doc of this tile within its segment
+    const long long tile_doc = (tile - s * a.seg_tiles) * TILE;
     for (int rr = 0; rr < DOCS_PER_THREAD; ++rr) {
       const int j = threadIdx.x + rr * BLOCK;
+      if (tile_doc + j >= seg_docs) continue;
+      // position in the batch's [S, T * TILE] value columns
       const long long doc = tile * TILE + j;
-      if (doc >= a.num_docs) continue;
       for (int c = 0; c < a.n_packed; ++c) {
         const int B = a.bits[c];
         const int W = TILE * B / 32;
@@ -316,8 +357,7 @@ fused_scan_kernel(const __grid_constant__ ScanArgs a) {
   }
 
   const int lane = threadIdx.x & 31;
-  lmatched = warp_sum(lmatched);
-  if (lane == 0 && lmatched) atomicAdd(a.out_matched, (u64)lmatched);
+  flush_matched(a, seg, lmatched);
   if (a.scalar) {
     lcnt = warp_sum(lcnt);
     if (lane == 0 && lcnt) atomicAdd(&a.out_cnt[0], (u64)lcnt);
@@ -390,8 +430,9 @@ extern "C" int fused_scan_launch(const long long* argv, void* stream) {
   a.n_group = (int)argv[A_N_GROUP];
   a.iv_off = (int)argv[A_IV_OFF];
   a.key_offset = argv[A_KEY_OFFSET];
-  a.num_docs = argv[A_NUM_DOCS];
+  a.num_docs = (const long long*)argv[A_NUM_DOCS];
   a.num_tiles = argv[A_NUM_TILES];
+  a.seg_tiles = argv[A_SEG_TILES];
   a.G = (int)argv[A_G];
   a.n_isum = (int)argv[A_N_ISUM];
   a.n_fsum = (int)argv[A_N_FSUM];
@@ -403,7 +444,8 @@ extern "C" int fused_scan_launch(const long long* argv, void* stream) {
   a.out_fsum = (double*)argv[A_OUT_FSUM];
   a.out_mm = (float*)argv[A_OUT_MM];
   a.out_matched = (u64*)argv[A_OUT_MATCHED];
-  if (a.n_packed > MAX_COLS || a.n_values > MAX_COLS || a.n_rows > MAX_ROWS)
+  if (a.n_packed > MAX_COLS || a.n_values > MAX_COLS || a.n_rows > MAX_ROWS
+      || a.seg_tiles < 1 || a.num_tiles % a.seg_tiles != 0)
     return (int)cudaErrorInvalidValue;
   const int smem = (int)argv[A_SMEM];
   if (smem > 48 * 1024) {

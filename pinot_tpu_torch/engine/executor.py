@@ -6,19 +6,21 @@ the scan rung. Per segment: plan -> fused scan (probe first when the group
 space exceeds MAX_SCAN_GROUPS) -> decode; then merge and reduce. A plan the
 fused scan declines raises :class:`NotPortedError` with the reason code:
 there is no silent host fallback. Segments run one after another on the
-current stream.
+current stream; ``_execute_aggregation`` and ``_execute_group_by`` are the
+points a subclass overrides to combine segments otherwise
+(``pinot_tpu_torch.parallel.ShardedQueryExecutor``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine import fused_scan
-from pinot_tpu_torch.engine.aggregates import resolve_agg
+from pinot_tpu_torch.engine.aggregates import AggDef, resolve_agg
 from pinot_tpu_torch.engine.errors import NotPortedError, PlanError, QueryError
 from pinot_tpu_torch.engine.plan import SegmentPlan, plan_segment
 from pinot_tpu_torch.engine.results import (
@@ -63,24 +65,10 @@ class ServerQueryExecutor:
         scans0 = fused_scan.SCAN_COUNTER.launches
         probes0 = fused_scan.PROBE_COUNTER.launches
         aggs = [resolve_agg(f) for f in ctx.aggregations]
-        merged: Any = None
-        for seg in segments:
-            scan = self._scan_segment(ctx, seg)
-            stats.num_segments_processed += 1
-            stats.total_docs += seg.num_docs
-            stats.num_docs_scanned += scan.matched
-            stats.num_segments_matched += 1 if scan.matched else 0
-            if ctx.is_group_by:
-                part = decode_grouped_result(scan.plan, seg, scan.tree)
-                if merged is None:
-                    merged = GroupByResult()
-                merged.merge(part, aggs)
-            else:
-                part = decode_scalar_result(scan.plan, scan.tree)
-                if merged is None:
-                    merged = part
-                else:
-                    merged.merge(part, aggs)
+        if ctx.is_group_by:
+            merged = self._execute_group_by(ctx, aggs, segments, stats)
+        else:
+            merged = self._execute_aggregation(ctx, aggs, segments, stats)
         stats.scan_launches = fused_scan.SCAN_COUNTER.launches - scans0
         stats.probe_launches = fused_scan.PROBE_COUNTER.launches - probes0
         if ctx.is_group_by:
@@ -89,8 +77,31 @@ class ServerQueryExecutor:
             return reduce_group_by(ctx, aggs, merged, types), stats
         return reduce_aggregation(ctx, aggs, merged), stats
 
-    def _scan_segment(self, ctx: QueryContext, seg: ImmutableSegment
-                      ) -> fused_scan.SegmentScan:
+    def _execute_aggregation(self, ctx: QueryContext, aggs: List[AggDef],
+                             segments: List[ImmutableSegment],
+                             stats: QueryStats) -> AggResult:
+        merged: Optional[AggResult] = None
+        for seg in segments:
+            scan = self._scan_segment(ctx, seg, stats)
+            part = decode_scalar_result(scan.plan, scan.tree)
+            if merged is None:
+                merged = part
+            else:
+                merged.merge(part, aggs)
+        return merged
+
+    def _execute_group_by(self, ctx: QueryContext, aggs: List[AggDef],
+                          segments: List[ImmutableSegment],
+                          stats: QueryStats) -> GroupByResult:
+        merged = GroupByResult()
+        for seg in segments:
+            scan = self._scan_segment(ctx, seg, stats)
+            merged.merge(decode_grouped_result(scan.plan, seg, scan.tree),
+                         aggs)
+        return merged
+
+    def _scan_segment(self, ctx: QueryContext, seg: ImmutableSegment,
+                      stats: QueryStats) -> fused_scan.SegmentScan:
         try:
             plan = plan_segment(ctx, seg)
         except PlanError as e:
@@ -101,6 +112,10 @@ class ServerQueryExecutor:
         if scan is None:
             raise NotPortedError(reasons[0] if reasons else "unknown",
                                  f"segment {seg.segment_name!r}")
+        stats.num_segments_processed += 1
+        stats.total_docs += seg.num_docs
+        stats.num_docs_scanned += scan.matched
+        stats.num_segments_matched += 1 if scan.matched else 0
         return scan
 
 
@@ -166,11 +181,5 @@ def decode_grouped_result(plan: SegmentPlan, provider: Any,
     return result
 
 
-def scan_counters() -> Dict[str, fused_scan.KernelCounter]:
-    """The launch counters of the kernels the executor's path runs."""
-    return {c.name: c for c in (fused_scan.SCAN_COUNTER,
-                                fused_scan.PROBE_COUNTER)}
-
-
 __all__ = ["ServerQueryExecutor", "decode_scalar_result",
-           "decode_grouped_result", "scan_counters", "NotPortedError"]
+           "decode_grouped_result", "NotPortedError"]

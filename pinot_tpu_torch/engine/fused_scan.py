@@ -2,27 +2,36 @@
 
 Counterpart of ``pinot_tpu/engine/pallas_kernels.py``. The eligibility
 rules (``extract_plan``), the group-range probe (``probe_plan_of``,
-``decode_probe_ranges``, ``probe_narrowed_plan``) and the per-segment runner
-(``scan_inputs``, ``run_segment``) follow the JAX package, with the same decline reason
-codes. The TPU kernel (``build_kernel``, specialised per plan by tracing)
-becomes one hand-written CUDA kernel (``csrc/fused_scan.cu``) that serves
-every plan: the host compiles the plan into a small postfix program
-(``compile_program``) which the kernel interprets per doc.
+``decode_probe_ranges``, ``probe_narrowed_plan``) and the runner
+(``scan_inputs``, ``run_segment``) follow the JAX package, with the same
+decline reason codes. The TPU kernel (``build_kernel``, specialised per plan
+by tracing) becomes one hand-written CUDA kernel (``csrc/fused_scan.cu``)
+that serves every plan: the host compiles the plan into a small postfix
+program (``compile_program``) which the kernel interprets per doc.
+
+Every input is laid out as a batch of S segments: packed columns
+``[S, T, W]``, value columns ``[S, T * TILE]``, ``num_docs`` an int64
+``[S]`` tensor. One segment is the batch S = 1; a ``SegmentBatch``
+(``pinot_tpu_torch/parallel``) is scanned in one launch.
 
 Exactness on the card: integer sums accumulate in i64, float sums in f64,
 min/max in f32, counts in i64. The JAX package reaches the same integer
 results through 12-bit limbs and float sums through Neumaier f32 pairs,
 which the TPU needs and this card does not.
 
-``fused_scan`` is the wrapper: CUDA tensors launch the kernel, CPU tensors
-run ``fused_scan_plain``, the same function in plain PyTorch.
+``fused_scan`` and ``fused_scan_probe`` are a staged segment's wrappers
+(``SEGMENT_KERNELS``; a batch has its own pair, each pair with its own
+launch counters): CUDA tensors launch the kernel, CPU tensors run
+``fused_scan_plain``, the same function in plain PyTorch. All outputs
+are views of one buffer, so ``assemble_outputs`` brings them to the host in
+one copy (the JAX package's ``pack_outputs``/``unpack_outputs``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -451,6 +460,17 @@ class ScanProgram:
     n_mm: int
     rows: Tuple[Tuple[int, int, int], ...]
     probe: bool
+    # the program uploaded to a device, kept so a cached program is
+    # uploaded once (device -> tensor)
+    _on: Dict[torch.device, torch.Tensor] = field(
+        default_factory=dict, repr=False, compare=False)
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        t = self._on.get(device)
+        if t is None:
+            t = torch.from_numpy(self.prog).to(device)
+            self._on[device] = t
+        return t
 
 
 def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
@@ -592,66 +612,153 @@ PROBE_COUNTER = KernelCounter("fused_scan_probe")
 
 @dataclass
 class ScanOutputs:
+    """The scan's outputs, each a view of ``buf``."""
+
+    buf: torch.Tensor       # [n] i64: every output below, one after another
+    layout: Tuple[int, int, int, int, int]   # (G, n_isum, n_fsum, n_mm, S)
     cnt: torch.Tensor       # [G] i64 matched docs per group
     isum: torch.Tensor      # [n_isum, G] i64
     fsum: torch.Tensor      # [n_fsum, G] f64
+    matched: torch.Tensor   # [S] i64 docs passing the filter, per segment
     mm: torch.Tensor        # [n_mm, G] f32
-    matched: torch.Tensor   # [1] i64 docs passing the filter
+
+    def to_host(self) -> "ScanOutputs":
+        """The same outputs on the host, in one device-to-host copy."""
+        return _carve(self.buf.cpu(), self.layout)
 
 
-def _alloc_outputs(prog: ScanProgram, device) -> ScanOutputs:
+def _carve(buf: torch.Tensor, layout: Tuple[int, int, int, int, int]
+           ) -> ScanOutputs:
+    G, n_isum, n_fsum, n_mm, S = layout
+    at = 0
+
+    def take(n: int) -> torch.Tensor:
+        nonlocal at
+        at += n
+        return buf[at - n:at]
+
+    cnt = take(G)
+    isum = take(n_isum * G).view(n_isum, G)
+    fsum = take(n_fsum * G).view(torch.float64).view(n_fsum, G)
+    matched = take(S)
+    mm = take((n_mm * G + 1) // 2).view(torch.float32)[:n_mm * G]
+    return ScanOutputs(buf=buf, layout=layout, cnt=cnt, isum=isum, fsum=fsum,
+                       matched=matched, mm=mm.view(n_mm, G))
+
+
+def _alloc_outputs(prog: ScanProgram, S: int, device) -> ScanOutputs:
     G = prog.G
-    mm = torch.empty((prog.n_mm, G), dtype=torch.float32, device=device)
+    n = G * (1 + prog.n_isum + prog.n_fsum) + S + (prog.n_mm * G + 1) // 2
+    out = _carve(torch.zeros(n, dtype=torch.int64, device=device),
+                 (G, prog.n_isum, prog.n_fsum, prog.n_mm, S))
     for kind, _e, r in prog.rows:
         if kind == R_MIN:
-            mm[r].fill_(float("inf"))
+            out.mm[r].fill_(float("inf"))
         elif kind == R_MAX:
-            mm[r].fill_(float("-inf"))
-    return ScanOutputs(
-        cnt=torch.zeros(G, dtype=torch.int64, device=device),
-        isum=torch.zeros((prog.n_isum, G), dtype=torch.int64, device=device),
-        fsum=torch.zeros((prog.n_fsum, G), dtype=torch.float64, device=device),
-        mm=mm, matched=torch.zeros(1, dtype=torch.int64, device=device))
+            out.mm[r].fill_(float("-inf"))
+    return out
+
+
+NumDocs = Union[int, torch.Tensor]
+
+
+def _as_batch(packed: List[torch.Tensor], values: List[torch.Tensor],
+              num_docs: NumDocs):
+    """One segment's inputs (packed ``[T, W]``, values ``[T * TILE]``,
+    ``num_docs`` an int) as a batch of one; batch inputs pass through."""
+    if isinstance(num_docs, torch.Tensor):
+        return packed, values, num_docs
+    if not packed:
+        raise ValueError("the scan needs at least one packed column")
+    tiles = packed[0].shape[0]
+    if not 0 <= num_docs <= tiles * TILE:
+        raise ValueError(f"num_docs {num_docs} outside [0, {tiles * TILE}]")
+    nd = torch.tensor([num_docs], dtype=torch.int64, device=packed[0].device)
+    return ([w.unsqueeze(0) for w in packed],
+            [v.unsqueeze(0) for v in values], nd)
 
 
 def _check_inputs(prog: ScanProgram, packed: List[torch.Tensor],
-                  values: List[torch.Tensor], num_docs: int) -> torch.device:
+                  values: List[torch.Tensor], num_docs: torch.Tensor
+                  ) -> torch.device:
     if len(packed) != len(prog.bits) or len(values) != len(prog.value_is_int):
         raise ValueError("packed/value inputs do not match the program")
     if not packed:
         raise ValueError("the scan needs at least one packed column")
-    tiles = packed[0].shape[0]
+    if packed[0].dim() != 3:
+        raise ValueError("packed columns must be [S, T, W]")
+    S, tiles = packed[0].shape[:2]
     device = packed[0].device
-    if not 0 <= num_docs <= tiles * TILE:
-        raise ValueError(f"num_docs {num_docs} outside [0, {tiles * TILE}]")
+    if (num_docs.dtype != torch.int64 or num_docs.device != device
+            or tuple(num_docs.shape) != (S,) or not num_docs.is_contiguous()):
+        raise ValueError(f"num_docs must be a contiguous int64 [{S}] tensor "
+                         f"on {device}")
     for w, b in zip(packed, prog.bits):
         if (w.dtype != torch.int32 or w.device != device
-                or tuple(w.shape) != (tiles, TILE * b // 32)
+                or tuple(w.shape) != (S, tiles, TILE * b // 32)
                 or not w.is_contiguous()):
             raise ValueError(f"packed column must be contiguous int32 "
-                             f"[{tiles}, {TILE * b // 32}] on {device}")
+                             f"[{S}, {tiles}, {TILE * b // 32}] on {device}")
     for v, is_int in zip(values, prog.value_is_int):
         ok = (v.dtype in (torch.int32, torch.int64) if is_int
               else v.dtype == torch.float32)
-        if (not ok or v.device != device or tuple(v.shape) != (tiles * TILE,)
+        if (not ok or v.device != device
+                or tuple(v.shape) != (S, tiles * TILE)
                 or not v.is_contiguous()):
             raise ValueError(f"value column must be contiguous "
-                             f"[{tiles * TILE}] {'int' if is_int else 'f32'} "
-                             f"on {device}")
+                             f"[{S}, {tiles * TILE}] "
+                             f"{'int' if is_int else 'f32'} on {device}")
     return device
 
 
 def fused_scan(prog: ScanProgram, packed: List[torch.Tensor],
-               values: List[torch.Tensor], num_docs: int) -> ScanOutputs:
-    """Run the scan program over one segment's staged columns. CUDA
-    tensors launch the kernel (or raise); CPU tensors run the plain
-    version."""
+               values: List[torch.Tensor], num_docs: NumDocs) -> ScanOutputs:
+    """Run the scan program over one segment's staged columns (``[T, W]``
+    and ``[T * TILE]``, ``num_docs`` an int) or a batch's (see the module
+    docstring). CUDA tensors launch the kernel (or raise); CPU tensors run
+    the plain version."""
+    return counted_scan(prog, packed, values, num_docs,
+                        PROBE_COUNTER if prog.probe else SCAN_COUNTER)
+
+
+def fused_scan_probe(prog: ScanProgram, packed: List[torch.Tensor],
+                     num_docs: NumDocs) -> ScanOutputs:
+    """The group-range probe (a probe program, no value columns) over one
+    segment's staged columns."""
+    if not prog.probe:
+        raise ValueError("fused_scan_probe takes a probe program")
+    return fused_scan(prog, packed, [], num_docs)
+
+
+class ScanKernels(NamedTuple):
+    """The wrappers the scans of one kind of staged input launch through:
+    a staged segment's (``SEGMENT_KERNELS``) or a staged batch's
+    (``StagedBatch.kernels``), each with its own launch counter, so a run
+    shows which path served. ``scan_inputs`` picks the pair."""
+
+    scan: Callable    # (prog, words, values, num_docs) -> ScanOutputs
+    probe: Callable   # (probe prog, words, num_docs) -> ScanOutputs
+    scan_counter: KernelCounter
+    probe_counter: KernelCounter
+
+
+SEGMENT_KERNELS = ScanKernels(fused_scan, fused_scan_probe, SCAN_COUNTER,
+                              PROBE_COUNTER)
+
+
+def counted_scan(prog: ScanProgram, packed: List[torch.Tensor],
+                 values: List[torch.Tensor], num_docs: NumDocs,
+                 counter: KernelCounter) -> ScanOutputs:
+    """``fused_scan`` with the counter its launch adds one to."""
+    packed, values, num_docs = _as_batch(packed, values, num_docs)
     device = _check_inputs(prog, packed, values, num_docs)
     if device.type == "cpu":
         return fused_scan_plain(prog, packed, values, num_docs)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    return _launch(prog, packed, values, num_docs)
+    out = _launch(prog, packed, values, num_docs)
+    counter.launches += 1
+    return out
 
 
 # argv slots shared with csrc/fused_scan.cu (fused_scan_launch)
@@ -661,6 +768,7 @@ _A_N_EXPRS, _A_ROWS_OFF, _A_N_ROWS, _A_GROUP_OFF, _A_N_GROUP = 10, 11, 12, 13, 1
 _A_KEY_OFFSET, _A_IV_OFF, _A_N_ISUM, _A_N_FSUM, _A_N_MM = 15, 16, 17, 18, 19
 _A_SCALAR, _A_PROG, _A_OUT_CNT, _A_OUT_ISUM, _A_OUT_FSUM = 20, 21, 22, 23, 24
 _A_OUT_MM, _A_OUT_MATCHED, _A_GRID, _A_ACC_SMEM, _A_SMEM = 25, 26, 27, 28, 29
+_A_SEG_TILES = 30
 _A_PACKED, _A_BITS, _A_VALUES, _A_VTYPES = 32, 48, 64, 80
 _A_LEN = 96
 _BLOCK = 256
@@ -674,9 +782,10 @@ def _launch(prog: ScanProgram, packed, values, num_docs) -> ScanOutputs:
 
     lib = load_library("fused_scan")
     device = packed[0].device
-    out = _alloc_outputs(prog, device)
-    tiles = packed[0].shape[0]
-    prog_t = torch.from_numpy(prog.prog).to(device)
+    S, seg_tiles = packed[0].shape[:2]
+    out = _alloc_outputs(prog, S, device)
+    tiles = S * seg_tiles
+    prog_t = prog.on(device)
     prog_bytes = (prog.prog.size * 4 + 15) // 16 * 16
     acc_bytes = prog.G * (8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm)
     acc_smem = (not prog.scalar) and prog_bytes + acc_bytes <= _SMEM_BLOCK_MAX
@@ -686,8 +795,9 @@ def _launch(prog: ScanProgram, packed, values, num_docs) -> ScanOutputs:
     grid = max(1, min(tiles, sms * per_sm))
 
     argv = np.zeros(_A_LEN, dtype=np.int64)
-    argv[_A_NUM_DOCS] = num_docs
+    argv[_A_NUM_DOCS] = num_docs.data_ptr()
     argv[_A_NUM_TILES] = tiles
+    argv[_A_SEG_TILES] = seg_tiles
     argv[_A_G] = prog.G
     argv[_A_N_PACKED] = len(packed)
     argv[_A_N_VALUES] = len(values)
@@ -730,7 +840,6 @@ def _launch(prog: ScanProgram, packed, values, num_docs) -> ScanOutputs:
     if err != 0:
         raise RuntimeError(f"fused_scan kernel launch failed: CUDA error "
                            f"{err} ({lib.fused_scan_error_string(err).decode()})")
-    (PROBE_COUNTER if prog.probe else SCAN_COUNTER).launches += 1
     return out
 
 
@@ -739,25 +848,19 @@ def _f32_of_bits(bits: int) -> float:
 
 
 def unpack_planar(words: torch.Tensor, bits: int) -> torch.Tensor:
-    """Planar words [tiles, W] -> dictIds [tiles * TILE] int64."""
+    """Planar words [..., tiles, W] -> dictIds [... * tiles * TILE]
+    int64, tile after tile."""
     K = 32 // bits
     w = words.to(torch.int64) & 0xFFFFFFFF
     mask = (1 << bits) - 1
     planes = [(w >> (k * bits)) & mask for k in range(K)]
-    return torch.stack(planes, dim=1).reshape(-1)
+    return torch.stack(planes, dim=-2).reshape(-1)
 
 
-def fused_scan_plain(prog: ScanProgram, packed: List[torch.Tensor],
-                     values: List[torch.Tensor], num_docs: int
-                     ) -> ScanOutputs:
-    """The kernel's function in plain PyTorch: the same program, evaluated
-    over whole columns at once (exact i64 and f64 accumulation)."""
-    device = packed[0].device
+def _filter_mask(prog: ScanProgram, ids: List[torch.Tensor]) -> torch.Tensor:
+    """Docs whose dictIds pass the program's filter (padding included)."""
     p = prog.prog.tolist()
-    ids = [unpack_planar(w, b) for w, b in zip(packed, prog.bits)]
-    cap = ids[0].shape[0]
-    valid = torch.arange(cap, device=device) < num_docs
-
+    cap, device = ids[0].shape[0], ids[0].device
     stack: List[torch.Tensor] = []
     for i in range(prog.filter_n):
         op, a, b, c = p[prog.filter_off + 4 * i: prog.filter_off + 4 * i + 4]
@@ -777,10 +880,41 @@ def fused_scan_plain(prog: ScanProgram, packed: List[torch.Tensor],
         else:
             y, x = stack.pop(), stack.pop()
             stack.append(x & y if op == F_AND else x | y)
-    mask = stack.pop() & valid
+    return stack.pop()
 
-    out = _alloc_outputs(prog, device)
-    out.matched += mask.sum()
+
+def _valid_mask(num_docs: torch.Tensor, tiles: int) -> torch.Tensor:
+    return (torch.arange(tiles * TILE, device=num_docs.device)[None, :]
+            < num_docs[:, None]).reshape(-1)
+
+
+def doc_masks(prog: ScanProgram, packed: List[torch.Tensor],
+              num_docs: NumDocs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(valid, matched): bool ``[S * T * TILE]`` masks, in the batch's doc
+    order, of the docs that exist (below their segment's ``num_docs``) and
+    of those that also pass the program's filter."""
+    packed, _, num_docs = _as_batch(packed, [], num_docs)
+    ids = [unpack_planar(w, b) for w, b in zip(packed, prog.bits)]
+    valid = _valid_mask(num_docs, packed[0].shape[1])
+    return valid, _filter_mask(prog, ids) & valid
+
+
+def fused_scan_plain(prog: ScanProgram, packed: List[torch.Tensor],
+                     values: List[torch.Tensor], num_docs: NumDocs
+                     ) -> ScanOutputs:
+    """The kernel's function in plain PyTorch: the same program, evaluated
+    over the whole batch at once (per-segment valid masks, exact i64 and
+    f64 accumulation into the rows every segment shares)."""
+    packed, values, num_docs = _as_batch(packed, values, num_docs)
+    device = packed[0].device
+    S, tiles = packed[0].shape[:2]
+    p = prog.prog.tolist()
+    ids = [unpack_planar(w, b) for w, b in zip(packed, prog.bits)]
+    cap = ids[0].shape[0]
+    mask = _filter_mask(prog, ids) & _valid_mask(num_docs, tiles)
+
+    out = _alloc_outputs(prog, S, device)
+    out.matched += mask.view(S, -1).sum(dim=1)
     key = torch.zeros(cap, dtype=torch.int64, device=device)
     for g in range(prog.n_group):
         col, stride = p[prog.group_off + 2 * g: prog.group_off + 2 * g + 2]
@@ -797,7 +931,7 @@ def fused_scan_plain(prog: ScanProgram, packed: List[torch.Tensor],
             op, a, _b, is_float = p[prog.vops_off + 4 * i:
                                     prog.vops_off + 4 * i + 4]
             if op == V_COL:
-                v = values[a][hit]
+                v = values[a].reshape(-1)[hit]
                 st.append(v if is_float else v.to(torch.int64))
             elif op == V_ID:
                 st.append(ids[a][hit])
@@ -832,17 +966,19 @@ def fused_scan_plain(prog: ScanProgram, packed: List[torch.Tensor],
 
 def assemble_outputs(plan_spec: Tuple, pp: ScanPlan,
                      out: ScanOutputs) -> Dict[str, object]:
-    """Scan outputs (any device) -> host numpy tree: ``presence`` or
-    ``num_matched``, then ``agg{i}`` leaves (avg is (sum, count),
-    minmaxrange is (min, max)); int sums stay exact int64."""
+    """Scan outputs (any device) -> host numpy tree, in one device-to-host
+    copy: ``presence`` or ``num_matched``, then ``agg{i}`` leaves (avg is
+    (sum, count), minmaxrange is (min, max)), then ``seg_matched`` [S];
+    int sums stay exact int64."""
     _, _, group_specs, num_groups, _ = plan_spec
     isum_row, fsum_row, mm_row = _row_layout(pp.aggs)
     grouped = bool(group_specs)
     n = num_groups if grouped else 1
-    cnt = out.cnt.cpu().numpy()[:n]
-    isum = out.isum.cpu().numpy()[:, :n]
-    fsum = out.fsum.cpu().numpy()[:, :n]
-    mm = out.mm.cpu().numpy()[:, :n]
+    host = out.to_host()
+    cnt = host.cnt.numpy()[:n]
+    isum = host.isum.numpy()[:, :n]
+    fsum = host.fsum.numpy()[:, :n]
+    mm = host.mm.numpy()[:, :n]
     tree: Dict[str, object] = ({"presence": cnt} if grouped
                                else {"num_matched": cnt[0]})
     for i, (base, vexpr, limbs) in enumerate(pp.aggs):
@@ -863,32 +999,34 @@ def assemble_outputs(plan_spec: Tuple, pp: ScanPlan,
             leaf = (tuple(x[0] for x in leaf) if isinstance(leaf, tuple)
                     else leaf[0])
         tree[f"agg{i}"] = leaf
+    tree["seg_matched"] = host.matched.numpy()
     return tree
 
 
 # --------------------------------------------------------------------------
-# per-segment runner
+# runner: a staged segment, or a staged segment batch
 # --------------------------------------------------------------------------
 
-def _stage_packed(pp: ScanPlan, staged: StagedSegment, decline):
-    cols = []
+def _stage_packed(pp: ScanPlan, staged, S: int, decline):
+    words, bits = [], []
     for nm in pp.packed_names:
         pc = staged.packed_column(nm)
         if pc is None:
             decline("pallas_column_not_packable")
             return None
-        cols.append(pc)
-    return [pc.words for pc in cols], tuple(pc.bits for pc in cols)
+        words.append(pc.words.reshape(S, -1, pc.words.shape[-1]))
+        bits.append(pc.bits)
+    return words, tuple(bits)
 
 
-def _stage_values(pp: ScanPlan, staged: StagedSegment, decline):
+def _stage_values(pp: ScanPlan, staged, S: int, decline):
     cols = []
     for nm in pp.value_names:
         v = staged.value_column(nm)
         if v is None:
             decline("pallas_value_layout_unsupported")
             return None
-        cols.append(v)
+        cols.append(v.reshape(S, -1))
     return cols
 
 
@@ -897,26 +1035,40 @@ class ScanInputs:
     pp: ScanPlan                  # the (narrowed) plan's scan plan
     plan: object                  # effective plan the outputs decode against
     prog: ScanProgram
-    words: List[torch.Tensor]     # packed columns, in prog.bits order
-    values: List[torch.Tensor]    # value columns
+    words: List[torch.Tensor]     # packed columns [S, T, W], in prog.bits order
+    values: List[torch.Tensor]    # value columns [S, T * TILE]
+    num_docs: torch.Tensor        # [S] int64
     # the probe's (program, packed columns) when the group space was
     # narrowed by a probe scan, else None
     probe: Optional[Tuple[ScanProgram, List[torch.Tensor]]]
+    kernels: ScanKernels          # the wrappers these inputs launch through
+
+    def scan(self) -> ScanOutputs:
+        """The scan, in one launch on the card."""
+        return self.kernels.scan(self.prog, self.words, self.values,
+                                 self.num_docs)
 
 
-def scan_inputs(plan, staged: StagedSegment, on_decline: Callable = None
+def scan_inputs(plan, staged, on_decline: Callable = None
                 ) -> Optional[ScanInputs]:
-    """The scan program and staged columns of one segment's plan, probing
-    first (one probe launch) when the group key space exceeds
-    MAX_SCAN_GROUPS. None when the plan is not eligible (``on_decline``
-    receives the reason code)."""
+    """The scan program and staged columns of a plan over ``staged``, a
+    ``StagedSegment`` (launched through ``SEGMENT_KERNELS``) or a staged
+    segment batch (anything with ``provider``, ``packed_column``,
+    ``value_column``, ``num_docs_tensor`` and its own ``kernels``), probing
+    first (one launch) when the group key space exceeds MAX_SCAN_GROUPS.
+    None when the plan is not eligible (``on_decline`` receives the reason
+    code)."""
 
     def decline(reason: str) -> None:
         if on_decline is not None:
             on_decline(reason)
 
+    kernels = (SEGMENT_KERNELS if isinstance(staged, StagedSegment)
+               else staged.kernels)
+    num_docs = staged.num_docs_tensor()
+    S = num_docs.shape[0]
     defer = _DeferredDecline(on_decline)
-    pp = extract_plan(plan, staged.segment, on_decline=defer)
+    pp = extract_plan(plan, staged.provider, on_decline=defer)
     eff = plan
     probe = None
     if pp is None:
@@ -926,29 +1078,29 @@ def scan_inputs(plan, staged: StagedSegment, on_decline: Callable = None
 
         def run_probe(probe_pp: ScanPlan):
             nonlocal probe
-            got = _stage_packed(probe_pp, staged, decline)
+            got = _stage_packed(probe_pp, staged, S, decline)
             if got is None:
                 raise RuntimeError("probe columns were packable for the "
                                    "full plan but not for the probe")
             words, bits = got
             probe = (compile_program(probe_pp, bits, probe=True), words)
-            out = fused_scan(*probe, [], staged.num_docs)
-            return out.mm.cpu().numpy()
+            return kernels.probe(*probe, num_docs).to_host().mm.numpy()
 
-        res = probe_narrowed_plan(plan, staged.segment, run_probe, decline)
+        res = probe_narrowed_plan(plan, staged.provider, run_probe, decline)
         if res is None:
             return None
         pp, eff = res
 
-    got = _stage_packed(pp, staged, decline)
+    got = _stage_packed(pp, staged, S, decline)
     if got is None:
         return None
     words, bits = got
-    vals = _stage_values(pp, staged, decline)
+    vals = _stage_values(pp, staged, S, decline)
     if vals is None:
         return None
     return ScanInputs(pp=pp, plan=eff, prog=compile_program(pp, bits),
-                      words=words, values=vals, probe=probe)
+                      words=words, values=vals, num_docs=num_docs,
+                      probe=probe, kernels=kernels)
 
 
 @dataclass
@@ -965,7 +1117,6 @@ def run_segment(plan, staged: StagedSegment, on_decline: Callable = None
     inp = scan_inputs(plan, staged, on_decline)
     if inp is None:
         return None
-    out = fused_scan(inp.prog, inp.words, inp.values, staged.num_docs)
-    tree = assemble_outputs(inp.plan.spec, inp.pp, out)
+    tree = assemble_outputs(inp.plan.spec, inp.pp, inp.scan())
     return SegmentScan(tree=tree, plan=inp.plan,
-                       matched=int(out.matched.item()))
+                       matched=int(tree["seg_matched"].sum()))

@@ -42,9 +42,28 @@ class QueryStats:
     num_segments_matched: int = 0
     num_docs_scanned: int = 0
     total_docs: int = 0
-    # fused-scan launches this query made (full scans and probes)
+    # fused-scan launches this query made (full scans and probes), per
+    # segment and over a whole segment batch
     scan_launches: int = 0
     probe_launches: int = 0
+    sharded_scan_launches: int = 0
+    sharded_probe_launches: int = 0
+    # path decisions (record_decision): decision key -> count
+    decisions: Dict[str, int] = field(default_factory=dict)
+
+
+def decision_key(point: str, chosen: str, declined: str,
+                 reason: str) -> str:
+    return f"{point}:{declined}->{chosen}:{reason}"
+
+
+def record_decision(stats: QueryStats, point: str, chosen: str,
+                    declined: str, reason: str) -> None:
+    """Execution declined ``declined`` in favour of ``chosen`` at
+    ``point`` because ``reason`` (``pinot_tpu/common/tracing.py``
+    ``record_decision``, without the process-wide ledger)."""
+    key = decision_key(point, chosen, declined, reason)
+    stats.decisions[key] = stats.decisions.get(key, 0) + 1
 
 
 @dataclass

@@ -77,6 +77,20 @@ class StagedSegment:
         self.capacity = segment.padded_capacity
         self._packed: Dict[str, PackedColumn] = {}
         self._values: Dict[str, torch.Tensor] = {}
+        self._num_docs: Optional[torch.Tensor] = None
+
+    @property
+    def provider(self) -> ImmutableSegment:
+        """What the planner and the scan's eligibility rules read."""
+        return self.segment
+
+    def num_docs_tensor(self) -> torch.Tensor:
+        """``[num_docs]`` int64 on the device: the scan's input for a batch
+        of one segment, uploaded once."""
+        if self._num_docs is None:
+            self._num_docs = torch.tensor([self.num_docs], dtype=torch.int64,
+                                          device=self.device)
+        return self._num_docs
 
     def scan_capacity(self) -> int:
         """Doc capacity padded up to whole tiles (the kernel masks the

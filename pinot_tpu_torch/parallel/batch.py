@@ -1,0 +1,309 @@
+"""Segment batches: N segments unified into one block the scan runs once.
+
+Counterpart of ``pinot_tpu/parallel/batch.py`` (``SegmentBatch``), cut to
+what the port's segments hold: single-value, dictionary-encoded columns.
+Per-segment dictionaries make dictIds incomparable across segments, so a
+batch re-keys every column it touches into a unified table-level
+dictionary (``_merge_dictionaries``) and stacks the remapped forward
+indexes into ``[S, capacity]`` arrays. Group keys composed from unified
+dictIds then share one key space across segments, and one scan over the
+whole batch adds every segment into the same outputs.
+
+A batch duck-types the segment interfaces the planner and the scan's
+eligibility rules read (``metadata.column()``, ``metadata.num_docs``,
+``data_source().dictionary``, ``padded_capacity``), so ``plan_segment``
+plans once against the unified key space.
+
+``StagedBatch`` is the batch's device image, the counterpart of
+``StagedSegment``: planar packed columns ``[S, T, W]``, value columns
+``[S, T * TILE]`` and ``num_docs`` ``[S]``, each put on the device once.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from dataclasses import replace
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from pinot_tpu_torch.device import resolve_device
+from pinot_tpu_torch.engine.fused_scan import ScanKernels
+from pinot_tpu_torch.engine.staging import (
+    TILE,
+    PackedColumn,
+    pack_bits,
+    staged_int_dtype,
+)
+from pinot_tpu_torch.parallel.combine import BATCH_KERNELS
+from pinot_tpu_torch.segment.dictionary import Dictionary, build_dictionary
+from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
+from pinot_tpu_torch.spi.data import DataType
+
+
+class _LazyColumnMap(Mapping):
+    """Column name -> merged ColumnMetadata, merged on first access (a
+    query pays dictionary unification only for the columns it reads)."""
+
+    def __init__(self, batch: "SegmentBatch"):
+        self._batch = batch
+
+    def __getitem__(self, name: str) -> ColumnMetadata:
+        return self._batch._merged_column(name)
+
+    def __iter__(self):
+        return iter(self._batch.segments[0].metadata.columns)
+
+    def __len__(self) -> int:
+        return len(self._batch.segments[0].metadata.columns)
+
+
+class BatchDataSource:
+    """Column access over the whole batch (planner-facing)."""
+
+    def __init__(self, batch: "SegmentBatch", name: str):
+        self.name = name
+        self.metadata = batch.metadata.column(name)
+        self.dictionary: Dictionary = batch.unified_dictionary(name)
+
+
+class SegmentBatch:
+    """N same-table segments, re-keyed to unified dictionaries and stacked
+    into fixed-shape arrays. Raises ValueError for segments that cannot
+    share a batch (different schemas or column layouts)."""
+
+    def __init__(self, segments: List[ImmutableSegment]):
+        if not segments:
+            raise ValueError("empty segment batch")
+        self.segments = segments
+        first = segments[0].metadata
+        cols = set(first.columns.keys())
+        for s in segments[1:]:
+            if set(s.metadata.columns.keys()) != cols:
+                raise ValueError("segments in a batch must share a schema")
+
+        self.capacity = max(s.padded_capacity for s in segments)
+        self._dicts: Dict[str, Dictionary] = {}
+        # per column: per-segment remap arrays (old dictId -> unified)
+        self._remaps: Dict[str, List[np.ndarray]] = {}
+        self._merged: Dict[str, ColumnMetadata] = {}
+        self._stacked: Dict[str, Dict[str, np.ndarray]] = {}
+        self._data_sources: Dict[str, BatchDataSource] = {}
+
+        self.metadata = SegmentMetadata(
+            segment_name="batch(" + ",".join(s.segment_name
+                                             for s in segments) + ")",
+            table_name=first.table_name,
+            schema=first.schema,
+            num_docs=sum(s.num_docs for s in segments),
+            padded_capacity=self.capacity,
+            columns=_LazyColumnMap(self),
+        )
+
+    # -- segment duck-type (planner interface) -----------------------------
+    @property
+    def segment_name(self) -> str:
+        return self.metadata.segment_name
+
+    @property
+    def num_docs(self) -> int:
+        return self.metadata.num_docs
+
+    @property
+    def padded_capacity(self) -> int:
+        return self.capacity
+
+    @property
+    def num_segments(self) -> int:
+        return len(self.segments)
+
+    def data_source(self, column: str) -> BatchDataSource:
+        ds = self._data_sources.get(column)
+        if ds is None:
+            self.metadata.column(column)
+            ds = BatchDataSource(self, column)
+            self._data_sources[column] = ds
+        return ds
+
+    def unified_dictionary(self, column: str) -> Dictionary:
+        self._merged_column(column)
+        return self._dicts[column]
+
+    def num_docs_array(self, pad_to: int = 0) -> np.ndarray:
+        """[S] per-segment doc counts (0 for pad segments), int64: the
+        scan's ``num_docs`` input."""
+        out = np.zeros(max(pad_to, self.num_segments), dtype=np.int64)
+        for i, s in enumerate(self.segments):
+            out[i] = s.num_docs
+        return out
+
+    # -- unified dictionary construction -----------------------------------
+    def _merged_column(self, name: str) -> ColumnMetadata:
+        cm = self._merged.get(name)
+        if cm is None:
+            cm = self._merge_column(name)
+            self._merged[name] = cm
+        return cm
+
+    def _merge_column(self, name: str) -> ColumnMetadata:
+        cms = [s.metadata.column(name) for s in self.segments]
+        base = cms[0]
+        for cm in cms[1:]:
+            if (cm.data_type is not base.data_type
+                    or cm.single_value != base.single_value
+                    or cm.has_dictionary != base.has_dictionary):
+                raise ValueError(f"column {name!r} layout differs across "
+                                 "batch")
+        if not (base.has_dictionary and base.single_value):
+            raise ValueError(f"column {name!r} is not a single-value "
+                             "dictionary column")
+        dicts = [s.data_source(name).dictionary for s in self.segments]
+        unified, remaps = _merge_dictionaries(dicts, base.data_type)
+        self._dicts[name] = unified
+        self._remaps[name] = remaps
+        return replace(base, cardinality=unified.cardinality,
+                       min_value=unified.min_value,
+                       max_value=unified.max_value,
+                       has_nulls=any(cm.has_nulls for cm in cms))
+
+    # -- stacked host arrays ------------------------------------------------
+    def stacked_column(self, name: str, pad_segments: int = 0
+                       ) -> Dict[str, np.ndarray]:
+        """``fwd`` [S, capacity] int32 unified dictIds, and for numeric
+        columns ``dictvals``, the unified dictionary's values in their
+        staged type. ``pad_segments`` extends S with empty segments."""
+        S = max(pad_segments, self.num_segments)
+        cached = self._stacked.get(name)
+        if cached is not None and cached["fwd"].shape[0] == S:
+            return cached
+        cm = self.metadata.column(name)
+        fwd = np.zeros((S, self.capacity), dtype=np.int32)
+        for i, seg in enumerate(self.segments):
+            raw = np.asarray(seg.data_source(name).forward_index)
+            fwd[i, :raw.shape[0]] = self._remaps[name][i][raw]
+        out = {"fwd": fwd}
+        if cm.data_type.is_numeric:
+            out["dictvals"] = self._dicts[name].device_values().astype(
+                staged_int_dtype(cm) if cm.data_type.is_integral
+                else np.float32)
+        self._stacked[name] = out
+        return out
+
+    # -- fused-scan layouts, batch-wide --------------------------------------
+    def pallas_capacity(self) -> int:
+        """Per-segment doc capacity padded to whole scan tiles."""
+        return -(-self.capacity // TILE) * TILE
+
+    def pallas_tiles(self) -> int:
+        """Tiles per segment (T)."""
+        return self.pallas_capacity() // TILE
+
+    def packed_column_batch(self, name: str, pad_segments: int = 0
+                            ) -> Tuple[np.ndarray, int]:
+        """(words [S, T, W] uint32, bits): planar bit-packed unified
+        dictIds, the layout of ``engine/staging.py`` per segment
+        (bit-identical to the JAX package's ``[S, T, W/128, 128]``)."""
+        cm = self.metadata.column(name)
+        fwd = self.stacked_column(name, pad_segments)["fwd"]
+        S = fwd.shape[0]
+        bits = pack_bits(max(1, max(cm.cardinality - 1, 1).bit_length()))
+        K = 32 // bits
+        W = TILE // K
+        tiles = self.pallas_tiles()
+        ids = np.zeros((S, tiles * TILE), dtype=np.uint32)
+        ids[:, :fwd.shape[1]] = fwd.astype(np.uint32)
+        planes = ids.reshape(S, tiles, K, W)
+        words = np.zeros((S, tiles, W), dtype=np.uint32)
+        for k in range(K):
+            words |= planes[:, :, k, :] << np.uint32(k * bits)
+        return words, bits
+
+    def value_column_batch(self, name: str, pad_segments: int = 0
+                           ) -> Optional[np.ndarray]:
+        """[S, T * TILE] per-doc values: f32 for float columns, i32 or i64
+        for integer columns (``staged_int_dtype`` of the merged stats).
+        Where the JAX package splits an i64 column into 12-bit limb planes
+        (``value_limb_batch``), the CUDA kernel reads the i64 values. None
+        for a non-numeric column."""
+        cm = self.metadata.column(name)
+        if not cm.data_type.is_numeric:
+            return None
+        tree = self.stacked_column(name, pad_segments)
+        vals = tree["dictvals"][tree["fwd"]]
+        S = vals.shape[0]
+        out = np.zeros((S, self.pallas_tiles() * TILE), dtype=vals.dtype)
+        out[:, :vals.shape[1]] = vals
+        return out
+
+
+def _merge_dictionaries(dicts: List[Dictionary], data_type: DataType
+                        ) -> Tuple[Dictionary, List[np.ndarray]]:
+    """Merge per-segment sorted dictionaries into one table-level
+    dictionary; returns (unified, [per-segment oldId -> newId remaps])."""
+    arrays = [d.values for d in dicts]
+    unified = np.unique(np.concatenate(arrays))
+    remaps = [np.searchsorted(unified, a).astype(np.int32) for a in arrays]
+    return build_dictionary(unified, data_type), remaps
+
+
+class StagedBatch:
+    """Device image of one segment batch, staged column by column on
+    demand (the JAX executor's ``_staged_pallas`` / ``_device_num_docs``
+    per (batch, column)). ``num_segs`` pads the segment axis with empty
+    segments (``num_docs`` 0), as the JAX package pads it to the mesh.
+    Its scans launch through ``kernels``, the batch wrappers of
+    ``parallel/combine.py``."""
+
+    kernels: ScanKernels = BATCH_KERNELS
+
+    def __init__(self, batch: SegmentBatch,
+                 device: Union[str, torch.device] = "cuda",
+                 num_segs: int = 0):
+        self.device = resolve_device(device)
+        self.batch = batch
+        self.num_segs = max(num_segs, batch.num_segments)
+        self._packed: Dict[str, PackedColumn] = {}
+        self._values: Dict[str, torch.Tensor] = {}
+        self._num_docs: Optional[torch.Tensor] = None
+
+    @property
+    def provider(self) -> SegmentBatch:
+        """What the planner and the scan's eligibility rules read."""
+        return self.batch
+
+    def num_docs_tensor(self) -> torch.Tensor:
+        """[S] int64 docs of each segment, on the device."""
+        if self._num_docs is None:
+            self._num_docs = torch.from_numpy(
+                self.batch.num_docs_array(self.num_segs)).to(self.device)
+        return self._num_docs
+
+    def packed_column(self, name: str) -> PackedColumn:
+        pc = self._packed.get(name)
+        if pc is None:
+            words, bits = self.batch.packed_column_batch(name,
+                                                         self.num_segs)
+            pc = PackedColumn(torch.from_numpy(words.view(np.int32))
+                              .to(self.device), bits)
+            self._packed[name] = pc
+        return pc
+
+    def value_column(self, name: str) -> Optional[torch.Tensor]:
+        v = self._values.get(name)
+        if v is None:
+            host = self.batch.value_column_batch(name, self.num_segs)
+            if host is None:
+                return None
+            v = torch.from_numpy(host).to(self.device)
+            self._values[name] = v
+        return v
+
+    def nbytes(self) -> int:
+        """Device bytes this batch holds."""
+        return (sum(pc.words.numel() * 4 for pc in self._packed.values())
+                + sum(v.numel() * v.element_size()
+                      for v in self._values.values())
+                + (self._num_docs.numel() * 8 if self._num_docs is not None
+                   else 0))
