@@ -5,13 +5,17 @@
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the fused-scan CUDA kernel from pinot_tpu_torch/engine/csrc;
+  2. build the fused-scan CUDA kernel from pinot_tpu_torch/engine/csrc
+     (ptxas registers, stack frame and spills logged);
   3. hold the kernel against its plain PyTorch version on the same card and
      inputs: every bit width, a remainder tile, iv/ivs/not/or filters, int
      and float expressions, an i64 column, every aggregation, 128 and 8192
-     groups (shared-memory and global accumulators), and the probe mode;
-     then the same cases as one launch over a batch of 3 segments of
-     different sizes plus one padded segment with no docs;
+     groups (shared-memory and global accumulators), the probe mode, a
+     group key that is also a filter column, a filter at the deepest stack
+     the kernel takes, tiles where every doc passes and tiles where none
+     does, 56 bits of filter columns; then the same cases as one launch
+     over a batch of 3 segments of different sizes plus one padded segment
+     with no docs;
   4. the per-segment path: SSB at ``--sf`` in ``--segments`` segments, the
      13 flights ``--reps`` times through ServerQueryExecutor(device="cuda"),
      every launch counted, every answer held against the numpy oracle;
@@ -24,7 +28,8 @@ Phases:
      whole batch, every launch counted, every answer held against the
      oracle; then at its shapes (all segments, every flight and probe) the
      kernel against its plain version and timings of both beside the
-     bound; and one JSON line listing the kernels.
+     bound (the kernel alone and through its wrapper); and one JSON line
+     listing the kernels ("ms" is the kernel alone).
 The last line is {"ok": true, "device": {...}}; any failure raises and
 exits non-zero without it. Needs one CUDA card; exits 2 without one.
 """
@@ -81,7 +86,22 @@ def _synthetic_segment(n: int, seed: int, i: int = 0):
     }, table_name="t")
 
 
+def _deep_filter(depth: int) -> str:
+    """A WHERE clause whose postfix filter program needs a stack of
+    ``depth``: leaves nested right, AND and OR alternating (so nothing
+    flattens)."""
+    leaves = ["b1 = 1", "b2 != 2", "b8 < 150", "b4 != 'k03'", "b16 > 20",
+              "b32 < 60000"]
+    sql = leaves[(depth - 1) % len(leaves)]
+    for d in range(depth - 2, -1, -1):
+        sql = f"{leaves[d % len(leaves)]} {'AND' if d % 2 == 0 else 'OR'} " \
+              f"({sql})"
+    return sql
+
+
 def _kernel_cases():
+    from pinot_tpu_torch.engine.fused_scan import MAX_FILTER_STACK
+
     scattered = ", ".join(str(v) for v in range(100, 60000, 2500))
     return [
         ("scalar iv/not, every aggregation",
@@ -93,7 +113,8 @@ def _kernel_cases():
         ("ivs (24 runs), i64 column",
          f"SELECT b8, sum(big), avg(big) FROM t WHERE b32 IN ({scattered}) "
          "GROUP BY b8"),
-        ("8192 groups, shared-memory accumulators",
+        ("8192 groups, 3 rows: accumulators in device memory (in shared "
+         "memory they would leave one block per SM)",
          "SELECT b16, sum(qty), count(*), min(price) FROM t "
          "WHERE b32 > 1000 GROUP BY b16"),
         ("8192 groups, global accumulators",
@@ -102,6 +123,18 @@ def _kernel_cases():
         ("probe narrowing",
          "SELECT b16, b4, sum(qty), count(*) FROM t WHERE b32 < 2000 "
          "GROUP BY b16, b4"),
+        ("group key that is also a filter column",
+         "SELECT b8, sum(qty), max(price), count(*) FROM t "
+         "WHERE b8 < 120 AND b2 = 1 GROUP BY b8"),
+        (f"filter stack {MAX_FILTER_STACK} deep",
+         f"SELECT b4, sum(qty), count(*) FROM t "
+         f"WHERE {_deep_filter(MAX_FILTER_STACK)} GROUP BY b4"),
+        ("tiles where every doc passes, tiles where none does",
+         "SELECT b4, sum(qty), sum(price), min(qty), count(*) FROM t "
+         "WHERE b32 < 4096 GROUP BY b4"),
+        ("8192 groups, three filter columns of 56 bits in all",
+         "SELECT b16, sum(qty), sum(price) FROM t "
+         "WHERE b32 > 100 AND b16 < 7000 AND b8 < 190 GROUP BY b16"),
     ]
 
 
@@ -130,6 +163,45 @@ def _scan_args(staged, sql) -> dict:
             lambda: k.probe(prog, words, inp.num_docs),
             (prog, words, [], inp.num_docs))
     return args
+
+
+def _acc_path(prog) -> str:
+    """Where a program's accumulators live: a scalar scan's per-thread
+    rows, a grouped scan's shared-memory or device-memory accumulators."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+
+    return ("scalar" if prog.scalar else
+            "shared" if fs.scan_layout(prog).acc_smem else "global")
+
+
+def _check_paths(seen: set, depths: set, tiles: set, what: str) -> None:
+    from pinot_tpu_torch.engine.fused_scan import MAX_FILTER_STACK
+
+    want = {"scalar", "shared", "global"}
+    if not want <= seen:
+        raise AssertionError(f"{what}: cases missed kernel paths "
+                             f"{sorted(want - seen)}")
+    if MAX_FILTER_STACK not in depths:
+        raise AssertionError(f"{what}: no filter {MAX_FILTER_STACK} deep")
+    if not {"all", "none"} <= tiles:
+        raise AssertionError(f"{what}: no full tile where every doc passes "
+                             f"and one where none does: {sorted(tiles)}")
+
+
+def _tile_kinds(prog, words, num_docs) -> set:
+    """'all' if a full tile has every doc passing, 'none' if a full tile
+    has none passing."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+
+    valid, matched = fs.doc_masks(prog, words, num_docs)
+    full = valid.view(-1, fs.TILE).all(dim=1)
+    per_tile = matched.view(-1, fs.TILE).sum(dim=1)
+    kinds = set()
+    if bool((full & (per_tile == fs.TILE)).any()):
+        kinds.add("all")
+    if bool((full & (per_tile == 0)).any()):
+        kinds.add("none")
+    return kinds
 
 
 def _kernel_vs_plain(args: dict, what: str, errs: dict) -> dict:
@@ -181,13 +253,20 @@ def phase_kernels(n: int = 200_123, seed: int = 7) -> dict:
     bits_seen = set()
     errs = {"fused_scan": 0.0, "fused_scan_probe": 0.0}
     probed = False
+    paths, depths, tiles = set(), set(), set()
     for what, sql in _kernel_cases():
         args = _scan_args(staged, sql)
-        prog = args["fused_scan"][1][0]
+        prog, words, _values, num_docs = args["fused_scan"][1]
         bits_seen.update(prog.bits)
         probed |= "fused_scan_probe" in args
+        paths.add(_acc_path(prog))
+        depths.add(prog.filter_depth)
+        tiles |= _tile_kinds(prog, words, num_docs)
         _kernel_vs_plain(args, what, errs)
-        log(f"  kernel == plain: {what} (G={prog.G}, bits={prog.bits})")
+        log(f"  kernel == plain: {what} (G={prog.G}, bits={prog.bits}, "
+            f"{_acc_path(prog)} accumulators, filter depth "
+            f"{prog.filter_depth})")
+    _check_paths(paths, depths, tiles, "segment")
     missing = {1, 2, 4, 8, 16, 32} - bits_seen
     if missing:
         raise AssertionError(f"bit widths not covered: {sorted(missing)}")
@@ -215,25 +294,26 @@ def phase_batch_kernels(seed: int) -> dict:
     staged = StagedBatch(SegmentBatch(segs), device="cuda",
                          num_segs=len(segs) + 1)
     errs = {"sharded_fused_scan": 0.0, "sharded_fused_scan_probe": 0.0}
-    accs = set()
+    paths, depths, tiles = set(), set(), set()
     probed = False
     for what, sql in _kernel_cases():
         args = _scan_args(staged, sql)
-        prog = args["sharded_fused_scan"][1][0]
+        prog, words, _values, num_docs = args["sharded_fused_scan"][1]
         probed |= "sharded_fused_scan_probe" in args
+        paths.add(_acc_path(prog))
+        depths.add(prog.filter_depth)
+        tiles |= _tile_kinds(prog, words, num_docs)
         outs = _kernel_vs_plain(args, f"batch: {what}", errs)
         matched = outs["sharded_fused_scan"].to_host().matched
         if int(matched[-1]) != 0:
             raise AssertionError(f"batch: {what}: the padded segment "
                                  f"matched {int(matched[-1])} docs")
-        accs.add("scalar" if prog.scalar else "global" if prog.G * (
-            8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm)
-            > fs._SMEM_BLOCK_MAX else "shared")
         log(f"  batch kernel == plain: {what} (S={len(segs)}+1 padded, "
-            f"G={prog.G}, per-segment matched {matched.tolist()})")
-    if not probed or not {"shared", "global"} <= accs:
-        raise AssertionError(f"batch cases missed the probe or an "
-                             f"accumulator kind: {sorted(accs)}")
+            f"G={prog.G}, {_acc_path(prog)} accumulators, per-segment "
+            f"matched {matched.tolist()})")
+    if not probed:
+        raise AssertionError("no batch case ran the probe mode")
+    _check_paths(paths, depths, tiles, "batch")
     return errs
 
 
@@ -428,13 +508,10 @@ def _needed_bytes(prog, words, values, num_docs) -> int:
     from pinot_tpu_torch.engine import fused_scan as fs
 
     valid, matched = fs.doc_masks(prog, words, num_docs)
-    p = prog.prog.tolist()
-    in_filter = {p[prog.filter_off + 4 * i + 1] for i in range(prog.filter_n)
-                 if p[prog.filter_off + 4 * i] in (fs.F_IV, fs.F_IVS)}
     total = 0
-    for c, (w, bits) in enumerate(zip(words, prog.bits)):
+    for c, w in enumerate(words):
         S, T, W = w.shape
-        need = valid if c in in_filter else matched
+        need = valid if c in prog.early else matched
         # doc j of a tile sits in word j % W of the tile (planar layout)
         per_word = need.view(S * T, fs.TILE // W, W).any(dim=1)
         total += SECTOR * _sectors(per_word, SECTOR // 4)
@@ -445,10 +522,24 @@ def _needed_bytes(prog, words, values, num_docs) -> int:
     return total + 8 * num_docs.numel() + outs
 
 
+def _kernel_ms(args, iters: int) -> float:
+    """The kernel alone: one prepared launch enqueued ``iters`` times back
+    to back, so the wrapper's host work is not in the time (the outputs add
+    up; only the time is read)."""
+    import torch
+
+    from pinot_tpu_torch.engine import fused_scan as fs
+
+    argv, _out = fs.prepare_launch(*args)
+    stream = torch.cuda.current_stream()
+    return _time_ms(lambda: fs.enqueue(argv, stream), iters)
+
+
 def _time_kernels(staged, errs: dict, docs: int, iters: int) -> list:
     """Each flight's scan (and probe) over ``staged``: held against the
     plain version at these shapes (folded into ``errs``), then timed beside
-    the bound from the bytes this run's data needs."""
+    the bound from the bytes this run's data needs: the kernel alone, and
+    the wrapper (the kernel with its host work, as the path launches it)."""
     from pinot_tpu_torch.engine import fused_scan as fs
     from pinot_tpu_torch.tools import ssb
 
@@ -457,18 +548,26 @@ def _time_kernels(staged, errs: dict, docs: int, iters: int) -> list:
         scan_args = _scan_args(staged, q)
         _kernel_vs_plain(scan_args, qid, errs)
         for kind, (launch, args) in scan_args.items():
+            prog, words = args[0], args[1]
             nbytes = _needed_bytes(*args)
             full = _full_bytes(*args)
-            k_ms = _time_ms(launch, iters)
+            lay = fs.scan_layout(prog)
+            grid = min(words[0].shape[0] * words[0].shape[1],
+                       fs.launch_grid(lay.smem))
+            k_ms = _kernel_ms(args, iters)
+            w_ms = _time_ms(launch, iters)
             p_ms = _time_ms(lambda: fs.fused_scan_plain(*args), 3)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
             rows.append({"flight": qid, "kernel": kind, "docs": docs,
-                         "groups": args[0].G, "bytes": nbytes,
+                         "groups": prog.G, "bytes": nbytes,
                          "all_column_bytes": full, "ms": k_ms,
-                         "plain_ms": p_ms,
-                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
-            log(f"  {qid} {kind}: {k_ms:.4f} ms/launch (bound "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {nbytes} B needed "
-                f"of {full} B in its columns), plain {p_ms:.3f} ms")
+                         "wrapper_ms": w_ms, "plain_ms": p_ms,
+                         "bound_ms": bound, "acc_smem": lay.acc_smem,
+                         "smem": lay.smem, "grid": grid})
+            log(f"  {qid} {kind}: {k_ms:.4f} ms/launch ({k_ms / bound:.1f}x "
+                f"bound {bound:.4f} ms, {nbytes} B needed of {full} B in its "
+                f"columns; {lay.smem} B smem, grid {grid}); wrapper "
+                f"{w_ms:.4f} ms, plain {p_ms:.3f} ms")
     return rows
 
 
@@ -505,7 +604,7 @@ def phase_batch(main: dict, reps: int, errs: dict, iters: int = 20) -> dict:
     for ctx in ctxs.values():   # untimed pass: stages and binds each flight
         ex.execute(ctx, segs)
     torch.cuda.synchronize()
-    (_batch, staged), = ex._batches.values()
+    _batch, staged = ex.batch_for(segs)
     resident = staged.nbytes()
     log(f"  batch of {len(segs)} segments staged + bound in one untimed "
         f"pass: {resident} bytes resident ({resident / rows:.2f} B/row), "
@@ -562,9 +661,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.load_library("fused_scan")
     log(f"  fused_scan built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in _build.BUILD_LOGS.get("fused_scan", ("", ""))[1].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    ptxas = [line.strip() for line in
+             _build.BUILD_LOGS.get("fused_scan", ("", ""))[1].splitlines()
+             if "registers" in line or "stack frame" in line
+             or "spill" in line]
+    for line in ptxas:
+        log(f"  ptxas: {line}")
 
     log("phase 3: kernel against plain version")
     t0 = time.perf_counter()
@@ -609,7 +711,7 @@ def main(argv=None) -> int:
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
-            json.dump({"card": smi, "args": vars(args),
+            json.dump({"card": smi, "args": vars(args), "ptxas": ptxas,
                        "per_flight": main_run["per_flight"],
                        "batch_per_flight": batch_run["per_flight"],
                        "batch_resident_bytes": batch_run["resident_bytes"],

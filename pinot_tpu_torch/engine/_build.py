@@ -81,5 +81,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "fused_scan":
         lib.fused_scan_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.fused_scan_launch.restype = ctypes.c_int
+        lib.fused_scan_grid.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.fused_scan_grid.restype = ctypes.c_int
         lib.fused_scan_error_string.argtypes = [ctypes.c_int]
         lib.fused_scan_error_string.restype = ctypes.c_char_p

@@ -24,40 +24,85 @@
 //     min/max in f32, plus the implicit per-group count in i64.
 // Layout: docs come in tiles of 4096, T tiles per segment; packed columns
 // are [S, T, W], value columns [S, T * 4096], and num_docs [S] masks each
-// segment's tail. A B-bit column packs K = 32/B values per word, W = 4096/K
-// words per tile, value j of a tile in word j % W at bit (j / W) * B. Blocks
-// walk the S * T tiles of the batch; tile t belongs to segment t / T and
-// holds that segment's docs (t % T) * 4096 + j. Thread i of a block handles
-// docs i, i+256, ... of a tile, so neighbouring threads read neighbouring
-// words and values: coalesced.
+// segment's tail. A B-bit column (B a power of two) packs 32/B values per
+// word, W = 128 * B words per tile (512 * B bytes), value j of a tile in
+// word j & (W - 1) at bit (j >> log2 W) * B. Tile t belongs to segment
+// t / T and holds that segment's docs (t % T) * 4096 + j.
 //
-// Bound: the scan is memory-bound, and what it must read depends on the
-// data: the filter's packed columns for every doc, but group-key columns
-// and values only in the 32-byte sectors that hold a doc passing the
-// filter, over 3.35 TB/s (chip_smoke.py's bound_ms counts exactly that).
-// At most that is sum(packed bytes) + sum(value bytes) of the whole batch
-// (SSB Q1.1 at SF10: about 10 B/doc, 0.18 ms per 60 M docs). This kernel
-// reads every packed column for every doc and values only for docs that
-// pass the filter. Design: accumulators are
-// private to a block in shared memory while (rows x G x 8 B) fits, then
-// flushed with one global atomic per touched group and row; past that the
-// block adds straight into global memory. A scalar scan (one group)
-// accumulates per thread in registers, reduces across the warp with
-// shuffles and issues one atomic per warp.
-// Matched-doc counts are reduced per warp and flushed to out_matched[s]
-// whenever a block's next tile lies in another segment, and at the end.
-// Outputs are zeroed or set to +-inf by the caller; the kernel allocates
-// nothing and runs on the caller's stream.
+// Bound: the least time is the bytes the scan must read over 3.35 TB/s,
+// and those depend on the data: the filter's packed columns for every doc,
+// but group-key columns and values only in the 32-byte sectors that hold a
+// doc passing the filter (chip_smoke.py _needed_bytes counts exactly
+// that). SSB's filters pass 0.1-3% of docs, so most of those bytes are the
+// filter's columns.
+//
+// Design, and what it does about each cost of a per-doc interpreter (the
+// H100 timings that decided each choice are in PERF.md, PR 3):
+//   - Persistent grid. The launcher sizes the grid with the occupancy API
+//     (blocks per SM for this shared-memory size x SMs, at most one block
+//     per tile); block b walks tiles b, b + grid, ..., so the program load,
+//     the accumulator initialisation and the flush are paid once per block
+//     over many tiles. 60 registers give 4 blocks of 256 threads per SM.
+//   - The filter is interpreted once per thread per tile, not per doc.
+//     Thread i holds docs i + 256 r, r = 0..15; every filter op yields a
+//     16-bit mask of them; AND, OR, NOT are bitwise; the stack's top is a
+//     register, the levels below it live in shared memory [depth][BLOCK].
+//     An IV/IVS leaf reads the thread's B/2 words of the column (one for
+//     B <= 2; the host passes log2 B, so there is no division) and tests
+//     every field of a word at once up to 8 bits (SWAR: even and odd
+//     fields as 2B-bit lanes with a guard bit, two subtractions and an
+//     AND), then moves the result bits into the mask with a few shifts;
+//     16- and 32-bit fields are compared one by one. The filter's
+//     instructions are the likely bound on SSB, not its loads: of the
+//     variants timed (PERF.md, PR 3) none that changed how the columns
+//     arrive made it faster.
+//   - Filter columns ("early": read by an IV/IVS op) are read straight from
+//     device memory through the read-only path: at 32 warps per SM these
+//     loads keep enough bytes in flight. A ring of shared memory filled
+//     per tile by 1D bulk copies (cp.async.bulk, an mbarrier per stage),
+//     the counterpart of the Pallas BlockSpec double buffer, took 0.99 to
+//     1.31x the time of these loads on the H100 and was removed.
+//   - Group-key ("late") columns and values are read only for passing docs.
+//     Each warp compacts its passing docs into a list in shared memory, so
+//     every lane takes about one doc rather than its own uneven share, and
+//     a doc's operands (group keys, ID values, value columns; up to
+//     MAX_OPND) are loaded together through the read-only path before the
+//     program runs: one memory latency per doc, not one per operand.
+//   - No local memory: no array is indexed by a runtime value. Operands are
+//     picked from registers by a chain of selects; the value stack keeps
+//     its top in registers and the levels below in shared memory
+//     [depth][BLOCK]; a scalar scan folds each row into per-thread slots in
+//     shared memory [rows][BLOCK], reduced across the warp with shuffles at
+//     the end into one global atomic per warp and row; the tile loop keeps
+//     its counters in 32 bits and recomputes shared-memory pointers where
+//     it uses them.
+//   - Grouped scans add into block-private shared accumulators while they
+//     fit beside two blocks on an SM, flushed with one global atomic per
+//     touched group and row; past that the block adds straight into global
+//     memory (one block of 8 warps per SM is slower than L2 atomics at 4).
+//   - Tensor cores are not used: the scan moves bytes and does a few
+//     integer operations per doc, and only the passing docs (about 1-2% on
+//     SSB) add into accumulators. The TPU kernel's one-hot matmul
+//     (pallas_kernels.py:785-792) stands in for scatter atomics, which the
+//     TPU lacks and this card has.
+// Matched-doc counts (popcounts of the masks) are reduced per warp and
+// flushed to out_matched[s] whenever a block's next tile lies in another
+// segment, and at the end. Outputs are zeroed or set to +-inf by the
+// caller; the kernel allocates nothing and runs on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #define MAX_COLS 16
 #define TILE 4096
 #define BLOCK 256
 #define DOCS_PER_THREAD (TILE / BLOCK)
-#define MAX_VALUE_STACK 8
-#define MAX_ROWS 16
+#define SMEM_BLOCK_MAX (227 * 1024)
+#define MAX_OPND 8
 
 enum { F_TRUE = 0, F_IV = 1, F_IVS = 2, F_AND = 3, F_OR = 4, F_NOT = 5 };
 enum { V_COL = 0, V_ID = 1, V_LITC = 2, V_LITF = 3, V_TIMES = 4, V_PLUS = 5,
@@ -67,30 +112,39 @@ enum { T_F32 = 0, T_I32 = 1, T_I64 = 2 };
 
 // argv slots (fused_scan.py _A_*)
 enum {
-  A_NUM_DOCS = 0, A_NUM_TILES, A_G, A_N_PACKED, A_N_VALUES, A_PROG_LEN,
-  A_FILTER_OFF, A_FILTER_N, A_VOPS_OFF, A_EXPR_OFF, A_N_EXPRS, A_ROWS_OFF,
-  A_N_ROWS, A_GROUP_OFF, A_N_GROUP, A_KEY_OFFSET, A_IV_OFF, A_N_ISUM,
-  A_N_FSUM, A_N_MM, A_SCALAR, A_PROG, A_OUT_CNT, A_OUT_ISUM, A_OUT_FSUM,
-  A_OUT_MM, A_OUT_MATCHED, A_GRID, A_ACC_SMEM, A_SMEM, A_SEG_TILES,
-  A_PACKED = 32, A_BITS = 48, A_VALUES = 64, A_VTYPES = 80
+  A_NUM_DOCS = 0, A_NUM_TILES, A_SEG_TILES, A_G, A_N_PACKED, A_N_VALUES,
+  A_PROG, A_PROG_LEN, A_FILTER_OFF, A_FILTER_N, A_VOPS_OFF, A_EXPR_OFF,
+  A_ROWS_OFF, A_N_ROWS, A_GROUP_OFF, A_N_GROUP, A_IV_OFF, A_KEY_OFFSET,
+  A_N_ISUM, A_N_FSUM, A_N_MM, A_SCALAR, A_ACC_SMEM, A_OUT_CNT, A_OUT_ISUM,
+  A_OUT_FSUM, A_OUT_MM, A_OUT_MATCHED, A_SMEM, A_PROG_SMEM_OFF,
+  A_MSTACK_OFF, A_VSTACK_OFF, A_ACC_OFF, A_RACC_OFF, A_WLIST_OFF, A_N_OPND,
+  A_PACKED = 48, A_LOG2_BITS = 64, A_VALUES = 80, A_VTYPES = 96,
+  A_SLOT_PACKED = 112, A_SLOT_VALUE = 128, A_LEN = 144
 };
 
 typedef unsigned long long u64;
 
 struct ScanArgs {
   const uint32_t* packed[MAX_COLS];
-  int bits[MAX_COLS];
+  int lb[MAX_COLS];             // log2 of each packed column's bit width
   const void* values[MAX_COLS];
   int vtype[MAX_COLS];
   const int* prog;
   int prog_len, n_packed, n_values;
-  int filter_off, filter_n, vops_off, expr_off, n_exprs, rows_off, n_rows;
+  int filter_off, filter_n, vops_off, expr_off, rows_off, n_rows;
   int group_off, n_group, iv_off;
   long long key_offset;
   const long long* num_docs;    // [S] docs of each segment
   long long num_tiles;          // S * T tiles in the batch
   long long seg_tiles;          // T tiles per segment
   int G, n_isum, n_fsum, n_mm, scalar, acc_in_smem;
+  int prog_smem_off, mstack_off, vstack_off, acc_off, racc_off, wlist_off;
+  // a passing doc's operands: operand k is packed column opnd_col[k]'s
+  // dictId (opnd_packed[k]) or that value column's value; slot_packed[c]
+  // and slot_value[c] are a column's operand, -1 when it has none
+  int n_opnd;
+  int opnd_col[MAX_OPND], opnd_packed[MAX_OPND];
+  int slot_packed[MAX_COLS], slot_value[MAX_COLS];
   u64* out_cnt;
   u64* out_isum;
   double* out_fsum;
@@ -98,15 +152,307 @@ struct ScanArgs {
   u64* out_matched;             // [S] docs passing the filter, per segment
 };
 
-struct Val {
-  long long i;
-  float f;
-  int isf;
+// ---- packed dictIds ---------------------------------------------------------
+
+// SWAR constants of B-bit fields (B = 1 << LB <= 8) seen as 2B-bit lanes
+// of even (or odd) fields: ONE bit 0 of every lane, EV its low B bits, G its
+// guard bit B
+template <int LB>
+struct Swar {
+  static constexpr int B = 1 << LB;
+  static constexpr uint32_t ONE = LB == 0 ? 0x55555555u
+                                : LB == 1 ? 0x11111111u
+                                : LB == 2 ? 0x01010101u : 0x00010001u;
+  static constexpr uint32_t EV = ONE * ((1u << B) - 1u);
+  static constexpr uint32_t G = ONE << B;
 };
 
-__device__ __forceinline__ float as_float(const Val& v) {
-  return v.isf ? v.f : (float)v.i;
+// lo <= field <= hi for all 32/B fields of w at once, as bit f * B for field
+// f; lor = lo * ONE, hig = hi * ONE | G with 0 <= lo <= hi < 2^B, so no lane
+// borrows from the next
+template <int LB>
+__device__ __forceinline__ uint32_t fields_in(uint32_t w, uint32_t lor,
+                                              uint32_t hig) {
+  using S = Swar<LB>;
+  const uint32_t e = w & S::EV, o = (w >> S::B) & S::EV;
+  const uint32_t ie = ((e | S::G) - lor) & (hig - e) & S::G;
+  const uint32_t io = ((o | S::G) - lor) & (hig - o) & S::G;
+  return (ie >> S::B) | io;
 }
+
+// bit 2 f -> bit f, for f < 16
+__device__ __forceinline__ uint32_t compress_even(uint32_t x) {
+  x &= 0x55555555u;
+  x = (x | (x >> 1)) & 0x33333333u;
+  x = (x | (x >> 2)) & 0x0f0f0f0fu;
+  x = (x | (x >> 4)) & 0x00ff00ffu;
+  return (x | (x >> 8)) & 0x0000ffffu;
+}
+
+// bit f * B -> bit f * B / 2
+template <int LB>
+__device__ __forceinline__ uint32_t halve(uint32_t x) {
+  if constexpr (LB == 1) {
+    return compress_even(x);
+  } else if constexpr (LB == 2) {
+    x = (x | (x >> 2)) & 0x05050505u;
+    x = (x | (x >> 4)) & 0x00550055u;
+    return (x | (x >> 8)) & 0x00005555u;
+  } else {
+    x = (x | (x >> 4)) & 0x00110011u;
+    return (x | (x >> 8)) & 0x00001111u;
+  }
+}
+
+// The 16-bit mask of thread i's docs (i + 256 r, bit r) of one tile whose
+// dictId in a 2^LB-bit column lies in any of the n intervals iv[2 s],
+// iv[2 s + 1]; `p` is the column's words of the tile. Doc i + 256 r sits in
+// word i + 256 (r % (B/2)), field r / (B/2) for LB >= 1; in word i & 127,
+// field (i >> 7) + 2 r for LB = 0. Up to 8 bits, every field of a word is
+// tested at once (fields_in); 16- and 32-bit fields one by one.
+template <int LB>
+__device__ __forceinline__ uint32_t leaf_mask(const uint32_t* p, int i,
+                                              const int* iv, int n) {
+  constexpr int B = 1 << LB;
+  constexpr uint32_t M = B == 32 ? 0xffffffffu : ((1u << (B & 31)) - 1u);
+  if constexpr (LB == 0) {
+    const uint32_t w = __ldg(p + (i & 127));
+    uint32_t r = 0;
+    for (int s = 0; s < n; ++s) {
+      const int lo = max(iv[2 * s], 0);
+      if (iv[2 * s + 1] < lo || (uint32_t)lo > M) continue;
+      const uint32_t hi = min((uint32_t)iv[2 * s + 1], M);
+      r |= fields_in<0>(w, lo * Swar<0>::ONE, hi * Swar<0>::ONE | Swar<0>::G);
+    }
+    return compress_even(r >> (i >> 7));
+  } else {
+    constexpr int NW = B / 2;
+    uint32_t w[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) w[k] = __ldg(p + i + BLOCK * k);
+    uint32_t m = 0;
+    if constexpr (LB <= 3) {
+      uint32_t acc[NW];
+#pragma unroll
+      for (int k = 0; k < NW; ++k) acc[k] = 0;
+      for (int s = 0; s < n; ++s) {
+        const int lo = max(iv[2 * s], 0);
+        if (iv[2 * s + 1] < lo || (uint32_t)lo > M) continue;
+        const uint32_t hi = min((uint32_t)iv[2 * s + 1], M);
+        const uint32_t lor = lo * Swar<LB>::ONE;
+        const uint32_t hig = hi * Swar<LB>::ONE | Swar<LB>::G;
+#pragma unroll
+        for (int k = 0; k < NW; ++k) acc[k] |= fields_in<LB>(w[k], lor, hig);
+      }
+#pragma unroll
+      for (int k = 0; k < NW; ++k) m |= halve<LB>(acc[k]) << k;
+    } else {
+      for (int s = 0; s < n; ++s) {
+        const int lo = max(iv[2 * s], 0);
+        const int hi = iv[2 * s + 1];
+        if (hi < lo) continue;
+        const uint32_t span = (uint32_t)(hi - lo);
+#pragma unroll
+        for (int k = 0; k < NW; ++k) {
+          if constexpr (LB == 4) {
+            m |= (uint32_t)((w[k] & 0xffffu) - (uint32_t)lo <= span) << k;
+            m |= (uint32_t)((w[k] >> 16) - (uint32_t)lo <= span) << (k + 8);
+          } else {
+            m |= (uint32_t)(w[k] - (uint32_t)lo <= span) << k;
+          }
+        }
+      }
+    }
+    return m;
+  }
+}
+
+__device__ __forceinline__ uint32_t leaf_any(int lb, const uint32_t* p, int i,
+                                             const int* iv, int n) {
+  switch (lb) {
+    case 0: return leaf_mask<0>(p, i, iv, n);
+    case 1: return leaf_mask<1>(p, i, iv, n);
+    case 2: return leaf_mask<2>(p, i, iv, n);
+    case 3: return leaf_mask<3>(p, i, iv, n);
+    case 4: return leaf_mask<4>(p, i, iv, n);
+    default: return leaf_mask<5>(p, i, iv, n);
+  }
+}
+
+// ---- filter: one 16-bit doc mask per op --------------------------------------
+
+__device__ __forceinline__ uint32_t eval_filter(
+    const ScanArgs& a, const int* P, unsigned char* smem, long long tile) {
+  const int i = threadIdx.x;
+  unsigned short* mstk = (unsigned short*)(smem + a.mstack_off) + i;
+  uint32_t top = 0;
+  int sp = 0;  // entries: sp - 1 of them in mstk, the top in `top`
+  for (int k = 0; k < a.filter_n; ++k) {
+    const int* op = P + a.filter_off + 4 * k;
+    const int o = op[0];
+    if (o == F_NOT) {
+      top = ~top & 0xffffu;
+      continue;
+    }
+    if (o == F_AND || o == F_OR) {
+      const uint32_t x = mstk[(sp - 2) * BLOCK];
+      top = o == F_AND ? (x & top) : (x | top);
+      --sp;
+      continue;
+    }
+    uint32_t r = 0xffffu;
+    if (o != F_TRUE) {
+      const int c = op[1];
+      const int* iv = P + a.iv_off + 2 * op[2];
+      const int n = o == F_IV ? 1 : op[3];
+      r = leaf_any(a.lb[c], a.packed[c] + tile * (128LL << a.lb[c]), i, iv,
+                   n);
+    }
+    if (sp > 0) mstk[(sp - 1) * BLOCK] = (unsigned short)top;
+    top = r;
+    ++sp;
+  }
+  return top;
+}
+
+// ---- operands and values ------------------------------------------------------
+
+// A passing doc's operands (group-key dictIds, ID values, value columns),
+// up to MAX_OPND of them, loaded together before the program runs: every
+// load is in flight at once, then decoded. An operand past MAX_OPND is
+// loaded where the program reads it.
+__device__ __forceinline__ void load_operands(const ScanArgs& a,
+                                              long long tile, int j,
+                                              u64 (&o)[MAX_OPND]) {
+  const long long doc = tile * TILE + j;  // in the batch's value columns
+#pragma unroll
+  for (int k = 0; k < MAX_OPND; ++k) {
+    if (k >= a.n_opnd) break;
+    const int c = a.opnd_col[k];
+    if (a.opnd_packed[k]) {
+      const int lb = a.lb[c];
+      o[k] = __ldg(a.packed[c] + tile * (128LL << lb)
+                   + (j & ((128 << lb) - 1)));
+    } else if (a.vtype[c] == T_I64) {
+      o[k] = (u64)__ldg((const long long*)a.values[c] + doc);
+    } else {
+      o[k] = __ldg((const uint32_t*)a.values[c] + doc);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < MAX_OPND; ++k) {
+    if (k >= a.n_opnd) break;
+    const int c = a.opnd_col[k];
+    if (a.opnd_packed[k]) {
+      const int lb = a.lb[c];
+      if (lb != 5)
+        o[k] = ((uint32_t)o[k] >> ((j >> (7 + lb)) << lb))
+               & ((1u << (1 << lb)) - 1u);
+    } else if (a.vtype[c] == T_I32) {
+      o[k] = (u64)(long long)(int)(uint32_t)o[k];
+    }
+  }
+}
+
+// operand k, by a chain of selects (no runtime index into an array)
+__device__ __forceinline__ u64 pick(const u64 (&o)[MAX_OPND], int k) {
+  u64 v = o[0];
+#pragma unroll
+  for (int i = 1; i < MAX_OPND; ++i) v = k == i ? o[i] : v;
+  return v;
+}
+
+// dictId of doc j of `tile` in packed column c, from device memory
+__device__ __forceinline__ u64 packed_operand(const ScanArgs& a,
+                                              const u64 (&o)[MAX_OPND],
+                                              int c, long long tile, int j) {
+  const int k = a.slot_packed[c];
+  if (k >= 0) return pick(o, k);
+  const int lb = a.lb[c];
+  const uint32_t w =
+      __ldg(a.packed[c] + tile * (128LL << lb) + (j & ((128 << lb) - 1)));
+  if (lb == 5) return w;
+  return (w >> ((j >> (7 + lb)) << lb)) & ((1u << (1 << lb)) - 1u);
+}
+
+__device__ __forceinline__ float as_float(u64 bits, bool isf) {
+  return isf ? __uint_as_float((uint32_t)bits) : (float)(long long)bits;
+}
+
+struct Val {
+  u64 bits;    // i64, or the f32's bits
+  bool isf;
+};
+
+__device__ __forceinline__ Val eval_expr(const ScanArgs& a, const int* P,
+                                         int e, const u64 (&o)[MAX_OPND],
+                                         long long tile, int j, u64* vstk) {
+  u64 top = 0;
+  bool tf = false;
+  uint32_t fb = 0;  // float flags of the entries below the top
+  int sp = 0;
+  const int start = P[a.expr_off + 2 * e];
+  const int n = P[a.expr_off + 2 * e + 1];
+  for (int k = start; k < start + n; ++k) {
+    const int* op = P + a.vops_off + 4 * k;
+    const int code = op[0];
+    if (code >= V_TIMES) {
+      const u64 xb = vstk[(sp - 2) * BLOCK];
+      const bool xf = (fb >> (sp - 2)) & 1u;
+      if (op[3]) {
+        const float x = as_float(xb, xf), y = as_float(top, tf);
+        const float r = code == V_TIMES ? __fmul_rn(x, y)
+                      : code == V_PLUS ? __fadd_rn(x, y) : __fsub_rn(x, y);
+        top = __float_as_uint(r);
+        tf = true;
+      } else {
+        const long long x = (long long)xb, y = (long long)top;
+        top = (u64)(code == V_TIMES ? x * y : code == V_PLUS ? x + y : x - y);
+        tf = false;
+      }
+      --sp;
+      continue;
+    }
+    u64 r;
+    switch (code) {
+      case V_COL: {
+        const int c = op[1];
+        const int slot = a.slot_value[c];
+        if (slot >= 0) {
+          r = pick(o, slot);
+        } else {
+          const long long doc = tile * TILE + j;
+          const int t = a.vtype[c];
+          if (t == T_F32)
+            r = __float_as_uint(__ldg((const float*)a.values[c] + doc));
+          else if (t == T_I32)
+            r = (u64)(long long)__ldg((const int*)a.values[c] + doc);
+          else
+            r = (u64)__ldg((const long long*)a.values[c] + doc);
+        }
+        break;
+      }
+      case V_ID:
+        r = packed_operand(a, o, op[1], tile, j);
+        break;
+      case V_LITC:
+        r = (u64)(long long)op[1];
+        break;
+      default:  // V_LITF
+        r = (uint32_t)op[1];
+    }
+    if (sp > 0) {
+      vstk[(sp - 1) * BLOCK] = top;
+      fb = (fb & ~(1u << (sp - 1))) | ((uint32_t)tf << (sp - 1));
+    }
+    top = r;
+    tf = op[3] != 0;
+    ++sp;
+  }
+  return {top, tf};
+}
+
+// ---- reductions and atomics ----------------------------------------------------
 
 // float min/max through the ordered-int encoding: non-negative floats order
 // like signed ints, negative floats order inversely as unsigned ints
@@ -120,103 +466,6 @@ __device__ __forceinline__ void atomic_max_f(float* a, float v) {
   v = v + 0.0f;
   if (v >= 0.0f) atomicMax((int*)a, __float_as_int(v));
   else atomicMin((unsigned int*)a, __float_as_uint(v));
-}
-
-__device__ __forceinline__ bool eval_filter(const ScanArgs& a, const int* P,
-                                            const long long* ids) {
-  unsigned int st = 0;
-  int sp = 0;
-  for (int i = 0; i < a.filter_n; ++i) {
-    const int* op = P + a.filter_off + 4 * i;
-    bool r;
-    switch (op[0]) {
-      case F_TRUE:
-        r = true;
-        break;
-      case F_IV: {
-        long long id = ids[op[1]];
-        r = id >= P[a.iv_off + 2 * op[2]] && id <= P[a.iv_off + 2 * op[2] + 1];
-        break;
-      }
-      case F_IVS: {
-        long long id = ids[op[1]];
-        r = false;
-        for (int s = op[2]; s < op[2] + op[3]; ++s)
-          r = r || (id >= P[a.iv_off + 2 * s] && id <= P[a.iv_off + 2 * s + 1]);
-        break;
-      }
-      case F_NOT:
-        --sp;
-        r = !((st >> sp) & 1u);
-        break;
-      default: {  // F_AND, F_OR
-        --sp;
-        bool y = (st >> sp) & 1u;
-        --sp;
-        bool x = (st >> sp) & 1u;
-        r = op[0] == F_AND ? (x && y) : (x || y);
-      }
-    }
-    st = (st & ~(1u << sp)) | ((unsigned int)r << sp);
-    ++sp;
-  }
-  return st & 1u;
-}
-
-__device__ __forceinline__ Val eval_expr(const ScanArgs& a, const int* P,
-                                         int e, const long long* ids,
-                                         long long doc) {
-  Val st[MAX_VALUE_STACK];
-  int sp = 0;
-  const int start = P[a.expr_off + 2 * e];
-  const int n = P[a.expr_off + 2 * e + 1];
-  for (int i = start; i < start + n; ++i) {
-    const int* op = P + a.vops_off + 4 * i;
-    Val r;
-    r.i = 0;
-    r.f = 0.0f;
-    r.isf = 0;
-    switch (op[0]) {
-      case V_COL: {
-        const int c = op[1];
-        const int t = a.vtype[c];
-        if (t == T_F32) {
-          r.f = ((const float*)a.values[c])[doc];
-          r.isf = 1;
-        } else if (t == T_I32) {
-          r.i = ((const int*)a.values[c])[doc];
-        } else {
-          r.i = ((const long long*)a.values[c])[doc];
-        }
-        break;
-      }
-      case V_ID:
-        r.i = ids[op[1]];
-        break;
-      case V_LITC:
-        r.i = op[1];
-        break;
-      case V_LITF:
-        r.f = __int_as_float(op[1]);
-        r.isf = 1;
-        break;
-      default: {
-        Val y = st[--sp];
-        Val x = st[--sp];
-        if (op[3]) {
-          float xf = as_float(x), yf = as_float(y);
-          r.f = op[0] == V_TIMES ? __fmul_rn(xf, yf)
-              : op[0] == V_PLUS ? __fadd_rn(xf, yf) : __fsub_rn(xf, yf);
-          r.isf = 1;
-        } else {
-          r.i = op[0] == V_TIMES ? x.i * y.i
-              : op[0] == V_PLUS ? x.i + y.i : x.i - y.i;
-        }
-      }
-    }
-    st[sp++] = r;
-  }
-  return st[0];
 }
 
 __device__ __forceinline__ long long warp_sum(long long v) {
@@ -242,147 +491,192 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // called by every thread of the block at the same point (warp shuffles)
-__device__ __forceinline__ void flush_matched(const ScanArgs& a, long long seg,
-                                              long long matched) {
-  matched = warp_sum(matched);
-  if ((threadIdx.x & 31) == 0 && matched && seg >= 0)
-    atomicAdd(&a.out_matched[seg], (u64)matched);
+__device__ __forceinline__ void flush_matched(const ScanArgs& a, int seg,
+                                              unsigned matched) {
+  const long long m = warp_sum((long long)matched);
+  if ((threadIdx.x & 31) == 0 && m && seg >= 0)
+    atomicAdd(&a.out_matched[seg], (u64)m);
 }
 
-extern "C" __global__ void __launch_bounds__(BLOCK)
-fused_scan_kernel(const __grid_constant__ ScanArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* P = (int*)smem;
-  for (int i = threadIdx.x; i < a.prog_len; i += BLOCK) P[i] = a.prog[i];
-  size_t off = ((size_t)a.prog_len * 4 + 15) / 16 * 16;
-  const int G = a.G;
-  u64* cnt = a.out_cnt;
-  u64* isum = a.out_isum;
-  double* fsum = a.out_fsum;
-  float* mm = a.out_mm;
-  if (a.acc_in_smem) {
-    cnt = (u64*)(smem + off);
-    off += (size_t)G * 8;
-    isum = (u64*)(smem + off);
-    off += (size_t)a.n_isum * G * 8;
-    fsum = (double*)(smem + off);
-    off += (size_t)a.n_fsum * G * 8;
-    mm = (float*)(smem + off);
-    for (int i = threadIdx.x; i < G * (1 + a.n_isum); i += BLOCK) cnt[i] = 0;
-    for (int i = threadIdx.x; i < G * a.n_fsum; i += BLOCK) fsum[i] = 0.0;
+// a grouped scan's accumulators: the block's own in shared memory, or the
+// outputs (computed where they are used, so no pointer stays live in
+// registers across the tile loop)
+struct Acc {
+  u64* cnt;
+  u64* isum;
+  double* fsum;
+  float* mm;
+};
+
+__device__ __forceinline__ Acc accumulators(const ScanArgs& a,
+                                            unsigned char* smem) {
+  if (!a.acc_in_smem) return {a.out_cnt, a.out_isum, a.out_fsum, a.out_mm};
+  const size_t G = a.G;
+  unsigned char* p = smem + a.acc_off;
+  return {(u64*)p, (u64*)(p + G * 8), (double*)(p + G * 8 * (1 + a.n_isum)),
+          (float*)(p + G * 8 * (1 + a.n_isum + a.n_fsum))};
+}
+
+// one passing doc (j of `tile`): a scalar scan folds each row into this
+// thread's slots in shared memory ([rows][BLOCK]); a grouped scan adds into
+// its group
+__device__ __forceinline__ void aggregate_doc(
+    const ScanArgs& a, const int* P, unsigned char* smem, long long tile,
+    int j) {
+  u64* vstk = (u64*)(smem + a.vstack_off) + threadIdx.x;
+  u64 o[MAX_OPND] = {};
+  load_operands(a, tile, j, o);
+  if (a.scalar) {
+    for (int r = 0; r < a.n_rows; ++r) {
+      const int* row = P + a.rows_off + 3 * r;
+      const Val v = eval_expr(a, P, row[1], o, tile, j, vstk);
+      u64* slot = (u64*)(smem + a.racc_off) + r * BLOCK + threadIdx.x;
+      switch (row[0]) {
+        case R_ISUM: *slot += v.bits; break;
+        case R_FSUM:
+          *slot = __double_as_longlong(__longlong_as_double(*slot)
+                                       + (double)as_float(v.bits, v.isf));
+          break;
+        case R_MIN:
+          *slot = __float_as_uint(fminf(__uint_as_float((uint32_t)*slot),
+                                        as_float(v.bits, v.isf)));
+          break;
+        default:
+          *slot = __float_as_uint(fmaxf(__uint_as_float((uint32_t)*slot),
+                                        as_float(v.bits, v.isf)));
+      }
+    }
+    return;
   }
+  const int G = a.G;
+  long long key = -a.key_offset;
+  for (int g = 0; g < a.n_group; ++g)
+    key += (long long)packed_operand(a, o, P[a.group_off + 2 * g], tile, j)
+           * P[a.group_off + 2 * g + 1];
+  if (key < 0 || key >= G) return;
+  const Acc acc = accumulators(a, smem);
+  atomicAdd(&acc.cnt[key], 1ull);
+  for (int r = 0; r < a.n_rows; ++r) {
+    const int* row = P + a.rows_off + 3 * r;
+    const Val v = eval_expr(a, P, row[1], o, tile, j, vstk);
+    const size_t at = (size_t)row[2] * G + key;
+    switch (row[0]) {
+      case R_ISUM: atomicAdd(&acc.isum[at], v.bits); break;
+      case R_FSUM:
+        atomicAdd(&acc.fsum[at], (double)as_float(v.bits, v.isf));
+        break;
+      case R_MIN: atomic_min_f(&acc.mm[at], as_float(v.bits, v.isf)); break;
+      default: atomic_max_f(&acc.mm[at], as_float(v.bits, v.isf));
+    }
+  }
+}
+
+// 4 blocks of 256 threads per SM: up to 64 registers a thread, which the
+// kernel needs to keep its loop state out of local memory
+extern "C" __global__ void __launch_bounds__(BLOCK, 4)
+fused_scan_kernel(const __grid_constant__ ScanArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* P = (int*)(smem + a.prog_smem_off);
+  for (int i = tid; i < a.prog_len; i += BLOCK) P[i] = a.prog[i];
+  const int G = a.G;
+  if (a.acc_in_smem) {
+    const Acc acc = accumulators(a, smem);
+    for (int i = tid; i < G * (1 + a.n_isum); i += BLOCK) acc.cnt[i] = 0;
+    for (int i = tid; i < G * a.n_fsum; i += BLOCK) acc.fsum[i] = 0.0;
+  }
+  if (a.scalar)
+    for (int r = 0; r < a.n_rows; ++r) {
+      const int kind = a.prog[a.rows_off + 3 * r];
+      ((u64*)(smem + a.racc_off))[r * BLOCK + tid] =
+          kind == R_MIN ? 0x7f800000ull : kind == R_MAX ? 0xff800000ull : 0ull;
+    }
   __syncthreads();
   if (a.acc_in_smem) {
+    float* mm = accumulators(a, smem).mm;
     for (int r = 0; r < a.n_rows; ++r) {
       const int* row = P + a.rows_off + 3 * r;
       if (row[0] == R_MIN || row[0] == R_MAX) {
         const float init = row[0] == R_MIN ? __int_as_float(0x7f800000)
                                            : __int_as_float(0xff800000);
-        for (int g = threadIdx.x; g < G; g += BLOCK)
+        for (int g = tid; g < G; g += BLOCK)
           mm[(size_t)row[2] * G + g] = init;
       }
     }
-    __syncthreads();
   }
+  __syncthreads();
 
-  // scalar scans accumulate per thread (register/local arrays)
-  long long li[MAX_ROWS];
-  double lf[MAX_ROWS];
-  float lm[MAX_ROWS];
-  for (int r = 0; r < a.n_rows; ++r) {
-    li[r] = 0;
-    lf[r] = 0.0;
-    lm[r] = P[a.rows_off + 3 * r] == R_MIN ? __int_as_float(0x7f800000)
-                                            : __int_as_float(0xff800000);
-  }
-  long long lcnt = 0, lmatched = 0;
-  long long seg = -1, seg_docs = 0;  // segment lmatched counts, its docs
-
-  long long ids[MAX_COLS];
-  for (long long tile = blockIdx.x; tile < a.num_tiles; tile += gridDim.x) {
-    const long long s = tile / a.seg_tiles;
+  // the loop's state in 32 bits, so it stays in registers: the launcher
+  // checks the tile count, a segment has fewer than 2^31 docs, and a thread
+  // counts at most 16 docs a tile
+  const unsigned num_tiles = (unsigned)a.num_tiles;
+  const unsigned seg_tiles = (unsigned)a.seg_tiles;
+  unsigned lcnt = 0, lmatched = 0;
+  int seg = -1, seg_docs = 0;        // segment lmatched counts, its docs
+  for (unsigned tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int s = (int)(tile / seg_tiles);
     if (s != seg) {
       flush_matched(a, seg, lmatched);
       lmatched = 0;
       seg = s;
-      seg_docs = a.num_docs[s];
+      seg_docs = (int)a.num_docs[s];
     }
-    // first doc of this tile within its segment
-    const long long tile_doc = (tile - s * a.seg_tiles) * TILE;
-    for (int rr = 0; rr < DOCS_PER_THREAD; ++rr) {
-      const int j = threadIdx.x + rr * BLOCK;
-      if (tile_doc + j >= seg_docs) continue;
-      // position in the batch's [S, T * TILE] value columns
-      const long long doc = tile * TILE + j;
-      for (int c = 0; c < a.n_packed; ++c) {
-        const int B = a.bits[c];
-        const int W = TILE * B / 32;
-        const uint32_t w = a.packed[c][tile * W + (j % W)];
-        const uint32_t m = B == 32 ? 0xffffffffu : ((1u << B) - 1u);
-        ids[c] = (w >> ((j / W) * B)) & m;
-      }
-      if (!eval_filter(a, P, ids)) continue;
-      ++lmatched;
-      if (a.scalar) {
-        ++lcnt;
-        for (int r = 0; r < a.n_rows; ++r) {
-          const int* row = P + a.rows_off + 3 * r;
-          const Val v = eval_expr(a, P, row[1], ids, doc);
-          switch (row[0]) {
-            case R_ISUM: li[r] += v.i; break;
-            case R_FSUM: lf[r] += (double)as_float(v); break;
-            case R_MIN: lm[r] = fminf(lm[r], as_float(v)); break;
-            default: lm[r] = fmaxf(lm[r], as_float(v));
-          }
-        }
-        continue;
-      }
-      long long key = -a.key_offset;
-      for (int g = 0; g < a.n_group; ++g)
-        key += ids[P[a.group_off + 2 * g]] * P[a.group_off + 2 * g + 1];
-      if (key < 0 || key >= G) continue;
-      atomicAdd(&cnt[key], 1ull);
-      for (int r = 0; r < a.n_rows; ++r) {
-        const int* row = P + a.rows_off + 3 * r;
-        const Val v = eval_expr(a, P, row[1], ids, doc);
-        const size_t at = (size_t)row[2] * G + key;
-        switch (row[0]) {
-          case R_ISUM: atomicAdd(&isum[at], (u64)v.i); break;
-          case R_FSUM: atomicAdd(&fsum[at], (double)as_float(v)); break;
-          case R_MIN: atomic_min_f(&mm[at], as_float(v)); break;
-          default: atomic_max_f(&mm[at], as_float(v));
-        }
-      }
+    // docs of this tile below the segment's num_docs, as a mask of r
+    const int left = seg_docs - (int)(tile - s * seg_tiles) * TILE - tid;
+    const int n_valid = left <= 0 ? 0
+        : left >= (DOCS_PER_THREAD - 1) * BLOCK + 1
+            ? DOCS_PER_THREAD : (left + BLOCK - 1) / BLOCK;
+    const uint32_t valid = (1u << n_valid) - 1u;
+    const uint32_t mask = valid ? eval_filter(a, P, smem, tile) & valid : 0;
+    const int hits = __popc(mask);
+    lmatched += hits;
+    lcnt += hits;
+    // the warp's passing docs, compacted into its list: each lane then
+    // takes about one doc, not its own (uneven) share
+    int incl = hits;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
     }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (total == 0) continue;
+    unsigned short* wl = (unsigned short*)(smem + a.wlist_off) + warp * 512;
+    int pos = incl - hits;
+    for (uint32_t m = mask; m; m &= m - 1)
+      wl[pos++] = (unsigned short)(tid + (__ffs(m) - 1) * BLOCK);
+    __syncwarp();
+    for (int k = lane; k < total; k += 32)
+      aggregate_doc(a, P, smem, tile, wl[k]);
+    __syncwarp();
   }
 
-  const int lane = threadIdx.x & 31;
   flush_matched(a, seg, lmatched);
   if (a.scalar) {
-    lcnt = warp_sum(lcnt);
-    if (lane == 0 && lcnt) atomicAdd(&a.out_cnt[0], (u64)lcnt);
+    const long long cnt_w = warp_sum((long long)lcnt);
+    if (lane == 0 && cnt_w) atomicAdd(&a.out_cnt[0], (u64)cnt_w);
     for (int r = 0; r < a.n_rows; ++r) {
       const int* row = P + a.rows_off + 3 * r;
       const int o = row[2];
+      const u64 v = ((u64*)(smem + a.racc_off))[r * BLOCK + tid];
       switch (row[0]) {
         case R_ISUM: {
-          const long long s = warp_sum(li[r]);
-          if (lane == 0 && lcnt) atomicAdd(&a.out_isum[o], (u64)s);
+          const long long t = warp_sum((long long)v);
+          if (lane == 0 && cnt_w) atomicAdd(&a.out_isum[o], (u64)t);
           break;
         }
         case R_FSUM: {
-          const double s = warp_sum(lf[r]);
-          if (lane == 0 && lcnt) atomicAdd(&a.out_fsum[o], s);
+          const double t = warp_sum(__longlong_as_double((long long)v));
+          if (lane == 0 && cnt_w) atomicAdd(&a.out_fsum[o], t);
           break;
         }
         case R_MIN: {
-          const float s = warp_min(lm[r]);
-          if (lane == 0 && lcnt) atomic_min_f(&a.out_mm[o], s);
+          const float t = warp_min(__uint_as_float((uint32_t)v));
+          if (lane == 0 && cnt_w) atomic_min_f(&a.out_mm[o], t);
           break;
         }
         default: {
-          const float s = warp_max(lm[r]);
-          if (lane == 0 && lcnt) atomic_max_f(&a.out_mm[o], s);
+          const float t = warp_max(__uint_as_float((uint32_t)v));
+          if (lane == 0 && cnt_w) atomic_max_f(&a.out_mm[o], t);
         }
       }
     }
@@ -390,28 +684,59 @@ fused_scan_kernel(const __grid_constant__ ScanArgs a) {
   }
   if (!a.acc_in_smem) return;
   __syncthreads();
-  for (int g = threadIdx.x; g < G; g += BLOCK) {
-    const u64 c = cnt[g];
+  const Acc acc = accumulators(a, smem);
+  for (int g = tid; g < G; g += BLOCK) {
+    const u64 c = acc.cnt[g];
     if (c == 0) continue;
     atomicAdd(&a.out_cnt[g], c);
     for (int r = 0; r < a.n_rows; ++r) {
       const int* row = P + a.rows_off + 3 * r;
       const size_t at = (size_t)row[2] * G + g;
       switch (row[0]) {
-        case R_ISUM: atomicAdd(&a.out_isum[at], isum[at]); break;
-        case R_FSUM: atomicAdd(&a.out_fsum[at], fsum[at]); break;
-        case R_MIN: atomic_min_f(&a.out_mm[at], mm[at]); break;
-        default: atomic_max_f(&a.out_mm[at], mm[at]);
+        case R_ISUM: atomicAdd(&a.out_isum[at], acc.isum[at]); break;
+        case R_FSUM: atomicAdd(&a.out_fsum[at], acc.fsum[at]); break;
+        case R_MIN: atomic_min_f(&a.out_mm[at], acc.mm[at]); break;
+        default: atomic_max_f(&a.out_mm[at], acc.mm[at]);
       }
     }
   }
 }
 
+// blocks per SM x SMs for this shared-memory size on the current device,
+// computed once per (device, size)
+static int grid_for(int smem, int* grid) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, int> cache;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> hold(mu);
+  auto it = cache.find({dev, smem});
+  if (it != cache.end()) {
+    *grid = it->second;
+    return 0;
+  }
+  e = cudaFuncSetAttribute(fused_scan_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_BLOCK_MAX);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_scan_kernel,
+                                                    BLOCK, smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  cache[{dev, smem}] = *grid = per_sm * sms;
+  return 0;
+}
+
+// argv: the A_* slots
 extern "C" int fused_scan_launch(const long long* argv, void* stream) {
   ScanArgs a;
   for (int c = 0; c < MAX_COLS; ++c) {
     a.packed[c] = (const uint32_t*)argv[A_PACKED + c];
-    a.bits[c] = (int)argv[A_BITS + c];
+    a.lb[c] = (int)argv[A_LOG2_BITS + c];
     a.values[c] = (const void*)argv[A_VALUES + c];
     a.vtype[c] = (int)argv[A_VTYPES + c];
   }
@@ -423,7 +748,6 @@ extern "C" int fused_scan_launch(const long long* argv, void* stream) {
   a.filter_n = (int)argv[A_FILTER_N];
   a.vops_off = (int)argv[A_VOPS_OFF];
   a.expr_off = (int)argv[A_EXPR_OFF];
-  a.n_exprs = (int)argv[A_N_EXPRS];
   a.rows_off = (int)argv[A_ROWS_OFF];
   a.n_rows = (int)argv[A_N_ROWS];
   a.group_off = (int)argv[A_GROUP_OFF];
@@ -439,23 +763,53 @@ extern "C" int fused_scan_launch(const long long* argv, void* stream) {
   a.n_mm = (int)argv[A_N_MM];
   a.scalar = (int)argv[A_SCALAR];
   a.acc_in_smem = (int)argv[A_ACC_SMEM];
+  a.prog_smem_off = (int)argv[A_PROG_SMEM_OFF];
+  a.mstack_off = (int)argv[A_MSTACK_OFF];
+  a.vstack_off = (int)argv[A_VSTACK_OFF];
+  a.acc_off = (int)argv[A_ACC_OFF];
+  a.racc_off = (int)argv[A_RACC_OFF];
+  a.wlist_off = (int)argv[A_WLIST_OFF];
+  a.n_opnd = (int)argv[A_N_OPND];
+  for (int k = 0; k < MAX_OPND; ++k) a.opnd_col[k] = a.opnd_packed[k] = 0;
+  for (int c = 0; c < MAX_COLS; ++c) {
+    a.slot_packed[c] = (int)argv[A_SLOT_PACKED + c];
+    a.slot_value[c] = (int)argv[A_SLOT_VALUE + c];
+    for (int packed = 0; packed < 2; ++packed) {
+      const int k = packed ? a.slot_packed[c] : a.slot_value[c];
+      if (k >= MAX_OPND || k >= a.n_opnd) return (int)cudaErrorInvalidValue;
+      if (k >= 0) {
+        a.opnd_col[k] = c;
+        a.opnd_packed[k] = packed;
+      }
+    }
+  }
   a.out_cnt = (u64*)argv[A_OUT_CNT];
   a.out_isum = (u64*)argv[A_OUT_ISUM];
   a.out_fsum = (double*)argv[A_OUT_FSUM];
   a.out_mm = (float*)argv[A_OUT_MM];
   a.out_matched = (u64*)argv[A_OUT_MATCHED];
-  if (a.n_packed > MAX_COLS || a.n_values > MAX_COLS || a.n_rows > MAX_ROWS
-      || a.seg_tiles < 1 || a.num_tiles % a.seg_tiles != 0)
-    return (int)cudaErrorInvalidValue;
+  for (int c = 0; c < a.n_packed && c < MAX_COLS; ++c)
+    if (a.lb[c] < 0 || a.lb[c] > 5) return (int)cudaErrorInvalidValue;
   const int smem = (int)argv[A_SMEM];
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fused_scan_kernel<<<(unsigned int)argv[A_GRID], BLOCK, smem,
+  if (a.n_packed > MAX_COLS || a.n_values > MAX_COLS || a.n_packed < 1
+      || a.seg_tiles < 1 || a.num_tiles % a.seg_tiles != 0
+      || a.num_tiles >= (1LL << 31) || a.seg_tiles * TILE >= (1LL << 31)
+      || a.n_opnd < 0 || a.n_opnd > MAX_OPND || smem > SMEM_BLOCK_MAX)
+    return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  int err = grid_for(smem, &grid);
+  if (err != 0) return err;
+  if (grid > a.num_tiles) grid = (int)a.num_tiles;
+  if (grid < 1) grid = 1;
+  fused_scan_kernel<<<(unsigned int)grid, BLOCK, smem,
                       (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the grid fused_scan_launch takes for `smem` bytes, before its cap at one
+// block per tile
+extern "C" int fused_scan_grid(int smem, int* grid) {
+  return grid_for(smem, grid);
 }
 
 extern "C" const char* fused_scan_error_string(int err) {

@@ -7,7 +7,10 @@ rules (``extract_plan``), the group-range probe (``probe_plan_of``,
 decline reason codes. The TPU kernel (``build_kernel``, specialised per plan
 by tracing) becomes one hand-written CUDA kernel (``csrc/fused_scan.cu``)
 that serves every plan: the host compiles the plan into a small postfix
-program (``compile_program``) which the kernel interprets per doc.
+program (``compile_program``) which the kernel interprets once per thread
+and tile, over a 16-doc mask. The host also marks the filter's packed columns
+(``ScanProgram.early``: read for every doc; the others only for passing
+docs) and lays out the kernel's shared memory (``scan_layout``).
 
 Every input is laid out as a batch of S segments: packed columns
 ``[S, T, W]``, value columns ``[S, T * TILE]``, ``num_docs`` an int64
@@ -31,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -409,11 +412,15 @@ R_ISUM, R_FSUM, R_MIN, R_MAX = 1, 2, 3, 4
 T_F32, T_I32, T_I64 = 0, 1, 2
 _TORCH_VTYPE = {torch.float32: T_F32, torch.int32: T_I32, torch.int64: T_I64}
 
-# limits the kernel is compiled with (csrc/fused_scan.cu)
+# limits of the kernel's inputs (csrc/fused_scan.cu sizes its stacks from
+# the program's depths)
 MAX_COLS = 16
 MAX_FILTER_STACK = 32
 MAX_VALUE_STACK = 8
 MAX_ROWS = 16
+MAX_OPERANDS = 8
+# packed widths (staging.pack_bits) and their log2, which the kernel takes
+_LOG2 = {1: 0, 2: 1, 4: 2, 8: 3, 16: 4, 32: 5}
 
 
 def _row_layout(aggs):
@@ -460,9 +467,23 @@ class ScanProgram:
     n_mm: int
     rows: Tuple[Tuple[int, int, int], ...]
     probe: bool
+    log2_bits: Tuple[int, ...]   # log2 of each packed column's width
+    # packed columns an IV/IVS op reads ("early"): the kernel reads them for
+    # every doc; the others (group keys, ID values) only for passing docs
+    early: Tuple[int, ...]
+    filter_depth: int            # deepest filter stack
+    value_depth: int             # deepest value stack over the expressions
+    # a passing doc's operands the kernel loads together, in order:
+    # (True, packed column) for a group key or ID value, (False, value
+    # column); at most MAX_OPERANDS, the rest are loaded where read
+    operands: Tuple[Tuple[bool, int], ...]
     # the program uploaded to a device, kept so a cached program is
     # uploaded once (device -> tensor)
     _on: Dict[torch.device, torch.Tensor] = field(
+        default_factory=dict, repr=False, compare=False)
+    # the kernel's argv slots that depend only on the program and the
+    # batch's shape ((device, S, T) ->)
+    _argv: Dict[Tuple, np.ndarray] = field(
         default_factory=dict, repr=False, compare=False)
 
     def on(self, device: torch.device) -> torch.Tensor:
@@ -479,6 +500,8 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
         raise ValueError("one bit width per packed column is required")
     if len(pp.packed_names) > MAX_COLS or len(pp.value_names) > MAX_COLS:
         raise ValueError(f"more than {MAX_COLS} packed or value columns")
+    if any(b not in _LOG2 for b in bits):
+        raise ValueError(f"packed widths must be one of {sorted(_LOG2)}")
 
     filt: List[Tuple[int, int, int, int]] = []
     depth = [0, 0]   # current, max
@@ -545,12 +568,17 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
         vops.append((_V_BINARY[op], 0, 0, 0 if is_int(vexpr) else 1))
         return max(d1, d2)
 
+    value_depth = 0
+
     def expr_id(vexpr) -> int:
+        nonlocal value_depth
         e = expr_index.get(vexpr)
         if e is None:
             start = len(vops)
-            if emit_value(vexpr, 0) > MAX_VALUE_STACK:
+            d = emit_value(vexpr, 0)
+            if d > MAX_VALUE_STACK:
                 raise ValueError("value expression too deep for the kernel")
+            value_depth = max(value_depth, d)
             e = len(exprs)
             exprs.append((start, len(vops) - start))
             expr_index[vexpr] = e
@@ -578,6 +606,13 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
     if prog.size and (prog.max() > _I32_MAX or prog.min() < -_I32_MAX - 1):
         raise ValueError("scan program value outside int32")
     scalar = not pp.group_idx
+    early = tuple(sorted({op[1] for op in filt if op[0] in (F_IV, F_IVS)}))
+    operands: List[Tuple[bool, int]] = []
+    for opnd in ([(True, g) for g in pp.group_idx]
+                 + [(op[0] == V_ID, op[1]) for op in vops
+                    if op[0] in (V_COL, V_ID)]):
+        if opnd not in operands:
+            operands.append(opnd)
     return ScanProgram(
         prog=prog.astype(np.int32), bits=tuple(bits),
         value_is_int=tuple(pp.value_is_int),
@@ -587,7 +622,10 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
         iv_off=offsets[5], key_offset=int(pp.group_key_offset),
         G=1 if scalar else pp.num_groups_padded, scalar=scalar,
         n_isum=len(isum_row), n_fsum=len(fsum_row), n_mm=len(mm_row),
-        rows=tuple(rows), probe=probe)
+        rows=tuple(rows), probe=probe,
+        log2_bits=tuple(_LOG2[b] for b in bits), early=early,
+        filter_depth=depth[1], value_depth=value_depth,
+        operands=tuple(operands[:MAX_OPERANDS]))
 
 
 # --------------------------------------------------------------------------
@@ -659,25 +697,6 @@ def _alloc_outputs(prog: ScanProgram, S: int, device) -> ScanOutputs:
     return out
 
 
-NumDocs = Union[int, torch.Tensor]
-
-
-def _as_batch(packed: List[torch.Tensor], values: List[torch.Tensor],
-              num_docs: NumDocs):
-    """One segment's inputs (packed ``[T, W]``, values ``[T * TILE]``,
-    ``num_docs`` an int) as a batch of one; batch inputs pass through."""
-    if isinstance(num_docs, torch.Tensor):
-        return packed, values, num_docs
-    if not packed:
-        raise ValueError("the scan needs at least one packed column")
-    tiles = packed[0].shape[0]
-    if not 0 <= num_docs <= tiles * TILE:
-        raise ValueError(f"num_docs {num_docs} outside [0, {tiles * TILE}]")
-    nd = torch.tensor([num_docs], dtype=torch.int64, device=packed[0].device)
-    return ([w.unsqueeze(0) for w in packed],
-            [v.unsqueeze(0) for v in values], nd)
-
-
 def _check_inputs(prog: ScanProgram, packed: List[torch.Tensor],
                   values: List[torch.Tensor], num_docs: torch.Tensor
                   ) -> torch.device:
@@ -689,7 +708,8 @@ def _check_inputs(prog: ScanProgram, packed: List[torch.Tensor],
         raise ValueError("packed columns must be [S, T, W]")
     S, tiles = packed[0].shape[:2]
     device = packed[0].device
-    if (num_docs.dtype != torch.int64 or num_docs.device != device
+    if (not isinstance(num_docs, torch.Tensor)
+            or num_docs.dtype != torch.int64 or num_docs.device != device
             or tuple(num_docs.shape) != (S,) or not num_docs.is_contiguous()):
         raise ValueError(f"num_docs must be a contiguous int64 [{S}] tensor "
                          f"on {device}")
@@ -712,17 +732,17 @@ def _check_inputs(prog: ScanProgram, packed: List[torch.Tensor],
 
 
 def fused_scan(prog: ScanProgram, packed: List[torch.Tensor],
-               values: List[torch.Tensor], num_docs: NumDocs) -> ScanOutputs:
-    """Run the scan program over one segment's staged columns (``[T, W]``
-    and ``[T * TILE]``, ``num_docs`` an int) or a batch's (see the module
-    docstring). CUDA tensors launch the kernel (or raise); CPU tensors run
-    the plain version."""
+               values: List[torch.Tensor], num_docs: torch.Tensor
+               ) -> ScanOutputs:
+    """Run the scan program over staged columns laid out as a batch (see
+    the module docstring; one segment is ``S = 1``). CUDA tensors launch
+    the kernel (or raise); CPU tensors run the plain version."""
     return counted_scan(prog, packed, values, num_docs,
                         PROBE_COUNTER if prog.probe else SCAN_COUNTER)
 
 
 def fused_scan_probe(prog: ScanProgram, packed: List[torch.Tensor],
-                     num_docs: NumDocs) -> ScanOutputs:
+                     num_docs: torch.Tensor) -> ScanOutputs:
     """The group-range probe (a probe program, no value columns) over one
     segment's staged columns."""
     if not prog.probe:
@@ -747,10 +767,9 @@ SEGMENT_KERNELS = ScanKernels(fused_scan, fused_scan_probe, SCAN_COUNTER,
 
 
 def counted_scan(prog: ScanProgram, packed: List[torch.Tensor],
-                 values: List[torch.Tensor], num_docs: NumDocs,
+                 values: List[torch.Tensor], num_docs: torch.Tensor,
                  counter: KernelCounter) -> ScanOutputs:
     """``fused_scan`` with the counter its launch adds one to."""
-    packed, values, num_docs = _as_batch(packed, values, num_docs)
     device = _check_inputs(prog, packed, values, num_docs)
     if device.type == "cpu":
         return fused_scan_plain(prog, packed, values, num_docs)
@@ -762,85 +781,175 @@ def counted_scan(prog: ScanProgram, packed: List[torch.Tensor],
 
 
 # argv slots shared with csrc/fused_scan.cu (fused_scan_launch)
-_A_NUM_DOCS, _A_NUM_TILES, _A_G, _A_N_PACKED, _A_N_VALUES = 0, 1, 2, 3, 4
-_A_PROG_LEN, _A_FILTER_OFF, _A_FILTER_N, _A_VOPS_OFF, _A_EXPR_OFF = 5, 6, 7, 8, 9
-_A_N_EXPRS, _A_ROWS_OFF, _A_N_ROWS, _A_GROUP_OFF, _A_N_GROUP = 10, 11, 12, 13, 14
-_A_KEY_OFFSET, _A_IV_OFF, _A_N_ISUM, _A_N_FSUM, _A_N_MM = 15, 16, 17, 18, 19
-_A_SCALAR, _A_PROG, _A_OUT_CNT, _A_OUT_ISUM, _A_OUT_FSUM = 20, 21, 22, 23, 24
-_A_OUT_MM, _A_OUT_MATCHED, _A_GRID, _A_ACC_SMEM, _A_SMEM = 25, 26, 27, 28, 29
-_A_SEG_TILES = 30
-_A_PACKED, _A_BITS, _A_VALUES, _A_VTYPES = 32, 48, 64, 80
-_A_LEN = 96
+(_A_NUM_DOCS, _A_NUM_TILES, _A_SEG_TILES, _A_G, _A_N_PACKED, _A_N_VALUES,
+ _A_PROG, _A_PROG_LEN, _A_FILTER_OFF, _A_FILTER_N, _A_VOPS_OFF, _A_EXPR_OFF,
+ _A_ROWS_OFF, _A_N_ROWS, _A_GROUP_OFF, _A_N_GROUP, _A_IV_OFF, _A_KEY_OFFSET,
+ _A_N_ISUM, _A_N_FSUM, _A_N_MM, _A_SCALAR, _A_ACC_SMEM, _A_OUT_CNT,
+ _A_OUT_ISUM, _A_OUT_FSUM, _A_OUT_MM, _A_OUT_MATCHED, _A_SMEM,
+ _A_PROG_SMEM_OFF, _A_MSTACK_OFF, _A_VSTACK_OFF, _A_ACC_OFF, _A_RACC_OFF,
+ _A_WLIST_OFF, _A_N_OPND) = range(36)
+_A_PACKED, _A_LOG2_BITS, _A_VALUES, _A_VTYPES = 48, 64, 80, 96
+_A_SLOT_PACKED, _A_SLOT_VALUE = 112, 128
+_A_LEN = 144
 _BLOCK = 256
-# shared memory a block may use (opt-in, H100) and per SM
-_SMEM_BLOCK_MAX = 227 * 1024
+# shared memory of an SM (H100) and what the card reserves per block
 _SMEM_SM = 228 * 1024
+_SMEM_RESERVED = 1024
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+class ScanLayout(NamedTuple):
+    """The kernel's shared memory for one program, in bytes: the program
+    at 0, the filter's and the values' stacks below their tops
+    ([depth][BLOCK]), a scalar scan's per-thread rows ([rows][BLOCK]), each
+    warp's list of passing docs, then the block-private accumulators of a
+    grouped scan."""
+
+    prog_off: int
+    mstack_off: int
+    vstack_off: int
+    racc_off: int
+    wlist_off: int
+    acc_off: int
+    acc_smem: bool               # grouped accumulators in shared memory
+    smem: int                    # the whole dynamic allocation
+
+
+# bytes of the warps' lists of passing docs: a u16 per doc of a tile
+_WLIST_BYTES = 2 * TILE
+
+
+def scan_layout(prog: ScanProgram) -> ScanLayout:
+    """Shared memory of one launch. A grouped scan's accumulators take
+    shared memory only while two blocks still fit on an SM: one block of 8
+    warps leaves the SM waiting on memory (on SSB, device-memory atomics at
+    4 blocks per SM beat shared ones at 1)."""
+    sizes = [_align16(4 * prog.prog.size),
+             _align16(2 * _BLOCK * max(prog.filter_depth - 1, 0)),
+             8 * _BLOCK * max(prog.value_depth - 1, 0),
+             8 * _BLOCK * prog.n_rows if prog.scalar else 0,
+             _WLIST_BYTES]
+    budget = _SMEM_SM // 2 - _SMEM_RESERVED
+    acc = (0 if prog.scalar else
+           prog.G * (8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm))
+    acc_smem = not prog.scalar and sum(sizes) + acc <= budget
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + n)
+    prog_off, mstack_off, vstack_off, racc_off, wlist_off, acc_off = offs
+    return ScanLayout(
+        prog_off=prog_off, mstack_off=mstack_off, vstack_off=vstack_off,
+        racc_off=racc_off, wlist_off=wlist_off, acc_off=acc_off,
+        acc_smem=acc_smem, smem=acc_off + (acc if acc_smem else 0))
+
+
+def launch_grid(smem: int) -> int:
+    """Blocks the kernel launches with for ``smem`` bytes of shared memory
+    on the current card (occupancy x SMs, before the cap at one block per
+    tile)."""
+    from pinot_tpu_torch.engine._build import load_library
+
+    grid = ctypes.c_int(0)
+    err = load_library("fused_scan").fused_scan_grid(smem, ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"fused_scan occupancy query failed: CUDA error "
+                           f"{err}")
+    return grid.value
 
 
 def _launch(prog: ScanProgram, packed, values, num_docs) -> ScanOutputs:
-    from pinot_tpu_torch.engine._build import load_library
+    """One launch of the kernel."""
+    argv, out = prepare_launch(prog, packed, values, num_docs)
+    enqueue(argv, torch.cuda.current_stream(packed[0].device))
+    return out
 
-    lib = load_library("fused_scan")
-    device = packed[0].device
-    S, seg_tiles = packed[0].shape[:2]
-    out = _alloc_outputs(prog, S, device)
-    tiles = S * seg_tiles
-    prog_t = prog.on(device)
-    prog_bytes = (prog.prog.size * 4 + 15) // 16 * 16
-    acc_bytes = prog.G * (8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm)
-    acc_smem = (not prog.scalar) and prog_bytes + acc_bytes <= _SMEM_BLOCK_MAX
-    smem = prog_bytes + (acc_bytes if acc_smem else 0)
-    per_sm = max(1, min(2048 // _BLOCK, _SMEM_SM // (smem + 1024)))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    grid = max(1, min(tiles, sms * per_sm))
 
+def _argv_template(prog: ScanProgram, S: int, seg_tiles: int, device
+                   ) -> np.ndarray:
+    key = (device, S, seg_tiles)
+    got = prog._argv.get(key)
+    if got is not None:
+        return got
+    lay = scan_layout(prog)
     argv = np.zeros(_A_LEN, dtype=np.int64)
-    argv[_A_NUM_DOCS] = num_docs.data_ptr()
-    argv[_A_NUM_TILES] = tiles
+    argv[_A_NUM_TILES] = S * seg_tiles
     argv[_A_SEG_TILES] = seg_tiles
     argv[_A_G] = prog.G
-    argv[_A_N_PACKED] = len(packed)
-    argv[_A_N_VALUES] = len(values)
+    argv[_A_N_PACKED] = len(prog.bits)
+    argv[_A_N_VALUES] = len(prog.value_is_int)
+    argv[_A_PROG] = prog.on(device).data_ptr()
     argv[_A_PROG_LEN] = prog.prog.size
     argv[_A_FILTER_OFF] = prog.filter_off
     argv[_A_FILTER_N] = prog.filter_n
     argv[_A_VOPS_OFF] = prog.vops_off
     argv[_A_EXPR_OFF] = prog.expr_off
-    argv[_A_N_EXPRS] = prog.n_exprs
     argv[_A_ROWS_OFF] = prog.rows_off
     argv[_A_N_ROWS] = prog.n_rows
     argv[_A_GROUP_OFF] = prog.group_off
     argv[_A_N_GROUP] = prog.n_group
-    argv[_A_KEY_OFFSET] = prog.key_offset
     argv[_A_IV_OFF] = prog.iv_off
+    argv[_A_KEY_OFFSET] = prog.key_offset
     argv[_A_N_ISUM] = prog.n_isum
     argv[_A_N_FSUM] = prog.n_fsum
     argv[_A_N_MM] = prog.n_mm
     argv[_A_SCALAR] = int(prog.scalar)
-    argv[_A_PROG] = prog_t.data_ptr()
+    argv[_A_ACC_SMEM] = int(lay.acc_smem)
+    argv[_A_SMEM] = lay.smem
+    argv[_A_PROG_SMEM_OFF] = lay.prog_off
+    argv[_A_MSTACK_OFF] = lay.mstack_off
+    argv[_A_VSTACK_OFF] = lay.vstack_off
+    argv[_A_ACC_OFF] = lay.acc_off
+    argv[_A_RACC_OFF] = lay.racc_off
+    argv[_A_WLIST_OFF] = lay.wlist_off
+    argv[_A_N_OPND] = len(prog.operands)
+    argv[_A_SLOT_PACKED:_A_SLOT_PACKED + MAX_COLS] = -1
+    argv[_A_SLOT_VALUE:_A_SLOT_VALUE + MAX_COLS] = -1
+    for k, (is_packed, c) in enumerate(prog.operands):
+        argv[(_A_SLOT_PACKED if is_packed else _A_SLOT_VALUE) + c] = k
+    for i, lb in enumerate(prog.log2_bits):
+        argv[_A_LOG2_BITS + i] = lb
+    prog._argv[key] = argv
+    return argv
+
+
+def prepare_launch(prog: ScanProgram, packed, values, num_docs
+                   ) -> Tuple[np.ndarray, ScanOutputs]:
+    """The kernel's argv for one launch and the outputs it adds into
+    (zeroed, min/max rows at +-inf)."""
+    device = packed[0].device
+    S, seg_tiles = packed[0].shape[:2]
+    template = _argv_template(prog, S, seg_tiles, device)
+    out = _alloc_outputs(prog, S, device)
+    argv = template.copy()
+    argv[_A_NUM_DOCS] = num_docs.data_ptr()
     argv[_A_OUT_CNT] = out.cnt.data_ptr()
     argv[_A_OUT_ISUM] = out.isum.data_ptr()
     argv[_A_OUT_FSUM] = out.fsum.data_ptr()
     argv[_A_OUT_MM] = out.mm.data_ptr()
     argv[_A_OUT_MATCHED] = out.matched.data_ptr()
-    argv[_A_GRID] = grid
-    argv[_A_ACC_SMEM] = int(acc_smem)
-    argv[_A_SMEM] = smem
-    for i, (w, b) in enumerate(zip(packed, prog.bits)):
+    for i, w in enumerate(packed):
         argv[_A_PACKED + i] = w.data_ptr()
-        argv[_A_BITS + i] = b
     for i, v in enumerate(values):
         argv[_A_VALUES + i] = v.data_ptr()
         argv[_A_VTYPES + i] = _TORCH_VTYPE[v.dtype]
+    return argv, out
 
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = lib.fused_scan_launch(
-            argv.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))
+
+def enqueue(argv: np.ndarray, stream: "torch.cuda.Stream") -> None:
+    """Launch the kernel with a prepared argv on ``stream`` (its device);
+    raises if the launch is refused."""
+    from pinot_tpu_torch.engine._build import load_library
+
+    lib = load_library("fused_scan")
+    with torch.cuda.device(stream.device):
+        err = lib.fused_scan_launch(argv.ctypes.data_as(ctypes.c_void_p),
+                                    ctypes.c_void_p(stream.cuda_stream))
     if err != 0:
         raise RuntimeError(f"fused_scan kernel launch failed: CUDA error "
                            f"{err} ({lib.fused_scan_error_string(err).decode()})")
-    return out
 
 
 def _f32_of_bits(bits: int) -> float:
@@ -889,23 +998,21 @@ def _valid_mask(num_docs: torch.Tensor, tiles: int) -> torch.Tensor:
 
 
 def doc_masks(prog: ScanProgram, packed: List[torch.Tensor],
-              num_docs: NumDocs) -> Tuple[torch.Tensor, torch.Tensor]:
+              num_docs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(valid, matched): bool ``[S * T * TILE]`` masks, in the batch's doc
     order, of the docs that exist (below their segment's ``num_docs``) and
     of those that also pass the program's filter."""
-    packed, _, num_docs = _as_batch(packed, [], num_docs)
     ids = [unpack_planar(w, b) for w, b in zip(packed, prog.bits)]
     valid = _valid_mask(num_docs, packed[0].shape[1])
     return valid, _filter_mask(prog, ids) & valid
 
 
 def fused_scan_plain(prog: ScanProgram, packed: List[torch.Tensor],
-                     values: List[torch.Tensor], num_docs: NumDocs
+                     values: List[torch.Tensor], num_docs: torch.Tensor
                      ) -> ScanOutputs:
     """The kernel's function in plain PyTorch: the same program, evaluated
     over the whole batch at once (per-segment valid masks, exact i64 and
     f64 accumulation into the rows every segment shares)."""
-    packed, values, num_docs = _as_batch(packed, values, num_docs)
     device = packed[0].device
     S, tiles = packed[0].shape[:2]
     p = prog.prog.tolist()

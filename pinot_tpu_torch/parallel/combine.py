@@ -41,13 +41,10 @@ def pad_segments(n: int, n_seg: int) -> int:
     return ((n + n_seg - 1) // n_seg) * n_seg
 
 
-def _check_batch(prog: ScanProgram, probe: bool,
-                 num_docs: torch.Tensor) -> None:
+def _check_batch(prog: ScanProgram, probe: bool) -> None:
     if prog.probe != probe:
         raise ValueError("a probe program goes to sharded_fused_scan_probe, "
                          "a full scan to sharded_fused_scan")
-    if not isinstance(num_docs, torch.Tensor):
-        raise ValueError("num_docs of a batch is an int64 [S] tensor")
 
 
 def sharded_fused_scan(prog: ScanProgram, batch_words: List[torch.Tensor],
@@ -57,7 +54,7 @@ def sharded_fused_scan(prog: ScanProgram, batch_words: List[torch.Tensor],
     ``[S, T, W]``, value columns ``[S, T * TILE]``, ``num_docs`` [S] int64.
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
-    _check_batch(prog, False, num_docs)
+    _check_batch(prog, False)
     return counted_scan(prog, batch_words, batch_values, num_docs,
                         SHARDED_SCAN_COUNTER)
 
@@ -67,7 +64,7 @@ def sharded_fused_scan_probe(prog: ScanProgram,
                              num_docs: torch.Tensor) -> ScanOutputs:
     """The group-range probe over a segment batch, in one launch: its
     min/max rows cover every segment."""
-    _check_batch(prog, True, num_docs)
+    _check_batch(prog, True)
     return counted_scan(prog, batch_words, [], num_docs,
                         SHARDED_PROBE_COUNTER)
 

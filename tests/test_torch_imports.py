@@ -110,13 +110,18 @@ def test_cpu_wrapper_rejects_mismatched_inputs():
     plan = plan_segment(compile_query("SELECT sum(v) FROM tiny WHERE k = 'a'"),
                         seg)
     pp = fs.extract_plan(plan, seg)
-    words = [staged.packed_column(c).words for c in pp.packed_names]
-    values = [staged.value_column(c) for c in pp.value_names]
+    words = [staged.packed_column(c).words.unsqueeze(0)
+             for c in pp.packed_names]
+    values = [staged.value_column(c).unsqueeze(0) for c in pp.value_names]
     prog = fs.compile_program(pp, (2,))
+    num_docs = staged.num_docs_tensor()
+    assert fs.fused_scan(prog, words, values, num_docs).matched.shape == (1,)
     with pytest.raises(ValueError):
-        fs.fused_scan(prog, words, [values[0].to(torch.float32)], seg.num_docs)
-    with pytest.raises(ValueError):
-        fs.fused_scan(prog, words, values, 10 ** 9)
+        fs.fused_scan(prog, words, [values[0].to(torch.float32)], num_docs)
+    # num_docs is an int64 [S] tensor: not an int, not [2], not int32
+    for bad in (seg.num_docs, num_docs.repeat(2), num_docs.to(torch.int32)):
+        with pytest.raises(ValueError):
+            fs.fused_scan(prog, words, values, bad)
 
 
 @pytest.mark.parametrize("sql", [
