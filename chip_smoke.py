@@ -28,8 +28,16 @@ Phases:
      whole batch, every launch counted, every answer held against the
      oracle; then at its shapes (all segments, every flight and probe) the
      kernel against its plain version and timings of both beside the
-     bound (the kernel alone and through its wrapper); and one JSON line
-     listing the kernels ("ms" is the kernel alone).
+     bound (the kernel alone and through its wrapper);
+  7. the general rung (engine/kernels.py, PyTorch ops on the card): (a) the
+     13 flights through ServerQueryExecutor(device="cuda",
+     use_fused_scan=False), 0 fused launches and one general-rung call per
+     segment, every answer equal to phase 4's and the oracle, p50 beside
+     phase 4's; (b) the declined queries G1-G5 (tools/ssb.py) with the
+     fused scan on, each with its planned decline and rung (G1's matched
+     segment on the hash rung, G2's on the sort rung), held against the
+     oracle; a "rungs" line of the segments each rung served; and one JSON
+     line listing the kernels ("ms" is the kernel alone).
 The last line is {"ok": true, "device": {...}}; any failure raises and
 exits non-zero without it. Needs one CUDA card; exits 2 without one.
 """
@@ -399,7 +407,8 @@ def _run_flights(ex, ctxs: dict, segs, reps: int) -> tuple:
     return lat, results
 
 
-def _latencies(lat: dict, rows: int, beside: dict = None) -> dict:
+def _latencies(lat: dict, rows: int, beside: dict = None,
+               beside_label: str = "per segment") -> dict:
     per_flight = {}
     for qid, ms in lat.items():
         p50 = float(np.percentile(ms, 50))
@@ -408,8 +417,8 @@ def _latencies(lat: dict, rows: int, beside: dict = None) -> dict:
                            "rows_per_s": rows / (p50 / 1e3)}
         other = ""
         if beside is not None:
-            other = (f"  (per segment: p50 {beside[qid]['p50_ms']:.3f} ms, "
-                     f"p99 {beside[qid]['p99_ms']:.3f} ms)")
+            other = (f"  ({beside_label}: p50 {beside[qid]['p50_ms']:.3f} "
+                     f"ms, p99 {beside[qid]['p99_ms']:.3f} ms)")
         log(f"  {qid}: p50 {p50:.3f} ms  p99 {p99:.3f} ms  "
             f"{rows / (p50 / 1e3):.4g} rows/s{other}")
     return per_flight
@@ -437,7 +446,10 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
     t0 = time.perf_counter()
     wants = {qid: ssb.merge_answers([ssb.numpy_answer(f, qid) for f in frames])
              for qid in ssb.QUERIES}
-    log(f"  numpy oracle, 13 flights: {time.perf_counter() - t0:.1f} s")
+    wants.update({gid: ssb.declined_answer(frames, gid)
+                  for gid in ssb.DECLINED_QUERIES})
+    log(f"  numpy oracle, 13 flights and {len(ssb.DECLINED_QUERIES)} "
+        f"declined queries: {time.perf_counter() - t0:.1f} s")
     del frames
 
     ctxs = {qid: compile_query(q + " LIMIT 100000")
@@ -470,7 +482,8 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
         f"{torch.cuda.max_memory_allocated()} bytes")
     _graft_entry_check()
     return {"segs": segs, "ex": ex, "launches": launches, "ctxs": ctxs,
-            "wants": wants, "per_flight": per_flight, "rows": rows}
+            "wants": wants, "per_flight": per_flight, "rows": rows,
+            "results": results}
 
 
 # -- phase 5: kernel timings at the per-segment path's shapes -----------------
@@ -631,6 +644,132 @@ def phase_batch(main: dict, reps: int, errs: dict, iters: int = 20) -> dict:
             "timing": timing}
 
 
+# -- phase 7: the general rung ---------------------------------------------------
+
+# the rung each declined query's segments with matched docs take at SF10 in
+# 8 segments (G4 is scalar); the others are served by the fused scan once
+# the probe narrows their empty key space
+DECLINED_RUNG = {"G1": "hash", "G2": "sort", "G3": "dense", "G4": None,
+                 "G5": "dense"}
+
+
+def _check_on_card(ex) -> None:
+    """Every array the general rung read lies on the card: the staged
+    columns and every cached plan's params."""
+    for _seg, staged in ex._staged.values():
+        for name, col in staged._columns.items():
+            for t in col.tree().values():
+                if t.device.type != "cuda":
+                    raise AssertionError(f"column {name} on {t.device}")
+    for _seg, plan in ex._plans.values():
+        if any(d.type != "cuda" for d in plan.device_params):
+            raise AssertionError(f"plan params on {list(plan.device_params)}")
+
+
+def phase_general(main: dict, reps: int) -> dict:
+    import torch
+
+    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import ssb
+
+    segs, ctxs, rows = main["segs"], main["ctxs"], main["rows"]
+    counters = {**scan_counters(), "general_rung": kernels.RUNG_COUNTER}
+
+    # (a) the flights with the fused scan off
+    ex = ServerQueryExecutor(device="cuda", use_fused_scan=False)
+    t0 = time.perf_counter()
+    for ctx in ctxs.values():   # untimed pass: stages the rung's columns
+        ex.execute(ctx, segs)
+    torch.cuda.synchronize()
+    log(f"  staged for the general rung + one untimed pass: "
+        f"{sum(ex.stage(s).nbytes() for s in segs)} bytes resident, "
+        f"{time.perf_counter() - t0:.1f} s")
+    _reset(counters)
+    lat = {qid: [] for qid in ctxs}
+    rungs = {}
+    off = {"pallas:pallas_kernel->jnp_kernel:pallas_disabled_on_backend":
+           len(segs)}
+    for _ in range(reps):
+        for qid, ctx in ctxs.items():
+            t0 = time.perf_counter()
+            table, stats = ex.execute(ctx, segs)
+            torch.cuda.synchronize()
+            lat[qid].append((time.perf_counter() - t0) * 1e3)
+            if (sorted(map(tuple, table.rows))
+                    != sorted(map(tuple, main["results"][qid].rows))):
+                raise AssertionError(f"{qid}: general rung rows differ from "
+                                     "the fused scan's")
+            _check_flight(qid, table, main["wants"][qid])
+            if stats.decisions != off or stats.general_launches != len(segs):
+                raise AssertionError(f"{qid}: decisions {stats.decisions}, "
+                                     f"{stats.general_launches} rung calls")
+            rungs[qid] = stats.rung_segments
+    launches = {name: c.launches for name, c in counters.items()}
+    expect = {name: 0 for name in counters}
+    expect["general_rung"] = len(segs) * len(ctxs) * reps
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    log(f"  (a) launches with the fused scan off: {launches}; 13 flights == "
+        "phase 4 == numpy oracle")
+    for qid in ("Q3.2", "Q4.3"):
+        if "hash" not in rungs[qid]:
+            raise AssertionError(f"{qid}: no segment on the hash rung: "
+                                 f"{rungs[qid]}")
+    per_flight = _latencies(lat, rows, beside=main["per_flight"],
+                            beside_label="fused scan, phase 4")
+    _check_on_card(ex)
+
+    # (b) the declined queries with the fused scan on
+    ex_on = ServerQueryExecutor(device="cuda")
+    declined = {}
+    for gid, sql in ssb.DECLINED_QUERIES.items():
+        ctx = compile_query(sql)
+        ex_on.execute(ctx, segs)   # untimed: stages and plans
+        ms = []
+        for _ in range(reps):
+            _reset(counters)
+            t0 = time.perf_counter()
+            table, stats = ex_on.execute(ctx, segs)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = ssb.declined_rows(gid, table.rows)
+        if got != main["wants"][gid]:
+            raise AssertionError(f"{gid}: rows differ from the oracle "
+                                 f"({len(got)} vs {len(main['wants'][gid])} "
+                                 "groups)")
+        reason = ssb.DECLINED_REASONS[gid]
+        want_key = f"pallas:pallas_kernel->jnp_kernel:{reason}"
+        if set(stats.decisions) != {want_key}:
+            raise AssertionError(f"{gid}: decisions {stats.decisions}")
+        n_general = stats.decisions[want_key]
+        if (stats.general_launches != n_general
+                or counters["general_rung"].launches != n_general):
+            raise AssertionError(f"{gid}: {n_general} declines but "
+                                 f"{stats.general_launches} rung calls")
+        rung = DECLINED_RUNG[gid]
+        if rung is not None and stats.rung_segments.get(rung, 0) < 1:
+            raise AssertionError(f"{gid}: no segment on the {rung} rung: "
+                                 f"{stats.rung_segments}")
+        declined[gid] = {
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "reason": reason, "rung_segments": stats.rung_segments,
+            "general_calls": n_general,
+            "launches": {k: c.launches for k, c in counters.items()}}
+        log(f"  (b) {gid}: p50 {declined[gid]['p50_ms']:.3f} ms  p99 "
+            f"{declined[gid]['p99_ms']:.3f} ms; declined {reason} on "
+            f"{n_general} segments, rungs {stats.rung_segments}, launches "
+            f"{declined[gid]['launches']}; == numpy oracle")
+    _check_on_card(ex_on)
+    log("rungs " + json.dumps({"flights_fused_off": rungs, "declined": {
+        g: d["rung_segments"] for g, d in declined.items()}}))
+    return {"per_flight": per_flight, "rungs": rungs, "declined": declined,
+            "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10)
@@ -687,6 +826,11 @@ def main(argv=None) -> int:
     batch_run = phase_batch(main_run, args.reps, errs)
     log(f"  batch path phase: {time.perf_counter() - t0:.1f} s")
     timing += batch_run["timing"]
+
+    log("phase 7: general rung")
+    t0 = time.perf_counter()
+    general_run = phase_general(main_run, args.reps)
+    log(f"  general rung phase: {time.perf_counter() - t0:.1f} s")
     launches = {**main_run["launches"], **{
         k: v for k, v in batch_run["launches"].items() if k.startswith(
             "sharded")}}
@@ -718,6 +862,7 @@ def main(argv=None) -> int:
                        "batch_max_memory_allocated":
                            batch_run["max_memory_allocated"],
                        "kernel_timing": timing, "kernels": kernels,
+                       "general": general_run,
                        "seconds": time.perf_counter() - t_all}, f, indent=1)
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -1,9 +1,10 @@
 """Aggregation functions: state algebra and resolution.
 
 Counterpart of ``pinot_tpu/engine/aggregates.py`` for count, sum, avg, min,
-max and minmaxrange (and distinctcount, which the planner describes and
-the fused scan declines). States are plain python values that merge across
-segments.
+max, minmaxrange, distinctcount and distinctcounthll. States are plain
+python values that merge across segments (a distinct count's state is the
+frozenset of values, an HLL's its serialized registers). Grouped
+distinctcount is host-only in the JAX package, so the planner declines it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any, Callable, Dict, Optional
 
 from pinot_tpu_torch.engine.errors import UnsupportedQueryError
 from pinot_tpu_torch.query.expressions import Expr, Function, Identifier
+from pinot_tpu_torch.utils.hll import HyperLogLog
 
 POS_INF = float("inf")
 NEG_INF = float("-inf")
@@ -28,7 +30,8 @@ class AggDef:
     result_type: str = "DOUBLE"
 
     def empty_state(self) -> Any:
-        return _EMPTY[self.base]
+        e = _EMPTY[self.base]
+        return e() if callable(e) else e
 
     def merge(self, a: Any, b: Any) -> Any:
         return _MERGE[self.base](a, b)
@@ -45,6 +48,7 @@ _EMPTY: Dict[str, Any] = {
     "avg": (0.0, 0),
     "minmaxrange": (POS_INF, NEG_INF),
     "distinctcount": frozenset(),
+    "distinctcounthll": lambda: HyperLogLog().serialize(),
 }
 
 _MERGE: Dict[str, Callable[[Any, Any], Any]] = {
@@ -55,6 +59,8 @@ _MERGE: Dict[str, Callable[[Any, Any], Any]] = {
     "avg": lambda a, b: (a[0] + b[0], a[1] + b[1]),
     "minmaxrange": lambda a, b: (min(a[0], b[0]), max(a[1], b[1])),
     "distinctcount": lambda a, b: frozenset(a) | frozenset(b),
+    "distinctcounthll": lambda a, b: HyperLogLog.deserialize(a).merge(
+        HyperLogLog.deserialize(b)).serialize(),
 }
 
 _FINAL: Dict[str, Callable[[Any], Any]] = {
@@ -66,9 +72,11 @@ _FINAL: Dict[str, Callable[[Any], Any]] = {
     "avg": lambda s: s[0] / s[1] if s[1] else NEG_INF,
     "minmaxrange": lambda s: float(s[1] - s[0]),
     "distinctcount": lambda s: len(s),
+    "distinctcounthll": lambda s: HyperLogLog.deserialize(s).cardinality(),
 }
 
-_RESULT_TYPE = {"count": "LONG", "distinctcount": "INT"}
+_RESULT_TYPE = {"count": "LONG", "distinctcount": "INT",
+                "distinctcounthll": "LONG"}
 
 
 def resolve_agg(fn: Function) -> AggDef:

@@ -22,9 +22,12 @@ class UnsupportedQueryError(QueryError):
 _DECLINE_RULES: Tuple[Tuple[str, str], ...] = (
     ("group key space", "group_space_over_limit"),
     ("not device-supported", "agg_not_device_supported"),
+    ("DISTINCTCOUNTHLL argument", "hll_arg_not_column"),
+    ("HLL register space", "hll_register_space_over_limit"),
     ("DISTINCTCOUNT argument", "distinctcount_arg_not_column"),
     ("DISTINCTCOUNT cardinality", "distinctcount_cardinality_over_limit"),
     ("group-by on virtual column", "group_virtual_column"),
+    ("group-by expression span", "group_expression_span_over_limit"),
     ("group-by expression", "group_expression_unbounded"),
     ("expression predicate", "expression_predicate"),
     ("virtual column predicate", "virtual_column_predicate"),
@@ -34,6 +37,7 @@ _DECLINE_RULES: Tuple[Tuple[str, str], ...] = (
     ("in value expression", "value_column_not_numeric_sv"),
     ("transform", "transform_unsupported"),
     ("cannot compile value", "value_expression_uncompilable"),
+    ("live groups exceed the compact cap", "compact_cap_overflow"),
     # fused-scan eligibility (engine/fused_scan.py _Ineligible messages)
     ("unpackable column", "pallas_unpackable_column"),
     ("lut with too many runs", "pallas_lut_too_many_runs"),
@@ -71,8 +75,9 @@ class PlanError(UnsupportedQueryError):
 
 
 class NotPortedError(UnsupportedQueryError):
-    """A plan the fused scan declines. The JAX package would serve it on a
-    jnp rung that is not ported yet; this port never falls back to the host
+    """A plan the port's device rungs do not serve. The JAX package would
+    serve it on a rung that is not ported yet (its host engine, or the jnp
+    combine of a segment batch); this port never falls back to the host
     silently, it raises with the decline's reason code."""
 
     def __init__(self, reason_code: str, detail: str = ""):

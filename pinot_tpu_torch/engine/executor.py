@@ -1,25 +1,31 @@
-"""Server query executor: per-segment fused scan, decode, merge, reduce.
+"""Server query executor: per-segment device rungs, decode, merge, reduce.
 
 Counterpart of ``pinot_tpu/engine/executor.py`` (``ServerQueryExecutor``,
-``decode_scalar_result`` at :1093, ``decode_grouped_result`` at :1127) for
-the scan rung. Per segment: plan -> fused scan (probe first when the group
-space exceeds MAX_SCAN_GROUPS) -> decode; then merge and reduce. A plan the
-fused scan declines raises :class:`NotPortedError` with the reason code:
-there is no silent host fallback. Segments run one after another on the
-current stream; ``_execute_aggregation`` and ``_execute_group_by`` are the
-points a subclass overrides to combine segments otherwise
+``_try_pallas`` / ``_run_kernel`` at :939/:1020, ``decode_scalar_result``
+at :1093, ``decode_grouped_result`` at :1127). Per segment: plan -> the
+fused scan (probe first when the group space exceeds MAX_SCAN_GROUPS); a
+plan it declines, with the decline recorded under the JAX package's keys,
+goes to the general rung (``engine/kernels.py``) on the same device ->
+decode; then merge and reduce. ``use_fused_scan=False`` (JAX:
+``use_pallas=False``) sends every plan to the general rung. A plan neither
+rung serves (a ``PlanError``: the JAX package's host engine serves it)
+raises :class:`NotPortedError` with the reason code: there is no silent
+host fallback. Segments run one after another on the current stream;
+``_execute_aggregation`` and ``_execute_group_by`` are the points a
+subclass overrides to combine segments otherwise
 (``pinot_tpu_torch.parallel.ShardedQueryExecutor``).
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from pinot_tpu_torch.device import resolve_device
-from pinot_tpu_torch.engine import fused_scan
+from pinot_tpu_torch.engine import fused_scan, kernels
 from pinot_tpu_torch.engine.aggregates import AggDef, resolve_agg
 from pinot_tpu_torch.engine.errors import NotPortedError, PlanError, QueryError
 from pinot_tpu_torch.engine.plan import SegmentPlan, plan_segment
@@ -28,21 +34,33 @@ from pinot_tpu_torch.engine.results import (
     GroupByResult,
     QueryStats,
     ResultTable,
+    record_decision,
     reduce_aggregation,
     reduce_group_by,
 )
 from pinot_tpu_torch.engine.staging import StagedSegment
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.utils.hll import HyperLogLog
+
+# plans kept per executor, least recently used evicted first (the JAX
+# executor's plan cache): a repeated query plans and uploads its params once
+PLAN_CACHE_CAP = 256
 
 
 class ServerQueryExecutor:
     """One per server; owns the staged segments of one device."""
 
-    def __init__(self, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, device: Union[str, torch.device] = "cuda",
+                 use_fused_scan: bool = True):
         self.device = resolve_device(device)
+        self.use_fused_scan = use_fused_scan
         # segment name -> (segment, its staged image)
         self._staged: Dict[str, Tuple[ImmutableSegment, StagedSegment]] = {}
+        # (sql, segment name) -> (segment, its plan), least recently used
+        # first
+        self._plans: "OrderedDict[Tuple[str, str], Tuple]" = OrderedDict()
+        self.kernels = kernels.KernelCache()
 
     def stage(self, segment: ImmutableSegment) -> StagedSegment:
         hit = self._staged.get(segment.segment_name)
@@ -64,6 +82,7 @@ class ServerQueryExecutor:
         stats = QueryStats(num_segments_queried=len(segments))
         scans0 = fused_scan.SCAN_COUNTER.launches
         probes0 = fused_scan.PROBE_COUNTER.launches
+        general0 = kernels.RUNG_COUNTER.launches
         aggs = [resolve_agg(f) for f in ctx.aggregations]
         if ctx.is_group_by:
             merged = self._execute_group_by(ctx, aggs, segments, stats)
@@ -71,6 +90,7 @@ class ServerQueryExecutor:
             merged = self._execute_aggregation(ctx, aggs, segments, stats)
         stats.scan_launches = fused_scan.SCAN_COUNTER.launches - scans0
         stats.probe_launches = fused_scan.PROBE_COUNTER.launches - probes0
+        stats.general_launches = kernels.RUNG_COUNTER.launches - general0
         if ctx.is_group_by:
             types = {n: cm.data_type.label
                      for n, cm in segments[0].metadata.columns.items()}
@@ -83,7 +103,7 @@ class ServerQueryExecutor:
         merged: Optional[AggResult] = None
         for seg in segments:
             scan = self._scan_segment(ctx, seg, stats)
-            part = decode_scalar_result(scan.plan, scan.tree)
+            part = decode_scalar_result(scan.plan, seg, scan.tree)
             if merged is None:
                 merged = part
             else:
@@ -98,49 +118,101 @@ class ServerQueryExecutor:
             scan = self._scan_segment(ctx, seg, stats)
             merged.merge(decode_grouped_result(scan.plan, seg, scan.tree),
                          aggs)
+            stats.record_rung(kernels.grouped_rung(scan.plan.spec,
+                                                   scan.tree))
         return merged
+
+    def _plan_for(self, ctx: QueryContext, seg: ImmutableSegment
+                  ) -> SegmentPlan:
+        """plan_segment, cached per (sql, segment); a reloaded segment
+        (same name, new object) plans again."""
+        if ctx.sql is None:
+            return plan_segment(ctx, seg)
+        key = (ctx.sql, seg.segment_name)
+        hit = self._plans.get(key)
+        if hit is not None and hit[0] is seg:
+            self._plans.move_to_end(key)
+            return hit[1]
+        plan = plan_segment(ctx, seg)
+        self._plans[key] = (seg, plan)
+        if len(self._plans) > PLAN_CACHE_CAP:
+            self._plans.popitem(last=False)
+        return plan
 
     def _scan_segment(self, ctx: QueryContext, seg: ImmutableSegment,
                       stats: QueryStats) -> fused_scan.SegmentScan:
+        """The fused scan, or the general rung where it declines (or is
+        off); the decision is recorded as the JAX executor records it."""
         try:
-            plan = plan_segment(ctx, seg)
+            plan = self._plan_for(ctx, seg)
         except PlanError as e:
             raise NotPortedError(e.reason_code, str(e)) from e
+        staged = self.stage(seg)
         reasons: List[str] = []
-        scan = fused_scan.run_segment(plan, self.stage(seg),
-                                      on_decline=reasons.append)
+        scan = None
+        if self.use_fused_scan:
+            scan = fused_scan.run_segment(plan, staged,
+                                          on_decline=reasons.append)
+        else:
+            reasons.append("pallas_disabled_on_backend")
+        for r in reasons:
+            record_decision(stats, "pallas", "jnp_kernel", "pallas_kernel", r)
         if scan is None:
-            raise NotPortedError(reasons[0] if reasons else "unknown",
-                                 f"segment {seg.segment_name!r}")
+            scan = self._run_general(plan, staged)
         stats.num_segments_processed += 1
         stats.total_docs += seg.num_docs
         stats.num_docs_scanned += scan.matched
         stats.num_segments_matched += 1 if scan.matched else 0
         return scan
 
+    def _run_general(self, plan: SegmentPlan, staged: StagedSegment
+                     ) -> fused_scan.SegmentScan:
+        """The plan on the general rung: one call, one copy to the host."""
+        cols = {name: staged.column(name).tree() for name in plan.columns}
+        kernel = self.kernels.get(plan.spec)
+        packed = kernel(cols, kernels.device_params(plan, self.device),
+                        staged.num_docs)
+        try:
+            tree = kernels.unpack_outputs(packed.cpu().numpy(), plan.spec)
+        except PlanError as e:
+            raise NotPortedError(e.reason_code, str(e)) from e
+        matched = int(tree["num_matched"] if "num_matched" in tree
+                      else np.asarray(tree["presence"]).sum())
+        return fused_scan.SegmentScan(tree=tree, plan=plan, matched=matched)
 
-def decode_scalar_result(plan: SegmentPlan, out: Dict[str, Any]) -> AggResult:
-    states: List[Any] = []
-    for i, aspec in enumerate(plan.spec[1]):
-        raw = out[f"agg{i}"]
-        base = aspec[0]
-        if base == "count":
-            states.append(int(raw))
-        elif base in ("sum", "min", "max"):
-            states.append(float(raw))
-        elif base == "avg":
-            states.append((float(raw[0]), int(raw[1])))
-        elif base == "minmaxrange":
-            states.append((float(raw[0]), float(raw[1])))
-        else:
-            raise AssertionError(base)
-    return AggResult(states)
+
+def decode_scalar_result(plan: SegmentPlan, provider: Any,
+                         out: Dict[str, Any]) -> AggResult:
+    """``provider`` is anything with ``data_source(col).dictionary``: a
+    segment or a segment batch."""
+    return AggResult([_decode_scalar_state(aspec, out[f"agg{i}"], provider)
+                      for i, aspec in enumerate(plan.spec[1])])
+
+
+def _decode_scalar_state(aspec: Tuple, raw: Any, provider: Any) -> Any:
+    base = aspec[0]
+    if base == "distinctcount":
+        ids = np.nonzero(np.asarray(raw))[0]
+        d = provider.data_source(aspec[1]).dictionary
+        return frozenset(d.get_values(ids))
+    if base == "distinctcounthll":
+        regs = np.asarray(raw).astype(np.uint8)
+        return HyperLogLog(aspec[2], regs).serialize()
+    if base == "count":
+        return int(raw)
+    if base in ("sum", "min", "max"):
+        return float(raw)
+    if base == "avg":
+        return (float(raw[0]), int(raw[1]))
+    if base == "minmaxrange":
+        return (float(raw[0]), float(raw[1]))
+    raise AssertionError(base)
 
 
 def decode_grouped_result(plan: SegmentPlan, provider: Any,
                           out: Dict[str, Any]) -> GroupByResult:
-    """Composed keys -> per-column dictIds -> values, with the planner's
-    own strides and bases."""
+    """Composed keys -> per-column dictIds (or expression values) ->
+    values, with the planner's own strides and bases."""
     presence = np.asarray(out["presence"])
     gidx = np.nonzero(presence)[0]
     result = GroupByResult()
@@ -149,11 +221,14 @@ def decode_grouped_result(plan: SegmentPlan, provider: Any,
     strides = plan.group_strides.astype(np.int64)
     bases = plan.group_bases or [0] * len(plan.group_cards)
     key_cols: List[List[Any]] = []
-    for i, ((_strat, col), card) in enumerate(zip(plan.group_defs,
-                                                   plan.group_cards)):
+    for i, ((strat, payload), card) in enumerate(zip(plan.group_defs,
+                                                      plan.group_cards)):
         dids = (gidx // strides[i]) % card
-        d = provider.data_source(col).dictionary
-        key_cols.append(d.get_values(dids + int(bases[i])))
+        if strat == "gdict":
+            d = provider.data_source(payload).dictionary
+            key_cols.append(d.get_values(dids + int(bases[i])))
+        else:  # gexpr: the def carries the expression's lower bound
+            key_cols.append([int(x) + int(payload) for x in dids])
     keys = list(zip(*key_cols))
 
     states_per_agg: List[List[Any]] = []
@@ -173,6 +248,12 @@ def decode_grouped_result(plan: SegmentPlan, provider: Any,
             hi = np.asarray(raw[1])[gidx]
             states_per_agg.append([(float(a), float(b))
                                    for a, b in zip(lo, hi)])
+        elif base == "distinctcounthll":
+            log2m = aspec[2]
+            regs = np.asarray(raw).reshape(-1, 1 << log2m)[gidx]
+            states_per_agg.append(
+                [HyperLogLog(log2m, r.astype(np.uint8)).serialize()
+                 for r in regs])
         else:
             raise AssertionError(base)
     n_aggs = len(plan.agg_defs)

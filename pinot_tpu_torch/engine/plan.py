@@ -2,7 +2,9 @@
 
 Counterpart of ``pinot_tpu/engine/plan.py`` (``plan_segment``,
 ``narrow_plan_groups``), cut to dictionary-encoded single-value columns:
-eq/neq/range/lut filters and ``gdict`` group keys. The spec (a hashable
+eq/neq/range/lut filters, ``gdict`` group keys and ``gexpr`` keys (bounded
+integral ``+ - *`` expressions), and the device DISTINCTCOUNTHLL with its
+per-dictId register tables. The spec (a hashable
 structural description) and the params (the runtime values, in the order
 the kernel side consumes them) equal the JAX package's for the same SQL and
 segment, so the eligibility rules downstream read the same input.
@@ -29,6 +31,7 @@ from pinot_tpu_torch.query.expressions import (
     PredicateType,
 )
 from pinot_tpu_torch.segment.immutable import DataSource, ImmutableSegment
+from pinot_tpu_torch.utils.hll import DEFAULT_LOG2M
 
 # composed group key space past which the JAX package leaves the device
 MAX_DEVICE_GROUPS = 1 << 21
@@ -55,6 +58,9 @@ class SegmentPlan:
     group_bases: List[int] = field(default_factory=list)
     # the spec this plan was narrowed from (probe-narrowed plans only)
     narrowed_from: Optional[Tuple] = None
+    # device -> params uploaded there (engine/kernels.py device_params)
+    device_params: Dict[Any, Tuple] = field(default_factory=dict,
+                                            repr=False, compare=False)
 
 
 def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
@@ -66,21 +72,30 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
                    if ctx.group_by else {})
     agg_defs = [resolve_agg(f) for f in ctx.aggregations]
 
-    group_specs: List[Tuple] = []
+    group_specs: List[Optional[Tuple]] = []
     group_defs: List[Tuple[str, Any]] = []
     group_cards: List[int] = []
     group_bases: List[int] = []
+    pending_gexpr: List[Tuple[int, Expr]] = []
     num_groups = 0
     strides = None
     if ctx.group_by:
         for e in ctx.group_by:
-            col, card, base = _group_strategy(e, segment, dict_ranges)
+            strat, payload, card, base = _group_strategy(e, segment,
+                                                         dict_ranges)
             group_cards.append(card)
             group_bases.append(base)
-            group_specs.append(("gdict", col))
-            group_defs.append(("gdict", col))
-            if col not in columns:
-                columns.append(col)
+            if strat == "gexpr":
+                # compiled after strides/bases, so the literals of the key
+                # expression follow them in the params
+                group_specs.append(None)
+                group_defs.append((strat, base))   # decode adds base back
+                pending_gexpr.append((len(group_specs) - 1, e))
+            else:
+                group_specs.append((strat, payload))
+                group_defs.append((strat, payload))
+                if payload not in columns:
+                    columns.append(payload)
         total = 1
         for c in group_cards:
             total *= c
@@ -91,6 +106,9 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
         strides = _row_major_strides(group_cards)
         params.append(strides)
         params.append(np.asarray(group_bases, dtype=np.int64))
+        for idx, e in pending_gexpr:
+            group_specs[idx] = (
+                "gexpr", _compile_value(e, segment, params, columns))
 
     agg_specs: List[Tuple] = []
     for agg, fn in zip(agg_defs, ctx.aggregations):
@@ -99,6 +117,22 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
             raise PlanError(f"aggregation {agg.name} not device-supported "
                             f"{'grouped' if ctx.group_by else 'scalar'}")
         vexpr = agg_value_expr(fn)
+        if agg.base == "distinctcounthll":
+            # per-dictId (bucket, rank) tables from the dictionary's hashes;
+            # the register update is a masked scatter-max on the device
+            if not isinstance(vexpr, Identifier) or vexpr.name.startswith("$"):
+                raise PlanError("DISTINCTCOUNTHLL argument must be a column")
+            m = 1 << DEFAULT_LOG2M
+            if num_groups and (num_groups + 1) * m > (1 << 23):
+                raise PlanError("grouped HLL register space too large")
+            bucket, rank = segment.data_source(
+                vexpr.name).dictionary.hll_register_luts(DEFAULT_LOG2M)
+            params.append(bucket)
+            params.append(rank)
+            agg_specs.append(("distinctcounthll", vexpr.name, DEFAULT_LOG2M))
+            if vexpr.name not in columns:
+                columns.append(vexpr.name)
+            continue
         if agg.base == "distinctcount":
             if not isinstance(vexpr, Identifier) or vexpr.name.startswith("$"):
                 raise PlanError("DISTINCTCOUNT argument must be a column")
@@ -161,19 +195,23 @@ def _value_kind(e: Expr, segment: ImmutableSegment):
     return ("float", None)
 
 
-def _acc_dtype(base: str, vexpr: Optional[Expr],
-               segment: ImmutableSegment) -> str:
+def _acc_dtype(base: str, vexpr: Optional[Expr], segment: ImmutableSegment,
+               fanout: int = 1) -> str:
+    """``fanout`` bounds the values per doc (1 for single-value columns, the
+    only ones the port stages): sums and counts add up to
+    ``capacity * fanout`` terms."""
     if vexpr is None:
         return "i32"
     if base == "count":
-        return "i32" if segment.padded_capacity <= _I32_MAX else "i64"
+        return ("i32" if segment.padded_capacity * fanout <= _I32_MAX
+                else "i64")
     kind, max_abs = _value_kind(vexpr, segment)
     if kind == "float":
         return "f32"
     if base in ("min", "max", "minmaxrange"):
         return "i32" if (max_abs is not None and max_abs <= _I32_MAX) else "i64"
     if (max_abs is not None
-            and max_abs * segment.padded_capacity <= _I32_MAX):
+            and max_abs * segment.padded_capacity * fanout <= _I32_MAX):
         return "i32"
     return "i64"
 
@@ -207,8 +245,13 @@ def expected_param_count(spec: Tuple) -> int:
     n = _count_filter_params(filter_spec)
     if group_specs:
         n += 2  # the strides + bases arrays, in that order
+        for gspec in group_specs:
+            if gspec[0] == "gexpr":
+                n += _count_value_params(gspec[1])
     for aspec in agg_specs:
-        if aspec[0] != "distinctcount":
+        if aspec[0] == "distinctcounthll":
+            n += 2  # per-dictId (bucket, rank) register tables
+        elif aspec[0] != "distinctcount":
             n += _count_value_params(aspec[2])
     return n
 
@@ -290,21 +333,61 @@ def _conjunctive_dict_ranges(filter_spec: Tuple, params: List[Any]
     return ranges
 
 
+def _value_bounds(e: Expr, segment: ImmutableSegment
+                  ) -> Optional[Tuple[int, int]]:
+    """(lo, hi) integer bounds of a device value expression by interval
+    arithmetic over column stats, or None when unbounded or not integral."""
+    if isinstance(e, Literal):
+        if isinstance(e.value, bool) or not isinstance(e.value, int):
+            return None
+        return (e.value, e.value)
+    if isinstance(e, Identifier):
+        if e.name.startswith("$"):
+            return None
+        cm = segment.metadata.column(e.name)
+        if (not cm.single_value or not cm.data_type.is_integral
+                or cm.min_value is None or cm.max_value is None):
+            return None
+        return (int(cm.min_value), int(cm.max_value))
+    if isinstance(e, Function) and e.name in _ARITH_OPS and len(e.args) == 2:
+        a = _value_bounds(e.args[0], segment)
+        b = _value_bounds(e.args[1], segment)
+        if a is None or b is None:
+            return None
+        (alo, ahi), (blo, bhi) = a, b
+        if e.name == "plus":
+            return (alo + blo, ahi + bhi)
+        if e.name == "minus":
+            return (alo - bhi, ahi - blo)
+        corners = (alo * blo, alo * bhi, ahi * blo, ahi * bhi)
+        return (min(corners), max(corners))
+    return None
+
+
 def _group_strategy(e: Expr, segment: ImmutableSegment,
                     dict_ranges: Dict[str, Tuple[int, int]]
-                    ) -> Tuple[str, int, int]:
-    """-> (column, cardinality, base) of a dictionary group key."""
-    if not isinstance(e, Identifier):
+                    ) -> Tuple[str, Any, int, int]:
+    """-> (strategy, payload, cardinality, base): ``gdict`` with the column
+    name (key = dictId - the filter-narrowed base), or ``gexpr`` with the
+    expression (key = value - its lower bound)."""
+    if isinstance(e, Identifier):
+        if e.name.startswith("$"):
+            raise PlanError("group-by on virtual column -> host path")
+        cm = segment.metadata.column(e.name)
+        lo, hi = dict_ranges.get(e.name, (0, cm.cardinality - 1))
+        lo = max(0, lo)
+        hi = min(cm.cardinality - 1, hi)
+        if lo > hi:
+            lo, hi = 0, 0  # unsatisfiable conjunction: a 1-slot key space
+        return "gdict", e.name, hi - lo + 1, lo
+    bounds = _value_bounds(e, segment)
+    if bounds is None:
         raise PlanError(f"group-by expression {e} -> host path")
-    if e.name.startswith("$"):
-        raise PlanError("group-by on virtual column -> host path")
-    cm = segment.metadata.column(e.name)
-    lo, hi = dict_ranges.get(e.name, (0, cm.cardinality - 1))
-    lo = max(0, lo)
-    hi = min(cm.cardinality - 1, hi)
-    if lo > hi:
-        lo, hi = 0, 0  # unsatisfiable conjunction: a 1-slot key space
-    return e.name, hi - lo + 1, lo
+    lo, hi = bounds
+    span = hi - lo + 1
+    if span <= 0 or span > MAX_DEVICE_GROUPS:
+        raise PlanError("group-by expression span too large -> host path")
+    return "gexpr", e, span, lo
 
 
 # -- filter compilation -----------------------------------------------------

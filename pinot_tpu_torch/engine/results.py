@@ -7,7 +7,7 @@ Counterpart of ``pinot_tpu/engine/results.py`` (``reduce_group_by``,
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -48,8 +48,20 @@ class QueryStats:
     probe_launches: int = 0
     sharded_scan_launches: int = 0
     sharded_probe_launches: int = 0
+    # segment calls of the general rung (engine/kernels.py)
+    general_launches: int = 0
+    # the group-by rung that served: dense | compact | hash | sort, or
+    # "mixed" when segments of one query took different rungs (the JAX
+    # package's QueryStats.merge rule); and segments served per rung
+    group_by_rung: Optional[str] = None
+    rung_segments: Dict[str, int] = field(default_factory=dict)
     # path decisions (record_decision): decision key -> count
     decisions: Dict[str, int] = field(default_factory=dict)
+
+    def record_rung(self, rung: str) -> None:
+        self.group_by_rung = (rung if self.group_by_rung in (None, rung)
+                              else "mixed")
+        self.rung_segments[rung] = self.rung_segments.get(rung, 0) + 1
 
 
 def decision_key(point: str, chosen: str, declined: str,

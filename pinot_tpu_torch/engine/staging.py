@@ -1,8 +1,11 @@
 """Device staging: segment columns -> tensors on one device.
 
-Counterpart of ``pinot_tpu/engine/staging.py`` for the fused scan:
-planar bit-packed dictIds (``packed_column``) and decoded per-doc values
-(``value_column``), each staged once per segment and cached.
+Counterpart of ``pinot_tpu/engine/staging.py`` for single-value
+dictionary columns: for the fused scan, planar bit-packed dictIds
+(``packed_column``) and decoded per-doc values (``value_column``); for the
+general rung (``engine/kernels.py``), each column's int32 dictIds and its
+dictionary's values (``column``). Each is staged once per segment and
+cached.
 
 Planar layout (bit-identical to the JAX package's ``_pack``): docs are cut
 into tiles of ``TILE`` docs; with ``B`` bits per value and ``K = 32 / B``
@@ -66,6 +69,27 @@ class PackedColumn:
         self.vals_per_word = 32 // bits
 
 
+class StagedColumn:
+    """One column for the general rung: ``fwd`` int32 dictIds
+    ``[capacity]``, and for numeric columns ``dictvals``, the dictionary's
+    values (i32 or i64 by ``staged_int_dtype``, f32 for floats)."""
+
+    def __init__(self, fwd: torch.Tensor,
+                 dictvals: Optional[torch.Tensor] = None):
+        self.fwd = fwd
+        self.dictvals = dictvals
+
+    def tree(self) -> Dict[str, torch.Tensor]:
+        """The arrays the rung reads, by name (only those present)."""
+        out = {"fwd": self.fwd}
+        if self.dictvals is not None:
+            out["dictvals"] = self.dictvals
+        return out
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.tree().values())
+
+
 class StagedSegment:
     """Device image of one segment, staged column by column on demand."""
 
@@ -77,6 +101,7 @@ class StagedSegment:
         self.capacity = segment.padded_capacity
         self._packed: Dict[str, PackedColumn] = {}
         self._values: Dict[str, torch.Tensor] = {}
+        self._columns: Dict[str, StagedColumn] = {}
         self._num_docs: Optional[torch.Tensor] = None
 
     @property
@@ -130,8 +155,31 @@ class StagedSegment:
             self._values[name] = v
         return v
 
+    def column(self, name: str) -> StagedColumn:
+        """The general rung's arrays of a single-value dictionary column."""
+        sc = self._columns.get(name)
+        if sc is None:
+            ds = self.segment.data_source(name)
+            cm = ds.metadata
+            if not (cm.has_dictionary and cm.single_value):
+                raise ValueError(f"column {name!r} is not a single-value "
+                                 "dictionary column")
+            fwd = np.zeros(self.capacity, dtype=np.int32)
+            ids = np.asarray(ds.forward_index)[:self.capacity]
+            fwd[:ids.shape[0]] = ids
+            dictvals = None
+            if cm.data_type.is_numeric:
+                dt = (staged_int_dtype(cm) if cm.data_type.is_integral
+                      else np.dtype(np.float32))
+                dictvals = torch.from_numpy(
+                    ds.dictionary.device_values().astype(dt)).to(self.device)
+            sc = StagedColumn(torch.from_numpy(fwd).to(self.device), dictvals)
+            self._columns[name] = sc
+        return sc
+
     def nbytes(self) -> int:
         """Device bytes this segment holds."""
         return (sum(pc.words.numel() * 4 for pc in self._packed.values())
                 + sum(v.numel() * v.element_size()
-                      for v in self._values.values()))
+                      for v in self._values.values())
+                + sum(c.nbytes() for c in self._columns.values()))

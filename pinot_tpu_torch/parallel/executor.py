@@ -91,8 +91,8 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         got = self._run_sharded(ctx, segments, stats)
         if got is None:
             return super()._execute_aggregation(ctx, aggs, segments, stats)
-        _batch, tree, plan = got
-        return decode_scalar_result(plan, tree)
+        batch, tree, plan = got
+        return decode_scalar_result(plan, batch, tree)
 
     def _execute_group_by(self, ctx: QueryContext, aggs: List[AggDef],
                           segments: List[ImmutableSegment],

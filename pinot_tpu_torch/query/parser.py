@@ -10,8 +10,8 @@ dialect the scan slice serves:
 ``bool_expr`` is AND/OR/NOT over ``= != <> < <= > >= BETWEEN IN NOT IN``
 with a column on one side and a literal on the other. Value expressions are
 columns, numeric literals, ``+ - *`` and the aggregation functions
-``count sum avg min max minmaxrange`` (and ``count(DISTINCT x)``). Anything
-else raises :class:`SqlParseError`.
+``count sum avg min max minmaxrange distinctcount distinctcounthll`` (and
+``count(DISTINCT x)``). Anything else raises :class:`SqlParseError`.
 """
 
 from __future__ import annotations
@@ -84,10 +84,10 @@ _KEYWORDS = {
     "THEN", "ELSE", "END",
 }
 
-# aggregation functions the slice parses (count(DISTINCT x) adds
-# distinctcount, which the planner recognises and the scan declines)
+# aggregation functions the port parses (count(DISTINCT x) is distinctcount)
 AGGREGATION_FUNCTIONS = frozenset(
-    {"count", "sum", "avg", "min", "max", "minmaxrange", "distinctcount"})
+    {"count", "sum", "avg", "min", "max", "minmaxrange", "distinctcount",
+     "distinctcounthll"})
 
 
 @dataclass

@@ -9,11 +9,12 @@ which is the byte order of their UTF-8 encoding).
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from pinot_tpu_torch.spi.data import DataType
+from pinot_tpu_torch.utils.hll import dictionary_register_luts
 
 
 class Dictionary:
@@ -22,6 +23,7 @@ class Dictionary:
             raise ValueError("dictionary values must be one-dimensional")
         self._values = values
         self.data_type = data_type
+        self._hll_luts: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
 
     def __len__(self) -> int:
         return int(self._values.shape[0])
@@ -64,6 +66,17 @@ class Dictionary:
         """The sorted value array of a numeric dictionary (dictId -> value
         gather when staging value columns); None for strings."""
         return self._values if self.data_type.is_numeric else None
+
+    def hll_register_luts(self, log2m: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Memoized (bucket, rank) int32 register tables over this
+        dictionary's values: the device HLL's plan-time parameters (string
+        hashing is a Python loop, so it is paid once per dictionary)."""
+        luts = self._hll_luts.get(log2m)
+        if luts is None:
+            luts = dictionary_register_luts(self.get_values(range(len(self))),
+                                            log2m)
+            self._hll_luts[log2m] = luts
+        return luts
 
     def range_to_dict_id_interval(self, lo: Any, hi: Any, lo_inclusive: bool,
                                   hi_inclusive: bool) -> Tuple[int, int]:

@@ -13,6 +13,11 @@ string arrays, so SF10 builds in seconds.
 
 ``numpy_answer`` is an independent oracle: each flight's predicates,
 groups and sums written out in numpy over a frame, with exact int64 sums.
+``DECLINED_QUERIES`` are five queries over the same table that the fused
+scan declines (a group space past its cap, int min/max past 2^24,
+DISTINCTCOUNT and DISTINCTCOUNTHLL), with their oracle
+(``declined_answer``: distinct sets of values, HLL registers from
+``utils/hll`` over the raw values).
 """
 
 from __future__ import annotations
@@ -24,6 +29,11 @@ import numpy as np
 from pinot_tpu_torch.segment.convert import ColumnArrays, segment_from_arrays
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.spi.data import DataType, FieldType
+from pinot_tpu_torch.utils.hll import (
+    DEFAULT_LOG2M,
+    HyperLogLog,
+    dictionary_register_luts,
+)
 
 ROWS_PER_SF = 6_000_000
 TABLE = "ssb_lineorder"
@@ -396,3 +406,155 @@ def merge_answers(parts: List[Union[int, Dict[Tuple, int]]]
         for k, v in p.items():
             out[k] = out.get(k, 0) + v
     return out
+
+
+# -- declined queries ---------------------------------------------------------
+
+# Queries the fused scan declines, each served by the general rung
+# (engine/kernels.py): id -> SQL. At SF10 in 8 segments (seed 42), G1's
+# matched segment (10832 live docs, 1000 groups) takes the hash rung and
+# G2's two (about 163 k live docs each, past the hash rung's 65536-doc
+# window) the sort rung. With s_region = 'ASIA' in G1 (27162 docs, 2500
+# groups) a probe pass of the hash table steals a claim and the sort rung
+# serves it too.
+DECLINED_QUERIES: Dict[str, str] = {
+    "G1": "SELECT c_city, s_city, SUM(lo_revenue) FROM ssb_lineorder "
+          "WHERE c_region = 'ASIA' AND s_nation IN ('CHINA', 'VIETNAM') "
+          "AND d_yearmonthnum = 199712 GROUP BY c_city, s_city LIMIT 100000",
+    "G2": "SELECT c_city, s_city, SUM(lo_revenue) FROM ssb_lineorder "
+          "WHERE c_region = 'ASIA' AND s_region = 'ASIA' AND d_year = 1997 "
+          "GROUP BY c_city, s_city LIMIT 100000",
+    "G3": "SELECT d_year, MIN(lo_extendedprice * lo_discount), "
+          "MAX(lo_extendedprice * lo_discount) FROM ssb_lineorder "
+          "GROUP BY d_year LIMIT 100000",
+    "G4": "SELECT DISTINCTCOUNT(p_brand1) FROM ssb_lineorder "
+          "WHERE s_region = 'AMERICA' AND d_year = 1993",
+    "G5": "SELECT d_year, DISTINCTCOUNTHLL(p_brand1) FROM ssb_lineorder "
+          "WHERE s_region = 'EUROPE' GROUP BY d_year LIMIT 100000",
+}
+# the fused scan's decline reason code for each
+DECLINED_REASONS: Dict[str, str] = {
+    "G1": "pallas_too_many_groups", "G2": "pallas_too_many_groups",
+    "G3": "pallas_minmax_not_f32_exact", "G4": "pallas_distinct_agg",
+    "G5": "pallas_distinct_agg"}
+
+_ASIA = [("c_region", "eq", "ASIA"), ("s_region", "eq", "ASIA")]
+# id -> (conditions, group columns, aggregate, its argument)
+_DECLINED_ORACLE = {
+    "G1": ([("c_region", "eq", "ASIA"),
+            ("s_nation", "in", ("CHINA", "VIETNAM")),
+            ("d_yearmonthnum", "eq", 199712)],
+           ("c_city", "s_city"), "sum", "revenue"),
+    "G2": (_ASIA + [("d_year", "eq", 1997)],
+           ("c_city", "s_city"), "sum", "revenue"),
+    "G3": ([], ("d_year",), "minmax", "price_disc"),
+    "G4": ([("s_region", "eq", "AMERICA"), ("d_year", "eq", 1993)], (),
+           "distinct", "p_brand1"),
+    "G5": ([("s_region", "eq", "EUROPE")], ("d_year",), "hll", "p_brand1"),
+}
+
+
+def _values(frame, arg: str, m: np.ndarray) -> np.ndarray:
+    if arg == "revenue":
+        return frame["lo_revenue"][m].astype(np.int64)
+    if arg == "price_disc":
+        return (frame["lo_extendedprice"][m]
+                * frame["lo_discount"][m]).astype(np.int64)
+    return frame[arg][m]
+
+
+def _declined_partial(frame, gid: str) -> Dict[Tuple, object]:
+    """{group key: state} of one frame: an int sum, a (min, max) pair, a
+    set of string codes, or HLL registers."""
+    conds, groups, agg, arg = _DECLINED_ORACLE[gid]
+    m = np.ones(len(frame["lo_quantity"]), dtype=bool)
+    for col, op, operand in conds:
+        m &= _condition(frame, col, op, operand)
+    vals = _values(frame, arg, m)
+    # composite group index over each column's present values
+    comp = np.zeros(vals.shape[0], dtype=np.int64)
+    present = []
+    for g in groups:
+        u, inv = np.unique(frame[g][m], return_inverse=True)
+        comp = comp * len(u) + inv.reshape(-1)
+        present.append(u)
+    uniq, gi = np.unique(comp, return_inverse=True)
+    gi = gi.reshape(-1)
+    if agg == "sum":
+        states = np.zeros(len(uniq), dtype=np.int64)
+        np.add.at(states, gi, vals)
+        states = states.tolist()
+    elif agg == "minmax":
+        lo = np.full(len(uniq), np.iinfo(np.int64).max)
+        hi = np.full(len(uniq), np.iinfo(np.int64).min)
+        np.minimum.at(lo, gi, vals)
+        np.maximum.at(hi, gi, vals)
+        states = list(zip(lo.tolist(), hi.tolist()))
+    elif agg == "distinct":
+        states = [set(np.unique(vals[gi == k]).tolist())
+                  for k in range(len(uniq))]
+    else:
+        bucket, rank = _register_luts(arg)
+        regs = np.zeros((len(uniq), 1 << DEFAULT_LOG2M), dtype=np.uint8)
+        np.maximum.at(regs, (gi, bucket[vals]), rank[vals].astype(np.uint8))
+        states = list(regs)
+    out: Dict[Tuple, object] = {}
+    for c, st in zip(uniq.tolist(), states):
+        key = []
+        for g, u in zip(reversed(groups), reversed(present)):
+            c, j = divmod(c, len(u))
+            key.append(str(UNIVERSE[g][u[j]]) if g in UNIVERSE
+                       else int(u[j]))
+        out[tuple(reversed(key))] = st
+    return out
+
+
+_LUTS: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+
+
+def _register_luts(col: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(bucket, rank) per code of a string column, from the raw values."""
+    if col not in _LUTS:
+        _LUTS[col] = dictionary_register_luts(UNIVERSE[col].tolist(),
+                                              DEFAULT_LOG2M)
+    return _LUTS[col]
+
+
+def _merge_state(agg: str, a, b):
+    if agg == "sum":
+        return a + b
+    if agg == "minmax":
+        return (min(a[0], b[0]), max(a[1], b[1]))
+    if agg == "distinct":
+        return a | b
+    return np.maximum(a, b)
+
+
+def declined_answer(frames: List[Dict[str, np.ndarray]], gid: str
+                    ) -> Dict[Tuple, object]:
+    """Exact answer of declined query ``gid`` over the frames: {group key
+    tuple (``()`` for G4): its value, or (min, max) for G3}. DISTINCTCOUNT
+    counts the distinct values, DISTINCTCOUNTHLL estimates from the
+    registers of every row's raw value."""
+    agg = _DECLINED_ORACLE[gid][2]
+    merged: Dict[Tuple, object] = {}
+    for frame in frames:
+        for k, st in _declined_partial(frame, gid).items():
+            merged[k] = st if k not in merged else _merge_state(agg, merged[k],
+                                                                st)
+    if agg == "distinct":
+        return {k: len(v) for k, v in merged.items()} or {(): 0}
+    if agg == "hll":
+        return {k: HyperLogLog(DEFAULT_LOG2M, v).cardinality()
+                for k, v in merged.items()}
+    if agg == "minmax":
+        return {k: (float(v[0]), float(v[1])) for k, v in merged.items()}
+    return {k: float(v) for k, v in merged.items()}
+
+
+def declined_rows(gid: str, rows: List[List]) -> Dict[Tuple, object]:
+    """A result table's rows in ``declined_answer``'s form."""
+    n_keys = len(_DECLINED_ORACLE[gid][1])
+    if _DECLINED_ORACLE[gid][2] == "minmax":
+        return {tuple(r[:n_keys]): tuple(r[n_keys:]) for r in rows}
+    return {tuple(r[:n_keys]): r[n_keys] for r in rows}

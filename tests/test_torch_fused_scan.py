@@ -58,9 +58,7 @@ def pallas_cache():
 def _decode(mod, plan, seg, tree, grouped):
     if grouped:
         return mod.decode_grouped_result(plan, seg, tree).groups
-    if mod is j_exec:
-        return {(): mod.decode_scalar_result(plan, seg, tree).states}
-    return {(): mod.decode_scalar_result(plan, tree).states}
+    return {(): mod.decode_scalar_result(plan, seg, tree).states}
 
 
 def _close(got, want, exact):

@@ -41,10 +41,15 @@ def test_no_jax_or_reference_imports(path):
 
 def test_executor_import_leaves_jax_unloaded():
     code = ("import sys, pinot_tpu_torch.engine.executor, "
-            "pinot_tpu_torch.tools.ssb, pinot_tpu_torch.engine.fused_scan; "
+            "pinot_tpu_torch.tools.ssb, pinot_tpu_torch.engine.fused_scan, "
+            "pinot_tpu_torch.engine.kernels, pinot_tpu_torch.utils.hll, "
+            "pinot_tpu_torch.tools.scan_profile; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'pinot_tpu')]; print(bad); "
-            "sys.exit(1 if bad else 0)")
+            "('jax', 'jaxlib', 'pinot_tpu', 'triton')]; "
+            "from pinot_tpu_torch.engine import _build, kernels; "
+            "bad += ['built: ' + k for k in _build.BUILD_LOGS]; "
+            "bad += ['launched'] * kernels.RUNG_COUNTER.launches; "
+            "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -19,6 +19,7 @@ from pinot_tpu_torch.engine.fused_scan import extract_plan as t_extract  # noqa:
 from pinot_tpu_torch.engine.plan import plan_segment as t_plan  # noqa: E402
 from pinot_tpu_torch.query import compile_query as t_compile  # noqa: E402
 from pinot_tpu_torch.segment import columns_of, segment_from_arrays  # noqa: E402
+from pinot_tpu_torch.tools.ssb import DECLINED_QUERIES  # noqa: E402
 
 # tests/test_pallas.py's QUERIES and WIDE_QUERIES, over its pl_sales shape
 PL_QUERIES = [
@@ -46,6 +47,20 @@ PL_QUERIES = [
     "SELECT count(*) FROM pl_sales "
     "WHERE (region = 'east' OR region = 'west') AND year >= 2012",
 ]
+
+# plans only the general rung serves: the declined SSB queries, gexpr keys,
+# DISTINCTCOUNTHLL (its register tables are params)
+GENERAL_QUERIES = dict(DECLINED_QUERIES, **{
+    "gexpr": "SELECT d_year * 100 + lo_discount, lo_quantity - lo_discount, "
+             "sum(lo_revenue) FROM ssb_lineorder WHERE lo_quantity < 10 "
+             "GROUP BY d_year * 100 + lo_discount, lo_quantity - lo_discount "
+             "LIMIT 100000",
+    "gexpr hll": "SELECT 3 * d_year - 1, distinctcounthll(c_city), "
+                 "distinctcounthll(lo_quantity) FROM ssb_lineorder "
+                 "GROUP BY 3 * d_year - 1 LIMIT 100000",
+    "hll lut": "SELECT distinctcounthll(s_city), count(*) FROM ssb_lineorder "
+               "WHERE p_mfgr IN ('MFGR#1', 'MFGR#4') AND d_year != 1995",
+})
 
 GRAFT_SQL = ("SELECT region, sum(qty), count(*), avg(price) FROM sales "
              "WHERE year BETWEEN 2017 AND 2022 AND kind != 'c' "
@@ -96,6 +111,8 @@ def cases(tmp_path_factory):
     out = {}
     for qid, sql in j_ssb.QUERIES.items():
         out[f"ssb {qid}"] = (sql + " LIMIT 100000", ssb_segs, "ssb_lineorder")
+    for gid, sql in GENERAL_QUERIES.items():
+        out[f"ssb {gid}"] = (sql, ssb_segs, "ssb_lineorder")
     for i, sql in enumerate(PL_QUERIES):
         out[f"pl_sales {i}"] = (sql, pl_segs, "pl_sales")
     out["graft"] = (GRAFT_SQL, graft, "sales")
@@ -103,6 +120,7 @@ def cases(tmp_path_factory):
 
 
 CASE_IDS = ([f"ssb {q}" for q in j_ssb.QUERIES]
+            + [f"ssb {g}" for g in GENERAL_QUERIES]
             + [f"pl_sales {i}" for i in range(len(PL_QUERIES))] + ["graft"])
 
 
