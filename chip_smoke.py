@@ -1,6 +1,7 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--seed 42] [--reps 5]
+                          [--user-segments 8] [--user-rows 2500000]
                           [--out-dir DIR]
 
 Phases:
@@ -9,7 +10,9 @@ Phases:
      (ptxas registers, stack frame and spills logged);
   3. hold the kernel against its plain PyTorch version on the same card and
      inputs: every bit width, a remainder tile, iv/ivs/not/or filters, int
-     and float expressions, an i64 column, every aggregation, 128 and 8192
+     and float expressions, an i64 column, raw (no-dictionary) INT, LONG
+     past 2^31 and FLOAT value columns, a scan that reads no packed column,
+     every aggregation, 128 and 8192
      groups (shared-memory and global accumulators), the probe mode, a
      group key that is also a filter column, a filter at the deepest stack
      the kernel takes, tiles where every doc passes and tiles where none
@@ -36,8 +39,20 @@ Phases:
      phase 4's; (b) the declined queries G1-G5 (tools/ssb.py) with the
      fused scan on, each with its planned decline and rung (G1's matched
      segment on the hash rung, G2's on the sort rung), held against the
-     oracle; a "rungs" line of the segments each rung served; and one JSON
-     line listing the kernels ("ms" is the kernel alone).
+     oracle;
+  8. the user-events table (tools/usertable.py: raw ``latency_ms``, MV
+     ``tags``), ``--user-segments`` segments of ``--user-rows`` rows: U1-U7
+     ``--reps`` times through ServerQueryExecutor(device="cuda"), each held
+     against the numpy oracle over the generator's arrays with its decline
+     code and rung per segment (U1 and U2 on the fused scan, U2's raw
+     column as a value column; U3-U7 on the general rung); U1 and U2 again
+     through ShardedQueryExecutor, one launch over the batch, where U3-U7
+     raise NotPortedError; (8b) on a 1 M-doc segment, IS NULL / IS NOT
+     NULL on a nullable dictionary and raw column, the MV aggregations and
+     an upsert valid-doc mask against numpy;
+then a "rungs" line of the segments each rung served and the declines of
+phase 8, and one JSON line listing the kernels ("ms" is the kernel alone,
+"launches" those of phases 4, 6 and 8).
 The last line is {"ok": true, "device": {...}}; any failure raises and
 exits non-zero without it. Needs one CUDA card; exits 2 without one.
 """
@@ -65,7 +80,8 @@ def log(msg: str) -> None:
 
 def _synthetic_segment(n: int, seed: int, i: int = 0):
     """Columns with one of each packed width (1, 2, 4, 8, 16, 32 bits),
-    int/float/i64 values, and doc-correlated columns for the probe."""
+    int/float/i64 values, doc-correlated columns for the probe, and raw
+    (no-dictionary) INT, LONG past 2^31 and FLOAT value columns."""
     from pinot_tpu_torch.segment import ColumnArrays, segment_from_arrays
     from pinot_tpu_torch.spi import DataType, FieldType
 
@@ -91,6 +107,12 @@ def _synthetic_segment(n: int, seed: int, i: int = 0):
                      np.round(rng.normal(80.0, 30.0, n), 2)),
         "big": col(DataType.LONG, M,
                    rng.integers(0, 1 << 40, n) - (1 << 39)),
+        "rint": ColumnArrays(DataType.INT, M,
+                             values=rng.integers(-5000, 9000, n)),
+        "rlong": ColumnArrays(DataType.LONG, M,
+                              values=rng.integers(0, 1 << 36, n) + (1 << 33)),
+        "rfloat": ColumnArrays(DataType.FLOAT, M, values=np.round(
+            rng.gamma(2.0, 40.0, n), 3).astype(np.float32)),
     }, table_name="t")
 
 
@@ -143,6 +165,13 @@ def _kernel_cases():
         ("8192 groups, three filter columns of 56 bits in all",
          "SELECT b16, sum(qty), sum(price) FROM t "
          "WHERE b32 > 100 AND b16 < 7000 AND b8 < 190 GROUP BY b16"),
+        ("raw INT, raw LONG past 2^31 and raw FLOAT value columns",
+         "SELECT b4, sum(rint), min(rint), max(rfloat), sum(rlong), "
+         "avg(rfloat), count(*) FROM t WHERE b8 < 100 OR b2 = 1 "
+         "GROUP BY b4"),
+        ("raw value columns and no packed column",
+         "SELECT sum(rint), sum(rlong), sum(rfloat), min(rfloat), "
+         "max(rint), count(*) FROM t"),
     ]
 
 
@@ -151,8 +180,8 @@ def _scan_args(staged, sql) -> dict:
     staged batch, built by the executors' own ``scan_inputs``, which picks
     the wrappers (and so the counters) for the staged type: ``launch()``
     runs the wrapper, ``inputs`` are the plain version's (program, packed
-    words, values, num_docs). The probe entry is there when the query
-    probes first (the probe launches once here)."""
+    words, values, num_docs, tiles). The probe entry is there when the
+    query probes first (the probe launches once here)."""
     from pinot_tpu_torch.engine import fused_scan as fs
     from pinot_tpu_torch.engine.plan import plan_segment
     from pinot_tpu_torch.query import compile_query
@@ -164,12 +193,13 @@ def _scan_args(staged, sql) -> dict:
         raise AssertionError(f"{sql}: declined {reasons}")
     k = inp.kernels
     args = {k.scan_counter.name: (
-        inp.scan, (inp.prog, inp.words, inp.values, inp.num_docs))}
+        inp.scan, (inp.prog, inp.words, inp.values, inp.num_docs,
+                   inp.tiles))}
     if inp.probe is not None:
         prog, words = inp.probe
         args[k.probe_counter.name] = (
             lambda: k.probe(prog, words, inp.num_docs),
-            (prog, words, [], inp.num_docs))
+            (prog, words, [], inp.num_docs, inp.tiles))
     return args
 
 
@@ -196,12 +226,12 @@ def _check_paths(seen: set, depths: set, tiles: set, what: str) -> None:
                              f"and one where none does: {sorted(tiles)}")
 
 
-def _tile_kinds(prog, words, num_docs) -> set:
+def _tile_kinds(prog, words, values, num_docs, tiles) -> set:
     """'all' if a full tile has every doc passing, 'none' if a full tile
     has none passing."""
     from pinot_tpu_torch.engine import fused_scan as fs
 
-    valid, matched = fs.doc_masks(prog, words, num_docs)
+    valid, matched = fs.doc_masks(prog, words, num_docs, values, tiles)
     full = valid.view(-1, fs.TILE).all(dim=1)
     per_tile = matched.view(-1, fs.TILE).sum(dim=1)
     kinds = set()
@@ -262,19 +292,23 @@ def phase_kernels(n: int = 200_123, seed: int = 7) -> dict:
     errs = {"fused_scan": 0.0, "fused_scan_probe": 0.0}
     probed = False
     paths, depths, tiles = set(), set(), set()
+    raw_values = set()
     for what, sql in _kernel_cases():
         args = _scan_args(staged, sql)
-        prog, words, _values, num_docs = args["fused_scan"][1]
+        prog = args["fused_scan"][1][0]
         bits_seen.update(prog.bits)
         probed |= "fused_scan_probe" in args
         paths.add(_acc_path(prog))
         depths.add(prog.filter_depth)
-        tiles |= _tile_kinds(prog, words, num_docs)
+        tiles |= _tile_kinds(*args["fused_scan"][1])
+        raw_values |= _raw_values(staged, sql)
         _kernel_vs_plain(args, what, errs)
         log(f"  kernel == plain: {what} (G={prog.G}, bits={prog.bits}, "
             f"{_acc_path(prog)} accumulators, filter depth "
             f"{prog.filter_depth})")
     _check_paths(paths, depths, tiles, "segment")
+    if raw_values != {"rint", "rlong", "rfloat"}:
+        raise AssertionError(f"raw value columns covered: {raw_values}")
     missing = {1, 2, 4, 8, 16, 32} - bits_seen
     if missing:
         raise AssertionError(f"bit widths not covered: {sorted(missing)}")
@@ -304,13 +338,15 @@ def phase_batch_kernels(seed: int) -> dict:
     errs = {"sharded_fused_scan": 0.0, "sharded_fused_scan_probe": 0.0}
     paths, depths, tiles = set(), set(), set()
     probed = False
+    raw_values = set()
     for what, sql in _kernel_cases():
         args = _scan_args(staged, sql)
-        prog, words, _values, num_docs = args["sharded_fused_scan"][1]
+        prog = args["sharded_fused_scan"][1][0]
         probed |= "sharded_fused_scan_probe" in args
         paths.add(_acc_path(prog))
         depths.add(prog.filter_depth)
-        tiles |= _tile_kinds(prog, words, num_docs)
+        tiles |= _tile_kinds(*args["sharded_fused_scan"][1])
+        raw_values |= _raw_values(staged, sql)
         outs = _kernel_vs_plain(args, f"batch: {what}", errs)
         matched = outs["sharded_fused_scan"].to_host().matched
         if int(matched[-1]) != 0:
@@ -322,7 +358,27 @@ def phase_batch_kernels(seed: int) -> dict:
     if not probed:
         raise AssertionError("no batch case ran the probe mode")
     _check_paths(paths, depths, tiles, "batch")
+    if raw_values != {"rint", "rlong", "rfloat"}:
+        raise AssertionError(f"batch raw value columns covered: "
+                             f"{raw_values}")
     return errs
+
+
+def _raw_values(staged, sql) -> set:
+    """The raw (no-dictionary) columns the scan of ``sql`` reads as value
+    columns, each checked to be staged in its own type (i64 past 2^31)."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.engine.plan import plan_segment
+    from pinot_tpu_torch.query import compile_query
+
+    pp = fs.extract_plan(plan_segment(compile_query(sql + " LIMIT 100000"),
+                                      staged.provider), staged.provider,
+                         unchecked_groups=True)
+    raw = {n for n in pp.value_names
+           if not staged.provider.metadata.column(n).has_dictionary}
+    if "rlong" in raw and staged.value_column("rlong").dtype.itemsize != 8:
+        raise AssertionError("raw LONG past 2^31 not staged as i64")
+    return raw
 
 
 # -- phase 4: main path --------------------------------------------------------
@@ -512,7 +568,7 @@ def _sectors(need, per_sector: int) -> int:
     return int(need.reshape(-1, per_sector).any(dim=1).sum())
 
 
-def _needed_bytes(prog, words, values, num_docs) -> int:
+def _needed_bytes(prog, words, values, num_docs, tiles) -> int:
     """Bytes this scan must move, from this run's data: the filter's
     packed columns on every sector holding a doc (every doc's filter is
     evaluated), group-key and value columns only on sectors holding a doc
@@ -520,7 +576,7 @@ def _needed_bytes(prog, words, values, num_docs) -> int:
     rows, per-segment matched counts) written once."""
     from pinot_tpu_torch.engine import fused_scan as fs
 
-    valid, matched = fs.doc_masks(prog, words, num_docs)
+    valid, matched = fs.doc_masks(prog, words, num_docs, values, tiles)
     total = 0
     for c, w in enumerate(words):
         S, T, W = w.shape
@@ -548,8 +604,10 @@ def _kernel_ms(args, iters: int) -> float:
     return _time_ms(lambda: fs.enqueue(argv, stream), iters)
 
 
-def _time_kernels(staged, errs: dict, docs: int, iters: int) -> list:
-    """Each flight's scan (and probe) over ``staged``: held against the
+def _time_kernels(staged, errs: dict, docs: int, iters: int,
+                  queries: dict = None) -> list:
+    """Each query's scan (and probe) over ``staged`` (``queries``: the SSB
+    flights unless given): held against the
     plain version at these shapes (folded into ``errs``), then timed beside
     the bound from the bytes this run's data needs: the kernel alone, and
     the wrapper (the kernel with its host work, as the path launches it)."""
@@ -557,16 +615,15 @@ def _time_kernels(staged, errs: dict, docs: int, iters: int) -> list:
     from pinot_tpu_torch.tools import ssb
 
     rows = []
-    for qid, q in ssb.QUERIES.items():
+    for qid, q in (queries or ssb.QUERIES).items():
         scan_args = _scan_args(staged, q)
         _kernel_vs_plain(scan_args, qid, errs)
         for kind, (launch, args) in scan_args.items():
-            prog, words = args[0], args[1]
+            prog, num_docs, tiles = args[0], args[3], args[4]
             nbytes = _needed_bytes(*args)
             full = _full_bytes(*args)
             lay = fs.scan_layout(prog)
-            grid = min(words[0].shape[0] * words[0].shape[1],
-                       fs.launch_grid(lay.smem))
+            grid = min(num_docs.numel() * tiles, fs.launch_grid(lay.smem))
             k_ms = _kernel_ms(args, iters)
             w_ms = _time_ms(launch, iters)
             p_ms = _time_ms(lambda: fs.fused_scan_plain(*args), 3)
@@ -584,7 +641,7 @@ def _time_kernels(staged, errs: dict, docs: int, iters: int) -> list:
     return rows
 
 
-def _full_bytes(prog, words, values, num_docs) -> int:
+def _full_bytes(prog, words, values, num_docs, tiles) -> int:
     """Bytes of every column the scan reads, in full: the most any data
     could need (logged beside the bound, not used for it)."""
     return (sum(w.numel() * 4 for w in words)
@@ -764,10 +821,316 @@ def phase_general(main: dict, reps: int) -> dict:
             f"{n_general} segments, rungs {stats.rung_segments}, launches "
             f"{declined[gid]['launches']}; == numpy oracle")
     _check_on_card(ex_on)
-    log("rungs " + json.dumps({"flights_fused_off": rungs, "declined": {
-        g: d["rung_segments"] for g, d in declined.items()}}))
     return {"per_flight": per_flight, "rungs": rungs, "declined": declined,
             "launches": launches}
+
+
+# -- phase 8: the user-events table ------------------------------------------
+
+# per query: the fused scan's decline code (None: the fused scan serves
+# every segment) and the group-by rung of each segment (None: scalar)
+USER_PATH = {"U1": (None, "dense"), "U2": (None, "dense"),
+             "U3": ("pallas_vrange", None), "U4": ("pallas_mv_eq", "dense"),
+             "U5": ("pallas_mv_lut", None),
+             "U6": ("pallas_raw_group_key", "dense"),
+             "U7": ("pallas_vin", None)}
+# the queries the fused scan serves: one launch over the batch; the others
+# raise NotPortedError there (the JAX package's jnp combine is not ported)
+USER_BATCH = ("U1", "U2")
+# the query whose value column is the raw latency_ms
+USER_RAW_FUSED = "U2"
+
+
+def _decline_key(code: str) -> str:
+    return f"pallas:pallas_kernel->jnp_kernel:{code}"
+
+
+def _check_user_path(qid: str, stats, n_segs: int, path: dict) -> None:
+    """The query's declines, general-rung calls and rungs per segment."""
+    code, rung = path[qid]
+    want = {_decline_key(code): n_segs} if code else {}
+    if stats.decisions != want:
+        raise AssertionError(f"{qid}: decisions {stats.decisions} != {want}")
+    if stats.general_launches != (n_segs if code else 0):
+        raise AssertionError(f"{qid}: {stats.general_launches} general-rung "
+                             f"calls over {n_segs} segments")
+    want_rungs = {rung: n_segs} if rung else {}
+    if stats.rung_segments != want_rungs:
+        raise AssertionError(f"{qid}: rungs {stats.rung_segments} != "
+                             f"{want_rungs}")
+
+
+def _timed(ex, ctx, segs, reps: int, check) -> list:
+    """``reps`` timed runs of ``ctx``, each result passed to ``check``."""
+    import torch
+
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        table, stats = ex.execute(ctx, segs)
+        if ex.device.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(table, stats)
+    return ms
+
+
+def _counted(counters: dict, device) -> dict:
+    """The counters' launches: the wrappers count only the launches of
+    their kernels on the card (on the CPU they run the plain version)."""
+    return ({name: c.launches for name, c in counters.items()}
+            if device.type == "cuda" else None)
+
+
+def phase_users(seed: int, reps: int, segments: int = 8,
+                rows_per_segment: int = 2_500_000, device: str = "cuda",
+                errs: dict = None) -> dict:
+    """U1-U7 (``tools/usertable.py``) on the user-events table, each
+    ``reps`` times through ServerQueryExecutor, held against the numpy
+    oracle over the generator's arrays, with its decline code and rung per
+    segment; U1 and U2 (the fused ones) also through ShardedQueryExecutor
+    in one launch over the batch, where U3-U7 raise NotPortedError. On the
+    card, U1's and U2's scans are then held against the plain version and
+    timed at these shapes (segment 0, and the batch), folded into
+    ``errs``."""
+    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.engine.errors import NotPortedError
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import usertable
+
+    rows = segments * rows_per_segment
+    t0 = time.perf_counter()
+    segs, frames = usertable.build_segments(segments, rows, seed)
+    users = usertable.tail_users(rows, segments, seed)
+    user = users[len(users) // 2]
+    sqls = usertable.queries(user)
+    wants = {qid: usertable.numpy_answer(frames, qid, user) for qid in sqls}
+    del frames
+    lat_cm = segs[0].metadata.column("latency_ms")
+    log(f"  generate {rows} rows in {len(segs)} segments and the numpy "
+        f"oracle: {time.perf_counter() - t0:.1f} s; tail user {user}; "
+        f"latency_ms raw, segment 0 span {lat_cm.min_value}.."
+        f"{lat_cm.max_value}")
+
+    ctxs = {qid: compile_query(sql) for qid, sql in sqls.items()}
+    counters = {**scan_counters(), "general_rung": kernels.RUNG_COUNTER}
+    ex = ServerQueryExecutor(device=device)
+    t0 = time.perf_counter()
+    for ctx in ctxs.values():   # untimed pass: stages and plans
+        ex.execute(ctx, segs)
+    log(f"  staged + one untimed pass: "
+        f"{sum(ex.stage(s).nbytes() for s in segs)} bytes resident, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # fused launches per query and path, from each run's stats
+    fused = {"fused_scan": {}, "sharded_fused_scan": {}}
+
+    def checker(qid, path):
+        def check(table, stats):
+            usertable.check_rows(qid, table.rows, wants[qid])
+            _check_user_path(qid, stats, len(segs), path)
+            for name, n in (("fused_scan", stats.scan_launches),
+                            ("sharded_fused_scan",
+                             stats.sharded_scan_launches)):
+                fused[name][qid] = fused[name].get(qid, 0) + n
+        return check
+
+    _reset(counters)
+    lat = {qid: _timed(ex, ctx, segs, reps, checker(qid, USER_PATH))
+           for qid, ctx in ctxs.items()}
+    launches = _counted(counters, ex.device)
+    if launches is not None:
+        expect = {name: 0 for name in counters}
+        expect["fused_scan"] = len(segs) * reps * len(USER_BATCH)
+        expect["general_rung"] = len(segs) * reps * (len(ctxs)
+                                                    - len(USER_BATCH))
+        if launches != expect:
+            raise AssertionError(f"launch counts {launches} != {expect}")
+    log(f"  per segment: launches {launches}; U1-U7 == numpy oracle, "
+        "declines and rungs as planned")
+    per_query = _latencies(lat, rows)
+    rungs = {qid: {"decline": USER_PATH[qid][0],
+                   "rung_per_segment": USER_PATH[qid][1]} for qid in ctxs}
+
+    bex = ShardedQueryExecutor(device=device)
+    batch_path = {qid: (None, None) for qid in USER_BATCH}
+    for qid in USER_BATCH:      # untimed: stages the batch and binds
+        bex.execute(ctxs[qid], segs)
+    _reset(counters)
+    batch_lat = {}
+    for qid in USER_BATCH:
+        batch_lat[qid] = _timed(bex, ctxs[qid], segs, reps,
+                                checker(qid, batch_path))
+    batch_launches = _counted(counters, bex.device)
+    for qid in ctxs:
+        if qid in USER_BATCH:
+            continue
+        try:
+            bex.execute(ctxs[qid], segs)
+        except NotPortedError as e:
+            if e.reason_code != USER_PATH[qid][0]:
+                raise AssertionError(f"batch {qid}: {e.reason_code}")
+        else:
+            raise AssertionError(f"batch {qid}: served, expected "
+                                 "NotPortedError")
+    if batch_launches is not None:
+        expect = {name: 0 for name in counters}
+        expect["sharded_fused_scan"] = reps * len(USER_BATCH)
+        if batch_launches != expect or _counted(counters,
+                                                bex.device) != expect:
+            raise AssertionError(f"batch launch counts {batch_launches} != "
+                                 f"{expect}")
+    log(f"  batch: launches {batch_launches}; U1, U2 == numpy oracle; "
+        f"U3-U7 raise NotPortedError with their decline codes")
+    batch_per_query = _latencies(batch_lat, rows, beside=per_query)
+    raw_fused = {name: by_query.get(USER_RAW_FUSED, 0)
+                 for name, by_query in fused.items()}
+    if ex.device.type == "cuda" and raw_fused != {
+            "fused_scan": len(segs) * reps, "sharded_fused_scan": reps}:
+        raise AssertionError(f"{USER_RAW_FUSED}: fused launches {raw_fused}")
+    log(f"  fused launches reading the raw latency_ms ({USER_RAW_FUSED}): "
+        f"{raw_fused}")
+    timing = []
+    if ex.device.type == "cuda":
+        fused_sqls = {qid: sqls[qid] for qid in USER_BATCH}
+        log("  U1, U2 kernel against plain version and timings: segment 0, "
+            "then the batch")
+        timing = (_time_kernels(ex.stage(segs[0]), errs, segs[0].num_docs,
+                                20, fused_sqls)
+                  + _time_kernels(bex.batch_for(segs)[1], errs, rows, 20,
+                                  fused_sqls))
+    return {"rows": rows, "segments": len(segs), "user": user,
+            "per_query": per_query, "batch_per_query": batch_per_query,
+            "paths": rungs, "launches": launches,
+            "batch_launches": batch_launches, "raw_fused_launches": raw_fused,
+            "timing": timing}
+
+
+def _columns_segment(n: int, seed: int, valid_doc_ids=None):
+    """(segment, its arrays): a nullable STRING dictionary column ``dim``
+    (null rows hold the default "null"), a nullable raw LONG ``rawm``
+    (null rows hold 0), an INT multi-value dictionary column ``nums`` (1-4
+    values a row) and an INT ``grp``; an upsert-managed segment when
+    ``valid_doc_ids`` is given."""
+    from pinot_tpu_torch.segment import ColumnArrays, segment_from_arrays
+    from pinot_tpu_torch.spi import DataType, FieldType
+
+    rng = np.random.default_rng(seed)
+    D, M = FieldType.DIMENSION, FieldType.METRIC
+    dim_null = rng.random(n) < 0.1
+    dim = np.array(["d0", "d1", "d2", "d3", "d4", "d5"])[
+        rng.integers(0, 6, n)]
+    dim[dim_null] = "null"
+    raw_null = rng.random(n) < 0.07
+    rawm = np.where(raw_null, 0, rng.integers(-1000, 100_000, n))
+    counts = rng.integers(1, 5, n).astype(np.int32)
+    nums = rng.integers(0, 1000, (n, 4)).astype(np.int64)
+    entry = np.arange(4)[None, :] < counts[:, None]
+    uniq, inv = np.unique(nums[entry], return_inverse=True)
+    ids = np.zeros((n, 4), dtype=np.int32)
+    ids[entry] = inv.reshape(-1)
+    d_uniq, d_ids = np.unique(dim, return_inverse=True)
+    g_uniq, g_ids = np.unique(rng.integers(0, 50, n), return_inverse=True)
+    seg = segment_from_arrays(
+        "columns_0" if valid_doc_ids is None else "columns_upsert", n, {
+            "dim": ColumnArrays(DataType.STRING, D, d_uniq,
+                                d_ids.reshape(-1), null=dim_null),
+            "rawm": ColumnArrays(DataType.LONG, M, values=rawm,
+                                 null=raw_null),
+            "nums": ColumnArrays(DataType.INT, D, uniq, ids,
+                                 mv_counts=counts),
+            "grp": ColumnArrays(DataType.INT, D, g_uniq, g_ids.reshape(-1)),
+        }, table_name="cols", valid_doc_ids=valid_doc_ids)
+    return seg, {"dim": dim, "dim_null": dim_null, "rawm": rawm,
+                 "raw_null": raw_null, "nums": nums, "counts": counts,
+                 "entry": entry, "grp": g_uniq[g_ids]}
+
+
+def _columns_answers(a: dict, live) -> dict:
+    """numpy rows of phase 8b's queries over the arrays' ``live`` docs."""
+    dim, rawm, grp = a["dim"], a["rawm"], a["grp"]
+    out = {}
+    m = a["dim_null"] & live
+    out["N1"] = [[int(m.sum()), int(rawm[m].sum())]]
+    m = ~a["raw_null"] & live
+    out["N2"] = sorted([d, int((m & (dim == d)).sum()),
+                        int(rawm[m & (dim == d)].sum()),
+                        int(rawm[m & (dim == d)].min()),
+                        int(rawm[m & (dim == d)].max())]
+                       for d in np.unique(dim[m]).tolist())
+    m = (dim == "d3") & live
+    e = a["entry"] & m[:, None]
+    vals = a["nums"][e]
+    out["M1"] = [[int(e.sum()), int(vals.sum()), int(vals.min()),
+                  int(vals.max()), float(vals.sum()) / int(e.sum())]]
+    m = (grp < 20) & live
+    out["V1"] = sorted([d, int((m & (dim == d)).sum()),
+                        int(rawm[m & (dim == d)].sum())]
+                       for d in np.unique(dim[m]).tolist())
+    return out
+
+
+# phase 8b's queries: (sql, the fused scan's decline code, the rung)
+COLUMN_QUERIES = {
+    "N1": ("SELECT count(*), sum(rawm) FROM cols WHERE dim IS NULL",
+           "pallas_isnull", None),
+    "N2": ("SELECT dim, count(*), sum(rawm), min(rawm), max(rawm) FROM cols "
+           "WHERE rawm IS NOT NULL GROUP BY dim ORDER BY dim",
+           "pallas_isnotnull", "dense"),
+    "M1": ("SELECT countmv(nums), summv(nums), minmv(nums), maxmv(nums), "
+           "avgmv(nums) FROM cols WHERE dim = 'd3'", "pallas_mv_aggregation",
+           None),
+    "V1": ("SELECT dim, count(*), sum(rawm) FROM cols WHERE grp < 20 "
+           "GROUP BY dim ORDER BY dim", "pallas_validdocs", "dense"),
+}
+
+
+def phase_columns(seed: int, reps: int, n: int = 1_000_000,
+                  device: str = "cuda") -> dict:
+    """Null bitmaps (SV dictionary and raw), a numeric MV column's MV
+    aggregations and an upsert valid-doc mask on one segment of ``n`` docs,
+    each query ``reps`` times on the general rung against numpy; V1 runs
+    on the upsert-managed copy (a random 60% of docs live), then again
+    after 1000 more docs are invalidated."""
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools.usertable import check_rows
+
+    rng = np.random.default_rng(seed + 1)
+    valid = rng.random(n) < 0.6
+    seg, arrays = _columns_segment(n, seed)
+    useg, _ = _columns_segment(n, seed, valid_doc_ids=valid.copy())
+    wants = _columns_answers(arrays, np.ones(n, dtype=bool))
+    wants["V1"] = _columns_answers(arrays, valid)["V1"]
+    path = {qid: (code, rung) for qid, (_, code, rung)
+            in COLUMN_QUERIES.items()}
+    ex = ServerQueryExecutor(device=device)
+    lat = {}
+    for qid, (sql, _, _) in COLUMN_QUERIES.items():
+        on = [useg if qid == "V1" else seg]
+        ctx = compile_query(sql)
+        ex.execute(ctx, on)     # untimed: stages and plans
+
+        def check(table, stats, qid=qid):
+            check_rows(qid, table.rows, wants[qid])
+            _check_user_path(qid, stats, 1, path)
+        lat[qid] = _timed(ex, ctx, on, reps, check)
+    # the snapshot follows the bitmap: invalidate 1000 live docs
+    gone = np.nonzero(useg.valid_doc_ids)[0][:1000]
+    useg.valid_doc_ids[gone] = False
+    valid[gone] = False
+    want = _columns_answers(arrays, valid)["V1"]
+    table, _ = ex.execute(compile_query(COLUMN_QUERIES["V1"][0]), [useg])
+    check_rows("V1", table.rows, want)
+    log(f"  8b: IS NULL / IS NOT NULL (SV dictionary and raw), the MV "
+        f"aggregations, the upsert mask ({int(valid.sum())} live docs after "
+        "1000 invalidated) == numpy, each on the general rung")
+    return {"docs": n, "per_query": _latencies(lat, n),
+            "paths": {q: {"decline": c, "rung": r}
+                      for q, (c, r) in path.items()}}
 
 
 def main(argv=None) -> int:
@@ -776,6 +1139,9 @@ def main(argv=None) -> int:
     ap.add_argument("--segments", type=int, default=8)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--user-segments", type=int, default=8)
+    ap.add_argument("--user-rows", type=int, default=2_500_000,
+                    help="rows per user-events segment")
     ap.add_argument("--out-dir", default=None,
                     help="also write the full report as chip_smoke.json here")
     args = ap.parse_args(argv)
@@ -831,9 +1197,28 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     general_run = phase_general(main_run, args.reps)
     log(f"  general rung phase: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 8: the user-events table (raw, multi-value columns)")
+    t0 = time.perf_counter()
+    users_run = phase_users(args.seed, args.reps,
+                            segments=args.user_segments,
+                            rows_per_segment=args.user_rows, errs=errs)
+    log("phase 8b: null bitmaps, multi-value aggregations, upsert mask")
+    columns_run = phase_columns(args.seed, args.reps)
+    log(f"  user-events phase: {time.perf_counter() - t0:.1f} s")
+    log("rungs " + json.dumps({
+        "flights_fused_off": general_run["rungs"],
+        "declined": {g: d["rung_segments"]
+                     for g, d in general_run["declined"].items()},
+        "user_events": users_run["paths"], "columns": columns_run["paths"]}))
+    # each path's launches, read after its own run: phase 4 (per segment),
+    # phase 6 (batch) and phase 8 (per segment and batch)
     launches = {**main_run["launches"], **{
         k: v for k, v in batch_run["launches"].items() if k.startswith(
             "sharded")}}
+    for k in launches:
+        launches[k] += (users_run["launches"][k]
+                        + users_run["batch_launches"][k])
     kernels = []
     for name, replaces in (
             ("fused_scan", "pinot_tpu/engine/pallas_kernels.py:603"),
@@ -863,6 +1248,7 @@ def main(argv=None) -> int:
                            batch_run["max_memory_allocated"],
                        "kernel_timing": timing, "kernels": kernels,
                        "general": general_run,
+                       "user_events": users_run, "columns": columns_run,
                        "seconds": time.perf_counter() - t_all}, f, indent=1)
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -1,10 +1,18 @@
 """Aggregation functions: state algebra and resolution.
 
-Counterpart of ``pinot_tpu/engine/aggregates.py`` for count, sum, avg, min,
-max, minmaxrange, distinctcount and distinctcounthll. States are plain
-python values that merge across segments (a distinct count's state is the
-frozenset of values, an HLL's its serialized registers). Grouped
-distinctcount is host-only in the JAX package, so the planner declines it.
+Counterpart of ``pinot_tpu/engine/aggregates.py``. Every aggregation name
+the JAX package knows resolves to its family, MV form and device flags
+(``resolve_agg``, the JAX family table and flags at :440-529); the planner
+refuses what has no device kernel with the JAX reason code. States, merge
+and finalize exist for the device families: count, sum, avg, min, max,
+minmaxrange, distinctcount and distinctcounthll, and the MV forms of the
+first five (countmv, summv, minmv, maxmv, avgmv: scalar only, their state
+is the family's). States are plain python values that merge across
+segments (a distinct count's state is the frozenset of values, an HLL's
+its serialized registers). The host-only families (mode, percentile*,
+theta sketches, idset, sumprecision, lastwithtime/firstwithtime, stunion)
+and grouped distinctcount are served by the JAX host engine, which is not
+ported.
 """
 
 from __future__ import annotations
@@ -12,8 +20,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
-from pinot_tpu_torch.engine.errors import UnsupportedQueryError
-from pinot_tpu_torch.query.expressions import Expr, Function, Identifier
+from pinot_tpu_torch.engine.errors import QueryError, UnsupportedQueryError
+from pinot_tpu_torch.query.expressions import (
+    Expr,
+    Function,
+    Identifier,
+    Literal,
+)
 from pinot_tpu_torch.utils.hll import HyperLogLog
 
 POS_INF = float("inf")
@@ -25,6 +38,8 @@ class AggDef:
     name: str
     base: str
     mv: bool = False
+    percentile: Optional[float] = None
+    precision: Optional[int] = None
     device_scalar: bool = True
     device_grouped: bool = True
     result_type: str = "DOUBLE"
@@ -75,18 +90,97 @@ _FINAL: Dict[str, Callable[[Any], Any]] = {
     "distinctcounthll": lambda s: HyperLogLog.deserialize(s).cardinality(),
 }
 
-_RESULT_TYPE = {"count": "LONG", "distinctcount": "INT",
-                "distinctcounthll": "LONG"}
+_RESULT_TYPE = {
+    "count": "LONG", "sum": "DOUBLE", "min": "DOUBLE", "max": "DOUBLE",
+    "avg": "DOUBLE", "minmaxrange": "DOUBLE", "distinctcount": "INT",
+    "distinctcounthll": "LONG", "mode": "DOUBLE", "percentile": "DOUBLE",
+    "percentiletdigest": "DOUBLE", "distinctcountthetasketch": "LONG",
+    "sumprecision": "STRING", "idset": "STRING", "lastwithtime": "DOUBLE",
+    "firstwithtime": "DOUBLE", "stunion": "STRING",
+}
+
+# families with device kernels (engine/kernels.py); an MV form is device
+# scalar for the first five only and never grouped
+_DEVICE_SCALAR = {"count", "sum", "min", "max", "avg", "minmaxrange",
+                  "distinctcount", "distinctcounthll"}
+_DEVICE_GROUPED = {"count", "sum", "min", "max", "avg", "minmaxrange",
+                   "distinctcounthll"}
+_DEVICE_SCALAR_MV = {"count", "sum", "min", "max", "avg"}
+
+_FAMILY = {
+    "count": "count", "sum": "sum", "min": "min", "max": "max",
+    "avg": "avg", "minmaxrange": "minmaxrange",
+    "distinctcount": "distinctcount", "distinctcountbitmap": "distinctcount",
+    "segmentpartitioneddistinctcount": "distinctcount",
+    "distinctcounthll": "distinctcounthll",
+    "distinctcountrawhll": "distinctcounthll",
+    "mode": "mode",
+    "percentile": "percentile", "percentileest": "percentile",
+    "percentiletdigest": "percentiletdigest",
+    "distinctcountthetasketch": "distinctcountthetasketch",
+    "sumprecision": "sumprecision",
+    "distinctcountrawthetasketch": "distinctcountthetasketch",
+    "idset": "idset",
+    "lastwithtime": "lastwithtime",
+    "firstwithtime": "firstwithtime",
+    "stunion": "stunion", "st_union": "stunion",
+}
 
 
 def resolve_agg(fn: Function) -> AggDef:
-    """Canonical Function -> AggDef."""
-    if fn.name not in _EMPTY:
+    """Canonical Function -> AggDef (the JAX package's ``resolve_agg``)."""
+    name = fn.name
+    mv = name.endswith("mv")
+    base_name = name[:-2] if mv else name
+
+    percentile = None
+    for prefix in ("percentiletdigest", "percentileest", "percentile"):
+        if base_name.startswith(prefix):
+            digits = base_name[len(prefix):]
+            if digits.isdigit():
+                percentile = float(digits)
+                base_name = prefix
+                break
+            if digits == "":
+                if len(fn.args) >= 2 and isinstance(fn.args[1], Literal):
+                    percentile = float(fn.args[1].value)
+                    base_name = prefix
+                    break
+                raise QueryError(f"{name} requires a percentile argument")
+
+    family = _FAMILY.get(base_name)
+    if family is None:
         raise UnsupportedQueryError(
-            f"aggregation function {fn.name!r} not supported")
-    return AggDef(name=fn.name, base=fn.name,
-                  device_grouped=fn.name != "distinctcount",
-                  result_type=_RESULT_TYPE.get(fn.name, "DOUBLE"))
+            f"aggregation function {name!r} not supported")
+    result_type = _RESULT_TYPE[family]
+    if base_name in ("distinctcountrawhll", "distinctcountrawthetasketch"):
+        result_type = "STRING"
+    precision = None
+    if family == "sumprecision" and len(fn.args) >= 2:
+        if not (isinstance(fn.args[1], Literal)
+                and type(fn.args[1].value) is int
+                and fn.args[1].value >= 1):
+            raise QueryError(
+                "sumprecision precision must be an int literal >= 1")
+        precision = int(fn.args[1].value)
+    if family in ("lastwithtime", "firstwithtime"):
+        if len(fn.args) != 3:
+            raise QueryError(
+                f"{name} requires (valueColumn, timeColumn, 'dataType')")
+        dt = fn.args[2]
+        if not isinstance(dt, Literal) or not isinstance(dt.value, str):
+            raise QueryError(f"{name}: dataType argument must be a string")
+        result_type = dt.value.upper()
+        if result_type not in ("INT", "LONG", "FLOAT", "DOUBLE", "STRING",
+                               "BOOLEAN"):
+            raise QueryError(f"{name}: unsupported dataType {dt.value!r}")
+    return AggDef(
+        name=name, base=family, mv=mv, percentile=percentile,
+        precision=precision,
+        device_scalar=(family in _DEVICE_SCALAR_MV if mv
+                       else family in _DEVICE_SCALAR),
+        device_grouped=not mv and family in _DEVICE_GROUPED,
+        result_type=result_type)
 
 
 def agg_value_expr(fn: Function) -> Optional[Expr]:

@@ -23,11 +23,14 @@
 //   - a list of accumulator rows: int sums in i64, float sums in f64,
 //     min/max in f32, plus the implicit per-group count in i64.
 // Layout: docs come in tiles of 4096, T tiles per segment; packed columns
-// are [S, T, W], value columns [S, T * 4096], and num_docs [S] masks each
-// segment's tail. A B-bit column (B a power of two) packs 32/B values per
-// word, W = 128 * B words per tile (512 * B bytes), value j of a tile in
-// word j & (W - 1) at bit (j >> log2 W) * B. Tile t belongs to segment
-// t / T and holds that segment's docs (t % T) * 4096 + j.
+// are [S, T, W], value columns [S, T * 4096] (a dictionary column's decoded
+// values or a raw column's own: i32, i64 or f32), and num_docs [S] masks
+// each segment's tail. A plan may read no packed column (no filter, no
+// group key: a TRUE filter over value columns alone). A B-bit column (B a
+// power of two) packs 32/B values per word, W = 128 * B words per tile
+// (512 * B bytes), value j of a tile in word j & (W - 1) at bit
+// (j >> log2 W) * B. Tile t belongs to segment t / T and holds that
+// segment's docs (t % T) * 4096 + j.
 //
 // Bound: the least time is the bytes the scan must read over 3.35 TB/s,
 // and those depend on the data: the filter's packed columns for every doc,
@@ -791,7 +794,7 @@ extern "C" int fused_scan_launch(const long long* argv, void* stream) {
   for (int c = 0; c < a.n_packed && c < MAX_COLS; ++c)
     if (a.lb[c] < 0 || a.lb[c] > 5) return (int)cudaErrorInvalidValue;
   const int smem = (int)argv[A_SMEM];
-  if (a.n_packed > MAX_COLS || a.n_values > MAX_COLS || a.n_packed < 1
+  if (a.n_packed > MAX_COLS || a.n_values > MAX_COLS || a.n_packed < 0
       || a.seg_tiles < 1 || a.num_tiles % a.seg_tiles != 0
       || a.num_tiles >= (1LL << 31) || a.seg_tiles * TILE >= (1LL << 31)
       || a.n_opnd < 0 || a.n_opnd > MAX_OPND || smem > SMEM_BLOCK_MAX)

@@ -23,14 +23,24 @@ _DECLINE_RULES: Tuple[Tuple[str, str], ...] = (
     ("group key space", "group_space_over_limit"),
     ("not device-supported", "agg_not_device_supported"),
     ("DISTINCTCOUNTHLL argument", "hll_arg_not_column"),
+    ("DISTINCTCOUNTHLL needs", "hll_needs_sv_dict"),
     ("HLL register space", "hll_register_space_over_limit"),
     ("DISTINCTCOUNT argument", "distinctcount_arg_not_column"),
+    ("DISTINCTCOUNT on raw", "distinctcount_raw_column"),
+    ("DISTINCTCOUNT on MV", "distinctcount_mv_column"),
     ("DISTINCTCOUNT cardinality", "distinctcount_cardinality_over_limit"),
+    ("MV aggregation argument", "mv_agg_arg_not_column"),
+    ("needs a numeric MV column", "mv_agg_not_numeric"),
     ("group-by on virtual column", "group_virtual_column"),
+    ("group-by on MV column", "group_mv_column"),
+    ("raw int group-by span", "group_raw_span_over_limit"),
+    ("group-by on raw float", "group_raw_float_column"),
     ("group-by expression span", "group_expression_span_over_limit"),
     ("group-by expression", "group_expression_unbounded"),
     ("expression predicate", "expression_predicate"),
     ("virtual column predicate", "virtual_column_predicate"),
+    ("on raw column -> host", "raw_predicate_unsupported"),
+    ("raw MV column predicate", "raw_mv_predicate"),
     ("predicate", "predicate_unsupported"),
     ("non-numeric literal", "value_literal_non_numeric"),
     ("virtual column in value", "value_virtual_column"),

@@ -57,8 +57,8 @@ class ServerQueryExecutor:
         self.use_fused_scan = use_fused_scan
         # segment name -> (segment, its staged image)
         self._staged: Dict[str, Tuple[ImmutableSegment, StagedSegment]] = {}
-        # (sql, segment name) -> (segment, its plan), least recently used
-        # first
+        # (sql, segment name, upsert-managed) -> (segment, its plan), least
+        # recently used first
         self._plans: "OrderedDict[Tuple[str, str], Tuple]" = OrderedDict()
         self.kernels = kernels.KernelCache()
 
@@ -124,11 +124,13 @@ class ServerQueryExecutor:
 
     def _plan_for(self, ctx: QueryContext, seg: ImmutableSegment
                   ) -> SegmentPlan:
-        """plan_segment, cached per (sql, segment); a reloaded segment
-        (same name, new object) plans again."""
+        """plan_segment, cached per (sql, segment, whether it carries a
+        valid-doc bitmap: one attached later must not be served the plan
+        without the validdocs leaf); a reloaded segment (same name, new
+        object) plans again."""
         if ctx.sql is None:
             return plan_segment(ctx, seg)
-        key = (ctx.sql, seg.segment_name)
+        key = (ctx.sql, seg.segment_name, seg.valid_doc_ids is not None)
         hit = self._plans.get(key)
         if hit is not None and hit[0] is seg:
             self._plans.move_to_end(key)
@@ -167,11 +169,15 @@ class ServerQueryExecutor:
 
     def _run_general(self, plan: SegmentPlan, staged: StagedSegment
                      ) -> fused_scan.SegmentScan:
-        """The plan on the general rung: one call, one copy to the host."""
+        """The plan on the general rung: one call, one copy to the host.
+        An upsert plan's first param is the placeholder of the valid-doc
+        snapshot, filled here for this call."""
         cols = {name: staged.column(name).tree() for name in plan.columns}
         kernel = self.kernels.get(plan.spec)
-        packed = kernel(cols, kernels.device_params(plan, self.device),
-                        staged.num_docs)
+        params = kernels.device_params(plan, self.device)
+        if plan.params and plan.params[0] is None:    # validdocs placeholder
+            params = (staged.valid_mask(),) + params[1:]
+        packed = kernel(cols, params, staged.num_docs, self.device)
         try:
             tree = kernels.unpack_outputs(packed.cpu().numpy(), plan.spec)
         except PlanError as e:
@@ -227,6 +233,8 @@ def decode_grouped_result(plan: SegmentPlan, provider: Any,
         if strat == "gdict":
             d = provider.data_source(payload).dictionary
             key_cols.append(d.get_values(dids + int(bases[i])))
+        elif strat == "graw":   # value space: base is the column's min
+            key_cols.append([int(x) + int(bases[i]) for x in dids])
         else:  # gexpr: the def carries the expression's lower bound
             key_cols.append([int(x) + int(payload) for x in dids])
     keys = list(zip(*key_cols))

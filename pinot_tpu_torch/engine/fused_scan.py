@@ -13,9 +13,11 @@ and tile, over a 16-doc mask. The host also marks the filter's packed columns
 docs) and lays out the kernel's shared memory (``scan_layout``).
 
 Every input is laid out as a batch of S segments: packed columns
-``[S, T, W]``, value columns ``[S, T * TILE]``, ``num_docs`` an int64
-``[S]`` tensor. One segment is the batch S = 1; a ``SegmentBatch``
-(``pinot_tpu_torch/parallel``) is scanned in one launch.
+``[S, T, W]``, value columns ``[S, T * TILE]`` (decoded dictionary values,
+or a raw column's values), ``num_docs`` an int64 ``[S]`` tensor; a plan
+that reads no column passes ``tiles`` (T). One segment is the batch S = 1;
+a ``SegmentBatch`` (``pinot_tpu_torch/parallel``) is scanned in one
+launch.
 
 Exactness on the card: integer sums accumulate in i64, float sums in f64,
 min/max in f32, counts in i64. The JAX package reaches the same integer
@@ -697,22 +699,35 @@ def _alloc_outputs(prog: ScanProgram, S: int, device) -> ScanOutputs:
     return out
 
 
+def scan_shape(packed: List[torch.Tensor], values: List[torch.Tensor],
+               num_docs: torch.Tensor, tiles: Optional[int] = None
+               ) -> Tuple[int, int]:
+    """(S, T) of a scan's inputs: segments from ``num_docs``, tiles per
+    segment from the first packed or value column, else ``tiles``."""
+    if (not isinstance(num_docs, torch.Tensor) or num_docs.dim() != 1
+            or num_docs.dtype != torch.int64
+            or not num_docs.is_contiguous()):
+        raise ValueError("num_docs must be a contiguous int64 [S] tensor")
+    if packed:
+        if packed[0].dim() != 3:
+            raise ValueError("packed columns must be [S, T, W]")
+        T = packed[0].shape[1]
+    elif values:
+        T = values[0].shape[-1] // TILE
+    elif tiles:
+        T = tiles
+    else:
+        raise ValueError("a scan that reads no column needs its tile count")
+    return num_docs.shape[0], T
+
+
 def _check_inputs(prog: ScanProgram, packed: List[torch.Tensor],
-                  values: List[torch.Tensor], num_docs: torch.Tensor
-                  ) -> torch.device:
+                  values: List[torch.Tensor], num_docs: torch.Tensor,
+                  tiles: Optional[int] = None) -> torch.device:
     if len(packed) != len(prog.bits) or len(values) != len(prog.value_is_int):
         raise ValueError("packed/value inputs do not match the program")
-    if not packed:
-        raise ValueError("the scan needs at least one packed column")
-    if packed[0].dim() != 3:
-        raise ValueError("packed columns must be [S, T, W]")
-    S, tiles = packed[0].shape[:2]
-    device = packed[0].device
-    if (not isinstance(num_docs, torch.Tensor)
-            or num_docs.dtype != torch.int64 or num_docs.device != device
-            or tuple(num_docs.shape) != (S,) or not num_docs.is_contiguous()):
-        raise ValueError(f"num_docs must be a contiguous int64 [{S}] tensor "
-                         f"on {device}")
+    S, tiles = scan_shape(packed, values, num_docs, tiles)
+    device = num_docs.device
     for w, b in zip(packed, prog.bits):
         if (w.dtype != torch.int32 or w.device != device
                 or tuple(w.shape) != (S, tiles, TILE * b // 32)
@@ -732,13 +747,13 @@ def _check_inputs(prog: ScanProgram, packed: List[torch.Tensor],
 
 
 def fused_scan(prog: ScanProgram, packed: List[torch.Tensor],
-               values: List[torch.Tensor], num_docs: torch.Tensor
-               ) -> ScanOutputs:
+               values: List[torch.Tensor], num_docs: torch.Tensor,
+               tiles: Optional[int] = None) -> ScanOutputs:
     """Run the scan program over staged columns laid out as a batch (see
     the module docstring; one segment is ``S = 1``). CUDA tensors launch
     the kernel (or raise); CPU tensors run the plain version."""
     return counted_scan(prog, packed, values, num_docs,
-                        PROBE_COUNTER if prog.probe else SCAN_COUNTER)
+                        PROBE_COUNTER if prog.probe else SCAN_COUNTER, tiles)
 
 
 def fused_scan_probe(prog: ScanProgram, packed: List[torch.Tensor],
@@ -756,7 +771,7 @@ class ScanKernels(NamedTuple):
     (``StagedBatch.kernels``), each with its own launch counter, so a run
     shows which path served. ``scan_inputs`` picks the pair."""
 
-    scan: Callable    # (prog, words, values, num_docs) -> ScanOutputs
+    scan: Callable    # (prog, words, values, num_docs, tiles) -> outputs
     probe: Callable   # (probe prog, words, num_docs) -> ScanOutputs
     scan_counter: KernelCounter
     probe_counter: KernelCounter
@@ -768,14 +783,15 @@ SEGMENT_KERNELS = ScanKernels(fused_scan, fused_scan_probe, SCAN_COUNTER,
 
 def counted_scan(prog: ScanProgram, packed: List[torch.Tensor],
                  values: List[torch.Tensor], num_docs: torch.Tensor,
-                 counter: KernelCounter) -> ScanOutputs:
+                 counter: KernelCounter, tiles: Optional[int] = None
+                 ) -> ScanOutputs:
     """``fused_scan`` with the counter its launch adds one to."""
-    device = _check_inputs(prog, packed, values, num_docs)
+    device = _check_inputs(prog, packed, values, num_docs, tiles)
     if device.type == "cpu":
-        return fused_scan_plain(prog, packed, values, num_docs)
+        return fused_scan_plain(prog, packed, values, num_docs, tiles)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    out = _launch(prog, packed, values, num_docs)
+    out = _launch(prog, packed, values, num_docs, tiles)
     counter.launches += 1
     return out
 
@@ -860,10 +876,11 @@ def launch_grid(smem: int) -> int:
     return grid.value
 
 
-def _launch(prog: ScanProgram, packed, values, num_docs) -> ScanOutputs:
+def _launch(prog: ScanProgram, packed, values, num_docs, tiles=None
+            ) -> ScanOutputs:
     """One launch of the kernel."""
-    argv, out = prepare_launch(prog, packed, values, num_docs)
-    enqueue(argv, torch.cuda.current_stream(packed[0].device))
+    argv, out = prepare_launch(prog, packed, values, num_docs, tiles)
+    enqueue(argv, torch.cuda.current_stream(num_docs.device))
     return out
 
 
@@ -915,12 +932,12 @@ def _argv_template(prog: ScanProgram, S: int, seg_tiles: int, device
     return argv
 
 
-def prepare_launch(prog: ScanProgram, packed, values, num_docs
+def prepare_launch(prog: ScanProgram, packed, values, num_docs, tiles=None
                    ) -> Tuple[np.ndarray, ScanOutputs]:
     """The kernel's argv for one launch and the outputs it adds into
     (zeroed, min/max rows at +-inf)."""
-    device = packed[0].device
-    S, seg_tiles = packed[0].shape[:2]
+    device = num_docs.device
+    S, seg_tiles = scan_shape(packed, values, num_docs, tiles)
     template = _argv_template(prog, S, seg_tiles, device)
     out = _alloc_outputs(prog, S, device)
     argv = template.copy()
@@ -966,10 +983,11 @@ def unpack_planar(words: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.stack(planes, dim=-2).reshape(-1)
 
 
-def _filter_mask(prog: ScanProgram, ids: List[torch.Tensor]) -> torch.Tensor:
-    """Docs whose dictIds pass the program's filter (padding included)."""
+def _filter_mask(prog: ScanProgram, ids: List[torch.Tensor], cap: int,
+                 device) -> torch.Tensor:
+    """The ``cap`` docs whose dictIds pass the program's filter (padding
+    included)."""
     p = prog.prog.tolist()
-    cap, device = ids[0].shape[0], ids[0].device
     stack: List[torch.Tensor] = []
     for i in range(prog.filter_n):
         op, a, b, c = p[prog.filter_off + 4 * i: prog.filter_off + 4 * i + 4]
@@ -998,27 +1016,32 @@ def _valid_mask(num_docs: torch.Tensor, tiles: int) -> torch.Tensor:
 
 
 def doc_masks(prog: ScanProgram, packed: List[torch.Tensor],
-              num_docs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+              num_docs: torch.Tensor, values: List[torch.Tensor] = (),
+              tiles: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(valid, matched): bool ``[S * T * TILE]`` masks, in the batch's doc
     order, of the docs that exist (below their segment's ``num_docs``) and
     of those that also pass the program's filter."""
+    S, T = scan_shape(packed, list(values), num_docs, tiles)
     ids = [unpack_planar(w, b) for w, b in zip(packed, prog.bits)]
-    valid = _valid_mask(num_docs, packed[0].shape[1])
-    return valid, _filter_mask(prog, ids) & valid
+    valid = _valid_mask(num_docs, T)
+    return valid, _filter_mask(prog, ids, S * T * TILE,
+                               num_docs.device) & valid
 
 
 def fused_scan_plain(prog: ScanProgram, packed: List[torch.Tensor],
-                     values: List[torch.Tensor], num_docs: torch.Tensor
-                     ) -> ScanOutputs:
+                     values: List[torch.Tensor], num_docs: torch.Tensor,
+                     tiles: Optional[int] = None) -> ScanOutputs:
     """The kernel's function in plain PyTorch: the same program, evaluated
     over the whole batch at once (per-segment valid masks, exact i64 and
     f64 accumulation into the rows every segment shares)."""
-    device = packed[0].device
-    S, tiles = packed[0].shape[:2]
+    device = num_docs.device
+    S, tiles = scan_shape(packed, values, num_docs, tiles)
     p = prog.prog.tolist()
     ids = [unpack_planar(w, b) for w, b in zip(packed, prog.bits)]
-    cap = ids[0].shape[0]
-    mask = _filter_mask(prog, ids) & _valid_mask(num_docs, tiles)
+    cap = S * tiles * TILE
+    mask = _filter_mask(prog, ids, cap, device) & _valid_mask(num_docs,
+                                                              tiles)
 
     out = _alloc_outputs(prog, S, device)
     out.matched += mask.view(S, -1).sum(dim=1)
@@ -1145,6 +1168,7 @@ class ScanInputs:
     words: List[torch.Tensor]     # packed columns [S, T, W], in prog.bits order
     values: List[torch.Tensor]    # value columns [S, T * TILE]
     num_docs: torch.Tensor        # [S] int64
+    tiles: int                    # T, tiles per segment
     # the probe's (program, packed columns) when the group space was
     # narrowed by a probe scan, else None
     probe: Optional[Tuple[ScanProgram, List[torch.Tensor]]]
@@ -1153,7 +1177,7 @@ class ScanInputs:
     def scan(self) -> ScanOutputs:
         """The scan, in one launch on the card."""
         return self.kernels.scan(self.prog, self.words, self.values,
-                                 self.num_docs)
+                                 self.num_docs, self.tiles)
 
 
 def scan_inputs(plan, staged, on_decline: Callable = None
@@ -1161,7 +1185,8 @@ def scan_inputs(plan, staged, on_decline: Callable = None
     """The scan program and staged columns of a plan over ``staged``, a
     ``StagedSegment`` (launched through ``SEGMENT_KERNELS``) or a staged
     segment batch (anything with ``provider``, ``packed_column``,
-    ``value_column``, ``num_docs_tensor`` and its own ``kernels``), probing
+    ``value_column``, ``num_docs_tensor``, ``scan_capacity`` and its own
+    ``kernels``), probing
     first (one launch) when the group key space exceeds MAX_SCAN_GROUPS.
     None when the plan is not eligible (``on_decline`` receives the reason
     code)."""
@@ -1207,7 +1232,8 @@ def scan_inputs(plan, staged, on_decline: Callable = None
         return None
     return ScanInputs(pp=pp, plan=eff, prog=compile_program(pp, bits),
                       words=words, values=vals, num_docs=num_docs,
-                      probe=probe, kernels=kernels)
+                      tiles=staged.scan_capacity() // TILE, probe=probe,
+                      kernels=kernels)
 
 
 @dataclass

@@ -7,8 +7,10 @@ function per spec (``KernelCache``); it is the port's counterpart of jnp
 under ``jax.jit``, so it has no plain version apart from itself and runs
 the same ops on the CPU and on the card.
 
-- filter tree  -> boolean doc mask (dictId compares, LUT gathers)
-- projection   -> dictId gathers (``dictvals[fwd]``)
+- filter tree  -> boolean doc mask (dictId compares, LUT gathers; ANY of
+                  a multi-value row's dictIds; raw value compares and
+                  ``isin``; null bitmaps; the upsert valid-doc snapshot)
+- projection   -> dictId gathers (``dictvals[fwd]``), raw values as staged
 - aggregation  -> masked reductions; group-by through composed keys and one
                   ``index_add_`` / ``scatter_reduce_`` per leaf (the JAX
                   package stacks same-typed leaves into one scatter on the
@@ -66,37 +68,51 @@ def _acc_info(acc: str):
     return dt, torch.float64, POS_INF, NEG_INF
 
 
+# per-column arrays with a leading capacity dimension (gathered down to a
+# live window); the others (dictvals) are shared
+_CAPACITY_KEYS = ("fwd", "null", "mv", "mvcount")
+
+
 class _Cols:
-    """One call's columns (``{name: StagedColumn.tree()}``): int32 dictIds,
-    their int64 copy (the index dtype of gathers and scatters) made at most
-    once per column per call, and the dictionary values. ``live(pos)``
-    views the same columns through a window of doc positions."""
+    """One call's columns (``{name: StagedColumn.tree()}``): each array,
+    the int64 copy of dictIds (``fwd`` and ``mv``, the index dtype of
+    gathers and scatters) made at most once per column per call, and the
+    dictionary values. ``live(pos)`` views the same columns through a
+    window of doc positions."""
 
     def __init__(self, tree: Dict[str, Dict[str, torch.Tensor]],
                  pos: torch.Tensor = None):
         self.tree = tree
         self.pos = pos
-        self._fwd: Dict[str, torch.Tensor] = {}
-        self._idx: Dict[str, torch.Tensor] = {}
+        self._got: Dict[Tuple[str, str], torch.Tensor] = {}
 
-    def fwd(self, name: str) -> torch.Tensor:
-        t = self._fwd.get(name)
+    def get(self, name: str, key: str) -> torch.Tensor:
+        t = self._got.get((name, key))
         if t is None:
-            t = self.tree[name]["fwd"]
-            if self.pos is not None:
+            t = self.tree[name][key]
+            if self.pos is not None and key in _CAPACITY_KEYS:
                 t = t.index_select(0, self.pos)
-            self._fwd[name] = t
+            self._got[(name, key)] = t
         return t
 
-    def idx(self, name: str) -> torch.Tensor:
-        t = self._idx.get(name)
+    def fwd(self, name: str) -> torch.Tensor:
+        return self.get(name, "fwd")
+
+    def idx(self, name: str, key: str = "fwd") -> torch.Tensor:
+        t = self._got.get((name, key + "#long"))
         if t is None:
-            t = self.fwd(name).long()
-            self._idx[name] = t
+            t = self.get(name, key).long()
+            self._got[(name, key + "#long")] = t
         return t
 
     def dictvals(self, name: str) -> torch.Tensor:
         return self.tree[name]["dictvals"]
+
+    def entries(self, name: str) -> torch.Tensor:
+        """[rows, max_mv] bool: the entries of each MV row that exist."""
+        mv, cnt = self.get(name, "mv"), self.get(name, "mvcount")
+        return (torch.arange(mv.shape[1], device=mv.device)[None, :]
+                < cnt[:, None])
 
     def live(self, pos: torch.Tensor) -> "_Cols":
         return _Cols(self.tree, pos)
@@ -113,6 +129,10 @@ def _emit_filter(spec: Tuple, cols: _Cols, pc: _ParamCursor, capacity: int,
         return torch.ones(capacity, dtype=torch.bool, device=device)
     if op == "false":
         return torch.zeros(capacity, dtype=torch.bool, device=device)
+    if op == "validdocs":
+        # the upsert valid-doc snapshot [capacity] (the executor fills the
+        # planner's placeholder)
+        return pc.take()
     if op in ("and", "or"):
         m = _emit_filter(spec[1][0], cols, pc, capacity, device)
         for s in spec[1][1:]:
@@ -122,9 +142,11 @@ def _emit_filter(spec: Tuple, cols: _Cols, pc: _ParamCursor, capacity: int,
     if op == "not":
         return ~_emit_filter(spec[1][0], cols, pc, capacity, device)
     col = spec[1]
-    if op == "eq":
+    # dictionary SV (eq/neq/range/lut) and raw values (veq/vneq/vrange/vin/
+    # vnotin) compare ``fwd``: dictIds or values in their staged dtype
+    if op in ("eq", "veq"):
         return cols.fwd(col) == pc.take()
-    if op == "neq":
+    if op in ("neq", "vneq"):
         return cols.fwd(col) != pc.take()
     if op == "range":
         iv = pc.take()
@@ -132,6 +154,34 @@ def _emit_filter(spec: Tuple, cols: _Cols, pc: _ParamCursor, capacity: int,
         return (fwd >= iv[0]) & (fwd <= iv[1])
     if op == "lut":
         return pc.take().index_select(0, cols.idx(col))
+    if op.startswith("mv_"):
+        # ANY of the row's values matches (entries past its count do not)
+        mv = cols.get(col, "mv")
+        sub = op[3:]
+        if sub == "eq":
+            hit = mv == pc.take()
+        elif sub == "neq":
+            hit = mv != pc.take()
+        elif sub == "range":
+            iv = pc.take()
+            hit = (mv >= iv[0]) & (mv <= iv[1])
+        else:  # lut
+            ids = cols.idx(col, "mv")
+            hit = pc.take().index_select(0, ids.reshape(-1)).view(ids.shape)
+        return (hit & cols.entries(col)).any(dim=1)
+    if op == "vrange":
+        lo, hi = pc.take(), pc.take()
+        fwd = cols.fwd(col)
+        m = (fwd >= lo) if spec[2] else (fwd > lo)
+        return m & ((fwd <= hi) if spec[3] else (fwd < hi))
+    if op in ("vin", "vnotin"):
+        # the JAX body's [capacity, n] compare, without the intermediate
+        return torch.isin(cols.fwd(col), pc.take(),
+                          invert=op == "vnotin")
+    if op == "isnull":
+        return cols.get(col, "null")
+    if op == "isnotnull":
+        return ~cols.get(col, "null")
     raise AssertionError(f"unknown filter op {op!r}")
 
 
@@ -141,7 +191,10 @@ def _emit_value(vspec: Tuple, cols: _Cols, pc: _ParamCursor,
     if op == "lit":
         return pc.take()
     if op == "col":
-        return cols.dictvals(vspec[1]).index_select(0, cols.idx(vspec[1]))
+        _, name, has_dict = vspec
+        if has_dict:
+            return cols.dictvals(name).index_select(0, cols.idx(name))
+        return cols.fwd(name)
     if op == "fn":
         _, name, args = vspec
         a, b = (_emit_value(x, cols, pc, compute_dt).to(compute_dt)
@@ -152,13 +205,20 @@ def _emit_value(vspec: Tuple, cols: _Cols, pc: _ParamCursor,
             return a - b
         if name == "times":
             return a * b
+        if name == "divide":
+            return a / b
+        if name == "mod":
+            return torch.remainder(a, b)
+        if name == "floordiv":
+            return torch.div(a, b, rounding_mode="floor")
     raise AssertionError(f"unknown value op {vspec!r}")
 
 
 def _masked_values(aspec, cols: _Cols, pc: _ParamCursor):
-    base, vspec, acc = aspec[0], aspec[2], aspec[3]
+    """MV values are read in the MV branch (dense mv + counts), not here."""
+    base, mv, vspec, acc = aspec[0], aspec[1], aspec[2], aspec[3]
     dt, wide, min_n, max_n = _acc_info(acc)
-    vals = (None if vspec is None
+    vals = (None if vspec is None or mv
             else _emit_value(vspec, cols, pc, dt).to(dt))
     return base, vals, dt, wide, min_n, max_n
 
@@ -170,7 +230,7 @@ def _masked_values(aspec, cols: _Cols, pc: _ParamCursor):
 def build_kernel_body(spec: Tuple, capacity_override: int = 0,
                       sparse_k: int = 0, sparse_rung: str = "cond"):
     """spec = (filter_spec, agg_specs, group_specs, num_groups, capacity)
-    -> fn(cols, params, num_docs, doc_offset) -> dict of tensors.
+    -> fn(cols, params, num_docs, doc_offset, device) -> dict of tensors.
 
     ``cols`` maps each column to its ``StagedColumn.tree()``, ``params``
     are the plan's params on the columns' device (``device_params``).
@@ -189,13 +249,14 @@ def build_kernel_body(spec: Tuple, capacity_override: int = 0,
     if capacity_override:
         capacity = capacity_override
 
-    def kernel(cols, params, num_docs: int, doc_offset: int = 0):
+    def kernel(cols, params, num_docs: int, doc_offset: int = 0,
+               device: torch.device = None):
+        device = _check_device(cols, params, device)
         cols = _Cols(cols)
-        device = next(iter(cols.tree.values()))["fwd"].device
         pc = _ParamCursor(params)
-        mask = _emit_filter(filter_spec, cols, pc, capacity, device)
-        mask &= (torch.arange(capacity, device=device) + doc_offset
-                 ) < num_docs
+        # not in place: a lone isnull leaf returns the staged bitmap itself
+        mask = _emit_filter(filter_spec, cols, pc, capacity, device) & (
+            (torch.arange(capacity, device=device) + doc_offset) < num_docs)
 
         if not group_specs:
             out: Dict[str, Any] = {"num_matched": mask.sum()}
@@ -210,6 +271,8 @@ def build_kernel_body(spec: Tuple, capacity_override: int = 0,
         for gi, (strat, payload) in enumerate(group_specs):
             if strat == "gdict":
                 k = cols.fwd(payload) - bases[gi].to(torch.int32)
+            elif strat == "graw":   # value-space key: value - the column min
+                k = (cols.fwd(payload) - bases[gi]).to(torch.int32)
             else:  # gexpr: bounded integral expression, key = value - lo
                 v = _emit_value(payload, cols, pc, torch.int64)
                 k = (v - bases[gi]).to(torch.int32)
@@ -503,6 +566,9 @@ def _emit_scalar_agg(aspec, cols: _Cols, pc, mask):
         return regs.scatter_reduce_(0, bucket.long(),
                                     torch.where(mask, rank, 0), "amax")
     base, vals, dt, wide, min_n, max_n = _masked_values(aspec, cols, pc)
+    if aspec[1]:
+        return _emit_scalar_mv(base, aspec[2][1], cols, mask, dt, wide,
+                               min_n, max_n)
     if base == "count":
         return mask.sum()
     any_match = mask.any()
@@ -528,6 +594,31 @@ def _emit_scalar_agg(aspec, cols: _Cols, pc, mask):
     raise AssertionError(f"agg {base} has no device scalar kernel")
 
 
+def _emit_scalar_mv(base: str, col: str, cols: _Cols, mask, dt, wide,
+                    min_n, max_n):
+    """countmv/summv/minmv/maxmv/avgmv over the entries of the matched
+    rows (the JAX body's MV branch, :851-872)."""
+    entry = cols.entries(col) & mask[:, None]
+    if base == "count":
+        return torch.where(mask, cols.get(col, "mvcount"), 0).sum(
+            dtype=torch.int64)
+    ids = cols.idx(col, "mv")
+    fv = cols.dictvals(col).index_select(0, ids.reshape(-1)).view(
+        ids.shape).to(dt)
+    any_entry = entry.any()
+    if base == "sum":
+        return torch.where(entry, fv, 0).sum(dtype=wide)
+    if base == "min":
+        v = torch.where(entry, fv, min_n).min().double()
+        return torch.where(any_entry, v, POS_INF)
+    if base == "max":
+        v = torch.where(entry, fv, max_n).max().double()
+        return torch.where(any_entry, v, NEG_INF)
+    if base == "avg":
+        return torch.where(entry, fv, 0).sum(dtype=wide), entry.sum()
+    raise AssertionError(f"MV agg {base} has no device kernel")
+
+
 # --------------------------------------------------------------------------
 # entry: spec -> one call per segment, its outputs in one f64 tensor
 # --------------------------------------------------------------------------
@@ -538,31 +629,39 @@ def device_params(plan, device: torch.device) -> Tuple:
     tensors."""
     got = plan.device_params.get(device)
     if got is None:
-        got = tuple(torch.as_tensor(np.asarray(p)).to(device)
+        # None stays: the validdocs placeholder, filled per call
+        got = tuple(None if p is None
+                    else torch.as_tensor(np.asarray(p)).to(device)
                     for p in plan.params)
         plan.device_params[device] = got
     return got
 
 
-def _check_device(cols, params) -> None:
+def _check_device(cols, params, device=None) -> torch.device:
+    """The one device every input lies on (``device`` when there is no
+    input: a plan that reads no column and takes no param)."""
     devices = {t.device for tree in cols.values() for t in tree.values()}
     devices |= {p.device for p in params}
+    if not devices and device is not None:
+        return torch.device(device)
     if len(devices) != 1:
         raise ValueError(f"the general rung's inputs lie on {len(devices)} "
                          f"devices ({sorted(map(str, devices))}); it needs "
                          "one")
+    return devices.pop()
 
 
 def build_kernel(spec: Tuple) -> Callable:
-    """One segment's entry: fn(cols, params, num_docs) -> packed f64
-    tensor (one device tensor, one copy to the host; see
+    """One segment's entry: fn(cols, params, num_docs, device) -> packed
+    f64 tensor (one device tensor, one copy to the host; see
     ``output_layout``). Each call counts one on ``RUNG_COUNTER``."""
     body = build_kernel_body(spec, sparse_k=sparse_mode(spec))
 
-    def kernel(cols, params, num_docs: int) -> torch.Tensor:
-        _check_device(cols, params)
+    def kernel(cols, params, num_docs: int,
+               device: torch.device = None) -> torch.Tensor:
+        device = _check_device(cols, params, device)
         RUNG_COUNTER.launches += 1
-        return pack_outputs(body(cols, params, num_docs, 0), spec)
+        return pack_outputs(body(cols, params, num_docs, 0, device), spec)
 
     return kernel
 

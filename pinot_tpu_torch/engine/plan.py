@@ -1,24 +1,30 @@
 """Per-segment plan: QueryContext + segment metadata -> spec + params.
 
 Counterpart of ``pinot_tpu/engine/plan.py`` (``plan_segment``,
-``narrow_plan_groups``), cut to dictionary-encoded single-value columns:
-eq/neq/range/lut filters, ``gdict`` group keys and ``gexpr`` keys (bounded
-integral ``+ - *`` expressions), and the device DISTINCTCOUNTHLL with its
-per-dictId register tables. The spec (a hashable
-structural description) and the params (the runtime values, in the order
-the kernel side consumes them) equal the JAX package's for the same SQL and
-segment, so the eligibility rules downstream read the same input.
+``narrow_plan_groups``): dictionary filters (eq/neq/range/lut), their
+multi-value forms (``mv_*``, ANY value matches; an exclusive predicate on
+an MV column is the NOT of its inclusive form), raw-value filters
+(veq/vneq/vrange/vin/vnotin), ``isnull``/``isnotnull``, the upsert
+``validdocs`` leaf; ``gdict``, ``graw`` and ``gexpr`` group keys (bounded
+integral ``+ - * mod floordiv`` expressions); ``colmv`` values of the MV
+aggregations; and the device DISTINCTCOUNTHLL with its per-dictId register
+tables. The spec (a hashable structural description) and the params (the
+runtime values, in the order the kernel side consumes them) equal the JAX
+package's for the same SQL and segment, so the eligibility rules
+downstream read the same input. The JAX planner's time-transform rewrites
+are not ported: a transform raises ``PlanError``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from pinot_tpu_torch.engine.aggregates import AggDef, agg_value_expr, resolve_agg
 from pinot_tpu_torch.engine.errors import PlanError, QueryError
+from pinot_tpu_torch.engine.staging import raw_staged_dtype
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.query.expressions import (
     Expr,
@@ -38,7 +44,9 @@ MAX_DEVICE_GROUPS = 1 << 21
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 
-_ARITH_OPS = {"plus", "minus", "times"}
+_ARITH_OPS = {"plus", "minus", "times", "divide", "mod", "floordiv"}
+# the integral operations whose bounds propagate (true division is float)
+_INT_OPS = ("plus", "minus", "times", "mod", "floordiv")
 
 
 def _next_pow2(n: int) -> int:
@@ -68,8 +76,15 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
     columns: List[str] = []
 
     filter_spec = _compile_filter(ctx.filter, segment, params, columns)
+    # collected before the validdocs placeholder shifts the param slots
     dict_ranges = (_conjunctive_dict_ranges(filter_spec, params)
                    if ctx.group_by else {})
+    if getattr(segment, "valid_doc_ids", None) is not None:
+        # upsert-managed: the valid-doc snapshot is ANDed into the filter;
+        # its param rides first as a placeholder the executor fills with
+        # the staged snapshot at run time
+        params.insert(0, None)
+        filter_spec = ("and", (("validdocs",), filter_spec))
     agg_defs = [resolve_agg(f) for f in ctx.aggregations]
 
     group_specs: List[Optional[Tuple]] = []
@@ -117,11 +132,14 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
             raise PlanError(f"aggregation {agg.name} not device-supported "
                             f"{'grouped' if ctx.group_by else 'scalar'}")
         vexpr = agg_value_expr(fn)
-        if agg.base == "distinctcounthll":
+        if agg.base == "distinctcounthll" and not agg.mv:
             # per-dictId (bucket, rank) tables from the dictionary's hashes;
             # the register update is a masked scatter-max on the device
             if not isinstance(vexpr, Identifier) or vexpr.name.startswith("$"):
                 raise PlanError("DISTINCTCOUNTHLL argument must be a column")
+            cm = segment.metadata.column(vexpr.name)
+            if not (cm.has_dictionary and cm.single_value):
+                raise PlanError("DISTINCTCOUNTHLL needs an SV dict column")
             m = 1 << DEFAULT_LOG2M
             if num_groups and (num_groups + 1) * m > (1 << 23):
                 raise PlanError("grouped HLL register space too large")
@@ -133,20 +151,37 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
             if vexpr.name not in columns:
                 columns.append(vexpr.name)
             continue
-        if agg.base == "distinctcount":
+        if agg.base == "distinctcount" and not agg.mv:
             if not isinstance(vexpr, Identifier) or vexpr.name.startswith("$"):
                 raise PlanError("DISTINCTCOUNT argument must be a column")
             cm = segment.metadata.column(vexpr.name)
+            if not cm.has_dictionary:
+                raise PlanError("DISTINCTCOUNT on raw column -> host")
+            if not cm.single_value:
+                raise PlanError("DISTINCTCOUNT on MV column -> host")
             if cm.cardinality > (1 << 20):
                 raise PlanError("DISTINCTCOUNT cardinality too large -> host")
             agg_specs.append(("distinctcount", vexpr.name, cm.cardinality))
             if vexpr.name not in columns:
                 columns.append(vexpr.name)
             continue
-        vspec = (None if vexpr is None
-                 else _compile_value(vexpr, segment, params, columns))
+        fanout = 1
+        if vexpr is None:
+            vspec = None
+        elif agg.mv:
+            if not isinstance(vexpr, Identifier) or vexpr.name.startswith("$"):
+                raise PlanError("MV aggregation argument must be a column")
+            cm = segment.metadata.column(vexpr.name)
+            if cm.single_value or not cm.data_type.is_numeric:
+                raise PlanError(f"{agg.name} needs a numeric MV column")
+            vspec = ("colmv", vexpr.name)
+            fanout = max(1, cm.max_num_multi_values)
+            if vexpr.name not in columns:
+                columns.append(vexpr.name)
+        else:
+            vspec = _compile_value(vexpr, segment, params, columns)
         agg_specs.append((agg.base, agg.mv, vspec,
-                          _acc_dtype(agg.base, vexpr, segment)))
+                          _acc_dtype(agg.base, vexpr, segment, fanout)))
 
     spec = (filter_spec, tuple(agg_specs), tuple(group_specs), num_groups,
             segment.padded_capacity)
@@ -172,7 +207,8 @@ def _row_major_strides(cards: List[int]) -> np.ndarray:
 
 def _value_kind(e: Expr, segment: ImmutableSegment):
     """('int', max_abs | None) when the expression is integral, else
-    ('float', None); integer bounds propagate through + - *."""
+    ('float', None); integer bounds propagate through + - * mod floordiv,
+    true division is float."""
     if isinstance(e, Literal):
         if isinstance(e.value, (bool, int)):
             return ("int", abs(int(e.value)))
@@ -185,10 +221,14 @@ def _value_kind(e: Expr, segment: ImmutableSegment):
             return ("int", max(abs(int(cm.min_value)),
                                abs(int(cm.max_value))))
         return ("float", None)
-    if isinstance(e, Function) and e.name in _ARITH_OPS and len(e.args) == 2:
+    if isinstance(e, Function) and e.name in _INT_OPS and len(e.args) == 2:
         kinds = [_value_kind(a, segment) for a in e.args]
         if all(k[0] == "int" for k in kinds):
             (_, la), (_, ra) = kinds
+            if e.name == "mod":
+                return ("int", ra)     # |a mod b| < |b| (floor semantics)
+            if e.name == "floordiv":
+                return ("int", la)     # |a // b| <= |a| for integral b
             if la is None or ra is None:
                 return ("int", None)
             return ("int", la * ra if e.name == "times" else la + ra)
@@ -197,9 +237,9 @@ def _value_kind(e: Expr, segment: ImmutableSegment):
 
 def _acc_dtype(base: str, vexpr: Optional[Expr], segment: ImmutableSegment,
                fanout: int = 1) -> str:
-    """``fanout`` bounds the values per doc (1 for single-value columns, the
-    only ones the port stages): sums and counts add up to
-    ``capacity * fanout`` terms."""
+    """``fanout`` bounds the values per doc (1 for single-value columns,
+    the most values per row for an MV aggregation): sums and counts add up
+    to ``capacity * fanout`` terms."""
     if vexpr is None:
         return "i32"
     if base == "count":
@@ -219,14 +259,19 @@ def _acc_dtype(base: str, vexpr: Optional[Expr], segment: ImmutableSegment,
 # -- param accounting -------------------------------------------------------
 
 # params consumed per compiled filter op
-_FILTER_PARAMS = {"true": 0, "false": 0, "eq": 1, "neq": 1, "range": 1,
-                  "lut": 1}
-# params consumed per compiled value op ("fn" is structural)
+_FILTER_PARAMS = {
+    "true": 0, "false": 0, "validdocs": 1, "isnull": 0, "isnotnull": 0,
+    "eq": 1, "neq": 1, "range": 1, "lut": 1,
+    "mv_eq": 1, "mv_neq": 1, "mv_range": 1, "mv_lut": 1,
+    "veq": 1, "vneq": 1, "vrange": 2, "vin": 1, "vnotin": 1,
+}
+# params consumed per compiled value op ("fn" is structural; "colmv" takes
+# none: the MV aggregations read the dense MV arrays)
 _VALUE_PARAMS = {"lit": 1, "col": 0, "fn": 0}
 
 
 def _count_value_params(vspec: Optional[Tuple]) -> int:
-    if vspec is None:
+    if vspec is None or vspec[0] == "colmv":
         return 0
     n = _VALUE_PARAMS[vspec[0]]
     if vspec[0] == "fn":
@@ -349,7 +394,7 @@ def _value_bounds(e: Expr, segment: ImmutableSegment
                 or cm.min_value is None or cm.max_value is None):
             return None
         return (int(cm.min_value), int(cm.max_value))
-    if isinstance(e, Function) and e.name in _ARITH_OPS and len(e.args) == 2:
+    if isinstance(e, Function) and e.name in _INT_OPS and len(e.args) == 2:
         a = _value_bounds(e.args[0], segment)
         b = _value_bounds(e.args[1], segment)
         if a is None or b is None:
@@ -359,8 +404,15 @@ def _value_bounds(e: Expr, segment: ImmutableSegment
             return (alo + blo, ahi + bhi)
         if e.name == "minus":
             return (alo - bhi, ahi - blo)
-        corners = (alo * blo, alo * bhi, ahi * blo, ahi * bhi)
-        return (min(corners), max(corners))
+        if e.name == "times":
+            corners = (alo * blo, alo * bhi, ahi * blo, ahi * bhi)
+            return (min(corners), max(corners))
+        # mod / floordiv: a positive constant divisor only (floor semantics)
+        if blo != bhi or blo <= 0:
+            return None
+        if e.name == "mod":
+            return (0, blo - 1)
+        return (alo // blo, ahi // blo)
     return None
 
 
@@ -368,18 +420,29 @@ def _group_strategy(e: Expr, segment: ImmutableSegment,
                     dict_ranges: Dict[str, Tuple[int, int]]
                     ) -> Tuple[str, Any, int, int]:
     """-> (strategy, payload, cardinality, base): ``gdict`` with the column
-    name (key = dictId - the filter-narrowed base), or ``gexpr`` with the
+    name (key = dictId - the filter-narrowed base), ``graw`` with a raw
+    integer column (key = value - its min), or ``gexpr`` with the
     expression (key = value - its lower bound)."""
     if isinstance(e, Identifier):
         if e.name.startswith("$"):
             raise PlanError("group-by on virtual column -> host path")
         cm = segment.metadata.column(e.name)
-        lo, hi = dict_ranges.get(e.name, (0, cm.cardinality - 1))
-        lo = max(0, lo)
-        hi = min(cm.cardinality - 1, hi)
-        if lo > hi:
-            lo, hi = 0, 0  # unsatisfiable conjunction: a 1-slot key space
-        return "gdict", e.name, hi - lo + 1, lo
+        if not cm.single_value:
+            raise PlanError("group-by on MV column -> host path")
+        if cm.has_dictionary:
+            lo, hi = dict_ranges.get(e.name, (0, cm.cardinality - 1))
+            lo = max(0, lo)
+            hi = min(cm.cardinality - 1, hi)
+            if lo > hi:
+                lo, hi = 0, 0  # unsatisfiable conjunction: a 1-slot space
+            return "gdict", e.name, hi - lo + 1, lo
+        if cm.data_type.is_integral:
+            lo, hi = int(cm.min_value), int(cm.max_value)
+            span = hi - lo + 1
+            if span > MAX_DEVICE_GROUPS:
+                raise PlanError("raw int group-by span too large")
+            return "graw", e.name, span, lo
+        raise PlanError("group-by on raw float column -> host path")
     bounds = _value_bounds(e, segment)
     if bounds is None:
         raise PlanError(f"group-by expression {e} -> host path")
@@ -417,36 +480,124 @@ def _conv(ds: DataSource, v: Any) -> Any:
 
 def _compile_predicate(pred: Predicate, segment: ImmutableSegment,
                        params: List[Any], columns: List[str]) -> Tuple:
+    t = pred.type
+    if t in (PredicateType.IS_NULL, PredicateType.IS_NOT_NULL):
+        cols = pred.lhs.columns()
+        if not cols:
+            raise QueryError(f"predicate references no column: {pred}")
+        col = cols[0]
+        if not segment.metadata.column(col).has_nulls:
+            return ("false",) if t is PredicateType.IS_NULL else ("true",)
+        if col not in columns:
+            columns.append(col)
+        return ("isnull" if t is PredicateType.IS_NULL else "isnotnull", col)
+
     if not isinstance(pred.lhs, Identifier):
         raise PlanError(f"expression predicate {pred.lhs} -> host path")
     col = pred.lhs.name
     if col.startswith("$"):
         raise PlanError("virtual column predicate -> host path")
     ds = segment.data_source(col)
-    d = ds.dictionary
+    cm = ds.metadata
     if col not in columns:
         columns.append(col)
-    t = pred.type
+    mvp = "" if cm.single_value else "mv_"
+
+    if cm.has_dictionary:
+        d = ds.dictionary
+        # an exclusive predicate on an MV column needs every value to pass:
+        # the NOT of the inclusive form (ANY value matches)
+        if not cm.single_value and t in (PredicateType.NOT_EQ,
+                                         PredicateType.NOT_IN):
+            inner_t = (PredicateType.EQ if t is PredicateType.NOT_EQ
+                       else PredicateType.IN)
+            return ("not", (_compile_predicate(replace(pred, type=inner_t),
+                                               segment, params, columns),))
+        if t in (PredicateType.EQ, PredicateType.NOT_EQ):
+            params.append(np.int32(d.index_of(_conv(ds, pred.value))))
+            return (mvp + ("eq" if t is PredicateType.EQ else "neq"), col)
+        if t is PredicateType.RANGE:
+            lo = _conv(ds, pred.lower) if pred.lower is not None else None
+            hi = _conv(ds, pred.upper) if pred.upper is not None else None
+            a, b = d.range_to_dict_id_interval(lo, hi, pred.lower_inclusive,
+                                               pred.upper_inclusive)
+            params.append(np.array([a, b], dtype=np.int32))
+            return (mvp + "range", col)
+        # IN / NOT IN: boolean dictId lookup table
+        lut = np.zeros(d.cardinality, dtype=bool)
+        for v in pred.values:
+            i = d.index_of(_conv(ds, v))
+            if i >= 0:
+                lut[i] = True
+        if t is PredicateType.NOT_IN:
+            lut = ~lut
+        params.append(lut)
+        return (mvp + "lut", col, d.cardinality)
+
+    # raw column: compares against the values in their staged dtype
+    if not cm.single_value:
+        raise PlanError("raw MV column predicate -> host path")
+    dt = raw_staged_dtype(cm)
     if t in (PredicateType.EQ, PredicateType.NOT_EQ):
-        params.append(np.int32(d.index_of(_conv(ds, pred.value))))
-        return ("eq" if t is PredicateType.EQ else "neq", col)
+        v = _conv(ds, pred.value)
+        if cm.data_type.is_integral:
+            info = np.iinfo(dt)
+            if not (info.min <= int(v) <= info.max):
+                # outside the staged dtype: no stored value can equal it
+                return ("false",) if t is PredicateType.EQ else ("true",)
+        params.append(np.asarray(v, dtype=dt))
+        return ("veq" if t is PredicateType.EQ else "vneq", col)
     if t is PredicateType.RANGE:
-        lo = _conv(ds, pred.lower) if pred.lower is not None else None
-        hi = _conv(ds, pred.upper) if pred.upper is not None else None
-        a, b = d.range_to_dict_id_interval(lo, hi, pred.lower_inclusive,
-                                           pred.upper_inclusive)
-        params.append(np.array([a, b], dtype=np.int32))
-        return ("range", col)
-    # IN / NOT IN: boolean dictId lookup table
-    lut = np.zeros(d.cardinality, dtype=bool)
-    for v in pred.values:
-        i = d.index_of(_conv(ds, v))
-        if i >= 0:
-            lut[i] = True
-    if t is PredicateType.NOT_IN:
-        lut = ~lut
-    params.append(lut)
-    return ("lut", col, d.cardinality)
+        bounds = _raw_bounds(cm, ds, pred)
+        if bounds is None:  # provably empty for the staged dtype
+            return ("false",)
+        lo, hi, lo_inc, hi_inc = bounds
+        params.append(lo)
+        params.append(hi)
+        return ("vrange", col, lo_inc, hi_inc)
+    if t in (PredicateType.IN, PredicateType.NOT_IN):
+        conv = [_conv(ds, v) for v in pred.values]
+        if cm.data_type.is_integral:
+            info = np.iinfo(dt)
+            conv = [v for v in conv if info.min <= int(v) <= info.max]
+        vals = np.array(conv, dtype=dt)
+        if vals.size == 0:
+            return ("false",) if t is PredicateType.IN else ("true",)
+        params.append(vals)
+        return ("vin" if t is PredicateType.IN else "vnotin", col, len(vals))
+    raise PlanError(f"predicate {t} on raw column -> host path")
+
+
+def _raw_bounds(cm, ds: DataSource, pred: Predicate):
+    """(lo, hi, lo_inclusive, hi_inclusive) in the staged dtype, or None if
+    the range is provably empty. A literal outside the narrowed dtype's
+    range makes its bound unrestrictive (an inclusive dtype extreme: every
+    stored value fits the dtype) or the range empty."""
+    dt = raw_staged_dtype(cm)
+    lo_inc, hi_inc = pred.lower_inclusive, pred.upper_inclusive
+    if cm.data_type.is_integral:
+        info = np.iinfo(dt)
+        if pred.lower is None:
+            lo, lo_inc = info.min, True
+        else:
+            lv = int(_conv(ds, pred.lower))
+            if lv > info.max:
+                return None
+            lo, lo_inc = (info.min, True) if lv < info.min else (lv, lo_inc)
+        if pred.upper is None:
+            hi, hi_inc = info.max, True
+        else:
+            uv = int(_conv(ds, pred.upper))
+            if uv < info.min:
+                return None
+            hi, hi_inc = (info.max, True) if uv > info.max else (uv, hi_inc)
+        return (np.asarray(lo, dtype=dt), np.asarray(hi, dtype=dt),
+                lo_inc, hi_inc)
+    lo = (np.float64(_conv(ds, pred.lower)) if pred.lower is not None
+          else np.float64(float("-inf")))
+    hi = (np.float64(_conv(ds, pred.upper)) if pred.upper is not None
+          else np.float64(float("inf")))
+    return lo, hi, lo_inc, hi_inc
 
 
 def _compile_value(e: Expr, segment: ImmutableSegment, params: List[Any],
@@ -460,6 +611,8 @@ def _compile_value(e: Expr, segment: ImmutableSegment, params: List[Any],
         if e.name.startswith("$"):
             raise PlanError("virtual column in value expression -> host")
         cm = segment.metadata.column(e.name)
+        if not cm.single_value:
+            raise PlanError(f"MV column {e.name} in value expression")
         if not cm.data_type.is_numeric:
             raise PlanError(f"non-numeric column {e.name} in value expression")
         if e.name not in columns:

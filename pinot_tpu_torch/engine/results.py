@@ -20,6 +20,8 @@ _ARITH = {
     "plus": lambda a, b: a + b,
     "minus": lambda a, b: a - b,
     "times": lambda a, b: a * b,
+    "divide": lambda a, b: (a / b) if b else float("nan"),
+    "mod": lambda a, b: a % b,
 }
 
 

@@ -1,11 +1,23 @@
 """Device staging: segment columns -> tensors on one device.
 
-Counterpart of ``pinot_tpu/engine/staging.py`` for single-value
-dictionary columns: for the fused scan, planar bit-packed dictIds
-(``packed_column``) and decoded per-doc values (``value_column``); for the
-general rung (``engine/kernels.py``), each column's int32 dictIds and its
-dictionary's values (``column``). Each is staged once per segment and
-cached.
+Counterpart of ``pinot_tpu/engine/staging.py``. For the fused scan, planar
+bit-packed dictIds (``packed_column``) and per-doc values
+(``value_column``, decoded from the dictionary or read from a raw
+column); for the general rung (``engine/kernels.py``), each column's
+arrays (``column``):
+
+- single-value dictionary column: ``fwd`` int32 dictIds [capacity];
+- raw single-value column: ``fwd`` the values [capacity], integers in
+  ``staged_int_dtype``, floats in f64 (filter literals then compare with
+  the exact stored values; the JAX package's note at :31-36);
+- multi-value column: ``mv`` int32 dictIds [capacity, max_mv] and
+  ``mvcount`` int32 [capacity];
+- numeric dictionary: ``dictvals``, the dictionary's values (i32 or i64 by
+  ``staged_int_dtype``, f32 for floats);
+- nullable column: ``null`` bool [capacity].
+
+Each is staged once per segment and cached. ``valid_mask`` is the upsert
+valid-doc snapshot the ``validdocs`` filter leaf reads.
 
 Planar layout (bit-identical to the JAX package's ``_pack``): docs are cut
 into tiles of ``TILE`` docs; with ``B`` bits per value and ``K = 32 / B``
@@ -40,6 +52,13 @@ def staged_int_dtype(cm) -> np.dtype:
     return np.dtype(np.int64)
 
 
+def raw_staged_dtype(cm) -> np.dtype:
+    """Device dtype of a raw column's ``fwd``: integers by their stats,
+    floats f64."""
+    return (staged_int_dtype(cm) if cm.data_type.is_integral
+            else np.dtype(np.float64))
+
+
 def pack_bits(bits_needed: int) -> int:
     """Power-of-two bit width, so no value straddles two words."""
     for b in (1, 2, 4, 8, 16):
@@ -69,22 +88,28 @@ class PackedColumn:
         self.vals_per_word = 32 // bits
 
 
-class StagedColumn:
-    """One column for the general rung: ``fwd`` int32 dictIds
-    ``[capacity]``, and for numeric columns ``dictvals``, the dictionary's
-    values (i32 or i64 by ``staged_int_dtype``, f32 for floats)."""
+_TREE_KEYS = ("fwd", "dictvals", "mv", "mvcount", "null")
 
-    def __init__(self, fwd: torch.Tensor,
-                 dictvals: Optional[torch.Tensor] = None):
+
+class StagedColumn:
+    """One column's arrays for the general rung (see the module
+    docstring); absent arrays are None."""
+
+    def __init__(self, fwd: Optional[torch.Tensor] = None,
+                 dictvals: Optional[torch.Tensor] = None,
+                 mv: Optional[torch.Tensor] = None,
+                 mvcount: Optional[torch.Tensor] = None,
+                 null: Optional[torch.Tensor] = None):
         self.fwd = fwd
         self.dictvals = dictvals
+        self.mv = mv
+        self.mvcount = mvcount
+        self.null = null
 
     def tree(self) -> Dict[str, torch.Tensor]:
         """The arrays the rung reads, by name (only those present)."""
-        out = {"fwd": self.fwd}
-        if self.dictvals is not None:
-            out["dictvals"] = self.dictvals
-        return out
+        return {k: getattr(self, k) for k in _TREE_KEYS
+                if getattr(self, k) is not None}
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.tree().values())
@@ -138,8 +163,9 @@ class StagedSegment:
         return pc
 
     def value_column(self, name: str) -> Optional[torch.Tensor]:
-        """Decoded per-doc values [scan_capacity]: f32 for float columns,
-        i32 or i64 for integer columns (``staged_int_dtype``)."""
+        """Per-doc values [scan_capacity] of a single-value numeric column,
+        dictionary or raw: f32 for float columns, i32 or i64 for integer
+        columns (``staged_int_dtype``)."""
         v = self._values.get(name)
         if v is None:
             ds = self.segment.data_source(name)
@@ -150,32 +176,59 @@ class StagedSegment:
                   else np.dtype(np.float32))
             vals = np.zeros(self.scan_capacity(), dtype=dt)
             fwd = np.asarray(ds.forward_index)
-            vals[:fwd.shape[0]] = ds.dictionary.device_values().astype(dt)[fwd]
+            if cm.has_dictionary:
+                vals[:fwd.shape[0]] = ds.dictionary.device_values().astype(
+                    dt)[fwd]
+            else:
+                vals[:fwd.shape[0]] = fwd
             v = torch.from_numpy(vals).to(self.device)
             self._values[name] = v
         return v
 
     def column(self, name: str) -> StagedColumn:
-        """The general rung's arrays of a single-value dictionary column."""
+        """The general rung's arrays of a column."""
         sc = self._columns.get(name)
         if sc is None:
-            ds = self.segment.data_source(name)
-            cm = ds.metadata
-            if not (cm.has_dictionary and cm.single_value):
-                raise ValueError(f"column {name!r} is not a single-value "
-                                 "dictionary column")
-            fwd = np.zeros(self.capacity, dtype=np.int32)
-            ids = np.asarray(ds.forward_index)[:self.capacity]
-            fwd[:ids.shape[0]] = ids
-            dictvals = None
-            if cm.data_type.is_numeric:
-                dt = (staged_int_dtype(cm) if cm.data_type.is_integral
-                      else np.dtype(np.float32))
-                dictvals = torch.from_numpy(
-                    ds.dictionary.device_values().astype(dt)).to(self.device)
-            sc = StagedColumn(torch.from_numpy(fwd).to(self.device), dictvals)
+            sc = self._stage(name)
             self._columns[name] = sc
         return sc
+
+    def _stage(self, name: str) -> StagedColumn:
+        ds = self.segment.data_source(name)
+        cm = ds.metadata
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        sc = StagedColumn()
+        if not cm.single_value:
+            dense, counts = ds.dense_mv()
+            sc.mv = put(np.asarray(dense, dtype=np.int32))
+            sc.mvcount = put(np.asarray(counts, dtype=np.int32))
+        elif cm.has_dictionary:
+            sc.fwd = put(np.asarray(ds.forward_index).astype(np.int32))
+        else:
+            sc.fwd = put(np.asarray(ds.forward_index).astype(
+                raw_staged_dtype(cm)))
+        if cm.has_dictionary and cm.data_type.is_numeric:
+            dt = (staged_int_dtype(cm) if cm.data_type.is_integral
+                  else np.dtype(np.float32))
+            sc.dictvals = put(ds.dictionary.device_values().astype(dt))
+        if cm.has_nulls:
+            sc.null = put(np.asarray(ds.null_bitmap, dtype=bool))
+        return sc
+
+    def valid_mask(self) -> Optional[torch.Tensor]:
+        """Upsert valid-doc snapshot [capacity] bool on the device, or None
+        for a segment that is not upsert-managed (the JAX package's
+        ``valid_mask``, :540-564). Uploaded at every call, so each query
+        sees the bitmap as it is when it runs."""
+        v = self.segment.valid_doc_ids
+        if v is None:
+            return None
+        snap = np.zeros(self.capacity, dtype=bool)
+        snap[:self.num_docs] = np.asarray(v[:self.num_docs])
+        return torch.from_numpy(snap).to(self.device)
 
     def nbytes(self) -> int:
         """Device bytes this segment holds."""

@@ -1,13 +1,17 @@
 """Segment batches: N segments unified into one block the scan runs once.
 
-Counterpart of ``pinot_tpu/parallel/batch.py`` (``SegmentBatch``), cut to
-what the port's segments hold: single-value, dictionary-encoded columns.
+Counterpart of ``pinot_tpu/parallel/batch.py`` (``SegmentBatch``).
 Per-segment dictionaries make dictIds incomparable across segments, so a
-batch re-keys every column it touches into a unified table-level
-dictionary (``_merge_dictionaries``) and stacks the remapped forward
-indexes into ``[S, capacity]`` arrays. Group keys composed from unified
-dictIds then share one key space across segments, and one scan over the
-whole batch adds every segment into the same outputs.
+batch re-keys every dictionary column it touches into a unified
+table-level dictionary (``_merge_dictionaries``) and stacks the remapped
+forward indexes into ``[S, capacity]`` arrays (multi-value columns as
+``[S, capacity, max_mv]`` dictIds and ``[S, capacity]`` counts); raw
+columns stack their values in their staged dtype, null bitmaps stack as
+they are. Group keys composed from unified dictIds then share one key
+space across segments, and one scan over the whole batch adds every
+segment into the same outputs. Upsert-managed segments cannot join a
+batch: their valid-doc bitmaps change under it (the JAX package refuses
+them too).
 
 A batch duck-types the segment interfaces the planner and the scan's
 eligibility rules read (``metadata.column()``, ``metadata.num_docs``,
@@ -34,6 +38,7 @@ from pinot_tpu_torch.engine.staging import (
     TILE,
     PackedColumn,
     pack_bits,
+    raw_staged_dtype,
     staged_int_dtype,
 )
 from pinot_tpu_torch.parallel.combine import BATCH_KERNELS
@@ -66,17 +71,22 @@ class BatchDataSource:
     def __init__(self, batch: "SegmentBatch", name: str):
         self.name = name
         self.metadata = batch.metadata.column(name)
-        self.dictionary: Dictionary = batch.unified_dictionary(name)
+        self.dictionary: Optional[Dictionary] = batch.unified_dictionary(name)
 
 
 class SegmentBatch:
     """N same-table segments, re-keyed to unified dictionaries and stacked
     into fixed-shape arrays. Raises ValueError for segments that cannot
-    share a batch (different schemas or column layouts)."""
+    share a batch (upsert-managed, different schemas or column
+    layouts)."""
 
     def __init__(self, segments: List[ImmutableSegment]):
         if not segments:
             raise ValueError("empty segment batch")
+        for s in segments:
+            if s.valid_doc_ids is not None:
+                raise ValueError(f"upsert segment {s.segment_name!r} "
+                                 "cannot join a device batch")
         self.segments = segments
         first = segments[0].metadata
         cols = set(first.columns.keys())
@@ -89,7 +99,8 @@ class SegmentBatch:
         # per column: per-segment remap arrays (old dictId -> unified)
         self._remaps: Dict[str, List[np.ndarray]] = {}
         self._merged: Dict[str, ColumnMetadata] = {}
-        self._stacked: Dict[str, Dict[str, np.ndarray]] = {}
+        # column -> (S, its stacked arrays)
+        self._stacked: Dict[str, Tuple[int, Dict[str, np.ndarray]]] = {}
         self._data_sources: Dict[str, BatchDataSource] = {}
 
         self.metadata = SegmentMetadata(
@@ -127,9 +138,10 @@ class SegmentBatch:
             self._data_sources[column] = ds
         return ds
 
-    def unified_dictionary(self, column: str) -> Dictionary:
+    def unified_dictionary(self, column: str) -> Optional[Dictionary]:
+        """None for a raw column."""
         self._merged_column(column)
-        return self._dicts[column]
+        return self._dicts.get(column)
 
     def num_docs_array(self, pad_to: int = 0) -> np.ndarray:
         """[S] per-segment doc counts (0 for pad segments), int64: the
@@ -156,9 +168,15 @@ class SegmentBatch:
                     or cm.has_dictionary != base.has_dictionary):
                 raise ValueError(f"column {name!r} layout differs across "
                                  "batch")
-        if not (base.has_dictionary and base.single_value):
-            raise ValueError(f"column {name!r} is not a single-value "
-                             "dictionary column")
+        has_nulls = any(cm.has_nulls for cm in cms)
+        max_mv = max(cm.max_num_multi_values for cm in cms)
+        if not base.has_dictionary:
+            lows = [cm.min_value for cm in cms if cm.min_value is not None]
+            highs = [cm.max_value for cm in cms if cm.max_value is not None]
+            return replace(base, cardinality=sum(cm.cardinality for cm in cms),
+                           min_value=min(lows) if lows else None,
+                           max_value=max(highs) if highs else None,
+                           has_nulls=has_nulls)
         dicts = [s.data_source(name).dictionary for s in self.segments]
         unified, remaps = _merge_dictionaries(dicts, base.data_type)
         self._dicts[name] = unified
@@ -166,29 +184,53 @@ class SegmentBatch:
         return replace(base, cardinality=unified.cardinality,
                        min_value=unified.min_value,
                        max_value=unified.max_value,
-                       has_nulls=any(cm.has_nulls for cm in cms))
+                       has_nulls=has_nulls, max_num_multi_values=max_mv)
 
     # -- stacked host arrays ------------------------------------------------
     def stacked_column(self, name: str, pad_segments: int = 0
                        ) -> Dict[str, np.ndarray]:
-        """``fwd`` [S, capacity] int32 unified dictIds, and for numeric
-        columns ``dictvals``, the unified dictionary's values in their
-        staged type. ``pad_segments`` extends S with empty segments."""
+        """The batch's ``StagedColumn.tree()``: per-segment arrays with a
+        leading ``[S]`` axis (``fwd`` unified dictIds or raw values in
+        their staged dtype; ``mv`` and ``mvcount``; ``null``), the shared
+        ``dictvals`` of a numeric dictionary without one. ``pad_segments``
+        extends S with empty segments."""
         S = max(pad_segments, self.num_segments)
         cached = self._stacked.get(name)
-        if cached is not None and cached["fwd"].shape[0] == S:
-            return cached
+        if cached is not None and cached[0] == S:
+            return cached[1]
         cm = self.metadata.column(name)
-        fwd = np.zeros((S, self.capacity), dtype=np.int32)
-        for i, seg in enumerate(self.segments):
-            raw = np.asarray(seg.data_source(name).forward_index)
-            fwd[i, :raw.shape[0]] = self._remaps[name][i][raw]
-        out = {"fwd": fwd}
-        if cm.data_type.is_numeric:
+        cap = self.capacity
+        out: Dict[str, np.ndarray] = {}
+        if not cm.single_value:
+            mv = np.zeros((S, cap, max(cm.max_num_multi_values, 1)),
+                          dtype=np.int32)
+            cnt = np.zeros((S, cap), dtype=np.int32)
+            for i, seg in enumerate(self.segments):
+                dense, counts = seg.data_source(name).dense_mv()
+                mv[i, :dense.shape[0], :dense.shape[1]] = \
+                    self._remaps[name][i][dense]
+                cnt[i, :counts.shape[0]] = counts
+            out["mv"], out["mvcount"] = mv, cnt
+        else:
+            dt = (np.int32 if cm.has_dictionary else raw_staged_dtype(cm))
+            fwd = np.zeros((S, cap), dtype=dt)
+            for i, seg in enumerate(self.segments):
+                raw = np.asarray(seg.data_source(name).forward_index)
+                fwd[i, :raw.shape[0]] = (self._remaps[name][i][raw]
+                                         if cm.has_dictionary else raw)
+            out["fwd"] = fwd
+        if cm.has_dictionary and cm.data_type.is_numeric:
             out["dictvals"] = self._dicts[name].device_values().astype(
                 staged_int_dtype(cm) if cm.data_type.is_integral
                 else np.float32)
-        self._stacked[name] = out
+        if cm.has_nulls:
+            nb = np.zeros((S, cap), dtype=bool)
+            for i, seg in enumerate(self.segments):
+                b = seg.data_source(name).null_bitmap
+                if b is not None:
+                    nb[i, :b.shape[0]] = b
+            out["null"] = nb
+        self._stacked[name] = (S, out)
         return out
 
     # -- fused-scan layouts, batch-wide --------------------------------------
@@ -206,6 +248,9 @@ class SegmentBatch:
         dictIds, the layout of ``engine/staging.py`` per segment
         (bit-identical to the JAX package's ``[S, T, W/128, 128]``)."""
         cm = self.metadata.column(name)
+        if not (cm.has_dictionary and cm.single_value):
+            raise ValueError(f"column {name!r} is not a single-value "
+                             "dictionary column")
         fwd = self.stacked_column(name, pad_segments)["fwd"]
         S = fwd.shape[0]
         bits = pack_bits(max(1, max(cm.cardinality - 1, 1).bit_length()))
@@ -222,16 +267,22 @@ class SegmentBatch:
 
     def value_column_batch(self, name: str, pad_segments: int = 0
                            ) -> Optional[np.ndarray]:
-        """[S, T * TILE] per-doc values: f32 for float columns, i32 or i64
-        for integer columns (``staged_int_dtype`` of the merged stats).
-        Where the JAX package splits an i64 column into 12-bit limb planes
+        """[S, T * TILE] per-doc values of a single-value numeric column,
+        dictionary or raw: f32 for float columns, i32 or i64 for integer
+        columns (``staged_int_dtype`` of the merged stats). Where the JAX
+        package splits an i64 column into 12-bit limb planes
         (``value_limb_batch``), the CUDA kernel reads the i64 values. None
-        for a non-numeric column."""
+        for a non-numeric or multi-value column."""
         cm = self.metadata.column(name)
-        if not cm.data_type.is_numeric:
+        if not (cm.single_value and cm.data_type.is_numeric):
             return None
         tree = self.stacked_column(name, pad_segments)
-        vals = tree["dictvals"][tree["fwd"]]
+        if cm.has_dictionary:
+            vals = tree["dictvals"][tree["fwd"]]
+        else:
+            vals = tree["fwd"].astype(staged_int_dtype(cm)
+                                      if cm.data_type.is_integral
+                                      else np.float32)
         S = vals.shape[0]
         out = np.zeros((S, self.pallas_tiles() * TILE), dtype=vals.dtype)
         out[:, :vals.shape[1]] = vals
@@ -272,6 +323,10 @@ class StagedBatch:
     def provider(self) -> SegmentBatch:
         """What the planner and the scan's eligibility rules read."""
         return self.batch
+
+    def scan_capacity(self) -> int:
+        """Per-segment doc capacity padded to whole scan tiles."""
+        return self.batch.pallas_capacity()
 
     def num_docs_tensor(self) -> torch.Tensor:
         """[S] int64 docs of each segment, on the device."""

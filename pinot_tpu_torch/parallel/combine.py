@@ -17,7 +17,7 @@ pair a staged batch's scans launch through.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -49,14 +49,15 @@ def _check_batch(prog: ScanProgram, probe: bool) -> None:
 
 def sharded_fused_scan(prog: ScanProgram, batch_words: List[torch.Tensor],
                        batch_values: List[torch.Tensor],
-                       num_docs: torch.Tensor) -> ScanOutputs:
+                       num_docs: torch.Tensor,
+                       tiles: Optional[int] = None) -> ScanOutputs:
     """One launch of the fused scan over a segment batch: packed columns
-    ``[S, T, W]``, value columns ``[S, T * TILE]``, ``num_docs`` [S] int64.
-    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
-    version."""
+    ``[S, T, W]``, value columns ``[S, T * TILE]``, ``num_docs`` [S] int64
+    (``tiles`` = T when the plan reads no column). CUDA tensors launch the
+    kernel (or raise); CPU tensors run the plain version."""
     _check_batch(prog, False)
     return counted_scan(prog, batch_words, batch_values, num_docs,
-                        SHARDED_SCAN_COUNTER)
+                        SHARDED_SCAN_COUNTER, tiles)
 
 
 def sharded_fused_scan_probe(prog: ScanProgram,

@@ -7,9 +7,10 @@ the whole batch (``parallel/combine.py``), with one device-to-host copy of
 its outputs, where the per-segment executor runs one launch and one copy
 per segment. A single segment, segments that cannot share a batch, or a
 plan the batch's key space refuses take the per-segment path of the base
-class, with the decision recorded in ``QueryStats.decisions``. A plan the
-fused scan declines raises :class:`NotPortedError`: the JAX package would
-serve it on its jnp combine, which is not ported.
+class, with the decision recorded in ``QueryStats.decisions`` (upsert
+segments among them: their valid-doc bitmaps change under a batch). A plan
+the fused scan declines raises :class:`NotPortedError`: the JAX package
+would serve it on its jnp combine, which is not ported.
 
 The JAX executor's launch scheduler and coalescing, residency and
 admission, sliced execution, star-tree and index routing and the doc-axis
@@ -110,6 +111,13 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         on first use; raises ValueError when they cannot share a batch."""
         key = tuple(s.segment_name for s in segments)
         hit = self._batches.get(key)
+        if any(s.valid_doc_ids is not None for s in segments):
+            # a bitmap attached after the batch was built must not be
+            # served the batch's arrays: drop it, the per-segment path
+            # (which reads the bitmap) serves
+            if hit is not None:
+                self._evict_batch(hit[0])
+            raise ValueError("upsert-managed segments are not batchable")
         if hit is not None and all(c is s for c, s in
                                    zip(hit[0].segments, segments)):
             self._batches.move_to_end(key)

@@ -20,11 +20,27 @@ from pinot_tpu_torch.query.expressions import (
     fold_constants,
 )
 from pinot_tpu_torch.query.optimizer import optimize_filter
-from pinot_tpu_torch.query.parser import (
-    AGGREGATION_FUNCTIONS,
-    SqlParseError,
-    parse_sql,
-)
+from pinot_tpu_torch.query.parser import SqlParseError, parse_sql
+
+# the aggregation function names (the JAX package's
+# AggregationFunctionType); percentileNN names carry their percentile
+AGGREGATION_FUNCTIONS = frozenset({
+    "count", "sum", "min", "max", "avg", "minmaxrange", "sumprecision",
+    "mode", "distinctcount", "distinctcountbitmap", "distinctcounthll",
+    "distinctcountrawhll", "segmentpartitioneddistinctcount", "percentile",
+    "percentileest", "percentiletdigest", "distinctcountthetasketch",
+    "distinctcountrawthetasketch", "idset", "lastwithtime", "firstwithtime",
+    "stunion", "st_union", "countmv", "summv", "minmv", "maxmv", "avgmv",
+    "minmaxrangemv", "distinctcountmv", "distinctcounthllmv", "percentilemv",
+    "percentileestmv", "percentiletdigestmv"})
+
+
+def is_aggregation(name: str) -> bool:
+    n = name.lower()
+    if n in AGGREGATION_FUNCTIONS:
+        return True
+    return any(n.startswith(p) and n[len(p):].isdigit()
+               for p in ("percentiletdigest", "percentileest", "percentile"))
 
 
 @dataclass
@@ -59,7 +75,7 @@ class QueryContext:
 
 def _collect_aggregations(expr: Expr, out: List[Function]) -> None:
     if isinstance(expr, Function):
-        if expr.name in AGGREGATION_FUNCTIONS:
+        if is_aggregation(expr.name):
             if expr not in out:
                 out.append(expr)
             return

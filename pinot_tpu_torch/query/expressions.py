@@ -68,6 +68,8 @@ _FOLDABLE = {
     "plus": lambda a, b: a + b,
     "minus": lambda a, b: a - b,
     "times": lambda a, b: a * b,
+    "divide": lambda a, b: a / b,
+    "mod": lambda a, b: a % b,
 }
 
 
@@ -81,7 +83,10 @@ def fold_constants(expr: Expr) -> Expr:
     if fn is not None and all(isinstance(a, Literal)
                               and isinstance(a.value, (int, float, bool))
                               for a in args):
-        return Literal(fn(args[0].value, args[1].value))
+        try:
+            return Literal(fn(args[0].value, args[1].value))
+        except ZeroDivisionError:
+            return expr
     return expr
 
 
@@ -91,6 +96,8 @@ class PredicateType(Enum):
     IN = "IN"
     NOT_IN = "NOT_IN"
     RANGE = "RANGE"
+    IS_NULL = "IS_NULL"
+    IS_NOT_NULL = "IS_NOT_NULL"
 
 
 @dataclass(frozen=True)
@@ -117,6 +124,8 @@ class Predicate:
             return f"{self.lhs} {op} {self.value!r}"
         if t in (PredicateType.IN, PredicateType.NOT_IN):
             return f"{self.lhs} {t.value} {self.values!r}"
+        if t in (PredicateType.IS_NULL, PredicateType.IS_NOT_NULL):
+            return f"{self.lhs} {t.value}"
         lb = "[" if self.lower_inclusive else "("
         ub = "]" if self.upper_inclusive else ")"
         lo = "*" if self.lower is None else repr(self.lower)

@@ -8,10 +8,12 @@ dialect the scan slice serves:
     [ORDER BY expr [ASC|DESC], ...] [LIMIT n]
 
 ``bool_expr`` is AND/OR/NOT over ``= != <> < <= > >= BETWEEN IN NOT IN``
-with a column on one side and a literal on the other. Value expressions are
-columns, numeric literals, ``+ - *`` and the aggregation functions
-``count sum avg min max minmaxrange distinctcount distinctcounthll`` (and
-``count(DISTINCT x)``). Anything else raises :class:`SqlParseError`.
+with a column on one side and a literal on the other, and ``IS [NOT]
+NULL``. Value expressions are columns, numeric literals, ``+ - * / %`` and
+function calls: the aggregation functions (``query/context.py``
+``is_aggregation``; ``count(DISTINCT x)`` is ``distinctcount(x)``) and
+transforms, which parse as the JAX parser parses them and which the planner
+refuses. Anything else raises :class:`SqlParseError`.
 """
 
 from __future__ import annotations
@@ -83,12 +85,6 @@ _KEYWORDS = {
     "IS", "NULL", "TRUE", "FALSE", "AS", "ASC", "DESC", "CASE", "WHEN",
     "THEN", "ELSE", "END",
 }
-
-# aggregation functions the port parses (count(DISTINCT x) is distinctcount)
-AGGREGATION_FUNCTIONS = frozenset(
-    {"count", "sum", "avg", "min", "max", "minmaxrange", "distinctcount",
-     "distinctcounthll"})
-
 
 @dataclass
 class ParsedQuery:
@@ -255,8 +251,8 @@ class _Parser:
                 node = self.parse_or()
                 self.expect_op(")")
                 if not (self.at_op("=", "!=", "<>", "<", "<=", ">", ">=",
-                                   "+", "-", "*")
-                        or self.at_keyword("BETWEEN", "IN", "NOT")):
+                                   "+", "-", "*", "/", "%")
+                        or self.at_keyword("BETWEEN", "IN", "IS", "NOT")):
                     return node
             except SqlParseError:
                 pass
@@ -284,8 +280,14 @@ class _Parser:
             return FilterNode.not_(node) if negate else node
         if negate:
             raise self.unsupported("NOT without IN/BETWEEN")
-        if self.at_keyword("LIKE", "IS"):
-            raise self.unsupported(self.peek().upper)
+        if self.accept_keyword("IS"):
+            is_not = self.accept_keyword("NOT")
+            self.expect_keyword("NULL")
+            return FilterNode.pred(Predicate(
+                PredicateType.IS_NOT_NULL if is_not else PredicateType.IS_NULL,
+                lhs))
+        if self.at_keyword("LIKE"):
+            raise self.unsupported("LIKE")
         for op in ("=", "!=", "<>", "<=", ">=", "<", ">"):
             if self.accept_op(op):
                 return self._comparison(op, lhs, self.parse_expr())
@@ -332,12 +334,10 @@ class _Parser:
 
     def parse_mul(self) -> Expr:
         left = self.parse_unary()
-        while True:
-            if self.at_op("/", "%"):
-                raise self.unsupported(f"operator {self.peek().text!r}")
-            if not self.accept_op("*"):
-                return left
-            left = Function("times", (left, self.parse_unary()))
+        while self.at_op("*", "/", "%"):
+            name = {"*": "times", "/": "divide", "%": "mod"}[self.next().text]
+            left = Function(name, (left, self.parse_unary()))
+        return left
 
     def parse_unary(self) -> Expr:
         if self.accept_op("-"):
@@ -379,19 +379,18 @@ class _Parser:
         raise SqlParseError(f"unexpected token {t.text!r} at position {t.pos}")
 
     def parse_function_call(self, name: str) -> Expr:
-        lname = name.lower()
-        if lname not in AGGREGATION_FUNCTIONS:
-            raise self.unsupported(f"function {name!r}")
         self.expect_op("(")
+        if self.accept_op(")"):
+            return Function(name, ())
         if self.accept_keyword("DISTINCT"):
-            if lname != "count":
+            if name.lower() != "count":
                 raise self.unsupported(f"DISTINCT inside {name}")
             args = self.parse_expr_list()
             self.expect_op(")")
             return Function("distinctcount", args)
         args = self.parse_expr_list()
         self.expect_op(")")
-        return Function(lname, args)
+        return Function(name, args)
 
 
 def parse_sql(sql: str) -> ParsedQuery:

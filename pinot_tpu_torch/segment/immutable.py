@@ -1,13 +1,25 @@
 """Immutable in-memory segment + per-column DataSource access.
 
-Counterpart of ``pinot_tpu/segment/immutable.py``. Every column is
-dictionary-encoded and single-value; its forward index is a numpy array of
-dictIds, ``padded_capacity`` long (zeros past ``num_docs``).
+Counterpart of ``pinot_tpu/segment/immutable.py``. Every array is
+``padded_capacity`` rows long, zeros past ``num_docs``:
+
+- single-value dictionary column: ``forward_index`` holds dictIds;
+- raw single-value column: ``forward_index`` holds the values, in the
+  data type's stored dtype, and there is no dictionary;
+- multi-value column (always dictionary-encoded): ``forward_index`` is the
+  dense ``[capacity, max(max_num_multi_values, 1)]`` dictId matrix the JAX
+  package's ``dense_mv()`` builds from its flat forward index (zeros past
+  each row's count), with ``mv_counts`` the values per row;
+- ``null_bitmap``: rows that are null (a null MV row stores the null
+  default as its one value, as the JAX creator does), or None.
+
+An upsert-managed segment carries ``valid_doc_ids``, a bool array over its
+docs: only its true docs are live.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -16,26 +28,46 @@ from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
 
 
 class DataSource:
-    """One column's read access: metadata, dictionary and forward index."""
+    """One column's read access: metadata, dictionary (None for a raw
+    column), forward index, MV counts and null bitmap."""
 
     def __init__(self, name: str, metadata: ColumnMetadata,
-                 dictionary: Dictionary, forward_index: np.ndarray):
+                 dictionary: Optional[Dictionary], forward_index: np.ndarray,
+                 mv_counts: Optional[np.ndarray] = None,
+                 null_bitmap: Optional[np.ndarray] = None):
         self.name = name
         self.metadata = metadata
         self.dictionary = dictionary
         self.forward_index = forward_index
+        self.mv_counts = mv_counts
+        self.null_bitmap = null_bitmap
+
+    def dense_mv(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(dictIds [capacity, max_mv] int32, counts [capacity] int32) of a
+        multi-value column: the JAX package's ``DataSource.dense_mv``."""
+        if self.metadata.single_value:
+            raise ValueError(f"column {self.name!r} is single-value")
+        return self.forward_index, self.mv_counts
 
 
 class ImmutableSegment:
     def __init__(self, metadata: SegmentMetadata,
                  sources: Dict[str, DataSource]):
+        cap = metadata.padded_capacity
         for name, ds in sources.items():
-            if ds.forward_index.shape != (metadata.padded_capacity,):
-                raise ValueError(
-                    f"column {name!r}: forward index shape "
-                    f"{ds.forward_index.shape} != ({metadata.padded_capacity},)")
+            fwd = ds.forward_index
+            cm = ds.metadata
+            ok = (fwd.shape == (cap,) if cm.single_value
+                  else fwd.ndim == 2 and fwd.shape[0] == cap
+                  and ds.mv_counts is not None
+                  and ds.mv_counts.shape == (cap,))
+            if not ok or (ds.null_bitmap is not None
+                          and ds.null_bitmap.shape != (cap,)):
+                raise ValueError(f"column {name!r}: arrays do not span the "
+                                 f"padded capacity {cap}")
         self.metadata = metadata
         self._sources = sources
+        self.valid_doc_ids = None
 
     @property
     def segment_name(self) -> str:

@@ -22,6 +22,11 @@ def pad_capacity(num_docs: int) -> int:
 
 @dataclass
 class ColumnMetadata:
+    """``has_dictionary=False`` is a raw (RAW-encoded) single-value numeric
+    column: its forward index holds the values and ``cardinality`` counts
+    its distinct values. A multi-value column holds up to
+    ``max_num_multi_values`` values a row."""
+
     name: str
     data_type: DataType
     field_type: FieldType
@@ -31,6 +36,7 @@ class ColumnMetadata:
     has_dictionary: bool = True
     single_value: bool = True
     has_nulls: bool = False
+    max_num_multi_values: int = 0
 
 
 @dataclass

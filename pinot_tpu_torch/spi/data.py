@@ -1,6 +1,7 @@
-"""Schema and field-spec data model (single-value INT/LONG/FLOAT/DOUBLE/STRING).
+"""Schema and field-spec data model: INT/LONG/FLOAT/DOUBLE/STRING columns,
+single-value or multi-value, with their default null values.
 
-Counterpart of ``pinot_tpu/spi/data.py``, cut to what the scan slice uses.
+Counterpart of ``pinot_tpu/spi/data.py``, cut to what the port uses.
 """
 
 from __future__ import annotations
@@ -61,21 +62,48 @@ class FieldType(Enum):
     DATE_TIME = "DATE_TIME"
 
 
+# the value a null row stores, by field kind (the JAX package's
+# _DEFAULT_DIMENSION_NULL / _DEFAULT_METRIC_NULL)
+_DEFAULT_DIMENSION_NULL = {
+    DataType.INT: int(np.iinfo(np.int32).min),
+    DataType.LONG: int(np.iinfo(np.int64).min),
+    DataType.FLOAT: float("-inf"),
+    DataType.DOUBLE: float("-inf"),
+    DataType.STRING: "null",
+}
+_DEFAULT_METRIC_NULL = {
+    DataType.INT: 0,
+    DataType.LONG: 0,
+    DataType.FLOAT: 0.0,
+    DataType.DOUBLE: 0.0,
+    DataType.STRING: "null",
+}
+
+
 @dataclass
 class FieldSpec:
     name: str
     data_type: DataType
     field_type: FieldType = FieldType.DIMENSION
+    single_value: bool = True
+    default_null_value: Any = None
 
     def __post_init__(self):
         if isinstance(self.data_type, str):
             self.data_type = DataType.from_string(self.data_type)
         if isinstance(self.field_type, str):
             self.field_type = FieldType[self.field_type.upper()]
+        if self.default_null_value is None:
+            metric = self.field_type is FieldType.METRIC
+            table = _DEFAULT_METRIC_NULL if metric else _DEFAULT_DIMENSION_NULL
+            self.default_null_value = table[self.data_type]
+        else:
+            self.default_null_value = self.data_type.convert(
+                self.default_null_value)
 
 
 class Schema:
-    """A named, ordered collection of single-value fields."""
+    """A named, ordered collection of fields."""
 
     def __init__(self, schema_name: str, field_specs: Iterable[FieldSpec]):
         self.schema_name = schema_name

@@ -1,0 +1,318 @@
+"""User-event table: the user-facing analytics workload.
+
+Counterpart of ``pinot_tpu/tools/usertable.py`` (:36-200). Pinot's
+signature deployment is user-facing analytics: a wide per-user event table
+answering many small point-filter group-bys at strict latency limits. The
+table holds one column of each kind a Pinot user meets:
+
+- ``user_id``: Zipf-distributed (a few whales, a long tail), the
+  point-filter column;
+- ``tags``: a multi-value dimension, 1-3 tags a row;
+- ``latency_ms``: a raw (no-dictionary) metric, gamma-distributed integer
+  milliseconds, the ``BETWEEN`` column;
+- ``revenue``, ``num_items``: dictionary-encoded metrics;
+- ``country``, ``device``, ``event_type``: low-cardinality dimensions.
+
+``generate_frame`` draws one segment's rows, independently seeded per
+segment. Its ``tags`` are drawn in one call as a dense ``[n, 3]`` code
+matrix plus a count per row, where the JAX generator draws a Python list
+per row: the distribution is the same (counts uniform in 1-3, tags
+uniform over 32 with replacement), the random stream is not, so this
+generator's rows after ``user_id`` differ from the JAX generator's for the
+same seed. ``user_id`` is the first draw of both, so ``tail_users``
+agrees with the JAX package's. The CPU tests carry JAX-built segments
+across and do not depend on this generator.
+
+Frames hold codes into the pools below (``country`` is
+``COUNTRIES[frame["country"]]``), so an oracle works on small integers;
+``build_segments`` turns them into dictionary columns without sorting
+strings.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from pinot_tpu_torch.segment.convert import ColumnArrays, segment_from_arrays
+from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.spi.data import DataType, FieldSpec, FieldType, Schema
+
+# tail users hold a handful of rows each; whales hold thousands:
+# rng.zipf(ZIPF_A) clipped to NUM_USERS gives both in one draw
+NUM_USERS = 100_000
+ZIPF_A = 1.3
+
+COUNTRIES = ["US", "IN", "BR", "DE", "JP", "GB", "FR", "CA", "AU", "MX"]
+DEVICES = ["ios", "android", "web", "tv"]
+EVENT_TYPES = ["view", "click", "cart", "purchase", "refund"]
+TAGS = [f"tag{i}" for i in range(32)]
+MAX_TAGS = 3
+
+# the string dimensions and their pools
+POOLS = {"country": COUNTRIES, "device": DEVICES, "event_type": EVENT_TYPES,
+         "tags": TAGS}
+NO_DICTIONARY_COLUMNS = ["latency_ms"]
+
+
+def user_schema() -> Schema:
+    D, M = FieldType.DIMENSION, FieldType.METRIC
+    I, S = DataType.INT, DataType.STRING
+    return Schema("user_events", [
+        FieldSpec("user_id", I, D),
+        FieldSpec("country", S, D),
+        FieldSpec("device", S, D),
+        FieldSpec("event_type", S, D),
+        FieldSpec("tags", S, D, single_value=False),
+        FieldSpec("latency_ms", I, M),
+        FieldSpec("revenue", I, M),
+        FieldSpec("num_items", I, M),
+    ])
+
+
+def _users(rng: np.random.Generator, n: int) -> np.ndarray:
+    return rng.zipf(ZIPF_A, n).clip(1, NUM_USERS).astype(np.int64)
+
+
+def generate_frame(i: int, num_segments: int, n: int,
+                   seed: int = 7) -> Dict[str, object]:
+    """Segment ``i``'s rows, independently seeded: int arrays, string
+    dimensions as codes into ``POOLS``, ``tags`` as (codes [n, 3], counts
+    [n])."""
+    rng = np.random.default_rng(seed * 1_000_003 + i)
+    user = _users(rng, n)
+    counts = rng.integers(1, MAX_TAGS + 1, n).astype(np.int32)
+    tags = rng.integers(0, len(TAGS), (n, MAX_TAGS)).astype(np.int8)
+    return {
+        "user_id": user,
+        "country": rng.integers(0, len(COUNTRIES), n).astype(np.int8),
+        "device": rng.integers(0, len(DEVICES), n).astype(np.int8),
+        "event_type": rng.integers(0, len(EVENT_TYPES), n).astype(np.int8),
+        "tags": (tags, counts),
+        # long-tailed latency, integer ms
+        "latency_ms": (rng.gamma(2.0, 40.0, n) + 1).astype(np.int64),
+        "revenue": rng.integers(0, 500, n).astype(np.int64),
+        "num_items": rng.integers(1, 10, n).astype(np.int64),
+    }
+
+
+def _coded(pool: List[str], codes: np.ndarray) -> Tuple[np.ndarray,
+                                                        np.ndarray]:
+    """Codes into ``pool`` -> (sorted dictionary of the values present,
+    dictIds), without sorting the rows' strings."""
+    order = np.argsort(np.asarray(pool))
+    rank = np.empty(len(pool), dtype=np.int64)
+    rank[order] = np.arange(len(pool))
+    ranks = rank[codes]
+    present = np.unique(ranks)
+    return (np.asarray(pool)[order][present],
+            np.searchsorted(present, ranks).astype(np.int32))
+
+
+def columns_of_frame(frame: Dict[str, object]) -> Dict[str, ColumnArrays]:
+    D, M = FieldType.DIMENSION, FieldType.METRIC
+    out: Dict[str, ColumnArrays] = {}
+    for fs in user_schema().field_specs:
+        v = frame[fs.name]
+        if fs.name == "tags":
+            codes, counts = v
+            valid = np.arange(codes.shape[1])[None, :] < counts[:, None]
+            d, ids = _coded(TAGS, codes[valid])
+            dense = np.zeros(codes.shape, dtype=np.int32)
+            dense[valid] = ids
+            out[fs.name] = ColumnArrays(fs.data_type, D, d, dense,
+                                        mv_counts=counts)
+        elif fs.name in POOLS:
+            d, ids = _coded(POOLS[fs.name], v)
+            out[fs.name] = ColumnArrays(fs.data_type, D, d, ids)
+        elif fs.name in NO_DICTIONARY_COLUMNS:
+            out[fs.name] = ColumnArrays(fs.data_type, M, values=v)
+        else:
+            d, ids = np.unique(v, return_inverse=True)
+            out[fs.name] = ColumnArrays(fs.data_type, fs.field_type, d,
+                                        ids.reshape(-1))
+    return out
+
+
+def segment_rows(num_segments: int, rows: int) -> List[int]:
+    per = -(-rows // num_segments)
+    return [min(per, rows - i * per) for i in range(num_segments)
+            if rows - i * per > 0]
+
+
+def build_segments(num_segments: int = 4, rows: int = 1_000_000,
+                   seed: int = 7) -> Tuple[List[ImmutableSegment],
+                                           List[Dict[str, object]]]:
+    """(segments built in memory, the frames they were built from)."""
+    segs, frames = [], []
+    for i, n in enumerate(segment_rows(num_segments, rows)):
+        frame = generate_frame(i, num_segments, n, seed)
+        segs.append(segment_from_arrays(f"user_{i}", n,
+                                        columns_of_frame(frame),
+                                        table_name="user_events"))
+        frames.append(frame)
+    return segs, frames
+
+
+def tail_users(rows: int, num_segments: int = 4, seed: int = 7,
+               count: int = 64, max_rows_frac: float = 0.001) -> List[int]:
+    """Deterministic sample of user_ids whose total row count stays under
+    ``max_rows_frac`` of the table: the selective point-filter targets
+    (tail users, not whales). Equal to the JAX package's."""
+    counts: Dict[int, int] = {}
+    for i, n in enumerate(segment_rows(num_segments, rows)):
+        user = _users(np.random.default_rng(seed * 1_000_003 + i), n)
+        uniq, cnt = np.unique(user, return_counts=True)
+        for u, c in zip(uniq.tolist(), cnt.tolist()):
+            counts[u] = counts.get(u, 0) + c
+    cap = max(1, int(rows * max_rows_frac))
+    pool = sorted(u for u, c in counts.items() if 0 < c <= cap)
+    if not pool:
+        return []
+    pick = np.random.default_rng(seed).choice(
+        len(pool), size=min(count, len(pool)), replace=False)
+    return [pool[int(j)] for j in sorted(pick)]
+
+
+def queries(user: int) -> Dict[str, str]:
+    """The query mix U1-U7 over one tail user: a point-filter group-by, a
+    raw metric aggregated by the fused scan, a raw-value range, an MV
+    equality, the exclusive MV semantics of NOT IN, a group-by on the raw
+    column (ties in the count broken by the value, so the top 10 is one
+    set), and an OR of a raw IN and an MV IN."""
+    return {
+        "U1": f"SELECT event_type, count(*), sum(revenue) FROM user_events "
+              f"WHERE user_id = {user} GROUP BY event_type",
+        "U2": "SELECT country, count(*), sum(latency_ms), min(latency_ms), "
+              "max(latency_ms) FROM user_events "
+              "WHERE event_type IN ('click', 'purchase') GROUP BY country",
+        "U3": f"SELECT count(*), sum(revenue) FROM user_events "
+              f"WHERE user_id = {user} AND latency_ms BETWEEN 10 AND 200",
+        "U4": "SELECT device, count(*), avg(latency_ms) FROM user_events "
+              "WHERE tags = 'tag7' GROUP BY device",
+        "U5": "SELECT count(*) FROM user_events "
+              "WHERE tags NOT IN ('tag1', 'tag2') AND country = 'US'",
+        "U6": "SELECT latency_ms, count(*) FROM user_events "
+              "WHERE country = 'DE' GROUP BY latency_ms "
+              "ORDER BY count(*) DESC, latency_ms LIMIT 10",
+        "U7": "SELECT count(*), sum(num_items) FROM user_events "
+              "WHERE latency_ms IN (40, 41, 42) OR tags IN ('tag3')",
+    }
+
+
+# -- numpy oracle -------------------------------------------------------------
+
+# queries whose rows come in the SQL's own order (U6's ORDER BY ... LIMIT
+# 10); the others' rows are compared sorted
+_ORDERED = {"U6"}
+
+
+def _has_tag(frame: Dict[str, object], tag_codes: List[int]) -> np.ndarray:
+    """Rows holding any of ``tag_codes`` among their first ``count`` tags."""
+    codes, counts = frame["tags"]
+    entry = np.arange(codes.shape[1])[None, :] < counts[:, None]
+    return (np.isin(codes, tag_codes) & entry).any(axis=1)
+
+
+def _group_rows(keys: np.ndarray, pool: List[str],
+                values: Dict[str, np.ndarray]
+                ) -> Dict[str, Dict[str, object]]:
+    """{pool value: {"count": rows, name: the group's values}} of the
+    codes in ``keys`` that occur."""
+    out: Dict[str, Dict[str, object]] = {}
+    cnt = np.bincount(keys, minlength=len(pool))
+    for k in np.nonzero(cnt)[0].tolist():
+        sel = keys == k
+        row: Dict[str, object] = {"count": int(cnt[k])}
+        for name, v in values.items():
+            row[name] = v[sel]
+        out[pool[k]] = row
+    return out
+
+
+def numpy_answer(frames: List[Dict[str, object]], qid: str, user: int
+                 ) -> List[List]:
+    """Rows of query ``qid`` (``queries(user)``) over the generator's frames,
+    computed with numpy alone: group rows sorted by key (U6: in its ORDER BY
+    and LIMIT), counts and sums as python ints, averages as floats."""
+    tag = {t: i for i, t in enumerate(TAGS)}
+    parts: Dict[object, List] = {}
+
+    def add(key, *vals):
+        got = parts.get(key)
+        parts[key] = list(vals) if got is None else [
+            _merge(a, b) for a, b in zip(got, vals)]
+
+    for f in frames:
+        lat, user_id = f["latency_ms"], f["user_id"]
+        if qid == "U1":
+            m = user_id == user
+            for k, r in _group_rows(f["event_type"][m], EVENT_TYPES,
+                                    {"rev": f["revenue"][m]}).items():
+                add(k, r["count"], int(r["rev"].sum()))
+        elif qid == "U2":
+            m = np.isin(f["event_type"], [EVENT_TYPES.index("click"),
+                                          EVENT_TYPES.index("purchase")])
+            for k, r in _group_rows(f["country"][m], COUNTRIES,
+                                    {"lat": lat[m]}).items():
+                add(k, r["count"], int(r["lat"].sum()),
+                    ("min", int(r["lat"].min())), ("max", int(r["lat"].max())))
+        elif qid == "U3":
+            m = (user_id == user) & (lat >= 10) & (lat <= 200)
+            add((), int(m.sum()), int(f["revenue"][m].sum()))
+        elif qid == "U4":
+            m = _has_tag(f, [tag["tag7"]])
+            for k, r in _group_rows(f["device"][m], DEVICES,
+                                    {"lat": lat[m]}).items():
+                add(k, r["count"], ("avg", int(r["lat"].sum()), r["count"]))
+        elif qid == "U5":
+            m = (~_has_tag(f, [tag["tag1"], tag["tag2"]])
+                 & (f["country"] == COUNTRIES.index("US")))
+            add((), int(m.sum()))
+        elif qid == "U6":
+            m = f["country"] == COUNTRIES.index("DE")
+            cnt = np.bincount(lat[m])
+            for v in np.nonzero(cnt)[0].tolist():
+                add(v, int(cnt[v]))
+        elif qid == "U7":
+            m = np.isin(lat, [40, 41, 42]) | _has_tag(f, [tag["tag3"]])
+            add((), int(m.sum()), int(f["num_items"][m].sum()))
+        else:
+            raise KeyError(qid)
+    rows = [([] if k == () else [k]) + [_final(v) for v in vals]
+            for k, vals in parts.items()]
+    if qid == "U6":
+        return sorted(rows, key=lambda r: (-r[1], r[0]))[:10]
+    return sorted(rows)
+
+
+def _merge(a, b):
+    if isinstance(a, tuple):
+        if a[0] == "avg":
+            return ("avg", a[1] + b[1], a[2] + b[2])
+        return (a[0], (min if a[0] == "min" else max)(a[1], b[1]))
+    return a + b
+
+
+def _final(v):
+    if isinstance(v, tuple):
+        return v[1] / v[2] if v[0] == "avg" else v[1]
+    return v
+
+
+def check_rows(qid: str, rows: List[List], want: List[List]) -> None:
+    """Raise unless a result's rows equal ``numpy_answer``'s: keys, counts,
+    sums, min and max exact, averages within rel 1e-12 (an exact integer
+    sum over a count, in f64)."""
+    got = [list(r) for r in rows]
+    if qid not in _ORDERED:
+        got = sorted(got)
+    if len(got) != len(want):
+        raise AssertionError(f"{qid}: {len(got)} rows, oracle {len(want)}")
+    for g, w in zip(got, want):
+        ok = len(g) == len(w) and all(
+            (abs(a - b) <= 1e-12 * abs(b) if isinstance(b, float)
+             else a == b) for a, b in zip(g, w))
+        if not ok:
+            raise AssertionError(f"{qid}: row {g} != oracle {w}")

@@ -312,3 +312,82 @@ def test_doc_masks_count_what_the_scan_matches(batches):
     assert not (matched & ~valid).any()
     assert matched.view(S, -1).sum(dim=1).tolist() == \
         inp.scan().matched.tolist()
+
+
+@pytest.fixture(scope="module")
+def stats_batches(tmp_path_factory):
+    """tests/test_torch_columns.py's two stats segments: raw LONG/DOUBLE
+    columns (one past 2^31), MV columns with null rows, nullable columns."""
+    from tests.test_torch_columns import build_stats
+
+    jsegs, tsegs = build_stats(tmp_path_factory.mktemp("torch_batch_stats"))
+    return JBatch(jsegs), SegmentBatch(tsegs)
+
+
+def test_raw_mv_null_stacked_columns_equal(stats_batches):
+    """Merged metadata and every stacked array (raw values in their staged
+    dtype, dense MV and counts, null bitmaps) equal the JAX batch's."""
+    jb, tb = stats_batches
+    for col in jb.metadata.columns:
+        jcm, tcm = jb.metadata.column(col), tb.metadata.column(col)
+        assert (tcm.cardinality, tcm.min_value, tcm.max_value,
+                tcm.has_nulls, tcm.max_num_multi_values) == \
+            (jcm.cardinality, jcm.min_value, jcm.max_value, jcm.has_nulls,
+             jcm.max_num_multi_values), col
+        got, want = tb.stacked_column(col), jb.stacked_column(col)
+        assert sorted(got) == sorted(want), col
+        for k in want:
+            assert got[k].dtype == want[k].dtype, (col, k)
+            np.testing.assert_array_equal(got[k], want[k], f"{col}.{k}")
+        assert (tb.unified_dictionary(col) is None) == \
+            (jb.unified_dictionary(col) is None), col
+
+
+def test_raw_value_column_batch_equal(stats_batches):
+    """A raw column's batch values equal the JAX batch's (an i64 column's
+    against the JAX limb planes recombined); a raw column packs nothing."""
+    jb, tb = stats_batches
+    for col in ("salary", "bonus", "ratio", "big"):
+        got = tb.value_column_batch(col)
+        want = jb.value_column_batch(col)
+        S = got.shape[0]
+        if want is None:
+            cm = jb.metadata.column(col)
+            planes = jb.value_limb_batch(col, jpk._limbs_for(
+                max(abs(int(cm.min_value)), abs(int(cm.max_value)))))
+            want = sum(p.reshape(S, -1).astype(np.int64) << (LIMB_BITS * k)
+                       for k, p in enumerate(planes))
+        else:
+            want = want.reshape(S, -1)
+        assert got.dtype == want.dtype, col
+        np.testing.assert_array_equal(got, want, col)
+        with pytest.raises(ValueError):
+            tb.packed_column_batch(col)
+    assert tb.value_column_batch("big").dtype == np.int64
+    assert tb.value_column_batch("nums") is None
+
+
+def test_raw_value_batch_plan_and_extract_equal(stats_batches):
+    """A batch plan reading raw value columns (and none packed) extracts to
+    the JAX scan plan, and its batch scan matches the per-segment scans."""
+    jb, tb = stats_batches
+    for sql in ("SELECT team, sum(salary), min(bonus), max(ratio), count(*) "
+                "FROM stats WHERE league = 'AL' GROUP BY team",
+                "SELECT sum(big), avg(ratio), count(*) FROM stats"):
+        ctx = t_compile(sql)
+        tp, jp = t_plan(ctx, tb), j_plan(j_compile(sql), jb)
+        assert tp.spec == jp.spec
+        tpp = tfs.extract_plan(tp, tb)
+        jpp = jpk.extract_plan(jp, jb)
+        assert tpp.value_names == jpp.value_names
+        assert tpp.value_limbs == jpp.value_limbs
+        assert tpp.aggs == jpp.aggs and tpp.filter_tree == jpp.filter_tree
+        inp = tfs.scan_inputs(tp, StagedBatch(tb, device="cpu"))
+        out = inp.scan()
+        per_seg = [tfs.scan_inputs(t_plan(ctx, s),
+                                   StagedSegment(s, device="cpu")).scan()
+                   for s in tb.segments]
+        assert out.matched.tolist() == [int(o.matched[0]) for o in per_seg]
+        if not tp.spec[2]:   # scalar: one key space in both
+            np.testing.assert_array_equal(
+                out.isum.numpy(), sum(o.isum.numpy() for o in per_seg))

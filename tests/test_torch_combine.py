@@ -263,3 +263,39 @@ def test_parallel_import_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+RAW_BATCH_SQL = [
+    "SELECT team, count(*), sum(salary), min(salary), max(bonus), "
+    "avg(ratio) FROM stats WHERE league = 'AL' GROUP BY team ORDER BY team",
+    "SELECT sum(big), sum(salary), count(*) FROM stats",
+]
+
+
+@pytest.fixture(scope="module")
+def stats_segs(tmp_path_factory):
+    from tests.test_torch_columns import build_stats
+
+    return build_stats(tmp_path_factory.mktemp("torch_combine_stats"))
+
+
+@pytest.mark.parametrize("i", range(len(RAW_BATCH_SQL)))
+def test_raw_value_columns_on_the_batch(stats_segs, i):
+    """Raw value columns (an i64 one among them; no packed column in the
+    second query) ride one batch scan: rows and stats equal the JAX
+    sharded executor's (its fused kernel in interpret mode) and its host
+    engine's; a raw filter leaf the fused scan declines raises."""
+    jsegs, tsegs = stats_segs
+    sql = RAW_BATCH_SQL[i]
+    got, stats = ShardedQueryExecutor(device="cpu").execute(t_compile(sql),
+                                                            tsegs)
+    exact = _exact_columns(sql, tsegs[0])
+    for ref in (JSharded(use_pallas=True), JExecutor(use_device=False)):
+        want, wstats = ref.execute(j_compile(sql), jsegs)
+        _assert_rows(got.rows, want.rows, exact, sql)
+        assert stats.num_docs_scanned == wstats.num_docs_scanned
+    assert stats.decisions == {} and stats.general_launches == 0
+    with pytest.raises(NotPortedError) as e:
+        ShardedQueryExecutor(device="cpu").execute(t_compile(
+            "SELECT count(*) FROM stats WHERE salary > 100000"), tsegs)
+    assert e.value.reason_code == "pallas_vrange"

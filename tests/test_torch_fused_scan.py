@@ -187,7 +187,8 @@ _SYN_COL = re.compile(r"\bb(?:1|2|4|8|16|32)\b")
 
 def _where_and_group(sql, col_re):
     """Column names in the WHERE clause and in GROUP BY, from the SQL."""
-    where = sql.split(" WHERE ", 1)[1].split(" GROUP BY ")[0]
+    where = (sql.split(" WHERE ", 1)[1].split(" GROUP BY ")[0]
+             if " WHERE " in sql else "")
     group = sql.split(" GROUP BY ", 1)[1] if " GROUP BY " in sql else ""
     group = group.split(" ORDER BY ")[0]
     return set(col_re.findall(where)), set(col_re.findall(group))
@@ -235,7 +236,10 @@ def test_early_late_split(ssb_pairs, case):
                           StagedSegment(tseg, device="cpu"))
     names = inp.pp.packed_names
     filter_cols = {names[c] for c in _tree_cols(inp.pp.filter_tree)}
-    assert filter_cols <= where_cols and filter_cols
+    # a query with a WHERE clause keeps a filter column; one without
+    # (raw value columns alone) reads no packed column
+    assert filter_cols <= where_cols
+    assert bool(filter_cols) == bool(where_cols)
     _check_split(inp.prog, names, filter_cols, group_cols)
     if inp.probe is not None:
         probe_prog, _ = inp.probe

@@ -132,9 +132,9 @@ def test_cpu_wrapper_rejects_mismatched_inputs():
 @pytest.mark.parametrize("sql", [
     "SELECT DISTINCT k FROM tiny",
     "SELECT k, sum(v) FROM tiny GROUP BY k HAVING sum(v) > 3",
-    "SELECT sum(v / 2) FROM tiny",
+    "SELECT sum(v) FROM tiny WHERE k IS NOT 'a'",
     "SELECT sum(v) FROM tiny WHERE k LIKE 'a%'",
-    "SELECT upper(k), count(*) FROM tiny GROUP BY upper(k)",
+    "SELECT CASE WHEN v > 1 THEN 1 ELSE 0 END, count(*) FROM tiny",
     "SELECT k FROM tiny",
     "SELECT sum(v) FROM tiny LIMIT 5 OFFSET 2",
 ])
@@ -143,3 +143,19 @@ def test_unsupported_sql_raises_typed_error(sql):
 
     with pytest.raises(SqlParseError):
         compile_query(sql)
+
+
+def test_arithmetic_null_tests_and_transforms_parse():
+    """``/``, ``%``, IS [NOT] NULL and transform calls parse as the JAX
+    parser parses them; the planner refuses what it cannot compile."""
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.query.expressions import PredicateType
+
+    ctx = compile_query("SELECT sum(v / 2), sum(v % 3) FROM tiny "
+                        "WHERE k IS NOT NULL")
+    assert [str(f) for f in ctx.aggregations] == [
+        "sum(divide(v,2))", "sum(mod(v,3))"]
+    assert ctx.filter.predicate.type is PredicateType.IS_NOT_NULL
+    ctx = compile_query("SELECT upper(k), count(*) FROM tiny "
+                        "GROUP BY upper(k)")
+    assert str(ctx.group_by[0]) == "upper(k)"

@@ -150,7 +150,7 @@ def _run_port(tseg, tp, rung):
     cols = {c: staged.column(c).tree() for c in tp.columns}
     body = tk.build_kernel_body(tp.spec, sparse_k=tk.sparse_mode(tp.spec),
                                 sparse_rung=rung or "cond")
-    out = body(cols, tk.device_params(tp, CPU), tseg.num_docs, 0)
+    out = body(cols, tk.device_params(tp, CPU), tseg.num_docs, 0, CPU)
     return {k: (tuple(x.numpy() for x in v) if isinstance(v, tuple)
                 else v.numpy()) for k, v in out.items()}
 
