@@ -19,24 +19,30 @@ Phases:
      does, 56 bits of filter columns; then the same cases as one launch
      over a batch of 3 segments of different sizes plus one padded segment
      with no docs;
-  4. the per-segment path: SSB at ``--sf`` in ``--segments`` segments, the
-     13 flights ``--reps`` times through ServerQueryExecutor(device="cuda"),
-     every launch counted, every answer held against the numpy oracle;
-     then the graft-entry SQL on a 5-column segment;
-  5. at the per-segment path's shapes (segment 0, every flight and probe):
-     the kernel held against its plain version again, then timings of both
-     beside the bound;
+  4. the per-segment path: SSB at ``--sf`` in ``--segments`` time-bounded
+     segments, the 13 flights ``--reps`` times through
+     ServerQueryExecutor(device="cuda"), which prunes the segments no doc
+     of can match, every launch counted, every answer held against the
+     numpy oracle; then the graft-entry SQL on a 5-column segment;
+  5. at the per-segment path's shapes (each flight's scan and probe on the
+     first segment the pruner keeps for it): the kernel held against its
+     plain version again, then timings of both beside the bound;
   6. the batch path: the same segments and flights through
-     ShardedQueryExecutor(device="cuda"), one launch per flight over the
-     whole batch, every launch counted, every answer held against the
-     oracle; then at its shapes (all segments, every flight and probe) the
-     kernel against its plain version and timings of both beside the
-     bound (the kernel alone and through its wrapper);
+     ShardedQueryExecutor(device="cuda"): an untimed pass stages the batch
+     of each flight's kept segments, then ``--reps`` timed passes over
+     the 13 flights in turn and ``--reps`` timed runs of each flight back
+     to back stage none (asserted); one launch per flight
+     over its batch (per segment where one is kept), every launch counted,
+     every answer held against the oracle; then at the shapes of those
+     batches (every flight and probe over its kept segments) the kernel
+     against its plain version and timings of both beside the bound (the
+     kernel alone and through its wrapper), and Q4.3's combine over its
+     3 kept segments beside all of them;
   7. the general rung (engine/kernels.py, PyTorch ops on the card): (a) the
      13 flights through ServerQueryExecutor(device="cuda",
      use_fused_scan=False), 0 fused launches and one general-rung call per
-     segment, every answer equal to phase 4's and the oracle, p50 beside
-     phase 4's; (b) the declined queries G1-G5 (tools/ssb.py) with the
+     kept segment, every answer equal to phase 4's and the oracle, p50
+     beside phase 4's; (b) the declined queries G1-G5 (tools/ssb.py) with the
      fused scan on, each with its planned decline and rung (G1's matched
      segment on the hash rung, G2's on the sort rung), held against the
      oracle;
@@ -50,9 +56,23 @@ Phases:
      raise NotPortedError; (8b) on a 1 M-doc segment, IS NULL / IS NOT
      NULL on a nullable dictionary and raw column, the MV aggregations and
      an upsert valid-doc mask against numpy;
+  9. the SQL slice: (9a) on phase 4's segments, S1-S7 of tools/ssb.py
+     (LIKE, NOT LIKE, REGEXP_LIKE of 1, 9-64 and over 64 dictId runs,
+     HAVING with OFFSET and OPTION, a count/min/max the segment metadata
+     answers) per segment and over the batch against the numpy oracle,
+     with each decline, rung and launch count asserted from the segments
+     the pruner keeps, and the new filter shapes' kernels against their
+     plain version and timed at the paths' shapes; (9b) time-bucket
+     group-bys (toEpochDays, toEpochHours, a ts window the pruner cuts to
+     its segments, timeConvert) over ``--user-segments`` time-ordered
+     segments of ``--user-rows`` events with a raw epoch-ms ``ts``, on the
+     general rung; (9c) TEXT_MATCH and JSON_MATCH on a 1 M-doc segment;
 then a "rungs" line of the segments each rung served and the declines of
-phase 8, and one JSON line listing the kernels ("ms" is the kernel alone,
-"launches" those of phases 4, 6 and 8).
+phases 8 and 9, and one JSON line listing the kernels ("ms" is the kernel
+alone, "launches" those of phases 4, 6, 8 and 9). Phases 4, 6, 7 and 9
+assert launches per query from the segments the pruner keeps, once those
+equal the segments whose min/max (from the generator's arrays) admit the
+query's conditions.
 The last line is {"ok": true, "device": {...}}; any failure raises and
 exits non-zero without it. Needs one CUDA card; exits 2 without one.
 """
@@ -186,7 +206,9 @@ def _scan_args(staged, sql) -> dict:
     from pinot_tpu_torch.engine.plan import plan_segment
     from pinot_tpu_torch.query import compile_query
 
-    plan = plan_segment(compile_query(sql + " LIMIT 100000"), staged.provider)
+    if " LIMIT " not in sql:
+        sql += " LIMIT 100000"
+    plan = plan_segment(compile_query(sql), staged.provider)
     reasons = []
     inp = fs.scan_inputs(plan, staged, on_decline=reasons.append)
     if inp is None:
@@ -480,6 +502,35 @@ def _latencies(lat: dict, rows: int, beside: dict = None,
     return per_flight
 
 
+def _kept_segments(ctxs: dict, segs, frames: list, parts: dict = None
+                   ) -> dict:
+    """{query: the segments the pruner keeps}: the engine's pruner held to
+    an oracle of its own, each frame's per-column min/max against the
+    query's conditions (``ssb.bounds_may_match``), and each pruned segment
+    checked to hold no row the numpy oracle matches (``parts``)."""
+    from pinot_tpu_torch.engine.pruner import prune_segments
+    from pinot_tpu_torch.tools import ssb
+
+    kept = {}
+    for qid, ctx in ctxs.items():
+        got = prune_segments(ctx, segs)
+        want = [s for s, f in zip(segs, frames)
+                if ssb.bounds_may_match(f, qid)]
+        if [s.segment_name for s in got] != [s.segment_name for s in want]:
+            raise AssertionError(
+                f"{qid}: the pruner keeps {[s.segment_name for s in got]}, "
+                f"the frames' min/max {[s.segment_name for s in want]}")
+        names = {s.segment_name for s in got}
+        for seg, part in zip(segs, (parts or {}).get(qid, ())):
+            if seg.segment_name not in names and part not in (0, {}):
+                raise AssertionError(f"{qid}: {seg.segment_name} pruned but "
+                                     "the oracle matches rows there")
+        kept[qid] = got
+    log(f"  segments the pruner keeps (== the frames' min/max): "
+        f"{ {q: len(v) for q, v in kept.items()} }")
+    return kept
+
+
 def _reset(counters: dict) -> None:
     for c in counters.values():
         c.reset()
@@ -500,16 +551,23 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    wants = {qid: ssb.merge_answers([ssb.numpy_answer(f, qid) for f in frames])
+    parts = {qid: [ssb.numpy_answer(f, qid) for f in frames]
              for qid in ssb.QUERIES}
+    wants = {qid: ssb.merge_answers(p) for qid, p in parts.items()}
     wants.update({gid: ssb.declined_answer(frames, gid)
                   for gid in ssb.DECLINED_QUERIES})
-    log(f"  numpy oracle, 13 flights and {len(ssb.DECLINED_QUERIES)} "
-        f"declined queries: {time.perf_counter() - t0:.1f} s")
-    del frames
+    sql_texts, sql_wants = ssb.sql_queries(frames)
+    log(f"  numpy oracle, 13 flights, {len(ssb.DECLINED_QUERIES)} declined "
+        f"and {len(sql_texts)} SQL-slice queries: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     ctxs = {qid: compile_query(q + " LIMIT 100000")
             for qid, q in ssb.QUERIES.items()}
+    kept_segs = _kept_segments(ctxs, segs, frames, parts)
+    kept = {qid: len(v) for qid, v in kept_segs.items()}
+    sql_kept = _kept_segments(
+        {sid: compile_query(q) for sid, q in sql_texts.items()}, segs, frames)
+    del frames
     ex = ServerQueryExecutor(device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -524,8 +582,9 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
     _reset(counters)
     lat, results = _run_flights(ex, ctxs, segs, reps)
     launches = {name: c.launches for name, c in counters.items()}
-    expect = {"fused_scan": len(segs) * len(ctxs) * reps,
-              "fused_scan_probe": len(segs) * 2 * reps,   # Q3.2 and Q4.3
+    # one scan per segment the pruner keeps; Q3.2 and Q4.3 probe first
+    expect = {"fused_scan": sum(kept.values()) * reps,
+              "fused_scan_probe": (kept["Q3.2"] + kept["Q4.3"]) * reps,
               "sharded_fused_scan": 0, "sharded_fused_scan_probe": 0}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
@@ -539,7 +598,9 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
     _graft_entry_check()
     return {"segs": segs, "ex": ex, "launches": launches, "ctxs": ctxs,
             "wants": wants, "per_flight": per_flight, "rows": rows,
-            "results": results}
+            "results": results, "kept": kept, "kept_segs": kept_segs,
+            "sql_texts": sql_texts, "sql_wants": sql_wants,
+            "sql_kept": sql_kept}
 
 
 # -- phase 5: kernel timings at the per-segment path's shapes -----------------
@@ -604,18 +665,16 @@ def _kernel_ms(args, iters: int) -> float:
     return _time_ms(lambda: fs.enqueue(argv, stream), iters)
 
 
-def _time_kernels(staged, errs: dict, docs: int, iters: int,
-                  queries: dict = None) -> list:
-    """Each query's scan (and probe) over ``staged`` (``queries``: the SSB
-    flights unless given): held against the
-    plain version at these shapes (folded into ``errs``), then timed beside
-    the bound from the bytes this run's data needs: the kernel alone, and
-    the wrapper (the kernel with its host work, as the path launches it)."""
+def _time_kernels(cases: dict, errs: dict, iters: int) -> list:
+    """Each query's scan (and probe) at its shape, ``cases``: {query:
+    (staged segment or batch, its docs, SQL)}: held against the plain
+    version at these shapes (folded into ``errs``), then timed beside the
+    bound from the bytes this run's data needs: the kernel alone, and the
+    wrapper (the kernel with its host work, as the path launches it)."""
     from pinot_tpu_torch.engine import fused_scan as fs
-    from pinot_tpu_torch.tools import ssb
 
     rows = []
-    for qid, q in (queries or ssb.QUERIES).items():
+    for qid, (staged, docs, q) in cases.items():
         scan_args = _scan_args(staged, q)
         _kernel_vs_plain(scan_args, qid, errs)
         for kind, (launch, args) in scan_args.items():
@@ -629,15 +688,17 @@ def _time_kernels(staged, errs: dict, docs: int, iters: int,
             p_ms = _time_ms(lambda: fs.fused_scan_plain(*args), 3)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
             rows.append({"flight": qid, "kernel": kind, "docs": docs,
+                         "segments": int(num_docs.numel()),
                          "groups": prog.G, "bytes": nbytes,
                          "all_column_bytes": full, "ms": k_ms,
                          "wrapper_ms": w_ms, "plain_ms": p_ms,
                          "bound_ms": bound, "acc_smem": lay.acc_smem,
                          "smem": lay.smem, "grid": grid})
-            log(f"  {qid} {kind}: {k_ms:.4f} ms/launch ({k_ms / bound:.1f}x "
-                f"bound {bound:.4f} ms, {nbytes} B needed of {full} B in its "
-                f"columns; {lay.smem} B smem, grid {grid}); wrapper "
-                f"{w_ms:.4f} ms, plain {p_ms:.3f} ms")
+            log(f"  {qid} {kind} ({docs} docs): {k_ms:.4f} ms/launch "
+                f"({k_ms / bound:.1f}x bound {bound:.4f} ms, {nbytes} B "
+                f"needed of {full} B in its columns; {prog.G} groups, "
+                f"{lay.smem} B smem, grid {grid}); wrapper {w_ms:.4f} ms, "
+                f"plain {p_ms:.3f} ms")
     return rows
 
 
@@ -649,41 +710,74 @@ def _full_bytes(prog, words, values, num_docs, tiles) -> int:
 
 
 def phase_timing(main: dict, errs: dict, iters: int = 20) -> list:
-    seg = main["segs"][0]
-    return _time_kernels(main["ex"].stage(seg), errs, seg.num_docs, iters)
+    """Every flight's scan (and probe) on the first segment the pruner
+    keeps for it, as the per-segment path launches it."""
+    from pinot_tpu_torch.tools import ssb
+
+    ex = main["ex"]
+    return _time_kernels(
+        {qid: (ex.stage(kept[0]), kept[0].num_docs, ssb.QUERIES[qid])
+         for qid, kept in main["kept_segs"].items()}, errs, iters)
 
 
 # -- phase 6: the batch path ----------------------------------------------------
 
 def phase_batch(main: dict, reps: int, errs: dict, iters: int = 20) -> dict:
     """The main path's segments and flights through ShardedQueryExecutor:
-    one launch per flight over the whole batch, the probe once per probed
-    flight (at binding), no per-segment launch; then the batch kernel
-    against its plain version and timed at these shapes."""
+    an untimed pass (staging the batch of each flight's kept segments,
+    binding), then ``reps`` timed passes over the 13 flights in turn, as
+    mixed traffic arrives, with no batch staged in them: one launch per
+    flight over its batch, the probe once per probed flight (at binding),
+    one kept segment on the per-segment path. Then each batch scan against
+    its plain version and timed at the shapes those launches had."""
     import torch
 
     from pinot_tpu_torch.parallel import ShardedQueryExecutor
     from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.tools import ssb
 
     segs, ctxs, rows = main["segs"], main["ctxs"], main["rows"]
+    kept, kept_segs = main["kept"], main["kept_segs"]
     counters = scan_counters()
     _reset(counters)
     ex = ShardedQueryExecutor(device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for ctx in ctxs.values():   # untimed pass: stages and binds each flight
+    for ctx in ctxs.values():
         ex.execute(ctx, segs)
     torch.cuda.synchronize()
-    _batch, staged = ex.batch_for(segs)
-    resident = staged.nbytes()
-    log(f"  batch of {len(segs)} segments staged + bound in one untimed "
-        f"pass: {resident} bytes resident ({resident / rows:.2f} B/row), "
-        f"{time.perf_counter() - t0:.1f} s")
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    staged = ex.batches_staged
     lat, results = _run_flights(ex, ctxs, segs, reps)
+    # the same runs flight by flight, each flight's repetitions back to
+    # back: what the order of the traffic costs
+    by_flight = {}
+    for qid, ctx in ctxs.items():
+        by_flight[qid] = _run_flights(ex, {qid: ctx}, segs, reps)[0][qid]
+    if ex.batches_staged != staged:
+        raise AssertionError(f"the timed passes staged "
+                             f"{ex.batches_staged - staged} batches")
+    batches = {k: st.nbytes() for k, (_b, st) in ex._batches.items()}
+    resident = sum(batches.values())
+    log(f"  untimed pass: {staged} batches staged (one per kept set of "
+        f"several segments) and every flight bound, {setup_ms:.1f} ms; "
+        f"the timed passes staged none; {resident} bytes resident in "
+        f"them ({resident / rows:.2f} B/row), budget "
+        f"{ex.batch_budget_bytes} bytes")
     launches = {name: c.launches for name, c in counters.items()}
-    expect = {"fused_scan": 0, "fused_scan_probe": 0,
-              "sharded_fused_scan": len(ctxs) * (reps + 1),
-              "sharded_fused_scan_probe": 2}          # Q3.2, Q4.3 at binding
+    # a flight that keeps several segments runs as one launch over their
+    # batch (its first run binds: Q3.2 and Q4.3 probe there); one kept
+    # segment takes the per-segment path
+    multi = [q for q in ctxs if kept[q] > 1]
+    single = [q for q in ctxs if kept[q] == 1]
+    probing = ("Q3.2", "Q4.3")
+    runs = 2 * reps + 1
+    expect = {"fused_scan": len(single) * runs,
+              "fused_scan_probe": runs * len(
+                  [q for q in single if q in probing]),
+              "sharded_fused_scan": len(multi) * runs,
+              "sharded_fused_scan_probe": len(
+                  [q for q in multi if q in probing])}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     log(f"  launches on the batch path: {launches}; 0 declines")
@@ -691,14 +785,63 @@ def phase_batch(main: dict, reps: int, errs: dict, iters: int = 20) -> dict:
         _check_flight(qid, table, main["wants"][qid])
     log("  13 flights == numpy oracle (group sets and int sums exact)")
     per_flight = _latencies(lat, rows, beside=main["per_flight"])
+    log("  the same flights timed flight by flight:")
+    per_flight_by_flight = _latencies(by_flight, rows, beside=per_flight,
+                                      beside_label="in turn")
     peak = torch.cuda.max_memory_allocated()
     log(f"  torch.cuda.max_memory_allocated: {peak} bytes")
-    log(f"  batch kernel against plain version and timings at the batch "
-        f"path's shapes ({rows} docs)")
-    timing = _time_kernels(staged, errs, rows, iters)
+    log("  batch kernel against plain version and timings at the batch "
+        "path's shapes (each flight's batch of its kept segments)")
+    timing = _time_kernels(
+        {q: (ex.batch_for(kept_segs[q])[1],
+             sum(s.num_docs for s in kept_segs[q]), ssb.QUERIES[q])
+         for q in multi}, errs, iters)
+    if ex.batches_staged != staged:
+        raise AssertionError("the timed shapes are not the main path's: "
+                             "a batch was staged for them")
+    diag = _combine_over(ex, ctxs["Q4.3"], {
+        "kept": kept_segs["Q4.3"], "all": segs}, reps, errs)
     return {"launches": launches, "per_flight": per_flight,
-            "resident_bytes": resident, "max_memory_allocated": peak,
-            "timing": timing}
+            "per_flight_by_flight": per_flight_by_flight,
+            "resident_bytes": resident, "batch_bytes": {
+                ",".join(k): n for k, n in batches.items()},
+            "max_memory_allocated": peak, "setup_ms": setup_ms,
+            "timing": timing, "q43_combine": diag, "ex": ex}
+
+
+def _combine_over(ex, ctx, sets: dict, reps: int, errs: dict) -> dict:
+    """Q4.3's combine (the launch over the batch and the decode of its
+    groups, no pruning, no reduce) over its kept segments and over all of
+    them, p50 of ``reps`` runs each, and the batch scan's kernel alone at
+    both shapes: where a batch's time goes as it grows. A diagnostic: the
+    batch of all segments is not this flight's main-path shape."""
+    import torch
+
+    from pinot_tpu_torch.engine.aggregates import resolve_agg
+    from pinot_tpu_torch.engine.results import QueryStats
+    from pinot_tpu_torch.tools import ssb
+
+    aggs = [resolve_agg(f) for f in ctx.aggregations]
+    out = {}
+    for name, group in sets.items():
+        ex._execute_group_by(ctx, aggs, group, QueryStats())  # binds
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            ex._execute_group_by(ctx, aggs, group, QueryStats())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        kernel = _time_kernels({"Q4.3": (
+            ex.batch_for(group)[1], sum(s.num_docs for s in group),
+            ssb.QUERIES["Q4.3"])}, errs, 20)
+        out[name] = {"segments": len(group),
+                     "combine_p50_ms": float(np.percentile(ms, 50)),
+                     "kernel_ms": {r["kernel"]: r["ms"] for r in kernel},
+                     "groups": kernel[0]["groups"]}
+        log(f"  Q4.3 combine over {len(group)} segments ({name}): p50 "
+            f"{out[name]['combine_p50_ms']:.3f} ms, kernels "
+            f"{out[name]['kernel_ms']}, {out[name]['groups']} groups")
+    return out
 
 
 # -- phase 7: the general rung ---------------------------------------------------
@@ -747,8 +890,7 @@ def phase_general(main: dict, reps: int) -> dict:
     _reset(counters)
     lat = {qid: [] for qid in ctxs}
     rungs = {}
-    off = {"pallas:pallas_kernel->jnp_kernel:pallas_disabled_on_backend":
-           len(segs)}
+    kept = main["kept"]
     for _ in range(reps):
         for qid, ctx in ctxs.items():
             t0 = time.perf_counter()
@@ -760,17 +902,19 @@ def phase_general(main: dict, reps: int) -> dict:
                 raise AssertionError(f"{qid}: general rung rows differ from "
                                      "the fused scan's")
             _check_flight(qid, table, main["wants"][qid])
-            if stats.decisions != off or stats.general_launches != len(segs):
+            off = {_decline_key("pallas_disabled_on_backend"): kept[qid]}
+            if (stats.decisions != off
+                    or stats.general_launches != kept[qid]):
                 raise AssertionError(f"{qid}: decisions {stats.decisions}, "
                                      f"{stats.general_launches} rung calls")
             rungs[qid] = stats.rung_segments
     launches = {name: c.launches for name, c in counters.items()}
     expect = {name: 0 for name in counters}
-    expect["general_rung"] = len(segs) * len(ctxs) * reps
+    expect["general_rung"] = sum(kept.values()) * reps
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
-    log(f"  (a) launches with the fused scan off: {launches}; 13 flights == "
-        "phase 4 == numpy oracle")
+    log(f"  (a) launches with the fused scan off: {launches} (one per kept "
+        "segment); 13 flights == phase 4 == numpy oracle")
     for qid in ("Q3.2", "Q4.3"):
         if "hash" not in rungs[qid]:
             raise AssertionError(f"{qid}: no segment on the hash rung: "
@@ -998,10 +1142,14 @@ def phase_users(seed: int, reps: int, segments: int = 8,
         fused_sqls = {qid: sqls[qid] for qid in USER_BATCH}
         log("  U1, U2 kernel against plain version and timings: segment 0, "
             "then the batch")
-        timing = (_time_kernels(ex.stage(segs[0]), errs, segs[0].num_docs,
-                                20, fused_sqls)
-                  + _time_kernels(bex.batch_for(segs)[1], errs, rows, 20,
-                                  fused_sqls))
+        # every segment is kept (the per-segment launches above): segment
+        # 0 and the batch of all are the paths' shapes
+        seg0, batch = ex.stage(segs[0]), bex.batch_for(segs)[1]
+        timing = (_time_kernels({q: (seg0, segs[0].num_docs, sql)
+                                 for q, sql in fused_sqls.items()}, errs, 20)
+                  + _time_kernels({q: (batch, rows, sql)
+                                   for q, sql in fused_sqls.items()},
+                                  errs, 20))
     return {"rows": rows, "segments": len(segs), "user": user,
             "per_query": per_query, "batch_per_query": batch_per_query,
             "paths": rungs, "launches": launches,
@@ -1133,6 +1281,464 @@ def phase_columns(seed: int, reps: int, n: int = 1_000_000,
                       for q, (c, r) in path.items()}}
 
 
+# -- phase 9: the SQL slice (patterns, time transforms, text and JSON) -------
+
+# per SSB query of phase 9a: the fused scan's decline code on every kept
+# segment (None: it serves them) and the rung of each kept segment (None:
+# scalar)
+SQL_PATH = {"S1": (None, "dense"), "S2": (None, "dense"),
+            "S3": (None, "dense"), "S4": ("pallas_lut_too_many_runs", "dense"),
+            "S5": (None, "dense"), "S6": (None, None), "S7": (None, "dense")}
+# the fused scans whose kernel is held against its plain version and timed
+SQL_TIMED = ("S1", "S2", "S3", "S5", "S7")
+
+
+def _lut_runs(plan) -> list:
+    """dictId runs of each lut / mv_lut leaf of a plan's filter."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.engine.plan import _FILTER_PARAMS
+
+    runs, slot = [], 0
+
+    def walk(node):
+        nonlocal slot
+        if node[0] in ("and", "or", "not"):
+            for c in node[1]:
+                walk(c)
+            return
+        if node[0] in ("lut", "mv_lut"):
+            runs.append(len(fs._lut_runs(plan.params[slot], 1 << 30)))
+        slot += _FILTER_PARAMS[node[0]]
+    walk(plan.spec[0])
+    return runs
+
+
+def _check_sql_rows(sid: str, table, want) -> None:
+    if isinstance(want, list):
+        if table.rows != want:
+            raise AssertionError(f"{sid}: {table.rows} != {want}")
+        return
+    _check_flight(sid, table, want)
+
+
+def _path_launches(counters: dict, device, expect: dict, what: str):
+    """The counters after a run, held to ``expect`` on the card (None on
+    the CPU, where the wrappers run the plain versions)."""
+    launches = _counted(counters, device)
+    if launches is not None:
+        want = {name: 0 for name in counters}
+        want.update(expect)
+        if launches != want:
+            raise AssertionError(f"{what}: launch counts {launches} != "
+                                 f"{want}")
+    return launches
+
+
+def _add(total: dict, launches) -> None:
+    for k, v in (launches or {}).items():
+        total[k] = total.get(k, 0) + v
+
+
+def _expect_refusal(ex, ctx, segs, code: str, what: str) -> None:
+    from pinot_tpu_torch.engine.errors import NotPortedError
+
+    try:
+        ex.execute(ctx, segs)
+    except NotPortedError as e:
+        if e.reason_code != code:
+            raise AssertionError(f"{what}: {e.reason_code} != {code}")
+    else:
+        raise AssertionError(f"{what}: served, expected NotPortedError")
+
+
+def phase_sql(segs, sqls: dict, wants: dict, kept: dict, ex, bex,
+              reps: int, errs: dict = None, q33_rows=None) -> dict:
+    """9a: S1-S7 (``tools/ssb.py`` ``sql_queries``) ``reps`` times per
+    segment through ``ex`` and over the batch through ``bex``, each held
+    against the numpy oracle, with its decline code, rung and launches per
+    path asserted from the segments the pruner keeps; S2's rows equal
+    Q3.3's (``q33_rows``). On the card the fused queries' kernels are then
+    held against the plain version and timed at segment 0 and the batch."""
+    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.engine.plan import plan_segment
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.query import compile_query
+
+    counters = {**scan_counters(), "general_rung": kernels.RUNG_COUNTER}
+    rows = sum(s.num_docs for s in segs)
+    per, batch, paths = {}, {}, {}
+    launches = {"per_segment": {}, "batch": {}}
+    for sid, sql in sqls.items():
+        ctx = compile_query(sql)
+        code, rung = SQL_PATH[sid]
+        k = len(kept[sid])
+        runs = _lut_runs(plan_segment(ctx, kept[sid][0]))
+        ex.execute(ctx, segs)       # untimed: stages and plans
+
+        def check(table, stats, sid=sid, code=code, rung=rung, k=k):
+            _check_sql_rows(sid, table, wants[sid])
+            want = {_decline_key(code): k} if code else {}
+            if stats.decisions != want:
+                raise AssertionError(f"{sid}: decisions {stats.decisions}")
+            if stats.rung_segments != ({rung: k} if rung else {}):
+                raise AssertionError(f"{sid}: rungs {stats.rung_segments}")
+            if sid == "S6" and (stats.num_docs_scanned, stats.total_docs) \
+                    != (0, rows):
+                raise AssertionError(f"S6: {stats.num_docs_scanned} docs "
+                                     "scanned: no metadata answer")
+        _reset(counters)
+        per[sid] = _timed(ex, ctx, segs, reps, check)
+        fused = 0 if code or sid == "S6" else k * reps
+        _add(launches["per_segment"], _path_launches(counters, ex.device, {
+            "fused_scan": fused, "general_rung": k * reps if code else 0},
+            f"{sid} per segment"))
+        paths[sid] = {"kept_segments": k, "lut_runs": runs,
+                      "decline": code, "rung": rung}
+        if code:
+            _expect_refusal(bex, ctx, segs, code, f"batch {sid}")
+        else:
+            bex.execute(ctx, segs)  # untimed: stages the batch and binds
+
+            def bcheck(table, stats, sid=sid):
+                _check_sql_rows(sid, table, wants[sid])
+                if stats.decisions:
+                    raise AssertionError(f"batch {sid}: {stats.decisions}")
+                if sid == "S6" and stats.num_docs_scanned != rows:
+                    raise AssertionError("S6: the batch path scans")
+            _reset(counters)
+            batch[sid] = _timed(bex, ctx, segs, reps, bcheck)
+            _add(launches["batch"], _path_launches(counters, bex.device, {
+                "sharded_fused_scan": reps if k > 1 else 0,
+                "fused_scan": reps if k == 1 else 0}, f"{sid} batch"))
+        log(f"  9a {sid}: {k} of {len(segs)} segments kept, lut runs "
+            f"{runs}, decline {code}, rung {rung}; == numpy oracle"
+            + ("; the batch raises NotPortedError" if code else ""))
+    if q33_rows is not None:
+        got, _ = ex.execute(compile_query(sqls["S2"]), segs)
+        if sorted(map(tuple, got.rows)) != sorted(map(tuple, q33_rows)):
+            raise AssertionError("S2's rows differ from Q3.3's")
+        log("  9a S2's rows == Q3.3's")
+    out = {"per_query": _latencies(per, rows), "paths": paths,
+           "launches": launches, "timing": []}
+    out["batch_per_query"] = _latencies(batch, rows,
+                                        beside=out["per_query"])
+    if ex.device.type == "cuda" and errs is not None:
+        log("  9a kernels against plain version and timings at the paths' "
+            "shapes: the first kept segment, then the batch of the kept "
+            "segments")
+        staged = bex.batches_staged
+        out["timing"] = (
+            _time_kernels({sid: (ex.stage(kept[sid][0]),
+                                 kept[sid][0].num_docs, sqls[sid])
+                           for sid in SQL_TIMED}, errs, 20)
+            + _time_kernels({sid: (bex.batch_for(kept[sid])[1],
+                                   sum(s.num_docs for s in kept[sid]),
+                                   sqls[sid])
+                             for sid in SQL_TIMED if len(kept[sid]) > 1},
+                            errs, 20))
+        if bex.batches_staged != staged:
+            raise AssertionError("9a: a batch was staged for the timings")
+    return out
+
+
+DAY_MS = 86_400_000
+# a UTC midnight: the events table's first millisecond
+EVENTS_T0 = 1_700_006_400_000
+COUNTRIES = ["AR", "BR", "CN", "DE", "FR", "GB", "IN", "JP", "MX", "US"]
+EVENT_TYPES = ["click", "purchase", "scroll", "share", "view"]
+
+
+def _events_table(seed: int, segments: int, rows_per_segment: int):
+    """(segments, arrays): ``segments`` time-ordered segments over 28 days
+    of events, each a contiguous window, as a realtime table seals them;
+    ``ts`` raw (no dictionary) epoch milliseconds."""
+    from pinot_tpu_torch.segment import ColumnArrays, segment_from_arrays
+    from pinot_tpu_torch.spi import DataType, FieldType
+
+    rng = np.random.default_rng(seed + 9)
+    window = 28 * DAY_MS // segments
+    D, M = FieldType.DIMENSION, FieldType.METRIC
+    segs, arrays = [], []
+    for i in range(segments):
+        n = rows_per_segment
+        ts = np.sort(EVENTS_T0 + i * window + rng.integers(0, window, n))
+        country = rng.integers(0, len(COUNTRIES), n)
+        etype = rng.integers(0, len(EVENT_TYPES), n)
+        revenue = rng.integers(0, 500, n)
+        r_uniq, r_ids = np.unique(revenue, return_inverse=True)
+        segs.append(segment_from_arrays(f"events_{i}", n, {
+            "ts": ColumnArrays(DataType.LONG, D, values=ts),
+            "country": ColumnArrays(DataType.STRING, D,
+                                    np.array(COUNTRIES), country),
+            "event_type": ColumnArrays(DataType.STRING, D,
+                                       np.array(EVENT_TYPES), etype),
+            "revenue": ColumnArrays(DataType.INT, M, r_uniq,
+                                    r_ids.reshape(-1)),
+        }, table_name="events"))
+        arrays.append({"ts": ts, "country": country, "revenue": revenue})
+    return segs, {k: np.concatenate([a[k] for a in arrays])
+                  for k in arrays[0]}
+
+
+def _time_queries(lo: int, hi: int) -> dict:
+    return {
+        # dateTrunc's key spans the milliseconds: the JAX planner sends it
+        # to its host engine, so the port refuses it with the same code
+        "T1": "SELECT dateTrunc('DAY', ts), count(*), sum(revenue) "
+              "FROM events GROUP BY dateTrunc('DAY', ts)",
+        "T1b": "SELECT toEpochDays(ts), min(dateTrunc('DAY', ts)), "
+               "count(*), sum(revenue) FROM events GROUP BY toEpochDays(ts) "
+               "ORDER BY toEpochDays(ts) LIMIT 100",
+        "T2": "SELECT toEpochHours(ts), country, count(*), sum(revenue) "
+              "FROM events GROUP BY toEpochHours(ts), country LIMIT 100000",
+        "T3": "SELECT toEpochDays(ts), count(*), sum(revenue) FROM events "
+              f"WHERE ts BETWEEN {lo} AND {hi} "
+              "GROUP BY toEpochDays(ts) ORDER BY toEpochDays(ts)",
+        "T4": "SELECT sum(timeConvert(ts, 'MILLISECONDS', 'SECONDS')), "
+              "count(*) FROM events",
+    }
+
+
+# per query: (the fused scan's decline code, the rung per segment) or, for
+# a query the port refuses, (its NotPortedError code, "refused")
+TIME_PATH = {"T1": ("group_expression_span_over_limit", "refused"),
+             "T1b": ("pallas_raw_group_key", "dense"),
+             "T2": ("pallas_raw_group_key", "dense"),
+             "T3": ("pallas_vrange", "dense"),
+             "T4": ("pallas_agg_value_op_unsupported", None)}
+
+
+def _grouped(keys: list, value: np.ndarray) -> list:
+    """[key..., count, int sum of ``value``] per distinct key, sorted: the
+    keys (small integer spans) composed row-major into one bin each."""
+    bins = np.zeros(value.shape[0], dtype=np.int64)
+    spans = []
+    for k in keys:
+        lo, hi = int(k.min()), int(k.max())
+        spans.append((lo, hi - lo + 1))
+        bins = bins * (hi - lo + 1) + (k - lo)
+    size = int(np.prod([n for _, n in spans]))
+    cnt = np.bincount(bins, minlength=size)
+    # exact: every sum here stays far below 2^53
+    sums = np.bincount(bins, weights=value.astype(np.float64),
+                       minlength=size)
+    out = []
+    for b in np.nonzero(cnt)[0].tolist():
+        row, rest = [], b
+        for lo, n in reversed(spans):
+            row.append(lo + rest % n)
+            rest //= n
+        out.append(row[::-1] + [int(cnt[b]), int(sums[b])])
+    return out
+
+
+def _time_answers(a: dict, lo: int, hi: int) -> dict:
+    ts, rev = a["ts"], a["revenue"]
+    days = ts // DAY_MS
+    m = (ts >= lo) & (ts <= hi)
+    return {
+        "T1b": [[d, float(d * DAY_MS), c, float(s)]
+                for d, c, s in _grouped([days], rev)],
+        "T2": sorted([h, COUNTRIES[c], n, float(s)] for h, c, n, s in
+                     _grouped([ts // 3_600_000, a["country"]], rev)),
+        "T3": [[d, c, float(s)] for d, c, s in _grouped([days[m]], rev[m])],
+        "T4": [[float((ts // 1000).sum()), int(ts.size)]],
+    }
+
+
+def phase_time(seed: int, reps: int, segments: int = 8,
+               rows_per_segment: int = 2_500_000,
+               device: str = "cuda") -> dict:
+    """9b: time-bucket group-bys over ``segments`` x ``rows_per_segment``
+    events, each query ``reps`` times per segment against numpy, with its
+    decline code, rung and general-rung calls asserted (the fused scan
+    declines floordiv / mod keys and values, as the JAX kernel does); the
+    batch path raises NotPortedError with the same code."""
+    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.engine.pruner import prune_segments
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools.usertable import check_rows
+
+    t0 = time.perf_counter()
+    segs, arrays = _events_table(seed, segments, rows_per_segment)
+    lo = EVENTS_T0 + 10 * DAY_MS
+    hi = lo + 2 * DAY_MS - 1
+    sqls = _time_queries(lo, hi)
+    wants = _time_answers(arrays, lo, hi)
+    rows = sum(s.num_docs for s in segs)
+    log(f"  9b: {rows} events in {len(segs)} segments of "
+        f"{28 / len(segs):g} days each and the numpy oracle: "
+        f"{time.perf_counter() - t0:.1f} s")
+    counters = {**scan_counters(), "general_rung": kernels.RUNG_COUNTER}
+    ex = ServerQueryExecutor(device=device)
+    bex = ShardedQueryExecutor(device=device)
+    lat, paths, total = {}, {}, {}
+    for tid, sql in sqls.items():
+        ctx = compile_query(sql)
+        code, rung = TIME_PATH[tid]
+        if rung == "refused":
+            _expect_refusal(ex, ctx, segs, code, tid)
+            _expect_refusal(bex, ctx, segs, code, f"batch {tid}")
+            paths[tid] = {"refused": code}
+            log(f"  9b {tid}: NotPortedError {code} on both paths (the "
+                "JAX planner sends it to its host engine)")
+            continue
+        k = len(prune_segments(ctx, segs))
+        # the pruner against the segments' own ts bounds: only T3 filters
+        ts = arrays["ts"].reshape(len(segs), -1)
+        want = (int(((ts.min(axis=1) <= hi) & (ts.max(axis=1) >= lo)).sum())
+                if tid == "T3" else len(segs))
+        if k != want:
+            raise AssertionError(f"{tid}: the pruner keeps {k} segments, "
+                                 f"the ts bounds {want}")
+        ex.execute(ctx, segs)       # untimed: stages and plans
+
+        def check(table, stats, tid=tid, code=code, rung=rung, k=k):
+            got = [list(r) for r in table.rows]
+            check_rows(tid, sorted(got) if tid == "T2" else got, wants[tid])
+            if stats.decisions != {_decline_key(code): k}:
+                raise AssertionError(f"{tid}: decisions {stats.decisions}")
+            if stats.rung_segments != ({rung: k} if rung else {}):
+                raise AssertionError(f"{tid}: rungs {stats.rung_segments}")
+        _reset(counters)
+        lat[tid] = _timed(ex, ctx, segs, reps, check)
+        _add(total, _path_launches(counters, ex.device,
+                                   {"general_rung": k * reps}, tid))
+        _expect_refusal(bex, ctx, segs, code, f"batch {tid}")
+        paths[tid] = {"kept_segments": k, "decline": code, "rung": rung}
+        log(f"  9b {tid}: {k} of {len(segs)} segments kept, decline {code}, "
+            f"rung {rung}; == numpy oracle; the batch raises NotPortedError")
+    return {"rows": rows, "per_query": _latencies(lat, rows),
+            "paths": paths, "launches": total}
+
+
+def _text_segment(seed: int, n: int, distinct: int = 4096):
+    """(segment, arrays): ``title`` (3-8 words of a 200-word vocabulary)
+    and ``attrs`` (JSON: os, ver, a tags array), ``distinct`` values each,
+    ``kind`` (5 values) and ``v`` (0-999)."""
+    import json
+
+    from pinot_tpu_torch.segment import ColumnArrays, segment_from_arrays
+    from pinot_tpu_torch.spi import DataType, FieldType
+
+    rng = np.random.default_rng(seed + 11)
+    vocab = [f"w{i:03d}" for i in range(200)]
+    titles = set()
+    while len(titles) < distinct:
+        titles.add(" ".join(rng.choice(vocab, int(rng.integers(3, 9)))))
+    attrs = set()
+    while len(attrs) < distinct:
+        attrs.add(json.dumps({
+            "os": ["android", "ios", "web"][int(rng.integers(0, 3))],
+            "ver": int(rng.integers(1, 40)),
+            "tags": sorted({f"t{j}" for j in rng.integers(
+                0, 8, int(rng.integers(0, 4)))})}))
+    titles, attrs = np.array(sorted(titles)), np.array(sorted(attrs))
+    t_ids = rng.integers(0, distinct, n)
+    a_ids = rng.integers(0, distinct, n)
+    kind = rng.integers(0, 5, n)
+    v = rng.integers(0, 1000, n)
+    D, M = FieldType.DIMENSION, FieldType.METRIC
+    v_uniq, v_ids = np.unique(v, return_inverse=True)
+    seg = segment_from_arrays("docs_0", n, {
+        "title": ColumnArrays(DataType.STRING, D, titles, t_ids),
+        "attrs": ColumnArrays(DataType.STRING, D, attrs, a_ids),
+        "kind": ColumnArrays(DataType.STRING, D,
+                             np.array(["k0", "k1", "k2", "k3", "k4"]), kind),
+        "v": ColumnArrays(DataType.INT, M, v_uniq, v_ids.reshape(-1)),
+    }, table_name="docs")
+    return seg, {"titles": titles, "attrs": attrs, "t_ids": t_ids,
+                 "a_ids": a_ids, "kind": kind, "v": v}
+
+
+# the dialects of tests/test_text_index.py and tests/test_json_range_index.py
+TEXT_QUERIES = {
+    "X1": "SELECT count(*), sum(v) FROM docs "
+          "WHERE TEXT_MATCH(title, 'w007 AND w042')",
+    "X2": "SELECT kind, count(*) FROM docs "
+          "WHERE TEXT_MATCH(title, '\"w001 w002\" OR w19*') "
+          "GROUP BY kind ORDER BY kind",
+    "X3": "SELECT kind, sum(v) FROM docs WHERE JSON_MATCH(attrs, "
+          "'\"$.os\" = ''ios'' AND \"$.tags[*]\" = ''t3''') "
+          "GROUP BY kind ORDER BY kind",
+}
+
+
+def _text_luts(a: dict) -> dict:
+    """Per query, which distinct values match, written out directly:
+    whole-word sets, the adjacent pair, the prefix, parsed JSON."""
+    import json
+
+    words = [t.split() for t in a["titles"]]
+    docs = [json.loads(s) for s in a["attrs"]]
+    return {
+        "X1": np.array([{"w007", "w042"} <= set(w) for w in words]),
+        "X2": np.array([any(w[i:i + 2] == ["w001", "w002"]
+                            for i in range(len(w) - 1))
+                        or any(x.startswith("w19") for x in w)
+                        for w in words]),
+        "X3": np.array([d["os"] == "ios" and "t3" in d["tags"]
+                        for d in docs]),
+    }
+
+
+def phase_text(seed: int, reps: int, n: int = 1_000_000,
+               device: str = "cuda") -> dict:
+    """9c: TEXT_MATCH and JSON_MATCH on one ``n``-doc segment, each query
+    ``reps`` times against numpy; its lookup table's runs decide the path
+    (up to 64 runs the fused scan, more the general rung)."""
+    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.engine.fused_scan import DEFAULT_LUT_RUN_CAP
+    from pinot_tpu_torch.engine.fused_scan import _lut_runs as runs_of
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools.usertable import check_rows
+
+    seg, a = _text_segment(seed, n)
+    luts = _text_luts(a)
+    kinds = ["k0", "k1", "k2", "k3", "k4"]
+    m1 = luts["X1"][a["t_ids"]]
+    m2 = luts["X2"][a["t_ids"]]
+    m3 = luts["X3"][a["a_ids"]]
+    wants = {
+        "X1": [[int(m1.sum()), float(a["v"][m1].sum())]],
+        "X2": [[kinds[k], int((m2 & (a["kind"] == k)).sum())]
+               for k in range(5) if (m2 & (a["kind"] == k)).any()],
+        "X3": [[kinds[k], float(a["v"][m3 & (a["kind"] == k)].sum())]
+               for k in range(5) if (m3 & (a["kind"] == k)).any()],
+    }
+    counters = {**scan_counters(), "general_rung": kernels.RUNG_COUNTER}
+    ex = ServerQueryExecutor(device=device)
+    lat, paths, total = {}, {}, {}
+    for xid, sql in TEXT_QUERIES.items():
+        ctx = compile_query(sql)
+        runs = len(runs_of(luts[xid], 1 << 30))
+        code = ("pallas_lut_too_many_runs" if runs > DEFAULT_LUT_RUN_CAP
+                else None)
+        rung = None if xid == "X1" else "dense"
+        ex.execute(ctx, [seg])      # untimed: stages and plans
+
+        def check(table, stats, xid=xid, code=code, rung=rung):
+            check_rows(xid, table.rows, wants[xid])
+            if stats.decisions != ({_decline_key(code): 1} if code else {}):
+                raise AssertionError(f"{xid}: decisions {stats.decisions}")
+            if stats.rung_segments != ({rung: 1} if rung else {}):
+                raise AssertionError(f"{xid}: rungs {stats.rung_segments}")
+        _reset(counters)
+        lat[xid] = _timed(ex, ctx, [seg], reps, check)
+        _add(total, _path_launches(counters, ex.device, {
+            "general_rung" if code else "fused_scan": reps}, xid))
+        paths[xid] = {"lut_runs": runs, "decline": code, "rung": rung}
+        log(f"  9c {xid}: lookup table of {int(luts[xid].sum())} values in "
+            f"{runs} runs, decline {code}, rung {rung}; == numpy oracle")
+    return {"docs": n, "per_query": _latencies(lat, n), "paths": paths,
+            "launches": total}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10)
@@ -1206,19 +1812,42 @@ def main(argv=None) -> int:
     log("phase 8b: null bitmaps, multi-value aggregations, upsert mask")
     columns_run = phase_columns(args.seed, args.reps)
     log(f"  user-events phase: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 9: the SQL slice: LIKE / REGEXP_LIKE, HAVING, OFFSET, "
+        "OPTION and the metadata answer on SSB (9a), time-bucket group-bys "
+        "(9b), TEXT_MATCH and JSON_MATCH (9c)")
+    t0 = time.perf_counter()
+    sql_run = phase_sql(main_run["segs"], main_run["sql_texts"],
+                        main_run["sql_wants"], main_run["sql_kept"],
+                        main_run["ex"],
+                        batch_run["ex"], args.reps, errs,
+                        q33_rows=main_run["results"]["Q3.3"].rows)
+    timing += sql_run["timing"]
+    time_run = phase_time(args.seed, args.reps,
+                          segments=args.user_segments,
+                          rows_per_segment=args.user_rows)
+    text_run = phase_text(args.seed, args.reps)
+    log(f"  SQL-slice phase: {time.perf_counter() - t0:.1f} s")
     log("rungs " + json.dumps({
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]
                      for g, d in general_run["declined"].items()},
-        "user_events": users_run["paths"], "columns": columns_run["paths"]}))
-    # each path's launches, read after its own run: phase 4 (per segment),
-    # phase 6 (batch) and phase 8 (per segment and batch)
-    launches = {**main_run["launches"], **{
-        k: v for k, v in batch_run["launches"].items() if k.startswith(
-            "sharded")}}
-    for k in launches:
-        launches[k] += (users_run["launches"][k]
-                        + users_run["batch_launches"][k])
+        "user_events": users_run["paths"], "columns": columns_run["paths"],
+        "sql": sql_run["paths"], "time": time_run["paths"],
+        "text": text_run["paths"]}))
+    # each path's launches, read after its own run: phases 4 and 6 (per
+    # segment and batch), 8 (per segment and batch) and 9
+    launches = {k: 0 for k in main_run["launches"]}
+    for got in (main_run["launches"], batch_run["launches"],
+                users_run["launches"], users_run["batch_launches"],
+                sql_run["launches"]["per_segment"],
+                sql_run["launches"]["batch"], time_run["launches"],
+                text_run["launches"]):
+        for k in launches:
+            launches[k] += got.get(k, 0)
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
     kernels = []
     for name, replaces in (
             ("fused_scan", "pinot_tpu/engine/pallas_kernels.py:603"),
@@ -1243,12 +1872,20 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "args": vars(args), "ptxas": ptxas,
                        "per_flight": main_run["per_flight"],
                        "batch_per_flight": batch_run["per_flight"],
+                       "batch_per_flight_by_flight":
+                           batch_run["per_flight_by_flight"],
                        "batch_resident_bytes": batch_run["resident_bytes"],
                        "batch_max_memory_allocated":
                            batch_run["max_memory_allocated"],
+                       "batch_bytes": batch_run["batch_bytes"],
+                       "batch_setup_ms": batch_run["setup_ms"],
+                       "q43_combine": batch_run["q43_combine"],
                        "kernel_timing": timing, "kernels": kernels,
                        "general": general_run,
                        "user_events": users_run, "columns": columns_run,
+                       "sql": {k: v for k, v in sql_run.items()
+                               if k != "timing"},
+                       "time": time_run, "text": text_run,
                        "seconds": time.perf_counter() - t_all}, f, indent=1)
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -39,6 +39,7 @@ _DECLINE_RULES: Tuple[Tuple[str, str], ...] = (
     ("group-by expression", "group_expression_unbounded"),
     ("expression predicate", "expression_predicate"),
     ("virtual column predicate", "virtual_column_predicate"),
+    ("JSON_MATCH on MV", "json_match_mv_column"),
     ("on raw column -> host", "raw_predicate_unsupported"),
     ("raw MV column predicate", "raw_mv_predicate"),
     ("predicate", "predicate_unsupported"),

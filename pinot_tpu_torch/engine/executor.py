@@ -2,15 +2,21 @@
 
 Counterpart of ``pinot_tpu/engine/executor.py`` (``ServerQueryExecutor``,
 ``_try_pallas`` / ``_run_kernel`` at :939/:1020, ``decode_scalar_result``
-at :1093, ``decode_grouped_result`` at :1127). Per segment: plan -> the
-fused scan (probe first when the group space exceeds MAX_SCAN_GROUPS); a
-plan it declines, with the decline recorded under the JAX package's keys,
-goes to the general rung (``engine/kernels.py``) on the same device ->
-decode; then merge and reduce. ``use_fused_scan=False`` (JAX:
-``use_pallas=False``) sends every plan to the general rung. A plan neither
-rung serves (a ``PlanError``: the JAX package's host engine serves it)
-raises :class:`NotPortedError` with the reason code: there is no silent
-host fallback. Segments run one after another on the current stream;
+at :1093, ``decode_grouped_result`` at :1127). A query first loses the
+segments its filter provably excludes (``engine/pruner.py``; at least one
+is kept). Per segment: a filter-less COUNT(*) / MIN / MAX / MINMAXRANGE is
+answered from the segment's metadata; otherwise plan -> the fused scan
+(probe first when the group space exceeds MAX_SCAN_GROUPS); a plan it
+declines, with the decline recorded under the JAX package's keys, goes to
+the general rung (``engine/kernels.py``) on the same device -> decode;
+then merge, the ``num_groups_limit`` trim, and reduce.
+``use_fused_scan=False`` (JAX: ``use_pallas=False``) sends every plan to
+the general rung. A plan neither rung serves (a ``PlanError``: the JAX
+package's host engine serves it) raises :class:`NotPortedError` with the
+reason code: there is no silent host fallback. The virtual columns
+(``$docId``, ``$segmentName``, ``$hostName``) are known columns that only
+the host engine serves. Segments run one after another on the current
+stream;
 ``_execute_aggregation`` and ``_execute_group_by`` are the points a
 subclass overrides to combine segments otherwise
 (``pinot_tpu_torch.parallel.ShardedQueryExecutor``).
@@ -26,9 +32,14 @@ import torch
 
 from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine import fused_scan, kernels
-from pinot_tpu_torch.engine.aggregates import AggDef, resolve_agg
+from pinot_tpu_torch.engine.aggregates import (
+    AggDef,
+    agg_value_expr,
+    resolve_agg,
+)
 from pinot_tpu_torch.engine.errors import NotPortedError, PlanError, QueryError
 from pinot_tpu_torch.engine.plan import SegmentPlan, plan_segment
+from pinot_tpu_torch.engine.pruner import prune_segments
 from pinot_tpu_torch.engine.results import (
     AggResult,
     GroupByResult,
@@ -40,21 +51,28 @@ from pinot_tpu_torch.engine.results import (
 )
 from pinot_tpu_torch.engine.staging import StagedSegment
 from pinot_tpu_torch.query.context import QueryContext
+from pinot_tpu_torch.query.expressions import Identifier
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.utils.hll import HyperLogLog
 
 # plans kept per executor, least recently used evicted first (the JAX
 # executor's plan cache): a repeated query plans and uploads its params once
 PLAN_CACHE_CAP = 256
+# merged groups kept before the reduce (Pinot's numGroupsLimit default)
+DEFAULT_NUM_GROUPS_LIMIT = 100_000
+# columns every table has; the JAX package serves them on its host engine
+VIRTUAL_COLUMNS = ("$docId", "$segmentName", "$hostName")
 
 
 class ServerQueryExecutor:
     """One per server; owns the staged segments of one device."""
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
-                 use_fused_scan: bool = True):
+                 use_fused_scan: bool = True,
+                 num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT):
         self.device = resolve_device(device)
         self.use_fused_scan = use_fused_scan
+        self.num_groups_limit = num_groups_limit
         # segment name -> (segment, its staged image)
         self._staged: Dict[str, Tuple[ImmutableSegment, StagedSegment]] = {}
         # (sql, segment name, upsert-managed) -> (segment, its plan), least
@@ -74,12 +92,13 @@ class ServerQueryExecutor:
                 ) -> Tuple[ResultTable, QueryStats]:
         if not segments:
             raise QueryError(f"no segments for table {ctx.table_name!r}")
-        known = set(segments[0].metadata.columns)
+        known = set(segments[0].metadata.columns) | set(VIRTUAL_COLUMNS)
         for c in ctx.referenced_columns():
             if c not in known:
                 raise QueryError(f"unknown column {c!r} in table "
                                  f"{ctx.table_name!r}")
         stats = QueryStats(num_segments_queried=len(segments))
+        segments = self._prune(ctx, segments, stats)
         scans0 = fused_scan.SCAN_COUNTER.launches
         probes0 = fused_scan.PROBE_COUNTER.launches
         general0 = kernels.RUNG_COUNTER.launches
@@ -92,18 +111,37 @@ class ServerQueryExecutor:
         stats.probe_launches = fused_scan.PROBE_COUNTER.launches - probes0
         stats.general_launches = kernels.RUNG_COUNTER.launches - general0
         if ctx.is_group_by:
+            if merged.trim(self.num_groups_limit):
+                stats.num_groups_limit_reached = True
             types = {n: cm.data_type.label
                      for n, cm in segments[0].metadata.columns.items()}
             return reduce_group_by(ctx, aggs, merged, types), stats
         return reduce_aggregation(ctx, aggs, merged), stats
+
+    @staticmethod
+    def _prune(ctx: QueryContext, segments: List[ImmutableSegment],
+               stats: QueryStats) -> List[ImmutableSegment]:
+        """The segments the filter may match, at least one (the reduce
+        needs a result to shape); the pruned segments' docs count in
+        ``total_docs``."""
+        kept = prune_segments(ctx, segments, stats)
+        if not kept:
+            kept = segments[:1]
+            stats.num_segments_pruned -= 1
+        names = {s.segment_name for s in kept}
+        stats.total_docs += sum(s.num_docs for s in segments
+                                if s.segment_name not in names)
+        return kept
 
     def _execute_aggregation(self, ctx: QueryContext, aggs: List[AggDef],
                              segments: List[ImmutableSegment],
                              stats: QueryStats) -> AggResult:
         merged: Optional[AggResult] = None
         for seg in segments:
-            scan = self._scan_segment(ctx, seg, stats)
-            part = decode_scalar_result(scan.plan, seg, scan.tree)
+            part = _metadata_answer(ctx, aggs, seg, stats)
+            if part is None:
+                scan = self._scan_segment(ctx, seg, stats)
+                part = decode_scalar_result(scan.plan, seg, scan.tree)
             if merged is None:
                 merged = part
             else:
@@ -185,6 +223,38 @@ class ServerQueryExecutor:
         matched = int(tree["num_matched"] if "num_matched" in tree
                       else np.asarray(tree["presence"]).sum())
         return fused_scan.SegmentScan(tree=tree, plan=plan, matched=matched)
+
+
+def _metadata_answer(ctx: QueryContext, aggs: List[AggDef],
+                     seg: ImmutableSegment, stats: QueryStats
+                     ) -> Optional[AggResult]:
+    """A filter-less query of COUNT(*) and MIN / MAX / MINMAXRANGE of
+    numeric columns without nulls, answered from the segment's metadata
+    with no scan (the JAX executor's ``_metadata_fast_path``); None for any
+    other query, or an upsert segment (its metadata counts invalid docs)."""
+    if ctx.filter is not None or ctx.is_group_by \
+            or seg.valid_doc_ids is not None:
+        return None
+    states: List[Any] = []
+    for agg, fn in zip(aggs, ctx.aggregations):
+        vexpr = agg_value_expr(fn)
+        if agg.base == "count" and not agg.mv and vexpr is None:
+            states.append(seg.num_docs)
+            continue
+        if (agg.base in ("min", "max", "minmaxrange") and not agg.mv
+                and isinstance(vexpr, Identifier)):
+            cm = seg.metadata.columns.get(vexpr.name)
+            if (cm is not None and cm.data_type.is_numeric
+                    and not cm.has_nulls and cm.min_value is not None):
+                lo, hi = float(cm.min_value), float(cm.max_value)
+                states.append(lo if agg.base == "min" else
+                              hi if agg.base == "max" else (lo, hi))
+                continue
+        return None
+    stats.num_segments_processed += 1
+    stats.num_segments_matched += 1
+    stats.total_docs += seg.num_docs
+    return AggResult(states)
 
 
 def decode_scalar_result(plan: SegmentPlan, provider: Any,

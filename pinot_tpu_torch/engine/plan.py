@@ -8,15 +8,20 @@ an MV column is the NOT of its inclusive form), raw-value filters
 ``validdocs`` leaf; ``gdict``, ``graw`` and ``gexpr`` group keys (bounded
 integral ``+ - * mod floordiv`` expressions); ``colmv`` values of the MV
 aggregations; and the device DISTINCTCOUNTHLL with its per-dictId register
-tables. The spec (a hashable structural description) and the params (the
+tables. REGEXP_LIKE (and LIKE, which the optimizer rewrites to it),
+TEXT_MATCH and JSON_MATCH on a dictionary column are ``lut``/``mv_lut``
+leaves over a table evaluated once per distinct value. The epoch time
+transforms (``toEpoch*``, ``fromEpoch*``, ``dateTrunc``, ``timeConvert``)
+are rewritten at plan time into ``floordiv``/``times``/``minus(mod)``
+trees. The spec (a hashable structural description) and the params (the
 runtime values, in the order the kernel side consumes them) equal the JAX
 package's for the same SQL and segment, so the eligibility rules
-downstream read the same input. The JAX planner's time-transform rewrites
-are not ported: a transform raises ``PlanError``.
+downstream read the same input.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -37,6 +42,14 @@ from pinot_tpu_torch.query.expressions import (
     PredicateType,
 )
 from pinot_tpu_torch.segment.immutable import DataSource, ImmutableSegment
+from pinot_tpu_torch.segment.jsonindex import (
+    match_json_value,
+    parse_match_filter,
+)
+from pinot_tpu_torch.segment.textindex import (
+    match_text_value,
+    parse_text_query,
+)
 from pinot_tpu_torch.utils.hll import DEFAULT_LOG2M
 
 # composed group key space past which the JAX package leaves the device
@@ -47,6 +60,55 @@ _I32_MAX = int(np.iinfo(np.int32).max)
 _ARITH_OPS = {"plus", "minus", "times", "divide", "mod", "floordiv"}
 # the integral operations whose bounds propagate (true division is float)
 _INT_OPS = ("plus", "minus", "times", "mod", "floordiv")
+
+
+# epoch-arithmetic transforms compile to exact integer ops; fixed-width
+# units only (the JAX package's query/functions.py TIME_UNIT_MS and
+# TRUNC_UNIT_MS): calendar units are not device-expressible
+_UNIT_MS = {"MILLISECONDS": 1, "SECONDS": 1000, "MINUTES": 60_000,
+            "HOURS": 3_600_000, "DAYS": 86_400_000}
+_TRUNC_MS = {"millisecond": 1, "second": 1000, "minute": 60_000,
+             "hour": 3_600_000, "day": 86_400_000, "week": 7 * 86_400_000}
+_TIME_DIV = {"toepochseconds": _UNIT_MS["SECONDS"],
+             "toepochminutes": _UNIT_MS["MINUTES"],
+             "toepochhours": _UNIT_MS["HOURS"],
+             "toepochdays": _UNIT_MS["DAYS"]}
+_TIME_MUL = {"fromepochseconds": _UNIT_MS["SECONDS"],
+             "fromepochminutes": _UNIT_MS["MINUTES"],
+             "fromepochhours": _UNIT_MS["HOURS"],
+             "fromepochdays": _UNIT_MS["DAYS"]}
+
+
+def _device_transform_rewrite(e: Function) -> Optional[Expr]:
+    """Time transform -> the equivalent plus/minus/times/mod/floordiv
+    tree, or None when it is not device-expressible. Applied at plan time
+    only, so response column names keep the user's expression."""
+    n = e.name
+    if n in _TIME_DIV and len(e.args) == 1:
+        return Function("floordiv", (e.args[0], Literal(_TIME_DIV[n])))
+    if n in _TIME_MUL and len(e.args) == 1:
+        return Function("times", (e.args[0], Literal(_TIME_MUL[n])))
+    if (n == "datetrunc" and len(e.args) == 2
+            and isinstance(e.args[0], Literal)):
+        q = _TRUNC_MS.get(str(e.args[0].value).lower())
+        if q == 1:
+            return e.args[1]
+        if q:
+            # trunc(v, q) = v - (v mod q), exact for negatives (floor mod)
+            return Function("minus", (e.args[1], Function(
+                "mod", (e.args[1], Literal(q)))))
+        return None
+    if (n == "timeconvert" and len(e.args) == 3
+            and all(isinstance(a, Literal) for a in e.args[1:])):
+        ma = _UNIT_MS.get(str(e.args[1].value).upper())
+        mb = _UNIT_MS.get(str(e.args[2].value).upper())
+        if ma is None or mb is None:
+            return None
+        inner: Expr = (e.args[0] if ma == 1
+                       else Function("times", (e.args[0], Literal(ma))))
+        return inner if mb == 1 else Function("floordiv",
+                                              (inner, Literal(mb)))
+    return None
 
 
 def _next_pow2(n: int) -> int:
@@ -207,8 +269,8 @@ def _row_major_strides(cards: List[int]) -> np.ndarray:
 
 def _value_kind(e: Expr, segment: ImmutableSegment):
     """('int', max_abs | None) when the expression is integral, else
-    ('float', None); integer bounds propagate through + - * mod floordiv,
-    true division is float."""
+    ('float', None); integer bounds propagate through + - * mod floordiv
+    and the time-transform rewrites, true division is float."""
     if isinstance(e, Literal):
         if isinstance(e.value, (bool, int)):
             return ("int", abs(int(e.value)))
@@ -221,6 +283,10 @@ def _value_kind(e: Expr, segment: ImmutableSegment):
             return ("int", max(abs(int(cm.min_value)),
                                abs(int(cm.max_value))))
         return ("float", None)
+    if isinstance(e, Function):
+        rewritten = _device_transform_rewrite(e)
+        if rewritten is not None:
+            return _value_kind(rewritten, segment)
     if isinstance(e, Function) and e.name in _INT_OPS and len(e.args) == 2:
         kinds = [_value_kind(a, segment) for a in e.args]
         if all(k[0] == "int" for k in kinds):
@@ -394,6 +460,10 @@ def _value_bounds(e: Expr, segment: ImmutableSegment
                 or cm.min_value is None or cm.max_value is None):
             return None
         return (int(cm.min_value), int(cm.max_value))
+    if isinstance(e, Function):
+        rewritten = _device_transform_rewrite(e)
+        if rewritten is not None:
+            return _value_bounds(rewritten, segment)
     if isinstance(e, Function) and e.name in _INT_OPS and len(e.args) == 2:
         a = _value_bounds(e.args[0], segment)
         b = _value_bounds(e.args[1], segment)
@@ -523,16 +593,14 @@ def _compile_predicate(pred: Predicate, segment: ImmutableSegment,
                                                pred.upper_inclusive)
             params.append(np.array([a, b], dtype=np.int32))
             return (mvp + "range", col)
-        # IN / NOT IN: boolean dictId lookup table
-        lut = np.zeros(d.cardinality, dtype=bool)
-        for v in pred.values:
-            i = d.index_of(_conv(ds, v))
-            if i >= 0:
-                lut[i] = True
-        if t is PredicateType.NOT_IN:
-            lut = ~lut
-        params.append(lut)
-        return (mvp + "lut", col, d.cardinality)
+        if t in (PredicateType.IN, PredicateType.NOT_IN,
+                 PredicateType.REGEXP_LIKE, PredicateType.TEXT_MATCH,
+                 PredicateType.JSON_MATCH):
+            if t is PredicateType.JSON_MATCH and not cm.single_value:
+                raise PlanError("JSON_MATCH on MV column is unsupported")
+            params.append(_build_lut(ds, pred))
+            return (mvp + "lut", col, d.cardinality)
+        raise PlanError(f"predicate {t} -> host path")
 
     # raw column: compares against the values in their staged dtype
     if not cm.single_value:
@@ -600,6 +668,46 @@ def _raw_bounds(cm, ds: DataSource, pred: Predicate):
     return lo, hi, lo_inc, hi_inc
 
 
+def _build_lut(ds: DataSource, pred: Predicate) -> np.ndarray:
+    """Boolean dictId lookup table: IN / NOT IN by value, the others by
+    evaluating the pattern once per distinct value (the JAX planner's
+    index-less branches, equal to what its FST, text and JSON indexes
+    resolve)."""
+    d = ds.dictionary
+    card = d.cardinality
+    t = pred.type
+    lut = np.zeros(card, dtype=bool)
+    if t in (PredicateType.IN, PredicateType.NOT_IN):
+        for v in pred.values:
+            i = d.index_of(_conv(ds, v))
+            if i >= 0:
+                lut[i] = True
+        return ~lut if t is PredicateType.NOT_IN else lut
+    if t is PredicateType.REGEXP_LIKE:
+        try:
+            rx = re.compile(str(pred.value))
+        except re.error as e:
+            raise QueryError(f"bad regex {pred.value!r}: {e}")
+        for i in range(card):
+            lut[i] = rx.search(str(d.get_value(i))) is not None
+        return lut
+    if t is PredicateType.JSON_MATCH:
+        try:
+            ast = parse_match_filter(str(pred.value))
+        except ValueError as e:
+            raise QueryError(f"bad JSON_MATCH filter: {e}")
+        for i in range(card):
+            lut[i] = match_json_value(d.get_value(i), ast)
+        return lut
+    try:
+        ast = parse_text_query(str(pred.value))
+    except ValueError as e:
+        raise QueryError(f"bad TEXT_MATCH query: {e}")
+    for i in range(card):
+        lut[i] = match_text_value(d.get_value(i), ast)
+    return lut
+
+
 def _compile_value(e: Expr, segment: ImmutableSegment, params: List[Any],
                    columns: List[str]) -> Tuple:
     if isinstance(e, Literal):
@@ -620,7 +728,10 @@ def _compile_value(e: Expr, segment: ImmutableSegment, params: List[Any],
         return ("col", e.name, cm.has_dictionary)
     if isinstance(e, Function):
         if e.name not in _ARITH_OPS:
-            raise PlanError(f"transform {e.name} -> host path")
+            rewritten = _device_transform_rewrite(e)
+            if rewritten is None:
+                raise PlanError(f"transform {e.name} -> host path")
+            return _compile_value(rewritten, segment, params, columns)
         args = tuple(_compile_value(a, segment, params, columns)
                      for a in e.args)
         return ("fn", e.name, args)

@@ -1,7 +1,9 @@
 """Result model and reduce-side finalisation.
 
 Counterpart of ``pinot_tpu/engine/results.py`` (``reduce_group_by``,
-``reduce_aggregation``): merged states -> ORDER BY -> LIMIT -> rows.
+``reduce_aggregation``): merged group states -> HAVING -> ORDER BY ->
+OFFSET / LIMIT -> rows. A query without GROUP BY reduces to its one row:
+HAVING and OFFSET do not apply there, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,9 +14,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from pinot_tpu_torch.engine.aggregates import AggDef
-from pinot_tpu_torch.engine.errors import QueryError
+from pinot_tpu_torch.engine.errors import QueryError, UnsupportedQueryError
 from pinot_tpu_torch.query.context import QueryContext
-from pinot_tpu_torch.query.expressions import Expr, Function, Literal
+from pinot_tpu_torch.query.expressions import (
+    Expr,
+    FilterNode,
+    FilterOp,
+    Function,
+    Literal,
+    PredicateType,
+)
 
 _ARITH = {
     "plus": lambda a, b: a + b,
@@ -42,8 +51,11 @@ class QueryStats:
     num_segments_queried: int = 0
     num_segments_processed: int = 0
     num_segments_matched: int = 0
+    num_segments_pruned: int = 0
     num_docs_scanned: int = 0
     total_docs: int = 0
+    # the merged groups were cut to the executor's num_groups_limit
+    num_groups_limit_reached: bool = False
     # fused-scan launches this query made (full scans and probes), per
     # segment and over a whole segment batch
     scan_launches: int = 0
@@ -106,6 +118,14 @@ class GroupByResult:
                 self.groups[key] = [a.merge(m, s) for a, m, s in
                                     zip(aggs, mine, states)]
 
+    def trim(self, max_size: int) -> bool:
+        """Keep the first ``max_size`` groups in insertion order (Pinot's
+        numGroupsLimit); True when groups were cut."""
+        if len(self.groups) <= max_size:
+            return False
+        self.groups = dict(list(self.groups.items())[:max_size])
+        return True
+
 
 def _env_lookup(env: Dict[str, Any], expr: Expr) -> Any:
     key = str(expr)
@@ -118,6 +138,36 @@ def _env_lookup(env: Dict[str, Any], expr: Expr) -> Any:
         b = _env_lookup(env, expr.args[1])
         return _ARITH[expr.name](float(a), float(b))
     raise QueryError(f"expression {expr} is not in GROUP BY or an aggregation")
+
+
+def _eval_scalar_filter(node: FilterNode, env: Dict[str, Any]) -> bool:
+    """HAVING over one group's finalized values."""
+    if node.op is FilterOp.AND:
+        return all(_eval_scalar_filter(c, env) for c in node.children)
+    if node.op is FilterOp.OR:
+        return any(_eval_scalar_filter(c, env) for c in node.children)
+    if node.op is FilterOp.NOT:
+        return not _eval_scalar_filter(node.children[0], env)
+    p = node.predicate
+    v = _env_lookup(env, p.lhs)
+    t = p.type
+    if t is PredicateType.EQ:
+        return v == p.value
+    if t is PredicateType.NOT_EQ:
+        return v != p.value
+    if t is PredicateType.IN:
+        return v in p.values
+    if t is PredicateType.NOT_IN:
+        return v not in p.values
+    if t is PredicateType.RANGE:
+        if p.lower is not None and (v < p.lower if p.lower_inclusive
+                                    else v <= p.lower):
+            return False
+        if p.upper is not None and (v > p.upper if p.upper_inclusive
+                                    else v >= p.upper):
+            return False
+        return True
+    raise UnsupportedQueryError(f"HAVING predicate {t} not supported")
 
 
 class _Reversible:
@@ -169,6 +219,8 @@ def reduce_group_by(ctx: QueryContext, aggs: List[AggDef],
         for fn, agg, st in zip(ctx.aggregations, aggs, states):
             env[str(fn)] = agg.finalize(st)
         envs.append(env)
+    if ctx.having is not None:
+        envs = [e for e in envs if _eval_scalar_filter(ctx.having, e)]
     if ctx.order_by:
         envs.sort(key=lambda env: tuple(
             _Reversible(_env_lookup(env, ob.expr), ob.ascending)

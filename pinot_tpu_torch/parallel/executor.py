@@ -1,16 +1,22 @@
 """Sharded query executor: a multi-segment query as one scan on the card.
 
 Counterpart of ``pinot_tpu/parallel/executor.py`` (``ShardedQueryExecutor``)
-for one card: a query over more than one segment plans once against the
-segments' ``SegmentBatch`` and runs as one launch of the fused scan over
-the whole batch (``parallel/combine.py``), with one device-to-host copy of
-its outputs, where the per-segment executor runs one launch and one copy
-per segment. A single segment, segments that cannot share a batch, or a
-plan the batch's key space refuses take the per-segment path of the base
-class, with the decision recorded in ``QueryStats.decisions`` (upsert
-segments among them: their valid-doc bitmaps change under a batch). A plan
-the fused scan declines raises :class:`NotPortedError`: the JAX package
-would serve it on its jnp combine, which is not ported.
+for one card: a query over more than one segment (after the base class's
+pruning) plans once against the segments' ``SegmentBatch`` and runs as
+one launch of the fused scan over the whole batch
+(``parallel/combine.py``), with one device-to-host copy of its outputs,
+where the per-segment executor runs one launch and one copy per segment.
+Batches are cached by the set of segments the pruner kept, within a
+byte budget (least recently used evicted first past it). The merged
+groups are trimmed to ``num_groups_limit`` in the base class's
+``execute``, and, as in the JAX package, a query over more than one
+segment skips the metadata answer and scans. A single segment, segments
+that cannot share a batch, or a plan the batch's key space refuses take
+the per-segment path of the base class, with the decision recorded in
+``QueryStats.decisions`` (upsert segments among them: their valid-doc
+bitmaps change under a batch). A plan the fused scan declines raises
+:class:`NotPortedError`: the JAX package would serve it on its jnp
+combine, which is not ported.
 
 The JAX executor's launch scheduler and coalescing, residency and
 admission, sliced execution, star-tree and index routing and the doc-axis
@@ -29,6 +35,7 @@ from pinot_tpu_torch.engine import fused_scan
 from pinot_tpu_torch.engine.aggregates import AggDef
 from pinot_tpu_torch.engine.errors import NotPortedError, PlanError
 from pinot_tpu_torch.engine.executor import (
+    DEFAULT_NUM_GROUPS_LIMIT,
     ServerQueryExecutor,
     decode_grouped_result,
     decode_scalar_result,
@@ -54,17 +61,32 @@ from pinot_tpu_torch.segment.immutable import ImmutableSegment
 
 # bound queries kept per executor (the JAX executor's param-cache cap)
 PARAM_CACHE_CAP = 256
-# staged batches kept per executor, least recently used evicted first: each
-# holds a device copy of every column it was asked for, and nothing else
-# bounds them until residency is ported
-BATCH_CACHE_CAP = 4
+# share of the card's memory the staged batches may hold together (the JAX
+# package's HBM budget fraction): each holds a device copy of every column
+# it was asked for, and nothing else bounds them until residency is ported
+BATCH_BUDGET_FRACTION = 0.75
+
+
+def default_batch_budget(device: torch.device) -> Optional[int]:
+    """Bytes the staged batches may hold on ``device``: a share of the
+    card's memory, no bound on the CPU."""
+    if device.type != "cuda":
+        return None
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(total * BATCH_BUDGET_FRACTION)
 
 
 class ShardedQueryExecutor(ServerQueryExecutor):
     """Executor whose combine is one scan over the segment batch."""
 
-    def __init__(self, device: Union[str, torch.device] = "cuda"):
-        super().__init__(device)
+    def __init__(self, device: Union[str, torch.device] = "cuda",
+                 num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT):
+        super().__init__(device, num_groups_limit=num_groups_limit)
+        # device bytes the staged batches may hold together (None: no
+        # bound); the batch a query runs on is kept even past it
+        self.batch_budget_bytes = default_batch_budget(self.device)
+        # batches built and staged so far (a cache hit stages none)
+        self.batches_staged = 0
         # segment names -> (batch, its device image), least recently used
         # first
         self._batches: ("OrderedDict[Tuple[str, ...], "
@@ -131,9 +153,23 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                              num_segs=pad_segments(batch.num_segments,
                                                    SEG_SHARDS))
         self._batches[key] = (batch, staged)
-        while len(self._batches) > BATCH_CACHE_CAP:
-            self._evict_batch(next(iter(self._batches.values()))[0])
+        self.batches_staged += 1
+        self._enforce_batch_budget(batch)
         return batch, staged
+
+    def _enforce_batch_budget(self, keep: SegmentBatch) -> None:
+        """Evict the least recently used batches but ``keep`` while the
+        batches hold more than the budget."""
+        if self.batch_budget_bytes is None:
+            return
+        sizes = [(b, st.nbytes()) for b, st in self._batches.values()]
+        total = sum(n for _, n in sizes)
+        for b, n in sizes:
+            if total <= self.batch_budget_bytes:
+                break
+            if b is not keep:
+                self._evict_batch(b)
+                total -= n
 
     def _evict_batch(self, batch: SegmentBatch) -> None:
         for k in [k for k, v in self._batches.items() if v[0] is batch]:
@@ -165,6 +201,8 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             self._param_cache[key] = inp
             if len(self._param_cache) > PARAM_CACHE_CAP:
                 self._param_cache.popitem(last=False)
+            # binding staged the columns this query reads
+            self._enforce_batch_budget(batch)
         else:
             self._param_cache.move_to_end(key)
         tree = fused_scan.assemble_outputs(inp.plan.spec, inp.pp, inp.scan())

@@ -1,13 +1,14 @@
 """QueryContext: the compiled server-side query.
 
 Counterpart of ``pinot_tpu/query/context.py`` (``compile_query``): parse,
-optimise the filter, resolve aliases and ordinals, and collect the
-aggregation functions the plan maker needs.
+optimise the WHERE and HAVING filters, resolve aliases and ordinals (HAVING
+takes aliases only), and collect the aggregation functions the plan maker
+and the reduce need, HAVING's among them.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional
 
 from pinot_tpu_torch.query.expressions import (
@@ -53,6 +54,8 @@ class QueryContext:
     order_by: List[OrderByExpr]
     limit: int
     offset: int = 0
+    having: Optional[FilterNode] = None
+    options: Dict[str, str] = field(default_factory=dict)
     aggregations: List[Function] = field(default_factory=list)
     sql: Optional[str] = None
 
@@ -68,6 +71,8 @@ class QueryContext:
             cols.extend(self.filter.columns())
         for e in self.group_by:
             cols.extend(e.columns())
+        if self.having is not None:
+            cols.extend(self.having.columns())
         for ob in self.order_by:
             cols.extend(ob.expr.columns())
         return [c for c in dict.fromkeys(cols) if c != "*"]
@@ -100,6 +105,18 @@ def _resolve_alias(expr: Expr, alias_map: Dict[str, Expr],
     return expr
 
 
+def _resolve_filter_aliases(node: FilterNode, alias_map: Dict[str, Expr],
+                            select_exprs: List[Expr]) -> FilterNode:
+    """HAVING: aliases only, ordinals mean nothing there."""
+    if node.predicate is not None:
+        p = node.predicate
+        lhs = _resolve_alias(p.lhs, alias_map, select_exprs, top_level=False)
+        return node if lhs is p.lhs else FilterNode.pred(replace(p, lhs=lhs))
+    return FilterNode(node.op, children=tuple(
+        _resolve_filter_aliases(c, alias_map, select_exprs)
+        for c in node.children))
+
+
 def compile_query(sql: str) -> QueryContext:
     """SQL -> optimised QueryContext."""
     parsed = parse_sql(sql)
@@ -111,12 +128,20 @@ def compile_query(sql: str) -> QueryContext:
     order_by = [OrderByExpr(fold_constants(
         _resolve_alias(ob.expr, alias_map, select_exprs)), ob.ascending)
         for ob in parsed.order_by]
+    having = optimize_filter(parsed.having)
+    if having is not None:
+        having = _resolve_filter_aliases(having, alias_map, select_exprs)
     ctx = QueryContext(
         table_name=parsed.table, select_expressions=select_exprs,
         aliases=aliases, filter=optimize_filter(parsed.where),
-        group_by=group_by, order_by=order_by, limit=parsed.limit, sql=sql)
+        group_by=group_by, order_by=order_by, limit=parsed.limit,
+        offset=parsed.offset, having=having, options=dict(parsed.options),
+        sql=sql)
     for e in select_exprs:
         _collect_aggregations(e, ctx.aggregations)
+    if having is not None:
+        for p in having.predicates():
+            _collect_aggregations(p.lhs, ctx.aggregations)
     for ob in order_by:
         _collect_aggregations(ob.expr, ctx.aggregations)
     if not ctx.aggregations:

@@ -96,6 +96,10 @@ class PredicateType(Enum):
     IN = "IN"
     NOT_IN = "NOT_IN"
     RANGE = "RANGE"
+    REGEXP_LIKE = "REGEXP_LIKE"
+    LIKE = "LIKE"            # rewritten to REGEXP_LIKE by the optimizer
+    TEXT_MATCH = "TEXT_MATCH"
+    JSON_MATCH = "JSON_MATCH"
     IS_NULL = "IS_NULL"
     IS_NOT_NULL = "IS_NOT_NULL"
 
@@ -126,11 +130,13 @@ class Predicate:
             return f"{self.lhs} {t.value} {self.values!r}"
         if t in (PredicateType.IS_NULL, PredicateType.IS_NOT_NULL):
             return f"{self.lhs} {t.value}"
-        lb = "[" if self.lower_inclusive else "("
-        ub = "]" if self.upper_inclusive else ")"
-        lo = "*" if self.lower is None else repr(self.lower)
-        hi = "*" if self.upper is None else repr(self.upper)
-        return f"{self.lhs} IN {lb}{lo},{hi}{ub}"
+        if t is PredicateType.RANGE:
+            lb = "[" if self.lower_inclusive else "("
+            ub = "]" if self.upper_inclusive else ")"
+            lo = "*" if self.lower is None else repr(self.lower)
+            hi = "*" if self.upper is None else repr(self.upper)
+            return f"{self.lhs} IN {lb}{lo},{hi}{ub}"
+        return f"{t.value}({self.lhs}, {self.values!r})"
 
 
 class FilterOp(Enum):
@@ -176,6 +182,14 @@ class FilterNode:
             out.extend(self.predicate.lhs.columns())
         for c in self.children:
             out.extend(c.columns())
+        return out
+
+    def predicates(self) -> List[Predicate]:
+        out: List[Predicate] = []
+        if self.predicate is not None:
+            out.append(self.predicate)
+        for c in self.children:
+            out.extend(c.predicates())
         return out
 
     def __str__(self) -> str:

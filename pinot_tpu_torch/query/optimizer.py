@@ -1,13 +1,15 @@
 """Filter rewrites before planning.
 
 Counterpart of ``pinot_tpu/query/optimizer.py``: fold constants, flatten
-nested AND/OR, merge EQ/IN children of an OR into one IN, merge ranges on
-the same expression under an AND. The planner's filter spec depends on the
-rewritten tree, so the rules and their order follow the JAX package.
+nested AND/OR, rewrite LIKE to an anchored REGEXP_LIKE, merge EQ/IN
+children of an OR into one IN, merge ranges on the same expression under
+an AND. The planner's filter spec depends on the rewritten tree, so the
+rules and their order follow the JAX package.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import replace
 from typing import List, Optional
 
@@ -18,6 +20,20 @@ from pinot_tpu_torch.query.expressions import (
     PredicateType,
     fold_constants,
 )
+
+
+def like_to_regex(pattern: str) -> str:
+    """SQL LIKE pattern -> anchored regex: ``%`` -> ``.*``, ``_`` -> ``.``,
+    everything else escaped."""
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return "^" + "".join(out) + "$"
 
 
 def _flatten(node: FilterNode) -> FilterNode:
@@ -35,6 +51,18 @@ def _flatten(node: FilterNode) -> FilterNode:
     if node.op is FilterOp.NOT:
         return FilterNode.not_(_flatten(node.children[0]))
     return node
+
+
+def _rewrite_like(node: FilterNode) -> FilterNode:
+    if node.predicate is not None:
+        p = node.predicate
+        if p.type is PredicateType.LIKE:
+            return FilterNode.pred(replace(
+                p, type=PredicateType.REGEXP_LIKE,
+                values=(like_to_regex(str(p.value)),)))
+        return node
+    return FilterNode(node.op,
+                      children=tuple(_rewrite_like(c) for c in node.children))
 
 
 def _merge_eq_in(node: FilterNode) -> FilterNode:
@@ -126,6 +154,7 @@ def optimize_filter(node: Optional[FilterNode]) -> Optional[FilterNode]:
         return None
     node = _fold_filter(node)
     node = _flatten(node)
+    node = _rewrite_like(node)
     node = _merge_eq_in(node)
     node = _merge_ranges(node)
     return _flatten(node)

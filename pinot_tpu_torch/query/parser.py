@@ -1,26 +1,29 @@
 """SQL parser: SQL text -> parsed query AST.
 
 Counterpart of ``pinot_tpu/query/parser.py`` (``parse_sql``), cut to the
-dialect the scan slice serves:
+dialect the port's device rungs serve:
 
     SELECT select_list FROM table
-    [WHERE bool_expr] [GROUP BY expr_list]
-    [ORDER BY expr [ASC|DESC], ...] [LIMIT n]
+    [WHERE bool_expr] [GROUP BY expr_list] [HAVING bool_expr]
+    [ORDER BY expr [ASC|DESC], ...] [LIMIT n [OFFSET m] | LIMIT m, n]
+    [OPTION(k=v, ...)]
 
-``bool_expr`` is AND/OR/NOT over ``= != <> < <= > >= BETWEEN IN NOT IN``
-with a column on one side and a literal on the other, and ``IS [NOT]
-NULL``. Value expressions are columns, numeric literals, ``+ - * / %`` and
-function calls: the aggregation functions (``query/context.py``
+``bool_expr`` is AND/OR/NOT over ``= != <> < <= > >= BETWEEN IN NOT IN
+LIKE NOT LIKE`` with a column on one side and a literal on the other,
+``IS [NOT] NULL`` and the predicate calls ``REGEXP_LIKE(col, 're')``,
+``TEXT_MATCH(col, 'q')`` and ``JSON_MATCH(col, 'filter')``. Value
+expressions are columns, numeric literals, ``+ - * / %`` and function
+calls: the aggregation functions (``query/context.py``
 ``is_aggregation``; ``count(DISTINCT x)`` is ``distinctcount(x)``) and
-transforms, which parse as the JAX parser parses them and which the planner
-refuses. Anything else raises :class:`SqlParseError`.
+transforms. ``SELECT DISTINCT``, ``CASE`` and ``EXPLAIN`` raise
+:class:`SqlParseError`.
 """
 
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from pinot_tpu_torch.query.expressions import (
     STAR,
@@ -86,14 +89,24 @@ _KEYWORDS = {
     "THEN", "ELSE", "END",
 }
 
+# function-call predicates: f(col, literal) used in WHERE position
+_PREDICATE_FUNCTIONS = {
+    "regexp_like": PredicateType.REGEXP_LIKE,
+    "text_match": PredicateType.TEXT_MATCH,
+    "json_match": PredicateType.JSON_MATCH,
+}
+
 @dataclass
 class ParsedQuery:
     table: str
     select: List[Tuple[Expr, Optional[str]]]  # (expr, alias)
     where: Optional[FilterNode] = None
     group_by: List[Expr] = field(default_factory=list)
+    having: Optional[FilterNode] = None
     order_by: List[OrderByExpr] = field(default_factory=list)
     limit: int = 10
+    offset: int = 0
+    options: Dict[str, str] = field(default_factory=dict)
 
 
 class _Parser:
@@ -153,31 +166,48 @@ class _Parser:
         select = self.parse_select_list()
         self.expect_keyword("FROM")
         table = self.parse_identifier_token()
-        where = None
+        where = having = None
         group_by: List[Expr] = []
         order_by: List[OrderByExpr] = []
-        limit = 10
+        limit, offset = 10, 0
+        options: Dict[str, str] = {}
         if self.accept_keyword("WHERE"):
             where = self.parse_or()
         if self.accept_keyword("GROUP"):
             self.expect_keyword("BY")
             group_by = self.parse_expr_list()
-        if self.at_keyword("HAVING"):
-            raise self.unsupported("HAVING")
+        if self.accept_keyword("HAVING"):
+            having = self.parse_or()
         if self.accept_keyword("ORDER"):
             self.expect_keyword("BY")
             order_by = self.parse_order_list()
         if self.accept_keyword("LIMIT"):
-            limit = self.parse_int()
-            if self.at_op(",") or self.at_keyword("OFFSET"):
-                raise self.unsupported("OFFSET")
+            a = self.parse_int()
+            if self.accept_op(","):
+                offset, limit = a, self.parse_int()  # LIMIT offset, n
+            elif self.accept_keyword("OFFSET"):
+                limit, offset = a, self.parse_int()
+            else:
+                limit = a
+        if self.accept_keyword("OPTION"):
+            self.expect_op("(")
+            while not self.accept_op(")"):
+                k = self.next().text
+                self.expect_op("=")
+                v = self.next().text
+                if v.startswith("'"):
+                    v = v[1:-1].replace("''", "'")
+                options[k] = v
+                self.accept_op(",")
         self.accept_op(";")
         t = self.peek()
         if t.kind != "eof":
             raise SqlParseError(
                 f"unexpected trailing input at position {t.pos}: {t.text!r}")
         return ParsedQuery(table=table, select=select, where=where,
-                           group_by=group_by, order_by=order_by, limit=limit)
+                           group_by=group_by, having=having,
+                           order_by=order_by, limit=limit, offset=offset,
+                           options=options)
 
     def parse_identifier_token(self) -> str:
         t = self.next()
@@ -252,7 +282,8 @@ class _Parser:
                 self.expect_op(")")
                 if not (self.at_op("=", "!=", "<>", "<", "<=", ">", ">=",
                                    "+", "-", "*", "/", "%")
-                        or self.at_keyword("BETWEEN", "IN", "IS", "NOT")):
+                        or self.at_keyword("BETWEEN", "IN", "LIKE", "IS",
+                                           "NOT")):
                     return node
             except SqlParseError:
                 pass
@@ -261,6 +292,13 @@ class _Parser:
 
     def parse_predicate(self) -> FilterNode:
         lhs = self.parse_expr()
+        # function-call predicates: regexp_like(col, 're'), text_match(...)
+        if isinstance(lhs, Function) and lhs.name in _PREDICATE_FUNCTIONS:
+            if len(lhs.args) != 2 or not isinstance(lhs.args[1], Literal):
+                raise SqlParseError(f"{lhs.name} expects (expr, literal)")
+            return FilterNode.pred(Predicate(
+                _PREDICATE_FUNCTIONS[lhs.name], lhs.args[0],
+                values=(lhs.args[1].value,)))
         negate = self.accept_keyword("NOT")
         if self.accept_keyword("IN"):
             self.expect_op("(")
@@ -278,16 +316,18 @@ class _Parser:
                 PredicateType.RANGE, lhs, lower=lo, upper=hi,
                 lower_inclusive=True, upper_inclusive=True))
             return FilterNode.not_(node) if negate else node
+        if self.accept_keyword("LIKE"):
+            node = FilterNode.pred(Predicate(
+                PredicateType.LIKE, lhs, values=(self.parse_literal_value(),)))
+            return FilterNode.not_(node) if negate else node
         if negate:
-            raise self.unsupported("NOT without IN/BETWEEN")
+            raise SqlParseError("expected IN/BETWEEN/LIKE after NOT")
         if self.accept_keyword("IS"):
             is_not = self.accept_keyword("NOT")
             self.expect_keyword("NULL")
             return FilterNode.pred(Predicate(
                 PredicateType.IS_NOT_NULL if is_not else PredicateType.IS_NULL,
                 lhs))
-        if self.at_keyword("LIKE"):
-            raise self.unsupported("LIKE")
         for op in ("=", "!=", "<>", "<=", ">=", "<", ">"):
             if self.accept_op(op):
                 return self._comparison(op, lhs, self.parse_expr())
@@ -383,11 +423,12 @@ class _Parser:
         if self.accept_op(")"):
             return Function(name, ())
         if self.accept_keyword("DISTINCT"):
-            if name.lower() != "count":
-                raise self.unsupported(f"DISTINCT inside {name}")
+            # COUNT(DISTINCT x) -> distinctcount(x)
             args = self.parse_expr_list()
             self.expect_op(")")
-            return Function("distinctcount", args)
+            if name.lower() == "count":
+                return Function("distinctcount", args)
+            raise SqlParseError(f"DISTINCT not supported inside {name}")
         args = self.parse_expr_list()
         self.expect_op(")")
         return Function(name, args)

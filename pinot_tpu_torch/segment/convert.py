@@ -14,7 +14,7 @@ identical data.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 
@@ -38,7 +38,9 @@ class ColumnArrays:
     - raw single-value numeric column: ``values``, no dictionary;
     - ``null``: [rows] bool, the rows that are null (they hold the null
       default value).
-    ``min_value`` / ``max_value`` are checked against the data when given.
+    ``min_value`` / ``max_value`` are checked against the data when given;
+    ``partition_function``, ``num_partitions`` and ``partitions`` are the
+    column's partition metadata, carried as given.
     """
 
     data_type: DataType
@@ -50,6 +52,9 @@ class ColumnArrays:
     values: Optional[np.ndarray] = None
     mv_counts: Optional[np.ndarray] = None
     null: Optional[np.ndarray] = None
+    partition_function: Optional[str] = None
+    num_partitions: int = 0
+    partitions: Optional[List[int]] = None
 
 
 def _narrow_id_dtype(cardinality: int) -> np.dtype:
@@ -125,7 +130,10 @@ def _column(col: str, a: ColumnArrays, num_docs: int, capacity: int
         cardinality=card, min_value=lo, max_value=hi,
         has_dictionary=d is not None, single_value=a.mv_counts is None,
         has_nulls=bool(null is not None and null.any()),
-        max_num_multi_values=max_mv)
+        max_num_multi_values=max_mv,
+        partition_function=a.partition_function,
+        num_partitions=a.num_partitions,
+        partitions=list(a.partitions or []))
     return DataSource(col, cm, d, fwd, mv_counts,
                       null if cm.has_nulls else None)
 
@@ -164,7 +172,10 @@ def columns_of(segment) -> Dict[str, ColumnArrays]:
         dt = DataType.from_string(cm.data_type.label)
         a = ColumnArrays(data_type=dt,
                          field_type=FieldType(cm.field_type.value),
-                         min_value=cm.min_value, max_value=cm.max_value)
+                         min_value=cm.min_value, max_value=cm.max_value,
+                         partition_function=cm.partition_function,
+                         num_partitions=cm.num_partitions,
+                         partitions=list(cm.partitions))
         if not cm.has_dictionary:
             a.values = np.asarray(ds.forward_index)[:n]
         else:

@@ -9,7 +9,7 @@ capacity on both sides.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 from pinot_tpu_torch.spi.data import DataType, FieldType, Schema
 
@@ -25,7 +25,9 @@ class ColumnMetadata:
     """``has_dictionary=False`` is a raw (RAW-encoded) single-value numeric
     column: its forward index holds the values and ``cardinality`` counts
     its distinct values. A multi-value column holds up to
-    ``max_num_multi_values`` values a row."""
+    ``max_num_multi_values`` values a row. A partitioned column names its
+    partition function, the partition count and the partitions its values
+    fall in (the segment pruner reads them)."""
 
     name: str
     data_type: DataType
@@ -37,6 +39,9 @@ class ColumnMetadata:
     single_value: bool = True
     has_nulls: bool = False
     max_num_multi_values: int = 0
+    partition_function: Optional[str] = None
+    num_partitions: int = 0
+    partitions: List[int] = field(default_factory=list)
 
 
 @dataclass

@@ -17,12 +17,17 @@ groups and sums written out in numpy over a frame, with exact int64 sums.
 scan declines (a group space past its cap, int min/max past 2^24,
 DISTINCTCOUNT and DISTINCTCOUNTHLL), with their oracle
 (``declined_answer``: distinct sets of values, HLL registers from
-``utils/hll`` over the raw values).
+``utils/hll`` over the raw values). ``sql_queries`` are seven more over
+the same table (LIKE, NOT LIKE and REGEXP_LIKE of 1 to 100 dictId runs,
+HAVING with OFFSET and OPTION, a query the segment metadata answers),
+with their oracle: string predicates evaluated on the universe of values
+and gathered by code.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple, Union
+import re
+from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -339,6 +344,12 @@ _ORACLE = {
 
 def _condition(frame, col: str, op: str, arg) -> np.ndarray:
     v = frame[col]
+    if op in ("prefix", "notprefix", "regex"):
+        # a string predicate: evaluated once per universe value
+        vals = [str(x) for x in UNIVERSE[col]]
+        hit = np.array([re.search(arg, x) is not None if op == "regex"
+                        else x.startswith(arg) for x in vals])
+        return (~hit if op == "notprefix" else hit)[v]
     if col in UNIVERSE:   # translate string operands to universe codes
         table = UNIVERSE[col]
 
@@ -367,12 +378,40 @@ def _condition(frame, col: str, op: str, arg) -> np.ndarray:
     return m
 
 
+def bounds_may_match(frame: Dict[str, np.ndarray], qid: str) -> bool:
+    """Whether the frame's per-column min/max leave query ``qid``'s
+    conditions satisfiable: False when one equality, IN list or range
+    lies wholly outside its column's [min, max] (pattern conditions never
+    prune). An oracle of min/max segment pruning, independent of the
+    engine's metadata."""
+    conds = {**_ORACLE, **_SQL_ORACLE, **_DECLINED_ORACLE}.get(
+        qid, ([],))[0]
+    for col, op, arg in conds:
+        if op in ("prefix", "notprefix", "regex"):
+            continue
+        v = frame[col]
+        lo, hi = int(v.min()), int(v.max())
+        if col in UNIVERSE:   # codes index the sorted universe: same order
+            table = UNIVERSE[col]
+            lo, hi = str(table[lo]), str(table[hi])
+        if op == "eq":
+            ok = lo <= arg <= hi
+        elif op == "in":
+            ok = any(lo <= a <= hi for a in arg)
+        else:
+            a, b = arg
+            ok = (a is None or a <= hi) and (b is None or lo <= b)
+        if not ok:
+            return False
+    return True
+
+
 def numpy_answer(frame: Dict[str, np.ndarray], qid: str
                  ) -> Union[int, Dict[Tuple, int]]:
     """Exact answer of flight ``qid`` over one frame: an int for the Q1
     flights, else {group key tuple: int sum}. Partials of several frames
     add up (``merge_answers``)."""
-    conds, groups, value = _ORACLE[qid]
+    conds, groups, value = {**_ORACLE, **_SQL_ORACLE}[qid]
     m = np.ones(len(frame["lo_quantity"]), dtype=bool)
     for col, op, arg in conds:
         m &= _condition(frame, col, op, arg)
@@ -406,6 +445,78 @@ def merge_answers(parts: List[Union[int, Dict[Tuple, int]]]
         for k, v in p.items():
             out[k] = out.get(k, 0) + v
     return out
+
+
+# -- the SQL slice: patterns, HAVING / OFFSET / OPTION, metadata answers ------
+
+# S1 is a one-run LIKE (an interval leaf of the fused scan), S2 Q3.3 with
+# its city IN as a REGEXP_LIKE (Q3.3's rows), S3 a REGEXP_LIKE of 9-64
+# runs (one interval-set node), S4 one of more than 64 runs (the general
+# rung), S5 HAVING over the median with OFFSET and OPTION, S6 a filter-less
+# count/min/max (segment metadata per segment), S7 a NOT LIKE in a Q2.1
+# shape. S5's HAVING literal is the oracle's median, filled in by
+# ``sql_queries``.
+_SQL_TEXT: Dict[str, str] = {
+    "S1": "SELECT d_year, p_brand1, sum(lo_revenue) FROM ssb_lineorder "
+          "WHERE p_brand1 LIKE 'MFGR#22%' AND s_region = 'AMERICA' "
+          "GROUP BY d_year, p_brand1 ORDER BY d_year, p_brand1 LIMIT 100000",
+    "S2": "SELECT c_city, s_city, d_year, sum(lo_revenue) "
+          "FROM ssb_lineorder "
+          "WHERE REGEXP_LIKE(c_city, '^UNITED KI[15]$') "
+          "AND s_city IN ('UNITED KI1', 'UNITED KI5') "
+          "AND d_year BETWEEN 1992 AND 1997 "
+          "GROUP BY c_city, s_city, d_year "
+          "ORDER BY d_year ASC, sum(lo_revenue) DESC LIMIT 100000",
+    "S3": "SELECT d_year, sum(lo_revenue) FROM ssb_lineorder "
+          "WHERE REGEXP_LIKE(p_brand1, '^MFGR#2.*7$') GROUP BY d_year "
+          "ORDER BY d_year LIMIT 100000",
+    "S4": "SELECT d_year, sum(lo_revenue) FROM ssb_lineorder "
+          "WHERE REGEXP_LIKE(p_brand1, '7$') GROUP BY d_year ORDER BY d_year "
+          "LIMIT 100000",
+    "S5": "SELECT c_nation, sum(lo_revenue) FROM ssb_lineorder "
+          "WHERE lo_discount BETWEEN 1 AND 3 GROUP BY c_nation "
+          "HAVING sum(lo_revenue) > {median} ORDER BY sum(lo_revenue) DESC "
+          "LIMIT 5 OFFSET 5 OPTION(timeoutMs=60000)",
+    "S6": "SELECT count(*), min(lo_revenue), max(lo_quantity) "
+          "FROM ssb_lineorder",
+    "S7": "SELECT d_year, p_brand1, sum(lo_revenue) FROM ssb_lineorder "
+          "WHERE p_category = 'MFGR#12' AND c_nation NOT LIKE 'UNITED%' "
+          "GROUP BY d_year, p_brand1 ORDER BY d_year, p_brand1 LIMIT 100000",
+}
+_SQL_ORACLE = {
+    "S1": ([("p_brand1", "prefix", "MFGR#22"), ("s_region", "eq", "AMERICA")],
+           ("d_year", "p_brand1"), "revenue"),
+    "S2": ([("c_city", "regex", "^UNITED KI[15]$"),
+            ("s_city", "in", _US_CITIES_KI),
+            ("d_year", "between", (1992, 1997))],
+           ("c_city", "s_city", "d_year"), "revenue"),
+    "S3": ([("p_brand1", "regex", "^MFGR#2.*7$")], ("d_year",), "revenue"),
+    "S4": ([("p_brand1", "regex", "7$")], ("d_year",), "revenue"),
+    "S5": ([("lo_discount", "between", (1, 3))], ("c_nation",), "revenue"),
+    "S7": ([("p_category", "eq", "MFGR#12"),
+            ("c_nation", "notprefix", "UNITED")],
+           ("d_year", "p_brand1"), "revenue"),
+}
+
+
+def sql_queries(frames: List[Dict[str, np.ndarray]]
+                ) -> Tuple[Dict[str, str], Dict[str, Any]]:
+    """-> ({id: SQL}, {id: the answer}) of S1-S7 over ``frames``: a
+    ``merge_answers`` dict for the grouped ones, S5's and S6's rows."""
+    wants: Dict[str, Any] = {
+        sid: merge_answers([numpy_answer(f, sid) for f in frames])
+        for sid in _SQL_ORACLE}
+    sums = wants["S5"]
+    median = int(np.median(list(sums.values())))
+    kept = sorted(((k[0], v) for k, v in sums.items() if v > median),
+                  key=lambda kv: -kv[1])
+    wants["S5"] = [[k, float(v)] for k, v in kept[5:10]]
+    wants["S6"] = [[sum(len(f["lo_revenue"]) for f in frames),
+                    float(min(int(f["lo_revenue"].min()) for f in frames)),
+                    float(max(int(f["lo_quantity"].max()) for f in frames))]]
+    sqls = dict(_SQL_TEXT)
+    sqls["S5"] = sqls["S5"].format(median=median)
+    return sqls, wants
 
 
 # -- declined queries ---------------------------------------------------------

@@ -1,0 +1,102 @@
+"""Partition functions for partition-aware segment pruning.
+
+Counterpart of ``pinot_tpu/utils/partition.py``: Murmur (Kafka's murmur2),
+Modulo, HashCode and ByteArray functions mapping a column value to a
+partition id, so a segment's partition metadata prunes the same in both
+packages.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+
+def _murmur2(data: bytes) -> int:
+    """Kafka murmur2, 32-bit (signed semantics match the JVM)."""
+    length = len(data)
+    seed = 0x9747B28C
+    m = 0x5BD1E995
+    r = 24
+    mask = 0xFFFFFFFF
+    h = (seed ^ length) & mask
+    n_blocks = length // 4
+    for i in range(n_blocks):
+        k = int.from_bytes(data[i * 4:(i + 1) * 4], "little", signed=False)
+        k = (k * m) & mask
+        k ^= k >> r
+        k = (k * m) & mask
+        h = (h * m) & mask
+        h ^= k
+    tail = length & 3
+    base = n_blocks * 4
+    if tail == 3:
+        h ^= (data[base + 2] & 0xFF) << 16
+    if tail >= 2:
+        h ^= (data[base + 1] & 0xFF) << 8
+    if tail >= 1:
+        h ^= data[base] & 0xFF
+        h = (h * m) & mask
+    h ^= h >> 13
+    h = (h * m) & mask
+    h ^= h >> 15
+    # to signed 32-bit
+    return h - (1 << 32) if h >= (1 << 31) else h
+
+
+def _java_string_hashcode(s: str) -> int:
+    h = 0
+    for ch in s:
+        h = (31 * h + ord(ch)) & 0xFFFFFFFF
+    return h - (1 << 32) if h >= (1 << 31) else h
+
+
+class PartitionFunction:
+    def __init__(self, name: str, num_partitions: int, fn: Callable[[Any, int], int]):
+        if num_partitions <= 0:
+            raise ValueError("numPartitions must be > 0")
+        self.name = name
+        self.num_partitions = num_partitions
+        self._fn = fn
+
+    def partition(self, value: Any) -> int:
+        return self._fn(value, self.num_partitions)
+
+
+def _murmur_partition(value: Any, n: int) -> int:
+    return (_murmur2(str(value).encode("utf-8")) & 0x7FFFFFFF) % n
+
+
+def _modulo_partition(value: Any, n: int) -> int:
+    return int(value) % n
+
+
+def _hashcode_partition(value: Any, n: int) -> int:
+    h = _java_string_hashcode(str(value))
+    return abs(h) % n
+
+
+def _bytearray_partition(value: Any, n: int) -> int:
+    data = value if isinstance(value, bytes) else str(value).encode("utf-8")
+    # JVM Arrays.hashCode(byte[]) over the bytes
+    h = 1
+    for b in data:
+        sb = b - 256 if b >= 128 else b
+        h = (31 * h + sb) & 0xFFFFFFFF
+    h = h - (1 << 32) if h >= (1 << 31) else h
+    return abs(h) % n
+
+
+_FUNCTIONS: Dict[str, Callable[[Any, int], int]] = {
+    "murmur": _murmur_partition,
+    "modulo": _modulo_partition,
+    "hashcode": _hashcode_partition,
+    "bytearray": _bytearray_partition,
+}
+
+
+def get_partition_function(name: str, num_partitions: int) -> PartitionFunction:
+    fn = _FUNCTIONS.get(name.lower())
+    if fn is None:
+        raise ValueError(f"unknown partition function {name!r}; "
+                         f"available: {sorted(_FUNCTIONS)}")
+    return PartitionFunction(name, num_partitions, fn)

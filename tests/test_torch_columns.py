@@ -350,18 +350,26 @@ def test_host_served_shapes_raise_with_the_jax_code(data, sql):
         assert te.value.reason_code == je.value.reason_code, sql
 
 
-def test_time_transforms_raise_not_ported(data):
-    """The JAX planner rewrites the epoch transforms into device integer
-    ops; the port does not have the rewrite yet and refuses them as any
-    transform it cannot compile."""
-    _, tsegs = data["stats"]
-    for sql in ("SELECT sum(toEpochDays(big)) FROM stats",
-                "SELECT dateTrunc('DAY', big), count(*) FROM stats "
-                "GROUP BY dateTrunc('DAY', big)"):
-        with pytest.raises(NotPortedError) as e:
-            ServerQueryExecutor(device="cpu").execute(t_compile(sql), tsegs)
-        assert e.value.reason_code in ("transform_unsupported",
-                                       "group_expression_unbounded"), sql
+def test_time_transforms_raise_not_ported(data, executors):  # noqa: F811
+    """The epoch transforms are rewritten at plan time into device integer
+    ops, as the JAX planner rewrites them. toEpochDays over the raw LONG
+    ``big`` as a value gives JAX's row on both rungs (the fused scan
+    declines its floordiv with JAX's code); dateTrunc('DAY', big) as a
+    group key spans 2^40 values, which the JAX planner sends to its host
+    engine: the port raises NotPortedError with the same code."""
+    jsegs, tsegs = data["stats"]
+    sql = "SELECT sum(toEpochDays(big)) FROM stats"
+    _off, on = _check(data, executors, "stats", sql)
+    assert set(on.decisions) == {
+        "pallas:pallas_kernel->jnp_kernel:pallas_agg_value_op_unsupported"}
+    sql = ("SELECT dateTrunc('DAY', big), count(*) FROM stats "
+           "GROUP BY dateTrunc('DAY', big)")
+    with pytest.raises(JPlanError) as je:
+        j_plan(j_compile(sql), jsegs[0])
+    with pytest.raises(NotPortedError) as e:
+        ServerQueryExecutor(device="cpu").execute(t_compile(sql), tsegs)
+    assert e.value.reason_code == je.value.reason_code == \
+        "group_expression_span_over_limit"
 
 
 def test_isnull_leaf_leaves_the_staged_bitmap_alone(data):

@@ -121,12 +121,13 @@ def test_rows_match_jax_sharded_and_host(ssb, executors, qid):
         want, wstats = executors[ref].execute(j_compile(sql), jsegs)
         assert got.schema.column_names == want.schema.column_names
         _assert_rows(got.rows, want.rows, exact, f"{ref}: {sql}")
-        # the JAX executors prune segments by time first (the port has no
-        # pruner yet): pruned segments match no doc
-        for field in ("num_docs_scanned", "num_segments_matched"):
+        # both prune the same segments first; one segment left takes the
+        # per-segment path
+        for field in ("num_docs_scanned", "num_segments_matched",
+                      "num_segments_processed", "num_segments_pruned",
+                      "total_docs"):
             assert getattr(stats, field) == getattr(wstats, field), \
                 (ref, field)
-    assert stats.num_segments_processed == len(tsegs)
     assert stats.decisions == {}
     # the plain version on the CPU is no kernel launch
     assert (stats.scan_launches, stats.probe_launches,
@@ -149,26 +150,42 @@ def test_single_segment_takes_per_segment_path(ssb, executors):
     assert got.rows == per_seg.rows
 
 
-def test_batch_cache_keeps_the_recent_batches(ssb, monkeypatch):
-    """Past BATCH_CACHE_CAP batches the least recently used one goes, with
-    its bound queries; it is rebuilt when asked for again."""
+def test_batch_cache_keeps_the_recent_batches(ssb):
+    """Past the byte budget the least recently used batch goes, with its
+    bound queries; it is staged again when asked for again."""
     _, tsegs = ssb
-    monkeypatch.setattr(t_pexec, "BATCH_CACHE_CAP", 2)
-    ex = ShardedQueryExecutor(device="cpu")
-    ctx = t_compile(j_ssb.QUERIES["Q1.1"] + " LIMIT 100000")
+    # no time filter: the pruner keeps every segment of each subset
+    ctx = t_compile(j_ssb.QUERIES["Q2.1"] + " LIMIT 100000")
     subsets = [(0, 1), (0, 2), (0, 1), (1, 2)]
+    sizer = ShardedQueryExecutor(device="cpu")
+    size = {}
+    for sub in set(subsets):
+        sizer.execute(ctx, [tsegs[i] for i in sub])
+        size[sub] = sizer.batch_for([tsegs[i] for i in sub])[1].nbytes()
+    # room for any two of the three batches, not for all three
+    ex = ShardedQueryExecutor(device="cpu")
+    ex.batch_budget_bytes = sum(size.values()) - 1
     rows = {}
     for sub in subsets:
         table, _ = ex.execute(ctx, [tsegs[i] for i in sub])
         rows.setdefault(sub, table.rows)
         assert table.rows == rows[sub]
+    assert ex.batches_staged == 3
     names = lambda sub: tuple(tsegs[i].segment_name for i in sub)  # noqa: E731
     assert list(ex._batches) == [names((0, 1)), names((1, 2))]
     batch_names = {b.segment_name for b, _ in ex._batches.values()}
     assert {k[1] for k in ex._param_cache} == batch_names
     table, _ = ex.execute(ctx, [tsegs[0], tsegs[2]])
     assert table.rows == rows[(0, 2)]
+    assert ex.batches_staged == 4
     assert list(ex._batches) == [names((1, 2)), names((0, 2))]
+    # the batch a query runs on stays even past a budget of 0 bytes
+    ex.batch_budget_bytes = 0
+    ex.execute(ctx, [tsegs[0], tsegs[1]])
+    assert list(ex._batches) == [names((0, 1))]
+    # the default: a share of the card's memory, no bound on the CPU
+    assert sizer.batch_budget_bytes is None
+    assert len(sizer._batches) == 3 and sizer.batches_staged == 3
 
 
 def _pair(out, schemas):
@@ -219,10 +236,11 @@ def test_repeated_query_binds_once(ssb, monkeypatch):
     monkeypatch.setattr(t_pexec, "plan_segment", plan)
     monkeypatch.setattr(t_pexec.fused_scan, "scan_inputs", bind)
     ex = ShardedQueryExecutor(device="cpu")
-    ctx = t_compile(j_ssb.QUERIES["Q4.3"] + " LIMIT 100000")
+    # Q3.2's years keep every segment (Q4.3's keep one: no batch)
+    ctx = t_compile(j_ssb.QUERIES["Q3.2"] + " LIMIT 100000")
     first, _ = ex.execute(ctx, tsegs)
     inp = next(iter(ex._param_cache.values()))
-    assert inp.probe is not None          # Q4.3 probes at binding
+    assert inp.probe is not None          # Q3.2 probes at binding
     second, _ = ex.execute(ctx, tsegs)
     assert calls == {"plan": 1, "bind": 1}
     assert second.rows == first.rows

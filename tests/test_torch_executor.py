@@ -82,10 +82,14 @@ def _check(data, executors, key, sql):
     got, stats = executors["port"].execute(t_compile(sql), tsegs)
     exact = _exact_columns(sql, tsegs[0])
     for ref in ("pallas", "host"):
-        want, _ = executors[ref].execute(j_compile(sql), jsegs)
+        want, jstats = executors[ref].execute(j_compile(sql), jsegs)
         assert got.schema.column_names == want.schema.column_names
         _assert_rows(got.rows, want.rows, exact, f"{ref}: {sql}")
-    assert stats.num_segments_processed == len(tsegs)
+        # the same segments pruned and processed, the same docs counted
+        assert (stats.num_segments_processed, stats.num_segments_pruned,
+                stats.total_docs) == (jstats.num_segments_processed,
+                                      jstats.num_segments_pruned,
+                                      jstats.total_docs), (ref, sql)
     return stats
 
 

@@ -5,8 +5,9 @@ on its jnp rung (use_pallas=False), with its fused kernel first
 engine, on the same segments carried across with segment_from_arrays.
 
 With the fused scan off the port is held to JAX use_pallas=False, with it
-on to JAX use_pallas=True: rows, group_by_rung and num_docs_scanned, and
-(fused scan on) the decline reason codes. Queries: tests/test_hash_groupby
+on to JAX use_pallas=True: rows, group_by_rung, the segments pruned and
+processed, total_docs and num_docs_scanned, and (fused scan on) the
+decline reason codes with their counts. Queries: tests/test_hash_groupby
 .py's wide and tied shapes and SELECTIVE_SQL, tests/test_engine.py's
 DISTINCTCOUNT queries, tests/test_sketches.py's device DISTINCTCOUNTHLL
 queries, the declined SSB queries G1-G5 and the 13 SSB flights.
@@ -152,23 +153,15 @@ def _check(data, executors, key, sql):
         _assert_rows(got.rows, want.rows, exact, f"{ref}: {sql}")
         _assert_rows(got.rows, host.rows, exact_host, f"host: {sql}",
                      same_types=False)
-        if jstats.num_segments_processed == len(jsegs):
-            assert stats.group_by_rung == jstats.group_by_rung, (port, sql)
-        else:
-            # the JAX executor pruned segments no doc of can match (the
-            # port has no pruner): compare the rung per segment it ran
-            for jseg, tseg in zip(jsegs, tsegs):
-                _, js = executors[ref].execute(j_compile(sql), [jseg])
-                if js.num_segments_processed:
-                    _, ts = executors[port].execute(t_compile(sql), [tseg])
-                    assert ts.group_by_rung == js.group_by_rung, (port, sql)
+        # both executors prune the same segments, so whole stats compare
+        assert (stats.num_segments_processed, stats.num_segments_pruned,
+                stats.total_docs) == (jstats.num_segments_processed,
+                                      jstats.num_segments_pruned,
+                                      jstats.total_docs), (port, sql)
+        assert stats.group_by_rung == jstats.group_by_rung, (port, sql)
         assert stats.num_docs_scanned == jstats.num_docs_scanned, (port, sql)
         if port == "port_on":
-            got_d, want_d = _pallas_decisions(stats), _pallas_decisions(jstats)
-            if jstats.num_segments_processed == len(jsegs):
-                assert got_d == want_d, sql
-            else:   # counted per segment run: compare the codes
-                assert set(got_d) == set(want_d), sql
+            assert _pallas_decisions(stats) == _pallas_decisions(jstats), sql
         out.append(stats)
     return out
 
@@ -270,7 +263,9 @@ def test_declined_ssb_queries_match_jax_and_oracle(data, executors, gid):
 def test_ssb_flights_on_general_rung(data, executors, qid):
     off, on = _check(data, executors, "ssb",
                      j_ssb.QUERIES[qid] + " LIMIT 100000")
-    assert off.general_launches == 2 and off.scan_launches == 0
+    # one rung call per segment the pruner keeps
+    assert off.general_launches == off.num_segments_processed
+    assert off.scan_launches == 0
     # the fused scan serves every flight when it is on
     assert on.general_launches == 0 and not on.decisions
 
@@ -308,11 +303,15 @@ def test_host_only_plans_still_raise(data, executors):
 
 def test_batch_path_still_raises_on_declined_plans(data):
     """The jnp combine of a segment batch is not ported: the batch path
-    keeps raising with the fused scan's reason code."""
+    keeps raising with the fused scan's reason code. G4's year keeps one
+    segment, which takes the per-segment path and its general rung, as
+    in the JAX sharded executor."""
     from pinot_tpu_torch.parallel import ShardedQueryExecutor
 
     _, tsegs = data["ssb"]
     ex = ShardedQueryExecutor(device="cpu")
     with pytest.raises(NotPortedError) as e:
-        ex.execute(t_compile(t_ssb.DECLINED_QUERIES["G4"]), tsegs)
+        ex.execute(t_compile(t_ssb.DECLINED_QUERIES["G5"]), tsegs)
     assert e.value.reason_code == "pallas_distinct_agg"
+    _, stats = ex.execute(t_compile(t_ssb.DECLINED_QUERIES["G4"]), tsegs)
+    assert (stats.num_segments_pruned, stats.general_launches) == (1, 1)

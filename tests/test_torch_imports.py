@@ -43,7 +43,10 @@ def test_executor_import_leaves_jax_unloaded():
     code = ("import sys, pinot_tpu_torch.engine.executor, "
             "pinot_tpu_torch.tools.ssb, pinot_tpu_torch.engine.fused_scan, "
             "pinot_tpu_torch.engine.kernels, pinot_tpu_torch.utils.hll, "
-            "pinot_tpu_torch.tools.scan_profile; "
+            "pinot_tpu_torch.tools.scan_profile, "
+            "pinot_tpu_torch.engine.pruner, pinot_tpu_torch.utils.partition, "
+            "pinot_tpu_torch.segment.textindex, "
+            "pinot_tpu_torch.segment.jsonindex; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinot_tpu', 'triton')]; "
             "from pinot_tpu_torch.engine import _build, kernels; "
@@ -131,12 +134,12 @@ def test_cpu_wrapper_rejects_mismatched_inputs():
 
 @pytest.mark.parametrize("sql", [
     "SELECT DISTINCT k FROM tiny",
-    "SELECT k, sum(v) FROM tiny GROUP BY k HAVING sum(v) > 3",
+    "SELECT k, sum(v) FROM tiny GROUP BY k HAVING",
     "SELECT sum(v) FROM tiny WHERE k IS NOT 'a'",
-    "SELECT sum(v) FROM tiny WHERE k LIKE 'a%'",
+    "SELECT sum(v) FROM tiny WHERE k NOT = 'a'",
     "SELECT CASE WHEN v > 1 THEN 1 ELSE 0 END, count(*) FROM tiny",
     "SELECT k FROM tiny",
-    "SELECT sum(v) FROM tiny LIMIT 5 OFFSET 2",
+    "SELECT sum(v) FROM tiny LIMIT 5 OFFSET",
 ])
 def test_unsupported_sql_raises_typed_error(sql):
     from pinot_tpu_torch.query import SqlParseError, compile_query
