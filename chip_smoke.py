@@ -66,11 +66,24 @@ Phases:
      group-bys (toEpochDays, toEpochHours, a ts window the pruner cuts to
      its segments, timeConvert) over ``--user-segments`` time-ordered
      segments of ``--user-rows`` events with a raw epoch-ms ``ts``, on the
-     general rung; (9c) TEXT_MATCH and JSON_MATCH on a 1 M-doc segment;
-then a "rungs" line of the segments each rung served and the declines of
-phases 8 and 9, and one JSON line listing the kernels ("ms" is the kernel
-alone, "launches" those of phases 4, 6, 8 and 9). Phases 4, 6, 7 and 9
-assert launches per query from the segments the pruner keeps, once those
+     general rung, and T1 (a dateTrunc key spanning the milliseconds) on
+     the host engine per segment and over the batch; (9c) TEXT_MATCH and
+     JSON_MATCH on a 1 M-doc segment;
+ 10. the host engine and the device top-k (min(--reps, 3) runs of each
+     query, against numpy): on phase 4's segments H1-H7 of tools/ssb.py
+     (percentile and mode, a grouped t-digest, a grouped DISTINCTCOUNT,
+     SELECT DISTINCT, an unordered selection with OFFSET, an ordered one
+     on the top-k, one ordered by an expression), on phase 8's U8-U10 of
+     tools/usertable.py (SELECT * of a tail user ordered by the raw
+     latency_ms on the top-k, a group-by on $segmentName, grouped MV
+     aggregations), each with its decisions and 0 fused or general-rung
+     launches asserted; the top-k's rows equal the host engine's on the
+     same segments, and it is timed beside its byte bound;
+then a "rungs" line of the segments each rung served and the declines and
+paths of phases 8-10, and one JSON line listing the kernels ("ms" is the
+kernel alone, "launches" those of phases 4, 6, 8 and 9; the top-k is
+PyTorch ops, not a hand kernel). Phases 4, 6, 7, 9 and 10 assert launches
+per query from the segments the pruner keeps, once those
 equal the segments whose min/max (from the generator's arrays) admit the
 query's conditions.
 The last line is {"ok": true, "device": {...}}; any failure raises and
@@ -567,6 +580,13 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
     kept = {qid: len(v) for qid, v in kept_segs.items()}
     sql_kept = _kept_segments(
         {sid: compile_query(q) for sid, q in sql_texts.items()}, segs, frames)
+    t0 = time.perf_counter()
+    host_texts, host_wants = ssb.host_queries(frames)
+    host_kept = _kept_segments(
+        {hid: compile_query(q) for hid, q in host_texts.items()}, segs,
+        frames)
+    log(f"  numpy oracle of phase 10's {len(host_texts)} queries: "
+        f"{time.perf_counter() - t0:.1f} s")
     del frames
     ex = ServerQueryExecutor(device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -600,7 +620,8 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
             "wants": wants, "per_flight": per_flight, "rows": rows,
             "results": results, "kept": kept, "kept_segs": kept_segs,
             "sql_texts": sql_texts, "sql_wants": sql_wants,
-            "sql_kept": sql_kept}
+            "sql_kept": sql_kept, "host_texts": host_texts,
+            "host_wants": host_wants, "host_kept": host_kept}
 
 
 # -- phase 5: kernel timings at the per-segment path's shapes -----------------
@@ -1052,6 +1073,8 @@ def phase_users(seed: int, reps: int, segments: int = 8,
     user = users[len(users) // 2]
     sqls = usertable.queries(user)
     wants = {qid: usertable.numpy_answer(frames, qid, user) for qid in sqls}
+    host_wants = usertable.host_answers(frames, user,
+                                        [s.segment_name for s in segs])
     del frames
     lat_cm = segs[0].metadata.column("latency_ms")
     log(f"  generate {rows} rows in {len(segs)} segments and the numpy "
@@ -1154,7 +1177,7 @@ def phase_users(seed: int, reps: int, segments: int = 8,
             "per_query": per_query, "batch_per_query": batch_per_query,
             "paths": rungs, "launches": launches,
             "batch_launches": batch_launches, "raw_fused_launches": raw_fused,
-            "timing": timing}
+            "timing": timing, "segs": segs, "host_wants": host_wants}
 
 
 def _columns_segment(n: int, seed: int, valid_doc_ids=None):
@@ -1483,7 +1506,7 @@ def _events_table(seed: int, segments: int, rows_per_segment: int):
 def _time_queries(lo: int, hi: int) -> dict:
     return {
         # dateTrunc's key spans the milliseconds: the JAX planner sends it
-        # to its host engine, so the port refuses it with the same code
+        # to its host engine, and so does the port, with the same code
         "T1": "SELECT dateTrunc('DAY', ts), count(*), sum(revenue) "
               "FROM events GROUP BY dateTrunc('DAY', ts)",
         "T1b": "SELECT toEpochDays(ts), min(dateTrunc('DAY', ts)), "
@@ -1500,8 +1523,8 @@ def _time_queries(lo: int, hi: int) -> dict:
 
 
 # per query: (the fused scan's decline code, the rung per segment) or, for
-# a query the port refuses, (its NotPortedError code, "refused")
-TIME_PATH = {"T1": ("group_expression_span_over_limit", "refused"),
+# a query the planner sends to the host engine, (its code, "host")
+TIME_PATH = {"T1": ("group_expression_span_over_limit", "host"),
              "T1b": ("pallas_raw_group_key", "dense"),
              "T2": ("pallas_raw_group_key", "dense"),
              "T3": ("pallas_vrange", "dense"),
@@ -1537,6 +1560,9 @@ def _time_answers(a: dict, lo: int, hi: int) -> dict:
     days = ts // DAY_MS
     m = (ts >= lo) & (ts <= hi)
     return {
+        # no ORDER BY: the first 10 days in the order segments meet them
+        "T1": [[d * DAY_MS, c, float(s)]
+               for d, c, s in _grouped([days], rev)][:10],
         "T1b": [[d, float(d * DAY_MS), c, float(s)]
                 for d, c, s in _grouped([days], rev)],
         "T2": sorted([h, COUNTRIES[c], n, float(s)] for h, c, n, s in
@@ -1553,7 +1579,9 @@ def phase_time(seed: int, reps: int, segments: int = 8,
     events, each query ``reps`` times per segment against numpy, with its
     decline code, rung and general-rung calls asserted (the fused scan
     declines floordiv / mod keys and values, as the JAX kernel does); the
-    batch path raises NotPortedError with the same code."""
+    batch path raises NotPortedError with the same code. T1's key spans
+    the milliseconds: the planner sends it to the host engine per
+    segment, on both paths, with no launch."""
     from pinot_tpu_torch.engine import kernels
     from pinot_tpu_torch.engine.executor import ServerQueryExecutor
     from pinot_tpu_torch.engine.pruner import prune_segments
@@ -1579,12 +1607,9 @@ def phase_time(seed: int, reps: int, segments: int = 8,
     for tid, sql in sqls.items():
         ctx = compile_query(sql)
         code, rung = TIME_PATH[tid]
-        if rung == "refused":
-            _expect_refusal(ex, ctx, segs, code, tid)
-            _expect_refusal(bex, ctx, segs, code, f"batch {tid}")
-            paths[tid] = {"refused": code}
-            log(f"  9b {tid}: NotPortedError {code} on both paths (the "
-                "JAX planner sends it to its host engine)")
+        if rung == "host":
+            lat[tid], paths[tid] = _time_host_query(
+                tid, ctx, segs, ex, bex, counters, reps, wants[tid], code)
             continue
         k = len(prune_segments(ctx, segs))
         # the pruner against the segments' own ts bounds: only T3 filters
@@ -1613,6 +1638,36 @@ def phase_time(seed: int, reps: int, segments: int = 8,
             f"rung {rung}; == numpy oracle; the batch raises NotPortedError")
     return {"rows": rows, "per_query": _latencies(lat, rows),
             "paths": paths, "launches": total}
+
+
+def _time_host_query(tid, ctx, segs, ex, bex, counters, reps, want,
+                     code) -> tuple:
+    """A 9b query the planner sends to the host engine: ``reps`` runs per
+    segment against numpy, each segment's decision asserted and no launch
+    made, then one run over the batch (which meets the same code and takes
+    the per-segment path). -> (latencies, path)."""
+    from pinot_tpu_torch.tools.usertable import check_rows
+
+    key = f"plan:device_kernel->host_engine:{code}"
+
+    def check(table, stats):
+        check_rows(tid, [list(r) for r in table.rows], want)
+        if stats.decisions != {key: len(segs)} \
+                or stats.rung_segments != {"host": len(segs)}:
+            raise AssertionError(f"{tid}: {stats.decisions}, rungs "
+                                 f"{stats.rung_segments}")
+    _reset(counters)
+    ms = _timed(ex, ctx, segs, reps, check)
+    _path_launches(counters, ex.device, {}, tid)
+    table, stats = bex.execute(ctx, segs)
+    check_rows(tid, [list(r) for r in table.rows], want)
+    if stats.decisions.get(key) != len(segs):
+        raise AssertionError(f"batch {tid}: {stats.decisions}")
+    _path_launches(counters, ex.device, {}, f"batch {tid}")
+    log(f"  9b {tid}: the host engine on all {len(segs)} segments "
+        f"({code}), 0 launches, == numpy oracle, per segment and over the "
+        "batch (host CPU time)")
+    return ms, {"host_engine": code}
 
 
 def _text_segment(seed: int, n: int, distinct: int = 4096):
@@ -1739,6 +1794,198 @@ def phase_text(seed: int, reps: int, n: int = 1_000_000,
             "launches": total}
 
 
+# -- phase 10: the host engine and the device top-k ---------------------------
+
+_HOST = "plan:device_kernel->host_engine:"
+# per query: the path ("host": the host engine; "topk": the device top-k
+# on every kept segment), the decision recorded and how often ("segment":
+# once per kept segment; "query": once)
+HOST_PATH = {
+    "H1": ("host", _HOST + "agg_not_device_supported", "segment"),
+    "H2": ("host", _HOST + "agg_not_device_supported", "segment"),
+    "H3": ("host", _HOST + "agg_not_device_supported", "segment"),
+    "H4": ("host", _HOST + "distinct_host_only", "query"),
+    "H5": ("host", None, None),
+    "H6": ("topk", None, None),
+    "H7": ("host", "selection:device_topk->host_engine:"
+                   "selection_not_device_eligible", "query"),
+    "U8": ("topk", None, None),
+    "U9": ("host", _HOST + "group_virtual_column", "segment"),
+    "U10": ("host", _HOST + "agg_not_device_supported", "segment"),
+}
+
+
+def _filter_columns(spec, out: set) -> set:
+    """The columns a compiled filter reads."""
+    if spec[0] in ("and", "or", "not"):
+        for c in spec[1]:
+            _filter_columns(c, out)
+    elif len(spec) > 1 and isinstance(spec[1], str):
+        out.add(spec[1])
+    return out
+
+
+def _profile_calls(fn, iters: int):
+    """(device ms per call, CUDA kernels per call) of ``fn`` from a
+    ``torch.profiler`` trace, or (None, None) when the trace holds no
+    device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None, None
+    kernels = [e for e in events
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    return (sum(e.time_range.elapsed_us() for e in events) / iters / 1e3,
+            len(kernels) / iters)
+
+
+def _time_topk(ctx, kept, ex, iters: int = 20) -> dict:
+    """The top-k's segment call at its path's shape (the kept segment with
+    the most matching docs): held to the host engine's order of the same
+    docs, then timed beside its byte bound (the filter's columns on every
+    doc, the order keys, the doc ids out, at 3.35 TB/s)."""
+    from pinot_tpu_torch.engine import host_engine
+    from pinot_tpu_torch.engine import selection_device as sd
+
+    calls = [sd.topk_args(ctx, seg, ex,
+                          sd.segment_plan(ctx, seg, ex.selection_cache))
+             for seg in kept]
+    outs = [sd.topk_docs(*args).cpu().numpy() for args in calls]
+    i = int(np.argmax([out[-1] for out in outs]))
+    seg, args, got = kept[i], calls[i], outs[i]
+    del calls, outs
+    spec, cols, _params, _n, cap, keys, _asc, k = args[:8]
+    want = host_engine.execute_selection(ctx, [seg])
+    n = int(got[-1])
+    docs = got[:min(n, k)]
+    rows = host_engine._gather_rows(
+        [seg], host_engine._expand_select(ctx, seg.metadata.schema),
+        np.zeros(len(docs), dtype=np.int64), docs)
+    need = ctx.offset + ctx.limit
+    if rows[ctx.offset:need] != want.rows:
+        raise AssertionError(f"top-k on {seg.segment_name}: rows differ "
+                             "from the host engine's")
+    nbytes = (sum(cols.fwd(c).numel() * cols.fwd(c).element_size()
+                  for c in _filter_columns(spec, set()))
+              + sum(t.numel() * t.element_size() for t in keys)
+              + 8 * (k + 1))
+    ms = _time_ms(lambda: sd.topk_docs(*args), iters)
+    device_ms, kernels = _profile_calls(lambda: sd.topk_docs(*args), iters)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"segment": seg.segment_name, "docs": seg.num_docs,
+            "capacity": cap, "k": k, "matched": n, "bytes": nbytes,
+            "ms": ms, "device_ms": device_ms, "cuda_kernels": kernels,
+            "bound_ms": bound}
+
+
+def phase_host(main: dict, users: dict, bex, reps: int,
+               card: str = "") -> dict:
+    """H1-H7 (``tools/ssb.py`` ``host_queries``) on phase 4's segments and
+    U8-U10 (``tools/usertable.py``) on phase 8's, each ``reps`` times per
+    segment through ``main["ex"]`` after one untimed run, against the
+    numpy oracle, with its decisions and launches asserted: 0 fused-scan
+    and general-rung launches, top-k calls on every kept segment of H6
+    and U8 only. H6 and U8 also equal the host engine's
+    ``execute_selection`` on the same segments (the top-k's plain
+    version), and H6 runs through the batch executor too; each top-k is
+    then timed on the kept segment with the most matches beside its
+    bound, on ``card`` (its name and power limit). Host-engine times are
+    host CPU time on the card's machine."""
+    from pinot_tpu_torch.engine import host_engine, kernels
+    from pinot_tpu_torch.engine.pruner import prune_segments
+    from pinot_tpu_torch.engine.selection_device import TOPK_COUNTER
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import ssb, usertable
+
+    ex = main["ex"]
+    user_segs = users["segs"]
+    user = users["user"]
+    queries = {qid: (sql, main["segs"], main["host_kept"][qid],
+                     main["host_wants"][qid])
+               for qid, sql in main["host_texts"].items()}
+    for qid, sql in usertable.host_queries(user).items():
+        ctx = compile_query(sql)
+        queries[qid] = (sql, user_segs, prune_segments(ctx, user_segs),
+                        users["host_wants"][qid])
+    counters = {**scan_counters(), "general_rung": kernels.RUNG_COUNTER}
+    lat, paths, topk = {}, {}, []
+    for qid, (sql, segs, kept, want) in queries.items():
+        ctx = compile_query(sql)
+        path, key, per = HOST_PATH[qid]
+        k = len(kept)
+        expect = ({} if key is None
+                  else {key: k if per == "segment" else 1})
+
+        def check(table, stats, qid=qid, want=want, expect=expect,
+                  on_card=path == "topk", k=k):
+            if qid.startswith("H"):
+                ssb.check_host_rows(qid, table.rows, want)
+            elif [list(r) for r in table.rows] != want:
+                raise AssertionError(f"{qid}: rows differ from the oracle")
+            if stats.decisions != expect:
+                raise AssertionError(f"{qid}: decisions {stats.decisions}")
+            if stats.topk_launches != (k if on_card else 0) \
+                    or stats.scan_launches or stats.general_launches:
+                raise AssertionError(f"{qid}: top-k {stats.topk_launches}, "
+                                     f"scans {stats.scan_launches}, general "
+                                     f"{stats.general_launches}")
+        table, stats = ex.execute(ctx, segs)    # untimed: stages the keys
+        check(table, stats)
+        _reset(counters)
+        TOPK_COUNTER.reset()
+        lat[qid] = _timed(ex, ctx, segs, reps, check)
+        _path_launches(counters, ex.device, {}, qid)
+        if TOPK_COUNTER.launches != (k * reps if path == "topk" else 0):
+            raise AssertionError(f"{qid}: {TOPK_COUNTER.launches} top-k "
+                                 "calls")
+        paths[qid] = {"path": path, "decision": key, "kept_segments": k,
+                      "topk_calls": TOPK_COUNTER.launches}
+        where = ("the device top-k" if path == "topk"
+                 else "the host engine (host CPU time)")
+        log(f"  10 {qid}: {k} of {len(segs)} segments kept, {where}, "
+            f"decisions {stats.decisions}, 0 fused or general launches; "
+            "== numpy oracle")
+        if path == "topk":
+            plain = host_engine.execute_selection(ctx, kept)
+            if [list(r) for r in plain.rows] != [list(r)
+                                                for r in table.rows]:
+                raise AssertionError(f"{qid}: the top-k's rows differ from "
+                                     "the host engine's")
+            if qid == "H6":
+                btable, bstats = bex.execute(ctx, segs)
+                if btable.rows != table.rows or bstats.topk_launches != k:
+                    raise AssertionError("H6 over the batch executor")
+            if ex.device.type != "cuda":
+                continue
+            row = {"query": qid, **_time_topk(ctx, kept, ex)}
+            topk.append(row)
+            log(f"  10 {qid} top-k == host engine's execute_selection, "
+                f"ties included; on {row['segment']} ({row['docs']} docs, "
+                f"k {row['k']}, {row['matched']} matched): "
+                f"{row['ms']:.4f} ms/call (CUDA events), device "
+                f"{row['device_ms']} ms in {row['cuda_kernels']} CUDA "
+                f"kernels/call (torch.profiler), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bytes']} B); {card}")
+    per_query = _latencies({q: v for q, v in lat.items()
+                            if q.startswith("H")},
+                           sum(s.num_docs for s in main["segs"]))
+    per_query.update(_latencies({q: v for q, v in lat.items()
+                                 if q.startswith("U")},
+                                sum(s.num_docs for s in user_segs)))
+    return {"per_query": per_query, "paths": paths, "topk": topk}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10)
@@ -1828,13 +2075,22 @@ def main(argv=None) -> int:
                           rows_per_segment=args.user_rows)
     text_run = phase_text(args.seed, args.reps)
     log(f"  SQL-slice phase: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 10: the host engine (percentile, mode, t-digest, grouped "
+        "DISTINCTCOUNT, DISTINCT, selection, a virtual column, grouped MV "
+        "aggregations) and ordered selection on the device top-k")
+    t0 = time.perf_counter()
+    host_run = phase_host(main_run, users_run, batch_run["ex"],
+                          min(args.reps, 3), card=smi)
+    del users_run["segs"], users_run["host_wants"]
+    log(f"  host-engine phase: {time.perf_counter() - t0:.1f} s")
     log("rungs " + json.dumps({
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]
                      for g, d in general_run["declined"].items()},
         "user_events": users_run["paths"], "columns": columns_run["paths"],
         "sql": sql_run["paths"], "time": time_run["paths"],
-        "text": text_run["paths"]}))
+        "text": text_run["paths"], "host": host_run["paths"]}))
     # each path's launches, read after its own run: phases 4 and 6 (per
     # segment and batch), 8 (per segment and batch) and 9
     launches = {k: 0 for k in main_run["launches"]}
@@ -1886,6 +2142,7 @@ def main(argv=None) -> int:
                        "sql": {k: v for k, v in sql_run.items()
                                if k != "timing"},
                        "time": time_run, "text": text_run,
+                       "host": host_run,
                        "seconds": time.perf_counter() - t_all}, f, indent=1)
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -86,10 +86,10 @@ class PlanError(UnsupportedQueryError):
 
 
 class NotPortedError(UnsupportedQueryError):
-    """A plan the port's device rungs do not serve. The JAX package would
-    serve it on a rung that is not ported yet (its host engine, or the jnp
-    combine of a segment batch); this port never falls back to the host
-    silently, it raises with the decline's reason code."""
+    """A plan the port does not serve yet: the JAX package serves it on
+    the jnp combine of a segment batch, which is not ported. The port
+    raises with the fused scan's decline code rather than take a route
+    the JAX package does not take."""
 
     def __init__(self, reason_code: str, detail: str = ""):
         super().__init__(f"{reason_code}: {detail}" if detail else reason_code)

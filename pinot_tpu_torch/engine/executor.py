@@ -4,21 +4,37 @@ Counterpart of ``pinot_tpu/engine/executor.py`` (``ServerQueryExecutor``,
 ``_try_pallas`` / ``_run_kernel`` at :939/:1020, ``decode_scalar_result``
 at :1093, ``decode_grouped_result`` at :1127). A query first loses the
 segments its filter provably excludes (``engine/pruner.py``; at least one
-is kept). Per segment: a filter-less COUNT(*) / MIN / MAX / MINMAXRANGE is
-answered from the segment's metadata; otherwise plan -> the fused scan
-(probe first when the group space exceeds MAX_SCAN_GROUPS); a plan it
-declines, with the decline recorded under the JAX package's keys, goes to
-the general rung (``engine/kernels.py``) on the same device -> decode;
+is kept). Then, routed as the JAX executor routes it (:462-466, :681-694):
+
+- ``SELECT DISTINCT`` (or GROUP BY without aggregations) goes to the host
+  engine (``engine/host_engine.py``), recorded as
+  ``plan:device_kernel->host_engine:distinct_host_only``;
+- an ordered selection goes to the device top-k
+  (``engine/selection_device.py``), or, where it declines, to the host
+  engine, recorded as ``selection:device_topk->host_engine:<code>`` with
+  the code ``selection_not_device_eligible``; an unordered selection goes
+  to the host engine, with no decision;
+- an aggregation or group-by, per segment: a filter-less COUNT(*) / MIN /
+  MAX / MINMAXRANGE is answered from the segment's metadata; otherwise
+  plan -> the fused scan (probe first when the group space exceeds
+  MAX_SCAN_GROUPS); a plan it declines, with the decline recorded under
+  the JAX package's keys, goes to the general rung
+  (``engine/kernels.py``) on the same device -> decode. A ``PlanError``
+  from planning or from decode (more live groups than the compact cap)
+  sends the segment to the host engine, recorded as
+  ``plan:device_kernel->host_engine:<code>`` (the group-by rung is then
+  ``host``);
+
 then merge, the ``num_groups_limit`` trim, and reduce.
 ``use_fused_scan=False`` (JAX: ``use_pallas=False``) sends every plan to
-the general rung. A plan neither rung serves (a ``PlanError``: the JAX
-package's host engine serves it) raises :class:`NotPortedError` with the
-reason code: there is no silent host fallback. The virtual columns
-(``$docId``, ``$segmentName``, ``$hostName``) are known columns that only
-the host engine serves. Segments run one after another on the current
-stream;
-``_execute_aggregation`` and ``_execute_group_by`` are the points a
-subclass overrides to combine segments otherwise
+the general rung. There is no route to the host engine that the JAX
+executor does not take: neither its ``device_disabled`` backend route nor
+its residency spill is ported, and nothing runs on the CPU unless the
+executor was built with ``device="cpu"``. The only ``NotPortedError``
+left is the batch path's (``pinot_tpu_torch.parallel``), where the fused
+scan declines a segment batch. Segments run one after another on the
+current stream; ``_execute_aggregation`` and ``_execute_group_by`` are the
+points a subclass overrides to combine segments otherwise
 (``pinot_tpu_torch.parallel.ShardedQueryExecutor``).
 """
 
@@ -31,13 +47,14 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.device import resolve_device
-from pinot_tpu_torch.engine import fused_scan, kernels
+from pinot_tpu_torch.engine import fused_scan, host_engine, kernels
 from pinot_tpu_torch.engine.aggregates import (
     AggDef,
     agg_value_expr,
     resolve_agg,
 )
 from pinot_tpu_torch.engine.errors import NotPortedError, PlanError, QueryError
+from pinot_tpu_torch.engine.host_eval import VIRTUAL_COLUMNS
 from pinot_tpu_torch.engine.plan import SegmentPlan, plan_segment
 from pinot_tpu_torch.engine.pruner import prune_segments
 from pinot_tpu_torch.engine.results import (
@@ -48,6 +65,10 @@ from pinot_tpu_torch.engine.results import (
     record_decision,
     reduce_aggregation,
     reduce_group_by,
+)
+from pinot_tpu_torch.engine.selection_device import (
+    SelectionCache,
+    device_selection,
 )
 from pinot_tpu_torch.engine.staging import StagedSegment
 from pinot_tpu_torch.query.context import QueryContext
@@ -60,8 +81,6 @@ from pinot_tpu_torch.utils.hll import HyperLogLog
 PLAN_CACHE_CAP = 256
 # merged groups kept before the reduce (Pinot's numGroupsLimit default)
 DEFAULT_NUM_GROUPS_LIMIT = 100_000
-# columns every table has; the JAX package serves them on its host engine
-VIRTUAL_COLUMNS = ("$docId", "$segmentName", "$hostName")
 
 
 class ServerQueryExecutor:
@@ -79,6 +98,7 @@ class ServerQueryExecutor:
         # recently used first
         self._plans: "OrderedDict[Tuple[str, str], Tuple]" = OrderedDict()
         self.kernels = kernels.KernelCache()
+        self.selection_cache = SelectionCache()
 
     def stage(self, segment: ImmutableSegment) -> StagedSegment:
         hit = self._staged.get(segment.segment_name)
@@ -102,21 +122,44 @@ class ServerQueryExecutor:
         scans0 = fused_scan.SCAN_COUNTER.launches
         probes0 = fused_scan.PROBE_COUNTER.launches
         general0 = kernels.RUNG_COUNTER.launches
-        aggs = [resolve_agg(f) for f in ctx.aggregations]
-        if ctx.is_group_by:
-            merged = self._execute_group_by(ctx, aggs, segments, stats)
-        else:
-            merged = self._execute_aggregation(ctx, aggs, segments, stats)
+        table = self._execute_pruned(ctx, segments, stats)
         stats.scan_launches = fused_scan.SCAN_COUNTER.launches - scans0
         stats.probe_launches = fused_scan.PROBE_COUNTER.launches - probes0
         stats.general_launches = kernels.RUNG_COUNTER.launches - general0
-        if ctx.is_group_by:
-            if merged.trim(self.num_groups_limit):
-                stats.num_groups_limit_reached = True
-            types = {n: cm.data_type.label
-                     for n, cm in segments[0].metadata.columns.items()}
-            return reduce_group_by(ctx, aggs, merged, types), stats
-        return reduce_aggregation(ctx, aggs, merged), stats
+        return table, stats
+
+    def _execute_pruned(self, ctx: QueryContext,
+                        segments: List[ImmutableSegment],
+                        stats: QueryStats) -> ResultTable:
+        if ctx.distinct:
+            record_decision(stats, "plan", "host_engine", "device_kernel",
+                            "distinct_host_only")
+            return host_engine.execute_distinct(ctx, segments, stats)
+        if ctx.is_selection:
+            return self._selection(ctx, segments, stats)
+        aggs = [resolve_agg(f) for f in ctx.aggregations]
+        if not ctx.is_group_by:
+            merged = self._execute_aggregation(ctx, aggs, segments, stats)
+            return reduce_aggregation(ctx, aggs, merged)
+        merged = self._execute_group_by(ctx, aggs, segments, stats)
+        if merged.trim(self.num_groups_limit):
+            stats.num_groups_limit_reached = True
+        types = {n: cm.data_type.label
+                 for n, cm in segments[0].metadata.columns.items()}
+        types.update(VIRTUAL_COLUMNS)
+        return reduce_group_by(ctx, aggs, merged, types)
+
+    def _selection(self, ctx: QueryContext, segments: List[ImmutableSegment],
+                   stats: QueryStats) -> ResultTable:
+        """An ordered selection on the device top-k where it is eligible,
+        else (and every unordered selection) on the host engine."""
+        if ctx.order_by:
+            table = device_selection(ctx, segments, self, stats)
+            if table is not None:
+                return table
+            record_decision(stats, "selection", "host_engine", "device_topk",
+                            "selection_not_device_eligible")
+        return host_engine.execute_selection(ctx, segments, stats)
 
     @staticmethod
     def _prune(ctx: QueryContext, segments: List[ImmutableSegment],
@@ -140,25 +183,46 @@ class ServerQueryExecutor:
         for seg in segments:
             part = _metadata_answer(ctx, aggs, seg, stats)
             if part is None:
-                scan = self._scan_segment(ctx, seg, stats)
-                part = decode_scalar_result(scan.plan, seg, scan.tree)
+                part = self._segment_aggregation(ctx, aggs, seg, stats)
             if merged is None:
                 merged = part
             else:
                 merged.merge(part, aggs)
         return merged
 
+    def _segment_aggregation(self, ctx: QueryContext, aggs: List[AggDef],
+                             seg: ImmutableSegment,
+                             stats: QueryStats) -> AggResult:
+        try:
+            scan = self._scan_segment(ctx, seg, stats)
+            return decode_scalar_result(scan.plan, seg, scan.tree)
+        except PlanError as e:
+            record_decision(stats, "plan", "host_engine", "device_kernel",
+                            e.reason_code)
+        return host_engine.host_aggregate_segment(ctx, aggs, seg, stats)
+
     def _execute_group_by(self, ctx: QueryContext, aggs: List[AggDef],
                           segments: List[ImmutableSegment],
                           stats: QueryStats) -> GroupByResult:
         merged = GroupByResult()
         for seg in segments:
+            merged.merge(self._segment_group_by(ctx, aggs, seg, stats), aggs)
+        return merged
+
+    def _segment_group_by(self, ctx: QueryContext, aggs: List[AggDef],
+                          seg: ImmutableSegment,
+                          stats: QueryStats) -> GroupByResult:
+        try:
             scan = self._scan_segment(ctx, seg, stats)
-            merged.merge(decode_grouped_result(scan.plan, seg, scan.tree),
-                         aggs)
+            part = decode_grouped_result(scan.plan, seg, scan.tree)
             stats.record_rung(kernels.grouped_rung(scan.plan.spec,
                                                    scan.tree))
-        return merged
+            return part
+        except PlanError as e:
+            record_decision(stats, "plan", "host_engine", "device_kernel",
+                            e.reason_code)
+        stats.record_rung("host")
+        return host_engine.host_group_by_segment(ctx, aggs, seg, stats)
 
     def _plan_for(self, ctx: QueryContext, seg: ImmutableSegment
                   ) -> SegmentPlan:
@@ -182,11 +246,9 @@ class ServerQueryExecutor:
     def _scan_segment(self, ctx: QueryContext, seg: ImmutableSegment,
                       stats: QueryStats) -> fused_scan.SegmentScan:
         """The fused scan, or the general rung where it declines (or is
-        off); the decision is recorded as the JAX executor records it."""
-        try:
-            plan = self._plan_for(ctx, seg)
-        except PlanError as e:
-            raise NotPortedError(e.reason_code, str(e)) from e
+        off); the decision is recorded as the JAX executor records it. A
+        plan neither serves raises ``PlanError``."""
+        plan = self._plan_for(ctx, seg)
         staged = self.stage(seg)
         reasons: List[str] = []
         scan = None
@@ -216,10 +278,7 @@ class ServerQueryExecutor:
         if plan.params and plan.params[0] is None:    # validdocs placeholder
             params = (staged.valid_mask(),) + params[1:]
         packed = kernel(cols, params, staged.num_docs, self.device)
-        try:
-            tree = kernels.unpack_outputs(packed.cpu().numpy(), plan.spec)
-        except PlanError as e:
-            raise NotPortedError(e.reason_code, str(e)) from e
+        tree = kernels.unpack_outputs(packed.cpu().numpy(), plan.spec)
         matched = int(tree["num_matched"] if "num_matched" in tree
                       else np.asarray(tree["presence"]).sum())
         return fused_scan.SegmentScan(tree=tree, plan=plan, matched=matched)

@@ -3,7 +3,10 @@
 Counterpart of ``pinot_tpu/engine/results.py`` (``reduce_group_by``,
 ``reduce_aggregation``): merged group states -> HAVING -> ORDER BY ->
 OFFSET / LIMIT -> rows. A query without GROUP BY reduces to its one row:
-HAVING and OFFSET do not apply there, as in the JAX package.
+HAVING and OFFSET do not apply there, as in the JAX package. Selection
+and DISTINCT build their ``ResultTable`` in the host engine
+(``engine/host_engine.py``), with the column types of the selected
+columns (``INT``, ``STRING_ARRAY``, ...).
 """
 
 from __future__ import annotations
@@ -62,8 +65,10 @@ class QueryStats:
     probe_launches: int = 0
     sharded_scan_launches: int = 0
     sharded_probe_launches: int = 0
-    # segment calls of the general rung (engine/kernels.py)
+    # segment calls of the general rung (engine/kernels.py) and of the
+    # ordered-selection top-k (engine/selection_device.py)
     general_launches: int = 0
+    topk_launches: int = 0
     # the group-by rung that served: dense | compact | hash | sort, or
     # "mixed" when segments of one query took different rungs (the JAX
     # package's QueryStats.merge rule); and segments served per rung
@@ -194,6 +199,8 @@ def _finalize_cell(v: Any) -> Any:
         return int(v)
     if isinstance(v, np.floating):
         return float(v)
+    if isinstance(v, np.bool_):
+        return bool(v)
     return v
 
 

@@ -14,9 +14,13 @@ segment skips the metadata answer and scans. A single segment, segments
 that cannot share a batch, or a plan the batch's key space refuses take
 the per-segment path of the base class, with the decision recorded in
 ``QueryStats.decisions`` (upsert segments among them: their valid-doc
-bitmaps change under a batch). A plan the fused scan declines raises
-:class:`NotPortedError`: the JAX package would serve it on its jnp
-combine, which is not ported.
+bitmaps change under a batch), as ``sharded_combine:sharded_combine->
+per_segment:<code>``; a plan the device planner refuses there (a host-only
+aggregation, say) then reaches the host engine per segment, as in the JAX
+package. Selection and DISTINCT are the base class's: the JAX sharded
+executor does not override them. A plan the fused scan declines over the
+batch raises :class:`NotPortedError`: the JAX package would serve it on
+its jnp combine, which is not ported.
 
 The JAX executor's launch scheduler and coalescing, residency and
 admission, sliced execution, star-tree and index routing and the doc-axis

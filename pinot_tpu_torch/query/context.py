@@ -3,7 +3,10 @@
 Counterpart of ``pinot_tpu/query/context.py`` (``compile_query``): parse,
 optimise the WHERE and HAVING filters, resolve aliases and ordinals (HAVING
 takes aliases only), and collect the aggregation functions the plan maker
-and the reduce need, HAVING's among them.
+and the reduce need, HAVING's among them. A query without aggregations is
+a selection, or DISTINCT (``SELECT DISTINCT``, or a GROUP BY without
+aggregations, which becomes DISTINCT over the group expressions as in the
+JAX package).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ class QueryContext:
     order_by: List[OrderByExpr]
     limit: int
     offset: int = 0
+    distinct: bool = False
     having: Optional[FilterNode] = None
     options: Dict[str, str] = field(default_factory=dict)
     aggregations: List[Function] = field(default_factory=list)
@@ -62,6 +66,10 @@ class QueryContext:
     @property
     def is_group_by(self) -> bool:
         return bool(self.group_by)
+
+    @property
+    def is_selection(self) -> bool:
+        return not self.aggregations and not self.distinct
 
     def referenced_columns(self) -> List[str]:
         cols: List[str] = []
@@ -135,8 +143,8 @@ def compile_query(sql: str) -> QueryContext:
         table_name=parsed.table, select_expressions=select_exprs,
         aliases=aliases, filter=optimize_filter(parsed.where),
         group_by=group_by, order_by=order_by, limit=parsed.limit,
-        offset=parsed.offset, having=having, options=dict(parsed.options),
-        sql=sql)
+        offset=parsed.offset, distinct=parsed.distinct, having=having,
+        options=dict(parsed.options), sql=sql)
     for e in select_exprs:
         _collect_aggregations(e, ctx.aggregations)
     if having is not None:
@@ -144,14 +152,18 @@ def compile_query(sql: str) -> QueryContext:
             _collect_aggregations(p.lhs, ctx.aggregations)
     for ob in order_by:
         _collect_aggregations(ob.expr, ctx.aggregations)
-    if not ctx.aggregations:
-        raise SqlParseError("selection and DISTINCT queries are not "
-                            "supported by this port: select an aggregation")
+    if ctx.distinct and ctx.aggregations:
+        raise SqlParseError("DISTINCT with aggregations is not supported")
+    if not ctx.aggregations and not group_by:
+        return ctx
     group_keys = {str(e) for e in group_by}
     for e in select_exprs:
         if not _has_aggregation(e) and str(e) not in group_keys:
             raise SqlParseError(f"non-aggregate select expression {e} must "
                                 "appear in GROUP BY")
+    if not ctx.aggregations:
+        ctx.distinct = True
+        ctx.group_by = []
     return ctx
 
 

@@ -1,9 +1,9 @@
 """SQL parser: SQL text -> parsed query AST.
 
 Counterpart of ``pinot_tpu/query/parser.py`` (``parse_sql``), cut to the
-dialect the port's device rungs serve:
+dialect the port serves:
 
-    SELECT select_list FROM table
+    SELECT [DISTINCT] select_list FROM table
     [WHERE bool_expr] [GROUP BY expr_list] [HAVING bool_expr]
     [ORDER BY expr [ASC|DESC], ...] [LIMIT n [OFFSET m] | LIMIT m, n]
     [OPTION(k=v, ...)]
@@ -14,9 +14,9 @@ LIKE NOT LIKE`` with a column on one side and a literal on the other,
 ``TEXT_MATCH(col, 'q')`` and ``JSON_MATCH(col, 'filter')``. Value
 expressions are columns, numeric literals, ``+ - * / %`` and function
 calls: the aggregation functions (``query/context.py``
-``is_aggregation``; ``count(DISTINCT x)`` is ``distinctcount(x)``) and
-transforms. ``SELECT DISTINCT``, ``CASE`` and ``EXPLAIN`` raise
-:class:`SqlParseError`.
+``is_aggregation``; ``count(DISTINCT x)`` is ``distinctcount(x)``),
+transforms and ``*``. ``CASE`` (which no JAX server path evaluates) and
+``EXPLAIN`` (the broker's) raise :class:`SqlParseError`.
 """
 
 from __future__ import annotations
@@ -100,6 +100,7 @@ _PREDICATE_FUNCTIONS = {
 class ParsedQuery:
     table: str
     select: List[Tuple[Expr, Optional[str]]]  # (expr, alias)
+    distinct: bool = False
     where: Optional[FilterNode] = None
     group_by: List[Expr] = field(default_factory=list)
     having: Optional[FilterNode] = None
@@ -161,8 +162,7 @@ class _Parser:
 
     def parse(self) -> ParsedQuery:
         self.expect_keyword("SELECT")
-        if self.at_keyword("DISTINCT"):
-            raise self.unsupported("SELECT DISTINCT")
+        distinct = self.accept_keyword("DISTINCT")
         select = self.parse_select_list()
         self.expect_keyword("FROM")
         table = self.parse_identifier_token()
@@ -204,8 +204,8 @@ class _Parser:
         if t.kind != "eof":
             raise SqlParseError(
                 f"unexpected trailing input at position {t.pos}: {t.text!r}")
-        return ParsedQuery(table=table, select=select, where=where,
-                           group_by=group_by, having=having,
+        return ParsedQuery(table=table, select=select, distinct=distinct,
+                           where=where, group_by=group_by, having=having,
                            order_by=order_by, limit=limit, offset=offset,
                            options=options)
 

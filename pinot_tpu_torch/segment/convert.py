@@ -164,10 +164,14 @@ def segment_from_arrays(name: str, num_docs: int,
 
 def columns_of(segment) -> Dict[str, ColumnArrays]:
     """Per-column arrays of a segment (a port segment or one loaded by the
-    JAX package)."""
+    JAX package), in the order of its schema's fields."""
     n = segment.num_docs
     out: Dict[str, ColumnArrays] = {}
-    for col, cm in segment.metadata.columns.items():
+    # in the schema's field order, which ``SELECT *`` lists
+    order = {c: i for i, c in
+             enumerate(segment.metadata.schema.column_names)}
+    for col, cm in sorted(segment.metadata.columns.items(),
+                          key=lambda kv: order.get(kv[0], len(order))):
         ds = segment.data_source(col)
         dt = DataType.from_string(cm.data_type.label)
         a = ColumnArrays(data_type=dt,

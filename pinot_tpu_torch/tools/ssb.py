@@ -21,7 +21,10 @@ DISTINCTCOUNT and DISTINCTCOUNTHLL), with their oracle
 the same table (LIKE, NOT LIKE and REGEXP_LIKE of 1 to 100 dictId runs,
 HAVING with OFFSET and OPTION, a query the segment metadata answers),
 with their oracle: string predicates evaluated on the universe of values
-and gathered by code.
+and gathered by code. ``host_queries`` are seven the host engine and the
+device top-k serve (percentile and mode, a grouped t-digest, a grouped
+DISTINCTCOUNT, SELECT DISTINCT, unordered and ordered selections), with
+their oracle written out in numpy over the frames.
 """
 
 from __future__ import annotations
@@ -384,8 +387,8 @@ def bounds_may_match(frame: Dict[str, np.ndarray], qid: str) -> bool:
     lies wholly outside its column's [min, max] (pattern conditions never
     prune). An oracle of min/max segment pruning, independent of the
     engine's metadata."""
-    conds = {**_ORACLE, **_SQL_ORACLE, **_DECLINED_ORACLE}.get(
-        qid, ([],))[0]
+    conds = {**_ORACLE, **_SQL_ORACLE, **_DECLINED_ORACLE,
+             **_HOST_ORACLE}.get(qid, ([],))[0]
     for col, op, arg in conds:
         if op in ("prefix", "notprefix", "regex"):
             continue
@@ -669,3 +672,150 @@ def declined_rows(gid: str, rows: List[List]) -> Dict[Tuple, object]:
     if _DECLINED_ORACLE[gid][2] == "minmax":
         return {tuple(r[:n_keys]): tuple(r[n_keys:]) for r in rows}
     return {tuple(r[:n_keys]): r[n_keys] for r in rows}
+
+
+# -- the host engine and the device top-k --------------------------------------
+
+# H1 percentile and mode over one year (the host engine, scalar), H2 a
+# t-digest percentile per nation (host, grouped), H3 DISTINCTCOUNT per year
+# (host, grouped), H4 SELECT DISTINCT of 25 rows, H5 an unordered
+# selection with OFFSET, H6 an ordered selection on dictionary keys (the
+# device top-k), H7 one ordered by an expression (the host engine).
+_AMERICA_1997 = "WHERE d_year = 1997 AND c_region = 'AMERICA'"
+HOST_QUERIES: Dict[str, str] = {
+    "H1": "SELECT percentile90(lo_revenue), mode(lo_discount) "
+          "FROM ssb_lineorder WHERE d_year = 1997",
+    "H2": "SELECT c_nation, percentiletdigest95(lo_extendedprice) "
+          "FROM ssb_lineorder WHERE c_region = 'ASIA' GROUP BY c_nation "
+          "ORDER BY c_nation",
+    "H3": "SELECT d_year, distinctcount(c_city) FROM ssb_lineorder "
+          "WHERE lo_discount = 0 AND lo_quantity <= 2 "
+          "AND s_nation = 'CHINA' GROUP BY d_year ORDER BY d_year",
+    "H4": "SELECT DISTINCT c_region, s_region FROM ssb_lineorder LIMIT 100",
+    "H5": "SELECT d_yearmonthnum, c_city, lo_revenue FROM ssb_lineorder "
+          "WHERE s_nation = 'BRAZIL' LIMIT 10 OFFSET 5",
+    "H6": "SELECT d_yearmonthnum, c_city, lo_revenue FROM ssb_lineorder "
+          f"{_AMERICA_1997} ORDER BY lo_revenue DESC, d_yearmonthnum "
+          "LIMIT 20",
+    "H7": "SELECT d_yearmonthnum, lo_revenue, lo_supplycost "
+          f"FROM ssb_lineorder {_AMERICA_1997} "
+          "ORDER BY lo_revenue - lo_supplycost DESC LIMIT 20",
+}
+# the t-digest's estimate of H2 against the exact percentile
+TDIGEST_REL_TOL = 1e-2
+_AMERICA_1997_CONDS = [("d_year", "eq", 1997), ("c_region", "eq", "AMERICA")]
+_HOST_ORACLE = {
+    "H1": ([("d_year", "eq", 1997)],),
+    "H2": ([("c_region", "eq", "ASIA")],),
+    "H3": ([("lo_discount", "eq", 0), ("lo_quantity", "between", (None, 2)),
+            ("s_nation", "eq", "CHINA")],),
+    "H4": ([],),
+    "H5": ([("s_nation", "eq", "BRAZIL")],),
+    "H6": (_AMERICA_1997_CONDS,),
+    "H7": (_AMERICA_1997_CONDS,),
+}
+
+
+def _matching(frame, qid: str) -> np.ndarray:
+    m = np.ones(len(frame["lo_quantity"]), dtype=bool)
+    for col, op, arg in _HOST_ORACLE[qid][0]:
+        m &= _condition(frame, col, op, arg)
+    return m
+
+
+def _cell(col: str, v) -> Any:
+    return str(UNIVERSE[col][v]) if col in UNIVERSE else int(v)
+
+
+def _ordered_rows(frames, qid: str, keys, select: List[str], limit: int
+                  ) -> List[List]:
+    """The first ``limit`` matching rows by ``keys(frame, mask)`` (a list
+    of ascending sort keys, most significant first), ties in segment and
+    doc order."""
+    parts = []
+    for si, f in enumerate(frames):
+        m = _matching(f, qid)
+        docs = np.nonzero(m)[0]
+        parts.append((si, docs, keys(f, m)))
+    seg = np.concatenate([np.full(len(d), si) for si, d, _ in parts])
+    doc = np.concatenate([d for _, d, _ in parts])
+    ks = [np.concatenate([k[i] for _, _, k in parts])
+          for i in range(len(parts[0][2]))]
+    order = np.lexsort([doc, seg] + ks[::-1])[:limit]
+    return [[_cell(c, frames[int(seg[o])][c][doc[o]]) for c in select]
+            for o in order]
+
+
+def host_queries(frames: List[Dict[str, np.ndarray]]
+                 ) -> Tuple[Dict[str, str], Dict[str, Any]]:
+    """-> (``HOST_QUERIES``, {id: the rows}) over ``frames``; H2's cells
+    are the exact 95th percentiles (``TDIGEST_REL_TOL``)."""
+    wants: Dict[str, Any] = {}
+    rev = np.concatenate([f["lo_revenue"][_matching(f, "H1")]
+                          for f in frames])
+    disc = np.concatenate([f["lo_discount"][_matching(f, "H1")]
+                           for f in frames])
+    rev.sort()
+    counts = np.bincount(disc)
+    top = np.nonzero(counts == counts.max())[0].max()
+    wants["H1"] = [[float(rev[min(int(rev.size * 90.0 / 100.0), rev.size - 1)]),
+                    float(top)]]
+    by_nation: Dict[int, List[np.ndarray]] = {}
+    for f in frames:
+        m = _matching(f, "H2")
+        nat, price = f["c_nation"][m], f["lo_extendedprice"][m]
+        for c in np.unique(nat).tolist():
+            by_nation.setdefault(c, []).append(price[nat == c])
+    h2 = []
+    for c, parts in sorted(by_nation.items()):
+        v = np.sort(np.concatenate(parts))
+        h2.append([_cell("c_nation", c),
+                   float(v[min(int(v.size * 95.0 / 100.0),
+                               v.size - 1)])])
+    wants["H2"] = sorted(h2)
+    cities: Dict[int, set] = {}
+    for f in frames:
+        m = _matching(f, "H3")
+        for y, c in set(zip(f["d_year"][m].tolist(),
+                            f["c_city"][m].tolist())):
+            cities.setdefault(y, set()).add(c)
+    wants["H3"] = [[y, len(c)] for y, c in sorted(cities.items())]
+    seen: List[Tuple[int, int]] = []
+    for f in frames:
+        pair = f["c_region"].astype(np.int64) * 8 + f["s_region"]
+        uniq, first = np.unique(pair, return_index=True)
+        for p in uniq[np.argsort(first)].tolist():
+            if (p // 8, p % 8) not in seen:
+                seen.append((p // 8, p % 8))
+    wants["H4"] = [[_cell("c_region", a), _cell("s_region", b)]
+                   for a, b in seen][:100]
+    rows = []
+    for f in frames:
+        docs = np.nonzero(_matching(f, "H5"))[0][:15 - len(rows)]
+        rows += [[_cell(c, f[c][d]) for c in ("d_yearmonthnum", "c_city",
+                                             "lo_revenue")] for d in docs]
+    wants["H5"] = rows[5:15]
+    wants["H6"] = _ordered_rows(
+        frames, "H6", lambda f, m: [-f["lo_revenue"][m],
+                                    f["d_yearmonthnum"][m]],
+        ["d_yearmonthnum", "c_city", "lo_revenue"], 20)
+    wants["H7"] = _ordered_rows(
+        frames, "H7", lambda f, m: [f["lo_supplycost"][m]
+                                    - f["lo_revenue"][m]],
+        ["d_yearmonthnum", "lo_revenue", "lo_supplycost"], 20)
+    return dict(HOST_QUERIES), wants
+
+
+def check_host_rows(qid: str, rows: List[List], want: List[List]) -> None:
+    """Raise unless a result's rows equal ``host_queries``' in order:
+    exact, but H2's within ``TDIGEST_REL_TOL`` of the exact percentile."""
+    got = [list(r) for r in rows]
+    if len(got) != len(want):
+        raise AssertionError(f"{qid}: {len(got)} rows, oracle {len(want)}")
+    for g, w in zip(got, want):
+        ok = len(g) == len(w) and all(
+            abs(a - b) <= TDIGEST_REL_TOL * abs(b)
+            if qid == "H2" and isinstance(b, float) else a == b
+            for a, b in zip(g, w))
+        if not ok:
+            raise AssertionError(f"{qid}: row {g} != oracle {w}")

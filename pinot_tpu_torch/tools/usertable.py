@@ -23,6 +23,11 @@ same seed. ``user_id`` is the first draw of both, so ``tail_users``
 agrees with the JAX package's. The CPU tests carry JAX-built segments
 across and do not depend on this generator.
 
+``host_queries`` are three more the host engine and the device top-k
+serve (an ordered ``SELECT *`` of a tail user on the card, a group-by on
+the ``$segmentName`` virtual column and grouped MV aggregations), with
+their oracle ``host_answers``.
+
 Frames hold codes into the pools below (``country`` is
 ``COUNTRIES[frame["country"]]``), so an oracle works on small integers;
 ``build_segments`` turns them into dictionary columns without sorting
@@ -316,3 +321,60 @@ def check_rows(qid: str, rows: List[List], want: List[List]) -> None:
              else a == b) for a, b in zip(g, w))
         if not ok:
             raise AssertionError(f"{qid}: row {g} != oracle {w}")
+
+
+# -- the host engine and the device top-k --------------------------------------
+
+def host_queries(user: int) -> Dict[str, str]:
+    """U8 an ordered ``SELECT *`` of one tail user by the raw latency_ms
+    (the device top-k), U9 a group-by on a virtual column and U10 grouped
+    MV aggregations (the host engine)."""
+    return {
+        "U8": f"SELECT * FROM user_events WHERE user_id = {user} "
+              "ORDER BY latency_ms DESC LIMIT 10",
+        "U9": "SELECT $segmentName, count(*) FROM user_events "
+              "GROUP BY $segmentName ORDER BY $segmentName LIMIT 100",
+        "U10": "SELECT country, distinctcountmv(tags), countmv(tags) "
+               "FROM user_events GROUP BY country ORDER BY country "
+               "LIMIT 100",
+    }
+
+
+def host_answers(frames: List[Dict[str, object]], user: int,
+                 names: List[str]) -> Dict[str, List[List]]:
+    """Rows of ``host_queries(user)`` over the frames of the segments
+    ``names``, in the SQL's order: U8's ties in latency_ms in segment and
+    doc order."""
+    cand = []
+    for si, f in enumerate(frames):
+        for d in np.nonzero(f["user_id"] == user)[0].tolist():
+            cand.append((-int(f["latency_ms"][d]), si, d))
+    u8 = []
+    for _, si, d in sorted(cand)[:10]:
+        f = frames[si]
+        codes, counts = f["tags"]
+        row = []
+        for fs in user_schema().field_specs:
+            if fs.name == "tags":
+                row.append([TAGS[c] for c in codes[d, :counts[d]].tolist()])
+            elif fs.name in POOLS:
+                row.append(POOLS[fs.name][int(f[fs.name][d])])
+            else:
+                row.append(int(f[fs.name][d]))
+        u8.append(row)
+    tags: Dict[str, set] = {}
+    entries: Dict[str, int] = {}
+    for f in frames:
+        codes, counts = f["tags"]
+        present = np.arange(codes.shape[1])[None, :] < counts[:, None]
+        for k in np.unique(f["country"]).tolist():
+            sel = f["country"] == k
+            c = COUNTRIES[k]
+            tags.setdefault(c, set()).update(
+                codes[sel][present[sel]].tolist())
+            entries[c] = entries.get(c, 0) + int(counts[sel].sum())
+    return {
+        "U8": u8,
+        "U9": sorted([n, len(f["user_id"])] for n, f in zip(names, frames)),
+        "U10": [[c, len(tags[c]), entries[c]] for c in sorted(tags)],
+    }

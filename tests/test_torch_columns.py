@@ -13,8 +13,8 @@ package and carried across with ``columns_of`` / ``segment_from_arrays``.
   queries the fused scan serves with raw value columns, with
   ``use_pallas=True`` in interpret mode: rows, rung per segment and
   decline codes;
-- NotPortedError with the JAX reason code for each shape the JAX package
-  serves on its host engine.
+- the port's host engine, reached with the JAX reason code, for each
+  shape the JAX package serves on its host engine.
 
 Tolerance: counts, integer sums, min/max and keys exact; float sums
 rel 1e-5, abs 1e-6.
@@ -39,7 +39,6 @@ from pinot_tpu.spi import (  # noqa: E402
     Schema,
 )
 from pinot_tpu_torch.engine import fused_scan as tfs  # noqa: E402
-from pinot_tpu_torch.engine.errors import NotPortedError  # noqa: E402
 from pinot_tpu_torch.engine.executor import ServerQueryExecutor  # noqa: E402
 from pinot_tpu_torch.engine.plan import plan_segment as t_plan  # noqa: E402
 from pinot_tpu_torch.engine.staging import StagedSegment  # noqa: E402
@@ -309,8 +308,8 @@ def test_raw_value_columns_ride_the_fused_scan(data, executors):  # noqa: F811
     assert inp.words == [] and inp.pp.value_names == ["salary", "ratio"]
 
 
-# shapes the JAX package serves on its host engine: the port raises
-# NotPortedError with the JAX planner's reason code
+# shapes the JAX package serves on its host engine: the port's host engine
+# serves them, reached with the JAX planner's reason code
 HOST_SQL = [
     "SELECT team, summv(nums) FROM stats GROUP BY team",
     "SELECT minmaxrangemv(nums) FROM stats",
@@ -340,14 +339,26 @@ HOST_SQL = [
 
 @pytest.mark.parametrize("sql", HOST_SQL)
 def test_host_served_shapes_raise_with_the_jax_code(data, sql):
+    """The JAX planner sends each shape to its host engine; the port's
+    host engine serves it with the same code recorded per segment and the
+    JAX rows (it raised NotPortedError with that code before the host
+    engine was ported), or raises the JAX host engine's error."""
+    from pinot_tpu.engine import ServerQueryExecutor as JExecutor
+
+    from tests.test_torch_host_engine import assert_same_answer, run
+
     jsegs, tsegs = data["stats"]
     with pytest.raises(JPlanError) as je:
         j_plan(j_compile(sql), jsegs[0])
     for fused in (True, False):
-        with pytest.raises(NotPortedError) as te:
-            ServerQueryExecutor(device="cpu", use_fused_scan=fused).execute(
-                t_compile(sql), tsegs)
-        assert te.value.reason_code == je.value.reason_code, sql
+        got = run(ServerQueryExecutor(device="cpu", use_fused_scan=fused),
+                  t_compile, sql, tsegs)
+        assert_same_answer(got, run(JExecutor(use_device=True,
+                                              use_pallas=fused),
+                                    j_compile, sql, jsegs), sql)
+        if got[1] is not None:
+            assert got[1].decisions[f"plan:device_kernel->host_engine:"
+                                    f"{je.value.reason_code}"] == len(tsegs)
 
 
 def test_time_transforms_raise_not_ported(data, executors):  # noqa: F811
@@ -356,7 +367,10 @@ def test_time_transforms_raise_not_ported(data, executors):  # noqa: F811
     ``big`` as a value gives JAX's row on both rungs (the fused scan
     declines its floordiv with JAX's code); dateTrunc('DAY', big) as a
     group key spans 2^40 values, which the JAX planner sends to its host
-    engine: the port raises NotPortedError with the same code."""
+    engine: the port's host engine serves it with the same code (it
+    raised NotPortedError before the host engine was ported)."""
+    from tests.test_torch_host_engine import assert_same_answer, run
+
     jsegs, tsegs = data["stats"]
     sql = "SELECT sum(toEpochDays(big)) FROM stats"
     _off, on = _check(data, executors, "stats", sql)
@@ -366,10 +380,13 @@ def test_time_transforms_raise_not_ported(data, executors):  # noqa: F811
            "GROUP BY dateTrunc('DAY', big)")
     with pytest.raises(JPlanError) as je:
         j_plan(j_compile(sql), jsegs[0])
-    with pytest.raises(NotPortedError) as e:
-        ServerQueryExecutor(device="cpu").execute(t_compile(sql), tsegs)
-    assert e.value.reason_code == je.value.reason_code == \
-        "group_expression_span_over_limit"
+    assert je.value.reason_code == "group_expression_span_over_limit"
+    got = run(ServerQueryExecutor(device="cpu"), t_compile, sql, tsegs)
+    assert_same_answer(got, run(executors["pallas"], j_compile, sql, jsegs),
+                       sql)
+    assert got[1].decisions == {
+        "plan:device_kernel->host_engine:group_expression_span_over_limit":
+            len(tsegs)}
 
 
 def test_isnull_leaf_leaves_the_staged_bitmap_alone(data):

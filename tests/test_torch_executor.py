@@ -154,13 +154,14 @@ def test_generated_segments_equal_jax_built(data):
             assert tc[col].min_value == jc[col].min_value
 
 
-def test_not_ported_shapes_raise_with_reason(data):
+def test_not_ported_shapes_raise_with_reason(data, executors):
     """Shapes the fused scan declines are served by the general rung; a
-    plan the JAX package sends to its host engine still raises with the
-    JAX reason code."""
-    from pinot_tpu_torch.engine.errors import NotPortedError
+    plan the JAX package sends to its host engine reaches the port's host
+    engine with the JAX reason code and the JAX rows (it raised
+    NotPortedError with that code before the host engine was ported)."""
+    from tests.test_torch_host_engine import assert_same_answer, run
 
-    _, tsegs = data["ssb"]
+    jsegs, tsegs = data["ssb"]
     ex = ServerQueryExecutor(device="cpu")
     for sql, reason in (
             ("SELECT count(DISTINCT c_city) FROM ssb_lineorder",
@@ -171,7 +172,12 @@ def test_not_ported_shapes_raise_with_reason(data):
         assert stats.general_launches == len(tsegs)
         assert set(stats.decisions) == {
             f"pallas:pallas_kernel->jnp_kernel:{reason}"}
-    with pytest.raises(NotPortedError) as e:
-        ex.execute(t_compile("SELECT c_city, count(DISTINCT s_city) "
-                             "FROM ssb_lineorder GROUP BY c_city"), tsegs)
-    assert e.value.reason_code == "agg_not_device_supported"
+    sql = ("SELECT c_city, count(DISTINCT s_city) FROM ssb_lineorder "
+           "GROUP BY c_city")
+    got = run(ex, t_compile, sql, tsegs)
+    assert_same_answer(got, run(executors["pallas"], j_compile, sql, jsegs),
+                       sql)
+    assert got[1].decisions == {
+        "plan:device_kernel->host_engine:agg_not_device_supported":
+            len(tsegs)}
+    assert got[1].general_launches == got[1].scan_launches == 0

@@ -256,19 +256,25 @@ VIRTUAL_SQL = [
 @pytest.mark.parametrize("path", sorted(PATHS))
 @pytest.mark.parametrize("sql", VIRTUAL_SQL)
 def test_virtual_columns_raise_with_the_jax_code(data, path, sql):
-    """JAX admits the virtual columns and serves them on its host engine;
-    the port raises NotPortedError with the JAX planner's code."""
+    """JAX admits the virtual columns and serves them on its host engine
+    with its planner's code; the port now does the same on every path
+    (it raised NotPortedError with that code before the host engine was
+    ported): the JAX rows, and the decision recorded per segment."""
+    from tests.test_torch_host_engine import assert_same_answer, run
+
     jsegs, tsegs = data["stats"]
     with pytest.raises(JPlanError) as je:
         j_plan(j_compile(sql), jsegs[0])
     assert je.value.reason_code in ("virtual_column_predicate",
                                     "group_virtual_column",
                                     "value_virtual_column")
-    host, _ = _jax("host").execute(j_compile(sql), jsegs)
-    assert host.rows
-    with pytest.raises(NotPortedError) as e:
-        _port(path).execute(t_compile(sql), tsegs)
-    assert e.value.reason_code == je.value.reason_code
+    got = run(_port(path), t_compile, sql, tsegs)
+    assert_same_answer(got, run(_jax(PATHS[path]), j_compile, sql, jsegs),
+                       f"{path}: {sql}")
+    table, stats = got
+    assert table.rows
+    assert stats.decisions[f"plan:device_kernel->host_engine:"
+                           f"{je.value.reason_code}"] == len(tsegs)
 
 
 def test_unknown_column_is_still_a_query_error(data):

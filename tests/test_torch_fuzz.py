@@ -3,15 +3,19 @@ tests/test_fuzz.py): seeded random aggregation and group-by queries over
 tests/test_torch_columns.py's stats table (dictionary, raw, multi-value
 and nullable columns), with nested AND / OR / NOT filters, LIKE / NOT LIKE
 / REGEXP_LIKE / TEXT_MATCH, the epoch time transforms as values and group
-keys, HAVING, ORDER BY an aggregate, LIMIT ... OFFSET and OPTION.
+keys, the host-only aggregation families, HAVING, ORDER BY an aggregate,
+LIMIT ... OFFSET and OPTION; and seeded random selections (unordered, or
+ordered by columns and expressions) and DISTINCT queries.
 
 Each query runs through the JAX host engine and its jnp rung
 (``use_pallas=False``) and through the port with the fused scan on, off
 and over the batch. Where the JAX planner sends a segment to its host
-engine, the port raises NotPortedError with the same reason code; where
-the fused scan declines a batch, the port's batch path raises with the
-fused scan's code (the jnp combine is not ported). Otherwise rows agree:
-counts, integer sums, min/max and keys exact, float cells within
+engine, the port's host engine serves it with the same reason code
+recorded per segment (``plan:`` decisions equal); selection and DISTINCT
+record JAX's ``selection:`` and ``plan:`` decisions. Where the fused scan
+declines a batch, the port's batch path raises with the fused scan's code
+(the jnp combine is not ported). Otherwise rows agree: counts, integer
+sums, min/max, keys and selected values exact, float aggregates within
 rel 1e-5, abs 1e-6. A query ordered by a float aggregate is compared as a
 set of groups: ties in such an order may break differently (the planned
 float difference in ROADMAP).
@@ -50,6 +54,11 @@ AGGS = {
     "max(dateTrunc('SECOND', salary))": True,
     "sum(timeConvert(runs, 'HOURS', 'MINUTES'))": True,
     "min(toEpochDays(big))": True, "sum(score)": False,
+    # served by the host engine (the JAX planner refuses them)
+    "mode(runs)": True, "percentile90(score)": True,
+    "percentiletdigest50(runs)": False, "distinctcount(salary)": True,
+    "distinctcountmv(tags)": True, "sumprecision(runs)": True,
+    "lastwithtime(runs, salary, 'LONG')": True, "avgmv(nums)": False,
 }
 # the last three: group-by on an MV column, on a raw float column, and a
 # key spanning 2^24 values, which JAX serves on its host engine
@@ -161,6 +170,12 @@ def _plan_codes(stats):
             if k.startswith("plan:")}
 
 
+def _host_keys(stats):
+    """The host engine's and the device top-k's decisions with counts."""
+    return {k: v for k, v in stats.decisions.items()
+            if k.startswith(("plan:", "selection:"))}
+
+
 @pytest.mark.parametrize("qi", range(N_QUERIES))
 def test_fuzz_query(table, executors, qi):
     jsegs, tsegs = table
@@ -179,14 +194,14 @@ def test_fuzz_query(table, executors, qi):
         try:
             got, stats = executors[path].execute(t_compile(sql), tsegs)
         except NotPortedError as e:
-            if path == "port_batch" and e.reason_code.startswith("pallas_"):
-                # the fused scan declined the batch: it declines the
-                # segments alike on the per-segment path
-                assert e.reason_code in declines, (sql, e.reason_code)
-                continue
-            assert e.reason_code in host_codes, (path, sql, e.reason_code)
+            # the fused scan declined the batch: it declines the segments
+            # alike on the per-segment path
+            assert path == "port_batch" and e.reason_code in declines, \
+                (path, sql, e.reason_code)
             continue
-        assert not host_codes, (path, sql, host_codes)
+        assert _plan_codes(stats) == host_codes, (path, sql, stats.decisions)
+        if path != "port_batch":
+            assert _host_keys(stats) == _host_keys(jstats), (path, sql)
         if path == "port_on":
             declines = {k.rsplit(":", 1)[1] for k in stats.decisions}
         assert got.schema.column_names == want.schema.column_names, sql
@@ -198,3 +213,68 @@ def test_fuzz_query(table, executors, qi):
                            [False] * len(exact), float_order), \
             ("host", path, sql)
         assert stats.num_segments_pruned == jstats.num_segments_pruned, sql
+
+
+N_SELECTIONS = 40
+SELECT_COLS = ["team", "league", "year", "tags", "nums", "runs", "score",
+               "salary", "nick", "bonus", "ratio", "big", "runs + 1",
+               "upper(team)"]
+# order keys: dictionary, raw INT/LONG/DOUBLE, nullable and expression keys
+# (the device top-k takes the first six where the filter allows)
+ORDER_KEYS = ["year", "runs", "score", "team", "ratio", "league", "salary",
+              "big", "bonus", "runs * 2"]
+DISTINCT_COLS = ["team", "league", "year", "nick", "ratio"]
+
+
+def _selection_query(rng):
+    where = f" WHERE {_filter(rng)}" if rng.random() < 0.7 else ""
+    limit = int(rng.integers(1, 40))
+    offset = (f" OFFSET {int(rng.integers(1, 6))}" if rng.random() < 0.3
+              else "")
+    r = rng.random()
+    if r < 0.3:
+        cols = rng.choice(DISTINCT_COLS, size=int(rng.integers(1, 3)),
+                          replace=False)
+        order = ""
+        if rng.random() < 0.5:
+            order = " ORDER BY " + ", ".join(
+                f"{c} {'DESC' if rng.random() < 0.5 else 'ASC'}"
+                for c in cols)
+        return (f"SELECT DISTINCT {', '.join(cols)} FROM stats{where}"
+                f"{order} LIMIT {limit * 10}{offset}")
+    cols = list(rng.choice(SELECT_COLS, size=int(rng.integers(1, 4)),
+                           replace=False))
+    order = ""
+    if r < 0.75:
+        keys = rng.choice(ORDER_KEYS, size=int(rng.integers(1, 3)),
+                          replace=False)
+        order = " ORDER BY " + ", ".join(
+            f"{k} {'DESC' if rng.random() < 0.5 else 'ASC'}" for k in keys)
+    return (f"SELECT {', '.join(cols)} FROM stats{where}{order} "
+            f"LIMIT {limit}{offset}")
+
+
+@pytest.mark.parametrize("qi", range(N_SELECTIONS))
+def test_fuzz_selection(table, executors, qi):
+    """Selection and DISTINCT: the rows of the JAX executor (its device
+    top-k or its host engine) exactly, ties in doc order included, with
+    the same ``selection:`` / ``plan:`` decisions."""
+    jsegs, tsegs = table
+    sql = _selection_query(np.random.default_rng(SEED + 1000 + qi))
+    try:
+        want, jstats = executors["jnp"].execute(j_compile(sql), jsegs)
+    except JQueryError:
+        for path in ("port_on", "port_off", "port_batch"):
+            with pytest.raises(QueryError):
+                executors[path].execute(t_compile(sql), tsegs)
+        return
+    host, _ = executors["host"].execute(j_compile(sql), jsegs)
+    assert host.rows == want.rows, sql
+    for path in ("port_on", "port_off", "port_batch"):
+        got, stats = executors[path].execute(t_compile(sql), tsegs)
+        assert got.schema.column_names == want.schema.column_names, sql
+        assert got.schema.column_types == want.schema.column_types, sql
+        assert got.rows == want.rows, (path, sql, got.rows[:3],
+                                       want.rows[:3])
+        assert _host_keys(stats) == _host_keys(jstats), (path, sql)
+        assert stats.num_docs_scanned == jstats.num_docs_scanned, (path, sql)

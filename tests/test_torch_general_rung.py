@@ -280,25 +280,32 @@ def test_gexpr_keys_match_jax(data, executors):
 
 
 def test_host_only_plans_still_raise(data, executors):
-    """Plans the JAX package sends to its host engine raise
-    NotPortedError with the JAX reason code: grouped DISTINCTCOUNT (a
-    planner decline) and more live groups than the compact cap (a decode
-    decline)."""
+    """Plans the JAX package sends to its host engine reach the port's
+    host engine with the JAX reason code, recorded once per segment, and
+    the JAX rows: grouped DISTINCTCOUNT (a planner decline) and more live
+    groups than the compact cap (a decode decline, after the rung ran).
+    They no longer raise: the host engine is ported."""
+    from tests.test_torch_host_engine import assert_same_answer, run
+
     for key, sql in (
             ("stats", "SELECT team, distinctcount(year) FROM stats "
                       "GROUP BY team"),
             ("wide", "SELECT a, b, year, sum(v) FROM hw "
                      "GROUP BY a, b, year LIMIT 100000")):
         jsegs, tsegs = data[key]
-        _, jstats = executors["pallas"].execute(j_compile(sql), jsegs)
-        codes = {k.rsplit(":", 1)[1] for k in jstats.decisions
+        want = run(executors["pallas"], j_compile, sql, jsegs)
+        codes = {k.rsplit(":", 1)[1] for k in want[1].decisions
                  if k.startswith("plan:device_kernel->host_engine:")}
-        assert len(codes) == 1, jstats.decisions
+        assert len(codes) == 1, want[1].decisions
         (code,) = codes
-        for port in ("port_on", "port_off"):
-            with pytest.raises(NotPortedError) as e:
-                executors[port].execute(t_compile(sql), tsegs)
-            assert e.value.reason_code == code, (port, sql)
+        for port, ref in (("port_on", "pallas"), ("port_off", "jnp")):
+            got = run(executors[port], t_compile, sql, tsegs)
+            assert_same_answer(got, run(executors[ref], j_compile, sql,
+                                        jsegs), f"{port}: {sql}")
+            stats = got[1]
+            assert stats.decisions[
+                f"plan:device_kernel->host_engine:{code}"] == len(tsegs)
+            assert stats.group_by_rung == "host", (port, sql)
 
 
 def test_batch_path_still_raises_on_declined_plans(data):

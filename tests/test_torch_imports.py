@@ -133,12 +133,10 @@ def test_cpu_wrapper_rejects_mismatched_inputs():
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT DISTINCT k FROM tiny",
     "SELECT k, sum(v) FROM tiny GROUP BY k HAVING",
     "SELECT sum(v) FROM tiny WHERE k IS NOT 'a'",
     "SELECT sum(v) FROM tiny WHERE k NOT = 'a'",
     "SELECT CASE WHEN v > 1 THEN 1 ELSE 0 END, count(*) FROM tiny",
-    "SELECT k FROM tiny",
     "SELECT sum(v) FROM tiny LIMIT 5 OFFSET",
 ])
 def test_unsupported_sql_raises_typed_error(sql):
@@ -146,6 +144,29 @@ def test_unsupported_sql_raises_typed_error(sql):
 
     with pytest.raises(SqlParseError):
         compile_query(sql)
+
+
+@pytest.mark.parametrize("sql", ["SELECT DISTINCT k FROM tiny",
+                                 "SELECT k FROM tiny"])
+def test_selection_and_distinct_sql_are_served(sql):
+    """DISTINCT and selection (refused until the host engine was ported)
+    parse and are served on the CPU by the host engine, with no kernel."""
+    from pinot_tpu_torch.engine import fused_scan
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query import compile_query
+
+    seg, frame = _tiny_segment()
+    ctx = compile_query(sql)
+    assert ctx.distinct == sql.startswith("SELECT DISTINCT")
+    assert ctx.is_selection != ctx.distinct
+    before = fused_scan.SCAN_COUNTER.launches
+    table, stats = ServerQueryExecutor(device="cpu").execute(ctx, [seg])
+    ks = frame["k"].tolist()
+    want = ([[k] for k in dict.fromkeys(ks)] if ctx.distinct
+            else [[k] for k in ks[:10]])
+    assert table.rows == want
+    assert table.schema.column_types == ["STRING"]
+    assert fused_scan.SCAN_COUNTER.launches == before
 
 
 def test_arithmetic_null_tests_and_transforms_parse():

@@ -10,8 +10,9 @@ Every query runs on JAX-built segments carried across with ``columns_of``
 through the port with the fused scan on and off and over the batch,
 against the JAX executor with ``use_pallas=True`` (interpret mode),
 ``use_pallas=False``, its sharded executor and its host engine: rows,
-rungs, pruned and scanned counts and decline codes, or for a shape JAX
-serves on its host engine, NotPortedError with JAX's reason code. The
+rungs, pruned and scanned counts and decline codes; a shape JAX serves
+on its host engine reaches the port's host engine with JAX's reason
+code. The
 text / JSON / FST table is built twice, with the JAX package's text,
 JSON and FST indexes and without: the port's per-value tables must give
 what JAX's indexes give.
@@ -29,6 +30,7 @@ from pinot_tpu.engine import ensure_x64
 
 ensure_x64()
 
+from pinot_tpu.engine import ServerQueryExecutor as JExecutor  # noqa: E402
 from pinot_tpu.engine.errors import QueryError as JQueryError  # noqa: E402
 from pinot_tpu.engine.plan import PlanError as JPlanError  # noqa: E402
 from pinot_tpu.engine.plan import plan_segment as j_plan  # noqa: E402
@@ -412,16 +414,29 @@ HOST_SQL = [
 
 @pytest.mark.parametrize("i", range(len(HOST_SQL)))
 def test_host_shapes_raise_with_the_jax_code(data, i):
+    """The JAX planner sends each shape to its host engine; the port's
+    host engine serves it on every path with the same code recorded per
+    segment and the JAX rows, or raises the JAX host engine's error (it
+    raised NotPortedError with the code before the host engine was
+    ported). The batch path plans the batch, meets the same code and takes
+    the per-segment path, as the JAX sharded executor does."""
+    from tests.test_torch_host_engine import assert_same_answer, run
+
     key, sql = HOST_SQL[i]
     jsegs, tsegs = data[key]
     with pytest.raises(JPlanError) as je:
         j_plan(j_compile(sql), jsegs[0])
-    for ex in (ServerQueryExecutor(device="cpu"),
-               ServerQueryExecutor(device="cpu", use_fused_scan=False),
-               ShardedQueryExecutor(device="cpu")):
-        with pytest.raises(NotPortedError) as e:
-            ex.execute(t_compile(sql), tsegs)
-        assert e.value.reason_code == je.value.reason_code, sql
+    for ex, ref in ((ServerQueryExecutor(device="cpu"),
+                     JExecutor(use_device=True, use_pallas=True)),
+                    (ServerQueryExecutor(device="cpu", use_fused_scan=False),
+                     JExecutor(use_device=True, use_pallas=False)),
+                    (ShardedQueryExecutor(device="cpu"),
+                     JSharded(use_pallas=True))):
+        got = run(ex, t_compile, sql, tsegs)
+        assert_same_answer(got, run(ref, j_compile, sql, jsegs), sql)
+        if got[1] is not None:
+            assert got[1].decisions[f"plan:device_kernel->host_engine:"
+                                    f"{je.value.reason_code}"] == len(tsegs)
 
 
 @pytest.mark.parametrize("sql", [
