@@ -52,8 +52,8 @@ Phases:
      against the numpy oracle over the generator's arrays with its decline
      code and rung per segment (U1 and U2 on the fused scan, U2's raw
      column as a value column; U3-U7 on the general rung); U1 and U2 again
-     through ShardedQueryExecutor, one launch over the batch, where U3-U7
-     raise NotPortedError; (8b) on a 1 M-doc segment, IS NULL / IS NOT
+     through ShardedQueryExecutor, one launch over the batch (U3-U7 over
+     the batch in phase 11a); (8b) on a 1 M-doc segment, IS NULL / IS NOT
      NULL on a nullable dictionary and raw column, the MV aggregations and
      an upsert valid-doc mask against numpy;
   9. the SQL slice: (9a) on phase 4's segments, S1-S7 of tools/ssb.py
@@ -79,10 +79,29 @@ Phases:
      aggregations), each with its decisions and 0 fused or general-rung
      launches asserted; the top-k's rows equal the host engine's on the
      same segments, and it is timed beside its byte bound;
-then a "rungs" line of the segments each rung served and the declines and
-paths of phases 8-10, and one JSON line listing the kernels ("ms" is the
-kernel alone, "launches" those of phases 4, 6, 8 and 9; the top-k is
-PyTorch ops, not a hand kernel). Phases 4, 6, 7, 9 and 10 assert launches
+ 11. (11a) the jnp combine: every query phases 7-9 saw the fused scan
+     decline that keeps several segments (G1-G3 and G5, U3-U7, S4,
+     T1b-T4) through ShardedQueryExecutor over the batch of its kept
+     segments, one combine call and no fused launch a query, the decline
+     recorded once, rows equal to the oracle and to the per-segment path's,
+     timed beside the per-segment p50, one call's device time, CUDA
+     kernels, device-to-host copies and byte bound; (11b) the index rung:
+     phase 8's rows built again with the table's indexes, I1-I5 of
+     tools/usertable.py (a tail user's point filter grouped by event_type,
+     an IN of users with a country, a narrow latency_ms range, an MV tag
+     with a user, an absent user) per segment and through the batch
+     executor on the index rung of every kept segment, equal to the oracle
+     and to the scan rungs (OPTION(useIndexRung=false)), timed, with one
+     gather call's device time and CUDA kernels beside its byte bound;
+The tables of phases 4-10 carry no index: on them the index rung declines
+each filtered aggregation's segments on the per-segment path
+(``index_missing_index`` and the other JAX codes), which every phase
+asserts beside its other decisions.
+Then a "rungs" line of the segments each rung served and the declines and
+paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
+kernel alone, "launches" those of phases 4, 6, 8 and 9; the top-k, the
+jnp combine and the index gather are PyTorch ops, not hand kernels).
+Phases 4, 6, 7, 9, 10 and 11 assert launches
 per query from the segments the pruner keeps, once those
 equal the segments whose min/max (from the generator's arrays) admit the
 query's conditions.
@@ -479,9 +498,12 @@ def _graft_entry_check() -> None:
     log(f"  graft-entry SQL: {len(table.rows)} rows match numpy")
 
 
-def _run_flights(ex, ctxs: dict, segs, reps: int) -> tuple:
+def _run_flights(ex, ctxs: dict, segs, reps: int, per_segment: dict
+                 ) -> tuple:
     """The flights ``reps`` times through ``ex``: -> ({flight: [ms]},
-    {flight: last table}); every run must record no decision."""
+    {flight: last table}); every run must record no decision but the index
+    rung's declines on the ``per_segment[flight]`` segments it runs on per
+    segment (``_scan_decisions``)."""
     import torch
 
     lat = {qid: [] for qid in ctxs}
@@ -493,7 +515,7 @@ def _run_flights(ex, ctxs: dict, segs, reps: int) -> tuple:
             torch.cuda.synchronize()
             lat[qid].append((time.perf_counter() - t0) * 1e3)
             results[qid] = table
-            if stats.decisions:
+            if _scan_decisions(stats, per_segment[qid], qid):
                 raise AssertionError(f"{qid}: decisions {stats.decisions}")
     return lat, results
 
@@ -600,7 +622,7 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
 
     counters = scan_counters()
     _reset(counters)
-    lat, results = _run_flights(ex, ctxs, segs, reps)
+    lat, results = _run_flights(ex, ctxs, segs, reps, kept)
     launches = {name: c.launches for name, c in counters.items()}
     # one scan per segment the pruner keeps; Q3.2 and Q4.3 probe first
     expect = {"fused_scan": sum(kept.values()) * reps,
@@ -608,7 +630,8 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
               "sharded_fused_scan": 0, "sharded_fused_scan_probe": 0}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
-    log(f"  launches on the per-segment path: {launches}; 0 declines")
+    log(f"  launches on the per-segment path: {launches}; 0 fused-scan "
+        "declines (the index rung declines each kept segment: no index)")
     for qid, table in results.items():
         _check_flight(qid, table, wants[qid])
     log("  13 flights == numpy oracle (group sets and int sums exact)")
@@ -769,12 +792,15 @@ def phase_batch(main: dict, reps: int, errs: dict, iters: int = 20) -> dict:
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
     staged = ex.batches_staged
-    lat, results = _run_flights(ex, ctxs, segs, reps)
+    # one kept segment runs per segment, where the index rung declines it
+    single_kept = {q: k if k == 1 else 0 for q, k in kept.items()}
+    lat, results = _run_flights(ex, ctxs, segs, reps, single_kept)
     # the same runs flight by flight, each flight's repetitions back to
     # back: what the order of the traffic costs
     by_flight = {}
     for qid, ctx in ctxs.items():
-        by_flight[qid] = _run_flights(ex, {qid: ctx}, segs, reps)[0][qid]
+        by_flight[qid] = _run_flights(ex, {qid: ctx}, segs, reps,
+                                      single_kept)[0][qid]
     if ex.batches_staged != staged:
         raise AssertionError(f"the timed passes staged "
                              f"{ex.batches_staged - staged} batches")
@@ -887,6 +913,15 @@ def _check_on_card(ex) -> None:
             raise AssertionError(f"plan params on {list(plan.device_params)}")
 
 
+def _check_declined(gid: str, table, wants: dict) -> None:
+    from pinot_tpu_torch.tools import ssb
+
+    got = ssb.declined_rows(gid, table.rows)
+    if got != wants[gid]:
+        raise AssertionError(f"{gid}: rows differ from the oracle "
+                             f"({len(got)} vs {len(wants[gid])} groups)")
+
+
 def phase_general(main: dict, reps: int) -> dict:
     import torch
 
@@ -924,7 +959,7 @@ def phase_general(main: dict, reps: int) -> dict:
                                      "the fused scan's")
             _check_flight(qid, table, main["wants"][qid])
             off = {_decline_key("pallas_disabled_on_backend"): kept[qid]}
-            if (stats.decisions != off
+            if (_scan_decisions(stats, kept[qid], qid) != off
                     or stats.general_launches != kept[qid]):
                 raise AssertionError(f"{qid}: decisions {stats.decisions}, "
                                      f"{stats.general_launches} rung calls")
@@ -944,9 +979,10 @@ def phase_general(main: dict, reps: int) -> dict:
                             beside_label="fused scan, phase 4")
     _check_on_card(ex)
 
-    # (b) the declined queries with the fused scan on
+    # (b) the declined queries with the fused scan on; those that keep
+    # several segments run over their batch in phase 11a
     ex_on = ServerQueryExecutor(device="cuda")
-    declined = {}
+    declined, jobs = {}, []
     for gid, sql in ssb.DECLINED_QUERIES.items():
         ctx = compile_query(sql)
         ex_on.execute(ctx, segs)   # untimed: stages and plans
@@ -957,16 +993,14 @@ def phase_general(main: dict, reps: int) -> dict:
             table, stats = ex_on.execute(ctx, segs)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-        got = ssb.declined_rows(gid, table.rows)
-        if got != main["wants"][gid]:
-            raise AssertionError(f"{gid}: rows differ from the oracle "
-                                 f"({len(got)} vs {len(main['wants'][gid])} "
-                                 "groups)")
+        _check_declined(gid, table, main["wants"])
         reason = ssb.DECLINED_REASONS[gid]
         want_key = f"pallas:pallas_kernel->jnp_kernel:{reason}"
-        if set(stats.decisions) != {want_key}:
+        decisions = _scan_decisions(
+            stats, stats.num_segments_processed if ctx.filter else 0, gid)
+        if set(decisions) != {want_key}:
             raise AssertionError(f"{gid}: decisions {stats.decisions}")
-        n_general = stats.decisions[want_key]
+        n_general = decisions[want_key]
         if (stats.general_launches != n_general
                 or counters["general_rung"].launches != n_general):
             raise AssertionError(f"{gid}: {n_general} declines but "
@@ -985,9 +1019,14 @@ def phase_general(main: dict, reps: int) -> dict:
             f"{declined[gid]['p99_ms']:.3f} ms; declined {reason} on "
             f"{n_general} segments, rungs {stats.rung_segments}, launches "
             f"{declined[gid]['launches']}; == numpy oracle")
+        if stats.num_segments_processed > 1:
+            jobs.append(_combine_job(
+                gid, "ssb", ctx, segs, stats.num_segments_processed, reason,
+                lambda t, gid=gid: _check_declined(gid, t, main["wants"]),
+                table.rows, declined[gid]["p50_ms"]))
     _check_on_card(ex_on)
     return {"per_flight": per_flight, "rungs": rungs, "declined": declined,
-            "launches": launches}
+            "launches": launches, "combine_jobs": jobs}
 
 
 # -- phase 8: the user-events table ------------------------------------------
@@ -1000,7 +1039,7 @@ USER_PATH = {"U1": (None, "dense"), "U2": (None, "dense"),
              "U6": ("pallas_raw_group_key", "dense"),
              "U7": ("pallas_vin", None)}
 # the queries the fused scan serves: one launch over the batch; the others
-# raise NotPortedError there (the JAX package's jnp combine is not ported)
+# run over the batch on the jnp combine in phase 11a
 USER_BATCH = ("U1", "U2")
 # the query whose value column is the raw latency_ms
 USER_RAW_FUSED = "U2"
@@ -1010,11 +1049,29 @@ def _decline_key(code: str) -> str:
     return f"pallas:pallas_kernel->jnp_kernel:{code}"
 
 
-def _check_user_path(qid: str, stats, n_segs: int, path: dict) -> None:
+_INDEX_DECLINE = "index:index_gather->scan:"
+
+
+def _scan_decisions(stats, index_segments: int, what: str) -> dict:
+    """The query's decisions but the index rung's. The tables of phases
+    4-10 carry no index: the rung must decline each of the
+    ``index_segments`` segments a filtered aggregation ran on per segment
+    (as the JAX executor records it) and serve none."""
+    idx = {k: v for k, v in stats.decisions.items() if k.startswith("index:")}
+    if (any(not k.startswith(_INDEX_DECLINE) for k in idx)
+            or sum(idx.values()) != index_segments):
+        raise AssertionError(f"{what}: index decisions {idx}, expected "
+                             f"{index_segments} declines")
+    return {k: v for k, v in stats.decisions.items()
+            if not k.startswith("index:")}
+
+
+def _check_user_path(qid: str, stats, n_segs: int, path: dict,
+                     index_segments: int) -> None:
     """The query's declines, general-rung calls and rungs per segment."""
     code, rung = path[qid]
     want = {_decline_key(code): n_segs} if code else {}
-    if stats.decisions != want:
+    if _scan_decisions(stats, index_segments, qid) != want:
         raise AssertionError(f"{qid}: decisions {stats.decisions} != {want}")
     if stats.general_launches != (n_segs if code else 0):
         raise AssertionError(f"{qid}: {stats.general_launches} general-rung "
@@ -1054,12 +1111,11 @@ def phase_users(seed: int, reps: int, segments: int = 8,
     ``reps`` times through ServerQueryExecutor, held against the numpy
     oracle over the generator's arrays, with its decline code and rung per
     segment; U1 and U2 (the fused ones) also through ShardedQueryExecutor
-    in one launch over the batch, where U3-U7 raise NotPortedError. On the
-    card, U1's and U2's scans are then held against the plain version and
-    timed at these shapes (segment 0, and the batch), folded into
-    ``errs``."""
+    in one launch over the batch (U3-U7 run over the batch in phase 11a,
+    from the ``combine_jobs`` returned). On the card, U1's and U2's scans
+    are then held against the plain version and timed at these shapes
+    (segment 0, and the batch), folded into ``errs``."""
     from pinot_tpu_torch.engine import kernels
-    from pinot_tpu_torch.engine.errors import NotPortedError
     from pinot_tpu_torch.engine.executor import ServerQueryExecutor
     from pinot_tpu_torch.parallel import ShardedQueryExecutor
     from pinot_tpu_torch.parallel.executor import scan_counters
@@ -1075,7 +1131,6 @@ def phase_users(seed: int, reps: int, segments: int = 8,
     wants = {qid: usertable.numpy_answer(frames, qid, user) for qid in sqls}
     host_wants = usertable.host_answers(frames, user,
                                         [s.segment_name for s in segs])
-    del frames
     lat_cm = segs[0].metadata.column("latency_ms")
     log(f"  generate {rows} rows in {len(segs)} segments and the numpy "
         f"oracle: {time.perf_counter() - t0:.1f} s; tail user {user}; "
@@ -1095,10 +1150,13 @@ def phase_users(seed: int, reps: int, segments: int = 8,
     # fused launches per query and path, from each run's stats
     fused = {"fused_scan": {}, "sharded_fused_scan": {}}
 
-    def checker(qid, path):
+    last = {}
+
+    def checker(qid, path, index_segments):
         def check(table, stats):
             usertable.check_rows(qid, table.rows, wants[qid])
-            _check_user_path(qid, stats, len(segs), path)
+            last[qid] = table.rows
+            _check_user_path(qid, stats, len(segs), path, index_segments)
             for name, n in (("fused_scan", stats.scan_launches),
                             ("sharded_fused_scan",
                              stats.sharded_scan_launches)):
@@ -1106,7 +1164,8 @@ def phase_users(seed: int, reps: int, segments: int = 8,
         return check
 
     _reset(counters)
-    lat = {qid: _timed(ex, ctx, segs, reps, checker(qid, USER_PATH))
+    lat = {qid: _timed(ex, ctx, segs, reps,
+                       checker(qid, USER_PATH, len(segs)))
            for qid, ctx in ctxs.items()}
     launches = _counted(counters, ex.device)
     if launches is not None:
@@ -1130,19 +1189,14 @@ def phase_users(seed: int, reps: int, segments: int = 8,
     batch_lat = {}
     for qid in USER_BATCH:
         batch_lat[qid] = _timed(bex, ctxs[qid], segs, reps,
-                                checker(qid, batch_path))
+                                checker(qid, batch_path, 0))
     batch_launches = _counted(counters, bex.device)
-    for qid in ctxs:
-        if qid in USER_BATCH:
-            continue
-        try:
-            bex.execute(ctxs[qid], segs)
-        except NotPortedError as e:
-            if e.reason_code != USER_PATH[qid][0]:
-                raise AssertionError(f"batch {qid}: {e.reason_code}")
-        else:
-            raise AssertionError(f"batch {qid}: served, expected "
-                                 "NotPortedError")
+    jobs = [_combine_job(qid, "user_events", ctxs[qid], segs, len(segs),
+                         USER_PATH[qid][0],
+                         lambda t, qid=qid: usertable.check_rows(
+                             qid, t.rows, wants[qid]),
+                         last[qid], per_query[qid]["p50_ms"])
+            for qid in ctxs if qid not in USER_BATCH]
     if batch_launches is not None:
         expect = {name: 0 for name in counters}
         expect["sharded_fused_scan"] = reps * len(USER_BATCH)
@@ -1150,8 +1204,8 @@ def phase_users(seed: int, reps: int, segments: int = 8,
                                                 bex.device) != expect:
             raise AssertionError(f"batch launch counts {batch_launches} != "
                                  f"{expect}")
-    log(f"  batch: launches {batch_launches}; U1, U2 == numpy oracle; "
-        f"U3-U7 raise NotPortedError with their decline codes")
+    log(f"  batch: launches {batch_launches}; U1, U2 == numpy oracle "
+        "(U3-U7 over the batch: phase 11a)")
     batch_per_query = _latencies(batch_lat, rows, beside=per_query)
     raw_fused = {name: by_query.get(USER_RAW_FUSED, 0)
                  for name, by_query in fused.items()}
@@ -1177,7 +1231,8 @@ def phase_users(seed: int, reps: int, segments: int = 8,
             "per_query": per_query, "batch_per_query": batch_per_query,
             "paths": rungs, "launches": launches,
             "batch_launches": batch_launches, "raw_fused_launches": raw_fused,
-            "timing": timing, "segs": segs, "host_wants": host_wants}
+            "timing": timing, "segs": segs, "host_wants": host_wants,
+            "frames": frames, "users": users, "combine_jobs": jobs}
 
 
 def _columns_segment(n: int, seed: int, valid_doc_ids=None):
@@ -1285,9 +1340,10 @@ def phase_columns(seed: int, reps: int, n: int = 1_000_000,
         ctx = compile_query(sql)
         ex.execute(ctx, on)     # untimed: stages and plans
 
-        def check(table, stats, qid=qid):
+        def check(table, stats, qid=qid, ctx=ctx):
             check_rows(qid, table.rows, wants[qid])
-            _check_user_path(qid, stats, 1, path)
+            _check_user_path(qid, stats, 1, path,
+                             1 if ctx.filter is not None else 0)
         lat[qid] = _timed(ex, ctx, on, reps, check)
     # the snapshot follows the bitmap: invalidate 1000 live docs
     gone = np.nonzero(useg.valid_doc_ids)[0][:1000]
@@ -1362,26 +1418,16 @@ def _add(total: dict, launches) -> None:
         total[k] = total.get(k, 0) + v
 
 
-def _expect_refusal(ex, ctx, segs, code: str, what: str) -> None:
-    from pinot_tpu_torch.engine.errors import NotPortedError
-
-    try:
-        ex.execute(ctx, segs)
-    except NotPortedError as e:
-        if e.reason_code != code:
-            raise AssertionError(f"{what}: {e.reason_code} != {code}")
-    else:
-        raise AssertionError(f"{what}: served, expected NotPortedError")
-
-
 def phase_sql(segs, sqls: dict, wants: dict, kept: dict, ex, bex,
               reps: int, errs: dict = None, q33_rows=None) -> dict:
     """9a: S1-S7 (``tools/ssb.py`` ``sql_queries``) ``reps`` times per
     segment through ``ex`` and over the batch through ``bex``, each held
     against the numpy oracle, with its decline code, rung and launches per
-    path asserted from the segments the pruner keeps; S2's rows equal
-    Q3.3's (``q33_rows``). On the card the fused queries' kernels are then
-    held against the plain version and timed at segment 0 and the batch."""
+    path asserted from the segments the pruner keeps (a query the fused
+    scan declines runs over the batch in phase 11a, from the
+    ``combine_jobs`` returned); S2's rows equal Q3.3's (``q33_rows``). On
+    the card the fused queries' kernels are then held against the plain
+    version and timed at segment 0 and the batch."""
     from pinot_tpu_torch.engine import kernels
     from pinot_tpu_torch.engine.plan import plan_segment
     from pinot_tpu_torch.parallel.executor import scan_counters
@@ -1389,7 +1435,7 @@ def phase_sql(segs, sqls: dict, wants: dict, kept: dict, ex, bex,
 
     counters = {**scan_counters(), "general_rung": kernels.RUNG_COUNTER}
     rows = sum(s.num_docs for s in segs)
-    per, batch, paths = {}, {}, {}
+    per, batch, paths, last, jobs = {}, {}, {}, {}, []
     launches = {"per_segment": {}, "batch": {}}
     for sid, sql in sqls.items():
         ctx = compile_query(sql)
@@ -1398,10 +1444,12 @@ def phase_sql(segs, sqls: dict, wants: dict, kept: dict, ex, bex,
         runs = _lut_runs(plan_segment(ctx, kept[sid][0]))
         ex.execute(ctx, segs)       # untimed: stages and plans
 
-        def check(table, stats, sid=sid, code=code, rung=rung, k=k):
+        def check(table, stats, sid=sid, code=code, rung=rung, k=k,
+                  ctx=ctx):
             _check_sql_rows(sid, table, wants[sid])
+            last[sid] = table.rows
             want = {_decline_key(code): k} if code else {}
-            if stats.decisions != want:
+            if _scan_decisions(stats, k if ctx.filter else 0, sid) != want:
                 raise AssertionError(f"{sid}: decisions {stats.decisions}")
             if stats.rung_segments != ({rung: k} if rung else {}):
                 raise AssertionError(f"{sid}: rungs {stats.rung_segments}")
@@ -1418,13 +1466,17 @@ def phase_sql(segs, sqls: dict, wants: dict, kept: dict, ex, bex,
         paths[sid] = {"kept_segments": k, "lut_runs": runs,
                       "decline": code, "rung": rung}
         if code:
-            _expect_refusal(bex, ctx, segs, code, f"batch {sid}")
+            jobs.append(_combine_job(
+                sid, "ssb", ctx, segs, k, code,
+                lambda t, sid=sid: _check_sql_rows(sid, t, wants[sid]),
+                last[sid], float(np.percentile(per[sid], 50))))
         else:
             bex.execute(ctx, segs)  # untimed: stages the batch and binds
 
-            def bcheck(table, stats, sid=sid):
+            def bcheck(table, stats, sid=sid, k=k, ctx=ctx):
                 _check_sql_rows(sid, table, wants[sid])
-                if stats.decisions:
+                if _scan_decisions(stats, 1 if k == 1 and ctx.filter else 0,
+                                   f"batch {sid}"):
                     raise AssertionError(f"batch {sid}: {stats.decisions}")
                 if sid == "S6" and stats.num_docs_scanned != rows:
                     raise AssertionError("S6: the batch path scans")
@@ -1435,14 +1487,14 @@ def phase_sql(segs, sqls: dict, wants: dict, kept: dict, ex, bex,
                 "fused_scan": reps if k == 1 else 0}, f"{sid} batch"))
         log(f"  9a {sid}: {k} of {len(segs)} segments kept, lut runs "
             f"{runs}, decline {code}, rung {rung}; == numpy oracle"
-            + ("; the batch raises NotPortedError" if code else ""))
+            + ("; over the batch in phase 11a" if code else ""))
     if q33_rows is not None:
         got, _ = ex.execute(compile_query(sqls["S2"]), segs)
         if sorted(map(tuple, got.rows)) != sorted(map(tuple, q33_rows)):
             raise AssertionError("S2's rows differ from Q3.3's")
         log("  9a S2's rows == Q3.3's")
     out = {"per_query": _latencies(per, rows), "paths": paths,
-           "launches": launches, "timing": []}
+           "launches": launches, "timing": [], "combine_jobs": jobs}
     out["batch_per_query"] = _latencies(batch, rows,
                                         beside=out["per_query"])
     if ex.device.type == "cuda" and errs is not None:
@@ -1578,10 +1630,10 @@ def phase_time(seed: int, reps: int, segments: int = 8,
     """9b: time-bucket group-bys over ``segments`` x ``rows_per_segment``
     events, each query ``reps`` times per segment against numpy, with its
     decline code, rung and general-rung calls asserted (the fused scan
-    declines floordiv / mod keys and values, as the JAX kernel does); the
-    batch path raises NotPortedError with the same code. T1's key spans
-    the milliseconds: the planner sends it to the host engine per
-    segment, on both paths, with no launch."""
+    declines floordiv / mod keys and values, as the JAX kernel does); those
+    run over the batch in phase 11a (the ``combine_jobs`` returned). T1's
+    key spans the milliseconds: the planner sends it to the host engine
+    per segment, on both paths, with no launch."""
     from pinot_tpu_torch.engine import kernels
     from pinot_tpu_torch.engine.executor import ServerQueryExecutor
     from pinot_tpu_torch.engine.pruner import prune_segments
@@ -1603,7 +1655,7 @@ def phase_time(seed: int, reps: int, segments: int = 8,
     counters = {**scan_counters(), "general_rung": kernels.RUNG_COUNTER}
     ex = ServerQueryExecutor(device=device)
     bex = ShardedQueryExecutor(device=device)
-    lat, paths, total = {}, {}, {}
+    lat, paths, total, last, jobs = {}, {}, {}, {}, []
     for tid, sql in sqls.items():
         ctx = compile_query(sql)
         code, rung = TIME_PATH[tid]
@@ -1621,10 +1673,13 @@ def phase_time(seed: int, reps: int, segments: int = 8,
                                  f"the ts bounds {want}")
         ex.execute(ctx, segs)       # untimed: stages and plans
 
-        def check(table, stats, tid=tid, code=code, rung=rung, k=k):
+        def check(table, stats, tid=tid, code=code, rung=rung, k=k,
+                  ctx=ctx):
             got = [list(r) for r in table.rows]
             check_rows(tid, sorted(got) if tid == "T2" else got, wants[tid])
-            if stats.decisions != {_decline_key(code): k}:
+            last[tid] = table.rows
+            if _scan_decisions(stats, k if ctx.filter else 0, tid) \
+                    != {_decline_key(code): k}:
                 raise AssertionError(f"{tid}: decisions {stats.decisions}")
             if stats.rung_segments != ({rung: k} if rung else {}):
                 raise AssertionError(f"{tid}: rungs {stats.rung_segments}")
@@ -1632,12 +1687,17 @@ def phase_time(seed: int, reps: int, segments: int = 8,
         lat[tid] = _timed(ex, ctx, segs, reps, check)
         _add(total, _path_launches(counters, ex.device,
                                    {"general_rung": k * reps}, tid))
-        _expect_refusal(bex, ctx, segs, code, f"batch {tid}")
+        jobs.append(_combine_job(
+            tid, "events", ctx, segs, k, code,
+            lambda t, tid=tid: check_rows(
+                tid, sorted(map(list, t.rows)) if tid == "T2"
+                else [list(r) for r in t.rows], wants[tid]),
+            last[tid], float(np.percentile(lat[tid], 50))))
         paths[tid] = {"kept_segments": k, "decline": code, "rung": rung}
         log(f"  9b {tid}: {k} of {len(segs)} segments kept, decline {code}, "
-            f"rung {rung}; == numpy oracle; the batch raises NotPortedError")
+            f"rung {rung}; == numpy oracle; over the batch in phase 11a")
     return {"rows": rows, "per_query": _latencies(lat, rows),
-            "paths": paths, "launches": total}
+            "paths": paths, "launches": total, "combine_jobs": jobs}
 
 
 def _time_host_query(tid, ctx, segs, ex, bex, counters, reps, want,
@@ -1779,7 +1839,8 @@ def phase_text(seed: int, reps: int, n: int = 1_000_000,
 
         def check(table, stats, xid=xid, code=code, rung=rung):
             check_rows(xid, table.rows, wants[xid])
-            if stats.decisions != ({_decline_key(code): 1} if code else {}):
+            if _scan_decisions(stats, 1, xid) != (
+                    {_decline_key(code): 1} if code else {}):
                 raise AssertionError(f"{xid}: decisions {stats.decisions}")
             if stats.rung_segments != ({rung: 1} if rung else {}):
                 raise AssertionError(f"{xid}: rungs {stats.rung_segments}")
@@ -1927,13 +1988,17 @@ def phase_host(main: dict, users: dict, bex, reps: int,
         expect = ({} if key is None
                   else {key: k if per == "segment" else 1})
 
+        # a filtered aggregation meets the index rung on each kept segment
+        aggregated = not (ctx.is_selection or ctx.distinct)
+        indexed = k if aggregated and ctx.filter is not None else 0
+
         def check(table, stats, qid=qid, want=want, expect=expect,
-                  on_card=path == "topk", k=k):
+                  on_card=path == "topk", k=k, indexed=indexed):
             if qid.startswith("H"):
                 ssb.check_host_rows(qid, table.rows, want)
             elif [list(r) for r in table.rows] != want:
                 raise AssertionError(f"{qid}: rows differ from the oracle")
-            if stats.decisions != expect:
+            if _scan_decisions(stats, indexed, qid) != expect:
                 raise AssertionError(f"{qid}: decisions {stats.decisions}")
             if stats.topk_launches != (k if on_card else 0) \
                     or stats.scan_launches or stats.general_launches:
@@ -1984,6 +2049,283 @@ def phase_host(main: dict, users: dict, bex, reps: int,
                                  if q.startswith("U")},
                                 sum(s.num_docs for s in user_segs)))
     return {"per_query": per_query, "paths": paths, "topk": topk}
+
+
+# -- phase 11: the jnp combine over a batch, and the index rung ---------------
+
+_COMBINE_DECLINE = "pallas:pallas_combine->jnp_combine:"
+_INDEX_SERVED = "index:scan->index_gather:index_served"
+
+
+def _combine_job(name: str, table: str, ctx, segs, kept: int, code: str,
+                 check, rows, per_segment_p50: float) -> dict:
+    """A query the fused scan declines, for phase 11a: ``check(table)``
+    holds its rows to the oracle, ``rows`` are the per-segment path's."""
+    return {"name": name, "table": table, "ctx": ctx, "segs": segs,
+            "kept": kept, "code": code, "check": check, "rows": rows,
+            "per_segment_p50_ms": per_segment_p50}
+
+
+def _tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if tree is not None else 0
+
+
+def _dtoh_copies(fn):
+    """Device-to-host copies of one call of ``fn`` (torch.profiler), or
+    None when the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    return sum(1 for e in events if "DtoH" in e.name)
+
+
+def phase_combine(jobs: list, reps: int, device: str = "cuda",
+                  card: str = "") -> dict:
+    """11a: every query earlier phases saw the fused scan decline, over
+    the batch of the segments the pruner keeps through
+    ShardedQueryExecutor: the decline recorded once at binding, one call
+    of the jnp combine a query (``batch_general``) and no fused launch,
+    rows equal to the oracle and to the per-segment path's; ``reps`` timed
+    runs beside the per-segment p50. On the card, one combine call's
+    device time and CUDA kernels (torch.profiler), its device-to-host
+    copies per query, and its byte bound (every staged array it reads,
+    its params and its packed output, once, at 3.35 TB/s), on ``card``.
+    A query whose pruner keeps one segment runs per segment there."""
+    import torch
+
+    from pinot_tpu_torch.engine.kernels import output_layout
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+    from pinot_tpu_torch.parallel.executor import (
+        rung_counters,
+        scan_counters,
+    )
+
+    counters = {**scan_counters(), **rung_counters()}
+    out, launches = {}, {name: 0 for name in counters}
+    tables = []
+    for job in jobs:
+        if job["table"] not in tables:
+            tables.append(job["table"])
+    for tname in tables:
+        bex = ShardedQueryExecutor(device=device)
+        for job in (j for j in jobs if j["table"] == tname):
+            name, ctx, segs, k = (job["name"], job["ctx"], job["segs"],
+                                  job["kept"])
+            want_rows = sorted(map(tuple, job["rows"]))
+            table, stats = bex.execute(ctx, segs)   # binds
+            job["check"](table)
+            index_segs = k if k == 1 and ctx.filter is not None else 0
+            bound = _scan_decisions(stats, index_segs, f"11a {name}")
+            want = ({_COMBINE_DECLINE + job["code"]: 1} if k > 1
+                    else {_decline_key(job["code"]): 1})
+            if bound != want:
+                raise AssertionError(f"11a {name}: decisions {bound}")
+
+            def check(t, st, name=name, k=k, index_segs=index_segs):
+                job["check"](t)
+                if sorted(map(tuple, t.rows)) != want_rows:
+                    raise AssertionError(f"11a {name}: rows differ from "
+                                         "the per-segment path's")
+                if k > 1 and (st.batch_general_launches != 1
+                              or _scan_decisions(st, 0, name)):
+                    raise AssertionError(f"11a {name}: {st.decisions}, "
+                                         f"{st.batch_general_launches} "
+                                         "combine calls")
+            _reset(counters)
+            ms = _timed(bex, ctx, segs, reps, check)
+            got = _counted(counters, bex.device)
+            if got is not None:
+                expect = {n: 0 for n in counters}
+                expect["batch_general" if k > 1 else "general_rung"] = \
+                    reps * (1 if k > 1 else k)
+                if got != expect:
+                    raise AssertionError(f"11a {name}: launches {got} != "
+                                         f"{expect}")
+                for n, v in got.items():
+                    launches[n] += v
+            row = {"table": tname, "kept_segments": k,
+                   "decline": job["code"],
+                   "p50_ms": float(np.percentile(ms, 50)),
+                   "p99_ms": float(np.percentile(ms, 99)),
+                   "per_segment_p50_ms": job["per_segment_p50_ms"],
+                   "rung": stats.group_by_rung}
+            if bex.device.type == "cuda" and k > 1:
+                inp = next(reversed(bex._param_cache.values()))
+                row["device_ms"], row["cuda_kernels"] = _profile_calls(
+                    inp.run, 10)
+                row["dtoh_copies"] = _dtoh_copies(
+                    lambda: bex.execute(ctx, segs))
+                if (row["dtoh_copies"] or 0) > 2:
+                    raise AssertionError(f"11a {name}: "
+                                         f"{row['dtoh_copies']} copies")
+                row["bytes"] = (_tensor_bytes(inp.cols)
+                                + _tensor_bytes(inp.params)
+                                + 8 * sum(n for _, n in output_layout(
+                                    inp.plan.spec, inp.num_docs.shape[0])))
+                row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            out[name] = row
+            log(f"  11a {name}: {k} kept segments, "
+                + (f"one jnp-combine call over the batch (rung "
+                   f"{row['rung']})" if k > 1 else "per segment")
+                + f"; p50 {row['p50_ms']:.3f} ms  p99 {row['p99_ms']:.3f} ms "
+                f"(per segment p50 {row['per_segment_p50_ms']:.3f} ms); "
+                "== numpy oracle and the per-segment rows"
+                + (f"; one call: device {row['device_ms']} ms in "
+                   f"{row['cuda_kernels']} CUDA kernels (torch.profiler), "
+                   f"{row['dtoh_copies']} device-to-host copies a query, "
+                   f"bound {row['bound_ms']:.4f} ms ({row['bytes']} B); "
+                   f"{card}" if "bound_ms" in row else ""))
+        del bex
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return {"queries": out, "launches": launches}
+
+
+def phase_index(users: dict, reps: int, device: str = "cuda",
+                card: str = "") -> dict:
+    """11b: phase 8's rows built a second time with
+    ``usertable.user_indexing_config()`` (inverted user_id, country,
+    event_type, tags; a range index on latency_ms), and I1-I5 of
+    ``usertable.index_queries`` per segment (ServerQueryExecutor) and
+    through ShardedQueryExecutor, each on the index rung on every kept
+    segment (``index_served`` once per segment, one gather a segment, no
+    scan), equal to the numpy oracle and to the same SQL with
+    ``OPTION(useIndexRung=false)`` (the scan rungs); ``reps`` timed runs of
+    all three. On the card, the gather call of the kept segment with the
+    most matches: device time and CUDA kernels (torch.profiler) beside its
+    byte bound (the docIds, the gathered rows of every column it reads,
+    the dictionaries, the packed output), on ``card``."""
+    from pinot_tpu_torch.engine import index_exec
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.engine.kernels import output_layout
+    from pinot_tpu_torch.engine.pruner import prune_segments
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+    from pinot_tpu_torch.parallel.executor import (
+        rung_counters,
+        scan_counters,
+    )
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.segment import columns_of, segment_from_arrays
+    from pinot_tpu_torch.tools import usertable
+
+    t0 = time.perf_counter()
+    cfg = usertable.user_indexing_config()
+    segs = [segment_from_arrays(s.segment_name, s.num_docs, columns_of(s),
+                                table_name="user_events", indexing=cfg)
+            for s in users["segs"]]
+    frames = users["frames"]
+    tail = [users["user"]] + [u for u in users["users"] if u != users["user"]]
+    absent = usertable.absent_user(frames)
+    sqls = usertable.index_queries(tail, absent)
+    wants = {qid: usertable.index_answer(frames, qid, tail, absent)
+             for qid in sqls}
+    log(f"  11b: phase 8's {sum(s.num_docs for s in segs)} rows in "
+        f"{len(segs)} segments built again with their indexes and the "
+        f"numpy oracle: {time.perf_counter() - t0:.1f} s; absent user "
+        f"{absent}")
+    counters = {**scan_counters(), **rung_counters()}
+    ex = ServerQueryExecutor(device=device)
+    bex = ShardedQueryExecutor(device=device)
+    out, launches = {}, {name: 0 for name in counters}
+    for qid, sql in sqls.items():
+        ctx = compile_query(sql)
+        scan_ctx = compile_query(sql + " OPTION(useIndexRung=false)")
+        kept = prune_segments(ctx, segs)
+        k = len(kept)
+        scan_rows = None
+
+        def check(table, stats, qid=qid, k=k):
+            usertable.check_rows(qid, table.rows, wants[qid])
+            if stats.decisions != {_INDEX_SERVED: k} \
+                    or stats.index_launches != k:
+                raise AssertionError(f"11b {qid}: {stats.decisions}, "
+                                     f"{stats.index_launches} gathers")
+
+        def scan_check(table, stats, qid=qid):
+            nonlocal scan_rows
+            usertable.check_rows(qid, table.rows, wants[qid])
+            scan_rows = sorted(map(tuple, table.rows))
+            if any(d.startswith("index:") for d in stats.decisions) \
+                    or stats.index_launches:
+                raise AssertionError(f"11b {qid} opted out: "
+                                     f"{stats.decisions}")
+        for e in (ex, bex):     # untimed: stages the columns and docIds
+            check(*e.execute(ctx, segs))
+        scan_check(*ex.execute(scan_ctx, segs))
+        _reset(counters)
+        lat = {"index": _timed(ex, ctx, segs, reps, check),
+               "batch_executor": _timed(bex, ctx, segs, reps, check)}
+        got = _counted(counters, ex.device)
+        if got is not None:
+            expect = {n: 0 for n in counters}
+            expect["index_gather"] = 2 * reps * k
+            if got != expect:
+                raise AssertionError(f"11b {qid}: launches {got}")
+            for n, v in got.items():
+                launches[n] += v
+        lat["scan"] = _timed(ex, scan_ctx, segs, reps, scan_check)
+        table, _ = ex.execute(ctx, segs)
+        if sorted(map(tuple, table.rows)) != scan_rows:
+            raise AssertionError(f"11b {qid}: rows differ from the scan "
+                                 "rungs'")
+        row = {"kept_segments": k,
+               **{f"{p}_p50_ms": float(np.percentile(v, 50))
+                  for p, v in lat.items()},
+               **{f"{p}_p99_ms": float(np.percentile(v, 99))
+                  for p, v in lat.items()}}
+        if ex.device.type == "cuda":
+            preds = index_exec._flatten_and(ctx.filter)
+            found = [(index_exec.resolve_doc_ids(
+                s, preds, s.num_docs, s.num_docs), s) for s in kept]
+            idx, seg = max(found, key=lambda f: f[0].size)
+            plan, cols, idx_dev, params = index_exec.gather_inputs(
+                ex, ctx, seg, idx)
+            n = int(idx.size)
+
+            def gather():
+                return index_exec.index_gather(plan.spec, cols, idx_dev,
+                                               params, n).cpu()
+            row["gather_ms"] = _time_ms(gather, 20)
+            row["device_ms"], row["cuda_kernels"] = _profile_calls(gather,
+                                                                   10)
+            rows_b = sum(t.element_size() * (t[0].numel() if t.dim() > 1
+                                             else 1) * n
+                         for tree in cols.values()
+                         for key, t in tree.items() if key != "dictvals")
+            dict_b = sum(t.numel() * t.element_size()
+                         for tree in cols.values()
+                         for key, t in tree.items() if key == "dictvals")
+            out_b = 8 * sum(sz for _, sz in output_layout(plan.spec, 0))
+            row.update({"segment": seg.segment_name, "matched": n,
+                        "bytes": 4 * n + rows_b + dict_b + out_b})
+            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        out[qid] = row
+        log(f"  11b {qid}: index rung on all {k} kept segments "
+            f"(index_served x{k}), == numpy oracle == the scan rungs; p50 "
+            f"{row['index_p50_ms']:.3f} ms per segment, "
+            f"{row['batch_executor_p50_ms']:.3f} ms through the batch "
+            f"executor, scan rungs {row['scan_p50_ms']:.3f} ms"
+            + (f"; gather on {row['segment']} ({row['matched']} docs): "
+               f"{row['gather_ms']:.4f} ms/call (CUDA events), device "
+               f"{row['device_ms']} ms in {row['cuda_kernels']} CUDA "
+               f"kernels/call (torch.profiler), bound "
+               f"{row['bound_ms']:.3g} ms ({row['bytes']} B); {card}"
+               if "bound_ms" in row else ""))
+    return {"queries": out, "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -2082,15 +2424,31 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     host_run = phase_host(main_run, users_run, batch_run["ex"],
                           min(args.reps, 3), card=smi)
-    del users_run["segs"], users_run["host_wants"]
+    del users_run["host_wants"]
     log(f"  host-engine phase: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 11: the jnp combine over a segment batch (11a) and the "
+        "index rung on the indexed user-events table (11b)")
+    t0 = time.perf_counter()
+    del batch_run["ex"], main_run["ex"]
+    torch.cuda.empty_cache()
+    combine_run = phase_combine(
+        general_run.pop("combine_jobs") + users_run.pop("combine_jobs")
+        + sql_run.pop("combine_jobs") + time_run.pop("combine_jobs"),
+        args.reps, card=smi)
+    index_run = phase_index(users_run, args.reps, card=smi)
+    del users_run["segs"], users_run["frames"]
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
     log("rungs " + json.dumps({
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]
                      for g, d in general_run["declined"].items()},
         "user_events": users_run["paths"], "columns": columns_run["paths"],
         "sql": sql_run["paths"], "time": time_run["paths"],
-        "text": text_run["paths"], "host": host_run["paths"]}))
+        "text": text_run["paths"], "host": host_run["paths"],
+        "combine": {q: r["rung"] for q, r in combine_run["queries"].items()},
+        "index": {q: r["kept_segments"]
+                  for q, r in index_run["queries"].items()}}))
     # each path's launches, read after its own run: phases 4 and 6 (per
     # segment and batch), 8 (per segment and batch) and 9
     launches = {k: 0 for k in main_run["launches"]}
@@ -2142,7 +2500,8 @@ def main(argv=None) -> int:
                        "sql": {k: v for k, v in sql_run.items()
                                if k != "timing"},
                        "time": time_run, "text": text_run,
-                       "host": host_run,
+                       "host": host_run, "combine": combine_run,
+                       "index": index_run,
                        "seconds": time.perf_counter() - t_all}, f, indent=1)
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -83,14 +83,3 @@ class PlanError(UnsupportedQueryError):
     def __init__(self, message: str, reason: Optional[str] = None):
         super().__init__(message)
         self.reason_code = reason or classify_decline(message)
-
-
-class NotPortedError(UnsupportedQueryError):
-    """A plan the port does not serve yet: the JAX package serves it on
-    the jnp combine of a segment batch, which is not ported. The port
-    raises with the fused scan's decline code rather than take a route
-    the JAX package does not take."""
-
-    def __init__(self, reason_code: str, detail: str = ""):
-        super().__init__(f"{reason_code}: {detail}" if detail else reason_code)
-        self.reason_code = reason_code

@@ -15,10 +15,13 @@ is kept). Then, routed as the JAX executor routes it (:462-466, :681-694):
   the code ``selection_not_device_eligible``; an unordered selection goes
   to the host engine, with no decision;
 - an aggregation or group-by, per segment: a filter-less COUNT(*) / MIN /
-  MAX / MINMAXRANGE is answered from the segment's metadata; otherwise
-  plan -> the fused scan (probe first when the group space exceeds
-  MAX_SCAN_GROUPS); a plan it declines, with the decline recorded under
-  the JAX package's keys, goes to the general rung
+  MAX / MINMAXRANGE is answered from the segment's metadata; a selective
+  AND-ed filter the segment's indexes resolve is served by the index
+  rung's docId gather (``engine/index_exec.py``, JAX :660-667 and
+  :875-882), with its outcome recorded under the ``index`` point;
+  otherwise plan -> the fused scan (probe first when the group space
+  exceeds MAX_SCAN_GROUPS); a plan it declines, with the decline recorded
+  under the JAX package's keys, goes to the general rung
   (``engine/kernels.py``) on the same device -> decode. A ``PlanError``
   from planning or from decode (more live groups than the compact cap)
   sends the segment to the host engine, recorded as
@@ -30,12 +33,11 @@ then merge, the ``num_groups_limit`` trim, and reduce.
 the general rung. There is no route to the host engine that the JAX
 executor does not take: neither its ``device_disabled`` backend route nor
 its residency spill is ported, and nothing runs on the CPU unless the
-executor was built with ``device="cpu"``. The only ``NotPortedError``
-left is the batch path's (``pinot_tpu_torch.parallel``), where the fused
-scan declines a segment batch. Segments run one after another on the
-current stream; ``_execute_aggregation`` and ``_execute_group_by`` are the
-points a subclass overrides to combine segments otherwise
-(``pinot_tpu_torch.parallel.ShardedQueryExecutor``).
+executor was built with ``device="cpu"``. Segments run one after another
+on the current stream; ``_execute_aggregation`` and ``_execute_group_by``
+are the points a subclass overrides to combine segments otherwise
+(``pinot_tpu_torch.parallel.ShardedQueryExecutor``, whose batch path
+serves every plan on the fused scan or the jnp combine).
 """
 
 from __future__ import annotations
@@ -47,13 +49,13 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.device import resolve_device
-from pinot_tpu_torch.engine import fused_scan, host_engine, kernels
+from pinot_tpu_torch.engine import fused_scan, host_engine, index_exec, kernels
 from pinot_tpu_torch.engine.aggregates import (
     AggDef,
     agg_value_expr,
     resolve_agg,
 )
-from pinot_tpu_torch.engine.errors import NotPortedError, PlanError, QueryError
+from pinot_tpu_torch.engine.errors import PlanError, QueryError
 from pinot_tpu_torch.engine.host_eval import VIRTUAL_COLUMNS
 from pinot_tpu_torch.engine.plan import SegmentPlan, plan_segment
 from pinot_tpu_torch.engine.pruner import prune_segments
@@ -122,10 +124,12 @@ class ServerQueryExecutor:
         scans0 = fused_scan.SCAN_COUNTER.launches
         probes0 = fused_scan.PROBE_COUNTER.launches
         general0 = kernels.RUNG_COUNTER.launches
+        index0 = index_exec.INDEX_COUNTER.launches
         table = self._execute_pruned(ctx, segments, stats)
         stats.scan_launches = fused_scan.SCAN_COUNTER.launches - scans0
         stats.probe_launches = fused_scan.PROBE_COUNTER.launches - probes0
         stats.general_launches = kernels.RUNG_COUNTER.launches - general0
+        stats.index_launches = index_exec.INDEX_COUNTER.launches - index0
         return table, stats
 
     def _execute_pruned(self, ctx: QueryContext,
@@ -193,6 +197,10 @@ class ServerQueryExecutor:
     def _segment_aggregation(self, ctx: QueryContext, aggs: List[AggDef],
                              seg: ImmutableSegment,
                              stats: QueryStats) -> AggResult:
+        part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
+                                         grouped=False)
+        if part is not None:
+            return part
         try:
             scan = self._scan_segment(ctx, seg, stats)
             return decode_scalar_result(scan.plan, seg, scan.tree)
@@ -212,6 +220,10 @@ class ServerQueryExecutor:
     def _segment_group_by(self, ctx: QueryContext, aggs: List[AggDef],
                           seg: ImmutableSegment,
                           stats: QueryStats) -> GroupByResult:
+        part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
+                                         grouped=True)
+        if part is not None:
+            return part
         try:
             scan = self._scan_segment(ctx, seg, stats)
             part = decode_grouped_result(scan.plan, seg, scan.tree)
@@ -400,4 +412,4 @@ def decode_grouped_result(plan: SegmentPlan, provider: Any,
 
 
 __all__ = ["ServerQueryExecutor", "decode_scalar_result",
-           "decode_grouped_result", "NotPortedError"]
+           "decode_grouped_result"]

@@ -8,10 +8,13 @@ predicate matches a doc if ANY value matches (NOT_EQ / NOT_IN need every
 value to pass), and an upsert segment's valid-doc snapshot is ANDed into
 every mask.
 
-Only the index-less branches are ported: the port's segments carry no
-inverted, range, FST, text, JSON or geo index, so a dictionary predicate
-is a dictId compare and TEXT_MATCH / JSON_MATCH / REGEXP_LIKE evaluate per
-distinct value, as the JAX package does on a segment without the index.
+A column's indexes serve where it has them, as in the JAX package: an
+inverted column's postings for a selective single-value predicate, a
+raw column's range permutation for RANGE, the FST index for REGEXP_LIKE,
+the text index for TEXT_MATCH and the JSON index for JSON_MATCH. Without
+one, a dictionary predicate is a dictId compare and TEXT_MATCH /
+JSON_MATCH / REGEXP_LIKE evaluate per distinct value; both give the same
+mask. The geo index is not ported (no port segment carries one).
 A multi-value column is the port's dense ``[capacity, max values]``
 dictIds with ``mv_counts`` (the JAX package keeps offsets over a flat
 forward index): a row's entries past its count are not values.
@@ -110,6 +113,9 @@ def _matching_dict_ids(ds: DataSource, pred: Predicate) -> np.ndarray:
             rx = re.compile(str(pred.value))
         except re.error as e:
             raise QueryError(f"bad regex {pred.value!r}: {e}")
+        reader = getattr(ds, "fst_index", None)
+        if reader is not None:
+            return reader.matching_ids(str(pred.value))
         return np.array([i for i in range(card)
                          if rx.search(str(d.get_value(i)))], dtype=np.int64)
     if t is PredicateType.TEXT_MATCH:
@@ -119,6 +125,10 @@ def _matching_dict_ids(ds: DataSource, pred: Predicate) -> np.ndarray:
         )
 
         try:
+            reader = getattr(ds, "text_index", None)
+            if reader is not None:
+                # the postings of the query's terms, as dictIds
+                return reader.matching_ids(str(pred.value))
             ast = parse_text_query(str(pred.value))
         except ValueError as e:
             raise QueryError(f"bad TEXT_MATCH query: {e}")
@@ -153,6 +163,12 @@ def eval_predicate(segment: ImmutableSegment, pred: Predicate) -> np.ndarray:
     if pred.type is PredicateType.JSON_MATCH:
         return _eval_json_match(ds, pred, n)
 
+    # RANGE over a range-indexed raw column: binary search and a slice of
+    # the sorted-order permutation instead of a compare over every doc
+    if (pred.type is PredicateType.RANGE and not cm.has_dictionary
+            and cm.single_value and ds.range_order is not None):
+        return _range_index_mask(ds, pred, n)
+
     # exclusive predicates on MV columns: every value must pass, the NOT of
     # the inclusive form
     if not cm.single_value and pred.type in (PredicateType.NOT_EQ,
@@ -166,6 +182,14 @@ def eval_predicate(segment: ImmutableSegment, pred: Predicate) -> np.ndarray:
         if len(ids) == 0:
             return np.zeros(n, dtype=bool)
         if cm.single_value:
+            if (cm.has_inverted_index
+                    and len(ids) <= max(4, cm.cardinality // 8)):
+                # the postings beat a compare over every doc when few
+                # dictIds match
+                mask = np.zeros(n, dtype=bool)
+                for i in ids:
+                    mask[ds.doc_ids_for_dict_id(int(i))] = True
+                return mask
             fwd = np.asarray(ds.forward_index[:n])
             if len(ids) == int(ids[-1] - ids[0]) + 1:  # contiguous interval
                 return (fwd >= ids[0]) & (fwd <= ids[-1])
@@ -182,8 +206,9 @@ def eval_predicate(segment: ImmutableSegment, pred: Predicate) -> np.ndarray:
 
 
 def _eval_json_match(ds: DataSource, pred: Predicate, n: int) -> np.ndarray:
-    """JSON_MATCH parsed per distinct value over the dictionary (per doc on
-    a raw column)."""
+    """JSON_MATCH through the column's JSON index where it has one, else
+    parsed per distinct value over the dictionary (per doc on a raw
+    column)."""
     from pinot_tpu_torch.segment.jsonindex import (
         match_json_value,
         parse_match_filter,
@@ -194,6 +219,9 @@ def _eval_json_match(ds: DataSource, pred: Predicate, n: int) -> np.ndarray:
         raise UnsupportedQueryError(
             f"JSON_MATCH on multi-value column {ds.name!r}")
     try:
+        reader = getattr(ds, "json_index", None)
+        if reader is not None:
+            return np.asarray(reader.match(str(pred.value))[:n])
         ast = parse_match_filter(str(pred.value))
     except ValueError as e:
         raise QueryError(f"bad JSON_MATCH filter: {e}")
@@ -207,6 +235,37 @@ def _eval_json_match(ds: DataSource, pred: Predicate, n: int) -> np.ndarray:
     vals = ds.forward_index[:n]
     return np.fromiter((match_json_value(v, ast) for v in vals),
                        dtype=bool, count=n)
+
+
+def search_sorted(sorted_vals: np.ndarray, v, side: str) -> int:
+    """``np.searchsorted`` of one value without promoting the sorted array
+    (a promotion copies it whole): an integer bound is cast to the array's
+    dtype, or lands at an end past its range."""
+    if sorted_vals.dtype.kind in "iu":
+        info = np.iinfo(sorted_vals.dtype)
+        if v < info.min:
+            return 0
+        if v > info.max:
+            return int(sorted_vals.shape[0])
+        v = sorted_vals.dtype.type(v)
+    return int(np.searchsorted(sorted_vals, v, side=side))
+
+
+def _range_index_mask(ds: DataSource, pred: Predicate, n: int) -> np.ndarray:
+    order = np.asarray(ds.range_order)
+    sorted_vals = ds.range_sorted_values
+    dt = ds.metadata.data_type
+    lo_i, hi_i = 0, n
+    if pred.lower is not None:
+        lo_i = search_sorted(sorted_vals, dt.convert(pred.lower),
+                             "left" if pred.lower_inclusive else "right")
+    if pred.upper is not None:
+        hi_i = search_sorted(sorted_vals, dt.convert(pred.upper),
+                             "right" if pred.upper_inclusive else "left")
+    mask = np.zeros(n, dtype=bool)
+    if hi_i > lo_i:
+        mask[order[lo_i:hi_i]] = True
+    return mask
 
 
 def _compare_values(vals: np.ndarray, pred: Predicate,

@@ -10,7 +10,8 @@ integral ``+ - * mod floordiv`` expressions); ``colmv`` values of the MV
 aggregations; and the device DISTINCTCOUNTHLL with its per-dictId register
 tables. REGEXP_LIKE (and LIKE, which the optimizer rewrites to it),
 TEXT_MATCH and JSON_MATCH on a dictionary column are ``lut``/``mv_lut``
-leaves over a table evaluated once per distinct value. The epoch time
+leaves over a table evaluated once per distinct value, or resolved by the
+column's FST or text index where it has one. The epoch time
 transforms (``toEpoch*``, ``fromEpoch*``, ``dateTrunc``, ``timeConvert``)
 are rewritten at plan time into ``floordiv``/``times``/``minus(mod)``
 trees. The spec (a hashable structural description) and the params (the
@@ -131,6 +132,9 @@ class SegmentPlan:
     # device -> params uploaded there (engine/kernels.py device_params)
     device_params: Dict[Any, Tuple] = field(default_factory=dict,
                                             repr=False, compare=False)
+    # capacity -> this plan's gathered-block plan (engine/index_exec.py)
+    gathered: Dict[int, "SegmentPlan"] = field(default_factory=dict,
+                                               repr=False, compare=False)
 
 
 def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
@@ -669,10 +673,10 @@ def _raw_bounds(cm, ds: DataSource, pred: Predicate):
 
 
 def _build_lut(ds: DataSource, pred: Predicate) -> np.ndarray:
-    """Boolean dictId lookup table: IN / NOT IN by value, the others by
-    evaluating the pattern once per distinct value (the JAX planner's
-    index-less branches, equal to what its FST, text and JSON indexes
-    resolve)."""
+    """Boolean dictId lookup table: IN / NOT IN by value; REGEXP_LIKE and
+    TEXT_MATCH through the column's FST or text index where it has one
+    (JAX ``plan.py:965``, ``:997``), else, as JSON_MATCH, by evaluating the
+    pattern once per distinct value. Both give the same dictIds."""
     d = ds.dictionary
     card = d.cardinality
     t = pred.type
@@ -688,6 +692,11 @@ def _build_lut(ds: DataSource, pred: Predicate) -> np.ndarray:
             rx = re.compile(str(pred.value))
         except re.error as e:
             raise QueryError(f"bad regex {pred.value!r}: {e}")
+        reader = getattr(ds, "fst_index", None)
+        if reader is not None:
+            # the trie narrows to the literal prefix's dictIds first
+            lut[reader.matching_ids(str(pred.value))] = True
+            return lut
         for i in range(card):
             lut[i] = rx.search(str(d.get_value(i))) is not None
         return lut
@@ -700,6 +709,10 @@ def _build_lut(ds: DataSource, pred: Predicate) -> np.ndarray:
             lut[i] = match_json_value(d.get_value(i), ast)
         return lut
     try:
+        reader = getattr(ds, "text_index", None)
+        if reader is not None:
+            lut[reader.matching_ids(str(pred.value))] = True
+            return lut
         ast = parse_text_query(str(pred.value))
     except ValueError as e:
         raise QueryError(f"bad TEXT_MATCH query: {e}")

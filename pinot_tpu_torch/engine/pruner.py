@@ -2,13 +2,11 @@
 
 Counterpart of ``pinot_tpu/engine/pruner.py`` (``prune_segments``): before
 planning and staging, each segment's column metadata is tested against the
-query's filter tree, min/max bounds for EQ/RANGE/IN and partition
-membership for EQ/IN. A segment prunes only when the filter is provably
-empty on it: AND prunes if any conjunct proves empty, OR only if every
-branch does, NOT and other predicates keep it. The JAX pruner also asks a
-column's bloom filter; port segments carry none, and the JAX pruner keeps
-a segment without one, so both packages decide alike (bloom pruning comes
-with the index rung).
+query's filter tree: min/max bounds for EQ/RANGE/IN, partition
+membership and the column's bloom filter (where it was built with one)
+for EQ/IN. A segment prunes only when the filter is provably empty on it:
+AND prunes if any conjunct proves empty, OR only if every branch does,
+NOT and other predicates keep it.
 """
 
 from __future__ import annotations
@@ -70,16 +68,18 @@ def _predicate_may_match(pred: Predicate, seg) -> bool:
 
     if t is PredicateType.EQ:
         v = conv(pred.value)
-        return v is None or (_within_bounds(cm, v)
-                             and _partition_may_contain(cm, v))
+        return v is None or _value_may_match(seg, cm, v)
     if t is PredicateType.IN:
         vals = [v for v in (conv(x) for x in pred.values) if v is not None]
-        return not vals or any(_within_bounds(cm, v)
-                               and _partition_may_contain(cm, v)
-                               for v in vals)
+        return not vals or any(_value_may_match(seg, cm, v) for v in vals)
     if t is PredicateType.RANGE:
         return _range_overlaps(cm, pred, conv)
     return True
+
+
+def _value_may_match(seg, cm, v) -> bool:
+    return (_within_bounds(cm, v) and _partition_may_contain(cm, v)
+            and _bloom_may_contain(seg, cm, v))
 
 
 def _within_bounds(cm, v) -> bool:
@@ -96,6 +96,15 @@ def _partition_may_contain(cm, v) -> bool:
         return True
     fn = get_partition_function(cm.partition_function, cm.num_partitions)
     return fn.partition(v) in cm.partitions
+
+
+def _bloom_may_contain(seg, cm, v) -> bool:
+    """``v`` went through the stored precision (``conv``); the filter hashed
+    the f64 widening of the stored values."""
+    if not cm.has_bloom_filter:
+        return True
+    bf = seg.data_source(cm.name).bloom_filter
+    return bf is None or bf.might_contain(v)
 
 
 def _range_overlaps(cm, pred: Predicate, conv) -> bool:

@@ -69,9 +69,14 @@ class QueryStats:
     # ordered-selection top-k (engine/selection_device.py)
     general_launches: int = 0
     topk_launches: int = 0
-    # the group-by rung that served: dense | compact | hash | sort, or
-    # "mixed" when segments of one query took different rungs (the JAX
-    # package's QueryStats.merge rule); and segments served per rung
+    # calls of the jnp combine over a segment batch, and of the index
+    # rung's docId gather
+    batch_general_launches: int = 0
+    index_launches: int = 0
+    # the group-by rung that served: dense | compact | hash | sort | index
+    # | host, or "mixed" when segments of one query took different rungs
+    # (the JAX package's QueryStats.merge rule); and segments served per
+    # rung
     group_by_rung: Optional[str] = None
     rung_segments: Dict[str, int] = field(default_factory=dict)
     # path decisions (record_decision): decision key -> count

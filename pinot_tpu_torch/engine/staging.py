@@ -17,7 +17,9 @@ arrays (``column``):
 - nullable column: ``null`` bool [capacity].
 
 Each is staged once per segment and cached. ``valid_mask`` is the upsert
-valid-doc snapshot the ``validdocs`` filter leaf reads.
+valid-doc snapshot the ``validdocs`` filter leaf reads. ``index_slice``
+holds the index rung's padded docId arrays, one per resolved filter, the
+least recently used dropped past ``INDEX_SLICE_CAP``.
 
 Planar layout (bit-identical to the JAX package's ``_pack``): docs are cut
 into tiles of ``TILE`` docs; with ``B`` bits per value and ``K = 32 / B``
@@ -29,7 +31,8 @@ The words are held as ``torch.int32`` carrying the uint32 bit pattern.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from collections import OrderedDict
+from typing import Callable, Dict, Hashable, Optional, Union
 
 import numpy as np
 import torch
@@ -41,6 +44,11 @@ from pinot_tpu_torch.segment.immutable import ImmutableSegment
 TILE = 4096
 
 _I32_MIN, _I32_MAX = int(np.iinfo(np.int32).min), int(np.iinfo(np.int32).max)
+
+# index-rung docId arrays kept per staged segment (the JAX package's
+# _INDEX_SLICE_CAP): a working-set bound, each at most a few percent of
+# the segment's docs
+INDEX_SLICE_CAP = 64
 
 
 def staged_int_dtype(cm) -> np.dtype:
@@ -128,6 +136,8 @@ class StagedSegment:
         self._values: Dict[str, torch.Tensor] = {}
         self._columns: Dict[str, StagedColumn] = {}
         self._num_docs: Optional[torch.Tensor] = None
+        self._index_slices: "OrderedDict[Hashable, torch.Tensor]" = \
+            OrderedDict()
 
     @property
     def provider(self) -> ImmutableSegment:
@@ -230,9 +240,31 @@ class StagedSegment:
         snap[:self.num_docs] = np.asarray(v[:self.num_docs])
         return torch.from_numpy(snap).to(self.device)
 
+    def index_slice(self, key: Hashable,
+                    build: Callable[[], np.ndarray]) -> torch.Tensor:
+        """The index rung's padded docId array for one resolved filter
+        (``key``), put on the device once and reused by repeated queries;
+        ``build()`` gives the host array on a miss. Least recently used
+        first out past ``INDEX_SLICE_CAP``."""
+        arr = self._index_slices.get(key)
+        if arr is not None:
+            self._index_slices.move_to_end(key)
+            return arr
+        arr = torch.from_numpy(np.ascontiguousarray(build())).to(self.device)
+        self._index_slices[key] = arr
+        while len(self._index_slices) > INDEX_SLICE_CAP:
+            self._index_slices.popitem(last=False)
+        return arr
+
+    def index_nbytes(self) -> int:
+        """Device bytes of the resident docId arrays."""
+        return sum(a.numel() * a.element_size()
+                   for a in self._index_slices.values())
+
     def nbytes(self) -> int:
         """Device bytes this segment holds."""
         return (sum(pc.words.numel() * 4 for pc in self._packed.values())
                 + sum(v.numel() * v.element_size()
                       for v in self._values.values())
-                + sum(c.nbytes() for c in self._columns.values()))
+                + sum(c.nbytes() for c in self._columns.values())
+                + self.index_nbytes())

@@ -19,8 +19,15 @@ eligibility rules read (``metadata.column()``, ``metadata.num_docs``,
 plans once against the unified key space.
 
 ``StagedBatch`` is the batch's device image, the counterpart of
-``StagedSegment``: planar packed columns ``[S, T, W]``, value columns
-``[S, T * TILE]`` and ``num_docs`` ``[S]``, each put on the device once.
+``StagedSegment``: planar packed columns ``[S, T, W]`` and value columns
+``[S, T * TILE]`` for the fused scan, the stacked arrays of
+``stacked_column`` for the jnp combine (``column``), and ``num_docs``
+``[S]``, each put on the device once.
+
+The merged column metadata of a batch carries no index: ``is_sorted`` and
+every index flag are false (the JAX package's batch clears ``is_sorted``
+and ``has_inverted_index``), since a batch stacks the segments' forward
+indexes and not their indexes.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from pinot_tpu_torch.engine.fused_scan import ScanKernels
 from pinot_tpu_torch.engine.staging import (
     TILE,
     PackedColumn,
+    StagedColumn,
     pack_bits,
     raw_staged_dtype,
     staged_int_dtype,
@@ -170,6 +178,10 @@ class SegmentBatch:
                                  "batch")
         has_nulls = any(cm.has_nulls for cm in cms)
         max_mv = max(cm.max_num_multi_values for cm in cms)
+        base = replace(base, is_sorted=False, has_inverted_index=False,
+                       has_range_index=False, has_bloom_filter=False,
+                       has_fst_index=False, has_text_index=False,
+                       has_json_index=False)
         if not base.has_dictionary:
             lows = [cm.min_value for cm in cms if cm.min_value is not None]
             highs = [cm.max_value for cm in cms if cm.max_value is not None]
@@ -317,6 +329,7 @@ class StagedBatch:
         self.num_segs = max(num_segs, batch.num_segments)
         self._packed: Dict[str, PackedColumn] = {}
         self._values: Dict[str, torch.Tensor] = {}
+        self._columns: Dict[str, StagedColumn] = {}
         self._num_docs: Optional[torch.Tensor] = None
 
     @property
@@ -355,10 +368,24 @@ class StagedBatch:
             self._values[name] = v
         return v
 
+    def column(self, name: str) -> StagedColumn:
+        """The jnp combine's arrays of a column: ``stacked_column`` on the
+        device (``fwd`` / ``mv`` / ``mvcount`` / ``null`` with a leading
+        ``[S]`` axis, the shared ``dictvals``)."""
+        sc = self._columns.get(name)
+        if sc is None:
+            tree = self.batch.stacked_column(name, self.num_segs)
+            sc = StagedColumn(**{
+                k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in tree.items()})
+            self._columns[name] = sc
+        return sc
+
     def nbytes(self) -> int:
         """Device bytes this batch holds."""
         return (sum(pc.words.numel() * 4 for pc in self._packed.values())
                 + sum(v.numel() * v.element_size()
                       for v in self._values.values())
+                + sum(c.nbytes() for c in self._columns.values())
                 + (self._num_docs.numel() * 8 if self._num_docs is not None
                    else 0))

@@ -9,23 +9,39 @@ package built (``columns_of`` reads any segment with the
 ``metadata.columns`` / ``data_source(c)`` interface: ``dictionary``,
 ``forward_index``, ``dense_mv()``, ``null_bitmap``), so both packages scan
 identical data.
+
+``indexing`` (``spi/table.py`` ``IndexingConfig``) builds a column's
+indexes in memory from its dictIds and values, as the JAX creator builds
+them (``pinot_tpu/segment/creator.py``): inverted postings
+(``build_inverted_index``), the range permutation of a raw column, the
+bloom filter, and the FST, text and JSON indexes of a string column.
+``is_sorted`` is computed for every single-value column.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
-from pinot_tpu_torch.segment.dictionary import build_dictionary
-from pinot_tpu_torch.segment.immutable import DataSource, ImmutableSegment
+from pinot_tpu_torch.segment.dictionary import Dictionary, build_dictionary
+from pinot_tpu_torch.segment.fstindex import FstIndexBuilder, FstIndexReader
+from pinot_tpu_torch.segment.immutable import (
+    ColumnIndexes,
+    DataSource,
+    ImmutableSegment,
+)
+from pinot_tpu_torch.segment.jsonindex import JsonIndexReader, build_json_index
 from pinot_tpu_torch.segment.metadata import (
     ColumnMetadata,
     SegmentMetadata,
     pad_capacity,
 )
+from pinot_tpu_torch.segment.textindex import TextIndexReader, build_text_index
 from pinot_tpu_torch.spi.data import DataType, FieldSpec, FieldType, Schema
+from pinot_tpu_torch.spi.table import IndexingConfig
+from pinot_tpu_torch.utils.bloom import BloomFilter
 
 
 @dataclass
@@ -80,8 +96,68 @@ def _padded(live: np.ndarray, capacity: int, dtype) -> np.ndarray:
     return out
 
 
-def _column(col: str, a: ColumnArrays, num_docs: int, capacity: int
-            ) -> DataSource:
+def build_inverted_index(dict_ids_flat: np.ndarray,
+                         mv_counts: Optional[np.ndarray], num_docs: int,
+                         cardinality: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Per dictId, the ascending docIds holding it (JAX
+    ``creator.py:82``): -> (doc-count offsets [cardinality + 1] int64,
+    docIds int32, dictId ``i``'s at ``[offsets[i]:offsets[i + 1]]``). A
+    multi-value column's ``dict_ids_flat`` holds each row's values in
+    turn (``mv_counts`` of them); a value a row holds twice lists the doc
+    twice, as in the JAX index."""
+    if mv_counts is None:
+        doc_ids = np.arange(num_docs, dtype=np.int64)
+        ids = np.asarray(dict_ids_flat[:num_docs])
+    else:
+        doc_ids = np.repeat(np.arange(num_docs, dtype=np.int64), mv_counts)
+        ids = np.asarray(dict_ids_flat)
+    # docs ascend in input order, so a stable sort by dictId is the JAX
+    # index's lexsort by (dictId, doc)
+    order = np.argsort(ids, kind="stable")
+    offsets = np.zeros(cardinality + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum(np.bincount(ids.astype(np.int64),
+                                        minlength=cardinality))
+    return offsets, doc_ids[order].astype(np.int32)
+
+
+def _is_sorted(live: np.ndarray) -> bool:
+    return bool(np.all(live[:-1] <= live[1:])) if live.shape[0] > 1 else True
+
+
+def _indexes(col: str, a: ColumnArrays, cfg: IndexingConfig,
+             d: Optional[Dictionary], live: np.ndarray,
+             counts: Optional[np.ndarray], num_docs: int
+             ) -> Optional[ColumnIndexes]:
+    """The indexes ``cfg`` asks of this column, built from its dictIds
+    (``live``: [num_docs] dictIds, or the flat entries of a multi-value
+    column, or a raw column's values). None when it asks for none."""
+    ix = ColumnIndexes()
+    if d is None:
+        if col in cfg.range_index_columns and num_docs:
+            ix.range_order = np.argsort(live, kind="stable").astype(np.int32)
+        if col in cfg.bloom_filter_columns:
+            ix.bloom = BloomFilter.from_values(list(np.unique(live)))
+        return ix if ix.any() else None
+    card = d.cardinality
+    if col in cfg.inverted_index_columns:
+        ix.inverted = build_inverted_index(live, counts, num_docs, card)
+    if col in cfg.bloom_filter_columns:
+        ix.bloom = BloomFilter.from_values(d.get_values(range(card)))
+    single_string = counts is None and not a.data_type.is_numeric
+    if single_string and col in cfg.fst_index_columns:
+        ix.fst = FstIndexReader(*FstIndexBuilder(
+            [str(v) for v in d.get_values(range(card))]).build(), d)
+    if single_string and col in cfg.text_index_columns:
+        ix.text = TextIndexReader(*build_text_index(d.get_values(
+            range(card))), card, value_of=d.get_value)
+    if single_string and col in cfg.json_index_columns:
+        ix.json = JsonIndexReader(*build_json_index(
+            d.values[live].tolist(), num_docs), num_docs)
+    return ix if ix.any() else None
+
+
+def _column(col: str, a: ColumnArrays, num_docs: int, capacity: int,
+            indexing: Optional[IndexingConfig] = None) -> DataSource:
     null = None
     if a.null is not None:
         null = _padded(_rows(col, a.null, num_docs, capacity).astype(bool),
@@ -100,14 +176,20 @@ def _column(col: str, a: ColumnArrays, num_docs: int, capacity: int
         lo = live.min().item() if num_docs else None
         hi = live.max().item() if num_docs else None
         fwd = _padded(live, capacity, live.dtype)
+        entries = live
+        counts = None
+        is_sorted = _is_sorted(live)
     else:
         d = build_dictionary(a.dictionary, a.data_type)
         card = d.cardinality
         ids = _rows(col, a.dict_ids, num_docs, capacity)
+        counts = None
         if a.mv_counts is None:
             entries = ids
             fwd = _padded(ids, capacity, _narrow_id_dtype(card))
+            is_sorted = _is_sorted(ids)
         else:
+            is_sorted = False
             counts = _rows(col, a.mv_counts, num_docs, capacity).astype(
                 np.int32)
             max_mv = int(counts.max()) if num_docs else 0
@@ -125,6 +207,8 @@ def _column(col: str, a: ColumnArrays, num_docs: int, capacity: int
         if given is not None and given != derived:
             raise ValueError(f"column {col!r}: {what} stat {given!r} "
                              f"disagrees with the data ({derived!r})")
+    ix = (_indexes(col, a, indexing, d, entries, counts, num_docs)
+          if indexing is not None else None)
     cm = ColumnMetadata(
         name=col, data_type=a.data_type, field_type=a.field_type,
         cardinality=card, min_value=lo, max_value=hi,
@@ -133,24 +217,34 @@ def _column(col: str, a: ColumnArrays, num_docs: int, capacity: int
         max_num_multi_values=max_mv,
         partition_function=a.partition_function,
         num_partitions=a.num_partitions,
-        partitions=list(a.partitions or []))
+        partitions=list(a.partitions or []),
+        is_sorted=is_sorted)
+    if ix is not None:
+        cm.has_inverted_index = ix.inverted is not None
+        cm.has_range_index = ix.range_order is not None
+        cm.has_bloom_filter = ix.bloom is not None
+        cm.has_fst_index = ix.fst is not None
+        cm.has_text_index = ix.text is not None
+        cm.has_json_index = ix.json is not None
     return DataSource(col, cm, d, fwd, mv_counts,
-                      null if cm.has_nulls else None)
+                      null if cm.has_nulls else None, indexes=ix)
 
 
 def segment_from_arrays(name: str, num_docs: int,
                         columns: Mapping[str, ColumnArrays],
                         table_name: Optional[str] = None,
-                        valid_doc_ids: Optional[np.ndarray] = None
+                        valid_doc_ids: Optional[np.ndarray] = None,
+                        indexing: Optional[IndexingConfig] = None
                         ) -> ImmutableSegment:
     """``valid_doc_ids`` ([num_docs] bool) makes the segment
-    upsert-managed: only its true docs are live."""
+    upsert-managed: only its true docs are live. ``indexing`` names the
+    columns' indexes to build."""
     capacity = pad_capacity(num_docs)
     table = table_name or name
     schema = Schema(table, [FieldSpec(c, a.data_type, a.field_type,
                                       single_value=a.mv_counts is None)
                             for c, a in columns.items()])
-    sources = {col: _column(col, a, num_docs, capacity)
+    sources = {col: _column(col, a, num_docs, capacity, indexing)
                for col, a in columns.items()}
     md = SegmentMetadata(segment_name=name, table_name=table, schema=schema,
                          num_docs=num_docs, padded_capacity=capacity,

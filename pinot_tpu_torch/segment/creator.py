@@ -3,8 +3,10 @@
 Counterpart of ``pinot_tpu/segment/creator.py`` (``SegmentBuilder``,
 ``_normalize`` and ``_build_column`` at :297-410): dictionary-encoded
 columns, raw columns (``no_dictionary_columns``, single-value numeric
-only, as the JAX builder allows), multi-value columns and null handling;
-the segment lives in memory (no on-disk format yet).
+only, as the JAX builder allows), multi-value columns, null handling and
+the indexes an ``IndexingConfig`` names (built in memory by
+``segment_from_arrays``); the segment lives in memory (no on-disk format
+yet).
 
 A frame maps each column to its rows: a numpy array or a list for a
 single-value column (``None``, and NaN in a float column, is null); for a
@@ -23,6 +25,7 @@ import numpy as np
 from pinot_tpu_torch.segment.convert import ColumnArrays, segment_from_arrays
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.spi.data import FieldSpec, Schema
+from pinot_tpu_torch.spi.table import IndexingConfig
 
 
 def _is_null(v: Any) -> bool:
@@ -85,11 +88,14 @@ def _mv_values(fs: FieldSpec, rows: Any
 class SegmentBuilder:
     def __init__(self, schema: Schema, segment_name: str,
                  table_name: Optional[str] = None,
-                 no_dictionary_columns: Sequence[str] = ()):
+                 no_dictionary_columns: Sequence[str] = (),
+                 indexing: Optional[IndexingConfig] = None):
         self.schema = schema
         self.segment_name = segment_name
         self.table_name = table_name or schema.schema_name
-        self.no_dictionary_columns = set(no_dictionary_columns)
+        self.indexing = indexing
+        self.no_dictionary_columns = set(no_dictionary_columns) | set(
+            indexing.no_dictionary_columns if indexing else ())
 
     def build(self, frame: Mapping[str, Any]) -> ImmutableSegment:
         sizes = {len(frame[c][1]) if isinstance(frame[c], tuple)
@@ -100,7 +106,8 @@ class SegmentBuilder:
         columns = {fs.name: self._column(fs, frame[fs.name])
                    for fs in self.schema.field_specs}
         return segment_from_arrays(self.segment_name, num_docs, columns,
-                                   table_name=self.table_name)
+                                   table_name=self.table_name,
+                                   indexing=self.indexing)
 
     def _column(self, fs: FieldSpec, rows: Any) -> ColumnArrays:
         if not fs.single_value:

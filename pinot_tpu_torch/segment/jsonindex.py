@@ -1,11 +1,15 @@
-"""JSON_MATCH's filter dialect and its per-value matcher.
+"""JSON index and JSON_MATCH's filter dialect.
 
-Counterpart of the matchers in ``pinot_tpu/segment/jsonindex.py``
-(``_canon``, ``flatten_json``, ``_tokenize``, ``parse_match_filter``,
-``eval_match_ast``, ``match_json_value``): the planner evaluates a
-JSON_MATCH filter once per distinct dictionary value into a dictId lookup
-table, the index-less branch of the JAX planner. The JSON index builder
-and reader are not ported (port segments carry no JSON index).
+Counterpart of ``pinot_tpu/segment/jsonindex.py``: every document of a
+JSON column flattens to canonical ``path\\0value`` keys, each owning the
+sorted docIds that hold it (``build_json_index``), and a JSON_MATCH filter
+resolves to unions and intersections of those postings
+(``JsonIndexReader.match``, the host engine's indexed branch). Without the
+index the planner evaluates the filter once per distinct dictionary value
+into a dictId lookup table (``match_json_value``), the index-less branch
+of the JAX planner. The index lives in memory: sorted keys, doc-count
+offsets and one flat int32 postings array (the JAX package keeps
+delta+varint lists on disk).
 
 Documents flatten to ``(path, canonical value)`` pairs, nested objects as
 dotted paths and array elements as ``[*]``. Dialect: ``"$.path" = 'v'`` /
@@ -16,7 +20,13 @@ from __future__ import annotations
 
 import json
 import re
-from typing import Any, Iterator, List, Optional, Tuple
+from bisect import bisect_left
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+_SEP = "\x00"
+
 
 def _canon(value: Any) -> Optional[str]:
     """Canonical value string (query literals normalize the same way)."""
@@ -182,3 +192,93 @@ def match_json_value(raw: Any, ast) -> bool:
         pairs = set()
     paths = {p for p, _ in pairs}
     return eval_match_ast(ast, pairs, paths)
+
+
+def build_json_index(json_values: List[Any], num_docs: int
+                     ) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """Flatten every doc -> (sorted ``path\\0value`` keys, offsets
+    [keys + 1], the docIds of key ``i`` at
+    ``postings[offsets[i]:offsets[i + 1]]``, int32, ascending). A null or
+    unparseable doc holds no key."""
+    pairs: Dict[str, List[int]] = {}
+    for doc_id in range(num_docs):
+        raw = json_values[doc_id]
+        if raw is None:
+            continue
+        try:
+            obj = json.loads(raw) if isinstance(raw, str) else raw
+        except (ValueError, TypeError):
+            continue
+        seen = set()
+        for path, value in flatten_json(obj):
+            key = path + _SEP + value
+            if key not in seen:
+                seen.add(key)
+                pairs.setdefault(key, []).append(doc_id)
+    keys = sorted(pairs)
+    offsets = np.zeros(len(keys) + 1, dtype=np.int64)
+    for i, k in enumerate(keys):
+        offsets[i + 1] = offsets[i] + len(pairs[k])
+    flat = np.asarray([d for k in keys for d in pairs[k]], dtype=np.int32)
+    return keys, offsets, flat
+
+
+class JsonIndexReader:
+    """JSON_MATCH filters resolved through the postings to a doc mask."""
+
+    def __init__(self, keys: List[str], offsets: np.ndarray,
+                 postings: np.ndarray, num_docs: int):
+        self._keys = keys
+        self._offsets = offsets
+        self._postings_flat = postings
+        self.num_docs = num_docs
+
+    def _postings(self, idx: int) -> np.ndarray:
+        return self._postings_flat[int(self._offsets[idx]):
+                                   int(self._offsets[idx + 1])]
+
+    def _docs_for_key(self, key: str) -> np.ndarray:
+        i = bisect_left(self._keys, key)
+        if i < len(self._keys) and self._keys[i] == key:
+            return self._postings(i)
+        return np.empty(0, dtype=np.int32)
+
+    def _docs_for_path(self, path: str) -> np.ndarray:
+        """Union of the postings of every key of ``path``: one contiguous
+        range of the sorted keys (``path + "\\x01"`` bounds it for every
+        value)."""
+        lo = bisect_left(self._keys, path + _SEP)
+        hi = bisect_left(self._keys, path + "\x01")
+        if lo == hi:
+            return np.empty(0, dtype=np.int32)
+        return np.unique(np.concatenate([self._postings(i)
+                                         for i in range(lo, hi)]))
+
+    def _mask(self, docs: np.ndarray) -> np.ndarray:
+        m = np.zeros(self.num_docs, dtype=bool)
+        m[docs] = True
+        return m
+
+    def match(self, filter_string: str) -> np.ndarray:
+        """[num_docs] bool mask for a JSON_MATCH filter string."""
+        return self._eval(parse_match_filter(filter_string))
+
+    def _eval(self, ast) -> np.ndarray:
+        op = ast[0]
+        if op == "eq":
+            return self._mask(self._docs_for_key(ast[1] + _SEP + ast[2]))
+        if op == "neq":
+            return (self._mask(self._docs_for_path(ast[1]))
+                    & ~self._mask(self._docs_for_key(
+                        ast[1] + _SEP + ast[2])))
+        if op == "exists":
+            return self._mask(self._docs_for_path(ast[1]))
+        if op == "missing":
+            return ~self._mask(self._docs_for_path(ast[1]))
+        out = self._eval(ast[1][0])
+        for c in ast[1][1:]:
+            if op == "and":
+                out &= self._eval(c)
+            else:
+                out |= self._eval(c)
+        return out

@@ -27,7 +27,13 @@ class ColumnMetadata:
     its distinct values. A multi-value column holds up to
     ``max_num_multi_values`` values a row. A partitioned column names its
     partition function, the partition count and the partitions its values
-    fall in (the segment pruner reads them)."""
+    fall in (the segment pruner reads them).
+
+    ``is_sorted``: the column's dictIds (a raw column's values) never
+    decrease over the docs, computed for every single-value column as the
+    JAX creator computes it (a multi-value column is never sorted). The
+    ``has_*`` flags name the indexes the segment was built with
+    (``spi/table.py`` ``IndexingConfig``)."""
 
     name: str
     data_type: DataType
@@ -42,6 +48,13 @@ class ColumnMetadata:
     partition_function: Optional[str] = None
     num_partitions: int = 0
     partitions: List[int] = field(default_factory=list)
+    is_sorted: bool = False
+    has_inverted_index: bool = False
+    has_range_index: bool = False
+    has_bloom_filter: bool = False
+    has_fst_index: bool = False
+    has_text_index: bool = False
+    has_json_index: bool = False
 
 
 @dataclass

@@ -1,27 +1,54 @@
-"""TEXT_MATCH's query dialect and its per-value matcher.
+"""Text index and TEXT_MATCH's query dialect.
 
-Counterpart of the matchers in ``pinot_tpu/segment/textindex.py``
-(``tokenize``, ``parse_text_query``, ``match_text_value``): the planner
-evaluates a TEXT_MATCH query once per distinct dictionary value into a
-dictId lookup table. The JAX package's text index resolves the same
-dialect through posting lists to the same dictIds; the index builder and
-reader are not ported (port segments carry no text index).
+Counterpart of ``pinot_tpu/segment/textindex.py``: terms map to posting
+lists over the column's dictionary ids, so a TEXT_MATCH query resolves to
+a dictId set (``TextIndexReader.matching_ids``), the lookup-table shape the
+device rungs and the host evaluator read. Without the index the planner
+evaluates the same dialect once per distinct value (``match_text_value``);
+both give the same dictIds. The index lives in memory: the sorted terms,
+doc-count offsets and one flat array of postings (the JAX package keeps
+the postings as delta+varint lists on disk).
 
 Analyzer: lowercase + split on non-alphanumerics. Dialect: bare terms,
-``"quoted phrases"``, ``prefix*`` wildcards, AND / OR (OR is the default
-operator) and parentheses.
+``"quoted phrases"`` (adjacency verified against the source values),
+``prefix*`` wildcards, AND / OR (OR is the default operator) and
+parentheses.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, List, Tuple
+from bisect import bisect_left
+from typing import Any, Callable, List, Sequence, Set, Tuple
+
+import numpy as np
 
 _TOKEN_RE = re.compile(r"[a-z0-9]+")
 
 
 def tokenize(text: str) -> List[str]:
     return _TOKEN_RE.findall(str(text).lower())
+
+
+def build_text_index(values: Sequence[Any]
+                     ) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """Postings of each term over ``values`` (a dictionary's values: the
+    postings hold dictIds) -> (sorted terms, offsets [terms + 1], the
+    postings of term ``i`` at ``postings[offsets[i]:offsets[i + 1]]``,
+    int32, ascending)."""
+    postings: dict = {}
+    for vid, value in enumerate(values):
+        if value is None:
+            continue
+        for term in set(tokenize(value)):
+            postings.setdefault(term, []).append(vid)
+    terms = sorted(postings)
+    offsets = np.zeros(len(terms) + 1, dtype=np.int64)
+    for i, t in enumerate(terms):
+        offsets[i + 1] = offsets[i] + len(postings[t])
+    flat = np.asarray([v for t in terms for v in postings[t]],
+                      dtype=np.int32)
+    return terms, offsets, flat
 
 
 _QTOKEN = re.compile(r"""
@@ -134,3 +161,70 @@ def match_text_value(value: Any, ast) -> bool:
         return any(ev(c) for c in node[1])
 
     return ev(ast)
+
+
+class TextIndexReader:
+    """TEXT_MATCH resolved through the postings to a sorted dictId set."""
+
+    def __init__(self, terms: List[str], offsets: np.ndarray,
+                 postings: np.ndarray, num_ids: int,
+                 value_of: Callable[[int], Any]):
+        self._terms = terms
+        self._offsets = offsets
+        self._postings_flat = postings
+        self.num_ids = num_ids
+        self._value_of = value_of  # id -> source text (phrase verification)
+
+    def _postings(self, idx: int) -> np.ndarray:
+        return self._postings_flat[int(self._offsets[idx]):
+                                   int(self._offsets[idx + 1])]
+
+    def _ids_for_term(self, term: str) -> Set[int]:
+        i = bisect_left(self._terms, term)
+        if i < len(self._terms) and self._terms[i] == term:
+            return set(int(x) for x in self._postings(i))
+        return set()
+
+    def _ids_for_prefix(self, prefix: str) -> Set[int]:
+        lo = bisect_left(self._terms, prefix)
+        hi = bisect_left(self._terms, prefix + "\U0010ffff")
+        out: Set[int] = set()
+        for i in range(lo, hi):
+            out |= set(int(x) for x in self._postings(i))
+        return out
+
+    def matching_ids(self, query: str) -> np.ndarray:
+        """Sorted value ids matching the TEXT_MATCH query."""
+        ast = parse_text_query(query)
+
+        def ev(node) -> Set[int]:
+            op = node[0]
+            if op == "term":
+                return self._ids_for_term(node[1])
+            if op == "prefix":
+                return self._ids_for_prefix(node[1])
+            if op == "phrase":
+                # AND the terms, then verify adjacency against the source
+                # values (positions are not stored; candidates are few)
+                cand: Set[int] = None  # type: ignore[assignment]
+                for t in node[1]:
+                    ids = self._ids_for_term(t)
+                    cand = ids if cand is None else (cand & ids)
+                    if not cand:
+                        return set()
+                return {i for i in cand
+                        if match_text_value(self._value_of(i), node)}
+            if op == "and":
+                out: Set[int] = None  # type: ignore[assignment]
+                for c in node[1]:
+                    ids = ev(c)
+                    out = ids if out is None else (out & ids)
+                    if not out:
+                        return set()
+                return out
+            out = set()
+            for c in node[1]:
+                out |= ev(c)
+            return out
+
+        return np.asarray(sorted(ev(ast)), dtype=np.int64)

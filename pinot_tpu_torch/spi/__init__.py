@@ -1,3 +1,4 @@
 from pinot_tpu_torch.spi.data import DataType, FieldSpec, FieldType, Schema
+from pinot_tpu_torch.spi.table import IndexingConfig
 
-__all__ = ["DataType", "FieldSpec", "FieldType", "Schema"]
+__all__ = ["DataType", "FieldSpec", "FieldType", "Schema", "IndexingConfig"]

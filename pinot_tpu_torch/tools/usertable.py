@@ -13,6 +13,12 @@ table holds one column of each kind a Pinot user meets:
 - ``revenue``, ``num_items``: dictionary-encoded metrics;
 - ``country``, ``device``, ``event_type``: low-cardinality dimensions.
 
+``user_indexing_config`` is the JAX table's indexes: inverted on the
+point-filter dimensions (``user_id``, ``country``, ``event_type``,
+``tags``), a range index on the raw ``latency_ms``; ``build_segments``
+builds them when asked, and the index rung then serves a tail user's
+point filter from its postings.
+
 ``generate_frame`` draws one segment's rows, independently seeded per
 segment. Its ``tags`` are drawn in one call as a dense ``[n, 3]`` code
 matrix plus a count per row, where the JAX generator draws a Python list
@@ -22,6 +28,11 @@ generator's rows after ``user_id`` differ from the JAX generator's for the
 same seed. ``user_id`` is the first draw of both, so ``tail_users``
 agrees with the JAX package's. The CPU tests carry JAX-built segments
 across and do not depend on this generator.
+
+``index_queries`` are I1-I5, the index rung's shapes on the indexed
+table (a tail user's point filter, an IN of users with a country, a
+narrow ``latency_ms`` range, an MV tag with a user, an absent user), with
+their oracle ``index_answer``.
 
 ``host_queries`` are three more the host engine and the device top-k
 serve (an ordered ``SELECT *`` of a tail user on the card, a group-by on
@@ -36,13 +47,14 @@ strings.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from pinot_tpu_torch.segment.convert import ColumnArrays, segment_from_arrays
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.spi.data import DataType, FieldSpec, FieldType, Schema
+from pinot_tpu_torch.spi.table import IndexingConfig
 
 # tail users hold a handful of rows each; whales hold thousands:
 # rng.zipf(ZIPF_A) clipped to NUM_USERS gives both in one draw
@@ -74,6 +86,16 @@ def user_schema() -> Schema:
         FieldSpec("revenue", I, M),
         FieldSpec("num_items", I, M),
     ])
+
+
+def user_indexing_config() -> IndexingConfig:
+    """Inverted on the point-filter dimensions, a range index on the raw
+    latency column (``pinot_tpu/tools/usertable.py:64-75``); revenue and
+    num_items stay dictionary-encoded metrics."""
+    return IndexingConfig(
+        inverted_index_columns=["user_id", "country", "event_type", "tags"],
+        range_index_columns=["latency_ms"],
+        no_dictionary_columns=list(NO_DICTIONARY_COLUMNS))
 
 
 def _users(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -147,15 +169,18 @@ def segment_rows(num_segments: int, rows: int) -> List[int]:
 
 
 def build_segments(num_segments: int = 4, rows: int = 1_000_000,
-                   seed: int = 7) -> Tuple[List[ImmutableSegment],
-                                           List[Dict[str, object]]]:
-    """(segments built in memory, the frames they were built from)."""
+                   seed: int = 7, indexing: Optional[IndexingConfig] = None
+                   ) -> Tuple[List[ImmutableSegment],
+                              List[Dict[str, object]]]:
+    """(segments built in memory, with the indexes ``indexing`` names,
+    the frames they were built from)."""
     segs, frames = [], []
     for i, n in enumerate(segment_rows(num_segments, rows)):
         frame = generate_frame(i, num_segments, n, seed)
         segs.append(segment_from_arrays(f"user_{i}", n,
                                         columns_of_frame(frame),
-                                        table_name="user_events"))
+                                        table_name="user_events",
+                                        indexing=indexing))
         frames.append(frame)
     return segs, frames
 
@@ -321,6 +346,71 @@ def check_rows(qid: str, rows: List[List], want: List[List]) -> None:
              else a == b) for a, b in zip(g, w))
         if not ok:
             raise AssertionError(f"{qid}: row {g} != oracle {w}")
+
+
+# -- the index rung -------------------------------------------------------------
+
+def absent_user(frames: List[Dict[str, object]]) -> int:
+    """The smallest user_id in [1, NUM_USERS] no row holds: inside every
+    segment's min/max, so no segment prunes, and matched by no doc."""
+    seen = np.zeros(NUM_USERS + 2, dtype=bool)
+    for f in frames:
+        seen[f["user_id"]] = True
+    return int(np.nonzero(~seen[1:NUM_USERS + 1])[0][0]) + 1
+
+
+def index_queries(users: List[int], absent: int) -> Dict[str, str]:
+    """I1-I5 on the indexed table: ``users[0]`` is the point-filter user
+    (I1 is U1's shape), ``users[:5]`` the IN list, ``absent`` a user no row
+    holds."""
+    user = users[0]
+    listed = ", ".join(str(u) for u in users[:5])
+    return {
+        "I1": queries(user)["U1"],
+        "I2": f"SELECT count(*), sum(revenue) FROM user_events "
+              f"WHERE user_id IN ({listed}) AND country = 'US'",
+        "I3": "SELECT country, count(*), sum(revenue) FROM user_events "
+              "WHERE latency_ms BETWEEN 300 AND 320 GROUP BY country",
+        "I4": f"SELECT count(*) FROM user_events "
+              f"WHERE tags = 'tag3' AND user_id = {user}",
+        "I5": f"SELECT count(*), sum(revenue) FROM user_events "
+              f"WHERE user_id = {absent}",
+    }
+
+
+def index_answer(frames: List[Dict[str, object]], qid: str,
+                 users: List[int], absent: int) -> List[List]:
+    """Rows of ``index_queries(users, absent)[qid]`` over the frames, with
+    numpy alone (``check_rows`` compares them)."""
+    if qid == "I1":
+        return numpy_answer(frames, "U1", users[0])
+    tag3 = TAGS.index("tag3")
+    us = COUNTRIES.index("US")
+    parts: Dict[object, List[int]] = {}
+    for f in frames:
+        uid, rev, lat = f["user_id"], f["revenue"], f["latency_ms"]
+        if qid == "I3":
+            m = (lat >= 300) & (lat <= 320)
+            for k, r in _group_rows(f["country"][m], COUNTRIES,
+                                    {"rev": rev[m]}).items():
+                got = parts.setdefault(k, [0, 0])
+                got[0] += r["count"]
+                got[1] += int(r["rev"].sum())
+            continue
+        if qid == "I2":
+            m = np.isin(uid, users[:5]) & (f["country"] == us)
+        elif qid == "I4":
+            m = (uid == users[0]) & _has_tag(f, [tag3])
+        elif qid == "I5":
+            m = uid == absent
+        else:
+            raise KeyError(qid)
+        got = parts.setdefault((), [0, 0])
+        got[0] += int(m.sum())
+        got[1] += int(rev[m].sum())
+    if qid == "I4":
+        return [[parts[()][0]]]
+    return sorted(([] if k == () else [k]) + v for k, v in parts.items())
 
 
 # -- the host engine and the device top-k --------------------------------------

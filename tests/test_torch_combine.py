@@ -4,8 +4,9 @@ Pallas kernel (interpret mode, the conftest's 8 CPU devices, segments padded
 to the mesh), and port ShardedQueryExecutor(device="cpu") rows and stats
 against the JAX ShardedQueryExecutor(use_pallas=True) and the JAX host
 executor, on 3 SSB segments carried across with segment_from_arrays; then
-routing (one segment, unbatchable segments), the bound-query cache, declines
-and the device default.
+routing (one segment, unbatchable segments), the bound-query cache, the
+plans the fused scan declines (served by the jnp combine) and the device
+default.
 
 Tolerance: counts, integer sums, keys, seg_matched and row order exact;
 cells that aggregate floats rel 1e-5, abs 1e-6 (tests/test_pallas.py:274):
@@ -31,7 +32,6 @@ from pinot_tpu.query import compile_query as j_compile  # noqa: E402
 from pinot_tpu.segment import SegmentBuilder, load_segment  # noqa: E402
 from pinot_tpu.spi import DataType, FieldSpec, FieldType, Schema  # noqa: E402
 from pinot_tpu.tools import ssb as j_ssb  # noqa: E402
-from pinot_tpu_torch.engine.errors import NotPortedError  # noqa: E402
 from pinot_tpu_torch.engine.executor import ServerQueryExecutor  # noqa: E402
 from pinot_tpu_torch.engine.results import QueryStats  # noqa: E402
 from pinot_tpu_torch.parallel import ShardedQueryExecutor  # noqa: E402
@@ -117,8 +117,10 @@ def test_rows_match_jax_sharded_and_host(ssb, executors, qid):
     sql = j_ssb.QUERIES[qid] + " LIMIT 100000"
     got, stats = executors["port"].execute(t_compile(sql), tsegs)
     exact = _exact_columns(sql, tsegs[0])
+    decisions = {}
     for ref in ("sharded", "host"):
         want, wstats = executors[ref].execute(j_compile(sql), jsegs)
+        decisions.setdefault(ref, wstats.decisions)
         assert got.schema.column_names == want.schema.column_names
         _assert_rows(got.rows, want.rows, exact, f"{ref}: {sql}")
         # both prune the same segments first; one segment left takes the
@@ -128,7 +130,10 @@ def test_rows_match_jax_sharded_and_host(ssb, executors, qid):
                       "total_docs"):
             assert getattr(stats, field) == getattr(wstats, field), \
                 (ref, field)
-    assert stats.decisions == {}
+    # none over the batch; where the pruner keeps one segment, the index
+    # rung's decline on it (the segments carry no index)
+    assert stats.decisions == decisions["sharded"]
+    assert not stats.decisions or stats.num_segments_processed == 1
     # the plain version on the CPU is no kernel launch
     assert (stats.scan_launches, stats.probe_launches,
             stats.sharded_scan_launches, stats.sharded_probe_launches) == \
@@ -141,7 +146,9 @@ def test_single_segment_takes_per_segment_path(ssb, executors):
     ex = ShardedQueryExecutor(device="cpu")
     got, stats = ex.execute(t_compile(sql), tsegs[:1])
     assert ex._batches == {} and ex._param_cache == {}
-    assert stats.decisions == {}
+    _, jstats = executors["sharded"].execute(j_compile(sql), jsegs[:1])
+    assert stats.decisions == jstats.decisions == {
+        "index:index_gather->scan:index_missing_index": 1}
     assert stats.num_segments_processed == 1
     want, _ = executors["host"].execute(j_compile(sql), jsegs[:1])
     _assert_rows(got.rows, want.rows, _exact_columns(sql, tsegs[0]), sql)
@@ -260,10 +267,21 @@ def test_repeated_query_binds_once(ssb, monkeypatch):
      "pallas_minmax_not_f32_exact"),
 ])
 def test_declined_batch_plan_raises_not_ported(ssb, sql, reason):
-    _, tsegs = ssb
-    with pytest.raises(NotPortedError) as e:
-        ShardedQueryExecutor(device="cpu").execute(t_compile(sql), tsegs)
-    assert e.value.reason_code == reason
+    """The fused scan's decline over the batch is recorded once and the
+    jnp combine serves: equal to the JAX sharded executor's rows, stats and
+    decisions."""
+    jsegs, tsegs = ssb
+    got, stats = ShardedQueryExecutor(device="cpu").execute(t_compile(sql),
+                                                            tsegs)
+    want, jstats = JSharded(use_pallas=True).execute(j_compile(sql), jsegs)
+    # a distinct count and a max of integer products: exact
+    _assert_rows(got.rows, want.rows, [True], sql)
+    assert stats.decisions == jstats.decisions == {
+        f"pallas:pallas_combine->jnp_combine:{reason}": 1}
+    for field in ("num_docs_scanned", "num_segments_matched",
+                  "num_segments_processed"):
+        assert getattr(stats, field) == getattr(jstats, field), field
+    assert stats.batch_general_launches == 1
 
 
 def test_default_device_raises_without_a_card():
@@ -313,7 +331,11 @@ def test_raw_value_columns_on_the_batch(stats_segs, i):
         _assert_rows(got.rows, want.rows, exact, sql)
         assert stats.num_docs_scanned == wstats.num_docs_scanned
     assert stats.decisions == {} and stats.general_launches == 0
-    with pytest.raises(NotPortedError) as e:
-        ShardedQueryExecutor(device="cpu").execute(t_compile(
-            "SELECT count(*) FROM stats WHERE salary > 100000"), tsegs)
-    assert e.value.reason_code == "pallas_vrange"
+    sql = "SELECT count(*) FROM stats WHERE salary > 100000"
+    got, stats = ShardedQueryExecutor(device="cpu").execute(t_compile(sql),
+                                                            tsegs)
+    want, jstats = JSharded(use_pallas=True).execute(j_compile(sql), jsegs)
+    assert got.rows == want.rows
+    assert stats.decisions == jstats.decisions == {
+        "pallas:pallas_combine->jnp_combine:pallas_vrange": 1}
+    assert stats.num_docs_scanned == jstats.num_docs_scanned

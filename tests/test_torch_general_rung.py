@@ -28,7 +28,6 @@ from pinot_tpu.query import compile_query as j_compile  # noqa: E402
 from pinot_tpu.segment import SegmentBuilder, load_segment  # noqa: E402
 from pinot_tpu.spi import DataType, FieldSpec, FieldType, Schema  # noqa: E402
 from pinot_tpu.tools import ssb as j_ssb  # noqa: E402
-from pinot_tpu_torch.engine.errors import NotPortedError  # noqa: E402
 from pinot_tpu_torch.engine.executor import ServerQueryExecutor  # noqa: E402
 from pinot_tpu_torch.engine.plan import plan_segment as t_plan  # noqa: E402
 from pinot_tpu_torch.query import compile_query as t_compile  # noqa: E402
@@ -139,6 +138,11 @@ def _pallas_decisions(stats):
             if k.startswith("pallas:")}
 
 
+def _index_decisions(stats):
+    return {k: v for k, v in stats.decisions.items()
+            if k.startswith("index:")}
+
+
 def _check(data, executors, key, sql):
     """-> (port stats with the fused scan off, with it on)."""
     jsegs, tsegs = data[key]
@@ -160,6 +164,10 @@ def _check(data, executors, key, sql):
                                       jstats.total_docs), (port, sql)
         assert stats.group_by_rung == jstats.group_by_rung, (port, sql)
         assert stats.num_docs_scanned == jstats.num_docs_scanned, (port, sql)
+        # the index rung's outcome per segment (its declines, on segments
+        # without an index) is JAX's
+        assert _index_decisions(stats) == _index_decisions(jstats), (port,
+                                                                     sql)
         if port == "port_on":
             assert _pallas_decisions(stats) == _pallas_decisions(jstats), sql
         out.append(stats)
@@ -266,8 +274,9 @@ def test_ssb_flights_on_general_rung(data, executors, qid):
     # one rung call per segment the pruner keeps
     assert off.general_launches == off.num_segments_processed
     assert off.scan_launches == 0
-    # the fused scan serves every flight when it is on
-    assert on.general_launches == 0 and not on.decisions
+    # the fused scan serves every flight when it is on (the index rung
+    # declines each segment with JAX's code, held in _check)
+    assert on.general_launches == 0 and not _pallas_decisions(on)
 
 
 def test_gexpr_keys_match_jax(data, executors):
@@ -309,16 +318,25 @@ def test_host_only_plans_still_raise(data, executors):
 
 
 def test_batch_path_still_raises_on_declined_plans(data):
-    """The jnp combine of a segment batch is not ported: the batch path
-    keeps raising with the fused scan's reason code. G4's year keeps one
-    segment, which takes the per-segment path and its general rung, as
-    in the JAX sharded executor."""
+    """A plan the fused scan declines over a segment batch is served by the
+    jnp combine, equal to the JAX sharded executor (use_pallas=True, its
+    jnp combine on the decline): rows, stats and the decline recorded once
+    for the batch. G4's year keeps one segment, which takes the
+    per-segment path and its general rung, as in the JAX sharded
+    executor."""
+    from pinot_tpu.parallel import ShardedQueryExecutor as JSharded
     from pinot_tpu_torch.parallel import ShardedQueryExecutor
 
-    _, tsegs = data["ssb"]
+    jsegs, tsegs = data["ssb"]
     ex = ShardedQueryExecutor(device="cpu")
-    with pytest.raises(NotPortedError) as e:
-        ex.execute(t_compile(t_ssb.DECLINED_QUERIES["G5"]), tsegs)
-    assert e.value.reason_code == "pallas_distinct_agg"
+    sql = t_ssb.DECLINED_QUERIES["G5"]
+    got, stats = ex.execute(t_compile(sql), tsegs)
+    want, jstats = JSharded(use_pallas=True).execute(j_compile(sql), jsegs)
+    _assert_rows(got.rows, want.rows, [True] * len(want.rows[0]), sql)
+    assert stats.decisions == jstats.decisions == {
+        "pallas:pallas_combine->jnp_combine:pallas_distinct_agg": 1}
+    assert (stats.batch_general_launches, stats.general_launches) == (1, 0)
+    assert (stats.num_docs_scanned, stats.num_segments_matched) == (
+        jstats.num_docs_scanned, jstats.num_segments_matched)
     _, stats = ex.execute(t_compile(t_ssb.DECLINED_QUERIES["G4"]), tsegs)
     assert (stats.num_segments_pruned, stats.general_launches) == (1, 1)

@@ -88,17 +88,12 @@ def assert_same_answer(got, want, what):
 
 def check_paths(jsegs, tsegs, sql, paths):
     """``sql`` through each (port executor, JAX executor) pair: -> the
-    port's outcomes. Where the fused scan declines a segment batch the
-    port's batch path raises NotPortedError with its code (the JAX
-    package's jnp combine is not ported)."""
+    port's outcomes (where the fused scan declines a segment batch, both
+    batch paths serve on their jnp combine)."""
     out = {}
     for name, (port, jax_ex) in paths.items():
         got = run(port, t_compile, sql, tsegs)
         out[name] = got
-        if (name == "batch" and got[1] is None
-                and got[0][0] == "NotPortedError"):
-            assert got[0][1].startswith("pallas_"), (sql, got[0])
-            continue
         assert_same_answer(got, run(jax_ex, j_compile, sql, jsegs),
                            f"{name}: {sql}")
     return out
@@ -388,28 +383,31 @@ def test_raw_hll_returns_the_sketch(data, paths):
 
 
 def test_not_ported_only_on_the_batch_fused_declines(data):
-    """NotPortedError is left only where the fused scan declines a segment
-    batch (the jnp combine, ROADMAP item 2); every other shape answers."""
+    """No module of the port raises NotPortedError any more: the batch
+    plans the fused scan declines are served by the jnp combine, equal to
+    the JAX sharded executor (rows, stats, the decline recorded once), as
+    every per-segment path serves them."""
     import pathlib
 
     import pinot_tpu_torch
-    from pinot_tpu_torch.engine.errors import NotPortedError
+    from pinot_tpu.parallel import ShardedQueryExecutor as JSharded
 
-    raised = sorted(
-        str(f.relative_to(pathlib.Path(pinot_tpu_torch.__file__).parent))
-        for f in pathlib.Path(pinot_tpu_torch.__file__).parent.rglob("*.py")
-        if "raise NotPortedError" in f.read_text())
-    assert raised == ["parallel/executor.py"]
-    _, tsegs = data["stats"]
+    root = pathlib.Path(pinot_tpu_torch.__file__).parent
+    assert not [f for f in root.rglob("*.py")
+                if "NotPortedError" in f.read_text()]
+    jsegs, tsegs = data["stats"]
     bex = ShardedQueryExecutor(device="cpu")
     for sql, code in (
             ("SELECT team, distinctcounthll(league) FROM stats "
              "GROUP BY team", "pallas_distinct_agg"),
             ("SELECT count(*) FROM stats WHERE tags = 't1'",
              "pallas_mv_eq")):
-        with pytest.raises(NotPortedError) as e:
-            bex.execute(t_compile(sql), tsegs)
-        assert e.value.reason_code == code
+        got = run(bex, t_compile, sql, tsegs)
+        want = run(JSharded(use_pallas=True), j_compile, sql, jsegs)
+        assert_same_answer(got, want, sql)
+        assert got[1].decisions == want[1].decisions == {
+            f"pallas:pallas_combine->jnp_combine:{code}": 1}
+        assert got[1].batch_general_launches == 1
         for ex in (ServerQueryExecutor(device="cpu"),
                    ServerQueryExecutor(device="cpu", use_fused_scan=False)):
             ex.execute(t_compile(sql), tsegs)

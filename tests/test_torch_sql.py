@@ -47,7 +47,7 @@ from pinot_tpu.spi import (  # noqa: E402
 )
 from pinot_tpu.tools import ssb as j_ssb  # noqa: E402
 from pinot_tpu_torch.engine import fused_scan as tfs  # noqa: E402
-from pinot_tpu_torch.engine.errors import NotPortedError, QueryError  # noqa: E402
+from pinot_tpu_torch.engine.errors import QueryError  # noqa: E402
 from pinot_tpu_torch.engine.executor import ServerQueryExecutor  # noqa: E402
 from pinot_tpu_torch.engine.plan import _FILTER_PARAMS  # noqa: E402
 from pinot_tpu_torch.engine.plan import plan_segment as t_plan  # noqa: E402
@@ -124,18 +124,18 @@ def data(tmp_path_factory):
 
 
 def _batch_check(data, key, sql):
-    """The port's batch path against the JAX sharded executor: rows and
-    the segments pruned, processed and scanned; where the fused scan
-    declines the batch, the port raises NotPortedError with the fused
-    scan's code (JAX takes its jnp combine, not ported)."""
+    """The port's batch path against the JAX sharded executor: rows, the
+    segments pruned, processed and scanned, and the batch's decisions
+    (where the fused scan declines the batch, both record the code and
+    serve on the jnp combine)."""
     jsegs, tsegs = data[key]
     want, jstats = JSharded(use_pallas=True).execute(j_compile(sql), jsegs)
-    try:
-        got, stats = ShardedQueryExecutor(device="cpu").execute(
-            t_compile(sql), tsegs)
-    except NotPortedError as e:
-        assert e.reason_code.startswith("pallas_"), sql
-        return None
+    got, stats = ShardedQueryExecutor(device="cpu").execute(t_compile(sql),
+                                                            tsegs)
+    assert ({k: v for k, v in stats.decisions.items()
+             if k.startswith(("pallas:", "sharded_combine:"))}
+            == {k: v for k, v in jstats.decisions.items()
+                if k.startswith(("pallas:", "sharded_combine:"))}), sql
     _assert_rows(got.rows, want.rows, _exact_columns(sql, tsegs[0]),
                  f"batch: {sql}")
     for f in ("num_segments_processed", "num_segments_pruned",
@@ -213,7 +213,8 @@ def test_patterns_match_jax(data, executors, i):  # noqa: F811
     got_runs = _lut_runs(data, key, sql)
     assert _runs_ok(got_runs, runs), (sql, got_runs)
     _off, on = _check(data, executors, key, sql)
-    codes = {k.rsplit(":", 1)[1] for k in on.decisions}
+    codes = {k.rsplit(":", 1)[1] for k in on.decisions
+             if k.startswith("pallas:")}
     assert codes == ({decline} if decline else set()), sql
     _batch_check(data, key, sql)
 
@@ -452,7 +453,7 @@ def test_bad_patterns_are_query_errors(data, sql):
         j_plan(j_compile(sql), jsegs[0])
     with pytest.raises(QueryError) as e:
         ServerQueryExecutor(device="cpu").execute(t_compile(sql), tsegs)
-    assert not isinstance(e.value, NotPortedError)
+    assert type(e.value) is QueryError
 
 
 @pytest.mark.parametrize("sql", [
@@ -504,3 +505,9 @@ def test_chip_smoke_phase9_on_cpu():
     assert times["paths"]["T3"]["kept_segments"] in (1, 2)
     text = chip_smoke.phase_text(seed=3, reps=1, n=30_000, device="cpu")
     assert text["paths"]["X1"]["decline"] is None
+    # phase 11a: the queries the fused scan declines, over their batches
+    combine = chip_smoke.phase_combine(run["combine_jobs"]
+                                       + times["combine_jobs"], reps=1,
+                                       device="cpu")
+    assert sorted(combine["queries"]) == ["S4", "T1b", "T2", "T3", "T4"]
+    assert combine["queries"]["S4"]["kept_segments"] > 1

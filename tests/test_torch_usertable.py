@@ -2,14 +2,17 @@
 against the JAX package: the query mix U1-U7 of
 ``pinot_tpu_torch/tools/usertable.py`` on 4 user segments of 20 k rows
 built by the JAX package and carried across; the port's own generator
-(dtypes, MV counts, ``tail_users``); and the batch path, where U2 is one
-launch and the plans the fused scan declines raise NotPortedError.
+(dtypes, MV counts, ``tail_users``); the batch path, where U2 is one
+launch of the fused scan and the plans it declines one call of the jnp
+combine; and chip_smoke's phases 8, 8b, 11a and 11b at a small size.
 
-The JAX side runs with ``OPTION(useIndexRung=false)``: it would serve the
-point filters on its index rung, which the port does not have yet, and
-the scan rungs are what the port is held to (rows, rung per segment,
-decline codes). Tolerance: counts, integer sums, min/max and keys exact;
-float cells (avg) rel 1e-5, abs 1e-6.
+The JAX segments carry the table's indexes and the carried port segments
+do not (``tests/test_torch_index_rung.py`` holds the index rung on
+segments that carry them), so the JAX side runs with
+``OPTION(useIndexRung=false)``: the scan rungs are what the port is held
+to here (rows, rung per segment, decline codes). Tolerance: counts,
+integer sums, min/max and keys exact; float cells (avg) rel 1e-5, abs
+1e-6.
 """
 
 import numpy as np
@@ -22,7 +25,6 @@ ensure_x64()
 from pinot_tpu.engine import ServerQueryExecutor as JaxExecutor  # noqa: E402
 from pinot_tpu.query import compile_query as j_compile  # noqa: E402
 from pinot_tpu.tools import usertable as j_user  # noqa: E402
-from pinot_tpu_torch.engine.errors import NotPortedError  # noqa: E402
 from pinot_tpu_torch.engine.executor import ServerQueryExecutor  # noqa: E402
 from pinot_tpu_torch.parallel import ShardedQueryExecutor  # noqa: E402
 from pinot_tpu_torch.query import compile_query as t_compile  # noqa: E402
@@ -77,7 +79,8 @@ def test_query_mix_matches_jax(users, executors, qid):
     for port, ref in (("port_on", "pallas"), ("port_off", "jnp")):
         want, jstats = executors[ref].execute(j_compile(sql + NO_INDEX),
                                               jsegs)
-        got, stats = executors[port].execute(t_compile(sql), tsegs)
+        got, stats = executors[port].execute(t_compile(sql + NO_INDEX),
+                                             tsegs)
         assert got.schema.column_names == want.schema.column_names
         _assert_rows(got.rows, want.rows, _exact(want), f"{port}: {sql}")
         assert stats.num_docs_scanned == jstats.num_docs_scanned, port
@@ -100,8 +103,11 @@ def test_query_mix_matches_jax(users, executors, qid):
 
 def test_u2_raw_metric_through_the_batch(users):
     """U2's raw latency_ms rides the fused scan over the whole batch in one
-    scan; the plans the fused scan declines raise on the batch path (the
-    JAX jnp combine is not ported)."""
+    scan; the plans the fused scan declines are one call of the jnp
+    combine over the batch, equal to the JAX sharded executor's (its jnp
+    combine): rows, docs scanned and the decline recorded once."""
+    from pinot_tpu.parallel import ShardedQueryExecutor as JSharded
+
     jsegs, tsegs, sqls = users
     ex = ShardedQueryExecutor(device="cpu")
     got, stats = ex.execute(t_compile(sqls["U2"]), tsegs)
@@ -111,10 +117,20 @@ def test_u2_raw_metric_through_the_batch(users):
                  same_types=False)
     assert not stats.decisions and stats.general_launches == 0
     assert stats.num_segments_processed == SEGS
+    jex = JSharded(use_pallas=True)
     for qid in ("U3", "U4", "U5", "U6", "U7"):
-        with pytest.raises(NotPortedError) as e:
-            ex.execute(t_compile(sqls[qid]), tsegs)
-        assert e.value.reason_code == EXPECT[qid], qid
+        sql = sqls[qid] + NO_INDEX
+        got, stats = ex.execute(t_compile(sql), tsegs)
+        want, jstats = jex.execute(j_compile(sql), jsegs)
+        _assert_rows(got.rows, want.rows, _exact(want), f"{qid} batch")
+        assert stats.decisions == jstats.decisions == {
+            f"pallas:pallas_combine->jnp_combine:{EXPECT[qid]}": 1}, qid
+        assert (stats.num_docs_scanned, stats.num_segments_matched,
+                stats.group_by_rung) == (jstats.num_docs_scanned,
+                                         jstats.num_segments_matched,
+                                         jstats.group_by_rung), qid
+        assert (stats.batch_general_launches, stats.general_launches) == \
+            (1, 0), qid
 
 
 def test_generator_shapes_and_tail_users():
@@ -163,14 +179,26 @@ def test_numpy_oracle_matches_the_port():
 
 
 def test_smoke_user_phases_on_the_cpu():
-    """chip_smoke.py's phase 8 and 8b at a small size on the CPU: every
-    oracle check, decline code and rung per segment as on the card (launch
-    counts are read only on the card)."""
+    """chip_smoke.py's phase 8 and 8b, and phase 11 on phase 8's table, at
+    a small size on the CPU: every oracle check, decline code and rung per
+    segment as on the card (launch counts are read only on the card);
+    11a U3-U7 over the batch on the jnp combine, equal to the per-segment
+    rows, and 11b I1-I5 on the index rung of every segment, equal to the
+    scan rungs."""
     import chip_smoke
 
     run = chip_smoke.phase_users(seed=3, reps=1, segments=2,
                                  rows_per_segment=15_000, device="cpu")
     assert set(run["per_query"]) == set(EXPECT)
     assert {q: p["decline"] for q, p in run["paths"].items()} == EXPECT
+    combine = chip_smoke.phase_combine(run["combine_jobs"], reps=1,
+                                       device="cpu")
+    assert {q: r["decline"] for q, r in combine["queries"].items()} == {
+        q: c for q, c in EXPECT.items() if c}
+    assert {q: r["kept_segments"] for q, r in combine["queries"].items()} \
+        == dict.fromkeys(("U3", "U4", "U5", "U6", "U7"), 2)
+    index = chip_smoke.phase_index(run, reps=1, device="cpu")
+    assert {q: r["kept_segments"] for q, r in index["queries"].items()} == \
+        dict.fromkeys(("I1", "I2", "I3", "I4", "I5"), 2)
     cols = chip_smoke.phase_columns(seed=3, reps=1, n=30_000, device="cpu")
     assert set(cols["per_query"]) == {"N1", "N2", "M1", "V1"}
