@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--seed 42] [--reps 5]
                           [--user-segments 8] [--user-rows 2500000]
+                          [--startree-sf 2] [--startree-only]
                           [--out-dir DIR]
 
 Phases:
@@ -93,10 +94,25 @@ Phases:
      executor on the index rung of every kept segment, equal to the oracle
      and to the scan rungs (OPTION(useIndexRung=false)), timed, with one
      gather call's device time and CUDA kernels beside its byte bound;
-The tables of phases 4-10 carry no index: on them the index rung declines
-each filtered aggregation's segments on the per-segment path
-(``index_missing_index`` and the other JAX codes), which every phase
-asserts beside its other decisions.
+ 12. the star-tree: SSB at ``--startree-sf`` in ``--segments`` segments
+     with tools/ssb.py ``ssb_indexing_config()``'s five trees (built in a
+     process pool): (12a) the 13 flights per segment and through
+     ShardedQueryExecutor, every kept segment on the star-tree device rung
+     from the JAX executor's tree (``FLIGHT_TREE``), one node-slice call
+     per kept segment where the oracle matches rows and no other launch,
+     rows equal to the oracle and to the scan rungs
+     (``OPTION(useStarTree=false)``), timed beside them, the node-slice
+     call of the segment with the most records timed beside its byte
+     bound with the walk's host ms; (12b) ST1 on the host walker (a group
+     space past the device's; its walks' host ms), ST2-ST4 declined with
+     the JAX package's codes, ST5 opted out, on the scan rungs, equal to
+     the oracle; build seconds, records and node bytes per tree.
+     ``--startree-only`` runs phases 1 and 12 alone, and prints no
+     kernels line.
+The tables of phases 4-11 carry no star-tree and those of phases 4-10 no
+index: on them the index rung declines each filtered aggregation's
+segments on the per-segment path (``index_missing_index`` and the other
+JAX codes), which every phase asserts beside its other decisions.
 Then a "rungs" line of the segments each rung served and the declines and
 paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
 kernel alone, "launches" those of phases 4, 6, 8 and 9; the top-k, the
@@ -112,6 +128,7 @@ exits non-zero without it. Needs one CUDA card; exits 2 without one.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -2328,34 +2345,302 @@ def phase_index(users: dict, reps: int, device: str = "cuda",
     return {"queries": out, "launches": launches}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sf", type=float, default=10)
-    ap.add_argument("--segments", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--user-segments", type=int, default=8)
-    ap.add_argument("--user-rows", type=int, default=2_500_000,
-                    help="rows per user-events segment")
-    ap.add_argument("--out-dir", default=None,
-                    help="also write the full report as chip_smoke.json here")
-    args = ap.parse_args(argv)
+# -- phase 12: the star-tree -----------------------------------------------------
 
+# the tree the JAX executor serves each flight from on SSB with
+# ssb_indexing_config()'s trees (BENCH_r06.json's startree_tree_index; held
+# to the JAX executor on the same segments in tests/test_torch_startree.py)
+FLIGHT_TREE = {"Q1.1": 1, "Q1.2": 1, "Q1.3": 1, "Q2.1": 0, "Q2.2": 0,
+               "Q2.3": 0, "Q3.1": 2, "Q3.2": 2, "Q3.3": 2, "Q3.4": 2,
+               "Q4.1": 3, "Q4.2": 3, "Q4.3": 4}
+_TREE_SERVED = "startree:scan->startree_device:tree{}"
+_TREE_DECLINED = "startree:startree->scan:{}"
+_TREE_WALKER = ("startree:startree_device->startree_host:"
+                "startree_group_space_over_limit")
+
+
+def _startree_keys(stats) -> dict:
+    return {k: v for k, v in stats.decisions.items()
+            if k.startswith("startree:")}
+
+
+def _walks(ctx, kept) -> list:
+    """Per kept segment: (records its walk selects, segment, pick,
+    matches, the walk's host ms, the indices)."""
+    from pinot_tpu_torch.engine import startree_exec
+    from pinot_tpu_torch.engine.aggregates import resolve_agg
+
+    aggs = [resolve_agg(f) for f in ctx.aggregations]
+    group_cols = [e.name for e in ctx.group_by]
+    out = []
+    for seg in kept:
+        pick = startree_exec.pick_star_tree(ctx, aggs, seg)
+        matches = startree_exec.resolve_matches(seg, pick.preds)
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            idx = pick.tree.select_records(matches, group_cols)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out.append((int(idx.size), seg, pick, matches,
+                    float(np.median(ms)), idx))
+    return out
+
+
+def _node_slice_call(ex, ctx, walk) -> dict:
+    """One node-slice call at its path's shape: time (CUDA events), device
+    time and CUDA kernels (torch.profiler), and its byte bound (the
+    gathered rows of every node column it reads, the indices, the packed
+    output, once, at 3.35 TB/s)."""
+    from pinot_tpu_torch.engine.kernels import output_layout
+    from pinot_tpu_torch.engine.plan import plan_star_tree
+    from pinot_tpu_torch.engine.startree_device import (
+        build_startree_kernel,
+        node_slice_inputs,
+    )
+
+    n, seg, pick, matches, walk_ms, idx = walk
+    plan = plan_star_tree(ctx, seg, pick.tree, matches, n)
+    cols, idx_dev, params = node_slice_inputs(ex, plan, seg, pick.index, idx)
+    kernel = ex.kernels.get(plan.spec, build_startree_kernel)
+
+    def call():
+        return kernel(cols, idx_dev, params, n).cpu()
+
+    row = {"segment": seg.segment_name, "records": n, "walk_ms": walk_ms,
+           "call_ms": _time_ms(call, 20)}
+    row["device_ms"], row["cuda_kernels"] = _profile_calls(call, 10)
+    row["bytes"] = (n * sum(t.element_size() for tree in cols.values()
+                            for t in tree.values())
+                    + 4 * n + 8 * sum(sz for _, sz
+                                      in output_layout(plan.spec, 0)))
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    return row
+
+
+def phase_startree(sf: float, segments: int, seed: int, reps: int,
+                   device: str = "cuda", card: str = "") -> dict:
+    """12: SSB at ``sf`` in ``segments`` segments with
+    ``ssb.ssb_indexing_config()``'s five trees (built in a process pool,
+    one worker per segment up to the host's cores).
+    (12a) the 13 flights per segment (ServerQueryExecutor) and through
+    ShardedQueryExecutor: every kept segment served by the star-tree
+    device rung from the JAX executor's tree (``FLIGHT_TREE``), one
+    node-slice call per kept segment where the oracle matches rows, no
+    fused, general, combine or index launch; rows equal to the numpy oracle and
+    to the scan rungs (``OPTION(useStarTree=false)``); ``reps`` timed runs
+    of all three; on the card, the node-slice call of the kept segment
+    with the most selected records timed beside its byte bound, with the
+    walk's host ms. (12b) ST1-ST5 of ``ssb.STARTREE_QUERIES``: the host
+    walker past the device's group space, three declines with the JAX
+    package's codes and the opt-out, on the scan rungs, equal to the
+    oracle. Build seconds, records and node bytes per tree."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run "
-              "needs a CUDA card", file=sys.stderr)
-        return 2
-    from pinot_tpu_torch.engine import _build
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import ssb
 
-    t_all = time.perf_counter()
-    log("phase 1: card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    segs, frames = ssb.build_segments(sf, num_segments=segments, seed=seed,
+                                      star_tree=True)
+    build_s = time.perf_counter() - t0
+    rows = sum(s.num_docs for s in segs)
+    trees = {}
+    for ti in range(len(segs[0].star_trees)):
+        ts = [s.star_trees[ti] for s in segs]
+        trees[f"tree{ti}"] = {
+            "dims": len(ts[0].config.dimensions_split_order),
+            "build_s": sum(s.metadata.star_tree_build_s[ti] for s in segs),
+            "build_s_max": max(s.metadata.star_tree_build_s[ti]
+                               for s in segs),
+            "records": sum(t.num_records for t in ts),
+            "node_bytes": sum(t.nbytes() for t in ts)}
+    import resource
+
+    log(f"  SSB SF{sf}: {rows} rows in {len(segs)} segments with 5 trees "
+        f"each, {build_s:.1f} s (trees built in a process pool); this "
+        f"process's peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} KiB")
+    for name, t in trees.items():
+        log(f"  {name}: {t['dims']} dims, {t['records']} records, "
+            f"{t['node_bytes']} node bytes, build {t['build_s']:.2f} s "
+            f"summed over segments (max {t['build_s_max']:.2f} s)")
+
+    t0 = time.perf_counter()
+    texts = {**{q: s + " LIMIT 100000" for q, s in ssb.QUERIES.items()},
+             **ssb.STARTREE_QUERIES}
+    ctxs = {qid: compile_query(t) for qid, t in texts.items()}
+    parts = {qid: [ssb.numpy_answer(f, qid) for f in frames]
+             for qid in texts}
+    wants = {qid: ssb.merge_answers(p) for qid, p in parts.items()}
+    kept_segs = _kept_segments(ctxs, segs, frames, parts)
+    del frames
+    log(f"  numpy oracle of {len(texts)} queries: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    ex = ServerQueryExecutor(device=device)
+    bex = ShardedQueryExecutor(device=device)
+    on_card = ex.device.type == "cuda"
+    flights = {}
+    for qid in ssb.QUERIES:
+        ctx, kept = ctxs[qid], kept_segs[qid]
+        k, ti = len(kept), FLIGHT_TREE[qid]
+        scan_ctx = compile_query(texts[qid] + " OPTION(useStarTree=false)")
+        walks = _walks(ctx, kept)
+        # one node slice per kept segment whose frame the oracle matches
+        # rows in (a Q1 partial is a sum of positive products: each Q1
+        # filter holds lo_discount >= 1)
+        names = {s.segment_name for s in kept}
+        launched = sum(1 for s, p in zip(segs, parts[qid])
+                       if s.segment_name in names and p not in (0, {}))
+        scan_rows = None
+
+        def check(table, stats, qid=qid, ctx=ctx, k=k, ti=ti,
+                  launched=launched):
+            _check_flight(qid, table, wants[qid])
+            other = (stats.scan_launches + stats.probe_launches
+                     + stats.sharded_scan_launches
+                     + stats.sharded_probe_launches + stats.general_launches
+                     + stats.batch_general_launches + stats.index_launches)
+            if (stats.decisions != {_TREE_SERVED.format(ti): k}
+                    or stats.startree_tree_index != ti
+                    or stats.startree_launches != launched or other
+                    or (ctx.group_by
+                        and stats.group_by_rung != "startree_device")):
+                raise AssertionError(
+                    f"12a {qid}: {stats.decisions}, tree "
+                    f"{stats.startree_tree_index}, "
+                    f"{stats.startree_launches} node slices (want "
+                    f"{launched}), {other} other launches, rung "
+                    f"{stats.group_by_rung}")
+
+        def scan_check(table, stats, qid=qid):
+            nonlocal scan_rows
+            _check_flight(qid, table, wants[qid])
+            scan_rows = sorted(map(tuple, table.rows))
+            if _startree_keys(stats) or stats.startree_launches:
+                raise AssertionError(f"12a {qid} opted out: "
+                                     f"{stats.decisions}")
+
+        for e in (ex, bex):     # untimed: stages the node columns
+            check(*e.execute(ctx, segs))
+        scan_check(*ex.execute(scan_ctx, segs))
+        lat = {"startree": _timed(ex, ctx, segs, reps, check),
+               "batch_executor": _timed(bex, ctx, segs, reps, check),
+               "scan": _timed(ex, scan_ctx, segs, reps, scan_check)}
+        table, _ = ex.execute(ctx, segs)
+        if sorted(map(tuple, table.rows)) != scan_rows:
+            raise AssertionError(f"12a {qid}: rows differ from the scan "
+                                 "rungs'")
+        row = {"tree": ti, "kept_segments": k, "node_slices": launched,
+               "records": sum(w[0] for w in walks),
+               "walk_ms_total": sum(w[4] for w in walks),
+               **{f"{p}_p50_ms": float(np.percentile(v, 50))
+                  for p, v in lat.items()},
+               **{f"{p}_p99_ms": float(np.percentile(v, 99))
+                  for p, v in lat.items()}}
+        most = max(walks, key=lambda w: w[0])
+        if on_card and most[0]:
+            row["call"] = _node_slice_call(ex, ctx, most)
+        flights[qid] = row
+        c = row.get("call")
+        log(f"  12a {qid}: tree {ti} on all {k} kept segments "
+            f"({launched} node slices, {row['records']} records), "
+            f"== numpy oracle == scan rungs; p50/p99 "
+            f"{row['startree_p50_ms']:.3f}/{row['startree_p99_ms']:.3f} ms "
+            f"per segment, {row['batch_executor_p50_ms']:.3f}/"
+            f"{row['batch_executor_p99_ms']:.3f} ms batch executor, scan "
+            f"rungs {row['scan_p50_ms']:.3f}/{row['scan_p99_ms']:.3f} ms; "
+            f"walks {row['walk_ms_total']:.3f} ms host"
+            + (f"; call on {c['segment']} ({c['records']} records, walk "
+               f"{c['walk_ms']:.3f} ms): {c['call_ms']:.4f} ms/call (CUDA "
+               f"events), device {c['device_ms']} ms in "
+               f"{c['cuda_kernels']} CUDA kernels/call (torch.profiler), "
+               f"bound {c['bound_ms']:.3g} ms ({c['bytes']} B); {card}"
+               if c else ""))
+
+    routes = {}
+    for qid, route in ssb.STARTREE_ROUTE.items():
+        ctx, k = ctxs[qid], len(kept_segs[qid])
+        if route == "walker":
+            tree = FLIGHT_TREE["Q4.3"]
+            expect = {_TREE_WALKER: k,
+                      f"startree:scan->startree:tree{tree}": k}
+        else:
+            expect = {_TREE_DECLINED.format(route): k} if route else {}
+
+        def check(table, stats, qid=qid, expect=expect, route=route):
+            _check_flight(qid, table, wants[qid])
+            if _startree_keys(stats) != expect or stats.startree_launches:
+                raise AssertionError(f"12b {qid}: {stats.decisions}, "
+                                     f"{stats.startree_launches} slices")
+            if route == "walker" and stats.group_by_rung != "startree":
+                raise AssertionError(f"12b {qid}: rung "
+                                     f"{stats.group_by_rung}")
+
+        def batch_check(table, stats, qid=qid, expect=expect, route=route,
+                        k=k):
+            # the batch path records no star-tree decline: a fit leaves
+            # the batch (the walker's query), as does one kept segment
+            _check_flight(qid, table, wants[qid])
+            if _startree_keys(stats) != (expect if route == "walker"
+                                         or k < 2 else {}):
+                raise AssertionError(f"12b {qid} batch: {stats.decisions}")
+
+        check(*ex.execute(ctx, segs))
+        batch_check(*bex.execute(ctx, segs))
+        n = min(reps, 3)
+        lat = {"per_segment": _timed(ex, ctx, segs, n, check),
+               "batch_executor": _timed(bex, ctx, segs, n, batch_check)}
+        routes[qid] = {"route": route or "opted_out", "kept_segments": k,
+                       **{f"{p}_p50_ms": float(np.percentile(v, 50))
+                          for p, v in lat.items()}}
+        walked = ""
+        if route == "walker":   # the walker's share: the walk alone
+            walks = _walks(ctx, kept_segs[qid])
+            routes[qid]["records"] = sum(w[0] for w in walks)
+            routes[qid]["walk_ms_total"] = sum(w[4] for w in walks)
+            walked = (f"; walks {routes[qid]['walk_ms_total']:.3f} ms host "
+                      f"for {routes[qid]['records']} records")
+        log(f"  12b {qid}: {route or 'useStarTree=false'} on {k} kept "
+            f"segments ({expect or 'no star-tree decision'}), == numpy "
+            f"oracle; p50 {routes[qid]['per_segment_p50_ms']:.3f} ms per "
+            f"segment, {routes[qid]['batch_executor_p50_ms']:.3f} ms batch "
+            f"executor" + walked)
+    staged = sum(sum(ex.stage(s).startree_nbytes().values()) for s in segs)
+    log(f"  node columns staged: {staged} bytes"
+        + (f"; torch.cuda.max_memory_allocated "
+           f"{torch.cuda.max_memory_allocated()} bytes" if on_card else ""))
+    return {"sf": sf, "rows": rows, "build_s": build_s, "trees": trees,
+            "flights": flights, "routes": routes, "staged_bytes": staged}
+
+
+# phase 12's default SSB scale: its tree build and queries within about
+# 150 s on the card's host (PERF.md section 4)
+STARTREE_SF = 2
+
+
+def _phase_12(args, card: str) -> dict:
+    import torch
+
+    log("phase 12: the star-tree (SSB with ssb_indexing_config()'s five "
+        f"trees at SF{args.startree_sf})")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run = phase_startree(args.startree_sf, args.segments, args.seed,
+                         args.reps, card=card)
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+    return run
+
+
+def _phases_2_to_11(args, smi: str) -> tuple:
+    """Phases 2-11: the fused-scan kernel and every earlier path. ->
+    (their report, the kernels line's rows, their part of the rungs
+    line)."""
+    import torch
+
+    from pinot_tpu_torch.engine import _build
 
     log("phase 2: build")
     t0 = time.perf_counter()
@@ -2439,16 +2724,7 @@ def main(argv=None) -> int:
     index_run = phase_index(users_run, args.reps, card=smi)
     del users_run["segs"], users_run["frames"]
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
-    log("rungs " + json.dumps({
-        "flights_fused_off": general_run["rungs"],
-        "declined": {g: d["rung_segments"]
-                     for g, d in general_run["declined"].items()},
-        "user_events": users_run["paths"], "columns": columns_run["paths"],
-        "sql": sql_run["paths"], "time": time_run["paths"],
-        "text": text_run["paths"], "host": host_run["paths"],
-        "combine": {q: r["rung"] for q, r in combine_run["queries"].items()},
-        "index": {q: r["kept_segments"]
-                  for q, r in index_run["queries"].items()}}))
+
     # each path's launches, read after its own run: phases 4 and 6 (per
     # segment and batch), 8 (per segment and batch) and 9
     launches = {k: 0 for k in main_run["launches"]}
@@ -2480,32 +2756,88 @@ def main(argv=None) -> int:
             "plain_ms": float(np.mean([r["plain_ms"] for r in rs])),
             "bound_ms": float(np.mean([r["bound_ms"] for r in rs])),
             "bound_by": "bytes", "library_ms": None})
+    report = {"ptxas": ptxas, "per_flight": main_run["per_flight"],
+              "batch_per_flight": batch_run["per_flight"],
+              "batch_per_flight_by_flight":
+                  batch_run["per_flight_by_flight"],
+              "batch_resident_bytes": batch_run["resident_bytes"],
+              "batch_max_memory_allocated":
+                  batch_run["max_memory_allocated"],
+              "batch_bytes": batch_run["batch_bytes"],
+              "batch_setup_ms": batch_run["setup_ms"],
+              "q43_combine": batch_run["q43_combine"],
+              "kernel_timing": timing, "kernels": kernels,
+              "general": general_run,
+              "user_events": users_run, "columns": columns_run,
+              "sql": {k: v for k, v in sql_run.items() if k != "timing"},
+              "time": time_run, "text": text_run,
+              "host": host_run, "combine": combine_run,
+              "index": index_run}
+    rungs = {
+        "flights_fused_off": general_run["rungs"],
+        "declined": {g: d["rung_segments"]
+                     for g, d in general_run["declined"].items()},
+        "user_events": users_run["paths"], "columns": columns_run["paths"],
+        "sql": sql_run["paths"], "time": time_run["paths"],
+        "text": text_run["paths"], "host": host_run["paths"],
+        "combine": {q: r["rung"] for q, r in combine_run["queries"].items()},
+        "index": {q: r["kept_segments"]
+                  for q, r in index_run["queries"].items()}}
+    return report, kernels, rungs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sf", type=float, default=10)
+    ap.add_argument("--segments", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--user-segments", type=int, default=8)
+    ap.add_argument("--user-rows", type=int, default=2_500_000,
+                    help="rows per user-events segment")
+    ap.add_argument("--startree-sf", type=float, default=STARTREE_SF,
+                    help="SSB scale of phase 12 (the star-tree)")
+    ap.add_argument("--startree-only", action="store_true",
+                    help="run phases 1 and 12 only")
+    ap.add_argument("--out-dir", default=None,
+                    help="also write the full report as chip_smoke.json here")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    t_all = time.perf_counter()
+    log("phase 1: card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}")
+    report, kernels, rungs = {"card": smi, "args": vars(args)}, None, {}
+    if not args.startree_only:
+        got, kernels, rungs = _phases_2_to_11(args, smi)
+        report.update(got)
+        del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["startree"] = run = _phase_12(args, smi)
+    rungs["startree"] = {
+        **{q: f"tree{r['tree']}:{r['node_slices']}"
+           for q, r in run["flights"].items()},
+        **{q: r["route"] for q, r in run["routes"].items()}}
+    log("rungs " + json.dumps(rungs))
+    report["seconds"] = time.perf_counter() - t_all
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
-            json.dump({"card": smi, "args": vars(args), "ptxas": ptxas,
-                       "per_flight": main_run["per_flight"],
-                       "batch_per_flight": batch_run["per_flight"],
-                       "batch_per_flight_by_flight":
-                           batch_run["per_flight_by_flight"],
-                       "batch_resident_bytes": batch_run["resident_bytes"],
-                       "batch_max_memory_allocated":
-                           batch_run["max_memory_allocated"],
-                       "batch_bytes": batch_run["batch_bytes"],
-                       "batch_setup_ms": batch_run["setup_ms"],
-                       "q43_combine": batch_run["q43_combine"],
-                       "kernel_timing": timing, "kernels": kernels,
-                       "general": general_run,
-                       "user_events": users_run, "columns": columns_run,
-                       "sql": {k: v for k, v in sql_run.items()
-                               if k != "timing"},
-                       "time": time_run, "text": text_run,
-                       "host": host_run, "combine": combine_run,
-                       "index": index_run,
-                       "seconds": time.perf_counter() - t_all}, f, indent=1)
+            json.dump(report, f, indent=1)
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    if kernels is not None:     # phases 2-11 held them
+        print(json.dumps({"kernels": kernels}))
     # the run used one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,9 @@ class UnsupportedQueryError(QueryError):
 
 
 _DECLINE_RULES: Tuple[Tuple[str, str], ...] = (
+    # the star-tree node plan's (engine/plan.py plan_star_tree)
+    ("star-tree group key space", "startree_group_space_over_limit"),
+    ("no pre-agg pairs", "startree_no_preagg_pair"),
     ("group key space", "group_space_over_limit"),
     ("not device-supported", "agg_not_device_supported"),
     ("DISTINCTCOUNTHLL argument", "hll_arg_not_column"),

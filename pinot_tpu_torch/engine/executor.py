@@ -15,9 +15,18 @@ is kept). Then, routed as the JAX executor routes it (:462-466, :681-694):
   the code ``selection_not_device_eligible``; an unordered selection goes
   to the host engine, with no decision;
 - an aggregation or group-by, per segment: a filter-less COUNT(*) / MIN /
-  MAX / MINMAXRANGE is answered from the segment's metadata; a selective
-  AND-ed filter the segment's indexes resolve is served by the index
-  rung's docId gather (``engine/index_exec.py``, JAX :660-667 and
+  MAX / MINMAXRANGE is answered from the segment's metadata; a query one
+  of the segment's star-trees fits is served from the cheapest such
+  tree's pre-aggregated records (JAX ``_try_star_tree`` :748-799): its
+  node slice on the device (``engine/startree_device.py``), recorded as
+  ``startree:scan->startree_device:tree<i>``, or, where the node plan
+  raises ``PlanError``, the host walker (``engine/startree_exec.py``),
+  recorded as ``startree:startree_device->startree_host:<code>`` and
+  ``startree:scan->startree:tree<i>``; a segment with trees none of which
+  fits records ``startree:startree->scan:<code>``, and
+  ``OPTION(useStarTree=false)`` opts out with no decision; then a
+  selective AND-ed filter the segment's indexes resolve is served by the
+  index rung's docId gather (``engine/index_exec.py``, JAX :660-667 and
   :875-882), with its outcome recorded under the ``index`` point;
   otherwise plan -> the fused scan (probe first when the group space
   exceeds MAX_SCAN_GROUPS); a plan it declines, with the decline recorded
@@ -49,7 +58,14 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.device import resolve_device
-from pinot_tpu_torch.engine import fused_scan, host_engine, index_exec, kernels
+from pinot_tpu_torch.engine import (
+    fused_scan,
+    host_engine,
+    index_exec,
+    kernels,
+    startree_device,
+    startree_exec,
+)
 from pinot_tpu_torch.engine.aggregates import (
     AggDef,
     agg_value_expr,
@@ -125,11 +141,14 @@ class ServerQueryExecutor:
         probes0 = fused_scan.PROBE_COUNTER.launches
         general0 = kernels.RUNG_COUNTER.launches
         index0 = index_exec.INDEX_COUNTER.launches
+        startree0 = startree_device.STARTREE_COUNTER.launches
         table = self._execute_pruned(ctx, segments, stats)
         stats.scan_launches = fused_scan.SCAN_COUNTER.launches - scans0
         stats.probe_launches = fused_scan.PROBE_COUNTER.launches - probes0
         stats.general_launches = kernels.RUNG_COUNTER.launches - general0
         stats.index_launches = index_exec.INDEX_COUNTER.launches - index0
+        stats.startree_launches = (startree_device.STARTREE_COUNTER.launches
+                                   - startree0)
         return table, stats
 
     def _execute_pruned(self, ctx: QueryContext,
@@ -197,6 +216,9 @@ class ServerQueryExecutor:
     def _segment_aggregation(self, ctx: QueryContext, aggs: List[AggDef],
                              seg: ImmutableSegment,
                              stats: QueryStats) -> AggResult:
+        st = self._try_star_tree(ctx, aggs, seg, stats)
+        if st is not None:
+            return st[0]
         part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
                                          grouped=False)
         if part is not None:
@@ -220,6 +242,10 @@ class ServerQueryExecutor:
     def _segment_group_by(self, ctx: QueryContext, aggs: List[AggDef],
                           seg: ImmutableSegment,
                           stats: QueryStats) -> GroupByResult:
+        st = self._try_star_tree(ctx, aggs, seg, stats)
+        if st is not None:
+            stats.record_rung(st[1])
+            return st[0]
         part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
                                          grouped=True)
         if part is not None:
@@ -235,6 +261,50 @@ class ServerQueryExecutor:
                             e.reason_code)
         stats.record_rung("host")
         return host_engine.host_group_by_segment(ctx, aggs, seg, stats)
+
+    def _star_tree_pick(self, ctx: QueryContext, aggs: List[AggDef],
+                        seg: ImmutableSegment, on_decline=None
+                        ) -> Optional[startree_exec.StarTreePick]:
+        """The cheapest fitting tree of the segment, or None; also None,
+        with no decline, under ``OPTION(useStarTree=false)`` (JAX
+        :696-708)."""
+        if str(ctx.options.get("useStarTree", "true")).lower() == "false":
+            return None
+        return startree_exec.pick_star_tree(ctx, aggs, seg,
+                                            on_decline=on_decline)
+
+    def _try_star_tree(self, ctx: QueryContext, aggs: List[AggDef],
+                       seg: ImmutableSegment, stats: QueryStats
+                       ) -> Optional[Tuple[Any, str]]:
+        """(result, rung) from the segment's star-tree: rung
+        ``startree_device`` for the node slice on the device, ``startree``
+        for the host walker; or None, the scan rungs serving (no tree
+        fits, or a predicate that does not translate)."""
+        def declined(reason: str) -> None:
+            record_decision(stats, "startree", "scan", "startree", reason)
+
+        pick = self._star_tree_pick(ctx, aggs, seg, on_decline=declined)
+        if pick is None:
+            return None
+        tree, tree_index, preds = pick
+        matches = startree_exec.resolve_matches(seg, preds,
+                                                on_decline=declined)
+        if matches is None:
+            return None
+        try:
+            res = startree_device.execute_star_tree_device(
+                self, ctx, aggs, seg, tree, matches, stats, tree_index)
+            rung = "startree_device"
+        except PlanError as e:
+            # the node plan is past the device's limits
+            record_decision(stats, "startree", "startree_host",
+                            "startree_device", e.reason_code)
+            res = startree_exec.execute_with_matches(ctx, aggs, seg, tree,
+                                                     matches, stats)
+            rung = "startree"
+        record_decision(stats, "startree", rung, "scan", f"tree{tree_index}")
+        stats.startree_tree_index = tree_index
+        return res, rung
 
     def _plan_for(self, ctx: QueryContext, seg: ImmutableSegment
                   ) -> SegmentPlan:

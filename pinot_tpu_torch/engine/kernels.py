@@ -668,16 +668,18 @@ def build_kernel(spec: Tuple) -> Callable:
 
 class KernelCache:
     """spec -> the rung's function for that spec (the plan cache's
-    kernels)."""
+    kernels); ``build`` names another builder over the same specs (the
+    star-tree rung's), cached apart from the general rung's."""
 
     def __init__(self):
         self._cache: Dict[Tuple, Callable] = {}
 
-    def get(self, spec: Tuple) -> Callable:
-        k = self._cache.get(spec)
+    def get(self, spec: Tuple, build: Callable = None) -> Callable:
+        key = spec if build is None else (build.__name__, spec)
+        k = self._cache.get(key)
         if k is None:
-            k = build_kernel(spec)
-            self._cache[spec] = k
+            k = (build or build_kernel)(spec)
+            self._cache[key] = k
         return k
 
     def __len__(self) -> int:

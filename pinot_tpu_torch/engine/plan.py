@@ -749,3 +749,124 @@ def _compile_value(e: Expr, segment: ImmutableSegment, params: List[Any],
                      for a in e.args)
         return ("fn", e.name, args)
     raise PlanError(f"cannot compile value expression {e}")
+
+
+# --------------------------------------------------------------------------
+# the star-tree node plan (JAX plan.py:150-280): a kernel spec over the
+# gathered records of one tree
+# --------------------------------------------------------------------------
+
+def startree_dim_key(col: str) -> str:
+    """The staged node column of a split dimension's dictIds
+    (``StagedSegment.startree_nodes``), never a forward index."""
+    return f"stdim:{col}"
+
+
+def startree_metric_key(fn: str, col: str) -> str:
+    """The staged node column of a function-column pair."""
+    return f"stmetric:{fn}__{col}"
+
+
+@dataclass
+class StarTreePlan:
+    """A general-rung spec over a tree's gathered records: the filter is
+    ``("true",)`` (the walk selected the records), the capacity the
+    selected count's power-of-two pad. ``agg_map`` says how the rewritten
+    leaves make the query's aggregations again: (base, leaf indices),
+    COUNT the sum of the count column, AVG a sum and a count leaf."""
+
+    spec: Tuple
+    params: List[np.ndarray]
+    columns: List[str]            # staged node columns the spec reads
+    group_cols: List[str]         # the dimensions' names (key decode)
+    group_cards: List[int]
+    group_bases: List[int]
+    group_strides: Optional[np.ndarray]
+    num_groups: int
+    agg_map: List[Tuple[str, List[int]]]
+    # device -> params uploaded there (engine/kernels.py device_params)
+    device_params: Dict[Any, Tuple] = field(default_factory=dict,
+                                            repr=False, compare=False)
+
+
+def plan_star_tree(ctx: QueryContext, segment: ImmutableSegment, tree,
+                   matches: Dict[str, Any],
+                   num_selected: int) -> StarTreePlan:
+    """The node plan of a query the pick fitted to ``tree``; ``matches``
+    are its resolved dictId matches per dimension. A predicated group
+    dimension's key range narrows to its match bounds. Raises PlanError
+    past ``MAX_DEVICE_GROUPS`` composed keys (the host walker serves)."""
+    from pinot_tpu_torch.engine.startree_exec import _pairs_needed
+    from pinot_tpu_torch.segment.startree import match_bounds
+
+    aggs = [resolve_agg(f) for f in ctx.aggregations]
+    params: List[np.ndarray] = []
+    columns: List[str] = []
+    group_cols: List[str] = []
+    group_specs: List[Tuple] = []
+    group_cards: List[int] = []
+    group_bases: List[int] = []
+    num_groups = 0
+    strides = None
+    if ctx.group_by:
+        for e in ctx.group_by:
+            col = e.name      # the pick admits identifiers on tree dims
+            lo, hi = 0, segment.metadata.column(col).cardinality - 1
+            if col in matches:
+                mlo, mhi = match_bounds(matches[col])
+                lo, hi = max(lo, mlo), min(hi, mhi)
+                if lo > hi:
+                    lo, hi = 0, 0   # unsatisfiable: one key
+            group_cols.append(col)
+            group_cards.append(hi - lo + 1)
+            group_bases.append(lo)
+            key = startree_dim_key(col)
+            group_specs.append(("gdict", key))
+            if key not in columns:
+                columns.append(key)
+        total = 1
+        for c in group_cards:
+            total *= c
+            if total > MAX_DEVICE_GROUPS:
+                raise PlanError("star-tree group key space too large "
+                                "-> host walker")
+        num_groups = _next_pow2(total)
+        strides = _row_major_strides(group_cards)
+        params.append(strides)
+        params.append(np.asarray(group_bases, dtype=np.int64))
+
+    agg_specs: List[Tuple] = []
+    agg_map: List[Tuple[str, List[int]]] = []
+
+    def leaf(fn: str, col: str) -> int:
+        key = startree_metric_key(fn, col)
+        acc = "i64" if fn == "count" else "f64"
+        op = "sum" if fn in ("count", "sum") else fn
+        agg_specs.append((op, False, ("col", key, False), acc))
+        if key not in columns:
+            columns.append(key)
+        return len(agg_specs) - 1
+
+    for agg, fn in zip(aggs, ctx.aggregations):
+        pairs = _pairs_needed(agg, fn)
+        if pairs is None:   # the pick admitted it
+            raise PlanError(f"aggregation {agg.name} has no pre-agg pairs")
+        if agg.base == "avg":
+            (sfn, scol), (cfn, ccol) = pairs
+            agg_map.append(("avg", [leaf(sfn, scol), leaf(cfn, ccol)]))
+        else:
+            (pfn, pcol), = pairs
+            agg_map.append((agg.base, [leaf(pfn, pcol)]))
+
+    capacity = max(128, _next_pow2(max(1, num_selected)))
+    spec = (("true",), tuple(agg_specs), tuple(group_specs), num_groups,
+            capacity)
+    expected = expected_param_count(spec)
+    if len(params) != expected:
+        raise AssertionError(
+            f"star-tree param pack/unpack drift: packed {len(params)} but "
+            f"the spec consumes {expected} (spec={spec[:3]!r})")
+    return StarTreePlan(spec=spec, params=params, columns=columns,
+                        group_cols=group_cols, group_cards=group_cards,
+                        group_bases=group_bases, group_strides=strides,
+                        num_groups=num_groups, agg_map=agg_map)

@@ -69,16 +69,21 @@ class QueryStats:
     # ordered-selection top-k (engine/selection_device.py)
     general_launches: int = 0
     topk_launches: int = 0
-    # calls of the jnp combine over a segment batch, and of the index
-    # rung's docId gather
+    # calls of the jnp combine over a segment batch, of the index rung's
+    # docId gather and of the star-tree rung's node slice
     batch_general_launches: int = 0
     index_launches: int = 0
+    startree_launches: int = 0
     # the group-by rung that served: dense | compact | hash | sort | index
-    # | host, or "mixed" when segments of one query took different rungs
-    # (the JAX package's QueryStats.merge rule); and segments served per
-    # rung
+    # | startree_device | startree (the host walker) | host, or "mixed"
+    # when segments of one query took different rungs (the JAX package's
+    # QueryStats.merge rule); and segments served per rung
     group_by_rung: Optional[str] = None
     rung_segments: Dict[str, int] = field(default_factory=dict)
+    # the index in segment.star_trees of the tree that served, None off the
+    # star-tree rungs; a table's segments share one tree config, so the
+    # last segment's is kept (the JAX package's merge rule, :151)
+    startree_tree_index: Optional[int] = None
     # path decisions (record_decision): decision key -> count
     decisions: Dict[str, int] = field(default_factory=dict)
 

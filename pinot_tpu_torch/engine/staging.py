@@ -19,7 +19,9 @@ arrays (``column``):
 Each is staged once per segment and cached. ``valid_mask`` is the upsert
 valid-doc snapshot the ``validdocs`` filter leaf reads. ``index_slice``
 holds the index rung's padded docId arrays, one per resolved filter, the
-least recently used dropped past ``INDEX_SLICE_CAP``.
+least recently used dropped past ``INDEX_SLICE_CAP``. ``startree_nodes``
+holds a star-tree's record columns (JAX :437-501), staged at first use and
+released one tree at a time (``release_startree``).
 
 Planar layout (bit-identical to the JAX package's ``_pack``): docs are cut
 into tiles of ``TILE`` docs; with ``B`` bits per value and ``K = 32 / B``
@@ -138,6 +140,7 @@ class StagedSegment:
         self._num_docs: Optional[torch.Tensor] = None
         self._index_slices: "OrderedDict[Hashable, torch.Tensor]" = \
             OrderedDict()
+        self._startree: Dict[int, Dict[str, torch.Tensor]] = {}
 
     @property
     def provider(self) -> ImmutableSegment:
@@ -256,6 +259,48 @@ class StagedSegment:
             self._index_slices.popitem(last=False)
         return arr
 
+    def startree_nodes(self, tree_index: int) -> Dict[str, torch.Tensor]:
+        """Star-tree ``tree_index``'s record columns on the device, keyed
+        as the node plan reads them (``plan.startree_dim_key`` /
+        ``startree_metric_key``): int32 dictIds per split dimension (STAR
+        = -1), int64 counts and float64 values per pair. Staged once; a
+        repeated query uploads none."""
+        key = int(tree_index)
+        t = self._startree.get(key)
+        if t is None:
+            from pinot_tpu_torch.engine.plan import (
+                startree_dim_key,
+                startree_metric_key,
+            )
+
+            tree = self.segment.star_trees[key]
+            dims = np.asarray(tree.dims)
+            t = {}
+            for i, name in enumerate(tree.config.dimensions_split_order):
+                t[startree_dim_key(name)] = torch.from_numpy(
+                    np.ascontiguousarray(dims[:, i], dtype=np.int32)).to(
+                        self.device)
+            for pair, vals in tree.metrics.items():
+                fn, _, col = pair.partition("__")
+                dt = np.int64 if fn == "count" else np.float64
+                t[startree_metric_key(fn, col)] = torch.from_numpy(
+                    np.ascontiguousarray(vals, dtype=dt)).to(self.device)
+            self._startree[key] = t
+        return t
+
+    def release_startree(self, tree_index: int) -> int:
+        """Drop one tree's device columns, its siblings staying; -> the
+        device bytes released."""
+        t = self._startree.pop(int(tree_index), None)
+        if t is None:
+            return 0
+        return sum(a.numel() * a.element_size() for a in t.values())
+
+    def startree_nbytes(self) -> Dict[int, int]:
+        """Device bytes per staged tree."""
+        return {ti: sum(a.numel() * a.element_size() for a in t.values())
+                for ti, t in self._startree.items()}
+
     def index_nbytes(self) -> int:
         """Device bytes of the resident docId arrays."""
         return sum(a.numel() * a.element_size()
@@ -267,4 +312,5 @@ class StagedSegment:
                 + sum(v.numel() * v.element_size()
                       for v in self._values.values())
                 + sum(c.nbytes() for c in self._columns.values())
-                + self.index_nbytes())
+                + self.index_nbytes()
+                + sum(self.startree_nbytes().values()))

@@ -28,12 +28,14 @@ planner refuses there (a host-only aggregation, say) then reaches the
 host engine per segment, as in the JAX package. A selective filter the
 segments' indexes serve leaves the batch for the per-segment path too,
 with no decision (JAX ``_index_rung_fit`` :136), so the index rung serves
-each segment. Selection and DISTINCT are the base class's: the JAX sharded
-executor does not override them.
+each segment; ahead of it, so does a query one of the segments' star-trees
+fits (JAX ``_any_star_tree_fit`` :122-134, :147-149, :172-174), so each
+segment's node slice serves it. Selection and DISTINCT are the base
+class's: the JAX sharded executor does not override them.
 
 The JAX executor's launch scheduler and coalescing, residency and
-admission, sliced execution, star-tree routing and the doc-axis mesh are
-not part of this executor.
+admission, sliced execution and the doc-axis mesh are not part of this
+executor.
 """
 
 from __future__ import annotations
@@ -45,7 +47,12 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from pinot_tpu_torch.engine import fused_scan, index_exec, kernels
+from pinot_tpu_torch.engine import (
+    fused_scan,
+    index_exec,
+    kernels,
+    startree_device,
+)
 from pinot_tpu_torch.engine.aggregates import AggDef
 from pinot_tpu_torch.engine.errors import PlanError
 from pinot_tpu_torch.engine.executor import (
@@ -147,7 +154,8 @@ class ShardedQueryExecutor(ServerQueryExecutor):
     def _execute_aggregation(self, ctx: QueryContext, aggs: List[AggDef],
                              segments: List[ImmutableSegment],
                              stats: QueryStats) -> AggResult:
-        got = self._run_sharded(ctx, segments, stats)
+        got = (None if self._any_star_tree_fit(ctx, aggs, segments)
+               else self._run_sharded(ctx, segments, stats))
         if got is None:
             return super()._execute_aggregation(ctx, aggs, segments, stats)
         batch, tree, plan = got
@@ -156,7 +164,8 @@ class ShardedQueryExecutor(ServerQueryExecutor):
     def _execute_group_by(self, ctx: QueryContext, aggs: List[AggDef],
                           segments: List[ImmutableSegment],
                           stats: QueryStats) -> GroupByResult:
-        got = self._run_sharded(ctx, segments, stats)
+        got = (None if self._any_star_tree_fit(ctx, aggs, segments)
+               else self._run_sharded(ctx, segments, stats))
         if got is None:
             return super()._execute_group_by(ctx, aggs, segments, stats)
         batch, tree, plan = got
@@ -212,6 +221,13 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             del self._batches[k]
         for k in [k for k in self._param_cache if k[1] == batch.segment_name]:
             del self._param_cache[k]
+
+    def _any_star_tree_fit(self, ctx: QueryContext, aggs: List[AggDef],
+                           segments: List[ImmutableSegment]) -> bool:
+        """Does a tree of any segment fit the query? Then the per-segment
+        path serves it, and records its own decisions."""
+        return any(self._star_tree_pick(ctx, aggs, s) is not None
+                   for s in segments if s.star_trees)
 
     def _run_sharded(self, ctx: QueryContext,
                      segments: List[ImmutableSegment], stats: QueryStats
@@ -300,6 +316,8 @@ def scan_counters() -> Dict[str, fused_scan.KernelCounter]:
 
 def rung_counters() -> Dict[str, fused_scan.KernelCounter]:
     """The call counters of the PyTorch rungs: the general rung per
-    segment, the jnp combine over a batch and the index rung's gather."""
+    segment, the jnp combine over a batch, the index rung's gather and the
+    star-tree rung's node slice."""
     return {c.name: c for c in (kernels.RUNG_COUNTER, BATCH_GENERAL_COUNTER,
-                                index_exec.INDEX_COUNTER)}
+                                index_exec.INDEX_COUNTER,
+                                startree_device.STARTREE_COUNTER)}

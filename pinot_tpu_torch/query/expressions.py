@@ -90,6 +90,39 @@ def fold_constants(expr: Expr) -> Expr:
     return expr
 
 
+# the operators of a star-tree derived pair; division is left out, as in
+# the JAX package: it breaks the exact integer sums the tree stores
+_ARITH_KEY_OPS = {"plus": "+", "minus": "-", "times": "*"}
+_ARITH_COMMUTATIVE = {"plus", "times"}
+
+
+def canonical_arith_key(e: Expr) -> Optional[str]:
+    """The star-tree pair key of a ``+ - *`` expression over identifiers
+    and numeric literals (JAX ``expressions.py:114``): a bare identifier
+    is its name, a binary operation ``(a*b)`` with the operands of ``+``
+    and ``*`` sorted, so ``sum(a * b)`` and ``SUM__b*a`` name one pair.
+    None for anything else (division, transforms, virtual columns)."""
+    if isinstance(e, Identifier):
+        if e.name == "*" or e.name.startswith("$"):
+            return None
+        return e.name
+    if isinstance(e, Literal):
+        if isinstance(e.value, bool) or not isinstance(e.value, (int, float)):
+            return None
+        return str(e.value)
+    if isinstance(e, Function):
+        sym = _ARITH_KEY_OPS.get(e.name)
+        if sym is None or len(e.args) != 2:
+            return None
+        parts = [canonical_arith_key(a) for a in e.args]
+        if any(p is None for p in parts):
+            return None
+        if e.name in _ARITH_COMMUTATIVE:
+            parts.sort()
+        return f"({parts[0]}{sym}{parts[1]})"
+    return None
+
+
 class PredicateType(Enum):
     EQ = "EQ"
     NOT_EQ = "NOT_EQ"

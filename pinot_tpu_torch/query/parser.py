@@ -436,3 +436,13 @@ class _Parser:
 
 def parse_sql(sql: str) -> ParsedQuery:
     return _Parser(sql.strip()).parse()
+
+
+def parse_expression(text: str) -> Expr:
+    """A standalone value expression (a star-tree pair's column half,
+    ``lo_extendedprice*lo_discount``)."""
+    p = _Parser(text.strip())
+    e = p.parse_expr()
+    if p.peek().kind != "eof":
+        raise SqlParseError(f"trailing input in expression: {text!r}")
+    return e

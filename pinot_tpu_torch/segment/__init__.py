@@ -1,7 +1,9 @@
 from pinot_tpu_torch.segment.convert import (
     ColumnArrays,
+    attach_star_trees,
     columns_of,
     segment_from_arrays,
+    star_trees_of,
 )
 from pinot_tpu_torch.segment.creator import SegmentBuilder
 from pinot_tpu_torch.segment.dictionary import Dictionary, build_dictionary
@@ -14,7 +16,8 @@ from pinot_tpu_torch.segment.metadata import (
 )
 
 __all__ = [
-    "ColumnArrays", "columns_of", "segment_from_arrays", "SegmentBuilder",
+    "ColumnArrays", "attach_star_trees", "columns_of", "segment_from_arrays", "star_trees_of",
+    "SegmentBuilder",
     "Dictionary", "build_dictionary", "DataSource", "ImmutableSegment",
     "DOC_TILE", "ColumnMetadata", "SegmentMetadata", "pad_capacity",
 ]

@@ -15,13 +15,21 @@ indexes in memory from its dictIds and values, as the JAX creator builds
 them (``pinot_tpu/segment/creator.py``): inverted postings
 (``build_inverted_index``), the range permutation of a raw column, the
 bloom filter, and the FST, text and JSON indexes of a string column.
-``is_sorted`` is computed for every single-value column.
+``is_sorted`` is computed for every single-value column. Its star-tree
+configs (or, with none, ``enable_default_star_tree``) build the segment's
+star-trees from the built columns, as the JAX creator's
+``_build_star_trees`` does (:178-275). ``star_trees_of`` reads a segment's
+trees (a port segment's or one the JAX package loaded) as plain arrays,
+and ``segment_from_arrays(..., star_trees=)`` attaches such trees instead
+of building them, so both packages read byte-identical trees.
 """
 
 from __future__ import annotations
 
+import logging
+import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -37,6 +45,12 @@ from pinot_tpu_torch.segment.metadata import (
     ColumnMetadata,
     SegmentMetadata,
     pad_capacity,
+)
+from pinot_tpu_torch.segment.startree import (
+    StarTree,
+    StarTreeBuilder,
+    StarTreeConfig,
+    derived_pair_expr,
 )
 from pinot_tpu_torch.segment.textindex import TextIndexReader, build_text_index
 from pinot_tpu_torch.spi.data import DataType, FieldSpec, FieldType, Schema
@@ -234,11 +248,14 @@ def segment_from_arrays(name: str, num_docs: int,
                         columns: Mapping[str, ColumnArrays],
                         table_name: Optional[str] = None,
                         valid_doc_ids: Optional[np.ndarray] = None,
-                        indexing: Optional[IndexingConfig] = None
+                        indexing: Optional[IndexingConfig] = None,
+                        star_trees: Optional[Sequence[Dict[str, Any]]] = None
                         ) -> ImmutableSegment:
     """``valid_doc_ids`` ([num_docs] bool) makes the segment
     upsert-managed: only its true docs are live. ``indexing`` names the
-    columns' indexes to build."""
+    columns' indexes and the star-trees to build; ``star_trees`` (as
+    ``star_trees_of`` gives them) are attached instead of the configured
+    trees."""
     capacity = pad_capacity(num_docs)
     table = table_name or name
     schema = Schema(table, [FieldSpec(c, a.data_type, a.field_type,
@@ -253,7 +270,108 @@ def segment_from_arrays(name: str, num_docs: int,
     if valid_doc_ids is not None:
         seg.valid_doc_ids = _rows("valid_doc_ids", valid_doc_ids, num_docs,
                                   capacity).astype(bool)
+    if star_trees is not None:
+        attach_star_trees(seg, star_trees)
+    elif indexing is not None:
+        seg.star_trees = _build_star_trees(seg, indexing)
+        md.star_tree_count = len(seg.star_trees)
     return seg
+
+
+def attach_star_trees(seg: ImmutableSegment,
+                      trees: Sequence[Dict[str, Any]]) -> None:
+    """Give the segment these trees (as ``star_trees_of`` gives them)."""
+    seg.star_trees = [StarTree(StarTreeConfig.from_dict(t["config"]),
+                               t["dims"], dict(t["metrics"]), t["nodes"])
+                      for t in trees]
+    seg.metadata.star_tree_count = len(seg.star_trees)
+
+
+def _star_tree_configs(seg: ImmutableSegment, cfg: IndexingConfig
+                       ) -> List[StarTreeConfig]:
+    configs = [StarTreeConfig.from_spi(c) for c in cfg.star_tree_index_configs]
+    if cfg.enable_default_star_tree and not configs:
+        default = _default_star_tree_config(seg.metadata)
+        if default is not None:
+            configs = [default]
+    return configs
+
+
+def _build_star_trees(seg: ImmutableSegment, cfg: IndexingConfig
+                      ) -> List[StarTree]:
+    """The configured trees over the segment's built columns; a tree
+    whose dimension is not a dictionary single-value column, or whose
+    metric is not a numeric single-value column, is skipped with a
+    warning (JAX ``creator.py:178``). Build seconds go to the metadata."""
+    md = seg.metadata
+    n = md.num_docs
+    trees: List[StarTree] = []
+    build_s: List[float] = []
+    for tc in _star_tree_configs(seg, cfg):
+        try:
+            dim_ids = {}
+            for d in tc.dimensions_split_order:
+                cm = md.columns[d]
+                if not (cm.has_dictionary and cm.single_value):
+                    raise ValueError(f"dimension {d} must be a "
+                                     "dict-encoded SV column")
+                dim_ids[d] = np.asarray(
+                    seg.data_source(d).forward_index[:n]).astype(np.int32)
+            metric_vals: Dict[str, np.ndarray] = {}
+            for _fn, col in tc.function_column_pairs:
+                if col == "*":
+                    continue
+                expr = derived_pair_expr(col)
+                for c in (expr.columns() if expr is not None else [col]):
+                    if c in metric_vals:
+                        continue
+                    cm = md.columns[c]
+                    if not (cm.single_value and cm.data_type.is_numeric):
+                        raise ValueError(f"metric {c} must be a numeric "
+                                         "SV column")
+                    ds = seg.data_source(c)
+                    fwd = np.asarray(ds.forward_index[:n])
+                    metric_vals[c] = (ds.dictionary.values[fwd]
+                                      if cm.has_dictionary else fwd)
+            t0 = time.perf_counter()
+            trees.append(StarTreeBuilder(tc).build(dim_ids, metric_vals, n))
+            build_s.append(round(time.perf_counter() - t0, 4))
+        except (ValueError, KeyError) as e:
+            logging.getLogger(__name__).warning(
+                "skipping star-tree for %s: %s", md.segment_name, e)
+    md.star_tree_build_s = build_s
+    return trees
+
+
+def _default_star_tree_config(md: SegmentMetadata
+                              ) -> Optional[StarTreeConfig]:
+    """``enable_default_star_tree`` (JAX ``creator.py:258``): the
+    dictionary single-value dimensions of cardinality 2 to 10 000 by
+    descending cardinality, COUNT(*) and SUM of every numeric
+    single-value metric."""
+    dims = [(cm.cardinality, name) for name, cm in md.columns.items()
+            if cm.has_dictionary and cm.single_value
+            and cm.field_type is not FieldType.METRIC
+            and 1 < cm.cardinality <= 10_000]
+    if not dims:
+        return None
+    split = [n for _, n in sorted(dims, reverse=True)]
+    pairs = [("count", "*")]
+    for name, cm in md.columns.items():
+        if cm.field_type is FieldType.METRIC and cm.data_type.is_numeric \
+                and cm.single_value:
+            pairs.append(("sum", name))
+    return StarTreeConfig(split, pairs, max_leaf_records=10_000)
+
+
+def star_trees_of(segment) -> List[Dict[str, Any]]:
+    """Per star-tree of a segment (a port segment or one loaded by the
+    JAX package): ``config`` (``StarTreeConfig.to_dict``), ``dims``,
+    ``nodes`` and ``metrics`` as numpy arrays (not copied)."""
+    return [{"config": t.config.to_dict(), "dims": np.asarray(t.dims),
+             "nodes": np.asarray(t.nodes),
+             "metrics": {k: np.asarray(v) for k, v in t.metrics.items()}}
+            for t in getattr(segment, "star_trees", None) or []]
 
 
 def columns_of(segment) -> Dict[str, ColumnArrays]:

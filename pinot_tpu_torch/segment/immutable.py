@@ -14,7 +14,9 @@ Counterpart of ``pinot_tpu/segment/immutable.py``. Every array is
   default as its one value, as the JAX creator does), or None.
 
 An upsert-managed segment carries ``valid_doc_ids``, a bool array over its
-docs: only its true docs are live.
+docs: only its true docs are live. ``star_trees`` holds the segment's
+star-trees (``segment/startree.py``) in memory, in config order (the JAX
+segment loads them from disk at first use, :273-281).
 
 A column built with indexes (``convert.py``, ``spi/table.py``) reads them
 here with the semantics of ``pinot_tpu/segment/immutable.py`` (:80-213):
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -122,6 +124,7 @@ class ImmutableSegment:
         self.metadata = metadata
         self._sources = sources
         self.valid_doc_ids = None
+        self.star_trees: List[Any] = []
 
     @property
     def segment_name(self) -> str:

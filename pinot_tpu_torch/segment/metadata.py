@@ -65,6 +65,9 @@ class SegmentMetadata:
     num_docs: int
     padded_capacity: int
     columns: Dict[str, ColumnMetadata] = field(default_factory=dict)
+    # star-trees built with the segment, and each one's build seconds
+    star_tree_count: int = 0
+    star_tree_build_s: List[float] = field(default_factory=list)
 
     def column(self, name: str) -> ColumnMetadata:
         try:

@@ -1,4 +1,5 @@
 from pinot_tpu_torch.spi.data import DataType, FieldSpec, FieldType, Schema
-from pinot_tpu_torch.spi.table import IndexingConfig
+from pinot_tpu_torch.spi.table import IndexingConfig, StarTreeIndexConfig
 
-__all__ = ["DataType", "FieldSpec", "FieldType", "Schema", "IndexingConfig"]
+__all__ = ["DataType", "FieldSpec", "FieldType", "Schema", "IndexingConfig",
+           "StarTreeIndexConfig"]

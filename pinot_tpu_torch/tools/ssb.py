@@ -25,18 +25,31 @@ and gathered by code. ``host_queries`` are seven the host engine and the
 device top-k serve (percentile and mode, a grouped t-digest, a grouped
 DISTINCTCOUNT, SELECT DISTINCT, unordered and ordered selections), with
 their oracle written out in numpy over the frames.
+
+``ssb_indexing_config()`` is the table's five star-trees (the JAX
+package's), which ``build_segments(..., star_tree=True)`` builds in a
+process pool; ``STARTREE_QUERIES`` are the star-tree's other routes on
+such segments (the host walker, three declines, the opt-out), with their
+oracle.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-from pinot_tpu_torch.segment.convert import ColumnArrays, segment_from_arrays
+from pinot_tpu_torch.segment.convert import (
+    ColumnArrays,
+    attach_star_trees,
+    segment_from_arrays,
+    star_trees_of,
+)
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.spi.data import DataType, FieldType
+from pinot_tpu_torch.spi.table import IndexingConfig, StarTreeIndexConfig
 from pinot_tpu_torch.utils.hll import (
     DEFAULT_LOG2M,
     HyperLogLog,
@@ -204,9 +217,64 @@ def _dict_encode(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
             remap.astype(ids_dtype)[shifted])
 
 
-def segment_from_frame(name: str, frame: Dict[str, np.ndarray]
-                       ) -> ImmutableSegment:
-    """A port segment with sorted dictionaries built from the frame."""
+def ssb_indexing_config(star_tree: bool = True) -> IndexingConfig:
+    """The lineorder table's indexing (JAX ``ssb_indexing_config``,
+    :198-273): five star-trees, one per flight family, so the pick serves
+    every flight from the cheapest fitting tree:
+
+    - tree 0 (Q2.x): category / brand under the region filters, revenue
+      and supplycost, and the Q1.x derived pair;
+    - tree 1 (Q1.x): ``sum(lo_extendedprice * lo_discount)`` over the
+      date, discount and quantity dimensions;
+    - tree 2 (Q3.x): region -> nation -> city on both sides, with
+      d_yearmonthnum for Q3.4;
+    - tree 3 (Q4.1, Q4.2): ``sum(lo_revenue - lo_supplycost)`` by nation
+      and category;
+    - tree 4 (Q4.3): the same pair by supplier city and brand.
+
+    ``star_tree=False`` gives no trees."""
+    trees = [
+        StarTreeIndexConfig(
+            dimensions_split_order=["d_year", "c_region", "s_region",
+                                    "p_category", "p_brand1"],
+            function_column_pairs=["SUM__lo_revenue", "SUM__lo_supplycost",
+                                   "SUM__lo_extendedprice*lo_discount",
+                                   "COUNT__*"],
+            max_leaf_records=10_000),
+        StarTreeIndexConfig(
+            dimensions_split_order=["d_year", "d_yearmonthnum",
+                                    "d_weeknuminyear", "lo_discount",
+                                    "lo_quantity"],
+            function_column_pairs=["SUM__lo_extendedprice*lo_discount",
+                                   "SUM__lo_revenue", "COUNT__*"],
+            max_leaf_records=10_000),
+        StarTreeIndexConfig(
+            dimensions_split_order=["d_year", "d_yearmonthnum", "c_region",
+                                    "s_region", "c_nation", "s_nation",
+                                    "c_city", "s_city"],
+            function_column_pairs=["SUM__lo_revenue", "COUNT__*"],
+            max_leaf_records=10_000),
+        StarTreeIndexConfig(
+            dimensions_split_order=["d_year", "c_region", "s_region",
+                                    "p_mfgr", "c_nation", "s_nation",
+                                    "p_category"],
+            function_column_pairs=["SUM__lo_revenue-lo_supplycost",
+                                   "COUNT__*"],
+            max_leaf_records=10_000),
+        StarTreeIndexConfig(
+            dimensions_split_order=["d_year", "s_nation", "p_category",
+                                    "s_city", "p_brand1"],
+            function_column_pairs=["SUM__lo_revenue-lo_supplycost",
+                                   "COUNT__*"],
+            max_leaf_records=10_000),
+    ] if star_tree else []
+    return IndexingConfig(star_tree_index_configs=trees)
+
+
+def segment_from_frame(name: str, frame: Dict[str, np.ndarray],
+                       star_tree: bool = False) -> ImmutableSegment:
+    """A port segment with sorted dictionaries built from the frame; with
+    ``star_tree``, ``ssb_indexing_config()``'s five trees built over it."""
     num_docs = len(frame["lo_quantity"])
     columns = {}
     for col, dt, ft in COLUMNS:
@@ -214,19 +282,58 @@ def segment_from_frame(name: str, frame: Dict[str, np.ndarray]
         dictionary = UNIVERSE[col][values] if col in UNIVERSE else values
         columns[col] = ColumnArrays(data_type=dt, field_type=ft,
                                     dictionary=dictionary, dict_ids=ids)
-    return segment_from_arrays(name, num_docs, columns, table_name=TABLE)
+    return segment_from_arrays(
+        name, num_docs, columns, table_name=TABLE,
+        indexing=ssb_indexing_config() if star_tree else None)
+
+
+def _segment_trees(i: int, num_segments: int, n: int, seed: int
+                   ) -> Tuple[List[Dict[str, Any]], List[float]]:
+    """Worker: segment ``i``'s five trees as arrays, and their build
+    seconds (the frame is drawn again from the seed)."""
+    frame = generate_segment_frame(i, num_segments, n, seed)
+    seg = segment_from_frame(f"ssb_{i}", frame, star_tree=True)
+    return star_trees_of(seg), seg.metadata.star_tree_build_s
 
 
 def build_segments(sf: float, num_segments: int = 8, seed: int = 42,
-                   rows: int = 0) -> Tuple[List[ImmutableSegment],
-                                           List[Dict[str, np.ndarray]]]:
-    """(segments, their frames) for ``rows or sf * ROWS_PER_SF`` rows."""
+                   rows: int = 0, star_tree: bool = False,
+                   workers: int = 0) -> Tuple[List[ImmutableSegment],
+                                              List[Dict[str, np.ndarray]]]:
+    """(segments, their frames) for ``rows or sf * ROWS_PER_SF`` rows.
+    ``star_tree`` builds ``ssb_indexing_config()``'s trees on every
+    segment in a spawned pool of ``workers`` processes (0: min(segments,
+    cpu count), as the JAX package's ``build_segments``), while this
+    process draws the frames and builds the segments."""
     n = rows or int(sf * ROWS_PER_SF)
-    segs, frames = [], []
-    for i, take in enumerate(segment_rows(num_segments, n)):
-        frame = generate_segment_frame(i, num_segments, take, seed)
-        segs.append(segment_from_frame(f"ssb_{i}", frame))
-        frames.append(frame)
+    sizes = segment_rows(num_segments, n)
+
+    def segments():
+        segs, frames = [], []
+        for i, take in enumerate(sizes):
+            frame = generate_segment_frame(i, num_segments, take, seed)
+            segs.append(segment_from_frame(f"ssb_{i}", frame))
+            frames.append(frame)
+        return segs, frames
+
+    if not star_tree:
+        return segments()
+    jobs = [(i, num_segments, take, seed) for i, take in enumerate(sizes)]
+    workers = workers or min(len(jobs), os.cpu_count() or 1)
+    if workers > 1 and len(jobs) > 1:
+        import multiprocessing as mp
+
+        # spawn, not fork: the caller may hold a CUDA context
+        with mp.get_context("spawn").Pool(workers) as pool:
+            pending = pool.starmap_async(_segment_trees, jobs)
+            segs, frames = segments()
+            trees = pending.get()
+    else:
+        segs, frames = segments()
+        trees = [_segment_trees(*j) for j in jobs]
+    for seg, (arrays, build_s) in zip(segs, trees):
+        attach_star_trees(seg, arrays)
+        seg.metadata.star_tree_build_s = build_s
     return segs, frames
 
 
@@ -345,7 +452,53 @@ _ORACLE = {
 }
 
 
+# -- the star-tree's other routes ---------------------------------------------
+
+# On segments with ssb_indexing_config()'s trees: ST1 fits tree 4, but its
+# group space (d_year x 25 nations x 250 cities x 1000 brands per segment:
+# its two brands are the dictionary's first and last) is past the
+# device's MAX_DEVICE_GROUPS, so the host walker serves it;
+# ST2-ST4 fit no tree (an OR filter, a group expression, a pair no tree
+# stores); ST5 is Q2.1 opted out of the trees. ST2-ST5 go to the scan
+# rungs.
+STARTREE_QUERIES: Dict[str, str] = {
+    "ST1": "SELECT d_year, s_nation, s_city, p_brand1, "
+           "sum(lo_revenue - lo_supplycost) FROM ssb_lineorder "
+           "WHERE p_brand1 IN ('MFGR#1101', 'MFGR#5540') "
+           "GROUP BY d_year, s_nation, s_city, p_brand1 LIMIT 100000",
+    "ST2": "SELECT d_year, sum(lo_revenue) FROM ssb_lineorder "
+           "WHERE c_region = 'ASIA' OR s_region = 'ASIA' "
+           "GROUP BY d_year LIMIT 100000",
+    "ST3": "SELECT lo_quantity + 0, sum(lo_revenue) FROM ssb_lineorder "
+           "WHERE d_year = 1994 GROUP BY lo_quantity + 0 LIMIT 100000",
+    "ST4": "SELECT d_year, sum(lo_quantity) FROM ssb_lineorder "
+           "WHERE s_region = 'AMERICA' GROUP BY d_year LIMIT 100000",
+    "ST5": QUERIES["Q2.1"] + " LIMIT 100000 OPTION(useStarTree=false)",
+}
+# per query: "walker", the code every tree declines with, or None (opted
+# out: no star-tree decision)
+STARTREE_ROUTE: Dict[str, Optional[str]] = {
+    "ST1": "walker", "ST2": "startree_filter_or_not_shape",
+    "ST3": "startree_group_expression",
+    "ST4": "startree_missing_function_pair", "ST5": None}
+_STARTREE_ORACLE = {
+    "ST1": ([("p_brand1", "in", ("MFGR#1101", "MFGR#5540"))],
+            ("d_year", "s_nation", "s_city", "p_brand1"), "profit"),
+    "ST2": ([("c_region", "or", [("c_region", "eq", "ASIA"),
+                                 ("s_region", "eq", "ASIA")])],
+            ("d_year",), "revenue"),
+    "ST3": ([("d_year", "eq", 1994)], ("lo_quantity",), "revenue"),
+    "ST4": ([("s_region", "eq", "AMERICA")], ("d_year",), "quantity"),
+    "ST5": _ORACLE["Q2.1"],
+}
+
+
 def _condition(frame, col: str, op: str, arg) -> np.ndarray:
+    if op == "or":   # any of the (column, op, operand) conditions
+        m = np.zeros(len(frame[col]), dtype=bool)
+        for c, o, a in arg:
+            m |= _condition(frame, c, o, a)
+        return m
     v = frame[col]
     if op in ("prefix", "notprefix", "regex"):
         # a string predicate: evaluated once per universe value
@@ -388,9 +541,9 @@ def bounds_may_match(frame: Dict[str, np.ndarray], qid: str) -> bool:
     prune). An oracle of min/max segment pruning, independent of the
     engine's metadata."""
     conds = {**_ORACLE, **_SQL_ORACLE, **_DECLINED_ORACLE,
-             **_HOST_ORACLE}.get(qid, ([],))[0]
+             **_HOST_ORACLE, **_STARTREE_ORACLE}.get(qid, ([],))[0]
     for col, op, arg in conds:
-        if op in ("prefix", "notprefix", "regex"):
+        if op in ("prefix", "notprefix", "regex", "or"):
             continue
         v = frame[col]
         lo, hi = int(v.min()), int(v.max())
@@ -414,7 +567,8 @@ def numpy_answer(frame: Dict[str, np.ndarray], qid: str
     """Exact answer of flight ``qid`` over one frame: an int for the Q1
     flights, else {group key tuple: int sum}. Partials of several frames
     add up (``merge_answers``)."""
-    conds, groups, value = {**_ORACLE, **_SQL_ORACLE}[qid]
+    conds, groups, value = {**_ORACLE, **_SQL_ORACLE,
+                            **_STARTREE_ORACLE}[qid]
     m = np.ones(len(frame["lo_quantity"]), dtype=bool)
     for col, op, arg in conds:
         m &= _condition(frame, col, op, arg)
@@ -422,6 +576,8 @@ def numpy_answer(frame: Dict[str, np.ndarray], qid: str
         vals = frame["lo_extendedprice"][m] * frame["lo_discount"][m]
     elif value == "revenue":
         vals = frame["lo_revenue"][m]
+    elif value == "quantity":
+        vals = frame["lo_quantity"][m]
     else:
         vals = frame["lo_revenue"][m] - frame["lo_supplycost"][m]
     vals = vals.astype(np.int64)

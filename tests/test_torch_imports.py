@@ -50,7 +50,10 @@ def test_executor_import_leaves_jax_unloaded():
             "pinot_tpu_torch.segment.fstindex, "
             "pinot_tpu_torch.engine.index_exec, "
             "pinot_tpu_torch.parallel.combine, "
-            "pinot_tpu_torch.spi.table, pinot_tpu_torch.utils.bloom; "
+            "pinot_tpu_torch.spi.table, pinot_tpu_torch.utils.bloom, "
+            "pinot_tpu_torch.segment.startree, "
+            "pinot_tpu_torch.engine.startree_exec, "
+            "pinot_tpu_torch.engine.startree_device; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinot_tpu', 'triton')]; "
             "from pinot_tpu_torch.engine import _build, kernels; "
