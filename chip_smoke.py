@@ -107,16 +107,40 @@ Phases:
      space past the device's; its walks' host ms), ST2-ST4 declined with
      the JAX package's codes, ST5 opted out, on the scan rungs, equal to
      the oracle; build seconds, records and node bytes per tree.
-     ``--startree-only`` runs phases 1 and 12 alone, and prints no
-     kernels line.
+     ``--startree-only`` runs phases 1, 12 and 13c alone, and prints no
+     kernels line;
+ 13. residency, sliced execution and launch coalescing: (13a, after phase
+     11, on phase 4's segments) an HBM budget of about 40% of the largest
+     working set admission estimates (at least 1.25x the largest kept
+     segment), the 13 flights ``--reps`` times through both executors:
+     rows == oracle == phase 4's, each query sliced exactly when its
+     working set is over the budget, none spilled, the staged bytes within
+     the budget after each query, every segment back on the card after
+     the first pass back by promotion; slices, demotions and promotions
+     per flight, p50 beside the unbudgeted p50, the demote and promote
+     GB/s, max_memory_allocated; then Q1.2 under a budget of half a
+     segment on the host engine (single_segment_over_budget), == oracle;
+     (13b) 8 client threads on one ShardedQueryExecutor: C1-C8 (Q2.1 with
+     other literals), Q2.1 as written, then P1-P8 (Q3.2 for other
+     nations, their probes at binding), each answer == its solo answer ==
+     oracle, coalesced and saved launches asserted, QPS at 1 and 8
+     threads, batch sizes, queue wait p50 / p99; the query-axis kernels
+     (scan and probe) at the shapes that launched against their plain
+     version and Q solo launches, timed beside them, beside the launch
+     with the one-query grid and beside their byte bound; (13c, after
+     phase 12) phase 12's trees under 1.5x one segment's largest tree:
+     node arrays demoted and promoted across two passes of the 13
+     flights, == oracle, then 8 concurrent identical queries sharing
+     node-slice launches.
 The tables of phases 4-11 carry no star-tree and those of phases 4-10 no
 index: on them the index rung declines each filtered aggregation's
 segments on the per-segment path (``index_missing_index`` and the other
 JAX codes), which every phase asserts beside its other decisions.
 Then a "rungs" line of the segments each rung served and the declines and
 paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
-kernel alone, "launches" those of phases 4, 6, 8 and 9; the top-k, the
-jnp combine and the index gather are PyTorch ops, not hand kernels).
+kernel alone, "launches" those of phases 4, 6, 8 and 9, and of 13b for
+the query axis; the top-k, the jnp combine and the index gather are
+PyTorch ops, not hand kernels).
 Phases 4, 6, 7, 9, 10 and 11 assert launches
 per query from the segments the pruner keeps, once those
 equal the segments whose min/max (from the generator's arrays) admit the
@@ -609,9 +633,12 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
     wants.update({gid: ssb.declined_answer(frames, gid)
                   for gid in ssb.DECLINED_QUERIES})
     sql_texts, sql_wants = ssb.sql_queries(frames)
+    variant_texts = {**ssb.COALESCE_QUERIES, **ssb.PROBE_QUERIES}
+    variant_wants = {vid: ssb.merge_answers(
+        [ssb.numpy_answer(f, vid) for f in frames]) for vid in variant_texts}
     log(f"  numpy oracle, 13 flights, {len(ssb.DECLINED_QUERIES)} declined "
-        f"and {len(sql_texts)} SQL-slice queries: "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"and {len(sql_texts)} SQL-slice queries, {len(variant_texts)} "
+        f"variants of Q2.1 and Q3.2: {time.perf_counter() - t0:.1f} s")
 
     ctxs = {qid: compile_query(q + " LIMIT 100000")
             for qid, q in ssb.QUERIES.items()}
@@ -661,7 +688,8 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
             "results": results, "kept": kept, "kept_segs": kept_segs,
             "sql_texts": sql_texts, "sql_wants": sql_wants,
             "sql_kept": sql_kept, "host_texts": host_texts,
-            "host_wants": host_wants, "host_kept": host_kept}
+            "host_wants": host_wants, "host_kept": host_kept,
+            "variant_texts": variant_texts, "variant_wants": variant_wants}
 
 
 # -- phase 5: kernel timings at the per-segment path's shapes -----------------
@@ -827,7 +855,7 @@ def phase_batch(main: dict, reps: int, errs: dict, iters: int = 20) -> dict:
         f"several segments) and every flight bound, {setup_ms:.1f} ms; "
         f"the timed passes staged none; {resident} bytes resident in "
         f"them ({resident / rows:.2f} B/row), budget "
-        f"{ex.batch_budget_bytes} bytes")
+        f"{ex.residency.budget_bytes} bytes")
     launches = {name: c.launches for name, c in counters.items()}
     # a flight that keeps several segments runs as one launch over their
     # batch (its first run binds: Q3.2 and Q4.3 probe there); one kept
@@ -920,7 +948,7 @@ DECLINED_RUNG = {"G1": "hash", "G2": "sort", "G3": "dense", "G4": None,
 def _check_on_card(ex) -> None:
     """Every array the general rung read lies on the card: the staged
     columns and every cached plan's params."""
-    for _seg, staged in ex._staged.values():
+    for _name, staged in ex.residency.residents():
         for name, col in staged._columns.items():
             for t in col.tree().values():
                 if t.device.type != "cuda":
@@ -2181,7 +2209,7 @@ def phase_combine(jobs: list, reps: int, device: str = "cuda",
                    "per_segment_p50_ms": job["per_segment_p50_ms"],
                    "rung": stats.group_by_rung}
             if bex.device.type == "cuda" and k > 1:
-                inp = next(reversed(bex._param_cache.values()))
+                inp = next(reversed(bex._param_cache.values())).inputs
                 row["device_ms"], row["cuda_kernels"] = _profile_calls(
                     inp.run, 10)
                 row["dtoh_copies"] = _dtoh_copies(
@@ -2343,6 +2371,512 @@ def phase_index(users: dict, reps: int, device: str = "cuda",
                f"{row['bound_ms']:.3g} ms ({row['bytes']} B); {card}"
                if "bound_ms" in row else ""))
     return {"queries": out, "launches": launches}
+
+
+# -- phase 13: residency, sliced execution, launch coalescing -----------------
+
+_SLICED = ("residency:resident_device->sliced_device:"
+           "working_set_over_budget_sliceable")
+_SPILLED = "residency:device->host_engine:single_segment_over_budget"
+
+
+def _budget_decisions(stats) -> dict:
+    return {k: v for k, v in stats.decisions.items()
+            if k.split(":")[0] in ("residency", "sharded_combine")}
+
+
+def _promotion_rate(ex, segs, ctx, sync) -> dict:
+    """Demote ``segs``' residents (staged with ``ctx``'s columns on an
+    executor with room for them) to the host tier and bring them back: GB/s
+    of each way, host clock around work that ends in ``sync``."""
+    def touch(st):
+        for name in ctx.referenced_columns():
+            if st.packed_column(name) is None:
+                st.column(name)
+            st.value_column(name)
+
+    for s in segs:
+        touch(ex.stage(s))
+    sync()
+    nbytes = sum(ex.residency.resident_nbytes(s.segment_name) for s in segs)
+    t0 = time.perf_counter()
+    for s in segs:
+        if not ex.residency.demote(s.segment_name):
+            raise AssertionError(f"13a: {s.segment_name} did not demote")
+    demote_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    promoted = 0
+    for s in segs:
+        st = ex.stage(s)
+        touch(st)
+        promoted += st.promoted_bytes
+    sync()
+    promote_s = time.perf_counter() - t0
+    if promoted != nbytes:
+        raise AssertionError(f"13a: promoted {promoted} of {nbytes} bytes")
+    return {"bytes": nbytes, "demote_gb_s": nbytes / demote_s / 1e9,
+            "promote_gb_s": nbytes / promote_s / 1e9}
+
+
+def phase_budget(main: dict, batch_flights: dict, reps: int,
+                 device: str = "cuda") -> dict:
+    """13a: the 13 flights ``reps`` times through both executors under an
+    HBM budget of about 40% of the largest working set admission
+    estimates (and 1.25x the largest kept segment's estimate, so no
+    segment spills): every answer equal to the oracle and to phase 4's
+    rows; each query sliced exactly when its estimated working set is
+    over the budget, never spilled; the staged bytes after each query
+    within the budget; from the second pass on, every segment that comes
+    back onto the device comes back by promotion. Then a budget under one
+    segment sends Q1.2 to the host engine with single_segment_over_budget,
+    rows equal to the oracle."""
+    import torch
+
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.engine.residency import estimate_segment_bytes
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+    from pinot_tpu_torch.tools import ssb
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    segs, ctxs, kept_segs = main["segs"], main["ctxs"], main["kept_segs"]
+    est = {q: sum(estimate_segment_bytes(s, ctx.referenced_columns())
+                  for s in kept_segs[q]) for q, ctx in ctxs.items()}
+    seg_max = max(estimate_segment_bytes(s, ctx.referenced_columns())
+                  for q, ctx in ctxs.items() for s in kept_segs[q])
+    budget = max(int(0.4 * max(est.values())), int(1.25 * seg_max))
+    log(f"  budget {budget} B: 40% of the largest estimated working set "
+        f"({max(est.values())} B, {max(est, key=est.get)}), the largest "
+        f"kept segment {seg_max} B; over it: "
+        f"{sorted(q for q in est if est[q] > budget)}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"budget_bytes": budget, "estimates": est, "executors": {}}
+    for label, cls in (("per_segment", ServerQueryExecutor),
+                       ("batch", ShardedQueryExecutor)):
+        ex = cls(device=device, hbm_budget_bytes=budget)
+        lat = {q: [] for q in ctxs}
+        per_flight = {q: {"sliced": 0, "slices": 0, "demotions": 0,
+                          "promotions": 0, "misses": 0} for q in ctxs}
+        seen, built_new = set(), 0
+        for p in range(reps):
+            for qid, ctx in ctxs.items():
+                cols = ctx.referenced_columns()
+                ws, single, pinned = ex.residency.working_set(
+                    kept_segs[qid], cols)
+                t0 = time.perf_counter()
+                table, stats = ex.execute(ctx, segs)
+                sync()
+                lat[qid].append((time.perf_counter() - t0) * 1e3)
+                _check_flight(qid, table, main["wants"][qid])
+                if table.rows != main["results"][qid].rows:
+                    raise AssertionError(f"13a {label} {qid}: rows differ "
+                                         "from phase 4's")
+                dec = _budget_decisions(stats)
+                over = ws + pinned > budget
+                if dec.get(_SLICED, 0) != int(over) or _SPILLED in dec \
+                        or stats.staging["spills"]:
+                    raise AssertionError(
+                        f"13a {label} {qid}: working set {ws} B (+{pinned} "
+                        f"pinned) against {budget} B, decisions {dec}, "
+                        f"staging {stats.staging}")
+                staged = ex.residency.staged_bytes()
+                if staged > budget:
+                    raise AssertionError(f"13a {label} {qid}: {staged} B "
+                                         f"staged past the budget")
+                # a resident staged again after the first pass comes back
+                # from the host tier; only one never staged before (a
+                # batch of another slice's segments) is built
+                st = stats.staging
+                names = (set(ex.residency.resident_names())
+                         | set(ex.residency.host_entry_names()))
+                new = len(names - seen)
+                seen |= names
+                if p and st["misses"] != st["promotions"] + new:
+                    raise AssertionError(
+                        f"13a {label} {qid} pass {p + 1}: {st['misses']} "
+                        f"residents staged, {st['promotions']} promoted, "
+                        f"{new} new")
+                built_new += new if p else 0
+                row = per_flight[qid]
+                row["sliced"] += int(over)
+                for k in ("slices", "demotions", "promotions", "misses"):
+                    row[k] += st[k]
+        for qid, row in per_flight.items():
+            row["p50_ms"] = float(np.percentile(lat[qid], 50))
+            row["p99_ms"] = float(np.percentile(lat[qid], 99))
+            row["unbudgeted_p50_ms"] = (batch_flights if label == "batch"
+                                        else main["per_flight"])[qid][
+                                            "p50_ms"]
+            log(f"  13a {label} {qid}: sliced {row['sliced']}/{reps}, "
+                f"{row['slices']} slices, {row['demotions']} demotions, "
+                f"{row['promotions']} promotions; p50 {row['p50_ms']:.3f} ms "
+                f"p99 {row['p99_ms']:.3f} ms (no budget: p50 "
+                f"{row['unbudgeted_p50_ms']:.3f} ms)")
+        snap = ex.residency.stats_snapshot()
+        rec = {"flights": per_flight, "snapshot": snap,
+               "new_residents_after_pass_1": built_new}
+        if label == "per_segment":
+            rec["transfer"] = _promotion_rate(
+                ServerQueryExecutor(device=device), kept_segs["Q2.1"],
+                ctxs["Q2.1"], sync)
+            log(f"  13a promotion of Q2.1's {len(kept_segs['Q2.1'])} "
+                f"segments ({rec['transfer']['bytes']} B): demote "
+                f"{rec['transfer']['demote_gb_s']:.2f} GB/s, promote "
+                f"{rec['transfer']['promote_gb_s']:.2f} GB/s (host clock)")
+        else:
+            rec["batches_staged"] = ex.batches_staged
+            rec["batches_adopted"] = ex.batches_adopted
+        log(f"  13a {label}: every answer == oracle == phase 4; staged "
+            f"<= budget after each query; promotions {snap['promotions']}, "
+            f"demotions {snap['demotions']}, sliced queries "
+            f"{snap['slicedQueries']}, peak staged {snap['peakBytes']} B, "
+            f"host tier peak {snap['hostPeakBytes']} B, residents new "
+            f"after pass 1 (batches of other slices): {built_new}")
+        out["executors"][label] = rec
+        del ex
+    if on_card:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"  13a torch.cuda.max_memory_allocated "
+            f"{out['max_memory_allocated']} B (budget {budget} B)")
+
+    qid = "Q1.2"
+    small = estimate_segment_bytes(kept_segs[qid][0],
+                                   ctxs[qid].referenced_columns()) // 2
+    for cls in (ServerQueryExecutor, ShardedQueryExecutor):
+        ex = cls(device=device, hbm_budget_bytes=small)
+        t0 = time.perf_counter()
+        table, stats = ex.execute(ctxs[qid], segs)
+        ms = (time.perf_counter() - t0) * 1e3
+        _check_flight(qid, table, main["wants"][qid])
+        launched = (stats.scan_launches + stats.probe_launches
+                    + stats.general_launches + stats.sharded_scan_launches
+                    + stats.index_launches)
+        if _budget_decisions(stats) != {_SPILLED: 1} or launched \
+                or ex.residency.staged_bytes():
+            raise AssertionError(f"13a {qid} at {small} B: "
+                                 f"{stats.decisions}, {launched} launches")
+        log(f"  13a {qid} under one segment ({small} B, {cls.__name__}): "
+            f"host engine, {_SPILLED}, == numpy oracle, {ms:.1f} ms")
+    out["spill"] = {"query": qid, "budget_bytes": small}
+    return out
+
+
+def _needed_bytes_many(progs, words, values, num_docs, tiles) -> int:
+    """``_needed_bytes`` of one query-axis launch: each input byte read
+    once for all its programs (a late column's sectors where a doc passes
+    any program's filter), every program's outputs written."""
+    import torch
+
+    from pinot_tpu_torch.engine import fused_scan as fs
+
+    masks = [fs.doc_masks(p, words, num_docs, values, tiles) for p in progs]
+    valid = masks[0][0]
+    matched = torch.stack([m for _, m in masks]).any(dim=0)
+    early = set().union(*(p.early for p in progs))
+    total = 0
+    for c, w in enumerate(words):
+        S, T, W = w.shape
+        need = valid if c in early else matched
+        per_word = need.view(S * T, fs.TILE // W, W).any(dim=1)
+        total += SECTOR * _sectors(per_word, SECTOR // 4)
+    for v in values:
+        total += SECTOR * _sectors(matched, SECTOR // v.element_size())
+    p = progs[0]
+    outs = len(progs) * (p.G * (8 * (1 + p.n_isum + p.n_fsum) + 4 * p.n_mm)
+                         + 8 * num_docs.numel())
+    return total + 8 * num_docs.numel() + outs
+
+
+def _query_axis_kernel(name: str, progs, words, values, num_docs, tiles,
+                       iters: int = 20) -> dict:
+    """The query-axis launch over ``progs`` at its path's shape: held to
+    its plain version and to one solo launch a program (exact counts, int
+    sums and min/max, floats rel 1e-9), then timed (CUDA events, one
+    prepared launch enqueued back to back) beside Q solo launches, the
+    same launch with the one-query grid (not divided by Q), the plain
+    version and its byte bound."""
+    import torch
+
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.parallel import combine
+
+    many = (combine.sharded_fused_scan_many if not progs[0].probe
+            else lambda ps, w, v, nd, t: combine.sharded_fused_scan_probe_many(
+                ps, w, nd))
+    got = many(progs, words, values, num_docs, tiles)
+    plain = combine.sharded_fused_scan_many_plain(progs, words, values,
+                                                  num_docs, tiles)
+    err = 0.0
+    for q, (g, p) in enumerate(zip(got, plain)):
+        err = max(err, _compare(g, p, f"13b {name} query {q} (plain)"))
+        solo_argv, solo = fs.prepare_launch(progs[q], words, values,
+                                            num_docs, tiles)
+        fs.enqueue(solo_argv, torch.cuda.current_stream())
+        err = max(err, _compare(g, solo, f"13b {name} query {q} (solo)"))
+    stream = torch.cuda.current_stream()
+    argv, _ = fs.prepare_launch_many(progs, words, values, num_docs, tiles)
+    ms = _time_ms(lambda: fs.enqueue(argv, stream), iters)
+    lay = fs.scan_layout(progs[0])
+    grid = fs.launch_grid(lay.smem)
+    argv_full, _ = fs.prepare_launch_many(progs, words, values, num_docs,
+                                          tiles, grid_x=grid)
+    full_ms = _time_ms(lambda: fs.enqueue(argv_full, stream), iters)
+    solo_argvs = [fs.prepare_launch(p, words, values, num_docs, tiles)[0]
+                  for p in progs]
+
+    def solos():
+        for a in solo_argvs:
+            fs.enqueue(a, stream)
+    solo_ms = _time_ms(solos, iters)
+    plain_ms = _time_ms(lambda: combine.sharded_fused_scan_many_plain(
+        progs, words, values, num_docs, tiles), 2)
+    nbytes = _needed_bytes_many(progs, words, values, num_docs, tiles)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"kernel": name, "Q": len(progs), "ms": ms, "full_grid_ms": full_ms,
+           "solo_ms": solo_ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bytes": nbytes, "max_abs_err": err, "grid_x": -(-grid // len(
+               progs)), "one_query_grid": grid}
+    log(f"  13b {name} over {int(num_docs.numel())} segments, Q={len(progs)}"
+        f": == plain == {len(progs)} solo launches; {ms:.4f} ms/launch "
+        f"(grid x {row['grid_x']}; {full_ms:.4f} ms with the one-query "
+        f"grid {grid}), {len(progs)} solo launches {solo_ms:.4f} ms, "
+        f"{ms / bound:.1f}x bound {bound:.4f} ms ({nbytes} B), plain "
+        f"{plain_ms:.2f} ms")
+    return row
+
+
+def phase_coalesce(main: dict, device: str = "cuda", threads: int = 8
+                   ) -> dict:
+    """13b: ``threads`` client threads on one ShardedQueryExecutor. Each
+    runs C1-C8 (Q2.1 with other categories and supplier regions, every
+    variant over all 8 segments, one program layout), then Q2.1 as
+    written; then each binds one of P1-P8 (Q3.2 for another nation: the
+    probes at binding share a layout). Every answer equal to its solo
+    answer and the oracle; coalesced launches and saved launches counted
+    by the scheduler; QPS at 1 and ``threads`` threads, the batch sizes
+    and queue waits. The query-axis kernels (scan and probe) at the
+    shapes that launched: against their plain version and Q solo
+    launches, timed beside them and their byte bound."""
+    import threading
+
+    import torch
+
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor, combine
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import ssb
+
+    segs, wants = main["segs"], main["variant_wants"]
+    cids = list(ssb.COALESCE_QUERIES)
+    pids = list(ssb.PROBE_QUERIES)
+    ctxs = {v: compile_query(t) for v, t in main["variant_texts"].items()}
+    ctxs["Q2.1"] = main["ctxs"]["Q2.1"]
+    wants = {**wants, "Q2.1": main["wants"]["Q2.1"]}
+    bex = ShardedQueryExecutor(device=device)
+    solo = {}
+    for v in cids + ["Q2.1"]:
+        table, _ = bex.execute(ctxs[v], segs)     # binds
+        _check_flight(v, table, wants[v])
+        solo[v] = table.rows
+    keys = {bex._param_cache[(ctxs[v].sql, bex.batch_for(segs)[0]
+                              .segment_name, len(segs))].launch_key
+            for v in cids}
+    if len(keys) != 1:
+        raise AssertionError(f"13b: C1-C8 bound to {len(keys)} launch keys")
+    reps1 = 3
+    t0 = time.perf_counter()
+    for _ in range(reps1):
+        for v in cids:
+            bex.execute(ctxs[v], segs)
+    qps1 = reps1 * len(cids) / (time.perf_counter() - t0)
+
+    counters = {c.name: c for c in (combine.SHARDED_SCAN_MANY_COUNTER,
+                                    combine.SHARDED_PROBE_MANY_COUNTER)}
+    _reset(counters)
+    mark = bex.launcher.stats_snapshot()
+    records, errors = [], []
+    barrier = threading.Barrier(threads)
+    phase_t = {}
+
+    def client(t: int) -> None:
+        try:
+            barrier.wait(60)
+            if t == 0:
+                phase_t["c0"] = time.perf_counter()
+            for i in range(len(cids)):
+                v = cids[(t + i) % len(cids)]
+                table, stats = bex.execute(ctxs[v], segs)
+                if table.rows != solo[v]:
+                    raise AssertionError(f"13b {v}: rows differ from solo")
+                records.append((v, stats.launch))
+            barrier.wait(60)
+            if t == 0:
+                phase_t["c1"] = time.perf_counter()
+            table, stats = bex.execute(ctxs["Q2.1"], segs)
+            if table.rows != solo["Q2.1"]:
+                raise AssertionError("13b Q2.1: rows differ from solo")
+            records.append(("Q2.1", stats.launch))
+            if t == 0:
+                # a longer window while the P variants bind: their probes
+                # arrive over the binding's host work
+                bex.launcher.set_window(max_ms=5.0, hot_ms=20.0)
+            barrier.wait(60)
+            v = pids[t % len(pids)]
+            table, stats = bex.execute(ctxs[v], segs)
+            _check_flight(v, table, wants[v])
+            records.append((v, stats.launch))
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+            barrier.abort()
+
+    pool = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(300)
+    bex.launcher.set_window(max_ms=1.0, hot_ms=2.0)
+    if errors or any(th.is_alive() for th in pool):
+        raise AssertionError(f"13b: clients failed: {errors[:3]}")
+    launches = {name: c.launches for name, c in counters.items()}
+    snap = bex.launcher.stats_snapshot()
+    delta = {k: snap[k] - mark[k] for k in ("requests", "launches",
+                                            "coalescedLaunches",
+                                            "launchesSaved",
+                                            "dedupedRequests",
+                                            "batchedRequests")}
+    qps8 = threads * len(cids) / (phase_t["c1"] - phase_t["c0"])
+    sizes = [r["batchSize"] for _, r in records]
+    waits = [r["queueWaitMs"] for _, r in records]
+    if delta["coalescedLaunches"] <= 0 or delta["launchesSaved"] <= 0:
+        raise AssertionError(f"13b: no launch coalesced: {delta}")
+    if device == "cuda" and not all(launches.values()):
+        raise AssertionError(f"13b: a query-axis kernel never launched: "
+                             f"{launches}")
+    out = {"qps_1": qps1, f"qps_{threads}": qps8, "scheduler": delta,
+           "launches": launches,
+           "batch_sizes": {str(n): sizes.count(n) for n in sorted(set(sizes))},
+           "queue_wait_p50_ms": float(np.percentile(waits, 50)),
+           "queue_wait_p99_ms": float(np.percentile(waits, 99))}
+    log(f"  13b {threads} threads x C1-C8, then Q2.1, then P1-P8: every "
+        f"answer == its solo answer == numpy oracle; QPS {qps1:.1f} at 1 "
+        f"thread, {qps8:.1f} at {threads}; scheduler {delta}; query-axis "
+        f"launches {launches}; batch sizes {out['batch_sizes']}; queue wait "
+        f"p50 {out['queue_wait_p50_ms']:.3f} ms p99 "
+        f"{out['queue_wait_p99_ms']:.3f} ms")
+
+    if device != "cuda":
+        return out
+    bounds = [bex._param_cache[(ctxs[v].sql, bex.batch_for(segs)[0]
+                                .segment_name, len(segs))] for v in cids]
+    inp = bounds[0].inputs
+    rows = [_query_axis_kernel(
+        "sharded_fused_scan_many", [b.params for b in bounds], inp.words,
+        inp.values, inp.num_docs, inp.tiles)]
+    probes = []
+    for v in pids:
+        b = next(b for k, b in bex._param_cache.items() if k[0] == ctxs[v].sql)
+        probes.append(b)
+    layouts = {b.probe[0].layout_key() for b in probes}
+    if len(layouts) != 1:
+        raise AssertionError(f"13b: P1-P8 probes in {len(layouts)} layouts")
+    pin = probes[0].inputs
+    rows.append(_query_axis_kernel(
+        "sharded_fused_scan_probe_many", [b.probe[0] for b in probes],
+        probes[0].probe[1], [], pin.num_docs, pin.tiles))
+    out["kernels"] = rows
+    del bex
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_startree_budget(segs, ctxs: dict, wants: dict, kept_segs: dict,
+                          device: str = "cuda", threads: int = 8) -> dict:
+    """13c: phase 12's trees under a budget of 1.5x one segment's largest
+    tree: the 13 flights twice through ServerQueryExecutor on the
+    star-tree device rung, node arrays demoted to the host tier after the
+    queries that staged them and promoted when the next query needs them
+    (every segment that comes back in the second pass comes back by
+    promotion), rows equal to the oracle, the staged bytes within the
+    budget after each query; then ``threads`` concurrent identical
+    queries share node-slice launches (the flight's hits)."""
+    import threading
+
+    import torch
+
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.tools import ssb
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    per_seg = max(t.nbytes() for s in segs for t in s.star_trees)
+    budget = int(1.5 * per_seg)
+    ex = ServerQueryExecutor(device=device, hbm_budget_bytes=budget)
+    out = {"budget_bytes": budget, "passes": []}
+    for p in range(2):
+        snap0 = ex.residency.stats_snapshot()
+        t0 = time.perf_counter()
+        for qid in ssb.QUERIES:
+            table, stats = ex.execute(ctxs[qid], segs)
+            sync()
+            _check_flight(qid, table, wants[qid])
+            # admission may slice (a lease over the columns' estimate);
+            # the node arrays of a slice go out after it
+            st = stats.staging
+            if (_SPILLED in _budget_decisions(stats) or st["spills"]
+                    or (ctxs[qid].group_by
+                        and stats.group_by_rung != "startree_device")):
+                raise AssertionError(f"13c {qid}: {stats.decisions}, rung "
+                                     f"{stats.group_by_rung}")
+            if ex.residency.staged_bytes() > budget:
+                raise AssertionError(f"13c {qid}: staged past the budget")
+            if p and st["misses"] != st["promotions"]:
+                raise AssertionError(f"13c {qid} pass 2: {st['misses']} "
+                                     f"staged, {st['promotions']} promoted")
+        snap = ex.residency.stats_snapshot()
+        row = {k: snap[k] - snap0[k] for k in (
+            "demotions", "promotions", "misses", "demotedBytes",
+            "promotedBytes")}
+        row["seconds"] = time.perf_counter() - t0
+        out["passes"].append(row)
+        log(f"  13c pass {p + 1} under {budget} B (1.5x one segment's "
+            f"largest tree): 13 flights == numpy oracle on the star-tree "
+            f"rung; {row}")
+    if not (out["passes"][1]["demotions"] and out["passes"][1]["promotions"]):
+        raise AssertionError(f"13c: no node array demoted and promoted: "
+                             f"{out['passes']}")
+    qid = "Q2.1"
+    ctx = ctxs[qid]
+    ex.execute(ctx, segs)
+    hits = 0
+    for rnd in range(5):
+        h0 = ex.kernel_flight.hits
+        barrier = threading.Barrier(threads)
+        errors = []
+
+        def client():
+            try:
+                barrier.wait(60)
+                table, stats = ex.execute(ctx, segs)
+                _check_flight(qid, table, wants[qid])
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        pool = [threading.Thread(target=client) for _ in range(threads)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join(120)
+        if errors:
+            raise AssertionError(f"13c: {errors[:3]}")
+        hits = ex.kernel_flight.hits - h0
+        if hits:
+            break
+    if not hits:
+        raise AssertionError("13c: no concurrent node slice was shared")
+    out["flight_hits"] = hits
+    out["flight_rounds"] = rnd + 1
+    log(f"  13c {threads} concurrent {qid}s: {hits} node-slice launches "
+        f"shared (the flight's hits), round {rnd + 1}; == numpy oracle")
+    return out
 
 
 # -- phase 12: the star-tree -----------------------------------------------------
@@ -2612,8 +3146,13 @@ def phase_startree(sf: float, segments: int, seed: int, reps: int,
     log(f"  node columns staged: {staged} bytes"
         + (f"; torch.cuda.max_memory_allocated "
            f"{torch.cuda.max_memory_allocated()} bytes" if on_card else ""))
+    del ex, bex
+    log("phase 13c: the star-tree's node arrays under a budget")
+    budget_run = phase_startree_budget(segs, ctxs, wants, kept_segs,
+                                       device=device)
     return {"sf": sf, "rows": rows, "build_s": build_s, "trees": trees,
-            "flights": flights, "routes": routes, "staged_bytes": staged}
+            "flights": flights, "routes": routes, "staged_bytes": staged,
+            "budget": budget_run}
 
 
 # phase 12's default SSB scale: its tree build and queries within about
@@ -2635,9 +3174,9 @@ def _phase_12(args, card: str) -> dict:
 
 
 def _phases_2_to_11(args, smi: str) -> tuple:
-    """Phases 2-11: the fused-scan kernel and every earlier path. ->
-    (their report, the kernels line's rows, their part of the rungs
-    line)."""
+    """Phases 2-11 and 13a-b: the fused-scan kernel, every earlier path,
+    then residency and coalescing on phase 4's segments. -> (their
+    report, the kernels line's rows, their part of the rungs line)."""
     import torch
 
     from pinot_tpu_torch.engine import _build
@@ -2725,6 +3264,13 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     del users_run["segs"], users_run["frames"]
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
 
+    log("phase 13: residency, sliced execution and launch coalescing on "
+        "phase 4's segments (13c runs with phase 12)")
+    t0 = time.perf_counter()
+    budget_run = phase_budget(main_run, batch_run["per_flight"], args.reps)
+    coalesce_run = phase_coalesce(main_run)
+    log(f"  phase 13a-b: {time.perf_counter() - t0:.1f} s")
+
     # each path's launches, read after its own run: phases 4 and 6 (per
     # segment and batch), 8 (per segment and batch) and 9
     launches = {k: 0 for k in main_run["launches"]}
@@ -2756,6 +3302,21 @@ def _phases_2_to_11(args, smi: str) -> tuple:
             "plain_ms": float(np.mean([r["plain_ms"] for r in rs])),
             "bound_ms": float(np.mean([r["bound_ms"] for r in rs])),
             "bound_by": "bytes", "library_ms": None})
+    # the query axis: launches from 13b's concurrent run, ms and error at
+    # the shapes that launched
+    for r, replaces in zip(coalesce_run["kernels"], (
+            "pinot_tpu/parallel/combine.py:298 under jax.vmap "
+            "(pinot_tpu/parallel/launcher.py:92)",
+            "pinot_tpu/parallel/combine.py:360 under jax.vmap "
+            "(pinot_tpu/parallel/launcher.py:92)")):
+        kernels.append({
+            "name": r["kernel"], "route": "cuda",
+            "source": "pinot_tpu_torch/engine/csrc/fused_scan.cu",
+            "replaces": replaces,
+            "launches": coalesce_run["launches"][r["kernel"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": None})
     report = {"ptxas": ptxas, "per_flight": main_run["per_flight"],
               "batch_per_flight": batch_run["per_flight"],
               "batch_per_flight_by_flight":
@@ -2772,7 +3333,8 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "sql": {k: v for k, v in sql_run.items() if k != "timing"},
               "time": time_run, "text": text_run,
               "host": host_run, "combine": combine_run,
-              "index": index_run}
+              "index": index_run, "budget": budget_run,
+              "coalesce": coalesce_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]

@@ -92,6 +92,16 @@
 // flushed to out_matched[s] whenever a block's next tile lies in another
 // segment, and at the end. Outputs are zeroed or set to +-inf by the
 // caller; the kernel allocates nothing and runs on the caller's stream.
+//
+// Query axis: one launch may serve Q programs of one layout (the same
+// sections, lengths, rows and group count: they differ only in literal
+// words) over the same batch. The programs are stacked [Q, prog_len] and
+// each query's outputs lie out_qstride bytes after the previous query's;
+// block (x, y) walks the tiles for query y. It is the counterpart of
+// jax.vmap over the sharded Pallas call (pinot_tpu/parallel/launcher.py
+// run_many): concurrent same-shape queries share one launch, and the
+// persistent grid's x extent is the one-query grid divided by Q, so the
+// blocks of all queries together fill the SMs once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,6 +131,7 @@ enum {
   A_N_ISUM, A_N_FSUM, A_N_MM, A_SCALAR, A_ACC_SMEM, A_OUT_CNT, A_OUT_ISUM,
   A_OUT_FSUM, A_OUT_MM, A_OUT_MATCHED, A_SMEM, A_PROG_SMEM_OFF,
   A_MSTACK_OFF, A_VSTACK_OFF, A_ACC_OFF, A_RACC_OFF, A_WLIST_OFF, A_N_OPND,
+  A_Q, A_OUT_QSTRIDE, A_GRID_X,
   A_PACKED = 48, A_LOG2_BITS = 64, A_VALUES = 80, A_VTYPES = 96,
   A_SLOT_PACKED = 112, A_SLOT_VALUE = 128, A_LEN = 144
 };
@@ -153,7 +164,14 @@ struct ScanArgs {
   double* out_fsum;
   float* out_mm;
   u64* out_matched;             // [S] docs passing the filter, per segment
+  long long out_qstride;        // bytes from one query's outputs to the next
 };
+
+// query blockIdx.y's copy of an output
+template <class T>
+__device__ __forceinline__ T* qout(T* p, const ScanArgs& a) {
+  return (T*)((char*)p + (size_t)blockIdx.y * a.out_qstride);
+}
 
 // ---- packed dictIds ---------------------------------------------------------
 
@@ -498,7 +516,7 @@ __device__ __forceinline__ void flush_matched(const ScanArgs& a, int seg,
                                               unsigned matched) {
   const long long m = warp_sum((long long)matched);
   if ((threadIdx.x & 31) == 0 && m && seg >= 0)
-    atomicAdd(&a.out_matched[seg], (u64)m);
+    atomicAdd(&qout(a.out_matched, a)[seg], (u64)m);
 }
 
 // a grouped scan's accumulators: the block's own in shared memory, or the
@@ -513,7 +531,9 @@ struct Acc {
 
 __device__ __forceinline__ Acc accumulators(const ScanArgs& a,
                                             unsigned char* smem) {
-  if (!a.acc_in_smem) return {a.out_cnt, a.out_isum, a.out_fsum, a.out_mm};
+  if (!a.acc_in_smem)
+    return {qout(a.out_cnt, a), qout(a.out_isum, a), qout(a.out_fsum, a),
+            qout(a.out_mm, a)};
   const size_t G = a.G;
   unsigned char* p = smem + a.acc_off;
   return {(u64*)p, (u64*)(p + G * 8), (double*)(p + G * 8 * (1 + a.n_isum)),
@@ -581,7 +601,8 @@ fused_scan_kernel(const __grid_constant__ ScanArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int* P = (int*)(smem + a.prog_smem_off);
-  for (int i = tid; i < a.prog_len; i += BLOCK) P[i] = a.prog[i];
+  const int* prog = a.prog + (size_t)blockIdx.y * a.prog_len;  // query y's
+  for (int i = tid; i < a.prog_len; i += BLOCK) P[i] = prog[i];
   const int G = a.G;
   if (a.acc_in_smem) {
     const Acc acc = accumulators(a, smem);
@@ -590,7 +611,7 @@ fused_scan_kernel(const __grid_constant__ ScanArgs a) {
   }
   if (a.scalar)
     for (int r = 0; r < a.n_rows; ++r) {
-      const int kind = a.prog[a.rows_off + 3 * r];
+      const int kind = prog[a.rows_off + 3 * r];
       ((u64*)(smem + a.racc_off))[r * BLOCK + tid] =
           kind == R_MIN ? 0x7f800000ull : kind == R_MAX ? 0xff800000ull : 0ull;
     }
@@ -656,7 +677,7 @@ fused_scan_kernel(const __grid_constant__ ScanArgs a) {
   flush_matched(a, seg, lmatched);
   if (a.scalar) {
     const long long cnt_w = warp_sum((long long)lcnt);
-    if (lane == 0 && cnt_w) atomicAdd(&a.out_cnt[0], (u64)cnt_w);
+    if (lane == 0 && cnt_w) atomicAdd(&qout(a.out_cnt, a)[0], (u64)cnt_w);
     for (int r = 0; r < a.n_rows; ++r) {
       const int* row = P + a.rows_off + 3 * r;
       const int o = row[2];
@@ -664,22 +685,22 @@ fused_scan_kernel(const __grid_constant__ ScanArgs a) {
       switch (row[0]) {
         case R_ISUM: {
           const long long t = warp_sum((long long)v);
-          if (lane == 0 && cnt_w) atomicAdd(&a.out_isum[o], (u64)t);
+          if (lane == 0 && cnt_w) atomicAdd(&qout(a.out_isum, a)[o], (u64)t);
           break;
         }
         case R_FSUM: {
           const double t = warp_sum(__longlong_as_double((long long)v));
-          if (lane == 0 && cnt_w) atomicAdd(&a.out_fsum[o], t);
+          if (lane == 0 && cnt_w) atomicAdd(&qout(a.out_fsum, a)[o], t);
           break;
         }
         case R_MIN: {
           const float t = warp_min(__uint_as_float((uint32_t)v));
-          if (lane == 0 && cnt_w) atomic_min_f(&a.out_mm[o], t);
+          if (lane == 0 && cnt_w) atomic_min_f(&qout(a.out_mm, a)[o], t);
           break;
         }
         default: {
           const float t = warp_max(__uint_as_float((uint32_t)v));
-          if (lane == 0 && cnt_w) atomic_max_f(&a.out_mm[o], t);
+          if (lane == 0 && cnt_w) atomic_max_f(&qout(a.out_mm, a)[o], t);
         }
       }
     }
@@ -691,15 +712,15 @@ fused_scan_kernel(const __grid_constant__ ScanArgs a) {
   for (int g = tid; g < G; g += BLOCK) {
     const u64 c = acc.cnt[g];
     if (c == 0) continue;
-    atomicAdd(&a.out_cnt[g], c);
+    atomicAdd(&qout(a.out_cnt, a)[g], c);
     for (int r = 0; r < a.n_rows; ++r) {
       const int* row = P + a.rows_off + 3 * r;
       const size_t at = (size_t)row[2] * G + g;
       switch (row[0]) {
-        case R_ISUM: atomicAdd(&a.out_isum[at], acc.isum[at]); break;
-        case R_FSUM: atomicAdd(&a.out_fsum[at], acc.fsum[at]); break;
-        case R_MIN: atomic_min_f(&a.out_mm[at], acc.mm[at]); break;
-        default: atomic_max_f(&a.out_mm[at], acc.mm[at]);
+        case R_ISUM: atomicAdd(&qout(a.out_isum, a)[at], acc.isum[at]); break;
+        case R_FSUM: atomicAdd(&qout(a.out_fsum, a)[at], acc.fsum[at]); break;
+        case R_MIN: atomic_min_f(&qout(a.out_mm, a)[at], acc.mm[at]); break;
+        default: atomic_max_f(&qout(a.out_mm, a)[at], acc.mm[at]);
       }
     }
   }
@@ -791,20 +812,27 @@ extern "C" int fused_scan_launch(const long long* argv, void* stream) {
   a.out_fsum = (double*)argv[A_OUT_FSUM];
   a.out_mm = (float*)argv[A_OUT_MM];
   a.out_matched = (u64*)argv[A_OUT_MATCHED];
+  a.out_qstride = argv[A_OUT_QSTRIDE];
+  const long long q = argv[A_Q];
   for (int c = 0; c < a.n_packed && c < MAX_COLS; ++c)
     if (a.lb[c] < 0 || a.lb[c] > 5) return (int)cudaErrorInvalidValue;
   const int smem = (int)argv[A_SMEM];
   if (a.n_packed > MAX_COLS || a.n_values > MAX_COLS || a.n_packed < 0
       || a.seg_tiles < 1 || a.num_tiles % a.seg_tiles != 0
       || a.num_tiles >= (1LL << 31) || a.seg_tiles * TILE >= (1LL << 31)
-      || a.n_opnd < 0 || a.n_opnd > MAX_OPND || smem > SMEM_BLOCK_MAX)
+      || a.n_opnd < 0 || a.n_opnd > MAX_OPND || smem > SMEM_BLOCK_MAX
+      || q < 1 || q > 65535 || (q > 1 && a.out_qstride <= 0)
+      || argv[A_GRID_X] < 0)
     return (int)cudaErrorInvalidValue;
   int grid = 0;
   int err = grid_for(smem, &grid);
   if (err != 0) return err;
+  // the Q queries share the one-query grid, unless the caller names x
+  grid = argv[A_GRID_X] > 0 ? (int)argv[A_GRID_X]
+                            : (int)((grid + q - 1) / q);
   if (grid > a.num_tiles) grid = (int)a.num_tiles;
   if (grid < 1) grid = 1;
-  fused_scan_kernel<<<(unsigned int)grid, BLOCK, smem,
+  fused_scan_kernel<<<dim3((unsigned int)grid, (unsigned int)q), BLOCK, smem,
                       (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

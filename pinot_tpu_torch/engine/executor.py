@@ -39,24 +39,43 @@ is kept). Then, routed as the JAX executor routes it (:462-466, :681-694):
 
 then merge, the ``num_groups_limit`` trim, and reduce.
 ``use_fused_scan=False`` (JAX: ``use_pallas=False``) sends every plan to
-the general rung. There is no route to the host engine that the JAX
-executor does not take: neither its ``device_disabled`` backend route nor
-its residency spill is ported, and nothing runs on the CPU unless the
-executor was built with ``device="cpu"``. Segments run one after another
-on the current stream; ``_execute_aggregation`` and ``_execute_group_by``
-are the points a subclass overrides to combine segments otherwise
+the general rung.
+
+Residency (``engine/residency.py``, JAX :483-528): every query opens a
+lease after pruning (``_begin_lease``). Admission may grant a sliced
+lease, recorded as ``residency:resident_device->sliced_device:
+working_set_over_budget_sliceable``: the segments then run one at a time,
+each released (unpinned, demoted to the host tier past the budget)
+before the next stages. It may refuse the device, recorded as
+``residency:device->host_engine:<reason>``: the query then runs on the
+host engine (the metadata answer and a fitting star-tree's host walker
+still serve), as the JAX executor's spill does. That is the one route to
+the host engine besides those of the plans themselves; it is taken by
+admission only, never on a failure, and nothing runs on the CPU unless
+the executor was built with ``device="cpu"``. The lease pins every
+resident the query stages until ``end_query``, which sets
+``QueryStats.staging``. Identical concurrent launches (the same cached
+plan on the same staged segment, or the same compiled query on the same
+staged star-tree) share one run through ``kernel_flight``; a plan with
+the upsert valid-doc leaf never does. The plan cache is locked, so
+threads may share one executor. Segments run one after another on the
+current stream; ``_execute_aggregation`` and ``_execute_group_by`` are
+the points a subclass overrides to combine segments otherwise
 (``pinot_tpu_torch.parallel.ShardedQueryExecutor``, whose batch path
 serves every plan on the fused scan or the jnp combine).
 """
 
 from __future__ import annotations
 
+import threading
+
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common.singleflight import SingleFlight
 from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine import (
     fused_scan,
@@ -75,6 +94,7 @@ from pinot_tpu_torch.engine.errors import PlanError, QueryError
 from pinot_tpu_torch.engine.host_eval import VIRTUAL_COLUMNS
 from pinot_tpu_torch.engine.plan import SegmentPlan, plan_segment
 from pinot_tpu_torch.engine.pruner import prune_segments
+from pinot_tpu_torch.engine.residency import AUTO, QueryLease, ResidencyManager
 from pinot_tpu_torch.engine.results import (
     AggResult,
     GroupByResult,
@@ -102,29 +122,43 @@ DEFAULT_NUM_GROUPS_LIMIT = 100_000
 
 
 class ServerQueryExecutor:
-    """One per server; owns the staged segments of one device."""
+    """One per server; owns the residency of one device."""
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
                  use_fused_scan: bool = True,
-                 num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT):
+                 num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT,
+                 hbm_budget_bytes=None, host_budget_bytes=None,
+                 config=None):
         self.device = resolve_device(device)
         self.use_fused_scan = use_fused_scan
         self.num_groups_limit = num_groups_limit
-        # segment name -> (segment, its staged image)
-        self._staged: Dict[str, Tuple[ImmutableSegment, StagedSegment]] = {}
+        self.config = config
+        # None: from the config keys, then the card's memory / the host's
+        # available memory; <= 0: uncapped (JAX :96-117)
+        self.residency = ResidencyManager(
+            budget_bytes=AUTO if hbm_budget_bytes is None
+            else hbm_budget_bytes,
+            host_budget_bytes=(AUTO if host_budget_bytes is None
+                               else host_budget_bytes),
+            config=config, device=self.device)
         # (sql, segment name, upsert-managed) -> (segment, its plan), least
         # recently used first
         self._plans: "OrderedDict[Tuple[str, str], Tuple]" = OrderedDict()
+        self._plans_lock = threading.Lock()
         self.kernels = kernels.KernelCache()
         self.selection_cache = SelectionCache()
+        self.kernel_flight = SingleFlight()
 
-    def stage(self, segment: ImmutableSegment) -> StagedSegment:
-        hit = self._staged.get(segment.segment_name)
-        if hit is not None and hit[0] is segment:
-            return hit[1]
-        staged = StagedSegment(segment, device=self.device)
-        self._staged[segment.segment_name] = (segment, staged)
-        return staged
+    def stage(self, segment: ImmutableSegment,
+              stats: Optional[QueryStats] = None) -> StagedSegment:
+        """The segment's resident, pinned by the lease of ``stats``."""
+        return self.residency.stage(segment, stats.lease if stats is not None
+                                    else None)
+
+    def evict_segment(self, segment_name: str) -> None:
+        """Drop a segment's arrays from both tiers (unassigned or
+        reloaded)."""
+        self.residency.evict(segment_name)
 
     def execute(self, ctx: QueryContext, segments: List[ImmutableSegment]
                 ) -> Tuple[ResultTable, QueryStats]:
@@ -142,7 +176,12 @@ class ServerQueryExecutor:
         general0 = kernels.RUNG_COUNTER.launches
         index0 = index_exec.INDEX_COUNTER.launches
         startree0 = startree_device.STARTREE_COUNTER.launches
-        table = self._execute_pruned(ctx, segments, stats)
+        self._begin_lease(ctx, segments, stats)
+        try:
+            table = self._execute_pruned(ctx, segments, stats)
+        finally:
+            self.residency.end_query(stats.lease, stats)
+            stats.lease = None
         stats.scan_launches = fused_scan.SCAN_COUNTER.launches - scans0
         stats.probe_launches = fused_scan.PROBE_COUNTER.launches - probes0
         stats.general_launches = kernels.RUNG_COUNTER.launches - general0
@@ -150,6 +189,43 @@ class ServerQueryExecutor:
         stats.startree_launches = (startree_device.STARTREE_COUNTER.launches
                                    - startree0)
         return table, stats
+
+    def _begin_lease(self, ctx: QueryContext,
+                     segments: List[ImmutableSegment],
+                     stats: QueryStats) -> QueryLease:
+        """Admission for the kept segments (JAX ``_begin_lease``): only an
+        aggregation or group-by can slice; a selection or DISTINCT fits or
+        goes to the host engine."""
+        sliceable = not ctx.distinct and not ctx.is_selection
+        lease = self.residency.begin_query(segments,
+                                           ctx.referenced_columns(),
+                                           sliceable=sliceable)
+        if not lease.device_allowed:
+            record_decision(stats, "residency", "host_engine", "device",
+                            lease.admit_reason)
+        elif lease.sliced:
+            record_decision(stats, "residency", "sliced_device",
+                            "resident_device", lease.admit_reason)
+        stats.lease = lease
+        return lease
+
+    @staticmethod
+    def _device_admitted(stats: QueryStats) -> bool:
+        """False when admission sent the query to the host engine."""
+        return stats.lease is None or stats.lease.device_allowed
+
+    def _map_segments(self, fn: Callable, segments: List[ImmutableSegment],
+                      stats: QueryStats) -> List[Any]:
+        """``fn(segment)`` per segment; under a sliced lease each segment
+        is a slice, released before the next stages (JAX :591-597)."""
+        lease = stats.lease
+        sliced = lease is not None and lease.sliced
+        parts = []
+        for seg in segments:
+            parts.append(fn(seg))
+            if sliced:
+                self.residency.release_slice(lease)
+        return parts
 
     def _execute_pruned(self, ctx: QueryContext,
                         segments: List[ImmutableSegment],
@@ -176,7 +252,7 @@ class ServerQueryExecutor:
                    stats: QueryStats) -> ResultTable:
         """An ordered selection on the device top-k where it is eligible,
         else (and every unordered selection) on the host engine."""
-        if ctx.order_by:
+        if ctx.order_by and self._device_admitted(stats):
             table = device_selection(ctx, segments, self, stats)
             if table is not None:
                 return table
@@ -203,10 +279,11 @@ class ServerQueryExecutor:
                              segments: List[ImmutableSegment],
                              stats: QueryStats) -> AggResult:
         merged: Optional[AggResult] = None
-        for seg in segments:
-            part = _metadata_answer(ctx, aggs, seg, stats)
-            if part is None:
-                part = self._segment_aggregation(ctx, aggs, seg, stats)
+        for part in self._map_segments(
+                lambda seg: (_metadata_answer(ctx, aggs, seg, stats)
+                             or self._segment_aggregation(ctx, aggs, seg,
+                                                          stats)),
+                segments, stats):
             if merged is None:
                 merged = part
             else:
@@ -219,24 +296,27 @@ class ServerQueryExecutor:
         st = self._try_star_tree(ctx, aggs, seg, stats)
         if st is not None:
             return st[0]
-        part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
-                                         grouped=False)
-        if part is not None:
-            return part
-        try:
-            scan = self._scan_segment(ctx, seg, stats)
-            return decode_scalar_result(scan.plan, seg, scan.tree)
-        except PlanError as e:
-            record_decision(stats, "plan", "host_engine", "device_kernel",
-                            e.reason_code)
+        if self._device_admitted(stats):
+            part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
+                                             grouped=False)
+            if part is not None:
+                return part
+            try:
+                scan = self._scan_segment(ctx, seg, stats)
+                return decode_scalar_result(scan.plan, seg, scan.tree)
+            except PlanError as e:
+                record_decision(stats, "plan", "host_engine",
+                                "device_kernel", e.reason_code)
         return host_engine.host_aggregate_segment(ctx, aggs, seg, stats)
 
     def _execute_group_by(self, ctx: QueryContext, aggs: List[AggDef],
                           segments: List[ImmutableSegment],
                           stats: QueryStats) -> GroupByResult:
         merged = GroupByResult()
-        for seg in segments:
-            merged.merge(self._segment_group_by(ctx, aggs, seg, stats), aggs)
+        for part in self._map_segments(
+                lambda seg: self._segment_group_by(ctx, aggs, seg, stats),
+                segments, stats):
+            merged.merge(part, aggs)
         return merged
 
     def _segment_group_by(self, ctx: QueryContext, aggs: List[AggDef],
@@ -246,19 +326,20 @@ class ServerQueryExecutor:
         if st is not None:
             stats.record_rung(st[1])
             return st[0]
-        part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
-                                         grouped=True)
-        if part is not None:
-            return part
-        try:
-            scan = self._scan_segment(ctx, seg, stats)
-            part = decode_grouped_result(scan.plan, seg, scan.tree)
-            stats.record_rung(kernels.grouped_rung(scan.plan.spec,
-                                                   scan.tree))
-            return part
-        except PlanError as e:
-            record_decision(stats, "plan", "host_engine", "device_kernel",
-                            e.reason_code)
+        if self._device_admitted(stats):
+            part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
+                                             grouped=True)
+            if part is not None:
+                return part
+            try:
+                scan = self._scan_segment(ctx, seg, stats)
+                part = decode_grouped_result(scan.plan, seg, scan.tree)
+                stats.record_rung(kernels.grouped_rung(scan.plan.spec,
+                                                       scan.tree))
+                return part
+            except PlanError as e:
+                record_decision(stats, "plan", "host_engine",
+                                "device_kernel", e.reason_code)
         stats.record_rung("host")
         return host_engine.host_group_by_segment(ctx, aggs, seg, stats)
 
@@ -291,14 +372,17 @@ class ServerQueryExecutor:
                                                 on_decline=declined)
         if matches is None:
             return None
-        try:
-            res = startree_device.execute_star_tree_device(
-                self, ctx, aggs, seg, tree, matches, stats, tree_index)
-            rung = "startree_device"
-        except PlanError as e:
-            # the node plan is past the device's limits
-            record_decision(stats, "startree", "startree_host",
-                            "startree_device", e.reason_code)
+        res = None
+        if self._device_admitted(stats):
+            try:
+                res = startree_device.execute_star_tree_device(
+                    self, ctx, aggs, seg, tree, matches, stats, tree_index)
+                rung = "startree_device"
+            except PlanError as e:
+                # the node plan is past the device's limits
+                record_decision(stats, "startree", "startree_host",
+                                "startree_device", e.reason_code)
+        if res is None:
             res = startree_exec.execute_with_matches(ctx, aggs, seg, tree,
                                                      matches, stats)
             rung = "startree"
@@ -315,14 +399,21 @@ class ServerQueryExecutor:
         if ctx.sql is None:
             return plan_segment(ctx, seg)
         key = (ctx.sql, seg.segment_name, seg.valid_doc_ids is not None)
-        hit = self._plans.get(key)
-        if hit is not None and hit[0] is seg:
-            self._plans.move_to_end(key)
-            return hit[1]
+        with self._plans_lock:
+            hit = self._plans.get(key)
+            if hit is not None and hit[0] is seg:
+                self._plans.move_to_end(key)
+                return hit[1]
         plan = plan_segment(ctx, seg)
-        self._plans[key] = (seg, plan)
-        if len(self._plans) > PLAN_CACHE_CAP:
-            self._plans.popitem(last=False)
+        with self._plans_lock:
+            # a concurrent planner of the same key may have won: serve its
+            # plan, so identical queries share one flight key
+            hit = self._plans.get(key)
+            if hit is not None and hit[0] is seg:
+                return hit[1]
+            self._plans[key] = (seg, plan)
+            if len(self._plans) > PLAN_CACHE_CAP:
+                self._plans.popitem(last=False)
         return plan
 
     def _scan_segment(self, ctx: QueryContext, seg: ImmutableSegment,
@@ -331,18 +422,35 @@ class ServerQueryExecutor:
         off); the decision is recorded as the JAX executor records it. A
         plan neither serves raises ``PlanError``."""
         plan = self._plan_for(ctx, seg)
-        staged = self.stage(seg)
-        reasons: List[str] = []
-        scan = None
-        if self.use_fused_scan:
-            scan = fused_scan.run_segment(plan, staged,
-                                          on_decline=reasons.append)
-        else:
-            reasons.append("pallas_disabled_on_backend")
+        staged = self.stage(seg, stats)
+
+        def launch():
+            """-> (scan or the PlanError the general rung raised, the fused
+            scan's declines)."""
+            reasons: List[str] = []
+            scan = None
+            if self.use_fused_scan:
+                scan = fused_scan.run_segment(plan, staged,
+                                              on_decline=reasons.append)
+            else:
+                reasons.append("pallas_disabled_on_backend")
+            if scan is None:
+                try:
+                    scan = self._run_general(plan, staged)
+                except PlanError as e:
+                    scan = e
+            return scan, reasons
+
+        # identical concurrent queries (the same cached plan on the same
+        # resident) share one launch and copy; a valid-doc snapshot is
+        # taken per call, so an upsert plan never shares (JAX :225, :1054)
+        upsert = bool(plan.params) and plan.params[0] is None
+        (scan, reasons), _ = self.kernel_flight.do(
+            None if upsert else ("scan", id(plan), id(staged)), launch)
         for r in reasons:
             record_decision(stats, "pallas", "jnp_kernel", "pallas_kernel", r)
-        if scan is None:
-            scan = self._run_general(plan, staged)
+        if isinstance(scan, PlanError):
+            raise scan
         stats.num_segments_processed += 1
         stats.total_docs += seg.num_docs
         stats.num_docs_scanned += scan.matched

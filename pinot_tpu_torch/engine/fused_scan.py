@@ -30,11 +30,17 @@ launch counters): CUDA tensors launch the kernel, CPU tensors run
 ``fused_scan_plain``, the same function in plain PyTorch. All outputs
 are views of one buffer, so ``assemble_outputs`` brings them to the host in
 one copy (the JAX package's ``pack_outputs``/``unpack_outputs``).
+
+``counted_scan_many`` is one launch over Q programs of one layout
+(``ScanProgram.layout_key``: they differ only in literal words) on the
+same inputs, the kernel's query axis; its plain version is
+``fused_scan_many_plain``, a loop of ``fused_scan_plain``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -495,6 +501,24 @@ class ScanProgram:
             self._on[device] = t
         return t
 
+    def layout_key(self) -> Tuple:
+        """What two programs must share to run as one launch of the query
+        axis: every size and offset the launch's argv takes, the group
+        key offset, and the program's words with its literals (LITC / LITF
+        operands, group strides, interval bounds) zeroed. Programs equal
+        in it differ only in literal words."""
+        words = self.prog.copy()
+        for i in range(self.vops_off, self.expr_off, 4):
+            if words[i] in (V_LITC, V_LITF):
+                words[i + 1] = 0
+        words[self.group_off + 1:self.iv_off:2] = 0
+        words[self.iv_off:] = 0
+        return (self.probe, self.G, self.scalar, self.key_offset,
+                self.bits, self.value_is_int, self.filter_depth,
+                self.value_depth, self.operands, self.rows, self.n_exprs,
+                self.filter_n, self.n_group, self.n_isum, self.n_fsum,
+                self.n_mm, words.tobytes())
+
 
 def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
                     probe: bool = False) -> ScanProgram:
@@ -636,14 +660,21 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
 
 class KernelCounter:
     """Launches of one kernel: incremented only where the kernel is
-    launched, so a run can show the main path went through it."""
+    launched, so a run can show the main path went through it. Threads
+    may launch concurrently, so ``add`` holds a lock."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.launches += 1
 
     def reset(self) -> None:
-        self.launches = 0
+        with self._lock:
+            self.launches = 0
 
 
 SCAN_COUNTER = KernelCounter("fused_scan")
@@ -792,8 +823,41 @@ def counted_scan(prog: ScanProgram, packed: List[torch.Tensor],
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     out = _launch(prog, packed, values, num_docs, tiles)
-    counter.launches += 1
+    counter.add()
     return out
+
+
+def counted_scan_many(progs: List[ScanProgram], packed: List[torch.Tensor],
+                      values: List[torch.Tensor], num_docs: torch.Tensor,
+                      counter: KernelCounter, tiles: Optional[int] = None
+                      ) -> List[ScanOutputs]:
+    """Q programs of one layout over the same inputs, one outputs each:
+    one launch of the kernel's query axis on a CUDA tensor (``counter``
+    adds one), ``fused_scan_many_plain`` on a CPU tensor."""
+    if not progs:
+        raise ValueError("no programs")
+    key = progs[0].layout_key()
+    if any(p.layout_key() != key for p in progs[1:]):
+        raise ValueError("the programs of one launch must share a layout")
+    device = _check_inputs(progs[0], packed, values, num_docs, tiles)
+    if device.type == "cpu":
+        return fused_scan_many_plain(progs, packed, values, num_docs, tiles)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    argv, outs = prepare_launch_many(progs, packed, values, num_docs, tiles)
+    enqueue(argv, torch.cuda.current_stream(num_docs.device))
+    counter.add()
+    return outs
+
+
+def fused_scan_many_plain(progs: List[ScanProgram],
+                          packed: List[torch.Tensor],
+                          values: List[torch.Tensor], num_docs: torch.Tensor,
+                          tiles: Optional[int] = None) -> List[ScanOutputs]:
+    """The query axis in plain PyTorch: one ``fused_scan_plain`` a
+    program."""
+    return [fused_scan_plain(p, packed, values, num_docs, tiles)
+            for p in progs]
 
 
 # argv slots shared with csrc/fused_scan.cu (fused_scan_launch)
@@ -803,7 +867,7 @@ def counted_scan(prog: ScanProgram, packed: List[torch.Tensor],
  _A_N_ISUM, _A_N_FSUM, _A_N_MM, _A_SCALAR, _A_ACC_SMEM, _A_OUT_CNT,
  _A_OUT_ISUM, _A_OUT_FSUM, _A_OUT_MM, _A_OUT_MATCHED, _A_SMEM,
  _A_PROG_SMEM_OFF, _A_MSTACK_OFF, _A_VSTACK_OFF, _A_ACC_OFF, _A_RACC_OFF,
- _A_WLIST_OFF, _A_N_OPND) = range(36)
+ _A_WLIST_OFF, _A_N_OPND, _A_Q, _A_OUT_QSTRIDE, _A_GRID_X) = range(39)
 _A_PACKED, _A_LOG2_BITS, _A_VALUES, _A_VTYPES = 48, 64, 80, 96
 _A_SLOT_PACKED, _A_SLOT_VALUE = 112, 128
 _A_LEN = 144
@@ -922,6 +986,7 @@ def _argv_template(prog: ScanProgram, S: int, seg_tiles: int, device
     argv[_A_RACC_OFF] = lay.racc_off
     argv[_A_WLIST_OFF] = lay.wlist_off
     argv[_A_N_OPND] = len(prog.operands)
+    argv[_A_Q] = 1
     argv[_A_SLOT_PACKED:_A_SLOT_PACKED + MAX_COLS] = -1
     argv[_A_SLOT_VALUE:_A_SLOT_VALUE + MAX_COLS] = -1
     for k, (is_packed, c) in enumerate(prog.operands):
@@ -953,6 +1018,43 @@ def prepare_launch(prog: ScanProgram, packed, values, num_docs, tiles=None
         argv[_A_VALUES + i] = v.data_ptr()
         argv[_A_VTYPES + i] = _TORCH_VTYPE[v.dtype]
     return argv, out
+
+
+def prepare_launch_many(progs: List[ScanProgram], packed, values, num_docs,
+                        tiles=None, grid_x: int = 0
+                        ) -> Tuple[np.ndarray, List[ScanOutputs]]:
+    """The argv of one query-axis launch over ``progs`` (one layout) and
+    each program's outputs: the programs stacked [Q, prog_len] on the
+    device, the outputs rows of one [Q, n] buffer. ``grid_x`` > 0 names
+    the grid's x extent (else the one-query grid divided by Q)."""
+    device = num_docs.device
+    S, seg_tiles = scan_shape(packed, values, num_docs, tiles)
+    template = _argv_template(progs[0], S, seg_tiles, device)
+    stacked = torch.from_numpy(np.stack([p.prog for p in progs])).to(device)
+    one = _alloc_outputs(progs[0], S, device)
+    n = one.buf.numel()
+    buf = one.buf.repeat(len(progs))     # every row zeroed, +-inf set
+    outs = [_carve(buf[q * n:(q + 1) * n], one.layout)
+            for q in range(len(progs))]
+    argv = template.copy()
+    argv[_A_PROG] = stacked.data_ptr()
+    argv[_A_Q] = len(progs)
+    argv[_A_OUT_QSTRIDE] = n * 8
+    argv[_A_GRID_X] = grid_x
+    argv[_A_NUM_DOCS] = num_docs.data_ptr()
+    argv[_A_OUT_CNT] = outs[0].cnt.data_ptr()
+    argv[_A_OUT_ISUM] = outs[0].isum.data_ptr()
+    argv[_A_OUT_FSUM] = outs[0].fsum.data_ptr()
+    argv[_A_OUT_MM] = outs[0].mm.data_ptr()
+    argv[_A_OUT_MATCHED] = outs[0].matched.data_ptr()
+    for i, w in enumerate(packed):
+        argv[_A_PACKED + i] = w.data_ptr()
+    for i, v in enumerate(values):
+        argv[_A_VALUES + i] = v.data_ptr()
+        argv[_A_VTYPES + i] = _TORCH_VTYPE[v.dtype]
+    # ``stacked`` may be freed once the launch is enqueued: the allocator
+    # reuses its memory only after the kernel, in stream order
+    return argv, outs
 
 
 def enqueue(argv: np.ndarray, stream: "torch.cuda.Stream") -> None:
@@ -1180,14 +1282,17 @@ class ScanInputs:
                                  self.num_docs, self.tiles)
 
 
-def scan_inputs(plan, staged, on_decline: Callable = None
+def scan_inputs(plan, staged, on_decline: Callable = None,
+                run_probe: Optional[Callable] = None
                 ) -> Optional[ScanInputs]:
     """The scan program and staged columns of a plan over ``staged``, a
     ``StagedSegment`` (launched through ``SEGMENT_KERNELS``) or a staged
     segment batch (anything with ``provider``, ``packed_column``,
     ``value_column``, ``num_docs_tensor``, ``scan_capacity`` and its own
     ``kernels``), probing
-    first (one launch) when the group key space exceeds MAX_SCAN_GROUPS.
+    first (one launch) when the group key space exceeds MAX_SCAN_GROUPS;
+    ``run_probe(prog, words, num_docs)`` launches it where given (the
+    batch executor's launcher), else the staged input's probe wrapper.
     None when the plan is not eligible (``on_decline`` receives the reason
     code)."""
 
@@ -1208,7 +1313,9 @@ def scan_inputs(plan, staged, on_decline: Callable = None
             defer.flush()
             return None
 
-        def run_probe(probe_pp: ScanPlan):
+        launch_probe = run_probe or kernels.probe
+
+        def probe_rows(probe_pp: ScanPlan):
             nonlocal probe
             got = _stage_packed(probe_pp, staged, S, decline)
             if got is None:
@@ -1216,9 +1323,9 @@ def scan_inputs(plan, staged, on_decline: Callable = None
                                    "full plan but not for the probe")
             words, bits = got
             probe = (compile_program(probe_pp, bits, probe=True), words)
-            return kernels.probe(*probe, num_docs).to_host().mm.numpy()
+            return launch_probe(*probe, num_docs).to_host().mm.numpy()
 
-        res = probe_narrowed_plan(plan, staged.provider, run_probe, decline)
+        res = probe_narrowed_plan(plan, staged.provider, probe_rows, decline)
         if res is None:
             return None
         pp, eff = res

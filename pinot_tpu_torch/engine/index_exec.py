@@ -86,7 +86,7 @@ def index_gather(spec, cols, idx: torch.Tensor, params, n: int
                        for k, v in tree.items()}
                 for name, tree in cols.items()}
     device = kernels._check_device(gathered, params, idx.device)
-    INDEX_COUNTER.launches += 1
+    INDEX_COUNTER.add()
     body = kernels.build_kernel_body(spec, sparse_k=kernels.sparse_mode(spec))
     return kernels.pack_outputs(body(gathered, params, n, 0, device), spec)
 
@@ -332,12 +332,13 @@ def _spec_columns(spec, candidates: List[str]) -> List[str]:
     return [c for c in candidates if c in names]
 
 
-def gather_inputs(executor, ctx: QueryContext, segment, idx: np.ndarray):
+def gather_inputs(executor, ctx: QueryContext, segment, idx: np.ndarray,
+                  stats: Optional[QueryStats] = None):
     """-> (gathered plan, staged columns, padded docIds on the device,
     params on the device): ``index_gather``'s inputs for the resolved
     docIds ``idx`` of one segment. The docIds go to the device once per
-    filter (``StagedSegment.index_slice``). Raises PlanError where the
-    segment's plan does."""
+    filter (``StagedSegment.index_slice``), staged through ``stats``'s
+    lease and accounted. Raises PlanError where the segment's plan does."""
     n = int(idx.size)
     full = executor._plan_for(ctx, segment)
     capacity = max(_MIN_CAPACITY, _next_pow2(max(1, n)))
@@ -346,7 +347,7 @@ def gather_inputs(executor, ctx: QueryContext, segment, idx: np.ndarray):
     plan = full.gathered.get(capacity)
     if plan is None:
         plan = full.gathered[capacity] = gather_plan(full, n)
-    staged = executor.stage(segment)
+    staged = executor.stage(segment, stats)
 
     def build_idx() -> np.ndarray:
         padded = np.zeros(capacity, dtype=np.int32)
@@ -355,6 +356,8 @@ def gather_inputs(executor, ctx: QueryContext, segment, idx: np.ndarray):
 
     idx_dev = staged.index_slice((str(ctx.filter), capacity), build_idx)
     cols = {name: staged.column(name).tree() for name in plan.columns}
+    executor.residency.account(segment.segment_name,
+                               stats.lease if stats is not None else None)
     return plan, cols, idx_dev, kernels.device_params(plan, executor.device)
 
 
@@ -423,7 +426,7 @@ def try_index_rung(executor, ctx: QueryContext, aggs: List[AggDef],
     n = int(idx.size)
     try:
         plan, cols, idx_dev, params = gather_inputs(executor, ctx, segment,
-                                                    idx)
+                                                    idx, stats)
         packed = index_gather(plan.spec, cols, idx_dev, params, n)
         # one copy to the host; the decode may refuse the compact cap
         out = kernels.unpack_outputs(packed.cpu().numpy(), plan.spec)

@@ -660,7 +660,7 @@ def build_kernel(spec: Tuple) -> Callable:
     def kernel(cols, params, num_docs: int,
                device: torch.device = None) -> torch.Tensor:
         device = _check_device(cols, params, device)
-        RUNG_COUNTER.launches += 1
+        RUNG_COUNTER.add()
         return pack_outputs(body(cols, params, num_docs, 0, device), spec)
 
     return kernel

@@ -86,11 +86,66 @@ class QueryStats:
     startree_tree_index: Optional[int] = None
     # path decisions (record_decision): decision key -> count
     decisions: Dict[str, int] = field(default_factory=dict)
+    # residency counters of this query (engine/residency.py
+    # QueryLease.staging_dict): hits, misses, evictions,
+    # pinBlockedEvictions, spills, promotions, demotions, slices sum at
+    # merge; stagedBytes and hostBytes take the max
+    staging: Dict[str, int] = field(default_factory=dict)
+    # launch coalescing of this query's batch launches
+    # (parallel/launcher.py): launches, coalesced, launchesSaved sum at
+    # merge; batchSize and queueWaitMs (LAUNCH_MAX_KEYS) take the max
+    launch: Dict[str, float] = field(default_factory=dict)
+    # the residency lease the query runs under (ResidencyManager
+    # .begin_query), None outside a query or on an uncapped CPU run
+    lease: Optional[Any] = field(default=None, repr=False, compare=False)
 
     def record_rung(self, rung: str) -> None:
         self.group_by_rung = (rung if self.group_by_rung in (None, rung)
                               else "mixed")
         self.rung_segments[rung] = self.rung_segments.get(rung, 0) + 1
+
+    def merge(self, other: "QueryStats") -> None:
+        """Fold another part of the same query in (JAX
+        ``QueryStats.merge``): counters sum, the rung goes "mixed" when the
+        parts differ, ``staging`` keys ending in ``Bytes`` and the launch
+        keys of ``LAUNCH_MAX_KEYS`` take the max."""
+        for name in ("num_segments_queried", "num_segments_processed",
+                     "num_segments_matched", "num_segments_pruned",
+                     "num_docs_scanned", "total_docs", "scan_launches",
+                     "probe_launches", "sharded_scan_launches",
+                     "sharded_probe_launches", "general_launches",
+                     "topk_launches", "batch_general_launches",
+                     "index_launches", "startree_launches"):
+            setattr(self, name, getattr(self, name) + getattr(other, name))
+        self.num_groups_limit_reached |= other.num_groups_limit_reached
+        if other.group_by_rung is not None:
+            self.group_by_rung = (
+                other.group_by_rung
+                if self.group_by_rung in (None, other.group_by_rung)
+                else "mixed")
+        if other.startree_tree_index is not None:
+            self.startree_tree_index = other.startree_tree_index
+        for mine, theirs in ((self.rung_segments, other.rung_segments),
+                             (self.decisions, other.decisions)):
+            for k, v in theirs.items():
+                mine[k] = mine.get(k, 0) + v
+        for k, v in other.staging.items():
+            self.staging[k] = (max(self.staging.get(k, 0), v)
+                               if k.endswith("Bytes")
+                               else self.staging.get(k, 0) + v)
+        merge_launch(self.launch, other.launch)
+
+
+# launch keys whose merge takes the max (the JAX launcher's
+# LAUNCH_MAX_KEYS); the others sum
+LAUNCH_MAX_KEYS = ("batchSize", "queueWaitMs")
+
+
+def merge_launch(into: Dict[str, float], other: Dict[str, float]) -> None:
+    """Fold one launch record into another, in place."""
+    for k, v in other.items():
+        into[k] = (max(into.get(k, 0), v) if k in LAUNCH_MAX_KEYS
+                   else into.get(k, 0) + v)
 
 
 def decision_key(point: str, chosen: str, declined: str,

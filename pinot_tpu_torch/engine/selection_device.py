@@ -131,7 +131,7 @@ def topk_docs(filter_spec: Tuple, cols: _Cols, params: Tuple,
         v = torch.where(mask, v, math.inf).index_select(0, perm) + 0.0
         perm = perm.index_select(0, torch.sort(v, stable=True).indices)
         del v
-    TOPK_COUNTER.launches += 1
+    TOPK_COUNTER.add()
     return torch.cat([perm[:k], mask.sum().view(1)])
 
 
@@ -159,11 +159,13 @@ def segment_plan(ctx: QueryContext, seg: ImmutableSegment,
 
 
 def topk_args(ctx: QueryContext, seg: ImmutableSegment, staging,
-              plan: Tuple[List[str], Tuple]) -> Tuple:
-    """The arguments of ``topk_docs`` for one segment: its staged columns,
-    the filter's params on its device (uploaded once per plan)."""
+              plan: Tuple[List[str], Tuple],
+              stats: Optional[QueryStats] = None) -> Tuple:
+    """The arguments of ``topk_docs`` for one segment: its staged columns
+    (pinned by ``stats``'s lease), the filter's params on its device
+    (uploaded once per plan)."""
     order_cols, (spec, params, columns, on_device) = plan
-    staged = staging.stage(seg)
+    staged = staging.stage(seg, stats)
     device = staged.device
     dev_params = on_device.get(device)
     if dev_params is None:
@@ -182,7 +184,7 @@ def device_selection(ctx: QueryContext, segments: List[ImmutableSegment],
                      ) -> Optional[ResultTable]:
     """The ordered branch of ``host_engine.execute_selection`` with each
     segment's scan and sort on the card; None when the query is not
-    eligible. ``staging.stage(seg)`` gives a segment's staged image and
+    eligible. ``staging.stage(seg, stats)`` gives a segment's staged image and
     ``staging.selection_cache`` keeps the compiled filters."""
     need = ctx.offset + ctx.limit
     if not ctx.order_by or need <= 0 or need > MAX_DEVICE_SELECTION_K:
@@ -201,7 +203,7 @@ def device_selection(ctx: QueryContext, segments: List[ImmutableSegment],
 
     picked: List[Tuple[ImmutableSegment, np.ndarray]] = []
     for seg, plan in zip(segments, plans):
-        args = topk_args(ctx, seg, staging, plan)
+        args = topk_args(ctx, seg, staging, plan, stats)
         k = args[7]
         out = topk_docs(*args).cpu().numpy()
         del args

@@ -62,7 +62,7 @@ def build_startree_kernel(spec: Tuple) -> Callable:
                            for k, v in tree.items()}
                     for name, tree in cols.items()}
         device = kernels._check_device(gathered, params, idx.device)
-        STARTREE_COUNTER.launches += 1
+        STARTREE_COUNTER.add()
         return kernels.pack_outputs(body(gathered, params, n, 0, device),
                                     spec)
 
@@ -127,16 +127,23 @@ def _decode_scalar(plan: StarTreePlan, out: Dict[str, Any]) -> AggResult:
 
 
 def node_slice_inputs(executor, plan: StarTreePlan, segment,
-                      tree_index: int, idx: np.ndarray):
+                      tree_index: int, idx: np.ndarray,
+                      stats: Optional[QueryStats] = None):
     """-> (node columns, padded indices, params), all on the executor's
-    device: the kernel's inputs for the selected records ``idx``."""
-    staged = executor.stage(segment)
+    device: the kernel's inputs for the selected records ``idx``, the
+    node columns staged through ``stats``'s lease."""
+    return _node_inputs(executor.stage(segment, stats), plan, tree_index,
+                        idx)
+
+
+def _node_inputs(staged, plan: StarTreePlan, tree_index: int,
+                 idx: np.ndarray):
     nodes = staged.startree_nodes(tree_index)
     cols = {key: {"fwd": nodes[key]} for key in plan.columns}
     padded = np.zeros(plan.spec[-1], dtype=np.int32)
     padded[:idx.shape[0]] = idx
-    idx_dev = torch.from_numpy(padded).to(executor.device)
-    return cols, idx_dev, kernels.device_params(plan, executor.device)
+    idx_dev = torch.from_numpy(padded).to(staged.device)
+    return cols, idx_dev, kernels.device_params(plan, staged.device)
 
 
 def execute_star_tree_device(executor, ctx: QueryContext,
@@ -158,11 +165,21 @@ def execute_star_tree_device(executor, ctx: QueryContext,
         if ctx.is_group_by:
             return GroupByResult()
         return AggResult(_empty_states(aggs))
-    cols, idx_dev, params = node_slice_inputs(executor, plan, segment,
-                                              tree_index, idx)
-    kernel = executor.kernels.get(plan.spec, build_startree_kernel)
-    packed = kernel(cols, idx_dev, params, n)
-    out = kernels.unpack_outputs(packed.cpu().numpy(), plan.spec)
+    # the segment's resident is pinned by the query's lease, so its node
+    # arrays stay for the call
+    staged = executor.stage(segment, stats)
+
+    def launch():
+        cols, idx_dev, params = _node_inputs(staged, plan, tree_index, idx)
+        kernel = executor.kernels.get(plan.spec, build_startree_kernel)
+        packed = kernel(cols, idx_dev, params, n)
+        return kernels.unpack_outputs(packed.cpu().numpy(), plan.spec)
+
+    # concurrent identical queries (the same compiled ctx over the same
+    # staged tree) share one node-slice call and copy (JAX :170-196)
+    out, _ = executor.kernel_flight.do(
+        ("startree", id(ctx), segment.segment_name, tree_index, id(staged)),
+        launch)
     stats.num_segments_processed += 1
     stats.total_docs += segment.num_docs
     stats.num_docs_scanned += n

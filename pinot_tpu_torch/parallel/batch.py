@@ -22,7 +22,12 @@ plans once against the unified key space.
 ``StagedSegment``: planar packed columns ``[S, T, W]`` and value columns
 ``[S, T * TILE]`` for the fused scan, the stacked arrays of
 ``stacked_column`` for the jnp combine (``column``), and ``num_docs``
-``[S]``, each put on the device once.
+``[S]``, each put on the device once, under a lock so that concurrent
+queries share them. ``StagedBatch.demote`` copies the device tensors into
+a ``BatchHostImage`` of pinned host tensors, which also keeps the
+``SegmentBatch`` (its unified dictionaries and stacked numpy arrays); a
+``StagedBatch`` built with the image restores each tensor at first use
+with one host-to-device copy, with no unification, stacking or packing.
 
 The merged column metadata of a batch carries no index: ``is_sorted`` and
 every index flag are false (the JAX package's batch clears ``is_sorted``
@@ -31,6 +36,8 @@ indexes and not their indexes.
 """
 
 from __future__ import annotations
+
+import threading
 
 from collections.abc import Mapping
 from dataclasses import replace
@@ -43,11 +50,13 @@ from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine.fused_scan import ScanKernels
 from pinot_tpu_torch.engine.staging import (
     TILE,
+    H2DCopies,
     PackedColumn,
     StagedColumn,
     pack_bits,
     raw_staged_dtype,
     staged_int_dtype,
+    to_host,
 )
 from pinot_tpu_torch.parallel.combine import BATCH_KERNELS
 from pinot_tpu_torch.segment.dictionary import Dictionary, build_dictionary
@@ -109,6 +118,7 @@ class SegmentBatch:
         self._merged: Dict[str, ColumnMetadata] = {}
         # column -> (S, its stacked arrays)
         self._stacked: Dict[str, Tuple[int, Dict[str, np.ndarray]]] = {}
+        self._merge_lock = threading.Lock()
         self._data_sources: Dict[str, BatchDataSource] = {}
 
         self.metadata = SegmentMetadata(
@@ -163,8 +173,12 @@ class SegmentBatch:
     def _merged_column(self, name: str) -> ColumnMetadata:
         cm = self._merged.get(name)
         if cm is None:
-            cm = self._merge_column(name)
-            self._merged[name] = cm
+            # one merge a column however many queries plan at once
+            with self._merge_lock:
+                cm = self._merged.get(name)
+                if cm is None:
+                    cm = self._merge_column(name)
+                    self._merged[name] = cm
         return cm
 
     def _merge_column(self, name: str) -> ColumnMetadata:
@@ -311,10 +325,56 @@ def _merge_dictionaries(dicts: List[Dictionary], data_type: DataType
     return build_dictionary(unified, data_type), remaps
 
 
+class BatchHostImage:
+    """Host-tier image of a demoted ``StagedBatch`` (JAX
+    ``_BatchHostImage``, ``pinot_tpu/parallel/executor.py:885``): the
+    ``SegmentBatch`` and host copies of its device tensors, pinned when
+    they came from a card. Its bytes are the copies and the batch's
+    stacked arrays."""
+
+    __slots__ = ("batch", "segment_names", "packed", "values", "columns",
+                 "_nbytes")
+
+    def __init__(self, batch: SegmentBatch):
+        self.batch = batch
+        self.segment_names = tuple(s.segment_name for s in batch.segments)
+        self.packed: Dict[str, Tuple[torch.Tensor, int]] = {}
+        self.values: Dict[str, torch.Tensor] = {}
+        self.columns: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._nbytes = 0
+
+    def seal(self) -> "BatchHostImage":
+        self._nbytes = (
+            sum(w.numel() * w.element_size() for w, _ in self.packed.values())
+            + sum(v.numel() * v.element_size() for v in self.values.values())
+            + sum(t.numel() * t.element_size()
+                  for tree in self.columns.values() for t in tree.values())
+            + sum(a.nbytes for _S, tree in self.batch._stacked.values()
+                  for a in tree.values()))
+        return self
+
+    def matches(self, segments) -> bool:
+        b = self.batch
+        return (b is not None and segments is not None
+                and len(b.segments) == len(segments)
+                and all(c is s for c, s in zip(b.segments, segments)))
+
+    def nbytes(self) -> int:
+        return self._nbytes
+
+    def release(self) -> None:
+        self.packed.clear()
+        self.values.clear()
+        self.columns.clear()
+        self.batch = None
+        self._nbytes = 0
+
+
 class StagedBatch:
     """Device image of one segment batch, staged column by column on
     demand (the JAX executor's ``_staged_pallas`` / ``_device_num_docs``
-    per (batch, column)). ``num_segs`` pads the segment axis with empty
+    per (batch, column)); with ``host_image``, promoted from it where it
+    holds the tensor. ``num_segs`` pads the segment axis with empty
     segments (``num_docs`` 0), as the JAX package pads it to the mesh.
     Its scans launch through ``kernels``, the batch wrappers of
     ``parallel/combine.py``."""
@@ -323,19 +383,28 @@ class StagedBatch:
 
     def __init__(self, batch: SegmentBatch,
                  device: Union[str, torch.device] = "cuda",
-                 num_segs: int = 0):
+                 num_segs: int = 0,
+                 host_image: Optional[BatchHostImage] = None):
         self.device = resolve_device(device)
         self.batch = batch
         self.num_segs = max(num_segs, batch.num_segments)
+        self._host_image = host_image
         self._packed: Dict[str, PackedColumn] = {}
         self._values: Dict[str, torch.Tensor] = {}
         self._columns: Dict[str, StagedColumn] = {}
         self._num_docs: Optional[torch.Tensor] = None
+        self._lock = threading.Lock()
+        self._copies = H2DCopies(self.device)
+        self._bytes = 0     # device bytes held, kept as tensors come and go
 
     @property
     def provider(self) -> SegmentBatch:
         """What the planner and the scan's eligibility rules read."""
         return self.batch
+
+    def _promote(self, table: str, key):
+        img = self._host_image
+        return None if img is None else getattr(img, table).pop(key, None)
 
     def scan_capacity(self) -> int:
         """Per-segment doc capacity padded to whole scan tiles."""
@@ -344,28 +413,50 @@ class StagedBatch:
     def num_docs_tensor(self) -> torch.Tensor:
         """[S] int64 docs of each segment, on the device."""
         if self._num_docs is None:
-            self._num_docs = torch.from_numpy(
-                self.batch.num_docs_array(self.num_segs)).to(self.device)
+            with self._lock:
+                if self._num_docs is None:
+                    self._num_docs = torch.from_numpy(
+                        self.batch.num_docs_array(self.num_segs)).to(
+                            self.device)
+                    self._bytes += self._num_docs.numel() * 8
         return self._num_docs
 
     def packed_column(self, name: str) -> PackedColumn:
         pc = self._packed.get(name)
         if pc is None:
-            words, bits = self.batch.packed_column_batch(name,
-                                                         self.num_segs)
-            pc = PackedColumn(torch.from_numpy(words.view(np.int32))
-                              .to(self.device), bits)
-            self._packed[name] = pc
+            with self._lock:
+                pc = self._packed.get(name)
+                if pc is None:
+                    hp = self._promote("packed", name)
+                    if hp is not None:
+                        pc = PackedColumn(self._copies.restore(hp[0]),
+                                          hp[1])
+                    else:
+                        words, bits = self.batch.packed_column_batch(
+                            name, self.num_segs)
+                        pc = PackedColumn(torch.from_numpy(
+                            words.view(np.int32)).to(self.device), bits)
+                    self._packed[name] = pc
+                    self._bytes += pc.words.numel() * 4
         return pc
 
     def value_column(self, name: str) -> Optional[torch.Tensor]:
         v = self._values.get(name)
         if v is None:
-            host = self.batch.value_column_batch(name, self.num_segs)
-            if host is None:
-                return None
-            v = torch.from_numpy(host).to(self.device)
-            self._values[name] = v
+            with self._lock:
+                v = self._values.get(name)
+                if v is None:
+                    hv = self._promote("values", name)
+                    if hv is not None:
+                        v = self._copies.restore(hv)
+                    else:
+                        host = self.batch.value_column_batch(name,
+                                                             self.num_segs)
+                        if host is None:
+                            return None
+                        v = torch.from_numpy(host).to(self.device)
+                    self._values[name] = v
+                    self._bytes += v.numel() * v.element_size()
         return v
 
     def column(self, name: str) -> StagedColumn:
@@ -374,18 +465,65 @@ class StagedBatch:
         ``[S]`` axis, the shared ``dictvals``)."""
         sc = self._columns.get(name)
         if sc is None:
-            tree = self.batch.stacked_column(name, self.num_segs)
-            sc = StagedColumn(**{
-                k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in tree.items()})
-            self._columns[name] = sc
+            with self._lock:
+                sc = self._columns.get(name)
+                if sc is None:
+                    hc = self._promote("columns", name)
+                    if hc is not None:
+                        sc = StagedColumn(**{k: self._copies.restore(t)
+                                             for k, t in hc.items()})
+                    else:
+                        tree = self.batch.stacked_column(name, self.num_segs)
+                        sc = StagedColumn(**{
+                            k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                                self.device)
+                            for k, v in tree.items()})
+                    self._columns[name] = sc
+                    self._bytes += sc.nbytes()
         return sc
 
     def nbytes(self) -> int:
         """Device bytes this batch holds."""
-        return (sum(pc.words.numel() * 4 for pc in self._packed.values())
-                + sum(v.numel() * v.element_size()
-                      for v in self._values.values())
-                + sum(c.nbytes() for c in self._columns.values())
-                + (self._num_docs.numel() * 8 if self._num_docs is not None
-                   else 0))
+        return self._bytes
+
+    def demote(self) -> BatchHostImage:
+        """Copy the device tensors into a host image, wait for the copies,
+        release the tensors; what this batch's own image still held
+        carries over."""
+        with self._lock:
+            img = BatchHostImage(self.batch)
+            for name, pc in self._packed.items():
+                img.packed[name] = (to_host(pc.words), pc.bits)
+            for name, v in self._values.items():
+                img.values[name] = to_host(v)
+            for name, sc in self._columns.items():
+                img.columns[name] = {k: to_host(t)
+                                     for k, t in sc.tree().items()}
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            src = self._host_image
+            if src is not None:
+                for table in ("packed", "values", "columns"):
+                    mine = getattr(img, table)
+                    for k, v in getattr(src, table).items():
+                        mine.setdefault(k, v)
+            self._release_locked()
+        return img.seal()
+
+    def release(self) -> None:
+        """Drop the device tensors and what is left of the host image (a
+        launch in flight keeps its own)."""
+        with self._lock:
+            self._release_locked()
+
+    def _release_locked(self) -> None:
+        self._copies.wait()
+        img = self._host_image
+        if img is not None:
+            img.release()
+            self._host_image = None
+        self._packed.clear()
+        self._values.clear()
+        self._columns.clear()
+        self._num_docs = None
+        self._bytes = 0

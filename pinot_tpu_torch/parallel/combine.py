@@ -12,7 +12,11 @@ Counterpart of ``pinot_tpu/parallel/combine.py`` on one card:
   stay per segment. Each wrapper has its own launch counter, so a run
   shows which path served; the kernel is the same as the per-segment
   path's. ``BATCH_KERNELS`` is the pair a staged batch's scans launch
-  through.
+  through. ``sharded_fused_scan_many`` and ``sharded_fused_scan_probe_many``
+  run Q same-layout programs of concurrent queries over one batch in one
+  launch (the kernel's query axis; the counterpart of the launcher's
+  ``jax.vmap`` over the sharded Pallas call, ``pinot_tpu/parallel/
+  launcher.py:92-116``), each beside its plain version.
 - the jnp combine (``build_sharded_kernel`` :192, ``_sparse_cross_combine``
   :118), which serves every plan the fused scan declines over a batch:
   ``batch_body_combine`` runs the general rung's body
@@ -41,6 +45,8 @@ from pinot_tpu_torch.engine.fused_scan import (
     ScanOutputs,
     ScanProgram,
     counted_scan,
+    counted_scan_many,
+    fused_scan_many_plain,
 )
 
 # devices on the segment axis of the combine: one card
@@ -48,6 +54,8 @@ SEG_SHARDS = 1
 
 SHARDED_SCAN_COUNTER = KernelCounter("sharded_fused_scan")
 SHARDED_PROBE_COUNTER = KernelCounter("sharded_fused_scan_probe")
+SHARDED_SCAN_MANY_COUNTER = KernelCounter("sharded_fused_scan_many")
+SHARDED_PROBE_MANY_COUNTER = KernelCounter("sharded_fused_scan_probe_many")
 # calls of the jnp combine over a batch, on any device (PyTorch ops, as the
 # per-segment general rung's RUNG_COUNTER)
 BATCH_GENERAL_COUNTER = KernelCounter("batch_general")
@@ -89,6 +97,45 @@ def sharded_fused_scan_probe(prog: ScanProgram,
 
 BATCH_KERNELS = ScanKernels(sharded_fused_scan, sharded_fused_scan_probe,
                             SHARDED_SCAN_COUNTER, SHARDED_PROBE_COUNTER)
+
+
+def sharded_fused_scan_many(progs: List[ScanProgram],
+                            batch_words: List[torch.Tensor],
+                            batch_values: List[torch.Tensor],
+                            num_docs: torch.Tensor,
+                            tiles: Optional[int] = None
+                            ) -> List[ScanOutputs]:
+    """Q full-scan programs of one layout (``ScanProgram.layout_key``)
+    over one segment batch, in one launch of the query axis: one outputs
+    each. CUDA tensors launch the kernel (or raise); CPU tensors run
+    ``sharded_fused_scan_many_plain``."""
+    for p in progs:
+        _check_batch(p, False)
+    return counted_scan_many(progs, batch_words, batch_values, num_docs,
+                             SHARDED_SCAN_MANY_COUNTER, tiles)
+
+
+def sharded_fused_scan_probe_many(progs: List[ScanProgram],
+                                  batch_words: List[torch.Tensor],
+                                  num_docs: torch.Tensor
+                                  ) -> List[ScanOutputs]:
+    """Q group-range probes of one layout over one batch, in one launch."""
+    for p in progs:
+        _check_batch(p, True)
+    return counted_scan_many(progs, batch_words, [], num_docs,
+                             SHARDED_PROBE_MANY_COUNTER)
+
+
+def sharded_fused_scan_many_plain(progs: List[ScanProgram],
+                                  batch_words: List[torch.Tensor],
+                                  batch_values: List[torch.Tensor],
+                                  num_docs: torch.Tensor,
+                                  tiles: Optional[int] = None
+                                  ) -> List[ScanOutputs]:
+    """The query axis's plain version: one plain scan a program (the
+    probe's too, with no value columns)."""
+    return fused_scan_many_plain(progs, batch_words, batch_values, num_docs,
+                                 tiles)
 
 
 # --------------------------------------------------------------------------
@@ -219,7 +266,7 @@ def combine_to_host(spec: Tuple, cols: Dict[str, Dict[str, torch.Tensor]],
     segment runs the sort pass and its outputs are copied instead (the
     TPU's ``lax.cond`` outside the segment vmap). Counts one call on
     ``BATCH_GENERAL_COUNTER``."""
-    BATCH_GENERAL_COUNTER.launches += 1
+    BATCH_GENERAL_COUNTER.add()
     S = num_docs.shape[0]
     packed = batch_body_combine(spec, cols, params, num_docs).cpu().numpy()
     if kernels.sparse_mode(spec) and _rung_flag(packed, spec, S):

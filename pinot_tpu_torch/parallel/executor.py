@@ -12,9 +12,8 @@ the JAX executor does: one launch of the fused scan
 scan's decline recorded as ``pallas:pallas_combine->jnp_combine:<code>``
 once per bound query; ``use_fused_scan=False`` sends every plan to the
 jnp combine. Batches are cached by the set of segments the pruner kept,
-within a byte budget (least recently used evicted first past it), and a
-bound query is cached per batch, so a repeated query plans and binds
-nothing. The merged groups are trimmed to ``num_groups_limit`` in the base
+and a bound query is cached per batch, so a repeated query plans and
+binds nothing. The merged groups are trimmed to ``num_groups_limit`` in the base
 class's ``execute``, and, as in the JAX package, a query over more than
 one segment skips the metadata answer and scans.
 
@@ -33,16 +32,35 @@ fits (JAX ``_any_star_tree_fit`` :122-134, :147-149, :172-174), so each
 segment's node slice serves it. Selection and DISTINCT are the base
 class's: the JAX sharded executor does not override them.
 
-The JAX executor's launch scheduler and coalescing, residency and
-admission, sliced execution and the doc-axis mesh are not part of this
-executor.
+Residency and launches (JAX :60-493): a staged batch is a resident of
+the executor's ``ResidencyManager`` (``_BatchResident``), pinned by the
+query's lease, byte-accounted, evicted under the budget with its bound
+queries, demoted to its host image (``BatchHostImage``: pinned copies of
+its tensors and the ``SegmentBatch``) and adopted back from it
+(``batch_for``), its tensors restored by copies. A sliced
+lease runs the combine in budget-sized slices (``_execute_sliced``:
+``plan_slices``, a batch a slice, ``release_slice`` between them); where
+one segment alone is over the free budget, the per-segment sliced path
+serves, recorded as ``sharded_combine:sharded_sliced->per_segment_sliced:
+slice_pad_over_budget``. Bound queries have two cache tiers: the param
+tier by the exact query (its plan, program or params) and the launch tier
+by the literal-normalized key (``ScanProgram.layout_key`` with the
+columns, or the jnp combine's spec), which holds the ``LaunchKernel``
+over the staged inputs and is the coalescing identity. Every batch launch
+goes through the device's ``LaunchScheduler`` (``parallel/launcher.py``),
+and the query's ``QueryStats.launch`` adds one record a launch. A launch
+that fails raises in every query that rode it: the JAX executor's repair
+from Pallas to jnp (:434-474) is not copied. The column borrower, the
+doc-axis mesh and the merge across cards are not part of this executor.
 """
 
 from __future__ import annotations
 
+import threading
+
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,9 +85,14 @@ from pinot_tpu_torch.engine.results import (
     GroupByResult,
     QueryStats,
     ResultTable,
+    merge_launch,
     record_decision,
 )
-from pinot_tpu_torch.parallel.batch import SegmentBatch, StagedBatch
+from pinot_tpu_torch.parallel.batch import (
+    BatchHostImage,
+    SegmentBatch,
+    StagedBatch,
+)
 from pinot_tpu_torch.parallel.combine import (
     BATCH_GENERAL_COUNTER,
     BATCH_KERNELS,
@@ -78,25 +101,18 @@ from pinot_tpu_torch.parallel.combine import (
     SHARDED_SCAN_COUNTER,
     combine_to_host,
     pad_segments,
+    sharded_fused_scan_many,
+    sharded_fused_scan_probe_many,
 )
+from pinot_tpu_torch.parallel.launcher import LaunchKernel, launcher_for_device
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
 
-# bound queries kept per executor (the JAX executor's param-cache cap)
+# bound queries (param tier) and launch kernels (launch tier) kept per
+# executor, least recently used first out (the JAX executor's caps)
 PARAM_CACHE_CAP = 256
-# share of the card's memory the staged batches may hold together (the JAX
-# package's HBM budget fraction): each holds a device copy of every column
-# it was asked for, and nothing else bounds them until residency is ported
-BATCH_BUDGET_FRACTION = 0.75
-
-
-def default_batch_budget(device: torch.device) -> Optional[int]:
-    """Bytes the staged batches may hold on ``device``: a share of the
-    card's memory, no bound on the CPU."""
-    if device.type != "cuda":
-        return None
-    total = torch.cuda.get_device_properties(device).total_memory
-    return int(total * BATCH_BUDGET_FRACTION)
+LAUNCH_CACHE_CAP = 128
 
 
 @dataclass
@@ -114,28 +130,65 @@ class CombineInputs:
                                self.num_docs)
 
 
+@dataclass
+class BoundQuery:
+    """A query bound to a staged batch: what its launch takes and what its
+    outputs decode against."""
+
+    plan: SegmentPlan                 # the effective plan (decode)
+    launch_key: Tuple                 # the launch tier's key
+    params: Any                       # per-query launch input: the fused
+    #                                   scan's ScanProgram, or the jnp
+    #                                   combine's device params
+    make_kernel: Callable[[], LaunchKernel]
+    pp: Optional[fused_scan.ScanPlan] = None   # the fused scan's, or None
+    # the probe's (program, packed columns) when binding narrowed the
+    # group space with a probe scan, else None
+    probe: Optional[Tuple] = None
+    # the staged inputs the launch reads: ScanInputs or CombineInputs
+    inputs: Any = None
+
+
+def _host(outs: fused_scan.ScanOutputs) -> fused_scan.ScanOutputs:
+    return outs.to_host()
+
+
 class ShardedQueryExecutor(ServerQueryExecutor):
     """Executor whose combine is one call over the segment batch."""
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
                  use_fused_scan: bool = True,
-                 num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT):
+                 num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT,
+                 hbm_budget_bytes=None, host_budget_bytes=None,
+                 config=None):
         super().__init__(device, use_fused_scan=use_fused_scan,
-                         num_groups_limit=num_groups_limit)
-        # device bytes the staged batches may hold together (None: no
-        # bound); the batch a query runs on is kept even past it
-        self.batch_budget_bytes = default_batch_budget(self.device)
-        # batches built and staged so far (a cache hit stages none)
+                         num_groups_limit=num_groups_limit,
+                         hbm_budget_bytes=hbm_budget_bytes,
+                         host_budget_bytes=host_budget_bytes, config=config)
+        # batches built (or adopted from the host tier) and staged so far;
+        # a cache hit stages none
         self.batches_staged = 0
-        # segment names -> (batch, its device image), least recently used
-        # first
-        self._batches: ("OrderedDict[Tuple[str, ...], "
-                        "Tuple[SegmentBatch, StagedBatch]]") = OrderedDict()
-        # (sql, batch name, S) -> the bound query: the fused scan's inputs
-        # (effective plan, scan plan, program, staged inputs) or the jnp
-        # combine's, so a repeated query plans, probes and uploads nothing
-        self._param_cache: ("OrderedDict[Tuple, Union[fused_scan.ScanInputs,"
-                            " CombineInputs]]") = OrderedDict()
+        self.batches_adopted = 0
+        # segment names -> (batch, its device image)
+        self._batches: Dict[Tuple[str, ...],
+                            Tuple[SegmentBatch, StagedBatch]] = {}
+        self._batches_lock = threading.Lock()
+        # (sql, batch name, S) -> BoundQuery; launch key -> LaunchKernel
+        self._param_cache: "OrderedDict[Tuple, BoundQuery]" = OrderedDict()
+        self._launch_cache: "OrderedDict[Tuple, LaunchKernel]" = \
+            OrderedDict()
+        self._cache_lock = threading.Lock()
+        cfg = config if config is not None else PinotConfiguration()
+        self._launch_max_batch = max(1, cfg.get_int(
+            CommonConstants.LAUNCH_MAX_BATCH_KEY,
+            CommonConstants.DEFAULT_LAUNCH_MAX_BATCH))
+        self.launcher = launcher_for_device(self.device)
+        self.launcher.set_window(
+            max_ms=cfg.get_float(CommonConstants.LAUNCH_WINDOW_MS_KEY,
+                                 CommonConstants.DEFAULT_LAUNCH_WINDOW_MS),
+            hot_ms=cfg.get_float(
+                CommonConstants.LAUNCH_WINDOW_HOT_MS_KEY,
+                CommonConstants.DEFAULT_LAUNCH_WINDOW_HOT_MS))
 
     def execute(self, ctx: QueryContext, segments: List[ImmutableSegment]
                 ) -> Tuple[ResultTable, QueryStats]:
@@ -154,8 +207,13 @@ class ShardedQueryExecutor(ServerQueryExecutor):
     def _execute_aggregation(self, ctx: QueryContext, aggs: List[AggDef],
                              segments: List[ImmutableSegment],
                              stats: QueryStats) -> AggResult:
-        got = (None if self._any_star_tree_fit(ctx, aggs, segments)
-               else self._run_sharded(ctx, segments, stats))
+        if self._any_star_tree_fit(ctx, aggs, segments):
+            return super()._execute_aggregation(ctx, aggs, segments, stats)
+        if self._sliced(stats):
+            return self._execute_sliced(ctx, aggs, segments, stats,
+                                        grouped=False)
+        got = (self._run_sharded(ctx, segments, stats)
+               if self._device_admitted(stats) else None)
         if got is None:
             return super()._execute_aggregation(ctx, aggs, segments, stats)
         batch, tree, plan = got
@@ -164,20 +222,76 @@ class ShardedQueryExecutor(ServerQueryExecutor):
     def _execute_group_by(self, ctx: QueryContext, aggs: List[AggDef],
                           segments: List[ImmutableSegment],
                           stats: QueryStats) -> GroupByResult:
-        got = (None if self._any_star_tree_fit(ctx, aggs, segments)
-               else self._run_sharded(ctx, segments, stats))
+        if self._any_star_tree_fit(ctx, aggs, segments):
+            return super()._execute_group_by(ctx, aggs, segments, stats)
+        if self._sliced(stats):
+            return self._execute_sliced(ctx, aggs, segments, stats,
+                                        grouped=True)
+        got = (self._run_sharded(ctx, segments, stats)
+               if self._device_admitted(stats) else None)
         if got is None:
             return super()._execute_group_by(ctx, aggs, segments, stats)
         batch, tree, plan = got
         return decode_grouped_result(plan, batch, tree)
 
-    # -- the batch path -------------------------------------------------------
-    def batch_for(self, segments: List[ImmutableSegment]
+    @staticmethod
+    def _sliced(stats: QueryStats) -> bool:
+        return stats.lease is not None and stats.lease.sliced
+
+    def _execute_sliced(self, ctx: QueryContext, aggs: List[AggDef],
+                        segments: List[ImmutableSegment], stats: QueryStats,
+                        grouped: bool):
+        """A working set over the budget, in budget-sized slices (JAX
+        :195-243): a batch of a slice's segments, one launch, its partial
+        merged, then ``release_slice`` (unpin, demote past the budget)
+        before the next slice stages. A repeated pass promotes the slices
+        from the host tier. Where even one segment cannot fit the free
+        budget, the per-segment sliced path serves."""
+        lease = stats.lease
+        slices = self.residency.plan_slices(
+            segments, ctx.referenced_columns(), lease,
+            pad_to=SEG_SHARDS)
+        base = (ServerQueryExecutor._execute_group_by if grouped
+                else ServerQueryExecutor._execute_aggregation)
+        if slices is None:
+            record_decision(stats, "sharded_combine", "per_segment_sliced",
+                            "sharded_sliced", "slice_pad_over_budget")
+            return base(self, ctx, aggs, segments, stats)
+        merged = GroupByResult() if grouped else None
+        for chunk in slices:
+            got = self._run_sharded(ctx, chunk, stats)
+            if got is not None:
+                batch, tree, plan = got
+                part = (decode_grouped_result(plan, batch, tree) if grouped
+                        else decode_scalar_result(plan, batch, tree))
+            else:
+                part = base(self, ctx, aggs, chunk, stats)
+            if grouped:
+                merged.merge(part, aggs)
+            elif merged is None:
+                merged = part
+            else:
+                merged.merge(part, aggs)
+            # the slice's boundary: unpin, demote past the budget
+            self.residency.release_slice(lease)
+        return merged
+
+    def _any_star_tree_fit(self, ctx: QueryContext, aggs: List[AggDef],
+                           segments: List[ImmutableSegment]) -> bool:
+        """Does a tree of any segment fit the query? Then the per-segment
+        path serves it, and records its own decisions."""
+        return any(self._star_tree_pick(ctx, aggs, s) is not None
+                   for s in segments if s.star_trees)
+
+    # -- batches --------------------------------------------------------------
+    def batch_for(self, segments: List[ImmutableSegment], lease=None
                   ) -> Tuple[SegmentBatch, StagedBatch]:
-        """The cached batch of these segments and its device image, built
-        on first use; raises ValueError when they cannot share a batch."""
+        """The cached batch of these segments and its device image: built
+        on first use, or adopted from its host image; raises ValueError
+        when they cannot share a batch."""
         key = tuple(s.segment_name for s in segments)
-        hit = self._batches.get(key)
+        with self._batches_lock:
+            hit = self._batches.get(key)
         if any(s.valid_doc_ids is not None for s in segments):
             # a bitmap attached after the batch was built must not be
             # served the batch's arrays: drop it, the per-segment path
@@ -187,94 +301,132 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             raise ValueError("upsert-managed segments are not batchable")
         if hit is not None and all(c is s for c, s in
                                    zip(hit[0].segments, segments)):
-            self._batches.move_to_end(key)
             return hit
         if hit is not None:
             # a reloaded segment keeps its name but must not serve the old
-            # segment's device arrays or bound programs
+            # segment's device arrays or bound queries
             self._evict_batch(hit[0])
-        batch = SegmentBatch(segments)
+        # a demoted batch comes back from its host image: its tensors are
+        # restored by copies, its dictionaries are the image's batch's
+        name = "batch(" + ",".join(key) + ")"
+        image = self.residency.promote_host(name, segments, lease)
+        batch = image.batch if image is not None else SegmentBatch(segments)
         staged = StagedBatch(batch, device=self.device,
                              num_segs=pad_segments(batch.num_segments,
-                                                   SEG_SHARDS))
-        self._batches[key] = (batch, staged)
-        self.batches_staged += 1
-        self._enforce_batch_budget(batch)
+                                                   SEG_SHARDS),
+                             host_image=image)
+        with self._batches_lock:
+            # another thread may have built it first: share its batch
+            cur = self._batches.get(key)
+            if cur is not None and all(c is s for c, s in
+                                       zip(cur[0].segments, segments)):
+                return cur
+            self._batches[key] = (batch, staged)
+            self.batches_staged += 1
+            self.batches_adopted += int(image is not None)
         return batch, staged
 
-    def _enforce_batch_budget(self, keep: SegmentBatch) -> None:
-        """Evict the least recently used batches but ``keep`` while the
-        batches hold more than the budget."""
-        if self.batch_budget_bytes is None:
-            return
-        sizes = [(b, st.nbytes()) for b, st in self._batches.values()]
-        total = sum(n for _, n in sizes)
-        for b, n in sizes:
-            if total <= self.batch_budget_bytes:
-                break
-            if b is not keep:
-                self._evict_batch(b)
-                total -= n
-
     def _evict_batch(self, batch: SegmentBatch) -> None:
-        for k in [k for k, v in self._batches.items() if v[0] is batch]:
-            del self._batches[k]
-        for k in [k for k in self._param_cache if k[1] == batch.segment_name]:
-            del self._param_cache[k]
+        """Drop everything derived from a batch: its registration, both
+        cache tiers' entries (their kernels hold its tensors), its device
+        tensors and its residency entry."""
+        name = batch.segment_name
+        with self._batches_lock:
+            staged = [v[1] for k, v in self._batches.items()
+                      if v[0] is batch]
+            for k in [k for k, v in self._batches.items() if v[0] is batch]:
+                del self._batches[k]
+        with self._cache_lock:
+            for k in [k for k, v in self._param_cache.items()
+                      if v.launch_key[-2] == name]:
+                del self._param_cache[k]
+            for k in [k for k in self._launch_cache if k[-2] == name]:
+                del self._launch_cache[k]
+        for st in staged:
+            st.release()
+        self.residency.discard(name)
 
-    def _any_star_tree_fit(self, ctx: QueryContext, aggs: List[AggDef],
-                           segments: List[ImmutableSegment]) -> bool:
-        """Does a tree of any segment fit the query? Then the per-segment
-        path serves it, and records its own decisions."""
-        return any(self._star_tree_pick(ctx, aggs, s) is not None
-                   for s in segments if s.star_trees)
+    def evict_segment(self, segment_name: str) -> None:
+        """Every batch holding the segment goes too."""
+        with self._batches_lock:
+            stale = [b for k, (b, _) in self._batches.items()
+                     if segment_name in k]
+        for b in stale:
+            self._evict_batch(b)
+        super().evict_segment(segment_name)
 
+    # -- the batch path ---------------------------------------------------------
     def _run_sharded(self, ctx: QueryContext,
                      segments: List[ImmutableSegment], stats: QueryStats
                      ) -> Optional[Tuple[SegmentBatch, Dict, object]]:
-        """-> (batch, decode tree, effective plan) from one call over the
+        """-> (batch, decode tree, effective plan) from one launch over the
         batch, or None when the segments take the per-segment path."""
         if len(segments) < 2 or index_exec.batch_index_eligible(ctx,
                                                                segments):
             return None
+        lease = stats.lease
         try:
-            batch, staged = self.batch_for(segments)
-            key = (ctx.sql if ctx.sql is not None else repr(ctx),
-                   batch.segment_name, staged.num_segs)
-            inp = self._param_cache.get(key)
-            plan = plan_segment(ctx, batch) if inp is None else None
+            batch, staged = self.batch_for(segments, lease)
+            bname = batch.segment_name
+            # pinned by the lease: no other query's enforcement frees the
+            # tensors this launch reads
+            self.residency.register(
+                bname, lambda: _BatchResident(self, batch, staged),
+                same=lambda r: r.batch is batch, lease=lease)
+            pkey = (ctx.sql if ctx.sql is not None else repr(ctx), bname,
+                    staged.num_segs)
+            with self._cache_lock:
+                bound = self._param_cache.get(pkey)
+                if bound is not None:
+                    self._param_cache.move_to_end(pkey)
+            plan = plan_segment(ctx, batch) if bound is None else None
         except (PlanError, ValueError) as e:
             self._leave_batch(stats, e)
             return None
-        if inp is None:
-            inp = self._bind(plan, staged, stats)
-            self._param_cache[key] = inp
-            if len(self._param_cache) > PARAM_CACHE_CAP:
-                self._param_cache.popitem(last=False)
-            # binding staged the columns this query reads
-            self._enforce_batch_budget(batch)
-        else:
-            self._param_cache.move_to_end(key)
-        if isinstance(inp, CombineInputs):
+        if bound is None:
+            bound = self._bind(plan, staged, stats)
+            with self._cache_lock:
+                self._param_cache[pkey] = bound
+                if len(self._param_cache) > PARAM_CACHE_CAP:
+                    self._param_cache.popitem(last=False)
+        kernel = self._launch_kernel(bound.launch_key, bound.make_kernel)
+        req = self.launcher.submit(kernel, bound.params,
+                                   staged.num_docs_tensor())
+        result = req.result()
+        merge_launch(stats.launch, {
+            "launches": 1,
+            "coalesced": 1 if req.batch_size > 1 else 0,
+            "batchSize": req.batch_size,
+            "launchesSaved": req.launches_saved,
+            "queueWaitMs": round(req.queue_wait_ms, 3)})
+        if bound.pp is None:
             try:
-                tree = kernels.unpack_outputs(inp.run(), inp.plan.spec,
+                tree = kernels.unpack_outputs(result, bound.plan.spec,
                                               num_seg=staged.num_segs)
             except PlanError as e:  # more live groups than the compact cap
                 self._leave_batch(stats, e)
                 return None
         else:
-            tree = fused_scan.assemble_outputs(inp.plan.spec, inp.pp,
-                                               inp.scan())
+            tree = fused_scan.assemble_outputs(bound.plan.spec, bound.pp,
+                                               result)
+        # the launch staged columns: measure, enforce, and feed the drift
+        # of the segments' estimates against the batch's measured bytes
+        self.residency.account(bname, lease)
+        if lease is not None and lease._est:
+            est = sum(lease._est.get(s.segment_name, 0) for s in segments)
+            measured = self.residency.resident_nbytes(bname)
+            if est > 0 and measured > 0:
+                self.residency.observe_estimate(est, measured)
         seg_matched = tree["seg_matched"][:batch.num_segments]
         stats.num_segments_processed += batch.num_segments
         stats.total_docs += batch.num_docs
         stats.num_docs_scanned += int(seg_matched.sum())
         stats.num_segments_matched += int(np.count_nonzero(seg_matched))
-        if inp.plan.spec[2]:    # grouped: the ladder rung that served
-            rung = kernels.grouped_rung(inp.plan.spec, tree)
+        if bound.plan.spec[2]:    # grouped: the ladder rung that served
+            rung = kernels.grouped_rung(bound.plan.spec, tree)
             stats.group_by_rung = (rung if stats.group_by_rung
                                    in (None, rung) else "mixed")
-        return batch, tree, inp.plan
+        return batch, tree, bound.plan
 
     @staticmethod
     def _leave_batch(stats: QueryStats, e: Exception) -> None:
@@ -283,29 +435,129 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                         e.reason_code if isinstance(e, PlanError)
                         else "segments_not_batchable")
 
+    def _launch_kernel(self, key: Tuple,
+                       make_kernel: Callable[[], LaunchKernel]
+                       ) -> LaunchKernel:
+        """The launch tier's kernel under ``key``, made on a miss (JAX
+        ``_launch_kernel`` :504)."""
+        with self._cache_lock:
+            kernel = self._launch_cache.get(key)
+            if kernel is None:
+                kernel = make_kernel()
+                self._launch_cache[key] = kernel
+                if len(self._launch_cache) > LAUNCH_CACHE_CAP:
+                    self._launch_cache.popitem(last=False)
+            else:
+                self._launch_cache.move_to_end(key)
+            return kernel
+
     def _bind(self, plan: SegmentPlan, staged: StagedBatch,
-              stats: QueryStats
-              ) -> Union[fused_scan.ScanInputs, CombineInputs]:
-        """Plan -> the fused scan's inputs over the batch (extraction, the
-        batch-wide probe and narrowing when the group space needs it, the
-        program), or, where the fused scan declines or is off, the jnp
-        combine's, with the decline recorded."""
+              stats: QueryStats) -> BoundQuery:
+        """Plan -> the fused scan's program over the batch (extraction, the
+        probe through the launcher and narrowing when the group space
+        needs it), or, where the fused scan declines or is off, the jnp
+        combine's params, with the decline recorded."""
+        bname = staged.batch.segment_name
+        S = staged.num_segs
         reasons: List[str] = []
         if self.use_fused_scan:
-            inp = fused_scan.scan_inputs(plan, staged,
-                                         on_decline=reasons.append)
+            inp = fused_scan.scan_inputs(
+                plan, staged, on_decline=reasons.append,
+                run_probe=lambda prog, words, num_docs: self._probe(
+                    prog, words, num_docs, bname, S))
             if inp is not None:
-                return inp
+                return self._bind_fused(inp, bname, S)
         else:
             reasons.append("pallas_disabled_on_backend")
         for r in reasons:
             record_decision(stats, "pallas", "jnp_combine", "pallas_combine",
                             r)
-        return CombineInputs(
+        inp = CombineInputs(
             plan=plan,
             cols={name: staged.column(name).tree() for name in plan.columns},
             params=kernels.device_params(plan, self.device),
             num_docs=staged.num_docs_tensor())
+        layouts = tuple(sorted((name, tuple(sorted(t)))
+                               for name, t in inp.cols.items()))
+        launch_key = ("jnp", plan.spec, layouts, bname, S)
+        spec, cols = plan.spec, inp.cols
+        max_batch = self._launch_max_batch
+
+        def make_kernel() -> LaunchKernel:
+            # the jnp combine has no form over several parameter sets:
+            # the dispatcher runs them one after another
+            return LaunchKernel(
+                launch_key,
+                lambda params, num_docs: combine_to_host(spec, cols, params,
+                                                         num_docs),
+                max_batch=max_batch)
+
+        return BoundQuery(plan=plan, launch_key=launch_key,
+                          params=inp.params, make_kernel=make_kernel,
+                          inputs=inp)
+
+    def _bind_fused(self, inp: fused_scan.ScanInputs, bname: str,
+                    S: int) -> BoundQuery:
+        pp = inp.pp
+        launch_key = ("fused", inp.prog.layout_key(), tuple(pp.packed_names),
+                      tuple(pp.value_names), bname, S)
+        words, values, tiles = inp.words, inp.values, inp.tiles
+        max_batch = self._launch_max_batch
+
+        def make_kernel() -> LaunchKernel:
+            return LaunchKernel(
+                launch_key,
+                lambda prog, num_docs: _host(BATCH_KERNELS.scan(
+                    prog, words, values, num_docs, tiles)),
+                many=lambda progs, num_docs: [
+                    _host(o) for o in sharded_fused_scan_many(
+                        progs, words, values, num_docs, tiles)],
+                max_batch=max_batch)
+
+        return BoundQuery(plan=inp.plan, launch_key=launch_key,
+                          params=inp.prog, make_kernel=make_kernel, pp=pp,
+                          probe=inp.probe, inputs=inp)
+
+    def _probe(self, prog: fused_scan.ScanProgram, words, num_docs,
+               bname: str, S: int) -> fused_scan.ScanOutputs:
+        """The group-range probe at binding, through the launcher: probes
+        of one layout from concurrent bindings share a launch."""
+        key = ("fused_probe", prog.layout_key(), bname, S)
+        max_batch = self._launch_max_batch
+        kernel = self._launch_kernel(key, lambda: LaunchKernel(
+            key,
+            lambda p, nd: _host(BATCH_KERNELS.probe(p, words, nd)),
+            many=lambda ps, nd: [_host(o) for o in
+                                 sharded_fused_scan_probe_many(ps, words,
+                                                               nd)],
+            max_batch=max_batch))
+        return self.launcher.submit(kernel, prog, num_docs).result()
+
+
+class _BatchResident:
+    """A staged batch as a resident (JAX :920-954): its device bytes; its
+    release drops the batch with its bound queries; its demotion leaves a
+    ``BatchHostImage``. Lock order: the manager's lock, then the
+    executor's."""
+
+    __slots__ = ("executor", "batch", "staged")
+
+    def __init__(self, executor: ShardedQueryExecutor, batch: SegmentBatch,
+                 staged: StagedBatch):
+        self.executor = executor
+        self.batch = batch
+        self.staged = staged
+
+    def nbytes(self) -> int:
+        return self.staged.nbytes()
+
+    def release(self) -> None:
+        self.executor._evict_batch(self.batch)
+
+    def demote(self) -> Optional[BatchHostImage]:
+        image = self.staged.demote()
+        self.executor._evict_batch(self.batch)
+        return image if image.nbytes() > 0 else None
 
 
 def scan_counters() -> Dict[str, fused_scan.KernelCounter]:

@@ -1,0 +1,86 @@
+"""Layered key/value configuration, cut down to the keys the port reads.
+
+Counterpart of ``pinot_tpu/spi/config.py`` (``PinotConfiguration``, the
+residency and launch keys of ``CommonConstants`` at :158-217): explicit
+overrides win over ``PINOT_``-prefixed environment variables
+(``PINOT_SERVER_PORT`` -> ``pinot.server.port``), and keys match relaxed
+(case-insensitive, ``-`` / ``_`` / ``.`` -insensitive).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, List, Mapping, Optional
+
+_SEP = re.compile(r"[-_.]")
+
+
+def _relax(key: str) -> str:
+    """``timeoutMs`` == ``timeout.ms`` == ``TIMEOUT_MS`` == ``timeout-ms``."""
+    parts: List[str] = [s for s in _SEP.split(key.lower()) if s]
+    return "".join(parts)
+
+
+class CommonConstants:
+    # HBM residency (engine/residency.py): the device-staging byte budget.
+    # Unset -> the card's memory times the fraction below (uncapped on the
+    # CPU); <= 0 -> explicitly uncapped.
+    HBM_BUDGET_BYTES_KEY = "pinot.server.query.hbm.budget.bytes"
+    DEFAULT_HBM_BUDGET_FRACTION = 0.75
+    # host-RAM spill tier: eviction demotes device tensors to pinned host
+    # copies. Budget unset -> MemAvailable times the fraction below; <= 0
+    # -> uncapped. The enabled key turns the tier off (eviction drops).
+    HOSTRAM_BUDGET_BYTES_KEY = "pinot.server.query.hostram.budget.bytes"
+    HOSTRAM_ENABLED_KEY = "pinot.server.query.hostram.enabled"
+    DEFAULT_HOSTRAM_BUDGET_FRACTION = 0.5
+    # budget-sliced execution of a working set over the budget whose
+    # largest segment fits; off restores the spill to the host engine
+    HBM_SLICING_ENABLED_KEY = "pinot.server.query.hbm.slicing.enabled"
+    # launch coalescing (parallel/launcher.py): most requests one launch
+    # may carry (1 disables batching; dedup still applies)
+    LAUNCH_MAX_BATCH_KEY = "pinot.server.query.launch.max.batch"
+    DEFAULT_LAUNCH_MAX_BATCH = 8
+    # adaptive window: while the launch queue is hot (arrival EWMA under
+    # the hot threshold) the dispatcher holds up to this long for
+    # stragglers; <= 0 disables the hold
+    LAUNCH_WINDOW_MS_KEY = "pinot.server.query.launch.window.ms"
+    DEFAULT_LAUNCH_WINDOW_MS = 1.0
+    LAUNCH_WINDOW_HOT_MS_KEY = "pinot.server.query.launch.window.hot.ms"
+    DEFAULT_LAUNCH_WINDOW_HOT_MS = 2.0
+
+
+class PinotConfiguration:
+    """Overrides over ``PINOT_`` environment variables."""
+
+    def __init__(self, overrides: Optional[Mapping[str, Any]] = None,
+                 use_env: bool = True):
+        self._store: Dict[str, Any] = {}
+        if use_env:
+            for k, v in os.environ.items():
+                if k.startswith("PINOT_"):
+                    self._store[_relax(k.lower().replace("_", "."))] = v
+        for k, v in (overrides or {}).items():
+            self._store[_relax(k)] = v
+
+    def get(self, key: str, default: Any = None) -> Any:
+        return self._store.get(_relax(key), default)
+
+    def get_int(self, key: str, default: int = 0) -> int:
+        v = self.get(key)
+        return default if v is None else int(v)
+
+    def get_float(self, key: str, default: float = 0.0) -> float:
+        v = self.get(key)
+        return default if v is None else float(v)
+
+    def get_bool(self, key: str, default: bool = False) -> bool:
+        v = self.get(key)
+        if v is None:
+            return default
+        if isinstance(v, bool):
+            return v
+        return str(v).strip().lower() in ("true", "1", "yes", "on")
+
+
+__all__ = ["CommonConstants", "PinotConfiguration"]

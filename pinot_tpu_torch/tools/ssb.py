@@ -492,6 +492,39 @@ _STARTREE_ORACLE = {
     "ST5": _ORACLE["Q2.1"],
 }
 
+# -- Q2.1 with other literals (concurrent same-shape traffic) -----------------
+
+# C1-C8: Q2.1's shape with another category (MFGR#11-#15) and supplier
+# region. Every variant keeps every segment (no date condition) and plans
+# to one program layout, so concurrent variants share one launch of the
+# batch scan's query axis.
+_COALESCE = {f"C{i + 1}": (cat, reg) for i, (cat, reg) in enumerate([
+    ("MFGR#11", "AFRICA"), ("MFGR#12", "AMERICA"), ("MFGR#13", "ASIA"),
+    ("MFGR#14", "EUROPE"), ("MFGR#15", "MIDDLE EAST"),
+    ("MFGR#11", "AMERICA"), ("MFGR#13", "EUROPE"), ("MFGR#15", "ASIA")])}
+COALESCE_QUERIES: Dict[str, str] = {
+    cid: QUERIES["Q2.1"].replace("'MFGR#12'", f"'{cat}'")
+    .replace("'AMERICA'", f"'{reg}'") + " LIMIT 100000"
+    for cid, (cat, reg) in _COALESCE.items()}
+_COALESCE_ORACLE = {
+    cid: ([("p_category", "eq", cat), ("s_region", "eq", reg)],
+          ("d_year", "p_brand1"), "revenue")
+    for cid, (cat, reg) in _COALESCE.items()}
+# P1-P8: Q3.2's shape for another nation. Each probes its group space
+# when it binds over a batch (the probe programs share one layout); the
+# pruner keeps Q3.2's segments.
+_PROBE = {f"P{i + 1}": nat for i, nat in enumerate([
+    "UNITED STATES", "CHINA", "JAPAN", "BRAZIL", "FRANCE", "GERMANY",
+    "INDIA", "CANADA"])}
+PROBE_QUERIES: Dict[str, str] = {
+    pid: QUERIES["Q3.2"].replace("'UNITED STATES'", f"'{nat}'")
+    + " LIMIT 100000" for pid, nat in _PROBE.items()}
+_COALESCE_ORACLE.update({
+    pid: ([("c_nation", "eq", nat), ("s_nation", "eq", nat),
+           ("d_year", "between", (1992, 1997))],
+          ("c_city", "s_city", "d_year"), "revenue")
+    for pid, nat in _PROBE.items()})
+
 
 def _condition(frame, col: str, op: str, arg) -> np.ndarray:
     if op == "or":   # any of the (column, op, operand) conditions
@@ -567,8 +600,8 @@ def numpy_answer(frame: Dict[str, np.ndarray], qid: str
     """Exact answer of flight ``qid`` over one frame: an int for the Q1
     flights, else {group key tuple: int sum}. Partials of several frames
     add up (``merge_answers``)."""
-    conds, groups, value = {**_ORACLE, **_SQL_ORACLE,
-                            **_STARTREE_ORACLE}[qid]
+    conds, groups, value = {**_ORACLE, **_SQL_ORACLE, **_STARTREE_ORACLE,
+                            **_COALESCE_ORACLE}[qid]
     m = np.ones(len(frame["lo_quantity"]), dtype=bool)
     for col, op, arg in conds:
         m &= _condition(frame, col, op, arg)

@@ -158,8 +158,9 @@ def test_single_segment_takes_per_segment_path(ssb, executors):
 
 
 def test_batch_cache_keeps_the_recent_batches(ssb):
-    """Past the byte budget the least recently used batch goes, with its
-    bound queries; it is staged again when asked for again."""
+    """Past the residency budget the least recently used batch goes, with
+    its bound queries, to the host tier; asked for again, it is adopted
+    from there."""
     _, tsegs = ssb
     # no time filter: the pruner keeps every segment of each subset
     ctx = t_compile(j_ssb.QUERIES["Q2.1"] + " LIMIT 100000")
@@ -170,28 +171,31 @@ def test_batch_cache_keeps_the_recent_batches(ssb):
         sizer.execute(ctx, [tsegs[i] for i in sub])
         size[sub] = sizer.batch_for([tsegs[i] for i in sub])[1].nbytes()
     # room for any two of the three batches, not for all three
-    ex = ShardedQueryExecutor(device="cpu")
-    ex.batch_budget_bytes = sum(size.values()) - 1
+    ex = ShardedQueryExecutor(device="cpu",
+                              hbm_budget_bytes=sum(size.values()) - 1)
     rows = {}
     for sub in subsets:
-        table, _ = ex.execute(ctx, [tsegs[i] for i in sub])
+        table, stats = ex.execute(ctx, [tsegs[i] for i in sub])
         rows.setdefault(sub, table.rows)
         assert table.rows == rows[sub]
+        assert stats.launch["launches"] == 1 and not stats.decisions
     assert ex.batches_staged == 3
     names = lambda sub: tuple(tsegs[i].segment_name for i in sub)  # noqa: E731
     assert list(ex._batches) == [names((0, 1)), names((1, 2))]
     batch_names = {b.segment_name for b, _ in ex._batches.values()}
     assert {k[1] for k in ex._param_cache} == batch_names
+    assert ex.residency.host_entry_names() == [
+        "batch(" + ",".join(names((0, 2))) + ")"]
     table, _ = ex.execute(ctx, [tsegs[0], tsegs[2]])
     assert table.rows == rows[(0, 2)]
-    assert ex.batches_staged == 4
+    assert ex.batches_staged == 4 and ex.batches_adopted == 1
     assert list(ex._batches) == [names((1, 2)), names((0, 2))]
-    # the batch a query runs on stays even past a budget of 0 bytes
-    ex.batch_budget_bytes = 0
-    ex.execute(ctx, [tsegs[0], tsegs[1]])
-    assert list(ex._batches) == [names((0, 1))]
-    # the default: a share of the card's memory, no bound on the CPU
-    assert sizer.batch_budget_bytes is None
+    assert ex.residency.staged_bytes() <= sum(size.values()) - 1
+    # a budget of one byte demotes every batch no query pins
+    ex.residency.set_budget_bytes(1)
+    assert ex._batches == {} and ex._param_cache == {}
+    # the default: the card's memory times 0.75, no bound on the CPU
+    assert sizer.residency.budget_bytes is None
     assert len(sizer._batches) == 3 and sizer.batches_staged == 3
 
 

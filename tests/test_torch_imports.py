@@ -53,7 +53,12 @@ def test_executor_import_leaves_jax_unloaded():
             "pinot_tpu_torch.spi.table, pinot_tpu_torch.utils.bloom, "
             "pinot_tpu_torch.segment.startree, "
             "pinot_tpu_torch.engine.startree_exec, "
-            "pinot_tpu_torch.engine.startree_device; "
+            "pinot_tpu_torch.engine.startree_device, "
+            "pinot_tpu_torch.engine.residency, "
+            "pinot_tpu_torch.common.singleflight, "
+            "pinot_tpu_torch.spi.config, "
+            "pinot_tpu_torch.parallel.launcher, "
+            "pinot_tpu_torch.parallel.executor; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinot_tpu', 'triton')]; "
             "from pinot_tpu_torch.engine import _build, kernels; "
@@ -91,6 +96,18 @@ def test_default_device_raises_without_a_card():
         StagedSegment(_tiny_segment()[0])
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device()
+
+
+def test_residency_entry_points_raise_without_a_card():
+    from pinot_tpu_torch.engine.residency import ResidencyManager
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ResidencyManager()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShardedQueryExecutor(hbm_budget_bytes=1 << 30)
 
 
 def test_cpu_device_runs_plain_path():

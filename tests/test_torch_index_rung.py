@@ -351,7 +351,7 @@ def test_eviction_churn_keeps_parity(setup):
            f"WHERE user_id = {u} GROUP BY event_type")
     ex = ServerQueryExecutor(device="cpu")
     before, _ = ex.execute(t_compile(sql), setup["tsegs"])
-    ex._staged.clear()      # the staged images and their docId arrays
+    ex.residency.clear()    # the staged images and their docId arrays
     after, s = ex.execute(t_compile(sql), setup["tsegs"])
     oracle, _ = setup["host"].execute(j_compile(sql), setup["jsegs"])
     assert _rows(before) == _rows(after) == _rows(oracle)

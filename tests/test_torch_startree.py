@@ -924,3 +924,10 @@ def test_chip_smoke_phase_12_small():
     assert run["routes"]["ST1"]["records"] > 0
     assert set(run["trees"]) == {f"tree{i}" for i in range(5)}
     assert run["staged_bytes"] > 0
+    # 13c: node arrays demoted and promoted under a budget, and concurrent
+    # identical queries sharing node-slice launches
+    budget = run["budget"]
+    assert budget["passes"][1]["demotions"] > 0
+    assert budget["passes"][1]["promotions"] \
+        == budget["passes"][1]["misses"] > 0
+    assert budget["flight_hits"] > 0
