@@ -131,7 +131,27 @@ Phases:
      phase 12) phase 12's trees under 1.5x one segment's largest tree:
      node arrays demoted and promoted across two passes of the 13
      flights, == oracle, then 8 concurrent identical queries sharing
-     node-slice launches.
+     node-slice launches;
+ 14. (after 13a-b) a realtime user-events table: 2.5 M rows
+     as JSON messages on a one-partition MemoryStream consumed by
+     RealtimeSegmentDataManager into a consuming segment on the card
+     (``engine/mutable_staging.py``): (14a) at 700, 1000 and 5000 rows and
+     at 2.5 M, U1-U7 and R1-R3 of tools/usertable.py
+     ``realtime_queries`` == the numpy oracle over the rows indexed so
+     far, on ``mutable_device`` (U1 / U3 on its index gather, R3's HLL
+     declined to the host engine), the bytes uploaded between two
+     watermarks == the new rows' bytes, p50 / p99 and the ingest rate,
+     one refresh timed under a query's live snapshot (copied on the
+     device) and with none (in place); then 30 count queries under a writer that consumes the last 2% and
+     commits (never backwards, no device copy, ingest-to-queryable
+     latency); (14b) an
+     upsert segment keyed on user_id == the oracle over each user's latest
+     row, also after an invalidation at an unchanged watermark; (14c) the
+     sealed segment (the default star-tree, the stream offsets): R1, R2 on
+     the star-tree rung, U2, R1, R2 with OPTION(useStarTree=false) on the
+     fused-scan kernel, every answer == the consuming segment's, the
+     kernel against its plain version and timed at its shapes, its
+     launches added to the kernels line.
 The tables of phases 4-11 carry no star-tree and those of phases 4-10 no
 index: on them the index rung declines each filtered aggregation's
 segments on the per-segment path (``index_missing_index`` and the other
@@ -2646,6 +2666,16 @@ def _query_axis_kernel(name: str, progs, words, values, num_docs, tiles,
     return row
 
 
+def _bound_query(bex, ctx, segs):
+    """The batch executor's bound query of ``ctx`` over ``segs`` (its
+    param tier's entry)."""
+    from pinot_tpu_torch.query.context import filter_fingerprint
+
+    name = bex.batch_for(segs)[0].segment_name
+    return bex._param_cache[(ctx.sql, name, len(segs),
+                             filter_fingerprint(ctx))]
+
+
 def phase_coalesce(main: dict, device: str = "cuda", threads: int = 8
                    ) -> dict:
     """13b: ``threads`` client threads on one ShardedQueryExecutor. Each
@@ -2678,9 +2708,7 @@ def phase_coalesce(main: dict, device: str = "cuda", threads: int = 8
         table, _ = bex.execute(ctxs[v], segs)     # binds
         _check_flight(v, table, wants[v])
         solo[v] = table.rows
-    keys = {bex._param_cache[(ctxs[v].sql, bex.batch_for(segs)[0]
-                              .segment_name, len(segs))].launch_key
-            for v in cids}
+    keys = {_bound_query(bex, ctxs[v], segs).launch_key for v in cids}
     if len(keys) != 1:
         raise AssertionError(f"13b: C1-C8 bound to {len(keys)} launch keys")
     reps1 = 3
@@ -2766,8 +2794,7 @@ def phase_coalesce(main: dict, device: str = "cuda", threads: int = 8
 
     if device != "cuda":
         return out
-    bounds = [bex._param_cache[(ctxs[v].sql, bex.batch_for(segs)[0]
-                                .segment_name, len(segs))] for v in cids]
+    bounds = [_bound_query(bex, ctxs[v], segs) for v in cids]
     inp = bounds[0].inputs
     rows = [_query_axis_kernel(
         "sharded_fused_scan_many", [b.params for b in bounds], inp.words,
@@ -3155,6 +3182,448 @@ def phase_startree(sf: float, segments: int, seed: int, reps: int,
             "budget": budget_run}
 
 
+# -- phase 14: a realtime user-events table -------------------------------------
+
+REALTIME_ROWS = 2_500_000
+# watermarks of 14a before the bulk: below the chunk floor (1024 rows), in
+# the same chunk, and one that regrows the chunks (to 8192 rows)
+REALTIME_STEPS = (700, 1000, 5000)
+_MUTABLE_SERVED = "index:mutable_device->index_gather:mutable_index_served"
+_MUTABLE_HLL = "mutable:mutable_device->host_engine:mutable_hll_lut_unstable"
+_MUTABLE_UPSERT = ("index:index_gather->mutable_device:"
+                   "mutable_index_unsupported_shape")
+_STARTREE_SERVED = "startree:scan->startree_device:tree0"
+# the queries of realtime_queries a consuming segment serves on the index
+# gather (a tail user's point filter), and the one it declines (HLL)
+REALTIME_GATHERED = ("U1", "U3")
+REALTIME_HLL = "R3"
+# on the sealed segment: the default star-tree's shapes, and the queries
+# the fused scan serves with OPTION(useStarTree=false)
+SEALED_STARTREE = ("R1", "R2")
+SEALED_FUSED = ("U2", "R1", "R2")
+
+
+def _h2d_row_bytes(seg) -> int:
+    """Bytes one row adds to a consuming segment's staged columns: int32
+    dictIds (an MV row its padded width and a count), a null flag where
+    the column has nulls."""
+    total = 0
+    for col in seg._cols.values():
+        if col.mv_offsets is None:
+            total += 4
+        else:
+            width = 1
+            while width < max(col.max_mv, 1):
+                width *= 2
+            total += 4 * width + 4
+        total += 1 if col.has_nulls else 0
+    return total
+
+
+def _dict_cards(seg) -> dict:
+    """Values of each numeric dictionary (staged as 4-byte values: the
+    table's numeric columns are INT)."""
+    return {name: len(col.dictionary) for name, col in seg._cols.items()
+            if col.fs.data_type.is_numeric}
+
+
+def _consume_to(mgr, stream, messages, target: int) -> float:
+    """Produce the messages up to ``target`` and consume them: -> the
+    consumer's seconds."""
+    from pinot_tpu_torch.ingestion import ConsumerState
+
+    produced = stream.latest_offset(0).value
+    if target > produced:
+        stream.produce_many(messages[produced:target])
+    t0 = time.perf_counter()
+    while mgr.current_offset.value < target \
+            and mgr.state is ConsumerState.INITIAL_CONSUMING:
+        mgr.run_once()
+    return time.perf_counter() - t0
+
+
+def _realtime_check(qid: str, ctx, table, stats, want, what: str,
+                    upsert: bool = False) -> None:
+    """Rows == the oracle; on the consuming rung: the group-bys on
+    ``mutable_device``, U1 / U3 on its index gather (declined on an
+    upsert segment), R3 (HLL) on the host engine, no fused launch."""
+    from pinot_tpu_torch.tools import usertable
+
+    usertable.check_rows(qid, table.rows, want)
+    gathered = qid in REALTIME_GATHERED and not upsert
+    if qid == REALTIME_HLL:
+        rung, key, general = "host", _MUTABLE_HLL, 0
+    else:
+        rung = "mutable_device" if ctx.is_group_by else None
+        key = (_MUTABLE_SERVED if gathered else _MUTABLE_UPSERT
+               if qid in REALTIME_GATHERED else None)
+        general = 0 if gathered else 1
+    if stats.group_by_rung != rung \
+            or (key is not None and stats.decisions.get(key) != 1) \
+            or stats.index_launches != int(gathered) \
+            or stats.general_launches != general \
+            or stats.scan_launches or stats.probe_launches:
+        raise AssertionError(
+            f"{what} {qid}: rung {stats.group_by_rung}, decisions "
+            f"{stats.decisions}, launches general {stats.general_launches} "
+            f"gather {stats.index_launches} fused {stats.scan_launches}")
+
+
+def _same_rows(qid: str, got, want, what: str) -> None:
+    """Rows of two paths: group rows as a set (a consuming segment's
+    dictionary is arrival-ordered), U6 in its ORDER BY."""
+    a, b = [list(r) for r in got], [list(r) for r in want]
+    if qid != "U6":
+        a, b = sorted(a), sorted(b)
+    if a != b:
+        raise AssertionError(f"{what} {qid}: {a} != {b}")
+
+
+def phase_realtime(seed: int, reps: int, rows: int = REALTIME_ROWS,
+                   device: str = "cuda") -> dict:
+    """14: the user-events table as a realtime table: JSON messages on a
+    one-partition MemoryStream, consumed by RealtimeSegmentDataManager with
+    LocalCompletionProtocol into a consuming segment.
+
+    (14a) At the watermarks of ``REALTIME_STEPS`` and at ``rows``, U1-U7
+    and R1-R3 of ``usertable.realtime_queries`` through ServerQueryExecutor
+    == the numpy oracle over the rows indexed so far (group-bys as sets),
+    the group-bys on ``mutable_device``, U1 and U3 (a tail user) on the
+    index gather, R3 (HLL) declined with ``mutable_hll_lut_unstable``; the
+    bytes uploaded between two watermarks == the new rows' and dictionary
+    values' bytes (no history sent again); per-query p50/p99 at ``rows``,
+    the ingest rate; one refresh of a few rows past ``rows`` timed under a
+    live snapshot (every chunk copied on the device) and with none (in
+    place). Then a writer thread consumes the last rows and
+    commits while 30 count queries run: counts never go backwards, the
+    last == ``num_docs``; each row's ingest-to-queryable latency (its
+    append to the end of the first query that counted it).
+    (14b) The first ``rows // 5`` messages into an upsert segment keyed on
+    ``user_id`` (the table config's FULL ``UpsertConfig``, the latest
+    arrival wins, through ``upsert_hook`` and ``_LiveValidDocs``): == the
+    oracle over the latest row per user at two watermarks and after an
+    invalidation at an unchanged watermark.
+    (14c) The committed segment, sealed with the default star-tree and the
+    stream offsets: R1, R2 on the star-tree rung, U2, R1, R2 with
+    ``OPTION(useStarTree=false)`` on the fused-scan kernel, every query ==
+    the consuming segment's answer at the final watermark; on the card the
+    kernel against its plain version (``max_abs_err`` 0.0) and timed at
+    the sealed segment's shapes. -> the report, with ``timing`` rows,
+    ``errs`` and the fused launches of 14c (``launches``)."""
+    import threading
+
+    import torch
+
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.engine.mutable_staging import resident_name
+    from pinot_tpu_torch.ingestion import (
+        ConsumerState,
+        MemoryStream,
+        RealtimeSegmentDataManager,
+        StreamOffset,
+    )
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import usertable
+
+    tail = max(rows // 50, 2000)
+    total = rows + tail
+    t0 = time.perf_counter()
+    frame = usertable.generate_frame(0, 1, total, seed)
+    users = usertable.tail_users(total, 1, seed)
+    user = users[len(users) // 2]
+    messages = usertable.frame_messages(frame)
+    ctxs = {qid: compile_query(sql)
+            for qid, sql in usertable.realtime_queries(user).items()}
+    topic = f"user_events_rt_{seed}"
+    stream = MemoryStream.create(topic, 1)
+    mgr = RealtimeSegmentDataManager(
+        "user_events__0__0", usertable.realtime_table_config(topic, total),
+        usertable.user_schema(), 0, StreamOffset(0))
+    seg = mgr.segment
+    log(f"  14a: {total} rows as JSON messages ({rows}, then {tail} under "
+        f"queries), tail user {user}: {time.perf_counter() - t0:.1f} s")
+    ex = ServerQueryExecutor(device=device)
+    sync = (torch.cuda.synchronize if ex.device.type == "cuda"
+            else (lambda: None))
+    steps, h2d = [], []
+    prev = None
+    for wm in [s for s in REALTIME_STEPS if s < rows] + [rows]:
+        consume_s = _consume_to(mgr, stream, messages, wm)
+        if seg.num_docs != wm:
+            raise AssertionError(f"14a: {seg.num_docs} rows indexed, not "
+                                 f"{wm}")
+        wants = usertable.realtime_answers(
+            usertable.frame_prefix(frame, wm), user)
+        for qid, ctx in ctxs.items():
+            table, stats = ex.execute(ctx, [seg])
+            sync()
+            _realtime_check(qid, ctx, table, stats, wants[qid],
+                            f"14a at {wm}")
+        resident = ex.residency._entries[
+            resident_name(seg.segment_name)].resident
+        cards = _dict_cards(seg)
+        if prev is not None:
+            pwm, pcards, pbytes = prev
+            want = ((wm - pwm) * _h2d_row_bytes(seg)
+                    + 4 * sum(cards[c] - pcards[c] for c in cards))
+            got = resident.h2d_bytes - pbytes
+            if got != want:
+                raise AssertionError(f"14a {pwm} -> {wm}: {got} bytes "
+                                     f"uploaded, the new rows hold {want}")
+            h2d.append({"from": pwm, "to": wm, "bytes": got})
+        prev = (wm, cards, resident.h2d_bytes)
+        cap = resident._cursor["cap"]
+        steps.append({"watermark": wm, "capacity": cap,
+                      "consume_s": consume_s})
+        log(f"  14a at {wm} rows (chunk capacity {cap}"
+            + (f", {h2d[-1]['bytes']} bytes uploaded since {h2d[-1]['from']}"
+               " == the new rows' and dictionary values'" if h2d else "")
+            + f"): {len(ctxs)} queries == numpy oracle, group-bys on "
+            "mutable_device, U1/U3 gathered, R3 on the host engine")
+    bulk = rows - steps[-2]["watermark"] if len(steps) > 1 else rows
+    ingest = bulk / steps[-1]["consume_s"]
+    log(f"  14a ingest: {bulk} rows in {steps[-1]['consume_s']:.1f} s, "
+        f"{ingest:.0f} rows/s (JSON decode, transform, index)")
+    wants = usertable.realtime_answers(usertable.frame_prefix(frame, rows),
+                                       user)
+    lat = {qid: _timed(ex, ctx, [seg], reps,
+                       lambda t, s, qid=qid, ctx=ctx: _realtime_check(
+                           qid, ctx, t, s, wants[qid], f"14a at {rows}"))
+           for qid, ctx in ctxs.items()}
+    consuming = _latencies(lat, rows)
+
+    # one refresh past ``rows``: with a query's snapshot in flight every
+    # chunk is copied on the device before the new rows land; with none,
+    # they land in place
+    step = max(1, min(1000, (resident._cursor["cap"] - rows) // 2,
+                      tail // 4))
+    refresh = {}
+    for how, wm in (("copy", rows + step), ("in_place", rows + 2 * step)):
+        held = resident.snapshot() if how == "copy" else None
+        _consume_to(mgr, stream, messages, wm)
+        copied = resident.copied_bytes
+        sync()
+        t = time.perf_counter()
+        snap = resident.snapshot()
+        sync()
+        refresh[how] = {"rows": step, "watermark": wm,
+                        "ms": (time.perf_counter() - t) * 1e3,
+                        "copied_bytes": resident.copied_bytes - copied}
+        del held, snap
+    if refresh["in_place"]["copied_bytes"] \
+            or not refresh["copy"]["copied_bytes"]:
+        raise AssertionError(f"14a refresh: {refresh}")
+    log(f"  14a refresh of {step} rows at {rows}: "
+        f"{refresh['copy']['ms']:.3f} ms under a live snapshot "
+        f"({refresh['copy']['copied_bytes']} bytes copied on the device), "
+        f"{refresh['in_place']['ms']:.3f} ms in place")
+    start = rows + 2 * step
+
+    # the last rows arrive while queries run; the writer commits and seals
+    stream.produce_many(messages[start:total])
+    count = compile_query("SELECT count(*) FROM user_events")
+    errors = []
+
+    def writer():
+        try:
+            while mgr.state not in (ConsumerState.COMMITTED,
+                                    ConsumerState.ERROR):
+                mgr.run_once()
+        except Exception as e:   # raised again below
+            errors.append(e)
+
+    thread = threading.Thread(target=writer, name="realtime-writer")
+    counts, ends = [], []
+    copied = resident.copied_bytes
+    thread.start()
+    try:
+        for _ in range(30):
+            counts.append(ex.execute(count, [seg])[0].rows[0][0])
+            sync()
+            ends.append(time.monotonic())
+    finally:
+        thread.join()
+    if errors:
+        raise errors[0]
+    if mgr.state is not ConsumerState.COMMITTED:
+        raise AssertionError(f"14a: the consumer ended {mgr.state}")
+    if resident.copied_bytes != copied:
+        raise AssertionError("14a: one query at a time, yet a refresh "
+                             f"copied {resident.copied_bytes - copied} "
+                             "bytes")
+    final = ex.execute(count, [seg])[0].rows[0][0]
+    if any(b < a for a, b in zip(counts, counts[1:])) \
+            or final != seg.num_docs or seg.num_docs != total:
+        raise AssertionError(f"14a counts under a writer: {counts}, final "
+                             f"{final}, num_docs {seg.num_docs} of {total}")
+    # ingest to queryable: a row's append to the end of the first query
+    # that counted it (an upper bound: the snapshot is taken inside it)
+    ts = seg._append_ts.view(total)
+    fresh, seen = [], start
+    for c, end in zip(counts, ends):
+        if c > seen:
+            fresh.append(end - ts[seen:c])
+            seen = c
+    fresh = np.concatenate(fresh) * 1e3 if fresh else np.zeros(0)
+    freshness = ({"p50_ms": float(np.percentile(fresh, 50)),
+                  "p99_ms": float(np.percentile(fresh, 99)),
+                  "max_ms": float(fresh.max()), "rows": int(fresh.size)}
+                 if fresh.size else None)
+    log(f"  14a writer: 30 counts {counts[0]}..{counts[-1]}, never "
+        f"backwards, final {final} == num_docs; ingest to queryable "
+        + (f"p50 {freshness['p50_ms']:.1f} ms, p99 {freshness['p99_ms']:.1f}"
+           f" ms over {freshness['rows']} rows" if freshness
+           else "not seen: the writer ended before a count"))
+    final_wants = usertable.realtime_answers(frame, user)
+    final_rows = {}
+    for qid, ctx in ctxs.items():
+        table, stats = ex.execute(ctx, [seg])
+        _realtime_check(qid, ctx, table, stats, final_wants[qid],
+                        f"14a at {total}")
+        final_rows[qid] = table.rows
+    del ex
+
+    upsert = _phase_realtime_upsert(frame, messages, ctxs, user,
+                                    max(rows // 5, 2000), reps, device)
+    sealed = _phase_realtime_sealed(mgr, ctxs, final_rows, total, reps,
+                                    device)
+    MemoryStream.delete(topic)
+    return {"rows": total, "consuming_rows": rows, "tail_rows": tail,
+            "user": user, "steps": steps, "h2d": h2d,
+            "ingest_rows_per_s": ingest, "consuming": consuming,
+            "refresh": refresh, "writer_counts": counts,
+            "final_count": final, "ingest_to_queryable": freshness,
+            "upsert": upsert, **sealed}
+
+
+def _phase_realtime_upsert(frame, messages, ctxs, user: int, n: int,
+                           reps: int, device: str) -> dict:
+    """14b: ``n`` messages into a consuming upsert segment (see
+    ``phase_realtime``)."""
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.ingestion import (
+        MemoryStream,
+        RealtimeSegmentDataManager,
+        StreamOffset,
+    )
+    from pinot_tpu_torch.tools import usertable
+
+    topic = "user_events_upsert"
+    stream = MemoryStream.create(topic, 1)
+    # FULL upsert keyed on user_id from the table config; no comparison
+    # column, so the latest arrival wins
+    mgr = RealtimeSegmentDataManager(
+        "user_events__1__0",
+        usertable.realtime_table_config(topic, n + 1, upsert=True),
+        usertable.user_schema(["user_id"]), 0, StreamOffset(0))
+    seg = mgr.segment
+    pm = mgr.upsert_manager.partition(0)
+    ex = ServerQueryExecutor(device=device)
+    for wm in (n // 2, n):
+        _consume_to(mgr, stream, messages, wm)
+        latest = usertable.latest_per_user(usertable.frame_prefix(frame, wm))
+        wants = usertable.realtime_answers(latest, user)
+        for qid, ctx in ctxs.items():
+            table, stats = ex.execute(ctx, [seg])
+            _realtime_check(qid, ctx, table, stats, wants[qid],
+                            f"14b at {wm}", upsert=True)
+    live = len(latest["user_id"])
+    # a newer record of one user in another segment: its doc here goes
+    # invalid, the watermark stays
+    gone = int(latest["user_id"][0])
+    pm.add_record("user_events__1__1", 0, (gone,), n + 1)
+    keep = latest["user_id"] != gone
+    after = usertable.realtime_answers(
+        {k: ((v[0][keep], v[1][keep]) if isinstance(v, tuple) else v[keep])
+         for k, v in latest.items()}, user)
+    lat = {qid: _timed(ex, ctx, [seg], reps,
+                       lambda t, s, qid=qid, ctx=ctx: _realtime_check(
+                           qid, ctx, t, s, after[qid], "14b invalidated",
+                           upsert=True))
+           for qid, ctx in ctxs.items()}
+    if seg.num_docs != n:
+        raise AssertionError(f"14b: the watermark moved to {seg.num_docs}")
+    log(f"  14b upsert: {n} rows, {live} users live == the oracle over the "
+        f"latest row per user at {n // 2} and {n} rows; user {gone} "
+        "invalidated at an unchanged watermark == the oracle")
+    MemoryStream.delete(topic)
+    return {"rows": n, "live_users": live, "invalidated_user": gone,
+            "per_query": _latencies(lat, n)}
+
+
+def _phase_realtime_sealed(mgr, ctxs, final_rows: dict, total: int,
+                           reps: int, device: str) -> dict:
+    """14c: the sealed segment (see ``phase_realtime``)."""
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import usertable
+
+    sealed = mgr.sealed_segment
+    custom = sealed.metadata.custom
+    want_custom = {"segment.realtime.startOffset": "0",
+                   "segment.realtime.endOffset": str(total),
+                   "segment.realtime.partition": 0}
+    if sealed.num_docs != total or custom != want_custom \
+            or len(sealed.star_trees) != 1:
+        raise AssertionError(f"14c: sealed {sealed.num_docs} docs, custom "
+                             f"{custom}, {len(sealed.star_trees)} trees")
+    tree = sealed.star_trees[0]
+    log(f"  14c seal: {total} rows in {mgr.seal_wall_ms:.1f} ms (wall), the "
+        f"default star-tree over {tree.config.dimensions_split_order} "
+        f"({tree.num_records} records), {custom}")
+    ex = ServerQueryExecutor(device=device)
+    on_card = ex.device.type == "cuda"
+    sqls = usertable.realtime_queries(0)
+    opt_out = {qid: compile_query(ctx.sql + " OPTION(useStarTree=false)")
+               for qid, ctx in ctxs.items()}
+    launches = {"fused_scan": 0, "fused_scan_probe": 0}
+
+    def check(qid, fused_path):
+        def run(table, stats):
+            _same_rows(qid, table.rows, final_rows[qid], "14c")
+            if fused_path and qid in SEALED_STARTREE and (
+                    stats.decisions.get(_STARTREE_SERVED) != 1
+                    or stats.startree_launches != 1 or stats.scan_launches):
+                raise AssertionError(f"14c {qid}: {stats.decisions}")
+            if not fused_path and qid in SEALED_FUSED:
+                if stats.general_launches or stats.index_launches \
+                        or stats.startree_launches \
+                        or stats.scan_launches != int(on_card) \
+                        or any(k.startswith("pallas:")
+                               for k in stats.decisions):
+                    raise AssertionError(f"14c {qid} opted out: "
+                                         f"{stats.decisions}")
+                launches["fused_scan"] += stats.scan_launches
+                launches["fused_scan_probe"] += stats.probe_launches
+        return run
+
+    startree = {qid: _timed(ex, ctxs[qid], [sealed], reps, check(qid, True))
+                for qid in ctxs}
+    scan = {qid: _timed(ex, opt_out[qid], [sealed], reps, check(qid, False))
+            for qid in ctxs}
+    log("  14c: every query == the consuming answer at the final watermark; "
+        f"R1, R2 on the star-tree rung (p50 "
+        + ", ".join(f"{q} {np.percentile(startree[q], 50):.3f}"
+                    for q in SEALED_STARTREE)
+        + " ms), U2, R1, R2 opted out on the fused scan (p50 "
+        + ", ".join(f"{q} {np.percentile(scan[q], 50):.3f}"
+                    for q in SEALED_FUSED) + " ms)")
+    timing, errs = [], {"fused_scan": 0.0, "fused_scan_probe": 0.0}
+    if on_card:
+        staged = ex.stage(sealed)
+        timing = _time_kernels({f"{q} sealed": (staged, total, sqls[q])
+                                for q in SEALED_FUSED}, errs, 20)
+        if any(v != 0.0 for v in errs.values()):
+            raise AssertionError(f"14c: kernel against plain {errs}")
+    return {"seal_wall_ms": mgr.seal_wall_ms, "custom": custom,
+            "startree_records": tree.num_records,
+            "sealed_startree": _latencies(
+                {q: startree[q] for q in SEALED_STARTREE}, total),
+            "sealed_fused": _latencies({q: scan[q] for q in SEALED_FUSED},
+                                       total),
+            "timing": timing, "errs": errs, "launches": launches}
+
+
 # phase 12's default SSB scale: its tree build and queries within about
 # 150 s on the card's host (PERF.md section 4)
 STARTREE_SF = 2
@@ -3170,6 +3639,15 @@ def _phase_12(args, card: str) -> dict:
     run = phase_startree(args.startree_sf, args.segments, args.seed,
                          args.reps, card=card)
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+    return run
+
+
+def _phase_14(args) -> dict:
+    log("phase 14: a realtime user-events table (a consuming segment on "
+        f"the card, upsert, the seal) at {REALTIME_ROWS} rows")
+    t0 = time.perf_counter()
+    run = phase_realtime(args.seed, args.reps)
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
     return run
 
 
@@ -3270,6 +3748,10 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     budget_run = phase_budget(main_run, batch_run["per_flight"], args.reps)
     coalesce_run = phase_coalesce(main_run)
     log(f"  phase 13a-b: {time.perf_counter() - t0:.1f} s")
+    realtime_run = _phase_14(args)
+    timing += realtime_run.pop("timing")
+    for k, v in realtime_run["errs"].items():
+        errs[k] = max(errs[k], v)
 
     # each path's launches, read after its own run: phases 4 and 6 (per
     # segment and batch), 8 (per segment and batch) and 9
@@ -3278,7 +3760,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
                 users_run["launches"], users_run["batch_launches"],
                 sql_run["launches"]["per_segment"],
                 sql_run["launches"]["batch"], time_run["launches"],
-                text_run["launches"]):
+                text_run["launches"], realtime_run["launches"]):
         for k in launches:
             launches[k] += got.get(k, 0)
     idle = [k for k, n in launches.items() if n == 0]
@@ -3334,7 +3816,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "time": time_run, "text": text_run,
               "host": host_run, "combine": combine_run,
               "index": index_run, "budget": budget_run,
-              "coalesce": coalesce_run}
+              "coalesce": coalesce_run, "realtime": realtime_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]

@@ -20,6 +20,7 @@ class UnsupportedQueryError(QueryError):
 
 
 _DECLINE_RULES: Tuple[Tuple[str, str], ...] = (
+    ("mutable segment", "mutable_segment"),
     # the star-tree node plan's (engine/plan.py plan_star_tree)
     ("star-tree group key space", "startree_group_space_over_limit"),
     ("no pre-agg pairs", "startree_no_preagg_pair"),

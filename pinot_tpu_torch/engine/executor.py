@@ -24,7 +24,12 @@ is kept). Then, routed as the JAX executor routes it (:462-466, :681-694):
   recorded as ``startree:startree_device->startree_host:<code>`` and
   ``startree:scan->startree:tree<i>``; a segment with trees none of which
   fits records ``startree:startree->scan:<code>``, and
-  ``OPTION(useStarTree=false)`` opts out with no decision; then a
+  ``OPTION(useStarTree=false)`` opts out with no decision; a consuming
+  segment (``segment/mutable.py``) is then served by its own rung
+  (``engine/mutable_staging.py``, group-by rung ``mutable_device``, JAX
+  :654-660 and :868-875), which plans a watermark snapshot afresh every
+  query and shares no run, or declines to the host engine with its
+  ``mutable:`` code (HLL, an empty segment); otherwise a
   selective AND-ed filter the segment's indexes resolve is served by the
   index rung's docId gather (``engine/index_exec.py``, JAX :660-667 and
   :875-882), with its outcome recorded under the ``index`` point;
@@ -68,6 +73,7 @@ serves every plan on the fused scan or the jnp combine).
 from __future__ import annotations
 
 import threading
+import weakref
 
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -82,6 +88,7 @@ from pinot_tpu_torch.engine import (
     host_engine,
     index_exec,
     kernels,
+    mutable_staging,
     startree_device,
     startree_exec,
 )
@@ -109,9 +116,10 @@ from pinot_tpu_torch.engine.selection_device import (
     device_selection,
 )
 from pinot_tpu_torch.engine.staging import StagedSegment
-from pinot_tpu_torch.query.context import QueryContext
+from pinot_tpu_torch.query.context import QueryContext, filter_fingerprint
 from pinot_tpu_torch.query.expressions import Identifier
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.segment.mutable import is_mutable
 from pinot_tpu_torch.utils.hll import HyperLogLog
 
 # plans kept per executor, least recently used evicted first (the JAX
@@ -141,9 +149,10 @@ class ServerQueryExecutor:
             host_budget_bytes=(AUTO if host_budget_bytes is None
                                else host_budget_bytes),
             config=config, device=self.device)
-        # (sql, segment name, upsert-managed) -> (segment, its plan), least
-        # recently used first
-        self._plans: "OrderedDict[Tuple[str, str], Tuple]" = OrderedDict()
+        # (sql, filter fingerprint, segment name, upsert-managed) ->
+        # (weak reference to the segment, its plan), least recently used
+        # first
+        self._plans: "OrderedDict[Tuple, Tuple]" = OrderedDict()
         self._plans_lock = threading.Lock()
         self.kernels = kernels.KernelCache()
         self.selection_cache = SelectionCache()
@@ -296,7 +305,12 @@ class ServerQueryExecutor:
         st = self._try_star_tree(ctx, aggs, seg, stats)
         if st is not None:
             return st[0]
-        if self._device_admitted(stats):
+        if self._device_admitted(stats) and is_mutable(seg):
+            part = mutable_staging.serve_aggregation(self, ctx, aggs, seg,
+                                                     stats)
+            if part is not None:
+                return part
+        elif self._device_admitted(stats):
             part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
                                              grouped=False)
             if part is not None:
@@ -326,7 +340,13 @@ class ServerQueryExecutor:
         if st is not None:
             stats.record_rung(st[1])
             return st[0]
-        if self._device_admitted(stats):
+        if self._device_admitted(stats) and is_mutable(seg):
+            part = mutable_staging.serve_group_by(self, ctx, aggs, seg,
+                                                  stats)
+            if part is not None:
+                stats.record_rung("mutable_device")
+                return part
+        elif self._device_admitted(stats):
             part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
                                              grouped=True)
             if part is not None:
@@ -392,16 +412,19 @@ class ServerQueryExecutor:
 
     def _plan_for(self, ctx: QueryContext, seg: ImmutableSegment
                   ) -> SegmentPlan:
-        """plan_segment, cached per (sql, segment, whether it carries a
-        valid-doc bitmap: one attached later must not be served the plan
-        without the validdocs leaf); a reloaded segment (same name, new
-        object) plans again."""
+        """plan_segment, cached per (sql, filter fingerprint, segment,
+        whether it carries a valid-doc bitmap: one attached later must not
+        be served the plan without the validdocs leaf); a reloaded segment
+        (same name, new object) plans again. The entry holds its segment
+        by weak reference, so the cache keeps no unloaded segment alive
+        (JAX :901-919)."""
         if ctx.sql is None:
             return plan_segment(ctx, seg)
-        key = (ctx.sql, seg.segment_name, seg.valid_doc_ids is not None)
+        key = (ctx.sql, filter_fingerprint(ctx), seg.segment_name,
+               seg.valid_doc_ids is not None)
         with self._plans_lock:
             hit = self._plans.get(key)
-            if hit is not None and hit[0] is seg:
+            if hit is not None and hit[0]() is seg:
                 self._plans.move_to_end(key)
                 return hit[1]
         plan = plan_segment(ctx, seg)
@@ -409,9 +432,9 @@ class ServerQueryExecutor:
             # a concurrent planner of the same key may have won: serve its
             # plan, so identical queries share one flight key
             hit = self._plans.get(key)
-            if hit is not None and hit[0] is seg:
+            if hit is not None and hit[0]() is seg:
                 return hit[1]
-            self._plans[key] = (seg, plan)
+            self._plans[key] = (weakref.ref(seg), plan)
             if len(self._plans) > PLAN_CACHE_CAP:
                 self._plans.popitem(last=False)
         return plan
@@ -480,9 +503,11 @@ def _metadata_answer(ctx: QueryContext, aggs: List[AggDef],
     """A filter-less query of COUNT(*) and MIN / MAX / MINMAXRANGE of
     numeric columns without nulls, answered from the segment's metadata
     with no scan (the JAX executor's ``_metadata_fast_path``); None for any
-    other query, or an upsert segment (its metadata counts invalid docs)."""
+    other query, an upsert segment (its metadata counts invalid docs) or
+    a consuming one (its live dictionary's min/max may hold a value whose
+    row is not published yet; JAX :808-812)."""
     if ctx.filter is not None or ctx.is_group_by \
-            or seg.valid_doc_ids is not None:
+            or seg.valid_doc_ids is not None or is_mutable(seg):
         return None
     states: List[Any] = []
     for agg, fn in zip(aggs, ctx.aggregations):

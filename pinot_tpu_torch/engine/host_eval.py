@@ -14,7 +14,10 @@ raw column's range permutation for RANGE, the FST index for REGEXP_LIKE,
 the text index for TEXT_MATCH and the JSON index for JSON_MATCH. Without
 one, a dictionary predicate is a dictId compare and TEXT_MATCH /
 JSON_MATCH / REGEXP_LIKE evaluate per distinct value; both give the same
-mask. The geo index is not ported (no port segment carries one).
+mask. The geo index is not ported (no port segment carries one). A
+consuming segment (``segment/mutable.py``) reads the same way through
+its ``MutableDataSource``; its dictionary is arrival-ordered, so a RANGE
+scans its values.
 A multi-value column is the port's dense ``[capacity, max values]``
 dictIds with ``mv_counts`` (the JAX package keeps offsets over a flat
 forward index): a row's entries past its count are not values.
@@ -41,6 +44,7 @@ from pinot_tpu_torch.query.expressions import (
     PredicateType,
 )
 from pinot_tpu_torch.segment.immutable import DataSource, ImmutableSegment
+from pinot_tpu_torch.segment.mutable import is_arrival_ordered
 from pinot_tpu_torch.spi.data import DataType
 
 # columns every segment serves, with their result types
@@ -105,6 +109,11 @@ def _matching_dict_ids(ds: DataSource, pred: Predicate) -> np.ndarray:
     if t is PredicateType.RANGE:
         lo = conv(pred.lower) if pred.lower is not None else None
         hi = conv(pred.upper) if pred.upper is not None else None
+        if is_arrival_ordered(d):
+            # an arrival-ordered (consuming) dictionary: a scan of its
+            # values, not a dictId interval (JAX :102-104)
+            return d.matching_range_ids(lo, hi, pred.lower_inclusive,
+                                        pred.upper_inclusive)
         a, b = d.range_to_dict_id_interval(lo, hi, pred.lower_inclusive,
                                            pred.upper_inclusive)
         return np.arange(max(a, 0), min(b, card - 1) + 1, dtype=np.int64)

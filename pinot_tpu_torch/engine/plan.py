@@ -47,6 +47,7 @@ from pinot_tpu_torch.segment.jsonindex import (
     match_json_value,
     parse_match_filter,
 )
+from pinot_tpu_torch.segment.mutable import is_arrival_ordered, is_mutable
 from pinot_tpu_torch.segment.textindex import (
     match_text_value,
     parse_text_query,
@@ -138,6 +139,10 @@ class SegmentPlan:
 
 
 def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
+    if is_mutable(segment):
+        # a consuming segment plans through its watermark view
+        # (engine/mutable_staging.py), never directly (JAX :282-285)
+        raise PlanError("mutable segment -> host path")
     params: List[Any] = []
     columns: List[str] = []
 
@@ -593,6 +598,14 @@ def _compile_predicate(pred: Predicate, segment: ImmutableSegment,
         if t is PredicateType.RANGE:
             lo = _conv(ds, pred.lower) if pred.lower is not None else None
             hi = _conv(ds, pred.upper) if pred.upper is not None else None
+            if is_arrival_ordered(d):
+                # a consuming dictionary has no id interval: its matching
+                # ids as a LUT, the IN op (JAX :843-851)
+                lut = np.zeros(d.cardinality, dtype=bool)
+                lut[d.matching_range_ids(lo, hi, pred.lower_inclusive,
+                                         pred.upper_inclusive)] = True
+                params.append(lut)
+                return (mvp + "lut", col, d.cardinality)
             a, b = d.range_to_dict_id_interval(lo, hi, pred.lower_inclusive,
                                                pred.upper_inclusive)
             params.append(np.array([a, b], dtype=np.int32))

@@ -54,6 +54,7 @@ from pinot_tpu_torch.engine.staging import (
     pack_bits,
     staged_int_dtype,
 )
+from pinot_tpu_torch.segment.mutable import is_mutable
 from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
 
 log = logging.getLogger(__name__)
@@ -824,7 +825,7 @@ class ResidencyManager:
         """Stage ``segment`` in the background: its columns (all of them by
         default) and star-trees, stopping when the budget is full rather
         than evicting."""
-        if self._closed or getattr(segment, "is_mutable", False):
+        if self._closed or is_mutable(segment):
             return
         with self._lock:
             # read under the lock evict() bumps it under

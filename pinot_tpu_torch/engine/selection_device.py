@@ -24,13 +24,15 @@ dictionary-encoded (sorted by dictId: the dictionary is sorted) or raw
 numeric, not a raw i64 column (its values would round through f64) and,
 for a raw float column, finite min/max stats; a filter the device planner
 compiles; ``offset + limit`` at most ``MAX_DEVICE_SELECTION_K``; no
-upsert-managed segment. Otherwise :func:`device_selection` returns None
-and the executor serves the query on the host engine.
+upsert-managed or consuming segment (JAX :123). Otherwise
+:func:`device_selection` returns None and the executor serves the query
+on the host engine.
 """
 
 from __future__ import annotations
 
 import math
+import weakref
 from collections import OrderedDict
 from typing import Any, List, Optional, Tuple
 
@@ -44,9 +46,10 @@ from pinot_tpu_torch.engine.kernels import _Cols, _emit_filter
 from pinot_tpu_torch.engine.plan import _compile_filter
 from pinot_tpu_torch.engine.results import DataSchema, QueryStats, ResultTable
 from pinot_tpu_torch.engine.staging import staged_int_dtype
-from pinot_tpu_torch.query.context import QueryContext
+from pinot_tpu_torch.query.context import QueryContext, filter_fingerprint
 from pinot_tpu_torch.query.expressions import Identifier
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.segment.mutable import is_mutable
 
 # top-k cap: past this the full sort and the copy stop beating the host
 MAX_DEVICE_SELECTION_K = 8192
@@ -58,22 +61,23 @@ TOPK_COUNTER = KernelCounter("device_topk")
 
 
 class SelectionCache:
-    """(sql, segment name) -> the segment's compiled filter and its params
-    on the device, least recently used evicted past ``_CACHE_CAP``; a
-    reloaded segment (same name, new object) compiles again."""
+    """(sql, filter fingerprint, segment name) -> the segment's compiled
+    filter and its params on the device, least recently used evicted past
+    ``_CACHE_CAP``; a reloaded segment (same name, new object) compiles
+    again. An entry holds its segment by weak reference."""
 
     def __init__(self):
         self._entries: "OrderedDict[Tuple, Tuple]" = OrderedDict()
 
     def get(self, key: Tuple, seg: ImmutableSegment):
         hit = self._entries.get(key)
-        if hit is None or hit[0] is not seg:
+        if hit is None or hit[0]() is not seg:
             return None
         self._entries.move_to_end(key)
         return hit[1]
 
     def put(self, key: Tuple, seg: ImmutableSegment, value) -> None:
-        self._entries[key] = (seg, value)
+        self._entries[key] = (weakref.ref(seg), value)
         self._entries.move_to_end(key)
         while len(self._entries) > _CACHE_CAP:
             self._entries.popitem(last=False)
@@ -139,12 +143,13 @@ def segment_plan(ctx: QueryContext, seg: ImmutableSegment,
                  cache: SelectionCache) -> Optional[Tuple[List[str], Tuple]]:
     """(order columns, compiled filter) of one segment, or None where the
     segment is not eligible."""
-    if seg.valid_doc_ids is not None:
+    if seg.valid_doc_ids is not None or is_mutable(seg):
         return None
     order_cols = _order_columns(ctx, seg)
     if order_cols is None:
         return None
-    key = (ctx.sql if ctx.sql is not None else repr(ctx), seg.segment_name)
+    key = (ctx.sql if ctx.sql is not None else repr(ctx),
+           filter_fingerprint(ctx), seg.segment_name)
     compiled = cache.get(key, seg)
     if compiled is None:
         params: List[Any] = []

@@ -62,6 +62,7 @@ from pinot_tpu_torch.parallel.combine import BATCH_KERNELS
 from pinot_tpu_torch.segment.dictionary import Dictionary, build_dictionary
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
+from pinot_tpu_torch.segment.mutable import is_mutable
 from pinot_tpu_torch.spi.data import DataType
 
 
@@ -94,13 +95,18 @@ class BatchDataSource:
 class SegmentBatch:
     """N same-table segments, re-keyed to unified dictionaries and stacked
     into fixed-shape arrays. Raises ValueError for segments that cannot
-    share a batch (upsert-managed, different schemas or column
+    share a batch (consuming, upsert-managed, different schemas or column
     layouts)."""
 
     def __init__(self, segments: List[ImmutableSegment]):
         if not segments:
             raise ValueError("empty segment batch")
         for s in segments:
+            if is_mutable(s):
+                # a consuming segment grows under a batch's frozen arrays
+                # (JAX :72)
+                raise ValueError(f"mutable segment {s.segment_name!r} "
+                                 "cannot join a device batch")
             if s.valid_doc_ids is not None:
                 raise ValueError(f"upsert segment {s.segment_name!r} "
                                  "cannot join a device batch")

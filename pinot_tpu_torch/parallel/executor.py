@@ -22,8 +22,10 @@ recorded in ``QueryStats.decisions`` as ``sharded_combine:sharded_combine->
 per_segment:<code>``: a single segment, segments that cannot share a batch
 (upsert segments among them: their valid-doc bitmaps change under a
 batch), a plan the batch's key space refuses, and a combined result the
-decode refuses (more live groups than the compact cap); a plan the device
-planner refuses there (a host-only aggregation, say) then reaches the
+decode refuses (more live groups than the compact cap); a consuming
+segment among them serves on its own rung (``mutable_device``). A plan
+the device planner refuses there (a host-only aggregation, say) then
+reaches the
 host engine per segment, as in the JAX package. A selective filter the
 segments' indexes serve leaves the batch for the per-segment path too,
 with no decision (JAX ``_index_rung_fit`` :136), so the index rung serves
@@ -105,8 +107,9 @@ from pinot_tpu_torch.parallel.combine import (
     sharded_fused_scan_probe_many,
 )
 from pinot_tpu_torch.parallel.launcher import LaunchKernel, launcher_for_device
-from pinot_tpu_torch.query.context import QueryContext
+from pinot_tpu_torch.query.context import QueryContext, filter_fingerprint
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.segment.mutable import is_mutable
 from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
 
 # bound queries (param tier) and launch kernels (launch tier) kept per
@@ -173,7 +176,8 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         self._batches: Dict[Tuple[str, ...],
                             Tuple[SegmentBatch, StagedBatch]] = {}
         self._batches_lock = threading.Lock()
-        # (sql, batch name, S) -> BoundQuery; launch key -> LaunchKernel
+        # (sql, batch name, S, filter fingerprint) -> BoundQuery; launch
+        # key -> LaunchKernel
         self._param_cache: "OrderedDict[Tuple, BoundQuery]" = OrderedDict()
         self._launch_cache: "OrderedDict[Tuple, LaunchKernel]" = \
             OrderedDict()
@@ -289,6 +293,10 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         """The cached batch of these segments and its device image: built
         on first use, or adopted from its host image; raises ValueError
         when they cannot share a batch."""
+        if any(is_mutable(s) for s in segments):
+            # consuming segments grow: the per-segment path serves each on
+            # its own rung
+            raise ValueError("consuming segments are not batchable")
         key = tuple(s.segment_name for s in segments)
         with self._batches_lock:
             hit = self._batches.get(key)
@@ -373,8 +381,10 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             self.residency.register(
                 bname, lambda: _BatchResident(self, batch, staged),
                 same=lambda r: r.batch is batch, lease=lease)
+            # the filter fingerprint: a rewritten filter under the same
+            # SQL binds again (JAX :349-352)
             pkey = (ctx.sql if ctx.sql is not None else repr(ctx), bname,
-                    staged.num_segs)
+                    staged.num_segs, filter_fingerprint(ctx))
             with self._cache_lock:
                 bound = self._param_cache.get(pkey)
                 if bound is not None:

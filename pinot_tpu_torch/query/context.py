@@ -11,6 +11,7 @@ JAX package).
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional
 
@@ -165,6 +166,19 @@ def compile_query(sql: str) -> QueryContext:
         ctx.distinct = True
         ctx.group_by = []
     return ctx
+
+
+def filter_fingerprint(ctx: QueryContext) -> str:
+    """Digest of the filter tree, memoized on the context (JAX
+    ``pinot_tpu/engine/executor.py:56``): a cache key must tell apart two contexts of one
+    SQL whose filters differ (a broker rewrites ``ctx.filter`` under the
+    same SQL: the hybrid time split, an IN_SUBQUERY id set)."""
+    fp = getattr(ctx, "_filter_fp", None)
+    if fp is None:
+        fp = hashlib.blake2b(str(ctx.filter).encode("utf-8"),
+                             digest_size=16).hexdigest()
+        ctx._filter_fp = fp
+    return fp
 
 
 def _has_aggregation(e: Expr) -> bool:

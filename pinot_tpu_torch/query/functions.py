@@ -1,9 +1,10 @@
 """Scalar function registry: row-level functions the host engine calls.
 
-Counterpart of ``pinot_tpu/query/functions.py``, without the ingestion
-row filter: a name -> callable registry (string, math, time, JSON, array,
-idset and ST_ functions) that ``engine/host_eval.py`` evaluates row by row
-over argument arrays, and ``eval_scalar`` over one row's values.
+Counterpart of ``pinot_tpu/query/functions.py``: a name -> callable
+registry (string, math, time, JSON, array, idset and ST_ functions) that
+``engine/host_eval.py`` evaluates row by row over argument arrays,
+``eval_scalar`` over one row's values, and ``eval_row_filter``, the
+ingestion filter over one row (``ingestion/transformers.py``).
 """
 
 from __future__ import annotations
@@ -18,9 +19,13 @@ from typing import Any, Callable, Dict, List, Optional
 
 from pinot_tpu_torch.query.expressions import (
     Expr,
+    FilterNode,
+    FilterOp,
     Function,
     Identifier,
     Literal,
+    Predicate,
+    PredicateType,
 )
 
 _REGISTRY: Dict[str, Callable] = {}
@@ -73,6 +78,65 @@ def eval_scalar(expr: Expr, env: Dict[str, Any]) -> Any:
             return None
         return fn(*args)
     raise EvalError(f"cannot evaluate {expr!r}")
+
+
+def eval_row_filter(node: FilterNode, env: Dict[str, Any]) -> bool:
+    """A boolean filter over one row (the ingestion FilterTransformer's;
+    JAX ``functions.py:84``): a null value matches no comparison."""
+    if node.op is FilterOp.AND:
+        return all(eval_row_filter(c, env) for c in node.children)
+    if node.op is FilterOp.OR:
+        return any(eval_row_filter(c, env) for c in node.children)
+    if node.op is FilterOp.NOT:
+        return not eval_row_filter(node.children[0], env)
+    return _eval_row_predicate(node.predicate, env)
+
+
+def _eval_row_predicate(p: Predicate, env: Dict[str, Any]) -> bool:
+    v = eval_scalar(p.lhs, env)
+    t = p.type
+    if t is PredicateType.IS_NULL:
+        return v is None
+    if t is PredicateType.IS_NOT_NULL:
+        return v is not None
+    if v is None:
+        return False
+    if t is PredicateType.EQ:
+        return _loose_eq(v, p.value)
+    if t is PredicateType.NOT_EQ:
+        return not _loose_eq(v, p.value)
+    if t is PredicateType.IN:
+        return any(_loose_eq(v, x) for x in p.values)
+    if t is PredicateType.NOT_IN:
+        return not any(_loose_eq(v, x) for x in p.values)
+    if t is PredicateType.RANGE:
+        if p.lower is not None:
+            lo = _coerce_like(v, p.lower)
+            if not (v >= lo if p.lower_inclusive else v > lo):
+                return False
+        if p.upper is not None:
+            hi = _coerce_like(v, p.upper)
+            if not (v <= hi if p.upper_inclusive else v < hi):
+                return False
+        return True
+    if t is PredicateType.REGEXP_LIKE:
+        return re.search(str(p.value), str(v)) is not None
+    raise EvalError(f"predicate {t} not supported in row filters")
+
+
+def _coerce_like(template: Any, v: Any) -> Any:
+    if isinstance(template, (int, float)) and isinstance(v, str):
+        try:
+            return float(v)
+        except ValueError:
+            return v
+    return v
+
+
+def _loose_eq(a: Any, b: Any) -> bool:
+    if isinstance(a, (int, float)) and isinstance(b, (int, float)):
+        return float(a) == float(b)
+    return a == b
 
 
 # --------------------------------------------------------------------------

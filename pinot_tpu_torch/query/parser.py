@@ -446,3 +446,14 @@ def parse_expression(text: str) -> Expr:
     if p.peek().kind != "eof":
         raise SqlParseError(f"trailing input in expression: {text!r}")
     return e
+
+
+def parse_filter_expression(text: str) -> FilterNode:
+    """A standalone boolean expression (an ingestion filter config's
+    ``filterFunction``; JAX ``parser.py:544``)."""
+    p = _Parser(text.strip())
+    node = p.parse_or()
+    if p.peek().kind != "eof":
+        raise SqlParseError(f"trailing input in filter: {text!r}")
+    return node
+

@@ -68,6 +68,10 @@ class SegmentMetadata:
     # star-trees built with the segment, and each one's build seconds
     star_tree_count: int = 0
     star_tree_build_s: List[float] = field(default_factory=list)
+    # free-form properties: a sealed realtime segment's stream offsets and
+    # partition (``segment.realtime.startOffset`` / ``endOffset`` /
+    # ``partition``)
+    custom: Dict[str, Any] = field(default_factory=dict)
 
     def column(self, name: str) -> ColumnMetadata:
         try:

@@ -1,5 +1,17 @@
 from pinot_tpu_torch.spi.data import DataType, FieldSpec, FieldType, Schema
-from pinot_tpu_torch.spi.table import IndexingConfig, StarTreeIndexConfig
+from pinot_tpu_torch.spi.table import (
+    IndexingConfig,
+    IngestionConfig,
+    StarTreeIndexConfig,
+    StreamIngestionConfig,
+    TableConfig,
+    TableType,
+    TransformConfig,
+    UpsertConfig,
+    UpsertMode,
+)
 
 __all__ = ["DataType", "FieldSpec", "FieldType", "Schema", "IndexingConfig",
-           "StarTreeIndexConfig"]
+           "IngestionConfig", "StarTreeIndexConfig", "StreamIngestionConfig",
+           "TableConfig", "TableType", "TransformConfig", "UpsertConfig",
+           "UpsertMode"]

@@ -1,5 +1,6 @@
 """Schema and field-spec data model: INT/LONG/FLOAT/DOUBLE/STRING columns,
-single-value or multi-value, with their default null values.
+single-value or multi-value, with their default null values, the
+ingestion length cap and derived-column expression.
 
 Counterpart of ``pinot_tpu/spi/data.py``, cut to what the port uses.
 """
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
-from typing import Any, Dict, Iterable, List
+from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 
@@ -50,9 +51,23 @@ class DataType(Enum):
             return float(value)
         return value if isinstance(value, str) else str(value)
 
+    @property
+    def converter(self):
+        """``convert`` for a value that is not None, as a plain function
+        (the ingestion path calls it per value)."""
+        return _CONVERTERS[self]
+
     @classmethod
     def from_string(cls, s: str) -> "DataType":
         return cls[s.upper()]
+
+
+def _to_str(value: Any) -> str:
+    return value if isinstance(value, str) else str(value)
+
+
+_CONVERTERS = {DataType.INT: int, DataType.LONG: int, DataType.FLOAT: float,
+               DataType.DOUBLE: float, DataType.STRING: _to_str}
 
 
 class FieldType(Enum):
@@ -82,11 +97,17 @@ _DEFAULT_METRIC_NULL = {
 
 @dataclass
 class FieldSpec:
+    """``max_length`` caps a string value at ingestion and
+    ``transform_function`` derives the column from a row's fields (the
+    ingestion transformers read both)."""
+
     name: str
     data_type: DataType
     field_type: FieldType = FieldType.DIMENSION
     single_value: bool = True
     default_null_value: Any = None
+    max_length: int = 512
+    transform_function: Optional[str] = None
 
     def __post_init__(self):
         if isinstance(self.data_type, str):
@@ -105,13 +126,19 @@ class FieldSpec:
 class Schema:
     """A named, ordered collection of fields."""
 
-    def __init__(self, schema_name: str, field_specs: Iterable[FieldSpec]):
+    def __init__(self, schema_name: str, field_specs: Iterable[FieldSpec],
+                 primary_key_columns: Optional[List[str]] = None):
         self.schema_name = schema_name
         self._fields: Dict[str, FieldSpec] = {}
         for fs in field_specs:
             if fs.name in self._fields:
                 raise ValueError(f"duplicate column {fs.name!r}")
             self._fields[fs.name] = fs
+        #: an upsert table's key (``segment/upsert.py``)
+        self.primary_key_columns = list(primary_key_columns or [])
+        for pk in self.primary_key_columns:
+            if pk not in self._fields:
+                raise ValueError(f"primary key column {pk!r} not in schema")
 
     @property
     def column_names(self) -> List[str]:

@@ -1,14 +1,23 @@
-"""Table indexing config: the indexes a segment is built with.
+"""Table config: the indexes a segment is built with, and a realtime
+table's stream, upsert and ingestion settings.
 
-Counterpart of ``pinot_tpu/spi/table.py`` ``StarTreeIndexConfig`` (:49) and
-``IndexingConfig`` (:90-142), cut to the knobs the port's in-memory segment
-builder honours (no partition or realtime settings, no JSON round trip).
+Counterpart of ``pinot_tpu/spi/table.py``: ``StarTreeIndexConfig`` (:49),
+``IndexingConfig`` (:90-142), ``TableType``, ``UpsertMode``,
+``UpsertConfig``, ``StreamIngestionConfig`` with the reference's flat
+stream-config map reader (:265-318), ``TransformConfig``,
+``IngestionConfig`` and ``TableConfig`` (:426), cut to the knobs the
+port's in-memory segment builder, the realtime consumer
+(``ingestion/realtime.py``) and the record transformers honour (no
+partition, tenant, quota, routing or task settings, no JSON round trip
+of the whole table).
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
-from typing import List
+from enum import Enum
+from typing import Any, Dict, List, Optional
 
 
 @dataclass
@@ -53,3 +62,128 @@ class IndexingConfig:
     star_tree_index_configs: List[StarTreeIndexConfig] = field(
         default_factory=list)
     enable_default_star_tree: bool = False
+
+
+class TableType(Enum):
+    OFFLINE = "OFFLINE"
+    REALTIME = "REALTIME"
+
+    @property
+    def suffix(self) -> str:
+        return "_" + self.value
+
+
+def raw_table_name(name: str) -> str:
+    """``myTable_REALTIME`` -> ``myTable``."""
+    for t in TableType:
+        if name.endswith(t.suffix):
+            return name[: -len(t.suffix)]
+    return name
+
+
+class UpsertMode(Enum):
+    NONE = "NONE"
+    FULL = "FULL"
+    PARTIAL = "PARTIAL"
+
+
+@dataclass
+class UpsertConfig:
+    """The upsert mode and the column whose larger value wins (the time
+    column when None)."""
+
+    mode: UpsertMode = UpsertMode.NONE
+    comparison_column: Optional[str] = None
+
+
+@dataclass
+class StreamIngestionConfig:
+    """A realtime table's stream: ``stream_type`` picks a registered
+    consumer factory (``ingestion/stream.py``), ``decoder`` the message
+    decoder; a consuming segment commits at ``segment_flush_threshold_rows``
+    rows or after ``segment_flush_threshold_millis``."""
+
+    stream_type: str = "fake"
+    topic: str = ""
+    decoder: str = "json"
+    segment_flush_threshold_rows: int = 100_000
+    segment_flush_threshold_millis: int = 6 * 3600 * 1000
+    properties: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_stream_configs_map(cls, m: Dict[str, Any]
+                                ) -> "StreamIngestionConfig":
+        """The reference's flat ``tableIndexConfig.streamConfigs`` map
+        (``stream.<type>.topic.name``,
+        ``realtime.segment.flush.threshold.rows`` or ``.size``,
+        ``realtime.segment.flush.threshold.time``)."""
+        stream_type = m.get("streamType", "fake")
+        prefix = f"stream.{stream_type}."
+        topic = m.get(prefix + "topic.name", m.get("topic", ""))
+        decoder = m.get(prefix + "decoder.class.name",
+                        m.get("decoder", "json"))
+        rows = int(m.get("realtime.segment.flush.threshold.rows",
+                         m.get("realtime.segment.flush.threshold.size",
+                               100_000)))
+        millis = _duration_ms(m.get("realtime.segment.flush.threshold.time",
+                                    6 * 3600 * 1000))
+        props = {k: v for k, v in m.items() if k != "streamType"}
+        return cls(stream_type=stream_type, topic=topic, decoder=decoder,
+                   segment_flush_threshold_rows=rows,
+                   segment_flush_threshold_millis=millis, properties=props)
+
+
+_UNIT_MS = {"ms": 1, "s": 1000, "m": 60_000, "h": 3_600_000,
+            "d": 86_400_000}
+
+
+def _duration_ms(v: Any) -> int:
+    """Milliseconds from an int, a numeric string or a period ('12h',
+    '1d12h', '500ms')."""
+    s = str(v).strip().lower()
+    try:
+        return int(s)
+    except ValueError:
+        pass
+    if not re.fullmatch(r"(?:\d+\s*(?:ms|s|m|h|d)\s*)+", s):
+        raise ValueError(f"bad duration {v!r} (want millis or e.g. '6h')")
+    return sum(int(n) * _UNIT_MS[u]
+               for n, u in re.findall(r"(\d+)\s*(ms|s|m|h|d)", s))
+
+
+@dataclass
+class TransformConfig:
+    """One derived column: a SQL expression over the row's fields."""
+
+    column: str
+    transform_function: str
+
+
+@dataclass
+class IngestionConfig:
+    """``filter_function``: rows it matches are dropped;
+    ``transform_configs``: derived columns."""
+
+    filter_function: Optional[str] = None
+    transform_configs: List[TransformConfig] = field(default_factory=list)
+
+
+@dataclass
+class TableConfig:
+    """What the realtime consumer and the transformers read of a table."""
+
+    table_name: str
+    table_type: TableType = TableType.OFFLINE
+    indexing_config: IndexingConfig = field(default_factory=IndexingConfig)
+    upsert_config: Optional[UpsertConfig] = None
+    stream_config: Optional[StreamIngestionConfig] = None
+    ingestion_config: Optional[IngestionConfig] = None
+
+    def __post_init__(self):
+        if isinstance(self.table_type, str):
+            self.table_type = TableType[self.table_type.upper()]
+        self.table_name = raw_table_name(self.table_name)
+
+    @property
+    def table_name_with_type(self) -> str:
+        return self.table_name + self.table_type.suffix

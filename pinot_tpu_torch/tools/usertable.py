@@ -39,6 +39,13 @@ serve (an ordered ``SELECT *`` of a tail user on the card, a group-by on
 the ``$segmentName`` virtual column and grouped MV aggregations), with
 their oracle ``host_answers``.
 
+As a realtime table (``realtime_table_config``) the same rows arrive as
+JSON messages (``frame_rows``) on a stream; ``frame_prefix`` is the frame
+of the rows indexed up to a watermark, ``latest_per_user`` the rows an
+upsert keyed on ``user_id`` keeps live, and ``realtime_queries`` /
+``realtime_answers`` add what the consuming and sealed segments answer
+beside U1-U7: the star-tree's shapes (R1, R2) and an HLL (R3).
+
 Frames hold codes into the pools below (``country`` is
 ``COUNTRIES[frame["country"]]``), so an oracle works on small integers;
 ``build_segments`` turns them into dictionary columns without sorting
@@ -47,6 +54,7 @@ strings.
 
 from __future__ import annotations
 
+import json
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,7 +62,14 @@ import numpy as np
 from pinot_tpu_torch.segment.convert import ColumnArrays, segment_from_arrays
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.spi.data import DataType, FieldSpec, FieldType, Schema
-from pinot_tpu_torch.spi.table import IndexingConfig
+from pinot_tpu_torch.spi.table import (
+    IndexingConfig,
+    StreamIngestionConfig,
+    TableConfig,
+    TableType,
+    UpsertConfig,
+    UpsertMode,
+)
 
 # tail users hold a handful of rows each; whales hold thousands:
 # rng.zipf(ZIPF_A) clipped to NUM_USERS gives both in one draw
@@ -73,7 +88,7 @@ POOLS = {"country": COUNTRIES, "device": DEVICES, "event_type": EVENT_TYPES,
 NO_DICTIONARY_COLUMNS = ["latency_ms"]
 
 
-def user_schema() -> Schema:
+def user_schema(primary_key_columns: Optional[List[str]] = None) -> Schema:
     D, M = FieldType.DIMENSION, FieldType.METRIC
     I, S = DataType.INT, DataType.STRING
     return Schema("user_events", [
@@ -85,7 +100,7 @@ def user_schema() -> Schema:
         FieldSpec("latency_ms", I, M),
         FieldSpec("revenue", I, M),
         FieldSpec("num_items", I, M),
-    ])
+    ], primary_key_columns)
 
 
 def user_indexing_config() -> IndexingConfig:
@@ -468,3 +483,152 @@ def host_answers(frames: List[Dict[str, object]], user: int,
         "U9": sorted([n, len(f["user_id"])] for n, f in zip(names, frames)),
         "U10": [[c, len(tags[c]), entries[c]] for c in sorted(tags)],
     }
+
+
+# -- the realtime table ---------------------------------------------------------
+
+def realtime_table_config(topic: str, flush_rows: int,
+                          indexing: Optional[IndexingConfig] = None,
+                          upsert: bool = False) -> TableConfig:
+    """The table consumed from the in-memory stream ``topic``: one
+    partition, JSON messages, a segment committed at ``flush_rows`` rows,
+    the table's indexes (``user_indexing_config``) by default. ``upsert``:
+    FULL upsert with no comparison column, so each key's latest arrival
+    wins (the schema names the key: ``user_schema(["user_id"])``)."""
+    return TableConfig(
+        "user_events", TableType.REALTIME,
+        indexing_config=indexing or user_indexing_config(),
+        upsert_config=UpsertConfig(UpsertMode.FULL) if upsert else None,
+        stream_config=StreamIngestionConfig(
+            stream_type="memory", topic=topic,
+            segment_flush_threshold_rows=flush_rows))
+
+
+def frame_rows(frame: Dict[str, object], start: int = 0,
+               stop: Optional[int] = None) -> List[Dict[str, object]]:
+    """Rows ``[start, stop)`` of a frame as the row dicts a stream carries:
+    strings for the coded dimensions, a list of tags."""
+    n = len(frame["user_id"])
+    stop = n if stop is None else min(stop, n)
+    codes, counts = frame["tags"]
+    cols = {name: (np.asarray(POOLS[name], dtype=object)[
+                frame[name][start:stop]].tolist() if name in POOLS
+                   else np.asarray(frame[name][start:stop]).tolist())
+            for name in ("user_id", "country", "device", "event_type",
+                         "latency_ms", "revenue", "num_items")}
+    tag_names = np.asarray(TAGS, dtype=object)
+    tags = [tag_names[c[:k]].tolist() for c, k in
+            zip(codes[start:stop], counts[start:stop].tolist())]
+    names = list(cols)
+    return [dict(zip(names, vals), tags=t)
+            for vals, t in zip(zip(*cols.values()), tags)]
+
+
+def frame_messages(frame: Dict[str, object], start: int = 0,
+                   stop: Optional[int] = None) -> List[str]:
+    """``frame_rows(frame, start, stop)`` as JSON text, one message a row
+    (formatted from the pools' quoted strings, without a dict a row)."""
+    n = len(frame["user_id"])
+    stop = n if stop is None else min(stop, n)
+    quoted = {name: [json.dumps(v) for v in pool]
+              for name, pool in POOLS.items()}
+    cols = [np.asarray(quoted[name], dtype=object)[
+                frame[name][start:stop]].tolist() if name in POOLS
+            else np.asarray(frame[name][start:stop]).tolist()
+            for name in ("user_id", "country", "device", "event_type",
+                         "latency_ms", "revenue", "num_items")]
+    tags = quoted["tags"]
+    codes, counts = frame["tags"]
+    tag_lists = [", ".join(tags[c] for c in row[:k]) for row, k in
+                 zip(codes[start:stop].tolist(), counts[start:stop].tolist())]
+    return [f'{{"user_id": {u}, "country": {c}, "device": {d}, '
+            f'"event_type": {e}, "latency_ms": {lat}, "revenue": {r}, '
+            f'"num_items": {k}, "tags": [{t}]}}'
+            for u, c, d, e, lat, r, k, t in zip(*cols, tag_lists)]
+
+
+def frame_prefix(frame: Dict[str, object], n: int) -> Dict[str, object]:
+    """The frame of the first ``n`` rows."""
+    return {k: ((v[0][:n], v[1][:n]) if isinstance(v, tuple) else v[:n])
+            for k, v in frame.items()}
+
+
+def latest_per_user(frame: Dict[str, object]) -> Dict[str, object]:
+    """The rows an upsert keyed on ``user_id`` keeps, the latest arrival of
+    each user, in arrival order."""
+    user = np.asarray(frame["user_id"])
+    rev = user[::-1]
+    _, first = np.unique(rev, return_index=True)
+    keep = np.sort(user.shape[0] - 1 - first)
+    return {k: ((v[0][keep], v[1][keep]) if isinstance(v, tuple)
+                else np.asarray(v)[keep]) for k, v in frame.items()}
+
+
+def realtime_queries(user: int) -> Dict[str, str]:
+    """U1-U7, then R1 and R2 (shapes the default star-tree of a sealed
+    segment fits: dimensions of bounded cardinality, COUNT and SUM) and
+    R3, an HLL of users by country (the consuming rung declines it)."""
+    out = dict(queries(user))
+    out.update({
+        "R1": "SELECT country, count(*), sum(revenue) FROM user_events "
+              "WHERE event_type = 'purchase' GROUP BY country",
+        "R2": "SELECT device, count(*), sum(latency_ms), sum(num_items) "
+              "FROM user_events GROUP BY device",
+        "R3": "SELECT country, distinctcounthll(user_id) FROM user_events "
+              "GROUP BY country",
+    })
+    return out
+
+
+def _hll_estimate(values: np.ndarray, log2m: int = 8) -> int:
+    """DISTINCTCOUNTHLL of integer ``values``, written apart from
+    ``utils/hll.py`` so the oracle does not check the engine against
+    itself; the same sketch by definition: each value's splitmix64 hash,
+    its top ``log2m`` bits pick a register, which keeps the largest rank
+    (the position of the first set bit of the other bits); the estimate
+    is alpha m^2 / sum 2^-register, by linear counting while it is at most
+    2.5 m and a register is empty."""
+    x = np.unique(values).astype(np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    x = x ^ (x >> np.uint64(31))
+    width = 64 - log2m
+    reg = (x >> np.uint64(width)).astype(np.int64)
+    rest = x & np.uint64((1 << width) - 1)
+    # bit length of ``rest`` from two halves that a float holds exactly
+    half = width // 2
+    hi = (rest >> np.uint64(half)).astype(np.float64)
+    lo = (rest & np.uint64((1 << half) - 1)).astype(np.float64)
+    bits = np.where(hi > 0, np.frexp(hi)[1] + half, np.frexp(lo)[1])
+    rank = width - bits + 1
+    m = 1 << log2m
+    registers = np.zeros(m, dtype=np.int64)
+    np.maximum.at(registers, reg, rank)
+    est = 0.7213 / (1 + 1.079 / m) * m * m / np.exp2(-registers).sum()
+    zeros = int((registers == 0).sum())
+    if est <= 2.5 * m and zeros:
+        est = m * np.log(m / zeros)
+    return int(round(est))
+
+
+def realtime_answers(frame: Dict[str, object], user: int
+                     ) -> Dict[str, List[List]]:
+    """``realtime_queries(user)``'s rows over one frame, with numpy (R3
+    through ``_hll_estimate`` of each country's user ids)."""
+    out = {qid: numpy_answer([frame], qid, user) for qid in queries(user)}
+    purchase = frame["event_type"] == EVENT_TYPES.index("purchase")
+    out["R1"] = [[k, r["count"], int(r["rev"].sum())] for k, r in sorted(
+        _group_rows(frame["country"][purchase], COUNTRIES,
+                    {"rev": frame["revenue"][purchase]}).items())]
+    out["R2"] = [[k, r["count"], int(r["lat"].sum()), int(r["items"].sum())]
+                 for k, r in sorted(_group_rows(
+                     frame["device"], DEVICES,
+                     {"lat": frame["latency_ms"],
+                      "items": frame["num_items"]}).items())]
+    out["R3"] = [[k, _hll_estimate(np.asarray(r["user"]))]
+                 for k, r in sorted(_group_rows(
+                     frame["country"], COUNTRIES,
+                     {"user": frame["user_id"]}).items())]
+    return out

@@ -12,13 +12,23 @@ JAX-built segments carried across with ``columns_of``:
   JAX's sharded executor does;
 - the segment pruner: min/max and partition pruning on a time-bounded
   and a partitioned SSB layout and a two-partition table, the same
-  segments kept on every path, pruned docs counted in ``total_docs``.
+  segments kept on every path, pruned docs counted in ``total_docs``;
+- the filter-blind caches: on a reused executor, a context of the same
+  SQL whose filter was rewritten (``dataclasses.replace``) is served the
+  rewritten filter's rows on every path (per segment with the fused scan
+  on and off, the batch, the ordered selection on the top-k), equal to
+  the JAX executors reused the same way; the plan cache holds its
+  segments by weak reference.
 
 Each is held against the JAX executor with ``use_pallas=False`` (port:
 ``use_fused_scan=False``), ``use_pallas=True`` in interpret mode (port:
 the fused scan on) and the JAX sharded executor (port: the batch path).
 Tolerance: counts, integer sums, min/max and keys exact.
 """
+
+import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -441,3 +451,105 @@ def test_chip_smoke_holds_the_pruner_to_min_max_bounds(monkeypatch):
                         lambda ctx, segments, stats=None: list(segments))
     with pytest.raises(AssertionError, match="Q1.1: the pruner keeps"):
         chip_smoke._kept_segments(ctxs, segs, frames, parts)
+
+
+# -- 5. the filter-blind caches ------------------------------------------------
+
+# (query of the first filter, the rewritten filter's SQL): the first
+# context's caches must not serve the second
+REWRITE_SQL = {
+    "group_by": ("SELECT b, count(*) FROM rw WHERE a < 10 GROUP BY b "
+                 "ORDER BY b LIMIT 100",
+                 "SELECT b, count(*) FROM rw WHERE a >= 40 GROUP BY b "
+                 "ORDER BY b LIMIT 100"),
+    "aggregation": ("SELECT count(*), sum(b), max(a) FROM rw WHERE a < 10",
+                    "SELECT count(*), sum(b), max(a) FROM rw WHERE a >= 40"),
+    "selection": ("SELECT a, b FROM rw WHERE a < 10 ORDER BY a DESC, b "
+                  "LIMIT 5",
+                  "SELECT a, b FROM rw WHERE a >= 40 ORDER BY a DESC, b "
+                  "LIMIT 5"),
+}
+
+
+@pytest.fixture(scope="module")
+def rewrite_table(tmp_path_factory):
+    """ROADMAP queue 3's reproduction: two INT columns, 2 x 1000 rows."""
+    out = tmp_path_factory.mktemp("faults_rw")
+    schema = Schema("rw", [FieldSpec("a", DataType.INT),
+                           FieldSpec("b", DataType.INT, FieldType.METRIC)])
+    rng = np.random.default_rng(21)
+    jsegs = []
+    for i in range(2):
+        SegmentBuilder(schema, f"rw_{i}").build(
+            {"a": rng.integers(0, 50, 1000).tolist(),
+             "b": rng.integers(0, 8, 1000).tolist()}, str(out))
+        jsegs.append(load_segment(str(out / f"rw_{i}")))
+    return jsegs, carry(jsegs, "rw")
+
+
+def _rewritten(compile_, first, second):
+    """The first SQL's context, then a copy with the second's filter and
+    the first's SQL text."""
+    ctx = compile_(first)
+    return ctx, dataclasses.replace(ctx, filter=compile_(second).filter)
+
+
+@pytest.mark.parametrize("shape", sorted(REWRITE_SQL))
+@pytest.mark.parametrize("path", ["port_on", "port_off", "port_batch"])
+def test_rewritten_filter_under_the_same_sql(rewrite_table, path, shape):
+    """A reused executor serves a same-SQL context with a rewritten filter
+    the rewritten filter's rows, as both JAX executors do on the same
+    reuse; the first query's rows differ, so a stale cache would show."""
+    jsegs, tsegs = rewrite_table
+    first, second = REWRITE_SQL[shape]
+    port = _port(path)
+    t1, t2 = _rewritten(t_compile, first, second)
+    got1, _ = port.execute(t1, tsegs)
+    got2, stats2 = port.execute(t2, tsegs)
+    assert t2.sql == t1.sql and str(t2.filter) != str(t1.filter)
+    fresh, _ = _port(path).execute(t_compile(second), tsegs)
+    assert got2.rows == fresh.rows and got2.rows != got1.rows
+    ncols = len(got2.schema.column_names)
+    for ref in ("pallas", "sharded"):
+        jex = _jax(ref)
+        j1, j2 = _rewritten(j_compile, first, second)
+        want1, _ = jex.execute(j1, jsegs)
+        want2, jstats2 = jex.execute(j2, jsegs)
+        _assert_rows(got1.rows, want1.rows, [True] * ncols,
+                     f"{path} vs {ref}: {first}")
+        _assert_rows(got2.rows, want2.rows, [True] * ncols,
+                     f"{path} vs {ref}: rewritten {second}")
+        assert stats2.num_docs_scanned == jstats2.num_docs_scanned, \
+            (path, ref, shape)
+
+
+def test_rewritten_filter_on_the_top_k(rewrite_table):
+    """The ordered selection ran on the device top-k both times (a
+    compiled filter per fingerprint), not on the host engine."""
+    _, tsegs = rewrite_table
+    port = _port("port_on")
+    t1, t2 = _rewritten(t_compile, *REWRITE_SQL["selection"])
+    for ctx in (t1, t2):
+        _, stats = port.execute(ctx, tsegs)
+        assert stats.topk_launches == len(tsegs)
+        assert not stats.decisions, stats.decisions
+    assert len(port.selection_cache) == 2 * len(tsegs)
+
+
+def test_plan_cache_holds_segments_weakly(rewrite_table):
+    """A plan cache entry does not keep its segment alive (JAX
+    :901-919): once the caller drops a segment, the entry's reference is
+    dead and a new segment of the same name plans again."""
+    jsegs, _ = rewrite_table
+    seg = carry(jsegs[:1], "rw")[0]
+    ex = _port("port_off")
+    ctx = t_compile(REWRITE_SQL["aggregation"][0])
+    ex.execute(ctx, [seg])
+    (ref, plan), = ex._plans.values()
+    assert isinstance(ref, weakref.ref) and ref() is seg
+    ex.residency.evict(seg.segment_name)
+    del seg
+    gc.collect()
+    assert ref() is None
+    again = carry(jsegs[:1], "rw")[0]
+    assert ex._plan_for(ctx, again) is not plan

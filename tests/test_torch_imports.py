@@ -58,7 +58,13 @@ def test_executor_import_leaves_jax_unloaded():
             "pinot_tpu_torch.common.singleflight, "
             "pinot_tpu_torch.spi.config, "
             "pinot_tpu_torch.parallel.launcher, "
-            "pinot_tpu_torch.parallel.executor; "
+            "pinot_tpu_torch.parallel.executor, "
+            "pinot_tpu_torch.segment.mutable, "
+            "pinot_tpu_torch.segment.upsert, "
+            "pinot_tpu_torch.engine.mutable_staging, "
+            "pinot_tpu_torch.ingestion, pinot_tpu_torch.ingestion.stream, "
+            "pinot_tpu_torch.ingestion.transformers, "
+            "pinot_tpu_torch.ingestion.realtime; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinot_tpu', 'triton')]; "
             "from pinot_tpu_torch.engine import _build, kernels; "
@@ -108,6 +114,38 @@ def test_residency_entry_points_raise_without_a_card():
         ResidencyManager()
     with pytest.raises(RuntimeError, match="cuda"):
         ShardedQueryExecutor(hbm_budget_bytes=1 << 30)
+
+
+def test_consuming_segment_entry_points_raise_without_a_card():
+    """A consuming segment's staging and the executors serving it default
+    to the card and raise without one; ``device="cpu"`` runs them."""
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.engine.mutable_staging import StagedMutableSegment
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.segment.mutable import MutableSegment
+    from pinot_tpu_torch.spi import DataType, FieldSpec, FieldType, Schema
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    seg = MutableSegment(Schema("m", [FieldSpec("k", DataType.STRING),
+                                      FieldSpec("v", DataType.INT,
+                                                FieldType.METRIC)]), "m_0")
+    for i in range(10):
+        seg.index({"k": "ab"[i % 2], "v": i})
+    with pytest.raises(RuntimeError, match="cuda"):
+        StagedMutableSegment(seg)
+    for make in (ServerQueryExecutor, ShardedQueryExecutor):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    staged = StagedMutableSegment(seg, device="cpu")
+    assert staged.snapshot().wm == 10
+    for make in (ServerQueryExecutor, ShardedQueryExecutor):
+        table, stats = make(device="cpu").execute(
+            compile_query("SELECT k, sum(v) FROM m GROUP BY k ORDER BY k"),
+            [seg])
+        assert table.rows == [["a", 20.0], ["b", 25.0]]
+        assert stats.group_by_rung == "mutable_device"
 
 
 def test_cpu_device_runs_plain_path():

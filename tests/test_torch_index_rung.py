@@ -270,6 +270,33 @@ def test_every_reason_code_is_registered(setup):
     # the catch-all decline of a failed launch is a planned difference
     src = open(index_exec.__file__).read()
     assert '"index_exec_failed"' not in src and "except Exception" not in src
+    # the consuming segment's gather records under the same point with the
+    # codes JAX registers for it (``tracing.MUTABLE_DECLINE_REASONS``)
+    from pinot_tpu_torch.engine import mutable_staging
+    from pinot_tpu_torch.segment.mutable import MutableSegment
+
+    seg = MutableSegment(t_user.user_schema(), "user_events__0__0")
+    for row in t_user.frame_rows(t_user.generate_frame(0, 1, 4000)):
+        seg.index(row)
+    mutable = set()
+    for sql in (
+        f"SELECT count(*) FROM user_events WHERE user_id = {u}",
+        "SELECT count(*) FROM user_events WHERE device = 'web'",
+        "SELECT count(*) FROM user_events WHERE tags = 'tag3'",
+        f"SELECT count(*) FROM user_events WHERE NOT user_id = {u}",
+        "SELECT country, distinctcounthll(user_id) FROM user_events "
+        "GROUP BY country",
+    ):
+        _, s = setup["port"].execute(t_compile(sql), [seg])
+        mutable |= {k.rsplit(":", 1)[1] for k in s.decisions}
+    assert mutable <= tracing.MUTABLE_DECLINE_REASONS, mutable
+    assert {"mutable_index_served", "mutable_index_over_threshold",
+            "mutable_index_unsupported_shape",
+            "mutable_hll_lut_unstable"} <= mutable
+    src = open(mutable_staging.__file__).read()
+    assert '"mutable_exec_failed"' not in src \
+        and '"mutable_index_exec_failed"' not in src \
+        and "except Exception" not in src
 
 
 def test_operator_opt_out_is_silent(setup):
