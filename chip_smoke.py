@@ -7,8 +7,10 @@
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the fused-scan CUDA kernel from pinot_tpu_torch/engine/csrc
-     (ptxas registers, stack frame and spills logged);
+  2. build the fused-scan CUDA kernels from pinot_tpu_torch/engine/csrc
+     (ptxas registers, stack frame and spills logged; the query axis's
+     fused_scan_many_kernel asserted at a 0-byte stack frame and 0
+     spills);
   3. hold the kernel against its plain PyTorch version on the same card and
      inputs: every bit width, a remainder tile, iv/ivs/not/or filters, int
      and float expressions, an i64 column, raw (no-dictionary) INT, LONG
@@ -19,7 +21,12 @@ Phases:
      the kernel takes, tiles where every doc passes and tiles where none
      does, 56 bits of filter columns; then the same cases as one launch
      over a batch of 3 segments of different sizes plus one padded segment
-     with no docs;
+     with no docs; (3c) the query axis over that batch: each case's scan
+     and probe program with literal variants of its layout, Q = 1, 3, 8
+     and 9 (two blocks on grid y), against the plain version and one solo
+     launch a program, every packed width, IVS and NOT, scalar, shared
+     and device-memory accumulators, the probe and a raw i64 column
+     covered;
   4. the per-segment path: SSB at ``--sf`` in ``--segments`` time-bounded
      segments, the 13 flights ``--reps`` times through
      ServerQueryExecutor(device="cuda"), which prunes the segments no doc
@@ -124,10 +131,11 @@ Phases:
      other literals), Q2.1 as written, then P1-P8 (Q3.2 for other
      nations, their probes at binding), each answer == its solo answer ==
      oracle, coalesced and saved launches asserted, QPS at 1 and 8
-     threads, batch sizes, queue wait p50 / p99; the query-axis kernels
-     (scan and probe) at the shapes that launched against their plain
-     version and Q solo launches, timed beside them, beside the launch
-     with the one-query grid and beside their byte bound; (13c, after
+     threads, batch sizes, queue wait p50 / p99; the query-axis kernel
+     (scan and probe) at the shapes that launched against its plain
+     version and Q solo launches of the one-query kernel, timed beside
+     them and beside its byte bound, and at the first 1, 2 and 4 of the
+     programs; (13c, after
      phase 12) phase 12's trees under 1.5x one segment's largest tree:
      node arrays demoted and promoted across two passes of the 13
      flights, == oracle, then 8 concurrent identical queries sharing
@@ -432,24 +440,36 @@ def phase_kernels(n: int = 200_123, seed: int = 7) -> dict:
     if seg.num_docs % fs.TILE == 0:
         raise AssertionError("the synthetic segment must end in a "
                              "remainder tile")
-    errs.update(phase_batch_kernels(seed))
+    staged = _synthetic_batch(seed, "cuda")
+    errs.update(phase_batch_kernels(staged))
+    log("phase 3c: the query axis over phase 3's batch")
+    errs.update(phase_query_axis_kernels(staged))
     return errs
 
 
-def phase_batch_kernels(seed: int) -> dict:
-    """The phase-3 cases as one launch over a batch: 3 segments with their
-    own dictionaries (unified by the batch) and one padded segment with no
-    docs, whose matched count must stay 0."""
-    from pinot_tpu_torch.engine import fused_scan as fs
+def _synthetic_batch(seed: int, device: str):
+    """Phase 3's batch: 3 synthetic segments of BATCH_DOCS docs with their
+    own dictionaries (unified by the batch), staged with one padded
+    segment with no docs."""
+    from pinot_tpu_torch.engine.staging import TILE
     from pinot_tpu_torch.parallel.batch import SegmentBatch, StagedBatch
 
     segs = [_synthetic_segment(n, seed + i, i)
             for i, n in enumerate(BATCH_DOCS)]
-    if any(n % fs.TILE == 0 for n in BATCH_DOCS):
+    if any(n % TILE == 0 for n in BATCH_DOCS):
         raise AssertionError("every batch segment must end in a remainder "
                              "tile")
-    staged = StagedBatch(SegmentBatch(segs), device="cuda",
-                         num_segs=len(segs) + 1)
+    return StagedBatch(SegmentBatch(segs), device=device,
+                       num_segs=len(segs) + 1)
+
+
+def phase_batch_kernels(staged) -> dict:
+    """The phase-3 cases as one launch over the batch ``staged``
+    (``_synthetic_batch``), whose padded segment's matched count must
+    stay 0."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+
+    segs = staged.batch.segments
     errs = {"sharded_fused_scan": 0.0, "sharded_fused_scan_probe": 0.0}
     paths, depths, tiles = set(), set(), set()
     probed = False
@@ -477,6 +497,132 @@ def phase_batch_kernels(seed: int) -> dict:
         raise AssertionError(f"batch raw value columns covered: "
                              f"{raw_values}")
     return errs
+
+
+# programs of one query-axis launch in phase 3c
+QUERY_AXIS_Q = (1, 3, 8, 9)
+
+
+def _literal_variants(prog, q: int, seed: int) -> list:
+    """``q`` programs of ``prog``'s layout: ``prog``, then variants whose
+    literal words alone differ (what ``ScanProgram.layout_key`` leaves
+    out): each interval bound moved by -3..3 (empty, negative and
+    past-the-width intervals included), each LITC operand moved by the
+    variant's index, each LITF operand scaled, each group stride moved
+    by 0 or 1 (keys past the group space are dropped, in the kernel as in
+    the plain version)."""
+    import dataclasses
+
+    from pinot_tpu_torch.engine import fused_scan as fs
+
+    rng = np.random.default_rng(seed)
+    out = [prog]
+    for k in range(1, q):
+        w = prog.prog.astype(np.int64)
+        w[prog.iv_off:] += rng.integers(-3, 4, w.size - prog.iv_off)
+        for i in range(prog.vops_off, prog.expr_off, 4):
+            if w[i] == fs.V_LITC:
+                w[i + 1] += k
+            elif w[i] == fs.V_LITF:
+                f = np.array([w[i + 1]], np.int32).view(np.float32)
+                w[i + 1] = int((f * np.float32(1 + k / 8)).view(np.int32)[0])
+        w[prog.group_off + 1:prog.iv_off:2] += rng.integers(
+            0, 2, prog.n_group)
+        v = dataclasses.replace(prog, prog=w.astype(np.int32), _on={},
+                                _argv={})
+        if v.layout_key() != prog.layout_key():
+            raise AssertionError("a literal variant changed the layout")
+        out.append(v)
+    return out
+
+
+def _filter_ops(prog) -> set:
+    return {int(prog.prog[prog.filter_off + 4 * i])
+            for i in range(prog.filter_n)}
+
+
+def phase_query_axis_kernels(staged) -> dict:
+    """3c: the query-axis kernel (``sharded_fused_scan_many``,
+    ``sharded_fused_scan_probe_many``) over phase 3's batch: each case's
+    scan (and probe) program with its literal variants, Q in
+    QUERY_AXIS_Q (9 spans two blocks on grid y), held to the plain version
+    and to one solo launch a program (exact counts, int sums, min/max and
+    matched counts; floats rel 1e-9), the padded segment matching 0."""
+    import torch
+
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.parallel import combine
+
+    errs = {"sharded_fused_scan_many": 0.0,
+            "sharded_fused_scan_probe_many": 0.0}
+    bits, ops, paths, raw_values = set(), set(), set(), set()
+    tables = set()   # log2 widths of the leaves that took a table
+    stream = torch.cuda.current_stream()
+    for c, (what, sql) in enumerate(_kernel_cases()):
+        args = _scan_args(staged, sql)
+        raw_values |= _raw_values(staged, sql)
+        for kind, (_launch, (prog, words, values, nd, tiles)) in args.items():
+            probe = prog.probe
+            name = ("sharded_fused_scan_probe_many" if probe
+                    else "sharded_fused_scan_many")
+            progs = _literal_variants(prog, max(QUERY_AXIS_Q), 1000 + c)
+            bits.update(prog.bits)
+            ops |= _filter_ops(prog)
+            plain = [fs.fused_scan_plain(p, words, values, nd, tiles)
+                     for p in progs]
+            solo = []
+            for p in progs:
+                argv, out = fs.prepare_launch(p, words, values, nd, tiles)
+                fs.enqueue(argv, stream)
+                solo.append(out)
+            for q in QUERY_AXIS_Q:
+                qg, groups = fs.query_group(prog, q)
+                tables.update(fs.lut_leaves(prog, qg))
+                paths.add(("probe " if probe else "")
+                          + _acc_path_many(prog, qg))
+                got = (combine.sharded_fused_scan_probe_many(
+                           progs[:q], words, nd) if probe
+                       else combine.sharded_fused_scan_many(
+                           progs[:q], words, values, nd, tiles))
+                for i, g in enumerate(got):
+                    at = f"3c {what} ({kind}) Q={q} program {i}"
+                    errs[name] = max(errs[name],
+                                     _compare(g, plain[i], f"{at} (plain)"),
+                                     _compare(g, solo[i], f"{at} (solo)"))
+                    matched = g.to_host().matched
+                    if int(matched[-1]) != 0:
+                        raise AssertionError(f"{at}: the padded segment "
+                                             f"matched {int(matched[-1])}")
+            log(f"  query axis == plain == solo: {what} ({kind}; Q "
+                f"{list(QUERY_AXIS_Q)}, {fs.query_group(prog, 9)[0]} a "
+                f"block, {_acc_path_many(prog, fs.query_group(prog, 8)[0])}"
+                f" accumulators at Q=8; matched of program 1 at Q=9 "
+                f"{got[1].to_host().matched.tolist()})")
+    missing = {1, 2, 4, 8, 16, 32} - bits
+    if missing:
+        raise AssertionError(f"3c: bit widths not covered: {sorted(missing)}")
+    if not {fs.F_IVS, fs.F_NOT} <= ops:
+        raise AssertionError("3c: no IVS or no NOT filter op")
+    if tables != {2, 3}:
+        raise AssertionError(f"3c: leaf tables over 4- and 8-bit dictIds "
+                             f"not both covered: {sorted(tables)}")
+    want = {"scalar", "shared", "global", "probe scalar"}
+    if not want <= paths:
+        raise AssertionError(f"3c: paths not covered: {sorted(want - paths)}")
+    if "rlong" not in raw_values:
+        raise AssertionError("3c: no raw i64 value column")
+    if any(n % fs.TILE == 0 for n in BATCH_DOCS):
+        raise AssertionError("3c: every segment must end in a remainder "
+                             "tile")
+    return errs
+
+
+def _acc_path_many(prog, qg: int) -> str:
+    """``_acc_path`` of a query-axis block serving ``qg`` programs."""
+    from pinot_tpu_torch.engine import fused_scan as fs
+
+    return ("scalar" if prog.scalar else
+            "shared" if fs.scan_layout_many(prog, qg).acc_smem else "global")
 
 
 def _raw_values(staged, sql) -> set:
@@ -2613,9 +2759,9 @@ def _query_axis_kernel(name: str, progs, words, values, num_docs, tiles,
     """The query-axis launch over ``progs`` at its path's shape: held to
     its plain version and to one solo launch a program (exact counts, int
     sums and min/max, floats rel 1e-9), then timed (CUDA events, one
-    prepared launch enqueued back to back) beside Q solo launches, the
-    same launch with the one-query grid (not divided by Q), the plain
-    version and its byte bound."""
+    prepared launch enqueued back to back) beside Q solo launches of the
+    one-query kernel, the plain version and its byte bound, and at the
+    first 1, 2 and 4 of the programs (how the time grows with Q)."""
     import torch
 
     from pinot_tpu_torch.engine import fused_scan as fs
@@ -2635,13 +2781,17 @@ def _query_axis_kernel(name: str, progs, words, values, num_docs, tiles,
         fs.enqueue(solo_argv, torch.cuda.current_stream())
         err = max(err, _compare(g, solo, f"13b {name} query {q} (solo)"))
     stream = torch.cuda.current_stream()
-    argv, _ = fs.prepare_launch_many(progs, words, values, num_docs, tiles)
-    ms = _time_ms(lambda: fs.enqueue(argv, stream), iters)
-    lay = fs.scan_layout(progs[0])
-    grid = fs.launch_grid(lay.smem)
-    argv_full, _ = fs.prepare_launch_many(progs, words, values, num_docs,
-                                          tiles, grid_x=grid)
-    full_ms = _time_ms(lambda: fs.enqueue(argv_full, stream), iters)
+    ms_by_q = {}
+    for q in sorted({1, 2, 4, len(progs)}):
+        argv, _ = fs.prepare_launch_many(progs[:q], words, values, num_docs,
+                                         tiles)
+        ms_by_q[q] = _time_ms(lambda: fs.enqueue(argv, stream, many=True),
+                              iters)
+    ms = ms_by_q[len(progs)]
+    qg, groups = fs.query_group(progs[0], len(progs))
+    lay = fs.scan_layout_many(progs[0], qg)
+    grid = min(fs.launch_grid(lay.smem, many=True),
+               int(num_docs.numel()) * tiles)
     solo_argvs = [fs.prepare_launch(p, words, values, num_docs, tiles)[0]
                   for p in progs]
 
@@ -2653,16 +2803,20 @@ def _query_axis_kernel(name: str, progs, words, values, num_docs, tiles,
         progs, words, values, num_docs, tiles), 2)
     nbytes = _needed_bytes_many(progs, words, values, num_docs, tiles)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    row = {"kernel": name, "Q": len(progs), "ms": ms, "full_grid_ms": full_ms,
-           "solo_ms": solo_ms, "plain_ms": plain_ms, "bound_ms": bound,
-           "bytes": nbytes, "max_abs_err": err, "grid_x": -(-grid // len(
-               progs)), "one_query_grid": grid}
+    row = {"kernel": name, "Q": len(progs), "ms": ms, "solo_ms": solo_ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bytes": nbytes,
+           "max_abs_err": err, "grid": [grid, groups], "programs_a_block": qg,
+           "smem": lay.smem, "acc_smem": lay.acc_smem,
+           "leaf_tables": fs.lut_leaves(progs[0], qg),
+           "ms_by_q": {str(q): t for q, t in ms_by_q.items()}}
     log(f"  13b {name} over {int(num_docs.numel())} segments, Q={len(progs)}"
         f": == plain == {len(progs)} solo launches; {ms:.4f} ms/launch "
-        f"(grid x {row['grid_x']}; {full_ms:.4f} ms with the one-query "
-        f"grid {grid}), {len(progs)} solo launches {solo_ms:.4f} ms, "
-        f"{ms / bound:.1f}x bound {bound:.4f} ms ({nbytes} B), plain "
-        f"{plain_ms:.2f} ms")
+        f"(grid {grid} x {groups}, {qg} programs a block, {lay.smem} B "
+        f"smem, accumulators in {'shared' if lay.acc_smem else 'device'} "
+        f"memory, leaf tables of log2 widths {row['leaf_tables']}), "
+        f"{len(progs)} solo launches {solo_ms:.4f} ms, {ms / bound:.1f}x "
+        f"bound {bound:.4f} ms ({nbytes} B), plain {plain_ms:.2f} ms; ms at "
+        f"Q = " + ", ".join(f"{q}: {t:.4f}" for q, t in ms_by_q.items()))
     return row
 
 
@@ -3651,6 +3805,21 @@ def _phase_14(args) -> dict:
     return run
 
 
+def _ptxas_frame(nvcc_log: str, kernel: str) -> tuple:
+    """(stack frame, spill stores, spill loads) bytes ptxas reports for
+    ``kernel``."""
+    import re
+
+    lines = nvcc_log.splitlines()
+    for i, line in enumerate(lines):
+        if line.rstrip().endswith(f"Function properties for {kernel}"):
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", lines[i + 1])
+            if m:
+                return tuple(int(x) for x in m.groups())
+    raise AssertionError(f"ptxas reported no frame for {kernel}")
+
+
 def _phases_2_to_11(args, smi: str) -> tuple:
     """Phases 2-11 and 13a-b: the fused-scan kernel, every earlier path,
     then residency and coalescing on phase 4's segments. -> (their
@@ -3663,12 +3832,16 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     t0 = time.perf_counter()
     _build.load_library("fused_scan")
     log(f"  fused_scan built and loaded in {time.perf_counter() - t0:.1f} s")
-    ptxas = [line.strip() for line in
-             _build.BUILD_LOGS.get("fused_scan", ("", ""))[1].splitlines()
+    nvcc_log = _build.ptxas_log("fused_scan")
+    ptxas = [line.strip() for line in nvcc_log.splitlines()
              if "registers" in line or "stack frame" in line
-             or "spill" in line]
+             or "spill" in line or "Function properties" in line]
     for line in ptxas:
         log(f"  ptxas: {line}")
+    frame = _ptxas_frame(nvcc_log, "fused_scan_many_kernel")
+    if frame != (0, 0, 0):
+        raise AssertionError(f"fused_scan_many_kernel: stack frame, spill "
+                             f"stores, spill loads {frame} bytes, not 0")
 
     log("phase 3: kernel against plain version")
     t0 = time.perf_counter()

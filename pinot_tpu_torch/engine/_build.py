@@ -64,6 +64,24 @@ def build_library(name: str) -> str:
     return out
 
 
+def ptxas_log(name: str) -> str:
+    """nvcc's output (``-Xptxas -v``: registers, stack frame and spills
+    of each kernel) for ``csrc/<name>.cu``: the build's own where this
+    process built it, else a compile to a throwaway library."""
+    got = BUILD_LOGS.get(name)
+    if got is not None:
+        return got[1]
+    src = os.path.join(CSRC, f"{name}.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", os.path.join(tmp, "lib.so"), src],
+            capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def load_library(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
@@ -81,7 +99,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "fused_scan":
         lib.fused_scan_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.fused_scan_launch.restype = ctypes.c_int
-        lib.fused_scan_grid.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.fused_scan_many_launch.argtypes = [ctypes.c_void_p,
+                                               ctypes.c_void_p]
+        lib.fused_scan_many_launch.restype = ctypes.c_int
+        lib.fused_scan_grid.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
         lib.fused_scan_grid.restype = ctypes.c_int
         lib.fused_scan_error_string.argtypes = [ctypes.c_int]
         lib.fused_scan_error_string.restype = ctypes.c_char_p

@@ -93,21 +93,67 @@
 // segment, and at the end. Outputs are zeroed or set to +-inf by the
 // caller; the kernel allocates nothing and runs on the caller's stream.
 //
-// Query axis: one launch may serve Q programs of one layout (the same
-// sections, lengths, rows and group count: they differ only in literal
-// words) over the same batch. The programs are stacked [Q, prog_len] and
-// each query's outputs lie out_qstride bytes after the previous query's;
-// block (x, y) walks the tiles for query y. It is the counterpart of
-// jax.vmap over the sharded Pallas call (pinot_tpu/parallel/launcher.py
-// run_many): concurrent same-shape queries share one launch, and the
-// persistent grid's x extent is the one-query grid divided by Q, so the
-// blocks of all queries together fill the SMs once.
+// Query axis (fused_scan_many_kernel): one launch serves Q programs of one
+// layout over the same batch, the counterpart of jax.vmap over the sharded
+// Pallas calls (pinot_tpu/parallel/combine.py:298 and :360 under
+// pinot_tpu/parallel/launcher.py:92 run_many): concurrent same-shape
+// queries, a dashboard's traffic. Programs of one layout
+// (fused_scan.py ScanProgram.layout_key) differ only in interval bounds,
+// LITC / LITF literals and group-key strides: the filter ops, their
+// columns and IVS run counts, the value ops, the operands, the rows, G and
+// the key offset are the same in all of them. The programs are stacked
+// [Q, prog_len]; each query's outputs lie out_qstride bytes after the
+// previous query's.
+//
+// Bound: the bytes of one scan, each read once for all Q programs (a late
+// column's sectors where a doc passes any program), plus each program's
+// outputs, over 3.35 TB/s; then the filter arithmetic, which grows with Q,
+// and the passing docs' operand loads and atomics. Launching the
+// one-query design Q times over (block (x, y) walking every tile for
+// query y) loaded each filter word Q times, interpreted the filter Q
+// times and loaded a doc's operands once per program that it passed.
+// Here:
+//   - A block serves a group of up to QG = 8 programs (grid y is the
+//     group); grid x is the persistent grid for this kernel's shared
+//     memory, and block x walks tiles x, x + grid, ... once for the whole
+//     group.
+//   - Each filter op is fetched and decoded once per tile and thread for
+//     the group: an IV/IVS leaf loads the thread's words of the column
+//     once, then runs the SWAR tests (leaf_fields, compacted once a
+//     program by leaf_bits) against each program's intervals. The group's
+//     16-doc masks are packed in four registers (program q, doc r at bit
+//     16 q + r), so AND, OR and NOT stay bitwise; the stack's levels below
+//     the top live in shared memory [depth][BLOCK] at 16 bytes an entry.
+//   - Where those tests would cost more than decoding each doc once (a 4-
+//     or 8-bit column, enough programs or intervals: lut_leaf), the block
+//     first builds the leaf's table, one 16-byte entry a dictId holding
+//     the group's mask bits of that value; a doc's field then takes one
+//     shared-memory lookup and four shift-ORs, whatever the number of
+//     programs.
+//   - Each warp compacts the union of the group's passing docs into one
+//     list, each entry the doc and its QG-bit membership; a doc's operands
+//     are loaded once (load_operands), then every program it passed
+//     computes its key with its strides and its expressions with its
+//     literals, and adds into its own accumulators.
+//   - Grouped scans keep one set of block-private shared accumulators a
+//     program while the group's sets fit beside two blocks on an SM, and
+//     add into device memory past that; scalar scans keep per-thread slots
+//     [QG][rows][BLOCK] (u64 sums, f32 min/max); matched docs are counted
+//     per program and segment (a scalar program's count row is its
+//     matched docs).
+//   - The group size shrinks below QG only where QG programs' scalar slots
+//     or accumulators would not fit in a block (fused_scan.py
+//     query_group).
+// Tried on the H100 and not kept, as neither was faster: an L2 prefetch of
+// the next tile's filter words, and staging the previous tile's operands
+// with cp.async while the next tile's filter runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <map>
 #include <mutex>
+#include <tuple>
 #include <utility>
 
 #define MAX_COLS 16
@@ -116,6 +162,12 @@
 #define DOCS_PER_THREAD (TILE / BLOCK)
 #define SMEM_BLOCK_MAX (227 * 1024)
 #define MAX_OPND 8
+#define QG 8           // programs a block of the query axis serves
+// a query-axis leaf over 4- or 8-bit dictIds takes a table (lut_leaf) when
+// its group's SWAR tests would cost more instructions a thread and tile
+// than the table's LUT_COST; at most MAX_LUTS tables a block
+#define LUT_COST 176
+#define MAX_LUTS 8
 
 enum { F_TRUE = 0, F_IV = 1, F_IVS = 2, F_AND = 3, F_OR = 4, F_NOT = 5 };
 enum { V_COL = 0, V_ID = 1, V_LITC = 2, V_LITF = 3, V_TIMES = 4, V_PLUS = 5,
@@ -131,7 +183,7 @@ enum {
   A_N_ISUM, A_N_FSUM, A_N_MM, A_SCALAR, A_ACC_SMEM, A_OUT_CNT, A_OUT_ISUM,
   A_OUT_FSUM, A_OUT_MM, A_OUT_MATCHED, A_SMEM, A_PROG_SMEM_OFF,
   A_MSTACK_OFF, A_VSTACK_OFF, A_ACC_OFF, A_RACC_OFF, A_WLIST_OFF, A_N_OPND,
-  A_Q, A_OUT_QSTRIDE, A_GRID_X,
+  A_Q, A_OUT_QSTRIDE, A_QG, A_ACC_QSTRIDE, A_LUT_OFF, A_LUT_BYTES,
   A_PACKED = 48, A_LOG2_BITS = 64, A_VALUES = 80, A_VTYPES = 96,
   A_SLOT_PACKED = 112, A_SLOT_VALUE = 128, A_LEN = 144
 };
@@ -164,13 +216,21 @@ struct ScanArgs {
   double* out_fsum;
   float* out_mm;
   u64* out_matched;             // [S] docs passing the filter, per segment
-  long long out_qstride;        // bytes from one query's outputs to the next
+  // the query axis: Q programs stacked [Q, prog_len], up to qg of them a
+  // block; query n's outputs at out_qstride * n bytes, a block's program
+  // q's shared accumulators at acc_qstride * q bytes past acc_off
+  int q_total, qg;
+  long long out_qstride, acc_qstride;
+  // 32-bit words from one min/max scalar slot to the next: 2 in the
+  // one-query layout (every row a u64), 1 on the query axis
+  int mm_words;
+  int lut_off, lut_bytes;       // the query axis's leaf tables
 };
 
-// query blockIdx.y's copy of an output
+// query n's copy of an output (n = 0 outside the query axis)
 template <class T>
-__device__ __forceinline__ T* qout(T* p, const ScanArgs& a) {
-  return (T*)((char*)p + (size_t)blockIdx.y * a.out_qstride);
+__device__ __forceinline__ T* qout(T* p, const ScanArgs& a, int n) {
+  return (T*)((char*)p + (size_t)n * a.out_qstride);
 }
 
 // ---- packed dictIds ---------------------------------------------------------
@@ -225,46 +285,73 @@ __device__ __forceinline__ uint32_t halve(uint32_t x) {
   }
 }
 
-// The 16-bit mask of thread i's docs (i + 256 r, bit r) of one tile whose
-// dictId in a 2^LB-bit column lies in any of the n intervals iv[2 s],
-// iv[2 s + 1]; `p` is the column's words of the tile. Doc i + 256 r sits in
-// word i + 256 (r % (B/2)), field r / (B/2) for LB >= 1; in word i & 127,
-// field (i >> 7) + 2 r for LB = 0. Up to 8 bits, every field of a word is
-// tested at once (fields_in); 16- and 32-bit fields one by one.
+// words a thread reads of one tile of a 2^LB-bit column
 template <int LB>
-__device__ __forceinline__ uint32_t leaf_mask(const uint32_t* p, int i,
-                                              const int* iv, int n) {
+struct Leaf {
+  static constexpr int NW = LB == 0 ? 1 : (1 << LB) / 2;
+};
+
+// Thread i's words of the tile `p` of a 2^LB-bit column: doc i + 256 r
+// sits in word i + 256 (r % (B/2)), field r / (B/2) for LB >= 1; in word
+// i & 127, field (i >> 7) + 2 r for LB = 0.
+template <int LB>
+__device__ __forceinline__ void leaf_load(const uint32_t* p, int i,
+                                          uint32_t (&w)[Leaf<LB>::NW]) {
+  if constexpr (LB == 0) {
+    w[0] = __ldg(p + (i & 127));
+  } else {
+#pragma unroll
+    for (int k = 0; k < Leaf<LB>::NW; ++k) w[k] = __ldg(p + i + BLOCK * k);
+  }
+}
+
+// 1 <= LB <= 3: bit f * B of acc[k] when field f of w[k] lies in any of
+// the n intervals iv[2 s], iv[2 s + 1] (SWAR, every field of a word at
+// once)
+template <int LB>
+__device__ __forceinline__ void leaf_fields(
+    const uint32_t (&w)[Leaf<LB>::NW], const int* iv, int n,
+    uint32_t (&acc)[Leaf<LB>::NW]) {
+  constexpr int NW = Leaf<LB>::NW;
+  constexpr uint32_t M = (1u << (1 << LB)) - 1u;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) acc[k] = 0;
+  for (int s = 0; s < n; ++s) {
+    const int lo = max(iv[2 * s], 0);
+    if (iv[2 * s + 1] < lo || (uint32_t)lo > M) continue;
+    const uint32_t hi = min((uint32_t)iv[2 * s + 1], M);
+    const uint32_t lor = lo * Swar<LB>::ONE;
+    const uint32_t hig = hi * Swar<LB>::ONE | Swar<LB>::G;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) acc[k] |= fields_in<LB>(w[k], lor, hig);
+  }
+}
+
+// The 16-bit mask of thread i's docs (i + 256 r, bit r) whose dictId, in
+// the words leaf_load read, lies in any of the n intervals iv[2 s],
+// iv[2 s + 1]. Up to 8 bits, every field of a word is tested at once
+// (fields_in); 16- and 32-bit fields one by one.
+template <int LB>
+__device__ __forceinline__ uint32_t leaf_test(
+    const uint32_t (&w)[Leaf<LB>::NW], int i, const int* iv, int n) {
   constexpr int B = 1 << LB;
   constexpr uint32_t M = B == 32 ? 0xffffffffu : ((1u << (B & 31)) - 1u);
   if constexpr (LB == 0) {
-    const uint32_t w = __ldg(p + (i & 127));
     uint32_t r = 0;
     for (int s = 0; s < n; ++s) {
       const int lo = max(iv[2 * s], 0);
       if (iv[2 * s + 1] < lo || (uint32_t)lo > M) continue;
       const uint32_t hi = min((uint32_t)iv[2 * s + 1], M);
-      r |= fields_in<0>(w, lo * Swar<0>::ONE, hi * Swar<0>::ONE | Swar<0>::G);
+      r |= fields_in<0>(w[0], lo * Swar<0>::ONE,
+                        hi * Swar<0>::ONE | Swar<0>::G);
     }
     return compress_even(r >> (i >> 7));
   } else {
     constexpr int NW = B / 2;
-    uint32_t w[NW];
-#pragma unroll
-    for (int k = 0; k < NW; ++k) w[k] = __ldg(p + i + BLOCK * k);
     uint32_t m = 0;
     if constexpr (LB <= 3) {
       uint32_t acc[NW];
-#pragma unroll
-      for (int k = 0; k < NW; ++k) acc[k] = 0;
-      for (int s = 0; s < n; ++s) {
-        const int lo = max(iv[2 * s], 0);
-        if (iv[2 * s + 1] < lo || (uint32_t)lo > M) continue;
-        const uint32_t hi = min((uint32_t)iv[2 * s + 1], M);
-        const uint32_t lor = lo * Swar<LB>::ONE;
-        const uint32_t hig = hi * Swar<LB>::ONE | Swar<LB>::G;
-#pragma unroll
-        for (int k = 0; k < NW; ++k) acc[k] |= fields_in<LB>(w[k], lor, hig);
-      }
+      leaf_fields<LB>(w, iv, n, acc);
 #pragma unroll
       for (int k = 0; k < NW; ++k) m |= halve<LB>(acc[k]) << k;
     } else {
@@ -286,6 +373,15 @@ __device__ __forceinline__ uint32_t leaf_mask(const uint32_t* p, int i,
     }
     return m;
   }
+}
+
+// the 16-bit mask of thread i's docs of the tile `p` in any interval
+template <int LB>
+__device__ __forceinline__ uint32_t leaf_mask(const uint32_t* p, int i,
+                                              const int* iv, int n) {
+  uint32_t w[Leaf<LB>::NW];
+  leaf_load<LB>(p, i, w);
+  return leaf_test<LB>(w, i, iv, n);
 }
 
 __device__ __forceinline__ uint32_t leaf_any(int lb, const uint32_t* p, int i,
@@ -330,6 +426,210 @@ __device__ __forceinline__ uint32_t eval_filter(
                    n);
     }
     if (sp > 0) mstk[(sp - 1) * BLOCK] = (unsigned short)top;
+    top = r;
+    ++sp;
+  }
+  return top;
+}
+
+// ---- the query axis's filter: a group's masks per op -----------------------
+
+// The masks of a group of up to QG programs: program q's 16-bit doc mask
+// at bits 16 (q & 1) of w[q >> 1].
+struct Mask4 {
+  uint32_t w[QG / 2];
+};
+static_assert(QG == 8, "a group's masks are four 32-bit words");
+
+// the bits of w[k] that belong to the group's nq programs
+__device__ __forceinline__ uint32_t active_bits(int k, int nq) {
+  return (2 * k < nq ? 0xffffu : 0u) | (2 * k + 1 < nq ? 0xffff0000u : 0u);
+}
+
+// leaf_test of one program for the query axis: for 4- and 8-bit fields
+// the SWAR results of the thread's words are interleaved and compacted
+// once (doc r = f * NW + k at bit f * B + k, then every B-bit group's low
+// NW bits packed), not halved word by word
+template <int LB>
+__device__ __forceinline__ uint32_t leaf_bits(
+    const uint32_t (&w)[Leaf<LB>::NW], int i, const int* iv, int n) {
+  if constexpr (LB == 2 || LB == 3) {
+    uint32_t acc[Leaf<LB>::NW];
+    leaf_fields<LB>(w, iv, n, acc);
+    uint32_t x = 0;
+#pragma unroll
+    for (int k = 0; k < Leaf<LB>::NW; ++k) x |= acc[k] << k;
+    if constexpr (LB == 2) x = (x | (x >> 2)) & 0x0f0f0f0fu;
+    x = (x | (x >> 4)) & 0x00ff00ffu;
+    return (x | (x >> 8)) & 0x0000ffffu;
+  } else {
+    return leaf_test<LB>(w, i, iv, n);
+  }
+}
+
+// One IV/IVS leaf for the group: the thread's words of the column loaded
+// once, then each program's intervals (at P + q * plen + ivo) tested
+// against them, two programs at a time into their word of the masks,
+// picked by selects (no array is indexed by the runtime q; a loop fully
+// unrolled over the QG programs was slower on the H100).
+template <int LB>
+__device__ __forceinline__ Mask4 leaf_many(const uint32_t* p, int i,
+                                           const int* P, int plen, int ivo,
+                                           int n, int nq) {
+  uint32_t w[Leaf<LB>::NW];
+  leaf_load<LB>(p, i, w);
+  Mask4 m;
+#pragma unroll
+  for (int k = 0; k < QG / 2; ++k) m.w[k] = 0;
+  for (int q = 0; q < nq; q += 2) {
+    uint32_t x = leaf_bits<LB>(w, i, P + q * plen + ivo, n);
+    if (q + 1 < nq)
+      x |= leaf_bits<LB>(w, i, P + (q + 1) * plen + ivo, n) << 16;
+#pragma unroll
+    for (int k = 0; k < QG / 2; ++k) m.w[k] = (q >> 1) == k ? x : m.w[k];
+  }
+  return m;
+}
+
+__device__ __forceinline__ Mask4 leaf_any_many(int lb, const uint32_t* p,
+                                               int i, const int* P, int plen,
+                                               int ivo, int n, int nq) {
+  switch (lb) {
+    case 0: return leaf_many<0>(p, i, P, plen, ivo, n, nq);
+    case 1: return leaf_many<1>(p, i, P, plen, ivo, n, nq);
+    case 2: return leaf_many<2>(p, i, P, plen, ivo, n, nq);
+    case 3: return leaf_many<3>(p, i, P, plen, ivo, n, nq);
+    case 4: return leaf_many<4>(p, i, P, plen, ivo, n, nq);
+    default: return leaf_many<5>(p, i, P, plen, ivo, n, nq);
+  }
+}
+
+// whether a leaf of n intervals over 2^LB-bit dictIds takes a table: the
+// SWAR tests cost about 32 (LB = 2) or 60 (LB = 3) instructions a program
+// and interval, a thread and tile (leaf_bits). Narrower columns never
+// have the runs that would pay for one.
+__device__ __forceinline__ bool lut_leaf(int lb, int n, int qg) {
+  return (lb == 2 || lb == 3) && qg * n * (lb == 2 ? 32 : 60) > LUT_COST;
+}
+
+// Walks the filter's leaves in order, as the tables are laid out: the
+// next leaf's table offset (bytes past lut_off), or -1 when it takes none.
+struct LutCursor {
+  int off = 0, count = 0;
+  __device__ __forceinline__ int next(const ScanArgs& a, int lb, int n) {
+    if (!lut_leaf(lb, n, a.qg) || count == MAX_LUTS) return -1;
+    const int size = 16 << (1 << lb);
+    if (off + size > a.lut_bytes) return -1;
+    const int at = off;
+    off += size;
+    ++count;
+    return at;
+  }
+};
+
+// The leaf tables of the block's nq programs: entry d of a leaf's table is
+// the group's masks of a doc whose dictId is d (word q >> 1, bit 16 (q &
+// 1) set when d lies in one of program q's intervals). Called by every
+// thread after the programs are in shared memory; the caller syncs.
+__device__ __forceinline__ void build_luts(const ScanArgs& a, const int* P,
+                                           unsigned char* smem, int nq) {
+  LutCursor cur;
+  for (int k = 0; k < a.filter_n; ++k) {
+    const int* op = P + a.filter_off + 4 * k;
+    if (op[0] != F_IV && op[0] != F_IVS) continue;
+    const int lb = a.lb[op[1]], n = op[0] == F_IV ? 1 : op[3];
+    const int at = cur.next(a, lb, n);
+    if (at < 0) continue;
+    uint4* T = (uint4*)(smem + a.lut_off + at);
+    for (int d = threadIdx.x; d < (1 << (1 << lb)); d += BLOCK) {
+      uint32_t w[QG / 2] = {0, 0, 0, 0};
+      for (int q = 0; q < nq; ++q) {
+        const int* iv = P + q * a.prog_len + a.iv_off + 2 * op[2];
+        bool in = false;
+        for (int s = 0; s < n; ++s)
+          in |= iv[2 * s] <= d && d <= iv[2 * s + 1];
+        const uint32_t bit = (uint32_t)in << (16 * (q & 1));
+#pragma unroll
+        for (int t = 0; t < QG / 2; ++t) w[t] |= (q >> 1) == t ? bit : 0u;
+      }
+      T[d] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// A leaf through its table: each of thread i's 16 docs decoded once, its
+// table entry shifted into place (doc r at bit r of each word)
+template <int LB>
+__device__ __forceinline__ Mask4 leaf_lut(const uint32_t* p, int i,
+                                          const uint4* T) {
+  constexpr int NW = Leaf<LB>::NW, B = 1 << LB;
+  uint32_t w[NW];
+  leaf_load<LB>(p, i, w);
+  Mask4 m;
+#pragma unroll
+  for (int k = 0; k < QG / 2; ++k) m.w[k] = 0;
+#pragma unroll
+  for (int r = 0; r < DOCS_PER_THREAD; ++r) {
+    const uint4 t = T[(w[r % NW] >> ((r / NW) * B)) & ((1u << B) - 1u)];
+    m.w[0] |= t.x << r;
+    m.w[1] |= t.y << r;
+    m.w[2] |= t.z << r;
+    m.w[3] |= t.w << r;
+  }
+  return m;
+}
+
+// The filter of a group of nq programs (at P + q * prog_len, sharing
+// every op), each op fetched and decoded once: the stack's top in
+// registers, the levels below in shared memory [depth][BLOCK] as 16-byte
+// entries.
+__device__ __forceinline__ Mask4 eval_filter_many(
+    const ScanArgs& a, const int* P, unsigned char* smem, long long tile,
+    int nq) {
+  const int i = threadIdx.x;
+  uint4* mstk = (uint4*)(smem + a.mstack_off) + i;
+  LutCursor cur;
+  Mask4 top;
+#pragma unroll
+  for (int k = 0; k < QG / 2; ++k) top.w[k] = 0;
+  int sp = 0;  // entries: sp - 1 of them in mstk, the top in `top`
+  for (int k = 0; k < a.filter_n; ++k) {
+    const int* op = P + a.filter_off + 4 * k;
+    const int o = op[0];
+    if (o == F_NOT) {
+#pragma unroll
+      for (int t = 0; t < QG / 2; ++t)
+        top.w[t] = ~top.w[t] & active_bits(t, nq);
+      continue;
+    }
+    if (o == F_AND || o == F_OR) {
+      const uint4 x = mstk[(sp - 2) * BLOCK];
+      const uint32_t xs[QG / 2] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int t = 0; t < QG / 2; ++t)
+        top.w[t] = o == F_AND ? (xs[t] & top.w[t]) : (xs[t] | top.w[t]);
+      --sp;
+      continue;
+    }
+    Mask4 r;
+    if (o == F_TRUE) {
+#pragma unroll
+      for (int t = 0; t < QG / 2; ++t) r.w[t] = active_bits(t, nq);
+    } else {
+      const int c = op[1], lb = a.lb[c], n = o == F_IV ? 1 : op[3];
+      const uint32_t* p = a.packed[c] + tile * (128LL << lb);
+      const int at = cur.next(a, lb, n);
+      if (at >= 0) {
+        const uint4* T = (const uint4*)(smem + a.lut_off + at);
+        r = lb == 2 ? leaf_lut<2>(p, i, T) : leaf_lut<3>(p, i, T);
+      } else {
+        r = leaf_any_many(lb, p, i, P, a.prog_len, a.iv_off + 2 * op[2], n,
+                          nq);
+      }
+    }
+    if (sp > 0)
+      mstk[(sp - 1) * BLOCK] =
+          make_uint4(top.w[0], top.w[1], top.w[2], top.w[3]);
     top = r;
     ++sp;
   }
@@ -516,12 +816,12 @@ __device__ __forceinline__ void flush_matched(const ScanArgs& a, int seg,
                                               unsigned matched) {
   const long long m = warp_sum((long long)matched);
   if ((threadIdx.x & 31) == 0 && m && seg >= 0)
-    atomicAdd(&qout(a.out_matched, a)[seg], (u64)m);
+    atomicAdd(&a.out_matched[seg], (u64)m);
 }
 
-// a grouped scan's accumulators: the block's own in shared memory, or the
-// outputs (computed where they are used, so no pointer stays live in
-// registers across the tile loop)
+// a grouped scan's accumulators of the block's program q, query n: the
+// block's own in shared memory, or the outputs (computed where they are
+// used, so no pointer stays live in registers across the tile loop)
 struct Acc {
   u64* cnt;
   u64* isum;
@@ -530,43 +830,108 @@ struct Acc {
 };
 
 __device__ __forceinline__ Acc accumulators(const ScanArgs& a,
-                                            unsigned char* smem) {
+                                            unsigned char* smem, int q,
+                                            int n) {
   if (!a.acc_in_smem)
-    return {qout(a.out_cnt, a), qout(a.out_isum, a), qout(a.out_fsum, a),
-            qout(a.out_mm, a)};
+    return {qout(a.out_cnt, a, n), qout(a.out_isum, a, n),
+            qout(a.out_fsum, a, n), qout(a.out_mm, a, n)};
   const size_t G = a.G;
-  unsigned char* p = smem + a.acc_off;
+  unsigned char* p = smem + a.acc_off + (size_t)q * a.acc_qstride;
   return {(u64*)p, (u64*)(p + G * 8), (double*)(p + G * 8 * (1 + a.n_isum)),
           (float*)(p + G * 8 * (1 + a.n_isum + a.n_fsum))};
 }
 
-// one passing doc (j of `tile`): a scalar scan folds each row into this
-// thread's slots in shared memory ([rows][BLOCK]); a grouped scan adds into
-// its group
-__device__ __forceinline__ void aggregate_doc(
-    const ScanArgs& a, const int* P, unsigned char* smem, long long tile,
-    int j) {
+// A scalar scan's per-thread slots: the rows come sums first (rows r <
+// n_isum + n_fsum, u64 [qg][sums][BLOCK] at racc_off), then min/max (f32,
+// mm_words words apart, [qg][n_mm][BLOCK] after the sums).
+// Thread tid's slot of sum row r of the block's program q:
+__device__ __forceinline__ u64* sum_slot(const ScanArgs& a,
+                                         unsigned char* smem, int q, int r) {
+  return (u64*)(smem + a.racc_off) + (q * (a.n_isum + a.n_fsum) + r) * BLOCK
+         + threadIdx.x;
+}
+
+// and of min/max row r (r >= n_isum + n_fsum)
+__device__ __forceinline__ float* mm_slot(const ScanArgs& a,
+                                          unsigned char* smem, int q, int r) {
+  const int n_sum = a.n_isum + a.n_fsum;
+  return (float*)(smem + a.racc_off + (size_t)a.qg * n_sum * BLOCK * 8)
+         + ((q * a.n_mm + r - n_sum) * BLOCK + threadIdx.x) * a.mm_words;
+}
+
+// Zero the accumulators of the block's nq programs (rows read from the
+// programs in device memory: the shared copy is not yet visible), then,
+// after a barrier, set the min/max rows to +-inf; ends with a barrier.
+__device__ __forceinline__ void init_accumulators(const ScanArgs& a,
+                                                  const int* prog,
+                                                  unsigned char* smem,
+                                                  int nq) {
+  const int tid = threadIdx.x;
+  const int G = a.G;
+  if (a.acc_in_smem)
+    for (int q = 0; q < nq; ++q) {
+      const Acc acc = accumulators(a, smem, q, 0);
+      for (int i = tid; i < G * (1 + a.n_isum); i += BLOCK) acc.cnt[i] = 0;
+      for (int i = tid; i < G * a.n_fsum; i += BLOCK) acc.fsum[i] = 0.0;
+    }
+  if (a.scalar)
+    for (int q = 0; q < nq; ++q)
+      for (int r = 0; r < a.n_rows; ++r) {
+        const int kind = prog[a.rows_off + 3 * r];
+        if (kind == R_MIN || kind == R_MAX)
+          *mm_slot(a, smem, q, r) = __int_as_float(
+              kind == R_MIN ? 0x7f800000 : 0xff800000);
+        else
+          *sum_slot(a, smem, q, r) = 0ull;
+      }
+  __syncthreads();
+  if (a.acc_in_smem)
+    for (int q = 0; q < nq; ++q) {
+      float* mm = accumulators(a, smem, q, 0).mm;
+      for (int r = 0; r < a.n_rows; ++r) {
+        const int* row = prog + a.rows_off + 3 * r;
+        if (row[0] == R_MIN || row[0] == R_MAX) {
+          const float init = row[0] == R_MIN ? __int_as_float(0x7f800000)
+                                             : __int_as_float(0xff800000);
+          for (int g = tid; g < G; g += BLOCK)
+            mm[(size_t)row[2] * G + g] = init;
+        }
+      }
+    }
+  __syncthreads();
+}
+
+// One program's adds for a passing doc (j of `tile`) whose operands are
+// loaded: P is the program (its strides and literals), q its place in the
+// block's group, n its query. A scalar scan folds each row into this
+// thread's slots in shared memory ([q][rows][BLOCK]); a grouped scan adds
+// into its group.
+__device__ __forceinline__ void add_doc(const ScanArgs& a, const int* P,
+                                        unsigned char* smem, long long tile,
+                                        int j, const u64 (&o)[MAX_OPND],
+                                        int q, int n) {
   u64* vstk = (u64*)(smem + a.vstack_off) + threadIdx.x;
-  u64 o[MAX_OPND] = {};
-  load_operands(a, tile, j, o);
   if (a.scalar) {
     for (int r = 0; r < a.n_rows; ++r) {
       const int* row = P + a.rows_off + 3 * r;
       const Val v = eval_expr(a, P, row[1], o, tile, j, vstk);
-      u64* slot = (u64*)(smem + a.racc_off) + r * BLOCK + threadIdx.x;
       switch (row[0]) {
-        case R_ISUM: *slot += v.bits; break;
-        case R_FSUM:
+        case R_ISUM: *sum_slot(a, smem, q, r) += v.bits; break;
+        case R_FSUM: {
+          u64* slot = sum_slot(a, smem, q, r);
           *slot = __double_as_longlong(__longlong_as_double(*slot)
                                        + (double)as_float(v.bits, v.isf));
           break;
-        case R_MIN:
-          *slot = __float_as_uint(fminf(__uint_as_float((uint32_t)*slot),
-                                        as_float(v.bits, v.isf)));
+        }
+        case R_MIN: {
+          float* slot = mm_slot(a, smem, q, r);
+          *slot = fminf(*slot, as_float(v.bits, v.isf));
           break;
-        default:
-          *slot = __float_as_uint(fmaxf(__uint_as_float((uint32_t)*slot),
-                                        as_float(v.bits, v.isf)));
+        }
+        default: {
+          float* slot = mm_slot(a, smem, q, r);
+          *slot = fmaxf(*slot, as_float(v.bits, v.isf));
+        }
       }
     }
     return;
@@ -577,7 +942,7 @@ __device__ __forceinline__ void aggregate_doc(
     key += (long long)packed_operand(a, o, P[a.group_off + 2 * g], tile, j)
            * P[a.group_off + 2 * g + 1];
   if (key < 0 || key >= G) return;
-  const Acc acc = accumulators(a, smem);
+  const Acc acc = accumulators(a, smem, q, n);
   atomicAdd(&acc.cnt[key], 1ull);
   for (int r = 0; r < a.n_rows; ++r) {
     const int* row = P + a.rows_off + 3 * r;
@@ -594,6 +959,72 @@ __device__ __forceinline__ void aggregate_doc(
   }
 }
 
+// A scalar scan's rows of the block's program q, reduced across the warp,
+// added into query n's outputs by lane 0 where `add` and the warp's value
+// is not the row's identity (0, +inf for min, -inf for max: adding it
+// changes nothing). Every thread of the warp calls it (shuffles).
+__device__ __forceinline__ void flush_rows(const ScanArgs& a, const int* P,
+                                           unsigned char* smem, int q, int n,
+                                           bool add) {
+  for (int r = 0; r < a.n_rows; ++r) {
+    const int* row = P + a.rows_off + 3 * r;
+    const int o = row[2];
+    switch (row[0]) {
+      case R_ISUM: {
+        const long long t = warp_sum((long long)*sum_slot(a, smem, q, r));
+        if (add && t) atomicAdd(&qout(a.out_isum, a, n)[o], (u64)t);
+        break;
+      }
+      case R_FSUM: {
+        const double t = warp_sum(
+            __longlong_as_double((long long)*sum_slot(a, smem, q, r)));
+        if (add && t != 0.0) atomicAdd(&qout(a.out_fsum, a, n)[o], t);
+        break;
+      }
+      case R_MIN: {
+        const float t = warp_min(*mm_slot(a, smem, q, r));
+        if (add && t != __int_as_float(0x7f800000))
+          atomic_min_f(&qout(a.out_mm, a, n)[o], t);
+        break;
+      }
+      default: {
+        const float t = warp_max(*mm_slot(a, smem, q, r));
+        if (add && t != __int_as_float(0xff800000))
+          atomic_max_f(&qout(a.out_mm, a, n)[o], t);
+      }
+    }
+  }
+}
+
+// A grouped scan's shared accumulators of the block's program q, added
+// into query n's outputs: one global atomic per touched group and row.
+__device__ __forceinline__ void flush_acc(const ScanArgs& a, const int* P,
+                                          unsigned char* smem, int q, int n) {
+  const int G = a.G;
+  const Acc acc = accumulators(a, smem, q, n);
+  for (int g = threadIdx.x; g < G; g += BLOCK) {
+    const u64 c = acc.cnt[g];
+    if (c == 0) continue;
+    atomicAdd(&qout(a.out_cnt, a, n)[g], c);
+    for (int r = 0; r < a.n_rows; ++r) {
+      const int* row = P + a.rows_off + 3 * r;
+      const size_t at = (size_t)row[2] * G + g;
+      switch (row[0]) {
+        case R_ISUM:
+          atomicAdd(&qout(a.out_isum, a, n)[at], acc.isum[at]);
+          break;
+        case R_FSUM:
+          atomicAdd(&qout(a.out_fsum, a, n)[at], acc.fsum[at]);
+          break;
+        case R_MIN:
+          atomic_min_f(&qout(a.out_mm, a, n)[at], acc.mm[at]);
+          break;
+        default: atomic_max_f(&qout(a.out_mm, a, n)[at], acc.mm[at]);
+      }
+    }
+  }
+}
+
 // 4 blocks of 256 threads per SM: up to 64 registers a thread, which the
 // kernel needs to keep its loop state out of local memory
 extern "C" __global__ void __launch_bounds__(BLOCK, 4)
@@ -601,34 +1032,8 @@ fused_scan_kernel(const __grid_constant__ ScanArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int* P = (int*)(smem + a.prog_smem_off);
-  const int* prog = a.prog + (size_t)blockIdx.y * a.prog_len;  // query y's
-  for (int i = tid; i < a.prog_len; i += BLOCK) P[i] = prog[i];
-  const int G = a.G;
-  if (a.acc_in_smem) {
-    const Acc acc = accumulators(a, smem);
-    for (int i = tid; i < G * (1 + a.n_isum); i += BLOCK) acc.cnt[i] = 0;
-    for (int i = tid; i < G * a.n_fsum; i += BLOCK) acc.fsum[i] = 0.0;
-  }
-  if (a.scalar)
-    for (int r = 0; r < a.n_rows; ++r) {
-      const int kind = prog[a.rows_off + 3 * r];
-      ((u64*)(smem + a.racc_off))[r * BLOCK + tid] =
-          kind == R_MIN ? 0x7f800000ull : kind == R_MAX ? 0xff800000ull : 0ull;
-    }
-  __syncthreads();
-  if (a.acc_in_smem) {
-    float* mm = accumulators(a, smem).mm;
-    for (int r = 0; r < a.n_rows; ++r) {
-      const int* row = P + a.rows_off + 3 * r;
-      if (row[0] == R_MIN || row[0] == R_MAX) {
-        const float init = row[0] == R_MIN ? __int_as_float(0x7f800000)
-                                           : __int_as_float(0xff800000);
-        for (int g = tid; g < G; g += BLOCK)
-          mm[(size_t)row[2] * G + g] = init;
-      }
-    }
-  }
-  __syncthreads();
+  for (int i = tid; i < a.prog_len; i += BLOCK) P[i] = a.prog[i];
+  init_accumulators(a, a.prog, smem, 1);
 
   // the loop's state in 32 bits, so it stays in registers: the launcher
   // checks the tile count, a segment has fewer than 2^31 docs, and a thread
@@ -669,95 +1074,183 @@ fused_scan_kernel(const __grid_constant__ ScanArgs a) {
     for (uint32_t m = mask; m; m &= m - 1)
       wl[pos++] = (unsigned short)(tid + (__ffs(m) - 1) * BLOCK);
     __syncwarp();
-    for (int k = lane; k < total; k += 32)
-      aggregate_doc(a, P, smem, tile, wl[k]);
+    for (int k = lane; k < total; k += 32) {
+      const int j = wl[k];
+      u64 o[MAX_OPND] = {};
+      load_operands(a, tile, j, o);
+      add_doc(a, P, smem, tile, j, o, 0, 0);
+    }
     __syncwarp();
   }
 
   flush_matched(a, seg, lmatched);
   if (a.scalar) {
     const long long cnt_w = warp_sum((long long)lcnt);
-    if (lane == 0 && cnt_w) atomicAdd(&qout(a.out_cnt, a)[0], (u64)cnt_w);
-    for (int r = 0; r < a.n_rows; ++r) {
-      const int* row = P + a.rows_off + 3 * r;
-      const int o = row[2];
-      const u64 v = ((u64*)(smem + a.racc_off))[r * BLOCK + tid];
-      switch (row[0]) {
-        case R_ISUM: {
-          const long long t = warp_sum((long long)v);
-          if (lane == 0 && cnt_w) atomicAdd(&qout(a.out_isum, a)[o], (u64)t);
-          break;
-        }
-        case R_FSUM: {
-          const double t = warp_sum(__longlong_as_double((long long)v));
-          if (lane == 0 && cnt_w) atomicAdd(&qout(a.out_fsum, a)[o], t);
-          break;
-        }
-        case R_MIN: {
-          const float t = warp_min(__uint_as_float((uint32_t)v));
-          if (lane == 0 && cnt_w) atomic_min_f(&qout(a.out_mm, a)[o], t);
-          break;
-        }
-        default: {
-          const float t = warp_max(__uint_as_float((uint32_t)v));
-          if (lane == 0 && cnt_w) atomic_max_f(&qout(a.out_mm, a)[o], t);
-        }
-      }
-    }
+    if (lane == 0 && cnt_w) atomicAdd(&a.out_cnt[0], (u64)cnt_w);
+    flush_rows(a, P, smem, 0, 0, lane == 0 && cnt_w);
     return;
   }
   if (!a.acc_in_smem) return;
   __syncthreads();
-  const Acc acc = accumulators(a, smem);
-  for (int g = tid; g < G; g += BLOCK) {
-    const u64 c = acc.cnt[g];
-    if (c == 0) continue;
-    atomicAdd(&qout(a.out_cnt, a)[g], c);
-    for (int r = 0; r < a.n_rows; ++r) {
-      const int* row = P + a.rows_off + 3 * r;
-      const size_t at = (size_t)row[2] * G + g;
-      switch (row[0]) {
-        case R_ISUM: atomicAdd(&qout(a.out_isum, a)[at], acc.isum[at]); break;
-        case R_FSUM: atomicAdd(&qout(a.out_fsum, a)[at], acc.fsum[at]); break;
-        case R_MIN: atomic_min_f(&qout(a.out_mm, a)[at], acc.mm[at]); break;
-        default: atomic_max_f(&qout(a.out_mm, a)[at], acc.mm[at]);
+  flush_acc(a, P, smem, 0, 0);
+}
+
+// The query axis's matched docs of segment seg, per program of the group
+// (queries q0 + q), added by lane 0; a scalar program's count row is its
+// matched docs. Called by every thread of the block at the same point.
+__device__ __forceinline__ void flush_matched_many(const ScanArgs& a, int seg,
+                                                   const unsigned (&lm)[QG],
+                                                   int q0, int nq) {
+#pragma unroll
+  for (int q = 0; q < QG; ++q) {
+    if (q < nq) {
+      const unsigned m = __reduce_add_sync(0xffffffffu, lm[q]);
+      if ((threadIdx.x & 31) == 0 && m && seg >= 0) {
+        atomicAdd(&qout(a.out_matched, a, q0 + q)[seg], (u64)m);
+        if (a.scalar) atomicAdd(&qout(a.out_cnt, a, q0 + q)[0], (u64)m);
       }
     }
   }
 }
 
-// blocks per SM x SMs for this shared-memory size on the current device,
-// computed once per (device, size)
-static int grid_for(int smem, int* grid) {
+// The query axis: block (x, y) serves the programs q0 = y * qg .. q0 + nq
+// - 1 and walks tiles x, x + gridDim.x, ... once for all of them (see the
+// note at the top). 2 blocks of 256 threads per SM: up to 128 registers a
+// thread (at 64, for 4 blocks, ptxas spills).
+extern "C" __global__ void __launch_bounds__(BLOCK, 2)
+fused_scan_many_kernel(const __grid_constant__ ScanArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = (int)blockIdx.y * a.qg;
+  const int nq = min(a.qg, a.q_total - q0);
+  // program q of the group at P + q * prog_len
+  int* P = (int*)(smem + a.prog_smem_off);
+  const int* prog = a.prog + (size_t)q0 * a.prog_len;
+  for (int i = tid; i < nq * a.prog_len; i += BLOCK) P[i] = prog[i];
+  __syncthreads();
+  build_luts(a, P, smem, nq);
+  init_accumulators(a, prog, smem, nq);
+
+  const unsigned num_tiles = (unsigned)a.num_tiles;
+  const unsigned seg_tiles = (unsigned)a.seg_tiles;
+  unsigned lm[QG];       // this thread's docs passing each program in seg
+#pragma unroll
+  for (int q = 0; q < QG; ++q) lm[q] = 0;
+  int seg = -1, seg_docs = 0;
+  for (unsigned tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int s = (int)(tile / seg_tiles);
+    if (s != seg) {
+      flush_matched_many(a, seg, lm, q0, nq);
+#pragma unroll
+      for (int q = 0; q < QG; ++q) lm[q] = 0;
+      seg = s;
+      seg_docs = (int)a.num_docs[s];
+    }
+    const int left = seg_docs - (int)(tile - s * seg_tiles) * TILE - tid;
+    const int n_valid = left <= 0 ? 0
+        : left >= (DOCS_PER_THREAD - 1) * BLOCK + 1
+            ? DOCS_PER_THREAD : (left + BLOCK - 1) / BLOCK;
+    const uint32_t valid = (1u << n_valid) - 1u;
+    Mask4 m;
+    if (valid) {
+      m = eval_filter_many(a, P, smem, tile, nq);
+#pragma unroll
+      for (int k = 0; k < QG / 2; ++k) m.w[k] &= valid | valid << 16;
+    } else {
+#pragma unroll
+      for (int k = 0; k < QG / 2; ++k) m.w[k] = 0;
+    }
+    // per-program counts (of the group's words only), and the union of
+    // the group's passing docs
+    uint32_t u = 0;
+#pragma unroll
+    for (int k = 0; k < QG / 2; ++k)
+      if (2 * k < nq) {
+        lm[2 * k] += __popc(m.w[k] & 0xffffu);
+        lm[2 * k + 1] += __popc(m.w[k] >> 16);
+        u |= m.w[k];
+      }
+    u = (u | (u >> 16)) & 0xffffu;
+    const int hits = __popc(u);
+    int incl = hits;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (total == 0) continue;
+    // the warp's list: doc j (u16) and its programs (u8) at entry k
+    unsigned short* wl = (unsigned short*)(smem + a.wlist_off) + warp * 512;
+    unsigned char* wm = smem + a.wlist_off + 2 * TILE + warp * 512;
+    int pos = incl - hits;
+    for (uint32_t x = u; x; x &= x - 1) {
+      const int r = __ffs(x) - 1;
+      uint32_t mem = 0;
+#pragma unroll
+      for (int k = 0; k < QG / 2; ++k)
+        if (2 * k < nq) {
+          const uint32_t b = (m.w[k] >> r) & 0x10001u;
+          mem |= (b & 1u) << (2 * k) | (b >> 16) << (2 * k + 1);
+        }
+      wl[pos] = (unsigned short)(tid + r * BLOCK);
+      wm[pos++] = (unsigned char)mem;
+    }
+    __syncwarp();
+    for (int k = lane; k < total; k += 32) {
+      const int j = wl[k];
+      u64 o[MAX_OPND] = {};
+      load_operands(a, tile, j, o);
+      for (uint32_t mem = wm[k]; mem; mem &= mem - 1) {
+        const int q = __ffs(mem) - 1;
+        add_doc(a, P + q * a.prog_len, smem, tile, j, o, q, q0 + q);
+      }
+    }
+    __syncwarp();
+  }
+
+  flush_matched_many(a, seg, lm, q0, nq);
+  if (a.scalar) {
+    for (int q = 0; q < nq; ++q)
+      flush_rows(a, P + q * a.prog_len, smem, q, q0 + q, lane == 0);
+    return;
+  }
+  if (!a.acc_in_smem) return;
+  __syncthreads();
+  for (int q = 0; q < nq; ++q)
+    flush_acc(a, P + q * a.prog_len, smem, q, q0 + q);
+}
+
+// blocks per SM x SMs of `kernel` for this shared-memory size on the
+// current device, computed once per (kernel, device, size)
+static int grid_for(const void* kernel, int smem, int* grid) {
   static std::mutex mu;
-  static std::map<std::pair<int, int>, int> cache;
+  static std::map<std::tuple<const void*, int, int>, int> cache;
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   std::lock_guard<std::mutex> hold(mu);
-  auto it = cache.find({dev, smem});
+  auto it = cache.find({kernel, dev, smem});
   if (it != cache.end()) {
     *grid = it->second;
     return 0;
   }
-  e = cudaFuncSetAttribute(fused_scan_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            SMEM_BLOCK_MAX);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_scan_kernel,
-                                                    BLOCK, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK,
+                                                    smem);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  cache[{dev, smem}] = *grid = per_sm * sms;
+  cache[{kernel, dev, smem}] = *grid = per_sm * sms;
   return 0;
 }
 
-// argv: the A_* slots
-extern "C" int fused_scan_launch(const long long* argv, void* stream) {
-  ScanArgs a;
+// argv (the A_* slots) -> ScanArgs and the shared-memory size; 0 or a
+// CUDA error
+static int parse_args(const long long* argv, ScanArgs& a, int* smem) {
   for (int c = 0; c < MAX_COLS; ++c) {
     a.packed[c] = (const uint32_t*)argv[A_PACKED + c];
     a.lb[c] = (int)argv[A_LOG2_BITS + c];
@@ -812,35 +1305,77 @@ extern "C" int fused_scan_launch(const long long* argv, void* stream) {
   a.out_fsum = (double*)argv[A_OUT_FSUM];
   a.out_mm = (float*)argv[A_OUT_MM];
   a.out_matched = (u64*)argv[A_OUT_MATCHED];
-  a.out_qstride = argv[A_OUT_QSTRIDE];
-  const long long q = argv[A_Q];
+  a.q_total = 1;
+  a.qg = 1;
+  a.out_qstride = 0;
+  a.acc_qstride = 0;
+  a.mm_words = 2;
+  a.lut_off = a.lut_bytes = 0;
   for (int c = 0; c < a.n_packed && c < MAX_COLS; ++c)
     if (a.lb[c] < 0 || a.lb[c] > 5) return (int)cudaErrorInvalidValue;
-  const int smem = (int)argv[A_SMEM];
+  *smem = (int)argv[A_SMEM];
   if (a.n_packed > MAX_COLS || a.n_values > MAX_COLS || a.n_packed < 0
       || a.seg_tiles < 1 || a.num_tiles % a.seg_tiles != 0
       || a.num_tiles >= (1LL << 31) || a.seg_tiles * TILE >= (1LL << 31)
-      || a.n_opnd < 0 || a.n_opnd > MAX_OPND || smem > SMEM_BLOCK_MAX
-      || q < 1 || q > 65535 || (q > 1 && a.out_qstride <= 0)
-      || argv[A_GRID_X] < 0)
+      || a.n_opnd < 0 || a.n_opnd > MAX_OPND || *smem > SMEM_BLOCK_MAX)
     return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  int err = grid_for(smem, &grid);
+  return 0;
+}
+
+// one program: argv, the A_* slots (A_Q, A_QG, A_OUT_QSTRIDE and
+// A_ACC_QSTRIDE are not read)
+extern "C" int fused_scan_launch(const long long* argv, void* stream) {
+  ScanArgs a;
+  int smem = 0;
+  int err = parse_args(argv, a, &smem);
   if (err != 0) return err;
-  // the Q queries share the one-query grid, unless the caller names x
-  grid = argv[A_GRID_X] > 0 ? (int)argv[A_GRID_X]
-                            : (int)((grid + q - 1) / q);
+  int grid = 0;
+  err = grid_for((const void*)fused_scan_kernel, smem, &grid);
+  if (err != 0) return err;
   if (grid > a.num_tiles) grid = (int)a.num_tiles;
   if (grid < 1) grid = 1;
-  fused_scan_kernel<<<dim3((unsigned int)grid, (unsigned int)q), BLOCK, smem,
-                      (cudaStream_t)stream>>>(a);
+  fused_scan_kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// the grid fused_scan_launch takes for `smem` bytes, before its cap at one
-// block per tile
-extern "C" int fused_scan_grid(int smem, int* grid) {
-  return grid_for(smem, grid);
+// the query axis: A_Q programs stacked [Q, prog_len] at A_PROG, A_QG of
+// them a block, ceil(Q / QG) groups on grid y
+extern "C" int fused_scan_many_launch(const long long* argv, void* stream) {
+  ScanArgs a;
+  int smem = 0;
+  int err = parse_args(argv, a, &smem);
+  if (err != 0) return err;
+  const long long q = argv[A_Q], qg = argv[A_QG];
+  a.out_qstride = argv[A_OUT_QSTRIDE];
+  a.acc_qstride = argv[A_ACC_QSTRIDE];
+  if (qg < 1 || qg > QG || q < 1 || (q + qg - 1) / qg > 65535
+      || (q > 1 && a.out_qstride <= 0)
+      || (qg > 1 && a.acc_in_smem && a.acc_qstride <= 0))
+    return (int)cudaErrorInvalidValue;
+  a.q_total = (int)q;
+  a.qg = (int)qg;
+  a.mm_words = 1;
+  a.lut_off = (int)argv[A_LUT_OFF];
+  a.lut_bytes = (int)argv[A_LUT_BYTES];
+  if (a.lut_off < 0 || a.lut_bytes < 0 || a.lut_off + a.lut_bytes > smem)
+    return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  err = grid_for((const void*)fused_scan_many_kernel, smem, &grid);
+  if (err != 0) return err;
+  if (grid > a.num_tiles) grid = (int)a.num_tiles;
+  if (grid < 1) grid = 1;
+  fused_scan_many_kernel<<<dim3((unsigned int)grid,
+                                (unsigned int)((q + qg - 1) / qg)),
+                           BLOCK, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the grid x the launches take for `smem` bytes, before its cap at one
+// block per tile: of fused_scan_kernel (many = 0) or fused_scan_many_kernel
+extern "C" int fused_scan_grid(int smem, int many, int* grid) {
+  return grid_for(many ? (const void*)fused_scan_many_kernel
+                       : (const void*)fused_scan_kernel,
+                  smem, grid);
 }
 
 extern "C" const char* fused_scan_error_string(int err) {

@@ -33,8 +33,13 @@ one copy (the JAX package's ``pack_outputs``/``unpack_outputs``).
 
 ``counted_scan_many`` is one launch over Q programs of one layout
 (``ScanProgram.layout_key``: they differ only in literal words) on the
-same inputs, the kernel's query axis; its plain version is
-``fused_scan_many_plain``, a loop of ``fused_scan_plain``.
+same inputs, the kernel source's query-axis entry
+(``fused_scan_many_kernel``): a block serves a group of up to ``QG``
+programs (``query_group``), reading each tile and decoding each filter op
+once for all of them, through a table of the group's masks a dictId
+where that is cheaper (``lut_leaves``); ``scan_layout_many`` lays out its
+shared memory. Its plain version is ``fused_scan_many_plain``, a loop of
+``fused_scan_plain``.
 """
 
 from __future__ import annotations
@@ -832,8 +837,8 @@ def counted_scan_many(progs: List[ScanProgram], packed: List[torch.Tensor],
                       counter: KernelCounter, tiles: Optional[int] = None
                       ) -> List[ScanOutputs]:
     """Q programs of one layout over the same inputs, one outputs each:
-    one launch of the kernel's query axis on a CUDA tensor (``counter``
-    adds one), ``fused_scan_many_plain`` on a CPU tensor."""
+    one launch of the query-axis kernel on a CUDA tensor, Q = 1 included
+    (``counter`` adds one), ``fused_scan_many_plain`` on a CPU tensor."""
     if not progs:
         raise ValueError("no programs")
     key = progs[0].layout_key()
@@ -845,7 +850,7 @@ def counted_scan_many(progs: List[ScanProgram], packed: List[torch.Tensor],
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     argv, outs = prepare_launch_many(progs, packed, values, num_docs, tiles)
-    enqueue(argv, torch.cuda.current_stream(num_docs.device))
+    enqueue(argv, torch.cuda.current_stream(num_docs.device), many=True)
     counter.add()
     return outs
 
@@ -860,21 +865,28 @@ def fused_scan_many_plain(progs: List[ScanProgram],
             for p in progs]
 
 
-# argv slots shared with csrc/fused_scan.cu (fused_scan_launch)
+# argv slots shared with csrc/fused_scan.cu (fused_scan_launch,
+# fused_scan_many_launch)
 (_A_NUM_DOCS, _A_NUM_TILES, _A_SEG_TILES, _A_G, _A_N_PACKED, _A_N_VALUES,
  _A_PROG, _A_PROG_LEN, _A_FILTER_OFF, _A_FILTER_N, _A_VOPS_OFF, _A_EXPR_OFF,
  _A_ROWS_OFF, _A_N_ROWS, _A_GROUP_OFF, _A_N_GROUP, _A_IV_OFF, _A_KEY_OFFSET,
  _A_N_ISUM, _A_N_FSUM, _A_N_MM, _A_SCALAR, _A_ACC_SMEM, _A_OUT_CNT,
  _A_OUT_ISUM, _A_OUT_FSUM, _A_OUT_MM, _A_OUT_MATCHED, _A_SMEM,
  _A_PROG_SMEM_OFF, _A_MSTACK_OFF, _A_VSTACK_OFF, _A_ACC_OFF, _A_RACC_OFF,
- _A_WLIST_OFF, _A_N_OPND, _A_Q, _A_OUT_QSTRIDE, _A_GRID_X) = range(39)
+ _A_WLIST_OFF, _A_N_OPND, _A_Q, _A_OUT_QSTRIDE, _A_QG,
+ _A_ACC_QSTRIDE, _A_LUT_OFF, _A_LUT_BYTES) = range(42)
 _A_PACKED, _A_LOG2_BITS, _A_VALUES, _A_VTYPES = 48, 64, 80, 96
 _A_SLOT_PACKED, _A_SLOT_VALUE = 112, 128
 _A_LEN = 144
 _BLOCK = 256
-# shared memory of an SM (H100) and what the card reserves per block
+# shared memory of an SM (H100), what the card reserves per block, and the
+# most one block may take (SMEM_BLOCK_MAX)
 _SMEM_SM = 228 * 1024
 _SMEM_RESERVED = 1024
+_SMEM_BLOCK_MAX = 227 * 1024
+# programs a block of the query axis serves (QG in csrc/fused_scan.cu):
+# the default pinot.server.query.launch.max.batch
+QG = 8
 
 
 def _align16(n: int) -> int:
@@ -882,11 +894,13 @@ def _align16(n: int) -> int:
 
 
 class ScanLayout(NamedTuple):
-    """The kernel's shared memory for one program, in bytes: the program
-    at 0, the filter's and the values' stacks below their tops
-    ([depth][BLOCK]), a scalar scan's per-thread rows ([rows][BLOCK]), each
-    warp's list of passing docs, then the block-private accumulators of a
-    grouped scan."""
+    """The kernel's shared memory, in bytes: the program (the query axis:
+    its group's ``qg`` programs) at 0, the filter's and the values' stacks
+    below their tops ([depth][BLOCK]), a scalar scan's per-thread rows
+    ([qg][rows][BLOCK]), each warp's list of passing docs, the query
+    axis's leaf tables (``lut_bytes``), then the block-private
+    accumulators of a grouped scan, one set a program ``acc_qstride``
+    bytes apart."""
 
     prog_off: int
     mstack_off: int
@@ -896,10 +910,74 @@ class ScanLayout(NamedTuple):
     acc_off: int
     acc_smem: bool               # grouped accumulators in shared memory
     smem: int                    # the whole dynamic allocation
+    qg: int = 1                  # programs a block serves
+    acc_qstride: int = 0         # bytes of one program's accumulators
+    lut_off: int = 0             # the query axis's leaf tables
+    lut_bytes: int = 0
 
 
-# bytes of the warps' lists of passing docs: a u16 per doc of a tile
+# bytes of the warps' lists of passing docs: a u16 per doc of a tile (and
+# on the query axis a u8 of the doc's programs)
 _WLIST_BYTES = 2 * TILE
+_WLIST_MANY_BYTES = 3 * TILE
+
+
+# the query axis's leaf tables (csrc/fused_scan.cu lut_leaf): a leaf over
+# 4- or 8-bit dictIds takes a table of 2^B 16-byte entries when its
+# group's SWAR tests (instructions a program and interval, by log2 width)
+# would cost more than a table leaf's _LUT_COST; at most _MAX_LUTS tables
+# and _LUT_CAP bytes a block
+_LUT_COST = 176
+_LUT_SWAR = {2: 32, 3: 60}
+_MAX_LUTS = 8
+_LUT_CAP = 16 * 1024
+
+
+def lut_leaves(prog: ScanProgram, qg: int) -> List[int]:
+    """The log2 widths of the leaves, in filter order, that take a table in
+    a query-axis block serving ``qg`` programs (as the kernel walks them)."""
+    total, widths = 0, []
+    for k in range(prog.filter_n):
+        op, col, _slot, n = (int(x) for x in prog.prog[
+            prog.filter_off + 4 * k: prog.filter_off + 4 * k + 4])
+        if op not in (F_IV, F_IVS):
+            continue
+        lb, n = prog.log2_bits[col], 1 if op == F_IV else n
+        if (lb not in _LUT_SWAR or qg * n * _LUT_SWAR[lb] <= _LUT_COST
+                or len(widths) == _MAX_LUTS):
+            continue
+        size = 16 << (1 << lb)
+        if total + size <= _LUT_CAP:
+            total += size
+            widths.append(lb)
+    return widths
+
+
+def _acc_bytes(prog: ScanProgram) -> int:
+    """One program's grouped accumulators (0 for a scalar scan)."""
+    return (0 if prog.scalar else
+            prog.G * (8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm))
+
+
+def _layout(prog: ScanProgram, sizes: List[int], qg: int, acc_one: int
+            ) -> ScanLayout:
+    """Offsets of the sections ``sizes`` (program, filter stack, value
+    stack, scalar rows, warp lists, leaf tables), then the grouped
+    accumulators of ``qg`` programs, ``acc_one`` bytes each, where they
+    fit beside two blocks on an SM."""
+    budget = _SMEM_SM // 2 - _SMEM_RESERVED
+    acc_smem = not prog.scalar and sum(sizes) + qg * acc_one <= budget
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + n)
+    (prog_off, mstack_off, vstack_off, racc_off, wlist_off, lut_off,
+     acc_off) = offs
+    return ScanLayout(
+        prog_off=prog_off, mstack_off=mstack_off, vstack_off=vstack_off,
+        racc_off=racc_off, wlist_off=wlist_off, acc_off=acc_off,
+        acc_smem=acc_smem, smem=acc_off + (qg * acc_one if acc_smem else 0),
+        qg=qg, acc_qstride=acc_one if acc_smem else 0, lut_off=lut_off,
+        lut_bytes=acc_off - lut_off)
 
 
 def scan_layout(prog: ScanProgram) -> ScanLayout:
@@ -907,33 +985,56 @@ def scan_layout(prog: ScanProgram) -> ScanLayout:
     shared memory only while two blocks still fit on an SM: one block of 8
     warps leaves the SM waiting on memory (on SSB, device-memory atomics at
     4 blocks per SM beat shared ones at 1)."""
-    sizes = [_align16(4 * prog.prog.size),
-             _align16(2 * _BLOCK * max(prog.filter_depth - 1, 0)),
-             8 * _BLOCK * max(prog.value_depth - 1, 0),
-             8 * _BLOCK * prog.n_rows if prog.scalar else 0,
-             _WLIST_BYTES]
-    budget = _SMEM_SM // 2 - _SMEM_RESERVED
-    acc = (0 if prog.scalar else
-           prog.G * (8 * (1 + prog.n_isum + prog.n_fsum) + 4 * prog.n_mm))
-    acc_smem = not prog.scalar and sum(sizes) + acc <= budget
-    offs = [0]
-    for n in sizes:
-        offs.append(offs[-1] + n)
-    prog_off, mstack_off, vstack_off, racc_off, wlist_off, acc_off = offs
-    return ScanLayout(
-        prog_off=prog_off, mstack_off=mstack_off, vstack_off=vstack_off,
-        racc_off=racc_off, wlist_off=wlist_off, acc_off=acc_off,
-        acc_smem=acc_smem, smem=acc_off + (acc if acc_smem else 0))
+    return _layout(prog, [
+        _align16(4 * prog.prog.size),
+        _align16(2 * _BLOCK * max(prog.filter_depth - 1, 0)),
+        8 * _BLOCK * max(prog.value_depth - 1, 0),
+        8 * _BLOCK * prog.n_rows if prog.scalar else 0,
+        _WLIST_BYTES, 0], 1, _acc_bytes(prog))
 
 
-def launch_grid(smem: int) -> int:
-    """Blocks the kernel launches with for ``smem`` bytes of shared memory
-    on the current card (occupancy x SMs, before the cap at one block per
-    tile)."""
+def scan_layout_many(prog: ScanProgram, qg: int) -> ScanLayout:
+    """Shared memory of a query-axis block serving ``qg`` programs of
+    ``prog``'s layout: their programs, 16-byte filter-stack entries (the
+    group's four mask words), ``qg`` sets of scalar rows (u64 sums, f32
+    min/max), list entries of a u16 doc and a u8 of its programs, the
+    leaf tables (``lut_leaves``), and ``qg`` sets of grouped accumulators
+    while they fit beside two blocks on an SM (``scan_layout``'s rule),
+    else device memory."""
+    if not 1 <= qg <= QG:
+        raise ValueError(f"a query-axis block serves 1 to {QG} programs")
+    return _layout(prog, [
+        _align16(4 * qg * prog.prog.size),
+        16 * _BLOCK * max(prog.filter_depth - 1, 0),
+        8 * _BLOCK * max(prog.value_depth - 1, 0),
+        _BLOCK * qg * (8 * (prog.n_isum + prog.n_fsum) + 4 * prog.n_mm)
+        if prog.scalar else 0,
+        _WLIST_MANY_BYTES,
+        sum(16 << (1 << lb) for lb in lut_leaves(prog, qg))], qg,
+        _align16(_acc_bytes(prog)))
+
+
+def query_group(prog: ScanProgram, q: int) -> Tuple[int, int]:
+    """(programs a block serves, blocks on grid y) of a query-axis launch
+    over ``q`` programs of ``prog``'s layout: up to ``QG`` a block, fewer
+    only where ``QG`` programs' shared memory would not fit in a block."""
+    if q < 1:
+        raise ValueError("no programs")
+    qg = min(QG, q)
+    while qg > 1 and scan_layout_many(prog, qg).smem > _SMEM_BLOCK_MAX:
+        qg -= 1
+    return qg, -(-q // qg)
+
+
+def launch_grid(smem: int, many: bool = False) -> int:
+    """Blocks on grid x for ``smem`` bytes of shared memory on the current
+    card (occupancy x SMs, before the cap at one block per tile), of the
+    one-query kernel or (``many``) the query axis's."""
     from pinot_tpu_torch.engine._build import load_library
 
     grid = ctypes.c_int(0)
-    err = load_library("fused_scan").fused_scan_grid(smem, ctypes.byref(grid))
+    err = load_library("fused_scan").fused_scan_grid(smem, int(many),
+                                                     ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(f"fused_scan occupancy query failed: CUDA error "
                            f"{err}")
@@ -948,13 +1049,16 @@ def _launch(prog: ScanProgram, packed, values, num_docs, tiles=None
     return out
 
 
-def _argv_template(prog: ScanProgram, S: int, seg_tiles: int, device
-                   ) -> np.ndarray:
-    key = (device, S, seg_tiles)
+def _argv_template(prog: ScanProgram, S: int, seg_tiles: int, device,
+                   qg: int = 0) -> np.ndarray:
+    """The argv slots that depend only on the program and the batch's
+    shape: of a one-query launch (``qg`` = 0) or of a query-axis launch
+    with ``qg`` programs a block (its layout)."""
+    key = (device, S, seg_tiles, qg)
     got = prog._argv.get(key)
     if got is not None:
         return got
-    lay = scan_layout(prog)
+    lay = scan_layout_many(prog, qg) if qg else scan_layout(prog)
     argv = np.zeros(_A_LEN, dtype=np.int64)
     argv[_A_NUM_TILES] = S * seg_tiles
     argv[_A_SEG_TILES] = seg_tiles
@@ -987,6 +1091,10 @@ def _argv_template(prog: ScanProgram, S: int, seg_tiles: int, device
     argv[_A_WLIST_OFF] = lay.wlist_off
     argv[_A_N_OPND] = len(prog.operands)
     argv[_A_Q] = 1
+    argv[_A_QG] = lay.qg
+    argv[_A_ACC_QSTRIDE] = lay.acc_qstride
+    argv[_A_LUT_OFF] = lay.lut_off
+    argv[_A_LUT_BYTES] = lay.lut_bytes
     argv[_A_SLOT_PACKED:_A_SLOT_PACKED + MAX_COLS] = -1
     argv[_A_SLOT_VALUE:_A_SLOT_VALUE + MAX_COLS] = -1
     for k, (is_packed, c) in enumerate(prog.operands):
@@ -1021,15 +1129,15 @@ def prepare_launch(prog: ScanProgram, packed, values, num_docs, tiles=None
 
 
 def prepare_launch_many(progs: List[ScanProgram], packed, values, num_docs,
-                        tiles=None, grid_x: int = 0
-                        ) -> Tuple[np.ndarray, List[ScanOutputs]]:
-    """The argv of one query-axis launch over ``progs`` (one layout) and
-    each program's outputs: the programs stacked [Q, prog_len] on the
-    device, the outputs rows of one [Q, n] buffer. ``grid_x`` > 0 names
-    the grid's x extent (else the one-query grid divided by Q)."""
+                        tiles=None) -> Tuple[np.ndarray, List[ScanOutputs]]:
+    """The argv of one launch of the query-axis kernel over ``progs`` (one
+    layout) and each program's outputs: the programs stacked [Q,
+    prog_len] on the device, ``query_group``'s programs a block, the
+    outputs rows of one [Q, n] buffer."""
     device = num_docs.device
     S, seg_tiles = scan_shape(packed, values, num_docs, tiles)
-    template = _argv_template(progs[0], S, seg_tiles, device)
+    qg, _ = query_group(progs[0], len(progs))
+    template = _argv_template(progs[0], S, seg_tiles, device, qg)
     stacked = torch.from_numpy(np.stack([p.prog for p in progs])).to(device)
     one = _alloc_outputs(progs[0], S, device)
     n = one.buf.numel()
@@ -1040,7 +1148,6 @@ def prepare_launch_many(progs: List[ScanProgram], packed, values, num_docs,
     argv[_A_PROG] = stacked.data_ptr()
     argv[_A_Q] = len(progs)
     argv[_A_OUT_QSTRIDE] = n * 8
-    argv[_A_GRID_X] = grid_x
     argv[_A_NUM_DOCS] = num_docs.data_ptr()
     argv[_A_OUT_CNT] = outs[0].cnt.data_ptr()
     argv[_A_OUT_ISUM] = outs[0].isum.data_ptr()
@@ -1057,15 +1164,19 @@ def prepare_launch_many(progs: List[ScanProgram], packed, values, num_docs,
     return argv, outs
 
 
-def enqueue(argv: np.ndarray, stream: "torch.cuda.Stream") -> None:
-    """Launch the kernel with a prepared argv on ``stream`` (its device);
-    raises if the launch is refused."""
+def enqueue(argv: np.ndarray, stream: "torch.cuda.Stream",
+            many: bool = False) -> None:
+    """Launch the kernel with a prepared argv on ``stream`` (its device):
+    the one-query kernel (``prepare_launch``) or the query axis's
+    (``many``, ``prepare_launch_many``); raises if the launch is
+    refused."""
     from pinot_tpu_torch.engine._build import load_library
 
     lib = load_library("fused_scan")
+    launch = lib.fused_scan_many_launch if many else lib.fused_scan_launch
     with torch.cuda.device(stream.device):
-        err = lib.fused_scan_launch(argv.ctypes.data_as(ctypes.c_void_p),
-                                    ctypes.c_void_p(stream.cuda_stream))
+        err = launch(argv.ctypes.data_as(ctypes.c_void_p),
+                     ctypes.c_void_p(stream.cuda_stream))
     if err != 0:
         raise RuntimeError(f"fused_scan kernel launch failed: CUDA error "
                            f"{err} ({lib.fused_scan_error_string(err).decode()})")
