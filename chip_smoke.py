@@ -138,9 +138,29 @@ Phases:
      programs; (13c, after
      phase 12) phase 12's trees under 1.5x one segment's largest tree:
      node arrays demoted and promoted across two passes of the 13
-     flights, == oracle, then 8 concurrent identical queries sharing
+     flights, == oracle, then 8 concurrent identical queries
+     (``execute_instance``, which no query flight fronts) sharing their
      node-slice launches;
- 14. (after 13a-b) a realtime user-events table: 2.5 M rows
+ 15. (after 13a-b, before 14) scatter/gather on one card: 4 in-process
+     servers (ShardedQueryExecutor, 2 of the segments each) answer with
+     ``execute_instance``'s DataTable and BrokerReduceService merges them:
+     (15a) phase 4's 13 flights reduced in process with the device merge
+     (reducePath "device" on every group-by flight) and through
+     to_bytes / from_bytes (declined as reduce_device_cross_process, the
+     vectorized path serving), both == phase 4's rows == oracle, the dense
+     rung's merge timed beside the host merge and its byte bound; (15b)
+     phase 8's user-events table grouped by user, country and event type
+     (hundreds of thousands of groups a server, served by each server's
+     host engine; a composite space past the dense slots): the
+     sort rung == the vectorized merge bit for bit == oracle, timed
+     likewise; (15c) 8
+     client threads against an admission gate of 2 slots and 2 waiters:
+     typed QueryRejectedErrors counted, admitted answers == phase 4's;
+     (15d) 8 threads sending one compiled query share runs; (15e) the
+     flights per segment at worker.threads 1 and 8, p50s, equal rows;
+     (15f) a one-segment query after a batch query borrows the batch's
+     columns, stagedBytes with and without the borrow, equal rows;
+ 14. (after 15) a realtime user-events table: 2.5 M rows
      as JSON messages on a one-partition MemoryStream consumed by
      RealtimeSegmentDataManager into a consuming segment on the card
      (``engine/mutable_staging.py``): (14a) at 700, 1000 and 5000 rows and
@@ -2882,19 +2902,23 @@ def phase_coalesce(main: dict, device: str = "cuda", threads: int = 8
 
     def client(t: int) -> None:
         try:
+            # each client compiles its own queries, as separate requests
+            # do: one compiled context from several threads would share
+            # one run (the executor's query flight) before the launcher
+            own = {v: compile_query(c.sql) for v, c in ctxs.items()}
             barrier.wait(60)
             if t == 0:
                 phase_t["c0"] = time.perf_counter()
             for i in range(len(cids)):
                 v = cids[(t + i) % len(cids)]
-                table, stats = bex.execute(ctxs[v], segs)
+                table, stats = bex.execute(own[v], segs)
                 if table.rows != solo[v]:
                     raise AssertionError(f"13b {v}: rows differ from solo")
                 records.append((v, stats.launch))
             barrier.wait(60)
             if t == 0:
                 phase_t["c1"] = time.perf_counter()
-            table, stats = bex.execute(ctxs["Q2.1"], segs)
+            table, stats = bex.execute(own["Q2.1"], segs)
             if table.rows != solo["Q2.1"]:
                 raise AssertionError("13b Q2.1: rows differ from solo")
             records.append(("Q2.1", stats.launch))
@@ -2904,7 +2928,7 @@ def phase_coalesce(main: dict, device: str = "cuda", threads: int = 8
                 bex.launcher.set_window(max_ms=5.0, hot_ms=20.0)
             barrier.wait(60)
             v = pids[t % len(pids)]
-            table, stats = bex.execute(ctxs[v], segs)
+            table, stats = bex.execute(own[v], segs)
             _check_flight(v, table, wants[v])
             records.append((v, stats.launch))
         except BaseException as e:  # noqa: BLE001 - raised below
@@ -2979,11 +3003,15 @@ def phase_startree_budget(segs, ctxs: dict, wants: dict, kept_segs: dict,
     (every segment that comes back in the second pass comes back by
     promotion), rows equal to the oracle, the staged bytes within the
     budget after each query; then ``threads`` concurrent identical
-    queries share node-slice launches (the flight's hits)."""
+    queries share node-slice launches (the kernel flight's hits). They go
+    through ``execute_instance``, which no query flight fronts: identical
+    ``execute`` calls would share the whole run before any node slice
+    (phase 15d holds that flight)."""
     import threading
 
     import torch
 
+    from pinot_tpu_torch.broker.reduce import BrokerReduceService
     from pinot_tpu_torch.engine.executor import ServerQueryExecutor
     from pinot_tpu_torch.tools import ssb
 
@@ -3027,16 +3055,21 @@ def phase_startree_budget(segs, ctxs: dict, wants: dict, kept_segs: dict,
     qid = "Q2.1"
     ctx = ctxs[qid]
     ex.execute(ctx, segs)
+    broker = BrokerReduceService(device=device)
     hits = 0
     for rnd in range(5):
         h0 = ex.kernel_flight.hits
+        q0 = ex.query_flight.hits
         barrier = threading.Barrier(threads)
         errors = []
 
         def client():
             try:
                 barrier.wait(60)
-                table, stats = ex.execute(ctx, segs)
+                answer = ex.execute_instance(ctx, segs)
+                table, _, exc = broker.reduce(ctx, [answer])
+                if exc:
+                    raise AssertionError(f"13c {qid}: {exc}")
                 _check_flight(qid, table, wants[qid])
             except BaseException as e:  # noqa: BLE001 - raised below
                 errors.append(e)
@@ -3048,6 +3081,8 @@ def phase_startree_budget(segs, ctxs: dict, wants: dict, kept_segs: dict,
             th.join(120)
         if errors:
             raise AssertionError(f"13c: {errors[:3]}")
+        if ex.query_flight.hits != q0:
+            raise AssertionError("13c: execute_instance shared a whole run")
         hits = ex.kernel_flight.hits - h0
         if hits:
             break
@@ -3055,8 +3090,9 @@ def phase_startree_budget(segs, ctxs: dict, wants: dict, kept_segs: dict,
         raise AssertionError("13c: no concurrent node slice was shared")
     out["flight_hits"] = hits
     out["flight_rounds"] = rnd + 1
-    log(f"  13c {threads} concurrent {qid}s: {hits} node-slice launches "
-        f"shared (the flight's hits), round {rnd + 1}; == numpy oracle")
+    log(f"  13c {threads} concurrent {qid}s (execute_instance): {hits} "
+        f"node-slice launches shared (the kernel flight's hits), round "
+        f"{rnd + 1}; == numpy oracle")
     return out
 
 
@@ -3778,6 +3814,436 @@ def _phase_realtime_sealed(mgr, ctxs, final_rows: dict, total: int,
             "timing": timing, "errs": errs, "launches": launches}
 
 
+# -- phase 15: scatter/gather on one card --------------------------------------
+
+# in-process servers of phase 15, each a ShardedQueryExecutor over its share
+# of the segments
+SERVERS = 4
+# 15b: every (user, country, event type) group of the user-events table:
+# hundreds of thousands of groups a server of 2 segments, each server's
+# past the general rung's compact cap (8192), so its host engine serves
+# them; the composite space (about 100 k users x 10 x 5) is past the
+# device merge's dense slots, so the merge takes the sort rung
+USER_GROUPS_SQL = ("SELECT user_id, country, event_type, count(*), "
+                   "sum(revenue), max(latency_ms) FROM user_events "
+                   "GROUP BY user_id, country, event_type LIMIT 10000000")
+# the servers' and the broker's numGroupsLimit in 15b: above the group
+# count, so no trim cuts the answer the oracle is compared with
+SCATTER_GROUPS_LIMIT = 10_000_000
+# 15c: the admission gate's bounds under 8 client threads
+ADMISSION_SLOTS = 2
+ADMISSION_QUEUE = 2
+
+
+def _split(segs: list, n: int) -> list:
+    """``segs`` in ``n`` contiguous shares, one a server."""
+    per = -(-len(segs) // n)
+    return [segs[i:i + per] for i in range(0, len(segs), per)]
+
+
+def _scatter(servers: list, ctx) -> list:
+    """Each server's mergeable answer (``execute_instance``)."""
+    return [ex.execute_instance(ctx, part) for ex, part in servers]
+
+
+def _wire(tables: list) -> list:
+    """The tables as a broker in another process holds them."""
+    from pinot_tpu_torch.common.datatable import DataTable
+
+    return [DataTable.from_bytes(t.to_bytes()) for t in tables]
+
+
+def _device_declines(stats) -> dict:
+    return {k: v for k, v in stats.decisions.items()
+            if k.startswith("reduce:device->host:")}
+
+
+def _identical_rows(what: str, got: list, want: list) -> None:
+    """Rows equal cell for cell, types included (bit-identical)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows != {len(want)}")
+    for g, w in zip(got, want):
+        if g != w or [type(x) for x in g] != [type(x) for x in w]:
+            raise AssertionError(f"{what}: row {g} != {w}")
+
+
+def _merge_cost(svc, ctx, tables: list, device: str, iters: int) -> dict:
+    """The device merge (``device_group_merge``) and the vectorized host
+    merge (``host_group_merge``) of the same tables' group-by block: their
+    outputs equal bit for bit; the host merge's ms; on the card, the device
+    merge's ms (CUDA events over ``iters`` calls, its copies to and from
+    the card included), device ms and CUDA kernels a call
+    (``torch.profiler``), beside its byte bound (the keys and states read
+    once, the groups' first rows and states written once)."""
+    from pinot_tpu_torch.broker.reduce import DEVICE_OPS, host_group_merge
+    from pinot_tpu_torch.engine.aggregates import resolve_agg
+    from pinot_tpu_torch.parallel import reduce_device as rdev
+
+    acc = svc.accumulator(ctx)
+    for t in tables:
+        acc.add(t)
+    keys, entries, n = acc.group_block()
+    aggs = [resolve_agg(f) for f in ctx.aggregations]
+    comp, space = rdev.encode_composite_keys(keys)
+    vals = [a for _, a in entries]
+    ops = [DEVICE_OPS[a.base] for a in aggs]
+
+    def device_merge():
+        return rdev.device_group_merge(comp, space, vals, ops, device)
+
+    first, folded = device_merge()
+    hfirst, hfolded = host_group_merge(keys, entries, n, aggs)
+    # each lists the groups in its own order: compare by first row
+    pd = np.argsort(first, kind="stable")
+    ph = np.argsort(hfirst, kind="stable")
+    if not np.array_equal(first[pd], hfirst[ph]):
+        raise AssertionError("15: the device merge's groups differ")
+    for a, (d, h) in enumerate(zip(folded, hfolded)):
+        if d.dtype != h.dtype or not np.array_equal(d[pd], h[ph]):
+            raise AssertionError(f"15: the device merge's state {a} "
+                                 "differs from the host's")
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        host_group_merge(keys, entries, n, aggs)
+    out = {"rows": n, "groups": int(first.shape[0]), "space": space,
+           "rung": rdev.merge_rung(space),
+           "host_ms": (time.perf_counter() - t0) * 1e3 / iters,
+           "bound_ms": (comp.nbytes + sum(v.nbytes for v in vals)
+                        + first.nbytes + sum(f.nbytes for f in folded))
+           / HBM_BYTES_PER_S * 1e3}
+    if device == "cuda":
+        out["device_ms"] = _time_ms(device_merge, iters)
+        out["device_kernel_ms"], out["cuda_kernels"] = _profile_calls(
+            device_merge, 3)
+    return out
+
+
+def _user_groups_answer(frames: list) -> dict:
+    """``USER_GROUPS_SQL``'s (user, country, event type) -> (count,
+    revenue sum, latency max) over the generator's arrays."""
+    from pinot_tpu_torch.tools import usertable
+
+    user = np.concatenate([f["user_id"] for f in frames]).astype(np.int64)
+    country = np.concatenate([f["country"] for f in frames]).astype(
+        np.int64)
+    event = np.concatenate([f["event_type"] for f in frames]).astype(
+        np.int64)
+    key = (user * len(usertable.COUNTRIES) + country) \
+        * len(usertable.EVENT_TYPES) + event
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    starts = np.concatenate(([0], np.flatnonzero(ks[1:] != ks[:-1]) + 1))
+    counts = np.diff(np.append(starts, ks.shape[0]))
+    rev = np.concatenate([f["revenue"] for f in frames])[order]
+    lat = np.concatenate([f["latency_ms"] for f in frames])[order]
+    sums = np.add.reduceat(rev, starts)
+    maxs = np.maximum.reduceat(lat, starts)
+    first = order[starts]
+    return {(int(user[i]), usertable.COUNTRIES[country[i]],
+             usertable.EVENT_TYPES[event[i]]): (int(c), float(s), float(m))
+            for i, c, s, m in zip(first, counts, sums, maxs)}
+
+
+def _threads(n: int, fn) -> list:
+    """``fn(i)`` on ``n`` threads released together; -> the errors."""
+    import threading
+
+    barrier = threading.Barrier(n)
+    errors = []
+
+    def run(i: int) -> None:
+        try:
+            barrier.wait(60)
+            fn(i)
+        except BaseException as e:  # noqa: BLE001 - returned
+            errors.append(e)
+
+    pool = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(300)
+    if any(th.is_alive() for th in pool):
+        raise AssertionError("15: client threads hung")
+    return errors
+
+
+def phase_scatter(main: dict, users: dict, reps: int,
+                  device: str = "cuda", iters: int = 10) -> dict:
+    """Phase 15: Pinot's scatter/gather on one card. ``SERVERS`` in-process
+    servers (ShardedQueryExecutor, each over its share of the segments)
+    answer with ``execute_instance``'s DataTable and
+    ``BrokerReduceService`` merges them.
+
+    (15a) phase 4's segments: the 13 flights reduced in process with the
+    device route (``reducePath`` "device" on every group-by flight with
+    groups) and through ``to_bytes`` / ``from_bytes`` (the device route
+    declines ``reduce_device_cross_process``, the vectorized path
+    serves); both == phase 4's rows == the oracle; the dense rung's merge
+    cost on the flight with the most rows. (15b) phase 8's user-events
+    table, ``USER_GROUPS_SQL`` with the servers' and the broker's
+    ``numGroupsLimit`` above its group count: the device merge on its
+    sort rung == the vectorized merge, bit for bit == the numpy oracle,
+    with its cost.
+    (15c) 8 client threads against an admission gate of
+    ``ADMISSION_SLOTS`` slots and ``ADMISSION_QUEUE`` waiters: typed
+    rejections counted, every admitted answer == phase 4's. (15d) 8
+    threads sending one compiled Q2.1: fewer runs than calls, identical
+    rows. (15e) the flights per segment at worker.threads 1 and 8: p50s,
+    equal rows. (15f) a segment's column borrowed from a resident batch
+    after a batch query: borrows, stagedBytes with and without the
+    borrow, equal rows."""
+    import torch
+
+    from pinot_tpu_torch.broker.reduce import BrokerReduceService
+    from pinot_tpu_torch.engine.errors import QueryRejectedError
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+    from pinot_tpu_torch.parallel import reduce_device as rdev
+    from pinot_tpu_torch.query import compile_query
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    segs, ctxs, wants = main["segs"], main["ctxs"], main["wants"]
+    results = main["results"]
+    out: dict = {"servers": SERVERS}
+
+    # 15a
+    t0 = time.perf_counter()
+    servers = [(ShardedQueryExecutor(device=device), part)
+               for part in _split(segs, SERVERS)]
+    dev_svc = BrokerReduceService(device=device, device_reduce=True)
+    for ctx in ctxs.values():       # untimed pass: stages the batches
+        _scatter(servers, ctx)
+    sync()
+    rdev.MERGE_COUNTER.reset()
+    flights, served, biggest = {}, 0, None
+    for qid, ctx in ctxs.items():
+        t1 = time.perf_counter()
+        tables = _scatter(servers, ctx)
+        t2 = time.perf_counter()
+        res, st, exc = dev_svc.reduce(ctx, tables)
+        t3 = time.perf_counter()
+        wire = [t.to_bytes() for t in tables]
+        wres, wst, _ = dev_svc.reduce(ctx, _wire(tables))
+        grouped = ctx.is_group_by and any(t.num_rows() for t in tables)
+        want_path = "device" if grouped else "vectorized"
+        if exc or st.reduce_path != want_path or _device_declines(st):
+            raise AssertionError(f"15a {qid}: in process, reducePath "
+                                 f"{st.reduce_path} (want {want_path}), "
+                                 f"{st.decisions}, {exc}")
+        cross = "reduce:device->host:reduce_device_cross_process"
+        if wst.reduce_path != "vectorized" \
+                or _device_declines(wst) != ({cross: 1} if grouped else {}):
+            raise AssertionError(f"15a {qid}: across the wire, reducePath "
+                                 f"{wst.reduce_path}, {wst.decisions}")
+        _check_flight(qid, res, wants[qid])
+        _identical_rows(f"15a {qid} in process", res.rows, results[qid].rows)
+        _identical_rows(f"15a {qid} across the wire", wres.rows, res.rows)
+        if st.num_docs_scanned != wst.num_docs_scanned:
+            raise AssertionError(f"15a {qid}: stats differ across the wire")
+        served += grouped
+        n = sum(t.num_rows() for t in tables)
+        flights[qid] = {"scatter_ms": (t2 - t1) * 1e3,
+                        "reduce_ms": (t3 - t2) * 1e3,
+                        "reduce_path": st.reduce_path,
+                        "wire_bytes": sum(len(b) for b in wire),
+                        "rows": n, "groups": len(res.rows)}
+        if grouped and (biggest is None or n > biggest[0]):
+            biggest = (n, qid, tables)
+    if rdev.MERGE_COUNTER.launches != served:
+        raise AssertionError(f"15a: {rdev.MERGE_COUNTER.launches} device "
+                             f"merges for {served} group-by flights")
+    out["flights"] = flights
+    out["dense"] = _merge_cost(dev_svc, ctxs[biggest[1]], biggest[2],
+                               device, iters)
+    out["dense"]["flight"] = biggest[1]
+    if out["dense"]["rung"] != "dense":
+        raise AssertionError(f"15a: {biggest[1]}'s merge took "
+                             f"{out['dense']['rung']}")
+    del servers
+    log(f"  15a: {len(flights)} flights over {SERVERS} servers, "
+        f"reducePath device on {served} group-by flights (the device merge "
+        f"called {served} times), vectorized across the wire "
+        f"(reduce_device_cross_process); == phase 4 == oracle "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log("  15a dense rung " + json.dumps(out["dense"]))
+
+    # 15b
+    t0 = time.perf_counter()
+    useg = users["segs"]
+    servers = [(ShardedQueryExecutor(
+        device=device, num_groups_limit=SCATTER_GROUPS_LIMIT), part)
+        for part in _split(useg, SERVERS)]
+    ctx = compile_query(USER_GROUPS_SQL)
+    t1 = time.perf_counter()
+    tables = _scatter(servers, ctx)
+    scatter_ms = (time.perf_counter() - t1) * 1e3
+    del servers
+    per_server = [t.num_rows() for t in tables]
+    rdev.MERGE_COUNTER.reset()
+    acc = BrokerReduceService(
+        device=device, device_reduce=True,
+        num_groups_limit=SCATTER_GROUPS_LIMIT).accumulator(ctx)
+    for t in tables:
+        acc.add(t)
+    t1 = time.perf_counter()
+    res, st, _ = acc.finish()
+    reduce_ms = (time.perf_counter() - t1) * 1e3
+    if st.reduce_path != "device" or acc.merge_rung != "sort" \
+            or rdev.MERGE_COUNTER.launches != 1:
+        raise AssertionError(f"15b: reducePath {st.reduce_path}, rung "
+                             f"{acc.merge_rung}, {st.decisions}")
+    vsvc = BrokerReduceService(device=device,
+                               num_groups_limit=SCATTER_GROUPS_LIMIT)
+    t1 = time.perf_counter()
+    vres, vst, _ = vsvc.reduce(ctx, tables)
+    vreduce_ms = (time.perf_counter() - t1) * 1e3
+    if vst.reduce_path != "vectorized":
+        raise AssertionError(f"15b: host reducePath {vst.reduce_path}")
+    _identical_rows("15b device vs vectorized", res.rows, vres.rows)
+    want = _user_groups_answer(users["frames"])
+    got = {(r[0], r[1], r[2]): (r[3], r[4], r[5]) for r in res.rows}
+    if got != want:
+        bad = [k for k in want if got.get(k) != want[k]][:3]
+        raise AssertionError(f"15b: {len(got)} groups vs the oracle's "
+                             f"{len(want)}, e.g. {bad}")
+    out["user_groups"] = {
+        "groups": len(res.rows), "per_server": per_server,
+        "scatter_ms": scatter_ms, "reduce_ms": reduce_ms,
+        "vectorized_reduce_ms": vreduce_ms,
+        "sort": _merge_cost(vsvc, ctx, tables, device, max(1, iters // 5))}
+    del tables
+    log(f"  15b: {len(res.rows)} groups (servers {per_server}) on the sort "
+        f"rung == vectorized == oracle; scatter {scatter_ms:.1f} ms, reduce "
+        f"{reduce_ms:.1f} ms (vectorized {vreduce_ms:.1f} ms) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log("  15b sort rung " + json.dumps(out["user_groups"]["sort"]))
+
+    # 15c
+    ex = ShardedQueryExecutor(device=device)
+    ex.admission.configure(max_concurrent=ADMISSION_SLOTS,
+                           max_queue=ADMISSION_QUEUE, max_wait_ms=10_000)
+    qid = "Q2.1"
+    ex.execute(ctxs[qid], segs)
+    mark = ex.admission.stats_snapshot()
+    rejected, admitted = [], []
+
+    def client(i: int) -> None:
+        c = compile_query(ctxs[qid].sql)
+        try:
+            table, _ = ex.execute(c, segs)
+        except QueryRejectedError as e:
+            rejected.append((e.reason, e.queue_depth))
+            return
+        _identical_rows(f"15c {qid}", table.rows, results[qid].rows)
+        admitted.append(i)
+
+    for rnd in range(5):
+        errors = _threads(8, client)
+        if errors:
+            raise AssertionError(f"15c: {errors[:3]}")
+        if rejected:
+            break
+    snap = ex.admission.stats_snapshot()
+    if not rejected or len(rejected) + len(admitted) != 8 * (rnd + 1) \
+            or snap["rejected"] - mark["rejected"] != len(rejected):
+        raise AssertionError(f"15c: {len(rejected)} rejected, "
+                             f"{len(admitted)} admitted, {snap}")
+    out["admission"] = {
+        "rounds": rnd + 1, "admitted": len(admitted),
+        "rejected": len(rejected),
+        "reasons": sorted({r for r, _ in rejected}),
+        "queue_depths": sorted({d for _, d in rejected}),
+        "max_queue_depth": snap["maxQueueDepth"],
+        "queue_wait_ms_max": snap["queueWaitMsMax"]}
+    log(f"  15c: 8 threads x {rnd + 1} rounds, {ADMISSION_SLOTS} slots, "
+        f"{ADMISSION_QUEUE} queued: {len(admitted)} admitted (== phase 4), "
+        f"{len(rejected)} QueryRejectedError "
+        + json.dumps(out["admission"]))
+
+    # 15d
+    ctx = ctxs[qid]
+    got_rows = []
+    ex.admission.configure(max_concurrent=-1)
+    for rnd in range(5):
+        l0, h0 = ex.query_flight.leaders, ex.query_flight.hits
+        got_rows.clear()
+        errors = _threads(8, lambda i: got_rows.append(
+            ex.execute(ctx, segs)[0].rows))
+        if errors:
+            raise AssertionError(f"15d: {errors[:3]}")
+        runs = ex.query_flight.leaders - l0
+        if runs < 8:
+            break
+    if runs >= 8:
+        raise AssertionError("15d: no concurrent identical query shared")
+    for rows in got_rows:
+        _identical_rows(f"15d {qid}", rows, results[qid].rows)
+    out["single_flight"] = {"calls": 8, "runs": runs,
+                            "shared": ex.query_flight.hits - h0,
+                            "rounds": rnd + 1}
+    log(f"  15d: 8 identical {qid} calls ran {runs} times "
+        + json.dumps(out["single_flight"]))
+    del ex
+
+    # 15e
+    t0 = time.perf_counter()
+    ex = ServerQueryExecutor(device=device)
+    pool = {}
+    for threads in (1, 8):
+        ex.close()
+        ex.worker_threads = threads
+        for c in ctxs.values():
+            ex.execute(c, segs)
+        lat = {q: [] for q in ctxs}
+        for _ in range(reps):
+            for q, c in ctxs.items():
+                t1 = time.perf_counter()
+                table, _ = ex.execute(c, segs)
+                sync()
+                lat[q].append((time.perf_counter() - t1) * 1e3)
+                _identical_rows(f"15e {q} at {threads} threads", table.rows,
+                           results[q].rows)
+        pool[threads] = {q: float(np.percentile(v, 50))
+                         for q, v in lat.items()}
+    ex.close()
+    del ex
+    out["worker_pool"] = {"p50_ms": pool}
+    log("  15e per-segment p50 ms at worker.threads 1 / 8: " + ", ".join(
+        f"{q} {pool[1][q]:.3f} / {pool[8][q]:.3f}" for q in ctxs)
+        + f"; rows equal ({time.perf_counter() - t0:.1f} s)")
+
+    # 15f
+    ctx = ctxs["Q2.1"]
+    seg = max(segs, key=lambda s: s.padded_capacity)
+    ex = ShardedQueryExecutor(device=device, use_fused_scan=False)
+    ex.execute(ctx, segs)       # the batch's jnp-combine columns
+    b0 = ex.residency.stats_snapshot()["borrows"]
+    table, _ = ex.execute(ctx, [seg])
+    snap = ex.residency.stats_snapshot()
+    own = ShardedQueryExecutor(device=device, use_fused_scan=False)
+    otable, _ = own.execute(ctx, [seg])
+    osnap = own.residency.stats_snapshot()
+    borrows = snap["borrows"] - b0
+    if borrows < 1:
+        raise AssertionError("15f: the per-segment query borrowed nothing")
+    _identical_rows("15f", table.rows, otable.rows)
+    name = seg.segment_name
+    out["borrow"] = {
+        "borrows": borrows,
+        "staged_bytes_with_borrow": snap["stagedBytes"],
+        "staged_bytes_without": osnap["stagedBytes"],
+        "segment_bytes_with_borrow": ex.residency.resident_nbytes(name),
+        "segment_bytes_without": own.residency.resident_nbytes(name)}
+    del ex, own
+    log("  15f: after the batch query, the one-segment query borrowed "
+        f"{borrows} columns; rows equal " + json.dumps(out["borrow"]))
+    return out
+
+
 # phase 12's default SSB scale: its tree build and queries within about
 # 150 s on the card's host (PERF.md section 4)
 STARTREE_SF = 2
@@ -3912,7 +4378,6 @@ def _phases_2_to_11(args, smi: str) -> tuple:
         + sql_run.pop("combine_jobs") + time_run.pop("combine_jobs"),
         args.reps, card=smi)
     index_run = phase_index(users_run, args.reps, card=smi)
-    del users_run["segs"], users_run["frames"]
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
 
     log("phase 13: residency, sliced execution and launch coalescing on "
@@ -3921,6 +4386,14 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     budget_run = phase_budget(main_run, batch_run["per_flight"], args.reps)
     coalesce_run = phase_coalesce(main_run)
     log(f"  phase 13a-b: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 15 (before 14): scatter/gather on one card, {SERVERS} "
+        "in-process servers and the broker reduce with its device merge")
+    t0 = time.perf_counter()
+    scatter_run = phase_scatter(main_run, users_run, args.reps)
+    del users_run["segs"], users_run["frames"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
     realtime_run = _phase_14(args)
     timing += realtime_run.pop("timing")
     for k, v in realtime_run["errs"].items():
@@ -3989,7 +4462,8 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "time": time_run, "text": text_run,
               "host": host_run, "combine": combine_run,
               "index": index_run, "budget": budget_run,
-              "coalesce": coalesce_run, "realtime": realtime_run}
+              "coalesce": coalesce_run, "realtime": realtime_run,
+              "scatter": scatter_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]

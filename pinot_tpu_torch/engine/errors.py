@@ -19,6 +19,22 @@ class UnsupportedQueryError(QueryError):
     """A valid query shape this engine does not execute."""
 
 
+class QueryRejectedError(QueryError):
+    """Admission rejected the query: the bounded queue is full or the
+    queue-wait bound expired (JAX ``pinot_tpu/engine/errors.py:17``).
+    Retriable, with the queue depth seen at rejection so a client can back
+    off in proportion; ``code`` is the JAX error's 429."""
+
+    retriable = True
+    code = 429
+
+    def __init__(self, message: str, queue_depth: int = 0,
+                 reason: str = "overload"):
+        super().__init__(message)
+        self.queue_depth = int(queue_depth)
+        self.reason = reason
+
+
 _DECLINE_RULES: Tuple[Tuple[str, str], ...] = (
     ("mutable segment", "mutable_segment"),
     # the star-tree node plan's (engine/plan.py plan_star_tree)

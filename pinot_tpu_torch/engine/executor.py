@@ -63,16 +63,43 @@ resident the query stages until ``end_query``, which sets
 plan on the same staged segment, or the same compiled query on the same
 staged star-tree) share one run through ``kernel_flight``; a plan with
 the upsert valid-doc leaf never does. The plan cache is locked, so
-threads may share one executor. Segments run one after another on the
-current stream; ``_execute_aggregation`` and ``_execute_group_by`` are
-the points a subclass overrides to combine segments otherwise
-(``pinot_tpu_torch.parallel.ShardedQueryExecutor``, whose batch path
-serves every plan on the fused scan or the jnp combine).
+threads may share one executor. ``_execute_aggregation`` and
+``_execute_group_by`` are the points a subclass overrides to combine
+segments otherwise (``pinot_tpu_torch.parallel.ShardedQueryExecutor``,
+whose batch path serves every plan on the fused scan or the jnp combine).
+
+The instance surface (JAX :163-260, :400-429, :572-640):
+
+- ``execute`` and ``execute_instance`` pass the admission gate
+  (``server/admission.py``, keys ``pinot.server.query.admission.*``)
+  first: past its bounds a query is rejected with a typed, retriable
+  ``QueryRejectedError`` before any lease is taken;
+- identical concurrent ``execute`` calls (the same compiled context over
+  the same segment objects) share one run (``query_flight``); a
+  consuming or upsert-managed segment never shares, since its rows move
+  between two such calls;
+- a query's segments run on the executor's persistent worker pool
+  (``server/scheduler.py`` ``WorkerPool``, ``pinot.server.query.worker
+  .threads``; the default is 1 where JAX's is min(cpu count, 8): the
+  port's per-segment work is host Python, and threads contend for the
+  GIL), each task with a private
+  ``QueryStats`` that carries the query's lease and is merged in segment
+  order; a sliced lease, one segment, or one thread runs them in turn;
+  ``close`` stops the pool (it is built again at the next fan-out);
+- ``execute_instance`` returns the server's mergeable answer, a
+  ``common/datatable.py`` ``DataTable``, which the broker reduces
+  (``broker/reduce.py``): DISTINCT rows (HAVING left to the broker), an
+  unordered selection trimmed to ``offset + limit``, an ordered one with
+  its order-by columns that are not selected as hidden trailing columns
+  and ``sorted_rows``, the group-by's states trimmed to
+  ``num_groups_limit``, or the scalar states.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
+import time
 import weakref
 
 from collections import OrderedDict
@@ -81,6 +108,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common.datatable import DataTable
 from pinot_tpu_torch.common.singleflight import SingleFlight
 from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine import (
@@ -120,6 +148,9 @@ from pinot_tpu_torch.query.context import QueryContext, filter_fingerprint
 from pinot_tpu_torch.query.expressions import Identifier
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.segment.mutable import is_mutable
+from pinot_tpu_torch.server.admission import AdmissionGate
+from pinot_tpu_torch.server.scheduler import WorkerPool
+from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
 from pinot_tpu_torch.utils.hll import HyperLogLog
 
 # plans kept per executor, least recently used evicted first (the JAX
@@ -127,6 +158,15 @@ from pinot_tpu_torch.utils.hll import HyperLogLog
 PLAN_CACHE_CAP = 256
 # merged groups kept before the reduce (Pinot's numGroupsLimit default)
 DEFAULT_NUM_GROUPS_LIMIT = 100_000
+
+# QueryStats field -> the launch counter it reads, for a query's run
+_LAUNCH_COUNTERS = (
+    ("scan_launches", fused_scan.SCAN_COUNTER),
+    ("probe_launches", fused_scan.PROBE_COUNTER),
+    ("general_launches", kernels.RUNG_COUNTER),
+    ("index_launches", index_exec.INDEX_COUNTER),
+    ("startree_launches", startree_device.STARTREE_COUNTER),
+)
 
 
 class ServerQueryExecutor:
@@ -157,6 +197,18 @@ class ServerQueryExecutor:
         self.kernels = kernels.KernelCache()
         self.selection_cache = SelectionCache()
         self.kernel_flight = SingleFlight()
+        cfg = config if config is not None else PinotConfiguration()
+        # segment fan-out width; the pool is built at the first fan-out
+        # and lives until close()
+        self.worker_threads = max(1, cfg.get_int(
+            CommonConstants.WORKER_THREADS_KEY,
+            CommonConstants.DEFAULT_WORKER_THREADS))
+        self._segment_pool: Optional[WorkerPool] = None
+        self._segment_pool_lock = threading.Lock()
+        # bounded slots and queue in front of execution
+        self.admission = AdmissionGate.from_config(cfg)
+        # identical concurrent execute() calls share one run
+        self.query_flight = SingleFlight()
 
     def stage(self, segment: ImmutableSegment,
               stats: Optional[QueryStats] = None) -> StagedSegment:
@@ -171,6 +223,53 @@ class ServerQueryExecutor:
 
     def execute(self, ctx: QueryContext, segments: List[ImmutableSegment]
                 ) -> Tuple[ResultTable, QueryStats]:
+        """The query's final table and stats. Admission is per caller (a
+        request that rides another's run still holds its slot until the
+        shared run ends); identical concurrent calls share one run and get
+        the same (table, stats)."""
+        ticket = self.admission.admit(ctx.table_name or "")
+        try:
+            out, _ = self.query_flight.do(
+                self._query_flight_key(ctx, segments),
+                lambda: self._run_query(ctx, segments, self._execute_pruned))
+            return out
+        finally:
+            self.admission.release(ticket)
+
+    def execute_instance(self, ctx: QueryContext,
+                         segments: List[ImmutableSegment]) -> DataTable:
+        """The server's mergeable answer (JAX :250-260): a DataTable the
+        broker reduces with the other servers' (``broker/reduce.py``)."""
+        ticket = self.admission.admit(ctx.table_name or "")
+        try:
+            # the table carries the query's stats, counters included
+            return self._run_query(ctx, segments, self._instance_pruned)[0]
+        finally:
+            self.admission.release(ticket)
+
+    @staticmethod
+    def _query_flight_key(ctx: QueryContext,
+                          segments: List[ImmutableSegment]
+                          ) -> Optional[Tuple]:
+        """None: not shareable. Keyed on the identity of the compiled
+        context and of every segment (JAX :418-429), so a reloaded segment
+        or a context compiled again never joins a stale run; consuming and
+        upsert-managed segments never share."""
+        for s in segments:
+            if s.valid_doc_ids is not None or is_mutable(s):
+                return None
+        return (id(ctx), tuple(id(s) for s in segments))
+
+    def _counters(self) -> Tuple:
+        """(QueryStats field, counter) of every kernel and rung a query's
+        run counts."""
+        return _LAUNCH_COUNTERS
+
+    def _run_query(self, ctx: QueryContext,
+                   segments: List[ImmutableSegment], body: Callable
+                   ) -> Tuple[Any, QueryStats]:
+        """Validate, prune, open the lease, ``body(ctx, kept, stats)``,
+        end the lease; the stats count the launches made meanwhile."""
         if not segments:
             raise QueryError(f"no segments for table {ctx.table_name!r}")
         known = set(segments[0].metadata.columns) | set(VIRTUAL_COLUMNS)
@@ -180,24 +279,17 @@ class ServerQueryExecutor:
                                  f"{ctx.table_name!r}")
         stats = QueryStats(num_segments_queried=len(segments))
         segments = self._prune(ctx, segments, stats)
-        scans0 = fused_scan.SCAN_COUNTER.launches
-        probes0 = fused_scan.PROBE_COUNTER.launches
-        general0 = kernels.RUNG_COUNTER.launches
-        index0 = index_exec.INDEX_COUNTER.launches
-        startree0 = startree_device.STARTREE_COUNTER.launches
+        counters = self._counters()
+        before = [c.launches for _, c in counters]
         self._begin_lease(ctx, segments, stats)
         try:
-            table = self._execute_pruned(ctx, segments, stats)
+            out = body(ctx, segments, stats)
         finally:
             self.residency.end_query(stats.lease, stats)
             stats.lease = None
-        stats.scan_launches = fused_scan.SCAN_COUNTER.launches - scans0
-        stats.probe_launches = fused_scan.PROBE_COUNTER.launches - probes0
-        stats.general_launches = kernels.RUNG_COUNTER.launches - general0
-        stats.index_launches = index_exec.INDEX_COUNTER.launches - index0
-        stats.startree_launches = (startree_device.STARTREE_COUNTER.launches
-                                   - startree0)
-        return table, stats
+        for (name, c), n0 in zip(counters, before):
+            setattr(stats, name, c.launches - n0)
+        return out, stats
 
     def _begin_lease(self, ctx: QueryContext,
                      segments: List[ImmutableSegment],
@@ -225,16 +317,46 @@ class ServerQueryExecutor:
 
     def _map_segments(self, fn: Callable, segments: List[ImmutableSegment],
                       stats: QueryStats) -> List[Any]:
-        """``fn(segment)`` per segment; under a sliced lease each segment
-        is a slice, released before the next stages (JAX :591-597)."""
+        """``fn(segment, stats)`` per segment, results in segment order
+        (JAX :572-633). Under a sliced lease each segment is a slice,
+        released before the next stages, so they run in turn; so do one
+        segment and one thread. Otherwise the worker pool runs them, each
+        with a private QueryStats (QueryStats is not thread-safe) that
+        carries the query's lease: without it a task would read an
+        admission that sent the query to the host engine as a device one.
+        The private stats merge in segment order."""
         lease = stats.lease
-        sliced = lease is not None and lease.sliced
-        parts = []
-        for seg in segments:
-            parts.append(fn(seg))
-            if sliced:
+        if lease is not None and lease.sliced:
+            parts = []
+            for seg in segments:
+                parts.append(fn(seg, stats))
                 self.residency.release_slice(lease)
+            return parts
+        if self.worker_threads <= 1 or len(segments) <= 1:
+            return [fn(seg, stats) for seg in segments]
+        locals_ = [QueryStats(lease=lease) for _ in segments]
+        parts = self._worker_pool().map(fn, segments, locals_)
+        for st in locals_:
+            stats.merge(st)
         return parts
+
+    def _worker_pool(self) -> WorkerPool:
+        pool = self._segment_pool
+        if pool is None:
+            with self._segment_pool_lock:
+                pool = self._segment_pool
+                if pool is None:
+                    pool = WorkerPool(self.worker_threads, name="pqw")
+                    self._segment_pool = pool
+        return pool
+
+    def close(self) -> None:
+        """Stop the worker pool (server shutdown); the executor stays
+        usable, its pool built again at the next fan-out."""
+        with self._segment_pool_lock:
+            pool, self._segment_pool = self._segment_pool, None
+        if pool is not None:
+            pool.stop()
 
     def _execute_pruned(self, ctx: QueryContext,
                         segments: List[ImmutableSegment],
@@ -252,10 +374,62 @@ class ServerQueryExecutor:
         merged = self._execute_group_by(ctx, aggs, segments, stats)
         if merged.trim(self.num_groups_limit):
             stats.num_groups_limit_reached = True
-        types = {n: cm.data_type.label
-                 for n, cm in segments[0].metadata.columns.items()}
-        types.update(VIRTUAL_COLUMNS)
-        return reduce_group_by(ctx, aggs, merged, types)
+        return reduce_group_by(ctx, aggs, merged,
+                               _schema_types(segments[0]))
+
+    def _instance_pruned(self, ctx: QueryContext,
+                         segments: List[ImmutableSegment],
+                         stats: QueryStats) -> DataTable:
+        """The kept segments' mergeable answer (JAX
+        ``_execute_instance_traced`` :328-398)."""
+        if ctx.distinct:
+            # HAVING is the broker's (it sees the global distinct set);
+            # ORDER BY stays here, so each server ships its true top rows
+            if ctx.having is not None:
+                sub = dataclasses.replace(ctx, order_by=[], having=None,
+                                          limit=self.num_groups_limit,
+                                          offset=0)
+            else:
+                sub = dataclasses.replace(ctx, having=None,
+                                          limit=ctx.offset + ctx.limit,
+                                          offset=0)
+            record_decision(stats, "plan", "host_engine", "device_kernel",
+                            "distinct_host_only")
+            table = host_engine.execute_distinct(sub, segments, stats)
+            if len(table.rows) >= self.num_groups_limit:
+                stats.num_groups_limit_reached = True
+            return DataTable.for_distinct(table.schema, table.rows, stats)
+        if ctx.is_selection:
+            if not ctx.order_by:
+                sub = dataclasses.replace(ctx, limit=ctx.offset + ctx.limit,
+                                          offset=0)
+                table = host_engine.execute_selection(sub, segments, stats)
+                return DataTable.for_selection(table.schema, table.rows,
+                                               stats)
+            # the order-by expressions not selected ride as hidden
+            # trailing columns, so the broker merge-sorts without the
+            # segments; the rows ship already in query order
+            present = {str(e) for e in ctx.select_expressions}
+            hidden = [ob.expr for ob in ctx.order_by
+                      if str(ob.expr) not in present]
+            sub = dataclasses.replace(
+                ctx,
+                select_expressions=list(ctx.select_expressions) + hidden,
+                aliases=list(ctx.aliases) + [None] * len(hidden),
+                limit=ctx.offset + ctx.limit, offset=0)
+            table = self._selection(sub, segments, stats)
+            return DataTable.for_selection(table.schema, table.rows, stats,
+                                           num_hidden=len(hidden),
+                                           sorted_rows=True)
+        aggs = [resolve_agg(f) for f in ctx.aggregations]
+        if ctx.is_group_by:
+            merged = self._execute_group_by(ctx, aggs, segments, stats)
+            if merged.trim(self.num_groups_limit):
+                stats.num_groups_limit_reached = True
+            return DataTable.for_group_by(merged.groups,
+                                          _schema_types(segments[0]), stats)
+        merged = self._execute_aggregation(ctx, aggs, segments, stats)
+        return DataTable.for_aggregation(merged.states, stats)
 
     def _selection(self, ctx: QueryContext, segments: List[ImmutableSegment],
                    stats: QueryStats) -> ResultTable:
@@ -274,8 +448,11 @@ class ServerQueryExecutor:
                stats: QueryStats) -> List[ImmutableSegment]:
         """The segments the filter may match, at least one (the reduce
         needs a result to shape); the pruned segments' docs count in
-        ``total_docs``."""
+        ``total_docs``, the time in ``phase_ms["SEGMENT_PRUNING"]``."""
+        t0 = time.perf_counter()
         kept = prune_segments(ctx, segments, stats)
+        stats.add_phase_ms("SEGMENT_PRUNING",
+                           (time.perf_counter() - t0) * 1e3)
         if not kept:
             kept = segments[:1]
             stats.num_segments_pruned -= 1
@@ -289,9 +466,9 @@ class ServerQueryExecutor:
                              stats: QueryStats) -> AggResult:
         merged: Optional[AggResult] = None
         for part in self._map_segments(
-                lambda seg: (_metadata_answer(ctx, aggs, seg, stats)
-                             or self._segment_aggregation(ctx, aggs, seg,
-                                                          stats)),
+                lambda seg, st: (_metadata_answer(ctx, aggs, seg, st)
+                                 or self._segment_aggregation(ctx, aggs, seg,
+                                                              st)),
                 segments, stats):
             if merged is None:
                 merged = part
@@ -328,7 +505,7 @@ class ServerQueryExecutor:
                           stats: QueryStats) -> GroupByResult:
         merged = GroupByResult()
         for part in self._map_segments(
-                lambda seg: self._segment_group_by(ctx, aggs, seg, stats),
+                lambda seg, st: self._segment_group_by(ctx, aggs, seg, st),
                 segments, stats):
             merged.merge(part, aggs)
         return merged
@@ -495,6 +672,15 @@ class ServerQueryExecutor:
         matched = int(tree["num_matched"] if "num_matched" in tree
                       else np.asarray(tree["presence"]).sum())
         return fused_scan.SegmentScan(tree=tree, plan=plan, matched=matched)
+
+
+def _schema_types(segment: ImmutableSegment) -> Dict[str, str]:
+    """Column -> type label, virtual columns included (the group-by's
+    key types)."""
+    types = {n: cm.data_type.label
+             for n, cm in segment.metadata.columns.items()}
+    types.update(VIRTUAL_COLUMNS)
+    return types
 
 
 def _metadata_answer(ctx: QueryContext, aggs: List[AggDef],

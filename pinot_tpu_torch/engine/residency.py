@@ -31,9 +31,15 @@ against a budget:
   evicting for itself; a segment evicted while its prefetch waited is not
   brought back (the retire generation).
 
-The column borrower of the JAX manager (a per-segment staging reading a
-resident batch's device column), its metrics registry and its
-data-manager hooks are not part of this module.
+- **Borrowing** (``column_borrower``, set by ``ShardedQueryExecutor``): a
+  per-segment staging builds a column's general-rung arrays from a
+  resident batch's device copy instead of uploading them again (JAX
+  :313-316, :541-547); ``note_borrow`` counts it (``borrows``) and keeps
+  the lending batch warm, and a segment a resident batch holds ranks as
+  ``COST_BORROWED_BUILD`` in the eviction cost.
+
+The JAX manager's metrics registry and its data-manager hooks are not
+part of this module.
 """
 
 from __future__ import annotations
@@ -66,10 +72,12 @@ _STOP = object()
 
 # rebuild-cost weights of the eviction ranking (only the ratios matter): a
 # host-tier restage is one copy; a batch re-adopts its stacked host arrays;
-# a cold column build decodes, packs and copies; star-tree node arrays pay
-# the tree on top
+# a column borrowed from a resident batch is a copy on the device; a cold
+# column build decodes, packs and copies; star-tree node arrays pay the
+# tree on top
 COST_HOST_RESTAGE = 1.0
 COST_BATCH_RESTAGE = 1.5
+COST_BORROWED_BUILD = 2.0
 COST_COLUMN_BUILD = 4.0
 COST_STARTREE_BUILD = 8.0
 
@@ -277,6 +285,7 @@ class ResidencyManager:
         self.pin_blocked = 0
         self.spills = 0
         self.prefetched = 0
+        self.borrows = 0
         self.demotions = 0
         self.promotions = 0
         self.host_drops = 0
@@ -289,6 +298,10 @@ class ResidencyManager:
                                      True)
         self._slicing_on = cfg.get_bool(
             CommonConstants.HBM_SLICING_ENABLED_KEY, True)
+        # ``column_borrower(segment, name)`` -> a StagedColumn built from a
+        # resident batch's device copy, or None (set by the sharded
+        # executor)
+        self.column_borrower = None
         self._prefetch_q: Optional["queue.Queue"] = None
         self._prefetch_thread: Optional[threading.Thread] = None
         self._closed = False
@@ -372,7 +385,8 @@ class ResidencyManager:
                 doomed.append((None, e.resident))
             image = self._take_host_locked(name, segment, lease)
             e = _Entry(StagedSegment(segment, device=self.device,
-                                     host_image=image))
+                                     host_image=image,
+                                     borrower=self.column_borrower))
             e.touch = self._next_touch_locked()
             self._entries[name] = e
             self.misses += 1
@@ -471,6 +485,17 @@ class ResidencyManager:
             self._refresh_locked()
         self._demote_or_release_all([(name, e.resident)])
         return True
+
+    def note_borrow(self, batch_name: str) -> None:
+        """A per-segment staging built a column from the resident batch
+        ``batch_name``: count it and touch the batch, so a lender its
+        borrowers read stays warm."""
+        with self._lock:
+            self.borrows += 1
+            e = self._entries.get(batch_name)
+            if e is not None:
+                self._entries.move_to_end(batch_name)
+                e.touch = self._next_touch_locked()
 
     def discard(self, name: str) -> None:
         """Forget a device entry whose owner already dropped its arrays
@@ -757,7 +782,8 @@ class ResidencyManager:
 
     def _rebuild_cost_locked(self, name: str, e: _Entry) -> float:
         """What getting the resident back would cost: one copy from a host
-        image; a batch's stacked host arrays; a cold column build; the
+        image; a batch's stacked host arrays; columns borrowed from a
+        resident batch holding the segment; a cold column build; the
         star-tree's node arrays on top."""
         if name in self._host_entries:
             return COST_HOST_RESTAGE
@@ -771,6 +797,10 @@ class ResidencyManager:
             return COST_HOST_RESTAGE
         if r._startree:
             return COST_STARTREE_BUILD
+        for other in self._entries:
+            if other != name and other.startswith("batch(") \
+                    and name in other[6:-1].split(","):
+                return COST_BORROWED_BUILD
         return COST_COLUMN_BUILD
 
     def _enforce_locked(self, lease: Optional[QueryLease] = None
@@ -949,6 +979,7 @@ class ResidencyManager:
                 "pinBlockedEvictions": self.pin_blocked,
                 "spills": self.spills,
                 "prefetched": self.prefetched,
+                "borrows": self.borrows,
                 "demotions": self.demotions,
                 "promotions": self.promotions,
                 "hostDrops": self.host_drops,
@@ -993,6 +1024,7 @@ class ResidencyManager:
                     "evictions": self.evictions,
                     "pinBlockedEvictions": self.pin_blocked,
                     "spills": self.spills, "prefetched": self.prefetched,
+                    "borrows": self.borrows,
                     "demotions": self.demotions,
                     "promotions": self.promotions,
                     "hostDrops": self.host_drops,
@@ -1013,6 +1045,6 @@ class ResidencyManager:
             }
 
 
-__all__ = ["AUTO", "QueryLease", "ResidencyManager",
+__all__ = ["AUTO", "COST_BORROWED_BUILD", "QueryLease", "ResidencyManager",
            "estimate_segment_bytes", "resolve_budget_bytes",
            "resolve_host_budget_bytes"]

@@ -2,7 +2,10 @@
 
 Counterpart of ``pinot_tpu/engine/results.py`` (``reduce_group_by``,
 ``reduce_aggregation``): merged group states -> HAVING -> ORDER BY ->
-OFFSET / LIMIT -> rows. A query without GROUP BY reduces to its one row:
+OFFSET / LIMIT -> rows. ``QueryStats.to_dict`` / ``from_dict`` are its
+form on the DataTable wire (``common/datatable.py``); ``lexsort_runs`` and
+``fold_grouped_runs`` are the broker's vectorized group-by merge
+(``broker/reduce.py``). A query without GROUP BY reduces to its one row:
 HAVING and OFFSET do not apply there, as in the JAX package. Selection
 and DISTINCT build their ``ResultTable`` in the host engine
 (``engine/host_engine.py``), with the column types of the selected
@@ -42,11 +45,33 @@ class DataSchema:
     column_names: List[str]
     column_types: List[str]
 
+    def to_dict(self) -> Dict[str, Any]:
+        return {"columnNames": self.column_names,
+                "columnDataTypes": self.column_types}
+
 
 @dataclass
 class ResultTable:
     schema: DataSchema
     rows: List[List[Any]]
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"dataSchema": self.schema.to_dict(), "rows": self.rows}
+
+
+# the port's launch counters and their names on the wire (the JAX stats
+# have none of them; both decoders ignore keys they do not know)
+_WIRE_COUNTERS = (
+    ("scan_launches", "scanLaunches"),
+    ("probe_launches", "probeLaunches"),
+    ("sharded_scan_launches", "shardedScanLaunches"),
+    ("sharded_probe_launches", "shardedProbeLaunches"),
+    ("general_launches", "generalLaunches"),
+    ("topk_launches", "topkLaunches"),
+    ("batch_general_launches", "batchGeneralLaunches"),
+    ("index_launches", "indexLaunches"),
+    ("startree_launches", "startreeLaunches"),
+)
 
 
 @dataclass
@@ -59,6 +84,10 @@ class QueryStats:
     total_docs: int = 0
     # the merged groups were cut to the executor's num_groups_limit
     num_groups_limit_reached: bool = False
+    # scatter accounting, set by the broker after the gather (servers
+    # leave them 0): responded < queried is the partial-result flag
+    num_servers_queried: int = 0
+    num_servers_responded: int = 0
     # fused-scan launches this query made (full scans and probes), per
     # segment and over a whole segment batch
     scan_launches: int = 0
@@ -95,9 +124,18 @@ class QueryStats:
     # (parallel/launcher.py): launches, coalesced, launchesSaved sum at
     # merge; batchSize and queueWaitMs (LAUNCH_MAX_KEYS) take the max
     launch: Dict[str, float] = field(default_factory=dict)
+    # the broker reduce path that produced the final table ('device' |
+    # 'vectorized' | 'oracle'), set once by the broker (servers leave it
+    # None)
+    reduce_path: Optional[str] = None
+    # phase -> ms (SEGMENT_PRUNING on the server), summed at merge
+    phase_ms: Dict[str, float] = field(default_factory=dict)
     # the residency lease the query runs under (ResidencyManager
     # .begin_query), None outside a query or on an uncapped CPU run
     lease: Optional[Any] = field(default=None, repr=False, compare=False)
+
+    def add_phase_ms(self, phase: str, ms: float) -> None:
+        self.phase_ms[phase] = self.phase_ms.get(phase, 0.0) + ms
 
     def record_rung(self, rung: str) -> None:
         self.group_by_rung = (rung if self.group_by_rung in (None, rung)
@@ -111,7 +149,9 @@ class QueryStats:
         keys of ``LAUNCH_MAX_KEYS`` take the max."""
         for name in ("num_segments_queried", "num_segments_processed",
                      "num_segments_matched", "num_segments_pruned",
-                     "num_docs_scanned", "total_docs", "scan_launches",
+                     "num_docs_scanned", "total_docs",
+                     "num_servers_queried", "num_servers_responded",
+                     "scan_launches",
                      "probe_launches", "sharded_scan_launches",
                      "sharded_probe_launches", "general_launches",
                      "topk_launches", "batch_general_launches",
@@ -125,6 +165,10 @@ class QueryStats:
                 else "mixed")
         if other.startree_tree_index is not None:
             self.startree_tree_index = other.startree_tree_index
+        if other.reduce_path is not None:
+            self.reduce_path = other.reduce_path
+        for phase, ms in other.phase_ms.items():
+            self.add_phase_ms(phase, ms)
         for mine, theirs in ((self.rung_segments, other.rung_segments),
                              (self.decisions, other.decisions)):
             for k, v in theirs.items():
@@ -134,6 +178,65 @@ class QueryStats:
                                if k.endswith("Bytes")
                                else self.staging.get(k, 0) + v)
         merge_launch(self.launch, other.launch)
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The wire form: the JAX ``QueryStats.to_dict`` keys (JAX
+        ``results.py:180``), then the port's own counters under their own
+        names where nonzero. The lease never goes on the wire."""
+        counters = {wire: getattr(self, name)
+                    for name, wire in _WIRE_COUNTERS if getattr(self, name)}
+        return {
+            "numSegmentsQueried": self.num_segments_queried,
+            "numSegmentsProcessed": self.num_segments_processed,
+            "numSegmentsMatched": self.num_segments_matched,
+            "numSegmentsPrunedByServer": self.num_segments_pruned,
+            "numDocsScanned": self.num_docs_scanned,
+            "totalDocs": self.total_docs,
+            "numGroupsLimitReached": self.num_groups_limit_reached,
+            **({"numServersQueried": self.num_servers_queried,
+                "numServersResponded": self.num_servers_responded}
+               if self.num_servers_queried else {}),
+            "phaseTimesMs": {k: round(v, 3)
+                             for k, v in self.phase_ms.items()},
+            **({"groupByRung": self.group_by_rung}
+               if self.group_by_rung else {}),
+            **({"startreeTreeIndex": self.startree_tree_index}
+               if self.startree_tree_index is not None else {}),
+            **({"reducePath": self.reduce_path}
+               if self.reduce_path else {}),
+            **({"staging": self.staging} if self.staging else {}),
+            **({"launch": self.launch} if self.launch else {}),
+            **({"decisions": self.decisions} if self.decisions else {}),
+            **counters,
+            **({"rungSegments": self.rung_segments}
+               if self.rung_segments else {}),
+        }
+
+    @classmethod
+    def from_dict(cls, st: Dict[str, Any]) -> "QueryStats":
+        """Decode ``to_dict`` (or the JAX package's form); unknown keys
+        are ignored."""
+        out = cls(
+            num_segments_queried=st.get("numSegmentsQueried", 0),
+            num_segments_processed=st.get("numSegmentsProcessed", 0),
+            num_segments_matched=st.get("numSegmentsMatched", 0),
+            num_segments_pruned=st.get("numSegmentsPrunedByServer", 0),
+            num_docs_scanned=st.get("numDocsScanned", 0),
+            total_docs=st.get("totalDocs", 0),
+            num_groups_limit_reached=st.get("numGroupsLimitReached", False),
+            num_servers_queried=st.get("numServersQueried", 0),
+            num_servers_responded=st.get("numServersResponded", 0),
+            group_by_rung=st.get("groupByRung"),
+            startree_tree_index=st.get("startreeTreeIndex"),
+            reduce_path=st.get("reducePath"),
+            staging=dict(st.get("staging", {})),
+            launch=dict(st.get("launch", {})),
+            phase_ms=dict(st.get("phaseTimesMs", {})),
+            decisions=dict(st.get("decisions", {})),
+            rung_segments=dict(st.get("rungSegments", {})))
+        for name, wire in _WIRE_COUNTERS:
+            setattr(out, name, int(st.get(wire, 0)))
+        return out
 
 
 # launch keys whose merge takes the max (the JAX launcher's
@@ -195,6 +298,65 @@ class GroupByResult:
             return False
         self.groups = dict(list(self.groups.items())[:max_size])
         return True
+
+
+# numeric states whose merge across servers is an elementwise ufunc fold;
+# every other state (tuples, sketches, sets) merges through AggDef.merge
+_VEC_STATE_FOLDS: Dict[str, Any] = {
+    "count": np.add,
+    "sum": np.add,
+    "min": np.minimum,
+    "max": np.maximum,
+}
+
+
+def lexsort_runs(sort_keys: List[np.ndarray]
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """One stable ``np.lexsort`` over the concatenated key columns ->
+    ``(order, starts)``: ``order`` puts equal keys next to each other
+    (ties keep input order, the row oracle's dict-insertion order),
+    ``starts`` marks each run's first sorted position. A NaN key equals
+    nothing, so every NaN row is its own run, as in the oracle's dict."""
+    n = int(len(sort_keys[0])) if sort_keys else 0
+    if n == 0:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    order = np.lexsort(tuple(reversed(sort_keys)))
+    if n == 1:
+        return order, np.zeros(1, np.int64)
+    diff = np.zeros(n - 1, dtype=bool)
+    for k in sort_keys:
+        ks = k[order]
+        diff |= ks[1:] != ks[:-1]
+    starts = np.concatenate(
+        (np.zeros(1, np.int64), np.flatnonzero(diff) + 1))
+    return order, starts
+
+
+def fold_grouped_runs(order: np.ndarray, starts: np.ndarray, n: int,
+                      agg_entries: List[Tuple[str, Any]],
+                      aggs: List[AggDef]) -> List[Any]:
+    """Fold each run's states: -> one folded sequence per aggregation, in
+    run (sorted) order. ``agg_entries[i]`` is ``("vec", array)`` for a
+    numeric state (``aggs[i].base`` in ``_VEC_STATE_FOLDS``: one
+    ``reduceat`` folds every group) or ``("obj", list)``, merged per run
+    through ``AggDef.merge`` in ascending input order (merge-order
+    sensitive sketches stay bit-identical to the oracle)."""
+    out: List[Any] = []
+    ends = np.concatenate((starts[1:], np.asarray([n], dtype=np.int64)))
+    for (tag, data), agg in zip(agg_entries, aggs):
+        if tag == "vec":
+            out.append(_VEC_STATE_FOLDS[agg.base].reduceat(data[order],
+                                                           starts))
+        else:
+            states = []
+            for s, e in zip(starts, ends):
+                run = order[s:e]
+                st = data[int(run[0])]
+                for i in run[1:]:
+                    st = agg.merge(st, data[int(i)])
+                states.append(st)
+            out.append(states)
+    return out
 
 
 def _env_lookup(env: Dict[str, Any], expr: Expr) -> Any:

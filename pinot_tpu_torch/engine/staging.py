@@ -38,7 +38,10 @@ tensor a segment holds, ``demote`` copies them into a
 call with one host-to-device copy instead of a rebuild (JAX
 ``_promote_column`` :237, ``_promote_packed`` :303, ``_promote_startree``
 :475). Builds serialise on a per-segment lock, so concurrent queries
-share one set of device tensors.
+share one set of device tensors. A ``StagedSegment`` built with a
+``borrower`` (the residency manager's ``column_borrower``) first asks it
+for a column's arrays: a resident batch holding the segment may lend them
+from its device copy (JAX :216-229).
 """
 
 from __future__ import annotations
@@ -243,12 +246,16 @@ class StagedSegment:
 
     def __init__(self, segment: ImmutableSegment,
                  device: Union[str, torch.device] = "cuda",
-                 host_image: Optional[SegmentHostImage] = None):
+                 host_image: Optional[SegmentHostImage] = None,
+                 borrower: Optional[Callable] = None):
         self.device = resolve_device(device)
         self.segment = segment
         self.num_docs = segment.num_docs
         self.capacity = segment.padded_capacity
         self._host_image = host_image
+        # ``borrower(segment, name)`` -> a StagedColumn from a resident
+        # batch's device copy, or None
+        self._borrower = borrower
         # reads are lock-free dict gets; builds, promotions and release
         # hold the lock
         self._lock = threading.RLock()
@@ -375,10 +382,13 @@ class StagedSegment:
         with self._lock:
             sc = self._columns.get(name)
             if sc is None:
-                hc = self._promote("columns", name)
-                sc = (StagedColumn(**{k: self._restore(v)
-                                      for k, v in hc.items()})
-                      if hc is not None else self._stage(name))
+                if self._borrower is not None:
+                    sc = self._borrower(self.segment, name)
+                if sc is None:
+                    hc = self._promote("columns", name)
+                    sc = (StagedColumn(**{k: self._restore(v)
+                                          for k, v in hc.items()})
+                          if hc is not None else self._stage(name))
                 self._columns[name] = sc
                 self._bytes += sc.nbytes()
         return sc

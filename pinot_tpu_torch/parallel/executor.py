@@ -52,8 +52,21 @@ over the staged inputs and is the coalescing identity. Every batch launch
 goes through the device's ``LaunchScheduler`` (``parallel/launcher.py``),
 and the query's ``QueryStats.launch`` adds one record a launch. A launch
 that fails raises in every query that rode it: the JAX executor's repair
-from Pallas to jnp (:434-474) is not copied. The column borrower, the
-doc-axis mesh and the merge across cards are not part of this executor.
+from Pallas to jnp (:434-474) is not copied. The doc-axis mesh and the
+merge across cards are not part of this executor.
+
+The column borrower (``_borrow_batch_column``, JAX :813-883): a
+per-segment staging (the general rung, the index rung, the top-k) of a
+segment a resident batch holds reads that batch's jnp-combine column
+instead of uploading its own, where the bytes coincide: the same segment
+object, the batch's capacity equal to the segment's, a single-value
+column, an identity remap into the unified dictionary, and the dtypes the
+segment would stage. The ``dictvals`` tensor is shared; the ``fwd`` and
+``null`` rows are cloned on the device (a view would keep the whole batch
+alive after its eviction, and residency would count the segment's bytes
+wrong). Packed dictIds and value columns are never borrowed: their
+layouts (the unified cardinality's bit width, tile padding) are not the
+segment's.
 """
 
 from __future__ import annotations
@@ -86,9 +99,13 @@ from pinot_tpu_torch.engine.results import (
     AggResult,
     GroupByResult,
     QueryStats,
-    ResultTable,
     merge_launch,
     record_decision,
+)
+from pinot_tpu_torch.engine.staging import (
+    StagedColumn,
+    raw_staged_dtype,
+    staged_int_dtype,
 )
 from pinot_tpu_torch.parallel.batch import (
     BatchHostImage,
@@ -186,6 +203,8 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         self._launch_max_batch = max(1, cfg.get_int(
             CommonConstants.LAUNCH_MAX_BATCH_KEY,
             CommonConstants.DEFAULT_LAUNCH_MAX_BATCH))
+        # per-segment stagings borrow the resident batches' columns
+        self.residency.column_borrower = self._borrow_batch_column
         self.launcher = launcher_for_device(self.device)
         self.launcher.set_window(
             max_ms=cfg.get_float(CommonConstants.LAUNCH_WINDOW_MS_KEY,
@@ -194,18 +213,11 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                 CommonConstants.LAUNCH_WINDOW_HOT_MS_KEY,
                 CommonConstants.DEFAULT_LAUNCH_WINDOW_HOT_MS))
 
-    def execute(self, ctx: QueryContext, segments: List[ImmutableSegment]
-                ) -> Tuple[ResultTable, QueryStats]:
-        scans0 = SHARDED_SCAN_COUNTER.launches
-        probes0 = SHARDED_PROBE_COUNTER.launches
-        general0 = BATCH_GENERAL_COUNTER.launches
-        table, stats = super().execute(ctx, segments)
-        stats.sharded_scan_launches = SHARDED_SCAN_COUNTER.launches - scans0
-        stats.sharded_probe_launches = (SHARDED_PROBE_COUNTER.launches
-                                        - probes0)
-        stats.batch_general_launches = (BATCH_GENERAL_COUNTER.launches
-                                        - general0)
-        return table, stats
+    def _counters(self) -> Tuple:
+        return super()._counters() + (
+            ("sharded_scan_launches", SHARDED_SCAN_COUNTER),
+            ("sharded_probe_launches", SHARDED_PROBE_COUNTER),
+            ("batch_general_launches", BATCH_GENERAL_COUNTER))
 
     # -- combine overrides --------------------------------------------------
     def _execute_aggregation(self, ctx: QueryContext, aggs: List[AggDef],
@@ -363,7 +375,56 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             self._evict_batch(b)
         super().evict_segment(segment_name)
 
-    # -- the batch path ---------------------------------------------------------
+    def _borrow_batch_column(self, segment: ImmutableSegment, name: str
+                             ) -> Optional[StagedColumn]:
+        """The general rung's arrays of ``segment``'s column ``name`` from
+        a resident batch's device copy, or None where no batch holds the
+        same bytes (see the module docstring)."""
+        with self._batches_lock:
+            held = [(k, b, st) for k, (b, st) in self._batches.items()
+                    if segment.segment_name in k]
+        cm = segment.metadata.columns.get(name)
+        if cm is None or not cm.single_value:
+            return None
+        if cm.has_dictionary:
+            want = np.dtype(np.int32)
+        else:
+            want = raw_staged_dtype(cm)
+        dv_want = (None if not (cm.has_dictionary and cm.data_type.is_numeric)
+                   else staged_int_dtype(cm) if cm.data_type.is_integral
+                   else np.dtype(np.float32))
+        for key, batch, staged in held:
+            i = key.index(segment.segment_name)
+            if batch.segments[i] is not segment:
+                continue    # a reloaded segment: the batch's copy is stale
+            if batch.capacity != segment.padded_capacity:
+                continue    # the row would have the wrong length
+            sc = staged._columns.get(name)
+            if sc is None or sc.fwd is None:
+                continue
+            if cm.has_dictionary:
+                r = batch._remaps.get(name)
+                r = None if r is None else r[i]
+                if (r is None or len(r) != cm.cardinality
+                        or not np.array_equal(
+                            r, np.arange(cm.cardinality, dtype=r.dtype))):
+                    continue    # unified dictIds differ from the segment's
+            if _np_dtype(sc.fwd) != want:
+                continue
+            if dv_want is not None and (sc.dictvals is None
+                                        or _np_dtype(sc.dictvals) != dv_want):
+                continue
+            if cm.has_nulls and sc.null is None:
+                continue
+            out = StagedColumn(
+                fwd=sc.fwd[i].clone(),
+                dictvals=sc.dictvals if dv_want is not None else None,
+                null=sc.null[i].clone() if cm.has_nulls else None)
+            self.residency.note_borrow(batch.segment_name)
+            return out
+        return None
+
+    # -- the batch path -----------------------------------------------------
     def _run_sharded(self, ctx: QueryContext,
                      segments: List[ImmutableSegment], stats: QueryStats
                      ) -> Optional[Tuple[SegmentBatch, Dict, object]]:
@@ -568,6 +629,10 @@ class _BatchResident:
         image = self.staged.demote()
         self.executor._evict_batch(self.batch)
         return image if image.nbytes() > 0 else None
+
+
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
 
 
 def scan_counters() -> Dict[str, fused_scan.KernelCounter]:

@@ -1,7 +1,8 @@
 """Layered key/value configuration, cut down to the keys the port reads.
 
 Counterpart of ``pinot_tpu/spi/config.py`` (``PinotConfiguration``, the
-residency and launch keys of ``CommonConstants`` at :158-217): explicit
+residency, launch, worker-pool, admission and broker-reduce keys of
+``CommonConstants`` at :144-153 and :158-232): explicit
 overrides win over ``PINOT_``-prefixed environment variables
 (``PINOT_SERVER_PORT`` -> ``pinot.server.port``), and keys match relaxed
 (case-insensitive, ``-`` / ``_`` / ``.`` -insensitive).
@@ -48,6 +49,36 @@ class CommonConstants:
     DEFAULT_LAUNCH_WINDOW_MS = 1.0
     LAUNCH_WINDOW_HOT_MS_KEY = "pinot.server.query.launch.window.hot.ms"
     DEFAULT_LAUNCH_WINDOW_HOT_MS = 2.0
+    # segment fan-out width inside one query (engine/executor.py
+    # _map_segments, the reference's pqw pool). The JAX package's default
+    # is min(cpu count, 8); the port's is 1, since its per-segment work is
+    # host Python under the GIL and 8 threads ran the flights 1.2-4.2x slower
+    # than 1 on an H100 (chip_smoke.py phase 15e, PERF.md)
+    WORKER_THREADS_KEY = "pinot.server.query.worker.threads"
+    DEFAULT_WORKER_THREADS = 1
+    # admission gate (server/admission.py): executing-query slots, waiters
+    # behind them and the wait bound. 0 = auto (slots from the cpu count,
+    # queue 8x the slots); max.concurrent < 0 disables the gate; a waiter
+    # past the wait bound, or an arrival at a full queue, is rejected with
+    # a typed retriable QueryRejectedError
+    ADMISSION_MAX_CONCURRENT_KEY = \
+        "pinot.server.query.admission.max.concurrent"
+    DEFAULT_ADMISSION_MAX_CONCURRENT = 0
+    ADMISSION_MAX_QUEUE_KEY = "pinot.server.query.admission.max.queue"
+    DEFAULT_ADMISSION_MAX_QUEUE = 0
+    ADMISSION_MAX_WAIT_MS_KEY = "pinot.server.query.admission.max.wait.ms"
+    DEFAULT_ADMISSION_MAX_WAIT_MS = 10_000.0
+    # the broker's group-by merge on the card (parallel/reduce_device.py):
+    # off by default, on per service (device_reduce=True) or per query
+    # (OPTION(deviceReduce=true))
+    BROKER_DEVICE_REDUCE_KEY = "pinot.broker.reduce.device.enabled"
+    DEFAULT_BROKER_DEVICE_REDUCE = False
+    # composite key spaces up to this many slots merge by a direct scatter
+    # (the dense rung); larger ones take the sort rung
+    DEFAULT_DEVICE_REDUCE_DENSE_SLOTS = 1 << 21
+    # rows of the concatenated merge input past which the device merge
+    # declines rather than commit unbounded device memory
+    DEFAULT_DEVICE_REDUCE_MAX_ROWS = 1 << 22
 
 
 class PinotConfiguration:

@@ -64,7 +64,13 @@ def test_executor_import_leaves_jax_unloaded():
             "pinot_tpu_torch.engine.mutable_staging, "
             "pinot_tpu_torch.ingestion, pinot_tpu_torch.ingestion.stream, "
             "pinot_tpu_torch.ingestion.transformers, "
-            "pinot_tpu_torch.ingestion.realtime; "
+            "pinot_tpu_torch.ingestion.realtime, "
+            "pinot_tpu_torch.server.admission, "
+            "pinot_tpu_torch.server.scheduler, "
+            "pinot_tpu_torch.common.datatable, "
+            "pinot_tpu_torch.common.bounds, "
+            "pinot_tpu_torch.broker.reduce, "
+            "pinot_tpu_torch.parallel.reduce_device; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinot_tpu', 'triton')]; "
             "from pinot_tpu_torch.engine import _build, kernels; "

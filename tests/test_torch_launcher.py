@@ -541,7 +541,11 @@ def test_concurrency_hammer_rows_equal_the_jax_executor(setup):
             start.wait(30)
             for it in range(ITERS):
                 qi = (tid + it) % len(ctxs)
-                rt, stats = dev.execute(ctxs[qi], tsegs)
+                # a context compiled per call: identical calls on one
+                # compiled context would share one run (the executor's
+                # query single-flight), and this counts launch requests
+                rt, stats = dev.execute(t_compile(HAMMER_QUERIES[qi]),
+                                        tsegs)
                 _assert_rows(rt.rows, want[qi])
                 assert stats.staging["spills"] == 0
                 if stats.launch.get("batchSize", 0) > 1:
@@ -588,7 +592,9 @@ def test_flight_shares_identical_per_segment_launches(setup):
 
         def run():
             try:
-                outs.append(dev.execute(ctx, tsegs[:1])[0].rows)
+                # a context compiled per call: one compiled context would
+                # share the whole run (the query flight) before the launch
+                outs.append(dev.execute(t_compile(sql), tsegs[:1])[0].rows)
             except BaseException as e:  # noqa: BLE001
                 errors.append(e)
 
