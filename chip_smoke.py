@@ -160,7 +160,25 @@ Phases:
      flights per segment at worker.threads 1 and 8, p50s, equal rows;
      (15f) a one-segment query after a batch query borrows the batch's
      columns, stagedBytes with and without the borrow, equal rows;
- 14. (after 15) a realtime user-events table: 2.5 M rows
+ 16. (after 15, before 14) the front door: an EmbeddedCluster
+     (pinot_tpu_torch/tools/cluster.py: the controller, 4 servers with
+     their SEWF schedulers and a residency budget of 0.75 of the card
+     over 4 each, routing, the broker request handler with the device
+     merge) over phase 4's segments pushed through memory:// at
+     replication 2, push to queryable and each server's stagedBytes
+     logged: (16a) the 13 flights through cluster.query ``--reps``
+     times, clean and full, == phase 4's rows == oracle, reducePath
+     device on every group-by, the fused-scan launches of phase 4's kept
+     segments; p50 / p99 beside phase 4's, the broker phases' p50, the
+     servers asked (1 for the time-pruned Q1.2 and Q3.4); (16c) C1-C8
+     from 1 and 8 client threads at 8 and at 1 SEWF runner threads (QPS,
+     p50, p99), then 8 threads sending Q2.1 coalesced by the broker's
+     single flight; (16d) 20 queries at a 5-a-second quota, the 429s
+     counted; (16e) the IN_SUBQUERY semijoin == numpy with the JAX
+     cluster's decisions, EXPLAIN PLAN FOR Q2.1 with no launch; (16b,
+     last) one server stopped, every flight answered in full by the
+     replicas;
+ 14. (after 16) a realtime user-events table: 2.5 M rows
      as JSON messages on a one-partition MemoryStream consumed by
      RealtimeSegmentDataManager into a consuming segment on the card
      (``engine/mutable_staging.py``): (14a) at 700, 1000 and 5000 rows and
@@ -186,8 +204,8 @@ segments on the per-segment path (``index_missing_index`` and the other
 JAX codes), which every phase asserts beside its other decisions.
 Then a "rungs" line of the segments each rung served and the declines and
 paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
-kernel alone, "launches" those of phases 4, 6, 8 and 9, and of 13b for
-the query axis; the top-k, the jnp combine and the index gather are
+kernel alone, "launches" those of phases 4, 6, 8, 9, 14c and 16, and of
+13b for the query axis; the top-k, the jnp combine and the index gather are
 PyTorch ops, not hand kernels).
 Phases 4, 6, 7, 9, 10 and 11 assert launches
 per query from the segments the pruner keeps, once those
@@ -4244,6 +4262,382 @@ def phase_scatter(main: dict, users: dict, reps: int,
     return out
 
 
+# -- phase 16: the front door on one card --------------------------------------
+
+# 16: in-process servers of the embedded cluster, each hosting about
+# replication / FRONT_SERVERS of phase 4's segments, with a residency budget
+# of its share of 0.75 of the card
+FRONT_SERVERS = 4
+FRONT_REPLICATION = 2
+FRONT_TABLE = "ssb_lineorder_OFFLINE"
+# 16c: passes of C1-C8 the clients send at each setting: 256 queries, some
+# 7 s at the 35-45 QPS of the card's host, so that each setting's QPS and
+# p99 rest on hundreds of answers
+FRONT_ROUNDS = 32
+# 16d: the quota table's queries a second, and the queries sent
+QUOTA_QPS = 5
+QUOTA_QUERIES = 20
+# 16e: tests/test_cluster.py:235's semijoin tables (100 users, 2000 events)
+SEMIJOIN_USERS = 100
+SEMIJOIN_EVENTS = 2000
+SEMIJOIN_SQL = ("SELECT sum(amount) FROM events2 WHERE "
+                "inSubquery(uid, 'SELECT idset(uid) FROM users2 "
+                "WHERE vip = ''y''') = 1")
+# the JAX cluster's decisions for SEMIJOIN_SQL (held to it in
+# tests/test_torch_cluster.py): the rewritten filter's left side is a
+# function, so the plan sends it to the host engine
+SEMIJOIN_DECISIONS = {
+    "index:index_gather->scan:index_filter_shape": 1,
+    "plan:device_kernel->host_engine:expression_predicate": 1,
+    "hybrid:time_split->direct:hybrid_single_table": 1,
+}
+BROKER_PHASES = ("COMPILATION", "ROUTING", "SCATTER_GATHER", "REDUCE")
+
+
+def _front_cluster(segs, device: str, servers: int):
+    """An EmbeddedCluster with ``servers`` servers, each built as
+    ``add_server`` builds one but with ``pinot.server.query.hbm.budget
+    .bytes`` at 0.75 of the card over the servers; phase 4's segments
+    pushed through ``memory://``. -> (cluster, push to queryable s, each
+    server's stagedBytes)."""
+    import torch
+
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.server.server import ServerInstance
+    from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
+    from pinot_tpu_torch.spi.table import SegmentsValidationConfig, TableConfig
+    from pinot_tpu_torch.tools.cluster import EmbeddedCluster
+
+    cluster = EmbeddedCluster(num_servers=0, device=device,
+                              device_reduce=True)
+    cfg = None
+    if device == "cuda":
+        card = torch.cuda.get_device_properties(0).total_memory
+        cfg = PinotConfiguration({CommonConstants.HBM_BUDGET_BYTES_KEY:
+                                  int(0.75 * card / servers)})
+    for i in range(servers):
+        sid = f"server_{i}"
+        srv = ServerInstance(sid, cluster.store,
+                             cluster.controller.deep_store, config=cfg,
+                             executor=ServerQueryExecutor(device=device,
+                                                          config=cfg))
+        srv.start()
+        cluster.servers[sid] = srv
+        cluster.broker.register_server(sid, srv)
+    cluster.create_table(TableConfig(
+        FRONT_TABLE, validation_config=SegmentsValidationConfig(
+            time_column_name="d_yearmonthnum",
+            replication=FRONT_REPLICATION)), segs[0].metadata.schema)
+    t0 = time.perf_counter()
+    for seg in segs:
+        cluster.upload_segment(FRONT_TABLE, seg)
+    if not cluster.wait_for_ev_converged(FRONT_TABLE, timeout_s=300):
+        raise AssertionError("16: the ExternalView did not converge")
+    for srv in cluster.servers.values():
+        srv.executor.residency.drain_prefetch()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    push_s = time.perf_counter() - t0
+    staged = {sid: s.executor.residency.staged_bytes()
+              for sid, s in cluster.servers.items()}
+    if not all(staged.values()):
+        raise AssertionError(f"16: a server staged nothing: {staged}")
+    return cluster, push_s, staged
+
+
+def _front_check(what: str, resp, want, phase4=None,
+                 device_path: bool = False) -> None:
+    """A clean, full answer equal to the oracle (and to phase 4's rows);
+    ``device_path``: a group-by with groups merged on the device route."""
+    if resp.exceptions or resp.result_table is None \
+            or resp.num_servers_responded != resp.num_servers_queried:
+        raise AssertionError(f"{what}: {resp.exceptions}, "
+                             f"{resp.num_servers_responded} of "
+                             f"{resp.num_servers_queried} servers")
+    _check_flight(what, resp.result_table, want)
+    if phase4 is not None:
+        _identical_rows(what, resp.result_table.rows, phase4)
+    if device_path and resp.stats.reduce_path != "device":
+        raise AssertionError(f"{what}: reducePath {resp.stats.reduce_path}, "
+                             f"{resp.stats.decisions}")
+
+
+def _clients(cluster, sqls: dict, wants: dict, clients: int,
+             rounds: int) -> dict:
+    """``clients`` threads released together, client i sending C(i+1),
+    C(i+2), ... ``rounds`` passes over the ``sqls`` between them; every
+    answer checked. -> QPS and latency p50 / p99."""
+    ids = sorted(sqls)
+    lat = []
+
+    def client(i: int) -> None:
+        for k in range(rounds * len(ids) // clients):
+            qid = ids[(i + k) % len(ids)]
+            t0 = time.perf_counter()
+            resp = cluster.query(sqls[qid])
+            lat.append((time.perf_counter() - t0) * 1e3)
+            _front_check(f"16c {qid}", resp, wants[qid])
+
+    t0 = time.perf_counter()
+    errors = _threads(clients, client)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"16c: {errors[:3]}")
+    return {"queries": len(lat), "qps": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def _semijoin_tables(cluster, seed: int) -> dict:
+    """users2 / events2 of tests/test_cluster.py:235 and a copy of events2
+    under a quota of ``QUOTA_QPS``; -> the numpy answers."""
+    from pinot_tpu_torch.spi import DataType, FieldSpec, FieldType, Schema
+    from pinot_tpu_torch.spi.table import QuotaConfig, TableConfig
+
+    rng = np.random.default_rng(seed)
+    users = {"uid": np.arange(SEMIJOIN_USERS, dtype=np.int64),
+             "vip": np.array(["y" if i % 10 == 0 else "n"
+                              for i in range(SEMIJOIN_USERS)])}
+    events = {"uid": rng.integers(0, SEMIJOIN_USERS, SEMIJOIN_EVENTS),
+              "amount": rng.integers(1, 50, SEMIJOIN_EVENTS)}
+    user_schema = Schema("users2", [FieldSpec("uid", DataType.LONG),
+                                    FieldSpec("vip", DataType.STRING)])
+    for name, quota in (("events2", None), ("events_quota", QUOTA_QPS)):
+        schema = Schema(name, [FieldSpec("uid", DataType.LONG),
+                               FieldSpec("amount", DataType.LONG,
+                                         FieldType.METRIC)])
+        cluster.create_table(TableConfig(name, quota_config=QuotaConfig(
+            max_queries_per_second=quota)), schema)
+        cluster.ingest_rows(f"{name}_OFFLINE", schema, events, f"{name}_0")
+    cluster.create_table(TableConfig("users2"), user_schema)
+    cluster.ingest_rows("users2_OFFLINE", user_schema, users, "users2_0")
+    for t in ("users2_OFFLINE", "events2_OFFLINE", "events_quota_OFFLINE"):
+        if not cluster.wait_for_ev_converged(t, timeout_s=60):
+            raise AssertionError(f"16: {t} did not converge")
+    vip = users["uid"][users["vip"] == "y"]
+    return {"sum": float(events["amount"].sum()),
+            "semijoin": float(events["amount"][
+                np.isin(events["uid"], vip)].sum())}
+
+
+def phase_front_door(main: dict, reps: int, device: str = "cuda",
+                     servers: int = FRONT_SERVERS,
+                     rounds: int = FRONT_ROUNDS, seed: int = 7) -> dict:
+    """Phase 16: the user's entry point on the card. An ``EmbeddedCluster``
+    (``pinot_tpu_torch/tools/cluster.py``: controller, ``servers``
+    servers with their SEWF schedulers and residency, routing, the broker
+    request handler with the device merge) over phase 4's segments pushed
+    through ``memory://`` at replication 2.
+
+    (16a) the 13 flights through ``cluster.query(sql)`` ``reps`` times:
+    every response clean and full, rows == phase 4's == the oracle,
+    reducePath "device" on every group-by with groups, the fused-scan
+    launches those of phase 4's kept segments; p50 / p99 and the broker
+    phases' p50 per flight, the servers asked (the time-pruned Q1.2 and
+    Q3.4: one). (16c) 8 and 1 client threads sending C1-C8, at the
+    default 8 SEWF runner threads and at 1: QPS, p50, p99; then 8 threads
+    sending one Q2.1 until the broker's single flight coalesces a call,
+    rows identical. (16d) 20 queries back to back at a table whose quota
+    is 5 a second: 429s counted, admitted answers == numpy. (16e) the
+    IN_SUBQUERY semijoin == numpy with the JAX cluster's decisions;
+    EXPLAIN PLAN FOR Q2.1: the explain columns, no server asked, no
+    launch. (16b, last) one server stopped: routing avoids it and every
+    flight is answered in full by the replicas, == oracle."""
+    import torch
+
+    from pinot_tpu_torch.parallel.executor import rung_counters, scan_counters
+    from pinot_tpu_torch.server.scheduler import make_scheduler
+    from pinot_tpu_torch.spi.metrics import BrokerMeter
+    from pinot_tpu_torch.tools import ssb
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    segs, ctxs, wants = main["segs"], main["ctxs"], main["wants"]
+    results, kept = main["results"], main["kept"]
+    sqls = {qid: ctx.sql for qid, ctx in ctxs.items()}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out: dict = {"servers": servers, "replication": FRONT_REPLICATION}
+    cluster, push_s, staged = _front_cluster(segs, device, servers)
+    out.update(push_to_queryable_s=push_s, staged_bytes=staged)
+    log(f"  push to queryable: {len(segs)} segments x {FRONT_REPLICATION} "
+        f"replicas on {servers} servers in {push_s:.2f} s, stagedBytes "
+        + json.dumps(staged))
+
+    def grouped(qid, resp):
+        return ctxs[qid].is_group_by and bool(resp.result_table.rows)
+
+    # 16a
+    t0 = time.perf_counter()
+    # two untimed passes: the balanced selector alternates between the
+    # replicas of a segment with the request id, and 13 flights a pass
+    # turn its parity, so each replica plans its flights once
+    for _ in range(2):
+        for qid, sql in sqls.items():
+            _front_check(f"16a {qid}", cluster.query(sql), wants[qid])
+    counters = scan_counters()
+    _reset(counters)
+    lat = {qid: [] for qid in sqls}
+    phases = {qid: {p: [] for p in BROKER_PHASES} for qid in sqls}
+    queried = {}
+    for _ in range(reps):
+        for qid, sql in sqls.items():
+            t1 = time.perf_counter()
+            resp = cluster.query(sql)
+            sync()
+            lat[qid].append((time.perf_counter() - t1) * 1e3)
+            _front_check(f"16a {qid}", resp, wants[qid],
+                         results[qid].rows, grouped(qid, resp))
+            for p in BROKER_PHASES:
+                phases[qid][p].append(resp.phase_times_ms.get(p, 0.0))
+            queried[qid] = resp.num_servers_queried
+    launches = {name: c.launches for name, c in counters.items()}
+    expect = {"fused_scan": sum(kept.values()) * reps,
+              "fused_scan_probe": (kept["Q3.2"] + kept["Q4.3"]) * reps,
+              "sharded_fused_scan": 0, "sharded_fused_scan_probe": 0}
+    if device != "cuda":    # the plain version counts no launch
+        expect = {k: 0 for k in expect}
+    if launches != expect:
+        raise AssertionError(f"16a: launches {launches} != {expect}")
+    if queried["Q1.2"] != 1 or queried["Q3.4"] != 1:
+        raise AssertionError(f"16a: the time-pruned flights asked "
+                             f"{queried['Q1.2']} / {queried['Q3.4']} servers")
+    flights = {}
+    for qid in sqls:
+        flights[qid] = {
+            "p50_ms": float(np.percentile(lat[qid], 50)),
+            "p99_ms": float(np.percentile(lat[qid], 99)),
+            "phase4_p50_ms": main["per_flight"][qid]["p50_ms"],
+            "servers_queried": queried[qid],
+            "broker_p50_ms": {p: float(np.percentile(v, 50))
+                              for p, v in phases[qid].items()}}
+        f = flights[qid]
+        log(f"  16a {qid}: p50 {f['p50_ms']:.3f} ms  p99 {f['p99_ms']:.3f} "
+            f"ms (phase 4: {f['phase4_p50_ms']:.3f}), {queried[qid]} "
+            "servers, broker p50 " + ", ".join(
+                f"{p} {v:.3f}" for p, v in f["broker_p50_ms"].items()))
+    out["flights"] = flights
+    out["launches"] = launches
+    log(f"  16a: 13 flights x {reps} through cluster.query == phase 4 == "
+        f"oracle, clean and full, device reduce on every group-by; "
+        f"launches {launches} ({time.perf_counter() - t0:.1f} s)")
+
+    # 16c
+    t0 = time.perf_counter()
+    variants = {c: main["variant_texts"][c] for c in ssb.COALESCE_QUERIES}
+    vwants = {c: main["variant_wants"][c] for c in variants}
+    for shift in range(2):      # untimed, on both replicas (as in 16a)
+        if shift:   # one more routed query turns the request-id parity
+            cluster.query("SELECT count(*) FROM ssb_lineorder")
+        for cid, sql in variants.items():
+            _front_check(f"16c {cid}", cluster.query(sql), vwants[cid])
+    conc = {}
+    for runners in (8, 1):
+        if runners != 8:
+            for srv in cluster.servers.values():
+                old, srv.scheduler = srv.scheduler, make_scheduler(
+                    "sewf", num_workers=runners)
+                old.shutdown()
+        for clients in (1, 8):
+            r = _clients(cluster, variants, vwants, clients, rounds)
+            conc[f"runners{runners}_clients{clients}"] = r
+            log(f"  16c {runners} runner threads, {clients} clients: "
+                f"{r['queries']} queries, QPS {r['qps']:.1f}, p50 "
+                f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms")
+    for srv in cluster.servers.values():    # back to the defaults
+        old, srv.scheduler = srv.scheduler, make_scheduler("sewf")
+        old.shutdown()
+    meter = cluster.broker.metrics.meter(BrokerMeter.QUERIES_COALESCED)
+    qid = "Q2.1"
+    for rnd in range(5):
+        c0 = meter.count
+        got = []
+        errors = _threads(8, lambda i: got.append(cluster.query(sqls[qid])))
+        if errors:
+            raise AssertionError(f"16c: {errors[:3]}")
+        for resp in got:
+            _front_check(f"16c {qid}", resp, wants[qid], results[qid].rows)
+        if meter.count > c0:
+            break
+    if meter.count <= c0:
+        raise AssertionError("16c: the broker coalesced no identical call")
+    conc["single_flight"] = {"calls": 8, "coalesced": meter.count - c0,
+                             "rounds": rnd + 1}
+    out["concurrency"] = conc
+    log(f"  16c: 8 identical {qid} calls, {meter.count - c0} coalesced by "
+        f"the broker (round {rnd + 1}); ({time.perf_counter() - t0:.1f} s)")
+
+    # 16d, 16e
+    t0 = time.perf_counter()
+    answers = _semijoin_tables(cluster, seed)
+    codes = []
+    for _ in range(QUOTA_QUERIES):
+        resp = cluster.query("SELECT sum(amount) FROM events_quota")
+        if resp.exceptions:
+            codes.append(resp.exceptions[0]["errorCode"])
+        elif resp.result_table.rows != [[answers["sum"]]]:
+            raise AssertionError(f"16d: {resp.result_table.rows} != "
+                                 f"{answers['sum']}")
+    if not codes or set(codes) != {429}:
+        raise AssertionError(f"16d: rejections {codes}")
+    out["quota"] = {"sent": QUOTA_QUERIES, "rejected_429": len(codes),
+                    "admitted": QUOTA_QUERIES - len(codes),
+                    "qps_quota": QUOTA_QPS}
+    log(f"  16d: {QUOTA_QUERIES} queries at a {QUOTA_QPS}/s quota: "
+        f"{len(codes)} rejected with 429, {QUOTA_QUERIES - len(codes)} "
+        "admitted == numpy")
+    resp = cluster.query(SEMIJOIN_SQL)
+    if resp.exceptions or resp.num_servers_responded != 1 \
+            or resp.result_table.rows != [[answers["semijoin"]]] \
+            or resp.stats.decisions != SEMIJOIN_DECISIONS:
+        raise AssertionError(f"16e: {resp.exceptions}, "
+                             f"{resp.result_table and resp.result_table.rows}"
+                             f" != {answers['semijoin']}, "
+                             f"{resp.stats.decisions}")
+    every = {**scan_counters(), **rung_counters()}
+    _reset(every)
+    resp = cluster.query("EXPLAIN PLAN FOR " + sqls["Q2.1"])
+    spent = {n: c.launches for n, c in every.items() if c.launches}
+    if resp.exceptions or resp.num_servers_queried or spent \
+            or resp.result_table.schema.column_names != [
+                "Operator", "Operator_Id", "Parent_Id"]:
+        raise AssertionError(f"16e: EXPLAIN {resp.exceptions}, "
+                             f"{resp.num_servers_queried} servers, {spent}")
+    out["semijoin"] = {"answer": answers["semijoin"],
+                       "decisions": SEMIJOIN_DECISIONS}
+    out["explain_rows"] = resp.result_table.rows
+    log(f"  16e: the semijoin == numpy ({answers['semijoin']}) with the JAX "
+        f"cluster's decisions; EXPLAIN of Q2.1: {len(resp.result_table.rows)}"
+        f" operator rows, no server, no launch "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 16b
+    t0 = time.perf_counter()
+    victim = sorted(cluster.servers)[1]
+    cluster.stop_server(victim)
+    route = cluster.broker.routing.route(FRONT_TABLE)
+    if victim in route.routing or route.unavailable:
+        raise AssertionError(f"16b: routing still sends to {victim}, "
+                             f"unavailable {route.unavailable}")
+    lost = {}
+    for qid, sql in sqls.items():
+        resp = cluster.query(sql)
+        _front_check(f"16b {qid}", resp, wants[qid], results[qid].rows)
+        lost[qid] = resp.num_servers_queried
+    out["server_lost"] = {"stopped": victim, "servers_queried": lost}
+    log(f"  16b: {victim} stopped: every flight == oracle, in full from the "
+        f"replicas ({time.perf_counter() - t0:.1f} s)")
+
+    if device == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"  16: torch.cuda.max_memory_allocated "
+            f"{out['max_memory_allocated']} bytes")
+    cluster.shutdown()
+    return out
+
+
 # phase 12's default SSB scale: its tree build and queries within about
 # 150 s on the card's host (PERF.md section 4)
 STARTREE_SF = 2
@@ -4394,6 +4788,14 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 16 (before 14): the front door on one card, an "
+        f"EmbeddedCluster of {FRONT_SERVERS} servers over phase 4's "
+        f"segments at replication {FRONT_REPLICATION}")
+    t0 = time.perf_counter()
+    front_run = phase_front_door(main_run, args.reps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
     realtime_run = _phase_14(args)
     timing += realtime_run.pop("timing")
     for k, v in realtime_run["errs"].items():
@@ -4406,7 +4808,8 @@ def _phases_2_to_11(args, smi: str) -> tuple:
                 users_run["launches"], users_run["batch_launches"],
                 sql_run["launches"]["per_segment"],
                 sql_run["launches"]["batch"], time_run["launches"],
-                text_run["launches"], realtime_run["launches"]):
+                text_run["launches"], realtime_run["launches"],
+                front_run["launches"]):
         for k in launches:
             launches[k] += got.get(k, 0)
     idle = [k for k, n in launches.items() if n == 0]
@@ -4463,7 +4866,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "host": host_run, "combine": combine_run,
               "index": index_run, "budget": budget_run,
               "coalesce": coalesce_run, "realtime": realtime_run,
-              "scatter": scatter_run}
+              "scatter": scatter_run, "front_door": front_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]

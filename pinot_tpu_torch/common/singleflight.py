@@ -61,3 +61,8 @@ class SingleFlight:
             self._flights.pop(key, None)
         fut.set_result(result)
         return result, False
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return {"leaders": self.leaders, "hits": self.hits,
+                    "inflight": len(self._flights)}

@@ -38,8 +38,11 @@ against a budget:
   the lending batch warm, and a segment a resident batch holds ranks as
   ``COST_BORROWED_BUILD`` in the eviction cost.
 
-The JAX manager's metrics registry and its data-manager hooks are not
-part of this module.
+- **Metrics**: ``bind_metrics`` (JAX :1120-1171) adds the byte gauges
+  of both tiers to a server's registry and marks the ``STAGING_*``
+  meters at every hit, miss, eviction, spill, borrow, demotion,
+  promotion and sliced query; the data-manager hooks that prefetch and
+  evict are the server's (``server/server.py``).
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from pinot_tpu_torch.engine.staging import (
 )
 from pinot_tpu_torch.segment.mutable import is_mutable
 from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
+from pinot_tpu_torch.spi.metrics import ServerMeter
 
 log = logging.getLogger(__name__)
 
@@ -293,6 +297,7 @@ class ResidencyManager:
         self.demoted_bytes = 0
         self.promoted_bytes = 0
         self.host_dropped_bytes = 0
+        self._metrics = None
         cfg = config if config is not None else PinotConfiguration()
         self._host_on = cfg.get_bool(CommonConstants.HOSTRAM_ENABLED_KEY,
                                      True)
@@ -377,6 +382,7 @@ class ResidencyManager:
             self._entries.move_to_end(name)
             e.touch = self._next_touch_locked()
             self.hits += 1
+            self._mark("STAGING_HITS")
             if lease is not None:
                 lease.hits += 1
         else:
@@ -390,6 +396,7 @@ class ResidencyManager:
             e.touch = self._next_touch_locked()
             self._entries[name] = e
             self.misses += 1
+            self._mark("STAGING_MISSES")
             if lease is not None:
                 lease.misses += 1
         self._pin_locked(name, e, lease)
@@ -408,6 +415,7 @@ class ResidencyManager:
                 self._entries.move_to_end(name)
                 e.touch = self._next_touch_locked()
                 self.hits += 1
+                self._mark("STAGING_HITS")
                 if lease is not None:
                     lease.hits += 1
             else:
@@ -418,6 +426,7 @@ class ResidencyManager:
                 e.touch = self._next_touch_locked()
                 self._entries[name] = e
                 self.misses += 1
+                self._mark("STAGING_MISSES")
                 if lease is not None:
                     lease.misses += 1
             self._pin_locked(name, e, lease)
@@ -453,6 +462,7 @@ class ResidencyManager:
             e = self._entries.pop(name, None)
             if e is not None:
                 self.evictions += 1
+                self._mark("STAGING_EVICTIONS")
                 self._refresh_locked()
             dropped = self._drop_host_locked(name)
         if e is not None:
@@ -469,6 +479,7 @@ class ResidencyManager:
                 del self._host_entries[name]
                 self._release_host_locked(he)
                 self.host_drops += 1
+                self._mark("STAGING_HOST_DROPS")
                 self.host_dropped_bytes += he.nbytes
                 dropped.append(he.resident)
         return dropped
@@ -482,6 +493,7 @@ class ResidencyManager:
                 return False
             del self._entries[name]
             self.evictions += 1
+            self._mark("STAGING_EVICTIONS")
             self._refresh_locked()
         self._demote_or_release_all([(name, e.resident)])
         return True
@@ -492,6 +504,7 @@ class ResidencyManager:
         borrowers read stays warm."""
         with self._lock:
             self.borrows += 1
+            self._mark("STAGING_BORROWS")
             e = self._entries.get(batch_name)
             if e is not None:
                 self._entries.move_to_end(batch_name)
@@ -549,6 +562,7 @@ class ResidencyManager:
         self._host_bytes += e.nbytes
         self._host_peak_bytes = max(self._host_peak_bytes, self._host_bytes)
         self.demotions += 1
+        self._mark("STAGING_DEMOTIONS")
         self.demoted_bytes += e.nbytes
         for img in self._enforce_host_locked():
             img.release()
@@ -568,6 +582,7 @@ class ResidencyManager:
             _name, e = self._host_entries.popitem(last=False)
             self._release_host_locked(e)
             self.host_drops += 1
+            self._mark("STAGING_HOST_DROPS")
             self.host_dropped_bytes += e.nbytes
             dropped.append(e.resident)
         return dropped
@@ -584,10 +599,12 @@ class ResidencyManager:
         image = he.resident
         if not image.matches(target):
             self.host_drops += 1
+            self._mark("STAGING_HOST_DROPS")
             self.host_dropped_bytes += he.nbytes
             image.release()
             return None
         self.promotions += 1
+        self._mark("STAGING_PROMOTIONS")
         self.promoted_bytes += he.nbytes
         if lease is not None:
             lease.promotions += 1
@@ -621,12 +638,14 @@ class ResidencyManager:
             if sliceable and self._slicing_on \
                     and max_single + other_pinned <= budget:
                 self.sliced_queries += 1
+                self._mark("STAGING_SLICED")
                 lease = QueryLease(device_allowed=True)
                 lease.sliced = True
                 lease.admit_reason = "working_set_over_budget_sliceable"
                 lease._est = ests
                 return lease
             self.spills += 1
+            self._mark("STAGING_SPILLS")
             lease = QueryLease(device_allowed=False)
             lease.admit_reason = (
                 "single_segment_over_budget"
@@ -826,6 +845,7 @@ class ResidencyManager:
             if e.pins > 0:
                 # an in-flight query reads these arrays
                 self.pin_blocked += 1
+                self._mark("STAGING_PIN_BLOCKED")
                 if lease is not None:
                     lease.pin_blocked += 1
                 continue
@@ -833,6 +853,7 @@ class ResidencyManager:
             total -= e.nbytes
             doomed.append((name, e.resident))
             self.evictions += 1
+            self._mark("STAGING_EVICTIONS")
             if lease is not None:
                 lease.evictions += 1
         self._staged_bytes = total
@@ -934,6 +955,32 @@ class ResidencyManager:
             self._prefetch_q.put(_STOP)
 
     # -- observability ------------------------------------------------------------
+    def bind_metrics(self, registry) -> None:
+        """Attach a MetricsRegistry: both tiers' byte gauges, and the
+        meters (``ServerMeter.STAGING_*``) every later event marks."""
+        self._metrics = registry
+        # gauges run on the scraping thread: only locked accessors here
+        registry.gauge("staging_staged_bytes",
+                       lambda: float(self.staged_bytes()))
+        registry.gauge("staging_peak_bytes",
+                       lambda: float(self._peak_bytes))
+        registry.gauge("staging_budget_bytes",
+                       lambda: float(self.budget_bytes or 0))
+        registry.gauge("staging_resident_segments",
+                       lambda: float(len(self.resident_names())))
+        registry.gauge("staging_host_bytes",
+                       lambda: float(self.host_bytes()))
+        registry.gauge("staging_host_peak_bytes",
+                       lambda: float(self._host_peak_bytes))
+        registry.gauge("staging_host_budget_bytes",
+                       lambda: float(self.host_budget_bytes or 0))
+        registry.gauge("staging_host_entries",
+                       lambda: float(self.host_entry_count()))
+
+    def _mark(self, name: str) -> None:
+        if self._metrics is not None:
+            self._metrics.meter(getattr(ServerMeter, name)).mark()
+
     def staged_bytes(self) -> int:
         with self._lock:
             self._refresh_locked()

@@ -256,11 +256,14 @@ def decision_key(point: str, chosen: str, declined: str,
     return f"{point}:{declined}->{chosen}:{reason}"
 
 
-def record_decision(stats: QueryStats, point: str, chosen: str,
+def record_decision(stats: Optional[QueryStats], point: str, chosen: str,
                     declined: str, reason: str) -> None:
     """Execution declined ``declined`` in favour of ``chosen`` at
     ``point`` because ``reason`` (``pinot_tpu/common/tracing.py``
-    ``record_decision``, without the process-wide ledger)."""
+    ``record_decision``, without the process-wide ledger). ``stats`` None
+    (a routing probe outside a query) records nothing."""
+    if stats is None:
+        return
     key = decision_key(point, chosen, declined, reason)
     stats.decisions[key] = stats.decisions.get(key, 0) + 1
 

@@ -55,6 +55,7 @@ from pinot_tpu_torch.segment.upsert import (
     attach_valid_docs,
     table_upsert_manager,
 )
+from pinot_tpu_torch.spi import filesystem
 from pinot_tpu_torch.spi.data import Schema
 from pinot_tpu_torch.spi.table import TableConfig
 
@@ -115,8 +116,9 @@ class SegmentCompletionProtocol:
 
 
 class LocalCompletionProtocol(SegmentCompletionProtocol):
-    """One replica: the consumer always commits, the segment stays in
-    memory."""
+    """One replica: the consumer always commits, and the sealed segment
+    stays in memory; its location is the ``memory://`` one of the deep
+    store (``spi/filesystem.py``), which keeps nothing for it."""
 
     def segment_consumed(self, segment_name, instance, offset):
         return CompletionReply(CompletionResponse.COMMIT)
@@ -125,7 +127,8 @@ class LocalCompletionProtocol(SegmentCompletionProtocol):
         return CompletionReply(CompletionResponse.COMMIT)
 
     def segment_commit_upload(self, segment_name, instance, segment):
-        return f"memory://{segment_name}"
+        return filesystem.segment_url(segment.metadata.table_name,
+                                      segment_name)
 
     def segment_commit_end(self, segment_name, instance, offset, location,
                            metadata):

@@ -32,6 +32,9 @@ next query waits for its last, wait nothing (the JAX dispatcher holds
 for any hot stream, a lone fast client included). Kernel calls return
 host results, and the dispatcher waits for the device's stream before it
 completes the futures (JAX's ``block_until_ready`` at :364).
+``bind_metrics`` (JAX :416-436) adds a server's registry: every bound
+registry gets the ``ServerMeter.LAUNCH*`` marks (several in-process
+servers may share one device's scheduler) and the queue gauges.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+
+from pinot_tpu_torch.spi.metrics import ServerMeter
 
 log = logging.getLogger(__name__)
 
@@ -139,6 +144,7 @@ class LaunchScheduler:
         self.window_waits = 0
         self.window_gathered = 0
         self.window_last_ms = 0.0
+        self._registries: list = []  # guarded-by: _stats_lock
 
     # -- submission ---------------------------------------------------------------
     def submit(self, kernel: LaunchKernel, params, num_docs) -> _LaunchRequest:
@@ -226,6 +232,8 @@ class LaunchScheduler:
                     self.window_waits += 1
                     self.window_gathered += gathered
                     self.window_last_ms = hold_s * 1e3
+                self._mark("LAUNCH_WINDOW_WAITS", 1)
+                self._mark("LAUNCH_WINDOW_GATHERED", gathered)
             # group by kernel, in the order of each group's first request
             groups: "OrderedDict[Tuple, List[_LaunchRequest]]" = OrderedDict()
             for req in drained:
@@ -321,6 +329,29 @@ class LaunchScheduler:
             self.max_batch_size = max(self.max_batch_size, n)
             self.queue_wait_ms_total += sum(wait)
             self.queue_wait_ms_max = max(self.queue_wait_ms_max, *wait)
+        self._mark("LAUNCH_REQUESTS", n)
+        self._mark("LAUNCHES", launches)
+        if n > launches:
+            self._mark("LAUNCHES_COALESCED", 1)
+            self._mark("LAUNCHES_SAVED", n - launches)
+
+    def bind_metrics(self, registry) -> None:
+        """Attach a MetricsRegistry: the queue gauges, and the meters every
+        later launch marks."""
+        with self._stats_lock:
+            if registry not in self._registries:
+                self._registries.append(registry)
+        registry.gauge("launch_queue_depth", lambda: float(len(self._queue)))
+        registry.gauge("launch_max_batch_size",
+                       lambda: float(self.max_batch_size))
+
+    def _mark(self, name: str, n: int) -> None:
+        if n <= 0:
+            return
+        with self._stats_lock:
+            registries = list(self._registries)
+        for reg in registries:
+            reg.meter(getattr(ServerMeter, name)).mark(n)
 
     def stats_snapshot(self) -> Dict[str, float]:
         """Cumulative counters (a run diffs two of these)."""

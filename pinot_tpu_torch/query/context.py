@@ -63,10 +63,15 @@ class QueryContext:
     options: Dict[str, str] = field(default_factory=dict)
     aggregations: List[Function] = field(default_factory=list)
     sql: Optional[str] = None
+    explain: bool = False   # EXPLAIN PLAN FOR
 
     @property
     def is_group_by(self) -> bool:
         return bool(self.group_by)
+
+    @property
+    def is_aggregation(self) -> bool:
+        return bool(self.aggregations)
 
     @property
     def is_selection(self) -> bool:
@@ -145,7 +150,7 @@ def compile_query(sql: str) -> QueryContext:
         aliases=aliases, filter=optimize_filter(parsed.where),
         group_by=group_by, order_by=order_by, limit=parsed.limit,
         offset=parsed.offset, distinct=parsed.distinct, having=having,
-        options=dict(parsed.options), sql=sql)
+        options=dict(parsed.options), sql=sql, explain=parsed.explain)
     for e in select_exprs:
         _collect_aggregations(e, ctx.aggregations)
     if having is not None:

@@ -15,8 +15,10 @@ LIKE NOT LIKE`` with a column on one side and a literal on the other,
 expressions are columns, numeric literals, ``+ - * / %`` and function
 calls: the aggregation functions (``query/context.py``
 ``is_aggregation``; ``count(DISTINCT x)`` is ``distinctcount(x)``),
-transforms and ``*``. ``CASE`` (which no JAX server path evaluates) and
-``EXPLAIN`` (the broker's) raise :class:`SqlParseError`.
+transforms and ``*``. ``EXPLAIN PLAN FOR <query>`` marks the parsed
+query ``explain`` (the broker answers it with ``query/explain.py``'s
+rows). ``CASE`` (which no JAX server path evaluates) raises
+:class:`SqlParseError`.
 """
 
 from __future__ import annotations
@@ -108,6 +110,7 @@ class ParsedQuery:
     limit: int = 10
     offset: int = 0
     options: Dict[str, str] = field(default_factory=dict)
+    explain: bool = False   # EXPLAIN PLAN FOR <sql>
 
 
 class _Parser:
@@ -434,8 +437,17 @@ class _Parser:
         return Function(name, args)
 
 
+_EXPLAIN_RE = re.compile(r"^\s*EXPLAIN\s+PLAN\s+FOR\s+", re.I)
+
+
 def parse_sql(sql: str) -> ParsedQuery:
-    return _Parser(sql.strip()).parse()
+    text = sql.strip()
+    m = _EXPLAIN_RE.match(text)
+    if m is not None:
+        text = text[m.end():]
+    q = _Parser(text).parse()
+    q.explain = m is not None
+    return q
 
 
 def parse_expression(text: str) -> Expr:

@@ -26,6 +26,7 @@ from pinot_tpu_torch.segment.convert import ColumnArrays, segment_from_arrays
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.spi.data import FieldSpec, Schema
 from pinot_tpu_torch.spi.table import IndexingConfig
+from pinot_tpu_torch.utils.partition import get_partition_function
 
 
 def _is_null(v: Any) -> bool:
@@ -98,16 +99,36 @@ class SegmentBuilder:
             indexing.no_dictionary_columns if indexing else ())
 
     def build(self, frame: Mapping[str, Any]) -> ImmutableSegment:
+        """One in-memory segment. A column of the indexing config's
+        ``segment_partition_config`` records the partitions its values
+        fall in (JAX ``SegmentBuilder._partition_meta``)."""
         sizes = {len(frame[c][1]) if isinstance(frame[c], tuple)
                  else len(frame[c]) for c in self.schema.column_names}
         if len(sizes) != 1:
             raise ValueError(f"ragged column lengths: {sorted(sizes)}")
         num_docs = sizes.pop()
-        columns = {fs.name: self._column(fs, frame[fs.name])
+        columns = {fs.name: self._partitioned(self._column(fs, frame[fs.name]),
+                                              fs.name)
                    for fs in self.schema.field_specs}
         return segment_from_arrays(self.segment_name, num_docs, columns,
                                    table_name=self.table_name,
                                    indexing=self.indexing)
+
+    def _partitioned(self, arrays: ColumnArrays, name: str) -> ColumnArrays:
+        spc = self.indexing.segment_partition_config if self.indexing \
+            else None
+        if spc is None or name not in spc.column_partition_map:
+            return arrays
+        cfg = spc.column_partition_map[name]
+        fn = get_partition_function(cfg.get("functionName", "Murmur"),
+                                    int(cfg.get("numPartitions", 1)))
+        distinct = (arrays.dictionary if arrays.dictionary is not None
+                    else np.unique(arrays.values))
+        arrays.partition_function = fn.name
+        arrays.num_partitions = fn.num_partitions
+        arrays.partitions = sorted({fn.partition(v)
+                                    for v in distinct.tolist()})
+        return arrays
 
     def _column(self, fs: FieldSpec, rows: Any) -> ColumnArrays:
         if not fs.single_value:

@@ -10,9 +10,13 @@ retriable ``QueryRejectedError`` with the queue depth it saw and its
 only after admission and closes in the caller's ``finally``, so a rejected
 query holds no pins.
 
-The JAX gate's per-table QPS quota (``quota=``, ``broker/quota.py``) and
-its metrics binding (``bind_metrics``) belong to the broker front door and
-the telemetry, which this port does not have yet.
+An optional ``QueryQuotaManager`` (``broker/quota.py``, ``quota=``) folds
+the per-table QPS quota into the same gate at the broker's front door: a
+table over its quota is the same typed rejection with ``reason="quota"``.
+``bind_metrics`` marks the admitted and rejected meters
+(``ServerMeter.ADMISSION_*``) and adds the in-flight and queue-depth
+gauges to a registry. The JAX gate's telemetry feeds (the gate-wait
+histogram, the rejection-burst trigger) wait for the telemetry slice.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Any, Dict, Optional
 
 from pinot_tpu_torch.engine.errors import QueryRejectedError
 from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
+from pinot_tpu_torch.spi.metrics import ServerMeter
 
 
 def _auto_concurrent() -> int:
@@ -53,9 +58,10 @@ class AdmissionGate:
     is rejected."""
 
     def __init__(self, max_concurrent: int = 0, max_queue: int = 0,
-                 max_wait_ms: float = 10_000.0,
+                 max_wait_ms: float = 10_000.0, quota=None,
                  name: str = "query-admission"):
         self._name = name
+        self._quota = quota
         self._cond = threading.Condition()
         self._slots = 0
         self._max_queue = 0
@@ -66,14 +72,16 @@ class AdmissionGate:
         self.admitted = 0
         self.rejected_queue_full = 0
         self.rejected_wait_expired = 0
+        self.rejected_quota = 0
         self.max_queue_depth_seen = 0
         self.queue_wait_ms_total = 0.0
         self.queue_wait_ms_max = 0.0
+        self._metrics = None
         self.configure(max_concurrent=max_concurrent, max_queue=max_queue,
                        max_wait_ms=max_wait_ms)
 
     @classmethod
-    def from_config(cls, config=None,
+    def from_config(cls, config=None, quota=None,
                     name: str = "query-admission") -> "AdmissionGate":
         cfg = config if config is not None else PinotConfiguration()
         return cls(
@@ -86,7 +94,7 @@ class AdmissionGate:
             max_wait_ms=cfg.get_float(
                 CommonConstants.ADMISSION_MAX_WAIT_MS_KEY,
                 CommonConstants.DEFAULT_ADMISSION_MAX_WAIT_MS),
-            name=name)
+            quota=quota, name=name)
 
     def configure(self, max_concurrent: Optional[int] = None,
                   max_queue: Optional[int] = None,
@@ -113,9 +121,19 @@ class AdmissionGate:
         """Admit one query (blocking, bounded) or raise
         ``QueryRejectedError``. The ticket must be released in a
         ``finally``."""
+        if self._quota is not None and table \
+                and not self._quota.acquire(table):
+            with self._cond:
+                self.rejected_quota += 1
+                depth = self._waiting
+            self._mark("ADMISSION_REJECTED")
+            raise QueryRejectedError(
+                f"query quota exceeded for table {table}",
+                queue_depth=depth, reason="quota")
         if self._slots <= 0:    # disabled: count, never queue
             with self._cond:
                 self.admitted += 1
+            self._mark("ADMISSION_ADMITTED")
             return _Ticket(gated=False)
         t0 = time.monotonic()
         reject = None
@@ -161,7 +179,9 @@ class AdmissionGate:
                                                  wait_ms)
         if reject is not None:
             reason, msg, depth = reject
+            self._mark("ADMISSION_REJECTED")
             raise QueryRejectedError(msg, queue_depth=depth, reason=reason)
+        self._mark("ADMISSION_ADMITTED")
         return _Ticket(gated=True, wait_ms=wait_ms)
 
     def release(self, ticket: Optional[_Ticket]) -> None:
@@ -176,6 +196,23 @@ class AdmissionGate:
                 self._inflight -= 1
             self._cond.notify()
 
+    # -- observability ----------------------------------------------------------
+    def bind_metrics(self, registry) -> None:
+        """The in-flight and queue-depth gauges, and the meters every later
+        admission and rejection marks."""
+        self._metrics = registry
+        # gauges run on the scraping thread: single ints, read unlocked
+        registry.gauge("admission_inflight", lambda: float(self._inflight))
+        registry.gauge("admission_queue_depth",
+                       lambda: float(self._waiting))
+
+    def _mark(self, name: str) -> None:
+        if self._metrics is None:
+            return
+        metric = getattr(ServerMeter, name, None)
+        if metric is not None:
+            self._metrics.meter(metric).mark()
+
     def stats_snapshot(self) -> Dict[str, float]:
         """Cumulative counters."""
         with self._cond:
@@ -183,8 +220,10 @@ class AdmissionGate:
                 "admitted": self.admitted,
                 "rejectedQueueFull": self.rejected_queue_full,
                 "rejectedWaitExpired": self.rejected_wait_expired,
+                "rejectedQuota": self.rejected_quota,
                 "rejected": (self.rejected_queue_full
-                             + self.rejected_wait_expired),
+                             + self.rejected_wait_expired
+                             + self.rejected_quota),
                 "maxQueueDepth": self.max_queue_depth_seen,
                 "queueWaitMsTotal": round(self.queue_wait_ms_total, 3),
                 "queueWaitMsMax": round(self.queue_wait_ms_max, 3),

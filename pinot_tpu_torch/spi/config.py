@@ -1,8 +1,8 @@
 """Layered key/value configuration, cut down to the keys the port reads.
 
 Counterpart of ``pinot_tpu/spi/config.py`` (``PinotConfiguration``, the
-residency, launch, worker-pool, admission and broker-reduce keys of
-``CommonConstants`` at :144-153 and :158-232): explicit
+residency, launch, worker-pool, runner, scheduler, admission and
+broker-reduce keys of ``CommonConstants`` at :144-153 and :158-232): explicit
 overrides win over ``PINOT_``-prefixed environment variables
 (``PINOT_SERVER_PORT`` -> ``pinot.server.port``), and keys match relaxed
 (case-insensitive, ``-`` / ``_`` / ``.`` -insensitive).
@@ -56,6 +56,14 @@ class CommonConstants:
     # than 1 on an H100 (chip_smoke.py phase 15e, PERF.md)
     WORKER_THREADS_KEY = "pinot.server.query.worker.threads"
     DEFAULT_WORKER_THREADS = 1
+    # the server's query runners (server/scheduler.py make_scheduler):
+    # threads that run whole queries off the scheduler queue, and the
+    # queue's policy: fcfs | tokenbucket | priority | sewf (shortest
+    # expected work first with an age boost, the default)
+    RUNNER_THREADS_KEY = "pinot.server.query.runner.threads"
+    DEFAULT_RUNNER_THREADS = 8
+    SCHEDULER_POLICY_KEY = "pinot.server.query.scheduler.policy"
+    DEFAULT_SCHEDULER_POLICY = "sewf"
     # admission gate (server/admission.py): executing-query slots, waiters
     # behind them and the wait bound. 0 = auto (slots from the cpu count,
     # queue 8x the slots); max.concurrent < 0 disables the gate; a waiter

@@ -1,15 +1,20 @@
-"""Table config: the indexes a segment is built with, and a realtime
-table's stream, upsert and ingestion settings.
+"""Table config: the indexes a segment is built with, a realtime table's
+stream, upsert and ingestion settings, and what the cluster reads of a
+table.
 
 Counterpart of ``pinot_tpu/spi/table.py``: ``StarTreeIndexConfig`` (:49),
-``IndexingConfig`` (:90-142), ``TableType``, ``UpsertMode``,
-``UpsertConfig``, ``StreamIngestionConfig`` with the reference's flat
-stream-config map reader (:265-318), ``TransformConfig``,
-``IngestionConfig`` and ``TableConfig`` (:426), cut to the knobs the
-port's in-memory segment builder, the realtime consumer
-(``ingestion/realtime.py``) and the record transformers honour (no
-partition, tenant, quota, routing or task settings, no JSON round trip
-of the whole table).
+``SegmentPartitionConfig`` (:76), ``IndexingConfig`` (:90-142),
+``SegmentsValidationConfig`` (:186, the time column and the replication),
+``TenantConfig`` (:221), ``TableType``, ``UpsertMode``, ``UpsertConfig``,
+``StreamIngestionConfig`` with the reference's flat stream-config map
+reader (:265-318), ``TransformConfig``, ``IngestionConfig``,
+``QuotaConfig`` (:383), ``RoutingConfig`` (:406, the broker's instance
+selector and segment pruners) and ``TableConfig`` (:426), cut to the
+knobs the port's in-memory segment builder, the realtime consumer
+(``ingestion/realtime.py``), the record transformers, the controller,
+the broker's routing and its quota honour (no retention or task
+settings, no JSON round trip of the whole table: the cluster state store
+keeps the config object, ``controller/state.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +37,16 @@ class StarTreeIndexConfig:
         default_factory=list)
     function_column_pairs: List[str] = field(default_factory=list)
     max_leaf_records: int = 10_000
+
+
+@dataclass
+class SegmentPartitionConfig:
+    """column -> ``{"functionName": ..., "numPartitions": ...}``: the
+    builder records the partitions each segment's values fall in, the
+    broker's partition pruner reads them."""
+
+    column_partition_map: Dict[str, Dict[str, Any]] = field(
+        default_factory=dict)
 
 
 @dataclass
@@ -62,6 +77,7 @@ class IndexingConfig:
     star_tree_index_configs: List[StarTreeIndexConfig] = field(
         default_factory=list)
     enable_default_star_tree: bool = False
+    segment_partition_config: Optional[SegmentPartitionConfig] = None
 
 
 class TableType(Enum):
@@ -71,6 +87,20 @@ class TableType(Enum):
     @property
     def suffix(self) -> str:
         return "_" + self.value
+
+
+def table_name_with_type(raw_name: str, table_type: TableType) -> str:
+    """``myTable`` + OFFLINE -> ``myTable_OFFLINE``."""
+    if raw_name.endswith(table_type.suffix):
+        return raw_name
+    return raw_name + table_type.suffix
+
+
+def table_type_from_name(name: str) -> Optional[TableType]:
+    for t in TableType:
+        if name.endswith(t.suffix):
+            return t
+    return None
 
 
 def raw_table_name(name: str) -> str:
@@ -169,12 +199,53 @@ class IngestionConfig:
 
 
 @dataclass
+class SegmentsValidationConfig:
+    """The table's time column (the broker's time pruner and the segment
+    time range read it) and how many servers host each segment."""
+
+    time_column_name: Optional[str] = None
+    time_type: str = "MILLISECONDS"
+    replication: int = 1
+
+
+@dataclass
+class TenantConfig:
+    broker: str = "DefaultTenant"
+    server: str = "DefaultTenant"
+
+
+@dataclass
+class QuotaConfig:
+    """Queries a second the broker admits for the table (None: no
+    quota)."""
+
+    max_queries_per_second: Optional[float] = None
+    storage: Optional[str] = None    # recorded, not enforced
+
+
+@dataclass
+class RoutingConfig:
+    """``instance_selector_type``: ``balanced`` | ``replicaGroup`` |
+    ``strictReplicaGroup``; ``segment_pruner_types``: ``["partition"]``
+    turns the broker's partition pruner on."""
+
+    instance_selector_type: str = "balanced"
+    segment_pruner_types: List[str] = field(default_factory=list)
+
+
+@dataclass
 class TableConfig:
-    """What the realtime consumer and the transformers read of a table."""
+    """What the consumer, the transformers and the cluster read of a
+    table."""
 
     table_name: str
     table_type: TableType = TableType.OFFLINE
+    validation_config: SegmentsValidationConfig = field(
+        default_factory=SegmentsValidationConfig)
     indexing_config: IndexingConfig = field(default_factory=IndexingConfig)
+    tenant_config: TenantConfig = field(default_factory=TenantConfig)
+    routing_config: RoutingConfig = field(default_factory=RoutingConfig)
+    quota_config: QuotaConfig = field(default_factory=QuotaConfig)
     upsert_config: Optional[UpsertConfig] = None
     stream_config: Optional[StreamIngestionConfig] = None
     ingestion_config: Optional[IngestionConfig] = None
@@ -186,4 +257,8 @@ class TableConfig:
 
     @property
     def table_name_with_type(self) -> str:
-        return self.table_name + self.table_type.suffix
+        return table_name_with_type(self.table_name, self.table_type)
+
+    @property
+    def replication(self) -> int:
+        return self.validation_config.replication

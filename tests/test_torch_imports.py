@@ -70,7 +70,21 @@ def test_executor_import_leaves_jax_unloaded():
             "pinot_tpu_torch.common.datatable, "
             "pinot_tpu_torch.common.bounds, "
             "pinot_tpu_torch.broker.reduce, "
-            "pinot_tpu_torch.parallel.reduce_device; "
+            "pinot_tpu_torch.parallel.reduce_device, "
+            "pinot_tpu_torch.controller.state, "
+            "pinot_tpu_torch.controller.assignment, "
+            "pinot_tpu_torch.controller.controller, "
+            "pinot_tpu_torch.server.data_manager, "
+            "pinot_tpu_torch.server.server, "
+            "pinot_tpu_torch.broker.quota, "
+            "pinot_tpu_torch.broker.routing, "
+            "pinot_tpu_torch.broker.gapfill, "
+            "pinot_tpu_torch.broker.broker, "
+            "pinot_tpu_torch.common.response, "
+            "pinot_tpu_torch.spi.metrics, "
+            "pinot_tpu_torch.spi.filesystem, "
+            "pinot_tpu_torch.query.explain, "
+            "pinot_tpu_torch.tools.cluster; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinot_tpu', 'triton')]; "
             "from pinot_tpu_torch.engine import _build, kernels; "
