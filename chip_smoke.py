@@ -178,7 +178,35 @@ Phases:
      cluster's decisions, EXPLAIN PLAN FOR Q2.1 with no launch; (16b,
      last) one server stopped, every flight answered in full by the
      replicas;
- 14. (after 16) a realtime user-events table: 2.5 M rows
+ 17. (after 16, before 14) realtime and hybrid tables through the front
+     door: phase 16's cluster again (4 servers, its residency budget, the
+     device merge, phase 4's segments as ssb_lineorder_OFFLINE at
+     replication 2), each server negotiating its commits with the
+     controller's completion FSM, cluster.query the only entry point and
+     every answer clean and full: (17a) the user-events table at its full
+     width as a realtime table, JSON messages of 1 M rows on 2 partitions
+     consumed at replication 2 with a flush at 200 k rows (2 seals and
+     100 k rows consuming a partition), U1-U7 and R1-R3 == the oracle, R1
+     and R2 on the sealed segments' star-tree, the group-bys on
+     mutable_device over the consuming segments, U2 opted out of the
+     star-tree on the fused scan over the sealed ones; the ingest rate a
+     consumer, flush threshold to swap, COMMIT / KEEP / DISCARD, swap ms
+     and deep-store entries logged; (17b) 100 k more rows a partition seal
+     each partition's third segment while 4 client threads send count(*)
+     and U2: every count in [1.0 M, 1.2 M], no partial answer, both ==
+     the oracle after, no sealed segment's mutable resident left on the
+     card; (17c) the hybrid SSB table: ssb_lineorder_REALTIME carries 300
+     k rows of a fresh frame over segment 7's months (1 partition,
+     replication 2, flush 200 k), the time boundary the offline side's
+     largest month less 1, the 13 flights == the oracle over the offline
+     rows up to it and the realtime rows past it, every one
+     hybrid_time_split, the fused launches of phase 4's kept segments and
+     of the sealed realtime segment, p50 / p99 beside phase 16's; (17d)
+     user_events again as an upsert table on user_id (220 k rows, flush
+     50 k, 1 partition, replication 2): U1-U7 == the oracle over each
+     user's latest row; then one sealed realtime segment's U2 scan against
+     the kernel's plain version and timed;
+ 14. (after 17) a realtime user-events table: 2.5 M rows
      as JSON messages on a one-partition MemoryStream consumed by
      RealtimeSegmentDataManager into a consuming segment on the card
      (``engine/mutable_staging.py``): (14a) at 700, 1000 and 5000 rows and
@@ -204,8 +232,8 @@ segments on the per-segment path (``index_missing_index`` and the other
 JAX codes), which every phase asserts beside its other decisions.
 Then a "rungs" line of the segments each rung served and the declines and
 paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
-kernel alone, "launches" those of phases 4, 6, 8, 9, 14c and 16, and of
-13b for the query axis; the top-k, the jnp combine and the index gather are
+kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16 and 17, and
+of 13b for the query axis; the top-k, the jnp combine and the index gather are
 PyTorch ops, not hand kernels).
 Phases 4, 6, 7, 9, 10 and 11 assert launches
 per query from the segments the pruner keeps, once those
@@ -888,7 +916,8 @@ def phase_main(sf: float, segments: int, seed: int, reps: int) -> dict:
         f"{torch.cuda.max_memory_allocated()} bytes")
     _graft_entry_check()
     return {"segs": segs, "ex": ex, "launches": launches, "ctxs": ctxs,
-            "wants": wants, "per_flight": per_flight, "rows": rows,
+            "wants": wants, "parts": parts, "seed": seed,
+            "per_flight": per_flight, "rows": rows,
             "results": results, "kept": kept, "kept_segs": kept_segs,
             "sql_texts": sql_texts, "sql_wants": sql_wants,
             "sql_kept": sql_kept, "host_texts": host_texts,
@@ -4318,7 +4347,9 @@ def _front_cluster(segs, device: str, servers: int):
     for i in range(servers):
         sid = f"server_{i}"
         srv = ServerInstance(sid, cluster.store,
-                             cluster.controller.deep_store, config=cfg,
+                             cluster.controller.deep_store,
+                             completion_protocol=cluster.controller
+                             .completion, config=cfg,
                              executor=ServerQueryExecutor(device=device,
                                                           config=cfg))
         srv.start()
@@ -4638,6 +4669,577 @@ def phase_front_door(main: dict, reps: int, device: str = "cuda",
     return out
 
 
+# -- phase 17: realtime and hybrid tables through the front door ---------------
+
+# 17a: the user-events table as a 2-partition realtime table at replication
+# 2 (Pinot's default flush is 5 M rows a segment; cut because four replicas
+# index rows one at a time in Python under one GIL)
+RT_USER_ROWS = 1_000_000
+RT_USER_FLUSH = 200_000
+# 17b: rows added a partition under 4 client threads (each partition's
+# third segment seals)
+RT_MORE_ROWS = 100_000
+RT_CLIENTS = 4
+# 17c: the hybrid SSB table's realtime side, over segment 7's months
+RT_SSB_ROWS = 300_000
+RT_SSB_FLUSH = 200_000
+# 17d: an upsert table keyed on user_id, one partition
+RT_UPSERT_ROWS = 220_000
+RT_UPSERT_FLUSH = 50_000
+RT_WAIT_S = 300.0
+_RT_TABLE = "user_events_REALTIME"
+_SSB_RT_TABLE = "ssb_lineorder_REALTIME"
+
+
+def _full(what: str, resp) -> None:
+    """A clean answer every server queried gave."""
+    if resp.exceptions or resp.result_table is None \
+            or resp.num_servers_responded != resp.num_servers_queried:
+        raise AssertionError(f"{what}: {resp.exceptions}, "
+                             f"{resp.num_servers_responded} of "
+                             f"{resp.num_servers_queried} servers")
+
+
+def _settled(cluster, table: str, what: str) -> float:
+    """Wait until every consumer of ``table`` on every server is at its
+    stream's end and no commit is under way; -> the seconds waited."""
+    t0 = time.perf_counter()
+    if not cluster.wait_for_consumers(table, timeout_s=RT_WAIT_S):
+        states = {c.segment_name: (c.state.value, c.current_offset.value)
+                  for c in cluster.consumers(table)}
+        raise AssertionError(f"{what}: consumers never settled: {states}")
+    return time.perf_counter() - t0
+
+
+def _realtime_table(config, replication: int):
+    from pinot_tpu_torch.spi.table import SegmentsValidationConfig
+
+    config.validation_config = SegmentsValidationConfig(
+        time_column_name=config.validation_config.time_column_name,
+        replication=replication)
+    return config
+
+
+def _seal_report(cluster, table: str) -> dict:
+    """Each server's seals of ``table``: the committer (its hosted object
+    is the deep store's), KEEP (its own seal), DISCARD or a fetch; swap
+    ms, flush threshold to swap s, each replaced consumer's ingest
+    rate."""
+    from pinot_tpu_torch.spi.filesystem import segment_url
+
+    kinds = {"COMMIT": 0, "KEEP": 0, "DISCARD_OR_FETCH": 0}
+    swap_ms, commit_s, rates = [], [], []
+    for server in cluster.servers.values():
+        tdm = server.data_manager.get(table)
+        if tdm is None:
+            continue
+        for e in tdm.seals:
+            if e["fetched"]:
+                kinds["DISCARD_OR_FETCH"] += 1
+            else:
+                held = tdm._segments.get(e["segment"])
+                kept = cluster.controller.deep_store.fetch_segment(
+                    segment_url(table, e["segment"]))
+                kinds["COMMIT" if held is not None and held.segment is kept
+                      else "KEEP"] += 1
+            swap_ms.append(e["swap_ms"])
+            if "consume_s" in e:
+                commit_s.append(e["threshold_to_swap_s"])
+                rates.append(e["rows"] / max(e["consume_s"], 1e-9))
+    return {"replies": kinds, "seals": len(swap_ms),
+            "swap_ms": {"p50": float(np.percentile(swap_ms, 50)),
+                        "max": float(max(swap_ms))} if swap_ms else None,
+            "threshold_to_swap_s": {"p50": float(np.percentile(commit_s, 50)),
+                                    "max": float(max(commit_s))}
+            if commit_s else None,
+            "ingest_rows_per_s": {"min": float(min(rates)),
+                                  "p50": float(np.percentile(rates, 50)),
+                                  "max": float(max(rates))}
+            if rates else None}
+
+
+def _deep_entries(cluster, table: str) -> int:
+    """The deep store's segments of ``table`` (every ONLINE segment's)."""
+    n = 0
+    for md in cluster.store.segment_metadata_list(table):
+        if md.status == "ONLINE":
+            cluster.controller.deep_store.fetch_segment(md.download_url)
+            n += 1
+    return n
+
+
+def _log_seals(what: str, rep: dict, deep: int) -> None:
+    r = rep["ingest_rows_per_s"] or {}
+    s = rep["swap_ms"] or {}
+    c = rep["threshold_to_swap_s"] or {}
+    log(f"  {what}: {rep['seals']} seals, replies {rep['replies']}; ingest "
+        f"{r.get('min', 0):.0f}-{r.get('max', 0):.0f} rows/s a consumer; "
+        f"threshold to swap p50 {c.get('p50', 0):.3f} s (max "
+        f"{c.get('max', 0):.3f}); swap p50 {s.get('p50', 0):.3f} ms; "
+        f"{deep} deep-store entries")
+
+
+def _segment_counts(cluster, table: str) -> dict:
+    ideal = cluster.store.get_ideal_state(table)
+    return {"ONLINE": sum("ONLINE" in m.values() for m in ideal.values()),
+            "CONSUMING": sum("CONSUMING" in m.values()
+                             for m in ideal.values())}
+
+
+def _rt_user_queries(cluster, ctxs: dict, wants: dict, sealed: int,
+                     consuming: int, device: str, counters: dict,
+                     what: str) -> dict:
+    """U1-U7 and R1-R3 through ``cluster.query``, == ``wants``: R1 and R2
+    on the sealed segments' star-tree, every group-by but R3 on
+    ``mutable_device`` over the consuming segments; then U2 with
+    OPTION(useStarTree=false) on the fused scan over the sealed segments
+    (read off the process-wide counter around the query: a server's
+    stats count every launch in its process while its query runs, so
+    two servers asked at once each count the other's). -> per query
+    ms."""
+    from pinot_tpu_torch.tools import usertable
+
+    out = {}
+    sqls = {qid: ctx.sql for qid, ctx in ctxs.items()}
+    sqls["U2 scan"] = ctxs["U2"].sql + " OPTION(useStarTree=false)"
+    for qid, sql in sqls.items():
+        base = qid.split()[0]
+        n0 = counters["fused_scan"].launches
+        t0 = time.perf_counter()
+        resp = cluster.query(sql)
+        out[qid] = (time.perf_counter() - t0) * 1e3
+        _full(f"{what} {qid}", resp)
+        usertable.check_rows(base, resp.result_table.rows, wants[base])
+        rungs = resp.stats.rung_segments
+        if base in SEALED_STARTREE and qid == base \
+                and rungs.get("startree_device") != sealed:
+            raise AssertionError(f"{what} {qid}: rungs {rungs}")
+        if ctxs[base].is_group_by and base != REALTIME_HLL \
+                and rungs.get("mutable_device") != consuming:
+            raise AssertionError(f"{what} {qid}: rungs {rungs}")
+        want = sealed if device == "cuda" else 0
+        got = counters["fused_scan"].launches - n0
+        if qid == "U2 scan" and got != want:
+            raise AssertionError(f"{what} {qid}: {got} fused launches, "
+                                 f"not {want}")
+    return out
+
+
+def _rt_users(cluster, frame, user: int, rows: int, flush: int, more: int,
+              device: str, counters: dict, seed: int) -> dict:
+    """17a and 17b (see ``phase_realtime_cluster``)."""
+    import threading
+
+    from pinot_tpu_torch.engine.mutable_staging import resident_name
+    from pinot_tpu_torch.ingestion import MemoryStream
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import usertable
+
+    out: dict = {}
+    topic = f"user_events_17_{seed}"
+    stream = MemoryStream.create(topic, 2)
+    messages = usertable.frame_messages(frame)
+    ctxs = {qid: compile_query(sql)
+            for qid, sql in usertable.realtime_queries(user).items()}
+    cluster.create_table(_realtime_table(
+        usertable.realtime_table_config(topic, flush), 2),
+        usertable.user_schema())
+    t0 = time.perf_counter()
+    for p in (0, 1):
+        stream.produce_many(messages[p:rows:2], partition=p)
+    wait_s = _settled(cluster, _RT_TABLE, "17a")
+    consume_s = time.perf_counter() - t0
+    per_part = rows // 2
+    want_counts = {"ONLINE": 2 * (per_part // flush),
+                   "CONSUMING": 2}
+    counts = _segment_counts(cluster, _RT_TABLE)
+    left = {c.segment_name: c.rows_indexed
+            for c in cluster.consumers(_RT_TABLE)}
+    if counts != want_counts or set(left.values()) != {per_part % flush}:
+        raise AssertionError(f"17a: segments {counts} != {want_counts}, "
+                             f"consuming rows {left}")
+    seals = _seal_report(cluster, _RT_TABLE)
+    deep = _deep_entries(cluster, _RT_TABLE)
+    _log_seals("17a", seals, deep)
+    log(f"  17a: {rows} rows on 2 partitions x 2 replicas consumed, sealed "
+        f"and settled in {consume_s:.1f} s (settle wait {wait_s:.1f} s); "
+        f"segments {counts}, {per_part % flush} rows consuming a partition")
+    wants = usertable.realtime_answers(usertable.frame_prefix(frame, rows),
+                                       user)
+    sealed, consuming = counts["ONLINE"], counts["CONSUMING"]
+    lat = {}
+    for _ in range(3):
+        for qid, v in _rt_user_queries(cluster, ctxs, wants, sealed,
+                                       consuming, device, counters,
+                                       "17a").items():
+            lat.setdefault(qid, []).append(v)
+    out["users"] = {"rows": rows, "flush": flush, "segments": counts,
+                    "consume_s": consume_s, "seals": seals,
+                    "deep_store_entries": deep,
+                    "per_query_ms": {q: {"p50": float(np.percentile(v, 50)),
+                                         "max": float(max(v))}
+                                     for q, v in lat.items()}}
+    log("  17a: U1-U7, R1-R3 through cluster.query == the oracle over "
+        f"{rows} rows, R1/R2 on {sealed} sealed segments' star-tree, the "
+        f"group-bys on mutable_device over {consuming} consuming, U2 opted "
+        f"out on the fused scan over {sealed}; p50 ms "
+        + ", ".join(f"{q} {out['users']['per_query_ms'][q]['p50']:.1f}"
+                    for q in lat))
+
+    # 17b: seals under queries
+    total = rows + 2 * more
+    count_sql = "SELECT count(*) FROM user_events"
+    stop, errors, seen = threading.Event(), [], []
+
+    def client(i):
+        try:
+            k = 0
+            while not stop.is_set():
+                sql = count_sql if (i + k) % 2 == 0 else ctxs["U2"].sql
+                resp = cluster.query(sql)
+                _full("17b", resp)
+                if sql == count_sql:
+                    seen.append(resp.result_table.rows[0][0])
+                k += 1
+        except Exception as e:  # raised again below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,),
+                                name=f"17b-client-{i}")
+               for i in range(RT_CLIENTS)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    try:
+        for p in (0, 1):
+            stream.produce_many(messages[rows + p:total:2], partition=p)
+        _settled(cluster, _RT_TABLE, "17b")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=RT_WAIT_S)
+    seal_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if not seen or min(seen) < rows or max(seen) > total:
+        raise AssertionError(f"17b: counts {min(seen, default=None)}.."
+                             f"{max(seen, default=None)} outside "
+                             f"[{rows}, {total}]")
+    counts = _segment_counts(cluster, _RT_TABLE)
+    per_part = total // 2
+    if counts["ONLINE"] != 2 * (per_part // flush):
+        raise AssertionError(f"17b: segments {counts}")
+    wants = usertable.realtime_answers(frame, user)
+    for qid, sql in (("count", count_sql), ("U2", ctxs["U2"].sql)):
+        resp = cluster.query(sql)
+        _full(f"17b {qid}", resp)
+        if qid == "count":
+            if resp.result_table.rows != [[total]]:
+                raise AssertionError(f"17b: count {resp.result_table.rows}")
+        else:
+            usertable.check_rows("U2", resp.result_table.rows, wants["U2"])
+    left = []
+    for server in cluster.servers.values():
+        names = set(server.executor.residency.resident_names())
+        tdm = server.data_manager.get(_RT_TABLE)
+        if tdm is None:
+            continue
+        for seg in tdm.segment_names():
+            if not getattr(tdm._segments[seg].segment, "is_mutable", False) \
+                    and resident_name(seg) in names:
+                left.append((server.instance_id, seg))
+    if left:
+        raise AssertionError(f"17b: sealed segments' mutable residents "
+                             f"left on the card: {left}")
+    out["seals_under_queries"] = {
+        "rows": total, "queries": len(seen), "count_min": min(seen),
+        "count_max": max(seen), "seconds": seal_s, "segments": counts}
+    log(f"  17b: {2 * more} more rows sealed each partition's third segment "
+        f"under {RT_CLIENTS} clients in {seal_s:.1f} s: {len(seen)} counts "
+        f"in [{min(seen)}, {max(seen)}], none partial; count and U2 == the "
+        f"oracle over {total} rows; no sealed segment's mutable resident "
+        "left on the card")
+    out["sealed_segment"] = next(
+        tdm._segments[seg].segment
+        for server in cluster.servers.values()
+        for tdm in [server.data_manager.get(_RT_TABLE)] if tdm is not None
+        for seg in tdm.segment_names()
+        if not getattr(tdm._segments[seg].segment, "is_mutable", False))
+    cluster.controller.delete_table(_RT_TABLE)
+    if not _until_none(cluster, _RT_TABLE):
+        raise AssertionError("17b: consumers outlived the table's delete")
+    MemoryStream.delete(topic)
+    return out
+
+
+def _until_none(cluster, table: str, timeout_s: float = 60.0) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while cluster.consumers(table):
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.02)
+    return True
+
+
+def _rt_hybrid(cluster, main: dict, seed: int, rows: int, flush: int,
+               reps: int, device: str, counters: dict, front: dict) -> dict:
+    """17c (see ``phase_realtime_cluster``)."""
+    from pinot_tpu_torch.ingestion import MemoryStream
+    from pinot_tpu_torch.spi.table import (
+        SegmentsValidationConfig,
+        StreamIngestionConfig,
+        TableConfig,
+        TableType,
+    )
+    from pinot_tpu_torch.tools import ssb
+
+    segs, ctxs = main["segs"], main["ctxs"]
+    topic = f"ssb_lineorder_17_{seed}"
+    stream = MemoryStream.create(topic, 1)
+    t0 = time.perf_counter()
+    rt = ssb.generate_segment_frame(7, 8, rows, seed + 1)
+    stream.produce_many([json.dumps(r) for r in ssb.frame_rows(rt)])
+    cluster.controller.add_table(TableConfig(
+        ssb.TABLE, TableType.REALTIME,
+        validation_config=SegmentsValidationConfig(
+            time_column_name="d_yearmonthnum",
+            replication=FRONT_REPLICATION),
+        stream_config=StreamIngestionConfig(
+            stream_type="memory", topic=topic,
+            segment_flush_threshold_rows=flush)))
+    _settled(cluster, _SSB_RT_TABLE, "17c")
+    consume_s = time.perf_counter() - t0
+    boundary = cluster.broker.routing.time_boundary.get_boundary(FRONT_TABLE)
+    months = [int(s.metadata.columns["d_yearmonthnum"].max_value)
+              for s in segs]
+    if boundary != max(months) - 1:
+        raise AssertionError(f"17c: boundary {boundary}, months {months}")
+    # the oracle: each offline frame's rows up to the boundary (phase 4's
+    # partial answers where a segment lies under it), the realtime rows
+    # past it
+    over = [i for i, m in enumerate(months) if m > boundary]
+    frames = {i: ssb.generate_segment_frame(i, len(segs), segs[i].num_docs,
+                                            main["seed"]) for i in over}
+
+    def masked(frame, keep):
+        return {c: v[keep] for c, v in frame.items()}
+
+    wants = {}
+    for qid in ctxs:
+        parts = [p for i, p in enumerate(main["parts"][qid])
+                 if i not in over]
+        parts += [ssb.numpy_answer(masked(
+            f, f["d_yearmonthnum"] <= boundary), qid)
+            for f in frames.values()]
+        parts.append(ssb.numpy_answer(
+            masked(rt, rt["d_yearmonthnum"] > boundary), qid))
+        wants[qid] = ssb.merge_answers(parts)
+    rt_sealed = [
+        s for server in cluster.servers.values()
+        for tdm in [server.data_manager.get(_SSB_RT_TABLE)] if tdm
+        for name in tdm.segment_names()
+        for s in [tdm._segments[name].segment]
+        if not getattr(s, "is_mutable", False)]
+    rt_sealed = list({s.segment_name: s for s in rt_sealed}.values())
+    seals = _seal_report(cluster, _SSB_RT_TABLE)
+    _log_seals("17c", seals, _deep_entries(cluster, _SSB_RT_TABLE))
+    log(f"  17c: {rows} realtime SSB rows over segment 7's months consumed "
+        f"and sealed in {consume_s:.1f} s; boundary {boundary}; "
+        f"{len(rt_sealed)} sealed, "
+        f"{_segment_counts(cluster, _SSB_RT_TABLE)['CONSUMING']} consuming")
+    lat = {qid: [] for qid in ctxs}
+    scans = {"fused_scan": 0, "fused_scan_probe": 0}
+    sealed_scans = 0
+    key = "hybrid:realtime_all->time_split:hybrid_time_split"
+    for _ in range(reps):
+        for qid, ctx in ctxs.items():
+            n0 = {k: counters[k].launches for k in scans}
+            t1 = time.perf_counter()
+            resp = cluster.query(ctx.sql)
+            lat[qid].append((time.perf_counter() - t1) * 1e3)
+            n = {k: counters[k].launches - n0[k] for k in scans}
+            _full(f"17c {qid}", resp)
+            _check_flight(f"17c {qid}", resp.result_table, wants[qid])
+            if resp.stats.decisions.get(key) != 1:
+                raise AssertionError(f"17c {qid}: {resp.stats.decisions}")
+            # the offline side's kept segments, and the sealed realtime
+            # segment where no star-tree serves it
+            extra = n["fused_scan"] - (
+                main["kept"][qid] if device == "cuda" else 0)
+            if not 0 <= extra <= (len(rt_sealed) if device == "cuda"
+                                  else 0):
+                raise AssertionError(f"17c {qid}: {n} fused launches, "
+                                     f"{main['kept'][qid]} offline "
+                                     "segments kept")
+            sealed_scans += extra
+            for k in scans:
+                scans[k] += n[k]
+    if device == "cuda" and not sealed_scans:
+        raise AssertionError("17c: no flight scanned the sealed realtime "
+                             "segment")
+    flights = {qid: {"p50_ms": float(np.percentile(v, 50)),
+                     "p99_ms": float(np.percentile(v, 99)),
+                     "phase16_p50_ms": front.get(qid, {}).get("p50_ms")}
+               for qid, v in lat.items()}
+    for qid, f in flights.items():
+        log(f"  17c {qid}: p50 {f['p50_ms']:.3f} ms p99 {f['p99_ms']:.3f} "
+            f"ms (phase 16: {f['phase16_p50_ms']})")
+    log(f"  17c: 13 flights x {reps} == the split oracle, every one "
+        f"hybrid_time_split; fused launches {scans}, {sealed_scans} of "
+        "them on the sealed realtime segment")
+    cluster.controller.delete_table(_SSB_RT_TABLE)
+    if not _until_none(cluster, _SSB_RT_TABLE):
+        raise AssertionError("17c: consumers outlived the table's delete")
+    MemoryStream.delete(topic)
+    return {"rows": rows, "flush": flush, "boundary": boundary,
+            "consume_s": consume_s, "seals": seals,
+            "sealed_segments": len(rt_sealed), "flights": flights,
+            "launches": scans, "sealed_scans": sealed_scans}
+
+
+def _rt_upsert(cluster, seed: int, user: int, rows: int, flush: int,
+               device: str) -> dict:
+    """17d (see ``phase_realtime_cluster``)."""
+    from pinot_tpu_torch.ingestion import MemoryStream
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import usertable
+
+    topic = f"user_events_upsert_17_{seed}"
+    stream = MemoryStream.create(topic, 1)
+    frame = usertable.generate_frame(1, 2, rows, seed)
+    t0 = time.perf_counter()
+    stream.produce_many(usertable.frame_messages(frame))
+    cluster.create_table(_realtime_table(
+        usertable.realtime_table_config(topic, flush, upsert=True), 2),
+        usertable.user_schema(["user_id"]))
+    _settled(cluster, _RT_TABLE, "17d")
+    consume_s = time.perf_counter() - t0
+    counts = _segment_counts(cluster, _RT_TABLE)
+    if counts != {"ONLINE": rows // flush, "CONSUMING": 1}:
+        raise AssertionError(f"17d: segments {counts}")
+    wants = usertable.realtime_answers(usertable.latest_per_user(frame),
+                                       user)
+    ms = {}
+    for qid, sql in usertable.queries(user).items():
+        t1 = time.perf_counter()
+        resp = cluster.query(sql)
+        ms[qid] = (time.perf_counter() - t1) * 1e3
+        _full(f"17d {qid}", resp)
+        usertable.check_rows(qid, resp.result_table.rows, wants[qid])
+    seals = _seal_report(cluster, _RT_TABLE)
+    _log_seals("17d", seals, _deep_entries(cluster, _RT_TABLE))
+    live = len(np.unique(frame["user_id"]))
+    log(f"  17d: upsert on user_id, {rows} rows ({live} users live) "
+        f"consumed and sealed in {consume_s:.1f} s, segments {counts}: "
+        "U1-U7 == the oracle over each user's latest row; ms "
+        + ", ".join(f"{q} {v:.1f}" for q, v in ms.items()))
+    cluster.controller.delete_table(_RT_TABLE)
+    if not _until_none(cluster, _RT_TABLE):
+        raise AssertionError("17d: consumers outlived the table's delete")
+    MemoryStream.delete(topic)
+    return {"rows": rows, "flush": flush, "live_users": live,
+            "segments": counts, "consume_s": consume_s, "seals": seals,
+            "per_query_ms": ms}
+
+
+def phase_realtime_cluster(main: dict, reps: int, device: str = "cuda",
+                           servers: int = FRONT_SERVERS,
+                           user_rows: int = RT_USER_ROWS,
+                           user_flush: int = RT_USER_FLUSH,
+                           more_rows: int = RT_MORE_ROWS,
+                           ssb_rows: int = RT_SSB_ROWS,
+                           ssb_flush: int = RT_SSB_FLUSH,
+                           upsert_rows: int = RT_UPSERT_ROWS,
+                           upsert_flush: int = RT_UPSERT_FLUSH,
+                           front: dict = None, seed: int = 42) -> dict:
+    """Phase 17: realtime and hybrid tables through the front door. Phase
+    16's cluster again (``servers`` servers, the residency budget, the
+    device merge, phase 4's segments pushed as ``ssb_lineorder_OFFLINE``
+    at replication 2), every server negotiating its commits with the
+    controller's completion FSM; ``cluster.query`` is the only entry
+    point, and every answer must be clean and full.
+
+    (17a) ``user_events_REALTIME``: the user-events table at its full
+    width (``user_schema()``, ``user_indexing_config()``), JSON messages
+    of ``user_rows`` rows on a 2-partition ``MemoryStream`` (row i to
+    partition i % 2), a flush at ``user_flush`` rows, replication 2.
+    Once every consumer is at the stream's end: 2 sealed segments and the
+    rest consuming a partition; U1-U7 and R1-R3 == the oracle, R1 and R2
+    on the sealed segments' star-tree, the group-bys on ``mutable_device``
+    over the consuming segments, U2 with OPTION(useStarTree=false) on the
+    fused scan over the sealed ones; ingest rate a consumer, flush
+    threshold to swap, the replies by kind, swap ms, deep-store entries.
+    (17b) ``more_rows`` more a partition while ``RT_CLIENTS`` threads send
+    count(*) and U2: each partition's third segment seals, every count in
+    [user_rows, user_rows + 2 more_rows], no partial answer; then both ==
+    the oracle, and no sealed segment's mutable resident is left on the
+    card. (17c) a hybrid SSB table: ``ssb_lineorder_REALTIME`` (1
+    partition, replication 2, flush ``ssb_flush``) carries ``ssb_rows``
+    rows of a fresh frame over segment 7's months as JSON; the boundary is
+    the offline side's largest month less 1, every flight records
+    ``hybrid_time_split``, the 13 flights ``reps`` times == the oracle
+    over the offline rows up to the boundary and the realtime rows past
+    it, and the fused-scan launches are those of the segments each side's
+    pruner keeps, less those a star-tree serves; p50 / p99 beside phase
+    16's. (17d) ``user_events`` again as an upsert table on user_id (1
+    partition, replication 2, ``upsert_rows`` rows, flush
+    ``upsert_flush``): U1-U7 == the oracle over each user's latest row.
+    On the card, one sealed realtime segment's U2 scan is held against the
+    kernel's plain version and timed. -> the report, with the fused
+    launches of 17a and 17c (``launches``) and the timing rows."""
+    import torch
+
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.tools import usertable
+
+    t_all = time.perf_counter()
+    out: dict = {"servers": servers, "replication": FRONT_REPLICATION}
+    cluster, push_s, _ = _front_cluster(main["segs"], device, servers)
+    log(f"  17: {servers} servers, phase 4's segments pushed in "
+        f"{push_s:.2f} s")
+    counters = scan_counters()
+    _reset(counters)
+    total = user_rows + 2 * more_rows
+    try:
+        frame = usertable.generate_frame(0, 1, total, seed)
+        users = usertable.tail_users(total, 1, seed)
+        user = users[len(users) // 2]
+        t0 = time.perf_counter()
+        out.update(_rt_users(cluster, frame, user, user_rows, user_flush,
+                             more_rows, device, counters, seed))
+        out["users"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["hybrid"] = _rt_hybrid(cluster, main, seed, ssb_rows, ssb_flush,
+                                   reps, device, counters, front or {})
+        out["hybrid"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["upsert"] = _rt_upsert(cluster, seed, user, upsert_rows,
+                                   upsert_flush, device)
+        out["upsert"]["seconds"] = time.perf_counter() - t0
+    finally:
+        cluster.shutdown()
+    out["launches"] = {k: counters[k].launches
+                       for k in ("fused_scan", "fused_scan_probe")}
+    if device == "cuda" and not all(out["launches"].values()):
+        raise AssertionError(f"17: launches {out['launches']}")
+    sealed = out.pop("sealed_segment")
+    timing, errs = [], {"fused_scan": 0.0, "fused_scan_probe": 0.0}
+    if device == "cuda":
+        ex = ServerQueryExecutor(device=device)
+        staged = ex.stage(sealed)
+        sql = usertable.realtime_queries(user)["U2"]
+        timing = _time_kernels({"U2 sealed in the cluster": (
+            staged, sealed.num_docs, sql)}, errs, 20)
+        if any(v != 0.0 for v in errs.values()):
+            raise AssertionError(f"17: kernel against plain {errs}")
+        del ex, staged
+        torch.cuda.empty_cache()
+    out["timing"], out["errs"] = timing, errs
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 # phase 12's default SSB scale: its tree build and queries within about
 # 150 s on the card's host (PERF.md section 4)
 STARTREE_SF = 2
@@ -4796,6 +5398,18 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 17 (after 16, before 14): realtime and hybrid tables "
+        f"through the front door, {FRONT_SERVERS} servers at replication "
+        f"{FRONT_REPLICATION}")
+    t0 = time.perf_counter()
+    rt_cluster_run = phase_realtime_cluster(
+        main_run, args.reps, front=front_run["flights"], seed=args.seed)
+    timing += rt_cluster_run.pop("timing")
+    for k, v in rt_cluster_run.pop("errs").items():
+        errs[k] = max(errs[k], v)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
     realtime_run = _phase_14(args)
     timing += realtime_run.pop("timing")
     for k, v in realtime_run["errs"].items():
@@ -4809,7 +5423,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
                 sql_run["launches"]["per_segment"],
                 sql_run["launches"]["batch"], time_run["launches"],
                 text_run["launches"], realtime_run["launches"],
-                front_run["launches"]):
+                front_run["launches"], rt_cluster_run["launches"]):
         for k in launches:
             launches[k] += got.get(k, 0)
     idle = [k for k, n in launches.items() if n == 0]
@@ -4866,7 +5480,8 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "host": host_run, "combine": combine_run,
               "index": index_run, "budget": budget_run,
               "coalesce": coalesce_run, "realtime": realtime_run,
-              "scatter": scatter_run, "front_door": front_run}
+              "scatter": scatter_run, "front_door": front_run,
+              "realtime_cluster": rt_cluster_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]

@@ -17,11 +17,20 @@ the server is not counted as responded, the response carries a 427 and a
 ``gather:full_result->partial_result:<reason>`` decision
 (``GATHER_DECISION_REASONS``).
 
+A hybrid table (an offline and a realtime table under one name) splits
+at the time boundary (``_split_hybrid``): the offline side answers
+``time <= boundary`` and the realtime side ``time > boundary``, where the
+boundary is the offline side's largest segment end time less one
+(``routing.TimeBoundaryManager``); each side's filter gains that range
+leaf, and the executors' caches key on the filter's fingerprint, so the
+two sides of one SQL text never share a plan. Every outcome is a
+``hybrid:`` decision: ``hybrid_single_table``, ``hybrid_no_time_column``,
+``hybrid_no_boundary``, ``hybrid_time_split``.
+
 ``device`` is where the reduce merges (default ``"cuda"``; raises without
-a card). Not part of this module: the hybrid split (no REALTIME table can
-exist in the port's cluster yet, so ``_split_hybrid`` yields the one
-physical table) and the tracing and telemetry calls (the broker's span
-root, per-server trace tags, the windowed latency histograms).
+a card). Not part of this module: the tracing and telemetry calls (the
+broker's span root, per-server trace tags, the windowed latency
+histograms).
 """
 
 from __future__ import annotations
@@ -54,7 +63,15 @@ from pinot_tpu_torch.engine.results import (
 from pinot_tpu_torch.query import SqlParseError, compile_query
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.query.explain import EXPLAIN_COLUMNS, explain_rows
-from pinot_tpu_torch.query.expressions import FilterNode, Function, Literal
+from pinot_tpu_torch.query.expressions import (
+    FilterNode,
+    FilterOp,
+    Function,
+    Identifier,
+    Literal,
+    Predicate,
+    PredicateType,
+)
 from pinot_tpu_torch.server.admission import AdmissionGate
 from pinot_tpu_torch.server.scheduler import _DaemonPool
 from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
@@ -438,17 +455,37 @@ class BrokerRequestHandler:
     def _split_hybrid(self, ctx: QueryContext, physical: List[str],
                       stats: Optional[QueryStats] = None
                       ) -> List[Tuple[str, QueryContext]]:
-        """The one physical table, recorded as the JAX broker records a
-        single-table route (``hybrid:time_split->direct:
-        hybrid_single_table``). A hybrid table (offline and realtime under
-        one name) cannot exist in the port's cluster yet: its controller
-        refuses REALTIME tables."""
-        if len(physical) != 1:
-            raise QueryError(f"hybrid table {physical}: the time-boundary "
-                             "split is not ported")
-        record_decision(stats, "hybrid", "direct", "time_split",
-                        "hybrid_single_table")
-        return [(physical[0], ctx)]
+        """The physical tables to ask, each with its filter: a hybrid
+        table splits at the time boundary; every outcome is recorded."""
+        if len(physical) < 2:
+            record_decision(stats, "hybrid", "direct", "time_split",
+                            "hybrid_single_table")
+            return [(physical[0], ctx)]
+        offline = next(t for t in physical if t.endswith("_OFFLINE"))
+        realtime = next(t for t in physical if t.endswith("_REALTIME"))
+        cfg = self.store.get_table_config(offline)
+        tc = cfg.validation_config.time_column_name if cfg else None
+        if tc is None:
+            # no time column: the split's range cannot be written
+            record_decision(stats, "hybrid", "realtime_all", "time_split",
+                            "hybrid_no_time_column")
+            return [(realtime, ctx)]
+        boundary = self.routing.time_boundary.get_boundary(offline)
+        if boundary is None:
+            # no offline segment yet: the realtime side serves everything
+            record_decision(stats, "hybrid", "realtime_all", "time_split",
+                            "hybrid_no_boundary")
+            return [(realtime, ctx)]
+        record_decision(stats, "hybrid", "time_split", "realtime_all",
+                        "hybrid_time_split")
+        off_pred = FilterNode.pred(Predicate(
+            PredicateType.RANGE, Identifier(tc), upper=boundary,
+            upper_inclusive=True))
+        rt_pred = FilterNode.pred(Predicate(
+            PredicateType.RANGE, Identifier(tc), lower=boundary,
+            lower_inclusive=False))
+        return [(offline, replace(ctx, filter=_and(ctx.filter, off_pred))),
+                (realtime, replace(ctx, filter=_and(ctx.filter, rt_pred)))]
 
     # -- streaming scatter/gather: selection-only queries pull per-segment
     # blocks from all servers at once and stop the moment offset + limit
@@ -628,3 +665,9 @@ class BrokerRequestHandler:
 
     def shutdown(self) -> None:
         self._pool.stop()
+
+
+def _and(a: Optional[FilterNode], b: FilterNode) -> FilterNode:
+    if a is None:
+        return b
+    return FilterNode(FilterOp.AND, children=(a, b))

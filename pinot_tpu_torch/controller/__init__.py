@@ -1,6 +1,6 @@
 """The controller tier: the cluster state store (the Helix / ZooKeeper
-role), segment assignment and the cluster-mutation API, for offline
-tables."""
+role), segment assignment, the cluster-mutation API, and for realtime
+tables the LLC segment manager and the segment-completion FSM."""
 
 from pinot_tpu_torch.controller.state import (
     CONSUMING,
@@ -13,15 +13,28 @@ from pinot_tpu_torch.controller.state import (
 )
 from pinot_tpu_torch.controller.assignment import (
     BalancedSegmentAssignment,
+    PartitionedReplicaGroupAssignment,
     ReplicaGroupSegmentAssignment,
     SegmentAssignment,
     compute_instance_partitions,
 )
+from pinot_tpu_torch.controller.completion import (
+    FsmState,
+    SegmentCompletionManager,
+)
 from pinot_tpu_torch.controller.controller import Controller
+from pinot_tpu_torch.controller.llc import (
+    LLCRealtimeSegmentManager,
+    llc_segment_name,
+    parse_llc_name,
+)
 
 __all__ = [
     "CONSUMING", "ERROR", "OFFLINE", "ONLINE",
     "ClusterStateStore", "InstanceInfo", "SegmentZKMetadata",
-    "BalancedSegmentAssignment", "ReplicaGroupSegmentAssignment",
-    "SegmentAssignment", "compute_instance_partitions", "Controller",
+    "BalancedSegmentAssignment", "PartitionedReplicaGroupAssignment",
+    "ReplicaGroupSegmentAssignment", "SegmentAssignment",
+    "compute_instance_partitions", "FsmState", "SegmentCompletionManager",
+    "Controller", "LLCRealtimeSegmentManager", "llc_segment_name",
+    "parse_llc_name",
 ]

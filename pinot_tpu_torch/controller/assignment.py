@@ -2,10 +2,10 @@
 
 Counterpart of ``pinot_tpu/controller/assignment.py`` (the balanced
 assignment with failure domains, the replica-group assignment,
-``compute_instance_partitions``, ``assignment_for_table``): for the same
+``compute_instance_partitions``, the partitioned assignment of a
+realtime table's LLC segments, ``assignment_for_table``): for the same
 servers and segments the IdealState equals the JAX package's. The
-partitioned (realtime) assignment and the rebalance plan wait for the
-realtime cluster and the periodic tasks.
+rebalance plan waits for the periodic tasks.
 """
 
 from __future__ import annotations
@@ -91,6 +91,39 @@ def compute_instance_partitions(instances: List[str],
     for i, inst in enumerate(sorted(instances)):
         groups[i % max(num_groups, 1)].append(inst)
     return groups
+
+
+class PartitionedReplicaGroupAssignment(SegmentAssignment):
+    """Partition-aware: a segment of stream partition P lands on the
+    instance that owns P in each replica group (RealtimeSegmentAssignment's
+    partition mode)."""
+
+    def __init__(self, num_replica_groups: int = 1):
+        self.num_replica_groups = num_replica_groups
+
+    def assign(self, segment, current, instances, replication,
+               partition: Optional[int] = None):
+        if partition is None:
+            partition = _partition_from_llc_name(segment)
+        groups = compute_instance_partitions(instances,
+                                             self.num_replica_groups)
+        out = []
+        for g in groups[: replication]:
+            if g:
+                out.append(g[partition % len(g)])
+        return out
+
+
+def _partition_from_llc_name(segment: str) -> int:
+    """The partition of an LLC name, ``table__partition__sequence__seed``;
+    0 for any other name."""
+    parts = segment.split("__")
+    if len(parts) >= 3:
+        try:
+            return int(parts[1])
+        except ValueError:
+            pass
+    return 0
 
 
 def assignment_for_table(store: ClusterStateStore, table: str,

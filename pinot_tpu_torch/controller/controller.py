@@ -1,30 +1,37 @@
-"""Controller: the cluster-mutation API, cut to offline tables.
+"""Controller: the cluster-mutation API.
 
 Counterpart of ``pinot_tpu/controller/controller.py`` (``Controller``):
 schemas and tables (``add_table`` with the replica-group instance
-partitions), segment pushes and their assignment (``add_segment``),
+partitions, and for a REALTIME table one CONSUMING segment per stream
+partition), segment pushes and their assignment (``add_segment``),
 deletes, instance registration and tags, and the liveness check that
-marks an instance whose heartbeat went stale as dead. Realtime tables
-(the LLC manager, the segment-completion FSM and its commit handler),
-minion tasks, lineage, retention, rebalance and the periodic loop are not
-part of this module: ``add_table`` of a REALTIME table raises before it
-writes anything. The controller owns its cluster's deep store
+marks an instance whose heartbeat went stale as dead. The realtime path:
+the LLC segment manager (``controller/llc.py``), the segment-completion
+FSM (``controller/completion.py``) whose commit handler flips a
+committed segment ONLINE and opens the next sequence
+(``_on_segment_commit``), and ``run_realtime_validation``, which
+recreates a partition's dead CONSUMING segment. Minion tasks, lineage,
+retention, rebalance and the periodic loop (``start_periodic_tasks``)
+are not part of this module. The controller owns its cluster's deep store
 (``spi/filesystem.py`` ``MemoryDeepStore``), which its servers fetch
-from; deleting a segment or a table drops it there too.
+from and the completion FSM keeps committed realtime segments in;
+deleting a segment or a table drops it there too.
 
-A pushed segment's time range is the min and max of the table's time
-column (``segmentsConfig.timeColumnName``) in the segment, or of the
-schema's TIME / DATE_TIME column where the table names none; the JAX
-controller reads the range its segment builder recorded from the schema's
-time column alone.
+A segment's time range is the min and max of the table's time column
+(``segmentsConfig.timeColumnName``) in the segment, or of the schema's
+TIME / DATE_TIME column where the table names none
+(``state.segment_time_range``), for a push and a realtime commit alike;
+the JAX controller reads the range its segment builder recorded from the
+schema's time column alone.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional
 
 from pinot_tpu_torch.controller.assignment import (
     BalancedSegmentAssignment,
@@ -33,48 +40,49 @@ from pinot_tpu_torch.controller.assignment import (
     assignment_for_table,
     compute_instance_partitions,
 )
+from pinot_tpu_torch.controller.completion import SegmentCompletionManager
+from pinot_tpu_torch.controller.llc import (
+    LLCRealtimeSegmentManager,
+    parse_llc_name,
+)
 from pinot_tpu_torch.controller.state import (
     ONLINE,
     ClusterStateStore,
     InstanceInfo,
     SegmentZKMetadata,
+    segment_time_range,
 )
-from pinot_tpu_torch.engine.errors import QueryError
+from pinot_tpu_torch.ingestion.stream import StreamOffset
 from pinot_tpu_torch.segment.metadata import SegmentMetadata
 from pinot_tpu_torch.spi.filesystem import MemoryDeepStore
-from pinot_tpu_torch.spi.data import FieldType, Schema
-from pinot_tpu_torch.spi.table import TableConfig, TableType
+from pinot_tpu_torch.spi.data import Schema
+from pinot_tpu_torch.spi.table import (
+    TableConfig,
+    TableType,
+    table_type_from_name,
+)
 
 log = logging.getLogger(__name__)
-
-
-def segment_time_range(metadata: SegmentMetadata,
-                       time_column: Optional[str]
-                       ) -> Tuple[Optional[object], Optional[object]]:
-    """(min, max) of the time column over the segment's rows, ints for an
-    integral column; (None, None) without a time column or values."""
-    schema = metadata.schema
-    if time_column is None:
-        time_column = next(
-            (fs.name for fs in schema.field_specs
-             if fs.field_type in (FieldType.TIME, FieldType.DATE_TIME)),
-            None)
-    cm = metadata.columns.get(time_column) if time_column else None
-    if cm is None or cm.min_value is None:
-        return None, None
-    if cm.data_type.is_integral:
-        return int(cm.min_value), int(cm.max_value)
-    return cm.min_value, cm.max_value
 
 
 class Controller:
     """Single-controller deployment (the reference's lead controller)."""
 
     def __init__(self, store: Optional[ClusterStateStore] = None,
-                 controller_id: str = "controller_0"):
+                 controller_id: str = "controller_0",
+                 llc_seed: Optional[str] = None):
         self.store = store or ClusterStateStore()
         self.deep_store = MemoryDeepStore()
         self.controller_id = controller_id
+        self.llc = LLCRealtimeSegmentManager(self.store, seed=llc_seed)
+        self.completion = SegmentCompletionManager(
+            num_replicas_provider=self._num_replicas_for_segment,
+            commit_handler=self._on_segment_commit,
+            deep_store=self.deep_store, table_of=self._table_of)
+        # segment -> table for the FSM, filled by add_table, commits and
+        # validation from several threads
+        self._lock = threading.Lock()
+        self._segment_tables: Dict[str, str] = {}  # guarded-by: _lock
         self.store.register_instance(
             InstanceInfo(controller_id, "CONTROLLER"))
 
@@ -83,14 +91,13 @@ class Controller:
         self.store.add_schema(schema)
 
     def add_table(self, config: TableConfig) -> None:
-        """Validate, create the IdealState and, for replica-group routing,
-        store the instance partitions."""
+        """Validate, create the IdealState, for replica-group routing store
+        the instance partitions, and for a REALTIME table create one
+        CONSUMING segment per stream partition."""
         name = config.table_name_with_type
-        if config.table_type is TableType.REALTIME:
-            raise QueryError(
-                f"realtime table {name}: the port's cluster serves offline "
-                "tables only (realtime and hybrid tables in the cluster are "
-                "ROADMAP.md queue 1 item 5a)")
+        if config.table_type is TableType.REALTIME \
+                and config.stream_config is None:
+            raise ValueError("realtime table needs a stream config")
         if self.store.get_table_config(name) is not None:
             raise ValueError(f"table {name} already exists")
         if self.store.get_schema(config.table_name) is None:
@@ -112,6 +119,11 @@ class Controller:
         self.store.set_ideal_state(name, {})
         if groups is not None:
             self.store.set_instance_partitions(name, groups)
+        if config.table_type is TableType.REALTIME:
+            consuming = self.llc.setup_new_table(name)
+            with self._lock:
+                for seg in consuming:
+                    self._segment_tables[seg] = name
 
     def update_table(self, config: TableConfig) -> None:
         """Replace an existing table's config."""
@@ -121,8 +133,17 @@ class Controller:
         self.store.add_table_config(config)
 
     def delete_table(self, name_with_type: str) -> None:
+        """Drop the table, its segments' metadata, its deep-store entries
+        and its segments' completion FSMs (a table made again under the
+        name may reuse a segment name)."""
+        segments = self.store.segment_names(name_with_type)
         self.store.delete_table(name_with_type)
         self.deep_store.delete_table(name_with_type)
+        with self._lock:
+            for seg in segments:
+                self._segment_tables.pop(seg, None)
+        for seg in segments:
+            self.completion.forget(seg)
 
     def table_names(self) -> List[str]:
         return self.store.table_names()
@@ -182,6 +203,57 @@ class Controller:
 
         self.store.update_ideal_state(table, apply)
         self.deep_store.delete_segment(table, segment)
+
+    # -- segment completion ---------------------------------------------------
+    def _num_replicas_for_segment(self, segment_name: str) -> int:
+        table = self._table_of(segment_name)
+        if table:
+            ideal = self.store.get_ideal_state(table)
+            if segment_name in ideal:
+                return max(len(ideal[segment_name]), 1)
+        return 1
+
+    def _table_of(self, segment_name: str) -> Optional[str]:
+        with self._lock:
+            t = self._segment_tables.get(segment_name)
+        if t:
+            return t
+        try:
+            raw, _, _ = parse_llc_name(segment_name)
+        except ValueError:
+            return None
+        name = raw + "_REALTIME"
+        if self.store.get_table_config(name) is None:
+            return None
+        with self._lock:
+            self._segment_tables[segment_name] = name
+        return name
+
+    def _on_segment_commit(self, segment_name: str, instance: str,
+                           offset: StreamOffset, location: str,
+                           metadata: SegmentMetadata) -> None:
+        """The completion FSM's commit handler: the segment goes ONLINE
+        and the next sequence opens."""
+        table = self._table_of(segment_name)
+        if table is None:
+            raise KeyError(f"cannot resolve table for {segment_name}")
+        new_consuming = self.llc.commit_segment(
+            table, segment_name, offset, location, metadata)
+        with self._lock:
+            self._segment_tables[new_consuming] = table
+
+    def run_realtime_validation(self) -> List[str]:
+        """Recreate each realtime table's dead CONSUMING segments
+        (RealtimeSegmentValidationManager); -> the new segments."""
+        created = []
+        for table in self.store.table_names():
+            if table_type_from_name(table) is TableType.REALTIME:
+                fresh = self.llc.ensure_all_partitions_consuming(table)
+                with self._lock:
+                    for seg in fresh:
+                        self._segment_tables[seg] = table
+                created.extend(fresh)
+        return created
 
     # -- instances ----------------------------------------------------------
     def register_instance(self, info: InstanceInfo) -> None:

@@ -5,7 +5,8 @@ Counterpart of ``pinot_tpu/controller/state.py`` (``SegmentZKMetadata``,
 in-process store of schemas, table configs, segment metadata, IdealState
 and ExternalView maps, instance partitions and the instance registry,
 with path-prefix watches through which servers and the broker follow
-changes. Every mutation runs under one lock and bumps the version (the ZK
+changes. ``segment_time_range`` is the time range a pushed or committed
+segment records. Every mutation runs under one lock and bumps the version (the ZK
 zxid); watchers fire outside the lock, in mutation order, one draining
 thread at a time (``_drain_notifications``), and a watcher may mutate the
 store again.
@@ -27,7 +28,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from pinot_tpu_torch.spi.data import Schema
+from pinot_tpu_torch.spi.data import FieldType, Schema
 from pinot_tpu_torch.spi.table import TableConfig
 
 log = logging.getLogger(__name__)
@@ -38,6 +39,26 @@ ONLINE = "ONLINE"
 CONSUMING = "CONSUMING"
 OFFLINE = "OFFLINE"
 ERROR = "ERROR"
+
+
+def segment_time_range(metadata, time_column: Optional[str]
+                       ) -> Tuple[Optional[object], Optional[object]]:
+    """(min, max) of the time column over the rows of the segment whose
+    ``SegmentMetadata`` this is, ints for an integral column; (None, None)
+    without a time column or values. The schema's TIME / DATE_TIME column
+    stands in where the table names none."""
+    schema = metadata.schema
+    if time_column is None:
+        time_column = next(
+            (fs.name for fs in schema.field_specs
+             if fs.field_type in (FieldType.TIME, FieldType.DATE_TIME)),
+            None)
+    cm = metadata.columns.get(time_column) if time_column else None
+    if cm is None or cm.min_value is None:
+        return None, None
+    if cm.data_type.is_integral:
+        return int(cm.min_value), int(cm.max_value)
+    return cm.min_value, cm.max_value
 
 
 @dataclass

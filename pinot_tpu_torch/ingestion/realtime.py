@@ -15,24 +15,34 @@ in-memory ``ImmutableSegment`` with the default star-tree stamped on
 (unless the table configures trees) and the stream offsets and partition
 in its metadata's ``custom``; it replaces the consuming segment
 (``sealed_segment``, ``on_committed``), and the fused-scan kernel or its
-star-tree serves it from its first query. The JAX package writes the
-segment directory to disk and records telemetry; both wait for the
-on-disk segment format and the server.
+star-tree serves it from its first query. The JAX package also writes
+the segment directory to disk (the port has no on-disk format yet) and
+records the seal's telemetry (ROADMAP item 5b).
 
 ``upsert_hook(row, doc_id)`` runs after each indexed row. A table whose
 config enables upsert gets it from its upsert manager
-(``segment/upsert.py`` ``table_upsert_manager``, or the one passed in
-to share keys across a table's segments): the hook is the partition
+(``segment/upsert.py`` ``table_upsert_manager``, or the one passed in:
+in a cluster the server's table data manager's, so keys are shared
+across a table's segments on that server): the hook is the partition
 manager's ``add_record``, the consuming segment carries the live bitmap
 view, and the sealed segment takes the bitmap over. In the JAX package
 the server's table data manager does this wiring
 (``pinot_tpu/server/data_manager.py:209-224``, ``:277-291``).
+
+A server runs each consumer on its own thread (``start``, the
+reference's PartitionConsumer): it steps the state machine, waits a tick
+while HOLDing or while the stream has nothing new, and on a terminal
+state calls ``on_terminal(mgr)`` once, unless it was stopped. ``stop``
+joins the thread within a bounded wait and, unless the segment was
+committed or discarded, tells the protocol that this replica stopped
+consuming (``segment_stopped_consuming``), so it leaves the election.
 """
 
 from __future__ import annotations
 
 import enum
 import logging
+import threading
 import time
 
 from dataclasses import dataclass, replace
@@ -114,6 +124,11 @@ class SegmentCompletionProtocol:
                            metadata: SegmentMetadata) -> CompletionReply:
         raise NotImplementedError
 
+    def segment_stopped_consuming(self, segment_name: str, instance: str,
+                                  reason: str) -> None:
+        """This replica stopped consuming the segment (unassigned, shut
+        down, failed)."""
+
 
 class LocalCompletionProtocol(SegmentCompletionProtocol):
     """One replica: the consumer always commits, and the sealed segment
@@ -147,10 +162,14 @@ class ConsumptionResult:
 
 class RealtimeSegmentDataManager:
     """One consuming segment of one stream partition, driven by its
-    caller (``run_once``, ``consume_until_committed``): the server's
-    consumer thread is not ported."""
+    caller (``run_once``, ``consume_until_committed``) or by its own
+    thread (``start`` / ``stop``)."""
 
     MAX_CONSUME_ERRORS = 100
+    # the thread's wait while HOLDing or while the stream has nothing new
+    TICK_S = 0.02
+    # the longest ``stop`` waits for the thread to end
+    STOP_JOIN_S = 10.0
 
     def __init__(self, segment_name: str, table_config: TableConfig,
                  schema: Schema, partition: int,
@@ -161,7 +180,9 @@ class RealtimeSegmentDataManager:
                  on_committed: Optional[Callable[
                      ["RealtimeSegmentDataManager", SegmentMetadata,
                       ImmutableSegment], None]] = None,
-                 upsert_manager: Optional[TableUpsertMetadataManager] = None):
+                 upsert_manager: Optional[TableUpsertMetadataManager] = None,
+                 on_terminal: Optional[Callable[
+                     ["RealtimeSegmentDataManager"], None]] = None):
         sc = table_config.stream_config
         if sc is None:
             raise ValueError("table has no stream config")
@@ -172,6 +193,7 @@ class RealtimeSegmentDataManager:
         self.instance_id = instance_id
         self.protocol = protocol or LocalCompletionProtocol()
         self.on_committed = on_committed
+        self.on_terminal = on_terminal
 
         factory = consumer_factory or create_consumer_factory(sc)
         self._consumer = factory.create_partition_consumer(partition)
@@ -210,6 +232,11 @@ class RealtimeSegmentDataManager:
         self.sealed_segment: Optional[ImmutableSegment] = None
         #: wall ms of the last seal (build_segment)
         self.seal_wall_ms: Optional[float] = None
+        #: monotonic s: the thread's start, and the flush threshold reached
+        self.started_at: Optional[float] = None
+        self.threshold_at: Optional[float] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
 
     # -- consume --------------------------------------------------------------
     def _index_batch(self, limit_offset: Optional[StreamOffset] = None
@@ -259,6 +286,7 @@ class RealtimeSegmentDataManager:
                     self.state = ConsumerState.HOLDING
             elif self._threshold_reached():
                 self.state = ConsumerState.HOLDING
+                self.threshold_at = time.monotonic()
 
         if self.state is ConsumerState.HOLDING:
             reply = self.protocol.segment_consumed(
@@ -356,3 +384,54 @@ class RealtimeSegmentDataManager:
                                  self.rows_dropped, self.current_offset,
                                  self.sealed_segment,
                                  self._committed_metadata)
+
+    # -- the consumer thread --------------------------------------------------------
+    def start(self) -> None:
+        tick = self.TICK_S
+
+        def loop():
+            while not self._stop.is_set():
+                st = self._run_once_resilient()
+                if st in _TERMINAL:
+                    break
+                if self._consecutive_errors > 0:
+                    # exponential backoff capped at 5 s: an outage shorter
+                    # than the error budget resumes instead of ERROR
+                    self._stop.wait(min(tick * 2 ** min(
+                        self._consecutive_errors, 10), 5.0))
+                elif st is ConsumerState.HOLDING \
+                        or not self._has_new_data():
+                    self._stop.wait(tick)
+            self._consumer.close()
+            if self.on_terminal is not None and not self._stop.is_set():
+                try:
+                    self.on_terminal(self)
+                except Exception:
+                    log.exception("on_terminal failed for %s",
+                                  self.segment_name)
+
+        self.started_at = time.monotonic()
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name=f"consumer-{self.segment_name}")
+        self._thread.start()
+
+    def _has_new_data(self) -> bool:
+        try:
+            return self._peek_new_data()
+        except Exception:
+            return False    # a failing fetch: wait a tick, try again
+
+    def _peek_new_data(self) -> bool:
+        batch = self._consumer.fetch_messages(self.current_offset,
+                                              max_messages=1)
+        return batch.message_count > 0
+
+    def stop(self, reason: str = "shutdown") -> None:
+        self._stop.set()
+        if self._thread is not None \
+                and self._thread is not threading.current_thread():
+            self._thread.join(timeout=self.STOP_JOIN_S)
+        if self.state not in (ConsumerState.COMMITTED,
+                              ConsumerState.DISCARDED):
+            self.protocol.segment_stopped_consuming(
+                self.segment_name, self.instance_id, reason)

@@ -13,8 +13,8 @@ host engine), so each key shows one live doc.
 ``valid_doc_ids``: each read sees the bitmap as it is now, and its
 ``version`` (bumped on every change) keys the device snapshot cache
 (``engine/mutable_staging.py``). Its JAX home is
-``pinot_tpu/server/data_manager.py:25-51``; the server is not ported, so
-the view lives here.
+``pinot_tpu/server/data_manager.py:25-51``; here it sits beside the
+manager it reads, for the standalone consumer and the server alike.
 """
 
 from __future__ import annotations
@@ -187,14 +187,16 @@ class TableUpsertMetadataManager:
             return m
 
 
-def table_upsert_manager(table_config, schema
+def table_upsert_manager(table_config, schema,
+                         time_column: Optional[str] = None
                          ) -> Optional[TableUpsertMetadataManager]:
     """The upsert manager a realtime table's config asks for, or None
     (JAX: ``pinot_tpu/server/server.py:200-226``): keyed on the schema's
-    primary key; the config's comparison column decides, or, with none,
-    the latest arrival wins (the port's table config has no time column).
-    PARTIAL raises: the JAX package serves it as FULL, and the port does
-    not take that on."""
+    primary key; the config's comparison column decides, else
+    ``time_column`` (a cluster's server passes the table's time column, as
+    the JAX server does), else the latest arrival wins (the standalone
+    consumer). PARTIAL raises: the JAX package serves it as FULL, and the
+    port does not take that on."""
     uc = table_config.upsert_config
     if uc is None or uc.mode is UpsertMode.NONE:
         return None
@@ -204,7 +206,7 @@ def table_upsert_manager(table_config, schema
         raise ValueError(f"upsert table {table_config.table_name!r}: the "
                          "schema has no primary key columns")
     return TableUpsertMetadataManager(schema.primary_key_columns,
-                                      uc.comparison_column)
+                                      uc.comparison_column or time_column)
 
 
 def attach_valid_docs(segment, valid) -> None:

@@ -1,22 +1,31 @@
 """Server instance: segment hosting and instance-level query execution.
 
-Counterpart of ``pinot_tpu/server/server.py`` (``ServerInstance`` :49),
-for offline tables: the server registers itself in the cluster state
-store, watches the IdealState, reconciles its assigned segments (OFFLINE
--> ONLINE: fetch the segment from its cluster's deep store and host it;
-unassigned: drop it), reports ExternalView states, and answers instance
-query requests through its scheduler into ``ServerQueryExecutor
-.execute_instance``. Hosting a segment prefetches it to the card in the
-background (``segment_added``), dropping it evicts it
+Counterpart of ``pinot_tpu/server/server.py`` (``ServerInstance`` :49):
+the server registers itself in the cluster state store, watches the
+IdealState, reconciles its assigned segments, reports ExternalView
+states, and answers instance query requests through its scheduler into
+``ServerQueryExecutor.execute_instance``. The transitions: OFFLINE ->
+ONLINE fetches the segment from its cluster's deep store and hosts it;
+OFFLINE -> CONSUMING starts a consumer thread for the segment's stream
+partition at its start offset, negotiating its commit through the
+server's completion protocol (the controller's completion FSM in a
+cluster); the consumer's end seals the segment (COMMITTED: its own seal;
+KEEP: it seals its own rows; DISCARD: it fetches the committer's seal)
+and swaps it in under running queries, then picks up the next sequence;
+unassigned drops the segment (and stops its consumer). An upsert table
+gets one upsert manager a server, comparing on the config's comparison
+column, else the table's time column. Hosting a segment prefetches it to
+the card in the background (``segment_added``), and a seal evicts the
+consuming segment's resident first; dropping a segment evicts it
 (``segment_removed``). Every failure inside a query travels in-band as an
 exception ``DataTable``, Pinot's contract; the broker reports it as a
 partial result.
 
 The executor defaults to ``ServerQueryExecutor(device="cuda")``; a caller
 on the CPU passes ``executor=ServerQueryExecutor(device="cpu")``. Not part
-of this module: consuming segments, the seal swap and reload, the upsert
-manager, ``table_size`` (on-disk bytes), and the telemetry, SLO,
-freshness, flight-recorder and kernel-blocklist debug views.
+of this module: reload (it rewrites segments on disk, ROADMAP item 7),
+``table_size`` (on-disk bytes), and the telemetry, SLO, freshness,
+flight-recorder and kernel-blocklist debug views.
 """
 
 from __future__ import annotations
@@ -29,15 +38,27 @@ from typing import Any, Dict, List, Optional
 
 from pinot_tpu_torch.common.datatable import DataTable
 from pinot_tpu_torch.controller.state import (
+    CONSUMING,
     OFFLINE,
     ONLINE,
     ClusterStateStore,
     InstanceInfo,
 )
 from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+from pinot_tpu_torch.engine.mutable_staging import resident_name
 from pinot_tpu_torch.engine.pruner import prune_segments
+from pinot_tpu_torch.ingestion.realtime import (
+    ConsumerState,
+    RealtimeSegmentDataManager,
+    SegmentCompletionProtocol,
+)
+from pinot_tpu_torch.ingestion.stream import StreamOffset
 from pinot_tpu_torch.query.context import QueryContext
-from pinot_tpu_torch.server.data_manager import InstanceDataManager
+from pinot_tpu_torch.segment.upsert import table_upsert_manager
+from pinot_tpu_torch.server.data_manager import (
+    InstanceDataManager,
+    RealtimeTableDataManager,
+)
 from pinot_tpu_torch.server.scheduler import make_scheduler
 from pinot_tpu_torch.spi.config import CommonConstants
 from pinot_tpu_torch.spi.filesystem import MemoryDeepStore
@@ -57,11 +78,14 @@ class ServerInstance:
 
     def __init__(self, instance_id: str, store: ClusterStateStore,
                  deep_store: MemoryDeepStore,
+                 completion_protocol: Optional[
+                     SegmentCompletionProtocol] = None,
                  executor: Optional[ServerQueryExecutor] = None,
                  config=None):
         self.instance_id = instance_id
         self.store = store
         self.deep_store = deep_store
+        self.completion_protocol = completion_protocol
         self.executor = executor or ServerQueryExecutor(config=config)
         # runner pool from pinot.server.query.runner.threads; the policy
         # from pinot.server.query.scheduler.policy (default SEWF)
@@ -82,6 +106,7 @@ class ServerInstance:
         self._started = False
         self._queries_enabled = False
         self._reconcile_lock = threading.RLock()
+        self._upsert_managers: Dict[str, Any] = {}  # guarded-by: _reconcile_lock
         self._hb_stop: Optional[threading.Event] = None
         self._hb_thread: Optional[threading.Thread] = None
 
@@ -96,6 +121,7 @@ class ServerInstance:
         # replay the current assignments, then follow changes (the Helix
         # participant registration and state-transition replay)
         self.store.watch("idealstate/", self._on_ideal_state_change)
+        self.store.watch("tables/", self._on_table_config_change)
         for path in self.store.children("idealstate"):
             self._reconcile_table(path.split("/", 1)[1])
         self._started = True
@@ -136,8 +162,21 @@ class ServerInstance:
     def segment_added(self, table: str, segment) -> None:
         """Prefetch hook: stage a newly hosted segment in the background,
         so the table's first query pays no host-to-device copy (the
-        prefetch stops at the budget instead of evicting)."""
+        prefetch stops at the budget instead of evicting, and skips a
+        consuming segment). A sealed segment that replaces a consuming one
+        makes the consuming resident's chunks dead weight: they go first
+        (a query in flight keeps its snapshot)."""
+        if not getattr(segment, "is_mutable", False):
+            self.executor.residency.evict(resident_name(segment.segment_name))
         self.executor.residency.prefetch(segment)
+
+    def segment_released(self, table: str, segment) -> None:
+        """Release hook: a replaced or removed consuming segment's last
+        reader let go, so its resident goes too (a query that acquired it
+        before the seal may have staged it again after ``segment_added``
+        evicted it)."""
+        if getattr(segment, "is_mutable", False):
+            self.executor.residency.evict(resident_name(segment.segment_name))
 
     def segment_removed(self, table: str, segment_name: str) -> None:
         """Eviction hook: an unassigned segment's device arrays go (its
@@ -155,17 +194,45 @@ class ServerInstance:
             log.exception("[%s] reconcile failed for %s",
                           self.instance_id, table)
 
+    def _on_table_config_change(self, path: str, value) -> None:
+        """A deleted table's config: drop what is left of it here (its
+        IdealState may have gone while the config still stood)."""
+        if self._started and value is None:
+            self._on_ideal_state_change(path, value)
+
     def _reconcile_table(self, table: str) -> None:
         with self._reconcile_lock:
             self._reconcile_table_locked(table)
 
+    def _upsert_manager_for_locked(self, table: str):
+        """The upsert manager of an upsert-enabled realtime table, one a
+        server; None for another table, or while its config or schema is
+        not visible yet (decided again at a later reconcile)."""
+        if table in self._upsert_managers:
+            return self._upsert_managers[table]
+        cfg = self.store.get_table_config(table)
+        if cfg is None:
+            return None
+        schema = self.store.get_schema(cfg.table_name)
+        if schema is None:
+            return None
+        mgr = table_upsert_manager(cfg, schema,
+                                   cfg.validation_config.time_column_name)
+        self._upsert_managers[table] = mgr
+        return mgr
+
     def _reconcile_table_locked(self, table: str) -> None:
-        if table_type_from_name(table) is TableType.REALTIME:
-            log.warning("[%s] %s: the port's server hosts offline tables "
-                        "only", self.instance_id, table)
+        if self.store.get_table_config(table) is None:
+            # deleted: its manager, consumers and upsert keys go with it
+            self.data_manager.remove(table)
+            self._upsert_managers.pop(table, None)
             return
         ideal = self.store.get_ideal_state(table)
-        tdm = self.data_manager.get_or_create(table)
+        realtime = table_type_from_name(table) is TableType.REALTIME
+        tdm = self.data_manager.get_or_create(
+            table, realtime=realtime,
+            upsert_manager=(self._upsert_manager_for_locked(table)
+                            if realtime else None))
         my_segments = {seg: states[self.instance_id]
                        for seg, states in ideal.items()
                        if self.instance_id in states}
@@ -178,8 +245,15 @@ class ServerInstance:
         for seg, target in my_segments.items():
             if target == ONLINE:
                 self._ensure_online(table, tdm, seg)
+            elif target == CONSUMING:
+                self._ensure_consuming(table, tdm, seg)
 
     def _ensure_online(self, table: str, tdm, seg: str) -> None:
+        realtime = isinstance(tdm, RealtimeTableDataManager)
+        if realtime and tdm.consuming_manager(seg) is not None:
+            # the flip to ONLINE came before this replica's consumer
+            # ended: its terminal callback swaps the seal in
+            return
         if tdm.has_segment(seg):
             return
         md = self.store.get_segment_metadata(table, seg)
@@ -193,8 +267,72 @@ class ServerInstance:
             log.exception("[%s] deep-store fetch failed for %s/%s (%s)",
                           self.instance_id, table, seg, md.download_url)
             return
-        tdm.add_segment(segment)
+        if realtime:
+            # an upsert table registers the fetched segment's keys
+            tdm.on_sealed(seg, segment, partition=md.partition,
+                          fetched=True)
+        else:
+            tdm.add_segment(segment)
         self.store.report_instance_state(table, seg, self.instance_id, ONLINE)
+
+    def _ensure_consuming(self, table: str, tdm, seg: str) -> None:
+        if tdm.consuming_manager(seg) is not None or tdm.has_segment(seg):
+            return
+        cfg = self.store.get_table_config(table)
+        schema = (self.store.get_schema(cfg.table_name)
+                  if cfg is not None else None)
+        md = self.store.get_segment_metadata(table, seg)
+        if schema is None or md is None:
+            log.warning("[%s] missing config for consuming %s/%s",
+                        self.instance_id, table, seg)
+            return
+        mgr = RealtimeSegmentDataManager(
+            seg, cfg, schema, partition=md.partition or 0,
+            start_offset=StreamOffset.parse(md.start_offset or "0"),
+            protocol=self.completion_protocol,
+            instance_id=self.instance_id,
+            upsert_manager=tdm.upsert_manager,
+            on_terminal=lambda m, t=table, td=tdm: self._on_consumer_done(
+                t, td, m))
+        tdm.add_consuming(mgr)
+        self.store.report_instance_state(table, seg, self.instance_id,
+                                         CONSUMING)
+        mgr.start()
+
+    def _on_consumer_done(self, table: str, tdm, mgr) -> None:
+        """A consumer's terminal state: COMMITTED swaps its own seal in,
+        RETAINING (KEEP) seals its own rows at the committed offset,
+        DISCARDED fetches the committer's seal, ERROR stays CONSUMING in
+        the ExternalView (the segment never comes ONLINE here)."""
+        seg = mgr.segment_name
+        if tdm.consuming_manager(seg) is not mgr:
+            return      # unassigned or replaced meanwhile: do not revive
+        try:
+            if mgr.state is ConsumerState.COMMITTED:
+                tdm.on_sealed(seg, mgr.sealed_segment)
+            elif mgr.state is ConsumerState.RETAINING:
+                tdm.on_sealed(seg, mgr.build_segment())
+            elif mgr.state is ConsumerState.DISCARDED:
+                zk = self.store.get_segment_metadata(table, seg)
+                if zk is None or not zk.download_url:
+                    # the committer's metadata is not visible yet: drop
+                    # the consumer, a later reconcile fetches it ONLINE
+                    tdm.drop_consumer(seg)
+                    tdm.remove_segment(seg)
+                    return
+                tdm.on_sealed(seg, self.deep_store.fetch_segment(
+                    zk.download_url), fetched=True)
+            else:
+                log.error("[%s] consumer for %s ended in %s",
+                          self.instance_id, seg, mgr.state)
+                return
+            self.store.report_instance_state(table, seg, self.instance_id,
+                                             ONLINE)
+            # pick up the next CONSUMING sequence now
+            self._reconcile_table(table)
+        except Exception:
+            log.exception("[%s] seal handling failed for %s",
+                          self.instance_id, seg)
 
     # -- query path (InstanceRequestHandler -> scheduler -> executor) ---------
     def execute_query(self, ctx: QueryContext, table: str,

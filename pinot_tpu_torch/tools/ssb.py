@@ -26,6 +26,9 @@ device top-k serve (percentile and mode, a grouped t-digest, a grouped
 DISTINCTCOUNT, SELECT DISTINCT, unordered and ordered selections), with
 their oracle written out in numpy over the frames.
 
+``frame_rows`` turns a frame into the JSON row dicts a realtime
+``lineorder`` table's stream carries.
+
 ``ssb_indexing_config()`` is the table's five star-trees (the JAX
 package's), which ``build_segments(..., star_tree=True)`` builds in a
 process pool; ``STARTREE_QUERIES`` are the star-tree's other routes on
@@ -199,6 +202,21 @@ def decode_frame(frame: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """String codes -> numpy string arrays (for comparisons at small size)."""
     return {c: (UNIVERSE[c][v] if c in UNIVERSE else v)
             for c, v in frame.items()}
+
+
+def frame_rows(frame: Dict[str, np.ndarray], start: int = 0,
+               stop: Optional[int] = None) -> List[Dict[str, Any]]:
+    """Rows ``[start, stop)`` of a frame as the row dicts a stream carries
+    (``json.dumps`` of each is its message): strings for the coded
+    columns, ints for the rest, in ``COLUMNS`` order."""
+    n = len(frame["lo_quantity"])
+    stop = n if stop is None else min(stop, n)
+    cols = {col: (UNIVERSE[col][frame[col][start:stop]].tolist()
+                  if col in UNIVERSE
+                  else np.asarray(frame[col][start:stop]).tolist())
+            for col, _, _ in COLUMNS}
+    names = list(cols)
+    return [dict(zip(names, vals)) for vals in zip(*cols.values())]
 
 
 def _dict_encode(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -19,7 +19,6 @@ from pinot_tpu.spi import table as jtable
 from pinot_tpu_torch.controller import assignment as tassign
 from pinot_tpu_torch.controller import controller as tcontroller
 from pinot_tpu_torch.controller import state as tstate
-from pinot_tpu_torch.engine.errors import QueryError
 from pinot_tpu_torch.segment import SegmentBuilder
 from pinot_tpu_torch.spi import data as tdata
 from pinot_tpu_torch.spi import table as ttable
@@ -189,11 +188,13 @@ def test_controller_ideal_state_equal(selector, domains):
 
 
 def test_realtime_table_refused_whole():
+    """A REALTIME table without a stream config is refused before the
+    controller writes anything."""
     c = tcontroller.Controller()
     c.add_schema(tdata.Schema("rt", [tdata.FieldSpec("k",
                                                      tdata.DataType.INT)]))
     before = c.store.version
-    with pytest.raises(QueryError, match="queue 1 item 5a"):
+    with pytest.raises(ValueError, match="stream config"):
         c.add_table(ttable.TableConfig("rt", ttable.TableType.REALTIME))
     assert c.store.version == before
     assert c.table_names() == []
