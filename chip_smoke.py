@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--seed 42] [--reps 5]
                           [--user-segments 8] [--user-rows 2500000]
-                          [--startree-sf 2] [--startree-only]
+                          [--startree-sf 1] [--startree-only]
                           [--out-dir DIR]
 
 Phases:
@@ -205,12 +205,30 @@ Phases:
      user_events again as an upsert table on user_id (220 k rows, flush
      50 k, 1 partition, replication 2): U1-U7 == the oracle over each
      user's latest row; then one sealed realtime segment's U2 scan against
-     the kernel's plain version and timed;
- 14. (after 17) a realtime user-events table: 2.5 M rows
+     the kernel's plain version and timed; every query's launches read
+     from its own stats;
+ 18. (after 17, on its cluster) tracing and telemetry through the front
+     door: (18a) the 13 flights with OPTION(trace=true) ``--reps`` times
+     == phase 4's rows, each response one broker root (Compile, Routing,
+     ScatterGather, Reduce), every server's tree under ScatterGather
+     tagged with its instance, every span closed, the fused-scan Kernel
+     spans one a kept segment, their launches == the servers' per-query
+     scanLaunches + probeLaunches == phase 16a's for the flight; an
+     untraced run carries no traceInfo; per flight each span name's p50,
+     the first pass's tree and the slowest later one's logged; (18b)
+     C1-C8 traced from 8
+     client threads, each query's launch counts == its solo counts;
+     (18c) the broker's telemetry / SLO / freshness / flight-recorder
+     snapshots and each server's debug views as JSON, the broker and
+     server_exec histograms' counts == the queries sent, phase 17's
+     realtime tables in the freshness view, the decision ledger's delta
+     == the sum of the responses' decisions; the cluster's shutdown
+     leaves no sampler thread and no recorder file;
+ 14. (after 18) a realtime user-events table: 1.5 M rows
      as JSON messages on a one-partition MemoryStream consumed by
      RealtimeSegmentDataManager into a consuming segment on the card
      (``engine/mutable_staging.py``): (14a) at 700, 1000 and 5000 rows and
-     at 2.5 M, U1-U7 and R1-R3 of tools/usertable.py
+     at 1.5 M, U1-U7 and R1-R3 of tools/usertable.py
      ``realtime_queries`` == the numpy oracle over the rows indexed so
      far, on ``mutable_device`` (U1 / U3 on its index gather, R3's HLL
      declined to the host engine), the bytes uploaded between two
@@ -232,8 +250,8 @@ segments on the per-segment path (``index_missing_index`` and the other
 JAX codes), which every phase asserts beside its other decisions.
 Then a "rungs" line of the segments each rung served and the declines and
 paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
-kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16 and 17, and
-of 13b for the query axis; the top-k, the jnp combine and the index gather are
+kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16, 17 and 18,
+and of 13b for the query axis; the top-k, the jnp combine and the index gather are
 PyTorch ops, not hand kernels).
 Phases 4, 6, 7, 9, 10 and 11 assert launches
 per query from the segments the pruner keeps, once those
@@ -3421,7 +3439,9 @@ def phase_startree(sf: float, segments: int, seed: int, reps: int,
 
 # -- phase 14: a realtime user-events table -------------------------------------
 
-REALTIME_ROWS = 2_500_000
+# 2.5 M until phase 18 joined the script, which must end within 1200 s
+# on a slow host too (PERF.md section 4)
+REALTIME_ROWS = 1_500_000
 # watermarks of 14a before the bulk: below the chunk floor (1024 rows), in
 # the same chunk, and one that regrows the chunks (to 8192 rows)
 REALTIME_STEPS = (700, 1000, 5000)
@@ -4792,10 +4812,9 @@ def _rt_user_queries(cluster, ctxs: dict, wants: dict, sealed: int,
     """U1-U7 and R1-R3 through ``cluster.query``, == ``wants``: R1 and R2
     on the sealed segments' star-tree, every group-by but R3 on
     ``mutable_device`` over the consuming segments; then U2 with
-    OPTION(useStarTree=false) on the fused scan over the sealed segments
-    (read off the process-wide counter around the query: a server's
-    stats count every launch in its process while its query runs, so
-    two servers asked at once each count the other's). -> per query
+    OPTION(useStarTree=false) on the fused scan over the sealed segments,
+    read from the query's own stats (the servers' counts merged), which
+    must agree with the process-wide counter around it. -> per query
     ms."""
     from pinot_tpu_torch.tools import usertable
 
@@ -4818,10 +4837,13 @@ def _rt_user_queries(cluster, ctxs: dict, wants: dict, sealed: int,
                 and rungs.get("mutable_device") != consuming:
             raise AssertionError(f"{what} {qid}: rungs {rungs}")
         want = sealed if device == "cuda" else 0
-        got = counters["fused_scan"].launches - n0
-        if qid == "U2 scan" and got != want:
-            raise AssertionError(f"{what} {qid}: {got} fused launches, "
-                                 f"not {want}")
+        got = resp.stats.scan_launches
+        if got != counters["fused_scan"].launches - n0 \
+                or (qid == "U2 scan" and got != want):
+            raise AssertionError(
+                f"{what} {qid}: {got} fused launches in the stats, "
+                f"{counters['fused_scan'].launches - n0} counted, "
+                f"not {want}")
     return out
 
 
@@ -5151,7 +5173,8 @@ def phase_realtime_cluster(main: dict, reps: int, device: str = "cuda",
                            ssb_flush: int = RT_SSB_FLUSH,
                            upsert_rows: int = RT_UPSERT_ROWS,
                            upsert_flush: int = RT_UPSERT_FLUSH,
-                           front: dict = None, seed: int = 42) -> dict:
+                           front: dict = None, seed: int = 42,
+                           hand_over: list = None) -> dict:
     """Phase 17: realtime and hybrid tables through the front door. Phase
     16's cluster again (``servers`` servers, the residency budget, the
     device merge, phase 4's segments pushed as ``ssb_lineorder_OFFLINE``
@@ -5186,7 +5209,9 @@ def phase_realtime_cluster(main: dict, reps: int, device: str = "cuda",
     ``upsert_flush``): U1-U7 == the oracle over each user's latest row.
     On the card, one sealed realtime segment's U2 scan is held against the
     kernel's plain version and timed. -> the report, with the fused
-    launches of 17a and 17c (``launches``) and the timing rows."""
+    launches of 17a and 17c (``launches``) and the timing rows. With
+    ``hand_over`` (a list), a cluster that passed every check is appended
+    to it instead of shut down (phase 18 runs on it)."""
     import torch
 
     from pinot_tpu_torch.engine.executor import ServerQueryExecutor
@@ -5201,6 +5226,7 @@ def phase_realtime_cluster(main: dict, reps: int, device: str = "cuda",
     counters = scan_counters()
     _reset(counters)
     total = user_rows + 2 * more_rows
+    passed = False
     try:
         frame = usertable.generate_frame(0, 1, total, seed)
         users = usertable.tail_users(total, 1, seed)
@@ -5217,8 +5243,12 @@ def phase_realtime_cluster(main: dict, reps: int, device: str = "cuda",
         out["upsert"] = _rt_upsert(cluster, seed, user, upsert_rows,
                                    upsert_flush, device)
         out["upsert"]["seconds"] = time.perf_counter() - t0
+        passed = True
     finally:
-        cluster.shutdown()
+        if passed and hand_over is not None:
+            hand_over.append(cluster)
+        else:
+            cluster.shutdown()
     out["launches"] = {k: counters[k].launches
                        for k in ("fused_scan", "fused_scan_probe")}
     if device == "cuda" and not all(out["launches"].values()):
@@ -5240,9 +5270,296 @@ def phase_realtime_cluster(main: dict, reps: int, device: str = "cuda",
     return out
 
 
-# phase 12's default SSB scale: its tree build and queries within about
-# 150 s on the card's host (PERF.md section 4)
-STARTREE_SF = 2
+# -- phase 18: tracing and telemetry through the front door ------------------------
+
+# the flights whose group space the fused scan narrows with a probe (phase
+# 16a's count of probe launches)
+PROBE_FLIGHTS = ("Q3.2", "Q4.3")
+# 18b: client threads and passes over C1-C8
+TRACE_CLIENTS = 8
+TRACE_ROUNDS = 2
+# 18c: phase 17's realtime tables, by their raw names
+RT_FRESH_TABLES = ("user_events", "ssb_lineorder")
+
+
+def _spans(d: dict):
+    yield d
+    for c in d.get("children", ()):
+        yield from _spans(c)
+
+
+def _tree_text(d: dict) -> str:
+    """A span tree on one line: name ms [children]."""
+    kids = d.get("children")
+    tag = d.get("instance") or d.get("segment") or ""
+    head = f"{d['name']}{'@' + tag if tag else ''} {d['ms']:.3f}"
+    return head + (" [" + ", ".join(_tree_text(c) for c in kids) + "]"
+                   if kids else "")
+
+
+def _check_trace(what: str, resp) -> dict:
+    """One traced response's tree: a broker root with Compile, Routing,
+    ScatterGather and Reduce, one ServerQuery a queried server under
+    ScatterGather tagged with its instance (SchedulerQueue first), every
+    span closed; the fused-scan Kernel spans' launches == the stats'
+    scanLaunches + probeLaunches. -> {kernel spans, their launches}."""
+    spans = resp.trace_info.get("spans") if resp.trace_info else None
+    if not spans or len(spans) != 1 or spans[0]["name"] != "BrokerQuery":
+        raise AssertionError(f"{what}: traceInfo {resp.trace_info}")
+    root = spans[0]
+    names = [c["name"] for c in root.get("children", [])]
+    if [n for n in names if n != "Admission"] != [
+            "Compile", "Routing", "ScatterGather", "Reduce"]:
+        raise AssertionError(f"{what}: broker children {names}")
+    sg = root["children"][names.index("ScatterGather")]
+    servers = sg.get("children", [])
+    insts = [s.get("instance") for s in servers]
+    if (len(servers) != resp.num_servers_queried
+            or any(s["name"] != "ServerQuery" for s in servers)
+            or None in insts or len(set(insts)) != len(insts)
+            or any(s["children"][0]["name"] != "SchedulerQueue"
+                   for s in servers)):
+        raise AssertionError(f"{what}: server trees {insts}, "
+                             f"{resp.num_servers_queried} queried")
+    for d in _spans(root):
+        if not isinstance(d.get("ms"), (int, float)) or d["ms"] < 0:
+            raise AssertionError(f"{what}: an unclosed span {d['name']}")
+    kernels = [d for d in _spans(root) if d["name"] == "Kernel"
+               and d.get("kernel") == "fused_scan"]
+    launched = sum(d["launches"] for d in kernels)
+    if launched != resp.stats.scan_launches + resp.stats.probe_launches:
+        raise AssertionError(
+            f"{what}: Kernel spans count {launched} launches, the stats "
+            f"{resp.stats.scan_launches} + {resp.stats.probe_launches}")
+    if not all(e.get("instance") for e in resp.trace_info["entries"]):
+        raise AssertionError(f"{what}: an untagged trace entry")
+    return {"kernel_spans": len(kernels), "launches": launched}
+
+
+def _histo_counts(snap: dict) -> dict:
+    return {k: h["lifetime"]["count"]
+            for k, h in snap["histograms"].items()}
+
+
+def phase_trace(main: dict, reps: int, device: str = "cuda",
+                cluster=None, servers: int = FRONT_SERVERS,
+                fresh_tables: tuple = ()) -> dict:
+    """Phase 18: tracing and telemetry through the front door, on
+    ``cluster`` (phase 17's, handed over) or on a new phase 16 cluster;
+    shut down at the end either way.
+
+    (18a) the 13 flights with OPTION(trace=true) through
+    ``cluster.query`` ``reps`` times == phase 4's rows (and the oracle),
+    each response's tree checked (``_check_trace``): the fused-scan
+    Kernel spans one a kept segment, their launches == the servers'
+    scanLaunches + probeLaunches == phase 16a's for the flight; then the
+    flight untraced: no traceInfo. Logged per flight: each span name's
+    p50, the first traced pass's whole tree and the slowest of the other
+    passes' (the p99 query at ``reps`` 5). (18b) C1-C8 traced,
+    each alone first, then from ``TRACE_CLIENTS`` threads: every query's
+    launch counts == its solo counts, rows == the oracle. (18c) the
+    broker's four telemetry snapshots and each server's five debug views
+    serve JSON; the broker histogram's count grew by the queries sent and
+    server_exec's by the servers they asked; ``fresh_tables`` are in the
+    freshness view; the decision ledger's delta == the sum of the
+    responses' decisions; after the shutdown no sampler thread runs and
+    the cluster's recorder directory is gone. -> the report, with the
+    fused launches of 18a-b (``launches``)."""
+    import threading
+
+    from pinot_tpu_torch.common.telemetry import TELEMETRY
+    from pinot_tpu_torch.common.tracing import LEDGER
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.tools import ssb
+
+    t_all = time.perf_counter()
+    if cluster is None:
+        cluster, _, _ = _front_cluster(main["segs"], device, servers)
+    flight_dir = cluster._flight_dir
+    ctxs, wants, results, kept = (main["ctxs"], main["wants"],
+                                  main["results"], main["kept"])
+    out: dict = {}
+    counters = scan_counters()
+    responses: dict = {}     # id -> response (a shared flight counts once)
+    try:
+        t0 = time.perf_counter()
+        ledger0 = LEDGER.snapshot()
+        hist0 = _histo_counts(cluster.broker.telemetry_snapshot())
+        _reset(counters)
+        sent = asked = 0
+        flights = {}
+        for qid, ctx in ctxs.items():
+            per_name: dict = {}
+            trees = []
+            want_launches = 0
+            if device == "cuda":
+                want_launches = kept[qid] * (2 if qid in PROBE_FLIGHTS
+                                             else 1)
+            for _ in range(reps):
+                resp = cluster.query(ctx.sql + " OPTION(trace=true)")
+                responses[id(resp)] = resp
+                sent += 1
+                asked += resp.num_servers_queried
+                _front_check(f"18a {qid}", resp, wants[qid],
+                             results[qid].rows)
+                got = _check_trace(f"18a {qid}", resp)
+                if got["kernel_spans"] != kept[qid] \
+                        or got["launches"] != want_launches:
+                    raise AssertionError(
+                        f"18a {qid}: {got} for {kept[qid]} kept segments, "
+                        f"phase 16a launched {want_launches}")
+                root = resp.trace_info["spans"][0]
+                trees.append(root)
+                for d in _spans(root):
+                    per_name.setdefault(d["name"], []).append(d["ms"])
+            resp = cluster.query(ctx.sql)
+            responses[id(resp)] = resp
+            sent += 1
+            asked += resp.num_servers_queried
+            _front_check(f"18a {qid} untraced", resp, wants[qid],
+                         results[qid].rows)
+            if resp.trace_info or "traceInfo" in resp.to_dict():
+                raise AssertionError(f"18a {qid}: an untraced query carries "
+                                     "traceInfo")
+            # the first traced pass (it stages what phase 17 evicted)
+            # apart from the slowest of the rest
+            first = trees[0]
+            slowest = max(trees[1:], key=lambda d: d["ms"], default=None)
+            flights[qid] = {
+                "kernel_spans": kept[qid], "launches": want_launches,
+                "span_p50_ms": {n: float(np.percentile(v, 50))
+                                for n, v in per_name.items()},
+                "first_ms": first["ms"], "first_tree": first,
+                "slowest_ms": slowest and slowest["ms"],
+                "slowest_tree": slowest}
+            log(f"  18a {qid}: span p50 ms " + ", ".join(
+                f"{n} {v:.3f}" for n, v in
+                flights[qid]["span_p50_ms"].items()))
+            log(f"  18a {qid} first pass: {_tree_text(first)}")
+            if slowest is not None:
+                log(f"  18a {qid} slowest of the other {reps - 1}: "
+                    f"{_tree_text(slowest)}")
+        out["flights"] = flights
+        log(f"  18a: 13 flights x {reps} traced == phase 4 == oracle, trees "
+            f"checked, Kernel spans == the stats' launches == phase 16a's; "
+            f"untraced runs carry no traceInfo "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # 18b
+        t0 = time.perf_counter()
+        variants = {c: main["variant_texts"][c] + " OPTION(trace=true)"
+                    for c in ssb.COALESCE_QUERIES}
+        vwants = {c: main["variant_wants"][c] for c in variants}
+        solo = {}
+        for cid, sql in variants.items():
+            resp = cluster.query(sql)
+            responses[id(resp)] = resp
+            sent += 1
+            asked += resp.num_servers_queried
+            _front_check(f"18b {cid} solo", resp, vwants[cid])
+            _check_trace(f"18b {cid} solo", resp)
+            solo[cid] = resp.stats.launch_counts()
+        ids = sorted(variants)
+        got = []
+        lock = threading.Lock()
+
+        def client(i: int) -> None:
+            for k in range(TRACE_ROUNDS):
+                cid = ids[(i + k) % len(ids)]
+                resp = cluster.query(variants[cid])
+                with lock:
+                    got.append((cid, resp))
+
+        errors = _threads(TRACE_CLIENTS, client)
+        if errors:
+            raise AssertionError(f"18b: {errors[:3]}")
+        for cid, resp in got:
+            _front_check(f"18b {cid}", resp, vwants[cid])
+            _check_trace(f"18b {cid}", resp)
+            if resp.stats.launch_counts() != solo[cid]:
+                raise AssertionError(
+                    f"18b {cid}: launches {resp.stats.launch_counts()} "
+                    f"under {TRACE_CLIENTS} clients, solo {solo[cid]}")
+            if id(resp) not in responses:
+                responses[id(resp)] = resp
+                sent += 1
+                asked += resp.num_servers_queried
+        out["concurrency"] = {"clients": TRACE_CLIENTS,
+                              "queries": len(got), "solo": solo}
+        log(f"  18b: C1-C8 from {TRACE_CLIENTS} client threads, "
+            f"{len(got)} queries, each with its solo launch counts "
+            f"({time.perf_counter() - t0:.1f} s)")
+        out["launches"] = {k: counters[k].launches
+                           for k in ("fused_scan", "fused_scan_probe")}
+        summed = {"fused_scan": 0, "fused_scan_probe": 0}
+        for resp in responses.values():
+            summed["fused_scan"] += resp.stats.scan_launches
+            summed["fused_scan_probe"] += resp.stats.probe_launches
+        if summed != out["launches"]:
+            raise AssertionError(f"18: the responses count {summed}, the "
+                                 f"process {out['launches']}")
+
+        # 18c
+        t0 = time.perf_counter()
+        views = {name: getattr(cluster.broker, name)() for name in (
+            "telemetry_snapshot", "slo_snapshot", "freshness_snapshot",
+            "flightrecorder_snapshot")}
+        for sid, srv in cluster.servers.items():
+            for name in ("queries_debug", "telemetry_debug", "slo_debug",
+                         "freshness_debug", "flightrecorder_debug"):
+                views[f"{sid}.{name}"] = getattr(srv, name)()
+        json.loads(json.dumps(views))
+        hist = _histo_counts(views["telemetry_snapshot"])
+        grew = {k: hist.get(k, 0) - hist0.get(k, 0) for k in hist}
+        table = FRONT_TABLE.rsplit("_", 1)[0]
+        if grew.get(f"{table}:broker") != sent \
+                or grew.get(f"{table}:server_exec") != asked:
+            raise AssertionError(f"18c: histogram counts grew {grew}, "
+                                 f"{sent} queries sent asking {asked} "
+                                 "servers")
+        missing = [t for t in fresh_tables
+                   if t not in views["freshness_snapshot"]["tables"]]
+        if missing:
+            raise AssertionError(f"18c: no freshness for {missing}")
+        decisions: dict = {}
+        for resp in responses.values():
+            for k, v in resp.stats.decisions.items():
+                decisions[k] = decisions.get(k, 0) + v
+        ledger = LEDGER.delta(ledger0)
+        if ledger != decisions:
+            raise AssertionError(f"18c: ledger delta {ledger} != the "
+                                 f"responses' {decisions}")
+        out["ledger"] = {"equal": True, "delta": ledger}
+        out["telemetry"] = {
+            "broker_count": grew[f"{table}:broker"],
+            "server_exec_count": grew[f"{table}:server_exec"],
+            "grew": grew,
+            "freshness": {t: b["histogram"]["lifetime"]
+                          for t, b in
+                          views["freshness_snapshot"]["tables"].items()},
+            "events": views["telemetry_snapshot"]["events"],
+            "frozen": views["flightrecorder_snapshot"]["frozen"]}
+        log(f"  18c: telemetry histograms grew {grew}; freshness tables "
+            f"{sorted(views['freshness_snapshot']['tables'])}; ledger "
+            f"delta == the responses' decisions ({sum(ledger.values())} "
+            f"records); every debug view JSON "
+            f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        cluster.shutdown()
+    if TELEMETRY.sampling:
+        raise AssertionError("18: the telemetry sampler outlived the "
+                             "cluster")
+    if flight_dir is not None and os.path.exists(flight_dir):
+        raise AssertionError(f"18: {flight_dir} outlived the cluster")
+    out["flight_dir"] = flight_dir
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+# phase 12's default SSB scale: SF1 since phase 18 joined the script (at
+# SF2 the five trees took 104-157 s to build on the card's host, and the
+# script must end within 1200 s on a slow host too; PERF.md section 4)
+STARTREE_SF = 1
 
 
 def _phase_12(args, card: str) -> dict:
@@ -5402,14 +5719,22 @@ def _phases_2_to_11(args, smi: str) -> tuple:
         f"through the front door, {FRONT_SERVERS} servers at replication "
         f"{FRONT_REPLICATION}")
     t0 = time.perf_counter()
+    handed: list = []
     rt_cluster_run = phase_realtime_cluster(
-        main_run, args.reps, front=front_run["flights"], seed=args.seed)
+        main_run, args.reps, front=front_run["flights"], seed=args.seed,
+        hand_over=handed)
     timing += rt_cluster_run.pop("timing")
     for k, v in rt_cluster_run.pop("errs").items():
         errs[k] = max(errs[k], v)
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+    log("phase 18 (after 17, on its cluster): tracing and telemetry through "
+        "the front door")
+    t0 = time.perf_counter()
+    trace_run = phase_trace(main_run, args.reps, cluster=handed.pop(),
+                            fresh_tables=RT_FRESH_TABLES)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+    log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
     realtime_run = _phase_14(args)
     timing += realtime_run.pop("timing")
     for k, v in realtime_run["errs"].items():
@@ -5423,7 +5748,8 @@ def _phases_2_to_11(args, smi: str) -> tuple:
                 sql_run["launches"]["per_segment"],
                 sql_run["launches"]["batch"], time_run["launches"],
                 text_run["launches"], realtime_run["launches"],
-                front_run["launches"], rt_cluster_run["launches"]):
+                front_run["launches"], rt_cluster_run["launches"],
+                trace_run["launches"]):
         for k in launches:
             launches[k] += got.get(k, 0)
     idle = [k for k, n in launches.items() if n == 0]
@@ -5481,7 +5807,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "index": index_run, "budget": budget_run,
               "coalesce": coalesce_run, "realtime": realtime_run,
               "scatter": scatter_run, "front_door": front_run,
-              "realtime_cluster": rt_cluster_run}
+              "realtime_cluster": rt_cluster_run, "trace": trace_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]

@@ -27,14 +27,24 @@ two sides of one SQL text never share a plan. Every outcome is a
 ``hybrid:`` decision: ``hybrid_single_table``, ``hybrid_no_time_column``,
 ``hybrid_no_boundary``, ``hybrid_time_split``.
 
+Tracing and telemetry (JAX :115-122, :190-214, :246-250, :418-444,
+:788): every front-door outcome lands in the table's windowed ``broker``
+latency histogram and its SLO error counters; a traced query's response
+carries ``traceInfo``, the broker's root (``Admission``, ``Compile``,
+``Routing``, ``ScatterGather`` with each server's tree under it, tagged
+with its instance, and ``Reduce`` with the arrival folds) and the flat
+entries. A gathered DataTable is copied before its trace is tagged, so a
+table shared in process keeps its own. ``telemetry_snapshot``,
+``slo_snapshot``, ``flightrecorder_snapshot`` and ``freshness_snapshot``
+are the process telemetry's views.
+
 ``device`` is where the reduce merges (default ``"cuda"``; raises without
-a card). Not part of this module: the tracing and telemetry calls (the
-broker's span root, per-server trace tags, the windowed latency
-histograms).
+a card).
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 import time
 
@@ -52,13 +62,14 @@ from pinot_tpu_torch.broker.routing import RoutingManager
 from pinot_tpu_torch.common.datatable import DataTable
 from pinot_tpu_torch.common.response import BrokerResponse
 from pinot_tpu_torch.common.singleflight import SingleFlight
+from pinot_tpu_torch.common.telemetry import TELEMETRY
+from pinot_tpu_torch.common.tracing import build_broker_root, record_decision
 from pinot_tpu_torch.controller.state import ClusterStateStore
 from pinot_tpu_torch.engine.errors import QueryError, QueryRejectedError
 from pinot_tpu_torch.engine.results import (
     DataSchema,
     QueryStats,
     ResultTable,
-    record_decision,
 )
 from pinot_tpu_torch.query import SqlParseError, compile_query
 from pinot_tpu_torch.query.context import QueryContext
@@ -144,6 +155,12 @@ class BrokerRequestHandler:
         # gather / reduce, before any fan-out
         self._flights = SingleFlight()
         self._leading = threading.local()
+        # the process telemetry: its families on this registry's /metrics,
+        # this broker's scheduling state in flight-recorder bundles
+        TELEMETRY.configure()
+        self.metrics.bind_telemetry(TELEMETRY)
+        TELEMETRY.recorder.register_provider("brokerScheduler",
+                                             self.scheduler_snapshot)
 
     # -- transport registry --------------------------------------------------
     def register_server(self, instance_id: str, server) -> None:
@@ -202,6 +219,24 @@ class BrokerRequestHandler:
         return {"singleFlight": self._flights.snapshot(),
                 "admission": self.admission.snapshot()}
 
+    # -- the process telemetry's views ----------------------------------------
+    def telemetry_snapshot(self) -> Dict[str, object]:
+        """Each (table, phase) histogram with its sliding and lifetime
+        quantiles, and the gauge rings."""
+        return TELEMETRY.snapshot()
+
+    def slo_snapshot(self) -> Dict[str, object]:
+        """Each table's objectives and burn rates."""
+        return TELEMETRY.slo_snapshot()
+
+    def flightrecorder_snapshot(self) -> Dict[str, object]:
+        """The flight recorder's bundles and rings."""
+        return TELEMETRY.recorder.snapshot()
+
+    def freshness_snapshot(self) -> Dict[str, object]:
+        """Each realtime table's ingest-to-queryable histogram and burn."""
+        return TELEMETRY.freshness_snapshot()
+
     def _handle_sql(self, sql: str, principal=None,
                     access_control=None) -> BrokerResponse:
         """``access_control`` / ``principal`` authorize the parsed query's
@@ -209,6 +244,7 @@ class BrokerRequestHandler:
         start = time.perf_counter()
         self.metrics.meter(BrokerMeter.QUERIES).mark()
         response = BrokerResponse()
+        tel_table: List[str] = [""]     # set after the compile
 
         def phase(name: str, t0: float) -> float:
             """Record a broker phase (BrokerQueryPhase)."""
@@ -223,6 +259,10 @@ class BrokerRequestHandler:
             # one exceptions tick a failed query, whatever the failure
             if resp.has_exceptions:
                 self.metrics.meter(BrokerMeter.EXCEPTIONS).mark()
+            # every outcome: the table's windowed latency and SLO counters
+            TELEMETRY.note_broker_query(
+                tel_table[0], (time.perf_counter() - start) * 1e3,
+                resp.has_exceptions)
             return resp
 
         try:
@@ -230,6 +270,7 @@ class BrokerRequestHandler:
         except SqlParseError as e:
             response.add_exception(SQL_PARSING_ERROR, str(e))
             return finish(response)
+        tel_table[0] = ctx.table_name or ""
         phase(BrokerQueryPhase.COMPILATION, start)
 
         if access_control is not None:
@@ -279,19 +320,22 @@ class BrokerRequestHandler:
                 TOO_MANY_REQUESTS_ERROR,
                 f"{e} (retriable; queueDepth={e.queue_depth})")
             return finish(response)
+        admit_wait_ms = sum(t_adm.wait_ms for t_adm in tickets)
         try:
             return self._scatter_reduce(ctx, physical, gapfill_spec,
                                         response, phase, finish, start,
-                                        principal, access_control)
+                                        principal, access_control,
+                                        admit_wait_ms)
         finally:
             for t_adm in tickets:
                 self.admission.release(t_adm)
 
     def _scatter_reduce(self, ctx, physical, gapfill_spec, response,
-                        phase, finish, start, principal,
-                        access_control) -> BrokerResponse:
+                        phase, finish, start, principal, access_control,
+                        admit_wait_ms: float = 0.0) -> BrokerResponse:
         """After admission: subquery rewrite -> routing -> scatter / gather
-        -> reduce."""
+        -> reduce. ``admit_wait_ms``, the front door's admission wait, is
+        the broker root's ``Admission`` child on a traced query."""
         try:
             ctx = self._rewrite_subqueries(ctx, principal=principal,
                                            access_control=access_control)
@@ -358,14 +402,25 @@ class BrokerRequestHandler:
             # is loud wherever the stats travel
             stats.merge(broker_stats)
             response.stats = stats
+            traced = stats if (stats.trace or stats.spans) else None
             for msg in server_errors:
                 # a partial result: the table stands, the caller sees it
                 response.add_exception(SERVER_NOT_RESPONDING_ERROR, msg)
         except QueryError as e:
+            traced = None
             response.stats = broker_stats
             response.add_exception(QUERY_EXECUTION_ERROR, str(e))
         phase(BrokerQueryPhase.REDUCE, t)
         response.time_used_ms = (time.perf_counter() - start) * 1e3
+        if traced is not None:
+            # after the REDUCE timer, so the root's children cover the
+            # broker's whole wall time
+            root = build_broker_root(
+                response.phase_times_ms, traced.spans,
+                response.time_used_ms, admission_wait_ms=admit_wait_ms,
+                reduce_folds=acc.fold_spans)
+            response.trace_info = {"entries": traced.trace,
+                                   "spans": [root]}
         return finish(response)
 
     # -- IN_SUBQUERY (the IdSet semijoin) ----------------------------------------
@@ -544,6 +599,7 @@ class BrokerRequestHandler:
                     raise fut
                 ok = False
                 for dt in fut.result(timeout=0.001):
+                    dt = _tag_trace(dt, instance_id)
                     took(dt, instance_id)
                     ok = ok or not dt.exceptions
                 # responded = returned at least one USABLE block; a server
@@ -640,7 +696,7 @@ class BrokerRequestHandler:
             try:
                 if isinstance(fut, FutureTimeout):
                     raise fut
-                dt = fut.result(timeout=0.001)
+                dt = _tag_trace(fut.result(timeout=0.001), instance_id)
                 took(dt, instance_id)
                 # responded = came back with a USABLE DataTable; a server
                 # that answered with only an error (shut down mid-scatter,
@@ -671,3 +727,22 @@ def _and(a: Optional[FilterNode], b: FilterNode) -> FilterNode:
     if a is None:
         return b
     return FilterNode(FilterOp.AND, children=(a, b))
+
+
+def _tag_trace(dt: DataTable, instance_id: str) -> DataTable:
+    """A traced table's flat entries and span roots tagged with their
+    server before the reduce merges them (JAX :788): after the broker's
+    root adopts every server's tree, the tag is the only trace of its
+    origin. The tags go on a copy of the table and of its trace, so a
+    table shared in process is left as it was."""
+    st = dt.stats
+    if not (st.trace or st.spans):
+        return dt
+    st = copy.copy(st)
+    st.trace = [e if "instance" in e else {**e, "instance": instance_id}
+                for e in st.trace]
+    st.spans = [r if "instance" in r else {**r, "instance": instance_id}
+                for r in st.spans]
+    dt = copy.copy(dt)
+    dt.stats = st
+    return dt

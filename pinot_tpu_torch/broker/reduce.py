@@ -44,6 +44,7 @@ import torch
 
 from pinot_tpu_torch.common.bounds import I64_FOLD_BOUND
 from pinot_tpu_torch.common.datatable import Column, DataTable, ResponseType
+from pinot_tpu_torch.common.tracing import record_decision
 from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine.aggregates import AggDef, resolve_agg
 from pinot_tpu_torch.engine.errors import QueryError
@@ -61,7 +62,6 @@ from pinot_tpu_torch.engine.results import (
     _Reversible,
     fold_grouped_runs,
     lexsort_runs,
-    record_decision,
     reduce_aggregation,
     reduce_group_by,
 )

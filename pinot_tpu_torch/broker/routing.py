@@ -26,12 +26,12 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from pinot_tpu_torch.common.tracing import record_decision
 from pinot_tpu_torch.controller.state import (
     CONSUMING,
     ONLINE,
     ClusterStateStore,
 )
-from pinot_tpu_torch.engine.results import record_decision
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.query.expressions import (
     FilterNode,

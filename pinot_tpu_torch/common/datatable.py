@@ -17,8 +17,10 @@ columns through the tagged object serde (``utils/serde.py``).
 ``from_bytes`` sniffs the magic and still accepts the legacy JSON framing.
 The bytes are the JAX package's: a table encoded by either package
 decodes in the other to the same states, rows and schema. The stats
-section carries the port's own counters beside the JAX keys (see
-``QueryStats.to_dict``); both decoders ignore keys they do not know.
+section carries a traced query's ``trace`` entries and ``spans`` as the
+JAX package's does (JAX :566-567), and the port's own counters beside the
+JAX keys (see ``QueryStats.to_dict``); both decoders ignore keys they do
+not know.
 
 Decode is columnar: the wire's typed buffers stay numpy arrays behind the
 ``Column`` accessors, so the broker's vectorized reduce reads

@@ -3,7 +3,9 @@
 Counterpart of ``pinot_tpu/common/response.py`` (``BrokerResponse``, the
 reference's BrokerResponseNative): the result table, the exceptions and
 the execution stats, in the reference's JSON layout (``to_dict``), with
-the loud ``partialResult`` flag.
+the loud ``partialResult`` flag, and, for a traced query, ``traceInfo``
+(JAX :27, :64-65): the flat ``entries`` and the ``spans`` tree under the
+broker's root (``common/tracing.py`` ``build_broker_root``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ class BrokerResponse:
     # broker-side phase timings (COMPILATION/ROUTING/SCATTER_GATHER/REDUCE);
     # server phases arrive merged inside stats.phase_ms
     phase_times_ms: Dict[str, float] = field(default_factory=dict)
+    # a traced query's {"entries": [...], "spans": [broker root]}
+    trace_info: Dict[str, Any] = field(default_factory=dict)
 
     def to_dict(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {
@@ -60,6 +64,8 @@ class BrokerResponse:
             d["decisions"] = self.stats.decisions
         if self.result_table is not None:
             d["resultTable"] = self.result_table.to_dict()
+        if self.trace_info:
+            d["traceInfo"] = self.trace_info
         return d
 
     @property

@@ -93,11 +93,35 @@ The instance surface (JAX :163-260, :400-429, :572-640):
   its order-by columns that are not selected as hidden trailing columns
   and ``sorted_rows``, the group-by's states trimmed to
   ``num_groups_limit``, or the scalar states.
+
+Launch counts and tracing (JAX :189-209, :266-306, :586-616):
+
+- a query counts every launch that served it, where the kernel launches
+  (``results.count_launches_into``): its run binds its stats on its
+  thread, a worker task its private stats, and a run shared through
+  ``kernel_flight`` (or the batch executor's launcher) counts into a
+  tally that each query it served adds (``results.shared_launch``), so a
+  query's counts equal its solo counts under any concurrency;
+- ``_open_query`` / ``_close_query`` bracket both ``execute`` and
+  ``execute_instance``: the registry entry (``queries``, the server's
+  ``queries_debug``), and, when the query is traced (OPTION(trace=true),
+  ``pinot.server.query.trace.sample``, or forced by
+  ``pinot.server.query.slow.threshold.ms``), its recorder and
+  ``ServerQuery`` root with the admission wait, ``Lease``, one
+  ``SegmentAggregate`` / ``SegmentGroupBy`` a segment with the path that
+  served, ``Stage`` and ``Kernel`` around each rung's launch and copy to
+  the host (``launches`` the count it served), ``HostScan`` and
+  ``HostSelection``; the query flight keys on the trace decision, so a
+  traced query never rides an untraced run. A failure still raises, its
+  spans closed. The query's wall time goes to the table's
+  ``server_exec`` histogram and each launch's to ``kernel``
+  (``common/telemetry.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import random
 import threading
 import time
 import weakref
@@ -110,6 +134,14 @@ import torch
 
 from pinot_tpu_torch.common.datatable import DataTable
 from pinot_tpu_torch.common.singleflight import SingleFlight
+from pinot_tpu_torch.common.telemetry import TELEMETRY, observe_ms
+from pinot_tpu_torch.common.tracing import (
+    QueryRegistry,
+    maybe_span,
+    record_decision,
+    start_trace,
+    stats_tracer,
+)
 from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine import (
     fused_scan,
@@ -135,9 +167,10 @@ from pinot_tpu_torch.engine.results import (
     GroupByResult,
     QueryStats,
     ResultTable,
-    record_decision,
+    count_launches_into,
     reduce_aggregation,
     reduce_group_by,
+    shared_launch,
 )
 from pinot_tpu_torch.engine.selection_device import (
     SelectionCache,
@@ -159,14 +192,23 @@ PLAN_CACHE_CAP = 256
 # merged groups kept before the reduce (Pinot's numGroupsLimit default)
 DEFAULT_NUM_GROUPS_LIMIT = 100_000
 
-# QueryStats field -> the launch counter it reads, for a query's run
-_LAUNCH_COUNTERS = (
-    ("scan_launches", fused_scan.SCAN_COUNTER),
-    ("probe_launches", fused_scan.PROBE_COUNTER),
-    ("general_launches", kernels.RUNG_COUNTER),
-    ("index_launches", index_exec.INDEX_COUNTER),
-    ("startree_launches", startree_device.STARTREE_COUNTER),
-)
+
+
+def _segment_tracer(stats: QueryStats, op: str, seg):
+    """``done(result, path)``: a pass-through that, when the query is
+    traced, closes the per-segment span ``op`` opened here with the path
+    that served (JAX ``_segment_tracer`` :70). An error path that skips
+    ``done`` leaves the span to be swept closed by its parent."""
+    rec = stats_tracer(stats)
+    if rec is None:
+        return lambda result, path: result
+    sp = rec.span_begin(op, segment=seg.segment_name)
+
+    def done(result, path):
+        rec.span_end(sp, path=path)
+        return result
+
+    return done
 
 
 class ServerQueryExecutor:
@@ -209,6 +251,23 @@ class ServerQueryExecutor:
         self.admission = AdmissionGate.from_config(cfg)
         # identical concurrent execute() calls share one run
         self.query_flight = SingleFlight()
+        # tracing (JAX :189-209): a query records spans when it asks
+        # (trace=true), the sample rate hits, or a slow-query threshold is
+        # set; the registry backs the server's queries_debug
+        self.trace_sample = cfg.get_float(
+            CommonConstants.TRACE_SAMPLE_KEY,
+            CommonConstants.DEFAULT_TRACE_SAMPLE)
+        self.queries = QueryRegistry(slow_threshold_ms=cfg.get_float(
+            CommonConstants.SLOW_THRESHOLD_MS_KEY,
+            CommonConstants.DEFAULT_SLOW_THRESHOLD_MS))
+        # the process telemetry: this config's keys, and this executor's
+        # residency and admission as flight-recorder bundle providers (the
+        # last executor built wins, as in JAX)
+        TELEMETRY.configure(cfg)
+        TELEMETRY.recorder.register_provider("residency",
+                                             self.residency.snapshot)
+        TELEMETRY.recorder.register_provider("admission",
+                                             self.admission.snapshot)
 
     def stage(self, segment: ImmutableSegment,
               stats: Optional[QueryStats] = None) -> StagedSegment:
@@ -229,9 +288,14 @@ class ServerQueryExecutor:
         the same (table, stats)."""
         ticket = self.admission.admit(ctx.table_name or "")
         try:
+            # a traced (or sampled) query never rides an untraced run, nor
+            # the reverse: the decision is part of the flight key
+            traced = self._trace_requested(ctx)
+            key = self._query_flight_key(ctx, segments)
             out, _ = self.query_flight.do(
-                self._query_flight_key(ctx, segments),
-                lambda: self._run_query(ctx, segments, self._execute_pruned))
+                None if key is None else key + (traced,),
+                lambda: self._run_query(ctx, segments, self._execute_pruned,
+                                        ticket.wait_ms, traced))
             return out
         finally:
             self.admission.release(ticket)
@@ -243,7 +307,9 @@ class ServerQueryExecutor:
         ticket = self.admission.admit(ctx.table_name or "")
         try:
             # the table carries the query's stats, counters included
-            return self._run_query(ctx, segments, self._instance_pruned)[0]
+            return self._run_query(ctx, segments, self._instance_pruned,
+                                   ticket.wait_ms,
+                                   self._trace_requested(ctx))[0]
         finally:
             self.admission.release(ticket)
 
@@ -260,16 +326,71 @@ class ServerQueryExecutor:
                 return None
         return (id(ctx), tuple(id(s) for s in segments))
 
-    def _counters(self) -> Tuple:
-        """(QueryStats field, counter) of every kernel and rung a query's
-        run counts."""
-        return _LAUNCH_COUNTERS
+    def _trace_requested(self, ctx: QueryContext) -> bool:
+        """OPTION(trace=true), or a hit of the sample rate."""
+        return ctx.trace_enabled or (self.trace_sample > 0 and
+                                     random.random() < self.trace_sample)
+
+    def _open_query(self, ctx: QueryContext,
+                    segments: List[ImmutableSegment], admit_wait_ms: float,
+                    requested: bool) -> Tuple[QueryStats, Dict[str, Any]]:
+        """The query's stats and registry token, and, when it is traced
+        (requested, sampled or forced by the slow log), its recorder and
+        ``ServerQuery`` root, whose first child is the admission wait
+        (JAX ``_open_query`` :266-289)."""
+        stats = QueryStats(num_segments_queried=len(segments))
+        stats._tel_table = ctx.table_name or ""
+        if requested or self.queries.force_trace:
+            rec = start_trace(stats)
+            stats._trace_requested = requested
+            rec.span_begin("ServerQuery", table=ctx.table_name)
+            rec.add_completed("Admission", wall_ms=admit_wait_ms,
+                              queue_ms=admit_wait_ms)
+        token = self.queries.begin(ctx, stats)
+        stats._registry_token = token
+        return stats, token
+
+    def _close_query(self, stats: QueryStats, token: Dict[str, Any],
+                     error: Optional[BaseException] = None) -> None:
+        """Close every open span (an exception edge leaves a closed tree),
+        end the registry entry (the slow log keeps an over-threshold
+        tree), and strip the spans off a query the slow log alone made
+        record (JAX ``_close_query`` :291-306)."""
+        rec = stats_tracer(stats)
+        if rec is not None:
+            rec.close_all()
+        self.queries.end(token, error=error)
+        if rec is not None and not getattr(stats, "_trace_requested", False):
+            stats.spans.clear()
+            stats.trace.clear()
+            stats._recorder = None
 
     def _run_query(self, ctx: QueryContext,
-                   segments: List[ImmutableSegment], body: Callable
+                   segments: List[ImmutableSegment], body: Callable,
+                   admit_wait_ms: float = 0.0, traced: bool = False
                    ) -> Tuple[Any, QueryStats]:
-        """Validate, prune, open the lease, ``body(ctx, kept, stats)``,
-        end the lease; the stats count the launches made meanwhile."""
+        """Open the query (``admit_wait_ms``: the admission wait its
+        caller paid; ``traced``: its trace decision), validate, prune,
+        open the lease, ``body(ctx, kept, stats)``, end the lease, close
+        the query. Every launch made on this thread meanwhile counts into
+        the stats."""
+        t0 = time.perf_counter()
+        stats, token = self._open_query(ctx, segments, admit_wait_ms,
+                                        traced)
+        error = None
+        try:
+            with count_launches_into(stats):
+                return self._run_body(ctx, segments, body, stats), stats
+        except BaseException as e:
+            error = e
+            raise
+        finally:
+            self._close_query(stats, token, error=error)
+            observe_ms(ctx.table_name, "server_exec",
+                       (time.perf_counter() - t0) * 1e3)
+
+    def _run_body(self, ctx: QueryContext, segments: List[ImmutableSegment],
+                  body: Callable, stats: QueryStats) -> Any:
         if not segments:
             raise QueryError(f"no segments for table {ctx.table_name!r}")
         known = set(segments[0].metadata.columns) | set(VIRTUAL_COLUMNS)
@@ -277,19 +398,13 @@ class ServerQueryExecutor:
             if c not in known:
                 raise QueryError(f"unknown column {c!r} in table "
                                  f"{ctx.table_name!r}")
-        stats = QueryStats(num_segments_queried=len(segments))
         segments = self._prune(ctx, segments, stats)
-        counters = self._counters()
-        before = [c.launches for _, c in counters]
         self._begin_lease(ctx, segments, stats)
         try:
-            out = body(ctx, segments, stats)
+            return body(ctx, segments, stats)
         finally:
             self.residency.end_query(stats.lease, stats)
             stats.lease = None
-        for (name, c), n0 in zip(counters, before):
-            setattr(stats, name, c.launches - n0)
-        return out, stats
 
     def _begin_lease(self, ctx: QueryContext,
                      segments: List[ImmutableSegment],
@@ -297,10 +412,17 @@ class ServerQueryExecutor:
         """Admission for the kept segments (JAX ``_begin_lease``): only an
         aggregation or group-by can slice; a selection or DISTINCT fits or
         goes to the host engine."""
+        token = getattr(stats, "_registry_token", None)
+        if token is not None:
+            token["phase"] = "staging"
         sliceable = not ctx.distinct and not ctx.is_selection
-        lease = self.residency.begin_query(segments,
-                                           ctx.referenced_columns(),
-                                           sliceable=sliceable)
+        with maybe_span(stats, "Lease", segments=len(segments)) as sp:
+            lease = self.residency.begin_query(segments,
+                                               ctx.referenced_columns(),
+                                               sliceable=sliceable)
+            if sp is not None:
+                sp.attrs.update(sliced=lease.sliced, spilled=lease.spilled,
+                                reason=lease.admit_reason)
         if not lease.device_allowed:
             record_decision(stats, "residency", "host_engine", "device",
                             lease.admit_reason)
@@ -324,7 +446,13 @@ class ServerQueryExecutor:
         with a private QueryStats (QueryStats is not thread-safe) that
         carries the query's lease: without it a task would read an
         admission that sent the query to the host engine as a device one.
-        The private stats merge in segment order."""
+        The private stats merge in segment order; each task counts its
+        launches into its own, and on a traced query records its spans in
+        its own recorder, whose trees the merge hangs under the query's
+        open span (JAX :586-616)."""
+        token = getattr(stats, "_registry_token", None)
+        if token is not None:
+            token["phase"] = "executing"
         lease = stats.lease
         if lease is not None and lease.sliced:
             parts = []
@@ -334,9 +462,22 @@ class ServerQueryExecutor:
             return parts
         if self.worker_threads <= 1 or len(segments) <= 1:
             return [fn(seg, stats) for seg in segments]
+        traced = stats_tracer(stats) is not None
         locals_ = [QueryStats(lease=lease) for _ in segments]
-        parts = self._worker_pool().map(fn, segments, locals_)
         for st in locals_:
+            st._tel_table = getattr(stats, "_tel_table", "")
+            if traced:
+                start_trace(st)
+
+        def task(seg, st):
+            with count_launches_into(st):
+                return fn(seg, st)
+
+        parts = self._worker_pool().map(task, segments, locals_)
+        for st in locals_:
+            rec = stats_tracer(st)
+            if rec is not None:
+                rec.close_all()
             stats.merge(st)
         return parts
 
@@ -441,7 +582,8 @@ class ServerQueryExecutor:
                 return table
             record_decision(stats, "selection", "host_engine", "device_topk",
                             "selection_not_device_eligible")
-        return host_engine.execute_selection(ctx, segments, stats)
+        with maybe_span(stats, "HostSelection"):
+            return host_engine.execute_selection(ctx, segments, stats)
 
     @staticmethod
     def _prune(ctx: QueryContext, segments: List[ImmutableSegment],
@@ -466,9 +608,8 @@ class ServerQueryExecutor:
                              stats: QueryStats) -> AggResult:
         merged: Optional[AggResult] = None
         for part in self._map_segments(
-                lambda seg, st: (_metadata_answer(ctx, aggs, seg, st)
-                                 or self._segment_aggregation(ctx, aggs, seg,
-                                                              st)),
+                lambda seg, st: self._segment_aggregation(ctx, aggs, seg,
+                                                          st),
                 segments, stats):
             if merged is None:
                 merged = part
@@ -479,26 +620,33 @@ class ServerQueryExecutor:
     def _segment_aggregation(self, ctx: QueryContext, aggs: List[AggDef],
                              seg: ImmutableSegment,
                              stats: QueryStats) -> AggResult:
+        done = _segment_tracer(stats, "SegmentAggregate", seg)
+        fast = _metadata_answer(ctx, aggs, seg, stats)
+        if fast is not None:
+            return done(fast, "metadata")
         st = self._try_star_tree(ctx, aggs, seg, stats)
         if st is not None:
-            return st[0]
+            return done(*st)
         if self._device_admitted(stats) and is_mutable(seg):
             part = mutable_staging.serve_aggregation(self, ctx, aggs, seg,
                                                      stats)
             if part is not None:
-                return part
+                return done(part, "mutable_device")
         elif self._device_admitted(stats):
             part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
                                              grouped=False)
             if part is not None:
-                return part
+                return done(part, "index")
             try:
                 scan = self._scan_segment(ctx, seg, stats)
-                return decode_scalar_result(scan.plan, seg, scan.tree)
+                return done(decode_scalar_result(scan.plan, seg, scan.tree),
+                            "device")
             except PlanError as e:
                 record_decision(stats, "plan", "host_engine",
                                 "device_kernel", e.reason_code)
-        return host_engine.host_aggregate_segment(ctx, aggs, seg, stats)
+        with maybe_span(stats, "HostScan", segment=seg.segment_name):
+            return done(host_engine.host_aggregate_segment(ctx, aggs, seg,
+                                                           stats), "host")
 
     def _execute_group_by(self, ctx: QueryContext, aggs: List[AggDef],
                           segments: List[ImmutableSegment],
@@ -513,32 +661,35 @@ class ServerQueryExecutor:
     def _segment_group_by(self, ctx: QueryContext, aggs: List[AggDef],
                           seg: ImmutableSegment,
                           stats: QueryStats) -> GroupByResult:
+        done = _segment_tracer(stats, "SegmentGroupBy", seg)
         st = self._try_star_tree(ctx, aggs, seg, stats)
         if st is not None:
             stats.record_rung(st[1])
-            return st[0]
+            return done(*st)
         if self._device_admitted(stats) and is_mutable(seg):
             part = mutable_staging.serve_group_by(self, ctx, aggs, seg,
                                                   stats)
             if part is not None:
                 stats.record_rung("mutable_device")
-                return part
+                return done(part, "mutable_device")
         elif self._device_admitted(stats):
             part = index_exec.try_index_rung(self, ctx, aggs, seg, stats,
                                              grouped=True)
             if part is not None:
-                return part
+                return done(part, "index")
             try:
                 scan = self._scan_segment(ctx, seg, stats)
                 part = decode_grouped_result(scan.plan, seg, scan.tree)
                 stats.record_rung(kernels.grouped_rung(scan.plan.spec,
                                                        scan.tree))
-                return part
+                return done(part, "device")
             except PlanError as e:
                 record_decision(stats, "plan", "host_engine",
                                 "device_kernel", e.reason_code)
         stats.record_rung("host")
-        return host_engine.host_group_by_segment(ctx, aggs, seg, stats)
+        with maybe_span(stats, "HostScan", segment=seg.segment_name):
+            return done(host_engine.host_group_by_segment(ctx, aggs, seg,
+                                                          stats), "host")
 
     def _star_tree_pick(self, ctx: QueryContext, aggs: List[AggDef],
                         seg: ImmutableSegment, on_decline=None
@@ -620,35 +771,48 @@ class ServerQueryExecutor:
                       stats: QueryStats) -> fused_scan.SegmentScan:
         """The fused scan, or the general rung where it declines (or is
         off); the decision is recorded as the JAX executor records it. A
-        plan neither serves raises ``PlanError``."""
+        plan neither serves raises ``PlanError``. Each rung is a
+        ``Stage`` and a ``Kernel`` span (JAX ``_try_pallas`` :967-1000,
+        ``_run_kernel`` :1024-1056); the ``Kernel`` span closes after the
+        rung's copy to the host and carries the launches it counted."""
         plan = self._plan_for(ctx, seg)
-        staged = self.stage(seg, stats)
-
-        def launch():
-            """-> (scan or the PlanError the general rung raised, the fused
-            scan's declines)."""
-            reasons: List[str] = []
-            scan = None
-            if self.use_fused_scan:
-                scan = fused_scan.run_segment(plan, staged,
-                                              on_decline=reasons.append)
-            else:
-                reasons.append("pallas_disabled_on_backend")
-            if scan is None:
-                try:
-                    scan = self._run_general(plan, staged)
-                except PlanError as e:
-                    scan = e
-            return scan, reasons
-
+        table = getattr(stats, "_tel_table", "")
         # identical concurrent queries (the same cached plan on the same
         # resident) share one launch and copy; a valid-doc snapshot is
         # taken per call, so an upsert plan never shares (JAX :225, :1054)
         upsert = bool(plan.params) and plan.params[0] is None
-        (scan, reasons), _ = self.kernel_flight.do(
-            None if upsert else ("scan", id(plan), id(staged)), launch)
+        scan = None
+        if self.use_fused_scan:
+            with maybe_span(stats, "Stage", segment=seg.segment_name):
+                staged = self.stage(seg, stats)
+            reasons: List[str] = []
+            t0 = time.perf_counter()
+            with maybe_span(stats, "Kernel", kernel="fused_scan",
+                            segment=seg.segment_name) as sp:
+                (scan, reasons), n = shared_launch(
+                    self.kernel_flight,
+                    None if upsert else ("scan", id(plan), id(staged)),
+                    stats, lambda: _fused(plan, staged))
+                if sp is not None:
+                    sp.attrs.update(served=scan is not None, launches=n)
+            observe_ms(table, "kernel", (time.perf_counter() - t0) * 1e3)
+        else:
+            reasons = ["pallas_disabled_on_backend"]
         for r in reasons:
             record_decision(stats, "pallas", "jnp_kernel", "pallas_kernel", r)
+        if scan is None:
+            with maybe_span(stats, "Stage", segment=seg.segment_name):
+                staged = self.stage(seg, stats)
+            t0 = time.perf_counter()
+            with maybe_span(stats, "Kernel", kernel="general",
+                            segment=seg.segment_name) as sp:
+                scan, n = shared_launch(
+                    self.kernel_flight,
+                    None if upsert else ("general", id(plan), id(staged)),
+                    stats, lambda: self._try_general(plan, staged))
+                if sp is not None:
+                    sp.attrs["launches"] = n
+            observe_ms(table, "kernel", (time.perf_counter() - t0) * 1e3)
         if isinstance(scan, PlanError):
             raise scan
         stats.num_segments_processed += 1
@@ -656,6 +820,14 @@ class ServerQueryExecutor:
         stats.num_docs_scanned += scan.matched
         stats.num_segments_matched += 1 if scan.matched else 0
         return scan
+
+    def _try_general(self, plan: SegmentPlan, staged: StagedSegment):
+        """The general rung's scan, or the PlanError it raised (handed to
+        every query of a shared run)."""
+        try:
+            return self._run_general(plan, staged)
+        except PlanError as e:
+            return e
 
     def _run_general(self, plan: SegmentPlan, staged: StagedSegment
                      ) -> fused_scan.SegmentScan:
@@ -672,6 +844,14 @@ class ServerQueryExecutor:
         matched = int(tree["num_matched"] if "num_matched" in tree
                       else np.asarray(tree["presence"]).sum())
         return fused_scan.SegmentScan(tree=tree, plan=plan, matched=matched)
+
+
+def _fused(plan: SegmentPlan, staged: StagedSegment):
+    """-> (the fused scan of one staged segment, or None, and the reasons
+    it declined)."""
+    reasons: List[str] = []
+    return fused_scan.run_segment(plan, staged,
+                                  on_decline=reasons.append), reasons
 
 
 def _schema_types(segment: ImmutableSegment) -> Dict[str, str]:

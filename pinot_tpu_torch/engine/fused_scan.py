@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.engine.errors import classify_decline
+from pinot_tpu_torch.engine.results import launch_sink
 from pinot_tpu_torch.engine.staging import TILE, StagedSegment, staged_int_dtype
 
 # group-dimension padding of the JAX kernel's one-hot chunks
@@ -664,26 +665,33 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
 # --------------------------------------------------------------------------
 
 class KernelCounter:
-    """Launches of one kernel: incremented only where the kernel is
-    launched, so a run can show the main path went through it. Threads
-    may launch concurrently, so ``add`` holds a lock."""
+    """Launches of one kernel, counted where the kernel is launched and
+    nowhere else: into the process total ``launches`` (a run shows the
+    main path went through the kernel) and, where the launching thread is
+    bound to a query's ``QueryStats`` (``results.count_launches_into``),
+    into that query's ``field``. Threads may launch concurrently, so
+    ``add`` holds a lock."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, field: Optional[str] = None):
         self.name = name
+        self.field = field
         self.launches = 0
         self._lock = threading.Lock()
 
     def add(self) -> None:
         with self._lock:
             self.launches += 1
+        sink = launch_sink()
+        if sink is not None and self.field is not None:
+            setattr(sink, self.field, getattr(sink, self.field) + 1)
 
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
 
 
-SCAN_COUNTER = KernelCounter("fused_scan")
-PROBE_COUNTER = KernelCounter("fused_scan_probe")
+SCAN_COUNTER = KernelCounter("fused_scan", "scan_launches")
+PROBE_COUNTER = KernelCounter("fused_scan_probe", "probe_launches")
 
 
 @dataclass

@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from pinot_tpu_torch.common.tracing import maybe_span
 from pinot_tpu_torch.engine.aggregates import AggDef, agg_value_expr
 from pinot_tpu_torch.engine.errors import QueryError, UnsupportedQueryError
 from pinot_tpu_torch.engine.groupkeys import compose_group_keys, unique_inverse
@@ -204,7 +205,14 @@ def _negate(arr: np.ndarray) -> np.ndarray:
 def execute_distinct(ctx: QueryContext, segments: List[ImmutableSegment],
                      stats: Optional[QueryStats] = None) -> ResultTable:
     """Distinct rows in the order they are first seen (segment, then doc
-    order), then HAVING, ORDER BY, OFFSET and LIMIT."""
+    order), then HAVING, ORDER BY, OFFSET and LIMIT; a ``HostDistinct``
+    span on a traced query (JAX :184)."""
+    with maybe_span(stats, "HostDistinct", segments=len(segments)):
+        return _execute_distinct(ctx, segments, stats)
+
+
+def _execute_distinct(ctx: QueryContext, segments: List[ImmutableSegment],
+                      stats: Optional[QueryStats] = None) -> ResultTable:
     schema = segments[0].metadata.schema
     select = _expand_select(ctx, schema)
     names = _select_names(ctx, select)

@@ -35,6 +35,7 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common.tracing import maybe_span, record_decision
 from pinot_tpu_torch.engine import kernels
 from pinot_tpu_torch.engine.aggregates import AggDef
 from pinot_tpu_torch.engine.errors import PlanError
@@ -48,7 +49,7 @@ from pinot_tpu_torch.engine.plan import (
     _next_pow2,
     expected_param_count,
 )
-from pinot_tpu_torch.engine.results import QueryStats, record_decision
+from pinot_tpu_torch.engine.results import QueryStats
 from pinot_tpu_torch.query.context import QueryContext
 from pinot_tpu_torch.query.expressions import (
     FilterNode,
@@ -72,7 +73,7 @@ _EMPTY = np.empty(0, dtype=np.int64)
 
 # gather calls of the index rung, on any device (PyTorch ops, as the
 # general rung's RUNG_COUNTER)
-INDEX_COUNTER = KernelCounter("index_gather")
+INDEX_COUNTER = KernelCounter("index_gather", "index_launches")
 
 
 def index_gather(spec, cols, idx: torch.Tensor, params, n: int
@@ -427,9 +428,11 @@ def try_index_rung(executor, ctx: QueryContext, aggs: List[AggDef],
     try:
         plan, cols, idx_dev, params = gather_inputs(executor, ctx, segment,
                                                     idx, stats)
-        packed = index_gather(plan.spec, cols, idx_dev, params, n)
-        # one copy to the host; the decode may refuse the compact cap
-        out = kernels.unpack_outputs(packed.cpu().numpy(), plan.spec)
+        with maybe_span(stats, "Kernel", kernel="index_gather",
+                        segment=segment.segment_name, records=n):
+            packed = index_gather(plan.spec, cols, idx_dev, params, n)
+            # one copy to the host; the decode may refuse the compact cap
+            out = kernels.unpack_outputs(packed.cpu().numpy(), plan.spec)
     except PlanError:
         # the scan path plans again and records the plan's own code
         _decline(stats, "index_plan_error")

@@ -56,7 +56,7 @@ _ACC = {"i32": torch.int32, "i64": torch.int64,
 
 # segment calls of the general rung, on any device (the rung is PyTorch
 # ops: it has no plain version apart from itself)
-RUNG_COUNTER = KernelCounter("general_rung")
+RUNG_COUNTER = KernelCounter("general_rung", "general_launches")
 
 
 def _acc_info(acc: str):

@@ -45,11 +45,19 @@ served by the index gather (``index_exec.index_gather``) over docIds from
 the resident's growing dictId -> docIds map (``postings_doc_ids``),
 recorded under the ``index`` point as ``mutable_index_served`` or
 declined to the chunk scan with its reason.
+
+Tracing and telemetry (JAX :440-457, :520-573, :653-673): a traced query
+records ``Stage`` around the snapshot and ``Kernel`` around the call and
+its copy to the host; each call's wall time goes to the table's
+``kernel`` histogram, and ``observe_freshness`` records each row's
+ingest-to-queryable latency once, at the first snapshot that serves it
+(or the seal's last flush).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 
 from typing import Any, Dict, List, Optional, Union
@@ -57,12 +65,14 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common.telemetry import TELEMETRY, observe_ms
+from pinot_tpu_torch.common.tracing import maybe_span, record_decision
 from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine import index_exec, kernels
 from pinot_tpu_torch.engine.errors import PlanError
 from pinot_tpu_torch.engine.host_eval import _matching_dict_ids
 from pinot_tpu_torch.engine.plan import plan_segment
-from pinot_tpu_torch.engine.results import QueryStats, record_decision
+from pinot_tpu_torch.engine.results import QueryStats
 from pinot_tpu_torch.query.expressions import Identifier, PredicateType
 from pinot_tpu_torch.segment import metadata as meta
 from pinot_tpu_torch.segment.mutable import (
@@ -435,6 +445,35 @@ _TORCH = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
 # the serve path (the executor's branch for a consuming segment)
 # --------------------------------------------------------------------------
 
+def observe_freshness(segment: Any, upto: int, table: str) -> None:
+    """Record the ingest-to-queryable latency of every row first covered
+    by watermark ``upto`` in the ``(table, "freshness")`` histogram (JAX
+    :440-457; the ``pinot.broker.slo.<table>.freshness.ms`` objective
+    burns against it). The segment's cursor makes each row count once,
+    whether the serve path (a watermark snapshot) or the seal (the last
+    flush) sees it first."""
+    lock = getattr(segment, "_fresh_lock", None)
+    ts = getattr(segment, "_append_ts", None)
+    if lock is None or ts is None or upto <= 0:
+        return
+    with lock:
+        start = int(segment._fresh_observed)
+        if upto <= start:
+            return
+        segment._fresh_observed = upto
+    now = time.monotonic()
+    h = TELEMETRY.histo(table or "", "freshness")
+    for t in np.asarray(ts.view(upto)[start:upto]):
+        h.record(max(0.0, (now - float(t)) * 1e3))
+
+
+def _table_of(stats: QueryStats, seg) -> str:
+    """The telemetry table of a query: its context's, else the segment's
+    schema's."""
+    return getattr(stats, "_tel_table", "") \
+        or getattr(seg.schema, "schema_name", "")
+
+
 def _decline(stats: QueryStats, reason: str) -> None:
     """To the host engine."""
     record_decision(stats, "mutable", "host_engine", "mutable_device",
@@ -485,10 +524,13 @@ def _serve(executor, ctx, aggs, seg: MutableSegment, stats: QueryStats,
     if int(seg.num_docs) == 0:
         _decline(stats, "mutable_empty_watermark")
         return None
-    resident = stage(executor, seg, stats)
-    snap = resident.snapshot()
-    # the chunks may have grown: measure again, enforce the budget
-    executor.residency.account(resident_name(seg.segment_name), stats.lease)
+    table = _table_of(stats, seg)
+    with maybe_span(stats, "Stage", segment=seg.segment_name):
+        resident = stage(executor, seg, stats)
+        snap = resident.snapshot()
+        # the chunks may have grown: measure again, enforce the budget
+        executor.residency.account(resident_name(seg.segment_name),
+                                   stats.lease)
     view = WatermarkView(seg, snap)
     try:
         plan = plan_segment(ctx, view)
@@ -501,8 +543,13 @@ def _serve(executor, ctx, aggs, seg: MutableSegment, stats: QueryStats,
         res = _try_index_gather(executor, ctx, seg, resident, view, snap,
                                 plan, stats, grouped)
         if res is not None:
+            observe_freshness(seg, snap.wm, table)
             return res
-        out = _scan(executor, plan, snap)
+        t0 = time.perf_counter()
+        with maybe_span(stats, "Kernel", kernel="jnp",
+                        segment=seg.segment_name):
+            out = _scan(executor, plan, snap)
+        observe_ms(table, "kernel", (time.perf_counter() - t0) * 1e3)
     except PlanError as e:   # the decode: more live groups than its cap
         record_decision(stats, "plan", "host_engine", "mutable_device",
                         e.reason_code)
@@ -513,6 +560,7 @@ def _serve(executor, ctx, aggs, seg: MutableSegment, stats: QueryStats,
     stats.total_docs += snap.wm
     stats.num_docs_scanned += matched
     stats.num_segments_matched += 1 if matched else 0
+    observe_freshness(seg, snap.wm, table)
     if grouped:
         return decode_grouped_result(plan, view, out)
     return decode_scalar_result(plan, view, out)
@@ -599,11 +647,16 @@ def _try_index_gather(executor, ctx, seg: MutableSegment,
     stripped = index_exec.gather_plan(plan, n)
     padded = np.zeros(stripped.spec[4], dtype=np.int32)
     padded[:n] = idx
-    packed = index_exec.index_gather(
-        stripped.spec, {c: snap.tree(c) for c in stripped.columns},
-        torch.from_numpy(padded).to(executor.device),
-        kernels.device_params(stripped, executor.device), n)
-    out = kernels.unpack_outputs(packed.cpu().numpy(), stripped.spec)
+    t0 = time.perf_counter()
+    with maybe_span(stats, "Kernel", kernel="index_gather",
+                    segment=seg.segment_name, records=n):
+        packed = index_exec.index_gather(
+            stripped.spec, {c: snap.tree(c) for c in stripped.columns},
+            torch.from_numpy(padded).to(executor.device),
+            kernels.device_params(stripped, executor.device), n)
+        out = kernels.unpack_outputs(packed.cpu().numpy(), stripped.spec)
+    observe_ms(_table_of(stats, seg), "kernel",
+               (time.perf_counter() - t0) * 1e3)
     stats.num_segments_processed += 1
     stats.total_docs += wm
     stats.num_docs_scanned += n

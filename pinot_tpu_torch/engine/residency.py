@@ -42,7 +42,9 @@ against a budget:
   of both tiers to a server's registry and marks the ``STAGING_*``
   meters at every hit, miss, eviction, spill, borrow, demotion,
   promotion and sliced query; the data-manager hooks that prefetch and
-  evict are the server's (``server/server.py``).
+  evict are the server's (``server/server.py``). Every marked event also
+  feeds the flight recorder's storm trigger, and both tiers' bytes are
+  gauge rings of the process telemetry (JAX :1141-1164).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
+from pinot_tpu_torch.common.telemetry import TELEMETRY, note_storm_event
 from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine.staging import (
     TILE,
@@ -976,8 +979,19 @@ class ResidencyManager:
                        lambda: float(self.host_budget_bytes or 0))
         registry.gauge("staging_host_entries",
                        lambda: float(self.host_entry_count()))
+        # both tiers' bytes as gauge rings (JAX :1141-1150). The sampler
+        # reads the last measured totals without the manager's lock, which
+        # the query path holds while it notes storm events
+        TELEMETRY.track_gauge("staging.staged_bytes",
+                              lambda: float(self._staged_bytes))
+        TELEMETRY.track_gauge("staging.host_bytes",
+                              lambda: float(self._host_bytes))
 
     def _mark(self, name: str) -> None:
+        # the flight recorder's storm feed, bound or not (JAX :1152-1164):
+        # note_storm_event only records a pending trigger, so it is safe
+        # under the manager's lock
+        note_storm_event(name)
         if self._metrics is not None:
             self._metrics.meter(getattr(ServerMeter, name)).mark()
 

@@ -10,12 +10,22 @@ HAVING and OFFSET do not apply there, as in the JAX package. Selection
 and DISTINCT build their ``ResultTable`` in the host engine
 (``engine/host_engine.py``), with the column types of the selected
 columns (``INT``, ``STRING_ARRAY``, ...).
+
+``QueryStats`` carries a traced query's flat ``trace`` entries and its
+``spans`` (JAX :108-176, :202-203; a worker's trees nest under the
+caller's open span at merge) and the query's per-kernel launch counts,
+counted where the kernel launches into the stats its thread is bound to
+(``count_launches_into``); ``shared_launch`` hands a shared run's count to
+every query it served.
 """
 
 from __future__ import annotations
 
+import threading
+
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -60,7 +70,11 @@ class ResultTable:
 
 
 # the port's launch counters and their names on the wire (the JAX stats
-# have none of them; both decoders ignore keys they do not know)
+# have none of them; both decoders ignore keys they do not know). A query
+# counts every launch that served it, whether it led the launch or rode
+# it (a kernel_flight follower, a coalesced launcher request): counted
+# where the kernel launches (engine/fused_scan.py count_launches_into),
+# so a query's counts under any concurrency equal its solo counts
 _WIRE_COUNTERS = (
     ("scan_launches", "scanLaunches"),
     ("probe_launches", "probeLaunches"),
@@ -113,7 +127,8 @@ class QueryStats:
     # star-tree rungs; a table's segments share one tree config, so the
     # last segment's is kept (the JAX package's merge rule, :151)
     startree_tree_index: Optional[int] = None
-    # path decisions (record_decision): decision key -> count
+    # path decisions (common/tracing.py record_decision): decision key ->
+    # count, summed at merge
     decisions: Dict[str, int] = field(default_factory=dict)
     # residency counters of this query (engine/residency.py
     # QueryLease.staging_dict): hits, misses, evictions,
@@ -130,12 +145,39 @@ class QueryStats:
     reduce_path: Optional[str] = None
     # phase -> ms (SEGMENT_PRUNING on the server), summed at merge
     phase_ms: Dict[str, float] = field(default_factory=dict)
+    # the flat trace entries of a traced query (one a closed span, the
+    # legacy traceInfo["entries"] view), concatenated at merge
+    trace: List[Dict[str, Any]] = field(default_factory=list)
+    # the span trees of a traced query (common/tracing.py SpanRecorder:
+    # the recorder's finished roots land here). At merge they nest under
+    # the merging stats' open span, else they concatenate
+    spans: List[Dict[str, Any]] = field(default_factory=list)
     # the residency lease the query runs under (ResidencyManager
     # .begin_query), None outside a query or on an uncapped CPU run
     lease: Optional[Any] = field(default=None, repr=False, compare=False)
 
     def add_phase_ms(self, phase: str, ms: float) -> None:
         self.phase_ms[phase] = self.phase_ms.get(phase, 0.0) + ms
+
+    def add_trace(self, operator: str, ms: float, **detail: Any) -> None:
+        self.trace.append({"operator": operator, "ms": round(ms, 3),
+                           **detail})
+
+    def launch_counts(self) -> Dict[str, int]:
+        """Launch count field -> the launches this query counted."""
+        return {name: getattr(self, name) for name, _wire in _WIRE_COUNTERS}
+
+    def kernel_launches(self) -> int:
+        """Every launch counted, of every kernel and rung."""
+        return sum(self.launch_counts().values())
+
+    def add_launches(self, other: "QueryStats") -> None:
+        """Add the launch counts of ``other`` (the launches of a run this
+        query was served by, led or ridden)."""
+        for name, _wire in _WIRE_COUNTERS:
+            n = getattr(other, name)
+            if n:
+                setattr(self, name, getattr(self, name) + n)
 
     def record_rung(self, rung: str) -> None:
         self.group_by_rung = (rung if self.group_by_rung in (None, rung)
@@ -150,13 +192,9 @@ class QueryStats:
         for name in ("num_segments_queried", "num_segments_processed",
                      "num_segments_matched", "num_segments_pruned",
                      "num_docs_scanned", "total_docs",
-                     "num_servers_queried", "num_servers_responded",
-                     "scan_launches",
-                     "probe_launches", "sharded_scan_launches",
-                     "sharded_probe_launches", "general_launches",
-                     "topk_launches", "batch_general_launches",
-                     "index_launches", "startree_launches"):
+                     "num_servers_queried", "num_servers_responded"):
             setattr(self, name, getattr(self, name) + getattr(other, name))
+        self.add_launches(other)
         self.num_groups_limit_reached |= other.num_groups_limit_reached
         if other.group_by_rung is not None:
             self.group_by_rung = (
@@ -178,6 +216,15 @@ class QueryStats:
                                if k.endswith("Bytes")
                                else self.staging.get(k, 0) + v)
         merge_launch(self.launch, other.launch)
+        self.trace.extend(other.trace)
+        if other.spans:
+            rec = getattr(self, "_recorder", None)
+            if rec is not None:
+                # a live recorder adopts them under its open span (a
+                # worker's segments nest under the caller's query)
+                rec.adopt(other.spans)
+            else:
+                self.spans.extend(other.spans)
 
     def to_dict(self) -> Dict[str, Any]:
         """The wire form: the JAX ``QueryStats.to_dict`` keys (JAX
@@ -206,6 +253,8 @@ class QueryStats:
                if self.reduce_path else {}),
             **({"staging": self.staging} if self.staging else {}),
             **({"launch": self.launch} if self.launch else {}),
+            **({"trace": self.trace} if self.trace else {}),
+            **({"spans": self.spans} if self.spans else {}),
             **({"decisions": self.decisions} if self.decisions else {}),
             **counters,
             **({"rungSegments": self.rung_segments}
@@ -232,11 +281,52 @@ class QueryStats:
             staging=dict(st.get("staging", {})),
             launch=dict(st.get("launch", {})),
             phase_ms=dict(st.get("phaseTimesMs", {})),
+            trace=list(st.get("trace", [])),
+            spans=list(st.get("spans", [])),
             decisions=dict(st.get("decisions", {})),
             rung_segments=dict(st.get("rungSegments", {})))
         for name, wire in _WIRE_COUNTERS:
             setattr(out, name, int(st.get(wire, 0)))
         return out
+
+
+# the QueryStats the launching thread counts into (count_launches_into)
+_LAUNCH_SINK = threading.local()
+
+
+def launch_sink() -> Optional[QueryStats]:
+    """The stats this thread's kernel launches count into, or None."""
+    return getattr(_LAUNCH_SINK, "stats", None)
+
+
+@contextmanager
+def count_launches_into(stats: QueryStats):
+    """Bind this thread's launches to ``stats`` for the block (the earlier
+    binding comes back after it): a query binds its stats for its whole
+    run, a worker task its private stats, and a shared run (a
+    ``kernel_flight``, a launcher group) a fresh tally that every query it
+    served adds to its own (``QueryStats.add_launches``)."""
+    prev = getattr(_LAUNCH_SINK, "stats", None)
+    _LAUNCH_SINK.stats = stats
+    try:
+        yield stats
+    finally:
+        _LAUNCH_SINK.stats = prev
+
+
+def shared_launch(flight: Any, key: Any, stats: QueryStats,
+                  launch: Callable[[], Any]) -> Tuple[Any, int]:
+    """``launch()`` through the single flight ``flight`` under ``key``
+    (None: not shared), its launches counted into a tally that each query
+    the run served, leader or follower, adds to its stats. -> (the
+    launch's result, the run's launch count)."""
+    def run():
+        with count_launches_into(QueryStats()) as tally:
+            return launch(), tally
+
+    (out, tally), _ = flight.do(key, run)
+    stats.add_launches(tally)
+    return out, tally.kernel_launches()
 
 
 # launch keys whose merge takes the max (the JAX launcher's
@@ -249,23 +339,6 @@ def merge_launch(into: Dict[str, float], other: Dict[str, float]) -> None:
     for k, v in other.items():
         into[k] = (max(into.get(k, 0), v) if k in LAUNCH_MAX_KEYS
                    else into.get(k, 0) + v)
-
-
-def decision_key(point: str, chosen: str, declined: str,
-                 reason: str) -> str:
-    return f"{point}:{declined}->{chosen}:{reason}"
-
-
-def record_decision(stats: Optional[QueryStats], point: str, chosen: str,
-                    declined: str, reason: str) -> None:
-    """Execution declined ``declined`` in favour of ``chosen`` at
-    ``point`` because ``reason`` (``pinot_tpu/common/tracing.py``
-    ``record_decision``, without the process-wide ledger). ``stats`` None
-    (a routing probe outside a query) records nothing."""
-    if stats is None:
-        return
-    key = decision_key(point, chosen, declined, reason)
-    stats.decisions[key] = stats.decisions.get(key, 0) + 1
 
 
 @dataclass

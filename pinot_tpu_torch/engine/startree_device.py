@@ -35,11 +35,17 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common.tracing import maybe_span
 from pinot_tpu_torch.engine import kernels
 from pinot_tpu_torch.engine.aggregates import AggDef
 from pinot_tpu_torch.engine.fused_scan import KernelCounter
 from pinot_tpu_torch.engine.plan import StarTreePlan, plan_star_tree
-from pinot_tpu_torch.engine.results import AggResult, GroupByResult, QueryStats
+from pinot_tpu_torch.engine.results import (
+    AggResult,
+    GroupByResult,
+    QueryStats,
+    shared_launch,
+)
 from pinot_tpu_torch.query.context import QueryContext
 
 POS_INF = float("inf")
@@ -47,7 +53,7 @@ NEG_INF = float("-inf")
 
 # node-slice calls of the star-tree rung, on any device (PyTorch ops, as
 # the general rung's RUNG_COUNTER)
-STARTREE_COUNTER = KernelCounter("startree_node_slice")
+STARTREE_COUNTER = KernelCounter("startree_node_slice", "startree_launches")
 
 
 def build_startree_kernel(spec: Tuple) -> Callable:
@@ -176,10 +182,17 @@ def execute_star_tree_device(executor, ctx: QueryContext,
         return kernels.unpack_outputs(packed.cpu().numpy(), plan.spec)
 
     # concurrent identical queries (the same compiled ctx over the same
-    # staged tree) share one node-slice call and copy (JAX :170-196)
-    out, _ = executor.kernel_flight.do(
-        ("startree", id(ctx), segment.segment_name, tree_index, id(staged)),
-        launch)
+    # staged tree) share one node-slice call and copy (JAX :170-196); each
+    # counts the call
+    with maybe_span(stats, "Kernel", kernel="startree_device",
+                    segment=segment.segment_name, records=n) as sp:
+        out, launches = shared_launch(
+            executor.kernel_flight,
+            ("startree", id(ctx), segment.segment_name, tree_index,
+             id(staged)),
+            stats, launch)
+        if sp is not None:
+            sp.attrs["launches"] = launches
     stats.num_segments_processed += 1
     stats.total_docs += segment.num_docs
     stats.num_docs_scanned += n

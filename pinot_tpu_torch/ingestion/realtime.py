@@ -48,6 +48,7 @@ import time
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Optional
 
+from pinot_tpu_torch.common.telemetry import observe_ms
 from pinot_tpu_torch.ingestion.stream import (
     StreamConsumerFactory,
     StreamMessageDecoder,
@@ -354,6 +355,7 @@ class RealtimeSegmentDataManager:
             "segment.realtime.partition": self.partition,
         })
         self.seal_wall_ms = (time.perf_counter() - t0) * 1e3
+        observe_ms(self.table_config.table_name, "seal", self.seal_wall_ms)
         return sealed
 
     def _run_once_resilient(self) -> ConsumerState:

@@ -52,13 +52,18 @@ from pinot_tpu_torch.engine.fused_scan import (
 # devices on the segment axis of the combine: one card
 SEG_SHARDS = 1
 
-SHARDED_SCAN_COUNTER = KernelCounter("sharded_fused_scan")
-SHARDED_PROBE_COUNTER = KernelCounter("sharded_fused_scan_probe")
-SHARDED_SCAN_MANY_COUNTER = KernelCounter("sharded_fused_scan_many")
-SHARDED_PROBE_MANY_COUNTER = KernelCounter("sharded_fused_scan_probe_many")
+SHARDED_SCAN_COUNTER = KernelCounter("sharded_fused_scan",
+                                     "sharded_scan_launches")
+SHARDED_PROBE_COUNTER = KernelCounter("sharded_fused_scan_probe",
+                                      "sharded_probe_launches")
+SHARDED_SCAN_MANY_COUNTER = KernelCounter("sharded_fused_scan_many",
+                                          "sharded_scan_launches")
+SHARDED_PROBE_MANY_COUNTER = KernelCounter(
+    "sharded_fused_scan_probe_many", "sharded_probe_launches")
 # calls of the jnp combine over a batch, on any device (PyTorch ops, as the
 # per-segment general rung's RUNG_COUNTER)
-BATCH_GENERAL_COUNTER = KernelCounter("batch_general")
+BATCH_GENERAL_COUNTER = KernelCounter("batch_general",
+                                      "batch_general_launches")
 
 
 def pad_segments(n: int, n_seg: int) -> int:

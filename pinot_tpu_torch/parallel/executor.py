@@ -55,6 +55,12 @@ that fails raises in every query that rode it: the JAX executor's repair
 from Pallas to jnp (:434-474) is not copied. The doc-axis mesh and the
 merge across cards are not part of this executor.
 
+A traced query's batch launch is one ``ShardedCombine`` span (the
+launcher's queue wait as its ``queueMs``, JAX :376) and a sliced lease's
+slices ``Slice`` spans (JAX :219). The launches a request was served by,
+its own or a coalesced one, come back on the request and count in the
+query's stats.
+
 The column borrower (``_borrow_batch_column``, JAX :813-883): a
 per-segment staging (the general rung, the index rung, the top-k) of a
 segment a resident batch holds reads that batch's jnp-combine column
@@ -80,6 +86,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common.tracing import (
+    maybe_span,
+    record_decision,
+    stats_tracer,
+)
 from pinot_tpu_torch.engine import (
     fused_scan,
     index_exec,
@@ -100,7 +111,6 @@ from pinot_tpu_torch.engine.results import (
     GroupByResult,
     QueryStats,
     merge_launch,
-    record_decision,
 )
 from pinot_tpu_torch.engine.staging import (
     StagedColumn,
@@ -116,8 +126,6 @@ from pinot_tpu_torch.parallel.combine import (
     BATCH_GENERAL_COUNTER,
     BATCH_KERNELS,
     SEG_SHARDS,
-    SHARDED_PROBE_COUNTER,
-    SHARDED_SCAN_COUNTER,
     combine_to_host,
     pad_segments,
     sharded_fused_scan_many,
@@ -213,12 +221,6 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                 CommonConstants.LAUNCH_WINDOW_HOT_MS_KEY,
                 CommonConstants.DEFAULT_LAUNCH_WINDOW_HOT_MS))
 
-    def _counters(self) -> Tuple:
-        return super()._counters() + (
-            ("sharded_scan_launches", SHARDED_SCAN_COUNTER),
-            ("sharded_probe_launches", SHARDED_PROBE_COUNTER),
-            ("batch_general_launches", BATCH_GENERAL_COUNTER))
-
     # -- combine overrides --------------------------------------------------
     def _execute_aggregation(self, ctx: QueryContext, aggs: List[AggDef],
                              segments: List[ImmutableSegment],
@@ -274,22 +276,24 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                             "sharded_sliced", "slice_pad_over_budget")
             return base(self, ctx, aggs, segments, stats)
         merged = GroupByResult() if grouped else None
-        for chunk in slices:
-            got = self._run_sharded(ctx, chunk, stats)
-            if got is not None:
-                batch, tree, plan = got
-                part = (decode_grouped_result(plan, batch, tree) if grouped
-                        else decode_scalar_result(plan, batch, tree))
-            else:
-                part = base(self, ctx, aggs, chunk, stats)
-            if grouped:
-                merged.merge(part, aggs)
-            elif merged is None:
-                merged = part
-            else:
-                merged.merge(part, aggs)
-            # the slice's boundary: unpin, demote past the budget
-            self.residency.release_slice(lease)
+        for i, chunk in enumerate(slices):
+            with maybe_span(stats, "Slice", index=i, segments=len(chunk)):
+                got = self._run_sharded(ctx, chunk, stats)
+                if got is not None:
+                    batch, tree, plan = got
+                    part = (decode_grouped_result(plan, batch, tree)
+                            if grouped
+                            else decode_scalar_result(plan, batch, tree))
+                else:
+                    part = base(self, ctx, aggs, chunk, stats)
+                if grouped:
+                    merged.merge(part, aggs)
+                elif merged is None:
+                    merged = part
+                else:
+                    merged.merge(part, aggs)
+                # the slice's boundary: unpin, demote past the budget
+                self.residency.release_slice(lease)
         return merged
 
     def _any_star_tree_fit(self, ctx: QueryContext, aggs: List[AggDef],
@@ -461,9 +465,29 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                 if len(self._param_cache) > PARAM_CACHE_CAP:
                     self._param_cache.popitem(last=False)
         kernel = self._launch_kernel(bound.launch_key, bound.make_kernel)
-        req = self.launcher.submit(kernel, bound.params,
-                                   staged.num_docs_tensor())
-        result = req.result()
+        # the span covers the launcher's queue, the launch and the copy to
+        # the host; queueMs is the request's measured queue wait (JAX :376)
+        rec = stats_tracer(stats)
+        sp = rec.span_begin("ShardedCombine") if rec is not None else None
+        req = None
+        try:
+            req = self.launcher.submit(kernel, bound.params,
+                                       staged.num_docs_tensor())
+            result = req.result()
+        finally:
+            if sp is not None:
+                rec.span_end(
+                    sp,
+                    queue_ms=(round(req.queue_wait_ms, 3)
+                              if req is not None else None),
+                    kernel="fused_scan" if bound.pp is not None
+                    else "general",
+                    segments=batch.num_segments,
+                    batch_size=req.batch_size if req is not None else 0,
+                    launches=(req.launched.kernel_launches()
+                              if req is not None else 0))
+        # the launch (or the coalesced launch it rode) counts here
+        stats.add_launches(req.launched)
         merge_launch(stats.launch, {
             "launches": 1,
             "coalesced": 1 if req.batch_size > 1 else 0,
@@ -535,7 +559,7 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             inp = fused_scan.scan_inputs(
                 plan, staged, on_decline=reasons.append,
                 run_probe=lambda prog, words, num_docs: self._probe(
-                    prog, words, num_docs, bname, S))
+                    prog, words, num_docs, bname, S, stats))
             if inp is not None:
                 return self._bind_fused(inp, bname, S)
         else:
@@ -590,9 +614,11 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                           probe=inp.probe, inputs=inp)
 
     def _probe(self, prog: fused_scan.ScanProgram, words, num_docs,
-               bname: str, S: int) -> fused_scan.ScanOutputs:
+               bname: str, S: int, stats: QueryStats
+               ) -> fused_scan.ScanOutputs:
         """The group-range probe at binding, through the launcher: probes
-        of one layout from concurrent bindings share a launch."""
+        of one layout from concurrent bindings share a launch, which each
+        of them counts."""
         key = ("fused_probe", prog.layout_key(), bname, S)
         max_batch = self._launch_max_batch
         kernel = self._launch_kernel(key, lambda: LaunchKernel(
@@ -602,7 +628,10 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                                  sharded_fused_scan_probe_many(ps, words,
                                                                nd)],
             max_batch=max_batch))
-        return self.launcher.submit(kernel, prog, num_docs).result()
+        req = self.launcher.submit(kernel, prog, num_docs)
+        out = req.result()
+        stats.add_launches(req.launched)
+        return out
 
 
 class _BatchResident:

@@ -34,7 +34,12 @@ host results, and the dispatcher waits for the device's stream before it
 completes the futures (JAX's ``block_until_ready`` at :364).
 ``bind_metrics`` (JAX :416-436) adds a server's registry: every bound
 registry gets the ``ServerMeter.LAUNCH*`` marks (several in-process
-servers may share one device's scheduler) and the queue gauges.
+servers may share one device's scheduler) and the queue gauges. Each
+group's queue waits go to the process telemetry's ``launch_queue``
+histogram, and a device's scheduler samples its queue depth and arrival
+EWMA into gauge rings (JAX :386-388, :487-492). Each launch runs with a
+fresh tally bound (``results.count_launches_into``), which every request
+it served carries back (``_LaunchRequest.launched``).
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from pinot_tpu_torch.common.telemetry import TELEMETRY
+from pinot_tpu_torch.engine.results import QueryStats, count_launches_into
 from pinot_tpu_torch.spi.metrics import ServerMeter
 
 log = logging.getLogger(__name__)
@@ -93,7 +100,8 @@ class _LaunchRequest:
     executor copies into ``QueryStats.launch``)."""
 
     __slots__ = ("kernel", "params", "num_docs", "future", "t_submit",
-                 "batch_size", "queue_wait_ms", "launches_saved", "deduped")
+                 "batch_size", "queue_wait_ms", "launches_saved", "deduped",
+                 "launched")
 
     def __init__(self, kernel: LaunchKernel, params, num_docs):
         self.kernel = kernel
@@ -105,6 +113,9 @@ class _LaunchRequest:
         self.queue_wait_ms = 0.0
         self.launches_saved = 0
         self.deduped = False
+        # the launches of the run that served this request, counted where
+        # the kernel launched (the query adds them to its stats)
+        self.launched = QueryStats()
 
     def result(self, timeout: Optional[float] = None):
         return self.future.result(timeout)
@@ -273,18 +284,22 @@ class LaunchScheduler:
 
         outs: List[Any] = [None] * len(uniq)
         errs: List[Optional[BaseException]] = [None] * len(uniq)
+        # per parameter set, the launches of the chunk that served it
+        tallies: List[Optional[QueryStats]] = [None] * len(uniq)
         launches = 0
         step = kernel.max_batch if kernel.batchable else 1
         for start in range(0, len(uniq), step):
             chunk = uniq[start:start + step]
-            try:
-                if len(chunk) > 1:
-                    outs[start:start + len(chunk)] = kernel.run_many(
-                        chunk, num_docs)
-                else:
-                    outs[start] = kernel.run_one(chunk[0], num_docs)
-            except Exception as e:  # noqa: BLE001 - to every rider
-                errs[start:start + len(chunk)] = [e] * len(chunk)
+            with count_launches_into(QueryStats()) as tally:
+                try:
+                    if len(chunk) > 1:
+                        outs[start:start + len(chunk)] = kernel.run_many(
+                            chunk, num_docs)
+                    else:
+                        outs[start] = kernel.run_one(chunk[0], num_docs)
+                except Exception as e:  # noqa: BLE001 - to every rider
+                    errs[start:start + len(chunk)] = [e] * len(chunk)
+            tallies[start:start + len(chunk)] = [tally] * len(chunk)
             launches += 1
         # the group's device work is done before any rider reads it
         if self.device is not None and self.device.type == "cuda":
@@ -299,6 +314,7 @@ class LaunchScheduler:
             r.batch_size = n
             r.launches_saved = n - launches
             r.deduped = req_slot.count(slot) > 1
+            r.launched = tallies[slot]
             self._complete(r, outs[slot], errs[slot])
 
     def _complete(self, r: _LaunchRequest, out=None,
@@ -316,6 +332,10 @@ class LaunchScheduler:
     def _note(self, reqs, uniq, launches: int, n_failed: int) -> None:
         n = len(reqs)
         wait = [r.queue_wait_ms for r in reqs]
+        # the launch tier's windowed queue-wait histogram (JAX :386-388)
+        wh = TELEMETRY.histo("", "launch_queue")
+        for w in wait:
+            wh.record(w)
         with self._stats_lock:
             self.requests += n
             self.launches += launches
@@ -390,6 +410,14 @@ def launcher_for_device(device: Union[str, torch.device]) -> LaunchScheduler:
         if sched is None:
             sched = LaunchScheduler(name=f"combine-launch-{key}", device=dev)
             _LAUNCHERS[key] = sched
+            # the dispatcher's queue depth and arrival EWMA as gauge rings
+            # (JAX :487-492); plain reads, no lock
+            TELEMETRY.track_gauge(
+                f"{sched._name}.queue_depth",
+                lambda s=sched: float(len(s._queue)))
+            TELEMETRY.track_gauge(
+                f"{sched._name}.arrival_ewma_ms",
+                lambda s=sched: float(s._arrival_ewma_ms or 0.0))
         return sched
 
 

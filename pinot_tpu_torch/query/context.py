@@ -77,6 +77,20 @@ class QueryContext:
     def is_selection(self) -> bool:
         return not self.aggregations and not self.distinct
 
+    @property
+    def trace_enabled(self) -> bool:
+        """OPTION(trace=true): the query records its span tree
+        (``common/tracing.py``), returned in ``traceInfo``. An untraced
+        query may still be sampled by ``pinot.server.query.trace.sample``
+        (JAX ``context.py:149-155``)."""
+        return str(self.options.get("trace", "")).lower() == "true"
+
+    @property
+    def request_id(self) -> Optional[str]:
+        """OPTION(requestId=...): the client's correlation id, shown in
+        the server's query registry and slow log (JAX :156-161)."""
+        return self.options.get("requestId")
+
     def referenced_columns(self) -> List[str]:
         cols: List[str] = []
         for e in self.select_expressions:

@@ -22,6 +22,7 @@ through the port's ``SegmentBuilder`` (on-disk segments are not ported).
 
 from __future__ import annotations
 
+import threading
 import time
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -272,6 +273,10 @@ class MutableSegment:
         # per row, the monotonic clock when it was indexed (ingest to
         # queryable latency is measured from it)
         self._append_ts = _GrowArray(np.float64)
+        # rows whose freshness was recorded already
+        # (engine/mutable_staging.py observe_freshness)
+        self._fresh_observed = 0
+        self._fresh_lock = threading.Lock()
 
     # -- write path -----------------------------------------------------------
     def index(self, row: Dict[str, Any]) -> bool:

@@ -15,8 +15,10 @@ the per-table QPS quota into the same gate at the broker's front door: a
 table over its quota is the same typed rejection with ``reason="quota"``.
 ``bind_metrics`` marks the admitted and rejected meters
 (``ServerMeter.ADMISSION_*``) and adds the in-flight and queue-depth
-gauges to a registry. The JAX gate's telemetry feeds (the gate-wait
-histogram, the rejection-burst trigger) wait for the telemetry slice.
+gauges to a registry. Each admission's wait goes to the table's windowed
+``admission_wait`` histogram and each rejection to the flight recorder's
+burst trigger (``common/telemetry.py``, JAX :137-145, :202-207); the
+queue depth and the rejections are gauge rings (JAX :225-237).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import time
 
 from typing import Any, Dict, Optional
 
+from pinot_tpu_torch.common.telemetry import TELEMETRY
 from pinot_tpu_torch.engine.errors import QueryRejectedError
 from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
 from pinot_tpu_torch.spi.metrics import ServerMeter
@@ -127,6 +130,7 @@ class AdmissionGate:
                 self.rejected_quota += 1
                 depth = self._waiting
             self._mark("ADMISSION_REJECTED")
+            TELEMETRY.note_rejection(table)
             raise QueryRejectedError(
                 f"query quota exceeded for table {table}",
                 queue_depth=depth, reason="quota")
@@ -180,8 +184,12 @@ class AdmissionGate:
         if reject is not None:
             reason, msg, depth = reject
             self._mark("ADMISSION_REJECTED")
+            # a burst of rejections trips the flight recorder (one is load
+            # shedding working)
+            TELEMETRY.note_rejection(table)
             raise QueryRejectedError(msg, queue_depth=depth, reason=reason)
         self._mark("ADMISSION_ADMITTED")
+        TELEMETRY.observe(table or "", "admission_wait", wait_ms)
         return _Ticket(gated=True, wait_ms=wait_ms)
 
     def release(self, ticket: Optional[_Ticket]) -> None:
@@ -205,6 +213,15 @@ class AdmissionGate:
         registry.gauge("admission_inflight", lambda: float(self._inflight))
         registry.gauge("admission_queue_depth",
                        lambda: float(self._waiting))
+        # gauge rings: the queue depth and the rejections so far (their
+        # rate is the ring's slope)
+        TELEMETRY.track_gauge(f"{self._name}.queue_depth",
+                              lambda: float(self._waiting))
+        TELEMETRY.track_gauge(
+            f"{self._name}.rejected",
+            lambda: float(self.rejected_queue_full
+                          + self.rejected_wait_expired
+                          + self.rejected_quota))
 
     def _mark(self, name: str) -> None:
         if self._metrics is None:

@@ -20,10 +20,11 @@ carries a live valid-doc view. A sealed segment fetched from the deep
 store is shared with the servers that hold it already, so an upsert
 table's server takes a shallow copy (the column arrays shared) and hangs
 its own valid-doc view on it; the JAX servers each load their own copy
-from disk. ``on_sealed`` counts JAX's ``seal:`` decisions
-(``seal_decisions``) and logs each seal (``seals``): the JAX package
-records the decision in its process-wide ledger and the seal's freshness
-telemetry (ROADMAP item 5b).
+from disk. ``on_sealed`` records JAX's ``seal:`` decision in the process
+ledger (``common/tracing.py`` ``LEDGER``) and counts it in the table's
+``seal_decisions``, logs each seal (``seals``), and flushes the consuming
+segment's last rows into the table's ``freshness`` histogram
+(``common/telemetry.py``, JAX :261-275).
 """
 
 from __future__ import annotations
@@ -35,14 +36,16 @@ import time
 
 from typing import Any, Dict, List, Optional
 
+from pinot_tpu_torch.common.tracing import decision_key, record_decision
 from pinot_tpu_torch.controller.assignment import _partition_from_llc_name
-from pinot_tpu_torch.engine.results import decision_key
+from pinot_tpu_torch.engine.mutable_staging import observe_freshness
 from pinot_tpu_torch.ingestion.realtime import RealtimeSegmentDataManager
 from pinot_tpu_torch.segment.upsert import (
     TableUpsertMetadataManager,
     _LiveValidDocs,
     attach_valid_docs,
 )
+from pinot_tpu_torch.spi.table import raw_table_name
 
 log = logging.getLogger(__name__)
 
@@ -253,6 +256,14 @@ class RealtimeTableDataManager(TableDataManager):
             entry.update(rows=mgr.rows_indexed,
                          consume_s=mgr.threshold_at - mgr.started_at,
                          threshold_to_swap_s=now - mgr.threshold_at)
+        # the process ledger; seal_decisions keeps this table's own count
+        record_decision(None, "seal", "immutable_swap", "consuming_segment",
+                        reason)
+        if mgr is not None:
+            # the last freshness flush: rows ingested after the last
+            # serving snapshot count once, against the seal's watermark
+            observe_freshness(mgr.segment, int(mgr.segment.num_docs),
+                              raw_table_name(self.table_name))
         key = decision_key("seal", "immutable_swap", "consuming_segment",
                            reason)
         with self._lock:

@@ -14,8 +14,9 @@ Counterpart of ``pinot_tpu/server/scheduler.py``:
   ``pinot.server.query.runner.threads`` (default 8) and
   ``pinot.server.query.scheduler.policy`` (default ``sewf``).
 
-The JAX schedulers also feed the process telemetry (the windowed
-scheduler-wait histogram); that waits for the telemetry slice.
+Every scheduler's queue wait also feeds the process telemetry: the
+table's windowed ``scheduler_wait`` histogram (``common/telemetry.py``,
+JAX :148-150).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import time
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, Optional
 
+from pinot_tpu_torch.common.telemetry import observe_ms
 from pinot_tpu_torch.spi.config import CommonConstants
 
 
@@ -140,6 +142,7 @@ class QueryScheduler:
                 getattr(self, "queue_wait_ms_total", 0.0) + wait_ms
             if wait_ms > getattr(self, "queue_wait_ms_max", 0.0):
                 self.queue_wait_ms_max = wait_ms
+        observe_ms(table, "scheduler_wait", wait_ms)
 
     def queue_depth(self) -> int:
         return self._pool.qsize()

@@ -21,11 +21,19 @@ consuming segment's resident first; dropping a segment evicts it
 exception ``DataTable``, Pinot's contract; the broker reports it as a
 partial result.
 
+Tracing and telemetry (JAX :94-106, :442-449, :602-645): the server binds
+the process decision ledger and telemetry center to its registry, gives
+the flight recorder its scheduler state, samples its scheduler's queue
+depth, hangs the scheduler-queue wait under a traced query's root as its
+first child (``SchedulerQueue``), and serves ``queries_debug``,
+``telemetry_debug``, ``slo_debug``, ``freshness_debug`` and
+``flightrecorder_debug``.
+
 The executor defaults to ``ServerQueryExecutor(device="cuda")``; a caller
 on the CPU passes ``executor=ServerQueryExecutor(device="cpu")``. Not part
 of this module: reload (it rewrites segments on disk, ROADMAP item 7),
-``table_size`` (on-disk bytes), and the telemetry, SLO, freshness,
-flight-recorder and kernel-blocklist debug views.
+``table_size`` (on-disk bytes), the kernel-blocklist debug view, and the
+REST routes of the debug views (they wait for the transport).
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ import time
 from typing import Any, Dict, List, Optional
 
 from pinot_tpu_torch.common.datatable import DataTable
+from pinot_tpu_torch.common.telemetry import TELEMETRY
+from pinot_tpu_torch.common.tracing import LEDGER, attach_root_child
 from pinot_tpu_torch.controller.state import (
     CONSUMING,
     OFFLINE,
@@ -103,6 +113,17 @@ class ServerInstance:
         if launcher is not None:    # the batch executor's coalescing
             launcher.bind_metrics(self.metrics)
         self.executor.admission.bind_metrics(self.metrics)
+        # the decision ledger as the labeled decision_declined_total
+        # family, and the process telemetry's histogram and SLO families,
+        # on this server's /metrics
+        LEDGER.bind_metrics(self.metrics)
+        TELEMETRY.configure(config)
+        self.metrics.bind_telemetry(TELEMETRY)
+        TELEMETRY.recorder.register_provider("scheduler",
+                                             self.scheduler_debug)
+        self._queue_gauge = f"scheduler.queue_depth.{instance_id}"
+        TELEMETRY.track_gauge(self._queue_gauge,
+                              lambda: float(self.scheduler.queue_depth()))
         self._started = False
         self._queries_enabled = False
         self._reconcile_lock = threading.RLock()
@@ -152,6 +173,11 @@ class ServerInstance:
             self._hb_stop.set()
             # join before marking dead: a touch in flight would revive it
             self._hb_thread.join(timeout=5)
+        TELEMETRY.untrack_gauge(self._queue_gauge)
+        for name, fn in (("scheduler", self.scheduler_debug),
+                         ("residency", self.executor.residency.snapshot),
+                         ("admission", self.executor.admission.snapshot)):
+            TELEMETRY.recorder.unregister_provider(name, fn)
         self.scheduler.shutdown()
         self.data_manager.shutdown()
         self.executor.close()
@@ -373,6 +399,12 @@ class ServerInstance:
             # the phase timings travel in the DataTable's stats
             dt.stats.add_phase_ms(ServerQueryPhase.SCHEDULER_WAIT, wait_ms)
             dt.stats.add_phase_ms(ServerQueryPhase.QUERY_EXECUTION, exec_ms)
+            if dt.stats.spans:
+                # the scheduler wait came before the executor opened the
+                # tree: the root's first child, all queue
+                attach_root_child(dt.stats, "SchedulerQueue",
+                                  wall_ms=wait_ms, queue_ms=wait_ms,
+                                  front=True)
             self.metrics.timer(
                 ServerQueryPhase.QUERY_EXECUTION).update_ms(exec_ms)
             self.metrics.meter(ServerMeter.DOCS_SCANNED).mark(
@@ -479,3 +511,34 @@ class ServerInstance:
         """Byte-accurate residency on the card and in host RAM: per
         resident its bytes and pins, plus the budgets and counters."""
         return self.executor.residency.snapshot()
+
+    def queries_debug(self) -> Dict[str, Any]:
+        """The executor's running queries (sql, phase, elapsed, pins
+        held), the ring of completed ones and the slow-query log, whose
+        entries keep their whole span trees
+        (``pinot.server.query.slow.threshold.ms``)."""
+        out: Dict[str, Any] = {"instance": self.instance_id}
+        out.update(self.executor.queries.snapshot())
+        return out
+
+    def telemetry_debug(self) -> Dict[str, Any]:
+        """The process telemetry: each (table, phase) histogram with its
+        lifetime and sliding quantiles, the gauge rings and the anomaly
+        events."""
+        return TELEMETRY.snapshot()
+
+    def slo_debug(self) -> Dict[str, Any]:
+        """Each table's objectives with their short- and long-window burn
+        rates."""
+        return TELEMETRY.slo_snapshot()
+
+    def freshness_debug(self) -> Dict[str, Any]:
+        """Each realtime table's ingest-to-queryable histogram (a sample
+        a row: its append to the first watermark that serves it) and its
+        freshness burn where an objective is set."""
+        return TELEMETRY.freshness_snapshot()
+
+    def flightrecorder_debug(self) -> Dict[str, Any]:
+        """The flight recorder: the frozen bundles, the last one whole,
+        the rings' occupancy and the anomaly-event totals."""
+        return TELEMETRY.recorder.snapshot()

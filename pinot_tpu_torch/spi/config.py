@@ -1,8 +1,9 @@
 """Layered key/value configuration, cut down to the keys the port reads.
 
 Counterpart of ``pinot_tpu/spi/config.py`` (``PinotConfiguration``, the
-residency, launch, worker-pool, runner, scheduler, admission and
-broker-reduce keys of ``CommonConstants`` at :144-153 and :158-232): explicit
+residency, launch, worker-pool, runner, scheduler, admission,
+broker-reduce, tracing, telemetry and SLO keys of ``CommonConstants`` at
+:144-153 and :158-272): explicit
 overrides win over ``PINOT_``-prefixed environment variables
 (``PINOT_SERVER_PORT`` -> ``pinot.server.port``), and keys match relaxed
 (case-insensitive, ``-`` / ``_`` / ``.`` -insensitive).
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, Iterator, List, Mapping, Optional
 
 _SEP = re.compile(r"[-_.]")
 
@@ -87,6 +88,34 @@ class CommonConstants:
     # rows of the concatenated merge input past which the device merge
     # declines rather than commit unbounded device memory
     DEFAULT_DEVICE_REDUCE_MAX_ROWS = 1 << 22
+    # query tracing (common/tracing.py): a query records its span tree when
+    # it carries OPTION(trace=true) or this sample rate (0..1) hits; a
+    # sampled trace ships like a requested one. 0 keeps the untraced path
+    # free of recorders
+    TRACE_SAMPLE_KEY = "pinot.server.query.trace.sample"
+    DEFAULT_TRACE_SAMPLE = 0.0
+    # slow-query log: past this wall time a query keeps its whole span tree
+    # in the server's slow log even when it was not traced; while it is
+    # set, every query records spans and only traced ones ship them.
+    # 0 disables it
+    SLOW_THRESHOLD_MS_KEY = "pinot.server.query.slow.threshold.ms"
+    DEFAULT_SLOW_THRESHOLD_MS = 0.0
+    # telemetry (common/telemetry.py): the sampler's period for the gauge
+    # rings and the flight recorder's anomaly checks
+    TELEMETRY_RESOLUTION_S_KEY = "pinot.server.telemetry.resolution.s"
+    DEFAULT_TELEMETRY_RESOLUTION_S = 2.0
+    # flight recorder: the bundles' directory (default
+    # <tmp>/pinot_tpu_flightrecorder), the freeze debounce, and the factor
+    # over its EWMA at which a windowed p99 trips it
+    FLIGHT_DIR_KEY = "pinot.server.telemetry.flightrecorder.dir"
+    FLIGHT_MIN_INTERVAL_S_KEY = \
+        "pinot.server.telemetry.flightrecorder.min.interval.s"
+    FLIGHT_P99_FACTOR_KEY = \
+        "pinot.server.telemetry.flightrecorder.p99.factor"
+    # per-table objectives, read from the raw key strings so table names
+    # keep their case: pinot.broker.slo.<table>.p99.ms (latency, ms),
+    # .error.pct (error rate, percent), .freshness.ms (ingest to queryable)
+    SLO_KEY_PREFIX = "pinot.broker.slo."
 
 
 class PinotConfiguration:
@@ -95,12 +124,19 @@ class PinotConfiguration:
     def __init__(self, overrides: Optional[Mapping[str, Any]] = None,
                  use_env: bool = True):
         self._store: Dict[str, Any] = {}
+        # relaxed key -> the key as it was given (the SLO keys carry
+        # table names)
+        self._raw_keys: Dict[str, str] = {}
         if use_env:
             for k, v in os.environ.items():
                 if k.startswith("PINOT_"):
-                    self._store[_relax(k.lower().replace("_", "."))] = v
+                    self._set(k.lower().replace("_", "."), v)
         for k, v in (overrides or {}).items():
-            self._store[_relax(k)] = v
+            self._set(k, v)
+
+    def _set(self, key: str, value: Any) -> None:
+        self._store[_relax(key)] = value
+        self._raw_keys[_relax(key)] = key
 
     def get(self, key: str, default: Any = None) -> Any:
         return self._store.get(_relax(key), default)
@@ -120,6 +156,14 @@ class PinotConfiguration:
         if isinstance(v, bool):
             return v
         return str(v).strip().lower() in ("true", "1", "yes", "on")
+
+    def get_str(self, key: str, default: str = "") -> str:
+        v = self.get(key)
+        return default if v is None else str(v)
+
+    def keys(self) -> Iterator[str]:
+        """The keys as they were given."""
+        return iter(list(self._raw_keys.values()))
 
 
 __all__ = ["CommonConstants", "PinotConfiguration"]

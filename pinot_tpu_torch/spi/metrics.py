@@ -4,9 +4,11 @@ Counterpart of ``pinot_tpu/spi/metrics.py``: each role (controller,
 broker, server) owns a ``MetricsRegistry``; meters and timers take a small
 lock per update (``+=`` is not atomic across threads). The canonical
 names (``ServerMeter``, ``ServerQueryPhase``, ``BrokerMeter``,
-``BrokerQueryPhase``) are the JAX package's. The JAX registry's
-telemetry binding (``bind_telemetry`` and the histogram families it adds
-to the export) is not part of this module.
+``BrokerQueryPhase``) are the JAX package's. A labeled family
+(``labeled_meter``) exports as one metric with label dimensions (the
+decision ledger's ``decision_declined_total{point=...,reason=...}``), and
+``bind_telemetry`` adds a ``common/telemetry.py`` center's histogram and
+SLO-burn families to the export (JAX :141).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import re
 import threading
 
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Tuple, Union
 
 # prometheus metric names admit only [a-zA-Z0-9_:]; every exported name
 # is sanitized through this
@@ -74,6 +76,11 @@ class MetricsRegistry:
         self._meters: Dict[str, Meter] = {}  # guarded-by-writes: _lock
         self._timers: Dict[str, Timer] = {}  # guarded-by-writes: _lock
         self._gauges: Dict[str, GaugeFn] = {}
+        # family -> {sorted (label, value) tuple -> Meter}
+        self._labeled: Dict[str, Dict[Tuple[Tuple[str, str], ...],
+                                      Meter]] = {}  # guarded-by-writes: _lock
+        self._help: Dict[str, str] = {}
+        self._telemetry = None
         self._lock = threading.Lock()
 
     def meter(self, name: str) -> Meter:
@@ -82,6 +89,19 @@ class MetricsRegistry:
             with self._lock:
                 m = self._meters.setdefault(name, Meter())
         return m
+
+    def labeled_meter(self, family: str, **labels: str) -> Meter:
+        """One cell of a labeled counter family, exported as
+        ``family{k="v",...} n`` under one HELP / TYPE header."""
+        key = tuple(sorted((k, str(v)) for k, v in labels.items()))
+        cells = self._labeled.get(family)
+        if cells is not None:
+            m = cells.get(key)
+            if m is not None:
+                return m
+        with self._lock:
+            cells = self._labeled.setdefault(family, {})
+            return cells.setdefault(key, Meter())
 
     def timer(self, name: str) -> Timer:
         t = self._timers.get(name)
@@ -96,45 +116,72 @@ class MetricsRegistry:
         wait for the device)."""
         self._gauges[name] = fn
 
+    def set_help(self, name: str, text: str) -> None:
+        """HELP text for one exported family."""
+        self._help[name] = text
+
+    def bind_telemetry(self, telemetry) -> None:
+        """Attach a ``common/telemetry.py`` ``Telemetry`` center: its
+        histogram and SLO-burn families ride this registry's export."""
+        self._telemetry = telemetry
+
     # -- export --------------------------------------------------------------
     def _prefix(self, name: str) -> str:
         p = f"pinot_{self.role}_" if self.role else "pinot_"
         return sanitize_metric_name(p + name)
 
-    @staticmethod
-    def _header(lines, full: str, mtype: str, text: str) -> None:
-        lines.append(f"# HELP {full} {text}")
+    def _header(self, lines, full: str, mtype: str, name: str,
+                fallback: str) -> None:
+        lines.append(f"# HELP {full} {self._help.get(name, fallback)}")
         lines.append(f"# TYPE {full} {mtype}")
 
     def export_prometheus(self) -> str:
         """Prometheus text exposition (the /metrics endpoint body):
-        HELP/TYPE headers on every family, sanitized names."""
+        HELP/TYPE headers on every family, sanitized names, labeled
+        families with their label dimensions, and, with a telemetry center
+        bound, its histogram ``_bucket`` / ``_sum`` / ``_count`` series and
+        SLO burn gauges."""
         lines = []
         for name, m in sorted(self._meters.items()):
             full = self._prefix(name)
-            self._header(lines, full, "counter",
+            self._header(lines, full, "counter", name,
                          f"Cumulative count of {name}.")
             lines.append(f"{full} {m.count}")
+        for family, cells in sorted(self._labeled.items()):
+            full = self._prefix(family)
+            self._header(lines, full, "counter", family,
+                         f"Cumulative count of {family} by label.")
+            for key in sorted(cells):
+                labels = ",".join(
+                    f'{sanitize_metric_name(k)}="{v}"' for k, v in key)
+                lines.append(f"{full}{{{labels}}} {cells[key].count}")
         for name, g in sorted(self._gauges.items()):
             full = self._prefix(name)
             v = g() if callable(g) else g
-            self._header(lines, full, "gauge",
+            self._header(lines, full, "gauge", name,
                          f"Instantaneous value of {name}.")
             lines.append(f"{full} {float(v)}")
         for name, t in sorted(self._timers.items()):
             full = self._prefix(name)
-            self._header(lines, f"{full}_ms", "summary",
+            self._header(lines, f"{full}_ms", "summary", name,
                          f"Duration of {name} in milliseconds.")
             lines.append(f"{full}_ms_count {t.count}")
             lines.append(f"{full}_ms_sum {round(t.total_ms, 3)}")
-            self._header(lines, f"{full}_ms_max", "gauge",
+            self._header(lines, f"{full}_ms_max", "gauge", name + "_max",
                          f"Maximum observed {name} duration (ms).")
             lines.append(f"{full}_ms_max {round(t.max_ms, 3)}")
-        return "\n".join(lines) + "\n"
+        body = "\n".join(lines) + "\n"
+        if self._telemetry is not None:
+            p = f"pinot_{self.role}_" if self.role else "pinot_"
+            body += self._telemetry.export_prometheus(sanitize_metric_name(p))
+        return body
 
     def to_dict(self) -> Dict[str, Any]:
         return {
             "meters": {n: m.count for n, m in self._meters.items()},
+            "labeled": {family: {"|".join(f"{k}={v}" for k, v in key):
+                                 m.count for key, m in cells.items()}
+                        for family, cells in self._labeled.items()},
             "gauges": {n: (g() if callable(g) else g)
                        for n, g in self._gauges.items()},
             "timers": {n: {"count": t.count,

@@ -20,6 +20,12 @@ reached its partition's end offset and no commit is under way, the point
 at which every replica holds every row. ``shutdown`` stops every
 consumer before the servers go.
 
+The process telemetry (``common/telemetry.py`` ``TELEMETRY``) is shared by
+the broker and the servers. Unless a flight-recorder directory is
+configured, the cluster gives the recorder a temporary one of its own;
+``shutdown`` removes it with any bundle in it, and stops the telemetry
+sampler, so a cluster leaves no thread and no file behind.
+
 ``device`` (default ``"cuda"``) is where every server's executor and the
 broker's reduce run; it raises without a card, and a CPU caller passes
 ``device="cpu"``. Minions are not part of this module.
@@ -39,6 +45,8 @@ broker's reduce run; it raises without a card, and a CPU caller passes
 
 from __future__ import annotations
 
+import shutil
+import tempfile
 import time
 
 from typing import Dict, List, Optional, Union
@@ -47,6 +55,7 @@ import torch
 
 from pinot_tpu_torch.broker.broker import BrokerRequestHandler
 from pinot_tpu_torch.common.response import BrokerResponse
+from pinot_tpu_torch.common.telemetry import TELEMETRY
 from pinot_tpu_torch.controller.controller import Controller
 from pinot_tpu_torch.controller.state import CONSUMING, ClusterStateStore
 from pinot_tpu_torch.device import resolve_device
@@ -72,6 +81,11 @@ class EmbeddedCluster:
                  device: Union[str, torch.device] = "cuda",
                  llc_seed: Optional[str] = None):
         self.device = resolve_device(device)
+        recorder = TELEMETRY.recorder
+        self._flight_dir: Optional[str] = None
+        if recorder.out_dir is None:
+            self._flight_dir = tempfile.mkdtemp(prefix="pinot_flight_")
+            recorder.out_dir = self._flight_dir
         self.store = ClusterStateStore()
         self.controller = Controller(self.store, llc_seed=llc_seed)
         self.servers: Dict[str, ServerInstance] = {}
@@ -222,3 +236,9 @@ class EmbeddedCluster:
             s.shutdown()
         self.servers.clear()
         self.controller.deep_store.clear()
+        TELEMETRY.stop_sampler()
+        if self._flight_dir is not None:
+            if TELEMETRY.recorder.out_dir == self._flight_dir:
+                TELEMETRY.recorder.out_dir = None
+            shutil.rmtree(self._flight_dir, ignore_errors=True)
+            self._flight_dir = None

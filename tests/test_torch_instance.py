@@ -371,10 +371,10 @@ def test_first_build_from_several_threads_builds_once(monkeypatch):
 def _gated_run(ex, gate, entered):
     real = ex._run_query
 
-    def run(ctx, segments, body):
+    def run(ctx, segments, body, *opened):
         entered.append(1)
         gate.wait(10)
-        return real(ctx, segments, body)
+        return real(ctx, segments, body, *opened)
 
     ex._run_query = run
 
