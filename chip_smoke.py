@@ -149,8 +149,8 @@ Phases:
      to_bytes / from_bytes (declined as reduce_device_cross_process, the
      vectorized path serving), both == phase 4's rows == oracle, the dense
      rung's merge timed beside the host merge and its byte bound; (15b)
-     phase 8's user-events table grouped by user, country and event type
-     (hundreds of thousands of groups a server, served by each server's
+     4 of phase 8's user-events segments, one a server, grouped by user,
+     country and event type (hundreds of thousands of groups a server, served by each server's
      host engine; a composite space past the dense slots): the
      sort rung == the vectorized merge bit for bit == oracle, timed
      likewise; (15c) 8
@@ -184,26 +184,26 @@ Phases:
      replication 2), each server negotiating its commits with the
      controller's completion FSM, cluster.query the only entry point and
      every answer clean and full: (17a) the user-events table at its full
-     width as a realtime table, JSON messages of 1 M rows on 2 partitions
-     consumed at replication 2 with a flush at 200 k rows (2 seals and
-     100 k rows consuming a partition), U1-U7 and R1-R3 == the oracle, R1
+     width as a realtime table, JSON messages of 500 k rows on 2
+     partitions consumed at replication 2 with a flush at 100 k rows (2
+     seals and 50 k rows consuming a partition), U1-U7 and R1-R3 == the oracle, R1
      and R2 on the sealed segments' star-tree, the group-bys on
      mutable_device over the consuming segments, U2 opted out of the
      star-tree on the fused scan over the sealed ones; the ingest rate a
      consumer, flush threshold to swap, COMMIT / KEEP / DISCARD, swap ms
-     and deep-store entries logged; (17b) 100 k more rows a partition seal
+     and deep-store entries logged; (17b) 50 k more rows a partition seal
      each partition's third segment while 4 client threads send count(*)
-     and U2: every count in [1.0 M, 1.2 M], no partial answer, both ==
+     and U2: every count in [0.5 M, 0.6 M], no partial answer, both ==
      the oracle after, no sealed segment's mutable resident left on the
-     card; (17c) the hybrid SSB table: ssb_lineorder_REALTIME carries 300
+     card; (17c) the hybrid SSB table: ssb_lineorder_REALTIME carries 150
      k rows of a fresh frame over segment 7's months (1 partition,
-     replication 2, flush 200 k), the time boundary the offline side's
+     replication 2, flush 100 k), the time boundary the offline side's
      largest month less 1, the 13 flights == the oracle over the offline
      rows up to it and the realtime rows past it, every one
      hybrid_time_split, the fused launches of phase 4's kept segments and
      of the sealed realtime segment, p50 / p99 beside phase 16's; (17d)
-     user_events again as an upsert table on user_id (220 k rows, flush
-     50 k, 1 partition, replication 2): U1-U7 == the oracle over each
+     user_events again as an upsert table on user_id (110 k rows, flush
+     25 k, 1 partition, replication 2): U1-U7 == the oracle over each
      user's latest row; then one sealed realtime segment's U2 scan against
      the kernel's plain version and timed; every query's launches read
      from its own stats;
@@ -224,7 +224,24 @@ Phases:
      realtime tables in the freshness view, the decision ledger's delta
      == the sum of the responses' decisions; the cluster's shutdown
      leaves no sampler thread and no recorder file;
- 14. (after 18) a realtime user-events table: 1.5 M rows
+ 19. (after 18, before 14) phase 4's segments on disk: (19a) written by
+     ``write_segment`` in the JAX package's layout, every CRC verified,
+     loaded by ``load_segment``, the 13 flights per segment and over the
+     batch with rows identical to phase 4's and launches equal to phases
+     4 and 6's counts (bytes written, write, verify and load s, the first
+     query's ms staging from the maps, p50 beside phase 4's); (19b)
+     pushed by ``file://`` to an ``EmbeddedCluster(data_dir=...)`` of 4
+     servers at replication 2: the flights == 19a's rows, ``table_size``
+     == the bytes on disk; (19c) ``update_table`` adds inverted indexes
+     and bloom filters and ``reload_table`` swaps every replica's
+     segments (flags, CRC, Q2.1 and Q3.1 leaving ``index_missing_index``,
+     rows unchanged), and phase 12's segments with their star-trees are
+     written and loaded and serve the flights on the star-tree rung with
+     0 fused launches; (19d) an upsert user-events table, 100 k rows
+     flushed every 50 k at replication 2, every seal a directory, one
+     replica of each told DISCARD and serving the committer's directory,
+     U1-U7 == the oracle over each user's latest row;
+ 14. (after 19) a realtime user-events table: 1.5 M rows
      as JSON messages on a one-partition MemoryStream consumed by
      RealtimeSegmentDataManager into a consuming segment on the card
      (``engine/mutable_staging.py``): (14a) at 700, 1000 and 5000 rows and
@@ -250,7 +267,7 @@ segments on the per-segment path (``index_missing_index`` and the other
 JAX codes), which every phase asserts beside its other decisions.
 Then a "rungs" line of the segments each rung served and the declines and
 paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
-kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16, 17 and 18,
+kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16-19,
 and of 13b for the query axis; the top-k, the jnp combine and the index gather are
 PyTorch ops, not hand kernels).
 Phases 4, 6, 7, 9, 10 and 11 assert launches
@@ -803,7 +820,8 @@ def _run_flights(ex, ctxs: dict, segs, reps: int, per_segment: dict
         for qid, ctx in ctxs.items():
             t0 = time.perf_counter()
             table, stats = ex.execute(ctx, segs)
-            torch.cuda.synchronize()
+            if ex.device.type == "cuda":
+                torch.cuda.synchronize()
             lat[qid].append((time.perf_counter() - t0) * 1e3)
             results[qid] = table
             if _scan_decisions(stats, per_segment[qid], qid):
@@ -3234,7 +3252,8 @@ def _node_slice_call(ex, ctx, walk) -> dict:
 
 
 def phase_startree(sf: float, segments: int, seed: int, reps: int,
-                   device: str = "cuda", card: str = "") -> dict:
+                   device: str = "cuda", card: str = "",
+                   on_disk: bool = False) -> dict:
     """12: SSB at ``sf`` in ``segments`` segments with
     ``ssb.ssb_indexing_config()``'s five trees (built in a process pool,
     one worker per segment up to the host's cores).
@@ -3249,7 +3268,8 @@ def phase_startree(sf: float, segments: int, seed: int, reps: int,
     walk's host ms. (12b) ST1-ST5 of ``ssb.STARTREE_QUERIES``: the host
     walker past the device's group space, three declines with the JAX
     package's codes and the opt-out, on the scan rungs, equal to the
-    oracle. Build seconds, records and node bytes per tree."""
+    oracle. Build seconds, records and node bytes per tree. ``on_disk``:
+    then phase 19c's part on these segments (``phase_startree_disk``)."""
     import torch
 
     from pinot_tpu_torch.engine.executor import ServerQueryExecutor
@@ -3432,9 +3452,14 @@ def phase_startree(sf: float, segments: int, seed: int, reps: int,
     log("phase 13c: the star-tree's node arrays under a budget")
     budget_run = phase_startree_budget(segs, ctxs, wants, kept_segs,
                                        device=device)
-    return {"sf": sf, "rows": rows, "build_s": build_s, "trees": trees,
-            "flights": flights, "routes": routes, "staged_bytes": staged,
-            "budget": budget_run}
+    out = {"sf": sf, "rows": rows, "build_s": build_s, "trees": trees,
+           "flights": flights, "routes": routes, "staged_bytes": staged,
+           "budget": budget_run}
+    if on_disk:
+        log("phase 19c (with phase 12): its star-trees written and loaded")
+        out["disk"] = phase_startree_disk(segs, ctxs, wants, kept_segs,
+                                          device=device)
+    return out
 
 
 # -- phase 14: a realtime user-events table -------------------------------------
@@ -3886,17 +3911,20 @@ def _phase_realtime_sealed(mgr, ctxs, final_rows: dict, total: int,
 # in-process servers of phase 15, each a ShardedQueryExecutor over its share
 # of the segments
 SERVERS = 4
-# 15b: every (user, country, event type) group of the user-events table:
-# hundreds of thousands of groups a server of 2 segments, each server's
-# past the general rung's compact cap (8192), so its host engine serves
-# them; the composite space (about 100 k users x 10 x 5) is past the
-# device merge's dense slots, so the merge takes the sort rung
+# 15b: every (user, country, event type) group of the first
+# USER_GROUPS_SEGMENTS of the user-events table's segments, one a server
+# (cut from all 8 to keep the script inside its time limit): hundreds of
+# thousands of groups a server, each server's past the general rung's
+# compact cap (8192), so its host engine serves them; the composite space
+# (about 100 k users x 10 x 5) is past the device merge's dense slots, so
+# the merge takes the sort rung
 USER_GROUPS_SQL = ("SELECT user_id, country, event_type, count(*), "
                    "sum(revenue), max(latency_ms) FROM user_events "
                    "GROUP BY user_id, country, event_type LIMIT 10000000")
 # the servers' and the broker's numGroupsLimit in 15b: above the group
 # count, so no trim cuts the answer the oracle is compared with
 SCATTER_GROUPS_LIMIT = 10_000_000
+USER_GROUPS_SEGMENTS = SERVERS
 # 15c: the admission gate's bounds under 8 client threads
 ADMISSION_SLOTS = 2
 ADMISSION_QUEUE = 2
@@ -4047,8 +4075,8 @@ def phase_scatter(main: dict, users: dict, reps: int,
     groups) and through ``to_bytes`` / ``from_bytes`` (the device route
     declines ``reduce_device_cross_process``, the vectorized path
     serves); both == phase 4's rows == the oracle; the dense rung's merge
-    cost on the flight with the most rows. (15b) phase 8's user-events
-    table, ``USER_GROUPS_SQL`` with the servers' and the broker's
+    cost on the flight with the most rows. (15b) ``USER_GROUPS_SEGMENTS``
+    of phase 8's user-events segments, one a server, ``USER_GROUPS_SQL`` with the servers' and the broker's
     ``numGroupsLimit`` above its group count: the device merge on its
     sort rung == the vectorized merge, bit for bit == the numpy oracle,
     with its cost.
@@ -4140,7 +4168,7 @@ def phase_scatter(main: dict, users: dict, reps: int,
 
     # 15b
     t0 = time.perf_counter()
-    useg = users["segs"]
+    useg = users["segs"][:USER_GROUPS_SEGMENTS]
     servers = [(ShardedQueryExecutor(
         device=device, num_groups_limit=SCATTER_GROUPS_LIMIT), part)
         for part in _split(useg, SERVERS)]
@@ -4171,7 +4199,7 @@ def phase_scatter(main: dict, users: dict, reps: int,
     if vst.reduce_path != "vectorized":
         raise AssertionError(f"15b: host reducePath {vst.reduce_path}")
     _identical_rows("15b device vs vectorized", res.rows, vres.rows)
-    want = _user_groups_answer(users["frames"])
+    want = _user_groups_answer(users["frames"][:USER_GROUPS_SEGMENTS])
     got = {(r[0], r[1], r[2]): (r[3], r[4], r[5]) for r in res.rows}
     if got != want:
         bad = [k for k in want if got.get(k) != want[k]][:3]
@@ -4343,12 +4371,14 @@ SEMIJOIN_DECISIONS = {
 BROKER_PHASES = ("COMPILATION", "ROUTING", "SCATTER_GATHER", "REDUCE")
 
 
-def _front_cluster(segs, device: str, servers: int):
+def _front_cluster(segs, device: str, servers: int,
+                   data_dir: str = None, segment_dirs: list = None):
     """An EmbeddedCluster with ``servers`` servers, each built as
     ``add_server`` builds one but with ``pinot.server.query.hbm.budget
     .bytes`` at 0.75 of the card over the servers; phase 4's segments
-    pushed through ``memory://``. -> (cluster, push to queryable s, each
-    server's stagedBytes)."""
+    pushed through ``memory://``, or with a ``data_dir`` their
+    ``segment_dirs`` pushed through ``file://``. -> (cluster, push to
+    queryable s, each server's stagedBytes)."""
     import torch
 
     from pinot_tpu_torch.engine.executor import ServerQueryExecutor
@@ -4358,7 +4388,7 @@ def _front_cluster(segs, device: str, servers: int):
     from pinot_tpu_torch.tools.cluster import EmbeddedCluster
 
     cluster = EmbeddedCluster(num_servers=0, device=device,
-                              device_reduce=True)
+                              device_reduce=True, data_dir=data_dir)
     cfg = None
     if device == "cuda":
         card = torch.cuda.get_device_properties(0).total_memory
@@ -4371,7 +4401,8 @@ def _front_cluster(segs, device: str, servers: int):
                              completion_protocol=cluster.controller
                              .completion, config=cfg,
                              executor=ServerQueryExecutor(device=device,
-                                                          config=cfg))
+                                                          config=cfg),
+                             segment_dir=cluster.server_segment_dir)
         srv.start()
         cluster.servers[sid] = srv
         cluster.broker.register_server(sid, srv)
@@ -4380,8 +4411,12 @@ def _front_cluster(segs, device: str, servers: int):
             time_column_name="d_yearmonthnum",
             replication=FRONT_REPLICATION)), segs[0].metadata.schema)
     t0 = time.perf_counter()
-    for seg in segs:
-        cluster.upload_segment(FRONT_TABLE, seg)
+    if segment_dirs is not None:
+        for d in segment_dirs:
+            cluster.upload_segment_dir(FRONT_TABLE, d)
+    else:
+        for seg in segs:
+            cluster.upload_segment(FRONT_TABLE, seg)
     if not cluster.wait_for_ev_converged(FRONT_TABLE, timeout_s=300):
         raise AssertionError("16: the ExternalView did not converge")
     for srv in cluster.servers.values():
@@ -4694,18 +4729,18 @@ def phase_front_door(main: dict, reps: int, device: str = "cuda",
 # 17a: the user-events table as a 2-partition realtime table at replication
 # 2 (Pinot's default flush is 5 M rows a segment; cut because four replicas
 # index rows one at a time in Python under one GIL)
-RT_USER_ROWS = 1_000_000
-RT_USER_FLUSH = 200_000
+RT_USER_ROWS = 500_000
+RT_USER_FLUSH = 100_000
 # 17b: rows added a partition under 4 client threads (each partition's
 # third segment seals)
-RT_MORE_ROWS = 100_000
+RT_MORE_ROWS = 50_000
 RT_CLIENTS = 4
 # 17c: the hybrid SSB table's realtime side, over segment 7's months
-RT_SSB_ROWS = 300_000
-RT_SSB_FLUSH = 200_000
+RT_SSB_ROWS = 150_000
+RT_SSB_FLUSH = 100_000
 # 17d: an upsert table keyed on user_id, one partition
-RT_UPSERT_ROWS = 220_000
-RT_UPSERT_FLUSH = 50_000
+RT_UPSERT_ROWS = 110_000
+RT_UPSERT_FLUSH = 25_000
 RT_WAIT_S = 300.0
 _RT_TABLE = "user_events_REALTIME"
 _SSB_RT_TABLE = "ssb_lineorder_REALTIME"
@@ -5556,6 +5591,427 @@ def phase_trace(main: dict, reps: int, device: str = "cuda",
     return out
 
 
+# -- phase 19: segments on disk and the reload ------------------------------------
+
+# 19c: the SSB columns reloaded with an inverted index (their flights' every
+# filter column where both are, so those flights leave index_missing_index)
+# and a bloom filter
+DISK_INVERTED = ["d_year", "p_category", "s_region", "c_region"]
+DISK_BLOOM = ["p_category", "s_region"]
+# the flights whose every filter column is in DISK_INVERTED
+DISK_INDEXED_FLIGHTS = ("Q2.1", "Q3.1")
+# 19d: an upsert table keyed on user_id in 19b's cluster, one partition at
+# replication 2 (tools/usertable.py)
+DISK_UPSERT_ROWS = 100_000
+DISK_UPSERT_FLUSH = 50_000
+_MISSING = "index:index_gather->scan:index_missing_index"
+
+
+def _dir_bytes(seg_dir: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _d, fs in os.walk(seg_dir) for f in fs)
+
+
+def _hosted(cluster, table: str) -> dict:
+    """{server: {segment: the segment object it serves}}."""
+    out = {}
+    for sid, srv in cluster.servers.items():
+        tdm = srv.data_manager.get(table)
+        held = tdm.acquire_segments(None) if tdm is not None else []
+        out[sid] = {h.segment_name: h.segment for h in held}
+        if tdm is not None:
+            tdm.release_segments(held)
+    return out
+
+
+class _DiscardReplica:
+    """A server's completion protocol in 19d: the controller's KEEP
+    becomes DISCARD, the verdict a replica whose offset differs from the
+    committed one gets, so every seal has one replica that fetches the
+    committer's directory."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.discards = 0
+
+    def segment_consumed(self, segment_name, instance, offset):
+        from pinot_tpu_torch.ingestion.realtime import (
+            CompletionReply,
+            CompletionResponse,
+        )
+
+        reply = self.inner.segment_consumed(segment_name, instance, offset)
+        if reply.response is CompletionResponse.KEEP:
+            self.discards += 1
+            return CompletionReply(CompletionResponse.DISCARD)
+        return reply
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def phase_disk(main: dict, reps: int, device: str = "cuda",
+               servers: int = FRONT_SERVERS,
+               upsert_rows: int = DISK_UPSERT_ROWS,
+               upsert_flush: int = DISK_UPSERT_FLUSH, seed: int = 7) -> dict:
+    """Phase 19: phase 4's segments on disk.
+    (19a) ``write_segment`` writes them (the JAX package's layout) into a
+    temporary directory, ``verify_crc`` holds for each, ``load_segment``
+    loads each; the 13 flights per segment (``reps`` timed passes after a
+    first query that stages from the maps) and over the batch: rows
+    identical to phase 4's, per-segment launches equal to phase 4's
+    count, batch launches as phase 6 counts them. (19b) an
+    ``EmbeddedCluster(data_dir=...)`` of ``servers`` servers at
+    replication 2 with the directories pushed by ``upload_segment_dir``:
+    the flights == 19a's rows, ``table_size`` == the bytes on disk.
+    (19c) ``update_table`` adds an inverted index on ``DISK_INVERTED`` and
+    a bloom filter on ``DISK_BLOOM``, ``reload_table`` follows: every
+    replica serves a new segment object with the indexes (flags, CRC), the
+    flights of ``DISK_INDEXED_FLIGHTS`` leave ``index_missing_index``, the
+    rows unchanged. (19d) an upsert user-events table in that cluster, one
+    partition at replication 2, ``upsert_rows`` rows flushed every
+    ``upsert_flush``: every seal a directory on disk, one replica of each
+    told DISCARD fetches the committer's directory and registers its keys,
+    U1-U7 == the oracle over each user's latest row."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pinot_tpu_torch import native
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.segment.creator import write_segment
+    from pinot_tpu_torch.segment.immutable import load_segment, verify_crc
+
+    on_card = device == "cuda"
+    segs, ctxs, wants, kept = (main["segs"], main["ctxs"], main["wants"],
+                               main["kept"])
+    t_all = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="pinot_disk_")
+    out: dict = {"segments": len(segs)}
+    try:
+        built = os.path.join(root, "built")
+        t0 = time.perf_counter()
+        for seg in segs:
+            write_segment(seg, built)
+        out["write_s"] = time.perf_counter() - t0
+        dirs = [os.path.join(built, s.segment_name) for s in segs]
+        out["bytes"] = sum(_dir_bytes(d) for d in dirs)
+        t0 = time.perf_counter()
+        bad = [d for d in dirs if not verify_crc(d)]
+        out["verify_crc_s"] = time.perf_counter() - t0
+        if bad:
+            raise AssertionError(f"19a: CRC does not verify for {bad}")
+        t0 = time.perf_counter()
+        loaded = [load_segment(d) for d in dirs]
+        out["load_s"] = time.perf_counter() - t0
+        log(f"  19a: {len(segs)} segments written ({out['bytes']} bytes) "
+            f"in {out['write_s']:.1f} s, CRC verified in "
+            f"{out['verify_crc_s']:.1f} s, loaded (mapped) in "
+            f"{out['load_s']:.3f} s; {native.mmap_buffer_count()} files "
+            "mapped")
+
+        counters = scan_counters()
+        _reset(counters)
+        ex = ServerQueryExecutor(device=device)
+        first = next(iter(ctxs))
+        t0 = time.perf_counter()
+        ex.execute(ctxs[first], loaded)
+        if on_card:
+            torch.cuda.synchronize()
+        out["first_query_ms"] = (time.perf_counter() - t0) * 1e3
+        for ctx in ctxs.values():       # untimed: stages the rest
+            ex.execute(ctx, loaded)
+        if on_card:
+            torch.cuda.synchronize()
+        _reset(counters)
+        lat, results = _run_flights(ex, ctxs, loaded, reps, kept)
+        launches = {name: c.launches for name, c in counters.items()}
+        expect = ({"fused_scan": sum(kept.values()) * reps,
+                   "fused_scan_probe": (kept["Q3.2"] + kept["Q4.3"]) * reps,
+                   "sharded_fused_scan": 0, "sharded_fused_scan_probe": 0}
+                  if on_card else {k: 0 for k in launches})
+        if launches != expect:
+            raise AssertionError(f"19a: launch counts {launches} != "
+                                 f"{expect} (phase 4's count)")
+        for qid, table in results.items():
+            _check_flight(qid, table, wants[qid])
+            _identical_rows(f"19a {qid}", table.rows,
+                            main["results"][qid].rows)
+        out["launches"] = launches
+        log(f"  19a: the first query ({first}, staging from the maps) "
+            f"{out['first_query_ms']:.1f} ms; launches per segment "
+            f"{launches} == phase 4's count; 13 flights == phase 4's rows "
+            "== numpy oracle")
+        out["per_flight"] = _latencies(
+            lat, main["rows"] if "rows" in main else 1,
+            beside=main.get("per_flight"), beside_label="phase 4")
+        del ex
+        _reset(counters)
+        bex = ShardedQueryExecutor(device=device)
+        single = {q: k if k == 1 else 0 for q, k in kept.items()}
+        blat, bresults = _run_flights(bex, ctxs, loaded, reps, single)
+        blaunch = {name: c.launches for name, c in counters.items()}
+        multi = [q for q in ctxs if kept[q] > 1]
+        solo = [q for q in ctxs if kept[q] == 1]
+        probing = ("Q3.2", "Q4.3")
+        runs = reps
+        bexpect = ({"fused_scan": len(solo) * runs,
+                    "fused_scan_probe": runs * len(
+                        [q for q in solo if q in probing]),
+                    "sharded_fused_scan": len(multi) * runs,
+                    "sharded_fused_scan_probe": len(
+                        [q for q in multi if q in probing])}
+                   if on_card else {k: 0 for k in blaunch})
+        if blaunch != bexpect:
+            raise AssertionError(f"19a batch: launch counts {blaunch} != "
+                                 f"{bexpect} (phase 6's count)")
+        for qid, table in bresults.items():
+            _check_flight(qid, table, wants[qid])
+        out["batch_launches"] = blaunch
+        out["batch_p50_ms"] = {q: float(np.percentile(v[1:], 50))
+                               if len(v) > 1 else float(v[0])
+                               for q, v in blat.items()}
+        log(f"  19a: over the batch (ShardedQueryExecutor, {runs} passes, "
+            f"the first binding): launches {blaunch} == phase 6's count; "
+            "13 flights == numpy oracle")
+        del bex, lat, blat
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        out.update(_disk_cluster(main, results, dirs, loaded, root, reps,
+                                 device, servers, upsert_rows, upsert_flush,
+                                 seed, counters))
+        out["launches"] = {k: out["launches"][k] + out["batch_launches"][k]
+                           + out["cluster_launches"][k]
+                           for k in out["launches"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 19: {out['seconds']:.1f} s")
+    return out
+
+
+def _disk_cluster(main, rows19a, dirs, loaded, root, reps, device, servers,
+                  upsert_rows, upsert_flush, seed, counters) -> dict:
+    """19b-19d (see ``phase_disk``)."""
+    from pinot_tpu_torch.ingestion import MemoryStream
+    from pinot_tpu_torch.segment.immutable import verify_crc
+    from pinot_tpu_torch.spi.table import (
+        IndexingConfig,
+        SegmentsValidationConfig,
+        TableConfig,
+    )
+    from pinot_tpu_torch.tools import ssb, usertable
+
+    out: dict = {}
+    ctxs, wants = main["ctxs"], main["wants"]
+    disk_bytes = {os.path.basename(d): _dir_bytes(d) for d in dirs}
+    cluster, push_s, _staged = _front_cluster(
+        loaded, device, servers, data_dir=os.path.join(root, "cluster"),
+        segment_dirs=dirs)
+    try:
+        _reset(counters)
+
+        def flights(what: str) -> dict:
+            got = {}
+            for qid in ctxs:
+                resp = cluster.query(ssb.QUERIES[qid] + " LIMIT 100000")
+                _front_check(f"{what} {qid}", resp, wants[qid],
+                             phase4=rows19a[qid].rows)
+                got[qid] = resp.stats.decisions
+            return got
+
+        t0 = time.perf_counter()
+        before = flights("19b")
+        sizes = {sid: srv.table_size(FRONT_TABLE)
+                 for sid, srv in cluster.servers.items()}
+        hosted = _hosted(cluster, FRONT_TABLE)
+        for sid, size in sizes.items():
+            for name, seg in hosted[sid].items():
+                if size["segments"].get(name) != disk_bytes[name] \
+                        or seg.segment_dir not in dirs:
+                    raise AssertionError(
+                        f"19b: {sid} {name}: table_size "
+                        f"{size['segments'].get(name)} != "
+                        f"{disk_bytes[name]} bytes on disk "
+                        f"({seg.segment_dir})")
+        total = sum(s["totalBytes"] for s in sizes.values())
+        if total != FRONT_REPLICATION * sum(disk_bytes.values()):
+            raise AssertionError(f"19b: table_size {total} != "
+                                 f"{FRONT_REPLICATION} x the bytes on disk")
+        out["cluster_push_s"] = push_s
+        out["cluster_flights_s"] = time.perf_counter() - t0
+        out["table_size"] = {sid: s["totalBytes"] for sid, s in sizes.items()}
+        log(f"  19b: {servers} servers at replication {FRONT_REPLICATION}, "
+            f"{len(dirs)} directories pushed by file:// (served in place) "
+            f"and staged in {push_s:.1f} s; 13 flights == 19a's rows; "
+            f"table_size {out['table_size']} == the bytes on disk")
+
+        # 19c: the reload
+        t0 = time.perf_counter()
+        cfg = cluster.store.get_table_config(FRONT_TABLE)
+        cfg.indexing_config = IndexingConfig(
+            inverted_index_columns=list(DISK_INVERTED),
+            bloom_filter_columns=list(DISK_BLOOM))
+        cluster.controller.update_table(cfg)
+        cluster.controller.reload_table(FRONT_TABLE)
+        out["reload_s"] = time.perf_counter() - t0
+        failures = [f for srv in cluster.servers.values()
+                    for f in srv.reload_failures]
+        if failures:
+            raise AssertionError(f"19c: reload failures {failures[:3]}")
+        after_hosted = _hosted(cluster, FRONT_TABLE)
+        for sid, segs_ in after_hosted.items():
+            for name, seg in segs_.items():
+                cms = [seg.metadata.column(c) for c in DISK_INVERTED]
+                if (seg is hosted[sid][name]
+                        or not all(cm.has_inverted_index for cm in cms)
+                        or not all(seg.metadata.column(c).has_bloom_filter
+                                   for c in DISK_BLOOM)
+                        or not verify_crc(seg.segment_dir)):
+                    raise AssertionError(f"19c: {sid} serves {name} "
+                                         "without the reloaded indexes")
+        _settle_residency(cluster)
+        after = flights("19c")
+        for qid in ctxs:
+            missing = after[qid].get(_MISSING, 0)
+            if qid in DISK_INDEXED_FLIGHTS:
+                if missing or not before[qid].get(_MISSING):
+                    raise AssertionError(f"19c {qid}: {before[qid]} -> "
+                                         f"{after[qid]}")
+        out["reload_decisions"] = {
+            q: {k: v for k, v in after[q].items() if k.startswith("index:")}
+            for q in DISK_INDEXED_FLIGHTS}
+        log(f"  19c: update_table + reload_table ({DISK_INVERTED} inverted, "
+            f"{DISK_BLOOM} bloom) in {out['reload_s']:.1f} s: every "
+            f"replica serves the reloaded segments (new objects, flags, CRC "
+            f"verified); {', '.join(DISK_INDEXED_FLIGHTS)} leave "
+            f"index_missing_index: {out['reload_decisions']}; 13 flights "
+            "== 19a's rows")
+        out["cluster_launches"] = {name: c.launches
+                                   for name, c in counters.items()}
+
+        # 19d: a realtime upsert table sealing to disk
+        t0 = time.perf_counter()
+        topic = f"user_events_upsert_19_{seed}"
+        stream = MemoryStream.create(topic, 1)
+        frame = usertable.generate_frame(1, 2, upsert_rows, seed)
+        stream.produce_many(usertable.frame_messages(frame))
+        gates = {}
+        for sid, srv in cluster.servers.items():
+            gates[sid] = srv.completion_protocol = _DiscardReplica(
+                srv.completion_protocol)
+        rcfg = usertable.realtime_table_config(topic, upsert_flush,
+                                               upsert=True)
+        rcfg.validation_config = SegmentsValidationConfig(
+            time_column_name=rcfg.validation_config.time_column_name,
+            replication=2)
+        table = "user_events_REALTIME"
+        cluster.create_table(rcfg, usertable.user_schema(["user_id"]))
+        _settled(cluster, table, "19d")
+        consume_s = time.perf_counter() - t0
+        online = sorted(md.segment_name
+                        for md in cluster.store.segment_metadata_list(table)
+                        if md.status == "ONLINE")
+        if len(online) != upsert_rows // upsert_flush:
+            raise AssertionError(f"19d: {len(online)} sealed segments")
+        if sum(g.discards for g in gates.values()) != len(online):
+            raise AssertionError("19d: not one DISCARD a seal")
+        rt_hosted = _hosted(cluster, table)
+        fetched = 0
+        for name in online:
+            url = cluster.store.get_segment_metadata(table, name).download_url
+            seg_dir = url[len("file://"):]
+            if not url.startswith("file://") or not verify_crc(seg_dir):
+                raise AssertionError(f"19d: {name} at {url}")
+            served = [h[name] for h in rt_hosted.values() if name in h]
+            if len(served) != 2 or any(s.segment_dir != seg_dir
+                                       for s in served):
+                raise AssertionError(f"19d: {name} served from "
+                                     f"{[s.segment_dir for s in served]}")
+        for srv in cluster.servers.values():
+            fetched += sum(e["fetched"] for e in
+                           srv.data_manager.get(table).seals)
+        if fetched != len(online):
+            raise AssertionError(f"19d: {fetched} fetched seals")
+        want = usertable.realtime_answers(usertable.latest_per_user(frame), 1)
+        for qid, sql in usertable.queries(1).items():
+            resp = cluster.query(sql)
+            _full(f"19d {qid}", resp)
+            usertable.check_rows(qid, resp.result_table.rows, want[qid])
+        live = len(np.unique(frame["user_id"]))
+        out["upsert"] = {"rows": upsert_rows, "flush": upsert_flush,
+                         "sealed": len(online), "fetched": fetched,
+                         "live_users": live, "consume_s": consume_s}
+        log(f"  19d: upsert table, {upsert_rows} rows flushed every "
+            f"{upsert_flush} at replication 2 in {consume_s:.1f} s: "
+            f"{len(online)} seals written to disk (file://, CRC verified), "
+            f"{fetched} DISCARD replicas served the committer's directory "
+            f"with their keys registered; U1-U7 == the oracle over each "
+            f"user's latest row ({live} users)")
+        cluster.controller.delete_table(table)
+        MemoryStream.delete(topic)
+    finally:
+        cluster.shutdown()
+    if os.path.exists(os.path.join(root, "cluster")):
+        raise AssertionError("19: the cluster's data dir outlived shutdown")
+    return out
+
+
+def _settle_residency(cluster) -> None:
+    for srv in cluster.servers.values():
+        srv.executor.residency.drain_prefetch()
+
+
+def phase_startree_disk(segs, ctxs, wants, kept_segs, device: str = "cuda"
+                        ) -> dict:
+    """19c on phase 12's segments: written with their five star-trees and
+    loaded again, the 13 flights per segment served by the star-tree
+    device rung from the loaded trees (the tree the JAX executor picks,
+    one decision a kept segment) with 0 fused launches, == the oracle."""
+    import shutil
+    import tempfile
+
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.segment.creator import write_segment
+    from pinot_tpu_torch.segment.immutable import load_segment
+    from pinot_tpu_torch.tools import ssb
+
+    root = tempfile.mkdtemp(prefix="pinot_trees_")
+    t0 = time.perf_counter()
+    try:
+        for seg in segs:
+            write_segment(seg, root)
+        loaded = [load_segment(os.path.join(root, s.segment_name))
+                  for s in segs]
+        write_s = time.perf_counter() - t0
+        if any(s._star_trees is not None for s in loaded):
+            raise AssertionError("19c: trees loaded before first use")
+        ex = ServerQueryExecutor(device=device)
+        slices = 0
+        for qid in ssb.QUERIES:
+            ti, k = FLIGHT_TREE[qid], len(kept_segs[qid])
+            table, stats = ex.execute(ctxs[qid], loaded)
+            _check_flight(qid, table, wants[qid])
+            fused = stats.scan_launches + stats.probe_launches
+            if stats.decisions != {_TREE_SERVED.format(ti): k} or fused:
+                raise AssertionError(f"19c {qid}: {stats.decisions}, "
+                                     f"{fused} fused launches")
+            slices += stats.startree_launches
+        trees = sum(len(s.star_trees) for s in loaded)
+        log(f"  19c: phase 12's {len(segs)} segments with {trees} trees "
+            f"written and loaded in {write_s:.1f} s; the 13 flights on the "
+            f"star-tree rung from the loaded trees, 0 fused launches, "
+            f"{slices} node slices, == numpy oracle")
+        return {"segments": len(segs), "trees": trees, "write_load_s":
+                write_s, "node_slices": slices}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # phase 12's default SSB scale: SF1 since phase 18 joined the script (at
 # SF2 the five trees took 104-157 s to build on the card's host, and the
 # script must end within 1200 s on a slow host too; PERF.md section 4)
@@ -5570,7 +6026,7 @@ def _phase_12(args, card: str) -> dict:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     run = phase_startree(args.startree_sf, args.segments, args.seed,
-                         args.reps, card=card)
+                         args.reps, card=card, on_disk=True)
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
     return run
 
@@ -5735,6 +6191,12 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 19 (after 18, before 14): phase 4's segments on disk, "
+        f"loaded, pushed by file:// to {FRONT_SERVERS} servers, reloaded "
+        "with new indexes, and realtime seals written to disk")
+    disk_run = phase_disk(main_run, args.reps)
+    gc.collect()
+    torch.cuda.empty_cache()
     realtime_run = _phase_14(args)
     timing += realtime_run.pop("timing")
     for k, v in realtime_run["errs"].items():
@@ -5749,7 +6211,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
                 sql_run["launches"]["batch"], time_run["launches"],
                 text_run["launches"], realtime_run["launches"],
                 front_run["launches"], rt_cluster_run["launches"],
-                trace_run["launches"]):
+                trace_run["launches"], disk_run["launches"]):
         for k in launches:
             launches[k] += got.get(k, 0)
     idle = [k for k, n in launches.items() if n == 0]
@@ -5807,7 +6269,8 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "index": index_run, "budget": budget_run,
               "coalesce": coalesce_run, "realtime": realtime_run,
               "scatter": scatter_run, "front_door": front_run,
-              "realtime_cluster": rt_cluster_run, "trace": trace_run}
+              "realtime_cluster": rt_cluster_run, "trace": trace_run,
+              "disk": disk_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]

@@ -12,11 +12,12 @@ the committed offset gets KEEP (it seals its own rows), any other DISCARD
 leaves the election (``segment_stopped_consuming``), and a committer
 silent past ``max_commit_time_s`` is replaced.
 
-``segment_commit_upload`` keeps the committer's sealed segment in the
-cluster's ``MemoryDeepStore`` (``spi/filesystem.py``) under
-``memory://<table>/<segment>``, where a DISCARD replica or a server that
-finds the segment ONLINE fetches it; the JAX manager hands on the
-committer's build directory.
+``segment_commit_upload`` hands on the committer's seal: a seal written
+to disk as its directory's ``file://`` location (JAX :181-185, served in
+place), one kept in memory by putting it in the cluster's
+``MemoryDeepStore`` (``spi/filesystem.py``) under
+``memory://<table>/<segment>``. A DISCARD replica, or a server that finds
+the segment ONLINE, fetches it from there.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import threading
 import time
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 from pinot_tpu_torch.ingestion.realtime import (
     CompletionReply,
@@ -35,7 +36,7 @@ from pinot_tpu_torch.ingestion.realtime import (
 )
 from pinot_tpu_torch.ingestion.stream import StreamOffset
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
-from pinot_tpu_torch.spi.filesystem import MemoryDeepStore
+from pinot_tpu_torch.spi.filesystem import MemoryDeepStore, file_url
 
 
 class FsmState(enum.Enum):
@@ -186,10 +187,16 @@ class SegmentCompletionManager(SegmentCompletionProtocol):
             return CompletionReply(CompletionResponse.COMMIT)
 
     def segment_commit_upload(self, segment_name: str, instance: str,
-                              segment: ImmutableSegment) -> str:
-        """Keep the sealed segment in the deep store; -> its location.
-        Without a deep store (a manager driven alone) ``segment`` is
-        already the location."""
+                              segment: Union[str, ImmutableSegment]) -> str:
+        """-> the location of the sealed ``segment``: a location given as
+        a string is handed on as it is (JAX :181-185), a segment loaded
+        from a directory is located by its ``file://`` URL, and any other
+        segment is kept in the deep store. Without a deep store (a manager
+        driven alone) the segment is its own location."""
+        if isinstance(segment, str):
+            return segment
+        if getattr(segment, "segment_dir", None):
+            return file_url(segment.segment_dir)
         if self._deep_store is None:
             return segment
         table = self._table_of(segment_name) if self._table_of else None

@@ -10,12 +10,17 @@ the LLC segment manager (``controller/llc.py``), the segment-completion
 FSM (``controller/completion.py``) whose commit handler flips a
 committed segment ONLINE and opens the next sequence
 (``_on_segment_commit``), and ``run_realtime_validation``, which
-recreates a partition's dead CONSUMING segment. Minion tasks, lineage,
-retention, rebalance and the periodic loop (``start_periodic_tasks``)
-are not part of this module. The controller owns its cluster's deep store
-(``spi/filesystem.py`` ``MemoryDeepStore``), which its servers fetch
-from and the completion FSM keeps committed realtime segments in;
-deleting a segment or a table drops it there too.
+recreates a partition's dead CONSUMING segment. ``update_table`` then
+``reload_table`` (JAX :131) asks every server hosting the table to add
+the indexes its config gained to the segments on disk (the server's
+reload transition). Minion tasks, lineage, retention, rebalance and the
+periodic loop (``start_periodic_tasks``) are not part of this module. A
+segment pushed as a directory is located by its ``file://`` URL; the
+controller also owns its cluster's in-memory deep store
+(``spi/filesystem.py`` ``MemoryDeepStore``) for segments pushed as
+objects, which its servers fetch from and the completion FSM keeps
+in-memory realtime seals in; deleting a segment or a table drops it
+there too (files stay where they are, as in JAX).
 
 A segment's time range is the min and max of the table's time column
 (``segmentsConfig.timeColumnName``) in the segment, or of the schema's
@@ -132,6 +137,15 @@ class Controller:
             raise KeyError(f"no such table {name}")
         self.store.add_table_config(config)
 
+    def reload_table(self, name_with_type: str) -> None:
+        """Ask every server hosting the table to reload its segments,
+        adding the indexes its config now names (``reloadrequests/<table>``
+        in the state store, which the servers watch)."""
+        if self.store.get_table_config(name_with_type) is None:
+            raise KeyError(f"no such table {name_with_type}")
+        self.store.update(f"reloadrequests/{name_with_type}",
+                          lambda v: (v or 0) + 1)
+
     def delete_table(self, name_with_type: str) -> None:
         """Drop the table, its segments' metadata, its deep-store entries
         and its segments' completion FSMs (a table made again under the
@@ -166,7 +180,7 @@ class Controller:
         now_ms = int(time.time() * 1000)
         zk = SegmentZKMetadata(
             segment_name=metadata.segment_name, table_name=table_with_type,
-            status=ONLINE, download_url=download_url,
+            status=ONLINE, download_url=download_url, crc=metadata.crc,
             creation_time_ms=now_ms, push_time_ms=now_ms,
             start_time=start, end_time=end, total_docs=metadata.num_docs,
             partition_metadata=partition_meta)

@@ -13,8 +13,10 @@ partition's CONSUMING segment that died. Segment names are
 A committed segment's time range is the min and max of the table's time
 column (``state.segment_time_range``), as for a pushed segment, where the
 JAX manager takes its builder's range of the schema's time column; the
-two agree where the schema's time column is the table's. The port's
-segments carry no CRC, so none is recorded.
+two agree where the schema's time column is the table's. The commit
+records the seal's location as the completion protocol named it (its
+``file://`` directory, or ``memory://`` for a seal kept in memory) and
+the CRC of its columns (0 for a seal never written).
 """
 
 from __future__ import annotations
@@ -119,6 +121,7 @@ class LLCRealtimeSegmentManager:
         if segment_metadata is not None:
             cfg = self.store.get_table_config(table)
             zk.total_docs = segment_metadata.num_docs
+            zk.crc = segment_metadata.crc
             zk.start_time, zk.end_time = segment_time_range(
                 segment_metadata, cfg.validation_config.time_column_name)
         self.store.set_segment_metadata(zk)

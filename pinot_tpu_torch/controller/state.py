@@ -28,6 +28,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from pinot_tpu_torch.segment.metadata import column_range
 from pinot_tpu_torch.spi.data import FieldType, Schema
 from pinot_tpu_torch.spi.table import TableConfig
 
@@ -53,12 +54,7 @@ def segment_time_range(metadata, time_column: Optional[str]
             (fs.name for fs in schema.field_specs
              if fs.field_type in (FieldType.TIME, FieldType.DATE_TIME)),
             None)
-    cm = metadata.columns.get(time_column) if time_column else None
-    if cm is None or cm.min_value is None:
-        return None, None
-    if cm.data_type.is_integral:
-        return int(cm.min_value), int(cm.max_value)
-    return cm.min_value, cm.max_value
+    return column_range(metadata, time_column)
 
 
 @dataclass

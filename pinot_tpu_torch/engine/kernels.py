@@ -45,6 +45,7 @@ import torch
 
 from pinot_tpu_torch.engine.errors import PlanError
 from pinot_tpu_torch.engine.fused_scan import KernelCounter, _ParamCursor
+from pinot_tpu_torch.engine.staging import from_host
 
 POS_INF = float("inf")
 NEG_INF = float("-inf")
@@ -631,7 +632,7 @@ def device_params(plan, device: torch.device) -> Tuple:
     if got is None:
         # None stays: the validdocs placeholder, filled per call
         got = tuple(None if p is None
-                    else torch.as_tensor(np.asarray(p)).to(device)
+                    else from_host(p).to(device)
                     for p in plan.params)
         plan.device_params[device] = got
     return got

@@ -45,7 +45,7 @@ from pinot_tpu_torch.engine.fused_scan import KernelCounter, _ParamCursor
 from pinot_tpu_torch.engine.kernels import _Cols, _emit_filter
 from pinot_tpu_torch.engine.plan import _compile_filter
 from pinot_tpu_torch.engine.results import DataSchema, QueryStats, ResultTable
-from pinot_tpu_torch.engine.staging import staged_int_dtype
+from pinot_tpu_torch.engine.staging import from_host, staged_int_dtype
 from pinot_tpu_torch.query.context import QueryContext, filter_fingerprint
 from pinot_tpu_torch.query.expressions import Identifier
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
@@ -174,7 +174,7 @@ def topk_args(ctx: QueryContext, seg: ImmutableSegment, staging,
     device = staged.device
     dev_params = on_device.get(device)
     if dev_params is None:
-        dev_params = tuple(torch.as_tensor(np.asarray(p)).to(device)
+        dev_params = tuple(from_host(p).to(device)
                            for p in params)
         on_device[device] = dev_params
     cols = _Cols({c: staged.column(c).tree() for c in columns})

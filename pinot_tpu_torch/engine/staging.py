@@ -16,7 +16,10 @@ arrays (``column``):
   ``staged_int_dtype``, f32 for floats);
 - nullable column: ``null`` bool [capacity].
 
-Each is staged once per segment and cached. ``valid_mask`` is the upsert
+Each is staged once per segment and cached. A loaded segment's arrays may
+be read-only maps of its files (``segment/immutable.py``): ``from_host``
+copies such an array before it becomes a tensor, so no tensor ever wraps
+a mapping. ``valid_mask`` is the upsert
 valid-doc snapshot the ``validdocs`` filter leaf reads. ``index_slice``
 holds the index rung's padded docId arrays, one per resolved filter, the
 least recently used dropped past ``INDEX_SLICE_CAP``. ``startree_nodes``
@@ -139,6 +142,15 @@ class StagedColumn:
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.tree().values())
+
+
+def from_host(a: Any) -> torch.Tensor:
+    """A CPU tensor of ``a``'s values; a read-only array (a map of a
+    segment file) is copied first, never wrapped."""
+    a = np.asarray(a)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a, order="C")      # keeps the shape, 0-d included
+    return torch.from_numpy(a)
 
 
 def _nbytes(t: Optional[torch.Tensor]) -> int:
@@ -398,7 +410,7 @@ class StagedSegment:
         cm = ds.metadata
 
         def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            return from_host(a).to(self.device)
 
         sc = StagedColumn()
         if not cm.single_value:
@@ -481,14 +493,13 @@ class StagedSegment:
         dims = np.asarray(tree.dims)
         t = {}
         for i, name in enumerate(tree.config.dimensions_split_order):
-            t[startree_dim_key(name)] = torch.from_numpy(
-                np.ascontiguousarray(dims[:, i], dtype=np.int32)).to(
-                    self.device)
+            t[startree_dim_key(name)] = from_host(
+                np.asarray(dims[:, i], dtype=np.int32)).to(self.device)
         for pair, vals in tree.metrics.items():
             fn, _, col = pair.partition("__")
             dt = np.int64 if fn == "count" else np.float64
-            t[startree_metric_key(fn, col)] = torch.from_numpy(
-                np.ascontiguousarray(vals, dtype=dt)).to(self.device)
+            t[startree_metric_key(fn, col)] = from_host(
+                np.asarray(vals, dtype=dt)).to(self.device)
         return t
 
     def release_startree(self, tree_index: int) -> int:

@@ -11,13 +11,15 @@ split commit (commit start, build, upload, commit end).
 controller).
 
 The seal (``build_segment``) builds the consuming segment's rows into an
-in-memory ``ImmutableSegment`` with the default star-tree stamped on
-(unless the table configures trees) and the stream offsets and partition
-in its metadata's ``custom``; it replaces the consuming segment
+``ImmutableSegment`` with the default star-tree stamped on (unless the
+table configures trees) and the stream offsets and partition in its
+metadata's ``custom``; it replaces the consuming segment
 (``sealed_segment``, ``on_committed``), and the fused-scan kernel or its
-star-tree serves it from its first query. The JAX package also writes
-the segment directory to disk (the port has no on-disk format yet) and
-records the seal's telemetry (ROADMAP item 5b).
+star-tree serves it from its first query. A consumer given an
+``output_dir`` (a server of a cluster with a data directory) writes the
+seal there as a segment directory and serves it loaded from disk, as the
+JAX consumer does (:285-306), and the commit hands on its ``file://``
+location; without one the seal stays in memory.
 
 ``upsert_hook(row, doc_id)`` runs after each indexed row. A table whose
 config enables upsert gets it from its upsert manager
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import enum
 import logging
+import os
 import threading
 import time
 
@@ -57,7 +60,8 @@ from pinot_tpu_torch.ingestion.stream import (
     create_decoder,
 )
 from pinot_tpu_torch.ingestion.transformers import CompositeTransformer
-from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.segment.creator import write_segment
+from pinot_tpu_torch.segment.immutable import ImmutableSegment, load_segment
 from pinot_tpu_torch.segment.metadata import SegmentMetadata
 from pinot_tpu_torch.segment.mutable import MutableSegment
 from pinot_tpu_torch.segment.upsert import (
@@ -132,9 +136,10 @@ class SegmentCompletionProtocol:
 
 
 class LocalCompletionProtocol(SegmentCompletionProtocol):
-    """One replica: the consumer always commits, and the sealed segment
-    stays in memory; its location is the ``memory://`` one of the deep
-    store (``spi/filesystem.py``), which keeps nothing for it."""
+    """One replica: the consumer always commits. A seal written to disk is
+    located by its ``file://`` URL; one kept in memory by the
+    ``memory://`` one of the deep store (``spi/filesystem.py``), which
+    keeps nothing for it."""
 
     def segment_consumed(self, segment_name, instance, offset):
         return CompletionReply(CompletionResponse.COMMIT)
@@ -143,6 +148,8 @@ class LocalCompletionProtocol(SegmentCompletionProtocol):
         return CompletionReply(CompletionResponse.COMMIT)
 
     def segment_commit_upload(self, segment_name, instance, segment):
+        if getattr(segment, "segment_dir", None):
+            return filesystem.file_url(segment.segment_dir)
         return filesystem.segment_url(segment.metadata.table_name,
                                       segment_name)
 
@@ -183,7 +190,8 @@ class RealtimeSegmentDataManager:
                       ImmutableSegment], None]] = None,
                  upsert_manager: Optional[TableUpsertMetadataManager] = None,
                  on_terminal: Optional[Callable[
-                     ["RealtimeSegmentDataManager"], None]] = None):
+                     ["RealtimeSegmentDataManager"], None]] = None,
+                 output_dir: Optional[str] = None):
         sc = table_config.stream_config
         if sc is None:
             raise ValueError("table has no stream config")
@@ -195,6 +203,8 @@ class RealtimeSegmentDataManager:
         self.protocol = protocol or LocalCompletionProtocol()
         self.on_committed = on_committed
         self.on_terminal = on_terminal
+        #: where the seal is written (None: it stays in memory)
+        self.output_dir = output_dir
 
         factory = consumer_factory or create_consumer_factory(sc)
         self._consumer = factory.create_partition_consumer(partition)
@@ -334,26 +344,31 @@ class RealtimeSegmentDataManager:
             self.state = ConsumerState.ERROR
 
     def build_segment(self) -> ImmutableSegment:
-        """The seal: the consuming rows as an in-memory immutable segment
-        with the default star-tree (unless the table configures trees),
-        the stream offsets and partition in ``metadata.custom``; its wall
-        ms in ``seal_wall_ms``."""
+        """The seal: the consuming rows as an immutable segment with the
+        default star-tree (unless the table configures trees), the stream
+        offsets and partition in ``metadata.custom``; written to
+        ``output_dir/<segment>`` and loaded from there when the consumer
+        has an ``output_dir``. Its wall ms in ``seal_wall_ms``."""
         t0 = time.perf_counter()
         idx = self.segment.indexing
         if not idx.star_tree_index_configs \
                 and not idx.enable_default_star_tree:
             idx = replace(idx, enable_default_star_tree=True)
         sealed = self.segment.build_immutable(indexing_config=idx)
-        if self.upsert_manager is not None:
-            # the same rows in the same order: the bitmap carries over
-            pm = self.upsert_manager.partition(self.partition)
-            pm.replace_segment(sealed)
-            attach_valid_docs(sealed, _LiveValidDocs(pm, self.segment_name))
         sealed.metadata.custom.update({
             "segment.realtime.startOffset": str(self.start_offset),
             "segment.realtime.endOffset": str(self.current_offset),
             "segment.realtime.partition": self.partition,
         })
+        if self.output_dir is not None:
+            write_segment(sealed, self.output_dir)
+            sealed = load_segment(os.path.join(self.output_dir,
+                                               self.segment_name))
+        if self.upsert_manager is not None:
+            # the same rows in the same order: the bitmap carries over
+            pm = self.upsert_manager.partition(self.partition)
+            pm.replace_segment(sealed)
+            attach_valid_docs(sealed, _LiveValidDocs(pm, self.segment_name))
         self.seal_wall_ms = (time.perf_counter() - t0) * 1e3
         observe_ms(self.table_config.table_name, "seal", self.seal_wall_ms)
         return sealed

@@ -39,6 +39,7 @@ from pinot_tpu_torch.segment.immutable import (
     ColumnIndexes,
     DataSource,
     ImmutableSegment,
+    narrow_id_dtype,
 )
 from pinot_tpu_torch.segment.jsonindex import JsonIndexReader, build_json_index
 from pinot_tpu_torch.segment.metadata import (
@@ -85,14 +86,6 @@ class ColumnArrays:
     partition_function: Optional[str] = None
     num_partitions: int = 0
     partitions: Optional[List[int]] = None
-
-
-def _narrow_id_dtype(cardinality: int) -> np.dtype:
-    if cardinality <= (1 << 8):
-        return np.dtype(np.uint8)
-    if cardinality <= (1 << 16):
-        return np.dtype(np.uint16)
-    return np.dtype(np.int32)
 
 
 def _rows(col: str, arr: np.ndarray, num_docs: int, capacity: int
@@ -200,7 +193,7 @@ def _column(col: str, a: ColumnArrays, num_docs: int, capacity: int,
         counts = None
         if a.mv_counts is None:
             entries = ids
-            fwd = _padded(ids, capacity, _narrow_id_dtype(card))
+            fwd = _padded(ids, capacity, narrow_id_dtype(card))
             is_sorted = _is_sorted(ids)
         else:
             is_sorted = False

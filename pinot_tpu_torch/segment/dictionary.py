@@ -101,6 +101,26 @@ class Dictionary:
         return a, b
 
 
+def encode_strings(values: Sequence[Any]) -> Tuple[np.ndarray, np.ndarray]:
+    """Strings as the JAX package stores them on disk: (int64 byte offsets
+    [n + 1], uint8 blob of their UTF-8 bytes in turn)."""
+    encoded = [v if isinstance(v, bytes) else str(v).encode("utf-8")
+               for v in values]
+    offsets = np.zeros(len(encoded) + 1, dtype=np.int64)
+    if encoded:
+        offsets[1:] = np.cumsum([len(e) for e in encoded])
+    blob = np.frombuffer(b"".join(encoded), dtype=np.uint8).copy()
+    return offsets, blob
+
+
+def decode_strings(offsets: np.ndarray, blob: np.ndarray) -> List[str]:
+    """``encode_strings``'s inverse."""
+    raw = np.asarray(blob, dtype=np.uint8).tobytes()
+    off = np.asarray(offsets, dtype=np.int64).tolist()
+    return [raw[off[i]:off[i + 1]].decode("utf-8")
+            for i in range(len(off) - 1)]
+
+
 def build_dictionary(sorted_unique_values: Sequence[Any],
                      data_type: DataType) -> Dictionary:
     if data_type.is_numeric:

@@ -7,7 +7,9 @@ dictId range (contiguous because the terms are sorted): the literal prefix
 of an anchored regexp walks the trie to a candidate interval, and the
 regexp is verified only on the terms inside it. A regexp with no literal
 prefix scans every term, as the index-less loop does, so both give the
-same dictIds. The trie lives in memory as CSR arrays (``build``).
+same dictIds. The trie lives in memory as CSR arrays (``build``); on
+disk they are the JAX package's four files, ``fstoff``, ``fstlab``,
+``fsttgt`` and ``fstrng`` (``FST_FILES``, in ``build``'s order).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+FST_FILES = ("fstoff", "fstlab", "fsttgt", "fstrng")
 MAX_DEPTH = 16  # trie depth cap: deeper prefixes narrow via dictId binsearch
 
 

@@ -15,8 +15,7 @@ Counterpart of ``pinot_tpu/segment/immutable.py``. Every array is
 
 An upsert-managed segment carries ``valid_doc_ids``, a bool array over its
 docs: only its true docs are live. ``star_trees`` holds the segment's
-star-trees (``segment/startree.py``) in memory, in config order (the JAX
-segment loads them from disk at first use, :273-281).
+star-trees (``segment/startree.py``) in config order.
 
 A column built with indexes (``convert.py``, ``spi/table.py``) reads them
 here with the semantics of ``pinot_tpu/segment/immutable.py`` (:80-213):
@@ -24,18 +23,55 @@ here with the semantics of ``pinot_tpu/segment/immutable.py`` (:80-213):
 ``range_order`` and ``range_sorted_values`` (a raw column's sorted-order
 permutation), ``bloom_filter``, ``fst_index``, ``text_index`` and
 ``json_index``; each is None where the column has no such index.
+
+``load_segment(dir)`` reads a segment directory in the JAX package's
+layout (``segment/creator.py`` writes it; JAX :38-213, :320-336) into the
+same ``ImmutableSegment``, so staging, residency, the pruner and every rung
+take it unchanged. At load every file the metadata names is mapped
+(``native.MmapBuffer``, ``native.load_npy``; no copy, no descriptor kept
+open), so a segment whose directory is deleted afterwards still reads.
+Each column's arrays are made at first use and kept: a packed forward
+index is unpacked on the host (and narrowed to the dictIds' dtype, as the
+in-memory builder stores them), a compressed one decompressed, a
+multi-value column made the dense ``[capacity, k]`` matrix with
+``mv_counts``, a numeric dictionary copied, and the indexes read from
+their files (never rebuilt). A raw column's values, the null bitmap, the
+range permutation and the FST arrays stay read-only maps of the files.
+``segment_dir`` names the directory (None for a segment built in memory),
+the star-trees load at first use (JAX :272-282), and ``verify_crc``
+recomputes the CRC-32 of ``columns/`` against the metadata's.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from pinot_tpu_torch.segment.dictionary import Dictionary
-from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
+from pinot_tpu_torch.segment.dictionary import (
+    Dictionary,
+    build_dictionary,
+    decode_strings,
+)
+from pinot_tpu_torch.segment.metadata import (
+    METADATA_FILE,
+    ColumnMetadata,
+    SegmentMetadata,
+)
+
+COLUMNS_DIR = "columns"
+
+
+def narrow_id_dtype(cardinality: int) -> np.dtype:
+    """The dtype a single-value column's dictIds are held in."""
+    if cardinality <= (1 << 8):
+        return np.dtype(np.uint8)
+    if cardinality <= (1 << 16):
+        return np.dtype(np.uint16)
+    return np.dtype(np.int32)
 
 
 @dataclass
@@ -108,23 +144,18 @@ class DataSource:
 
 class ImmutableSegment:
     def __init__(self, metadata: SegmentMetadata,
-                 sources: Dict[str, DataSource]):
+                 sources: Dict[str, DataSource],
+                 segment_dir: Optional[str] = None):
         cap = metadata.padded_capacity
         for name, ds in sources.items():
-            fwd = ds.forward_index
-            cm = ds.metadata
-            ok = (fwd.shape == (cap,) if cm.single_value
-                  else fwd.ndim == 2 and fwd.shape[0] == cap
-                  and ds.mv_counts is not None
-                  and ds.mv_counts.shape == (cap,))
-            if not ok or (ds.null_bitmap is not None
-                          and ds.null_bitmap.shape != (cap,)):
-                raise ValueError(f"column {name!r}: arrays do not span the "
-                                 f"padded capacity {cap}")
+            if isinstance(ds, _DiskDataSource):
+                continue        # checked when its arrays are made
+            _check_spans(name, ds, cap)
         self.metadata = metadata
         self._sources = sources
+        self.segment_dir = segment_dir
         self.valid_doc_ids = None
-        self.star_trees: List[Any] = []
+        self._star_trees: Optional[List[Any]] = None if segment_dir else []
 
     @property
     def segment_name(self) -> str:
@@ -138,9 +169,272 @@ class ImmutableSegment:
     def padded_capacity(self) -> int:
         return self.metadata.padded_capacity
 
+    @property
+    def star_trees(self) -> List[Any]:
+        """The star-trees; a loaded segment reads its tree directories at
+        first use."""
+        trees = self._star_trees
+        if trees is None:
+            from pinot_tpu_torch.segment.startree import StarTree
+
+            trees = []
+            for i in range(self.metadata.star_tree_count):
+                t = StarTree.load(self.segment_dir, index=i)
+                if t is None:
+                    raise FileNotFoundError(
+                        f"{self.segment_dir}: star-tree {i} of "
+                        f"{self.metadata.star_tree_count} is missing")
+                trees.append(t)
+            self._star_trees = trees
+        return trees
+
+    @star_trees.setter
+    def star_trees(self, trees: List[Any]) -> None:
+        self._star_trees = list(trees)
+
     def data_source(self, name: str) -> DataSource:
         try:
             return self._sources[name]
         except KeyError:
             raise KeyError(f"column {name!r} not in segment "
                            f"{self.segment_name!r}") from None
+
+    def get_value(self, column: str, doc_id: int) -> Any:
+        """One doc's value of a column (a list for a multi-value column),
+        read on the host (JAX :303)."""
+        ds = self.data_source(column)
+        cm = ds.metadata
+        if cm.single_value:
+            v = ds.forward_index[doc_id]
+            if cm.has_dictionary:
+                return ds.dictionary.get_value(int(v))
+            return cm.data_type.convert(v.item())
+        dense, counts = ds.dense_mv()
+        return ds.dictionary.get_values(dense[doc_id, :int(counts[doc_id])])
+
+    def __repr__(self) -> str:
+        return (f"ImmutableSegment({self.segment_name!r}, "
+                f"docs={self.num_docs}, columns={len(self.metadata.columns)})")
+
+
+def _check_spans(name: str, ds: DataSource, cap: int) -> None:
+    fwd = ds.forward_index
+    cm = ds.metadata
+    ok = (fwd.shape == (cap,) if cm.single_value
+          else fwd.ndim == 2 and fwd.shape[0] == cap
+          and ds.mv_counts is not None and ds.mv_counts.shape == (cap,))
+    if not ok or (ds.null_bitmap is not None
+                  and ds.null_bitmap.shape != (cap,)):
+        raise ValueError(f"column {name!r}: arrays do not span the "
+                         f"padded capacity {cap}")
+
+
+class _ColumnFiles:
+    """A loaded column's files, every one mapped at load: ``npy[suffix]``
+    the ``.npy`` arrays, ``bin[suffix]`` the ``.bin`` buffers."""
+
+    def __init__(self, col_dir: str, name: str, cm: ColumnMetadata):
+        from pinot_tpu_torch.native import MmapBuffer, load_npy
+
+        npy, bins = [], []
+        if cm.has_dictionary:
+            npy += ["dict"] if cm.data_type.is_numeric \
+                else ["dictoff", "dictblob"]
+        if cm.stored_dtype is None:
+            raise ValueError(f"column {name!r}: no storedDtype in metadata")
+        if cm.stored_dtype.startswith("packed:"):
+            bins.append("fwdpk")
+        elif cm.compression_codec:
+            bins.append("fwdcc")
+        else:
+            npy.append("fwd")
+        if not cm.single_value:
+            npy.append("mvoff")
+        if cm.has_nulls:
+            npy.append("null")
+        if cm.has_inverted_index:
+            npy += ["invoff", "invbo"]
+            bins.append("inv")
+        if cm.has_bloom_filter:
+            npy.append("bloom")
+        if cm.has_range_index:
+            npy.append("rangeord")
+        if cm.has_text_index:
+            npy += ["txtoff", "txtblob", "txtinvoff", "txtinvbo"]
+            bins.append("txtinv")
+        if cm.has_json_index:
+            npy += ["jkeysoff", "jkeysblob", "jinvoff", "jinvbo"]
+            bins.append("jinv")
+        if cm.has_fst_index:
+            from pinot_tpu_torch.segment.fstindex import FST_FILES
+
+            npy += list(FST_FILES)
+        self.npy = {s: load_npy(os.path.join(col_dir, f"{name}.{s}.npy"))
+                    for s in npy}
+        self.bin = {s: MmapBuffer(os.path.join(col_dir, f"{name}.{s}.bin"))
+                    for s in bins}
+
+    def bytes_of(self, suffix: str) -> np.ndarray:
+        return self.bin[suffix].as_array(np.uint8)
+
+
+class _DiskDataSource(DataSource):
+    """A loaded column: the ``DataSource`` interface over its mapped
+    files, each array made at first use."""
+
+    def __init__(self, name: str, metadata: ColumnMetadata,
+                 seg_md: SegmentMetadata, files: _ColumnFiles):
+        self.name = name
+        self.metadata = metadata
+        self._capacity = seg_md.padded_capacity
+        self._num_docs = seg_md.num_docs
+        self._files = files
+
+    @cached_property
+    def dictionary(self) -> Optional[Dictionary]:
+        cm = self.metadata
+        if not cm.has_dictionary:
+            return None
+        f = self._files.npy
+        if cm.data_type.is_numeric:
+            # owned: its values reach the card as plan parameters
+            values = np.array(f["dict"], dtype=cm.data_type.stored_np)
+        else:
+            values = np.asarray(decode_strings(f["dictoff"], f["dictblob"]),
+                                dtype=np.str_)
+        return build_dictionary(values, cm.data_type)
+
+    @cached_property
+    def _forward(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        from pinot_tpu_torch import native
+        from pinot_tpu_torch.segment.compression import read_compressed
+
+        cm, cap, n = self.metadata, self._capacity, self._num_docs
+        f = self._files
+        counts = None
+        if cm.stored_dtype.startswith("packed:"):
+            bits = int(cm.stored_dtype.split(":", 1)[1])
+            ids = native.bitunpack(f.bytes_of("fwdpk"), cap, bits)
+            fwd = ids.astype(narrow_id_dtype(cm.cardinality))
+        elif cm.compression_codec:
+            fwd = read_compressed(f.bin["fwdcc"].path,
+                                  blob=f.bin["fwdcc"].read())
+        elif cm.single_value:
+            fwd = f.npy["fwd"]
+        else:
+            # the JAX package's dense_mv (:213): flat dictIds with row
+            # offsets -> [capacity, max(max values, 1)], zero past counts
+            offsets = np.asarray(f.npy["mvoff"], dtype=np.int64)
+            row_counts = np.diff(offsets)
+            counts = np.zeros(cap, dtype=np.int32)
+            counts[:n] = row_counts
+            fwd = np.zeros((cap, max(cm.max_num_multi_values, 1)),
+                           dtype=np.int32)
+            rows = np.repeat(np.arange(n), row_counts)
+            cols = np.arange(offsets[-1]) - np.repeat(offsets[:-1],
+                                                      row_counts)
+            fwd[rows, cols] = f.npy["fwd"]
+        if fwd.shape[0] != cap:
+            raise ValueError(f"column {self.name!r}: {fwd.shape[0]} rows on "
+                             f"disk for the padded capacity {cap}")
+        return fwd, counts
+
+    @property
+    def forward_index(self) -> np.ndarray:
+        return self._forward[0]
+
+    @property
+    def mv_counts(self) -> Optional[np.ndarray]:
+        return self._forward[1]
+
+    @cached_property
+    def null_bitmap(self) -> Optional[np.ndarray]:
+        if not self.metadata.has_nulls:
+            return None
+        nb = self._files.npy["null"]
+        if nb.shape != (self._capacity,):
+            raise ValueError(f"column {self.name!r}: null bitmap of "
+                             f"{nb.shape} for the padded capacity "
+                             f"{self._capacity}")
+        return nb
+
+    @cached_property
+    def inverted_index(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        if not self.metadata.has_inverted_index:
+            return None
+        from pinot_tpu_torch.native import varint_decode_lists
+
+        f = self._files
+        offsets = np.array(f.npy["invoff"], dtype=np.int64)
+        return offsets, varint_decode_lists(f.bytes_of("inv"),
+                                            f.npy["invbo"], offsets)
+
+    @cached_property
+    def range_order(self) -> Optional[np.ndarray]:
+        if not self.metadata.has_range_index:
+            return None
+        return self._files.npy["rangeord"]
+
+    @cached_property
+    def bloom_filter(self):
+        if not self.metadata.has_bloom_filter:
+            return None
+        from pinot_tpu_torch.utils.bloom import BloomFilter
+
+        return BloomFilter.from_array(self._files.npy["bloom"])
+
+    @cached_property
+    def fst_index(self):
+        if not self.metadata.has_fst_index:
+            return None
+        from pinot_tpu_torch.segment.fstindex import FST_FILES, FstIndexReader
+
+        return FstIndexReader(*(self._files.npy[s] for s in FST_FILES),
+                              self.dictionary)
+
+    @cached_property
+    def text_index(self):
+        if not self.metadata.has_text_index:
+            return None
+        from pinot_tpu_torch.segment.textindex import text_index_from_files
+
+        f = self._files
+        d = self.dictionary
+        return text_index_from_files(
+            {**f.npy, "txtinv": f.bytes_of("txtinv")},
+            self.metadata.cardinality, value_of=d.get_value)
+
+    @cached_property
+    def json_index(self):
+        if not self.metadata.has_json_index:
+            return None
+        from pinot_tpu_torch.segment.jsonindex import json_index_from_files
+
+        f = self._files
+        return json_index_from_files({**f.npy, "jinv": f.bytes_of("jinv")},
+                                     self._num_docs)
+
+
+def load_segment(segment_dir: str) -> ImmutableSegment:
+    """A segment directory (the JAX package's layout) as an
+    ``ImmutableSegment``; raises ``FileNotFoundError`` where the directory
+    holds no ``metadata.json`` or a file its metadata names."""
+    md_path = os.path.join(segment_dir, METADATA_FILE)
+    if not os.path.isfile(md_path):
+        raise FileNotFoundError(f"not a segment directory (no "
+                                f"{METADATA_FILE}): {segment_dir}")
+    md = SegmentMetadata.load(md_path)
+    col_dir = os.path.join(segment_dir, COLUMNS_DIR)
+    sources: Dict[str, DataSource] = {
+        name: _DiskDataSource(name, cm, md, _ColumnFiles(col_dir, name, cm))
+        for name, cm in md.columns.items()}
+    return ImmutableSegment(md, sources, segment_dir=segment_dir)
+
+
+def verify_crc(segment_dir: str) -> bool:
+    """The CRC-32 of the directory's ``columns/`` files equals the one its
+    metadata recorded."""
+    from pinot_tpu_torch.segment.creator import compute_dir_crc
+
+    md = SegmentMetadata.load(os.path.join(segment_dir, METADATA_FILE))
+    return compute_dir_crc(os.path.join(segment_dir, COLUMNS_DIR)) == md.crc

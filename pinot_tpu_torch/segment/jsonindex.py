@@ -8,8 +8,12 @@ resolves to unions and intersections of those postings
 index the planner evaluates the filter once per distinct dictionary value
 into a dictId lookup table (``match_json_value``), the index-less branch
 of the JAX planner. The index lives in memory: sorted keys, doc-count
-offsets and one flat int32 postings array (the JAX package keeps
-delta+varint lists on disk).
+offsets and one flat int32 postings array. On disk it is the JAX
+package's five files (JAX :72-110): the keys as offsets and a UTF-8 blob
+(``jkeysoff``, ``jkeysblob``), the doc-count offsets (``jinvoff``) and the
+postings as delta+varint lists with their byte offsets (``jinvbo``,
+``jinv.bin``), written by ``json_index_files`` and read by
+``json_index_from_files``.
 
 Documents flatten to ``(path, canonical value)`` pairs, nested objects as
 dotted paths and array elements as ``[*]``. Dialect: ``"$.path" = 'v'`` /
@@ -21,7 +25,7 @@ from __future__ import annotations
 import json
 import re
 from bisect import bisect_left
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -223,6 +227,31 @@ def build_json_index(json_values: List[Any], num_docs: int
     return keys, offsets, flat
 
 
+def json_index_files(keys: List[str], offsets: np.ndarray,
+                     postings: np.ndarray) -> Dict[str, Any]:
+    """The index's files: suffix -> array (``.npy``) or bytes (``.bin``)."""
+    from pinot_tpu_torch.native import varint_encode_lists
+    from pinot_tpu_torch.segment.dictionary import encode_strings
+
+    key_off, blob = encode_strings(keys)
+    inv, byte_off = varint_encode_lists(postings, offsets)
+    return {"jkeysoff": key_off, "jkeysblob": blob, "jinvoff": offsets,
+            "jinvbo": byte_off, "jinv": inv}
+
+
+def json_index_from_files(files: Mapping[str, Any], num_docs: int
+                          ) -> "JsonIndexReader":
+    """``json_index_files``'s inverse (``files["jinv"]`` any buffer)."""
+    from pinot_tpu_torch.native import varint_decode_lists
+    from pinot_tpu_torch.segment.dictionary import decode_strings
+
+    offsets = np.asarray(files["jinvoff"], dtype=np.int64)
+    postings = varint_decode_lists(files["jinv"], files["jinvbo"], offsets)
+    return JsonIndexReader(decode_strings(files["jkeysoff"],
+                                          files["jkeysblob"]),
+                           offsets, postings, num_docs)
+
+
 class JsonIndexReader:
     """JSON_MATCH filters resolved through the postings to a doc mask."""
 
@@ -232,6 +261,11 @@ class JsonIndexReader:
         self._offsets = offsets
         self._postings_flat = postings
         self.num_docs = num_docs
+
+    def files(self) -> Dict[str, Any]:
+        """The index's files on disk (``json_index_files``)."""
+        return json_index_files(self._keys, self._offsets,
+                                self._postings_flat)
 
     def _postings(self, idx: int) -> np.ndarray:
         return self._postings_flat[int(self._offsets[idx]):

@@ -17,7 +17,8 @@ column's the dense ``[rows, max values]`` dictIds with ``mv_counts``
 the null rows. A consuming segment has no index; the device serves it
 through ``engine/mutable_staging.py`` and the host engine reads it here.
 ``build_immutable`` seals it into an in-memory ``ImmutableSegment``
-through the port's ``SegmentBuilder`` (on-disk segments are not ported).
+through the port's ``SegmentBuilder``, which the consumer writes to disk
+where it has an output directory (``ingestion/realtime.py``).
 """
 
 from __future__ import annotations
@@ -372,8 +373,9 @@ class MutableSegment:
         """The first ``num_docs`` rows as an in-memory immutable segment
         (sorted dictionaries, the indexes and star-trees of
         ``indexing_config``, default the consuming-time config), built by
-        the port's ``SegmentBuilder`` from the columns' values (JAX
-        :338, which builds on disk)."""
+        the port's ``SegmentBuilder`` from the columns' values (JAX :338
+        builds on disk; the consumer writes the seal, with its offsets,
+        through ``write_segment``)."""
         n = self._num_docs
         frame: Dict[str, Any] = {}
         for name, col in self._cols.items():

@@ -7,14 +7,20 @@ pair (``count__*`` int64, the others float64); the nodes are one
 ``_NODE_DTYPE`` array in depth-first order, root first. The builder is the
 JAX package's level-batched lexsort construction, which emits the same
 bytes as its recursive oracle; ``select_records`` is the host walk that
-picks the records answering a query. The tree lives in memory (no tree
-files yet). This is host numpy code, as in the JAX package: the walk is a
+picks the records answering a query. On disk a tree is the JAX package's
+directory ``startree<i>/`` beside ``columns/`` (JAX :529-555):
+``dims.npy``, ``nodes.npy``, ``metric_<pair>.npy`` per pair and the
+config as ``startree_metadata.json`` (``StarTree.save`` / ``load``; a
+loaded tree's arrays are read-only maps of its files). This is host numpy
+code, as in the JAX package: the walk is a
 pointer chase over R records, R far below the segment's docs; the device
 aggregates the selected slice (``engine/startree_device.py``).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -22,6 +28,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 STAR = -1
+STARTREE_DIR = "startree{index}"
+META_FILE = "startree_metadata.json"
 
 
 class DictIdRange:
@@ -410,6 +418,39 @@ class StarTree:
 
     def has_pair(self, fn: str, col: str) -> bool:
         return f"{fn}__{col}" in self.metrics
+
+    def save(self, seg_dir: str, index: int = 0) -> None:
+        """Write the tree as ``<seg_dir>/startree<index>/``, each file
+        under a temporary name renamed into place."""
+        from pinot_tpu_torch.segment.creator import write_file
+
+        d = os.path.join(seg_dir, STARTREE_DIR.format(index=index))
+        os.makedirs(d, exist_ok=True)
+        write_file(os.path.join(d, "dims.npy"), np.asarray(self.dims))
+        write_file(os.path.join(d, "nodes.npy"), np.asarray(self.nodes))
+        for k, v in self.metrics.items():
+            write_file(os.path.join(d, f"metric_{k}.npy"), np.asarray(v))
+        write_file(os.path.join(d, META_FILE),
+                   json.dumps(self.config.to_dict(), indent=1).encode())
+
+    @classmethod
+    def load(cls, seg_dir: str, index: int = 0) -> Optional["StarTree"]:
+        """Tree ``index`` of a segment directory, or None where it has no
+        such tree; its arrays map the files (``native.load_npy``)."""
+        from pinot_tpu_torch.native import load_npy
+
+        d = os.path.join(seg_dir, STARTREE_DIR.format(index=index))
+        meta_path = os.path.join(d, META_FILE)
+        if not os.path.isfile(meta_path):
+            return None
+        with open(meta_path) as f:
+            config = StarTreeConfig.from_dict(json.load(f))
+        metrics = {}
+        for fn, col in config.function_column_pairs:
+            k = f"{fn}__{col}"
+            metrics[k] = load_npy(os.path.join(d, f"metric_{k}.npy"))
+        return cls(config, load_npy(os.path.join(d, "dims.npy")), metrics,
+                   load_npy(os.path.join(d, "nodes.npy")))
 
     def nbytes(self) -> int:
         """Host bytes of the records and nodes."""

@@ -6,8 +6,12 @@ a dictId set (``TextIndexReader.matching_ids``), the lookup-table shape the
 device rungs and the host evaluator read. Without the index the planner
 evaluates the same dialect once per distinct value (``match_text_value``);
 both give the same dictIds. The index lives in memory: the sorted terms,
-doc-count offsets and one flat array of postings (the JAX package keeps
-the postings as delta+varint lists on disk).
+doc-count offsets and one flat array of postings. On disk it is the JAX
+package's five files (JAX :47-80): the terms as offsets and a UTF-8 blob
+(``txtoff``, ``txtblob``), the doc-count offsets (``txtinvoff``) and the
+postings as delta+varint lists with their byte offsets (``txtinvbo``,
+``txtinv.bin``); ``text_index_files`` writes their contents and
+``text_index_from_files`` reads them back.
 
 Analyzer: lowercase + split on non-alphanumerics. Dialect: bare terms,
 ``"quoted phrases"`` (adjacency verified against the source values),
@@ -19,7 +23,8 @@ from __future__ import annotations
 
 import re
 from bisect import bisect_left
-from typing import Any, Callable, List, Sequence, Set, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 
@@ -49,6 +54,33 @@ def build_text_index(values: Sequence[Any]
     flat = np.asarray([v for t in terms for v in postings[t]],
                       dtype=np.int32)
     return terms, offsets, flat
+
+
+def text_index_files(terms: List[str], offsets: np.ndarray,
+                     postings: np.ndarray) -> Dict[str, Any]:
+    """The index's files: suffix -> array (``.npy``) or bytes (``.bin``)."""
+    from pinot_tpu_torch.native import varint_encode_lists
+    from pinot_tpu_torch.segment.dictionary import encode_strings
+
+    term_off, blob = encode_strings(terms)
+    inv, byte_off = varint_encode_lists(postings, offsets)
+    return {"txtoff": term_off, "txtblob": blob, "txtinvoff": offsets,
+            "txtinvbo": byte_off, "txtinv": inv}
+
+
+def text_index_from_files(files: Mapping[str, Any], num_ids: int,
+                          value_of: Callable[[int], Any]
+                          ) -> "TextIndexReader":
+    """``text_index_files``'s inverse (``files["txtinv"]`` any buffer)."""
+    from pinot_tpu_torch.native import varint_decode_lists
+    from pinot_tpu_torch.segment.dictionary import decode_strings
+
+    offsets = np.asarray(files["txtinvoff"], dtype=np.int64)
+    postings = varint_decode_lists(files["txtinv"], files["txtinvbo"],
+                                   offsets)
+    return TextIndexReader(decode_strings(files["txtoff"],
+                                          files["txtblob"]),
+                           offsets, postings, num_ids, value_of)
 
 
 _QTOKEN = re.compile(r"""
@@ -174,6 +206,11 @@ class TextIndexReader:
         self._postings_flat = postings
         self.num_ids = num_ids
         self._value_of = value_of  # id -> source text (phrase verification)
+
+    def files(self) -> Dict[str, Any]:
+        """The index's files on disk (``text_index_files``)."""
+        return text_index_files(self._terms, self._offsets,
+                                self._postings_flat)
 
     def _postings(self, idx: int) -> np.ndarray:
         return self._postings_flat[int(self._offsets[idx]):

@@ -5,7 +5,12 @@ Counterpart of ``pinot_tpu/segment/upsert.py``: a per-partition primary
 key -> record location map. When a record with a newer-or-equal
 comparison value (by default the time column) arrives for a known key,
 the older doc goes invalid in its segment's valid-doc bitmap; an older
-record is invalidated itself. Every execution path ANDs the bitmap into
+record is invalidated itself. Equal comparison values (two nulls where
+there is no comparison column) order by arrival: a segment's place is the
+order this manager first saw it, which a segment fetched again (a DISCARD
+replica's seal, added after the next segment's rows) keeps, so its rows
+never outrank a later segment's already indexed.
+Every execution path ANDs the bitmap into
 its filter (``validdocs`` on the device rungs, ``eval_filter`` on the
 host engine), so each key shows one live doc.
 
@@ -50,6 +55,8 @@ class PartitionUpsertMetadataManager:
         # per segment, a counter bumped on every bitmap change
         self._versions: Dict[str, int] = {}
         self._valid: Dict[str, np.ndarray] = {}
+        # segment -> the order it was first seen in (arrival order)
+        self._order: Dict[str, int] = {}
         self._lock = threading.Lock()
 
     # -- reads ------------------------------------------------------------------
@@ -74,11 +81,15 @@ class PartitionUpsertMetadataManager:
     # -- segment lifecycle ------------------------------------------------------
     def add_segment(self, segment) -> np.ndarray:
         """Index a sealed segment's keys; -> its valid bitmap (shared,
-        changed in place on invalidation)."""
+        changed in place on invalidation). Without a comparison column
+        every value is null, so a later doc wins (arrival order; JAX
+        :81 raises there)."""
         n = segment.num_docs
         keys = self._segment_keys(segment)
-        cmp_vals = self._read_column(segment, self.comparison_column)
+        cmp_vals = (self._read_column(segment, self.comparison_column)
+                    if self.comparison_column is not None else [None] * n)
         with self._lock:
+            self._order.setdefault(segment.segment_name, len(self._order))
             valid = np.ones(n, dtype=bool)
             self._valid[segment.segment_name] = valid
             self._bump_locked(segment.segment_name)
@@ -114,6 +125,7 @@ class PartitionUpsertMetadataManager:
                    comparison_value: Any) -> None:
         """After ``MutableSegment.index`` of the row at ``doc_id``."""
         with self._lock:
+            self._order.setdefault(segment_name, len(self._order))
             valid = self._valid.get(segment_name)
             if valid is None or doc_id >= valid.shape[0]:
                 grown = np.ones(max(doc_id + 1, 1024), dtype=bool)
@@ -128,11 +140,18 @@ class PartitionUpsertMetadataManager:
                        cmp_value: Any) -> None:
         loc = self._locations.get(key)
         if loc is not None:
-            # newer-or-equal wins; a null comparison value is the oldest
-            incoming_older = (
-                (cmp_value is None and loc.comparison_value is not None)
-                or (cmp_value is not None and loc.comparison_value is not None
-                    and cmp_value < loc.comparison_value))
+            # newer wins; a null comparison value is the oldest, and equal
+            # values (two nulls among them) order by arrival
+            arrived_first = ((self._order.get(segment_name, -1), doc_id)
+                             < (self._order.get(loc.segment_name, -1),
+                                loc.doc_id))
+            held = loc.comparison_value
+            if cmp_value is None or held is None:
+                incoming_older = (arrived_first if cmp_value is held
+                                  else cmp_value is None)
+            else:
+                incoming_older = cmp_value < held or (
+                    cmp_value == held and arrived_first)
             if incoming_older:
                 valid = self._valid.get(segment_name)
                 if valid is not None and doc_id < valid.shape[0]:

@@ -7,20 +7,21 @@ after, so a segment replaced or removed mid-query goes only when its last
 reader finishes. The table manager's listener hooks (``segment_added``,
 ``segment_removed``, and ``segment_released`` when a segment's last
 reference goes) are the server's prefetch and eviction on the card.
-A segment comes from the deep store as an object (``spi/filesystem.py``)
-and is added as it is (the JAX ``add_segment_from_dir`` waits for the
-on-disk format).
+A segment comes from the deep store as a directory (``file://``), which
+``add_segment_from_dir`` loads (JAX :145), or from a ``memory://`` store
+as an object, added as it is (``spi/filesystem.py``).
 
 ``RealtimeTableDataManager`` (JAX :193) also owns a realtime table's
 consuming-segment managers: each consuming segment serves queries until
 its seal replaces it (``on_sealed``: add-or-replace under the registry
 lock, so a query acquires either view, never both or neither), and with
 upsert every hosted segment registers with the table's upsert manager and
-carries a live valid-doc view. A sealed segment fetched from the deep
-store is shared with the servers that hold it already, so an upsert
-table's server takes a shallow copy (the column arrays shared) and hangs
-its own valid-doc view on it; the JAX servers each load their own copy
-from disk. ``on_sealed`` records JAX's ``seal:`` decision in the process
+carries a live valid-doc view. ``on_sealed`` takes the seal as a segment
+directory (loaded here, JAX :250-300) or as an object. A sealed object
+fetched from a ``memory://`` store is shared with the servers that hold
+it already, so an upsert table's server takes a shallow copy (the column
+arrays shared) and hangs its own valid-doc view on it; a directory is
+loaded into an object of this server's own. ``on_sealed`` records JAX's ``seal:`` decision in the process
 ledger (``common/tracing.py`` ``LEDGER``) and counts it in the table's
 ``seal_decisions``, logs each seal (``seals``), and flushes the consuming
 segment's last rows into the table's ``freshness`` histogram
@@ -34,12 +35,13 @@ import logging
 import threading
 import time
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 from pinot_tpu_torch.common.tracing import decision_key, record_decision
 from pinot_tpu_torch.controller.assignment import _partition_from_llc_name
 from pinot_tpu_torch.engine.mutable_staging import observe_freshness
 from pinot_tpu_torch.ingestion.realtime import RealtimeSegmentDataManager
+from pinot_tpu_torch.segment.immutable import ImmutableSegment, load_segment
 from pinot_tpu_torch.segment.upsert import (
     TableUpsertMetadataManager,
     _LiveValidDocs,
@@ -123,6 +125,12 @@ class TableDataManager:
         if old is not None:
             self._release(old)
         self._notify("segment_added", segment)
+
+    def add_segment_from_dir(self, segment_dir: str) -> ImmutableSegment:
+        """Load a segment directory and add (or replace) it."""
+        seg = load_segment(segment_dir)
+        self.add_segment(seg)
+        return seg
 
     def remove_segment(self, segment_name: str) -> None:
         with self._lock:
@@ -223,11 +231,13 @@ class RealtimeTableDataManager(TableDataManager):
         with self._lock:
             self._consumers.pop(segment_name, None)
 
-    def on_sealed(self, segment_name: str, segment,
+    def on_sealed(self, segment_name: str,
+                  segment: Union[str, ImmutableSegment],
                   partition: Optional[int] = None,
                   fetched: bool = False) -> None:
-        """CONSUMING -> ONLINE: the sealed ``segment`` replaces the
-        consuming one. ``fetched``: it came from the deep store (a DISCARD
+        """CONSUMING -> ONLINE: the sealed ``segment`` (a segment
+        directory, which is loaded, or a segment) replaces the consuming
+        one. ``fetched``: it came from the deep store (a DISCARD
         or a server that found the segment ONLINE), so for an upsert table
         this server's keys are rebuilt from its rows on a shallow copy of
         its own; else it is this server's own seal, whose bitmap its
@@ -235,11 +245,15 @@ class RealtimeTableDataManager(TableDataManager):
         before the swap finishes on it (its refcount keeps it), one that
         acquires after sees only the seal."""
         t0 = time.perf_counter()
+        loaded = isinstance(segment, str)
+        if loaded:
+            segment = load_segment(segment)
         with self._lock:
             mgr = self._consumers.pop(segment_name, None)
         reason = "seal_swap" if mgr is not None else "seal_download"
         if fetched and self.upsert_manager is not None:
-            segment = copy.copy(segment)
+            if not loaded:
+                segment = copy.copy(segment)
             if partition is None:
                 partition = (mgr.partition if mgr is not None
                              else _segment_partition(segment, segment_name))

@@ -5,7 +5,10 @@ the server registers itself in the cluster state store, watches the
 IdealState, reconciles its assigned segments, reports ExternalView
 states, and answers instance query requests through its scheduler into
 ``ServerQueryExecutor.execute_instance``. The transitions: OFFLINE ->
-ONLINE fetches the segment from its cluster's deep store and hosts it;
+ONLINE fetches the segment from the deep store and hosts it (a
+``file://`` location through ``spi/filesystem.py`` ``fetch_segment``
+into a directory it loads, JAX :279-300; a ``memory://`` one from its
+cluster's ``MemoryDeepStore`` as an object);
 OFFLINE -> CONSUMING starts a consumer thread for the segment's stream
 partition at its start offset, negotiating its commit through the
 server's completion protocol (the controller's completion FSM in a
@@ -29,16 +32,26 @@ first child (``SchedulerQueue``), and serves ``queries_debug``,
 ``telemetry_debug``, ``slo_debug``, ``freshness_debug`` and
 ``flightrecorder_debug``.
 
+A server with a ``segment_dir`` has its consumers write their seals
+there (``<segment_dir>/<instance>/<table>/<segment>``), and a DISCARD
+replica fetches the committer's directory. The reload transition
+(``reloadrequests/<table>``, JAX :373-400) runs ``segment/preprocessor.py``
+``reload_segment`` on every hosted segment that has a directory: the
+missing indexes are added on disk and the segment swapped in again;
+``reload_failures`` keeps the failures it logged. ``table_size`` reports
+the bytes on disk of each hosted segment (JAX :515), and
+``memory_debug`` the files mapped (``nativeMmapBuffers``, JAX :674-680).
+
 The executor defaults to ``ServerQueryExecutor(device="cuda")``; a caller
 on the CPU passes ``executor=ServerQueryExecutor(device="cpu")``. Not part
-of this module: reload (it rewrites segments on disk, ROADMAP item 7),
-``table_size`` (on-disk bytes), the kernel-blocklist debug view, and the
-REST routes of the debug views (they wait for the transport).
+of this module: the kernel-blocklist debug view, and the REST routes of
+the debug views (they wait for the transport).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 
@@ -71,7 +84,11 @@ from pinot_tpu_torch.server.data_manager import (
 )
 from pinot_tpu_torch.server.scheduler import make_scheduler
 from pinot_tpu_torch.spi.config import CommonConstants
-from pinot_tpu_torch.spi.filesystem import MemoryDeepStore
+from pinot_tpu_torch.spi.filesystem import (
+    SCHEME as MEMORY_SCHEME,
+    MemoryDeepStore,
+    fetch_segment,
+)
 from pinot_tpu_torch.spi.metrics import (
     MetricsRegistry,
     ServerMeter,
@@ -91,8 +108,13 @@ class ServerInstance:
                  completion_protocol: Optional[
                      SegmentCompletionProtocol] = None,
                  executor: Optional[ServerQueryExecutor] = None,
-                 config=None):
+                 config=None, segment_dir: Optional[str] = None):
         self.instance_id = instance_id
+        #: where consumers write seals and remote segments land (None:
+        #: seals stay in memory)
+        self.segment_dir = segment_dir
+        #: (table, segment, error) of each reload that failed
+        self.reload_failures: List[tuple] = []
         self.store = store
         self.deep_store = deep_store
         self.completion_protocol = completion_protocol
@@ -143,6 +165,7 @@ class ServerInstance:
         # participant registration and state-transition replay)
         self.store.watch("idealstate/", self._on_ideal_state_change)
         self.store.watch("tables/", self._on_table_config_change)
+        self.store.watch("reloadrequests/", self._on_reload_request)
         for path in self.store.children("idealstate"):
             self._reconcile_table(path.split("/", 1)[1])
         self._started = True
@@ -288,18 +311,26 @@ class ServerInstance:
                         self.instance_id, table, seg)
             return
         try:
-            segment = self.deep_store.fetch_segment(md.download_url)
+            got = self._fetch(md.download_url)
         except Exception:
             log.exception("[%s] deep-store fetch failed for %s/%s (%s)",
                           self.instance_id, table, seg, md.download_url)
             return
         if realtime:
             # an upsert table registers the fetched segment's keys
-            tdm.on_sealed(seg, segment, partition=md.partition,
-                          fetched=True)
+            tdm.on_sealed(seg, got, partition=md.partition, fetched=True)
+        elif isinstance(got, str):
+            tdm.add_segment_from_dir(got)
         else:
-            tdm.add_segment(segment)
+            tdm.add_segment(got)
         self.store.report_instance_state(table, seg, self.instance_id, ONLINE)
+
+    def _fetch(self, download_url: str):
+        """A ``memory://`` location's segment object, else the local
+        directory ``fetch_segment`` resolves the location to."""
+        if download_url.startswith(f"{MEMORY_SCHEME}://"):
+            return self.deep_store.fetch_segment(download_url)
+        return fetch_segment(download_url)
 
     def _ensure_consuming(self, table: str, tdm, seg: str) -> None:
         if tdm.consuming_manager(seg) is not None or tdm.has_segment(seg):
@@ -319,7 +350,10 @@ class ServerInstance:
             instance_id=self.instance_id,
             upsert_manager=tdm.upsert_manager,
             on_terminal=lambda m, t=table, td=tdm: self._on_consumer_done(
-                t, td, m))
+                t, td, m),
+            output_dir=(os.path.join(self.segment_dir, self.instance_id,
+                                     table)
+                        if self.segment_dir is not None else None))
         tdm.add_consuming(mgr)
         self.store.report_instance_state(table, seg, self.instance_id,
                                          CONSUMING)
@@ -346,8 +380,8 @@ class ServerInstance:
                     tdm.drop_consumer(seg)
                     tdm.remove_segment(seg)
                     return
-                tdm.on_sealed(seg, self.deep_store.fetch_segment(
-                    zk.download_url), fetched=True)
+                tdm.on_sealed(seg, self._fetch(zk.download_url),
+                              fetched=True)
             else:
                 log.error("[%s] consumer for %s ended in %s",
                           self.instance_id, seg, mgr.state)
@@ -359,6 +393,39 @@ class ServerInstance:
         except Exception:
             log.exception("[%s] seal handling failed for %s",
                           self.instance_id, seg)
+
+    # -- reload (JAX :373-400) --------------------------------------------------
+    def _on_reload_request(self, path: str, _value) -> None:
+        """Reload every hosted segment of the table that has a directory:
+        the indexes its config gained are added on disk and the segment
+        swapped in again (consuming segments take the config at their
+        seal; a segment held only in memory has nothing to reload)."""
+        from pinot_tpu_torch.segment.preprocessor import reload_segment
+
+        table = path.split("/", 1)[-1]
+        tdm = self.data_manager.get(table)
+        cfg = self.store.get_table_config(table)
+        if tdm is None or cfg is None:
+            return
+        acquired = tdm.acquire_segments(None)
+        try:
+            for holder in acquired:
+                seg = holder.segment
+                if getattr(seg, "is_mutable", False) \
+                        or getattr(seg, "segment_dir", None) is None:
+                    continue
+                try:
+                    added = reload_segment(tdm, seg, cfg.indexing_config)
+                    if added:
+                        log.info("[%s] reloaded %s/%s: %s", self.instance_id,
+                                 table, seg.segment_name, added)
+                except Exception as e:
+                    log.exception("[%s] reload failed for %s/%s",
+                                  self.instance_id, table, seg.segment_name)
+                    self.reload_failures.append(
+                        (table, seg.segment_name, repr(e)))
+        finally:
+            tdm.release_segments(acquired)
 
     # -- query path (InstanceRequestHandler -> scheduler -> executor) ---------
     def execute_query(self, ctx: QueryContext, table: str,
@@ -464,6 +531,29 @@ class ServerInstance:
         tdm = self.data_manager.get(table)
         return tdm.segment_names() if tdm else []
 
+    def table_size(self, table: str) -> Dict[str, Any]:
+        """The bytes on disk of each hosted segment of ``table`` that has
+        a directory (JAX :515); a segment gone mid-walk is left out."""
+        tdm = self.data_manager.get(table)
+        if tdm is None:
+            return {"tableName": table, "segments": {}, "totalBytes": 0}
+        sizes: Dict[str, int] = {}
+        for name in tdm.segment_names():
+            acquired = tdm.acquire_segments([name])
+            if not acquired:
+                continue
+            try:
+                seg_dir = getattr(acquired[0].segment, "segment_dir", None)
+                if seg_dir and os.path.isdir(seg_dir):
+                    sizes[name] = sum(
+                        os.path.getsize(os.path.join(root, f))
+                        for root, _dirs, files in os.walk(seg_dir)
+                        for f in files)
+            finally:
+                tdm.release_segments(acquired)
+        return {"tableName": table, "segments": sizes,
+                "totalBytes": sum(sizes.values())}
+
     def evict_staged(self, segment_name: str) -> Dict[str, Any]:
         """Force one staged resident off the card; reports what remains."""
         self.executor.evict_segment(segment_name)
@@ -509,8 +599,13 @@ class ServerInstance:
 
     def memory_debug(self) -> Dict[str, Any]:
         """Byte-accurate residency on the card and in host RAM: per
-        resident its bytes and pins, plus the budgets and counters."""
-        return self.executor.residency.snapshot()
+        resident its bytes and pins, plus the budgets and counters, and
+        the segment files mapped in this process (``nativeMmapBuffers``)."""
+        from pinot_tpu_torch import native
+
+        out = dict(self.executor.residency.snapshot())
+        out["nativeMmapBuffers"] = native.mmap_buffer_count()
+        return out
 
     def queries_debug(self) -> Dict[str, Any]:
         """The executor's running queries (sql, phase, elapsed, pins

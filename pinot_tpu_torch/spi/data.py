@@ -1,12 +1,18 @@
 """Schema and field-spec data model: INT/LONG/FLOAT/DOUBLE/STRING columns,
 single-value or multi-value, with their default null values, the
-ingestion length cap and derived-column expression.
+ingestion length cap and derived-column expression, and a time column's
+granularity and format.
 
 Counterpart of ``pinot_tpu/spi/data.py``, cut to what the port uses.
+``Schema.to_dict`` / ``from_dict`` are the reference's JSON layout
+(``dimensionFieldSpecs`` / ``metricFieldSpecs`` / ``dateTimeFieldSpecs``,
+JAX :300-324), which a segment's ``metadata.json`` embeds; a schema
+written by either package reads back in the other.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from enum import Enum
 from typing import Any, Dict, Iterable, List, Optional
@@ -96,10 +102,32 @@ _DEFAULT_METRIC_NULL = {
 
 
 @dataclass
+class TimeGranularity:
+    """Time unit and size of a TIME / DATE_TIME field (JAX :128-146)."""
+
+    unit: str = "MILLISECONDS"  # MILLISECONDS | SECONDS | MINUTES | HOURS | DAYS
+    size: int = 1
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"unit": self.unit, "size": self.size}
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "TimeGranularity":
+        # a DATE_TIME granularity is serialized "size:UNIT" ("1:DAYS"),
+        # a TIME one as a dict
+        if isinstance(d, str):
+            parts = d.split(":")
+            return cls(unit=parts[1], size=int(parts[0]))
+        return cls(unit=d.get("unit", "MILLISECONDS"),
+                   size=int(d.get("size", 1)))
+
+
+@dataclass
 class FieldSpec:
     """``max_length`` caps a string value at ingestion and
     ``transform_function`` derives the column from a row's fields (the
-    ingestion transformers read both)."""
+    ingestion transformers read both); ``granularity`` and ``format``
+    describe a TIME / DATE_TIME column."""
 
     name: str
     data_type: DataType
@@ -108,6 +136,8 @@ class FieldSpec:
     default_null_value: Any = None
     max_length: int = 512
     transform_function: Optional[str] = None
+    granularity: Optional[TimeGranularity] = None
+    format: Optional[str] = None
 
     def __post_init__(self):
         if isinstance(self.data_type, str):
@@ -121,6 +151,46 @@ class FieldSpec:
         else:
             self.default_null_value = self.data_type.convert(
                 self.default_null_value)
+
+    def to_dict(self) -> Dict[str, Any]:
+        """JAX ``FieldSpec.to_dict`` (:191-209)."""
+        d: Dict[str, Any] = {"name": self.name,
+                             "dataType": self.data_type.label,
+                             "fieldType": self.field_type.value}
+        if not self.single_value:
+            d["singleValueField"] = False
+        if self.default_null_value is not None:
+            d["defaultNullValue"] = self.default_null_value
+        if self.granularity is not None:
+            d["granularity"] = self.granularity.to_dict()
+        if self.format is not None:
+            d["format"] = self.format
+        if self.max_length != 512:
+            d["maxLength"] = self.max_length
+        if self.transform_function:
+            d["transformFunction"] = self.transform_function
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any],
+                  field_type: Optional[FieldType] = None) -> "FieldSpec":
+        """``field_type`` is the kind when the dict names none (an explicit
+        ``fieldType`` wins, so a TIME spec under ``dateTimeFieldSpecs``
+        reads back as TIME)."""
+        gran = d.get("granularity")
+        explicit = d.get("fieldType")
+        ft = (FieldType[explicit.upper()] if explicit
+              else (field_type or FieldType.DIMENSION))
+        return cls(name=d["name"],
+                   data_type=DataType.from_string(d["dataType"]),
+                   field_type=ft,
+                   single_value=d.get("singleValueField", True),
+                   default_null_value=d.get("defaultNullValue"),
+                   max_length=d.get("maxLength", 512),
+                   transform_function=d.get("transformFunction"),
+                   granularity=(TimeGranularity.from_dict(gran) if gran
+                                else None),
+                   format=d.get("format"))
 
 
 class Schema:
@@ -157,3 +227,62 @@ class Schema:
 
     def __contains__(self, name: str) -> bool:
         return name in self._fields
+
+    @property
+    def time_column(self) -> Optional[str]:
+        """The first TIME / DATE_TIME field, or None."""
+        for name, fs in self._fields.items():
+            if fs.field_type in (FieldType.TIME, FieldType.DATE_TIME):
+                return name
+        return None
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The reference's schema JSON: dimensions, metrics and time
+        fields in their own lists, each in field order."""
+        dims, mets, dts = [], [], []
+        for fs in self._fields.values():
+            if fs.field_type is FieldType.METRIC:
+                mets.append(fs.to_dict())
+            elif fs.field_type in (FieldType.DATE_TIME, FieldType.TIME):
+                dts.append(fs.to_dict())
+            else:
+                dims.append(fs.to_dict())
+        d: Dict[str, Any] = {"schemaName": self.schema_name}
+        if dims:
+            d["dimensionFieldSpecs"] = dims
+        if mets:
+            d["metricFieldSpecs"] = mets
+        if dts:
+            d["dateTimeFieldSpecs"] = dts
+        if self.primary_key_columns:
+            d["primaryKeyColumns"] = self.primary_key_columns
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Schema":
+        """The fields come back dimensions first, then metrics, then the
+        time fields (a legacy ``timeFieldSpec`` among them)."""
+        specs: List[FieldSpec] = []
+        for fd in d.get("dimensionFieldSpecs", []):
+            specs.append(FieldSpec.from_dict(fd, FieldType.DIMENSION))
+        for fd in d.get("metricFieldSpecs", []):
+            specs.append(FieldSpec.from_dict(fd, FieldType.METRIC))
+        tfs = d.get("timeFieldSpec")
+        if tfs:
+            inner = tfs.get("incomingGranularitySpec", tfs)
+            specs.append(FieldSpec(
+                name=inner["name"],
+                data_type=DataType.from_string(inner["dataType"]),
+                field_type=FieldType.TIME,
+                granularity=TimeGranularity(
+                    unit=inner.get("timeType", "MILLISECONDS"))))
+        for fd in d.get("dateTimeFieldSpecs", []):
+            specs.append(FieldSpec.from_dict(fd, FieldType.DATE_TIME))
+        return cls(d["schemaName"], specs, d.get("primaryKeyColumns"))
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Schema":
+        return cls.from_dict(json.loads(s))

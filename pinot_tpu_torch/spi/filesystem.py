@@ -1,26 +1,105 @@
 """The deep store: where a pushed segment is kept until a server fetches it.
 
-Counterpart of ``pinot_tpu/spi/filesystem.py`` (``fetch_segment`` and its
-scheme registry). The port builds its segments in memory and has no
-on-disk format yet, so it has one scheme, ``memory://<table>/<segment>``:
-a ``MemoryDeepStore`` of immutable segment objects. Each cluster owns one
-(the controller holds it and hands it to its servers), so two clusters in
-one process never see each other's segments, and a cluster's segments go
-with it. ``put_segment`` keeps a segment and returns its location,
-``fetch_segment`` resolves a location to the object itself (every replica
-that fetches it shares the one object; each server stages its own copy on
-the card), and any other scheme raises. A realtime seal
-(``ingestion/realtime.py``) names its location with ``segment_url`` and
-keeps nothing here.
+Counterpart of ``pinot_tpu/spi/filesystem.py``: ``PinotFS``, its local
+``file://`` form ``LocalPinotFS`` (JAX :26-82, cut to the fetch), the
+scheme registry ``get_fs`` (:141-154) and ``fetch_segment`` (:156),
+which resolves a segment's download URL to a local segment directory with
+retries. A segment in a ``file://`` store is a directory in the JAX
+package's layout (``segment/creator.py``), and a local one is served in
+place: every replica in the process maps the same directory. Schemes that
+copy to a local directory, and segment crypters (the JAX ``local_dir`` and
+``crypter`` arguments), are not ported.
+
+Beside it, ``memory://<table>/<segment>``: a ``MemoryDeepStore`` of
+immutable segment objects, for a cluster that keeps its segments in
+memory. Each such cluster owns one (the controller holds it and hands it
+to its servers), so two clusters in one process never see each other's
+segments, and a cluster's segments go with it. ``put_segment`` keeps a
+segment and returns its location, ``fetch_segment`` resolves a location
+to the object itself (every replica that fetches it shares the one
+object; each server stages its own copy on the card).
 """
 
 from __future__ import annotations
 
+import os
 import threading
+import time
+import urllib.parse
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 SCHEME = "memory"
+
+
+#: a fetch's tries, and the wait before the second (it doubles after)
+FETCH_ATTEMPTS = 3
+FETCH_BACKOFF_S = 0.2
+
+
+class PinotFS:
+    """A deep store's scheme (the reference's PinotFS, cut to what a
+    server's fetch uses)."""
+
+    scheme = ""
+
+    def local_segment_dir(self, uri: str) -> str:
+        """The local directory of the segment at ``uri``."""
+        raise NotImplementedError
+
+
+class LocalPinotFS(PinotFS):
+    """``file://`` URIs and bare paths. A local segment is served in
+    place: nothing is copied."""
+
+    scheme = "file"
+
+    def local_segment_dir(self, uri: str) -> str:
+        p = uri[len("file://"):] if uri.startswith("file://") else uri
+        if not os.path.isdir(p):
+            raise FileNotFoundError(f"no segment directory at {uri!r}")
+        return p
+
+
+_REGISTRY: Dict[str, Callable[[], PinotFS]] = {
+    "file": LocalPinotFS,
+    "": LocalPinotFS,
+}
+
+
+def get_fs(uri: str) -> PinotFS:
+    """The filesystem of ``uri``'s scheme; raises ``ValueError`` for a
+    scheme nothing registered (``memory://`` is a cluster's
+    ``MemoryDeepStore``, not a filesystem)."""
+    scheme = urllib.parse.urlparse(uri).scheme.lower()
+    ctor = _REGISTRY.get(scheme)
+    if ctor is None:
+        raise ValueError(f"no PinotFS registered for scheme {scheme!r} "
+                         f"(registered: {sorted(_REGISTRY)})")
+    return ctor()
+
+
+def file_url(segment_dir: str) -> str:
+    """The ``file://`` location of a local segment directory."""
+    return f"file://{os.path.abspath(segment_dir)}"
+
+
+def fetch_segment(download_url: str) -> str:
+    """Resolve a segment's download URL to a local segment directory (the
+    server's download from the deep store), trying ``FETCH_ATTEMPTS``
+    times with a doubling wait; a ``ValueError`` (an unknown scheme) is
+    not retried, and the last failure raises."""
+    fs = get_fs(download_url)
+    delay = FETCH_BACKOFF_S
+    for attempt in range(FETCH_ATTEMPTS):
+        try:
+            return fs.local_segment_dir(download_url)
+        except Exception:
+            if attempt + 1 >= FETCH_ATTEMPTS:
+                raise
+            time.sleep(delay)
+            delay *= 2
+    raise AssertionError("unreachable")
 
 
 def segment_url(table: str, segment_name: str) -> str:
@@ -30,8 +109,8 @@ def segment_url(table: str, segment_name: str) -> str:
 def _parse(url: str) -> Tuple[str, str]:
     scheme, sep, rest = url.partition("://")
     if not sep or scheme.lower() != SCHEME:
-        raise ValueError(f"no deep store for scheme {scheme!r} of {url!r} "
-                         f"(the port keeps segments under {SCHEME}://)")
+        raise ValueError(f"{url!r} is not a {SCHEME}:// location "
+                         "(fetch_segment resolves the other schemes)")
     table, sep, name = rest.partition("/")
     if not sep or not table or not name:
         raise ValueError(f"{url!r} is not {SCHEME}://<table>/<segment>")
@@ -81,4 +160,5 @@ class MemoryDeepStore:
             return len(self._segments)
 
 
-__all__ = ["SCHEME", "segment_url", "MemoryDeepStore"]
+__all__ = ["SCHEME", "segment_url", "MemoryDeepStore", "PinotFS",
+           "LocalPinotFS", "get_fs", "file_url", "fetch_segment"]

@@ -9,7 +9,9 @@ Counterpart of ``pinot_tpu/spi/table.py``: ``StarTreeIndexConfig`` (:49),
 ``StreamIngestionConfig`` with the reference's flat stream-config map
 reader (:265-318), ``TransformConfig``, ``IngestionConfig``,
 ``QuotaConfig`` (:383), ``RoutingConfig`` (:406, the broker's instance
-selector and segment pruners) and ``TableConfig`` (:426), cut to the
+selector and segment pruners), ``FieldConfig`` (:150-180, a column's raw
+encoding and the chunk codec of its forward index on disk) and
+``TableConfig`` (:426), cut to the
 knobs the port's in-memory segment builder, the realtime consumer
 (``ingestion/realtime.py``), the record transformers, the controller,
 the broker's routing and its quota honour (no retention or task
@@ -234,6 +236,22 @@ class RoutingConfig:
 
 
 @dataclass
+class FieldConfig:
+    """One column's encoding directives (``fieldConfigList``):
+    ``encoding_type`` RAW stores a single-value numeric column's values
+    without a dictionary, and ``compression_codec`` (ZSTANDARD, ZLIB,
+    PASS_THROUGH; SNAPPY and LZ4 are written as ZSTANDARD, or ZLIB where
+    ``zstandard`` is missing) compresses such a column's forward index in
+    chunks on disk (``segment/compression.py``)."""
+
+    name: str
+    encoding_type: str = "DICTIONARY"   # DICTIONARY | RAW
+    index_type: Optional[str] = None
+    compression_codec: Optional[str] = None
+    properties: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
 class TableConfig:
     """What the consumer, the transformers and the cluster read of a
     table."""
@@ -249,6 +267,7 @@ class TableConfig:
     upsert_config: Optional[UpsertConfig] = None
     stream_config: Optional[StreamIngestionConfig] = None
     ingestion_config: Optional[IngestionConfig] = None
+    field_config_list: List[FieldConfig] = field(default_factory=list)
 
     def __post_init__(self):
         if isinstance(self.table_type, str):

@@ -3,11 +3,21 @@
 Counterpart of ``pinot_tpu/tools/cluster.py`` (``EmbeddedCluster``, the
 reference's ClusterTest and Quickstart harness): every role runs against
 one cluster state store, and the broker calls its servers in process.
-Segments are kept in the controller's in-memory deep store
-(``spi/filesystem.py``), which ``shutdown`` empties. ``upload_segment
-(table, segment)`` is the ``memory://`` counterpart of the JAX
-``upload_segment_dir``, and ``ingest_rows`` builds a segment in memory with
-the port's ``SegmentBuilder`` and pushes it.
+
+With a ``data_dir`` (JAX's layout under it: ``built_segments/``,
+``server_segments/``), segments live on disk and the deep store is
+``file://``: ``upload_segment_dir(table, dir)`` pushes a segment directory
+(JAX :86), ``upload_segment(table, segment)`` writes a segment built in
+memory there first, ``ingest_rows`` builds and writes one, the servers
+fetch and map the directories, a realtime seal is written under the
+committing server's directory and fetched from there by its DISCARD
+replicas, and ``shutdown`` removes what the cluster made there:
+``data_dir`` itself where it did not exist, else the two subdirectories
+where they did not, so nothing a caller kept there is lost. Without one, segments
+are objects in the controller's in-memory deep store (``memory://``,
+``spi/filesystem.py``), which ``shutdown`` empties, and seals stay in
+memory. ``update_table`` then ``reload_table`` (the controller's) adds
+the indexes a config gained to every replica's segments on disk.
 
 A REALTIME table consumes its stream from ``create_table`` on: each
 server negotiates its commits with the controller's completion FSM
@@ -30,7 +40,8 @@ sampler, so a cluster leaves no thread and no file behind.
 broker's reduce run; it raises without a card, and a CPU caller passes
 ``device="cpu"``. Minions are not part of this module.
 
-    cluster = EmbeddedCluster(num_servers=2, device="cuda")
+    cluster = EmbeddedCluster(num_servers=2, device="cuda",
+                              data_dir="/path/to/cluster")
     cluster.create_table(TableConfig("sales"), schema)
     cluster.ingest_rows("sales_OFFLINE", schema, {"region": [...], ...})
     cluster.wait_for_ev_converged("sales_OFFLINE")
@@ -45,6 +56,7 @@ broker's reduce run; it raises without a card, and a CPU caller passes
 
 from __future__ import annotations
 
+import os
 import shutil
 import tempfile
 import time
@@ -62,10 +74,12 @@ from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine.executor import ServerQueryExecutor
 from pinot_tpu_torch.ingestion.realtime import ConsumerState
 from pinot_tpu_torch.ingestion.stream import create_consumer_factory
-from pinot_tpu_torch.segment.creator import SegmentBuilder
+from pinot_tpu_torch.segment.creator import SegmentBuilder, write_segment
+from pinot_tpu_torch.segment.metadata import METADATA_FILE, SegmentMetadata
 from pinot_tpu_torch.server.data_manager import RealtimeTableDataManager
 from pinot_tpu_torch.server.server import ServerInstance
 from pinot_tpu_torch.spi.data import Schema
+from pinot_tpu_torch.spi.filesystem import file_url
 from pinot_tpu_torch.spi.table import TableConfig
 
 
@@ -79,8 +93,21 @@ class EmbeddedCluster:
     def __init__(self, num_servers: int = 1,
                  device_reduce: Optional[bool] = None,
                  device: Union[str, torch.device] = "cuda",
-                 llc_seed: Optional[str] = None):
+                 llc_seed: Optional[str] = None,
+                 data_dir: Optional[str] = None):
         self.device = resolve_device(device)
+        self.data_dir = None if data_dir is None else os.path.abspath(
+            data_dir)
+        #: what ``shutdown`` removes: ``data_dir`` where the cluster made
+        #: it, else those of its two subdirectories the cluster made
+        self._made_dirs: List[str] = []
+        if data_dir is not None:
+            subs = [os.path.join(self.data_dir, d)
+                    for d in ("built_segments", "server_segments")]
+            self._made_dirs = ([p for p in subs if not os.path.exists(p)]
+                               if os.path.exists(self.data_dir)
+                               else [self.data_dir])
+            os.makedirs(self.data_dir, exist_ok=True)
         recorder = TELEMETRY.recorder
         self._flight_dir: Optional[str] = None
         if recorder.out_dir is None:
@@ -103,11 +130,18 @@ class EmbeddedCluster:
         server = ServerInstance(
             instance_id, self.store, self.controller.deep_store,
             completion_protocol=self.controller.completion,
-            executor=ServerQueryExecutor(device=self.device))
+            executor=ServerQueryExecutor(device=self.device),
+            segment_dir=self.server_segment_dir)
         server.start()
         self.servers[instance_id] = server
         self.broker.register_server(instance_id, server)
         return server
+
+    @property
+    def server_segment_dir(self) -> Optional[str]:
+        """Where servers write their seals (None without a data dir)."""
+        return (None if self.data_dir is None
+                else os.path.join(self.data_dir, "server_segments"))
 
     def stop_server(self, instance_id: str) -> None:
         server = self.servers.pop(instance_id, None)
@@ -119,9 +153,29 @@ class EmbeddedCluster:
         self.controller.add_schema(schema)
         self.controller.add_table(table_config)
 
-    def upload_segment(self, table_with_type: str, segment) -> str:
-        """Keep ``segment`` in the deep store and push it; -> its
+    def upload_segment_dir(self, table_with_type: str, segment_dir: str
+                           ) -> str:
+        """Push a segment directory by its ``file://`` location; -> the
         location."""
+        md = SegmentMetadata.load(os.path.join(segment_dir, METADATA_FILE))
+        url = file_url(segment_dir)
+        self.controller.add_segment(table_with_type, md, url)
+        return url
+
+    def _built_dir(self) -> str:
+        out = os.path.join(self.data_dir, "built_segments")
+        os.makedirs(out, exist_ok=True)
+        return out
+
+    def upload_segment(self, table_with_type: str, segment) -> str:
+        """Push a segment built in memory; -> its location. With a data
+        dir it is written there and pushed as a directory, else kept in
+        the in-memory deep store."""
+        if self.data_dir is not None:
+            write_segment(segment, self._built_dir())
+            return self.upload_segment_dir(
+                table_with_type,
+                os.path.join(self._built_dir(), segment.segment_name))
         url = self.controller.deep_store.put_segment(table_with_type,
                                                      segment)
         self.controller.add_segment(table_with_type, segment.metadata, url)
@@ -130,14 +184,17 @@ class EmbeddedCluster:
     def ingest_rows(self, table_with_type: str, schema: Schema,
                     rows_columnar: Dict[str, list],
                     segment_name: Optional[str] = None) -> str:
-        """Offline batch ingest: build a segment from columnar data and
-        push it."""
+        """Offline batch ingest: build a segment from columnar data (on
+        disk with a data dir) and push it."""
         name = segment_name or f"{schema.schema_name}_{int(time.time() * 1e3)}"
         cfg = self.store.get_table_config(table_with_type)
-        seg = SegmentBuilder(
-            schema, name, indexing=cfg.indexing_config if cfg else None
-        ).build(rows_columnar)
-        self.upload_segment(table_with_type, seg)
+        builder = SegmentBuilder(schema, name, table_config=cfg)
+        if self.data_dir is not None:
+            builder.build(rows_columnar, self._built_dir())
+            self.upload_segment_dir(
+                table_with_type, os.path.join(self._built_dir(), name))
+        else:
+            self.upload_segment(table_with_type, builder.build(rows_columnar))
         return name
 
     # -- the query front door --------------------------------------------------
@@ -236,6 +293,8 @@ class EmbeddedCluster:
             s.shutdown()
         self.servers.clear()
         self.controller.deep_store.clear()
+        for d in self._made_dirs:
+            shutil.rmtree(d, ignore_errors=True)
         TELEMETRY.stop_sampler()
         if self._flight_dir is not None:
             if TELEMETRY.recorder.out_dir == self._flight_dir:

@@ -59,3 +59,9 @@ class BloomFilter:
         """The filter as one uint64 array: ``[k, words...]``."""
         return np.concatenate([np.asarray([self.num_hashes], dtype=np.uint64),
                                self.bits])
+
+    @classmethod
+    def from_array(cls, arr: np.ndarray) -> "BloomFilter":
+        """``to_array``'s inverse (a ``bloom.npy`` of a segment on disk)."""
+        arr = np.asarray(arr, dtype=np.uint64)
+        return cls(arr[1:].copy(), int(arr[0]))

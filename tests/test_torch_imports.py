@@ -83,6 +83,9 @@ def test_executor_import_leaves_jax_unloaded():
             "pinot_tpu_torch.common.response, "
             "pinot_tpu_torch.spi.metrics, "
             "pinot_tpu_torch.spi.filesystem, "
+            "pinot_tpu_torch.native, "
+            "pinot_tpu_torch.segment.compression, "
+            "pinot_tpu_torch.segment.preprocessor, "
             "pinot_tpu_torch.query.explain, "
             "pinot_tpu_torch.tools.cluster; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -90,10 +93,47 @@ def test_executor_import_leaves_jax_unloaded():
             "from pinot_tpu_torch.engine import _build, kernels; "
             "bad += ['built: ' + k for k in _build.BUILD_LOGS]; "
             "bad += ['launched'] * kernels.RUNG_COUNTER.launches; "
+            "from pinot_tpu_torch import native; "
+            "bad += ['native loaded'] * (native.library_path() is not None); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_never_loads_the_jax_native_library(tmp_path):
+    """Writing and loading a segment builds and maps only the port's own
+    native library (``pinot_tpu_torch/_build/``), never the JAX package's
+    ``native/`` source or library, and no port source names that path."""
+    code = (
+        "import os, sys, numpy as np; "
+        "from pinot_tpu_torch import native; "
+        "from pinot_tpu_torch.segment import SegmentBuilder; "
+        "from pinot_tpu_torch.segment.immutable import load_segment; "
+        "from pinot_tpu_torch.spi import DataType, FieldSpec, Schema; "
+        "s = Schema('t', [FieldSpec('k', DataType.STRING)]); "
+        f"SegmentBuilder(s, 't_0').build({{'k': ['a', 'b'] * 50}}, "
+        f"{str(tmp_path)!r}); "
+        f"seg = load_segment(os.path.join({str(tmp_path)!r}, 't_0')); "
+        "assert seg.get_value('k', 1) == 'b'; "
+        "maps = open('/proc/self/maps').read(); "
+        f"jax_native = os.path.join({ROOT!r}, 'native') + os.sep; "
+        "bad = [l for l in maps.splitlines() if jax_native in l]; "
+        "bad += [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pinot_tpu')]; "
+        "lib = native.library_path(); "
+        "bad += [] if lib and lib in maps and 'pinot_tpu_torch' in lib "
+        "else ['port library not mapped: %s' % lib]; "
+        "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    jax_paths = ("native/pinot_native.cpp", "native/build",
+                 "libpinot_native.so")
+    for path in _port_files():
+        text = open(path).read()
+        bad = [p for p in jax_paths if p in text]
+        assert not bad, f"{path} names {bad}"
 
 
 def _tiny_segment():

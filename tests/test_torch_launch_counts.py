@@ -189,10 +189,18 @@ def test_kernel_flight_riders_count_the_launch(segs, monkeypatch):
 
 def _hold_dispatcher(ex):
     """Block the executor's launch dispatcher on a request of its own, so
-    the next requests pile up and drain together. -> release()."""
-    ev = threading.Event()
-    blocker = LaunchKernel(("hold",), lambda p, n: ev.wait(10))
+    the next requests pile up and drain together. -> release(). Returns
+    once the dispatcher runs the blocker: until then it could drain the
+    blocker with the first few requests and leave the rest for later."""
+    ev, running = threading.Event(), threading.Event()
+
+    def hold(_p, _n):
+        running.set()
+        return ev.wait(10)
+
+    blocker = LaunchKernel(("hold",), hold)
     req = ex.launcher.submit(blocker, None, None)
+    assert running.wait(10)
 
     def release():
         ev.set()
