@@ -241,11 +241,36 @@ Phases:
      flushed every 50 k at replication 2, every seal a directory, one
      replica of each told DISCARD and serving the committer's directory,
      U1-U7 == the oracle over each user's latest row;
- 14. (after 19) a realtime user-events table: 1.5 M rows
+ 20. (after 19, before 14) the segment lifecycle: an
+     EmbeddedCluster(data_dir=...) of 4 servers (phase 16's residency
+     budget) at replication 2 with one minion, every answer through
+     cluster.query == the numpy oracle over the rows the table holds at
+     that step: (20a) 8 time-ordered segments of 1 M events (a DATE_TIME
+     ts in epoch ms) merged by MergeRollup (CONCAT, 7-day buckets) behind
+     segment lineage while 4 client threads send count / sum and sum by
+     country, every answer == the oracle across the swaps (tasks, s a
+     task, segments before and after, lineage entries, p50 before and
+     after, fused launches on the merged segments > 0); (20b) 4
+     overlapping segments of 1 M hour-granular rows rolled up (SUM):
+     count(*) == the distinct keys, sum by country and day == the oracle;
+     (20c) a hybrid table, 200 k JSON rows on 2 partitions (flush 50 k),
+     RealtimeToOffline until the watermark passes the last committed
+     window: the hybrid answers == the oracle before and after, the time
+     boundary advances, the offline side on the fused scan; (20d) Purge
+     of one country from one segment, ConvertToRaw of revenue on another
+     (a refresh push under its name: every replica serves it with revenue
+     a raw value column); (20e) retention expires the oldest segment, a
+     fifth server tagged cold takes the aged segments, a sixth joins and
+     rebalance_table spreads them make-before-break (stagedBytes per
+     server after each step); (20f) 100 k WKT points over one city (H3,
+     resolution 9): 5 ST_DISTANCE counts, 100 m to 5 km, with and without
+     the geo index == a haversine oracle, on the host engine with 0 fused
+     launches;
+ 14. (after 20) a realtime user-events table: 1 M rows
      as JSON messages on a one-partition MemoryStream consumed by
      RealtimeSegmentDataManager into a consuming segment on the card
      (``engine/mutable_staging.py``): (14a) at 700, 1000 and 5000 rows and
-     at 1.5 M, U1-U7 and R1-R3 of tools/usertable.py
+     at 1 M, U1-U7 and R1-R3 of tools/usertable.py
      ``realtime_queries`` == the numpy oracle over the rows indexed so
      far, on ``mutable_device`` (U1 / U3 on its index gather, R3's HLL
      declined to the host engine), the bytes uploaded between two
@@ -267,7 +292,7 @@ segments on the per-segment path (``index_missing_index`` and the other
 JAX codes), which every phase asserts beside its other decisions.
 Then a "rungs" line of the segments each rung served and the declines and
 paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
-kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16-19,
+kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16-20,
 and of 13b for the query axis; the top-k, the jnp combine and the index gather are
 PyTorch ops, not hand kernels).
 Phases 4, 6, 7, 9, 10 and 11 assert launches
@@ -3464,9 +3489,9 @@ def phase_startree(sf: float, segments: int, seed: int, reps: int,
 
 # -- phase 14: a realtime user-events table -------------------------------------
 
-# 2.5 M until phase 18 joined the script, which must end within 1200 s
-# on a slow host too (PERF.md section 4)
-REALTIME_ROWS = 1_500_000
+# 2.5 M until phase 18 joined the script, 1.5 M until phase 20 did: the
+# script must end within 1200 s on a slow host too (PERF.md section 4)
+REALTIME_ROWS = 1_000_000
 # watermarks of 14a before the bulk: below the chunk floor (1024 rows), in
 # the same chunk, and one that regrows the chunks (to 8192 rows)
 REALTIME_STEPS = (700, 1000, 5000)
@@ -4381,31 +4406,13 @@ def _front_cluster(segs, device: str, servers: int,
     queryable s, each server's stagedBytes)."""
     import torch
 
-    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
-    from pinot_tpu_torch.server.server import ServerInstance
-    from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
     from pinot_tpu_torch.spi.table import SegmentsValidationConfig, TableConfig
     from pinot_tpu_torch.tools.cluster import EmbeddedCluster
 
     cluster = EmbeddedCluster(num_servers=0, device=device,
                               device_reduce=True, data_dir=data_dir)
-    cfg = None
-    if device == "cuda":
-        card = torch.cuda.get_device_properties(0).total_memory
-        cfg = PinotConfiguration({CommonConstants.HBM_BUDGET_BYTES_KEY:
-                                  int(0.75 * card / servers)})
     for i in range(servers):
-        sid = f"server_{i}"
-        srv = ServerInstance(sid, cluster.store,
-                             cluster.controller.deep_store,
-                             completion_protocol=cluster.controller
-                             .completion, config=cfg,
-                             executor=ServerQueryExecutor(device=device,
-                                                          config=cfg),
-                             segment_dir=cluster.server_segment_dir)
-        srv.start()
-        cluster.servers[sid] = srv
-        cluster.broker.register_server(sid, srv)
+        _budget_server(cluster, f"server_{i}", device, servers)
     cluster.create_table(TableConfig(
         FRONT_TABLE, validation_config=SegmentsValidationConfig(
             time_column_name="d_yearmonthnum",
@@ -4429,6 +4436,33 @@ def _front_cluster(segs, device: str, servers: int,
     if not all(staged.values()):
         raise AssertionError(f"16: a server staged nothing: {staged}")
     return cluster, push_s, staged
+
+
+def _budget_server(cluster, sid: str, device: str, budget_servers: int):
+    """A server as ``add_server`` builds one but with
+    ``pinot.server.query.hbm.budget.bytes`` at 0.75 of the card over
+    ``budget_servers`` (phase 16's residency budget)."""
+    import torch
+
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.server.server import ServerInstance
+    from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
+
+    cfg = None
+    if device == "cuda":
+        card = torch.cuda.get_device_properties(0).total_memory
+        cfg = PinotConfiguration({CommonConstants.HBM_BUDGET_BYTES_KEY:
+                                  int(0.75 * card / budget_servers)})
+    srv = ServerInstance(sid, cluster.store, cluster.controller.deep_store,
+                         completion_protocol=cluster.controller.completion,
+                         config=cfg,
+                         executor=ServerQueryExecutor(device=device,
+                                                      config=cfg),
+                         segment_dir=cluster.server_segment_dir)
+    srv.start()
+    cluster.servers[sid] = srv
+    cluster.broker.register_server(sid, srv)
+    return srv
 
 
 def _front_check(what: str, resp, want, phase4=None,
@@ -6031,6 +6065,774 @@ def _phase_12(args, card: str) -> dict:
     return run
 
 
+# -- phase 20: the segment lifecycle (minions, lineage, retention, tiers,
+# rebalance) and the geo index -------------------------------------------------
+
+LC_SERVERS = 4
+LC_REPLICATION = 2
+LC_SEGMENTS = 8
+# rows a 20a segment: phase 9b's 2.5 M cut to 1 M for the time limit
+LC_ROWS = 1_000_000
+LC_CLIENTS = 4
+# 20b: 4 overlapping segments of 1 M rows, ts at hour granularity
+LC_ROLLUP_SEGMENTS = 4
+LC_ROLLUP_ROWS = 1_000_000
+# 20c: the realtime side of a hybrid table, 2 partitions
+LC_RT_ROWS = 200_000
+LC_RT_FLUSH = 50_000
+LC_RT_DAYS = 4
+# 20f: 500 k rows cut to 100 k for the scan without the index (per-doc
+# ST_DISTANCE on the host, about 3 s a query at 100 k); 20 k places
+LC_GEO_ROWS = 100_000
+LC_GEO_PLACES = 20_000
+LC_GEO_RADII = (100.0, 500.0, 1000.0, 2500.0, 5000.0)
+LC_PURGE_COUNTRY = "DE"
+LC_TABLE = "lc_events"
+# the CPU test's sizes (tests/test_torch_minion.py)
+LIFECYCLE_SMALL = dict(servers=4, segments=4, rows=6000, rollup_segments=2,
+                       rollup_rows=4000, rt_rows=2000, rt_flush=500,
+                       geo_rows=3000, geo_places=800)
+
+
+def _lc_schema(name: str):
+    from pinot_tpu_torch.spi import DataType, FieldSpec, FieldType, Schema
+
+    return Schema(name, [
+        FieldSpec("ts", DataType.LONG, FieldType.DATE_TIME),
+        FieldSpec("country", DataType.STRING),
+        FieldSpec("event_type", DataType.STRING),
+        FieldSpec("revenue", DataType.INT, FieldType.METRIC)])
+
+
+def _lc_config(name: str, task: dict, replication: int = LC_REPLICATION,
+               table_type=None, stream=None):
+    from pinot_tpu_torch.spi.table import (
+        IndexingConfig,
+        SegmentsValidationConfig,
+        TableConfig,
+        TableType,
+    )
+
+    return TableConfig(
+        name, table_type or TableType.OFFLINE,
+        validation_config=SegmentsValidationConfig(
+            time_column_name="ts", replication=replication),
+        indexing_config=IndexingConfig(no_dictionary_columns=["ts"]),
+        task_config=task, stream_config=stream)
+
+
+def _lc_frame(rng, n: int, lo: int, hi: int, sort: bool = True,
+              round_ms: int = 1) -> dict:
+    ts = rng.integers(lo, hi, n)
+    if sort:
+        ts = np.sort(ts)
+    ts = ts // round_ms * round_ms
+    return {"ts": ts.astype(np.int64),
+            "country": rng.integers(0, len(COUNTRIES), n),
+            "event_type": rng.integers(0, len(EVENT_TYPES), n),
+            "revenue": rng.integers(0, 500, n).astype(np.int64)}
+
+
+def _lc_build(schema, cfg, name: str, frame: dict, out_dir: str) -> str:
+    from pinot_tpu_torch.segment.creator import SegmentBuilder
+
+    SegmentBuilder(schema, name, table_config=cfg).build({
+        "ts": frame["ts"],
+        "country": np.array(COUNTRIES)[frame["country"]],
+        "event_type": np.array(EVENT_TYPES)[frame["event_type"]],
+        "revenue": frame["revenue"]}, out_dir)
+    return os.path.join(out_dir, name)
+
+
+def _lc_staged(cluster) -> dict:
+    _settle_residency(cluster)
+    return {sid: s.executor.residency.staged_bytes()
+            for sid, s in cluster.servers.items()}
+
+
+def _lc_answers(frame: dict, alive: np.ndarray) -> dict:
+    """The numpy oracle: count and revenue overall and by country."""
+    c = frame["country"][alive]
+    r = frame["revenue"][alive]
+    cnt = np.bincount(c, minlength=len(COUNTRIES))
+    rev = np.bincount(c, weights=r, minlength=len(COUNTRIES))
+    return {"total": [[int(alive.sum()), float(r.sum())]],
+            "country": sorted([COUNTRIES[i], int(cnt[i]), float(rev[i])]
+                              for i in range(len(COUNTRIES)) if cnt[i])}
+
+
+LC_QUERIES = {
+    "total": f"SELECT count(*), sum(revenue) FROM {LC_TABLE}",
+    "country": f"SELECT country, count(*), sum(revenue) FROM {LC_TABLE} "
+               "GROUP BY country LIMIT 100",
+}
+
+
+def _lc_query(cluster, qid: str, sql: str = None) -> tuple:
+    """-> (rows in the oracle's form, ms, the response)."""
+    t0 = time.perf_counter()
+    resp = cluster.query(sql or LC_QUERIES[qid])
+    ms = (time.perf_counter() - t0) * 1e3
+    _full(f"20 {qid}", resp)
+    rows = resp.result_table.rows
+    if qid == "country":
+        rows = sorted([r[0], int(r[1]), float(r[2])] for r in rows)
+    else:
+        rows = [[int(r[0]), float(r[1])] for r in rows]
+    return rows, ms, resp
+
+
+def _lc_offline(raw: str) -> str:
+    return raw + "_OFFLINE"
+
+
+def _lc_check(cluster, want: dict, what: str) -> dict:
+    """Both queries == the oracle and every segment served; -> ms."""
+    lat = {}
+    for qid in LC_QUERIES:
+        rows, ms, _ = _lc_query(cluster, qid)
+        if rows != want[qid]:
+            raise AssertionError(f"{what} {qid}: {rows[:3]} != the oracle "
+                                 f"{want[qid][:3]}")
+        lat[qid] = ms
+    report = cluster.controller.run_segment_status_check()[
+        _lc_offline(LC_TABLE)]
+    if report["replicasMissing"]:
+        raise AssertionError(f"{what}: segments not served: {report}")
+    return lat
+
+
+def _lc_run_tasks(cluster, minion, now_ms: int) -> tuple:
+    """Generate and run tasks until a round generates none. -> (tasks,
+    seconds of each)."""
+    tasks, spent = 0, []
+    while True:
+        if not cluster.controller.run_task_generation(now_ms=now_ms):
+            return tasks, spent
+        while True:
+            t0 = time.perf_counter()
+            if not minion.run_one_task():
+                break
+            spent.append(time.perf_counter() - t0)
+            tasks += 1
+        if minion.tasks_failed:
+            raise AssertionError("20: a minion task failed: " + str(
+                [t.error for t in cluster.controller.task_manager
+                 .list_tasks(status="ERROR")]))
+
+
+def phase_lifecycle(reps: int, device: str = "cuda",
+                    servers: int = LC_SERVERS, segments: int = LC_SEGMENTS,
+                    rows: int = LC_ROWS,
+                    rollup_segments: int = LC_ROLLUP_SEGMENTS,
+                    rollup_rows: int = LC_ROLLUP_ROWS,
+                    rt_rows: int = LC_RT_ROWS, rt_flush: int = LC_RT_FLUSH,
+                    geo_rows: int = LC_GEO_ROWS,
+                    geo_places: int = LC_GEO_PLACES, seed: int = 20) -> dict:
+    """Phase 20: the segment lifecycle on the card. An
+    ``EmbeddedCluster(data_dir=...)`` of ``servers`` servers (phase 16's
+    residency budget) at replication 2 with one minion, every answer
+    through ``cluster.query``, clean and full, and equal to the numpy
+    oracle over the rows the table holds at that step:
+
+    (20a) ``lc_events``, ``segments`` time-ordered segments of ``rows``
+    rows over 28 days (a DATE_TIME ``ts`` in epoch ms, raw), MergeRollup
+    CONCAT with 7-day buckets and no buffer: task generation and the
+    minion run until no task is left while ``LC_CLIENTS`` client threads
+    send count / sum and sum by country, every answer == the oracle
+    across every lineage swap; tasks, s a task, segments before and
+    after, lineage entries, p50 before and after, fused-scan launches on
+    the merged segments (> 0 on the card). (20b) ``lc_rollup``,
+    ``rollup_segments`` overlapping segments of hour-granular rows rolled
+    up (SUM): sum(revenue) by country and day == the oracle, count(*) ==
+    the oracle's distinct (hour, country, event type) keys. (20c) a
+    hybrid ``lc_rt``: ``rt_rows`` JSON rows over 4 days on 2 partitions,
+    flush ``rt_flush``, replication 2; RealtimeToOffline until the
+    watermark passes the last committed window: the hybrid answers ==
+    the oracle before and after, the broker's time boundary advances, the
+    offline side served by the fused scan. (20d) on ``lc_events``: Purge
+    drops one country's rows from one segment, ConvertToRaw rebuilds
+    another with ``revenue`` raw (a refresh push under its name): the
+    answers == the oracle, every replica serves the converted segment
+    with ``revenue`` a raw value column in its plan. (20e) retention
+    expires the oldest segment; a fifth server tagged ``cold`` takes the
+    aged segments (relocation); a sixth server joins and
+    ``rebalance_table`` spreads them make-before-break: after each step
+    the rows == the oracle over the remaining data, every segment
+    served, stagedBytes per server logged. (20f) ``geo_rows`` rows of WKT
+    points over one city (H3, resolution 9): 5 ``ST_DISTANCE(...) < r``
+    counts, r 100 m to 5 km, with and without the index == a numpy
+    haversine oracle, each on the host engine with 0 fused launches; p50
+    with and without."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.tools.cluster import EmbeddedCluster
+
+    on_card = device == "cuda"
+    t_all = time.perf_counter()
+    out: dict = {}
+    counters = scan_counters()
+    _reset(counters)
+    launches = {name: 0 for name in counters}
+
+    def add_launches():
+        for name, c in counters.items():
+            launches[name] += c.launches
+        _reset(counters)
+
+    root = tempfile.mkdtemp(prefix="pinot_lifecycle_")
+    cluster = EmbeddedCluster(num_servers=0, device=device,
+                              device_reduce=True,
+                              data_dir=os.path.join(root, "cluster"))
+    try:
+        for i in range(servers):
+            _budget_server(cluster, f"server_{i}", device, servers)
+        minion = cluster.add_minion(start=False)
+        out["merge"] = _lc_merge(cluster, minion, root, segments, rows, seed,
+                                 counters, on_card, add_launches)
+        alive, frame = out["merge"].pop("alive"), out["merge"].pop("frame")
+        out["rollup"] = _lc_rollup(cluster, minion, root, rollup_segments,
+                                   rollup_rows, seed)
+        out["realtime"] = _lc_realtime(cluster, minion, rt_rows, rt_flush,
+                                       seed, counters, on_card,
+                                       add_launches)
+        out["purge_convert"] = _lc_purge_convert(cluster, minion, frame,
+                                                 alive)
+        out["tiers"] = _lc_tiers(cluster, frame, alive, device, servers)
+        add_launches()
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    out["geo"] = _lc_geo(reps, device, geo_rows, geo_places, seed, counters)
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 20: {out['seconds']:.1f} s; fused launches {launches}")
+    return out
+
+
+def _lc_merge(cluster, minion, root, segments, rows, seed, counters,
+              on_card, add_launches) -> dict:
+    """20a (see ``phase_lifecycle``)."""
+    import threading
+
+    from pinot_tpu_torch.controller.tasks import MERGE_ROLLUP_TASK
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    schema = _lc_schema(LC_TABLE)
+    cfg = _lc_config(LC_TABLE, {MERGE_ROLLUP_TASK: {
+        "bucketTimePeriod": "7d", "bufferTimePeriod": "0d",
+        "mergeType": "CONCAT"}})
+    cluster.create_table(cfg, schema)
+    table = _lc_offline(LC_TABLE)
+    window = 28 * DAY_MS // segments
+    frames = []
+    built = os.path.join(root, "built")
+    for i in range(segments):
+        lo = EVENTS_T0 + i * window
+        f = _lc_frame(rng, rows, lo, lo + window)
+        frames.append(f)
+        cluster.upload_segment_dir(
+            table, _lc_build(schema, cfg, f"{LC_TABLE}_{i}", f, built))
+    if not cluster.wait_for_ev_converged(table, timeout_s=300):
+        raise AssertionError("20a: the ExternalView did not converge")
+    frame = {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+    alive = np.ones(len(frame["ts"]), dtype=bool)
+    want = _lc_answers(frame, alive)
+    staged_before = _lc_staged(cluster)
+    push_s = time.perf_counter() - t0
+    before = [_lc_check(cluster, want, "20a before") for _ in range(3)]
+    seg_before = len(cluster.store.segment_names(table))
+
+    stop = threading.Event()
+    bad, lat_during = [], []
+
+    def client(k):
+        qid = list(LC_QUERIES)[k % len(LC_QUERIES)]
+        while not stop.is_set():
+            try:
+                got, ms, _ = _lc_query(cluster, qid)
+            except AssertionError as e:
+                bad.append(str(e))
+                continue
+            lat_during.append(ms)
+            if got != want[qid]:
+                bad.append(f"{qid}: {got[:2]}")
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(LC_CLIENTS)]
+    for t in threads:
+        t.start()
+    t1 = time.perf_counter()
+    try:
+        tasks, spent = _lc_run_tasks(cluster, minion,
+                                     now_ms=EVENTS_T0 + 60 * DAY_MS)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    merge_s = time.perf_counter() - t1
+    if bad:
+        raise AssertionError(f"20a: {len(bad)} answers differ from the "
+                             f"oracle across the swaps: {bad[:3]}")
+    if not cluster.wait_for_ev_converged(table, timeout_s=300):
+        raise AssertionError("20a: the ExternalView did not converge")
+    names = cluster.store.segment_names(table)
+    merged = [n for n in names if n.startswith("merged_")]
+    lineage = cluster.store.get(f"lineage/{table}") or []
+    if not tasks or not merged or any(e["state"] != "COMPLETED"
+                                      for e in lineage):
+        raise AssertionError(f"20a: {tasks} tasks, segments {names}, "
+                             f"lineage {[e['state'] for e in lineage]}")
+    add_launches()
+    after = [_lc_check(cluster, want, "20a after") for _ in range(3)]
+    merged_launches = counters["fused_scan"].launches
+    if on_card and merged_launches == 0:
+        raise AssertionError("20a: no fused-scan launch on the merged "
+                             "segments")
+    p50 = {q: float(np.percentile([r[q] for r in before], 50))
+           for q in LC_QUERIES}
+    p50_after = {q: float(np.percentile([r[q] for r in after], 50))
+                 for q in LC_QUERIES}
+    rep = {"rows": int(len(alive)), "push_s": push_s, "tasks": tasks,
+           "s_per_task": float(np.mean(spent)), "merge_s": merge_s,
+           "segments_before": seg_before, "segments_after": len(names),
+           "merged_segments": len(merged), "lineage_entries": len(lineage),
+           "answers_during": len(lat_during), "bad_answers": len(bad),
+           "p50_before_ms": p50, "p50_after_ms": p50_after,
+           "p50_during_ms": float(np.percentile(lat_during, 50))
+           if lat_during else None,
+           "fused_launches_merged": merged_launches,
+           "staged_before": staged_before,
+           "staged_after": _lc_staged(cluster), "alive": alive,
+           "frame": frame}
+    log(f"  20a: {len(alive)} rows in {seg_before} segments pushed in "
+        f"{push_s:.1f} s; MergeRollup (7d, CONCAT): {tasks} tasks, "
+        f"{rep['s_per_task']:.2f} s a task, {seg_before} -> {len(names)} "
+        f"segments ({len(merged)} merged), {len(lineage)} lineage entries "
+        f"COMPLETED; {len(lat_during)} answers from {LC_CLIENTS} clients "
+        f"across the swaps == the oracle; p50 before {p50}, after "
+        f"{p50_after} ms; fused launches on the merged segments "
+        f"{merged_launches}; stagedBytes {rep['staged_after']}")
+    return rep
+
+
+def _lc_rollup(cluster, minion, root, segments, rows, seed) -> dict:
+    """20b (see ``phase_lifecycle``)."""
+    from pinot_tpu_torch.controller.tasks import MERGE_ROLLUP_TASK
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 1)
+    name = "lc_rollup"
+    table = _lc_offline(name)
+    schema = _lc_schema(name)
+    cfg = _lc_config(name, {MERGE_ROLLUP_TASK: {
+        "bucketTimePeriod": "7d", "bufferTimePeriod": "0d",
+        "mergeType": "ROLLUP", "aggregationType.revenue": "SUM"}})
+    cluster.create_table(cfg, schema)
+    frames = []
+    for i in range(segments):
+        f = _lc_frame(rng, rows, EVENTS_T0, EVENTS_T0 + 28 * DAY_MS,
+                      sort=False, round_ms=3_600_000)
+        frames.append(f)
+        cluster.upload_segment_dir(table, _lc_build(
+            schema, cfg, f"{name}_{i}", f, os.path.join(root, "built")))
+    if not cluster.wait_for_ev_converged(table, timeout_s=300):
+        raise AssertionError("20b: the ExternalView did not converge")
+    frame = {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+    tasks, spent = _lc_run_tasks(cluster, minion,
+                                 now_ms=EVENTS_T0 + 60 * DAY_MS)
+    if not cluster.wait_for_ev_converged(table, timeout_s=300):
+        raise AssertionError("20b: the ExternalView did not converge")
+    keys = np.unique(np.stack([frame["ts"], frame["country"],
+                               frame["event_type"]]), axis=1).shape[1]
+    day = (frame["ts"] // DAY_MS).astype(np.int64)
+    uk, inv = np.unique(day * len(COUNTRIES) + frame["country"],
+                        return_inverse=True)
+    rev = np.bincount(inv.reshape(-1), weights=frame["revenue"])
+    want = sorted([COUNTRIES[int(x % len(COUNTRIES))],
+                   int(x // len(COUNTRIES)), float(v)]
+                  for x, v in zip(uk, rev))
+    resp = cluster.query(f"SELECT country, toEpochDays(ts), sum(revenue) "
+                         f"FROM {name} GROUP BY country, toEpochDays(ts) "
+                         "LIMIT 100000")
+    _full("20b", resp)
+    got = sorted([r[0], int(r[1]), float(r[2])]
+                 for r in resp.result_table.rows)
+    if got != want:
+        raise AssertionError(f"20b: sum(revenue) by country and day "
+                             f"{got[:3]} != the oracle {want[:3]}")
+    resp = cluster.query(f"SELECT count(*) FROM {name}")
+    _full("20b count", resp)
+    count = int(resp.result_table.rows[0][0])
+    if count != keys or not tasks:
+        raise AssertionError(f"20b: count(*) {count} != {keys} distinct "
+                             f"rolled-up keys ({tasks} tasks)")
+    rep = {"rows_in": int(len(day)), "rows_out": count, "tasks": tasks,
+           "s_per_task": float(np.mean(spent)),
+           "segments_after": len(cluster.store.segment_names(table)),
+           "seconds": time.perf_counter() - t0}
+    cluster.controller.delete_table(table)
+    log(f"  20b: ROLLUP of {len(day)} rows in {segments} overlapping "
+        f"segments: {tasks} task(s), {rep['s_per_task']:.2f} s a task, "
+        f"{count} rows == the distinct (hour, country, event type) keys; "
+        f"sum(revenue) by country and day == the oracle "
+        f"({rep['seconds']:.1f} s)")
+    return rep
+
+
+def _lc_realtime(cluster, minion, rows, flush, seed, counters, on_card,
+                 add_launches) -> dict:
+    """20c (see ``phase_lifecycle``)."""
+    from pinot_tpu_torch.controller.tasks import REALTIME_TO_OFFLINE_TASK
+    from pinot_tpu_torch.ingestion import MemoryStream
+    from pinot_tpu_torch.spi.table import StreamIngestionConfig, TableType
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 2)
+    name = "lc_rt"
+    rt, offline = name + "_REALTIME", _lc_offline(name)
+    topic = f"lc_rt_{seed}"
+    stream = MemoryStream.create(topic, 2)
+    schema = _lc_schema(name)
+    cluster.create_table(_lc_config(name, {}), schema)
+    cluster.create_table(_lc_config(
+        name, {REALTIME_TO_OFFLINE_TASK: {"bucketTimePeriod": "1d",
+                                          "bufferTimePeriod": "0d"}},
+        table_type=TableType.REALTIME,
+        stream=StreamIngestionConfig(stream_type="memory", topic=topic,
+                                     segment_flush_threshold_rows=flush)),
+        schema)
+    try:
+        f = _lc_frame(rng, rows, EVENTS_T0, EVENTS_T0 + LC_RT_DAYS * DAY_MS)
+        msgs = [f'{{"ts": {t}, "country": "{COUNTRIES[c]}", '
+                f'"event_type": "{EVENT_TYPES[e]}", "revenue": {r}}}'
+                for t, c, e, r in zip(f["ts"].tolist(),
+                                      f["country"].tolist(),
+                                      f["event_type"].tolist(),
+                                      f["revenue"].tolist())]
+        for p in range(2):
+            stream.produce_many(msgs[p::2], partition=p)
+        consume_s = _settled(cluster, rt, "20c")
+        sql = (f"SELECT country, count(*), sum(revenue) FROM {name} "
+               "GROUP BY country LIMIT 100")
+        want = _lc_answers(f, np.ones(rows, dtype=bool))["country"]
+
+        def check(what):
+            got, ms, resp = _lc_query(cluster, "country", sql)
+            if got != want:
+                raise AssertionError(f"{what}: {got[:3]} != the oracle")
+            return ms, resp.stats.decisions
+
+        boundary = cluster.broker.routing.time_boundary
+        before_b = boundary.get_boundary(offline)
+        ms_before, _ = check("20c before")
+        sealed = sum(md.status == "ONLINE" for md in
+                     cluster.store.segment_metadata_list(rt))
+        tasks, spent = _lc_run_tasks(
+            cluster, minion,
+            now_ms=EVENTS_T0 + (LC_RT_DAYS + 2) * DAY_MS)
+        if not cluster.wait_for_ev_converged(offline, timeout_s=300):
+            raise AssertionError("20c: the ExternalView did not converge")
+        wm = cluster.controller.task_manager.get_watermark_ms(
+            rt, REALTIME_TO_OFFLINE_TASK)
+        committed_end = max(md.end_time for md in
+                            cluster.store.segment_metadata_list(rt)
+                            if md.status == "ONLINE")
+        after_b = boundary.get_boundary(offline)
+        ms_after, decisions = check("20c after")
+        if not tasks or wm is None or wm <= committed_end \
+                or after_b is None or (before_b is not None
+                                       and after_b <= before_b):
+            raise AssertionError(f"20c: {tasks} tasks, watermark {wm}, "
+                                 f"last committed end {committed_end}, "
+                                 f"boundary {before_b} -> {after_b}")
+        if not any(k.startswith("hybrid:") for k in decisions):
+            raise AssertionError(f"20c: no hybrid decision: {decisions}")
+        add_launches()
+        got, _, resp = _lc_query(
+            cluster, "country", f"SELECT country, count(*), sum(revenue) "
+                                f"FROM {offline} GROUP BY country LIMIT 100")
+        offline_launches = counters["fused_scan"].launches
+        if on_card and (offline_launches == 0
+                        or resp.stats.scan_launches == 0):
+            raise AssertionError("20c: the offline side was not served by "
+                                 "the fused scan")
+        rep = {"rows": rows, "flush": flush, "sealed": sealed,
+               "consume_s": consume_s, "tasks": tasks,
+               "s_per_task": float(np.mean(spent)),
+               "offline_segments": len(cluster.store.segment_names(
+                   offline)),
+               "offline_rows": sum(r[1] for r in got),
+               "watermark": wm, "last_committed_end": committed_end,
+               "boundary_before": before_b, "boundary_after": after_b,
+               "ms_before": ms_before, "ms_after": ms_after,
+               "offline_fused_launches": offline_launches,
+               "seconds": time.perf_counter() - t0}
+        log(f"  20c: hybrid lc_rt, {rows} rows on 2 partitions at "
+            f"replication 2 consumed in {consume_s:.1f} s ({sealed} "
+            f"seals); RealtimeToOffline {tasks} tasks "
+            f"({rep['s_per_task']:.2f} s a task), {rep['offline_rows']} "
+            f"rows in {rep['offline_segments']} offline segments, "
+            f"watermark {wm} past the last committed end {committed_end}, "
+            f"time boundary {before_b} -> {after_b}; hybrid answers == the "
+            f"oracle before and after; the offline side on the fused scan "
+            f"({offline_launches} launches)")
+    finally:
+        for c in cluster.consumers(rt):
+            c.stop()
+        cluster.controller.delete_table(rt)
+        cluster.controller.delete_table(offline)
+        MemoryStream.delete(topic)
+    return rep
+
+
+def _lc_resident(server, name: str):
+    """The segment object a server's residency holds for ``name``."""
+    e = server.executor.residency._entries.get(name)
+    return None if e is None else getattr(e.resident, "segment", None)
+
+
+def _lc_purge_convert(cluster, minion, frame, alive) -> dict:
+    """20d (see ``phase_lifecycle``)."""
+    from pinot_tpu_torch.controller.tasks import (
+        CONVERT_TO_RAW_TASK,
+        PURGE_TASK,
+    )
+    from pinot_tpu_torch.engine.plan import plan_segment
+    from pinot_tpu_torch.minion.tasks import PurgeTaskExecutor
+    from pinot_tpu_torch.query import compile_query
+
+    t0 = time.perf_counter()
+    table = _lc_offline(LC_TABLE)
+    store = cluster.store
+    country = COUNTRIES.index(LC_PURGE_COUNTRY)
+
+    def one_task(task_type, conf):
+        cfg = store.get_table_config(table)
+        cfg.task_config = {task_type: conf}
+        cluster.controller.update_table(cfg)
+        created = cluster.controller.run_task_generation(
+            now_ms=EVENTS_T0 + 60 * DAY_MS)
+        if len(created) != 1:
+            raise AssertionError(f"20d: {task_type} generated {created}")
+        t1 = time.perf_counter()
+        minion.run_one_task()
+        spent = time.perf_counter() - t1
+        done = cluster.controller.task_manager.get(created[0])
+        if done.status != "COMPLETED":
+            raise AssertionError(f"20d: {task_type} {done.error}")
+        if not cluster.wait_for_ev_converged(table, timeout_s=300):
+            raise AssertionError("20d: the ExternalView did not converge")
+        return done, spent
+
+    PurgeTaskExecutor.PURGERS[LC_TABLE] = (
+        lambda cols: cols["country"] == LC_PURGE_COUNTRY)
+    try:
+        done, purge_s = one_task(PURGE_TASK, {})
+    finally:
+        PurgeTaskExecutor.PURGERS.pop(LC_TABLE, None)
+    (victim,) = done.input_segments
+    (purged,) = done.output_segments
+    md = store.get_segment_metadata(table, purged)
+    gone = ((frame["ts"] >= md.start_time) & (frame["ts"] <= md.end_time)
+            & (frame["country"] == country))
+    dropped = int((alive & gone).sum())
+    alive &= ~gone
+    want = _lc_answers(frame, alive)
+    _lc_check(cluster, want, "20d purge")
+
+    done, convert_s = one_task(CONVERT_TO_RAW_TASK,
+                               {"columnsToConvert": "revenue"})
+    (converted,) = done.input_segments
+    if store.get_segment_metadata(table, converted).custom.get(
+            "convertToRawDone") != "revenue":
+        raise AssertionError("20d: convertToRawDone not recorded")
+    lat = _lc_check(cluster, want, "20d convert")
+    _settle_residency(cluster)
+    ctx = compile_query(LC_QUERIES["country"])
+    served = 0
+    for sid, segs in _hosted(cluster, table).items():
+        seg = segs.get(converted)
+        if seg is None:
+            continue
+        served += 1
+        reads = {a[2] for a in plan_segment(ctx, seg).spec[1]}
+        if seg.metadata.column("revenue").has_dictionary \
+                or ("col", "revenue", False) not in reads:
+            raise AssertionError(f"20d: {sid} serves {converted} with "
+                                 f"revenue {reads}")
+        res = _lc_resident(cluster.servers[sid], converted)
+        if res is not None and res is not seg:
+            raise AssertionError(f"20d: {sid} keeps the old resident")
+    if served != LC_REPLICATION:
+        raise AssertionError(f"20d: {served} replicas serve {converted}")
+    cfg = store.get_table_config(table)
+    cfg.task_config = {}
+    cluster.controller.update_table(cfg)
+    rep = {"purged_segment": victim, "purged_rows": dropped,
+           "purge_s": purge_s, "converted_segment": converted,
+           "convert_s": convert_s, "replicas_converted": served,
+           "ms": lat, "seconds": time.perf_counter() - t0}
+    log(f"  20d: Purge of {LC_PURGE_COUNTRY} from {victim} ({dropped} rows, "
+        f"{purge_s:.2f} s) -> {purged}; ConvertToRaw of revenue on "
+        f"{converted} ({convert_s:.2f} s), refreshed on {served} replicas, "
+        f"revenue a raw value column in the plan; answers == the oracle")
+    return rep
+
+
+def _lc_tiers(cluster, frame, alive, device, budget_servers) -> dict:
+    """20e (see ``phase_lifecycle``)."""
+    t0 = time.perf_counter()
+    table = _lc_offline(LC_TABLE)
+    store = cluster.store
+    ctl = cluster.controller
+    rep: dict = {}
+    # retention: a day past the oldest segment's end
+    oldest = min(store.segment_metadata_list(table),
+                 key=lambda m: m.end_time)
+    cfg = store.get_table_config(table)
+    cfg.validation_config.retention_time_unit = "DAYS"
+    cfg.validation_config.retention_time_value = 1
+    ctl.update_table(cfg)
+    deleted = ctl.run_retention_manager(now_ms=oldest.end_time + DAY_MS + 1)
+    if deleted != [oldest.segment_name]:
+        raise AssertionError(f"20e: retention deleted {deleted}, not "
+                             f"{oldest.segment_name}")
+    alive &= ~((frame["ts"] >= oldest.start_time)
+               & (frame["ts"] <= oldest.end_time))
+    want = _lc_answers(frame, alive)
+    if not cluster.wait_for_ev_converged(table, timeout_s=300):
+        raise AssertionError("20e: the ExternalView did not converge")
+    _lc_check(cluster, want, "20e retention")
+    rep["retention"] = {"deleted": deleted, "staged": _lc_staged(cluster)}
+    log(f"  20e: retention expired {deleted}; answers == the oracle over "
+        f"the rest; stagedBytes {rep['retention']['staged']}")
+
+    # relocation: a fifth server tagged cold takes the aged segments
+    _budget_server(cluster, "server_cold", device, budget_servers)
+    ctl.update_instance_tags("server_cold", ["cold"])
+    cfg = store.get_table_config(table)
+    cfg.tier_configs = [{"name": "cold", "segmentAge": "1d",
+                         "serverTag": "cold", "segmentSelectorType": "time"}]
+    ctl.update_table(cfg)
+    pushes = sorted(md.push_time_ms for md in store.segment_metadata_list(
+        table))
+    moved = ctl.run_segment_relocation(now_ms=pushes[-1] + DAY_MS - 1)
+    if not moved or len(moved) >= len(pushes):
+        raise AssertionError(f"20e: relocation moved {moved}")
+    if not cluster.wait_for_ev_converged(table, timeout_s=300):
+        raise AssertionError("20e: the ExternalView did not converge")
+    ideal = store.get_ideal_state(table)
+    if any(list(ideal[s]) != ["server_cold"] for s in moved):
+        raise AssertionError("20e: a moved segment is off the cold tier")
+    _lc_check(cluster, want, "20e relocation")
+    staged = _lc_staged(cluster)
+    if not staged["server_cold"]:
+        raise AssertionError("20e: the cold server staged nothing")
+    rep["relocation"] = {"moved": len(moved), "staged": staged}
+    log(f"  20e: relocation moved {len(moved)} aged segments to "
+        f"server_cold; answers == the oracle; stagedBytes {staged}")
+
+    # rebalance after a sixth server joins
+    cfg = store.get_table_config(table)
+    cfg.tier_configs = []
+    ctl.update_table(cfg)
+    _budget_server(cluster, "server_5", device, budget_servers)
+    t1 = time.perf_counter()
+    steps = ctl.rebalance_table(table, convergence_timeout_s=120,
+                                best_effort=False)
+    rebalance_s = time.perf_counter() - t1
+    if not cluster.wait_for_ev_converged(table, timeout_s=300):
+        raise AssertionError("20e: the ExternalView did not converge")
+    _lc_check(cluster, want, "20e rebalance")
+    staged = _lc_staged(cluster)
+    hosted = {sid: len(v) for sid, v in _hosted(cluster, table).items()}
+    if not hosted.get("server_5"):
+        raise AssertionError(f"20e: the new server hosts nothing: {hosted}")
+    rep["rebalance"] = {"steps": len(steps), "s": rebalance_s,
+                        "hosted": hosted, "staged": staged}
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"  20e: rebalance over 6 servers in {len(steps)} steps "
+        f"({rebalance_s:.1f} s, make-before-break): hosted {hosted}; "
+        f"answers == the oracle; stagedBytes {staged}")
+    return rep
+
+
+def _lc_geo(reps, device, rows, places, seed, counters) -> dict:
+    """20f (see ``phase_lifecycle``)."""
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.segment.creator import SegmentBuilder
+    from pinot_tpu_torch.spi import DataType, FieldSpec, FieldType, Schema
+    from pinot_tpu_torch.spi.table import FieldConfig, TableConfig
+    from pinot_tpu_torch.utils import geo
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 3)
+    # one city's extent (San Francisco), ``places`` distinct points
+    lng = np.round(-122.52 + rng.random(places) * 0.16, 6)
+    lat = np.round(37.70 + rng.random(places) * 0.13, 6)
+    idx = rng.integers(0, places, rows)
+    wkt = np.array([f"SRID=4326;POINT ({x:.6f} {y:.6f})"
+                    for x, y in zip(lng, lat)])[idx]
+    schema = Schema("places", [FieldSpec("loc", DataType.STRING),
+                               FieldSpec("v", DataType.LONG,
+                                         FieldType.METRIC)])
+    cfg = TableConfig("places", field_config_list=[FieldConfig(
+        "loc", index_type="H3", properties={"resolutions": "9"})])
+    frame = {"loc": wkt, "v": np.arange(rows, dtype=np.int64)}
+    t1 = time.perf_counter()
+    indexed = SegmentBuilder(schema, "places_h3", table_config=cfg).build(
+        frame)
+    build_s = time.perf_counter() - t1
+    plain = SegmentBuilder(schema, "places_plain").build(frame)
+    if indexed.data_source("loc").geo_index is None:
+        raise AssertionError("20f: no geo index built")
+    ex = ServerQueryExecutor(device=device)
+    center = (-122.4194, 37.7749)
+    dist = geo.haversine_m(lng[idx], lat[idx], *center)
+    lat_ms = {"index": [], "scan": []}
+    _reset(counters)
+    for r in LC_GEO_RADII:
+        sql = (f"SELECT count(*) FROM places WHERE ST_DISTANCE(loc, "
+               f"'SRID=4326;POINT ({center[0]} {center[1]})') < {r}")
+        want = int((dist < r).sum())
+        for kind, seg in (("index", indexed), ("scan", plain)):
+            for _ in range(max(1, min(reps, 3)) if kind == "index" else 1):
+                t1 = time.perf_counter()
+                table, stats = ex.execute(compile_query(sql), [seg])
+                lat_ms[kind].append((time.perf_counter() - t1) * 1e3)
+                if table.rows[0][0] != want:
+                    raise AssertionError(f"20f {kind} r={r}: "
+                                         f"{table.rows[0][0]} != {want}")
+                if stats.scan_launches or not any(
+                        k.startswith("plan:device_kernel->host_engine:")
+                        for k in stats.decisions):
+                    raise AssertionError(f"20f {kind} r={r}: "
+                                         f"{stats.decisions}")
+    if any(c.launches for c in counters.values()):
+        raise AssertionError("20f: a fused launch served a geo query")
+    rep = {"rows": rows, "places": places, "queries": len(LC_GEO_RADII),
+           "index_build_s": build_s,
+           "p50_index_ms": float(np.percentile(lat_ms["index"], 50)),
+           "p50_scan_ms": float(np.percentile(lat_ms["scan"], 50)),
+           "seconds": time.perf_counter() - t0}
+    log(f"  20f: {rows} WKT points ({places} places, H3 resolution 9, "
+        f"index built in {build_s:.2f} s): 5 ST_DISTANCE counts, r "
+        f"{LC_GEO_RADII[0]:.0f}-{LC_GEO_RADII[-1]:.0f} m, == the haversine "
+        f"oracle with and without the index, host engine, 0 fused "
+        f"launches; p50 {rep['p50_index_ms']:.2f} ms with the index, "
+        f"{rep['p50_scan_ms']:.1f} ms without")
+    return rep
+
+
 def _phase_14(args) -> dict:
     log("phase 14: a realtime user-events table (a consuming segment on "
         f"the card, upsert, the seal) at {REALTIME_ROWS} rows")
@@ -6197,6 +6999,14 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     disk_run = phase_disk(main_run, args.reps)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 20 (after 19, before 14): the segment lifecycle on "
+        f"{LC_SERVERS} servers at replication {LC_REPLICATION} with a "
+        "minion (merge-rollup under 4 clients, rollup, realtime-to-offline, "
+        "purge, convert-to-raw, retention, tiers, rebalance) and the geo "
+        "index")
+    lifecycle_run = phase_lifecycle(args.reps)
+    gc.collect()
+    torch.cuda.empty_cache()
     realtime_run = _phase_14(args)
     timing += realtime_run.pop("timing")
     for k, v in realtime_run["errs"].items():
@@ -6211,7 +7021,8 @@ def _phases_2_to_11(args, smi: str) -> tuple:
                 sql_run["launches"]["batch"], time_run["launches"],
                 text_run["launches"], realtime_run["launches"],
                 front_run["launches"], rt_cluster_run["launches"],
-                trace_run["launches"], disk_run["launches"]):
+                trace_run["launches"], disk_run["launches"],
+                lifecycle_run["launches"]):
         for k in launches:
             launches[k] += got.get(k, 0)
     idle = [k for k, n in launches.items() if n == 0]
@@ -6270,7 +7081,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "coalesce": coalesce_run, "realtime": realtime_run,
               "scatter": scatter_run, "front_door": front_run,
               "realtime_cluster": rt_cluster_run, "trace": trace_run,
-              "disk": disk_run}
+              "disk": disk_run, "lifecycle": lifecycle_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]

@@ -15,8 +15,13 @@ Every routing outcome is a path decision (``engine/results.py``
 ``routing:all_servers->pruned:partition_prune`` / ``:time_prune``; a
 configured pruner that could not prune records why
 (``ROUTING_DECISION_REASONS``). Segments that lineage hides (a replaced
-input, an output still in flight) are left out; the port's controller
-writes no lineage yet, so ``_lineage_hidden`` finds nothing.
+input, an output still in flight; ``controller/lineage.py``) are left out.
+The snapshot reads the ExternalView and the lineage at one store version
+(``ClusterStateStore.get_many``; the JAX routing reads the two apart), so
+a query planned while ``end_replace`` runs sees the inputs of the
+replacement or its outputs, never both and never neither: the minion
+pushes the outputs, and the servers report them ONLINE, before the
+entry turns COMPLETED.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from pinot_tpu_torch.common.tracing import record_decision
+from pinot_tpu_torch.controller.lineage import hidden_by_lineage, lineage_path
 from pinot_tpu_torch.controller.state import (
     CONSUMING,
     ONLINE,
@@ -233,6 +239,7 @@ class RoutingTable:
     partition_pruning: bool                   # pruner configured on table
     has_partition_metadata: bool              # any segment carries it
     selector: object
+    hidden: frozenset = frozenset()           # hidden by lineage
 
 
 @dataclass
@@ -268,16 +275,9 @@ class RoutingManager:
         self._tables: Dict[str, RoutingTable] = {}
         # (store version, dead-instance frozenset) (guarded-by: _lock)
         self._dead: Optional[Tuple[int, frozenset]] = None
-        # table -> (store version at compute time, hidden segment set); the
-        # version stamp closes the TOCTOU where a watch-driven clear lands
-        # between computing the set and caching it (the stale insert would
-        # otherwise persist until the next lineage mutation)
-        self._lineage_cache: Dict[str, Tuple[int, frozenset]] = {}
-        store.watch("lineage/",
-                    lambda path, value: self._lineage_cache.clear())
         # routing follows every input that fed the snapshot: segment ZK
-        # metadata, ExternalView, table config, instance partitions
-        for prefix in ("segments/", "externalview/", "tables/",
+        # metadata, ExternalView, lineage, table config, instance partitions
+        for prefix in ("segments/", "externalview/", "lineage/", "tables/",
                        "instancepartitions/"):
             store.watch(prefix, self._on_table_change)
         store.watch("instances/", self._on_instance_change)
@@ -319,7 +319,9 @@ class RoutingManager:
 
     def _build_entry(self, table: str) -> RoutingTable:
         ver = self.store.version
-        ev = self.store.get_external_view(table)
+        ev, lineage = self.store.get_many(f"externalview/{table}",
+                                          lineage_path(table))
+        ev = ev or {}
         cfg = self.store.get_table_config(table)
         time_column = (cfg.validation_config.time_column_name
                        if cfg else None)
@@ -359,7 +361,8 @@ class RoutingManager:
             table=table, version=ver, segments=segments,
             time_column=time_column, partition_pruning=partition_pruning,
             has_partition_metadata=any_partition_md,
-            selector=self._build_selector(cfg, table))
+            selector=self._build_selector(cfg, table),
+            hidden=frozenset(hidden_by_lineage(lineage or [])))
 
     def _build_selector(self, cfg, table: str):
         """The table's instance selector from its routing config; part of
@@ -407,9 +410,8 @@ class RoutingManager:
         segments = list(entry.segments.keys())
         # lineage visibility: replaced inputs and in-flight outputs are
         # hidden
-        hidden = self._lineage_hidden(table)
-        if hidden:
-            segments = [s for s in segments if s not in hidden]
+        if entry.hidden:
+            segments = [s for s in segments if s not in entry.hidden]
         total = len(segments)
 
         after_time = self._time_prune(entry, ctx, segments, stats)
@@ -444,23 +446,8 @@ class RoutingManager:
         return res
 
     def _lineage_hidden(self, table: str) -> frozenset:
-        cached = self._lineage_cache.get(table)
-        if cached is not None:
-            return cached[1]
-        ver = self.store.version
-        hidden = set()
-        # a completed replacement hides its inputs, one in progress (or
-        # reverted) its outputs
-        for e in self.store.get(f"lineage/{table}") or []:
-            hidden.update(e["segmentsFrom"] if e.get("state") == "COMPLETED"
-                          else e["segmentsTo"])
-        hidden = frozenset(hidden)
-        self._lineage_cache[table] = (ver, hidden)
-        # a mutation racing this compute may have fired the invalidating
-        # watch before the insert above: drop the stale set
-        if self.store.version != ver:
-            self._lineage_cache.pop(table, None)
-        return hidden
+        """The segments lineage hides in the table's current snapshot."""
+        return self._routing_entry(table).hidden
 
     def _partition_prune(self, entry: RoutingTable,
                          ctx: Optional[QueryContext],
@@ -540,3 +527,5 @@ class RoutingManager:
         else:
             declined("time_all_match")
         return out
+
+

@@ -1,6 +1,8 @@
 """The controller tier: the cluster state store (the Helix / ZooKeeper
-role), segment assignment, the cluster-mutation API, and for realtime
-tables the LLC segment manager and the segment-completion FSM."""
+role), segment assignment and rebalance, the cluster-mutation API with
+its periodic tasks, segment lineage, tiers, the minion task manager, and
+for realtime tables the LLC segment manager and the segment-completion
+FSM."""
 
 from pinot_tpu_torch.controller.state import (
     CONSUMING,
@@ -17,6 +19,8 @@ from pinot_tpu_torch.controller.assignment import (
     ReplicaGroupSegmentAssignment,
     SegmentAssignment,
     compute_instance_partitions,
+    compute_target_assignment,
+    rebalance_steps,
 )
 from pinot_tpu_torch.controller.completion import (
     FsmState,
@@ -34,7 +38,8 @@ __all__ = [
     "ClusterStateStore", "InstanceInfo", "SegmentZKMetadata",
     "BalancedSegmentAssignment", "PartitionedReplicaGroupAssignment",
     "ReplicaGroupSegmentAssignment", "SegmentAssignment",
-    "compute_instance_partitions", "FsmState", "SegmentCompletionManager",
+    "compute_instance_partitions", "compute_target_assignment",
+    "rebalance_steps", "FsmState", "SegmentCompletionManager",
     "Controller", "LLCRealtimeSegmentManager", "llc_segment_name",
     "parse_llc_name",
 ]

@@ -3,16 +3,20 @@
 Counterpart of ``pinot_tpu/controller/assignment.py`` (the balanced
 assignment with failure domains, the replica-group assignment,
 ``compute_instance_partitions``, the partitioned assignment of a
-realtime table's LLC segments, ``assignment_for_table``): for the same
-servers and segments the IdealState equals the JAX package's. The
-rebalance plan waits for the periodic tasks.
+realtime table's LLC segments, ``assignment_for_table``) and the rebalance plan
+(``compute_target_assignment``, ``rebalance_steps``, JAX :149-188): for
+the same servers and segments the IdealState equals the JAX package's.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
-from pinot_tpu_torch.controller.state import ClusterStateStore
+from pinot_tpu_torch.controller.state import (
+    CONSUMING,
+    ONLINE,
+    ClusterStateStore,
+)
 
 
 class SegmentAssignment:
@@ -135,3 +139,46 @@ def assignment_for_table(store: ClusterStateStore, table: str,
     servers = [i.instance_id for i in store.instances("SERVER", only_alive=True)
                if tag is None or tag in i.tags]
     return servers, cfg.replication
+
+
+# -- rebalance (the reference's TableRebalancer) -----------------------------
+
+def compute_target_assignment(
+        current: Dict[str, Dict[str, str]], instances: List[str],
+        replication: int,
+        groups: Optional[List[List[str]]] = None,
+        domains: Optional[Dict[str, str]] = None
+        ) -> Dict[str, Dict[str, str]]:
+    """The target map of every segment, assigned again in name order over
+    ``instances`` (a CONSUMING segment keeps its state): replica groups
+    where ``groups`` is given (the stored instance partitions strict
+    routing reads), else the balanced placement over ``domains``."""
+    strategy: SegmentAssignment = (
+        ReplicaGroupSegmentAssignment(len(groups), groups=groups)
+        if groups else BalancedSegmentAssignment(domains=domains))
+    target: Dict[str, Dict[str, str]] = {}
+    for segment in sorted(current):
+        state = CONSUMING if CONSUMING in current[segment].values() else ONLINE
+        chosen = strategy.assign(segment, target, instances, replication)
+        target[segment] = {inst: state for inst in chosen}
+    return target
+
+
+def rebalance_steps(current: Dict[str, Dict[str, str]],
+                    target: Dict[str, Dict[str, str]]
+                    ) -> List[Dict[str, Dict[str, str]]]:
+    """Make-before-break: step 1 adds every target replica beside the
+    current ones, the caller waits for the ExternalView, then step 2
+    drops the replicas the target has not. No segment serves from fewer
+    replicas than it had at any step."""
+    union: Dict[str, Dict[str, str]] = {}
+    for segment in set(current) | set(target):
+        merged = dict(current.get(segment, {}))
+        merged.update(target.get(segment, {}))
+        union[segment] = merged
+    steps: List[Dict[str, Dict[str, str]]] = []
+    if union != current:
+        steps.append(union)
+    if target != union:
+        steps.append({s: dict(m) for s, m in target.items()})
+    return steps

@@ -13,8 +13,23 @@ committed segment ONLINE and opens the next sequence
 recreates a partition's dead CONSUMING segment. ``update_table`` then
 ``reload_table`` (JAX :131) asks every server hosting the table to add
 the indexes its config gained to the segments on disk (the server's
-reload transition). Minion tasks, lineage, retention, rebalance and the
-periodic loop (``start_periodic_tasks``) are not part of this module. A
+reload transition).
+
+The segment lifecycle (JAX :189-205, :276-452): the lineage protocol
+(``start_replace_segments`` / ``end_replace_segments`` /
+``revert_replace_segments``, ``controller/lineage.py``), which minion
+tasks follow so that no query sees both a merge's inputs and its outputs;
+``rebalance_table``, make-before-break (every target replica added, the
+ExternalView awaited, then the old replicas dropped); and the periodic
+tasks, each taking ``now_ms`` so a test can drive a fake clock:
+``run_retention_manager`` (lineage cleanup, then the segments past the
+table's retention deleted), ``run_segment_status_check``,
+``run_task_generation`` (the minion task generators, ``task_manager``,
+``controller/tasks.py``) and ``run_segment_relocation`` (aged segments to
+their tier's servers, ``controller/tiers.py``). ``start_periodic_tasks``
+runs them with the liveness check and the realtime validation on a
+thread of its own, which ``stop`` joins. A deleted segment leaves its
+servers and their cards; its files stay where they are. A
 segment pushed as a directory is located by its ``file://`` URL; the
 controller also owns its cluster's in-memory deep store
 (``spi/filesystem.py`` ``MemoryDeepStore``) for segments pushed as
@@ -44,13 +59,18 @@ from pinot_tpu_torch.controller.assignment import (
     SegmentAssignment,
     assignment_for_table,
     compute_instance_partitions,
+    compute_target_assignment,
+    rebalance_steps,
 )
 from pinot_tpu_torch.controller.completion import SegmentCompletionManager
 from pinot_tpu_torch.controller.llc import (
     LLCRealtimeSegmentManager,
     parse_llc_name,
 )
+from pinot_tpu_torch.controller.lineage import SegmentLineageManager
 from pinot_tpu_torch.controller.state import (
+    CONSUMING,
+    OFFLINE,
     ONLINE,
     ClusterStateStore,
     InstanceInfo,
@@ -61,6 +81,8 @@ from pinot_tpu_torch.ingestion.stream import StreamOffset
 from pinot_tpu_torch.segment.metadata import SegmentMetadata
 from pinot_tpu_torch.spi.filesystem import MemoryDeepStore
 from pinot_tpu_torch.spi.data import Schema
+from pinot_tpu_torch.controller.tasks import PinotTaskManager
+from pinot_tpu_torch.controller.tiers import SegmentRelocator
 from pinot_tpu_torch.spi.table import (
     TableConfig,
     TableType,
@@ -68,6 +90,11 @@ from pinot_tpu_torch.spi.table import (
 )
 
 log = logging.getLogger(__name__)
+
+_RETENTION_UNIT_MS = {
+    "MILLISECONDS": 1, "SECONDS": 1000, "MINUTES": 60_000,
+    "HOURS": 3_600_000, "DAYS": 86_400_000,
+}
 
 
 class Controller:
@@ -79,6 +106,8 @@ class Controller:
         self.store = store or ClusterStateStore()
         self.deep_store = MemoryDeepStore()
         self.controller_id = controller_id
+        self.task_manager = PinotTaskManager(self.store)
+        self.lineage = SegmentLineageManager(self.store)
         self.llc = LLCRealtimeSegmentManager(self.store, seed=llc_seed)
         self.completion = SegmentCompletionManager(
             num_replicas_provider=self._num_replicas_for_segment,
@@ -88,6 +117,8 @@ class Controller:
         # validation from several threads
         self._lock = threading.Lock()
         self._segment_tables: Dict[str, str] = {}  # guarded-by: _lock
+        self._periodic_stop = threading.Event()
+        self._periodic_thread: Optional[threading.Thread] = None
         self.store.register_instance(
             InstanceInfo(controller_id, "CONTROLLER"))
 
@@ -207,6 +238,17 @@ class Controller:
 
         self.store.update_ideal_state(table_with_type, apply)
 
+    # -- segment lineage ------------------------------------------------------
+    def start_replace_segments(self, table: str, segments_from: List[str],
+                               segments_to: List[str]) -> str:
+        return self.lineage.start_replace(table, segments_from, segments_to)
+
+    def end_replace_segments(self, table: str, entry_id: str) -> None:
+        self.lineage.end_replace(table, entry_id)
+
+    def revert_replace_segments(self, table: str, entry_id: str) -> None:
+        self.lineage.revert_replace(table, entry_id)
+
     def delete_segment(self, table: str, segment: str) -> None:
         self.store.delete_segment(table, segment)
 
@@ -268,6 +310,148 @@ class Controller:
                         self._segment_tables[seg] = table
                 created.extend(fresh)
         return created
+
+    # -- rebalance ------------------------------------------------------------
+    def rebalance_table(self, table: str, dry_run: bool = False,
+                        convergence_timeout_s: float = 30.0,
+                        best_effort: bool = True) -> List[Dict]:
+        """Move the table's segments to the assignment its live servers
+        now give, make-before-break: after each step but the last, wait
+        for the ExternalView to converge before the old replicas are
+        dropped. With ``best_effort`` a convergence timeout goes on (a
+        warning); without it the rebalance raises and leaves the added
+        replicas in place. -> the steps (the only output of a
+        ``dry_run``)."""
+        servers, replication = assignment_for_table(self.store, table)
+        current = self.store.get_ideal_state(table)
+        # a replica-group table recomputes and stores its instance
+        # partitions, so the target and the broker's selectors agree
+        groups = None
+        if self.store.get_instance_partitions(table) is not None and servers:
+            groups = compute_instance_partitions(servers, replication)
+            if not dry_run:
+                self.store.set_instance_partitions(table, groups)
+        target = compute_target_assignment(
+            current, servers, replication, groups=groups,
+            domains={i.instance_id: i.failure_domain
+                     for i in self.store.instances("SERVER")
+                     if i.failure_domain})
+        steps = rebalance_steps(current, target)
+        if dry_run:
+            return steps
+        for i, step in enumerate(steps):
+            self.store.set_ideal_state(table, step)
+            if i == len(steps) - 1:
+                break
+            if not self._wait_external_view(table, step,
+                                            convergence_timeout_s):
+                if not best_effort:
+                    raise RuntimeError(
+                        f"rebalance of {table} stalled: ExternalView did not "
+                        f"converge within {convergence_timeout_s}s")
+                log.warning("rebalance %s: ExternalView convergence timeout, "
+                            "going on best-effort", table)
+        return steps
+
+    def _wait_external_view(self, table: str, ideal: Dict,
+                            timeout_s: float, poll_s: float = 0.05) -> bool:
+        deadline = time.monotonic() + timeout_s
+        while True:
+            ev = self.store.get_external_view(table)
+            if all(ev.get(seg, {}).get(inst) == st
+                   for seg, m in ideal.items()
+                   for inst, st in m.items() if st != OFFLINE):
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(poll_s)
+
+    # -- periodic tasks -------------------------------------------------------
+    def run_retention_manager(self, now_ms: Optional[int] = None
+                              ) -> List[str]:
+        """Lineage cleanup of every table, then delete the segments whose
+        end time is past the table's retention. -> the deleted segments."""
+        now_ms = now_ms or int(time.time() * 1000)
+        deleted = []
+        for table in self.store.table_names():
+            self.lineage.cleanup(table, now_ms=now_ms)
+            cfg = self.store.get_table_config(table)
+            vc = cfg.validation_config
+            if not vc.retention_time_unit or not vc.retention_time_value:
+                continue
+            unit_ms = _RETENTION_UNIT_MS.get(vc.retention_time_unit.upper())
+            if unit_ms is None:
+                continue
+            cutoff = now_ms - vc.retention_time_value * unit_ms
+            time_unit_ms = _RETENTION_UNIT_MS.get(vc.time_type.upper(), 1)
+            for md in self.store.segment_metadata_list(table):
+                if md.status == CONSUMING or md.end_time is None:
+                    continue
+                if md.end_time * time_unit_ms < cutoff:
+                    self.delete_segment(table, md.segment_name)
+                    deleted.append(md.segment_name)
+        return deleted
+
+    def run_segment_status_check(self) -> Dict[str, Dict[str, int]]:
+        """Per table: segments, replicas the IdealState expects, and those
+        the ExternalView does not show (the reference's
+        SegmentStatusChecker)."""
+        report = {}
+        for table in self.store.table_names():
+            ideal = self.store.get_ideal_state(table)
+            ev = self.store.get_external_view(table)
+            missing = sum(1 for seg, m in ideal.items()
+                          for inst, st in m.items()
+                          if st != OFFLINE and ev.get(seg, {}).get(inst) != st)
+            report[table] = {
+                "segments": len(ideal),
+                "replicasExpected": sum(len(m) for m in ideal.values()),
+                "replicasMissing": missing,
+            }
+        return report
+
+    def run_task_generation(self, now_ms: Optional[int] = None) -> List[str]:
+        """Minion tasks for every table with a ``task_config``. -> the new
+        task ids."""
+        return self.task_manager.generate_tasks(now_ms=now_ms)
+
+    def run_segment_relocation(self, now_ms: Optional[int] = None
+                               ) -> List[str]:
+        """Aged segments to their tier's servers. -> the moved segments."""
+        relocator = SegmentRelocator(self.store)
+        moved = []
+        for table in self.store.table_names():
+            moved.extend(relocator.relocate_table(table, now_ms=now_ms))
+        return moved
+
+    def start_periodic_tasks(self, interval_s: float = 5.0) -> None:
+        """Run the periodic tasks every ``interval_s`` on a thread of
+        their own until ``stop``."""
+        if self._periodic_thread is not None:
+            return
+
+        def loop():
+            while not self._periodic_stop.wait(interval_s):
+                try:
+                    self.run_liveness_check()
+                    self.run_retention_manager()
+                    self.run_realtime_validation()
+                    self.run_task_generation()
+                    self.run_segment_relocation()
+                except Exception:
+                    log.exception("periodic task failed")
+
+        self._periodic_stop.clear()
+        self._periodic_thread = threading.Thread(
+            target=loop, daemon=True, name="controller-periodic")
+        self._periodic_thread.start()
+
+    def stop(self) -> None:
+        """Stop the periodic loop and join its thread."""
+        self._periodic_stop.set()
+        thread, self._periodic_thread = self._periodic_thread, None
+        if thread is not None:
+            thread.join(timeout=30)
 
     # -- instances ----------------------------------------------------------
     def register_instance(self, info: InstanceInfo) -> None:

@@ -191,6 +191,13 @@ class ClusterStateStore:
             v = self._data.get(path, default)
         return self._copy(v)
 
+    def get_many(self, *paths: str) -> Tuple[Any, ...]:
+        """Several paths read at one version (one snapshot: no mutation
+        lands between the reads)."""
+        with self._lock:
+            vals = tuple(self._data.get(p) for p in paths)
+        return tuple(self._copy(v) for v in vals)
+
     def _apply_locked(self, path: str, value: Any) -> int:
         self._data[path] = value
         self._version += 1

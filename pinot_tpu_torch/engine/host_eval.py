@@ -14,7 +14,11 @@ raw column's range permutation for RANGE, the FST index for REGEXP_LIKE,
 the text index for TEXT_MATCH and the JSON index for JSON_MATCH. Without
 one, a dictionary predicate is a dictId compare and TEXT_MATCH /
 JSON_MATCH / REGEXP_LIKE evaluate per distinct value; both give the same
-mask. The geo index is not ported (no port segment carries one). A
+mask. A geography-point column with a geo index (``segment/geoindex.py``)
+serves ``ST_DISTANCE(col, 'POINT…') < r`` through the cell-disk
+prefilter, the exact haversine on the candidates and a dictId lookup
+(``_try_geo_index``, JAX :333-373); every other shape evaluates the
+expression per doc. A
 consuming segment (``segment/mutable.py``) reads the same way through
 its ``MutableDataSource``; its dictionary is arrival-ordered, so a RANGE
 scans its values.
@@ -322,12 +326,57 @@ def _virtual_column_values(segment: ImmutableSegment, name: str,
 
 def _eval_expr_predicate(segment: ImmutableSegment,
                          pred: Predicate) -> np.ndarray:
+    geo_mask = _try_geo_index(segment, pred)
+    if geo_mask is not None:
+        return geo_mask
     vals = np.asarray(eval_expr_values(segment, pred.lhs))
     dt = (DataType.DOUBLE if np.issubdtype(vals.dtype, np.floating)
           else DataType.LONG)
     if vals.dtype == object:
         dt = DataType.STRING
     return _compare_values(vals, pred, dt)
+
+
+def _try_geo_index(segment: ImmutableSegment,
+                   pred: Predicate) -> Optional[np.ndarray]:
+    """``stdistance(geoCol, 'POINT...') < r`` on a geo-indexed column: the
+    cell-disk prefilter, the exact haversine on the candidates, then the
+    docs holding a matching dictId. None for any other shape, or a planar
+    point (the index's haversine would disagree with euclidean
+    distance)."""
+    lhs = pred.lhs
+    if not (isinstance(lhs, Function)
+            and lhs.name in ("stdistance", "st_distance")
+            and pred.type is PredicateType.RANGE
+            and pred.upper is not None and pred.lower is None
+            and len(lhs.args) == 2):
+        return None
+    col_arg, lit_arg = lhs.args
+    if isinstance(col_arg, Literal) and isinstance(lit_arg, Identifier):
+        col_arg, lit_arg = lit_arg, col_arg
+    if not (isinstance(col_arg, Identifier) and isinstance(lit_arg, Literal)):
+        return None
+    if col_arg.name.startswith("$") \
+            or col_arg.name not in segment.metadata.columns:
+        return None
+    ds = segment.data_source(col_arg.name)
+    reader = getattr(ds, "geo_index", None)
+    if reader is None:
+        return None
+    from pinot_tpu_torch.utils import geo
+
+    try:
+        center = geo.parse_ewkt(lit_arg.value)
+    except ValueError:
+        return None
+    if not center.geography or center.kind != "POINT":
+        return None
+    n = segment.num_docs
+    ids = reader.ids_within(center.x, center.y, float(pred.upper),
+                            inclusive=pred.upper_inclusive)
+    if ids.size == 0:
+        return np.zeros(n, dtype=bool)
+    return np.isin(np.asarray(ds.forward_index[:n]), ids)
 
 
 def _predicate_column(pred: Predicate) -> str:

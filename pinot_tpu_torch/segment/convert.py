@@ -14,7 +14,10 @@ identical data.
 indexes in memory from its dictIds and values, as the JAX creator builds
 them (``pinot_tpu/segment/creator.py``): inverted postings
 (``build_inverted_index``), the range permutation of a raw column, the
-bloom filter, and the FST, text and JSON indexes of a string column.
+bloom filter, and the FST, text and JSON indexes of a string column;
+``geo_columns`` (column -> resolution, a field config of index type H3)
+the geo index of a string column of WKT points (``segment/geoindex.py``,
+JAX creator :496-509).
 ``is_sorted`` is computed for every single-value column. Its star-tree
 configs (or, with none, ``enable_default_star_tree``) build the segment's
 star-trees from the built columns, as the JAX creator's
@@ -35,6 +38,7 @@ import numpy as np
 
 from pinot_tpu_torch.segment.dictionary import Dictionary, build_dictionary
 from pinot_tpu_torch.segment.fstindex import FstIndexBuilder, FstIndexReader
+from pinot_tpu_torch.segment.geoindex import GeoIndexReader, build_geo_index
 from pinot_tpu_torch.segment.immutable import (
     ColumnIndexes,
     DataSource,
@@ -133,11 +137,13 @@ def _is_sorted(live: np.ndarray) -> bool:
 
 def _indexes(col: str, a: ColumnArrays, cfg: IndexingConfig,
              d: Optional[Dictionary], live: np.ndarray,
-             counts: Optional[np.ndarray], num_docs: int
+             counts: Optional[np.ndarray], num_docs: int,
+             geo_resolution: Optional[int] = None
              ) -> Optional[ColumnIndexes]:
     """The indexes ``cfg`` asks of this column, built from its dictIds
     (``live``: [num_docs] dictIds, or the flat entries of a multi-value
-    column, or a raw column's values). None when it asks for none."""
+    column, or a raw column's values), and the geo index at
+    ``geo_resolution``. None when it asks for none."""
     ix = ColumnIndexes()
     if d is None:
         if col in cfg.range_index_columns and num_docs:
@@ -160,11 +166,16 @@ def _indexes(col: str, a: ColumnArrays, cfg: IndexingConfig,
     if single_string and col in cfg.json_index_columns:
         ix.json = JsonIndexReader(*build_json_index(
             d.values[live].tolist(), num_docs), num_docs)
+    if single_string and geo_resolution is not None:
+        files = build_geo_index(d.get_values(range(card)), geo_resolution)
+        if files is not None:
+            ix.geo = GeoIndexReader.from_files(files, d)
     return ix if ix.any() else None
 
 
 def _column(col: str, a: ColumnArrays, num_docs: int, capacity: int,
-            indexing: Optional[IndexingConfig] = None) -> DataSource:
+            indexing: Optional[IndexingConfig] = None,
+            geo_resolution: Optional[int] = None) -> DataSource:
     null = None
     if a.null is not None:
         null = _padded(_rows(col, a.null, num_docs, capacity).astype(bool),
@@ -214,8 +225,9 @@ def _column(col: str, a: ColumnArrays, num_docs: int, capacity: int,
         if given is not None and given != derived:
             raise ValueError(f"column {col!r}: {what} stat {given!r} "
                              f"disagrees with the data ({derived!r})")
-    ix = (_indexes(col, a, indexing, d, entries, counts, num_docs)
-          if indexing is not None else None)
+    ix = (_indexes(col, a, indexing or IndexingConfig(), d, entries, counts,
+                   num_docs, geo_resolution)
+          if indexing is not None or geo_resolution is not None else None)
     cm = ColumnMetadata(
         name=col, data_type=a.data_type, field_type=a.field_type,
         cardinality=card, min_value=lo, max_value=hi,
@@ -233,6 +245,7 @@ def _column(col: str, a: ColumnArrays, num_docs: int, capacity: int,
         cm.has_fst_index = ix.fst is not None
         cm.has_text_index = ix.text is not None
         cm.has_json_index = ix.json is not None
+        cm.has_geo_index = ix.geo is not None
     return DataSource(col, cm, d, fwd, mv_counts,
                       null if cm.has_nulls else None, indexes=ix)
 
@@ -242,19 +255,21 @@ def segment_from_arrays(name: str, num_docs: int,
                         table_name: Optional[str] = None,
                         valid_doc_ids: Optional[np.ndarray] = None,
                         indexing: Optional[IndexingConfig] = None,
-                        star_trees: Optional[Sequence[Dict[str, Any]]] = None
+                        star_trees: Optional[Sequence[Dict[str, Any]]] = None,
+                        geo_columns: Optional[Mapping[str, int]] = None
                         ) -> ImmutableSegment:
     """``valid_doc_ids`` ([num_docs] bool) makes the segment
     upsert-managed: only its true docs are live. ``indexing`` names the
     columns' indexes and the star-trees to build; ``star_trees`` (as
     ``star_trees_of`` gives them) are attached instead of the configured
-    trees."""
+    trees. ``geo_columns`` maps a column to its geo index's resolution."""
     capacity = pad_capacity(num_docs)
     table = table_name or name
     schema = Schema(table, [FieldSpec(c, a.data_type, a.field_type,
                                       single_value=a.mv_counts is None)
                             for c, a in columns.items()])
-    sources = {col: _column(col, a, num_docs, capacity, indexing)
+    sources = {col: _column(col, a, num_docs, capacity, indexing,
+                            (geo_columns or {}).get(col))
                for col, a in columns.items()}
     md = SegmentMetadata(segment_name=name, table_name=table, schema=schema,
                          num_docs=num_docs, padded_capacity=capacity,

@@ -43,6 +43,7 @@ import numpy as np
 from pinot_tpu_torch import native
 from pinot_tpu_torch.segment.convert import ColumnArrays, segment_from_arrays
 from pinot_tpu_torch.segment.dictionary import encode_strings
+from pinot_tpu_torch.segment.geoindex import DEFAULT_RESOLUTION
 from pinot_tpu_torch.segment.immutable import (
     COLUMNS_DIR,
     DataSource,
@@ -161,6 +162,8 @@ def column_files(ds: DataSource, num_docs: int, capacity: int,
         fst = ds.fst_index
         files.update(zip(FST_FILES, (fst.edge_offsets, fst.edge_labels,
                                      fst.edge_targets, fst.node_ranges)))
+    if getattr(ds, "geo_index", None) is not None:
+        files.update(ds.geo_index.files())
     return files, extra
 
 
@@ -278,7 +281,9 @@ class SegmentBuilder:
     """``table_config`` supplies the indexing config and the field
     configs: a RAW field config makes a single-value numeric column raw,
     and its ``compression_codec`` chunk-compresses that column's forward
-    index on disk."""
+    index on disk; an H3 field config on a single-value string column
+    builds its geo index at the first of its ``resolutions`` (default
+    ``DEFAULT_RESOLUTION``, 9)."""
 
     def __init__(self, schema: Schema, segment_name: str,
                  table_name: Optional[str] = None,
@@ -288,6 +293,7 @@ class SegmentBuilder:
         self.schema = schema
         self.segment_name = segment_name
         self.codecs: Dict[str, str] = {}
+        self.geo_columns: Dict[str, int] = {}
         raw = set(no_dictionary_columns)
         if table_config is not None:
             table_name = table_name or table_config.table_name
@@ -297,6 +303,9 @@ class SegmentBuilder:
                     raw.add(fc.name)
                     if fc.compression_codec:
                         self.codecs[fc.name] = fc.compression_codec
+                if (fc.index_type or "").upper() == "H3":
+                    self.geo_columns[fc.name] = int(str(fc.properties.get(
+                        "resolutions", DEFAULT_RESOLUTION)).split(",")[0])
         self.table_name = table_name or schema.schema_name
         self.indexing = indexing
         self.no_dictionary_columns = raw | set(
@@ -319,7 +328,8 @@ class SegmentBuilder:
                    for fs in self.schema.field_specs}
         seg = segment_from_arrays(self.segment_name, num_docs, columns,
                                   table_name=self.table_name,
-                                  indexing=self.indexing)
+                                  indexing=self.indexing,
+                                  geo_columns=self.geo_columns)
         seg.metadata.schema = self.schema
         if out_dir is None:
             return seg

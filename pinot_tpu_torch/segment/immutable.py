@@ -21,8 +21,9 @@ A column built with indexes (``convert.py``, ``spi/table.py``) reads them
 here with the semantics of ``pinot_tpu/segment/immutable.py`` (:80-213):
 ``inverted_index`` and ``doc_ids_for_dict_id`` (the postings),
 ``range_order`` and ``range_sorted_values`` (a raw column's sorted-order
-permutation), ``bloom_filter``, ``fst_index``, ``text_index`` and
-``json_index``; each is None where the column has no such index.
+permutation), ``bloom_filter``, ``fst_index``, ``text_index``,
+``json_index`` and ``geo_index`` (``segment/geoindex.py``); each is None
+where the column has no such index.
 
 ``load_segment(dir)`` reads a segment directory in the JAX package's
 layout (``segment/creator.py`` writes it; JAX :38-213, :320-336) into the
@@ -87,11 +88,12 @@ class ColumnIndexes:
     fst: Any = None       # segment.fstindex.FstIndexReader
     text: Any = None      # segment.textindex.TextIndexReader
     json: Any = None      # segment.jsonindex.JsonIndexReader
+    geo: Any = None       # segment.geoindex.GeoIndexReader
 
     def any(self) -> bool:
         return any(v is not None for v in (self.inverted, self.range_order,
                                            self.bloom, self.fst, self.text,
-                                           self.json))
+                                           self.json, self.geo))
 
 
 class DataSource:
@@ -116,6 +118,7 @@ class DataSource:
         self.fst_index = ix.fst
         self.text_index = ix.text
         self.json_index = ix.json
+        self.geo_index = ix.geo
 
     def doc_ids_for_dict_id(self, dict_id: int) -> np.ndarray:
         """Ascending int32 docIds holding ``dict_id`` (its postings)."""
@@ -269,6 +272,12 @@ class _ColumnFiles:
             from pinot_tpu_torch.segment.fstindex import FST_FILES
 
             npy += list(FST_FILES)
+        if cm.has_geo_index:
+            npy += ["geocells", "geometa"]
+            # an index written before the coordinate arrays existed reads
+            # its candidates' points from the dictionary (JAX :150-153)
+            if os.path.exists(os.path.join(col_dir, f"{name}.geolng.npy")):
+                npy += ["geolng", "geolat"]
         self.npy = {s: load_npy(os.path.join(col_dir, f"{name}.{s}.npy"))
                     for s in npy}
         self.bin = {s: MmapBuffer(os.path.join(col_dir, f"{name}.{s}.bin"))
@@ -403,6 +412,14 @@ class _DiskDataSource(DataSource):
         return text_index_from_files(
             {**f.npy, "txtinv": f.bytes_of("txtinv")},
             self.metadata.cardinality, value_of=d.get_value)
+
+    @cached_property
+    def geo_index(self):
+        if not self.metadata.has_geo_index:
+            return None
+        from pinot_tpu_torch.segment.geoindex import GeoIndexReader
+
+        return GeoIndexReader.from_files(self._files.npy, self.dictionary)
 
     @cached_property
     def json_index(self):

@@ -113,7 +113,7 @@ class ColumnMetadata:
     stored_dtype: Optional[str] = None
     total_number_of_entries: int = 0   # multi-value: the flat dictIds
     compression_codec: Optional[str] = None  # a raw column's chunk codec
-    has_geo_index: bool = False     # read from a JAX directory, not served
+    has_geo_index: bool = False
 
     def to_dict(self) -> Dict[str, Any]:
         d = {

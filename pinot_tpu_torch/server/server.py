@@ -15,7 +15,12 @@ server's completion protocol (the controller's completion FSM in a
 cluster); the consumer's end seals the segment (COMMITTED: its own seal;
 KEEP: it seals its own rows; DISCARD: it fetches the committer's seal)
 and swaps it in under running queries, then picks up the next sequence;
-unassigned drops the segment (and stops its consumer). An upsert table
+unassigned drops the segment (and stops its consumer). A segment of an
+OFFLINE table pushed again under its name with another CRC (a refresh,
+such as the minion's convert-to-raw) is fetched again and swapped in
+under running queries; the residency manager, the plan cache and the
+batches key a segment by its object, so nothing of the old one serves
+after the swap (the JAX server keeps the copy it hosts). An upsert table
 gets one upsert manager a server, comparing on the config's comparison
 column, else the table's time column. Hosting a segment prefetches it to
 the card in the background (``segment_added``), and a seal evicts the
@@ -150,6 +155,10 @@ class ServerInstance:
         self._queries_enabled = False
         self._reconcile_lock = threading.RLock()
         self._upsert_managers: Dict[str, Any] = {}  # guarded-by: _reconcile_lock
+        # (table, segment) -> the pushed CRC an OFFLINE segment was fetched
+        # at: a push under the name with another CRC is a refresh (a
+        # reload changes the served CRC, not the pushed one)
+        self._pushed_crc: Dict[tuple, int] = {}  # guarded-by: _reconcile_lock
         self._hb_stop: Optional[threading.Event] = None
         self._hb_thread: Optional[threading.Thread] = None
 
@@ -274,6 +283,8 @@ class ServerInstance:
         if self.store.get_table_config(table) is None:
             # deleted: its manager, consumers and upsert keys go with it
             self.data_manager.remove(table)
+            for key in [k for k in self._pushed_crc if k[0] == table]:
+                del self._pushed_crc[key]
             self._upsert_managers.pop(table, None)
             return
         ideal = self.store.get_ideal_state(table)
@@ -289,6 +300,7 @@ class ServerInstance:
         for seg in tdm.segment_names():
             if seg not in my_segments:
                 tdm.remove_segment(seg)
+                self._pushed_crc.pop((table, seg), None)
                 self.store.report_instance_state(table, seg,
                                                  self.instance_id, OFFLINE)
         for seg, target in my_segments.items():
@@ -303,9 +315,11 @@ class ServerInstance:
             # the flip to ONLINE came before this replica's consumer
             # ended: its terminal callback swaps the seal in
             return
-        if tdm.has_segment(seg):
-            return
         md = self.store.get_segment_metadata(table, seg)
+        if tdm.has_segment(seg) and (
+                realtime or md is None
+                or self._pushed_crc.get((table, seg), md.crc) == md.crc):
+            return
         if md is None or not md.download_url:
             log.warning("[%s] no download url for %s/%s",
                         self.instance_id, table, seg)
@@ -319,10 +333,12 @@ class ServerInstance:
         if realtime:
             # an upsert table registers the fetched segment's keys
             tdm.on_sealed(seg, got, partition=md.partition, fetched=True)
-        elif isinstance(got, str):
-            tdm.add_segment_from_dir(got)
         else:
-            tdm.add_segment(got)
+            if isinstance(got, str):
+                tdm.add_segment_from_dir(got)
+            else:
+                tdm.add_segment(got)
+            self._pushed_crc[(table, seg)] = md.crc
         self.store.report_instance_state(table, seg, self.instance_id, ONLINE)
 
     def _fetch(self, download_url: str):

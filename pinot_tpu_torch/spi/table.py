@@ -4,19 +4,21 @@ table.
 
 Counterpart of ``pinot_tpu/spi/table.py``: ``StarTreeIndexConfig`` (:49),
 ``SegmentPartitionConfig`` (:76), ``IndexingConfig`` (:90-142),
-``SegmentsValidationConfig`` (:186, the time column and the replication),
+``SegmentsValidationConfig`` (:186-215, the time column, the replication,
+the retention and the push type),
 ``TenantConfig`` (:221), ``TableType``, ``UpsertMode``, ``UpsertConfig``,
 ``StreamIngestionConfig`` with the reference's flat stream-config map
 reader (:265-318), ``TransformConfig``, ``IngestionConfig``,
 ``QuotaConfig`` (:383), ``RoutingConfig`` (:406, the broker's instance
 selector and segment pruners), ``FieldConfig`` (:150-180, a column's raw
 encoding and the chunk codec of its forward index on disk) and
-``TableConfig`` (:426), cut to the
-knobs the port's in-memory segment builder, the realtime consumer
-(``ingestion/realtime.py``), the record transformers, the controller,
-the broker's routing and its quota honour (no retention or task
-settings, no JSON round trip of the whole table: the cluster state store
-keeps the config object, ``controller/state.py``).
+``TableConfig`` (:426, with the minion's ``task_config`` and the
+``tier_configs`` at :441-445), cut to the knobs the port's segment
+builder, the realtime consumer (``ingestion/realtime.py``), the record
+transformers, the controller with its periodic tasks and minion task
+generators, the broker's routing and its quota honour (no JSON round trip
+of the whole table: the cluster state store keeps the config object,
+``controller/state.py``).
 """
 
 from __future__ import annotations
@@ -203,11 +205,17 @@ class IngestionConfig:
 @dataclass
 class SegmentsValidationConfig:
     """The table's time column (the broker's time pruner and the segment
-    time range read it) and how many servers host each segment."""
+    time range read it), how many servers host each segment, how long the
+    retention manager keeps a segment (``retention_time_unit`` such as
+    ``"DAYS"`` times ``retention_time_value``; None keeps it for ever) and
+    the push type (``APPEND`` | ``REFRESH``)."""
 
     time_column_name: Optional[str] = None
     time_type: str = "MILLISECONDS"
     replication: int = 1
+    retention_time_unit: Optional[str] = None
+    retention_time_value: Optional[int] = None
+    segment_push_type: str = "APPEND"
 
 
 @dataclass
@@ -268,6 +276,11 @@ class TableConfig:
     stream_config: Optional[StreamIngestionConfig] = None
     ingestion_config: Optional[IngestionConfig] = None
     field_config_list: List[FieldConfig] = field(default_factory=list)
+    # task type -> its config map (the reference's taskTypeConfigsMap),
+    # read by the minion task generators (controller/tasks.py)
+    task_config: Dict[str, Dict[str, str]] = field(default_factory=dict)
+    # the tiers' dicts (``TierConfig.to_dict`` layout, controller/tiers.py)
+    tier_configs: List[Dict[str, Any]] = field(default_factory=list)
 
     def __post_init__(self):
         if isinstance(self.table_type, str):

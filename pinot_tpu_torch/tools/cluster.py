@@ -12,8 +12,9 @@ memory there first, ``ingest_rows`` builds and writes one, the servers
 fetch and map the directories, a realtime seal is written under the
 committing server's directory and fetched from there by its DISCARD
 replicas, and ``shutdown`` removes what the cluster made there:
-``data_dir`` itself where it did not exist, else the two subdirectories
-where they did not, so nothing a caller kept there is lost. Without one, segments
+``data_dir`` itself where it did not exist, else the subdirectories it
+made (those two and ``minion_work/``), so nothing a caller kept there is
+lost. Without one, segments
 are objects in the controller's in-memory deep store (``memory://``,
 ``spi/filesystem.py``), which ``shutdown`` empties, and seals stay in
 memory. ``update_table`` then ``reload_table`` (the controller's) adds
@@ -38,7 +39,16 @@ sampler, so a cluster leaves no thread and no file behind.
 
 ``device`` (default ``"cuda"``) is where every server's executor and the
 broker's reduce run; it raises without a card, and a CPU caller passes
-``device="cpu"``. Minions are not part of this module.
+``device="cpu"``.
+
+``add_minion`` (JAX :68-79) starts a minion (``minion/worker.py``) whose
+work directory is ``data_dir/minion_work``; a cluster without a
+``data_dir`` refuses one, since the minion's executors read and write
+segment directories. The controller's periodic tasks
+(``controller.run_task_generation`` and the others, or
+``controller.start_periodic_tasks``) generate its tasks, and the segments
+it pushes are served like any other. ``shutdown`` stops the minions, then
+the controller's periodic loop, before the servers go.
 
     cluster = EmbeddedCluster(num_servers=2, device="cuda",
                               data_dir="/path/to/cluster")
@@ -74,6 +84,7 @@ from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine.executor import ServerQueryExecutor
 from pinot_tpu_torch.ingestion.realtime import ConsumerState
 from pinot_tpu_torch.ingestion.stream import create_consumer_factory
+from pinot_tpu_torch.minion.worker import MinionInstance
 from pinot_tpu_torch.segment.creator import SegmentBuilder, write_segment
 from pinot_tpu_torch.segment.metadata import METADATA_FILE, SegmentMetadata
 from pinot_tpu_torch.server.data_manager import RealtimeTableDataManager
@@ -103,7 +114,8 @@ class EmbeddedCluster:
         self._made_dirs: List[str] = []
         if data_dir is not None:
             subs = [os.path.join(self.data_dir, d)
-                    for d in ("built_segments", "server_segments")]
+                    for d in ("built_segments", "server_segments",
+                              "minion_work")]
             self._made_dirs = ([p for p in subs if not os.path.exists(p)]
                                if os.path.exists(self.data_dir)
                                else [self.data_dir])
@@ -116,6 +128,7 @@ class EmbeddedCluster:
         self.store = ClusterStateStore()
         self.controller = Controller(self.store, llc_seed=llc_seed)
         self.servers: Dict[str, ServerInstance] = {}
+        self.minions: Dict[str, MinionInstance] = {}
         # the servers and the broker share this process, so the broker may
         # merge group-by partials on the device
         self.broker = BrokerRequestHandler(self.store,
@@ -147,6 +160,22 @@ class EmbeddedCluster:
         server = self.servers.pop(instance_id, None)
         if server is not None:
             server.shutdown()
+
+    def add_minion(self, instance_id: str = "minion_0",
+                   start: bool = True) -> MinionInstance:
+        """A minion over the cluster's state store, running the tasks the
+        controller generates; ``start`` polls for them on its thread (else
+        the caller runs ``minion.run_one_task()``)."""
+        if self.data_dir is None:
+            raise ValueError("a minion needs a cluster with a data_dir: its "
+                             "tasks read and write segment directories")
+        minion = MinionInstance(
+            instance_id, self.controller,
+            work_dir=os.path.join(self.data_dir, "minion_work"))
+        if start:
+            minion.start()
+        self.minions[instance_id] = minion
+        return minion
 
     # -- table / data operations (the controller API) ------------------------
     def create_table(self, table_config: TableConfig, schema: Schema) -> None:
@@ -283,6 +312,10 @@ class EmbeddedCluster:
             meta.close()
 
     def shutdown(self) -> None:
+        for m in list(self.minions.values()):
+            m.shutdown()
+        self.minions.clear()
+        self.controller.stop()
         self.broker.shutdown()
         # consumers stop before any server goes, so none negotiates with a
         # peer that is already down

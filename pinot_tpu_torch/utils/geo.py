@@ -1,8 +1,9 @@
 """Geospatial types + operations.
 
 Counterpart of ``pinot_tpu/utils/geo.py`` (a copy: the port imports
-nothing of the JAX package), without the grid cells of the geo index,
-which no port segment carries.
+nothing of the JAX package), with the grid cells of the geo index
+(``cell_of``, ``cells_of``, ``cell_disk``; JAX :197-250) that
+``segment/geoindex.py`` builds and reads.
 
 Re-design of the reference's geospatial layer (``pinot-core/.../geospatial/``
 — JTS geometry/geography types, ST_* transform functions, H3-cell indexing):
@@ -196,3 +197,58 @@ def union(geoms: Sequence[Geometry]) -> Geometry:
             raise ValueError("ST_UNION here supports point geometries")
     uniq = sorted(set(pts))
     return Geometry("MULTIPOINT", tuple(uniq), geography)
+
+
+# --------------------------------------------------------------------------
+# grid cells (the H3-equivalent): lat/lng -> cell id at a resolution
+# --------------------------------------------------------------------------
+#
+# The reference's H3 index buckets points into hexagonal cells so distance
+# predicates prefilter by cell disk before exact tests. This build uses a
+# square lat/lng grid, as the JAX package does: a cell id packs
+# (resolution, ix, iy); kRing becomes a (2r+1)^2 block. Resolution r has
+# 2^r cells per 360 degrees.
+
+def cell_of(lng: float, lat: float, res: int) -> int:
+    n = 1 << res
+    ix = int((lng + 180.0) / 360.0 * n) % n
+    iy = min(int((lat + 90.0) / 180.0 * n), n - 1)
+    return (res << 52) | (ix << 26) | iy
+
+
+def cells_of(lngs: np.ndarray, lats: np.ndarray, res: int) -> np.ndarray:
+    n = 1 << res
+    ix = (((np.asarray(lngs) + 180.0) / 360.0 * n).astype(np.int64)) % n
+    iy = np.minimum(((np.asarray(lats) + 90.0) / 180.0 * n).astype(np.int64),
+                    n - 1)
+    return (np.int64(res) << 52) | (ix << 26) | iy
+
+
+def cell_disk(lng: float, lat: float, radius_m: float, res: int) -> List[int]:
+    """Cells whose contents can be within ``radius_m`` of the point: the
+    kRing analogue the geo index prefilters by.
+
+    The longitude reach of a spherical cap is widest at its most poleward
+    latitude, so the ring width uses cos() at the cap's poleward edge; a
+    cap that touches a pole spans every longitude."""
+    n = 1 << res
+    cell_h_m = 180.0 / n * 111_320.0   # meridian meters per cell
+    ry = int(radius_m / cell_h_m) + 2
+    reach_deg = math.degrees(radius_m / EARTH_RADIUS_M)
+    edge_lat = min(abs(lat) + reach_deg, 90.0)
+    lat_cos = math.cos(math.radians(edge_lat))
+    if lat_cos <= 1e-3:
+        rx = n // 2
+    else:
+        cell_w_m = 360.0 / n * 111_320.0 * lat_cos
+        rx = min(int(radius_m / cell_w_m) + 2, n // 2)
+    ix0 = int((lng + 180.0) / 360.0 * n) % n
+    iy0 = min(int((lat + 90.0) / 180.0 * n), n - 1)
+    out = []
+    for dx in range(-rx, rx + 1):
+        for dy in range(-ry, ry + 1):
+            ix = (ix0 + dx) % n
+            iy = iy0 + dy
+            if 0 <= iy < n:
+                out.append((res << 52) | (ix << 26) | iy)
+    return sorted(set(out))

@@ -87,7 +87,15 @@ def test_executor_import_leaves_jax_unloaded():
             "pinot_tpu_torch.segment.compression, "
             "pinot_tpu_torch.segment.preprocessor, "
             "pinot_tpu_torch.query.explain, "
-            "pinot_tpu_torch.tools.cluster; "
+            "pinot_tpu_torch.tools.cluster, "
+            "pinot_tpu_torch.utils.geo, "
+            "pinot_tpu_torch.segment.geoindex, "
+            "pinot_tpu_torch.segment.processing, "
+            "pinot_tpu_torch.controller.lineage, "
+            "pinot_tpu_torch.controller.tiers, "
+            "pinot_tpu_torch.controller.tasks, "
+            "pinot_tpu_torch.minion, pinot_tpu_torch.minion.tasks, "
+            "pinot_tpu_torch.minion.worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinot_tpu', 'triton')]; "
             "from pinot_tpu_torch.engine import _build, kernels; "
@@ -305,3 +313,14 @@ def test_arithmetic_null_tests_and_transforms_parse():
     ctx = compile_query("SELECT upper(k), count(*) FROM tiny "
                         "GROUP BY upper(k)")
     assert str(ctx.group_by[0]) == "upper(k)"
+
+
+def test_cluster_with_a_minion_defaults_to_the_card(tmp_path):
+    """The cluster a minion joins serves on the card by default and
+    raises without one; its minion needs a data dir."""
+    from pinot_tpu_torch.tools.cluster import EmbeddedCluster
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        EmbeddedCluster(num_servers=1, data_dir=str(tmp_path))
