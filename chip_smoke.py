@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--seed 42] [--reps 5]
                           [--user-segments 8] [--user-rows 2500000]
-                          [--startree-sf 1] [--startree-only]
+                          [--startree-sf 0.5] [--startree-only]
                           [--out-dir DIR]
 
 Phases:
@@ -184,20 +184,20 @@ Phases:
      replication 2), each server negotiating its commits with the
      controller's completion FSM, cluster.query the only entry point and
      every answer clean and full: (17a) the user-events table at its full
-     width as a realtime table, JSON messages of 500 k rows on 2
-     partitions consumed at replication 2 with a flush at 100 k rows (2
-     seals and 50 k rows consuming a partition), U1-U7 and R1-R3 == the oracle, R1
+     width as a realtime table, JSON messages of 250 k rows on 2
+     partitions consumed at replication 2 with a flush at 50 k rows (2
+     seals and 25 k rows consuming a partition), U1-U7 and R1-R3 == the oracle, R1
      and R2 on the sealed segments' star-tree, the group-bys on
      mutable_device over the consuming segments, U2 opted out of the
      star-tree on the fused scan over the sealed ones; the ingest rate a
      consumer, flush threshold to swap, COMMIT / KEEP / DISCARD, swap ms
-     and deep-store entries logged; (17b) 50 k more rows a partition seal
+     and deep-store entries logged; (17b) 25 k more rows a partition seal
      each partition's third segment while 4 client threads send count(*)
-     and U2: every count in [0.5 M, 0.6 M], no partial answer, both ==
+     and U2: every count in [0.25 M, 0.3 M], no partial answer, both ==
      the oracle after, no sealed segment's mutable resident left on the
-     card; (17c) the hybrid SSB table: ssb_lineorder_REALTIME carries 150
+     card; (17c) the hybrid SSB table: ssb_lineorder_REALTIME carries 75
      k rows of a fresh frame over segment 7's months (1 partition,
-     replication 2, flush 100 k), the time boundary the offline side's
+     replication 2, flush 50 k), the time boundary the offline side's
      largest month less 1, the 13 flights == the oracle over the offline
      rows up to it and the realtime rows past it, every one
      hybrid_time_split, the fused launches of phase 4's kept segments and
@@ -266,11 +266,37 @@ Phases:
      resolution 9): 5 ST_DISTANCE counts, 100 m to 5 km, with and without
      the geo index == a haversine oracle, on the host engine with 0 fused
      launches;
- 14. (after 20) a realtime user-events table: 1 M rows
+ 21. (after 20, before 14) the wire on phase 4's segments written to
+     disk: (21a) ``serve_cluster`` over an EmbeddedCluster of 4 servers
+     (phase 16's budget) at replication 2, the schema, table and segments
+     pushed through the controller's REST routes (``POST /segments``),
+     the 13 flights through ``client.connect([broker]).execute(sql)`` ==
+     the oracle, p50 beside phase 16's in-process ``cluster.query`` p50,
+     QPS and p50 from 1 and 8 client threads; (21b) every broker and
+     server ``/debug/*`` route answers 200 with JSON, the servers'
+     ``/debug/launches`` sum the responses' launch counts (> 0 fused
+     launches), ``/debug/memory`` stagedBytes == the residency
+     manager's, ``/debug/pallas`` the preflight's verdicts (all 13
+     flights pass); (21c) the preflight against the kernel: every
+     fuzz-grid shape it passes compiles, launches and equals its plain
+     version, every shape past a limit is declined by
+     ``compile_program`` with its rule's code, and a blocklist file of
+     the 13 flights' plans (each under one of the rules' codes) read by
+     a new executor declines them with their codes while the general
+     rung answers == the oracle; (21d) 2 servers in processes
+     of their own (``python -m pinot_tpu_torch StartServer``, a
+     residency budget of 0.75 of the card over 2 each) on replicas of the
+     parent's state service, fetching their segments by ``file://``,
+     reached by the parent's broker through gRPC: the 13 flights ==
+     the oracle, p50 and QPS from 1 and 8 clients beside 21a's, each
+     server's ``/tables/{t}/size`` and ``/debug/memory`` == the
+     IdealState, then one server process killed: an answer with
+     exceptions and the live server's rows;
+ 14. (after 21) a realtime user-events table: 500 k rows
      as JSON messages on a one-partition MemoryStream consumed by
      RealtimeSegmentDataManager into a consuming segment on the card
      (``engine/mutable_staging.py``): (14a) at 700, 1000 and 5000 rows and
-     at 1 M, U1-U7 and R1-R3 of tools/usertable.py
+     at 500 k, U1-U7 and R1-R3 of tools/usertable.py
      ``realtime_queries`` == the numpy oracle over the rows indexed so
      far, on ``mutable_device`` (U1 / U3 on its index gather, R3's HLL
      declined to the host engine), the bytes uploaded between two
@@ -292,7 +318,7 @@ segments on the per-segment path (``index_missing_index`` and the other
 JAX codes), which every phase asserts beside its other decisions.
 Then a "rungs" line of the segments each rung served and the declines and
 paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
-kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16-20,
+kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16-21a,
 and of 13b for the query axis; the top-k, the jnp combine and the index gather are
 PyTorch ops, not hand kernels).
 Phases 4, 6, 7, 9, 10 and 11 assert launches
@@ -3489,9 +3515,10 @@ def phase_startree(sf: float, segments: int, seed: int, reps: int,
 
 # -- phase 14: a realtime user-events table -------------------------------------
 
-# 2.5 M until phase 18 joined the script, 1.5 M until phase 20 did: the
-# script must end within 1200 s on a slow host too (PERF.md section 4)
-REALTIME_ROWS = 1_000_000
+# 2.5 M until phase 18 joined the script, 1.5 M until phase 20 did, 1 M
+# until phase 21 did: the script must end within 1200 s on a slow host
+# too (PERF.md section 4)
+REALTIME_ROWS = 500_000
 # watermarks of 14a before the bulk: below the chunk floor (1024 rows), in
 # the same chunk, and one that regrows the chunks (to 8192 rows)
 REALTIME_STEPS = (700, 1000, 5000)
@@ -4762,16 +4789,17 @@ def phase_front_door(main: dict, reps: int, device: str = "cuda",
 
 # 17a: the user-events table as a 2-partition realtime table at replication
 # 2 (Pinot's default flush is 5 M rows a segment; cut because four replicas
-# index rows one at a time in Python under one GIL)
-RT_USER_ROWS = 500_000
-RT_USER_FLUSH = 100_000
+# index rows one at a time in Python under one GIL; halved with 17b and 17c
+# when phase 21 joined the script)
+RT_USER_ROWS = 250_000
+RT_USER_FLUSH = 50_000
 # 17b: rows added a partition under 4 client threads (each partition's
 # third segment seals)
-RT_MORE_ROWS = 50_000
+RT_MORE_ROWS = 25_000
 RT_CLIENTS = 4
 # 17c: the hybrid SSB table's realtime side, over segment 7's months
-RT_SSB_ROWS = 150_000
-RT_SSB_FLUSH = 100_000
+RT_SSB_ROWS = 75_000
+RT_SSB_FLUSH = 50_000
 # 17d: an upsert table keyed on user_id, one partition
 RT_UPSERT_ROWS = 110_000
 RT_UPSERT_FLUSH = 25_000
@@ -6046,10 +6074,11 @@ def phase_startree_disk(segs, ctxs, wants, kept_segs, device: str = "cuda"
         shutil.rmtree(root, ignore_errors=True)
 
 
-# phase 12's default SSB scale: SF1 since phase 18 joined the script (at
-# SF2 the five trees took 104-157 s to build on the card's host, and the
-# script must end within 1200 s on a slow host too; PERF.md section 4)
-STARTREE_SF = 1
+# phase 12's default SSB scale: SF1 from phase 18's arrival (at SF2 the
+# five trees took 104-157 s to build on the card's host), SF0.5 since
+# phase 21's (at SF1 90-106 s): the script must end within 1200 s on a
+# slow host too (PERF.md section 4)
+STARTREE_SF = 0.5
 
 
 def _phase_12(args, card: str) -> dict:
@@ -6857,6 +6886,491 @@ def _ptxas_frame(nvcc_log: str, kernel: str) -> tuple:
     raise AssertionError(f"ptxas reported no frame for {kernel}")
 
 
+# phase 21: the wire
+WIRE_PROCS = 2          # server processes of 21d
+WIRE_ROUNDS = 2         # passes over the 13 flights a client run sends
+WIRE_TIMEOUT_S = 120.0  # every HTTP and gRPC call of the phase
+
+
+def phase_wire(main: dict, reps: int, device: str = "cuda",
+               front: dict = None, procs: int = WIRE_PROCS,
+               rounds: int = WIRE_ROUNDS) -> dict:
+    """Phase 21 (see the module docstring): 21a-21b on an in-process
+    cluster behind its REST front doors, 21c the preflight against the
+    kernel, 21d servers in processes of their own. ``front``: phase 16's
+    run (its in-process p50 per flight). -> the report."""
+    import shutil
+    import tempfile
+
+    from pinot_tpu_torch.segment import write_segment
+
+    tmp = tempfile.mkdtemp(prefix="wire_")
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        dirs = []
+        for seg in main["segs"]:
+            write_segment(seg, tmp)
+            dirs.append(os.path.join(tmp, seg.segment_name))
+        log(f"  21: {len(dirs)} segments written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["rest"] = _wire_rest(main, dirs, reps, device, front, rounds)
+        log(f"  21a-b: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["preflight"] = _wire_preflight(main, device)
+        log(f"  21c: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["processes"] = _wire_processes(main, dirs, reps, device, procs,
+                                           rounds, out["rest"], tmp)
+        log(f"  21d: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = out["rest"]["launches"]
+    return out
+
+
+def _wire_get(url: str, body=None, method: str = None):
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=WIRE_TIMEOUT_S) as r:
+        if r.status != 200:
+            raise AssertionError(f"21: {url} answered {r.status}")
+        return json.loads(r.read().decode())
+
+
+def _wire_warm(conn, sqls: dict, wants: dict, what: str) -> None:
+    """One untimed pass of the flights through a client connection, every
+    answer == the oracle."""
+    for qid, sql in sqls.items():
+        _check_flight(f"{what} {qid}", conn.execute(sql).result_set,
+                      wants[qid])
+
+
+def _wire_flights(conn, sqls: dict, wants: dict, reps: int, what: str,
+                  sync) -> tuple:
+    """``reps`` timed passes of the flights through a client connection,
+    every answer == the oracle. -> (p50 per flight, the responses'
+    JSON)."""
+    lat = {qid: [] for qid in sqls}
+    raws = []
+    for _ in range(reps):
+        for qid, sql in sqls.items():
+            t0 = time.perf_counter()
+            res = conn.execute(sql)
+            sync()
+            lat[qid].append((time.perf_counter() - t0) * 1e3)
+            _check_flight(f"{what} {qid}", res.result_set, wants[qid])
+            raws.append(res.raw)
+    return {q: float(np.percentile(v, 50)) for q, v in lat.items()}, raws
+
+
+def _wire_clients(connect, sqls: dict, wants: dict, clients: int,
+                  rounds: int, what: str) -> dict:
+    """``clients`` threads, each on its own connection, sending the
+    flights in turn (client i from flight i) ``rounds`` passes between
+    them, every answer == the oracle. -> QPS and p50 / p99."""
+    ids = sorted(sqls)
+    lat = []
+    conns = [connect() for _ in range(clients)]
+
+    def client(i: int) -> None:
+        for k in range(max(1, rounds * len(ids) // clients)):
+            qid = ids[(i + k) % len(ids)]
+            t0 = time.perf_counter()
+            res = conns[i].execute(sqls[qid])
+            lat.append((time.perf_counter() - t0) * 1e3)
+            _check_flight(f"{what} {qid}", res.result_set, wants[qid])
+
+    t0 = time.perf_counter()
+    errors = _threads(clients, client)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{what}: {errors[:3]}")
+    return {"clients": clients, "queries": len(lat),
+            "qps": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def _wire_rest(main: dict, dirs: list, reps: int, device: str,
+               front, rounds: int) -> dict:
+    """21a and 21b."""
+    import torch
+
+    from pinot_tpu_torch import client
+    from pinot_tpu_torch.engine.results import WIRE_COUNTERS
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.spi.table import SegmentsValidationConfig, TableConfig
+    from pinot_tpu_torch.tools import preflight
+    from pinot_tpu_torch.tools.cluster import EmbeddedCluster
+    from pinot_tpu_torch.transport.rest import ServerAdminApi, serve_cluster
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    segs, ctxs, wants = main["segs"], main["ctxs"], main["wants"]
+    sqls = {qid: ctx.sql for qid, ctx in ctxs.items()}
+    out: dict = {"servers": FRONT_SERVERS, "replication": FRONT_REPLICATION}
+    # the preflight's verdicts at the default limits, for /debug/pallas
+    # (its probe launches come before the counted window)
+    table = preflight.run_preflight(segs, fuzz=False, device=device)
+    if table["ssb_failed"]:
+        raise AssertionError(f"21b: preflight fails {table['ssb_failed']}")
+    cluster = EmbeddedCluster(num_servers=0, device=device,
+                              device_reduce=True)
+    apis = []
+    try:
+        for i in range(FRONT_SERVERS):
+            _budget_server(cluster, f"server_{i}", device, FRONT_SERVERS)
+        for srv in cluster.servers.values():
+            preflight.attach_verdicts(srv.executor, table)
+        apis = list(serve_cluster(cluster))
+        ctrl = f"http://localhost:{apis[0].port}"
+        brk = f"http://localhost:{apis[1].port}"
+        admins = {sid: ServerAdminApi(s, port=0)
+                  for sid, s in cluster.servers.items()}
+        for api in admins.values():
+            api.start()
+            apis.append(api)
+        base = {sid: f"http://localhost:{api.port}"
+                for sid, api in admins.items()}
+        _wire_get(f"{ctrl}/schemas", segs[0].metadata.schema.to_dict())
+        _wire_get(f"{ctrl}/tables", TableConfig(
+            FRONT_TABLE, validation_config=SegmentsValidationConfig(
+                time_column_name="d_yearmonthnum",
+                replication=FRONT_REPLICATION)).to_dict())
+        t0 = time.perf_counter()
+        for d in dirs:
+            _wire_get(f"{ctrl}/segments",
+                      {"tableName": FRONT_TABLE, "segmentDir": d})
+        if not cluster.wait_for_ev_converged(FRONT_TABLE, timeout_s=300):
+            raise AssertionError("21a: the ExternalView did not converge")
+        for srv in cluster.servers.values():
+            srv.executor.residency.drain_prefetch()
+        sync()
+        out["push_to_queryable_s"] = time.perf_counter() - t0
+        conn = client.connect([brk], timeout_s=WIRE_TIMEOUT_S)
+
+        # 21a: the flights; 21b: the launch counts of the timed window
+        _wire_warm(conn, sqls, wants, "21a")
+        before = {sid: _wire_get(f"{b}/debug/launches")["launches"]
+                  for sid, b in base.items()}
+        counters = scan_counters()
+        _reset(counters)
+        p50, raws = _wire_flights(conn, sqls, wants, reps, "21a", sync)
+        launches = {n: c.launches for n, c in counters.items()}
+        after = {sid: _wire_get(f"{b}/debug/launches")["launches"]
+                 for sid, b in base.items()}
+        wires = [w for _n, w in WIRE_COUNTERS]
+        served = {w: sum(r.get(w, 0) for r in raws) for w in wires}
+        counted = {w: sum(after[s].get(w, 0) - before[s].get(w, 0)
+                          for s in base) for w in wires}
+        if served != counted or (device == "cuda" and (
+                launches["fused_scan"] == 0
+                or served["scanLaunches"] != launches["fused_scan"]
+                or served["probeLaunches"] != launches["fused_scan_probe"])):
+            raise AssertionError(f"21b: responses' launches {served}, "
+                                 f"servers' {counted}, process {launches}")
+        out["flights"] = {q: {"p50_ms": v, "phase16_p50_ms": (
+            front["flights"][q]["p50_ms"] if front else None)}
+            for q, v in p50.items()}
+        for q, f in out["flights"].items():
+            log(f"  21a {q}: p50 {f['p50_ms']:.3f} ms through REST "
+                f"(phase 16 in process: {f['phase16_p50_ms']})")
+        out["launches"] = launches
+        out["server_launches"] = counted
+        log(f"  21a: 13 flights x {reps} through the client == oracle; "
+            f"launches {launches}, the servers' /debug/launches {counted}")
+        out["clients"] = {
+            n: _wire_clients(lambda: client.connect(
+                [brk], timeout_s=WIRE_TIMEOUT_S), sqls, wants, n, rounds,
+                f"21a {n} clients") for n in (1, 8)}
+        for n, r in out["clients"].items():
+            log(f"  21a {n} clients: {r['queries']} queries, QPS "
+                f"{r['qps']:.1f}, p50 {r['p50_ms']:.3f} ms, p99 "
+                f"{r['p99_ms']:.3f} ms")
+
+        # 21b: every debug route
+        routes = {}
+        for api, url in [(apis[1], brk)] + [(admins[s], base[s])
+                                            for s in sorted(base)]:
+            for m, pat, _fn, _scope in api._routes:
+                if m != "GET" or not pat.pattern.startswith("/debug/"):
+                    continue
+                path = pat.pattern.replace("([^/]+)", FRONT_TABLE)
+                body = _wire_get(url + path)
+                if not isinstance(body, dict):
+                    raise AssertionError(f"21b: {url}{path}: {body!r}")
+                routes[path] = routes.get(path, 0) + 1
+        for sid, srv in cluster.servers.items():
+            mem = _wire_get(f"{base[sid]}/debug/memory")
+            if mem["stagedBytes"] != srv.executor.residency.staged_bytes() \
+                    or not mem["stagedBytes"]:
+                raise AssertionError(f"21b: {sid} stagedBytes "
+                                     f"{mem['stagedBytes']}")
+            pal = _wire_get(f"{base[sid]}/debug/pallas")
+            rows = [r for r in pal["preflight"]["shapes"]
+                    if r["source"] == "ssb"]
+            if len(rows) != 13 or any(r["verdict"] != "pass" for r in rows) \
+                    or pal["blockedShapes"]:
+                raise AssertionError(f"21b: {sid} /debug/pallas {pal}")
+        out["debug_routes"] = routes
+        log(f"  21b: {len(routes)} debug routes answered JSON "
+            f"({sum(routes.values())} calls); stagedBytes == residency; "
+            "/debug/pallas: 13 flights pass")
+    finally:
+        for api in apis:
+            api.stop()
+        cluster.shutdown()
+    return out
+
+
+def _wire_preflight(main: dict, device: str) -> dict:
+    """21c."""
+    import tempfile
+
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.engine.pallas_blocklist import PallasBlocklist
+    from pinot_tpu_torch.engine.plan import plan_segment
+    from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
+    from pinot_tpu_torch.tools import preflight
+
+    launched, declined, err = [], {}, 0.0
+    for label, pp, bits in preflight.fuzz_specs():
+        v = preflight.preflight_program(pp, bits, shape=label)
+        if v.ok == label.endswith(("_over", "_straddle")):
+            raise AssertionError(f"21c {label}: {v.row()}")
+        if not v.ok:
+            declined[label] = v.rule
+            continue
+        prog = fs.compile_program(pp, bits)
+        words, values, num_docs = preflight.launch_inputs(pp, bits, device)
+        kern = fs.fused_scan(prog, words, values, num_docs)
+        plain = fs.fused_scan_plain(prog, words, values, num_docs)
+        err = max(err, _compare(kern, plain, f"21c {label}"))
+        launched.append(label)
+    if set(declined.values()) != {r.code for r in preflight.RULES}:
+        raise AssertionError(f"21c: the grid's declines {declined}")
+    log(f"  21c: {len(launched)} fuzz shapes the preflight passes == plain "
+        f"version on the card (max abs err {err}); {len(declined)} past a "
+        f"limit declined by compile_program with its code: {declined}")
+    segs, ctxs, wants = main["segs"], main["ctxs"], main["wants"]
+    codes = {qid: preflight.RULES[k % len(preflight.RULES)].code
+             for k, qid in enumerate(sorted(ctxs))}
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "blocklist.json")
+        written = PallasBlocklist(path)
+        for qid, ctx in ctxs.items():
+            written.add(plan_segment(ctx, segs[0]).spec, reason=codes[qid])
+        ex = ServerQueryExecutor(device=device, config=PinotConfiguration(
+            {CommonConstants.PALLAS_BLOCKLIST_PATH_KEY: path}))
+        blocked = 0
+        try:
+            for qid, ctx in ctxs.items():
+                got, _stats = ex.execute(ctx, segs)
+                _check_flight(f"21c {qid}", got, wants[qid])
+                # the file holds the flights' plans over segment 0 (a
+                # plan's spec carries its segment's cardinalities)
+                _got, stats = ex.execute(ctx, segs[:1])
+                if not stats.num_segments_processed:
+                    continue
+                if not any(k.endswith(":" + codes[qid])
+                           for k in stats.decisions) or stats.scan_launches:
+                    raise AssertionError(f"21c {qid}: {stats.decisions}, "
+                                         f"{stats.scan_launches} launches")
+                blocked += 1
+        finally:
+            ex.close()
+        if not blocked:
+            raise AssertionError("21c: no flight's plan on segment 0 met "
+                                 "the blocklist")
+    log(f"  21c: a blocklist file of the 13 flights' plans read by a new "
+        f"executor: {blocked} flights' plans on segment 0 declined with "
+        "their codes, no launch; every flight == oracle")
+    return {"launched": launched, "declined": declined, "max_abs_err": err,
+            "blocked": blocked}
+
+
+def _wire_processes(main: dict, dirs: list, reps: int, device: str,
+                    procs: int, rounds: int, rest: dict, tmp: str) -> dict:
+    """21d."""
+    import threading
+
+    import torch
+
+    from pinot_tpu_torch import client, native
+    from pinot_tpu_torch.broker.broker import BrokerRequestHandler
+    from pinot_tpu_torch.controller.controller import Controller
+    from pinot_tpu_torch.controller.state import ONLINE, ClusterStateStore
+    from pinot_tpu_torch.engine import _build
+    from pinot_tpu_torch.segment.immutable import load_segment
+    from pinot_tpu_torch.spi.filesystem import file_url
+    from pinot_tpu_torch.spi.table import SegmentsValidationConfig, TableConfig
+    from pinot_tpu_torch.transport.grpc_transport import GrpcServerStub
+    from pinot_tpu_torch.transport.rest import BrokerApi
+    from pinot_tpu_torch.transport.state_service import StateStoreApi
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    segs, ctxs, wants = main["segs"], main["ctxs"], main["wants"]
+    sqls = {qid: ctx.sql for qid, ctx in ctxs.items()}
+    if device == "cuda":    # built once here: no child builds them
+        _build.load_library("fused_scan")
+    native.load()
+    budget = (int(0.75 * torch.cuda.get_device_properties(0).total_memory
+                  / procs) if device == "cuda" else 0)
+    store = ClusterStateStore()
+    state_api = StateStoreApi(store, port=0)
+    state_api.start()
+    controller = Controller(store)
+    controller.add_schema(segs[0].metadata.schema)
+    controller.add_table(TableConfig(
+        FRONT_TABLE, validation_config=SegmentsValidationConfig(
+            time_column_name="d_yearmonthnum", replication=1)))
+    broker = BrokerRequestHandler(store, device=device)
+    brk_api = BrokerApi(broker, port=0)
+    brk_api.start()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    children, stubs, ports, out = [], [], {}, {}
+    try:
+        t0 = time.perf_counter()
+        for i in range(procs):
+            sid = f"proc_server_{i}"
+            err = open(os.path.join(tmp, f"{sid}.log"), "w")
+            children.append((sid, err, subprocess.Popen(
+                [sys.executable, "-m", "pinot_tpu_torch", "StartServer",
+                 "-stateUrl", f"http://localhost:{state_api.port}",
+                 "-instanceId", sid, "-device", device,
+                 "-budgetBytes", str(budget),
+                 "-segmentDir", os.path.join(tmp, sid)],
+                cwd=root, env=env, stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=err, text=True)))
+
+        def ready(sid, proc):
+            ports[sid] = json.loads(proc.stdout.readline())
+
+        waits = [threading.Thread(target=ready, args=(sid, p))
+                 for sid, _e, p in children]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join(WIRE_TIMEOUT_S)
+        if len(ports) != procs:
+            raise AssertionError(f"21d: servers up: {sorted(ports)}; "
+                                 + _wire_logs(children))
+        out["start_s"] = time.perf_counter() - t0
+        for sid, p in ports.items():
+            stub = GrpcServerStub(f"localhost:{p['grpcPort']}",
+                                  timeout_s=WIRE_TIMEOUT_S)
+            stubs.append(stub)
+            broker.register_server(sid, stub)
+        t0 = time.perf_counter()
+        for d in dirs:
+            controller.add_segment(FRONT_TABLE, load_segment(d).metadata,
+                                   file_url(d))
+        ideal = store.get_ideal_state(FRONT_TABLE)
+        deadline = time.monotonic() + 300
+        while any(store.get_external_view(FRONT_TABLE).get(seg, {}).get(i)
+                  != ONLINE for seg, m in ideal.items() for i in m):
+            if time.monotonic() > deadline:
+                raise AssertionError("21d: the ExternalView did not "
+                                     "converge; " + _wire_logs(children))
+            time.sleep(0.05)
+        out["push_to_queryable_s"] = time.perf_counter() - t0
+        for sid, p in ports.items():
+            base = f"http://localhost:{p['adminPort']}"
+            size = _wire_get(f"{base}/tables/{FRONT_TABLE}/size")
+            mine = sorted(s for s, m in ideal.items() if sid in m)
+            if sorted(size["segments"]) != mine or not size["totalBytes"]:
+                raise AssertionError(f"21d: {sid} size {size} vs {mine}")
+        conn = client.connect([f"localhost:{brk_api.port}"],
+                              timeout_s=WIRE_TIMEOUT_S)
+        _wire_warm(conn, sqls, wants, "21d")
+        p50, _raws = _wire_flights(conn, sqls, wants, reps, "21d", sync)
+        out["flights"] = {q: {"p50_ms": v,
+                              "in_process_p50_ms": rest["flights"][q]
+                              ["p50_ms"]} for q, v in p50.items()}
+        for q, f in out["flights"].items():
+            log(f"  21d {q}: p50 {f['p50_ms']:.3f} ms over gRPC to "
+                f"{procs} server processes (21a in process: "
+                f"{f['in_process_p50_ms']:.3f})")
+        out["clients"] = {
+            n: _wire_clients(lambda: client.connect(
+                [f"localhost:{brk_api.port}"], timeout_s=WIRE_TIMEOUT_S),
+                sqls, wants, n, rounds, f"21d {n} clients")
+            for n in (1, 8)}
+        for n, r in out["clients"].items():
+            ip = rest["clients"][n]
+            log(f"  21d {n} clients: QPS {r['qps']:.1f} (21a {ip['qps']:.1f})"
+                f", p50 {r['p50_ms']:.3f} ms (21a {ip['p50_ms']:.3f}), p99 "
+                f"{r['p99_ms']:.3f} ms")
+        launches, staged = {}, {}
+        for sid, p in ports.items():
+            base = f"http://localhost:{p['adminPort']}"
+            launches[sid] = _wire_get(f"{base}/debug/launches")["launches"]
+            staged[sid] = _wire_get(f"{base}/debug/memory")["stagedBytes"]
+            if not staged[sid] or (device == "cuda" and not launches[sid]
+                                   .get("scanLaunches")):
+                raise AssertionError(f"21d: {sid} staged {staged[sid]}, "
+                                     f"launches {launches[sid]}")
+        out["server_launches"], out["staged_bytes"] = launches, staged
+        log(f"  21d: the servers' launches {launches}, stagedBytes {staged}")
+
+        # a server process killed: exceptions and the live server's rows
+        victim_sid, _e, victim = children[-1]
+        victim.kill()
+        victim.wait(30)
+        lax = client.connect([f"localhost:{brk_api.port}"],
+                             timeout_s=WIRE_TIMEOUT_S,
+                             fail_on_exceptions=False)
+        got = lax.execute("SELECT count(*) FROM ssb_lineorder")
+        total = sum(s.num_docs for s in segs)
+        rows = got.result_set.rows if got.result_set else [[0]]
+        if not got.exceptions or not 0 < rows[0][0] < total:
+            raise AssertionError(f"21d: after the kill {got.exceptions}, "
+                                 f"{rows} of {total}")
+        out["killed"] = {"server": victim_sid, "rows": rows[0][0],
+                         "of": total, "exceptions": got.exceptions}
+        log(f"  21d: {victim_sid} killed: {len(got.exceptions)} exceptions, "
+            f"count {rows[0][0]} of {total} from the live server")
+    finally:
+        for stub in stubs:
+            stub.close()
+        for _sid, err, proc in children:
+            if proc.poll() is None:
+                proc.stdin.close()
+                try:
+                    proc.wait(30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(30)
+            err.close()
+        brk_api.stop()
+        broker.shutdown()
+        state_api.stop()
+    return out
+
+
+def _wire_logs(children) -> str:
+    """The last lines of each server process's standard error."""
+    out = []
+    for sid, err, _proc in children:
+        err.flush()
+        with open(err.name) as f:
+            out.append(f"{sid}: " + "".join(f.readlines()[-20:]))
+    return " | ".join(out)
+
+
 def _phases_2_to_11(args, smi: str) -> tuple:
     """Phases 2-11 and 13a-b: the fused-scan kernel, every earlier path,
     then residency and coalescing on phase 4's segments. -> (their
@@ -7007,6 +7521,15 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     lifecycle_run = phase_lifecycle(args.reps)
     gc.collect()
     torch.cuda.empty_cache()
+    log("phase 21 (after 20, before 14): the wire: REST front doors with "
+        "their /debug routes and the client (21a-b), the preflight against "
+        f"the kernel (21c), {WIRE_PROCS} servers in processes of their own "
+        "over gRPC and the state service (21d)")
+    t0 = time.perf_counter()
+    wire_run = phase_wire(main_run, args.reps, front=front_run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 21: {time.perf_counter() - t0:.1f} s")
     realtime_run = _phase_14(args)
     timing += realtime_run.pop("timing")
     for k, v in realtime_run["errs"].items():
@@ -7022,7 +7545,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
                 text_run["launches"], realtime_run["launches"],
                 front_run["launches"], rt_cluster_run["launches"],
                 trace_run["launches"], disk_run["launches"],
-                lifecycle_run["launches"]):
+                lifecycle_run["launches"], wire_run["launches"]):
         for k in launches:
             launches[k] += got.get(k, 0)
     idle = [k for k, n in launches.items() if n == 0]
@@ -7081,7 +7604,8 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "coalesce": coalesce_run, "realtime": realtime_run,
               "scatter": scatter_run, "front_door": front_run,
               "realtime_cluster": rt_cluster_run, "trace": trace_run,
-              "disk": disk_run, "lifecycle": lifecycle_run}
+              "disk": disk_run, "lifecycle": lifecycle_run,
+              "wire": wire_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]

@@ -17,6 +17,18 @@ the server is not counted as responded, the response carries a 427 and a
 ``gather:full_result->partial_result:<reason>`` decision
 (``GATHER_DECISION_REASONS``).
 
+A server asked for a segment it no longer hosts reports it
+(``numSegmentsMissing``): a segment the cluster dropped between the
+route and the server's acquire, such as a merge's input deleted after
+its lineage swap. Where the store moved on since the route's snapshot,
+the whole query routes again (at most ``MAX_ROUTE_ATTEMPTS`` routes), so
+it answers from all of a replacement's inputs or all of its outputs and
+never from neither; missing segments left after the last route are a 427
+exception. Each route given up records a
+``route:snapshot->rerouted:segments_missing`` decision, and the
+launches its servers made stay in the query's counts. JAX's broker
+answers from what the servers had.
+
 A hybrid table (an offline and a realtime table under one name) splits
 at the time boundary (``_split_hybrid``): the offline side answers
 ``time <= boundary`` and the realtime side ``time > boundary``, where the
@@ -122,6 +134,10 @@ class AccessDeniedError(QueryError):
 
 class BrokerRequestHandler:
     """The broker's front door."""
+
+    #: routes a query takes at most while its servers miss routed segments
+    #: the cluster dropped since its snapshot
+    MAX_ROUTE_ATTEMPTS = 4
 
     def __init__(self, store: ClusterStateStore,
                  query_timeout_s: float = 30.0,
@@ -346,41 +362,72 @@ class BrokerRequestHandler:
             response.add_exception(QUERY_EXECUTION_ERROR, str(e))
             return finish(response)
 
-        tables: List[DataTable] = []
-        servers_queried = set()
-        servers_responded = set()
-        # the broker's routing and gather decisions merge into the reduced
-        # stats: the response says why each server was or was not asked
-        broker_stats = QueryStats()
-        # every gathered DataTable folds into the merge as it lands; the
-        # finish below runs the final trim / HAVING / post-aggregation
-        acc = self.reduce_service.accumulator(ctx)
-        for table, sub_ctx in self._split_hybrid(ctx, physical,
-                                                 stats=broker_stats):
-            t = time.perf_counter()
-            route = self.routing.route(table, sub_ctx, stats=broker_stats)
-            routing, unavailable = route.routing, route.unavailable
-            t = phase(BrokerQueryPhase.ROUTING, t)
-            if unavailable:
-                self.metrics.meter(BrokerMeter.NO_SERVING_HOST).mark(
-                    len(unavailable))
-                response.add_exception(
-                    SERVER_NOT_RESPONDING_ERROR,
-                    f"{len(unavailable)} segments of {table} unavailable: "
-                    f"{unavailable[:5]}")
-            if not routing:
-                continue
-            if self._use_streaming(sub_ctx, routing):
-                gathered, queried, responded = \
-                    self._scatter_gather_streaming(table, sub_ctx, routing,
-                                                   broker_stats, acc)
-            else:
-                gathered, queried, responded = self._scatter_gather(
-                    table, sub_ctx, routing, broker_stats, acc)
-            phase(BrokerQueryPhase.SCATTER_GATHER, t)
-            tables.extend(gathered)
-            servers_queried |= queried
-            servers_responded |= responded
+        n_exceptions = len(response.exceptions)
+        # the launches of the routes given up: the servers made them, so
+        # the query's counts keep them
+        given_up = QueryStats()
+        for attempt in range(self.MAX_ROUTE_ATTEMPTS):
+            del response.exceptions[n_exceptions:]
+            tables: List[DataTable] = []
+            servers_queried = set()
+            servers_responded = set()
+            # the broker's routing and gather decisions merge into the
+            # reduced stats: the response says why each server was or was
+            # not asked
+            broker_stats = QueryStats()
+            # every gathered DataTable folds into the merge as it lands;
+            # the finish below runs the final trim / HAVING /
+            # post-aggregation
+            acc = self.reduce_service.accumulator(ctx)
+            versions = []
+            for table, sub_ctx in self._split_hybrid(ctx, physical,
+                                                     stats=broker_stats):
+                t = time.perf_counter()
+                route = self.routing.route(table, sub_ctx,
+                                           stats=broker_stats)
+                routing, unavailable = route.routing, route.unavailable
+                versions.append(route.version)
+                t = phase(BrokerQueryPhase.ROUTING, t)
+                if unavailable:
+                    self.metrics.meter(BrokerMeter.NO_SERVING_HOST).mark(
+                        len(unavailable))
+                    response.add_exception(
+                        SERVER_NOT_RESPONDING_ERROR,
+                        f"{len(unavailable)} segments of {table} "
+                        f"unavailable: {unavailable[:5]}")
+                if not routing:
+                    continue
+                if self._use_streaming(sub_ctx, routing):
+                    gathered, queried, responded = \
+                        self._scatter_gather_streaming(
+                            table, sub_ctx, routing, broker_stats, acc)
+                else:
+                    gathered, queried, responded = self._scatter_gather(
+                        table, sub_ctx, routing, broker_stats, acc)
+                phase(BrokerQueryPhase.SCATTER_GATHER, t)
+                tables.extend(gathered)
+                servers_queried |= queried
+                servers_responded |= responded
+            # a server missing a routed segment that the cluster dropped
+            # since the route (a merge's input deleted after its swap):
+            # the snapshot is stale, so the whole query routes again, and
+            # sees all of a replacement's inputs or all of its outputs
+            if not any(dt.stats.num_segments_missing for dt in tables) \
+                    or all(v == self.store.version for v in versions):
+                break
+            for dt in tables:
+                given_up.add_launches(dt.stats)
+        broker_stats.add_launches(given_up)
+        for _ in range(attempt):
+            # the port's own point (JAX's broker never routes again), so
+            # no namespace of JAX's registry holds its reason
+            record_decision(broker_stats, "route", "rerouted", "snapshot",
+                            "segments_missing")
+        missing = sum(dt.stats.num_segments_missing for dt in tables)
+        if missing:
+            response.add_exception(
+                SERVER_NOT_RESPONDING_ERROR,
+                f"{missing} routed segments missing on their servers")
 
         response.num_servers_queried = len(servers_queried)
         response.num_servers_responded = len(servers_responded)

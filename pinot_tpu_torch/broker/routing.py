@@ -257,6 +257,8 @@ class RouteResult:
     # scatter fan-out had no pruning happened vs what was actually used
     servers_unpruned: int = 0
     servers_routed: int = 0
+    # the store version of the snapshot the routes came from
+    version: int = 0
 
 
 class RoutingManager:
@@ -420,7 +422,8 @@ class RoutingManager:
             routing={}, unavailable=[], segments_total=total,
             segments_routed=len(pruned),
             time_pruned=total - len(after_time),
-            partition_pruned=len(after_time) - len(pruned))
+            partition_pruned=len(after_time) - len(pruned),
+            version=entry.version)
 
         def select(seg_list):
             routing: Dict[str, List[str]] = {}

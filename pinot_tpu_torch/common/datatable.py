@@ -13,7 +13,7 @@ Framing is binary and columnar (magic ``PDT3``): a header, the stats and
 exceptions sections, then a payload per response type where selection,
 distinct and group-by data ship as typed columns: numeric columns as raw
 little-endian buffers, string columns as offsets and a heap, other state
-columns through the tagged object serde (``utils/serde.py``).
+columns through the tagged object serde (``common/serde.py``).
 ``from_bytes`` sniffs the magic and still accepts the legacy JSON framing.
 The bytes are the JAX package's: a table encoded by either package
 decodes in the other to the same states, rows and schema. The stats
@@ -40,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from pinot_tpu_torch.engine.results import DataSchema, QueryStats
-from pinot_tpu_torch.utils import serde
+from pinot_tpu_torch.common import serde
 
 MAGIC = b"PDT3"
 

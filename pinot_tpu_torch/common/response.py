@@ -13,7 +13,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-from pinot_tpu_torch.engine.results import QueryStats, ResultTable
+from pinot_tpu_torch.engine.results import (
+    WIRE_COUNTERS,
+    QueryStats,
+    ResultTable,
+)
 
 
 @dataclass
@@ -62,6 +66,11 @@ class BrokerResponse:
             # query took, keyed "point:declined->chosen:reason", summed
             # across servers
             d["decisions"] = self.stats.decisions
+        # the port's launch counts of the kernels that served the query,
+        # where nonzero (QueryStats.to_dict's wire names)
+        d.update({wire: getattr(self.stats, name)
+                  for name, wire in WIRE_COUNTERS
+                  if getattr(self.stats, name)})
         if self.result_table is not None:
             d["resultTable"] = self.result_table.to_dict()
         if self.trace_info:

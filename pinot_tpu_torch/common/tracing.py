@@ -323,6 +323,21 @@ DIRECT_DECLINE_CODES = frozenset({
     "pallas_build_failed",
 })
 
+# The fused scan's preflight rules (tools/preflight.py RULES), the codes
+# compile_program's ScanLimitError carries: a shape over one of the
+# kernel's limits declines at the "pallas" point with its rule's code. JAX
+# has the namespace under the same name, its rules modelling Mosaic's
+# lowering; the port's name its own kernel's limits.
+PALLAS_PREFLIGHT_REASONS = frozenset({
+    "pallas_preflight_column_slots",
+    "pallas_preflight_tile_align",
+    "pallas_preflight_filter_stack",
+    "pallas_preflight_value_stack",
+    "pallas_preflight_accumulator_rows",
+    "pallas_preflight_program_int32",
+    "pallas_preflight_smem_budget",
+})
+
 # Reason codes of the star-tree decision point (engine/startree_exec.py:
 # pick_star_tree's note() / decline() sites and _matching_ids' reasons).
 # The chosen-tree records ("startree:scan-><rung>:tree<i>") carry the
@@ -464,9 +479,8 @@ def _pallas_codes() -> frozenset:
 def _build_registry() -> Dict[str, ReasonNamespace]:
     """The namespaces, built at first use: the routing, gather and reduce
     sets are imported from the modules that keep them, which import this
-    one. JAX's ``pallas_preflight`` namespace (the kernel preflight) and
-    its ``race_ok`` lint waivers are not registered: the port has neither
-    the preflight nor the lint."""
+    one. JAX's ``race_ok`` lint waivers are not registered: the port has
+    no lint."""
     from pinot_tpu_torch.broker.broker import GATHER_DECISION_REASONS
     from pinot_tpu_torch.broker.reduce import (
         REDUCE_DECISION_REASONS,
@@ -483,6 +497,13 @@ def _build_registry() -> Dict[str, ReasonNamespace]:
             literal_patterns=(r'decline\("([a-z0-9_]+)"\)',
                               r'reasons\.append\("([a-z0-9_]+)"\)'),
             min_sites=5),
+        ReasonNamespace(
+            "pallas_preflight", PALLAS_PREFLIGHT_REASONS,
+            ("pinot_tpu_torch.tools.preflight",
+             "pinot_tpu_torch.engine.fused_scan"),
+            literal_patterns=(r'_Rule\(\s*"([a-z0-9_]+)"',
+                              r'ScanLimitError\(\s*"([a-z0-9_]+)"'),
+            min_sites=7, exact=True),
         ReasonNamespace(
             "routing", ROUTING_DECISION_REASONS,
             "pinot_tpu_torch.broker.routing",

@@ -18,7 +18,10 @@ reload transition).
 The segment lifecycle (JAX :189-205, :276-452): the lineage protocol
 (``start_replace_segments`` / ``end_replace_segments`` /
 ``revert_replace_segments``, ``controller/lineage.py``), which minion
-tasks follow so that no query sees both a merge's inputs and its outputs;
+tasks follow so that no query sees both a merge's inputs and its outputs
+(``end_replace_segments`` flips the entry only once every output is
+ONLINE on its live replicas, and reverts it at ``replace_timeout_s``;
+JAX's flips at once);
 ``rebalance_table``, make-before-break (every target replica added, the
 ExternalView awaited, then the old replicas dropped); and the periodic
 tasks, each taking ``now_ms`` so a test can drive a fake clock:
@@ -80,6 +83,7 @@ from pinot_tpu_torch.controller.state import (
 from pinot_tpu_torch.ingestion.stream import StreamOffset
 from pinot_tpu_torch.segment.metadata import SegmentMetadata
 from pinot_tpu_torch.spi.filesystem import MemoryDeepStore
+from pinot_tpu_torch.spi.metrics import MetricsRegistry
 from pinot_tpu_torch.spi.data import Schema
 from pinot_tpu_torch.controller.tasks import PinotTaskManager
 from pinot_tpu_torch.controller.tiers import SegmentRelocator
@@ -104,10 +108,20 @@ class Controller:
                  controller_id: str = "controller_0",
                  llc_seed: Optional[str] = None):
         self.store = store or ClusterStateStore()
+        self.metrics = MetricsRegistry(role="controller")
+        self.metrics.gauge("tables", lambda: len(self.store.table_names()))
+        self.metrics.gauge("segments", lambda: sum(
+            len(self.store.segment_names(t))
+            for t in self.store.table_names()))
+        self.metrics.gauge("live_servers", lambda: len(
+            self.store.instances("SERVER", only_alive=True)))
         self.deep_store = MemoryDeepStore()
         self.controller_id = controller_id
         self.task_manager = PinotTaskManager(self.store)
         self.lineage = SegmentLineageManager(self.store)
+        #: how long ``end_replace_segments`` waits for the outputs to be
+        #: served before it reverts the replacement
+        self.replace_timeout_s = 60.0
         self.llc = LLCRealtimeSegmentManager(self.store, seed=llc_seed)
         self.completion = SegmentCompletionManager(
             num_replicas_provider=self._num_replicas_for_segment,
@@ -244,7 +258,40 @@ class Controller:
         return self.lineage.start_replace(table, segments_from, segments_to)
 
     def end_replace_segments(self, table: str, entry_id: str) -> None:
+        """Flip the entry COMPLETED once every output is ONLINE in the
+        ExternalView on each of its live assigned replicas, so a query
+        routed after the flip finds the outputs served; past
+        ``replace_timeout_s`` the entry is reverted (the inputs stay
+        visible) and ``TimeoutError`` raised. The JAX controller flips at
+        once (``pinot_tpu/minion/tasks.py:146`` calls it right after the
+        push)."""
+        outputs = next((e.segments_to for e in self.lineage.entries(table)
+                        if e.entry_id == entry_id), None)
+        if outputs is None:
+            raise KeyError(f"no lineage entry {entry_id} for {table}")
+        deadline = time.monotonic() + self.replace_timeout_s
+        while not self._outputs_online(table, outputs):
+            if time.monotonic() >= deadline:
+                self.lineage.revert_replace(table, entry_id)
+                raise TimeoutError(
+                    f"lineage {entry_id}: outputs of {table} not ONLINE "
+                    f"after {self.replace_timeout_s}s; reverted")
+            time.sleep(0.01)
         self.lineage.end_replace(table, entry_id)
+
+    def _outputs_online(self, table: str, segments: List[str]) -> bool:
+        ideal, ev = self.store.get_many(f"idealstate/{table}",
+                                        f"externalview/{table}")
+        ideal, ev = ideal or {}, ev or {}
+        alive = {i.instance_id for i in self.store.instances(
+            "SERVER", only_alive=True)}
+        for seg in segments:
+            online = {i for i, st in ev.get(seg, {}).items()
+                      if st == ONLINE}
+            want = {i for i in ideal.get(seg, {}) if i in alive}
+            if not online or not want <= online:
+                return False
+        return True
 
     def revert_replace_segments(self, table: str, entry_id: str) -> None:
         self.lineage.revert_replace(table, entry_id)

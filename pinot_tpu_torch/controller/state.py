@@ -11,10 +11,12 @@ zxid); watchers fire outside the lock, in mutation order, one draining
 thread at a time (``_drain_notifications``), and a watcher may mutate the
 store again.
 
-Two differences from the JAX store: schemas and table configs are kept as
-objects (deep copies in and out) where JAX keeps their JSON dicts, since
-the port's configs have no JSON form; and there is no JSON snapshot file
-or mutation log (no remote replica reads them yet).
+A bounded mutation log (``mutations_since``) and ``snapshot_data`` feed
+the remote replicas of ``transport/state_service.py`` (JAX :155,
+:231-255). Schemas and table configs are kept as objects (deep copies in
+and out) where JAX keeps their JSON dicts; they cross the wire as JAX's
+dicts (``to_wire`` / ``from_wire``, by path). There is no JSON snapshot
+file.
 """
 
 from __future__ import annotations
@@ -154,6 +156,27 @@ class InstanceInfo:
 Watcher = Callable[[str, Any], None]
 
 
+# the paths whose configs the store keeps as objects, and the key their
+# JSON form always has
+_OBJECT_PATHS = (("schemas/", Schema, "schemaName"),
+                 ("tables/", TableConfig, "tableName"))
+
+
+def to_wire(value: Any) -> Any:
+    """A stored value as JSON: a schema or table config as its dict."""
+    return value.to_dict() if isinstance(value, (Schema, TableConfig)) \
+        else value
+
+
+def from_wire(path: str, value: Any) -> Any:
+    """A value read off the wire as the store keeps it at ``path``."""
+    if isinstance(value, dict):
+        for prefix, cls, key in _OBJECT_PATHS:
+            if path.startswith(prefix) and key in value:
+                return cls.from_dict(value)
+    return value
+
+
 class ClusterStateStore:
     """The single source of truth for cluster metadata.
 
@@ -176,6 +199,9 @@ class ClusterStateStore:
         self._pending: List[Tuple[str, Any]] = []  # guarded-by: _lock
         # RLock: a watcher may mutate the store, re-entering the drain
         self._notify_lock = threading.RLock()
+        # (version, path, value) of the last _LOG_CAP mutations, for the
+        # remote replicas' polls (guarded-by: _lock)
+        self._mutation_log: List[Tuple[int, str, Any]] = []
 
     @staticmethod
     def _copy(v: Any) -> Any:
@@ -201,6 +227,7 @@ class ClusterStateStore:
     def _apply_locked(self, path: str, value: Any) -> int:
         self._data[path] = value
         self._version += 1
+        self._log_locked(path, value)
         self._pending.append((path, value))
         return self._version
 
@@ -216,7 +243,8 @@ class ClusterStateStore:
         setData-with-version)."""
         value = self._copy(value)
         with self._lock:
-            if self._data.get(path) != expected:
+            # wire forms: a schema object compares by its dict
+            if to_wire(self._data.get(path)) != to_wire(expected):
                 return False
             self._apply_locked(path, value)
         self._drain_notifications()
@@ -238,9 +266,42 @@ class ClusterStateStore:
             if existed:
                 del self._data[path]
                 self._version += 1
+                self._log_locked(path, None)
                 self._pending.append((path, None))
         if existed:
             self._drain_notifications()
+
+    # -- the mutation log (the remote replicas' sync) ----------------------
+    _LOG_CAP = 10_000
+
+    def _log_locked(self, path: str, value: Any) -> None:
+        self._mutation_log.append((self._version, path, value))
+        if len(self._mutation_log) > self._LOG_CAP:
+            del self._mutation_log[:len(self._mutation_log) - self._LOG_CAP]
+
+    def mutations_since(self, since_version: int):
+        """(current version, [(version, path, wire value), ...]) after
+        ``since_version``, or (current version, None) where the log no
+        longer reaches back that far (the caller resyncs from
+        ``snapshot_data``)."""
+        with self._lock:
+            if since_version >= self._version:
+                return self._version, []
+            if (not self._mutation_log
+                    or self._mutation_log[0][0] > since_version + 1):
+                return self._version, None
+            out = [(v, p, val) for v, p, val in self._mutation_log
+                   if v > since_version]
+            ver = self._version
+        return ver, [(v, p, json.loads(json.dumps(to_wire(val))))
+                     for v, p, val in out]
+
+    def snapshot_data(self):
+        """(version, every path's wire value) for a full resync."""
+        with self._lock:
+            ver, data = self._version, dict(self._data)
+        return ver, {k: json.loads(json.dumps(to_wire(v)))
+                     for k, v in data.items()}
 
     def children(self, prefix: str) -> List[str]:
         prefix = prefix.rstrip("/") + "/"

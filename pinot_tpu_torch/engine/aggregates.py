@@ -221,7 +221,7 @@ def _final_idset(d: AggDef, s) -> str:
     """The id set serialized, base64 (what ``inIdSet`` reads)."""
     import base64
 
-    from pinot_tpu_torch.utils import serde
+    from pinot_tpu_torch.common import serde
 
     return base64.b64encode(serde.dumps(
         sorted(s, key=lambda v: (str(type(v)), v)))).decode("ascii")

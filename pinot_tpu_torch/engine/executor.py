@@ -183,6 +183,7 @@ from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.segment.mutable import is_mutable
 from pinot_tpu_torch.server.admission import AdmissionGate
 from pinot_tpu_torch.server.scheduler import WorkerPool
+from pinot_tpu_torch.engine.pallas_blocklist import PallasBlocklist
 from pinot_tpu_torch.spi.config import CommonConstants, PinotConfiguration
 from pinot_tpu_torch.utils.hll import HyperLogLog
 
@@ -247,6 +248,12 @@ class ServerQueryExecutor:
             CommonConstants.DEFAULT_WORKER_THREADS))
         self._segment_pool: Optional[WorkerPool] = None
         self._segment_pool_lock = threading.Lock()
+        # plan specs the fused scan declines with a reason each, seeded by
+        # the kernel preflight (tools/preflight.py attach_verdicts; JAX
+        # :172-179); the preflight's last verdict table for /debug/pallas
+        self._pallas_blocked = PallasBlocklist(
+            path=cfg.get(CommonConstants.PALLAS_BLOCKLIST_PATH_KEY))
+        self.preflight_verdicts: Optional[dict] = None
         # bounded slots and queue in front of execution
         self.admission = AdmissionGate.from_config(cfg)
         # identical concurrent execute() calls share one run
@@ -782,7 +789,10 @@ class ServerQueryExecutor:
         # taken per call, so an upsert plan never shares (JAX :225, :1054)
         upsert = bool(plan.params) and plan.params[0] is None
         scan = None
-        if self.use_fused_scan:
+        if self.use_fused_scan and plan.spec in self._pallas_blocked:
+            # a blocked shape declines with its reason (JAX :961-965)
+            reasons = [self._pallas_blocked.reason_for(plan.spec)]
+        elif self.use_fused_scan:
             with maybe_span(stats, "Stage", segment=seg.segment_name):
                 staged = self.stage(seg, stats)
             reasons: List[str] = []

@@ -437,6 +437,18 @@ MAX_OPERANDS = 8
 _LOG2 = {1: 0, 2: 1, 4: 2, 8: 3, 16: 4, 32: 5}
 
 
+class ScanLimitError(ValueError):
+    """A plan the kernel's fixed limits do not admit. ``reason`` is the
+    decline code (``pallas_preflight_<rule>``, the rules of
+    ``tools/preflight.py``, whose verdicts are this function's);
+    ``scan_inputs`` declines with it and the plan goes to the general
+    rung."""
+
+    def __init__(self, reason: str, message: str):
+        super().__init__(message)
+        self.reason = reason
+
+
 def _row_layout(aggs):
     """Output rows of a plan's aggregations, shared by every reader:
     int sums and float sums one row per distinct expression, min/max one
@@ -531,9 +543,11 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
     if len(bits) != len(pp.packed_names):
         raise ValueError("one bit width per packed column is required")
     if len(pp.packed_names) > MAX_COLS or len(pp.value_names) > MAX_COLS:
-        raise ValueError(f"more than {MAX_COLS} packed or value columns")
+        raise ScanLimitError("pallas_preflight_column_slots",
+                             f"more than {MAX_COLS} packed or value columns")
     if any(b not in _LOG2 for b in bits):
-        raise ValueError(f"packed widths must be one of {sorted(_LOG2)}")
+        raise ScanLimitError("pallas_preflight_tile_align",
+                             f"packed widths must be one of {sorted(_LOG2)}")
 
     filt: List[Tuple[int, int, int, int]] = []
     depth = [0, 0]   # current, max
@@ -565,7 +579,8 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
 
     emit_filter(pp.filter_tree)
     if depth[1] > MAX_FILTER_STACK:
-        raise ValueError("filter tree too deep for the scan kernel")
+        raise ScanLimitError("pallas_preflight_filter_stack",
+                             "filter tree too deep for the scan kernel")
 
     vops: List[Tuple[int, int, int, int]] = []
     exprs: List[Tuple[int, int]] = []
@@ -609,7 +624,9 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
             start = len(vops)
             d = emit_value(vexpr, 0)
             if d > MAX_VALUE_STACK:
-                raise ValueError("value expression too deep for the kernel")
+                raise ScanLimitError(
+                    "pallas_preflight_value_stack",
+                    "value expression too deep for the kernel")
             value_depth = max(value_depth, d)
             e = len(exprs)
             exprs.append((start, len(vops) - start))
@@ -625,7 +642,8 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
     for (vexpr, kind), r in mm_row.items():
         rows.append((R_MIN if kind == "min" else R_MAX, expr_id(vexpr), r))
     if len(rows) > MAX_ROWS:
-        raise ValueError(f"more than {MAX_ROWS} accumulator rows")
+        raise ScanLimitError("pallas_preflight_accumulator_rows",
+                             f"more than {MAX_ROWS} accumulator rows")
 
     sections: List[np.ndarray] = []
     offsets = []
@@ -636,7 +654,8 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
         sections.append(np.asarray(part, dtype=np.int64).reshape(-1))
     prog = np.concatenate(sections)
     if prog.size and (prog.max() > _I32_MAX or prog.min() < -_I32_MAX - 1):
-        raise ValueError("scan program value outside int32")
+        raise ScanLimitError("pallas_preflight_program_int32",
+                             "scan program value outside int32")
     scalar = not pp.group_idx
     early = tuple(sorted({op[1] for op in filt if op[0] in (F_IV, F_IVS)}))
     operands: List[Tuple[bool, int]] = []
@@ -645,7 +664,7 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
                     if op[0] in (V_COL, V_ID)]):
         if opnd not in operands:
             operands.append(opnd)
-    return ScanProgram(
+    out = ScanProgram(
         prog=prog.astype(np.int32), bits=tuple(bits),
         value_is_int=tuple(pp.value_is_int),
         filter_off=offsets[0], filter_n=len(filt), vops_off=offsets[1],
@@ -658,6 +677,12 @@ def compile_program(pp: ScanPlan, bits: Tuple[int, ...],
         log2_bits=tuple(_LOG2[b] for b in bits), early=early,
         filter_depth=depth[1], value_depth=value_depth,
         operands=tuple(operands[:MAX_OPERANDS]))
+    smem = scan_layout(out).smem
+    if smem > _SMEM_BLOCK_MAX:
+        raise ScanLimitError(
+            "pallas_preflight_smem_budget",
+            f"{smem} B of shared memory a block > {_SMEM_BLOCK_MAX} B")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1401,29 +1426,24 @@ class ScanInputs:
                                  self.num_docs, self.tiles)
 
 
-def scan_inputs(plan, staged, on_decline: Callable = None,
-                run_probe: Optional[Callable] = None
-                ) -> Optional[ScanInputs]:
-    """The scan program and staged columns of a plan over ``staged``, a
-    ``StagedSegment`` (launched through ``SEGMENT_KERNELS``) or a staged
-    segment batch (anything with ``provider``, ``packed_column``,
-    ``value_column``, ``num_docs_tensor``, ``scan_capacity`` and its own
-    ``kernels``), probing
-    first (one launch) when the group key space exceeds MAX_SCAN_GROUPS;
-    ``run_probe(prog, words, num_docs)`` launches it where given (the
-    batch executor's launcher), else the staged input's probe wrapper.
-    None when the plan is not eligible (``on_decline`` receives the reason
-    code)."""
+def _kernels_of(staged) -> ScanKernels:
+    return (SEGMENT_KERNELS if isinstance(staged, StagedSegment)
+            else staged.kernels)
 
-    def decline(reason: str) -> None:
-        if on_decline is not None:
-            on_decline(reason)
 
-    kernels = (SEGMENT_KERNELS if isinstance(staged, StagedSegment)
-               else staged.kernels)
+def scan_plan(plan, staged, decline: Callable,
+              run_probe: Optional[Callable] = None):
+    """The scan plan of ``plan`` over ``staged`` (a ``StagedSegment`` or a
+    staged batch), probing first (one launch) when the group key space
+    exceeds MAX_SCAN_GROUPS, and its packed columns: ``(ScanPlan,
+    effective plan, probe, words, bits)``, or None with the reason on
+    ``decline``. ``probe`` is the probe's (program, packed columns) or
+    None; ``run_probe(prog, words, num_docs)`` launches the probe where
+    given, else the staged input's probe wrapper."""
+    kernels = _kernels_of(staged)
     num_docs = staged.num_docs_tensor()
     S = num_docs.shape[0]
-    defer = _DeferredDecline(on_decline)
+    defer = _DeferredDecline(decline)
     pp = extract_plan(plan, staged.provider, on_decline=defer)
     eff = plan
     probe = None
@@ -1444,22 +1464,53 @@ def scan_inputs(plan, staged, on_decline: Callable = None,
             probe = (compile_program(probe_pp, bits, probe=True), words)
             return launch_probe(*probe, num_docs).to_host().mm.numpy()
 
-        res = probe_narrowed_plan(plan, staged.provider, probe_rows, decline)
+        try:
+            res = probe_narrowed_plan(plan, staged.provider, probe_rows,
+                                      decline)
+        except ScanLimitError as e:
+            decline(e.reason)
+            return None
         if res is None:
             return None
         pp, eff = res
-
     got = _stage_packed(pp, staged, S, decline)
     if got is None:
         return None
-    words, bits = got
-    vals = _stage_values(pp, staged, S, decline)
+    return (pp, eff, probe) + got
+
+
+def scan_inputs(plan, staged, on_decline: Callable = None,
+                run_probe: Optional[Callable] = None
+                ) -> Optional[ScanInputs]:
+    """The scan program and staged columns of a plan over ``staged``, a
+    ``StagedSegment`` (launched through ``SEGMENT_KERNELS``) or a staged
+    segment batch (anything with ``provider``, ``packed_column``,
+    ``value_column``, ``num_docs_tensor``, ``scan_capacity`` and its own
+    ``kernels``), through ``scan_plan``. None when the plan is not
+    eligible, or the kernel's limits do not admit its program
+    (``on_decline`` receives the reason code)."""
+
+    def decline(reason: str) -> None:
+        if on_decline is not None:
+            on_decline(reason)
+
+    got = scan_plan(plan, staged, decline, run_probe)
+    if got is None:
+        return None
+    pp, eff, probe, words, bits = got
+    num_docs = staged.num_docs_tensor()
+    vals = _stage_values(pp, staged, num_docs.shape[0], decline)
     if vals is None:
         return None
-    return ScanInputs(pp=pp, plan=eff, prog=compile_program(pp, bits),
+    try:
+        prog = compile_program(pp, bits)
+    except ScanLimitError as e:
+        decline(e.reason)
+        return None
+    return ScanInputs(pp=pp, plan=eff, prog=prog,
                       words=words, values=vals, num_docs=num_docs,
                       tiles=staged.scan_capacity() // TILE, probe=probe,
-                      kernels=kernels)
+                      kernels=_kernels_of(staged))
 
 
 @dataclass

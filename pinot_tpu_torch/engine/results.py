@@ -75,7 +75,7 @@ class ResultTable:
 # it (a kernel_flight follower, a coalesced launcher request): counted
 # where the kernel launches (engine/fused_scan.py count_launches_into),
 # so a query's counts under any concurrency equal its solo counts
-_WIRE_COUNTERS = (
+WIRE_COUNTERS = (
     ("scan_launches", "scanLaunches"),
     ("probe_launches", "probeLaunches"),
     ("sharded_scan_launches", "shardedScanLaunches"),
@@ -94,6 +94,9 @@ class QueryStats:
     num_segments_processed: int = 0
     num_segments_matched: int = 0
     num_segments_pruned: int = 0
+    # segments the broker routed to a server that no longer hosted them
+    # (dropped between the route and the server's acquire)
+    num_segments_missing: int = 0
     num_docs_scanned: int = 0
     total_docs: int = 0
     # the merged groups were cut to the executor's num_groups_limit
@@ -165,7 +168,7 @@ class QueryStats:
 
     def launch_counts(self) -> Dict[str, int]:
         """Launch count field -> the launches this query counted."""
-        return {name: getattr(self, name) for name, _wire in _WIRE_COUNTERS}
+        return {name: getattr(self, name) for name, _wire in WIRE_COUNTERS}
 
     def kernel_launches(self) -> int:
         """Every launch counted, of every kernel and rung."""
@@ -174,7 +177,7 @@ class QueryStats:
     def add_launches(self, other: "QueryStats") -> None:
         """Add the launch counts of ``other`` (the launches of a run this
         query was served by, led or ridden)."""
-        for name, _wire in _WIRE_COUNTERS:
+        for name, _wire in WIRE_COUNTERS:
             n = getattr(other, name)
             if n:
                 setattr(self, name, getattr(self, name) + n)
@@ -191,6 +194,7 @@ class QueryStats:
         keys of ``LAUNCH_MAX_KEYS`` take the max."""
         for name in ("num_segments_queried", "num_segments_processed",
                      "num_segments_matched", "num_segments_pruned",
+                     "num_segments_missing",
                      "num_docs_scanned", "total_docs",
                      "num_servers_queried", "num_servers_responded"):
             setattr(self, name, getattr(self, name) + getattr(other, name))
@@ -231,7 +235,7 @@ class QueryStats:
         ``results.py:180``), then the port's own counters under their own
         names where nonzero. The lease never goes on the wire."""
         counters = {wire: getattr(self, name)
-                    for name, wire in _WIRE_COUNTERS if getattr(self, name)}
+                    for name, wire in WIRE_COUNTERS if getattr(self, name)}
         return {
             "numSegmentsQueried": self.num_segments_queried,
             "numSegmentsProcessed": self.num_segments_processed,
@@ -240,6 +244,8 @@ class QueryStats:
             "numDocsScanned": self.num_docs_scanned,
             "totalDocs": self.total_docs,
             "numGroupsLimitReached": self.num_groups_limit_reached,
+            **({"numSegmentsMissing": self.num_segments_missing}
+               if self.num_segments_missing else {}),
             **({"numServersQueried": self.num_servers_queried,
                 "numServersResponded": self.num_servers_responded}
                if self.num_servers_queried else {}),
@@ -270,6 +276,7 @@ class QueryStats:
             num_segments_processed=st.get("numSegmentsProcessed", 0),
             num_segments_matched=st.get("numSegmentsMatched", 0),
             num_segments_pruned=st.get("numSegmentsPrunedByServer", 0),
+            num_segments_missing=st.get("numSegmentsMissing", 0),
             num_docs_scanned=st.get("numDocsScanned", 0),
             total_docs=st.get("totalDocs", 0),
             num_groups_limit_reached=st.get("numGroupsLimitReached", False),
@@ -285,7 +292,7 @@ class QueryStats:
             spans=list(st.get("spans", [])),
             decisions=dict(st.get("decisions", {})),
             rung_segments=dict(st.get("rungSegments", {})))
-        for name, wire in _WIRE_COUNTERS:
+        for name, wire in WIRE_COUNTERS:
             setattr(out, name, int(st.get(wire, 0)))
         return out
 

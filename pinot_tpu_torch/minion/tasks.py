@@ -155,10 +155,11 @@ class MergeRollupTaskExecutor(BaseTaskExecutor):
             task.table, list(task.input_segments), out_names)
         try:
             names = self._upload(ctx, task.table, out_dirs)
-            ctx.controller.end_replace_segments(task.table, entry_id)
         except Exception:
             ctx.controller.revert_replace_segments(task.table, entry_id)
             raise
+        # waits until the outputs are served; reverts itself on a timeout
+        ctx.controller.end_replace_segments(task.table, entry_id)
         # hidden by lineage now; deleting them frees their servers
         for name in task.input_segments:
             ctx.controller.delete_segment(task.table, name)

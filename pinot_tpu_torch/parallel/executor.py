@@ -555,7 +555,9 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         bname = staged.batch.segment_name
         S = staged.num_segs
         reasons: List[str] = []
-        if self.use_fused_scan:
+        if self.use_fused_scan and plan.spec in self._pallas_blocked:
+            reasons.append(self._pallas_blocked.reason_for(plan.spec))
+        elif self.use_fused_scan:
             inp = fused_scan.scan_inputs(
                 plan, staged, on_decline=reasons.append,
                 run_probe=lambda prog, words, num_docs: self._probe(

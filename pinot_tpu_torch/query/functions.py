@@ -583,7 +583,7 @@ def _value_in(a, *allowed):
 def _decode_idset(serialized_idset: str) -> frozenset:
     import base64
 
-    from pinot_tpu_torch.utils import serde
+    from pinot_tpu_torch.common import serde
 
     return frozenset(serde.loads(base64.b64decode(serialized_idset)))
 

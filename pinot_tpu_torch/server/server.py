@@ -35,7 +35,12 @@ the flight recorder its scheduler state, samples its scheduler's queue
 depth, hangs the scheduler-queue wait under a traced query's root as its
 first child (``SchedulerQueue``), and serves ``queries_debug``,
 ``telemetry_debug``, ``slo_debug``, ``freshness_debug`` and
-``flightrecorder_debug``.
+``flightrecorder_debug``; ``pallas_debug`` (JAX :647) the fused scan's
+blocklist and preflight verdicts, and ``launch_debug`` beside the
+launcher's counters the launches of the queries the server answered
+(each query's own counts). A query asked for segments the server no
+longer hosts reports how many (``numSegmentsMissing``), so the broker can
+route it again.
 
 A server with a ``segment_dir`` has its consumers write their seals
 there (``<segment_dir>/<instance>/<table>/<segment>``), and a DISCARD
@@ -49,12 +54,13 @@ the bytes on disk of each hosted segment (JAX :515), and
 
 The executor defaults to ``ServerQueryExecutor(device="cuda")``; a caller
 on the CPU passes ``executor=ServerQueryExecutor(device="cpu")``. Not part
-of this module: the kernel-blocklist debug view, and the REST routes of
-the debug views (they wait for the transport).
+of this module: the REST routes of the debug views
+(``transport/rest.py`` ``ServerAdminApi``).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import threading
@@ -73,6 +79,7 @@ from pinot_tpu_torch.controller.state import (
     InstanceInfo,
 )
 from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+from pinot_tpu_torch.engine.results import WIRE_COUNTERS
 from pinot_tpu_torch.engine.mutable_staging import resident_name
 from pinot_tpu_torch.engine.pruner import prune_segments
 from pinot_tpu_torch.ingestion.realtime import (
@@ -154,6 +161,9 @@ class ServerInstance:
         self._started = False
         self._queries_enabled = False
         self._reconcile_lock = threading.RLock()
+        # the launches of the queries answered here, by wire name
+        self._launches: Dict[str, int] = {}  # guarded-by: _launch_lock
+        self._launch_lock = threading.Lock()
         self._upsert_managers: Dict[str, Any] = {}  # guarded-by: _reconcile_lock
         # (table, segment) -> the pushed CRC an OFFLINE segment was fetched
         # at: a push under the name with another CRC is a refresh (a
@@ -470,14 +480,26 @@ class ServerInstance:
             return DataTable.for_exception(
                 f"table {table} not hosted on {self.instance_id}")
         acquired = tdm.acquire_segments(segment_names)
+        # a routed segment dropped here since the broker's route (a merge's
+        # input deleted after its swap): the broker routes the query again
+        missing = (0 if segment_names is None
+                   else len(segment_names) - len(acquired))
         t0 = time.perf_counter()
         try:
             segments = [s.segment for s in acquired]
             if not segments:
                 self.metrics.meter(ServerMeter.QUERY_EXCEPTIONS).mark()
-                return DataTable.for_exception(
+                dt = DataTable.for_exception(
                     f"no segments of {table} on {self.instance_id}")
+                dt.stats.num_segments_missing = missing
+                return dt
             dt = self.executor.execute_instance(ctx, segments)
+            self._count_launches(dt.stats)
+            if missing:
+                # on a copy: a query flight hands one table to its riders
+                dt = copy.copy(dt)
+                dt.stats = copy.copy(dt.stats)
+                dt.stats.num_segments_missing = missing
             exec_ms = (time.perf_counter() - t0) * 1e3
             # the phase timings travel in the DataTable's stats
             dt.stats.add_phase_ms(ServerQueryPhase.SCHEDULER_WAIT, wait_ms)
@@ -531,7 +553,9 @@ class ServerInstance:
                 ctx, [h.segment for h in acquired]) or \
                 [acquired[0].segment]
             for segment in kept:
-                yield self.executor.execute_instance(ctx, [segment])
+                dt = self.executor.execute_instance(ctx, [segment])
+                self._count_launches(dt.stats)
+                yield dt
         except Exception as e:  # noqa: BLE001 - errors travel in-band
             log.debug("[%s] streaming query failed", self.instance_id,
                       exc_info=True)
@@ -586,15 +610,42 @@ class ServerInstance:
                 "stagedBytes": residency.staged_bytes(),
                 "hostBytes": residency.host_bytes()}
 
+    def _count_launches(self, stats) -> None:
+        with self._launch_lock:
+            for name, wire in WIRE_COUNTERS:
+                n = getattr(stats, name)
+                if n:
+                    self._launches[wire] = self._launches.get(wire, 0) + n
+
     def launch_debug(self) -> Dict[str, Any]:
         """Launch coalescing: requests against launches, coalesced and
-        deduped counts, queue waits (disabled for the per-segment
-        executor, which has no launcher)."""
+        deduped counts, queue waits (``enabled`` False for the
+        per-segment executor, which has no launcher); and the kernel
+        launches of the queries this server answered (``launches``, the
+        port's: each query's own counts summed, a shared launch once for
+        each query it served)."""
+        with self._launch_lock:
+            launches = dict(self._launches)
         launcher = getattr(self.executor, "launcher", None)
-        if launcher is None:
-            return {"enabled": False}
-        out: Dict[str, Any] = {"enabled": True}
-        out.update(launcher.stats_snapshot())
+        out: Dict[str, Any] = {"enabled": launcher is not None}
+        if launcher is not None:
+            out.update(launcher.stats_snapshot())
+        out["launches"] = launches
+        return out
+
+    def pallas_debug(self) -> Dict[str, Any]:
+        """``GET /debug/pallas`` (JAX :647-667): the fused scan's per-shape
+        blocklist (each spec with the reason it declines with) and the
+        last preflight verdict table attached to the executor
+        (``tools/preflight.py attach_verdicts``)."""
+        bl = self.executor._pallas_blocked
+        out: Dict[str, Any] = {"blocklist": bl.snapshot(),
+                               "blockedShapes": len(bl)}
+        if bl.path:
+            out["blocklistPath"] = bl.path
+        verdicts = self.executor.preflight_verdicts
+        out["preflight"] = verdicts if verdicts is not None else {
+            "run": False}
         return out
 
     def scheduler_debug(self) -> Dict[str, Any]:

@@ -55,6 +55,8 @@ class CommonConstants:
     # is min(cpu count, 8); the port's is 1, since its per-segment work is
     # host Python under the GIL and 8 threads ran the flights 1.2-4.2x slower
     # than 1 on an H100 (chip_smoke.py phase 15e, PERF.md)
+    # the fused scan's per-shape blocklist file (engine/pallas_blocklist.py)
+    PALLAS_BLOCKLIST_PATH_KEY = "pinot.server.query.pallas.blocklist.path"
     WORKER_THREADS_KEY = "pinot.server.query.worker.threads"
     DEFAULT_WORKER_THREADS = 1
     # the server's query runners (server/scheduler.py make_scheduler):

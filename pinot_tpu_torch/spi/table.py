@@ -16,13 +16,18 @@ encoding and the chunk codec of its forward index on disk) and
 ``tier_configs`` at :441-445), cut to the knobs the port's segment
 builder, the realtime consumer (``ingestion/realtime.py``), the record
 transformers, the controller with its periodic tasks and minion task
-generators, the broker's routing and its quota honour (no JSON round trip
-of the whole table: the cluster state store keeps the config object,
-``controller/state.py``).
+generators, the broker's routing and its quota honour. Every config has
+JAX's JSON form (``to_dict`` / ``from_dict``, JAX :460-530): the same
+keys in the same order, so the remote state service and ``POST /tables``
+carry a table, and a config file loads as it does in JAX. Fields the port
+reads nowhere (the sorted column, var-length dictionaries, metric
+pre-aggregation, null handling, partial-upsert strategies, the query and
+custom maps) are kept so a config round-trips.
 """
 
 from __future__ import annotations
 
+import json
 import re
 from dataclasses import dataclass, field
 from enum import Enum
@@ -42,6 +47,24 @@ class StarTreeIndexConfig:
     function_column_pairs: List[str] = field(default_factory=list)
     max_leaf_records: int = 10_000
 
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "dimensionsSplitOrder": self.dimensions_split_order,
+            "skipStarNodeCreationForDimensions":
+                self.skip_star_node_creation_for_dimensions,
+            "functionColumnPairs": self.function_column_pairs,
+            "maxLeafRecords": self.max_leaf_records,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "StarTreeIndexConfig":
+        return cls(
+            dimensions_split_order=d.get("dimensionsSplitOrder", []),
+            skip_star_node_creation_for_dimensions=d.get(
+                "skipStarNodeCreationForDimensions", []),
+            function_column_pairs=d.get("functionColumnPairs", []),
+            max_leaf_records=d.get("maxLeafRecords", 10_000))
+
 
 @dataclass
 class SegmentPartitionConfig:
@@ -51,6 +74,13 @@ class SegmentPartitionConfig:
 
     column_partition_map: Dict[str, Dict[str, Any]] = field(
         default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"columnPartitionMap": self.column_partition_map}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SegmentPartitionConfig":
+        return cls(column_partition_map=d.get("columnPartitionMap", {}))
 
 
 @dataclass
@@ -82,6 +112,58 @@ class IndexingConfig:
         default_factory=list)
     enable_default_star_tree: bool = False
     segment_partition_config: Optional[SegmentPartitionConfig] = None
+    # recorded for the JSON form; the port's builder reads none of them
+    sorted_column: List[str] = field(default_factory=list)
+    var_length_dictionary_columns: List[str] = field(default_factory=list)
+    aggregate_metrics: bool = False
+    null_handling_enabled: bool = False
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "invertedIndexColumns": self.inverted_index_columns,
+            "rangeIndexColumns": self.range_index_columns,
+            "sortedColumn": self.sorted_column,
+            "bloomFilterColumns": self.bloom_filter_columns,
+            "textIndexColumns": self.text_index_columns,
+            "fstIndexColumns": self.fst_index_columns,
+            "noDictionaryColumns": self.no_dictionary_columns,
+            "jsonIndexColumns": self.json_index_columns,
+            "varLengthDictionaryColumns":
+                self.var_length_dictionary_columns,
+            "enableDefaultStarTree": self.enable_default_star_tree,
+            "aggregateMetrics": self.aggregate_metrics,
+            "nullHandlingEnabled": self.null_handling_enabled,
+        }
+        if self.star_tree_index_configs:
+            d["starTreeIndexConfigs"] = [
+                c.to_dict() for c in self.star_tree_index_configs]
+        if self.segment_partition_config:
+            d["segmentPartitionConfig"] = \
+                self.segment_partition_config.to_dict()
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "IndexingConfig":
+        spc = d.get("segmentPartitionConfig")
+        return cls(
+            inverted_index_columns=d.get("invertedIndexColumns") or [],
+            range_index_columns=d.get("rangeIndexColumns") or [],
+            sorted_column=d.get("sortedColumn") or [],
+            bloom_filter_columns=d.get("bloomFilterColumns") or [],
+            text_index_columns=d.get("textIndexColumns") or [],
+            fst_index_columns=d.get("fstIndexColumns") or [],
+            no_dictionary_columns=d.get("noDictionaryColumns") or [],
+            json_index_columns=d.get("jsonIndexColumns") or [],
+            var_length_dictionary_columns=d.get(
+                "varLengthDictionaryColumns") or [],
+            star_tree_index_configs=[
+                StarTreeIndexConfig.from_dict(c)
+                for c in d.get("starTreeIndexConfigs") or []],
+            enable_default_star_tree=d.get("enableDefaultStarTree", False),
+            segment_partition_config=(
+                SegmentPartitionConfig.from_dict(spc) if spc else None),
+            aggregate_metrics=d.get("aggregateMetrics", False),
+            null_handling_enabled=d.get("nullHandlingEnabled", False))
 
 
 class TableType(Enum):
@@ -128,6 +210,19 @@ class UpsertConfig:
 
     mode: UpsertMode = UpsertMode.NONE
     comparison_column: Optional[str] = None
+    partial_upsert_strategies: Dict[str, str] = field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"mode": self.mode.value,
+                "comparisonColumn": self.comparison_column,
+                "partialUpsertStrategies": self.partial_upsert_strategies}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "UpsertConfig":
+        return cls(mode=UpsertMode[d.get("mode", "NONE").upper()],
+                   comparison_column=d.get("comparisonColumn"),
+                   partial_upsert_strategies=d.get(
+                       "partialUpsertStrategies", {}))
 
 
 @dataclass
@@ -143,6 +238,29 @@ class StreamIngestionConfig:
     segment_flush_threshold_rows: int = 100_000
     segment_flush_threshold_millis: int = 6 * 3600 * 1000
     properties: Dict[str, Any] = field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "streamType": self.stream_type,
+            "topic": self.topic,
+            "decoder": self.decoder,
+            "segmentFlushThresholdRows": self.segment_flush_threshold_rows,
+            "segmentFlushThresholdMillis":
+                self.segment_flush_threshold_millis,
+            "properties": self.properties,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "StreamIngestionConfig":
+        return cls(
+            stream_type=d.get("streamType", "fake"),
+            topic=d.get("topic", ""),
+            decoder=d.get("decoder", "json"),
+            segment_flush_threshold_rows=int(
+                d.get("segmentFlushThresholdRows", 100_000)),
+            segment_flush_threshold_millis=int(
+                d.get("segmentFlushThresholdMillis", 6 * 3600 * 1000)),
+            properties=d.get("properties", {}))
 
     @classmethod
     def from_stream_configs_map(cls, m: Dict[str, Any]
@@ -192,6 +310,14 @@ class TransformConfig:
     column: str
     transform_function: str
 
+    def to_dict(self) -> Dict[str, Any]:
+        return {"columnName": self.column,
+                "transformFunction": self.transform_function}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TransformConfig":
+        return cls(d["columnName"], d["transformFunction"])
+
 
 @dataclass
 class IngestionConfig:
@@ -200,6 +326,23 @@ class IngestionConfig:
 
     filter_function: Optional[str] = None
     transform_configs: List[TransformConfig] = field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {}
+        if self.filter_function:
+            d["filterConfig"] = {"filterFunction": self.filter_function}
+        if self.transform_configs:
+            d["transformConfigs"] = [t.to_dict()
+                                     for t in self.transform_configs]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "IngestionConfig":
+        return cls(
+            filter_function=(d.get("filterConfig") or {}).get(
+                "filterFunction"),
+            transform_configs=[TransformConfig.from_dict(t)
+                               for t in d.get("transformConfigs") or []])
 
 
 @dataclass
@@ -217,11 +360,43 @@ class SegmentsValidationConfig:
     retention_time_value: Optional[int] = None
     segment_push_type: str = "APPEND"
 
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "timeColumnName": self.time_column_name,
+            "timeType": self.time_type,
+            "replication": str(self.replication),
+            "retentionTimeUnit": self.retention_time_unit,
+            "retentionTimeValue": (
+                str(self.retention_time_value)
+                if self.retention_time_value is not None else None),
+            "segmentPushType": self.segment_push_type,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SegmentsValidationConfig":
+        rtv = d.get("retentionTimeValue")
+        return cls(
+            time_column_name=d.get("timeColumnName"),
+            time_type=d.get("timeType", "MILLISECONDS"),
+            replication=int(d.get("replication", 1)),
+            retention_time_unit=d.get("retentionTimeUnit"),
+            retention_time_value=(int(rtv) if rtv not in (None, "")
+                                  else None),
+            segment_push_type=d.get("segmentPushType", "APPEND"))
+
 
 @dataclass
 class TenantConfig:
     broker: str = "DefaultTenant"
     server: str = "DefaultTenant"
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"broker": self.broker, "server": self.server}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TenantConfig":
+        return cls(broker=d.get("broker", "DefaultTenant"),
+                   server=d.get("server", "DefaultTenant"))
 
 
 @dataclass
@@ -232,6 +407,21 @@ class QuotaConfig:
     max_queries_per_second: Optional[float] = None
     storage: Optional[str] = None    # recorded, not enforced
 
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {}
+        if self.max_queries_per_second is not None:
+            d["maxQueriesPerSecond"] = str(self.max_queries_per_second)
+        if self.storage:
+            d["storage"] = self.storage
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "QuotaConfig":
+        qps = d.get("maxQueriesPerSecond")
+        return cls(max_queries_per_second=(float(qps) if qps is not None
+                                           else None),
+                   storage=d.get("storage"))
+
 
 @dataclass
 class RoutingConfig:
@@ -241,6 +431,17 @@ class RoutingConfig:
 
     instance_selector_type: str = "balanced"
     segment_pruner_types: List[str] = field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"instanceSelectorType": self.instance_selector_type,
+                "segmentPrunerTypes": self.segment_pruner_types}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "RoutingConfig":
+        return cls(
+            instance_selector_type=d.get("instanceSelectorType",
+                                         "balanced"),
+            segment_pruner_types=d.get("segmentPrunerTypes") or [])
 
 
 @dataclass
@@ -257,6 +458,25 @@ class FieldConfig:
     index_type: Optional[str] = None
     compression_codec: Optional[str] = None
     properties: Dict[str, str] = field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"name": self.name,
+                             "encodingType": self.encoding_type}
+        if self.index_type:
+            d["indexType"] = self.index_type
+        if self.compression_codec:
+            d["compressionCodec"] = self.compression_codec
+        if self.properties:
+            d["properties"] = self.properties
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "FieldConfig":
+        return cls(name=d["name"],
+                   encoding_type=d.get("encodingType", "DICTIONARY"),
+                   index_type=d.get("indexType"),
+                   compression_codec=d.get("compressionCodec"),
+                   properties=d.get("properties") or {})
 
 
 @dataclass
@@ -281,6 +501,9 @@ class TableConfig:
     task_config: Dict[str, Dict[str, str]] = field(default_factory=dict)
     # the tiers' dicts (``TierConfig.to_dict`` layout, controller/tiers.py)
     tier_configs: List[Dict[str, Any]] = field(default_factory=list)
+    # recorded for the JSON form (``query``, ``metadata.customConfigs``)
+    query_config: Dict[str, Any] = field(default_factory=dict)
+    custom_config: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
         if isinstance(self.table_type, str):
@@ -294,3 +517,80 @@ class TableConfig:
     @property
     def replication(self) -> int:
         return self.validation_config.replication
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "tableName": self.table_name_with_type,
+            "tableType": self.table_type.value,
+            "segmentsConfig": self.validation_config.to_dict(),
+            "tableIndexConfig": self.indexing_config.to_dict(),
+            "tenants": self.tenant_config.to_dict(),
+            "metadata": {"customConfigs": self.custom_config},
+        }
+        if (self.routing_config.instance_selector_type != "balanced"
+                or self.routing_config.segment_pruner_types):
+            d["routing"] = self.routing_config.to_dict()
+        if self.quota_config.to_dict():
+            d["quota"] = self.quota_config.to_dict()
+        if self.upsert_config:
+            d["upsertConfig"] = self.upsert_config.to_dict()
+        if self.stream_config:
+            d["streamConfig"] = self.stream_config.to_dict()
+        if self.ingestion_config:
+            d["ingestionConfig"] = self.ingestion_config.to_dict()
+        if self.query_config:
+            d["query"] = self.query_config
+        if self.task_config:
+            d["task"] = {"taskTypeConfigsMap": self.task_config}
+        if self.field_config_list:
+            d["fieldConfigList"] = [c.to_dict()
+                                    for c in self.field_config_list]
+        if self.tier_configs:
+            d["tierConfigs"] = self.tier_configs
+        return d
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TableConfig":
+        uc = d.get("upsertConfig")
+        sc = d.get("streamConfig")
+        if sc is not None:
+            stream_config = StreamIngestionConfig.from_dict(sc)
+        else:
+            # the reference's layout: the flat map inside tableIndexConfig
+            nested = (d.get("tableIndexConfig") or {}).get("streamConfigs")
+            stream_config = (
+                StreamIngestionConfig.from_stream_configs_map(nested)
+                if nested else None)
+        return cls(
+            table_name=d["tableName"],
+            table_type=TableType[d.get("tableType", "OFFLINE").upper()],
+            validation_config=SegmentsValidationConfig.from_dict(
+                d.get("segmentsConfig", {})),
+            indexing_config=IndexingConfig.from_dict(
+                d.get("tableIndexConfig", {})),
+            tenant_config=TenantConfig.from_dict(d.get("tenants", {})),
+            routing_config=RoutingConfig.from_dict(d.get("routing", {})),
+            quota_config=QuotaConfig.from_dict(d.get("quota", {})),
+            upsert_config=UpsertConfig.from_dict(uc) if uc else None,
+            stream_config=stream_config,
+            ingestion_config=(
+                IngestionConfig.from_dict(d["ingestionConfig"])
+                if d.get("ingestionConfig") else None),
+            query_config=d.get("query", {}),
+            custom_config=(d.get("metadata") or {}).get("customConfigs", {}),
+            task_config=(d.get("task") or {}).get("taskTypeConfigsMap", {}),
+            field_config_list=[FieldConfig.from_dict(c)
+                               for c in d.get("fieldConfigList") or []],
+            tier_configs=d.get("tierConfigs") or [])
+
+    @classmethod
+    def from_json(cls, s: str) -> "TableConfig":
+        return cls.from_dict(json.loads(s))
+
+    @classmethod
+    def from_file(cls, path: str) -> "TableConfig":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))

@@ -32,6 +32,7 @@ from pinot_tpu.tools import ssb as j_ssb
 from pinot_tpu.tools.cluster import EmbeddedCluster as JCluster
 from pinot_tpu_torch.engine.executor import ServerQueryExecutor
 from pinot_tpu_torch.engine.pruner import prune_segments
+from pinot_tpu_torch.engine.results import WIRE_COUNTERS
 from pinot_tpu_torch.query import compile_query as t_compile
 from pinot_tpu_torch.spi import data as tdata
 from pinot_tpu_torch.spi import table as ttable
@@ -503,7 +504,11 @@ def test_server_admin_calls_and_metrics(sales):
     assert dbg["scheduler"]["workers"] == 8
     assert dbg["admission"]["enabled"] in (True, False)
     assert set(dbg["queryFlight"]) == {"leaders", "hits", "inflight"}
-    assert srv.launch_debug() == {"enabled": False}   # per-segment executor
+    # a per-segment executor has no launcher; beside it, the launches of
+    # the queries the server answered, by their wire names
+    dbg = srv.launch_debug()
+    assert set(dbg) == {"enabled", "launches"} and not dbg["enabled"]
+    assert set(dbg["launches"]) <= {w for _n, w in WIRE_COUNTERS}
     mem = srv.memory_debug()
     seg = srv.hosted_segments(TABLE)[0]
     assert mem["stagedBytes"] > 0 and seg in mem["stagedSegments"]

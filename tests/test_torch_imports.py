@@ -95,15 +95,43 @@ def test_executor_import_leaves_jax_unloaded():
             "pinot_tpu_torch.controller.tiers, "
             "pinot_tpu_torch.controller.tasks, "
             "pinot_tpu_torch.minion, pinot_tpu_torch.minion.tasks, "
-            "pinot_tpu_torch.minion.worker; "
+            "pinot_tpu_torch.minion.worker, "
+            "pinot_tpu_torch.common.serde, pinot_tpu_torch.query.serde, "
+            "pinot_tpu_torch.spi.auth, "
+            "pinot_tpu_torch.controller.recommender, "
+            "pinot_tpu_torch.transport, pinot_tpu_torch.transport.rest, "
+            "pinot_tpu_torch.transport.state_service, "
+            "pinot_tpu_torch.client, pinot_tpu_torch.tools.admin, "
+            "pinot_tpu_torch.tools.preflight, "
+            "pinot_tpu_torch.engine.pallas_blocklist; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'pinot_tpu', 'triton')]; "
+            "('jax', 'jaxlib', 'pinot_tpu', 'triton', 'grpc')]; "
             "from pinot_tpu_torch.engine import _build, kernels; "
             "bad += ['built: ' + k for k in _build.BUILD_LOGS]; "
             "bad += ['launched'] * kernels.RUNG_COUNTER.launches; "
             "from pinot_tpu_torch import native; "
             "bad += ['native loaded'] * (native.library_path() is not None); "
             "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_only_the_grpc_transport_imports_grpc():
+    """``import pinot_tpu_torch`` and every other module leave ``grpc``
+    out of ``sys.modules``; the gRPC transport is the one module that
+    imports it."""
+    importers = []
+    for path in _port_files():
+        if "grpc" in set(_imported_roots(path)):
+            importers.append(os.path.relpath(path, ROOT))
+    assert importers == [os.path.join("pinot_tpu_torch", "transport",
+                                      "grpc_transport.py")]
+    code = ("import sys, pinot_tpu_torch, pinot_tpu_torch.tools.cluster, "
+            "pinot_tpu_torch.transport.rest, pinot_tpu_torch.client; "
+            "a = 'grpc' in sys.modules; "
+            "import pinot_tpu_torch.transport.grpc_transport; "
+            "sys.exit(0 if not a and 'grpc' in sys.modules else 1)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

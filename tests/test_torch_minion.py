@@ -670,6 +670,118 @@ def test_lineage_hammer(tmp_path):
                 if t.name.startswith(("minion-", "controller-periodic"))]
 
 
+def _merge_cluster(tmp_path, days=2):
+    """2 servers at replication 2, ``days`` days of 3 segments (qty d+1)
+    under a 1-day MergeRollup, and a minion run by hand."""
+    cluster = EmbeddedCluster(num_servers=2, device="cpu",
+                              data_dir=str(tmp_path))
+    cfg = _cfg(ttable, ttasks)
+    cfg.validation_config.replication = 2
+    cluster.create_table(cfg, _schema(tdata))
+    total = 0
+    for d in range(days):
+        for j in range(3):
+            lo = D0 + d * DAY_MS + j * 1000
+            cluster.ingest_rows("events_OFFLINE", _schema(tdata),
+                                _rows(range(lo, lo + 50), qty=d + 1),
+                                segment_name=f"s_{d}_{j}")
+            total += 50 * (d + 1)
+    assert cluster.wait_for_ev_converged("events_OFFLINE")
+    return cluster, cluster.add_minion(start=False), [[days * 150,
+                                                       float(total)]]
+
+
+def test_merge_outputs_not_online_keep_the_inputs(tmp_path):
+    """Outputs pushed but served nowhere (every server's fetch of them
+    fails): the swap waits for them, reverts at its timeout, and the
+    inputs keep answering. Without the wait the entry went COMPLETED, the
+    inputs were hidden and deleted, and a day's rows were gone."""
+    cluster, minion, oracle = _merge_cluster(tmp_path)
+    try:
+        cluster.controller.replace_timeout_s = 0.3
+        for server in cluster.servers.values():
+            fetch = server._fetch
+
+            def refuse(url, _fetch=fetch):
+                if "merged_" in url:
+                    raise OSError("deep store unreachable")
+                return _fetch(url)
+
+            server._fetch = refuse
+        assert cluster.controller.run_task_generation(
+            now_ms=D0 + 10 * DAY_MS)
+        assert minion.run_one_task()
+        assert cluster.query_rows(
+            "SELECT count(*), sum(qty) FROM events") == oracle
+        assert minion.tasks_failed == 1 and minion.tasks_succeeded == 0
+        assert [e["state"] for e in cluster.store.get(
+            "lineage/events_OFFLINE")] == ["REVERTED"]
+        assert {"s_0_0", "s_0_1", "s_0_2"} <= set(
+            cluster.store.segment_names("events_OFFLINE"))
+    finally:
+        cluster.shutdown()
+
+
+def test_query_routed_before_the_swap(tmp_path):
+    """A query routed to a merge's inputs reaches its server only after
+    the merge swapped them out and deleted them: the server reports the
+    segments missing and the broker routes the query again, to the
+    outputs. Without that the answer lost the inputs' rows. The route
+    given up is a decision, and the launches its servers made stay in the
+    response's counts (one stands in for each server answer: the plain
+    version counts none). The second day's segments answer in the route
+    given up, so it made launches of its own."""
+    cluster, minion, oracle = _merge_cluster(tmp_path)
+    try:
+        routed, go = threading.Event(), threading.Event()
+        blocked = []
+        for server in cluster.servers.values():
+            run = server.execute_query
+            answer = server.executor.execute_instance
+
+            def launched(ctx, segments, _answer=answer):
+                dt = _answer(ctx, segments)
+                dt.stats.scan_launches += 1
+                return dt
+
+            server.executor.execute_instance = launched
+
+            def held(ctx, table, segments=None, _run=run):
+                if not go.is_set():
+                    blocked.append(segments)
+                    routed.set()
+                    assert go.wait(timeout=20)
+                return _run(ctx, table, segments)
+
+            server.execute_query = held
+        out = []
+        client = threading.Thread(target=lambda: out.append(
+            cluster.query("SELECT count(*), sum(qty) FROM events")))
+        client.start()
+        try:
+            assert routed.wait(timeout=20)
+            assert cluster.controller.run_task_generation(
+                now_ms=D0 + 10 * DAY_MS)
+            assert minion.run_one_task() and minion.tasks_succeeded == 1
+            assert not any(n.startswith("s_0_") for n in
+                           cluster.store.segment_names("events_OFFLINE"))
+        finally:
+            go.set()
+            client.join(timeout=20)
+        assert not client.is_alive()
+        assert any(s.startswith("s_0_") for b in blocked for s in b)
+        resp = out[0]
+        assert not resp.exceptions, resp.exceptions
+        assert resp.result_table.rows == oracle
+        assert resp.stats.decisions[
+            "route:snapshot->rerouted:segments_missing"] == 1
+        served = sum(s.launch_debug()["launches"].get("scanLaunches", 0)
+                     for s in cluster.servers.values())
+        assert resp.stats.scan_launches == served >= 2
+    finally:
+        cluster.shutdown()
+
+
 def test_add_minion_needs_data_dir():
     cluster = EmbeddedCluster(num_servers=1, device="cpu")
     try:
