@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--sf 10] [--segments 8] [--seed 42] [--reps 5]
                           [--user-segments 8] [--user-rows 2500000]
-                          [--startree-sf 0.5] [--startree-only]
+                          [--startree-sf 0.25] [--startree-only]
                           [--out-dir DIR]
 
 Phases:
@@ -292,7 +292,31 @@ Phases:
      server's ``/tables/{t}/size`` and ``/debug/memory`` == the
      IdealState, then one server process killed: an answer with
      exceptions and the live server's rows;
- 14. (after 21) a realtime user-events table: 500 k rows
+ 22. (after 21, before 14) batch and stream ingestion at SSB lineorder's
+     full width (``phase_ingest``): (22a) SSB at SF0.25 in 8 parts
+     written as CSV landing files by a spawned pool (setup), a YAML job
+     spec at segmentCreationJobParallelism 8 through
+     ``run_ingestion_job(..., cluster=)`` into an EmbeddedCluster on disk
+     of 2 servers: every segment directory == the frame-built one file
+     for file (times aside), the 13 flights == the oracle on the fused
+     scan and the probe, no host-engine decision; the job at parallelism
+     1 over one file and 8 timed, push to queryable, p50 beside phase
+     16's; (22b) SegmentGenerationAndPush under a minion: 250 k rows as
+     CSV and 250 k as JSON lines, then 100 k as Avro (the second task
+     reads only that file), count and sum == the oracle after each, the
+     store's processed set, ``GET /tasks/tasktypes``; (22c) 22a's
+     segments put into an in-process MockS3Server by S3PinotFS and pushed
+     as ``s3://`` to a second table, each server copying them into its
+     segment directory: the flights == 22a's rows; one segment encrypted
+     in a ``file://`` store fetched with a KeyedStreamCrypter: the local
+     copy == the original, the store still encrypted, Q1.1 and Q3.2 on it
+     == the oracle; (22d) a realtime user-events table fed over TCP by a
+     KafkaBrokerSim of 2 partitions (100 k rows, flush 25 k), then by a
+     StreamBrokerServer (50 k rows, flush 12.5 k): count and a group-by
+     on event_type == numpy before the seals (the consuming rung) and
+     after (the fused scan on every seal), rows/s a consumer and a seal's
+     threshold to swap;
+ 14. (after 22) a realtime user-events table: 500 k rows
      as JSON messages on a one-partition MemoryStream consumed by
      RealtimeSegmentDataManager into a consuming segment on the card
      (``engine/mutable_staging.py``): (14a) at 700, 1000 and 5000 rows and
@@ -318,7 +342,7 @@ segments on the per-segment path (``index_missing_index`` and the other
 JAX codes), which every phase asserts beside its other decisions.
 Then a "rungs" line of the segments each rung served and the declines and
 paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
-kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16-21a,
+kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16-21a, 22,
 and of 13b for the query axis; the top-k, the jnp combine and the index gather are
 PyTorch ops, not hand kernels).
 Phases 4, 6, 7, 9, 10 and 11 assert launches
@@ -6076,9 +6100,10 @@ def phase_startree_disk(segs, ctxs, wants, kept_segs, device: str = "cuda"
 
 # phase 12's default SSB scale: SF1 from phase 18's arrival (at SF2 the
 # five trees took 104-157 s to build on the card's host), SF0.5 since
-# phase 21's (at SF1 90-106 s): the script must end within 1200 s on a
-# slow host too (PERF.md section 4)
-STARTREE_SF = 0.5
+# phase 21's (at SF1 90-106 s), SF0.25 since phase 22's (at SF0.5 the
+# build took 69.3 s of the phase's 93.7): the script must end within
+# 1200 s on a slow host too (PERF.md section 4)
+STARTREE_SF = 0.25
 
 
 def _phase_12(args, card: str) -> dict:
@@ -7371,6 +7396,746 @@ def _wire_logs(children) -> str:
     return " | ".join(out)
 
 
+# -- phase 22: batch and stream ingestion --------------------------------------
+
+ING_SF = 0.25           # SSB scale of 22a: 1.5 M rows (SF1's 6 M took 77 s)
+ING_PARTS = 8           # landing files of 22a, one segment each
+ING_PARALLELISM = 8     # segmentCreationJobParallelism of 22a's job
+ING_SERVERS = 2
+ING_TASK_ROWS = (250_000, 250_000, 100_000)     # 22b: CSV, JSON lines, Avro
+# 22d: rows and flush thresholds, 4 seals each (200 k Kafka rows at flush
+# 50 k took 33.8 s to consume on the H100's host, 2.6 k rows/s a consumer)
+ING_KAFKA_ROWS = 100_000
+ING_SOCKET_ROWS = 50_000
+ING_FLUSH = 25_000
+ING_SOCKET_FLUSH = 12_500
+ING_WAIT_S = 300.0      # every wait on a cluster or a stream of the phase
+ING_TABLE = "ssb_lineorder"
+ING_S3_TABLE = "ssb_s3"
+ING_TASK_TABLE = "ssb_task"
+ING_CRYPTER = "chip_smoke_keyed"
+# the phase at a size the CPU tests run
+INGEST_SMALL = dict(sf=0.002, parts=2, parallelism=2,
+                    task_rows=(3000, 3000, 1200), kafka_rows=8000,
+                    socket_rows=4000, flush=2000, socket_flush=1000)
+
+
+def _ssb_schema(name: str):
+    from pinot_tpu_torch.spi.data import FieldSpec, Schema
+    from pinot_tpu_torch.tools import ssb
+
+    return Schema(name, [FieldSpec(c, dt, ft) for c, dt, ft in ssb.COLUMNS])
+
+
+def _ssb_config(name: str, task: dict = None):
+    from pinot_tpu_torch.spi.table import SegmentsValidationConfig, TableConfig
+
+    return TableConfig(name, validation_config=SegmentsValidationConfig(
+        time_column_name="d_yearmonthnum"), task_config=task or {})
+
+
+def _text_columns(frame: dict) -> list:
+    """A decoded SSB frame's columns in ``ssb.COLUMNS`` order as lists of
+    the cells a CSV holds."""
+    from pinot_tpu_torch.tools import ssb
+
+    return [np.asarray(frame[c]).astype(str).tolist()
+            for c, _, _ in ssb.COLUMNS]
+
+
+def _write_csv(path: str, frame: dict) -> None:
+    import csv
+
+    from pinot_tpu_torch.tools import ssb
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow([c for c, _, _ in ssb.COLUMNS])
+        w.writerows(zip(*_text_columns(frame)))
+
+
+def _ingest_part(i: int, parts: int, rows: int, seed: int, csv_path: str,
+                 ref_dir: str, name: str) -> dict:
+    """22a's setup for part ``i``, in a spawned worker: the part's rows,
+    written as a CSV landing file, the segment ``SegmentBuilder`` builds
+    from the same frame (the reference for the job's directory), and each
+    flight's answer over the part. The worker must not touch the card."""
+    import torch
+
+    from pinot_tpu_torch.segment.creator import SegmentBuilder
+    from pinot_tpu_torch.tools import ssb
+
+    frame = ssb.generate_segment_frame(i, parts, rows, seed)
+    decoded = ssb.decode_frame(frame)
+    _write_csv(csv_path, decoded)
+    SegmentBuilder(_ssb_schema(ING_TABLE), name,
+                   table_config=_ssb_config(ING_TABLE)).build(decoded,
+                                                              ref_dir)
+    answers = {qid: ssb.numpy_answer(frame, qid) for qid in ssb.QUERIES}
+    if torch.cuda.is_initialized():
+        raise AssertionError(f"22a: the setup worker of part {i} "
+                             "initialised CUDA")
+    return answers
+
+
+def _dir_differences(a: str, b: str) -> list:
+    """The files of segment directories ``a`` and ``b`` that differ, the
+    metadata's creation time and star-tree build seconds aside."""
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d)
+                      for r, _dirs, fs in os.walk(d) for f in fs)
+
+    out = sorted(set(files(a)) ^ set(files(b)))
+    for rel in files(a):
+        if rel in out:
+            continue
+        with open(os.path.join(a, rel), "rb") as fa, \
+                open(os.path.join(b, rel), "rb") as fb:
+            x, y = fa.read(), fb.read()
+        if rel == "metadata.json":
+            x, y = json.loads(x), json.loads(y)
+            for k in ("creationTimeMs", "starTreeBuildS"):
+                x.pop(k, None)
+                y.pop(k, None)
+        if x != y:
+            out.append(rel)
+    return out
+
+
+def _flight_sqls(table: str) -> dict:
+    from pinot_tpu_torch.tools import ssb
+
+    return {qid: (q + " LIMIT 100000").replace(
+        "FROM ssb_lineorder", f"FROM {table}")
+        for qid, q in ssb.QUERIES.items()}
+
+
+def _ingest_flights(cluster, sqls: dict, wants: dict, reps: int,
+                    counters: dict, on_card: bool, what: str) -> dict:
+    """The 13 flights through ``cluster.query`` ``reps`` times, clean,
+    full and == ``wants``, on the fused scan (probe first for Q3.2 and
+    Q4.3) and never on the host engine. -> p50 ms and rows per flight."""
+    out = {}
+    for qid, sql in sqls.items():
+        n0 = {k: c.launches for k, c in counters.items()}
+        lat, resp = [], None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            resp = cluster.query(sql)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            _front_check(f"{what} {qid}", resp, wants[qid])
+        host = [k for k in resp.stats.decisions if "host_engine" in k]
+        scans = counters["fused_scan"].launches - n0["fused_scan"]
+        probes = (counters["fused_scan_probe"].launches
+                  - n0["fused_scan_probe"])
+        if host or (on_card and (scans == 0 or (
+                qid in PROBE_FLIGHTS) != (probes > 0))):
+            raise AssertionError(f"{what} {qid}: {scans} scans, {probes} "
+                                 f"probes, host decisions {host}")
+        out[qid] = {"p50_ms": float(np.percentile(lat, 50)),
+                    "rows": resp.result_table.rows, "scans": scans,
+                    "probes": probes}
+    return out
+
+
+def phase_ingest(reps: int, device: str = "cuda", front: dict = None,
+                 sf: float = ING_SF, parts: int = ING_PARTS,
+                 parallelism: int = ING_PARALLELISM,
+                 task_rows: tuple = ING_TASK_ROWS,
+                 kafka_rows: int = ING_KAFKA_ROWS,
+                 socket_rows: int = ING_SOCKET_ROWS,
+                 flush: int = ING_FLUSH,
+                 socket_flush: int = ING_SOCKET_FLUSH,
+                 seed: int = 22) -> dict:
+    """Phase 22: batch and stream ingestion on the card, at SSB
+    ``lineorder``'s full width (17 columns). ``front``: phase 16's
+    flights, whose p50 22a's stand beside.
+
+    (22a) SSB at ``sf`` from ``ssb.generate_segment_frame`` in ``parts``
+    parts, each written as a CSV landing file by a spawned pool (setup,
+    timed apart); the job at parallelism 1 over one file, then a YAML job
+    spec (``SegmentCreationAndTarPush``, ``segmentCreationJobParallelism``
+    ``parallelism``) through ``run_ingestion_job(..., cluster=)`` into an
+    ``EmbeddedCluster(data_dir=...)`` of ``ING_SERVERS`` servers (no
+    star-tree): every segment directory equal, file for file, to the one
+    ``SegmentBuilder`` writes from the same frame, the times aside; the
+    13 flights through ``cluster.query`` == the oracle merged over the
+    parts, on the fused scan (the probe for Q3.2 and Q4.3), no host-engine
+    decision. (22b) SegmentGenerationAndPush under a minion on a landing
+    directory of a CSV and a JSON-lines file, then an Avro file written
+    by ``write_container``: the second task reads only it, the store's
+    processed set holds all three, count(*) and sum(lo_revenue) == the
+    oracle after each, ``GET /tasks/tasktypes`` lists the type. (22c)
+    22a's segments copied into an in-process ``MockS3Server`` by
+    ``S3PinotFS``, registered under ``s3://`` as a second table whose
+    servers copy them into their segment directories: the flights ==
+    22a's rows; one segment encrypted in a ``file://`` store, fetched with
+    the crypter: the local copy == the original, the store still
+    encrypted, Q1.1 and Q3.2 on it through a ``ServerQueryExecutor`` ==
+    the part's oracle. (22d) a realtime user-events table fed by a
+    ``KafkaBrokerSim`` of 2 partitions over TCP (``kafka_rows`` JSON rows,
+    flush ``flush``), then one by a ``StreamBrokerServer``
+    (``socket_rows``): count(*) and a group-by on event_type == numpy
+    before the seals (on the consuming rung) and after (the fused scan on
+    the seals)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.tools.cluster import EmbeddedCluster
+
+    on_card = device == "cuda"
+    t_all = time.perf_counter()
+    counters = scan_counters()
+    _reset(counters)
+    launches = {name: 0 for name in counters}
+
+    def add_launches():
+        for name, c in counters.items():
+            launches[name] += c.launches
+        _reset(counters)
+
+    out: dict = {}
+    root = tempfile.mkdtemp(prefix="pinot_ingest_")
+    cluster = EmbeddedCluster(num_servers=ING_SERVERS, device=device,
+                              data_dir=os.path.join(root, "cluster"))
+    try:
+        batch = _ingest_batch(cluster, root, reps, device, front, sf, parts,
+                              parallelism, seed, counters, add_launches)
+        out["batch"] = batch["report"]
+        out["task"] = _ingest_task(cluster, root, task_rows, seed,
+                                   counters)
+        add_launches()
+        out["s3"] = _ingest_s3(cluster, root, batch, reps, device, counters)
+        add_launches()
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    out["streams"] = _ingest_streams(device, kafka_rows, socket_rows, flush,
+                                     socket_flush, seed, counters)
+    add_launches()
+    out["launches"] = launches
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 22: {out['seconds']:.1f} s; fused launches {launches}")
+    return out
+
+
+def _ingest_batch(cluster, root, reps, device, front, sf, parts,
+                  parallelism, seed, counters, add_launches) -> dict:
+    """22a (see ``phase_ingest``)."""
+    import multiprocessing as mp
+
+    import torch
+    import yaml
+
+    from pinot_tpu_torch.ingestion.batchjob import (
+        SegmentGenerationJobRunner,
+        SegmentGenerationJobSpec,
+        run_ingestion_job,
+    )
+    from pinot_tpu_torch.tools import ssb
+
+    on_card = device == "cuda"
+    land, ref, one = (os.path.join(root, d)
+                      for d in ("landing", "reference", "one_file"))
+    os.makedirs(land)
+    os.makedirs(ref)
+    rows_each = ssb.segment_rows(parts, int(sf * ssb.ROWS_PER_SF))
+    names = [f"{ING_TABLE}_batch_{i}" for i in range(len(rows_each))]
+    files = [os.path.join(land, f"part_{i}.csv")
+             for i in range(len(rows_each))]
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(min(parallelism,
+                                          len(rows_each))) as pool:
+        answers = pool.starmap(_ingest_part, [
+            (i, len(rows_each), n, seed, files[i], ref, names[i])
+            for i, n in enumerate(rows_each)])
+    write_s = time.perf_counter() - t0
+    rows = sum(rows_each)
+    wants = {qid: ssb.merge_answers([a[qid] for a in answers])
+             for qid in ssb.QUERIES}
+    csv_bytes = sum(os.path.getsize(f) for f in files)
+    log(f"  22a setup: SSB SF{sf}, {rows} rows in {len(files)} CSV files "
+        f"({csv_bytes} bytes), the frame-built segments and the oracle in "
+        f"a spawned pool of {min(parallelism, len(files))}: {write_s:.1f} s")
+
+    schema, cfg = _ssb_schema(ING_TABLE), _ssb_config(ING_TABLE)
+    cluster.create_table(cfg, schema)
+    with open(os.path.join(root, f"{ING_TABLE}_schema.json"), "w") as f:
+        json.dump(schema.to_dict(), f)
+    with open(os.path.join(root, f"{ING_TABLE}_offline_table_config.json"),
+              "w") as f:
+        json.dump(cfg.to_dict(), f)
+    job = {"jobType": "SegmentCreationAndTarPush",
+           "inputDirURI": "landing",
+           "includeFileNamePattern": "glob:**/*.csv",
+           "outputDirURI": "segments",
+           "segmentCreationJobParallelism": parallelism,
+           "tableSpec": {
+               "tableName": ING_TABLE,
+               "schemaURI": f"{ING_TABLE}_schema.json",
+               "tableConfigURI": f"{ING_TABLE}_offline_table_config.json"},
+           "recordReaderSpec": {"dataFormat": "csv"}}
+    spec_file = os.path.join(root, "ingestionJobSpec.yaml")
+    with open(spec_file, "w") as f:
+        yaml.safe_dump(job, f)
+
+    # the job at parallelism 1 over one file, in this process
+    spec1 = SegmentGenerationJobSpec.from_yaml(spec_file)
+    spec1.resolve_relative(root)
+    spec1.output_dir_uri, spec1.parallelism = one, 1
+    t0 = time.perf_counter()
+    (one_dir,) = SegmentGenerationJobRunner(spec1).run_files(files[:1])
+    one_s = time.perf_counter() - t0
+    diff = _dir_differences(one_dir, os.path.join(ref, names[0]))
+    if diff:
+        raise AssertionError(f"22a: the one-file job's directory differs "
+                             f"from the frame-built one in {diff}")
+
+    class PushClock:
+        """The cluster as ``run_ingestion_job`` pushes into it, with the
+        time of its first push (the builds end there)."""
+
+        def __init__(self):
+            self.first = None
+
+        def upload_segment_dir(self, table, seg_dir):
+            if self.first is None:
+                self.first = time.perf_counter()
+            return cluster.upload_segment_dir(table, seg_dir)
+
+    clock = PushClock()
+    t0 = time.perf_counter()
+    dirs = run_ingestion_job(spec_file, cluster=clock)
+    if not cluster.wait_for_ev_converged(cfg.table_name_with_type,
+                                         timeout_s=ING_WAIT_S):
+        raise AssertionError("22a: the ExternalView did not converge")
+    for srv in cluster.servers.values():
+        srv.executor.residency.drain_prefetch()
+    if on_card:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    job_s, push_s = clock.first - t0, t1 - clock.first
+    bad = {os.path.basename(d): _dir_differences(
+        d, os.path.join(ref, os.path.basename(d))) for d in dirs}
+    bad = {k: v for k, v in bad.items() if v}
+    if sorted(map(os.path.basename, dirs)) != sorted(names) or bad:
+        raise AssertionError(f"22a: directories {sorted(dirs)} differ from "
+                             f"the frame-built ones: {bad}")
+    log(f"  22a: the job at parallelism 1, one file of {rows_each[0]} rows: "
+        f"{one_s:.2f} s ({rows_each[0] / one_s:.0f} rows/s); at "
+        f"parallelism {parallelism}, {len(files)} files: {job_s:.2f} s "
+        f"({rows / job_s:.0f} rows/s); push to queryable {push_s:.2f} s; "
+        f"{len(dirs)} directories == the frame-built ones file for file")
+
+    add_launches()
+    sqls = _flight_sqls(ING_TABLE)
+    for qid, sql in sqls.items():      # an untimed pass stages the columns
+        _front_check(f"22a {qid}", cluster.query(sql), wants[qid])
+    flights = _ingest_flights(cluster, sqls, wants, reps, counters,
+                              on_card, "22a")
+    add_launches()
+    report = {"sf": sf, "rows": rows, "files": len(files),
+              "csv_bytes": csv_bytes, "write_s": write_s,
+              "one_file_rows": rows_each[0], "one_file_s": one_s,
+              "one_file_rows_per_s": rows_each[0] / one_s,
+              "parallelism": parallelism, "job_s": job_s,
+              "job_rows_per_s": rows / job_s, "push_to_queryable_s": push_s,
+              "flights": {q: {"p50_ms": f["p50_ms"],
+                              "phase16_p50_ms": (front[q]["p50_ms"]
+                                                 if front else None),
+                              "scans": f["scans"], "probes": f["probes"]}
+                          for q, f in flights.items()}}
+    log("  22a: 13 flights == the oracle on the fused scan, no host "
+        "engine; p50 ms (phase 16's) " + ", ".join(
+            f"{q} {f['p50_ms']:.1f}" + (f" ({f['phase16_p50_ms']:.1f})"
+                                         if f["phase16_p50_ms"] else "")
+            for q, f in report["flights"].items()))
+    return {"report": report, "dirs": dirs, "wants": wants,
+            "answers": answers, "rows": {q: f["rows"]
+                                         for q, f in flights.items()}}
+
+
+def _ingest_task(cluster, root, task_rows, seed, counters) -> dict:
+    """22b (see ``phase_ingest``)."""
+    import urllib.request
+
+    from pinot_tpu_torch.controller.tasks import (
+        SEGMENT_GENERATION_AND_PUSH_TASK,
+        ingested_files_path,
+    )
+    from pinot_tpu_torch.ingestion.avro import write_container
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.transport.rest import serve_cluster
+
+    t_all = time.perf_counter()
+    land = os.path.join(root, "task_landing")
+    os.makedirs(land)
+    table = ING_TASK_TABLE + "_OFFLINE"
+    frames = [ssb.generate_segment_frame(i, len(task_rows), n, seed + 1)
+              for i, n in enumerate(task_rows)]
+    t0 = time.perf_counter()
+    _write_csv(os.path.join(land, "a.csv"), ssb.decode_frame(frames[0]))
+    with open(os.path.join(land, "b.json"), "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in ssb.frame_rows(frames[1]))
+    write_s = time.perf_counter() - t0
+    cluster.create_table(_ssb_config(ING_TASK_TABLE, {
+        SEGMENT_GENERATION_AND_PUSH_TASK: {"inputDirURI": land}}),
+        _ssb_schema(ING_TASK_TABLE))
+    minion = cluster.add_minion(start=False)
+    now = int(time.time() * 1000)
+    sql = (f"SELECT count(*), sum(lo_revenue) FROM {ING_TASK_TABLE}")
+
+    def check(k: int, what: str) -> None:
+        if not cluster.wait_for_ev_converged(table, timeout_s=ING_WAIT_S):
+            raise AssertionError(f"{what}: the ExternalView did not converge")
+        resp = cluster.query(sql)
+        _full(what, resp)
+        want = (sum(len(f["lo_revenue"]) for f in frames[:k]),
+                sum(int(f["lo_revenue"].sum()) for f in frames[:k]))
+        got = resp.result_table.rows
+        if len(got) != 1 or got[0][0] != want[0] \
+                or float(got[0][1]) != float(want[1]):
+            raise AssertionError(f"{what}: {got} != {want}")
+
+    def one_round(what: str) -> tuple:
+        t0 = time.perf_counter()
+        made = cluster.controller.run_task_generation(now_ms=now)
+        if len(made) != 1:
+            raise AssertionError(f"{what}: {len(made)} tasks generated")
+        task = cluster.controller.task_manager.get(made[0])
+        if not minion.run_one_task() or minion.tasks_failed:
+            raise AssertionError(f"{what}: the task failed: " + str(
+                [t.error for t in cluster.controller.task_manager
+                 .list_tasks(status="ERROR")]))
+        return json.loads(task.configs["inputFiles"]), \
+            time.perf_counter() - t0
+
+    first, first_s = one_round("22b first")
+    check(2, "22b first")
+    t0 = time.perf_counter()
+    avro_schema = {"type": "record", "name": "lineorder", "fields": [
+        {"name": c, "type": "int" if dt.is_numeric else "string"}
+        for c, dt, _ in ssb.COLUMNS]}
+    write_container(os.path.join(land, "c.avro"), avro_schema,
+                    ssb.frame_rows(frames[2]))
+    avro_s = time.perf_counter() - t0
+    second, second_s = one_round("22b second")
+    if [os.path.basename(p) for p in first] != ["a.csv", "b.json"] \
+            or [os.path.basename(p) for p in second] != ["c.avro"]:
+        raise AssertionError(f"22b: tasks read {first} then {second}")
+    done = cluster.store.get(ingested_files_path(table)) or {}
+    if sorted(done) != ["a.csv", "b.json", "c.avro"]:
+        raise AssertionError(f"22b: processed set {sorted(done)}")
+    check(3, "22b second")
+    if cluster.controller.run_task_generation(now_ms=now):
+        raise AssertionError("22b: a third task was generated")
+    apis = serve_cluster(cluster)
+    try:
+        with urllib.request.urlopen(
+                f"http://localhost:{apis[0].port}/tasks/tasktypes",
+                timeout=ING_WAIT_S) as r:
+            types = json.loads(r.read().decode())
+    finally:
+        for api in apis:
+            api.stop()
+    if SEGMENT_GENERATION_AND_PUSH_TASK not in types:
+        raise AssertionError(f"22b: /tasks/tasktypes {types}")
+    rep = {"rows": list(task_rows), "write_s": write_s, "avro_write_s": avro_s,
+           "first_task_s": first_s, "second_task_s": second_s,
+           "segments": len(cluster.store.segment_names(table)),
+           "seconds": time.perf_counter() - t_all}
+    log(f"  22b: SegmentGenerationAndPush, CSV {task_rows[0]} + JSON lines "
+        f"{task_rows[1]} rows in {first_s:.2f} s (written in "
+        f"{write_s:.2f} s), then Avro {task_rows[2]} rows (written in "
+        f"{avro_s:.2f} s) alone in {second_s:.2f} s; processed set "
+        f"{sorted(done)}; count and sum(lo_revenue) == the oracle after "
+        f"each; /tasks/tasktypes lists {SEGMENT_GENERATION_AND_PUSH_TASK}")
+    return rep
+
+
+def _ingest_s3(cluster, root, batch, reps, device, counters) -> dict:
+    """22c (see ``phase_ingest``)."""
+    import shutil
+
+    import torch
+
+    from pinot_tpu_torch.engine.executor import ServerQueryExecutor
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.segment.immutable import load_segment
+    from pinot_tpu_torch.segment.metadata import METADATA_FILE, SegmentMetadata
+    from pinot_tpu_torch.spi.crypt import (
+        KeyedStreamCrypter,
+        get_crypter,
+        register_crypter,
+    )
+    from pinot_tpu_torch.spi.filesystem import fetch_segment, file_url
+    from pinot_tpu_torch.spi.s3fs import MockS3Server, S3PinotFS
+
+    on_card = device == "cuda"
+    t_all = time.perf_counter()
+    dirs = batch["dirs"]
+    table = ING_S3_TABLE + "_OFFLINE"
+    s3 = MockS3Server().start()
+    env = {"PINOT_S3_ENDPOINT": s3.endpoint,
+           "AWS_ACCESS_KEY_ID": s3.access_key,
+           "AWS_SECRET_ACCESS_KEY": s3.secret_key,
+           "AWS_REGION": s3.region}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        fs = S3PinotFS()
+        urls = [f"s3://pinot-deep-store/{os.path.basename(d)}" for d in dirs]
+        t0 = time.perf_counter()
+        for d, url in zip(dirs, urls):
+            fs.copy_from_local_dir(d, url)
+        put_s = time.perf_counter() - t0
+        nbytes = sum(_dir_bytes(d) for d in dirs)
+        probe = os.path.join(root, "s3_probe")
+        t0 = time.perf_counter()
+        got = [fetch_segment(url, probe) for url in urls]
+        fetch_s = time.perf_counter() - t0
+        bad = {u: _dir_differences(d, g)
+               for u, d, g in zip(urls, dirs, got)}
+        bad = {k: v for k, v in bad.items() if v}
+        if bad:
+            raise AssertionError(f"22c: fetched copies differ: {bad}")
+        shutil.rmtree(probe)
+        cluster.create_table(_ssb_config(ING_S3_TABLE),
+                             _ssb_schema(ING_S3_TABLE))
+        t0 = time.perf_counter()
+        for d, url in zip(dirs, urls):
+            cluster.controller.add_segment(
+                table, SegmentMetadata.load(os.path.join(d, METADATA_FILE)),
+                url)
+        if not cluster.wait_for_ev_converged(table, timeout_s=ING_WAIT_S):
+            raise AssertionError("22c: the ExternalView did not converge")
+        for srv in cluster.servers.values():
+            srv.executor.residency.drain_prefetch()
+        if on_card:
+            torch.cuda.synchronize()
+        push_s = time.perf_counter() - t0
+        hosted = [getattr(m.segment, "segment_dir", None)
+                  for srv in cluster.servers.values()
+                  for tdm in [srv.data_manager.get(table)] if tdm is not None
+                  for m in tdm._segments.values()]
+        if len(hosted) != len(dirs) or not all(
+                h and h.startswith(cluster.server_segment_dir)
+                for h in hosted):
+            raise AssertionError(f"22c: hosted copies {hosted}")
+        sqls = _flight_sqls(ING_S3_TABLE)
+        for qid, sql in sqls.items():
+            _front_check(f"22c {qid}", cluster.query(sql),
+                         batch["wants"][qid])
+        flights = _ingest_flights(cluster, sqls, batch["wants"], reps,
+                                  counters, on_card, "22c")
+        for qid, f in flights.items():
+            _identical_rows(f"22c {qid}", f["rows"], batch["rows"][qid])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        s3.stop()
+
+    # a crypter on a file:// store: the local copy decrypted, the store not
+    register_crypter(ING_CRYPTER,
+                     lambda: KeyedStreamCrypter(b"chip-smoke-phase-22"))
+    store = os.path.join(root, "encrypted_store")
+    enc = os.path.join(store, os.path.basename(dirs[0]))
+    shutil.copytree(dirs[0], enc)
+    crypter = get_crypter(ING_CRYPTER)
+    for r, _dirs, fs_ in os.walk(enc):
+        for f in fs_:
+            crypter.encrypt(os.path.join(r, f))
+    t0 = time.perf_counter()
+    local = fetch_segment(file_url(enc), os.path.join(root, "decrypted"),
+                          crypter=ING_CRYPTER)
+    decrypt_s = time.perf_counter() - t0
+    if _dir_differences(dirs[0], local) or os.path.samefile(local, enc):
+        raise AssertionError("22c: the decrypted copy differs from the "
+                             "original")
+    still = []
+    for r, _dirs, fs_ in os.walk(enc):
+        for f in fs_:
+            with open(os.path.join(r, f), "rb") as fh:
+                if fh.read(len(KeyedStreamCrypter._MAGIC)) \
+                        != KeyedStreamCrypter._MAGIC:
+                    still.append(f)
+    if still:
+        raise AssertionError(f"22c: the store's files were decrypted: "
+                             f"{still}")
+    ex = ServerQueryExecutor(device=device)
+    try:
+        seg = load_segment(local)
+        part0 = batch["answers"][0]
+        for qid in ("Q1.1", "Q3.2"):
+            table_ = ex.execute(compile_query(
+                _flight_sqls(ING_TABLE)[qid]), [seg])[0]
+            _check_flight(f"22c decrypted {qid}", table_, part0[qid])
+    finally:
+        ex.close()
+        ex.residency.close()
+    rep = {"segments": len(dirs), "bytes": nbytes, "put_s": put_s,
+           "fetch_s": fetch_s, "fetch_mb_per_s": nbytes / 1e6 / fetch_s,
+           "push_to_queryable_s": push_s,
+           "p50_ms": {q: f["p50_ms"] for q, f in flights.items()},
+           "decrypt_s": decrypt_s, "seconds": time.perf_counter() - t_all}
+    log(f"  22c: {len(dirs)} segments ({nbytes} bytes) put into the mock S3 "
+        f"in {put_s:.2f} s, fetched at {rep['fetch_mb_per_s']:.1f} MB/s; "
+        f"s3:// push to queryable {push_s:.2f} s (each server's own copy); "
+        f"the 13 flights == 22a's rows; a crypted file:// segment fetched "
+        f"and decrypted in {decrypt_s:.2f} s == the original, the store "
+        "still encrypted, Q1.1 and Q3.2 on it == the part's oracle")
+    return rep
+
+
+def _ingest_streams(device, kafka_rows, socket_rows, flush, socket_flush,
+                    seed, counters) -> dict:
+    """22d (see ``phase_ingest``)."""
+    import dataclasses
+
+    from pinot_tpu_torch.ingestion.kafkawire import KafkaBrokerSim
+    from pinot_tpu_torch.ingestion.socketstream import (
+        BROKER_URL_PROP,
+        StreamBrokerServer,
+        create_topic,
+        produce,
+    )
+    from pinot_tpu_torch.tools import usertable
+    from pinot_tpu_torch.tools.cluster import EmbeddedCluster
+
+    on_card = device == "cuda"
+    out = {}
+    frame = usertable.generate_frame(0, 1, max(kafka_rows, socket_rows),
+                                     seed)
+    messages = usertable.frame_messages(frame)
+    cluster = EmbeddedCluster(num_servers=ING_SERVERS, device=device)
+    kafka = KafkaBrokerSim().start()
+    sock = StreamBrokerServer().start()
+    try:
+        def table(stream_type, topic, props, flush):
+            cfg = usertable.realtime_table_config(topic, flush)
+            cfg.stream_config = dataclasses.replace(
+                cfg.stream_config, stream_type=stream_type,
+                properties=props)
+            return cfg
+
+        def fill(put, rows, flush):
+            """Produce rows ``[0, first)`` and wait for them (below the
+            flush), then the rest; -> (rows/s a consumer, the check of
+            each step)."""
+            first = min(flush // 2, rows)
+            for p in (0, 1):
+                put(messages[p:first:2], p)
+            if not cluster.wait_for_docs("user_events", first,
+                                         timeout_s=ING_WAIT_S):
+                raise AssertionError(f"22d: {first} rows never counted")
+            before = _ingest_stream_check(cluster, frame, first, counters,
+                                          on_card, sealed=False)
+            t0 = time.perf_counter()
+            for p in (0, 1):
+                put(messages[first + p:rows:2], p)
+            _settled(cluster, "user_events_REALTIME", "22d")
+            consume_s = time.perf_counter() - t0
+            after = _ingest_stream_check(cluster, frame, rows, counters,
+                                         on_card, sealed=True)
+            seals = _seal_report(cluster, "user_events_REALTIME")
+            return {"rows": rows, "flush": flush, "consume_s": consume_s,
+                    "rows_per_s_a_consumer":
+                        (rows - first) / 2 / consume_s,
+                    "before": before, "after": after, "seals": seals}
+
+        topic = f"ingest_kafka_{seed}"
+        kafka.create_topic(topic, 2)
+        cluster.create_table(table("kafka", topic, {
+            "stream.kafka.broker.list": f"{kafka.host}:{kafka.port}"},
+            flush), usertable.user_schema())
+        out["kafka"] = fill(
+            lambda msgs, p: kafka.produce(topic, [m.encode() for m in msgs],
+                                          partition=p), kafka_rows, flush)
+        cluster.controller.delete_table("user_events_REALTIME")
+        if not _until_none(cluster, "user_events_REALTIME"):
+            raise AssertionError("22d: consumers outlived the table")
+
+        topic = f"ingest_socket_{seed}"
+        create_topic(sock.url, topic, 2, timeout=ING_WAIT_S)
+        cluster.create_table(table("socket", topic,
+                                   {BROKER_URL_PROP: sock.url},
+                                   socket_flush), usertable.user_schema())
+        out["socket"] = fill(
+            lambda msgs, p: produce(sock.url, topic,
+                                    [json.loads(m) for m in msgs],
+                                    partition=p, timeout=ING_WAIT_S),
+            socket_rows, socket_flush)
+        cluster.controller.delete_table("user_events_REALTIME")
+        if not _until_none(cluster, "user_events_REALTIME"):
+            raise AssertionError("22d: consumers outlived the table")
+    finally:
+        cluster.shutdown()
+        kafka.stop()
+        sock.stop()
+    for name, r in out.items():
+        s = r["seals"]
+        log(f"  22d {name}: {r['rows']} rows on 2 partitions over TCP, "
+            f"flush {r['flush']}: {s['seals']} seals, "
+            f"{r['rows_per_s_a_consumer']:.0f} rows/s a consumer (phase "
+            f"17 from memory: 7.9-11.6 k), threshold to swap p50 "
+            f"{(s['threshold_to_swap_s'] or {}).get('p50', 0):.3f} s; "
+            f"count and event_type == numpy before the seals (consuming "
+            f"rung on {r['before']['consuming']} segments) and after "
+            f"({r['after']['scans']} fused launches on "
+            f"{r['after']['sealed']} seals)")
+    return out
+
+
+def _ingest_stream_check(cluster, frame, rows, counters, on_card,
+                         sealed: bool) -> dict:
+    """count(*) and count by event_type of the first ``rows`` rows through
+    ``cluster.query`` == numpy; before the seals the group-by runs on the
+    consuming rung, after them its star-tree opt-out on the fused scan
+    over every seal."""
+    from pinot_tpu_torch.tools import usertable
+
+    want_types = np.bincount(np.asarray(frame["event_type"][:rows]),
+                             minlength=len(usertable.EVENT_TYPES))
+    want = sorted([usertable.EVENT_TYPES[i], int(n)]
+                  for i, n in enumerate(want_types) if n)
+    resp = cluster.query("SELECT count(*) FROM user_events")
+    _full("22d count", resp)
+    if resp.result_table.rows[0][0] != rows:
+        raise AssertionError(f"22d: count {resp.result_table.rows} != "
+                             f"{rows}")
+    counts = _segment_counts(cluster, "user_events_REALTIME")
+    sql = ("SELECT event_type, count(*) FROM user_events GROUP BY "
+           "event_type ORDER BY event_type LIMIT 10")
+    if sealed:
+        sql += " OPTION(useStarTree=false)"
+    n0 = counters["fused_scan"].launches
+    resp = cluster.query(sql)
+    _full("22d event_type", resp)
+    got = sorted([r[0], int(r[1])] for r in resp.result_table.rows)
+    if got != want:
+        raise AssertionError(f"22d: event_type {got} != {want}")
+    rungs = resp.stats.rung_segments
+    scans = counters["fused_scan"].launches - n0
+    consuming = rungs.get("mutable_device", 0)
+    if not sealed and (counts["ONLINE"] or not consuming):
+        raise AssertionError(f"22d: before the seals {counts}, rungs "
+                             f"{rungs}")
+    if sealed and (not counts["ONLINE"]
+                   or (on_card and scans != counts["ONLINE"])):
+        raise AssertionError(f"22d: {scans} fused launches on "
+                             f"{counts['ONLINE']} seals, rungs {rungs}")
+    return {"sealed": counts["ONLINE"], "consuming": consuming,
+            "scans": scans}
+
+
 def _phases_2_to_11(args, smi: str) -> tuple:
     """Phases 2-11 and 13a-b: the fused-scan kernel, every earlier path,
     then residency and coalescing on phase 4's segments. -> (their
@@ -7530,6 +8295,14 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 21: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 22 (after 21, before 14): batch and stream ingestion: SSB "
+        f"SF{ING_SF} as {ING_PARTS} CSV files through the job at "
+        f"parallelism {ING_PARALLELISM} (22a), SegmentGenerationAndPush "
+        "under a minion (22b), an s3:// deep store and a crypter (22c), "
+        "the Kafka wire and socket streams (22d)")
+    ingest_run = phase_ingest(args.reps, front=front_run["flights"])
+    gc.collect()
+    torch.cuda.empty_cache()
     realtime_run = _phase_14(args)
     timing += realtime_run.pop("timing")
     for k, v in realtime_run["errs"].items():
@@ -7545,7 +8318,8 @@ def _phases_2_to_11(args, smi: str) -> tuple:
                 text_run["launches"], realtime_run["launches"],
                 front_run["launches"], rt_cluster_run["launches"],
                 trace_run["launches"], disk_run["launches"],
-                lifecycle_run["launches"], wire_run["launches"]):
+                lifecycle_run["launches"], wire_run["launches"],
+                ingest_run["launches"]):
         for k in launches:
             launches[k] += got.get(k, 0)
     idle = [k for k, n in launches.items() if n == 0]
@@ -7605,7 +8379,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "scatter": scatter_run, "front_door": front_run,
               "realtime_cluster": rt_cluster_run, "trace": trace_run,
               "disk": disk_run, "lifecycle": lifecycle_run,
-              "wire": wire_run}
+              "wire": wire_run, "ingest": ingest_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]

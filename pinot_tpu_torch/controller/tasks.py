@@ -6,9 +6,10 @@ cluster state store under ``tasks/`` as the JAX package's dicts, minions
 poll for them (``minion/worker.py``), and the per-(table, task type)
 watermarks live under ``minionTaskMetadata/``. ``generate_tasks`` reads
 each table's ``task_config`` (the taskTypeConfigsMap) and runs the
-generators of MergeRollup, RealtimeToOffline, Purge and ConvertToRaw;
-SegmentGenerationAndPush needs the batch job runner, which the port does
-not have yet, so that type logs "no generator", as an unknown type does.
+generators of MergeRollup, RealtimeToOffline, Purge, ConvertToRaw and
+SegmentGenerationAndPush (the landing files of ``inputDirURI`` that
+``ingested_files_path`` does not record yet); an unknown type logs "no
+generator".
 
 A segment's time range is the one the controller recorded at its push
 (``start_time`` / ``end_time`` in the units of the table's
@@ -21,7 +22,9 @@ candidates and the port's some.
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import time
 import uuid
 
@@ -403,9 +406,56 @@ def _generate_convert_to_raw(mgr: PinotTaskManager, table: str, cfg,
         return  # one at a time, like the purge generator
 
 
+def ingested_files_path(table: str) -> str:
+    """Where the landing files a table's SegmentGenerationAndPush tasks
+    ingested are recorded, ``{file name: mtime ms}``."""
+    return f"minionTaskMetadata/{table}/{SEGMENT_GENERATION_AND_PUSH_TASK}.files"
+
+
+def _generate_segment_generation_and_push(mgr: PinotTaskManager, table: str,
+                                          cfg, tconf: Dict[str, str],
+                                          now_ms: int):
+    """One task over the landing files of ``inputDirURI`` not yet ingested
+    (SegmentGenerationAndPushTaskGenerator, JAX :393-432). The executor
+    records a file as ingested after its push, with the mtime seen here,
+    so a task that ends in ERROR is generated again, up to
+    MAX_TASK_ATTEMPTS times for the same set of files (``fileSetKey``).
+    A file rewritten under its name (a new mtime) is ingested again."""
+    input_dir = tconf.get("inputDirURI", "")
+    if not input_dir or not os.path.isdir(input_dir):
+        return
+    processed = mgr.store.get(ingested_files_path(table)) or {}
+    fresh = []
+    mtimes: Dict[str, int] = {}
+    for entry in sorted(os.listdir(input_dir)):
+        path = os.path.join(input_dir, entry)
+        try:
+            if not os.path.isfile(path):
+                continue
+            mtime = int(os.path.getmtime(path) * 1000)
+        except FileNotFoundError:
+            continue  # deleted while listed: a producer's race
+        if processed.get(entry) != mtime:
+            fresh.append(path)
+            mtimes[entry] = mtime
+    if not fresh:
+        return
+    key = ",".join(sorted(os.path.basename(f) for f in fresh))
+    if mgr.error_attempts(table, SEGMENT_GENERATION_AND_PUSH_TASK,
+                          configs_match={"fileSetKey": key}) \
+            >= MAX_TASK_ATTEMPTS:
+        return  # a poisoned set of files is not generated again
+    yield PinotTaskConfig(
+        task_id=_new_id(SEGMENT_GENERATION_AND_PUSH_TASK),
+        task_type=SEGMENT_GENERATION_AND_PUSH_TASK, table=table,
+        configs=dict(tconf, inputFiles=json.dumps(fresh),
+                     inputFileMtimes=json.dumps(mtimes), fileSetKey=key))
+
+
 _GENERATORS = {
     MERGE_ROLLUP_TASK: _generate_merge_rollup,
     REALTIME_TO_OFFLINE_TASK: _generate_realtime_to_offline,
     PURGE_TASK: _generate_purge,
     CONVERT_TO_RAW_TASK: _generate_convert_to_raw,
+    SEGMENT_GENERATION_AND_PUSH_TASK: _generate_segment_generation_and_push,
 }

@@ -1,6 +1,8 @@
-"""Ingestion: the stream SPI, record transformers and realtime
-consumption (``pinot_tpu/ingestion/``, without the socket and Kafka
-wire streams and the batch readers)."""
+"""Ingestion: the stream SPI with its memory, socket and Kafka wire
+streams, record transformers, realtime consumption, the input-format
+readers and the batch segment generation job (``pinot_tpu/ingestion/``).
+Importing the package registers ``stream.type`` ``socket`` and
+``kafka``, as JAX's does (``pinot_tpu/ingestion/__init__.py:20-21``)."""
 
 from pinot_tpu_torch.ingestion.realtime import (
     CompletionReply,
@@ -22,6 +24,8 @@ from pinot_tpu_torch.ingestion.stream import (
     register_decoder,
     register_stream_type,
 )
+from pinot_tpu_torch.ingestion import socketstream  # noqa: F401, E402
+from pinot_tpu_torch.ingestion import kafkawire  # noqa: F401, E402
 from pinot_tpu_torch.ingestion.transformers import CompositeTransformer
 
 __all__ = [

@@ -5,8 +5,9 @@ Counterpart of ``pinot_tpu/ingestion/stream.py``: ``StreamOffset``
 metadata provider and factory interfaces with a registry keyed by
 ``stream.type``, the decoder registry with ``JsonMessageDecoder``, and
 ``MemoryStream``, an in-process partitioned log with its consumer
-(``stream.type = memory``, the topic from the stream config). The
-socket and Kafka wire streams are not ported.
+(``stream.type = memory``, the topic from the stream config). The socket
+stream (``socketstream.py``) and the Kafka wire stream (``kafkawire.py``)
+register themselves when the ``ingestion`` package is imported.
 """
 
 from __future__ import annotations

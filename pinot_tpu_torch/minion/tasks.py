@@ -1,5 +1,5 @@
-"""Minion task executors: MergeRollup, RealtimeToOffline, Purge and
-ConvertToRaw.
+"""Minion task executors: MergeRollup, RealtimeToOffline, Purge,
+ConvertToRaw and SegmentGenerationAndPush.
 
 Counterpart of ``pinot_tpu/minion/tasks.py`` (the reference's builtin
 minion tasks) over the segment processing framework
@@ -19,14 +19,18 @@ as ``file://`` directories and applies the replacement:
   segment pushed and the input deleted;
 - ConvertToRaw: the segment is built again with the configured columns
   raw and pushed under the SAME name (a refresh: the servers swap it in),
-  and its metadata's custom map records ``convertToRawDone``.
+  and its metadata's custom map records ``convertToRawDone``;
+- SegmentGenerationAndPush: the batch job (``ingestion/batchjob.py``)
+  builds a segment from each landing file, the segments are pushed, then
+  the files are recorded as ingested.
 
-SegmentGenerationAndPush needs the batch job runner, which the port does
-not have yet: ``TASK_EXECUTORS`` has no executor for it.
+The input segments are fetched into ``<work_dir>/downloads`` (a local
+``file://`` one is read in place), as the JAX minion does.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 
@@ -40,7 +44,9 @@ from pinot_tpu_torch.controller.tasks import (
     MERGE_ROLLUP_TASK,
     PURGE_TASK,
     REALTIME_TO_OFFLINE_TASK,
+    SEGMENT_GENERATION_AND_PUSH_TASK,
     PinotTaskConfig,
+    ingested_files_path,
 )
 from pinot_tpu_torch.segment.creator import SegmentBuilder
 from pinot_tpu_torch.segment.immutable import ImmutableSegment, load_segment
@@ -87,15 +93,16 @@ class BaseTaskExecutor:
     def _download(self, task: PinotTaskConfig,
                   ctx: MinionContext) -> List[ImmutableSegment]:
         """The input segments, read through their download URLs (a
-        ``file://`` directory in place, no copy, as JAX's local
-        ``fetch_segment``)."""
+        ``file://`` directory in place, no copy; a remote one copied under
+        the work directory)."""
         segs = []
         for name in task.input_segments:
             md = ctx.store.get_segment_metadata(task.table, name)
             if md is None or not md.download_url:
                 raise FileNotFoundError(
                     f"segment {name} of {task.table} has no download url")
-            segs.append(load_segment(fetch_segment(md.download_url)))
+            segs.append(load_segment(fetch_segment(
+                md.download_url, os.path.join(ctx.work_dir, "downloads"))))
         return segs
 
     def _schema_and_config(self, ctx: MinionContext, table: str):
@@ -257,9 +264,48 @@ class ConvertToRawIndexTaskExecutor(BaseTaskExecutor):
         return names
 
 
+class SegmentGenerationAndPushTaskExecutor(BaseTaskExecutor):
+    """Run the batch segment generation job over the task's landing files
+    in the minion, push the segments, then record the files as ingested
+    with the mtimes the generator saw (JAX :263-305): a re-stat here
+    would bind a later rewrite's mtime to the content that was read."""
+
+    task_type = SEGMENT_GENERATION_AND_PUSH_TASK
+
+    def execute(self, task: PinotTaskConfig, ctx: MinionContext) -> List[str]:
+        from pinot_tpu_torch.ingestion.batchjob import (
+            SegmentGenerationJobRunner,
+            SegmentGenerationJobSpec,
+        )
+
+        schema, cfg = self._schema_and_config(ctx, task.table)
+        files = json.loads(task.configs.get("inputFiles", "[]"))
+        if not files:
+            raise ValueError("SegmentGenerationAndPushTask without "
+                             "inputFiles")
+        spec = SegmentGenerationJobSpec(
+            output_dir_uri=os.path.join(ctx.work_dir, task.task_id),
+            table_name=cfg.table_name,
+            data_format=task.configs.get("inputFormat") or None,
+            segment_name_prefix=f"{cfg.table_name}_{task.task_id}")
+        seg_dirs = SegmentGenerationJobRunner(
+            spec, schema=schema, table_config=cfg).run_files(files)
+        names = self._upload(ctx, task.table, seg_dirs)
+        recorded = json.loads(task.configs.get("inputFileMtimes", "{}"))
+
+        def apply(d):
+            d = dict(d or {})
+            d.update(recorded)
+            return d
+
+        ctx.store.update(ingested_files_path(task.table), apply)
+        return names
+
+
 TASK_EXECUTORS: Dict[str, BaseTaskExecutor] = {
     e.task_type: e for e in (MergeRollupTaskExecutor(),
                              RealtimeToOfflineSegmentsTaskExecutor(),
                              PurgeTaskExecutor(),
-                             ConvertToRawIndexTaskExecutor())
+                             ConvertToRawIndexTaskExecutor(),
+                             SegmentGenerationAndPushTaskExecutor())
 }

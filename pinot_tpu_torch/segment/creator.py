@@ -36,7 +36,9 @@ import os
 import shutil
 import tempfile
 import threading
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import (
+    Any, Dict, Iterable, Mapping, Optional, Sequence, Tuple, Union,
+)
 
 import numpy as np
 
@@ -238,6 +240,15 @@ def _sv_values(fs: FieldSpec, rows: Sequence[Any]
     if isinstance(rows, np.ndarray) and rows.dtype.kind == "U" \
             and not dt.is_numeric:
         return rows, np.zeros(rows.shape[0], dtype=bool)
+    types = set(map(type, rows))
+    if not any(t is type(None) or issubclass(t, float) for t in types):
+        # no cell can be a null (a reader's strings, say): the values
+        # JAX's convert gives, without a test a cell (strings as they are)
+        vals = rows if types <= {str} and not dt.is_numeric \
+            else list(map(dt.converter, rows))
+        return (np.asarray(vals, dtype=dt.stored_np if dt.is_numeric
+                           else np.str_),
+                np.zeros(len(rows), dtype=bool))
     nulls = np.fromiter((_is_null(v) for v in rows), dtype=bool,
                         count=len(rows))
     vals = [fs.default_null_value if n else dt.convert(v)
@@ -311,21 +322,34 @@ class SegmentBuilder:
         self.no_dictionary_columns = raw | set(
             indexing.no_dictionary_columns if indexing else ())
 
-    def build(self, frame: Mapping[str, Any], out_dir: Optional[str] = None
+    def build(self, frame: Union[Mapping[str, Any], Iterable[Mapping]],
+              out_dir: Optional[str] = None
               ) -> Union[ImmutableSegment, SegmentMetadata]:
         """One segment, in memory; with ``out_dir`` also written to
         ``out_dir/<name>`` (``write_segment``), and then the written
-        metadata comes back, as the JAX builder's does. A column of the
-        indexing config's ``segment_partition_config`` records the
+        metadata comes back, as the JAX builder's does. ``frame`` is a
+        mapping of columns or an iterable of row dicts (JAX
+        ``_to_columnar``); a schema column it lacks is all nulls. A column
+        of the indexing config's ``segment_partition_config`` records the
         partitions its values fall in (JAX ``_partition_meta``)."""
+        if not isinstance(frame, Mapping):
+            rows, names = frame, self.schema.column_names
+            frame = {n: [] for n in names}
+            for row in rows:
+                for n in names:
+                    frame[n].append(row.get(n))
         sizes = {len(frame[c][1]) if isinstance(frame[c], tuple)
-                 else len(frame[c]) for c in self.schema.column_names}
+                 else len(frame[c]) for c in self.schema.column_names
+                 if c in frame}
+        if not sizes:
+            raise ValueError("no input rows")
         if len(sizes) != 1:
             raise ValueError(f"ragged column lengths: {sorted(sizes)}")
         num_docs = sizes.pop()
-        columns = {fs.name: self._partitioned(self._column(fs, frame[fs.name]),
-                                              fs.name)
-                   for fs in self.schema.field_specs}
+        columns = {fs.name: self._partitioned(
+            self._column(fs, frame[fs.name] if fs.name in frame
+                         else [None] * num_docs), fs.name)
+            for fs in self.schema.field_specs}
         seg = segment_from_arrays(self.segment_name, num_docs, columns,
                                   table_name=self.table_name,
                                   indexing=self.indexing,

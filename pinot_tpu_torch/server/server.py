@@ -4,11 +4,16 @@ Counterpart of ``pinot_tpu/server/server.py`` (``ServerInstance`` :49):
 the server registers itself in the cluster state store, watches the
 IdealState, reconciles its assigned segments, reports ExternalView
 states, and answers instance query requests through its scheduler into
-``ServerQueryExecutor.execute_instance``. The transitions: OFFLINE ->
-ONLINE fetches the segment from the deep store and hosts it (a
-``file://`` location through ``spi/filesystem.py`` ``fetch_segment``
-into a directory it loads, JAX :279-300; a ``memory://`` one from its
-cluster's ``MemoryDeepStore`` as an object);
+``ServerQueryExecutor.execute_instance``. It registers the failure
+domain ``spi/environment.py`` names (``PINOT_FAILURE_DOMAIN``, JAX
+:118-127), which the controller's assignment spreads replicas across.
+The transitions: OFFLINE -> ONLINE fetches the segment from the deep
+store and hosts it (through ``spi/filesystem.py`` ``fetch_segment`` into
+a directory it loads, JAX :279-300: a ``file://`` segment in place, an
+``http(s)://`` or ``s3://`` one copied under
+``<segment_dir>/<instance>/<table>``, where JAX's replicas share
+``<segment_dir>/<table>``; a ``memory://`` one from its cluster's
+``MemoryDeepStore`` as an object);
 OFFLINE -> CONSUMING starts a consumer thread for the segment's stream
 partition at its start offset, negotiating its commit through the
 server's completion protocol (the controller's completion FSM in a
@@ -96,6 +101,7 @@ from pinot_tpu_torch.server.data_manager import (
 )
 from pinot_tpu_torch.server.scheduler import make_scheduler
 from pinot_tpu_torch.spi.config import CommonConstants
+from pinot_tpu_torch.spi.environment import get_environment_provider
 from pinot_tpu_torch.spi.filesystem import (
     SCHEME as MEMORY_SCHEME,
     MemoryDeepStore,
@@ -179,7 +185,9 @@ class ServerInstance:
         self.store.register_instance(
             InstanceInfo(self.instance_id, "SERVER", port=0,
                          tags=(prior.tags if prior is not None
-                               else ["DefaultTenant"])))
+                               else ["DefaultTenant"]),
+                         failure_domain=get_environment_provider()
+                         .failure_domain()))
         # replay the current assignments, then follow changes (the Helix
         # participant registration and state-transition replay)
         self.store.watch("idealstate/", self._on_ideal_state_change)
@@ -335,7 +343,7 @@ class ServerInstance:
                         self.instance_id, table, seg)
             return
         try:
-            got = self._fetch(md.download_url)
+            got = self._fetch(md.download_url, table)
         except Exception:
             log.exception("[%s] deep-store fetch failed for %s/%s (%s)",
                           self.instance_id, table, seg, md.download_url)
@@ -351,12 +359,17 @@ class ServerInstance:
             self._pushed_crc[(table, seg)] = md.crc
         self.store.report_instance_state(table, seg, self.instance_id, ONLINE)
 
-    def _fetch(self, download_url: str):
+    def _fetch(self, download_url: str, table: str):
         """A ``memory://`` location's segment object, else the local
-        directory ``fetch_segment`` resolves the location to."""
+        directory ``fetch_segment`` resolves the location to: a local
+        segment in place, a remote one copied under
+        ``<segment_dir>/<instance>/<table>``."""
         if download_url.startswith(f"{MEMORY_SCHEME}://"):
             return self.deep_store.fetch_segment(download_url)
-        return fetch_segment(download_url)
+        return fetch_segment(
+            download_url,
+            None if self.segment_dir is None else os.path.join(
+                self.segment_dir, self.instance_id, table))
 
     def _ensure_consuming(self, table: str, tdm, seg: str) -> None:
         if tdm.consuming_manager(seg) is not None or tdm.has_segment(seg):
@@ -406,7 +419,7 @@ class ServerInstance:
                     tdm.drop_consumer(seg)
                     tdm.remove_segment(seg)
                     return
-                tdm.on_sealed(seg, self._fetch(zk.download_url),
+                tdm.on_sealed(seg, self._fetch(zk.download_url, table),
                               fetched=True)
             else:
                 log.error("[%s] consumer for %s ended in %s",

@@ -286,3 +286,9 @@ class Schema:
     @classmethod
     def from_json(cls, s: str) -> "Schema":
         return cls.from_dict(json.loads(s))
+
+    @classmethod
+    def from_file(cls, path: str) -> "Schema":
+        """The reference's JSON file (JAX ``spi/data.py:349``)."""
+        with open(path) as f:
+            return cls.from_dict(json.load(f))

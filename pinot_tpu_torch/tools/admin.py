@@ -3,8 +3,13 @@
 Counterpart of ``pinot_tpu/tools/admin.py`` (the reference's
 ``PinotAdministrator.java:86`` subset): ``PostQuery`` posts SQL to a
 running broker, ``StartCluster`` starts an ``EmbeddedCluster`` with its
-controller and broker REST front doors, ``Quickstart`` builds a demo
-table and runs sample queries. ``StartServer`` (the reference's
+controller and broker REST front doors, ``LaunchDataIngestionJob`` runs a
+segment generation job spec (``ingestion/batchjob.py``; it builds the
+segments and prints their directories, with no push), ``Quickstart``
+builds a demo table and runs sample queries, or with ``-exampleDir`` a
+directory in the reference's example layout (``*_schema.json``,
+``*_offline_table_config.json``, ``ingestionJobSpec.yaml``) ingested
+through its job. ``StartServer`` (the reference's
 ``StartServerCommand``; JAX's CLI has none) runs one server in a process
 of its own: a replica of the cluster state from a state service
 (``transport/state_service.py``), the server behind a gRPC front
@@ -12,8 +17,6 @@ of its own: a replica of the cluster state from a state service
 with its ports, serves until its standard input closes, and shuts down.
 Invoke as ``python -m pinot_tpu_torch <command>``. The cluster and server
 commands run on the card unless ``-device cpu`` is given.
-``LaunchDataIngestionJob`` waits for the port's batch job runner (ROADMAP
-queue 1 item 6(d)), and ``Quickstart -exampleDir`` with it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,17 @@ import time
 import urllib.request
 
 from typing import List, Optional
+
+
+def _cmd_launch_ingestion_job(args) -> int:
+    """Ref: LaunchDataIngestionJobCommand."""
+    from pinot_tpu_torch.ingestion.batchjob import run_ingestion_job
+
+    seg_dirs = run_ingestion_job(args.jobSpecFile)
+    for d in seg_dirs:
+        print(d)
+    print(f"built {len(seg_dirs)} segment(s)", file=sys.stderr)
+    return 0
 
 
 def _cmd_post_query(args) -> int:
@@ -39,8 +53,12 @@ def _cmd_post_query(args) -> int:
 
 
 def _cmd_quickstart(args) -> int:
-    """Ref: Quickstart.java — an embedded cluster, a generated demo table
-    and sample queries."""
+    """Ref: Quickstart.java — an embedded cluster, a table and sample
+    queries: the reference-layout example directory's table ingested
+    through its job spec, else a generated demo table."""
+    import glob
+    import os
+
     import numpy as np
 
     from pinot_tpu_torch.spi.data import DataType, FieldSpec, FieldType, Schema
@@ -50,16 +68,32 @@ def _cmd_quickstart(args) -> int:
     cluster = EmbeddedCluster(num_servers=1, data_dir=args.dataDir,
                               device=args.device)
     try:
-        rng = np.random.default_rng(7)
-        n = 10_000
-        schema = Schema("quickstart", [
-            FieldSpec("city", DataType.STRING),
-            FieldSpec("value", DataType.LONG, FieldType.METRIC)])
-        cluster.create_table(TableConfig("quickstart"), schema)
-        cluster.ingest_rows("quickstart_OFFLINE", schema, {
-            "city": np.array(["sf", "nyc", "sea"])[rng.integers(0, 3, n)],
-            "value": rng.integers(0, 1000, n).astype(np.int64)})
-        for sql in (args.query or ["SELECT count(*) FROM quickstart"]):
+        if args.exampleDir:
+            from pinot_tpu_torch.ingestion.batchjob import run_ingestion_job
+
+            ex = args.exampleDir
+            schema = Schema.from_file(
+                glob.glob(os.path.join(ex, "*_schema.json"))[0])
+            table_config = TableConfig.from_file(glob.glob(os.path.join(
+                ex, "*_offline_table_config.json"))[0])
+            cluster.create_table(table_config, schema)
+            job_files = glob.glob(os.path.join(ex, "ingestionJobSpec.yaml"))
+            if job_files:
+                run_ingestion_job(job_files[0], cluster=cluster,
+                                  schema=schema, table_config=table_config)
+            table = schema.schema_name
+        else:
+            rng = np.random.default_rng(7)
+            n = 10_000
+            schema = Schema("quickstart", [
+                FieldSpec("city", DataType.STRING),
+                FieldSpec("value", DataType.LONG, FieldType.METRIC)])
+            cluster.create_table(TableConfig("quickstart"), schema)
+            cluster.ingest_rows("quickstart_OFFLINE", schema, {
+                "city": np.array(["sf", "nyc", "sea"])[rng.integers(0, 3, n)],
+                "value": rng.integers(0, 1000, n).astype(np.int64)})
+            table = "quickstart"
+        for sql in (args.query or [f"SELECT count(*) FROM {table}"]):
             print(json.dumps(cluster.query(sql).to_dict(), default=str))
     finally:
         cluster.shutdown()
@@ -141,6 +175,11 @@ def build_parser() -> argparse.ArgumentParser:
                     "(ref: PinotAdministrator)")
     sub = p.add_subparsers(dest="command", required=True)
 
+    j = sub.add_parser("LaunchDataIngestionJob",
+                       help="run a segment generation job spec (yaml)")
+    j.add_argument("-jobSpecFile", required=True)
+    j.set_defaults(fn=_cmd_launch_ingestion_job)
+
     q = sub.add_parser("PostQuery", help="POST sql to a running broker")
     q.add_argument("-query", required=True)
     q.add_argument("-brokerHost", default="localhost")
@@ -150,6 +189,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     qs = sub.add_parser("Quickstart",
                         help="embedded cluster + data + sample queries")
+    qs.add_argument("-exampleDir", default=None,
+                    help="dir with *_schema.json, *_offline_table_config."
+                         "json, ingestionJobSpec.yaml (reference layout)")
     qs.add_argument("-dataDir", default=None,
                     help="segment directory (default: segments in memory)")
     qs.add_argument("-query", action="append")

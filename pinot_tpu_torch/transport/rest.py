@@ -31,6 +31,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from pinot_tpu_torch.common.netserver import listen
 from pinot_tpu_torch.controller.state import InstanceInfo, to_wire
 from pinot_tpu_torch.spi.auth import READ, WRITE, AllowAllAccessControl
 from pinot_tpu_torch.spi.data import Schema
@@ -44,15 +45,6 @@ log = logging.getLogger(__name__)
 # zk node paths) so authorization runs cluster-scoped (table=None) instead
 # of granting/denying against the wrong scope
 Route = Tuple[str, re.Pattern, Callable, bool]
-
-
-class _HttpServer(ThreadingHTTPServer):
-    """The standard library's threading server with a listen backlog for
-    concurrent clients: at its default of 5, a sixth connection's SYN is
-    dropped and retried a second later (JAX's routers keep the default)."""
-
-    request_queue_size = 128
-    daemon_threads = True
 
 
 class _Api:
@@ -165,7 +157,10 @@ class _Api:
             def do_DELETE(self):
                 self._dispatch("DELETE")
 
-        self._httpd = _HttpServer(("0.0.0.0", port), Handler)
+        # a backlog for concurrent clients (JAX's routers keep the
+        # standard library's 5), a port-0 server on a fresh port
+        self._httpd = listen(ThreadingHTTPServer, ("0.0.0.0", port),
+                             Handler)
         self.port = self._httpd.server_port
         self._thread: Optional[threading.Thread] = None
 

@@ -103,7 +103,16 @@ def test_executor_import_leaves_jax_unloaded():
             "pinot_tpu_torch.transport.state_service, "
             "pinot_tpu_torch.client, pinot_tpu_torch.tools.admin, "
             "pinot_tpu_torch.tools.preflight, "
-            "pinot_tpu_torch.engine.pallas_blocklist; "
+            "pinot_tpu_torch.engine.pallas_blocklist, "
+            "pinot_tpu_torch.spi.readers, pinot_tpu_torch.spi.retry, "
+            "pinot_tpu_torch.spi.crypt, pinot_tpu_torch.spi.environment, "
+            "pinot_tpu_torch.spi.plugin, pinot_tpu_torch.spi.s3fs, "
+            "pinot_tpu_torch.ingestion.avro, "
+            "pinot_tpu_torch.ingestion.protobuf, "
+            "pinot_tpu_torch.ingestion.readers, "
+            "pinot_tpu_torch.ingestion.batchjob, "
+            "pinot_tpu_torch.ingestion.socketstream, "
+            "pinot_tpu_torch.ingestion.kafkawire; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinot_tpu', 'triton', 'grpc')]; "
             "from pinot_tpu_torch.engine import _build, kernels; "
@@ -132,6 +141,28 @@ def test_only_the_grpc_transport_imports_grpc():
             "a = 'grpc' in sys.modules; "
             "import pinot_tpu_torch.transport.grpc_transport; "
             "sys.exit(0 if not a and 'grpc' in sys.modules else 1)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_ingestion_leaves_its_optional_libraries_unloaded():
+    """``import pinot_tpu_torch`` and every ingestion and deep-store module
+    leave ``yaml``, ``pyarrow`` and ``google.protobuf`` out of
+    ``sys.modules``: each is imported where it is first used (the job
+    spec's YAML, the Parquet and ProtoBuf readers' ``init``)."""
+    code = ("import sys, pinot_tpu_torch, pinot_tpu_torch.ingestion, "
+            "pinot_tpu_torch.ingestion.readers, "
+            "pinot_tpu_torch.ingestion.batchjob, "
+            "pinot_tpu_torch.ingestion.protobuf, "
+            "pinot_tpu_torch.ingestion.avro, pinot_tpu_torch.spi.s3fs, "
+            "pinot_tpu_torch.spi.crypt, pinot_tpu_torch.spi.plugin, "
+            "pinot_tpu_torch.tools.admin, pinot_tpu_torch.minion.tasks; "
+            "from pinot_tpu_torch.ingestion.stream import _FACTORIES; "
+            "bad = [m for m in ('yaml', 'pyarrow', 'google.protobuf') "
+            "if m in sys.modules]; "
+            "bad += [t for t in ('socket', 'kafka') if t not in _FACTORIES]; "
+            "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

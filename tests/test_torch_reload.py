@@ -322,17 +322,24 @@ def test_fetch_segment_resolves_file_urls(tmp_path, monkeypatch):
     url = filesystem.file_url(str(seg_dir))
     assert filesystem.fetch_segment(url) == str(seg_dir)
     assert filesystem.fetch_segment(str(seg_dir)) == str(seg_dir)
-    # a missing directory is tried FETCH_ATTEMPTS times, then raises
+    # a missing directory is tried FETCH_ATTEMPTS times, then raises (the
+    # retry policy's AttemptsExceededError, the last failure beside it)
+    from pinot_tpu_torch.spi import retry
+
     waits = []
-    monkeypatch.setattr(filesystem.time, "sleep", waits.append)
-    with pytest.raises(FileNotFoundError):
+    monkeypatch.setattr(retry.time, "sleep", waits.append)
+    with pytest.raises(retry.AttemptsExceededError) as e:
         filesystem.fetch_segment(filesystem.file_url(str(tmp_path / "no")))
+    assert isinstance(e.value.last, FileNotFoundError)
     assert waits == [filesystem.FETCH_BACKOFF_S * 2 ** i
                      for i in range(filesystem.FETCH_ATTEMPTS - 1)]
-    # an unknown scheme fails at once
+    # an unknown scheme, and a remote one with no local directory or
+    # endpoint, fail at once
     waits.clear()
-    with pytest.raises(ValueError):
-        filesystem.fetch_segment("s3://bucket/seg")
+    monkeypatch.delenv("PINOT_S3_ENDPOINT", raising=False)
+    for url in ("gs://bucket/seg", "s3://bucket/seg"):
+        with pytest.raises(ValueError):
+            filesystem.fetch_segment(url)
     assert waits == []
 
 

@@ -242,9 +242,8 @@ def test_reload_rebalance_instances_tenants_tasks(pair):
             _http("GET", f"{c}/tenants"),
             [i for i in _http("GET", f"{c}/tenants/DefaultTenant")
              ["instances"] if not i.startswith("Broker_")],
-            # SegmentGenerationAndPush waits for the port's batch jobs
-            [t for t in _http("GET", f"{c}/tasks/tasktypes")
-             if t != "SegmentGenerationAndPushTask"],
+            # every task type, SegmentGenerationAndPush among them
+            _http("GET", f"{c}/tasks/tasktypes"),
             _http("GET", f"{c}/tasks/MergeRollupTask/state"),
             _http("GET", f"{c}/zk/ls/tables"),
             _status("GET", f"{c}/zk/get/nope"),
@@ -538,8 +537,9 @@ def test_cli_parser_has_no_ingestion_job():
 
     sub = next(a for a in build_parser()._actions
                if a.dest == "command")
-    assert set(sub.choices) == {"PostQuery", "Quickstart", "StartCluster",
-                                "StartServer"}
+    # the batch job is ported: LaunchDataIngestionJob is JAX's command
+    assert set(sub.choices) == {"LaunchDataIngestionJob", "PostQuery",
+                                "Quickstart", "StartCluster", "StartServer"}
 
 
 # -- the client --------------------------------------------------------------
