@@ -1,6 +1,6 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--sf 10] [--segments 8] [--seed 42] [--reps 5]
+    python3 chip_smoke.py [--sf 5] [--segments 8] [--seed 42] [--reps 5]
                           [--user-segments 8] [--user-rows 2500000]
                           [--startree-sf 0.25] [--startree-only]
                           [--out-dir DIR]
@@ -316,6 +316,21 @@ Phases:
      on event_type == numpy before the seals (the consuming rung) and
      after (the fused scan on every seal), rows/s a consumer and a seal's
      threshold to swap;
+ 23. (after 6) the combine mesh (``parallel/mesh.py``) on phase 6's
+     segments, cells ``cuda:i % cards``: 1x1 (phase 6's executor), 8x1,
+     4x2 and 2x2 ShardedQueryExecutor(mesh=...) (23a) the untimed passes
+     of the three meshes at once, then ``--reps`` timed passes over the 13
+     flights on each: every answer == the 1x1's (f64 sums within rel
+     1e-9) == the oracle, one launch a cell a batch flight; Q2.1's scan
+     and Q4.3's scan and probe over each mesh held to the plain version
+     over the same cells, each cell's kernel timed alone and the fold on
+     the root timed (a line a shape: pass p50, launches, per-cell kernel
+     ms, fold ms); (23b) on 4x2 C1-C8 from 8 client threads (the query
+     axis a cell, held to its plain version) and Q2.1 under 40% of its
+     working set (sliced); (23c) the broker's merge over 4 cells, dense
+     at 3 000 slots, the slice exchange at 300 000, the sort rung, each
+     == the one-cell merge == numpy; its launches added to the kernels
+     line;
  14. (after 22) a realtime user-events table: 500 k rows
      as JSON messages on a one-partition MemoryStream consumed by
      RealtimeSegmentDataManager into a consuming segment on the card
@@ -343,7 +358,7 @@ JAX codes), which every phase asserts beside its other decisions.
 Then a "rungs" line of the segments each rung served and the declines and
 paths of phases 8-11, and one JSON line listing the kernels ("ms" is the
 kernel alone, "launches" those of phases 4, 6, 8, 9, 14c, 16-21a, 22,
-and of 13b for the query axis; the top-k, the jnp combine and the index gather are
+23, and of 13b and 23b for the query axis; the top-k, the jnp combine and the index gather are
 PyTorch ops, not hand kernels).
 Phases 4, 6, 7, 9, 10 and 11 assert launches
 per query from the segments the pruner keeps, once those
@@ -1280,9 +1295,356 @@ def _combine_over(ex, ctx, sets: dict, reps: int, errs: dict) -> dict:
     return out
 
 
+# -- phase 23: the combine mesh ---------------------------------------------------
+
+# mesh shapes of phase 23 (seg x doc) on cells cuda:i % cards
+MESH_SHAPES = ((1, 1), (8, 1), (4, 2), (2, 2))
+# broker merges of 23c over 4 cells: (rung, rows, composite space)
+MESH_MERGES = (("dense", 200_000, 3_000), ("slices", 400_000, 300_000),
+               ("sort", 400_000, 1 << 40))
+
+
+def _mesh_cells(n: int, device: str) -> list:
+    import torch
+
+    if device == "cpu":
+        return ["cpu"] * n
+    return [torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(n)]
+
+
+def _mesh_kernel_rows(shape: str, staged, sql: str, errs: dict,
+                      iters: int) -> list:
+    """Each scan (and probe) of ``sql`` over a mesh's staged batch: held to
+    its plain version over the same cells (folded into ``errs``), then one
+    cell's launch timed alone on every cell (the kernel, CUDA events), and
+    the fold of the cells' outputs on the root."""
+    import torch
+
+    from pinot_tpu_torch.engine import fused_scan as fs
+    from pinot_tpu_torch.parallel import combine
+    from pinot_tpu_torch.parallel.mesh import Cells
+
+    rows = []
+    stream = torch.cuda.current_stream()
+    for kind, (launch, args) in _scan_args(staged, sql).items():
+        prog, words, values, nd, tiles = args
+        got = launch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = combine.sharded_fused_scan_plain(*args)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        errs[kind] = max(errs[kind], _compare(got, plain,
+                                              f"23 {shape} {kind}"))
+        m = nd.mesh if isinstance(nd, Cells) else None
+        cells = ([args] if m is None else
+                 [(prog, [w[c] for w in words], [v[c] for v in values],
+                   nd[c], tiles // m.n_doc) for c in range(m.size)])
+        cell_ms, outs, nbytes = [], [], 0
+        for a in cells:
+            cell_ms.append(_kernel_ms(a, iters))
+            argv, o = fs.prepare_launch(*a)
+            fs.enqueue(argv, stream)
+            outs.append(o)
+            nbytes += _needed_bytes(*a)
+        fold_ms = (0.0 if m is None else _time_ms(
+            lambda: combine.fold_outputs(prog, outs, m), iters))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"shape": shape, "flight": sql[:40], "kernel": kind,
+                     "cells": len(cells), "cell_ms": cell_ms,
+                     "ms": float(sum(cell_ms)), "fold_ms": fold_ms,
+                     "plain_ms": p_ms, "bound_ms": bound, "bytes": nbytes})
+    return rows
+
+
+# flights whose kernels phase 23 holds to the plain version and times on
+# every shape: a scan, and a scan with its probe
+MESH_KERNEL_FLIGHTS = ("Q2.1", "Q4.3")
+
+
+def phase_mesh(main: dict, one, reps: int, errs: dict, device: str = "cuda",
+               iters: int = 10, merges: tuple = MESH_MERGES) -> dict:
+    """23: phase 6's segments and flights over combine meshes of cells
+    ``cuda:i % cards``: 1x1 (``one``, phase 6's executor), 8x1, 4x2 and
+    2x2. (23a) each mesh's untimed pass (every shape at once, one thread
+    a shape), then ``reps`` timed passes over the 13 flights: every answer
+    == the 1x1's (f64 sums within rel 1e-9) == the oracle, one launch a
+    cell a flight; each multi-segment flight's scan and probe held to the
+    plain version over the same cells, the kernel timed a cell and the
+    fold on the root. (23b) on 4x2: C1-C8 from 8 client threads on the
+    query axis (one launch a cell for each coalesced group, == the
+    oracle, the query axis held to its plain version) and Q2.1 under 40%
+    of its working set (sliced, == the oracle). (23c) the broker's merge
+    over 4 cells: dense under 4096 slots, the slice exchange above, the
+    sort rung, each == the one-cell merge == numpy."""
+    import threading
+
+    import torch
+
+    from pinot_tpu_torch.parallel import (
+        ShardedQueryExecutor,
+        make_combine_mesh,
+    )
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.tools import ssb
+
+    segs, ctxs, kept = main["segs"], main["ctxs"], main["kept"]
+    single_kept = {q: k if k == 1 else 0 for q, k in kept.items()}
+    multi = [q for q in ctxs if kept[q] > 1]
+    counters = scan_counters()
+    launches = {k: 0 for k in counters}
+    want = {q: one.execute(ctx, segs)[0].rows for q, ctx in ctxs.items()}
+    exs = {"1x1": one}
+    for n_seg, n_doc in MESH_SHAPES[1:]:
+        exs[f"{n_seg}x{n_doc}"] = ShardedQueryExecutor(
+            mesh=make_combine_mesh(_mesh_cells(n_seg * n_doc, device),
+                                   doc_shards=n_doc))
+    t0 = time.perf_counter()
+    failed = []
+
+    def untimed(ex):
+        try:
+            for ctx in ctxs.values():
+                ex.execute(ctx, segs)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            failed.append(e)
+
+    pool = [threading.Thread(target=untimed, args=(ex,))
+            for s, ex in exs.items() if s != "1x1"]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    if failed:
+        raise failed[0]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    log(f"  23a untimed passes of {len(pool)} meshes at once: "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"shapes": {}}
+    for shape, ex in exs.items():
+        m = ex.mesh
+        staged = ex.batches_staged
+        _reset(counters)
+        lat, results = _run_flights(ex, ctxs, segs, reps, single_kept)
+        got = {name: c.launches for name, c in counters.items()}
+        for k in launches:
+            launches[k] += got[k]
+        expect = len(multi) * reps * m.size
+        if device == "cuda" and got["sharded_fused_scan"] != expect:
+            raise AssertionError(f"23a {shape}: {got} launches, want "
+                                 f"{expect} sharded_fused_scan")
+        if ex.batches_staged != staged:
+            raise AssertionError(f"23a {shape}: the timed passes staged")
+        for qid, table in results.items():
+            _check_flight(qid, table, main["wants"][qid])
+            _rows_within(table.rows, want[qid], f"23a {shape} {qid}")
+        krows = []
+        if device == "cuda":
+            for q in MESH_KERNEL_FLIGHTS:
+                krows += _mesh_kernel_rows(
+                    shape, ex.batch_for(main["kept_segs"][q])[1],
+                    ssb.QUERIES[q], errs, iters)
+        p50 = {q: float(np.percentile(v, 50)) for q, v in lat.items()}
+        scans = [r for r in krows if r["kernel"] == "sharded_fused_scan"]
+        row = {"cells": [str(c) for c in m.cells], "p50_ms": p50,
+               "pass_p50_ms": float(sum(p50.values())), "launches": got,
+               "cell_ms": float(np.mean([np.mean(r["cell_ms"])
+                                         for r in scans])) if scans else None,
+               "fold_ms": float(np.mean([r["fold_ms"] for r in scans]))
+               if scans else None,
+               "kernels": krows}
+        out["shapes"][shape] = row
+        cell = "n/a" if row["cell_ms"] is None else f"{row['cell_ms']:.4f}"
+        fold = "n/a" if row["fold_ms"] is None else f"{row['fold_ms']:.4f}"
+        log(f"  23a mesh {shape}: pass p50 {row['pass_p50_ms']:.3f} ms over "
+            f"13 flights, launches {got}, per-cell kernel {cell} ms, fold "
+            f"{fold} ms; == 1x1 == oracle")
+    out.update(_mesh_query_axis(main, exs["4x2"], errs, device))
+    out["sliced"] = _mesh_sliced(main, exs["4x2"].mesh, device)
+    out["merge"] = _mesh_merges(device, merges)
+    for k, v in out.pop("axis_launches").items():
+        launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    for shape, ex in exs.items():
+        if shape != "1x1":
+            ex.close()
+    return out
+
+
+def _rows_within(got: list, want: list, what: str) -> None:
+    """Equal rows; f64 cells within rel 1e-9 (the folds add in another
+    order)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows vs {len(want)}")
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                if abs(a - b) > 1e-9 * abs(b):
+                    raise AssertionError(f"{what}: {g} vs {w}")
+            elif a != b:
+                raise AssertionError(f"{what}: {g} vs {w}")
+
+
+def _mesh_query_axis(main: dict, ex, errs: dict, device: str) -> dict:
+    """23b: C1-C8 from 8 client threads on a 4x2 mesh's query axis."""
+    import threading
+
+    from pinot_tpu_torch.parallel import combine
+    from pinot_tpu_torch.query import compile_query
+    from pinot_tpu_torch.tools import ssb
+
+    segs = main["segs"]
+    cids = list(ssb.COALESCE_QUERIES)
+    ctxs = {v: compile_query(main["variant_texts"][v]) for v in cids}
+    for v in cids:
+        _check_flight(v, ex.execute(ctxs[v], segs)[0],
+                      main["variant_wants"][v])
+    counters = {c.name: c for c in (combine.SHARDED_SCAN_COUNTER,
+                                    combine.SHARDED_SCAN_MANY_COUNTER)}
+    _reset(counters)
+    mark = ex.launcher.stats_snapshot()
+    errors, barrier = [], threading.Barrier(len(cids))
+
+    def client(t: int) -> None:
+        try:
+            own = {v: compile_query(c.sql) for v, c in ctxs.items()}
+            barrier.wait(60)
+            for i in range(len(cids)):
+                v = cids[(t + i) % len(cids)]
+                _check_flight(v, ex.execute(own[v], segs)[0],
+                              main["variant_wants"][v])
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+            barrier.abort()
+
+    pool = [threading.Thread(target=client, args=(t,))
+            for t in range(len(cids))]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(300)
+    if errors or any(th.is_alive() for th in pool):
+        raise AssertionError(f"23b: clients failed: {errors[:3]}")
+    got = {name: c.launches for name, c in counters.items()}
+    snap = ex.launcher.stats_snapshot()
+    saved = snap["launchesSaved"] - mark["launchesSaved"]
+    cells = ex.mesh.size
+    if device == "cuda" and (got["sharded_fused_scan_many"] % cells
+                             or got["sharded_fused_scan"] % cells):
+        raise AssertionError(f"23b: launches {got} not a multiple of "
+                             f"{cells} cells")
+    row = {"launches": got, "launches_saved": saved}
+    if device == "cuda":
+        bounds = [next(b for k, b in ex._param_cache.items()
+                       if k[0] == ctxs[v].sql) for v in cids]
+        inp = bounds[0].inputs
+        progs = [b.params for b in bounds]
+        many = combine.sharded_fused_scan_many(progs, inp.words, inp.values,
+                                               inp.num_docs, inp.tiles)
+        plain = combine.sharded_fused_scan_many_plain(
+            progs, inp.words, inp.values, inp.num_docs, inp.tiles)
+        err = 0.0
+        for q, (g, p) in enumerate(zip(many, plain)):
+            err = max(err, _compare(g, p, f"23b query {q}"))
+        errs["sharded_fused_scan_many"] = max(
+            errs.get("sharded_fused_scan_many", 0.0), err)
+        m = inp.num_docs.mesh
+        row["cell_ms"] = [_time_ms(lambda c=c: combine.counted_scan_many(
+            progs, [w[c] for w in inp.words], [v[c] for v in inp.values],
+            inp.num_docs[c], combine.SHARDED_SCAN_MANY_COUNTER,
+            inp.tiles // m.n_doc), 5) for c in range(m.size)]
+        row["max_abs_err"] = err
+    log(f"  23b 4x2 query axis, 8 clients x C1-C8: == oracle; launches "
+        f"{got}, launches saved {saved}"
+        + (f", per-cell Q=8 launch {np.mean(row['cell_ms']):.4f} ms"
+           if "cell_ms" in row else ""))
+    return {"query_axis": row,
+            "axis_launches": {"sharded_fused_scan_many":
+                              got["sharded_fused_scan_many"]}}
+
+
+def _mesh_sliced(main: dict, mesh, device: str) -> dict:
+    """23b: Q2.1 on a 4x2 mesh under 40% of its working set."""
+    from pinot_tpu_torch.engine.residency import estimate_segment_bytes
+    from pinot_tpu_torch.parallel import ShardedQueryExecutor
+
+    segs, ctx = main["segs"], main["ctxs"]["Q2.1"]
+    cols = ctx.referenced_columns()
+    ws = sum(estimate_segment_bytes(s, cols) for s in segs)
+    ex = ShardedQueryExecutor(mesh=mesh, hbm_budget_bytes=int(0.4 * ws))
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        table, stats = ex.execute(ctx, segs)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        _check_flight("Q2.1", table, main["wants"]["Q2.1"])
+    snap = ex.residency.stats_snapshot()
+    if snap["slicedQueries"] < 2 or snap["spills"]:
+        raise AssertionError(f"23b sliced Q2.1: {snap}")
+    out = {"budget_bytes": int(0.4 * ws), "ms": ms,
+           "slices": stats.staging.get("slices"),
+           "demotions": snap["demotions"], "promotions": snap["promotions"]}
+    log(f"  23b sliced Q2.1 on 4x2 under {out['budget_bytes']} B: == "
+        f"oracle, {out['slices']} slices, {snap['demotions']} demotions, "
+        f"{snap['promotions']} promotions, {ms[-1]:.1f} ms")
+    ex.close()
+    return out
+
+
+def _mesh_merges(device: str, merges: tuple) -> dict:
+    """23c: the broker's merge over 4 cells on each rung and flavor
+    (``merges``), == the one-cell merge == numpy."""
+    from pinot_tpu_torch.parallel import reduce_device as rdev
+
+    cells = _mesh_cells(4, device)
+    out = {}
+    rng = np.random.default_rng(23)
+    for rung, n, space in merges:
+        comp = rng.integers(0, space, n).astype(np.int64)
+        vals = [rng.integers(-50, 50, n).astype(np.int64),
+                rng.integers(-1000, 1000, n).astype(np.float64)]
+        ops = ["sum", "max"]
+        if rdev.merge_rung(space) != ("sort" if rung == "sort" else "dense"):
+            raise AssertionError(f"23c {rung}: rung {rdev.merge_rung(space)}")
+        if rung != "sort" and (rung == "slices") != (space
+                                                     > rdev._PSUM_SLOTS):
+            raise AssertionError(f"23c {rung}: {space} slots")
+        first, folded = rdev.device_group_merge(comp, space, vals, ops, cells)
+        one = rdev.device_group_merge(comp, space, vals, ops, cells[0])
+        keys, inv = np.unique(comp, return_inverse=True)
+        s = np.zeros(len(keys), np.int64)
+        np.add.at(s, inv, vals[0])
+        mx = np.full(len(keys), -np.inf)
+        np.maximum.at(mx, inv, vals[1])
+        fi = np.full(len(keys), n, np.int64)
+        np.minimum.at(fi, inv, np.arange(n))
+        for a, b, what in ((first, one[0], "first"), (first, fi, "first"),
+                           (folded[0], s, "sum"), (folded[1], mx, "max"),
+                           (folded[0], one[1][0], "sum"),
+                           (folded[1], one[1][1], "max")):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"23c {rung}: {what} differs")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rdev.device_group_merge(comp, space, vals, ops, cells)
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rdev.device_group_merge(comp, space, vals, ops, cells[0])
+        one_ms = (time.perf_counter() - t0) / 3 * 1e3
+        out[rung] = {"rows": n, "space": space, "groups": len(keys),
+                     "ms": ms, "one_cell_ms": one_ms}
+        log(f"  23c merge {rung} over 4 cells ({n} rows, {len(keys)} "
+            f"groups, {space} slots): == one cell == numpy; {ms:.2f} ms "
+            f"(one cell {one_ms:.2f} ms)")
+    return out
+
+
 # -- phase 7: the general rung ---------------------------------------------------
 
-# the rung each declined query's segments with matched docs take at SF10 in
+# the rung each declined query's segments with matched docs take at SF5 in
 # 8 segments (G4 is scalar); the others are served by the fused scan once
 # the probe narrows their empty key space
 DECLINED_RUNG = {"G1": "hash", "G2": "sort", "G3": "dense", "G4": None,
@@ -3003,9 +3365,9 @@ def _bound_query(bex, ctx, segs):
     param tier's entry)."""
     from pinot_tpu_torch.query.context import filter_fingerprint
 
-    name = bex.batch_for(segs)[0].segment_name
-    return bex._param_cache[(ctx.sql, name, len(segs),
-                             filter_fingerprint(ctx))]
+    batch, staged = bex.batch_for(segs)
+    return bex._param_cache[(ctx.sql, batch.segment_name, staged.num_segs,
+                             filter_fingerprint(ctx), bex.mesh.key)]
 
 
 def phase_coalesce(main: dict, device: str = "cuda", threads: int = 8
@@ -8179,6 +8541,16 @@ def _phases_2_to_11(args, smi: str) -> tuple:
     log(f"  batch path phase: {time.perf_counter() - t0:.1f} s")
     timing += batch_run["timing"]
 
+    log("phase 23 (after 6): the combine mesh: phase 6's flights over "
+        "meshes of cells cuda:i % cards, 1x1 (phase 6's), 8x1, 4x2 and 2x2, "
+        "the query axis and a sliced flight on 4x2, the broker's merge over "
+        "4 cells")
+    t0 = time.perf_counter()
+    mesh_run = phase_mesh(main_run, batch_run["ex"], args.reps, errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+
     log("phase 7: general rung")
     t0 = time.perf_counter()
     general_run = phase_general(main_run, args.reps)
@@ -8319,7 +8691,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
                 front_run["launches"], rt_cluster_run["launches"],
                 trace_run["launches"], disk_run["launches"],
                 lifecycle_run["launches"], wire_run["launches"],
-                ingest_run["launches"]):
+                ingest_run["launches"], mesh_run["launches"]):
         for k in launches:
             launches[k] += got.get(k, 0)
     idle = [k for k, n in launches.items() if n == 0]
@@ -8354,8 +8726,10 @@ def _phases_2_to_11(args, smi: str) -> tuple:
             "name": r["kernel"], "route": "cuda",
             "source": "pinot_tpu_torch/engine/csrc/fused_scan.cu",
             "replaces": replaces,
-            "launches": coalesce_run["launches"][r["kernel"]],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": coalesce_run["launches"][r["kernel"]]
+            + mesh_run["launches"].get(r["kernel"], 0),
+            "max_abs_err": max(r["max_abs_err"], errs.get(r["kernel"], 0.0)),
+            "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None})
     report = {"ptxas": ptxas, "per_flight": main_run["per_flight"],
@@ -8379,7 +8753,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
               "scatter": scatter_run, "front_door": front_run,
               "realtime_cluster": rt_cluster_run, "trace": trace_run,
               "disk": disk_run, "lifecycle": lifecycle_run,
-              "wire": wire_run, "ingest": ingest_run}
+              "wire": wire_run, "ingest": ingest_run, "mesh": mesh_run}
     rungs = {
         "flights_fused_off": general_run["rungs"],
         "declined": {g: d["rung_segments"]
@@ -8395,7 +8769,7 @@ def _phases_2_to_11(args, smi: str) -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sf", type=float, default=10)
+    ap.add_argument("--sf", type=float, default=5)
     ap.add_argument("--segments", type=int, default=8)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=5)

@@ -25,12 +25,14 @@ three rungs:
   the vectorized path, recorded as ``reduce:device->host:<reason>``
   (``REDUCE_DEVICE_REASONS``).
 
-The service takes ``device=`` (default ``"cuda"``); its merge runs there
-or raises. Two declines of the JAX reduce are not copied, since each would
-hide a device or a failed merge: the one for a missing merge mesh (there
-is no mesh on one card, and a missing card raises when the service is
-built) and the catch-all around the merge (JAX :436-439; a failed merge
-raises here).
+The service's merge runs over its merge mesh (``devices``,
+``parallel/reduce_device.py`` ``broker_mesh``): every visible card by
+default (JAX :409), the devices given as ``devices=``, or the one device
+given as ``device=`` other than the default ``"cuda"``; it runs there or
+raises. Two declines of the JAX reduce are not copied, since each would
+hide a device or a failed merge: the one for a merge mesh the process
+cannot build (a missing card raises when the service is built) and the
+catch-all around the merge (JAX :436-439; a failed merge raises here).
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ import torch
 from pinot_tpu_torch.common.bounds import I64_FOLD_BOUND
 from pinot_tpu_torch.common.datatable import Column, DataTable, ResponseType
 from pinot_tpu_torch.common.tracing import record_decision
-from pinot_tpu_torch.device import resolve_device
 from pinot_tpu_torch.engine.aggregates import AggDef, resolve_agg
 from pinot_tpu_torch.engine.errors import QueryError
 from pinot_tpu_torch.engine.executor import DEFAULT_NUM_GROUPS_LIMIT
@@ -460,7 +461,7 @@ class ReduceAccumulator:
             vals.append(arr)
         self.merge_rung = rdev.merge_rung(space)
         return rdev.device_group_merge(comp, space, vals, ops,
-                                       self._svc.device)
+                                       self._svc.devices)
 
     def _finalize_group_by_vectorized(self, key_concat, first_idx, perm,
                                       folded) -> Optional[ResultTable]:
@@ -670,18 +671,26 @@ def _box_state(v: Any, vec: bool) -> Any:
 
 
 class BrokerReduceService:
-    """The broker's reduce (JAX :638). ``device`` is where the device
-    route merges (default ``"cuda"``; raises without a card)."""
+    """The broker's reduce (JAX :638). The device route merges over
+    ``devices`` where given, else over every visible card for the default
+    ``device="cuda"``, else on ``device``; it raises without a card."""
 
     def __init__(self, num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT,
                  vectorized: bool = True,
                  device_reduce: bool =
                  CommonConstants.DEFAULT_BROKER_DEVICE_REDUCE,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 devices: Optional[List[Union[str, torch.device]]] = None):
         self.num_groups_limit = num_groups_limit
         self.vectorized = vectorized
         self.device_reduce = device_reduce
-        self.device = resolve_device(device)
+        if devices is None and str(device) == "cuda":
+            self.devices = rdev.broker_mesh()
+        else:
+            self.devices = rdev.broker_mesh(devices if devices is not None
+                                            else [device])
+        # the merge mesh's root: where the merged states land
+        self.device = self.devices[0]
 
     def accumulator(self, ctx: QueryContext) -> ReduceAccumulator:
         """Streaming entry: the gather loop folds tables as they arrive

@@ -301,6 +301,12 @@ class RoutingManager:
             self._request_id += 1
             return self._request_id
 
+    def routable_tables(self) -> List[str]:
+        return self.store.table_names()
+
+    def table_exists(self, table_with_type: str) -> bool:
+        return self.store.get_table_config(table_with_type) is not None
+
     # -- snapshot build -----------------------------------------------------------
     def _routing_entry(self, table: str) -> RoutingTable:
         with self._lock:
@@ -397,6 +403,15 @@ class RoutingManager:
         return dead
 
     # -- the routing table ---------------------------------------------------
+    def get_routing_table(self, table: str,
+                          ctx: Optional[QueryContext] = None,
+                          request_id: Optional[int] = None
+                          ) -> Tuple[Dict[str, List[str]], List[str]]:
+        """-> ({server: [segments]}, unavailable segments): ``route`` for a
+        caller without stats."""
+        res = self.route(table, ctx, request_id=request_id)
+        return res.routing, res.unavailable
+
     def route(self, table: str, ctx: Optional[QueryContext] = None,
               request_id: Optional[int] = None,
               stats=None) -> RouteResult:

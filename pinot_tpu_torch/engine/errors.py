@@ -69,6 +69,7 @@ _DECLINE_RULES: Tuple[Tuple[str, str], ...] = (
     ("transform", "transform_unsupported"),
     ("cannot compile value", "value_expression_uncompilable"),
     ("live groups exceed the compact cap", "compact_cap_overflow"),
+    ("doc axis", "capacity_mesh_mismatch"),
     # fused-scan eligibility (engine/fused_scan.py _Ineligible messages)
     ("unpackable column", "pallas_unpackable_column"),
     ("lut with too many runs", "pallas_lut_too_many_runs"),

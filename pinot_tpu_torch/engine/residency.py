@@ -7,7 +7,11 @@ against a budget:
 
 - **Budget**: ``pinot.server.query.hbm.budget.bytes`` (<= 0: uncapped).
   Unset, it is the card's memory (``torch.cuda.mem_get_info``) times 0.75;
-  on the CPU, uncapped.
+  on the CPU, uncapped. As in the JAX package, one budget covers an
+  executor's whole combine mesh: a batch staged over a mesh is one
+  resident whose bytes are summed over its cells
+  (``MeshStagedBatch.nbytes``), and the budget is resolved on the mesh's
+  root device.
 - **Host tier**: an evicted resident is demoted to pinned host copies
   instead of dropped (``StagedSegment.demote``); the next ``stage`` of
   the same segment promotes them back with one host-to-device copy per

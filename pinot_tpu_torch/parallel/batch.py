@@ -59,6 +59,12 @@ from pinot_tpu_torch.engine.staging import (
     to_host,
 )
 from pinot_tpu_torch.parallel.combine import BATCH_KERNELS
+from pinot_tpu_torch.parallel.mesh import (
+    Cells,
+    CombineMesh,
+    fold_partials,
+    pad_segments,
+)
 from pinot_tpu_torch.segment.dictionary import Dictionary, build_dictionary
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.segment.metadata import ColumnMetadata, SegmentMetadata
@@ -270,15 +276,19 @@ class SegmentBatch:
         """Per-segment doc capacity padded to whole scan tiles."""
         return -(-self.capacity // TILE) * TILE
 
-    def pallas_tiles(self) -> int:
-        """Tiles per segment (T)."""
-        return self.pallas_capacity() // TILE
+    def pallas_tiles(self, min_tiles: int = 1) -> int:
+        """Tiles per segment (T), rounded up to a multiple of
+        ``min_tiles`` (a mesh's doc axis splits the tiles evenly; the pad
+        tiles lie past ``num_docs``)."""
+        t = self.pallas_capacity() // TILE
+        return -(-t // min_tiles) * min_tiles
 
-    def packed_column_batch(self, name: str, pad_segments: int = 0
-                            ) -> Tuple[np.ndarray, int]:
+    def packed_column_batch(self, name: str, pad_segments: int = 0,
+                            min_tiles: int = 1) -> Tuple[np.ndarray, int]:
         """(words [S, T, W] uint32, bits): planar bit-packed unified
         dictIds, the layout of ``engine/staging.py`` per segment
-        (bit-identical to the JAX package's ``[S, T, W/128, 128]``)."""
+        (bit-identical to the JAX package's ``[S, T, W/128, 128]``);
+        ``min_tiles`` as in ``pallas_tiles``."""
         cm = self.metadata.column(name)
         if not (cm.has_dictionary and cm.single_value):
             raise ValueError(f"column {name!r} is not a single-value "
@@ -288,7 +298,7 @@ class SegmentBatch:
         bits = pack_bits(max(1, max(cm.cardinality - 1, 1).bit_length()))
         K = 32 // bits
         W = TILE // K
-        tiles = self.pallas_tiles()
+        tiles = self.pallas_tiles(min_tiles)
         ids = np.zeros((S, tiles * TILE), dtype=np.uint32)
         ids[:, :fwd.shape[1]] = fwd.astype(np.uint32)
         planes = ids.reshape(S, tiles, K, W)
@@ -297,8 +307,8 @@ class SegmentBatch:
             words |= planes[:, :, k, :] << np.uint32(k * bits)
         return words, bits
 
-    def value_column_batch(self, name: str, pad_segments: int = 0
-                           ) -> Optional[np.ndarray]:
+    def value_column_batch(self, name: str, pad_segments: int = 0,
+                           min_tiles: int = 1) -> Optional[np.ndarray]:
         """[S, T * TILE] per-doc values of a single-value numeric column,
         dictionary or raw: f32 for float columns, i32 or i64 for integer
         columns (``staged_int_dtype`` of the merged stats). Where the JAX
@@ -316,7 +326,8 @@ class SegmentBatch:
                                       if cm.data_type.is_integral
                                       else np.float32)
         S = vals.shape[0]
-        out = np.zeros((S, self.pallas_tiles() * TILE), dtype=vals.dtype)
+        out = np.zeros((S, self.pallas_tiles(min_tiles) * TILE),
+                       dtype=vals.dtype)
         out[:, :vals.shape[1]] = vals
         return out
 
@@ -329,6 +340,23 @@ def _merge_dictionaries(dicts: List[Dictionary], data_type: DataType
     unified = np.unique(np.concatenate(arrays))
     remaps = [np.searchsorted(unified, a).astype(np.int32) for a in arrays]
     return build_dictionary(unified, data_type), remaps
+
+
+def _distinct_nbytes(obj, seen=None) -> int:
+    """Bytes of the distinct tensors in a container (a tensor, or a dict
+    or list of them: one a cell for a mesh's batch, whose cells on one
+    device share their ``dictvals``)."""
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        if id(obj) in seen:
+            return 0
+        seen.add(id(obj))
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(_distinct_nbytes(v, seen) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_distinct_nbytes(v, seen) for v in obj)
+    return 0
 
 
 class BatchHostImage:
@@ -351,10 +379,8 @@ class BatchHostImage:
 
     def seal(self) -> "BatchHostImage":
         self._nbytes = (
-            sum(w.numel() * w.element_size() for w, _ in self.packed.values())
-            + sum(v.numel() * v.element_size() for v in self.values.values())
-            + sum(t.numel() * t.element_size()
-                  for tree in self.columns.values() for t in tree.values())
+            sum(_distinct_nbytes(w) for w, _ in self.packed.values())
+            + _distinct_nbytes(self.values) + _distinct_nbytes(self.columns)
             + sum(a.nbytes for _S, tree in self.batch._stacked.values()
                   for a in tree.values()))
         return self
@@ -465,6 +491,23 @@ class StagedBatch:
                     self._bytes += v.numel() * v.element_size()
         return v
 
+    def combine_num_docs(self) -> torch.Tensor:
+        """The jnp combine's ``num_docs``: [S] int64 on the device."""
+        return self.num_docs_tensor()
+
+    def held_column(self, name: str) -> Optional[StagedColumn]:
+        """The column's staged arrays where they are staged, else None
+        (nothing is staged): the root cell's on a mesh."""
+        return self._columns.get(name)
+
+    def segment_rows(self, name: str, i: int
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Copies of segment ``i``'s ``fwd`` and ``null`` rows of a staged
+        column, on the batch's device."""
+        sc = self._columns[name]
+        return (sc.fwd[i].clone(),
+                None if sc.null is None else sc.null[i].clone())
+
     def column(self, name: str) -> StagedColumn:
         """The jnp combine's arrays of a column: ``stacked_column`` on the
         device (``fwd`` / ``mv`` / ``mvcount`` / ``null`` with a leading
@@ -533,3 +576,231 @@ class StagedBatch:
         self._columns.clear()
         self._num_docs = None
         self._bytes = 0
+
+
+class MeshStagedBatch(StagedBatch):
+    """Device image of one segment batch over a mesh of more than one cell
+    (``parallel/mesh.py``): each cell's block on the cell's device, staged
+    column by column on demand. The segments pad to a multiple of
+    ``n_seg`` and the tiles to a multiple of ``n_doc`` (JAX's
+    ``min_tiles``, ``pinot_tpu/parallel/executor.py:744-770``); a cell
+    holds ``S / n_seg`` segments of packed words ``[., T / n_doc, W]``
+    and value columns ``[., T / n_doc * TILE]``, the jnp combine's stacked
+    arrays split at ``capacity / n_doc`` docs, and the shared ``dictvals``
+    once a device. ``num_docs_tensor`` gives each cell the fused scan's
+    clamped doc counts, ``combine_num_docs`` the jnp combine's per-segment
+    ones. The bytes are summed over the cells; demotion copies every
+    block to the host image and promotion restores each block to its
+    cell."""
+
+    def __init__(self, batch: SegmentBatch, mesh: CombineMesh,
+                 num_segs: int = 0,
+                 host_image: Optional[BatchHostImage] = None):
+        super().__init__(batch, device=mesh.root,
+                         num_segs=pad_segments(max(num_segs,
+                                                   batch.num_segments),
+                                               mesh.n_seg),
+                         host_image=host_image)
+        self.mesh = mesh
+        self.tiles = batch.pallas_tiles(mesh.n_doc)
+        self._copies_on = {d: H2DCopies(d) for d in mesh.devices}
+        self._combine_nd: Optional[Cells] = None
+
+    def scan_capacity(self) -> int:
+        return self.tiles * TILE
+
+    def _blocks(self, host: np.ndarray, width: int) -> Cells:
+        """``host`` [S, width * n_doc, ...] cut into the cells' blocks, each
+        copied to its cell."""
+        m = self.mesh
+        s_l = host.shape[0] // m.n_seg
+        blocks = []
+        for c, dev in enumerate(m.cells):
+            si, di = divmod(c, m.n_doc)
+            blk = np.ascontiguousarray(host[si * s_l:(si + 1) * s_l,
+                                            di * width:(di + 1) * width])
+            blocks.append(torch.from_numpy(blk).to(dev))
+        return Cells(m, blocks, host.shape)
+
+    def _restore(self, blocks: List[torch.Tensor], shape) -> Cells:
+        return Cells(self.mesh,
+                     [self._copies_on[dev].restore(h)
+                      for h, dev in zip(blocks, self.mesh.cells)], shape)
+
+    def _per_cell(self, host: np.ndarray, clamp: bool) -> Cells:
+        m = self.mesh
+        s_l = host.shape[0] // m.n_seg
+        span = self.tiles // m.n_doc * TILE
+        blocks = []
+        for c, dev in enumerate(m.cells):
+            si, di = divmod(c, m.n_doc)
+            nd = host[si * s_l:(si + 1) * s_l]
+            if clamp:
+                nd = np.clip(nd - di * span, 0, span)
+            blocks.append(torch.from_numpy(np.ascontiguousarray(nd)).to(dev))
+        return Cells(m, blocks, host.shape)
+
+    def num_docs_tensor(self) -> Cells:
+        """Each cell's [S / n_seg] doc counts in its tile block:
+        ``clamp(num_docs - di * T_l * TILE, 0, T_l * TILE)``."""
+        if self._num_docs is None:
+            with self._lock:
+                if self._num_docs is None:
+                    nd = self._per_cell(
+                        self.batch.num_docs_array(self.num_segs), True)
+                    self._num_docs = nd
+                    self._bytes += nd.nbytes()
+        return self._num_docs
+
+    def combine_num_docs(self) -> Cells:
+        """Each cell's segments' whole doc counts (the body takes the
+        cell's ``doc_offset``)."""
+        if self._combine_nd is None:
+            with self._lock:
+                if self._combine_nd is None:
+                    nd = self._per_cell(
+                        self.batch.num_docs_array(self.num_segs), False)
+                    self._combine_nd = nd
+                    self._bytes += nd.nbytes()
+        return self._combine_nd
+
+    def packed_column(self, name: str) -> PackedColumn:
+        pc = self._packed.get(name)
+        if pc is None:
+            with self._lock:
+                pc = self._packed.get(name)
+                if pc is None:
+                    hp = self._promote("packed", name)
+                    if hp is not None:
+                        pc = PackedColumn(self._restore(*hp[0]), hp[1])
+                    else:
+                        words, bits = self.batch.packed_column_batch(
+                            name, self.num_segs, self.mesh.n_doc)
+                        pc = PackedColumn(self._blocks(
+                            words.view(np.int32),
+                            self.tiles // self.mesh.n_doc), bits)
+                    self._packed[name] = pc
+                    self._bytes += pc.words.nbytes()
+        return pc
+
+    def value_column(self, name: str) -> Optional[Cells]:
+        v = self._values.get(name)
+        if v is None:
+            with self._lock:
+                v = self._values.get(name)
+                if v is None:
+                    hv = self._promote("values", name)
+                    if hv is not None:
+                        v = self._restore(*hv)
+                    else:
+                        host = self.batch.value_column_batch(
+                            name, self.num_segs, self.mesh.n_doc)
+                        if host is None:
+                            return None
+                        v = self._blocks(host,
+                                         self.tiles // self.mesh.n_doc * TILE)
+                    self._values[name] = v
+                    self._bytes += v.nbytes()
+        return v
+
+    def column(self, name: str) -> StagedColumn:
+        raise ValueError("a mesh's batch holds a column a cell: "
+                         "column_cells")
+
+    def held_column(self, name: str) -> Optional[StagedColumn]:
+        cols = self._columns.get(name)
+        return None if cols is None else cols[0]
+
+    def segment_rows(self, name: str, i: int
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Segment ``i``'s rows joined from its cells' doc blocks, on the
+        mesh's root."""
+        m, cols = self.mesh, self._columns[name]
+        si, il = divmod(i, self.num_segs // m.n_seg)
+        mine = cols[si * m.n_doc:(si + 1) * m.n_doc]
+        fwd = fold_partials([sc.fwd[il] for sc in mine], "cat", m.root)
+        null = (None if mine[0].null is None else
+                fold_partials([sc.null[il] for sc in mine], "cat", m.root))
+        return fwd, null
+
+    def column_cells(self, name: str) -> List[StagedColumn]:
+        """The jnp combine's arrays of a column, one ``StagedColumn`` a
+        cell: its segments' rows split at ``capacity / n_doc`` docs, and
+        the ``dictvals`` of its device."""
+        cols = self._columns.get(name)
+        if cols is None:
+            with self._lock:
+                cols = self._columns.get(name)
+                if cols is None:
+                    hc = self._promote("columns", name)
+                    cols = (self._restore_columns(hc) if hc is not None
+                            else self._stage_columns(name))
+                    self._columns[name] = cols
+                    self._bytes += _distinct_nbytes([sc.tree() for sc in cols])
+        return cols
+
+    def _stage_columns(self, name: str) -> List[StagedColumn]:
+        m = self.mesh
+        tree = self.batch.stacked_column(name, self.num_segs)
+        cap = self.batch.capacity
+        if cap % m.n_doc:
+            raise ValueError(f"capacity {cap} !| doc axis {m.n_doc}")
+        split = {k: self._blocks(np.ascontiguousarray(v), cap // m.n_doc)
+                 for k, v in tree.items() if k != "dictvals"}
+        dv = tree.get("dictvals")
+        dv_on = ({} if dv is None else
+                 {d: torch.from_numpy(np.ascontiguousarray(dv)).to(d)
+                  for d in m.devices})
+        return [StagedColumn(dictvals=dv_on.get(dev),
+                             **{k: cells[c] for k, cells in split.items()})
+                for c, dev in enumerate(m.cells)]
+
+    def _restore_columns(self, trees: List[Dict[str, torch.Tensor]]
+                         ) -> List[StagedColumn]:
+        m = self.mesh
+        dv_on: Dict[torch.device, torch.Tensor] = {}
+        out = []
+        for tree, dev in zip(trees, m.cells):
+            copies = self._copies_on[dev]
+            fields = {k: copies.restore(t) for k, t in tree.items()
+                      if k != "dictvals"}
+            if "dictvals" in tree and dev not in dv_on:
+                dv_on[dev] = copies.restore(tree["dictvals"])
+            out.append(StagedColumn(dictvals=dv_on.get(dev), **fields))
+        return out
+
+    def demote(self) -> BatchHostImage:
+        with self._lock:
+            img = BatchHostImage(self.batch)
+            for name, pc in self._packed.items():
+                img.packed[name] = (([to_host(b) for b in pc.words],
+                                     pc.words.shape), pc.bits)
+            for name, v in self._values.items():
+                img.values[name] = ([to_host(b) for b in v], v.shape)
+            hosted: Dict[int, torch.Tensor] = {}   # a device's dictvals once
+
+            def host(t: torch.Tensor) -> torch.Tensor:
+                if id(t) not in hosted:
+                    hosted[id(t)] = to_host(t)
+                return hosted[id(t)]
+
+            for name, cols in self._columns.items():
+                img.columns[name] = [{k: host(t) for k, t in sc.tree().items()}
+                                     for sc in cols]
+            for dev in self.mesh.devices:
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+            src = self._host_image
+            if src is not None:
+                for table in ("packed", "values", "columns"):
+                    mine = getattr(img, table)
+                    for k, v in getattr(src, table).items():
+                        mine.setdefault(k, v)
+            self._release_locked()
+        return img.seal()
+
+    def _release_locked(self) -> None:
+        for copies in self._copies_on.values():
+            copies.wait()
+        super()._release_locked()
+        self._combine_nd = None

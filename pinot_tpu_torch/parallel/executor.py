@@ -1,12 +1,21 @@
-"""Sharded query executor: a multi-segment query as one call on the card.
+"""Sharded query executor: a multi-segment query as one call over a mesh.
 
-Counterpart of ``pinot_tpu/parallel/executor.py`` (``ShardedQueryExecutor``)
-for one card: a query over more than one segment (after the base class's
-pruning) plans once against the segments' ``SegmentBatch`` and runs as
-one call over the whole batch, with one device-to-host copy of its
-outputs, where the per-segment executor runs one call and one copy per
-segment. Binding (``_bind``, JAX ``_bind_launch`` :526) picks the call as
-the JAX executor does: one launch of the fused scan
+Counterpart of ``pinot_tpu/parallel/executor.py`` (``ShardedQueryExecutor``):
+a query over more than one segment (after the base class's pruning) plans
+once against the segments' ``SegmentBatch`` and runs as one call over the
+whole batch, with one device-to-host copy of its outputs, where the
+per-segment executor runs one call and one copy per segment. The call
+runs over the executor's combine mesh (``parallel/mesh.py``,
+``ShardedQueryExecutor(mesh=..., doc_shards=...)``, JAX :50-55): one
+cell on ``device`` without a mesh (``doc_shards`` cells on it along the
+doc axis), else the mesh's cells, each scanning its block of the batch,
+the partials folded on the mesh's root. The per-segment path of the base
+class runs on the root. The slice planner pads to the mesh's ``seg``
+axis (JAX :209), a jnp combine whose capacity the ``doc`` axis does not
+divide leaves the batch with JAX's ``PlanError`` (:551-554,
+``capacity_mesh_mismatch``), and both query caches key on the mesh.
+Binding (``_bind``, JAX ``_bind_launch`` :526) picks the call as the JAX
+executor does: one launch of the fused scan
 (``parallel/combine.py``) where it is eligible, else the jnp combine
 (``combine.batch_body_combine``, JAX ``_bind_jnp`` :544), with the fused
 scan's decline recorded as ``pallas:pallas_combine->jnp_combine:<code>``
@@ -49,17 +58,17 @@ tier by the exact query (its plan, program or params) and the launch tier
 by the literal-normalized key (``ScanProgram.layout_key`` with the
 columns, or the jnp combine's spec), which holds the ``LaunchKernel``
 over the staged inputs and is the coalescing identity. Every batch launch
-goes through the device's ``LaunchScheduler`` (``parallel/launcher.py``),
+goes through the mesh's ``LaunchScheduler`` (``parallel/launcher.py``),
 and the query's ``QueryStats.launch`` adds one record a launch. A launch
 that fails raises in every query that rode it: the JAX executor's repair
-from Pallas to jnp (:434-474) is not copied. The doc-axis mesh and the
-merge across cards are not part of this executor.
+from Pallas to jnp (:434-474) is not copied, and a failed cell's launch
+raises in the query.
 
 A traced query's batch launch is one ``ShardedCombine`` span (the
-launcher's queue wait as its ``queueMs``, JAX :376) and a sliced lease's
-slices ``Slice`` spans (JAX :219). The launches a request was served by,
-its own or a coalesced one, come back on the request and count in the
-query's stats.
+launcher's queue wait as its ``queueMs`` and the mesh's shape, JAX :376,
+:393) and a sliced lease's slices ``Slice`` spans (JAX :219). The
+launches a request was served by, its own or a coalesced one, come back
+on the request and count in the query's stats.
 
 The column borrower (``_borrow_batch_column``, JAX :813-883): a
 per-segment staging (the general rung, the index rung, the top-k) of a
@@ -119,19 +128,19 @@ from pinot_tpu_torch.engine.staging import (
 )
 from pinot_tpu_torch.parallel.batch import (
     BatchHostImage,
+    MeshStagedBatch,
     SegmentBatch,
     StagedBatch,
 )
 from pinot_tpu_torch.parallel.combine import (
     BATCH_GENERAL_COUNTER,
     BATCH_KERNELS,
-    SEG_SHARDS,
     combine_to_host,
-    pad_segments,
     sharded_fused_scan_many,
     sharded_fused_scan_probe_many,
 )
-from pinot_tpu_torch.parallel.launcher import LaunchKernel, launcher_for_device
+from pinot_tpu_torch.parallel.launcher import LaunchKernel, launcher_for_mesh
+from pinot_tpu_torch.parallel.mesh import CombineMesh, make_combine_mesh
 from pinot_tpu_torch.query.context import QueryContext, filter_fingerprint
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.segment.mutable import is_mutable
@@ -147,10 +156,13 @@ LAUNCH_CACHE_CAP = 128
 class CombineInputs:
     """A plan bound to the jnp combine over a staged batch."""
 
-    plan: SegmentPlan                         # the outputs decode against it
-    cols: Dict[str, Dict[str, torch.Tensor]]  # StagedBatch.column trees
-    params: Tuple                             # the plan's params, on device
-    num_docs: torch.Tensor                    # [S] int64
+    plan: SegmentPlan   # the outputs decode against it
+    # StagedBatch.column trees, the plan's params on the device and [S]
+    # int64 docs; over a mesh a list of trees and of params, one a cell,
+    # and the cells' docs (``MeshStagedBatch.combine_num_docs``)
+    cols: Any
+    params: Any
+    num_docs: Any
 
     def run(self) -> np.ndarray:
         """The packed outputs, copied to the host."""
@@ -182,17 +194,23 @@ def _host(outs: fused_scan.ScanOutputs) -> fused_scan.ScanOutputs:
 
 
 class ShardedQueryExecutor(ServerQueryExecutor):
-    """Executor whose combine is one call over the segment batch."""
+    """Executor whose combine is one call over the segment batch, on the
+    cells of ``mesh`` (``make_combine_mesh``), or without one on
+    ``doc_shards`` cells of ``device`` (one by default)."""
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
                  use_fused_scan: bool = True,
                  num_groups_limit: int = DEFAULT_NUM_GROUPS_LIMIT,
                  hbm_budget_bytes=None, host_budget_bytes=None,
-                 config=None):
-        super().__init__(device, use_fused_scan=use_fused_scan,
+                 config=None, mesh: Optional[CombineMesh] = None,
+                 doc_shards: int = 1):
+        super().__init__(mesh.root if mesh is not None else device,
+                         use_fused_scan=use_fused_scan,
                          num_groups_limit=num_groups_limit,
                          hbm_budget_bytes=hbm_budget_bytes,
                          host_budget_bytes=host_budget_bytes, config=config)
+        self.mesh = mesh if mesh is not None else make_combine_mesh(
+            [self.device] * doc_shards, doc_shards)
         # batches built (or adopted from the host tier) and staged so far;
         # a cache hit stages none
         self.batches_staged = 0
@@ -213,7 +231,7 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             CommonConstants.DEFAULT_LAUNCH_MAX_BATCH))
         # per-segment stagings borrow the resident batches' columns
         self.residency.column_borrower = self._borrow_batch_column
-        self.launcher = launcher_for_device(self.device)
+        self.launcher = launcher_for_mesh(self.mesh)
         self.launcher.set_window(
             max_ms=cfg.get_float(CommonConstants.LAUNCH_WINDOW_MS_KEY,
                                  CommonConstants.DEFAULT_LAUNCH_WINDOW_MS),
@@ -268,7 +286,7 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         lease = stats.lease
         slices = self.residency.plan_slices(
             segments, ctx.referenced_columns(), lease,
-            pad_to=SEG_SHARDS)
+            pad_to=self.mesh.n_seg)
         base = (ServerQueryExecutor._execute_group_by if grouped
                 else ServerQueryExecutor._execute_aggregation)
         if slices is None:
@@ -335,10 +353,10 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         name = "batch(" + ",".join(key) + ")"
         image = self.residency.promote_host(name, segments, lease)
         batch = image.batch if image is not None else SegmentBatch(segments)
-        staged = StagedBatch(batch, device=self.device,
-                             num_segs=pad_segments(batch.num_segments,
-                                                   SEG_SHARDS),
-                             host_image=image)
+        staged = (StagedBatch(batch, device=self.device,
+                              num_segs=batch.num_segments, host_image=image)
+                  if self.mesh.size == 1 else
+                  MeshStagedBatch(batch, self.mesh, host_image=image))
         with self._batches_lock:
             # another thread may have built it first: share its batch
             cur = self._batches.get(key)
@@ -403,7 +421,7 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                 continue    # a reloaded segment: the batch's copy is stale
             if batch.capacity != segment.padded_capacity:
                 continue    # the row would have the wrong length
-            sc = staged._columns.get(name)
+            sc = staged.held_column(name)
             if sc is None or sc.fwd is None:
                 continue
             if cm.has_dictionary:
@@ -420,10 +438,10 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                 continue
             if cm.has_nulls and sc.null is None:
                 continue
+            fwd, null = staged.segment_rows(name, i)
             out = StagedColumn(
-                fwd=sc.fwd[i].clone(),
-                dictvals=sc.dictvals if dv_want is not None else None,
-                null=sc.null[i].clone() if cm.has_nulls else None)
+                fwd=fwd, dictvals=sc.dictvals if dv_want is not None else None,
+                null=null if cm.has_nulls else None)
             self.residency.note_borrow(batch.segment_name)
             return out
         return None
@@ -449,7 +467,7 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             # the filter fingerprint: a rewritten filter under the same
             # SQL binds again (JAX :349-352)
             pkey = (ctx.sql if ctx.sql is not None else repr(ctx), bname,
-                    staged.num_segs, filter_fingerprint(ctx))
+                    staged.num_segs, filter_fingerprint(ctx), self.mesh.key)
             with self._cache_lock:
                 bound = self._param_cache.get(pkey)
                 if bound is not None:
@@ -459,7 +477,11 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             self._leave_batch(stats, e)
             return None
         if bound is None:
-            bound = self._bind(plan, staged, stats)
+            try:
+                bound = self._bind(plan, staged, stats)
+            except PlanError as e:   # a capacity the doc axis does not divide
+                self._leave_batch(stats, e)
+                return None
             with self._cache_lock:
                 self._param_cache[pkey] = bound
                 if len(self._param_cache) > PARAM_CACHE_CAP:
@@ -472,7 +494,7 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         req = None
         try:
             req = self.launcher.submit(kernel, bound.params,
-                                       staged.num_docs_tensor())
+                                       bound.inputs.num_docs)
             result = req.result()
         finally:
             if sp is not None:
@@ -483,6 +505,7 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                     kernel="fused_scan" if bound.pp is not None
                     else "general",
                     segments=batch.num_segments,
+                    mesh=f"{self.mesh.n_seg}x{self.mesh.n_doc}",
                     batch_size=req.batch_size if req is not None else 0,
                     launches=(req.launched.kernel_launches()
                               if req is not None else 0))
@@ -569,14 +592,11 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         for r in reasons:
             record_decision(stats, "pallas", "jnp_combine", "pallas_combine",
                             r)
-        inp = CombineInputs(
-            plan=plan,
-            cols={name: staged.column(name).tree() for name in plan.columns},
-            params=kernels.device_params(plan, self.device),
-            num_docs=staged.num_docs_tensor())
+        inp = self._combine_inputs(plan, staged)
+        first = inp.cols if self.mesh.size == 1 else inp.cols[0]
         layouts = tuple(sorted((name, tuple(sorted(t)))
-                               for name, t in inp.cols.items()))
-        launch_key = ("jnp", plan.spec, layouts, bname, S)
+                               for name, t in first.items()))
+        launch_key = ("jnp", plan.spec, layouts, self.mesh.key, bname, S)
         spec, cols = plan.spec, inp.cols
         max_batch = self._launch_max_batch
 
@@ -593,11 +613,38 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                           params=inp.params, make_kernel=make_kernel,
                           inputs=inp)
 
+    def _combine_inputs(self, plan: SegmentPlan,
+                        staged: StagedBatch) -> CombineInputs:
+        """The jnp combine's staged inputs: on one cell the batch's column
+        trees and the params on its device; over a mesh a tree and the
+        params a cell (one params copy a device). A capacity the doc axis
+        does not divide raises JAX's ``PlanError`` (:551-554) before
+        anything stages."""
+        m = self.mesh
+        if m.size == 1:
+            return CombineInputs(
+                plan=plan,
+                cols={name: staged.column(name).tree()
+                      for name in plan.columns},
+                params=kernels.device_params(plan, self.device),
+                num_docs=staged.combine_num_docs())
+        if plan.spec[-1] % m.n_doc:
+            raise PlanError(f"capacity {plan.spec[-1]} !| doc axis "
+                            f"{m.n_doc}")
+        cells = {name: staged.column_cells(name) for name in plan.columns}
+        params = {d: kernels.device_params(plan, d) for d in m.devices}
+        return CombineInputs(
+            plan=plan,
+            cols=[{name: cells[name][c].tree() for name in plan.columns}
+                  for c in range(m.size)],
+            params=[params[d] for d in m.cells],
+            num_docs=staged.combine_num_docs())
+
     def _bind_fused(self, inp: fused_scan.ScanInputs, bname: str,
                     S: int) -> BoundQuery:
         pp = inp.pp
         launch_key = ("fused", inp.prog.layout_key(), tuple(pp.packed_names),
-                      tuple(pp.value_names), bname, S)
+                      tuple(pp.value_names), self.mesh.key, bname, S)
         words, values, tiles = inp.words, inp.values, inp.tiles
         max_batch = self._launch_max_batch
 
@@ -621,7 +668,7 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         """The group-range probe at binding, through the launcher: probes
         of one layout from concurrent bindings share a launch, which each
         of them counts."""
-        key = ("fused_probe", prog.layout_key(), bname, S)
+        key = ("fused_probe", prog.layout_key(), self.mesh.key, bname, S)
         max_batch = self._launch_max_batch
         kernel = self._launch_kernel(key, lambda: LaunchKernel(
             key,

@@ -3,9 +3,12 @@
 Counterpart of ``pinot_tpu/parallel/launcher.py`` (``LaunchKernel``,
 ``_LaunchRequest``, ``LaunchScheduler`` :140-473, ``launcher_for_mesh``).
 A query never launches its batch scan itself: it submits a request
-(``LaunchKernel``, its bound parameters, ``num_docs``) to the device's
-``LaunchScheduler`` and waits on a future. One dispatcher thread per
-device drains the queue, so the device's launches are totally ordered,
+(``LaunchKernel``, its bound parameters, ``num_docs``) to its mesh's
+``LaunchScheduler`` (``launcher_for_mesh``; a single device's is the
+1x1 mesh's, ``launcher_for_device``) and waits on a future. One
+dispatcher thread per mesh drains the queue, so the mesh's launches are
+totally ordered (a launch over a mesh is one kernel launch a cell, made
+by the kernel's call),
 and while one group runs the next requests pile up. The dispatcher groups
 them by ``LaunchKernel.key`` (the literal-normalized identity: same
 kernel, same staged batch, same layout):
@@ -31,7 +34,8 @@ for stragglers before it groups; idle traffic, and one client whose
 next query waits for its last, wait nothing (the JAX dispatcher holds
 for any hot stream, a lone fast client included). Kernel calls return
 host results, and the dispatcher waits for the device's stream before it
-completes the futures (JAX's ``block_until_ready`` at :364).
+completes the futures (JAX's ``block_until_ready`` at :364): every CUDA
+device of the mesh.
 ``bind_metrics`` (JAX :416-436) adds a server's registry: every bound
 registry gets the ``ServerMeter.LAUNCH*`` marks (several in-process
 servers may share one device's scheduler) and the queue gauges. Each
@@ -56,6 +60,7 @@ import torch
 
 from pinot_tpu_torch.common.telemetry import TELEMETRY
 from pinot_tpu_torch.engine.results import QueryStats, count_launches_into
+from pinot_tpu_torch.parallel.mesh import CombineMesh, single_cell
 from pinot_tpu_torch.spi.metrics import ServerMeter
 
 log = logging.getLogger(__name__)
@@ -125,9 +130,14 @@ class LaunchScheduler:
     """One dispatcher thread owning every batch launch of one device."""
 
     def __init__(self, name: str = "combine-launch",
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 devices: Tuple[torch.device, ...] = ()):
         self._name = name
         self.device = torch.device(device) if device is not None else None
+        # every device the launches run on (the mesh's), waited for before
+        # a group's futures complete
+        self.devices = tuple(devices) or (
+            (self.device,) if self.device is not None else ())
         self._queue: "deque[_LaunchRequest]" = deque()
         self._cond = threading.Condition()
         self._thread: Optional[threading.Thread] = None
@@ -302,8 +312,9 @@ class LaunchScheduler:
             tallies[start:start + len(chunk)] = [tally] * len(chunk)
             launches += 1
         # the group's device work is done before any rider reads it
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        for dev in self.devices:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
         n = len(reqs)
         # counted before any rider wakes, so a rider reads stats with its
@@ -393,22 +404,21 @@ class LaunchScheduler:
             }
 
 
-# one dispatcher per device: every executor on a device shares it, so
-# their launches are ordered on one thread
+# one dispatcher per mesh: every executor on a mesh shares it, so their
+# launches are ordered on one thread
 _LAUNCHERS: Dict[str, LaunchScheduler] = {}
 _REGISTRY_LOCK = threading.Lock()
 
 
-def launcher_for_device(device: Union[str, torch.device]) -> LaunchScheduler:
-    """The device's scheduler (JAX ``launcher_for_mesh``: one per mesh)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    key = str(dev)
+def launcher_for_mesh(mesh: CombineMesh) -> LaunchScheduler:
+    """The mesh's scheduler (JAX ``launcher_for_mesh``), made at first
+    use; keyed by ``CombineMesh.key``."""
+    key = mesh.key
     with _REGISTRY_LOCK:
         sched = _LAUNCHERS.get(key)
         if sched is None:
-            sched = LaunchScheduler(name=f"combine-launch-{key}", device=dev)
+            sched = LaunchScheduler(name=f"combine-launch-{key}",
+                                    device=mesh.root, devices=mesh.devices)
             _LAUNCHERS[key] = sched
             # the dispatcher's queue depth and arrival EWMA as gauge rings
             # (JAX :487-492); plain reads, no lock
@@ -421,4 +431,10 @@ def launcher_for_device(device: Union[str, torch.device]) -> LaunchScheduler:
         return sched
 
 
-__all__ = ["LaunchKernel", "LaunchScheduler", "launcher_for_device"]
+def launcher_for_device(device: Union[str, torch.device]) -> LaunchScheduler:
+    """The single device's scheduler: its 1x1 mesh's."""
+    return launcher_for_mesh(single_cell(device))
+
+
+__all__ = ["LaunchKernel", "LaunchScheduler", "launcher_for_device",
+           "launcher_for_mesh"]

@@ -31,6 +31,10 @@ same ``ImmutableSegment``, so staging, residency, the pruner and every rung
 take it unchanged. At load every file the metadata names is mapped
 (``native.MmapBuffer``, ``native.load_npy``; no copy, no descriptor kept
 open), so a segment whose directory is deleted afterwards still reads.
+Each ``startree<i>/`` directory is opened and its files mapped at load too
+(``StarTreeFiles``); the trees are decoded from those maps at first use,
+so a directory written again under the same name (replaced whole, by
+rename) leaves a loaded segment with the trees it was loaded with.
 Each column's arrays are made at first use and kept: a packed forward
 index is unpacked on the host (and narrowed to the dictIds' dtype, as the
 in-memory builder stores them), a compressed one decompressed, a
@@ -148,7 +152,8 @@ class DataSource:
 class ImmutableSegment:
     def __init__(self, metadata: SegmentMetadata,
                  sources: Dict[str, DataSource],
-                 segment_dir: Optional[str] = None):
+                 segment_dir: Optional[str] = None,
+                 tree_files: Optional[List[Any]] = None):
         cap = metadata.padded_capacity
         for name, ds in sources.items():
             if isinstance(ds, _DiskDataSource):
@@ -158,7 +163,11 @@ class ImmutableSegment:
         self._sources = sources
         self.segment_dir = segment_dir
         self.valid_doc_ids = None
-        self._star_trees: Optional[List[Any]] = None if segment_dir else []
+        # a loaded segment's mapped tree files (``StarTreeFiles``), decoded
+        # into ``star_trees`` at first use
+        self._tree_files = tree_files
+        self._star_trees: Optional[List[Any]] = (
+            None if tree_files is not None else [])
 
     @property
     def segment_name(self) -> str:
@@ -174,20 +183,11 @@ class ImmutableSegment:
 
     @property
     def star_trees(self) -> List[Any]:
-        """The star-trees; a loaded segment reads its tree directories at
-        first use."""
+        """The star-trees; a loaded segment decodes the tree files it
+        mapped at load at first use."""
         trees = self._star_trees
         if trees is None:
-            from pinot_tpu_torch.segment.startree import StarTree
-
-            trees = []
-            for i in range(self.metadata.star_tree_count):
-                t = StarTree.load(self.segment_dir, index=i)
-                if t is None:
-                    raise FileNotFoundError(
-                        f"{self.segment_dir}: star-tree {i} of "
-                        f"{self.metadata.star_tree_count} is missing")
-                trees.append(t)
+            trees = [f.decode() for f in self._tree_files]
             self._star_trees = trees
         return trees
 
@@ -445,7 +445,17 @@ def load_segment(segment_dir: str) -> ImmutableSegment:
     sources: Dict[str, DataSource] = {
         name: _DiskDataSource(name, cm, md, _ColumnFiles(col_dir, name, cm))
         for name, cm in md.columns.items()}
-    return ImmutableSegment(md, sources, segment_dir=segment_dir)
+    from pinot_tpu_torch.segment.startree import StarTreeFiles
+
+    tree_files = []
+    for i in range(md.star_tree_count):
+        files = StarTreeFiles.map(segment_dir, i)
+        if files is None:
+            raise FileNotFoundError(f"{segment_dir}: star-tree {i} of "
+                                    f"{md.star_tree_count} is missing")
+        tree_files.append(files)
+    return ImmutableSegment(md, sources, segment_dir=segment_dir,
+                            tree_files=tree_files)
 
 
 def verify_crc(segment_dir: str) -> bool:

@@ -437,20 +437,8 @@ class StarTree:
     def load(cls, seg_dir: str, index: int = 0) -> Optional["StarTree"]:
         """Tree ``index`` of a segment directory, or None where it has no
         such tree; its arrays map the files (``native.load_npy``)."""
-        from pinot_tpu_torch.native import load_npy
-
-        d = os.path.join(seg_dir, STARTREE_DIR.format(index=index))
-        meta_path = os.path.join(d, META_FILE)
-        if not os.path.isfile(meta_path):
-            return None
-        with open(meta_path) as f:
-            config = StarTreeConfig.from_dict(json.load(f))
-        metrics = {}
-        for fn, col in config.function_column_pairs:
-            k = f"{fn}__{col}"
-            metrics[k] = load_npy(os.path.join(d, f"metric_{k}.npy"))
-        return cls(config, load_npy(os.path.join(d, "dims.npy")), metrics,
-                   load_npy(os.path.join(d, "nodes.npy")))
+        files = StarTreeFiles.map(seg_dir, index)
+        return None if files is None else files.decode()
 
     def nbytes(self) -> int:
         """Host bytes of the records and nodes."""
@@ -515,3 +503,43 @@ class StarTree:
         # free dimensions need no post-filter: each leaf range holds either
         # the star-aggregated records or a whole concrete partition
         return idx[mask]
+
+
+class StarTreeFiles:
+    """One ``startree<i>/`` directory opened: its config read and every
+    array file mapped. A map keeps the bytes it was made over, so a tree
+    decoded from these later answers from the files as they were when
+    they were mapped, even after the directory is replaced."""
+
+    __slots__ = ("config", "dims", "metrics", "nodes")
+
+    def __init__(self, config: Dict[str, Any], dims: np.ndarray,
+                 metrics: Dict[str, np.ndarray], nodes: np.ndarray):
+        self.config = config
+        self.dims = dims
+        self.metrics = metrics
+        self.nodes = nodes
+
+    @classmethod
+    def map(cls, seg_dir: str, index: int = 0) -> Optional["StarTreeFiles"]:
+        """The files of tree ``index``, or None where it has no such
+        tree."""
+        from pinot_tpu_torch.native import load_npy
+
+        d = os.path.join(seg_dir, STARTREE_DIR.format(index=index))
+        meta_path = os.path.join(d, META_FILE)
+        if not os.path.isfile(meta_path):
+            return None
+        with open(meta_path) as f:
+            config = json.load(f)
+        metrics = {}
+        for fn, col in StarTreeConfig.from_dict(
+                config).function_column_pairs:
+            k = f"{fn}__{col}"
+            metrics[k] = load_npy(os.path.join(d, f"metric_{k}.npy"))
+        return cls(config, load_npy(os.path.join(d, "dims.npy")), metrics,
+                   load_npy(os.path.join(d, "nodes.npy")))
+
+    def decode(self) -> StarTree:
+        return StarTree(StarTreeConfig.from_dict(self.config), self.dims,
+                        self.metrics, self.nodes)

@@ -1,12 +1,15 @@
 """Layered key/value configuration, cut down to the keys the port reads.
 
-Counterpart of ``pinot_tpu/spi/config.py`` (``PinotConfiguration``, the
-residency, launch, worker-pool, runner, scheduler, admission,
-broker-reduce, tracing, telemetry and SLO keys of ``CommonConstants`` at
-:144-153 and :158-272): explicit
-overrides win over ``PINOT_``-prefixed environment variables
-(``PINOT_SERVER_PORT`` -> ``pinot.server.port``), and keys match relaxed
-(case-insensitive, ``-`` / ``_`` / ``.`` -insensitive).
+Counterpart of ``pinot_tpu/spi/config.py`` (``PinotConfiguration``
+:37-118, the residency, launch, worker-pool, runner, scheduler,
+admission, broker-reduce, tracing, telemetry and SLO keys of
+``CommonConstants`` at :144-153 and :158-272). Layers merge by priority,
+whatever order they are set in: explicit overrides win over
+``PINOT_``-prefixed environment variables (``PINOT_SERVER_PORT`` ->
+``pinot.server.port``), which win over properties files
+(``load_properties_file``), which win over defaults (``set_default``).
+Keys match relaxed (case-insensitive, ``-`` / ``_`` / ``.``
+-insensitive); ``subset(prefix)`` matches whole key segments.
 """
 
 from __future__ import annotations
@@ -17,11 +20,20 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional
 
 _SEP = re.compile(r"[-_.]")
 
+# layer priorities: the higher wins, whatever the order of setting
+PRIORITY_DEFAULT = 0
+PRIORITY_FILE = 1
+PRIORITY_ENV = 2
+PRIORITY_OVERRIDE = 3
+
+
+def _segments(key: str) -> List[str]:
+    return [s for s in _SEP.split(key.lower()) if s]
+
 
 def _relax(key: str) -> str:
     """``timeoutMs`` == ``timeout.ms`` == ``TIMEOUT_MS`` == ``timeout-ms``."""
-    parts: List[str] = [s for s in _SEP.split(key.lower()) if s]
-    return "".join(parts)
+    return "".join(_segments(key))
 
 
 class CommonConstants:
@@ -121,25 +133,51 @@ class CommonConstants:
 
 
 class PinotConfiguration:
-    """Overrides over ``PINOT_`` environment variables."""
+    """Overrides over ``PINOT_`` environment variables over properties
+    files over defaults."""
 
     def __init__(self, overrides: Optional[Mapping[str, Any]] = None,
                  use_env: bool = True):
         self._store: Dict[str, Any] = {}
+        self._priority: Dict[str, int] = {}
         # relaxed key -> the key as it was given (the SLO keys carry
         # table names)
         self._raw_keys: Dict[str, str] = {}
         if use_env:
             for k, v in os.environ.items():
                 if k.startswith("PINOT_"):
-                    self._set(k.lower().replace("_", "."), v)
+                    self.set(k.lower().replace("_", "."), v, PRIORITY_ENV)
         for k, v in (overrides or {}).items():
-            self._set(k, v)
+            self.set(k, v, PRIORITY_OVERRIDE)
 
-    def _set(self, key: str, value: Any) -> None:
-        self._store[_relax(key)] = value
-        self._raw_keys[_relax(key)] = key
+    # -- mutation ------------------------------------------------------------
+    def set(self, key: str, value: Any,
+            priority: int = PRIORITY_OVERRIDE) -> None:
+        """Set ``key`` in the layer ``priority``; a key a higher layer holds
+        keeps its value."""
+        rk = _relax(key)
+        if self._priority.get(rk, -1) > priority:
+            return
+        self._store[rk] = value
+        self._priority[rk] = priority
+        self._raw_keys[rk] = key
 
+    def set_default(self, key: str, value: Any) -> None:
+        self.set(key, value, PRIORITY_DEFAULT)
+
+    def load_properties_file(self, path: str) -> None:
+        """``key=value`` lines of a properties file (``#`` and ``!``
+        comments), in the file layer."""
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith(("#", "!")):
+                    continue
+                if "=" in line:
+                    k, _, v = line.partition("=")
+                    self.set(k.strip(), v.strip(), PRIORITY_FILE)
+
+    # -- access --------------------------------------------------------------
     def get(self, key: str, default: Any = None) -> Any:
         return self._store.get(_relax(key), default)
 
@@ -163,9 +201,32 @@ class PinotConfiguration:
         v = self.get(key)
         return default if v is None else str(v)
 
+    def subset(self, prefix: str) -> "PinotConfiguration":
+        """Every key under ``prefix``, the prefix stripped, matched on whole
+        key segments (``subset("server")`` takes ``server.port``, not
+        ``serverx.port``); each keeps its layer."""
+        psegs = _segments(prefix)
+        out = PinotConfiguration(use_env=False)
+        for rk, raw in self._raw_keys.items():
+            ksegs = _segments(raw)
+            if len(ksegs) > len(psegs) and ksegs[:len(psegs)] == psegs:
+                out.set(".".join(ksegs[len(psegs):]), self._store[rk],
+                        self._priority[rk])
+        return out
+
     def keys(self) -> Iterator[str]:
         """The keys as they were given."""
         return iter(list(self._raw_keys.values()))
+
+    def to_dict(self) -> Dict[str, Any]:
+        """Key as it was given -> value."""
+        return {raw: self._store[rk] for rk, raw in self._raw_keys.items()}
+
+    def __contains__(self, key: str) -> bool:
+        return _relax(key) in self._store
+
+    def __repr__(self) -> str:
+        return f"PinotConfiguration({self.to_dict()!r})"
 
 
 __all__ = ["CommonConstants", "PinotConfiguration"]

@@ -108,6 +108,18 @@ class TimeGranularity:
     unit: str = "MILLISECONDS"  # MILLISECONDS | SECONDS | MINUTES | HOURS | DAYS
     size: int = 1
 
+    _MILLIS = {
+        "MILLISECONDS": 1,
+        "SECONDS": 1000,
+        "MINUTES": 60_000,
+        "HOURS": 3_600_000,
+        "DAYS": 86_400_000,
+    }
+
+    def to_millis(self, value: int) -> int:
+        """``value`` of this granularity in milliseconds."""
+        return int(value) * self.size * self._MILLIS[self.unit.upper()]
+
     def to_dict(self) -> Dict[str, Any]:
         return {"unit": self.unit, "size": self.size}
 
@@ -151,6 +163,16 @@ class FieldSpec:
         else:
             self.default_null_value = self.data_type.convert(
                 self.default_null_value)
+
+    @property
+    def is_dimension(self) -> bool:
+        """A dimension, TIME or DATE_TIME field."""
+        return self.field_type in (FieldType.DIMENSION, FieldType.TIME,
+                                   FieldType.DATE_TIME)
+
+    @property
+    def is_metric(self) -> bool:
+        return self.field_type is FieldType.METRIC
 
     def to_dict(self) -> Dict[str, Any]:
         """JAX ``FieldSpec.to_dict`` (:191-209)."""
@@ -217,6 +239,17 @@ class Schema:
     @property
     def field_specs(self) -> List[FieldSpec]:
         return list(self._fields.values())
+
+    @property
+    def dimension_names(self) -> List[str]:
+        return [n for n, fs in self._fields.items() if fs.is_dimension]
+
+    @property
+    def metric_names(self) -> List[str]:
+        return [n for n, fs in self._fields.items() if fs.is_metric]
+
+    def has_column(self, name: str) -> bool:
+        return name in self._fields
 
     def field_spec(self, name: str) -> FieldSpec:
         try:

@@ -634,12 +634,29 @@ def numpy_answer(frame: Dict[str, np.ndarray], qid: str
     vals = vals.astype(np.int64)
     if not groups:
         return int(vals.sum(dtype=np.int64))
-    keys = np.stack([frame[g][m].astype(np.int64) for g in groups], axis=1)
-    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    # the group keys as one mixed-radix i64 a row (each column offset by
+    # its minimum), grouped by a 1-d unique: a row-wise unique of the key
+    # matrix sorts a void view, several times slower
+    keys = [frame[g][m].astype(np.int64) for g in groups]
+    los = [int(k.min()) if k.size else 0 for k in keys]
+    spans = [int(k.max()) - lo + 1 if k.size else 1
+             for k, lo in zip(keys, los)]
+    if np.prod(np.array(spans, dtype=np.float64)) >= 2.0 ** 62:
+        raise ValueError(f"{qid}: group key space over i64")
+    code = np.zeros(len(vals), dtype=np.int64)
+    for k, lo, span in zip(keys, los, spans):
+        code = code * span + (k - lo)
+    uniq, inv = np.unique(code, return_inverse=True)
     sums = np.zeros(uniq.shape[0], dtype=np.int64)
     np.add.at(sums, inv.reshape(-1), vals)
+    digits = []
+    rest = uniq
+    for lo, span in zip(reversed(los), reversed(spans)):
+        digits.append(rest % span + lo)
+        rest = rest // span
+    rows = np.stack(digits[::-1], axis=1) if digits else uniq[:, None]
     out: Dict[Tuple, int] = {}
-    for row, s in zip(uniq.tolist(), sums.tolist()):
+    for row, s in zip(rows.tolist(), sums.tolist()):
         key = tuple(str(UNIVERSE[g][x]) if g in UNIVERSE else int(x)
                     for g, x in zip(groups, row))
         out[key] = int(s)

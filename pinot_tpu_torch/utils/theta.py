@@ -1,8 +1,7 @@
 """Theta sketch: mergeable approximate distinct counting with set algebra.
 
 Counterpart of ``pinot_tpu/utils/theta.py`` (a copy: the port imports
-nothing of the JAX package), without the intersection and a-not-b set
-operations, which no query of the port reaches.
+nothing of the JAX package).
 
 Re-design of the reference's theta-sketch aggregations
 (``DistinctCountThetaSketchAggregationFunction`` over the DataSketches
@@ -31,6 +30,13 @@ from pinot_tpu_torch.utils.hll import hash_values
 DEFAULT_NOMINAL_ENTRIES = 4096  # ref: the DataSketches default (2^12)
 
 _MAX_HASH = float(1 << 64)
+
+
+def _below(hashes: np.ndarray, theta: float) -> np.ndarray:
+    """The hashes under ``theta`` of the hash space."""
+    if theta >= 1.0:
+        return hashes
+    return hashes[hashes < np.uint64(int(theta * _MAX_HASH))]
 
 
 class ThetaSketch:
@@ -75,6 +81,20 @@ class ThetaSketch:
         merged = np.unique(np.concatenate([self.hashes, other.hashes]))
         self._trim(merged)
         return self
+
+    def intersect(self, other: "ThetaSketch") -> "ThetaSketch":
+        """Intersection (a new sketch): theta = min(thetas), the hashes
+        both retain below it."""
+        theta = min(self.theta, other.theta)
+        common = np.intersect1d(self.hashes, other.hashes)
+        return ThetaSketch(self.k, _below(common, theta), theta)
+
+    def a_not_b(self, other: "ThetaSketch") -> "ThetaSketch":
+        """Difference (a new sketch): theta = min(thetas), the hashes this
+        sketch retains and ``other`` does not, below it."""
+        theta = min(self.theta, other.theta)
+        kept = np.setdiff1d(self.hashes, other.hashes)
+        return ThetaSketch(self.k, _below(kept, theta), theta)
 
     def estimate(self) -> float:
         if self.theta >= 1.0:

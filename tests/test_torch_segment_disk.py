@@ -299,6 +299,54 @@ def test_star_trees_load_at_first_use(dirs):
             np.testing.assert_array_equal(t.metrics[k], j.metrics[k])
 
 
+def _tree_rows(scale: int):
+    n = 1000
+    return {"d": [f"k{i % 10}" for i in range(n)],
+            "m": [i * scale for i in range(n)]}
+
+
+def _build_tree_segment(out_dir: str, scale: int) -> None:
+    schema = tdata.Schema("tt", [
+        tdata.FieldSpec("d", tdata.DataType.STRING),
+        tdata.FieldSpec("m", tdata.DataType.LONG, tdata.FieldType.METRIC)])
+    idx = ttable.IndexingConfig(star_tree_index_configs=[
+        ttable.StarTreeIndexConfig(dimensions_split_order=["d"],
+                                   function_column_pairs=["SUM__m"],
+                                   max_leaf_records=1)])
+    SegmentBuilder(schema, "tt_0", indexing=idx).build(_tree_rows(scale),
+                                                       out_dir)
+
+
+def test_star_trees_survive_a_replaced_directory(tmp_path):
+    """A segment's directory written again under the same name (replaced
+    whole, by rename) under a loaded segment: the loaded object still
+    answers its own rows, on the star-tree rung and on the fused scan.
+    The oracle is the first build's rows in numpy."""
+    _build_tree_segment(str(tmp_path), 1)
+    seg = load_segment(str(tmp_path / "tt_0"))
+    assert seg._star_trees is None
+    _build_tree_segment(str(tmp_path), 1000)
+    rows = _tree_rows(1)
+    d, m = np.array(rows["d"]), np.array(rows["m"], dtype=np.int64)
+    want = {k: int(m[d == k].sum()) for k in np.unique(d)}
+    assert want["k0"] == 49500
+    sql = "SELECT d, SUM(m) FROM tt GROUP BY d LIMIT 100"
+    ex = ServerQueryExecutor(device="cpu")
+    tree, ts = ex.execute(t_compile(sql), [seg])
+    assert ts.decisions == {"startree:scan->startree_device:tree0": 1}
+    scan, ss = ex.execute(t_compile(sql + " OPTION(useStarTree=false)"),
+                          [seg])
+    assert not any(k.startswith("startree") for k in ss.decisions)
+    assert ss.group_by_rung != "startree_device"
+    for got in (tree, scan):
+        assert {r[0]: int(r[1]) for r in got.rows} == want
+    # the new directory answers its own rows
+    fresh, _ = ex.execute(t_compile(sql),
+                          [load_segment(str(tmp_path / "tt_0"))])
+    assert {r[0]: int(r[1]) for r in fresh.rows} == {
+        k: v * 1000 for k, v in want.items()}
+
+
 @pytest.fixture(scope="module")
 def crossed(dirs):
     jd, td = dirs["stats"]
