@@ -351,6 +351,17 @@ Phases:
      fused-scan kernel, every answer == the consuming segment's, the
      kernel against its plain version and timed at its shapes, its
      launches added to the kernels line.
+ 24. (last, after 12) the SSB tools: (24a) SSB at SF0.1 in 7 segments of
+     one ``d_year`` each (``tools/ssb.py`` ``build_segments(...,
+     out_dir=, partitioned=True)``: 17 columns, Modulo partition metadata
+     on ``d_year``), written by a spawned pool and loaded back, pushed by
+     ``file://`` to an ``EmbeddedCluster(data_dir=...)`` of 2 servers with
+     the broker's partition pruner on: the 13 flights ``--reps`` times,
+     each == ``tools/ssb_baseline.py`` (numpy alone) over the generator's
+     frames, Q1.1 (``d_year = 1993``) on the one segment its partition
+     keeps, the segments each flight kept and its p50 logged; (24b)
+     ``tools/microbench.py``'s seven entries on the card, one line each;
+     its launches added to the kernels line.
 The tables of phases 4-11 carry no star-tree and those of phases 4-10 no
 index: on them the index rung declines each filtered aggregation's
 segments on the per-segment path (``index_missing_index`` and the other
@@ -7249,6 +7260,119 @@ def _lc_geo(reps, device, rows, places, seed, counters) -> dict:
     return rep
 
 
+P24_SF = 0.1            # 600 k rows: the phase in well under 30 s
+P24_SEGMENTS = 7        # one d_year a segment (dbgen's 1992..1998)
+P24_SERVERS = 2
+P24_TABLE = "ssb_part"
+
+
+def _p24_config():
+    from pinot_tpu_torch.spi.table import (
+        RoutingConfig,
+        SegmentsValidationConfig,
+        TableConfig,
+    )
+    from pinot_tpu_torch.tools import ssb
+
+    return TableConfig(
+        P24_TABLE, validation_config=SegmentsValidationConfig(
+            time_column_name="d_yearmonthnum"),
+        indexing_config=ssb.ssb_indexing_config(
+            star_tree=False, num_partitions=P24_SEGMENTS),
+        routing_config=RoutingConfig(segment_pruner_types=["partition"]))
+
+
+def phase_partitioned(reps: int, device: str = "cuda", sf: float = P24_SF,
+                      segments: int = P24_SEGMENTS, seed: int = 24,
+                      microbench_rows: int = 0) -> dict:
+    """Phase 24: (24a) the partitioned SSB on disk through a cluster,
+    against the numpy baseline; (24b) the microbench. ``microbench_rows``
+    shrinks the microbench's arrays (0: its own 2^20)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pinot_tpu_torch.parallel.executor import scan_counters
+    from pinot_tpu_torch.tools import microbench, ssb, ssb_baseline
+    from pinot_tpu_torch.tools.cluster import EmbeddedCluster
+
+    t_all = time.perf_counter()
+    counters = scan_counters()
+    _reset(counters)
+    root = tempfile.mkdtemp(prefix="pinot_part_")
+    out: dict = {"sf": sf, "segments": segments}
+    cluster = None
+    try:
+        t0 = time.perf_counter()
+        segs, frames = ssb.build_segments(
+            sf, num_segments=segments, seed=seed, partitioned=True,
+            out_dir=os.path.join(root, "segments"))
+        out["build_s"] = time.perf_counter() - t0
+        years = {s.segment_name: int(f["d_year"][0])
+                 for s, f in zip(segs, frames)}
+        cluster = EmbeddedCluster(num_servers=P24_SERVERS, device=device,
+                                  data_dir=os.path.join(root, "cluster"))
+        table = f"{P24_TABLE}_OFFLINE"
+        cluster.create_table(_p24_config(), _ssb_schema(P24_TABLE))
+        for s in segs:
+            cluster.upload_segment_dir(
+                table, os.path.join(root, "segments", s.segment_name))
+        if not cluster.wait_for_ev_converged(table, timeout_s=120):
+            raise AssertionError("24a: the segments never came online")
+        whole = ssb_baseline.make_frame(
+            {k: np.concatenate([f[k] for f in frames]) for k in frames[0]})
+        flights = {}
+        for qid, sql in _flight_sqls(P24_TABLE).items():
+            want = ssb_baseline.run_query(whole, qid)
+            lat, resp = [], None
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                resp = cluster.query(sql)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if resp.exceptions or resp.result_table is None:
+                    raise AssertionError(f"24a {qid}: {resp.exceptions}")
+                rows = [tuple(r) for r in resp.result_table.rows]
+                if not ssb_baseline.rows_match(rows, want):
+                    raise AssertionError(f"24a {qid}: {rows[:3]} != "
+                                         f"{want[:3]} (baseline)")
+            kept = resp.stats.num_segments_queried
+            flights[qid] = {"p50_ms": float(np.percentile(lat, 50)),
+                            "segments_kept": kept,
+                            "decisions": dict(resp.stats.decisions)}
+            log(f"  24a {qid}: {kept} of {len(segs)} segments kept, p50 "
+                f"{flights[qid]['p50_ms']:.2f} ms")
+        q11 = flights["Q1.1"]
+        if q11["segments_kept"] != sum(y == 1993 for y in years.values()) \
+                or not any("partition_prune" in k
+                           for k in q11["decisions"]):
+            raise AssertionError(f"24a Q1.1: {q11}")
+        out["flights"] = flights
+    finally:
+        if cluster is not None:
+            cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {name: c.launches for name, c in counters.items()}
+    _reset(counters)
+    if device == "cuda" and out["launches"]["fused_scan"] == 0:
+        raise AssertionError("24a: the flights launched no fused scan")
+    old = microbench.N_ROWS
+    if microbench_rows:
+        microbench.N_ROWS = microbench_rows
+    try:
+        out["microbench"] = microbench.run(device=device)
+    finally:
+        microbench.N_ROWS = old
+    for r in out["microbench"]:
+        log("  24b " + json.dumps(r))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 24: {out['seconds']:.1f} s (build {out['build_s']:.1f} "
+        f"s); fused launches {out['launches']}")
+    return out
+
+
 def _phase_14(args) -> dict:
     log("phase 14: a realtime user-events table (a consuming segment on "
         f"the card, upsert, the seal) at {REALTIME_ROWS} rows")
@@ -8809,6 +8933,14 @@ def main(argv=None) -> int:
         **{q: f"tree{r['tree']}:{r['node_slices']}"
            for q, r in run["flights"].items()},
         **{q: r["route"] for q, r in run["routes"].items()}}
+    log(f"phase 24 (last): the SSB tools: SSB at SF{P24_SF} partitioned "
+        f"by d_year into {P24_SEGMENTS} segments on disk, through a "
+        f"cluster of {P24_SERVERS} servers against the numpy baseline "
+        "(24a), the microbench (24b)")
+    report["partitioned"] = part = phase_partitioned(args.reps)
+    if kernels is not None:
+        for k in kernels:
+            k["launches"] += part["launches"].get(k["name"], 0)
     log("rungs " + json.dumps(rungs))
     report["seconds"] = time.perf_counter() - t_all
     if args.out_dir:

@@ -406,6 +406,29 @@ INDEX_DECISION_REASONS = frozenset({
 })
 
 
+# race waivers: the ``threads`` lint family's ``# race-ok:`` annotations
+# (pinot_tpu_torch/tools/lint/threads.py). Each code names a concurrency
+# design, not a dismissal; the lint rejects any code not in this set, so
+# the vocabulary grows only here, next to its meaning. The first four are
+# the JAX package's (pinot_tpu/common/tracing.py:684-700).
+RACE_OK_REASONS = frozenset({
+    "single_writer",         # one runtime thread performs every write;
+                             # readers take GIL-atomic snapshots and
+                             # tolerate one batch of staleness
+    "publish_once",          # reference assigned once at setup, never
+                             # reassigned; readers null-check
+    "delegates_locking",     # the field holds an object that does its own
+                             # locking, and the reference never changes
+                             # after __init__
+    "quiesced_by_refcount",  # teardown mutation that runs only after the
+                             # residency refcount proves no reader holds
+                             # the object
+    "owner_serialized",      # a helper object private to one owner, which
+                             # calls it only under the owner's lock (a
+                             # staged segment's or batch's H2D copies)
+})
+
+
 class ReasonNamespace:
     """One decision point's reason namespace: its registered codes and
     what the conformance harness needs to scan its port modules' sources:
@@ -440,13 +463,25 @@ class ReasonNamespace:
 
     def scan_source(self) -> set:
         """Every reason literal found at this namespace's record sites in
-        its modules' sources."""
+        its modules' sources. A namespace rooted at a package scans every
+        ``.py`` beneath it (``race_ok`` waivers live wherever shared state
+        lives)."""
         import importlib
+        import os
 
-        found: set = set()
+        paths: List[str] = []
         for name in self.modules:
             mod = importlib.import_module(name)
-            with open(mod.__file__, encoding="utf-8") as f:
+            if hasattr(mod, "__path__"):
+                for root, dirs, files in os.walk(list(mod.__path__)[0]):
+                    dirs[:] = sorted(d for d in dirs if d != "__pycache__")
+                    paths.extend(os.path.join(root, f) for f in sorted(files)
+                                 if f.endswith(".py"))
+            else:
+                paths.append(mod.__file__)
+        found: set = set()
+        for path in paths:
+            with open(path, encoding="utf-8") as f:
                 src = f.read()
             for pat in self.literal_patterns:
                 found |= set(re.findall(pat, src))
@@ -479,8 +514,8 @@ def _pallas_codes() -> frozenset:
 def _build_registry() -> Dict[str, ReasonNamespace]:
     """The namespaces, built at first use: the routing, gather and reduce
     sets are imported from the modules that keep them, which import this
-    one. JAX's ``race_ok`` lint waivers are not registered: the port has
-    no lint."""
+    one. ``race_ok`` holds the waivers of the port's own lint
+    (``tools/lint/threads.py``), scanned over the whole package."""
     from pinot_tpu_torch.broker.broker import GATHER_DECISION_REASONS
     from pinot_tpu_torch.broker.reduce import (
         REDUCE_DECISION_REASONS,
@@ -556,6 +591,10 @@ def _build_registry() -> Dict[str, ReasonNamespace]:
                 r'raise _Decline\(\s*"([a-z0-9_]+)"',
                 r'_chose\(\s*stats,\s*"([a-z0-9_]+)"'),
             min_sites=6),
+        ReasonNamespace(
+            "race_ok", RACE_OK_REASONS, "pinot_tpu_torch",
+            literal_patterns=(r'#\s*race-ok:\s*([a-z0-9_]+)',),
+            min_sites=4, exact=True),
     )
     return {ns.name: ns for ns in spaces}
 

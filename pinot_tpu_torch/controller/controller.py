@@ -107,7 +107,7 @@ class Controller:
     def __init__(self, store: Optional[ClusterStateStore] = None,
                  controller_id: str = "controller_0",
                  llc_seed: Optional[str] = None):
-        self.store = store or ClusterStateStore()
+        self.store = store or ClusterStateStore()  # race-ok: delegates_locking
         self.metrics = MetricsRegistry(role="controller")
         self.metrics.gauge("tables", lambda: len(self.store.table_names()))
         self.metrics.gauge("segments", lambda: sum(

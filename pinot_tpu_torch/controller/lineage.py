@@ -57,7 +57,7 @@ class SegmentLineageManager:
     """The controller's lineage book-keeping over the state store."""
 
     def __init__(self, store):
-        self.store = store
+        self.store = store  # race-ok: delegates_locking
 
     def _load(self, table: str) -> List[LineageEntry]:
         raw = self.store.get(lineage_path(table)) or []

@@ -116,7 +116,7 @@ class PinotTaskManager:
     """Generates + tracks minion tasks over the cluster state store."""
 
     def __init__(self, store: ClusterStateStore):
-        self.store = store
+        self.store = store  # race-ok: delegates_locking
 
     # -- queue ---------------------------------------------------------------
     def _path(self, task_id: str) -> str:

@@ -246,6 +246,10 @@ class ServerQueryExecutor:
         self.worker_threads = max(1, cfg.get_int(
             CommonConstants.WORKER_THREADS_KEY,
             CommonConstants.DEFAULT_WORKER_THREADS))
+        # the fused scan's LUT interval-run cap (JAX ``_pallas_lut_runs``)
+        self.lut_run_cap = max(1, cfg.get_int(
+            CommonConstants.PALLAS_LUT_MAX_RUNS_KEY,
+            CommonConstants.DEFAULT_PALLAS_LUT_MAX_RUNS))
         self._segment_pool: Optional[WorkerPool] = None
         self._segment_pool_lock = threading.Lock()
         # plan specs the fused scan declines with a reason each, seeded by
@@ -350,7 +354,9 @@ class ServerQueryExecutor:
         if requested or self.queries.force_trace:
             rec = start_trace(stats)
             stats._trace_requested = requested
-            rec.span_begin("ServerQuery", table=ctx.table_name)
+            # closed by _close_query's close_all
+            stats._root_span = rec.span_begin("ServerQuery",
+                                              table=ctx.table_name)
             rec.add_completed("Admission", wall_ms=admit_wait_ms,
                               queue_ms=admit_wait_ms)
         token = self.queries.begin(ctx, stats)
@@ -406,11 +412,11 @@ class ServerQueryExecutor:
                 raise QueryError(f"unknown column {c!r} in table "
                                  f"{ctx.table_name!r}")
         segments = self._prune(ctx, segments, stats)
-        self._begin_lease(ctx, segments, stats)
+        lease = self._begin_lease(ctx, segments, stats)
         try:
             return body(ctx, segments, stats)
         finally:
-            self.residency.end_query(stats.lease, stats)
+            self.residency.end_query(lease, stats)
             stats.lease = None
 
     def _begin_lease(self, ctx: QueryContext,
@@ -705,7 +711,7 @@ class ServerQueryExecutor:
         with no decline, under ``OPTION(useStarTree=false)`` (JAX
         :696-708)."""
         if str(ctx.options.get("useStarTree", "true")).lower() == "false":
-            return None
+            return None     # an operator's opt-out: not a decline
         return startree_exec.pick_star_tree(ctx, aggs, seg,
                                             on_decline=on_decline)
 
@@ -802,7 +808,7 @@ class ServerQueryExecutor:
                 (scan, reasons), n = shared_launch(
                     self.kernel_flight,
                     None if upsert else ("scan", id(plan), id(staged)),
-                    stats, lambda: _fused(plan, staged))
+                    stats, lambda: _fused(plan, staged, self.lut_run_cap))
                 if sp is not None:
                     sp.attrs.update(served=scan is not None, launches=n)
             observe_ms(table, "kernel", (time.perf_counter() - t0) * 1e3)
@@ -856,12 +862,12 @@ class ServerQueryExecutor:
         return fused_scan.SegmentScan(tree=tree, plan=plan, matched=matched)
 
 
-def _fused(plan: SegmentPlan, staged: StagedSegment):
+def _fused(plan: SegmentPlan, staged: StagedSegment, lut_run_cap: int):
     """-> (the fused scan of one staged segment, or None, and the reasons
     it declined)."""
     reasons: List[str] = []
-    return fused_scan.run_segment(plan, staged,
-                                  on_decline=reasons.append), reasons
+    return fused_scan.run_segment(plan, staged, on_decline=reasons.append,
+                                  lut_run_cap=lut_run_cap), reasons
 
 
 def _schema_types(segment: ImmutableSegment) -> Dict[str, str]:

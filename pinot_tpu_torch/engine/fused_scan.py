@@ -52,6 +52,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common.bounds import I64_FOLD_BOUND
 from pinot_tpu_torch.engine.errors import classify_decline
 from pinot_tpu_torch.engine.results import launch_sink
 from pinot_tpu_torch.engine.staging import TILE, StagedSegment, staged_int_dtype
@@ -66,8 +67,6 @@ MAX_SCAN_GROUPS = 8192
 LIMB_BITS = 12
 _F32_EXACT = 1 << 24
 _I32_MAX = (1 << 31) - 1
-# i64 sums must stay inside i64 for exact reassembly (common/bounds.py)
-I64_FOLD_BOUND = 1 << 62
 # LUT predicates: up to this many dictId runs become static OR-of-interval
 # leaves; more ride one padded interval-set ("ivs") node up to the run cap
 _MAX_LUT_RUNS = 8
@@ -361,7 +360,8 @@ def decode_probe_ranges(pp: ScanPlan, out_mm: np.ndarray,
     return ranges
 
 
-def probe_narrowed_plan(plan, provider, run_probe, decline
+def probe_narrowed_plan(plan, provider, run_probe, decline,
+                        lut_run_cap: int = DEFAULT_LUT_RUN_CAP
                         ) -> Optional[Tuple[ScanPlan, object]]:
     """Full unchecked extraction -> probe scan (``run_probe(probe_pp)``
     returns its min/max rows) -> narrowed plan -> re-extraction. Returns
@@ -369,7 +369,7 @@ def probe_narrowed_plan(plan, provider, run_probe, decline
     from pinot_tpu_torch.engine.plan import narrow_plan_groups
 
     pp_full = extract_plan(plan, provider, on_decline=decline,
-                           unchecked_groups=True)
+                           lut_run_cap=lut_run_cap, unchecked_groups=True)
     if pp_full is None:
         return None
     for card in plan.group_cards:
@@ -383,7 +383,8 @@ def probe_narrowed_plan(plan, provider, run_probe, decline
     if eff.num_groups > MAX_SCAN_GROUPS:
         decline("pallas_too_many_groups")
         return None
-    pp = extract_plan(eff, provider, on_decline=decline)
+    pp = extract_plan(eff, provider, on_decline=decline,
+                      lut_run_cap=lut_run_cap)
     if pp is None:
         return None
     return pp, eff
@@ -1432,19 +1433,23 @@ def _kernels_of(staged) -> ScanKernels:
 
 
 def scan_plan(plan, staged, decline: Callable,
-              run_probe: Optional[Callable] = None):
+              run_probe: Optional[Callable] = None,
+              lut_run_cap: int = DEFAULT_LUT_RUN_CAP):
     """The scan plan of ``plan`` over ``staged`` (a ``StagedSegment`` or a
     staged batch), probing first (one launch) when the group key space
     exceeds MAX_SCAN_GROUPS, and its packed columns: ``(ScanPlan,
     effective plan, probe, words, bits)``, or None with the reason on
     ``decline``. ``probe`` is the probe's (program, packed columns) or
     None; ``run_probe(prog, words, num_docs)`` launches the probe where
-    given, else the staged input's probe wrapper."""
+    given, else the staged input's probe wrapper. ``lut_run_cap`` bounds
+    a LUT predicate's interval runs (``pinot.server.query.pallas.lut.max.
+    runs``)."""
     kernels = _kernels_of(staged)
     num_docs = staged.num_docs_tensor()
     S = num_docs.shape[0]
     defer = _DeferredDecline(decline)
-    pp = extract_plan(plan, staged.provider, on_decline=defer)
+    pp = extract_plan(plan, staged.provider, on_decline=defer,
+                      lut_run_cap=lut_run_cap)
     eff = plan
     probe = None
     if pp is None:
@@ -1466,7 +1471,7 @@ def scan_plan(plan, staged, decline: Callable,
 
         try:
             res = probe_narrowed_plan(plan, staged.provider, probe_rows,
-                                      decline)
+                                      decline, lut_run_cap)
         except ScanLimitError as e:
             decline(e.reason)
             return None
@@ -1480,7 +1485,8 @@ def scan_plan(plan, staged, decline: Callable,
 
 
 def scan_inputs(plan, staged, on_decline: Callable = None,
-                run_probe: Optional[Callable] = None
+                run_probe: Optional[Callable] = None,
+                lut_run_cap: int = DEFAULT_LUT_RUN_CAP
                 ) -> Optional[ScanInputs]:
     """The scan program and staged columns of a plan over ``staged``, a
     ``StagedSegment`` (launched through ``SEGMENT_KERNELS``) or a staged
@@ -1494,7 +1500,7 @@ def scan_inputs(plan, staged, on_decline: Callable = None,
         if on_decline is not None:
             on_decline(reason)
 
-    got = scan_plan(plan, staged, decline, run_probe)
+    got = scan_plan(plan, staged, decline, run_probe, lut_run_cap)
     if got is None:
         return None
     pp, eff, probe, words, bits = got
@@ -1520,11 +1526,12 @@ class SegmentScan:
     matched: int              # docs that passed the filter
 
 
-def run_segment(plan, staged: StagedSegment, on_decline: Callable = None
+def run_segment(plan, staged: StagedSegment, on_decline: Callable = None,
+                lut_run_cap: int = DEFAULT_LUT_RUN_CAP
                 ) -> Optional[SegmentScan]:
     """Fused scan of one staged segment (see ``scan_inputs``). None when
     the plan is not eligible (``on_decline`` receives the reason code)."""
-    inp = scan_inputs(plan, staged, on_decline)
+    inp = scan_inputs(plan, staged, on_decline, lut_run_cap=lut_run_cap)
     if inp is None:
         return None
     tree = assemble_outputs(inp.plan.spec, inp.pp, inp.scan())

@@ -402,12 +402,13 @@ def try_index_rung(executor, ctx: QueryContext, aggs: List[AggDef],
     )
 
     if _opted_out(ctx) or ctx.filter is None:
-        return None     # an operator's choice, or nothing to select
+        return None     # an operator's choice, or no filter: not a decline
     preds = _flatten_and(ctx.filter)
     if not preds:
         if preds is None:   # OR / NOT: the indexes do not compose here
             _decline(stats, "index_filter_shape")
-        return None
+        return None     # OR / NOT recorded its own reason; a constant-true
+        #                 filter has nothing to select: not a decline
     if segment.valid_doc_ids is not None:
         # the valid-doc bitmap ANDs every filter and the postings do not
         # see it: the scan rungs' validdocs leaf serves

@@ -60,7 +60,7 @@ import threading
 import time
 import weakref
 
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Set, Union
 
 import numpy as np
 import torch
@@ -193,7 +193,8 @@ class StagedMutableSegment:
         # tensors (gathered at each refresh): a refresh copies a tensor
         # held there before it writes
         self._live: "weakref.WeakSet[MutableSnapshot]" = weakref.WeakSet()
-        self._held: set = set()
+        # data_ptr()s of the tensors the live snapshots hold
+        self._held: Set[int] = set()
         # bytes copied on the device so that a live snapshot keeps its rows
         self.copied_bytes = 0
 
@@ -221,6 +222,7 @@ class StagedMutableSegment:
             self._valid_cache = None
             self._postings.clear()
             self._postings_bytes = 0
+            self._held = set()
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -597,12 +599,13 @@ def _try_index_gather(executor, ctx, seg: MutableSegment,
 
     if str(ctx.options.get("useIndexRung", "true")).lower() == "false" \
             or ctx.filter is None:
-        return None     # an operator's choice, or nothing to select
+        return None     # an operator's choice, or no filter: not a decline
     preds = index_exec._flatten_and(ctx.filter)
     if not preds:
         if preds is None:   # OR / NOT
             _decline_rung(stats, "mutable_index_unsupported_shape")
-        return None
+        return None     # OR / NOT recorded its own reason; a constant-true
+        #                 filter has nothing to select: not a decline
     if snap.valid_host is not None:
         # upsert: the valid docs AND the filter and the postings miss them
         _decline_rung(stats, "mutable_index_unsupported_shape")

@@ -274,37 +274,37 @@ class ResidencyManager:
         self._config = config
         self._budget_resolved = False
         self._budget: Optional[int] = None
-        self._host_budget_resolved = False
-        self._host_budget: Optional[int] = None
+        self._host_budget_resolved = False  # guarded-by-writes: _lock
+        self._host_budget: Optional[int] = None  # guarded-by-writes: _lock
         # re-entrant: releasing a batch resident calls back into discard()
         self._lock = threading.RLock()
-        self._entries: "OrderedDict[str, _Entry]" = OrderedDict()
-        self._host_entries: "OrderedDict[str, _Entry]" = OrderedDict()
-        self._staged_bytes = 0
-        self._peak_bytes = 0
-        self._host_bytes = 0
-        self._host_peak_bytes = 0
-        self._touch_seq = 0
-        self._est_scale = 1.0
-        self.est_observations = 0
+        self._entries: "OrderedDict[str, _Entry]" = OrderedDict()  # guarded-by: _lock
+        self._host_entries: "OrderedDict[str, _Entry]" = OrderedDict()  # guarded-by: _lock
+        self._staged_bytes = 0  # guarded-by-writes: _lock
+        self._peak_bytes = 0  # guarded-by-writes: _lock
+        self._host_bytes = 0  # guarded-by-writes: _lock
+        self._host_peak_bytes = 0  # guarded-by-writes: _lock
+        self._touch_seq = 0  # guarded-by: _lock
+        self._est_scale = 1.0  # guarded-by: _lock
+        self.est_observations = 0  # guarded-by: _lock
         # per name, how often it was evicted: a queued prefetch carries the
         # count it saw and must not bring back a segment removed meanwhile
-        self._retired: Dict[str, int] = {}
-        self.hits = 0
-        self.misses = 0
-        self.evictions = 0
-        self.pin_blocked = 0
-        self.spills = 0
-        self.prefetched = 0
-        self.borrows = 0
-        self.demotions = 0
-        self.promotions = 0
-        self.host_drops = 0
-        self.sliced_queries = 0
-        self.demoted_bytes = 0
-        self.promoted_bytes = 0
-        self.host_dropped_bytes = 0
-        self._metrics = None
+        self._retired: Dict[str, int] = {}  # guarded-by: _lock
+        self.hits = 0  # guarded-by: _lock
+        self.misses = 0  # guarded-by: _lock
+        self.evictions = 0  # guarded-by: _lock
+        self.pin_blocked = 0  # guarded-by: _lock
+        self.spills = 0  # guarded-by: _lock
+        self.prefetched = 0  # guarded-by: _lock
+        self.borrows = 0  # guarded-by: _lock
+        self.demotions = 0  # guarded-by: _lock
+        self.promotions = 0  # guarded-by: _lock
+        self.host_drops = 0  # guarded-by: _lock
+        self.sliced_queries = 0  # guarded-by: _lock
+        self.demoted_bytes = 0  # guarded-by: _lock
+        self.promoted_bytes = 0  # guarded-by: _lock
+        self.host_dropped_bytes = 0  # guarded-by: _lock
+        self._metrics = None  # race-ok: publish_once
         cfg = config if config is not None else PinotConfiguration()
         self._host_on = cfg.get_bool(CommonConstants.HOSTRAM_ENABLED_KEY,
                                      True)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import threading
 
 from contextlib import contextmanager
-from dataclasses import dataclass, field
+from dataclasses import InitVar, dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -156,8 +156,13 @@ class QueryStats:
     # the merging stats' open span, else they concatenate
     spans: List[Dict[str, Any]] = field(default_factory=list)
     # the residency lease the query runs under (ResidencyManager
-    # .begin_query), None outside a query or on an uncapped CPU run
-    lease: Optional[Any] = field(default=None, repr=False, compare=False)
+    # .begin_query), None outside a query or on an uncapped CPU run: a
+    # handle of this process, so a constructor argument kept as a plain
+    # attribute, not a field (never merged, compared or sent)
+    lease: InitVar[Optional[Any]] = None
+
+    def __post_init__(self, lease: Optional[Any]) -> None:
+        self.lease = lease
 
     def add_phase_ms(self, phase: str, ms: float) -> None:
         self.phase_ms[phase] = self.phase_ms.get(phase, 0.0) + ms

@@ -168,6 +168,16 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def wait_for_copies(device: torch.device) -> None:
+    """Wait for the copies queued on ``device``'s current stream. A
+    demotion calls it under the staged object's own lock: the device
+    tensors drop only after their host copies are complete, and a query of
+    the same object has to wait for the demotion in any case."""
+    if device.type == "cuda":
+        # a host sync under the object's own lock, by design (above)
+        torch.cuda.current_stream(device).synchronize()  # lint: ignore[sync]
+
+
 class H2DCopies:
     """Copies from a host image back to ``device``: a pinned source is
     copied without waiting and stays referenced until its copy completes
@@ -176,8 +186,8 @@ class H2DCopies:
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.bytes = 0
-        self._pending: List[Tuple[Any, torch.Tensor]] = []
+        self.bytes = 0  # race-ok: owner_serialized
+        self._pending: List[Tuple[Any, torch.Tensor]] = []  # race-ok: owner_serialized
 
     def restore(self, h: torch.Tensor) -> torch.Tensor:
         self.bytes += _nbytes(h)
@@ -192,8 +202,10 @@ class H2DCopies:
         return d
 
     def wait(self) -> None:
+        """Wait for every pending copy: its owner calls it under its lock
+        before it drops or replaces the tensors (``_drop_locked``)."""
         for event, _src in self._pending:
-            event.synchronize()
+            event.synchronize()  # lint: ignore[sync] — the owner's drop
         self._pending.clear()
 
 
@@ -213,10 +225,10 @@ class SegmentHostImage:
         # is checked again at promotion
         self._segment_ref = weakref.ref(segment)
         self.segment_names = (segment.segment_name,)
-        self.columns: Dict[str, Dict[str, torch.Tensor]] = {}
-        self.packed: Dict[str, Tuple[torch.Tensor, int]] = {}
-        self.values: Dict[str, torch.Tensor] = {}
-        self.startree: Dict[int, Dict[str, torch.Tensor]] = {}
+        self.columns: Dict[str, Dict[str, torch.Tensor]] = {}  # race-ok: quiesced_by_refcount
+        self.packed: Dict[str, Tuple[torch.Tensor, int]] = {}  # race-ok: quiesced_by_refcount
+        self.values: Dict[str, torch.Tensor] = {}  # race-ok: quiesced_by_refcount
+        self.startree: Dict[int, Dict[str, torch.Tensor]] = {}  # race-ok: quiesced_by_refcount
         self._nbytes = 0
 
     def seal(self) -> "SegmentHostImage":
@@ -264,24 +276,24 @@ class StagedSegment:
         self.segment = segment
         self.num_docs = segment.num_docs
         self.capacity = segment.padded_capacity
-        self._host_image = host_image
+        self._host_image = host_image  # guarded-by-writes: _lock
         # ``borrower(segment, name)`` -> a StagedColumn from a resident
         # batch's device copy, or None
         self._borrower = borrower
         # reads are lock-free dict gets; builds, promotions and release
         # hold the lock
         self._lock = threading.RLock()
-        self._packed: Dict[str, PackedColumn] = {}
-        self._values: Dict[str, torch.Tensor] = {}
-        self._columns: Dict[str, StagedColumn] = {}
-        self._num_docs: Optional[torch.Tensor] = None
+        self._packed: Dict[str, PackedColumn] = {}  # guarded-by-writes: _lock
+        self._values: Dict[str, torch.Tensor] = {}  # guarded-by-writes: _lock
+        self._columns: Dict[str, StagedColumn] = {}  # guarded-by-writes: _lock
+        self._num_docs: Optional[torch.Tensor] = None  # guarded-by-writes: _lock
         self._index_slices: "OrderedDict[Hashable, torch.Tensor]" = \
-            OrderedDict()
-        self._startree: Dict[int, Dict[str, torch.Tensor]] = {}
+            OrderedDict()  # guarded-by-writes: _lock
+        self._startree: Dict[int, Dict[str, torch.Tensor]] = {}  # guarded-by-writes: _lock
         self._copies = H2DCopies(self.device)
         # device bytes held, kept with every insertion and removal (the
         # residency manager reads it at each stage and query)
-        self._bytes = 0
+        self._bytes = 0  # guarded-by-writes: _lock
 
     @property
     def provider(self) -> ImmutableSegment:
@@ -542,10 +554,9 @@ class StagedSegment:
                 img.values[name] = to_host(v)
             for ti, tree in self._startree.items():
                 img.startree[ti] = {k: to_host(v) for k, v in tree.items()}
-            if self.device.type == "cuda":
-                # the host copies are complete before anything reads them
-                # or the device arrays are dropped
-                torch.cuda.current_stream(self.device).synchronize()
+            # the host copies are complete before anything reads them or
+            # the device arrays are dropped
+            wait_for_copies(self.device)
             src = self._host_image
             if src is not None:
                 for table in ("columns", "packed", "values", "startree"):

@@ -169,7 +169,7 @@ def pick_star_tree(ctx: QueryContext, aggs: List[AggDef], segment,
 
     trees = getattr(segment, "star_trees", None)
     if not trees or not ctx.aggregations:
-        return None
+        return None     # no trees, or no aggregation: not a decline
     if getattr(segment, "valid_doc_ids", None) is not None:
         # pre-aggregated records do not see the valid-doc bitmap
         return decline("startree_upsert_valid_docs")

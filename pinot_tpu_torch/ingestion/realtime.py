@@ -216,7 +216,7 @@ class RealtimeSegmentDataManager:
             capacity=max(sc.segment_flush_threshold_rows, 1),
             indexing_config=table_config.indexing_config)
         self.start_offset = start_offset
-        self.current_offset = start_offset
+        self.current_offset = start_offset  # race-ok: single_writer
         self.flush_threshold_rows = sc.segment_flush_threshold_rows
         self.flush_threshold_ms = sc.segment_flush_threshold_millis
         self._start_time_ms = int(time.time() * 1000)
@@ -233,19 +233,19 @@ class RealtimeSegmentDataManager:
             self.upsert_hook = hook
             attach_valid_docs(self.segment,
                               _LiveValidDocs(pm, segment_name))
-        self.state = ConsumerState.INITIAL_CONSUMING
-        self.rows_indexed = 0
-        self.rows_dropped = 0
-        self._catchup_target: Optional[StreamOffset] = None
-        self._consecutive_errors = 0
-        self._committed_metadata: Optional[SegmentMetadata] = None
+        self.state = ConsumerState.INITIAL_CONSUMING  # race-ok: single_writer
+        self.rows_indexed = 0  # race-ok: single_writer
+        self.rows_dropped = 0  # race-ok: single_writer
+        self._catchup_target: Optional[StreamOffset] = None  # race-ok: single_writer
+        self._consecutive_errors = 0  # race-ok: single_writer
+        self._committed_metadata: Optional[SegmentMetadata] = None  # race-ok: single_writer
         #: the sealed segment that replaces the consuming one
-        self.sealed_segment: Optional[ImmutableSegment] = None
+        self.sealed_segment: Optional[ImmutableSegment] = None  # race-ok: single_writer
         #: wall ms of the last seal (build_segment)
-        self.seal_wall_ms: Optional[float] = None
+        self.seal_wall_ms: Optional[float] = None  # race-ok: single_writer
         #: monotonic s: the thread's start, and the flush threshold reached
         self.started_at: Optional[float] = None
-        self.threshold_at: Optional[float] = None
+        self.threshold_at: Optional[float] = None  # race-ok: single_writer
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 

@@ -57,6 +57,7 @@ from pinot_tpu_torch.engine.staging import (
     raw_staged_dtype,
     staged_int_dtype,
     to_host,
+    wait_for_copies,
 )
 from pinot_tpu_torch.parallel.combine import BATCH_KERNELS
 from pinot_tpu_torch.parallel.mesh import (
@@ -420,14 +421,15 @@ class StagedBatch:
         self.device = resolve_device(device)
         self.batch = batch
         self.num_segs = max(num_segs, batch.num_segments)
-        self._host_image = host_image
-        self._packed: Dict[str, PackedColumn] = {}
-        self._values: Dict[str, torch.Tensor] = {}
-        self._columns: Dict[str, StagedColumn] = {}
-        self._num_docs: Optional[torch.Tensor] = None
+        self._host_image = host_image  # guarded-by-writes: _lock
+        self._packed: Dict[str, PackedColumn] = {}  # guarded-by-writes: _lock
+        self._values: Dict[str, torch.Tensor] = {}  # guarded-by-writes: _lock
+        self._columns: Dict[str, StagedColumn] = {}  # guarded-by-writes: _lock
+        self._num_docs: Optional[torch.Tensor] = None  # guarded-by-writes: _lock
         self._lock = threading.Lock()
         self._copies = H2DCopies(self.device)
-        self._bytes = 0     # device bytes held, kept as tensors come and go
+        # device bytes held, kept as tensors come and go
+        self._bytes = 0  # guarded-by-writes: _lock
 
     @property
     def provider(self) -> SegmentBatch:
@@ -548,8 +550,7 @@ class StagedBatch:
             for name, sc in self._columns.items():
                 img.columns[name] = {k: to_host(t)
                                      for k, t in sc.tree().items()}
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            wait_for_copies(self.device)
             src = self._host_image
             if src is not None:
                 for table in ("packed", "values", "columns"):
@@ -788,8 +789,7 @@ class MeshStagedBatch(StagedBatch):
                 img.columns[name] = [{k: host(t) for k, t in sc.tree().items()}
                                      for sc in cols]
             for dev in self.mesh.devices:
-                if dev.type == "cuda":
-                    torch.cuda.current_stream(dev).synchronize()
+                wait_for_copies(dev)
             src = self._host_image
             if src is not None:
                 for table in ("packed", "values", "columns"):

@@ -584,7 +584,8 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             inp = fused_scan.scan_inputs(
                 plan, staged, on_decline=reasons.append,
                 run_probe=lambda prog, words, num_docs: self._probe(
-                    prog, words, num_docs, bname, S, stats))
+                    prog, words, num_docs, bname, S, stats),
+                lut_run_cap=self.lut_run_cap)
             if inp is not None:
                 return self._bind_fused(inp, bname, S)
         else:

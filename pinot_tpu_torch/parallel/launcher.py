@@ -106,7 +106,7 @@ class _LaunchRequest:
 
     __slots__ = ("kernel", "params", "num_docs", "future", "t_submit",
                  "batch_size", "queue_wait_ms", "launches_saved", "deduped",
-                 "launched")
+                 "launched", "ready")
 
     def __init__(self, kernel: LaunchKernel, params, num_docs):
         self.kernel = kernel
@@ -121,9 +121,16 @@ class _LaunchRequest:
         # the launches of the run that served this request, counted where
         # the kernel launched (the query adds them to its stats)
         self.launched = QueryStats()
+        # CUDA events recorded after the launch that served this request:
+        # the rider waits on them, not the dispatcher
+        self.ready: List[Any] = []
 
     def result(self, timeout: Optional[float] = None):
-        return self.future.result(timeout)
+        out = self.future.result(timeout)
+        # the group's device work is done before this rider reads it
+        for event in self.ready:
+            event.synchronize()
+        return out
 
 
 class LaunchScheduler:
@@ -138,33 +145,33 @@ class LaunchScheduler:
         # a group's futures complete
         self.devices = tuple(devices) or (
             (self.device,) if self.device is not None else ())
-        self._queue: "deque[_LaunchRequest]" = deque()
+        self._queue: "deque[_LaunchRequest]" = deque()  # guarded-by-writes: _cond
         self._cond = threading.Condition()
-        self._thread: Optional[threading.Thread] = None
-        self._closed = False
-        self.window_max_ms = 1.0
-        self.window_hot_ms = 2.0
-        self._arrival_ewma_ms: Optional[float] = None
-        self._last_arrival: Optional[float] = None
+        self._thread: Optional[threading.Thread] = None  # guarded-by-writes: _cond
+        self._closed = False  # guarded-by: _cond
+        self.window_max_ms = 1.0  # guarded-by-writes: _cond
+        self.window_hot_ms = 2.0  # guarded-by-writes: _cond
+        self._arrival_ewma_ms: Optional[float] = None  # guarded-by-writes: _cond
+        self._last_arrival: Optional[float] = None  # guarded-by: _cond
         # requests submitted and not yet completed, and the EWMA of
         # arrivals that found one pending: a straggler can only come from
         # another client
-        self._pending = 0
-        self._overlap_ewma = 0.0
+        self._pending = 0  # guarded-by-writes: _cond
+        self._overlap_ewma = 0.0  # guarded-by-writes: _cond
         self._stats_lock = threading.Lock()
-        self.requests = 0
-        self.launches = 0
-        self.coalesced_launches = 0
-        self.launches_saved = 0
-        self.deduped_requests = 0
-        self.batched_requests = 0
-        self.failures = 0
-        self.max_batch_size = 0
-        self.queue_wait_ms_total = 0.0
-        self.queue_wait_ms_max = 0.0
-        self.window_waits = 0
-        self.window_gathered = 0
-        self.window_last_ms = 0.0
+        self.requests = 0  # guarded-by-writes: _stats_lock
+        self.launches = 0  # guarded-by-writes: _stats_lock
+        self.coalesced_launches = 0  # guarded-by-writes: _stats_lock
+        self.launches_saved = 0  # guarded-by-writes: _stats_lock
+        self.deduped_requests = 0  # guarded-by-writes: _stats_lock
+        self.batched_requests = 0  # guarded-by-writes: _stats_lock
+        self.failures = 0  # guarded-by-writes: _stats_lock
+        self.max_batch_size = 0  # guarded-by-writes: _stats_lock
+        self.queue_wait_ms_total = 0.0  # guarded-by-writes: _stats_lock
+        self.queue_wait_ms_max = 0.0  # guarded-by-writes: _stats_lock
+        self.window_waits = 0  # guarded-by-writes: _stats_lock
+        self.window_gathered = 0  # guarded-by-writes: _stats_lock
+        self.window_last_ms = 0.0  # guarded-by-writes: _stats_lock
         self._registries: list = []  # guarded-by: _stats_lock
 
     # -- submission ---------------------------------------------------------------
@@ -311,10 +318,15 @@ class LaunchScheduler:
                     errs[start:start + len(chunk)] = [e] * len(chunk)
             tallies[start:start + len(chunk)] = [tally] * len(chunk)
             launches += 1
-        # the group's device work is done before any rider reads it
+        # an event a device marks the end of the group's work: each rider
+        # waits on it in its own thread (``_LaunchRequest.result``), so the
+        # dispatcher goes on to the next group without a host sync
+        ready = []
         for dev in self.devices:
             if dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                ready.append(event)
 
         n = len(reqs)
         # counted before any rider wakes, so a rider reads stats with its
@@ -326,6 +338,7 @@ class LaunchScheduler:
             r.launches_saved = n - launches
             r.deduped = req_slot.count(slot) > 1
             r.launched = tallies[slot]
+            r.ready = ready
             self._complete(r, outs[slot], errs[slot])
 
     def _complete(self, r: _LaunchRequest, out=None,

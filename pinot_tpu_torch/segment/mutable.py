@@ -152,8 +152,8 @@ class _GrowArray:
     prefix stays valid: a regrowth copies into a new array)."""
 
     def __init__(self, dtype):
-        self._arr = np.zeros(_INITIAL_CAPACITY, dtype=dtype)
-        self._n = 0
+        self._arr = np.zeros(_INITIAL_CAPACITY, dtype=dtype)  # race-ok: single_writer
+        self._n = 0  # race-ok: single_writer
 
     def append(self, v) -> None:
         if self._n == self._arr.shape[0]:
@@ -268,12 +268,12 @@ class MutableSegment:
         self.indexing = indexing_config or IndexingConfig()
         self._cols: Dict[str, _MutableColumn] = {
             fs.name: _MutableColumn(fs) for fs in schema.field_specs}
-        self._num_docs = 0
+        self._num_docs = 0  # race-ok: single_writer
         self.valid_doc_ids = None
         self.star_trees: List[Any] = []
         # per row, the monotonic clock when it was indexed (ingest to
         # queryable latency is measured from it)
-        self._append_ts = _GrowArray(np.float64)
+        self._append_ts = _GrowArray(np.float64)  # race-ok: single_writer
         # rows whose freshness was recorded already
         # (engine/mutable_staging.py observe_freshness)
         self._fresh_observed = 0

@@ -66,19 +66,19 @@ class AdmissionGate:
         self._name = name
         self._quota = quota
         self._cond = threading.Condition()
-        self._slots = 0
-        self._max_queue = 0
-        self._max_wait_s = 0.0
-        self._inflight = 0
-        self._waiting = 0
+        self._slots = 0  # guarded-by-writes: _cond
+        self._max_queue = 0  # guarded-by-writes: _cond
+        self._max_wait_s = 0.0  # guarded-by-writes: _cond
+        self._inflight = 0  # guarded-by-writes: _cond
+        self._waiting = 0  # guarded-by-writes: _cond
         # cumulative counters (a run diffs two stats_snapshot() calls)
-        self.admitted = 0
-        self.rejected_queue_full = 0
-        self.rejected_wait_expired = 0
-        self.rejected_quota = 0
-        self.max_queue_depth_seen = 0
-        self.queue_wait_ms_total = 0.0
-        self.queue_wait_ms_max = 0.0
+        self.admitted = 0  # guarded-by-writes: _cond
+        self.rejected_queue_full = 0  # guarded-by-writes: _cond
+        self.rejected_wait_expired = 0  # guarded-by-writes: _cond
+        self.rejected_quota = 0  # guarded-by-writes: _cond
+        self.max_queue_depth_seen = 0  # guarded-by-writes: _cond
+        self.queue_wait_ms_total = 0.0  # guarded-by-writes: _cond
+        self.queue_wait_ms_max = 0.0  # guarded-by-writes: _cond
         self._metrics = None
         self.configure(max_concurrent=max_concurrent, max_queue=max_queue,
                        max_wait_ms=max_wait_ms)

@@ -69,6 +69,11 @@ class CommonConstants:
     # than 1 on an H100 (chip_smoke.py phase 15e, PERF.md)
     # the fused scan's per-shape blocklist file (engine/pallas_blocklist.py)
     PALLAS_BLOCKLIST_PATH_KEY = "pinot.server.query.pallas.blocklist.path"
+    # the fused scan's LUT predicates: most dictId runs one interval-set
+    # ("ivs") leaf carries before the plan goes to the general rung (its
+    # run table rides the kernel's shared memory)
+    PALLAS_LUT_MAX_RUNS_KEY = "pinot.server.query.pallas.lut.max.runs"
+    DEFAULT_PALLAS_LUT_MAX_RUNS = 64
     WORKER_THREADS_KEY = "pinot.server.query.worker.threads"
     DEFAULT_WORKER_THREADS = 1
     # the server's query runners (server/scheduler.py make_scheduler):

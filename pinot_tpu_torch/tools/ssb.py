@@ -34,6 +34,15 @@ package's), which ``build_segments(..., star_tree=True)`` builds in a
 process pool; ``STARTREE_QUERIES`` are the star-tree's other routes on
 such segments (the host walker, three declines, the opt-out), with their
 oracle.
+
+``ssb_schema``, ``generate_flat``, ``generate_table`` and
+``generate_partitioned_frame`` are the JAX module's generators (strings
+as codes here too: ``decode_frame`` gives the JAX arrays).
+``build_segments(..., out_dir=DIR)`` writes the segments to ``DIR`` in a
+spawned pool (``write_segment``) and loads them back (``load_segment``);
+with ``partitioned=True`` each segment holds one ``d_year`` and records
+Modulo partition metadata on it (``ssb_indexing_config(num_partitions=)``),
+which the broker's partition pruner and the segment pruner read.
 """
 
 from __future__ import annotations
@@ -51,8 +60,13 @@ from pinot_tpu_torch.segment.convert import (
     star_trees_of,
 )
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
-from pinot_tpu_torch.spi.data import DataType, FieldType
-from pinot_tpu_torch.spi.table import IndexingConfig, StarTreeIndexConfig
+from pinot_tpu_torch.spi.data import DataType, FieldSpec, FieldType, Schema
+from pinot_tpu_torch.spi.table import (
+    IndexingConfig,
+    SegmentPartitionConfig,
+    StarTreeIndexConfig,
+)
+from pinot_tpu_torch.utils.partition import get_partition_function
 from pinot_tpu_torch.utils.hll import (
     DEFAULT_LOG2M,
     HyperLogLog,
@@ -91,6 +105,11 @@ COLUMNS: List[Tuple[str, DataType, FieldType]] = [
     ("p_category", DataType.STRING, FieldType.DIMENSION),
     ("p_brand1", DataType.STRING, FieldType.DIMENSION),
 ]
+
+
+def ssb_schema() -> Schema:
+    """The flat lineorder table's schema (JAX ``ssb_schema``)."""
+    return Schema(TABLE, [FieldSpec(c, dt, ft) for c, dt, ft in COLUMNS])
 
 
 def _sorted_universe(values: List[str]) -> Tuple[np.ndarray, np.ndarray]:
@@ -185,6 +204,46 @@ def generate_segment_frame(i: int, num_segments: int, n: int,
     return cols
 
 
+def generate_flat(sf: float, seed: int = 42,
+                  rows: int = 0) -> Dict[str, np.ndarray]:
+    """``rows or int(sf * ROWS_PER_SF)`` flat rows with globally uniform
+    years and months (JAX ``generate_flat``)."""
+    n = rows or int(sf * ROWS_PER_SF)
+    rng = np.random.default_rng(seed)
+    cols = _flat_columns(rng, n)
+    year = rng.integers(1992, 1999, n).astype(np.int64)
+    month = rng.integers(1, 13, n).astype(np.int64)
+    cols["d_year"] = year
+    cols["d_yearmonthnum"] = year * 100 + month
+    return cols
+
+
+def generate_table(num_segments: int, rows: int,
+                   seed: int = 42) -> Dict[str, np.ndarray]:
+    """The rows ``build_segments(rows=rows, num_segments=num_segments)``
+    indexes, concatenated (JAX ``generate_table``)."""
+    frames = [generate_segment_frame(i, num_segments, take, seed)
+              for i, take in enumerate(segment_rows(num_segments, rows))]
+    return {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+
+
+PARTITION_COLUMN = "d_year"
+NUM_YEARS = 7   # dbgen's 1992..1998
+
+
+def generate_partitioned_frame(i: int, num_segments: int, n: int,
+                               seed: int = 42) -> Dict[str, np.ndarray]:
+    """Segment ``i``'s rows of the partitioned layout: one ``d_year``
+    (1992 + i mod 7) a segment (JAX ``generate_partitioned_frame``)."""
+    rng = np.random.default_rng(seed * 2_000_003 + i)
+    cols = _flat_columns(rng, n)
+    year = 1992 + (i % NUM_YEARS)
+    cols["d_year"] = np.full(n, year, dtype=np.int64)
+    cols["d_yearmonthnum"] = (year * 100
+                              + rng.integers(1, 13, n)).astype(np.int64)
+    return cols
+
+
 def segment_rows(num_segments: int, rows: int) -> List[int]:
     """Rows per segment, split the way the JAX package splits them."""
     per = -(-rows // num_segments)
@@ -235,7 +294,9 @@ def _dict_encode(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
             remap.astype(ids_dtype)[shifted])
 
 
-def ssb_indexing_config(star_tree: bool = True) -> IndexingConfig:
+def ssb_indexing_config(star_tree: bool = True, num_partitions: int = 0,
+                        partition_column: str = PARTITION_COLUMN
+                        ) -> IndexingConfig:
     """The lineorder table's indexing (JAX ``ssb_indexing_config``,
     :198-273): five star-trees, one per flight family, so the pick serves
     every flight from the cheapest fitting tree:
@@ -250,7 +311,9 @@ def ssb_indexing_config(star_tree: bool = True) -> IndexingConfig:
       and category;
     - tree 4 (Q4.3): the same pair by supplier city and brand.
 
-    ``star_tree=False`` gives no trees."""
+    ``star_tree=False`` gives no trees. ``num_partitions`` > 0 adds a
+    Modulo partition config on ``partition_column``, so the builder records
+    each segment's partitions (the pruners' input)."""
     trees = [
         StarTreeIndexConfig(
             dimensions_split_order=["d_year", "c_region", "s_region",
@@ -286,23 +349,42 @@ def ssb_indexing_config(star_tree: bool = True) -> IndexingConfig:
                                    "COUNT__*"],
             max_leaf_records=10_000),
     ] if star_tree else []
-    return IndexingConfig(star_tree_index_configs=trees)
+    spc = SegmentPartitionConfig(column_partition_map={
+        partition_column: {"functionName": "Modulo",
+                           "numPartitions": num_partitions},
+    }) if num_partitions > 0 else None
+    return IndexingConfig(star_tree_index_configs=trees,
+                          segment_partition_config=spc)
 
 
 def segment_from_frame(name: str, frame: Dict[str, np.ndarray],
-                       star_tree: bool = False) -> ImmutableSegment:
+                       star_tree: bool = False,
+                       num_partitions: int = 0) -> ImmutableSegment:
     """A port segment with sorted dictionaries built from the frame; with
-    ``star_tree``, ``ssb_indexing_config()``'s five trees built over it."""
+    ``star_tree``, ``ssb_indexing_config()``'s five trees built over it;
+    with ``num_partitions``, the Modulo partitions of ``PARTITION_COLUMN``
+    recorded on it (as the JAX builder records them)."""
     num_docs = len(frame["lo_quantity"])
+    fn = get_partition_function("Modulo", num_partitions) \
+        if num_partitions > 0 else None
     columns = {}
     for col, dt, ft in COLUMNS:
         values, ids = _dict_encode(np.asarray(frame[col]))
         dictionary = UNIVERSE[col][values] if col in UNIVERSE else values
-        columns[col] = ColumnArrays(data_type=dt, field_type=ft,
-                                    dictionary=dictionary, dict_ids=ids)
-    return segment_from_arrays(
-        name, num_docs, columns, table_name=TABLE,
-        indexing=ssb_indexing_config() if star_tree else None)
+        arrays = ColumnArrays(data_type=dt, field_type=ft,
+                              dictionary=dictionary, dict_ids=ids)
+        if fn is not None and col == PARTITION_COLUMN:
+            arrays.partition_function = fn.name
+            arrays.num_partitions = fn.num_partitions
+            arrays.partitions = sorted({fn.partition(v)
+                                        for v in dictionary.tolist()})
+        columns[col] = arrays
+    indexing = None
+    if star_tree or num_partitions:
+        indexing = ssb_indexing_config(star_tree=star_tree,
+                                       num_partitions=num_partitions)
+    return segment_from_arrays(name, num_docs, columns, table_name=TABLE,
+                               indexing=indexing)
 
 
 def _segment_trees(i: int, num_segments: int, n: int, seed: int
@@ -314,17 +396,75 @@ def _segment_trees(i: int, num_segments: int, n: int, seed: int
     return star_trees_of(seg), seg.metadata.star_tree_build_s
 
 
+def _frame_of(i: int, num_segments: int, n: int, seed: int,
+              partitioned: bool) -> Dict[str, np.ndarray]:
+    return (generate_partitioned_frame if partitioned
+            else generate_segment_frame)(i, num_segments, n, seed)
+
+
+def _write_one(i: int, num_segments: int, n: int, seed: int, out_dir: str,
+               partitioned: bool, star_tree: bool) -> str:
+    """Worker: draw, build and write segment ``i`` under ``out_dir``."""
+    from pinot_tpu_torch.segment.creator import write_segment
+
+    name = f"ssb_part_{i}" if partitioned else f"ssb_{i}"
+    frame = _frame_of(i, num_segments, n, seed, partitioned)
+    write_segment(segment_from_frame(
+        name, frame, star_tree=star_tree,
+        num_partitions=num_segments if partitioned else 0), out_dir)
+    return name
+
+
+def _build_on_disk(sizes: List[int], num_segments: int, seed: int,
+                   out_dir: str, partitioned: bool, star_tree: bool,
+                   workers: int) -> Tuple[List[ImmutableSegment],
+                                          List[Dict[str, np.ndarray]]]:
+    from pinot_tpu_torch.segment.immutable import load_segment
+
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = [(i, num_segments, take, seed, out_dir, partitioned, star_tree)
+            for i, take in enumerate(sizes)]
+    workers = workers or min(len(jobs), os.cpu_count() or 1)
+    frames = []
+    if workers > 1 and len(jobs) > 1:
+        import multiprocessing as mp
+
+        # spawn, not fork: the caller may hold a CUDA context
+        with mp.get_context("spawn").Pool(workers) as pool:
+            pending = pool.starmap_async(_write_one, jobs)
+            frames = [_frame_of(i, num_segments, take, seed, partitioned)
+                      for i, take in enumerate(sizes)]
+            names = pending.get()
+    else:
+        names = [_write_one(*j) for j in jobs]
+        frames = [_frame_of(i, num_segments, take, seed, partitioned)
+                  for i, take in enumerate(sizes)]
+    return ([load_segment(os.path.join(out_dir, nm)) for nm in names],
+            frames)
+
+
 def build_segments(sf: float, num_segments: int = 8, seed: int = 42,
                    rows: int = 0, star_tree: bool = False,
-                   workers: int = 0) -> Tuple[List[ImmutableSegment],
-                                              List[Dict[str, np.ndarray]]]:
+                   workers: int = 0, out_dir: Optional[str] = None,
+                   partitioned: bool = False
+                   ) -> Tuple[List[ImmutableSegment],
+                              List[Dict[str, np.ndarray]]]:
     """(segments, their frames) for ``rows or sf * ROWS_PER_SF`` rows.
     ``star_tree`` builds ``ssb_indexing_config()``'s trees on every
     segment in a spawned pool of ``workers`` processes (0: min(segments,
     cpu count), as the JAX package's ``build_segments``), while this
-    process draws the frames and builds the segments."""
+    process draws the frames and builds the segments. With ``out_dir``,
+    the pool's workers write the segments there (``ssb_<i>``, or
+    ``ssb_part_<i>`` with ``partitioned``: one ``d_year`` a segment and
+    its Modulo partition metadata) and this process loads them."""
     n = rows or int(sf * ROWS_PER_SF)
     sizes = segment_rows(num_segments, n)
+    if out_dir is not None:
+        return _build_on_disk(sizes, num_segments, seed, out_dir,
+                              partitioned, star_tree, workers)
+    if partitioned:
+        raise ValueError("the partitioned layout is built on disk: "
+                         "pass out_dir")
 
     def segments():
         segs, frames = [], []

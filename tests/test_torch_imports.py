@@ -112,7 +112,11 @@ def test_executor_import_leaves_jax_unloaded():
             "pinot_tpu_torch.ingestion.readers, "
             "pinot_tpu_torch.ingestion.batchjob, "
             "pinot_tpu_torch.ingestion.socketstream, "
-            "pinot_tpu_torch.ingestion.kafkawire; "
+            "pinot_tpu_torch.ingestion.kafkawire, "
+            "pinot_tpu_torch.tools.ssb_baseline, "
+            "pinot_tpu_torch.tools.microbench, "
+            "pinot_tpu_torch.tools.lint, pinot_tpu_torch.tools.lint.core, "
+            "pinot_tpu_torch.tools.lint.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinot_tpu', 'triton', 'grpc')]; "
             "from pinot_tpu_torch.engine import _build, kernels; "
@@ -383,3 +387,25 @@ def test_cluster_with_a_minion_defaults_to_the_card(tmp_path):
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="cuda"):
         EmbeddedCluster(num_servers=1, data_dir=str(tmp_path))
+
+
+LINT = os.path.join(PORT, "tools", "lint")
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.join(LINT, f) for f in os.listdir(LINT) if f.endswith(".py")),
+    ids=lambda p: os.path.relpath(p, ROOT))
+def test_lint_modules_import_only_the_standard_library(path):
+    """The port's lint is stdlib ``ast``: each of its modules imports the
+    standard library and its own package, never torch, numpy or the JAX
+    package's lint."""
+    roots = set(_imported_roots(path)) - {"__future__"}
+    own = {"pinot_tpu_torch"}
+    assert roots - own <= set(sys.stdlib_module_names), roots
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module \
+                and node.module.startswith("pinot_tpu_torch"):
+            assert node.module.startswith("pinot_tpu_torch.tools.lint"), \
+                node.module
+

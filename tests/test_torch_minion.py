@@ -255,13 +255,20 @@ def _rows(ts_list, k="x", qty=1):
             "ts": list(ts_list)}
 
 
+LLC_SEED = "20240101T000000Z"
+
+
 class Pair:
     """A JAX and a port cluster driven with the same calls."""
 
     def __init__(self, tmp_path, servers=1):
-        self.j = JCluster(num_servers=servers, data_dir=str(tmp_path / "j"))
+        # LLC segment names carry the wall-clock second of the seal unless
+        # a seed fixes them; the two clusters seal at different instants.
+        self.j = JCluster(num_servers=servers, data_dir=str(tmp_path / "j"),
+                          llc_seed=LLC_SEED)
         self.t = EmbeddedCluster(num_servers=servers, device="cpu",
-                                 data_dir=str(tmp_path / "t"))
+                                 data_dir=str(tmp_path / "t"),
+                                 llc_seed=LLC_SEED)
         self.jm = self.j.add_minion(start=False)
         self.tm = self.t.add_minion(start=False)
 
