@@ -9,6 +9,11 @@ outside systems:
 - **SLO burn**: per-table latency, error and freshness objectives
   (``pinot.broker.slo.<table>.p99.ms`` / ``.error.pct`` /
   ``.freshness.ms``) with short- and long-window burn rates;
+- **the collector's pauses** (:class:`GcPauses`, :data:`GC_PAUSES`): one
+  ``gc.callbacks`` hook a process, the cumulative pause and collections
+  by generation and a histogram of pauses (``gc_pause_ms`` on
+  ``/metrics``, the counterpart of the JVM GC metrics a Pinot server
+  exports); a traced ``ServerQuery`` reads it at open and close;
 - **a flight recorder**: a process-wide bounded ring of recent span trees,
   decision-ledger marks and registered state snapshots (residency,
   scheduler, admission), frozen into a timestamped JSON bundle when an
@@ -29,6 +34,7 @@ own :class:`Telemetry`. ``stop_sampler`` joins the sampler thread, and
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import threading
@@ -665,17 +671,100 @@ class FlightRecorder:
 
 
 # --------------------------------------------------------------------------
+# the collector's pauses
+# --------------------------------------------------------------------------
+
+GC_GENERATIONS = 3
+
+
+class _ReentrantHistogram(Histogram):
+    """A :class:`Histogram` the collector's hook records into. A collection
+    can start inside any allocation, one this thread makes while it holds
+    the histogram's lock (a scrape's copy) included, so the lock is
+    re-entrant; another thread's hook waits for it as any writer does."""
+
+    __slots__ = ()
+
+    def __init__(self):
+        super().__init__()
+        self._lock = threading.RLock()
+
+
+class GcPauses:
+    """The interpreter's garbage-collector pauses in this process: the
+    cumulative ns and collections by generation, and a :class:`Histogram`
+    of pause ms by generation. A collection stops every thread of the
+    process, so a traced query reads the cumulative pause at its open and
+    its close (:meth:`mark`) and records the difference.
+
+    ``install`` adds one ``gc.callbacks`` hook (a second call adds none).
+    The collector runs one collection at a time, so the hook is the only
+    writer of the counts at any moment."""
+
+    def __init__(self):
+        self.pause_ns = [0] * GC_GENERATIONS
+        self.collections = [0] * GC_GENERATIONS
+        self.histos = [_ReentrantHistogram() for _ in range(GC_GENERATIONS)]
+        self._start_ns = 0
+
+    def install(self) -> "GcPauses":
+        if self._hook not in gc.callbacks:
+            gc.callbacks.append(self._hook)
+        return self
+
+    def _hook(self, phase: str, info: Dict[str, int]) -> None:
+        if phase == "start":
+            self._start_ns = time.perf_counter_ns()
+            return
+        ns = time.perf_counter_ns() - self._start_ns
+        gen = info["generation"]
+        self.pause_ns[gen] += ns
+        self.collections[gen] += 1
+        self.histos[gen].record(ns / 1e6)
+
+    def mark(self) -> Tuple[int, int, int]:
+        """(pause ns, collections, gen-2 collections) so far."""
+        return sum(self.pause_ns), sum(self.collections), self.collections[2]
+
+    def clear(self) -> None:
+        for gen in range(GC_GENERATIONS):
+            self.pause_ns[gen] = 0
+            self.collections[gen] = 0
+            self.histos[gen].clear()
+
+    def prometheus_lines(self, prefix: str) -> List[str]:
+        """The ``<prefix>gc_pause_ms`` histogram family, one series a
+        generation."""
+        fam = f"{prefix}gc_pause_ms"
+        lines = [f"# HELP {fam} Garbage-collector pauses by generation, "
+                 f"log-bucketed (lifetime).",
+                 f"# TYPE {fam} histogram"]
+        for gen, h in enumerate(self.histos):
+            labels = f'generation="{gen}"'
+            for le, cum in h.bucket_rows():
+                lines.append(f'{fam}_bucket{{{labels},le="{le}"}} {cum}')
+            with h._lock:
+                total, count = h.sum, h.count
+            lines.append(f"{fam}_sum{{{labels}}} {round(total, 3)}")
+            lines.append(f"{fam}_count{{{labels}}} {count}")
+        return lines
+
+
+# --------------------------------------------------------------------------
 # the telemetry center
 # --------------------------------------------------------------------------
 
 class Telemetry:
     """One per process (:data:`TELEMETRY`): the (table, phase) histogram
     registry, the gauge-history rings + their sampler thread, the SLO
-    tracker, and the flight recorder."""
+    tracker, and the flight recorder; the process's one also exports the
+    collector's pauses (``gc_pauses``)."""
 
     def __init__(self, window_s: float = 30.0, num_windows: int = 10,
                  resolution_s: float = 2.0,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 gc_pauses: Optional[GcPauses] = None):
+        self.gc_pauses = gc_pauses
         self.window_s = window_s
         self.num_windows = num_windows
         self.resolution_s = resolution_s  # guarded-by-writes: _lock
@@ -939,8 +1028,9 @@ class Telemetry:
     def export_prometheus(self, prefix: str) -> str:
         """Real exposition-format families for the continuous layer:
         ``<prefix>query_phase_latency_ms`` histograms labeled
-        (table, phase) with ``_bucket``/``_sum``/``_count``, plus
-        ``<prefix>slo_burn_rate`` gauges."""
+        (table, phase) with ``_bucket``/``_sum``/``_count``,
+        ``<prefix>slo_burn_rate`` gauges, and, with ``gc_pauses``, the
+        ``<prefix>gc_pause_ms`` histograms labeled by generation."""
         with self._lock:
             histos = sorted(self._histos.items())
         lines: List[str] = []
@@ -968,14 +1058,19 @@ class Telemetry:
                 lines.append(
                     f'{bfam}{{table="{table}",objective="{objective}",'
                     f'window="{window}"}} {burn}')
+        if self.gc_pauses is not None:
+            lines += self.gc_pauses.prometheus_lines(prefix)
         return "\n".join(lines) + ("\n" if lines else "")
 
     # -- test hygiene --------------------------------------------------------
     def reset(self) -> None:
         """Clear recorded state (histograms, rings, SLO counters, flight
-        recorder rings/bundles). Objectives and tracked gauges survive;
-        tests isolating the process-wide instance call this."""
+        recorder rings/bundles, the collector's pause counts). Objectives
+        and the collector's hook survive; tests isolating the process-wide
+        instance call this."""
         self.stop_sampler()
+        if self.gc_pauses is not None:
+            self.gc_pauses.clear()
         with self._lock:
             self._histos.clear()
             self._rings.clear()
@@ -988,7 +1083,9 @@ class Telemetry:
                                            clock=self._clock)
 
 
-TELEMETRY = Telemetry()
+# the process's collector pauses: one hook, installed with the center
+GC_PAUSES = GcPauses()
+TELEMETRY = Telemetry(gc_pauses=GC_PAUSES.install())
 
 
 # mapping from the residency manager's meter mnemonics to anomaly-event

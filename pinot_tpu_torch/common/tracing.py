@@ -11,7 +11,13 @@ JAX package's addition: a ledger of why execution declined a faster path.
   ``Kernel`` spans around the hand-written CUDA launches (closed after the
   wrapper's own device-to-host copy, which waits for the card); the batch
   path's ``ShardedCombine`` with the launcher's queue wait as ``queueMs``.
-  Server trees travel on the DataTable wire (``QueryStats.spans``) and the
+  The port names the host work around the batch path's launch too
+  (:data:`PORT_ONLY_SPANS`, which JAX's trees lack): ``Prune``, ``Bind``
+  (with ``StageBatch`` where the batch was built), the dispatcher's
+  ``Launch`` under ``ShardedCombine`` naming its riders, ``Decode``,
+  ``Reduce`` and ``Release``; a ``ServerQuery`` root records the
+  collector's pauses inside it (``gcMs``, ``gcCount``, ``gcGen2``: the
+  process telemetry's ``GC_PAUSES``). Server trees travel on the DataTable wire (``QueryStats.spans``) and the
   broker hangs them under its root's ``ScatterGather``. Every span close
   also appends one flat entry to ``QueryStats.trace``, the legacy
   ``traceInfo["entries"]`` view.
@@ -25,6 +31,12 @@ JAX package's addition: a ledger of why execution declined a faster path.
   reduce) are registered from there.
 - **The query registry** (:class:`QueryRegistry`): each executor's running
   queries, the ring of completed ones and the slow-query log.
+
+Every closed span carries its start as ``t0Ns``, a
+``time.perf_counter_ns()`` reading, beside its ``ms``: the clock the
+benchmark's profiler marks pin to the device trace, so a span's interval
+lies on the trace's timeline. On Linux that clock is ``CLOCK_MONOTONIC``,
+so the trees of other processes on the same host share it.
 
 Spans are recorded only when a recorder is attached to the stats
 (``trace=true``, the ``pinot.server.query.trace.sample`` rate, or a
@@ -44,24 +56,32 @@ from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Tuple
 
 # span-dict keys the serializer owns; attributes must not collide
-_RESERVED = ("name", "ms", "queueMs", "workMs", "children")
+_RESERVED = ("name", "ms", "t0Ns", "queueMs", "workMs", "children")
+
+# the spans the port records that the JAX package's trees lack: the host
+# work around the batch path's launch, named step by step
+PORT_ONLY_SPANS = frozenset({"Prune", "Bind", "StageBatch", "Launch",
+                             "Decode", "Reduce", "Release"})
 
 
 class Span:
     """One open span. Closed spans become plain dicts (wire-ready)."""
 
-    __slots__ = ("name", "t0", "wall_ms", "queue_ms", "attrs", "children")
+    __slots__ = ("name", "t0_ns", "wall_ms", "queue_ms", "attrs",
+                 "children")
 
-    def __init__(self, name: str, attrs: Optional[Dict[str, Any]] = None):
+    def __init__(self, name: str, attrs: Optional[Dict[str, Any]] = None,
+                 t0_ns: Optional[int] = None):
         self.name = name
-        self.t0 = time.perf_counter()
+        self.t0_ns = time.perf_counter_ns() if t0_ns is None else t0_ns
         self.wall_ms = 0.0
         self.queue_ms: Optional[float] = None
         self.attrs: Dict[str, Any] = dict(attrs) if attrs else {}
         self.children: List[Dict[str, Any]] = []
 
     def to_dict(self) -> Dict[str, Any]:
-        d: Dict[str, Any] = {"name": self.name, "ms": round(self.wall_ms, 3)}
+        d: Dict[str, Any] = {"name": self.name, "ms": round(self.wall_ms, 3),
+                             "t0Ns": self.t0_ns}
         if self.queue_ms is not None:
             # the explicit queue-vs-work split: queueMs is time spent
             # WAITING at this level, workMs the remainder
@@ -115,7 +135,7 @@ class SpanRecorder:
         while self._stack[-1] is not span:
             self.span_end(self._stack[-1])
         self._stack.pop()
-        span.wall_ms = (time.perf_counter() - span.t0) * 1e3
+        span.wall_ms = (time.perf_counter_ns() - span.t0_ns) / 1e6
         if queue_ms is not None:
             span.queue_ms = queue_ms
         if attrs:
@@ -149,10 +169,15 @@ class SpanRecorder:
     # -- pre-measured / adopted spans ---------------------------------------
     def add_completed(self, name: str, wall_ms: float,
                       queue_ms: Optional[float] = None,
+                      t0_ns: Optional[int] = None,
                       **attrs: Any) -> Dict[str, Any]:
         """Attach an already-measured span (e.g. a queue wait that ended
-        before the recorder existed) as a child of the current span."""
-        sp = Span(name, attrs)
+        before the recorder existed, or an interval another thread timed)
+        as a child of the current span; it started at ``t0_ns``, by
+        default ``wall_ms`` before now."""
+        if t0_ns is None:
+            t0_ns = time.perf_counter_ns() - round(wall_ms * 1e6)
+        sp = Span(name, attrs, t0_ns)
         sp.wall_ms = wall_ms
         sp.queue_ms = queue_ms
         d = sp.to_dict()
@@ -214,17 +239,17 @@ def maybe_span(stats: Any, name: str, **attrs: Any):
 
 
 def attach_root_child(stats: Any, name: str, wall_ms: float,
-                      queue_ms: Optional[float] = None, front: bool = False,
-                      **attrs: Any) -> None:
-    """Retroactively attach a pre-measured child to the stats' FINISHED
-    root span (the scheduler-queue wait is measured by the server tier
-    after the executor already closed the tree). The root's wall time
-    grows to keep the tree self-consistent (children must account inside
-    the root)."""
+                      t0_ns: int, queue_ms: Optional[float] = None,
+                      front: bool = False, **attrs: Any) -> None:
+    """Retroactively attach a pre-measured child, started at ``t0_ns``, to
+    the stats' FINISHED root span (the scheduler-queue wait is measured by
+    the server tier after the executor already closed the tree). The root
+    widens to cover it on the clock, so the tree stays self-consistent
+    (children lie inside the root)."""
     if not stats.spans:
         return
     root = stats.spans[0]
-    sp = Span(name, attrs)
+    sp = Span(name, attrs, t0_ns)
     sp.wall_ms = wall_ms
     sp.queue_ms = queue_ms
     child = sp.to_dict()
@@ -233,29 +258,11 @@ def attach_root_child(stats: Any, name: str, wall_ms: float,
         kids.insert(0, child)
     else:
         kids.append(child)
-    root["ms"] = round(root.get("ms", 0.0) + wall_ms, 3)
+    r0 = root["t0Ns"]
+    end_ns = max(r0 + round(root["ms"] * 1e6), t0_ns + round(wall_ms * 1e6))
+    root["t0Ns"] = min(r0, t0_ns)
+    root["ms"] = round((end_ns - root["t0Ns"]) / 1e6, 3)
     stats.trace.append({"operator": name, "ms": round(wall_ms, 3), **attrs})
-
-
-def flatten_spans(span_dicts: List[Dict[str, Any]]
-                  ) -> List[Dict[str, Any]]:
-    """Span trees -> legacy flat entries (pre-order), for consumers that
-    want the old shape derived from the tree rather than the emitted
-    legacy list."""
-    out: List[Dict[str, Any]] = []
-
-    def walk(d: Dict[str, Any]) -> None:
-        e = {"operator": d["name"], "ms": d["ms"]}
-        for k, v in d.items():
-            if k not in ("name", "ms", "children"):
-                e[k] = v
-        out.append(e)
-        for c in d.get("children", ()):
-            walk(c)
-
-    for d in span_dicts:
-        walk(d)
-    return out
 
 
 def build_broker_root(phase_ms: Dict[str, float],
@@ -762,9 +769,6 @@ class QueryRegistry:
             token["id"] = self._seq
             self._running[token["id"]] = token
         return token
-
-    def phase(self, token: Dict[str, Any], phase: str) -> None:
-        token["phase"] = phase
 
     def end(self, token: Dict[str, Any], error: Any = None) -> float:
         elapsed_ms = (time.perf_counter() - token["t0"]) * 1e3

@@ -107,13 +107,16 @@ Launch counts and tracing (JAX :189-209, :266-306, :586-616):
   ``queries_debug``), and, when the query is traced (OPTION(trace=true),
   ``pinot.server.query.trace.sample``, or forced by
   ``pinot.server.query.slow.threshold.ms``), its recorder and
-  ``ServerQuery`` root with the admission wait, ``Lease``, one
+  ``ServerQuery`` root (from the start of its admission wait, with the
+  collector's pauses inside it: ``gcMs``, ``gcCount``, ``gcGen2``) with
+  the admission wait, ``Prune`` (``kept``, ``pruned``), ``Lease``, one
   ``SegmentAggregate`` / ``SegmentGroupBy`` a segment with the path that
   served, ``Stage`` and ``Kernel`` around each rung's launch and copy to
   the host (``launches`` the count it served), ``HostScan`` and
-  ``HostSelection``; the query flight keys on the trace decision, so a
-  traced query never rides an untraced run. A failure still raises, its
-  spans closed. The query's wall time goes to the table's
+  ``HostSelection``, ``Reduce`` (the trim and the final reduce of
+  ``execute``) and ``Release`` (the lease's end); the query flight keys
+  on the trace decision, so a traced query never rides an untraced run.
+  A failure still raises, its spans closed. The query's wall time goes to the table's
   ``server_exec`` histogram and each launch's to ``kernel``
   (``common/telemetry.py``).
 """
@@ -193,6 +196,22 @@ PLAN_CACHE_CAP = 256
 # merged groups kept before the reduce (Pinot's numGroupsLimit default)
 DEFAULT_NUM_GROUPS_LIMIT = 100_000
 
+
+
+def _note_gc(stats: QueryStats) -> None:
+    """The collector's pauses since the traced root opened, on the root:
+    ``gcMs`` and ``gcCount``, and ``gcGen2`` where a full collection ran
+    (the process's counts: a collection stops every thread)."""
+    mark = getattr(stats, "_gc_mark", None)
+    if mark is None:
+        return
+    ns, count, gen2 = (b - a for a, b in
+                       zip(mark, TELEMETRY.gc_pauses.mark()))
+    if count > 0:
+        attrs = {"gcMs": round(ns / 1e6, 3), "gcCount": count}
+        if gen2 > 0:
+            attrs["gcGen2"] = gen2
+        stats._root_span.attrs.update(attrs)
 
 
 def _segment_tracer(stats: QueryStats, op: str, seg):
@@ -348,17 +367,22 @@ class ServerQueryExecutor:
         """The query's stats and registry token, and, when it is traced
         (requested, sampled or forced by the slow log), its recorder and
         ``ServerQuery`` root, whose first child is the admission wait
-        (JAX ``_open_query`` :266-289)."""
+        (JAX ``_open_query`` :266-289); the root starts where that wait
+        did, and notes the collector's pauses so far."""
         stats = QueryStats(num_segments_queried=len(segments))
         stats._tel_table = ctx.table_name or ""
         if requested or self.queries.force_trace:
             rec = start_trace(stats)
             stats._trace_requested = requested
             # closed by _close_query's close_all
-            stats._root_span = rec.span_begin("ServerQuery",
-                                              table=ctx.table_name)
+            root = rec.span_begin("ServerQuery", table=ctx.table_name)
+            root.t0_ns -= round(admit_wait_ms * 1e6)
+            stats._root_span = root
             rec.add_completed("Admission", wall_ms=admit_wait_ms,
-                              queue_ms=admit_wait_ms)
+                              queue_ms=admit_wait_ms, t0_ns=root.t0_ns)
+            gc_pauses = TELEMETRY.gc_pauses
+            if gc_pauses is not None:
+                stats._gc_mark = gc_pauses.mark()
         token = self.queries.begin(ctx, stats)
         stats._registry_token = token
         return stats, token
@@ -366,11 +390,13 @@ class ServerQueryExecutor:
     def _close_query(self, stats: QueryStats, token: Dict[str, Any],
                      error: Optional[BaseException] = None) -> None:
         """Close every open span (an exception edge leaves a closed tree),
-        end the registry entry (the slow log keeps an over-threshold
-        tree), and strip the spans off a query the slow log alone made
-        record (JAX ``_close_query`` :291-306)."""
+        the root with the collector's pauses since its open, end the
+        registry entry (the slow log keeps an over-threshold tree), and
+        strip the spans off a query the slow log alone made record (JAX
+        ``_close_query`` :291-306)."""
         rec = stats_tracer(stats)
         if rec is not None:
+            _note_gc(stats)
             rec.close_all()
         self.queries.end(token, error=error)
         if rec is not None and not getattr(stats, "_trace_requested", False):
@@ -416,7 +442,8 @@ class ServerQueryExecutor:
         try:
             return body(ctx, segments, stats)
         finally:
-            self.residency.end_query(lease, stats)
+            with maybe_span(stats, "Release"):
+                self.residency.end_query(lease, stats)
             stats.lease = None
 
     def _begin_lease(self, ctx: QueryContext,
@@ -524,12 +551,14 @@ class ServerQueryExecutor:
         aggs = [resolve_agg(f) for f in ctx.aggregations]
         if not ctx.is_group_by:
             merged = self._execute_aggregation(ctx, aggs, segments, stats)
-            return reduce_aggregation(ctx, aggs, merged)
+            with maybe_span(stats, "Reduce"):
+                return reduce_aggregation(ctx, aggs, merged)
         merged = self._execute_group_by(ctx, aggs, segments, stats)
-        if merged.trim(self.num_groups_limit):
-            stats.num_groups_limit_reached = True
-        return reduce_group_by(ctx, aggs, merged,
-                               _schema_types(segments[0]))
+        with maybe_span(stats, "Reduce"):
+            if merged.trim(self.num_groups_limit):
+                stats.num_groups_limit_reached = True
+            return reduce_group_by(ctx, aggs, merged,
+                                   _schema_types(segments[0]))
 
     def _instance_pruned(self, ctx: QueryContext,
                          segments: List[ImmutableSegment],
@@ -604,16 +633,20 @@ class ServerQueryExecutor:
         """The segments the filter may match, at least one (the reduce
         needs a result to shape); the pruned segments' docs count in
         ``total_docs``, the time in ``phase_ms["SEGMENT_PRUNING"]``."""
-        t0 = time.perf_counter()
-        kept = prune_segments(ctx, segments, stats)
-        stats.add_phase_ms("SEGMENT_PRUNING",
-                           (time.perf_counter() - t0) * 1e3)
-        if not kept:
-            kept = segments[:1]
-            stats.num_segments_pruned -= 1
-        names = {s.segment_name for s in kept}
-        stats.total_docs += sum(s.num_docs for s in segments
-                                if s.segment_name not in names)
+        with maybe_span(stats, "Prune") as sp:
+            t0 = time.perf_counter()
+            kept = prune_segments(ctx, segments, stats)
+            stats.add_phase_ms("SEGMENT_PRUNING",
+                               (time.perf_counter() - t0) * 1e3)
+            if not kept:
+                kept = segments[:1]
+                stats.num_segments_pruned -= 1
+            names = {s.segment_name for s in kept}
+            stats.total_docs += sum(s.num_docs for s in segments
+                                    if s.segment_name not in names)
+            if sp is not None:
+                sp.attrs.update(kept=len(kept),
+                                pruned=len(segments) - len(kept))
         return kept
 
     def _execute_aggregation(self, ctx: QueryContext, aggs: List[AggDef],

@@ -167,10 +167,6 @@ class QueryStats:
     def add_phase_ms(self, phase: str, ms: float) -> None:
         self.phase_ms[phase] = self.phase_ms.get(phase, 0.0) + ms
 
-    def add_trace(self, operator: str, ms: float, **detail: Any) -> None:
-        self.trace.append({"operator": operator, "ms": round(ms, 3),
-                           **detail})
-
     def launch_counts(self) -> Dict[str, int]:
         """Launch count field -> the launches this query counted."""
         return {name: getattr(self, name) for name, _wire in WIRE_COUNTERS}

@@ -66,7 +66,12 @@ raises in the query.
 
 A traced query's batch launch is one ``ShardedCombine`` span (the
 launcher's queue wait as its ``queueMs`` and the mesh's shape, JAX :376,
-:393) and a sliced lease's slices ``Slice`` spans (JAX :219). The
+:393) and a sliced lease's slices ``Slice`` spans (JAX :219). The port
+names the host work around it too: ``Bind`` before it (the batch, the
+param and launch caches, planning and binding on a miss; ``StageBatch``
+where the batch was built), the dispatcher's ``Launch`` inside it (its
+riders' query-registry ids), and ``Decode`` after it (the outputs'
+tree, the residency's accounting, the decode into a part). The
 launches a request was served by, its own or a coalesced one, come back
 on the request and count in the query's stats.
 
@@ -87,6 +92,7 @@ segment's.
 from __future__ import annotations
 
 import threading
+import time
 
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -248,12 +254,11 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         if self._sliced(stats):
             return self._execute_sliced(ctx, aggs, segments, stats,
                                         grouped=False)
-        got = (self._run_sharded(ctx, segments, stats)
+        got = (self._run_sharded(ctx, segments, stats, decode_scalar_result)
                if self._device_admitted(stats) else None)
         if got is None:
             return super()._execute_aggregation(ctx, aggs, segments, stats)
-        batch, tree, plan = got
-        return decode_scalar_result(plan, batch, tree)
+        return got
 
     def _execute_group_by(self, ctx: QueryContext, aggs: List[AggDef],
                           segments: List[ImmutableSegment],
@@ -263,12 +268,12 @@ class ShardedQueryExecutor(ServerQueryExecutor):
         if self._sliced(stats):
             return self._execute_sliced(ctx, aggs, segments, stats,
                                         grouped=True)
-        got = (self._run_sharded(ctx, segments, stats)
+        got = (self._run_sharded(ctx, segments, stats,
+                                 decode_grouped_result)
                if self._device_admitted(stats) else None)
         if got is None:
             return super()._execute_group_by(ctx, aggs, segments, stats)
-        batch, tree, plan = got
-        return decode_grouped_result(plan, batch, tree)
+        return got
 
     @staticmethod
     def _sliced(stats: QueryStats) -> bool:
@@ -293,17 +298,13 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             record_decision(stats, "sharded_combine", "per_segment_sliced",
                             "sharded_sliced", "slice_pad_over_budget")
             return base(self, ctx, aggs, segments, stats)
+        decode = decode_grouped_result if grouped else decode_scalar_result
         merged = GroupByResult() if grouped else None
         for i, chunk in enumerate(slices):
             with maybe_span(stats, "Slice", index=i, segments=len(chunk)):
-                got = self._run_sharded(ctx, chunk, stats)
-                if got is not None:
-                    batch, tree, plan = got
-                    part = (decode_grouped_result(plan, batch, tree)
-                            if grouped
-                            else decode_scalar_result(plan, batch, tree))
-                else:
-                    part = base(self, ctx, aggs, chunk, stats)
+                got = self._run_sharded(ctx, chunk, stats, decode)
+                part = (got if got is not None
+                        else base(self, ctx, aggs, chunk, stats))
                 if grouped:
                     merged.merge(part, aggs)
                 elif merged is None:
@@ -448,14 +449,45 @@ class ShardedQueryExecutor(ServerQueryExecutor):
 
     # -- the batch path -----------------------------------------------------
     def _run_sharded(self, ctx: QueryContext,
-                     segments: List[ImmutableSegment], stats: QueryStats
-                     ) -> Optional[Tuple[SegmentBatch, Dict, object]]:
-        """-> (batch, decode tree, effective plan) from one launch over the
-        batch, or None when the segments take the per-segment path."""
+                     segments: List[ImmutableSegment], stats: QueryStats,
+                     decode: Callable[[object, SegmentBatch, Dict], Any]):
+        """-> ``decode(effective plan, batch, decode tree)``
+        (``decode_scalar_result`` / ``decode_grouped_result``) of one launch
+        over the batch, or None when the segments take the per-segment
+        path. A traced query records ``Bind``, ``ShardedCombine`` (with the
+        dispatcher's ``Launch``) and ``Decode``."""
         if len(segments) < 2 or index_exec.batch_index_eligible(ctx,
                                                                segments):
             return None
+        with maybe_span(stats, "Bind") as sp:
+            got = self._bind_batch(ctx, segments, stats, sp)
+        if got is None:
+            return None
+        batch, staged, bound, kernel = got
+        result = self._launch_batch(batch, bound, kernel, stats)
+        with maybe_span(stats, "Decode"):
+            tree = self._batch_tree(segments, stats, batch, staged, bound,
+                                    result)
+            return (None if tree is None
+                    else decode(bound.plan, batch, tree))
+
+    def _bind_batch(self, ctx: QueryContext,
+                    segments: List[ImmutableSegment], stats: QueryStats,
+                    sp) -> Optional[Tuple[SegmentBatch, StagedBatch,
+                                          BoundQuery, LaunchKernel]]:
+        """The batch of ``segments``, the query bound to it from the param
+        cache or planned and bound now, and the launch tier's kernel for
+        it; None (the decline recorded) where the batch path refuses. On
+        a traced query ``sp``, the open ``Bind`` span, gets ``cached`` and
+        ``stagedNow``, and a batch built here a ``StageBatch`` child: its
+        construction and this first binding, which stages the columns the
+        launch reads (a batch stages column by column on demand), with the
+        device ``bytes`` it then holds and their ``MBps``. A batch counts as
+        built here where ``batches_staged`` moved during the call (another
+        thread's build in the same interval would count too)."""
         lease = stats.lease
+        if sp is not None:
+            t0_ns, staged_before = time.perf_counter_ns(), self.batches_staged
         try:
             batch, staged = self.batch_for(segments, lease)
             bname = batch.segment_name
@@ -472,6 +504,7 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                 bound = self._param_cache.get(pkey)
                 if bound is not None:
                     self._param_cache.move_to_end(pkey)
+            cached = bound is not None
             plan = plan_segment(ctx, batch) if bound is None else None
         except (PlanError, ValueError) as e:
             self._leave_batch(stats, e)
@@ -486,16 +519,42 @@ class ShardedQueryExecutor(ServerQueryExecutor):
                 self._param_cache[pkey] = bound
                 if len(self._param_cache) > PARAM_CACHE_CAP:
                     self._param_cache.popitem(last=False)
-        kernel = self._launch_kernel(bound.launch_key, bound.make_kernel)
-        # the span covers the launcher's queue, the launch and the copy to
-        # the host; queueMs is the request's measured queue wait (JAX :376)
+        if sp is not None:
+            built = self.batches_staged != staged_before
+            sp.attrs.update(cached=cached, stagedNow=built)
+            if built:
+                ms = (time.perf_counter_ns() - t0_ns) / 1e6
+                nbytes = staged.nbytes()
+                stats_tracer(stats).add_completed(
+                    "StageBatch", wall_ms=ms, t0_ns=t0_ns,
+                    segments=batch.num_segments, bytes=nbytes,
+                    MBps=round(nbytes / 1e3 / ms, 3) if ms > 0 else 0.0)
+        return (batch, staged, bound,
+                self._launch_kernel(bound.launch_key, bound.make_kernel))
+
+    def _launch_batch(self, batch: SegmentBatch, bound: BoundQuery,
+                      kernel: LaunchKernel, stats: QueryStats):
+        """-> the launch's host result, the launch counted in ``stats``. The
+        span covers
+        the launcher's queue, the launch and the copy to the host; queueMs
+        is the request's measured queue wait (JAX :376), and its
+        ``Launch`` child the dispatcher's interval for the group that
+        served the request, naming every query that rode it."""
         rec = stats_tracer(stats)
         sp = rec.span_begin("ShardedCombine") if rec is not None else None
+        token = getattr(stats, "_registry_token", None)
         req = None
         try:
-            req = self.launcher.submit(kernel, bound.params,
-                                       bound.inputs.num_docs)
+            req = self.launcher.submit(
+                kernel, bound.params, bound.inputs.num_docs,
+                rider=token["id"] if token is not None else None)
             result = req.result()
+            if sp is not None:
+                rec.add_completed(
+                    "Launch",
+                    wall_ms=(req.launch_t1_ns - req.launch_t0_ns) / 1e6,
+                    t0_ns=req.launch_t0_ns, batchSize=req.batch_size,
+                    riders=req.riders)
         finally:
             if sp is not None:
                 rec.span_end(
@@ -517,6 +576,17 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             "batchSize": req.batch_size,
             "launchesSaved": req.launches_saved,
             "queueWaitMs": round(req.queue_wait_ms, 3)})
+        return result
+
+    def _batch_tree(self, segments: List[ImmutableSegment],
+                    stats: QueryStats, batch: SegmentBatch,
+                    staged: StagedBatch, bound: BoundQuery,
+                    result) -> Optional[Dict]:
+        """The launch's outputs as the decode tree, with the residency's
+        accounting and the query's counters; None (the decline recorded)
+        where the decode refuses."""
+        lease = stats.lease
+        bname = batch.segment_name
         if bound.pp is None:
             try:
                 tree = kernels.unpack_outputs(result, bound.plan.spec,
@@ -544,7 +614,7 @@ class ShardedQueryExecutor(ServerQueryExecutor):
             rung = kernels.grouped_rung(bound.plan.spec, tree)
             stats.group_by_rung = (rung if stats.group_by_rung
                                    in (None, rung) else "mixed")
-        return batch, tree, bound.plan
+        return tree
 
     @staticmethod
     def _leave_batch(stats: QueryStats, e: Exception) -> None:

@@ -43,7 +43,11 @@ group's queue waits go to the process telemetry's ``launch_queue``
 histogram, and a device's scheduler samples its queue depth and arrival
 EWMA into gauge rings (JAX :386-388, :487-492). Each launch runs with a
 fresh tally bound (``results.count_launches_into``), which every request
-it served carries back (``_LaunchRequest.launched``).
+it served carries back (``_LaunchRequest.launched``), with the group's
+riders (each submit's ``rider``, the query's registry id) and the
+dispatcher's interval on ``perf_counter_ns`` (``launch_t0_ns`` when it
+takes the group, ``launch_t1_ns`` before it completes the futures): a
+traced query's ``Launch`` span.
 """
 
 from __future__ import annotations
@@ -104,14 +108,17 @@ class _LaunchRequest:
     """One query's pending launch and its coalescing outcome (what the
     executor copies into ``QueryStats.launch``)."""
 
-    __slots__ = ("kernel", "params", "num_docs", "future", "t_submit",
-                 "batch_size", "queue_wait_ms", "launches_saved", "deduped",
-                 "launched", "ready")
+    __slots__ = ("kernel", "params", "num_docs", "rider", "future",
+                 "t_submit", "batch_size", "queue_wait_ms", "launches_saved",
+                 "deduped", "launched", "ready", "riders", "launch_t0_ns",
+                 "launch_t1_ns")
 
-    def __init__(self, kernel: LaunchKernel, params, num_docs):
+    def __init__(self, kernel: LaunchKernel, params, num_docs, rider=None):
         self.kernel = kernel
         self.params = params
         self.num_docs = num_docs
+        # the submitting query's registry id, named in the launch's riders
+        self.rider = rider
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
         self.batch_size = 1
@@ -124,6 +131,12 @@ class _LaunchRequest:
         # CUDA events recorded after the launch that served this request:
         # the rider waits on them, not the dispatcher
         self.ready: List[Any] = []
+        # the group that served this request: every request's rider, and
+        # the dispatcher's interval (``perf_counter_ns``) from taking the
+        # group to completing its futures
+        self.riders: List[Any] = []
+        self.launch_t0_ns = 0
+        self.launch_t1_ns = 0
 
     def result(self, timeout: Optional[float] = None):
         out = self.future.result(timeout)
@@ -175,8 +188,11 @@ class LaunchScheduler:
         self._registries: list = []  # guarded-by: _stats_lock
 
     # -- submission ---------------------------------------------------------------
-    def submit(self, kernel: LaunchKernel, params, num_docs) -> _LaunchRequest:
-        req = _LaunchRequest(kernel, params, num_docs)
+    def submit(self, kernel: LaunchKernel, params, num_docs,
+               rider=None) -> _LaunchRequest:
+        """Queue one launch; ``rider`` names the submitting query in the
+        riders of the launch that serves it."""
+        req = _LaunchRequest(kernel, params, num_docs, rider)
         with self._cond:
             if self._closed:
                 raise RuntimeError(f"launch scheduler {self._name} is closed")
@@ -282,6 +298,7 @@ class LaunchScheduler:
                         raise
 
     def _launch_group(self, reqs: List[_LaunchRequest]) -> None:
+        t0_ns = time.perf_counter_ns()
         kernel = reqs[0].kernel
         num_docs = reqs[0].num_docs
         now = time.perf_counter()
@@ -333,12 +350,16 @@ class LaunchScheduler:
         # own launch in them
         self._note(reqs, uniq, launches,
                    n_failed=sum(e is not None for e in errs))
+        riders = [r.rider for r in reqs]
+        t1_ns = time.perf_counter_ns()
         for r, slot in zip(reqs, req_slot):
             r.batch_size = n
             r.launches_saved = n - launches
             r.deduped = req_slot.count(slot) > 1
             r.launched = tallies[slot]
             r.ready = ready
+            r.riders = riders
+            r.launch_t0_ns, r.launch_t1_ns = t0_ns, t1_ns
             self._complete(r, outs[slot], errs[slot])
 
     def _complete(self, r: _LaunchRequest, out=None,

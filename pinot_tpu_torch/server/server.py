@@ -473,18 +473,18 @@ class ServerInstance:
         if not self._queries_enabled:
             return DataTable.for_exception(
                 f"server {self.instance_id} is shut down")
-        submit_t = time.perf_counter()
+        submit_ns = time.perf_counter_ns()
         # the shape key feeds the SEWF policy's per-shape latency EWMAs:
         # same table and SQL text, same expected work
         future = self.scheduler.submit(
-            lambda: self._execute(ctx, table, segment_names, submit_t),
+            lambda: self._execute(ctx, table, segment_names, submit_ns),
             table=table, shape=(table, ctx.sql))
         return future.result()
 
     def _execute(self, ctx: QueryContext, table: str,
                  segment_names: Optional[List[str]],
-                 submit_t: float) -> DataTable:
-        wait_ms = (time.perf_counter() - submit_t) * 1e3
+                 submit_ns: int) -> DataTable:
+        wait_ms = (time.perf_counter_ns() - submit_ns) / 1e6
         self.metrics.timer(ServerQueryPhase.SCHEDULER_WAIT).update_ms(wait_ms)
         self.metrics.meter(ServerMeter.QUERIES).mark()
         tdm = self.data_manager.get(table)
@@ -521,8 +521,8 @@ class ServerInstance:
                 # the scheduler wait came before the executor opened the
                 # tree: the root's first child, all queue
                 attach_root_child(dt.stats, "SchedulerQueue",
-                                  wall_ms=wait_ms, queue_ms=wait_ms,
-                                  front=True)
+                                  wall_ms=wait_ms, t0_ns=submit_ns,
+                                  queue_ms=wait_ms, front=True)
             self.metrics.timer(
                 ServerQueryPhase.QUERY_EXECUTION).update_ms(exec_ms)
             self.metrics.meter(ServerMeter.DOCS_SCANNED).mark(

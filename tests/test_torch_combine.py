@@ -83,6 +83,11 @@ def _leaf_equal(got, want, exact, what):
                                    err_msg=what)
 
 
+def _undecoded(plan, batch, tree):
+    """The port's batch launch as JAX's ``_run_sharded`` returns it."""
+    return batch, tree, plan
+
+
 @pytest.mark.parametrize("qid", sorted(j_ssb.QUERIES))
 def test_batch_scan_matches_jax_sharded_kernel(ssb, executors, qid):
     """Outputs of one batch scan against build_sharded_pallas_kernel's."""
@@ -93,7 +98,7 @@ def test_batch_scan_matches_jax_sharded_kernel(ssb, executors, qid):
         j_compile(sql), jsegs, jstats)
     tstats = QueryStats()
     tbatch, tout, tplan = executors["port"]._run_sharded(
-        t_compile(sql), tsegs, tstats)
+        t_compile(sql), tsegs, tstats, _undecoded)
     assert tplan.spec == jplan.spec
     assert tplan.group_bases == jplan.group_bases
     S = tbatch.num_segments

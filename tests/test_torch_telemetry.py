@@ -5,6 +5,7 @@ tests/test_telemetry.py).
 The same seeded observations go into both packages' histograms, windows,
 SLO trackers and telemetry centers, on one fake clock each: snapshots,
 quantiles, bucket rows, burn rates and the Prometheus text must be equal.
+The process center's collector pauses (the port's own) reach /metrics.
 The flight recorder's burst trigger, debounce, p99-spike trigger and
 bundles run on the fake clock too (bundles under ``tmp_path``), and the
 servers' and the broker's debug views return JSON after a cluster query.
@@ -12,6 +13,7 @@ Every test leaves the process-wide ``TELEMETRY`` reset with its sampler
 stopped.
 """
 
+import gc
 import json
 import os
 
@@ -174,6 +176,36 @@ def test_prometheus_text_equal_to_jax():
     assert text == jreg.export_prometheus()
     assert "# TYPE pinot_broker_query_phase_latency_ms histogram" in text
     assert "# TYPE pinot_broker_slo_burn_rate gauge" in text
+
+
+def test_gc_pauses_on_metrics_and_reset_keeps_the_hook():
+    """The process center counts the collector's pauses by generation
+    through one hook, exports them as the ``gc_pause_ms`` family on a
+    bound registry's ``/metrics``, and its reset clears the counts and
+    keeps the hook; a center of its own exports no such family."""
+    pauses = TELEMETRY.gc_pauses
+    assert pauses is ttel.GC_PAUSES
+    assert gc.callbacks.count(pauses._hook) == 1
+    pauses.install()
+    assert gc.callbacks.count(pauses._hook) == 1
+    gc.disable()
+    try:
+        TELEMETRY.reset()
+        assert pauses.mark() == (0, 0, 0)
+        gc.collect()
+        gc.collect()
+        ns, count, gen2 = pauses.mark()
+        assert ns > 0 and count == gen2 == 2
+        assert pauses.histos[2].count == 2
+    finally:
+        gc.enable()
+    reg = TRegistry(role="server")
+    reg.bind_telemetry(TELEMETRY)
+    text = reg.export_prometheus()
+    assert "# TYPE pinot_server_gc_pause_ms histogram" in text
+    assert 'pinot_server_gc_pause_ms_count{generation="2"} 2' in text
+    assert 'pinot_server_gc_pause_ms_bucket{generation="0",le="+Inf"}' in text
+    assert "gc_pause_ms" not in ttel.Telemetry().export_prometheus("p_")
 
 
 def test_snapshot_and_rings_on_fake_clock():

@@ -5,14 +5,21 @@ instrumented executors, servers and broker) against the JAX package's
 The same segments (built by the JAX package and carried across) and the
 same SQL go through both packages: span trees are compared by name and
 nesting (never by ms) for one segment, a segment group-by, the sharded
-combine and a cluster query. Also: the recorder's contract, the untraced
-path, sampling, the slow log and the registry ring, an exception on the
+combine and a cluster query, the spans only the port records
+(``PORT_ONLY_SPANS``) left out of the port's server trees first. Also:
+the port's own spans (their order on the batch path, one clock, the
+staging span, the launch's riders, the collector's pauses; the on-cost
+tool's pairing), the
+recorder's contract, the untraced path, sampling, the slow log and the
+registry ring, an exception on the
 device path (it still raises, its tree closed), traced DataTable bytes
 between the packages, the ledger's reason histogram beside JAX's, the
 reason registry's conformance scan over the port's modules, and
 chip_smoke's phase 18 at a small size.
 """
 
+import gc
+import json
 import os
 import threading
 import time
@@ -103,6 +110,19 @@ def _walk(d):
         yield from _walk(c)
 
 
+def _jax_spans(d, server=False):
+    """The port's tree as the JAX package records it: the spans only the
+    port records (``PORT_ONLY_SPANS``) dropped below a ServerQuery, where
+    they live (the broker's own Reduce is JAX's too)."""
+    server = server or d["name"] == "ServerQuery"
+    kids = [_jax_spans(c, server) for c in d.get("children", [])
+            if not (server and c["name"] in ttr.PORT_ONLY_SPANS)]
+    out = {k: v for k, v in d.items() if k != "children"}
+    if kids:
+        out["children"] = kids
+    return out
+
+
 def _names(children):
     return [c["name"] for c in children]
 
@@ -149,7 +169,6 @@ def test_recorder_contract_equal_to_jax():
 def test_flatten_and_broker_root_equal_to_jax():
     tree = [{"name": "ServerQuery", "ms": 5.0, "table": "t", "children": [
         {"name": "Kernel", "ms": 4.0, "kernel": "fused_scan"}]}]
-    assert ttr.flatten_spans(tree) == jtr.flatten_spans(tree)
     args = ({"COMPILATION": 1.0, "ROUTING": 0.5, "SCATTER_GATHER": 12.0,
              "REDUCE": 0.5}, tree, 14.0)
     folds = [{"name": "Fold", "rows": 2, "ms": 0.2, "instance": "s0"}]
@@ -177,8 +196,8 @@ def test_per_segment_tree_equal_to_jax(segs, n_segs, sql):
     _, ts = ServerQueryExecutor(device="cpu").execute(t_compile(sql),
                                                       tsegs[:n_segs])
     assert len(ts.spans) == 1
-    assert _shape(ts.spans[0]) == _shape(js.spans[0])
-    root = ts.spans[0]
+    root = _jax_spans(ts.spans[0])
+    assert _shape(root) == _shape(js.spans[0])
     assert root["name"] == "ServerQuery" and root["table"] == "sales"
     assert _names(root["children"])[:2] == ["Admission", "Lease"]
     per_seg = root["children"][2:]
@@ -189,7 +208,8 @@ def test_per_segment_tree_equal_to_jax(segs, n_segs, sql):
     assert [k["kernel"] for k in kernels] == ["fused_scan"] * n_segs
     # the plain version on the CPU counts no launch
     assert all(k["served"] and k["launches"] == 0 for k in kernels)
-    assert sum(c["ms"] for c in root["children"]) <= root["ms"] * 1.05
+    full = ts.spans[0]
+    assert sum(c["ms"] for c in full["children"]) <= full["ms"] * 1.05
     assert {"ServerQuery", "Kernel"} <= {e["operator"] for e in ts.trace}
 
 
@@ -204,7 +224,7 @@ def test_per_segment_tree_at_eight_worker_threads(segs):
     ts = ServerQueryExecutor(device="cpu", config=_cfg(
         "port", WORKER_THREADS_KEY="8")).execute(t_compile(TRACED_SQL),
                                                  tsegs)[1]
-    assert _shape(ts.spans[0]) == _shape(js.spans[0])
+    assert _shape(_jax_spans(ts.spans[0])) == _shape(js.spans[0])
 
 
 def test_general_rung_tree_equal_to_jax(segs):
@@ -215,7 +235,7 @@ def test_general_rung_tree_equal_to_jax(segs):
                                              jsegs)[1]
     ex = ServerQueryExecutor(device="cpu", use_fused_scan=False)
     ts = ex.execute(t_compile(TRACED_SQL), tsegs)[1]
-    assert _shape(ts.spans[0]) == _shape(js.spans[0])
+    assert _shape(_jax_spans(ts.spans[0])) == _shape(js.spans[0])
     kernels = [k for k in _walk(ts.spans[0]) if k["name"] == "Kernel"]
     assert [(k["kernel"], k["launches"]) for k in kernels] == \
         [("general", 1)] * NUM_SEGMENTS
@@ -229,7 +249,7 @@ def test_sharded_combine_tree_equal_to_jax(segs):
     js = JSharded(use_pallas=True).execute(j_compile(TRACED_SQL), jsegs)[1]
     ts = ShardedQueryExecutor(device="cpu").execute(t_compile(TRACED_SQL),
                                                     tsegs)[1]
-    assert _shape(ts.spans[0]) == _shape(js.spans[0])
+    assert _shape(_jax_spans(ts.spans[0])) == _shape(js.spans[0])
     sc = [c for c in ts.spans[0]["children"]
           if c["name"] == "ShardedCombine"][0]
     assert "queueMs" in sc and "workMs" in sc
@@ -278,7 +298,7 @@ def test_cluster_trace_equal_to_jax(segs, tmp_path):
         tr = tc.query(TRACED_SQL).to_dict()
         assert not tr["exceptions"]
         jroot, troot = jr["traceInfo"]["spans"][0], tr["traceInfo"]["spans"][0]
-        assert _shape(troot) == _shape(jroot)
+        assert _shape(_jax_spans(troot)) == _shape(jroot)
         assert _names(troot["children"]) == \
             ["Compile", "Routing", "ScatterGather", "Reduce"]
         sg = troot["children"][2]
@@ -307,6 +327,193 @@ def test_off_path_allocates_no_recorder(segs):
         assert stats.spans == [] and stats.trace == []
         dt = ex.execute_instance(t_compile(GROUP_SQL), tsegs)
         assert "spans" not in dt.stats.to_dict()
+
+
+def test_untraced_queries_open_no_span(segs, monkeypatch):
+    """Neither executor's path, the batch path's new sites included,
+    builds a span for an untraced query; a traced one does."""
+    _, tsegs = segs
+    made = []
+
+    class Counted(ttr.Span):
+        __slots__ = ()
+
+        def __init__(self, *a, **k):
+            made.append(a[0])
+            super().__init__(*a, **k)
+
+    monkeypatch.setattr(ttr, "Span", Counted)
+    for ex in (ServerQueryExecutor(device="cpu"),
+               ShardedQueryExecutor(device="cpu")):
+        for sql in (GROUP_SQL, AGG_SQL):
+            ex.execute(t_compile(sql), tsegs)
+        ex.execute_instance(t_compile(GROUP_SQL), tsegs)
+    assert made == []
+    ShardedQueryExecutor(device="cpu").execute(t_compile(TRACED_SQL), tsegs)
+    assert "Bind" in made and "Launch" in made
+
+
+# -- the port's own spans: the batch path's host work on one clock ---------------
+
+BATCH_PATH = ["Admission", "Prune", "Lease", "Bind", "ShardedCombine",
+              "Decode", "Reduce", "Release"]
+
+
+def _inside(child, parent, slack_ns=5_000):
+    """Does ``child``'s interval lie inside ``parent``'s on the clock,
+    within the rounding of ``ms`` to the microsecond?"""
+    c0, p0 = child["t0Ns"], parent["t0Ns"]
+    c1 = c0 + child["ms"] * 1e6
+    p1 = p0 + parent["ms"] * 1e6
+    return c0 >= p0 - slack_ns and c1 <= p1 + slack_ns
+
+
+@pytest.mark.parametrize("sql", [TRACED_SQL, AGG_SQL + " OPTION(trace=true)"])
+def test_batch_path_children_in_order_on_one_clock(segs, sql):
+    """A traced query on the batch path: the root's children name every
+    host step in order, the launch's under ShardedCombine; every span
+    starts on ``perf_counter_ns`` and lies inside its parent, the
+    siblings one after another."""
+    _, tsegs = segs
+    t0 = time.perf_counter_ns()
+    ts = ShardedQueryExecutor(device="cpu").execute(t_compile(sql),
+                                                    tsegs)[1]
+    t1 = time.perf_counter_ns()
+    root = ts.spans[0]
+    assert _names(root["children"]) == BATCH_PATH
+    sc = root["children"][BATCH_PATH.index("ShardedCombine")]
+    assert _names(sc["children"]) == ["Launch"]
+    prune = root["children"][1]
+    assert (prune["kept"], prune["pruned"]) == (NUM_SEGMENTS, 0)
+    for d in _walk(root):
+        assert isinstance(d["t0Ns"], int) and d["ms"] >= 0, d["name"]
+        for c in d.get("children", []):
+            assert _inside(c, d), (c["name"], d["name"])
+        kids = d.get("children", [])
+        for a, b in zip(kids, kids[1:]):
+            assert b["t0Ns"] >= a["t0Ns"] + a["ms"] * 1e6 - 5_000, \
+                (a["name"], b["name"])
+    assert t0 <= root["t0Ns"] and root["t0Ns"] + root["ms"] * 1e6 <= t1
+
+
+def test_stage_batch_on_the_first_query_over_a_batch(segs):
+    """The first query over a kept-segment set builds its batch: Bind
+    holds a StageBatch with the device bytes the batch then holds; the
+    next binds nothing (a param-cache hit) and stages nothing."""
+    _, tsegs = segs
+    ex = ShardedQueryExecutor(device="cpu")
+    binds = []
+    for _ in range(2):
+        root = ex.execute(t_compile(TRACED_SQL), tsegs)[1].spans[0]
+        binds.append(root["children"][BATCH_PATH.index("Bind")])
+    first, second = binds
+    assert (first["cached"], first["stagedNow"]) == (False, True)
+    (stage,) = first["children"]
+    assert stage["name"] == "StageBatch" and _inside(stage, first)
+    assert stage["segments"] == NUM_SEGMENTS and stage["bytes"] > 0
+    assert stage["MBps"] > 0
+    assert (second["cached"], second["stagedNow"]) == (True, False)
+    assert "children" not in second
+
+
+def test_launch_names_every_rider_of_a_coalesced_launch(segs):
+    """Two threads submit one layout while the dispatcher is held: one
+    launch serves both, and each query's Launch span names both queries'
+    registry ids, on the dispatcher's interval inside ShardedCombine."""
+    from pinot_tpu_torch.parallel.launcher import LaunchKernel
+
+    _, tsegs = segs
+    ex = ShardedQueryExecutor(device="cpu")
+    sqls = [f"SELECT region, sum(qty), count(*) FROM sales WHERE qty > {v} "
+            f"GROUP BY region ORDER BY region OPTION(trace=true)"
+            for v in (10, 20)]
+    ctxs = [t_compile(sql) for sql in sqls]
+    for ctx in ctxs:            # bind both: the held round only launches
+        ex.execute(ctx, tsegs)
+    gate, entered = threading.Event(), threading.Event()
+
+    def hold(params, num_docs):
+        entered.set()
+        gate.wait(20)
+        return params
+
+    blocker = ex.launcher.submit(LaunchKernel(("hold",), hold, max_batch=1),
+                                 0, 0)
+    assert entered.wait(20)
+    outs = [None, None]
+
+    def run(i):
+        outs[i] = ex.execute(ctxs[i], tsegs)[1]
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 20
+    while len(ex.launcher._queue) < 2 and time.monotonic() < deadline:
+        time.sleep(0.002)
+    gate.set()
+    blocker.result(30)
+    for t in threads:
+        t.join(30)
+    assert not any(t.is_alive() for t in threads)
+    ids = {st._registry_token["id"] for st in outs}
+    for st in outs:
+        sc = [c for c in st.spans[0]["children"]
+              if c["name"] == "ShardedCombine"][0]
+        (launch,) = sc["children"]
+        assert launch["name"] == "Launch" and launch["batchSize"] == 2
+        assert set(launch["riders"]) == ids and len(ids) == 2
+        assert _inside(launch, sc)
+
+
+def test_forced_collection_lands_on_the_root(segs, monkeypatch):
+    """A full collection inside a traced query: its root carries gcMs,
+    gcCount and gcGen2; an untraced query's stats carry nothing."""
+    _, tsegs = segs
+    real = executor_mod.prune_segments
+
+    def collecting(*a, **k):
+        gc.collect()
+        return real(*a, **k)
+
+    monkeypatch.setattr(executor_mod, "prune_segments", collecting)
+    ex = ShardedQueryExecutor(device="cpu")
+    root = ex.execute(t_compile(TRACED_SQL), tsegs)[1].spans[0]
+    assert root["gcMs"] > 0 and root["gcCount"] >= 1
+    assert root["gcGen2"] >= 1
+    assert ex.execute(t_compile(GROUP_SQL), tsegs)[1].spans == []
+
+
+def test_trace_cost_runs_each_pair_in_turns():
+    """``trace_cost.measure`` warms every query, then runs each flight's
+    untraced and traced query back to back, the order swapped each round
+    and the flight's queries taken in turn; its sums add its flights."""
+    from pinot_tpu_torch.tools import trace_cost
+
+    seen = []
+    pairs = {"A": [("a0", "a0t"), ("a1", "a1t")], "B": [("b", "bt")]}
+    out = trace_cost.measure(seen.append, pairs, reps=3)
+    assert seen[:6] == ["a0", "a0t", "a1", "a1t", "b", "bt"]
+    assert seen[6:] == ["a0", "a0t", "b", "bt", "a1t", "a1", "bt", "b",
+                        "a0", "a0t", "b", "bt"]
+    assert set(out) == {"untraced", "traced", "diff", "sums"}
+    for key in ("untraced", "traced", "diff"):
+        assert set(out[key]) == {"A", "B"}
+        assert out["sums"][key] == pytest.approx(sum(out[key].values()))
+
+
+def test_trace_cost_on_a_small_table(tmp_path):
+    """The tool end to end on the CPU at a small scale: every flight
+    timed both ways, through the batch path."""
+    from pinot_tpu_torch.tools import trace_cost
+
+    out = tmp_path / "cost.json"
+    assert trace_cost.main(["--out", str(out), "--sf", "0.005", "--reps",
+                            "2", "--device", "cpu"]) == 0
+    got = json.loads(out.read_text())
+    assert got["card"] == "cpu" and len(got["diff"]) == 13
+    assert all(v > 0 for v in got["untraced"].values())
+    assert all(v > 0 for v in got["traced"].values())
 
 
 def test_sample_rate_traces_without_the_option(segs):
@@ -381,7 +588,8 @@ def test_registry_ring_and_request_id(segs):
 
 def test_device_failure_raises_with_its_tree_closed(segs, monkeypatch):
     """Tracing catches no failure of a device path: the query raises, the
-    registry's entry carries the error, the slow log a closed tree."""
+    registry's entry carries the error, the slow log a closed tree, whose
+    lease was still released."""
     _, tsegs = segs
 
     def boom(*a, **k):
@@ -398,7 +606,7 @@ def test_device_failure_raises_with_its_tree_closed(segs, monkeypatch):
     root = snap["slow"][-1]["spans"][0]
     assert root["name"] == "ServerQuery" and root["ms"] >= 0
     names = [d["name"] for d in _walk(root)]
-    assert names[-2:] == ["Stage", "Kernel"]
+    assert names[-3:] == ["Stage", "Kernel", "Release"]
 
 
 # -- the wire -----------------------------------------------------------------------
